@@ -1,0 +1,28 @@
+"""Config registry of the port: the architectures it runs (``get_config``)
+and their CPU smoke reductions, as in src/repro/configs/base.py."""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.models.config import ModelConfig
+
+REGISTRY: Dict[str, ModelConfig] = {}
+SMOKE: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig, smoke: ModelConfig) -> ModelConfig:
+    REGISTRY[cfg.name] = cfg
+    SMOKE[cfg.name] = smoke
+    return cfg
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    _ensure_loaded()
+    table = SMOKE if smoke else REGISTRY
+    if name not in table:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(table)}")
+    return table[name]
+
+
+def _ensure_loaded() -> None:
+    from repro_torch.configs import llada_8b, qwen2_0_5b  # noqa: F401

@@ -1,0 +1,122 @@
+"""Microscaling (MX) data-format emulation (OCP MX spec), ported from
+src/repro/core/mx.py.
+
+Blocks of ``block`` contiguous elements along the last axis share one
+power-of-two scale (E8M0): the smallest 2^e with amax / 2^e <= grid_max,
+e = ceil(log2(amax / grid_max)).  Elements are fake-quantized
+(quantize -> dequantize) so results are bit-faithful to the format.  The
+CUDA fused head applies the same exponent rule with the device's log2f, the
+function torch.log2 calls on the card, so kernel and plain version agree.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+MX_BLOCK = 32  # OCP default block size
+
+
+@dataclasses.dataclass(frozen=True)
+class MXFormat:
+    name: str
+    element_bits: int
+    emax: int           # exponent of the largest element magnitude
+    is_int: bool
+    frac_bits: int = 0  # INT formats: fraction bits (OCP fixed point)
+    grid_max: float = 0.0   # largest representable element magnitude
+
+
+MXINT8 = MXFormat("mxint8", 8, 1, True, frac_bits=6, grid_max=127 / 64)
+MXINT4 = MXFormat("mxint4", 4, 1, True, frac_bits=2, grid_max=7 / 4)
+MXFP8 = MXFormat("mxfp8_e4m3", 8, 8, False, grid_max=448.0)
+MXFP6 = MXFormat("mxfp6_e3m2", 6, 4, False, grid_max=28.0)
+MXFP4 = MXFormat("mxfp4_e2m1", 4, 2, False, grid_max=6.0)
+BF16 = MXFormat("bf16", 16, 127, False)   # bf16 rounding pseudo-format
+NONE = MXFormat("none", 32, 127, False)   # exact passthrough (FP64 analogue)
+
+FORMATS = {f.name: f for f in (MXINT8, MXINT4, MXFP8, MXFP6, MXFP4, BF16,
+                               NONE)}
+FORMATS.update({
+    "int8": MXINT8, "int4": MXINT4, "fp8": MXFP8, "fp6": MXFP6,
+    "fp4": MXFP4, "bf16": BF16, "fp64": NONE, "fp32": NONE,
+})
+
+_E2M1_GRID = np.array([0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0], np.float32)
+_E3M2_GRID = np.array(
+    sorted({0.0} | {m * 2.0 ** e for e in range(-2, 5)
+                    for m in (1.0, 1.25, 1.5, 1.75)}
+           | {0.0625 * k for k in range(4)}),
+    np.float32)
+
+
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def _quant_grid(x: torch.Tensor, grid: np.ndarray) -> torch.Tensor:
+    """Round |x| to nearest grid point (half rounds up), keep sign."""
+    g = torch.as_tensor(grid, dtype=x.dtype, device=x.device)
+    mids = (g[1:] + g[:-1]) / 2.0
+    idx = torch.sum(torch.abs(x)[..., None] >= mids, dim=-1)
+    return torch.sign(x) * g[idx]
+
+
+def _quant_element(x: torch.Tensor, fmt: MXFormat) -> torch.Tensor:
+    """Quantize scaled elements x (already divided by the shared scale)."""
+    if fmt.is_int:
+        lo = -(2 ** (fmt.element_bits - 1))
+        hi = 2 ** (fmt.element_bits - 1) - 1
+        q = torch.clamp(_round_half_away(x * (2 ** fmt.frac_bits)), lo, hi)
+        return q * (2.0 ** -fmt.frac_bits)
+    if fmt is MXFP8:
+        # OCP MX requires a saturating conversion: clip explicitly, since
+        # casts disagree on overflow (torch saturates, ml_dtypes gives NaN)
+        return torch.clamp(x, -448.0, 448.0).to(
+            torch.float8_e4m3fn).to(x.dtype)
+    if fmt is MXFP6:
+        return _quant_grid(x, _E3M2_GRID)
+    if fmt is MXFP4:
+        return _quant_grid(x, _E2M1_GRID)
+    raise ValueError(f"unknown element format {fmt}")
+
+
+def _shared_scale(amax: torch.Tensor, fmt: MXFormat) -> torch.Tensor:
+    """E8M0 power-of-two block scale: the smallest 2^e with
+    amax / 2^e <= grid_max."""
+    one = torch.ones_like(amax)
+    safe = torch.where(amax > 0, amax, one)
+    e = torch.clamp(torch.ceil(torch.log2(safe / fmt.grid_max)),
+                    -127.0, 127.0)
+    return torch.where(amax > 0, torch.exp2(e), one)
+
+
+def _fake_quant_impl(x: torch.Tensor, fmt: MXFormat, block: int
+                     ) -> torch.Tensor:
+    n = x.shape[-1]
+    xf = x.to(torch.float32)
+    pad = (-n) % block
+    if pad:
+        xf = F.pad(xf, (0, pad))
+    xb = xf.reshape(*xf.shape[:-1], -1, block)
+    amax = torch.amax(torch.abs(xb), dim=-1, keepdim=True)
+    scale = _shared_scale(amax, fmt)
+    q = _quant_element(xb / scale, fmt) * scale
+    return q.reshape(*x.shape[:-1], -1)[..., :n].to(x.dtype)
+
+
+def mx_fake_quant(x: torch.Tensor, fmt: Union[MXFormat, str],
+                  block: int = MX_BLOCK, axis: int = -1) -> torch.Tensor:
+    """Quantize-dequantize ``x`` in MX format along ``axis``."""
+    fmt = FORMATS[fmt] if isinstance(fmt, str) else fmt
+    if fmt is NONE:
+        return x
+    if fmt is BF16:
+        return x.to(torch.bfloat16).to(x.dtype)
+    if axis not in (-1, x.ndim - 1):
+        out = _fake_quant_impl(torch.movedim(x, axis, -1), fmt, block)
+        return torch.movedim(out, -1, axis)
+    return _fake_quant_impl(x, fmt, block)

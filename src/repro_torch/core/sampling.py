@@ -1,0 +1,156 @@
+"""Diffusion sampling stage (paper §3.2, Alg. 2), ported from
+src/repro/core/sampling.py (the main-path subset).
+
+Per masked position, over the vocabulary logit vector z:
+Stable-Max m = max z, i* = argmax z, conf = 1 / sum_j exp(z_j - m), then a
+top-k over the block's positions and the masked commit.  The vocab-wide
+logits are never materialized on the card: ``fused_sampling_step_full``
+streams hidden states through the fused LM-head kernel
+(kernels/fused_head_sampling.py), and the top-k runs in
+kernels/topk_mask.py.  Each kernel module holds the plain PyTorch version
+the CPU runs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import mx
+
+NEG_INF = -1e30
+MASK32 = 0xFFFFFFFF
+SUPPORTED_FMTS = ("none", "bf16", "mxfp8_e4m3")
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    fmt: str = "mxfp8_e4m3"     # sampling precision: bf16 | mxfp8_e4m3 | none
+    temperature: float = 0.0     # 0 => greedy (LLaDA reference)
+    strategy: str = "stablemax"  # "stablemax" only in the port
+    suppress_mask_token: bool = True  # never sample the mask id itself
+
+
+def check_supported(cfg: SamplingConfig) -> None:
+    """Raise for the sampling options this slice of the port lacks."""
+    if cfg.strategy != "stablemax":
+        raise NotImplementedError(
+            f"strategy={cfg.strategy!r} is not ported yet (ROADMAP.md, "
+            "Queue 1); the port samples with strategy='stablemax'")
+    if cfg.fmt not in SUPPORTED_FMTS:
+        raise NotImplementedError(
+            f"sampling fmt {cfg.fmt!r} is not ported yet (ROADMAP.md, "
+            f"Queue 1); the port supports {SUPPORTED_FMTS}")
+
+
+# ---------------------------------------------------------------------------
+# LM head and the counter-based Gumbel stream
+# ---------------------------------------------------------------------------
+
+def head_logits(hidden: torch.Tensor, w_head: torch.Tensor, *,
+                logit_scale: float = 1.0) -> torch.Tensor:
+    """hidden (..., d) @ w_head (d, V) -> logits (..., V) in hidden.dtype:
+    f32 accumulation, one rounding to the activation dtype, then
+    x logit_scale in that dtype (the scale rounds to it first, as a weakly
+    typed Python float does in JAX)."""
+    dt = hidden.dtype
+    z = torch.matmul(hidden, w_head.to(dt))
+    return z * torch.tensor(logit_scale, dtype=dt, device=z.device)
+
+
+def _chunk_grid(V: int, chunk_v: int) -> Tuple[int, int]:
+    """(chunk, padded V): chunks are rounded down to multiples of the MX
+    block (min one block) so per-chunk fake-quant sees exactly the 32-wide
+    blocks full-row fake-quant sees."""
+    chunk_v = max(mx.MX_BLOCK, chunk_v - chunk_v % mx.MX_BLOCK)
+    ceil32 = -(-V // mx.MX_BLOCK) * mx.MX_BLOCK
+    chunk = min(chunk_v, ceil32)
+    return chunk, -(-V // chunk) * chunk
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32): split c in 16-bit halves
+    so no int64 product overflows."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & MASK32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """splitmix-style uint32 finalizer on int64 tensors holding uint32
+    values (the JAX reference's uint32 wraparound, exactly)."""
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def counter_uniform(seed: int, rows: torch.Tensor, cols: torch.Tensor
+                    ) -> torch.Tensor:
+    """The uniform u in (0, 1] behind ``counter_gumbel``: a hash of
+    (seed, row, col), f32."""
+    rows = rows.to(torch.int64) & MASK32
+    cols = cols.to(torch.int64) & MASK32
+    h = _mix32(_mul32(rows, 0x9E3779B9) ^ (int(seed) & MASK32))
+    h = _mix32(h ^ _mul32(cols, 0x85EBCA6B))
+    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def counter_gumbel(seed: int, rows: torch.Tensor, cols: torch.Tensor
+                   ) -> torch.Tensor:
+    """Deterministic counter-based Gumbel(0,1) noise g(seed, row, col), the
+    stream the fused-head kernel regenerates tile by tile."""
+    u = counter_uniform(seed, rows, cols)
+    return -torch.log(-torch.log(u))
+
+
+# ---------------------------------------------------------------------------
+# Top-k transfer mask + commit
+# ---------------------------------------------------------------------------
+
+def topk_transfer_mask(conf: torch.Tensor, mask_idx: torch.Tensor,
+                       k: torch.Tensor) -> torch.Tensor:
+    """conf (B, L) float; mask_idx (B, L) bool (True = still masked);
+    k (B,) int -> transfer mask (B, L) bool with exactly min(k, #masked)
+    True entries per row, at the highest-confidence masked positions
+    (ties toward the lower index)."""
+    from repro_torch.kernels import topk_mask   # lazy: kernels import core
+    return topk_mask.topk_mask(conf.to(torch.float32), mask_idx, k)
+
+
+def commit_tokens(x: torch.Tensor, x0: torch.Tensor, transfer: torch.Tensor
+                  ) -> torch.Tensor:
+    """Phase 4 integer masked update: commit sampled tokens where selected."""
+    return torch.where(transfer, x0, x)
+
+
+def _select_and_commit(conf, x0, x, m_idx, k):
+    """Transfer selection, top-k mask, masked commit."""
+    x0 = torch.where(m_idx, x0, x)                 # keep committed tokens
+    transfer = topk_transfer_mask(conf, m_idx, k)
+    return commit_tokens(x, x0, transfer), transfer, conf
+
+
+def fused_sampling_step_full(hidden: torch.Tensor, w_head: torch.Tensor,
+                             x: torch.Tensor, mask_id: int, k: torch.Tensor,
+                             cfg: SamplingConfig, seed: Optional[int] = None,
+                             *, logit_scale: float = 1.0
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """One sampling stage fed by active-block hidden states: hidden
+    (B, L, d) and w_head (d, V) stream through the fused head + Stable-Max
+    (the CUDA kernel on the card), then top-k and commit.  Returns
+    (new tokens (B, L), transfer (B, L), conf (B, L)).  ``seed`` (uint32)
+    feeds the counter-Gumbel stream when cfg.temperature > 0; without one
+    the step is greedy, as the JAX reference is without an rng."""
+    from repro_torch.kernels import fused_head_sampling as fhs   # lazy
+    check_supported(cfg)
+    B, L, d = hidden.shape
+    m_idx = x == mask_id
+    sup = mask_id if cfg.suppress_mask_token else None
+    temp = cfg.temperature if seed is not None else 0.0
+    conf, x0 = fhs.fused_head_sampling(
+        hidden.reshape(B * L, d), w_head, fmt=cfg.fmt,
+        logit_scale=logit_scale, suppress_id=sup, temperature=temp,
+        seed=0 if seed is None else seed)
+    return _select_and_commit(conf.reshape(B, L), x0.reshape(B, L), x,
+                              m_idx, k)

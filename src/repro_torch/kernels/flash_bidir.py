@@ -1,0 +1,134 @@
+"""Bidirectional GQA attention: CUDA kernel and plain version.
+
+Port of the Pallas kernel src/repro/kernels/flash_bidir.py, the twin of the
+model's layers.attention.  q (B, Sq, Hq, D) attends, without a causal mask,
+to k/v (B, Skv, Hkv, D) with KV head = q_head // (Hq / Hkv).  Optional BAOS
+fusion as in the Pallas kernel (q * f_k * D^-1/2 on the way in,
+out * f_v + c_v at the end), an optional |q_pos - k_pos| < window mask with
+positions the row indices, and a per-row ``kv_valid`` (B, Skv) mask.
+Masked scores are -1e30, so a row with no valid key averages every key, as
+the JAX reference does; the output divides by max(l, 1e-30).
+
+``flash_bidir`` launches csrc/flash_bidir.cu for CUDA tensors and runs
+``flash_bidir_plain`` for CPU tensors; a CUDA tensor never reaches the
+plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.core import sampling
+from repro_torch.kernels import _build
+
+NAME = "flash_bidir"
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_valid: Optional[torch.Tensor] = None,
+                      fk: Optional[torch.Tensor] = None,
+                      fv: Optional[torch.Tensor] = None,
+                      cv: Optional[torch.Tensor] = None,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Plain version: dense f32 scores and softmax, (B, Sq, Hq, D) in
+    q's dtype."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.to(torch.float32)
+    if fk is not None:
+        qf = qf * fk.to(torch.float32).repeat_interleave(G, dim=1)[:, None]
+    qf = qf * D ** -0.5
+    kf = k.to(torch.float32).repeat_interleave(G, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    ok = torch.ones((B, 1, Sq, Skv), dtype=torch.bool, device=q.device)
+    if kv_valid is not None:
+        ok = ok & kv_valid.to(torch.bool)[:, None, None, :]
+    if window is not None:
+        qp = torch.arange(Sq, device=q.device)[:, None]
+        kp = torch.arange(Skv, device=q.device)[None, :]
+        ok = ok & (torch.abs(qp - kp) < window)
+    s = torch.where(ok, s, sampling.NEG_INF)
+    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    l = torch.sum(p, dim=-1)                               # (B, Hq, Sq)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    o = o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    if fv is not None:
+        o = o * fv.to(torch.float32).repeat_interleave(G, dim=1)[:, None]
+    if cv is not None:
+        o = o + cv.to(torch.float32).repeat_interleave(G, dim=1)[:, None]
+    return o.to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.function(NAME, "flash_bidir_launch",
+                           [p] * 8 + [i] * 6 + [ctypes.c_float, i, i, p])
+
+
+def _cal(t: Optional[torch.Tensor], shape, dev) -> Optional[int]:
+    if t is None:
+        return None
+    if tuple(t.shape) != shape or t.dtype != torch.float32 or \
+            t.device != dev or not t.is_contiguous():
+        raise ValueError(f"BAOS calibration must be contiguous f32 {shape} "
+                         f"on {dev}; got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t.data_ptr()
+
+
+def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_valid: Optional[torch.Tensor] = None,
+                fk: Optional[torch.Tensor] = None,
+                fv: Optional[torch.Tensor] = None,
+                cv: Optional[torch.Tensor] = None,
+                window: Optional[int] = None) -> torch.Tensor:
+    """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); kv_valid (B, Skv) bool;
+    fk/fv/cv (B, Hkv, D) f32.  Returns (B, Sq, Hq, D) in q's dtype.  CUDA
+    tensors run the kernel; CPU tensors the plain version."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or Hq % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} with k {tuple(k.shape)} and "
+                         f"v {tuple(v.shape)}: not a GQA attention")
+    if kv_valid is not None and kv_valid.shape != (B, Skv):
+        raise ValueError(f"kv_valid {tuple(kv_valid.shape)} != {(B, Skv)}")
+    if q.device.type == "cpu":
+        return flash_bidir_plain(q, k, v, kv_valid, fk, fv, cv, window)
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError("q, k and v must lie on one CUDA device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: "
+                         f"need one of {_DTYPES} for all three")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} must be positive")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    valid = None
+    if kv_valid is not None:
+        if kv_valid.device != dev or not kv_valid.is_contiguous():
+            raise ValueError(f"kv_valid must be contiguous on {dev}")
+        valid = kv_valid.to(torch.bool)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       _build.ptr(valid), _cal(fk, (B, Hkv, D), dev),
+                       _cal(fv, (B, Hkv, D), dev), _cal(cv, (B, Hkv, D), dev),
+                       out.data_ptr(), B, Sq, Skv, Hq, Hkv, D, D ** -0.5,
+                       0 if window is None else int(window),
+                       int(q.dtype == torch.bfloat16),
+                       torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(NAME, err)
+    _build.launch_counts[NAME] += 1
+    return out

@@ -1,0 +1,148 @@
+"""Fused LM head + Stable-Max sampling: CUDA kernel and plain version.
+
+Port of the Pallas kernel src/repro/kernels/fused_head_sampling.py.
+hidden (R, d) @ w_head (d, V) is reduced straight into per-row
+(max, first-occurrence argmax, exp-sum): conf = 1/s, or, with
+temperature > 0, the counter-Gumbel argmax with conf = exp(z_at - m)/s.
+Per logit: f32 accumulate -> activation dtype -> x logit_scale -> sampling
+fake-quant (none | bf16 | MXFP8 in 32-column blocks) -> activation dtype
+-> f32; the suppressed id is masked after quantization, so it still counts
+toward its block's amax.
+
+``fused_head_sampling`` launches csrc/fused_head_sampling.cu for CUDA
+tensors and runs ``fused_head_stable_max`` (the plain version, a port of
+the JAX oracle of the same name) for CPU tensors.  There is no fallback:
+a CUDA tensor goes to the kernel or the call raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import mx
+from repro_torch.core import sampling
+from repro_torch.kernels import _build
+
+NAME = "fused_head_sampling"
+# fmt argument of the C entry point: 0 none, 1 bf16, 2 mxfp8_e4m3
+_FMT_CODES = {f: i for i, f in enumerate(sampling.SUPPORTED_FMTS)}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def fused_head_stable_max(hidden: torch.Tensor, w_head: torch.Tensor,
+                          fmt: str = "none", *, logit_scale: float = 1.0,
+                          temperature: float = 0.0, seed: int = 0,
+                          suppress_id: Optional[int] = None,
+                          chunk_v: int = 4096
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: hidden (R, d), w_head (d, V) -> (conf (R,) f32,
+    token (R,) i32), streaming the head one vocab chunk at a time into the
+    online (max, argmax, exp-sum) reduction like the JAX oracle.  Chunks
+    are whole MX blocks (``sampling._chunk_grid``), so chunking changes
+    only the order of the exp-sum."""
+    R, _ = hidden.shape
+    V = w_head.shape[-1]
+    chunk, _ = sampling._chunk_grid(V, chunk_v)
+    dev = hidden.device
+    gumbel = temperature > 0.0
+    m = torch.full((R,), sampling.NEG_INF, dtype=torch.float32, device=dev)
+    s = torch.zeros((R,), dtype=torch.float32, device=dev)
+    idx = torch.zeros((R,), dtype=torch.int64, device=dev)
+    best = torch.full_like(m, sampling.NEG_INF)
+    z_at = torch.full_like(m, sampling.NEG_INF)
+    rows = torch.arange(R, device=dev)[:, None]
+    for c0 in range(0, V, chunk):
+        z = sampling.head_logits(hidden, w_head[:, c0:c0 + chunk],
+                                 logit_scale=logit_scale)
+        z = mx.mx_fake_quant(z, fmt).to(torch.float32)
+        col = torch.arange(c0, c0 + z.shape[1], device=dev)
+        if suppress_id is not None:
+            z = torch.where(col == suppress_id, sampling.NEG_INF, z)
+        local_m = torch.amax(z, dim=-1)
+        m_new = torch.maximum(m, local_m)
+        s = s * torch.exp(m - m_new) + \
+            torch.sum(torch.exp(z - m_new[:, None]), dim=-1)
+        if gumbel:
+            sc = z / temperature + sampling.counter_gumbel(seed, rows,
+                                                           col[None, :])
+            local_b, li = torch.max(sc, dim=-1)       # first occurrence
+            z_li = torch.gather(z, 1, li[:, None])[:, 0]
+            upd = local_b > best                      # earlier chunk wins ties
+            best = torch.where(upd, local_b, best)
+            idx = torch.where(upd, li + c0, idx)
+            z_at = torch.where(upd, z_li, z_at)
+        else:
+            local_i = torch.argmax(z, dim=-1) + c0    # first occurrence
+            idx = torch.where(local_m > m, local_i, idx)
+        m = m_new
+    conf = torch.exp(z_at - m) / s if gumbel else 1.0 / s
+    return conf, idx.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    launch = _build.function(
+        NAME, "fused_head_sampling_launch",
+        [p] * 9 + [i] * 5 + [f, f, ctypes.c_uint, i, p])
+    tiles = _build.function(NAME, "fused_head_sampling_tiles", [i])
+    return launch, tiles
+
+
+def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
+                        fmt: str = "none", logit_scale: float = 1.0,
+                        suppress_id: Optional[int] = None,
+                        temperature: float = 0.0, seed: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hidden (R, d), w_head (d, V) -> (conf (R,) f32, token (R,) i32)
+    without materializing the (R, V) logits.  w_head joins the product in
+    hidden's dtype.  CUDA tensors run the kernel; CPU tensors the plain
+    version."""
+    if fmt not in _FMT_CODES:
+        raise ValueError(f"fmt {fmt!r} not in {tuple(_FMT_CODES)}")
+    if hidden.dim() != 2 or w_head.dim() != 2 or \
+            hidden.shape[1] != w_head.shape[0]:
+        raise ValueError(f"expected hidden (R, d) and w_head (d, V); got "
+                         f"{tuple(hidden.shape)} and {tuple(w_head.shape)}")
+    if hidden.device.type == "cpu":
+        return fused_head_stable_max(
+            hidden, w_head, fmt, logit_scale=logit_scale,
+            temperature=temperature, seed=seed, suppress_id=suppress_id)
+    if hidden.device.type != "cuda" or w_head.device != hidden.device:
+        raise ValueError(f"hidden on {hidden.device} and w_head on "
+                         f"{w_head.device}: both must be on one CUDA device")
+    if hidden.dtype not in _DTYPES:
+        raise ValueError(f"hidden dtype {hidden.dtype} not in {_DTYPES}")
+    w = w_head.to(hidden.dtype)
+    if not (hidden.is_contiguous() and w.is_contiguous()):
+        raise ValueError("hidden and w_head must be contiguous")
+    R, d = hidden.shape
+    V = w.shape[1]
+    launch, tiles = _kernel_fns()
+    n_vt = tiles(V)
+    dev = hidden.device
+    gumbel = temperature > 0.0
+    part_m = torch.empty((R, n_vt), dtype=torch.float32, device=dev)
+    part_i = torch.empty((R, n_vt), dtype=torch.int32, device=dev)
+    part_s = torch.empty_like(part_m)
+    part_b = torch.empty_like(part_m) if gumbel else None
+    part_z = torch.empty_like(part_m) if gumbel else None
+    conf = torch.empty((R,), dtype=torch.float32, device=dev)
+    token = torch.empty((R,), dtype=torch.int32, device=dev)
+    if R == 0:
+        return conf, token
+    err = launch(hidden.data_ptr(), w.data_ptr(), part_m.data_ptr(),
+                 part_i.data_ptr(), part_s.data_ptr(), _build.ptr(part_b),
+                 _build.ptr(part_z), conf.data_ptr(), token.data_ptr(),
+                 R, d, V,
+                 int(hidden.dtype == torch.bfloat16), _FMT_CODES[fmt],
+                 float(logit_scale), float(temperature),
+                 int(seed) & sampling.MASK32,
+                 -1 if suppress_id is None else int(suppress_id),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(NAME, err)
+    _build.launch_counts[NAME] += 1
+    return conf, token

@@ -1,0 +1,81 @@
+"""Transformer building blocks, ported from src/repro/models/layers.py:
+GEMMs with f32 accumulation, RMSNorm, NeoX RoPE, SwiGLU, and bidirectional
+GQA attention (kernels/flash_bidir.py on the card), plus the seeded
+parameter init with the JAX package's distributions."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import flash_bidir
+
+
+def qdot(x: torch.Tensor, w: torch.Tensor,
+         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (..., K) @ w (K, N) with f32 accumulation and one rounding to
+    x.dtype; ``bias`` is added in f32 before that rounding.  Without a bias
+    a bf16 product goes to cuBLAS, which accumulates in f32 (TF32 and
+    reduced-precision reductions off, device.py) and rounds once; with one,
+    the product runs in f32 so the bias joins before the cast."""
+    w = w.to(x.dtype)
+    if bias is None:
+        return torch.matmul(x, w)
+    y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    return (y + bias.to(torch.float32)).to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
+         ) -> torch.Tensor:
+    """GPT-NeoX half-split rotary embedding; x (B, S, H, D), positions
+    (B, S) or (S,).  Frequencies exp(-log(theta) * i / half) in f32."""
+    d = x.shape[-1]
+    half = d // 2
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32,
+                                       device=x.device))
+    freqs = torch.exp(-log_theta * torch.arange(
+        half, dtype=torch.float32, device=x.device) / half)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * freqs     # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_valid: Optional[torch.Tensor] = None,
+              window: Optional[int] = None) -> torch.Tensor:
+    """Bidirectional GQA attention, q (B, Sq, Hq, D) over k/v
+    (B, Skv, Hkv, D) with a per-row ``kv_valid`` (B, Skv) mask; query and
+    key positions are their row indices.  The hand-written kernel runs for
+    CUDA tensors, its plain version for CPU ones."""
+    return flash_bidir.flash_bidir(q, k, v, kv_valid, window=window)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    std = (2.0 / (d_in + d_out)) ** 0.5
+    return (torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                        device=device) * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return (torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                        device=device) * 0.02).to(dtype)

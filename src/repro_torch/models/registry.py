@@ -1,0 +1,43 @@
+"""Model registry of the port: ``build_model(cfg, device)`` returns a model
+with the JAX package's contract (``cfg``, ``init``, ``init_cache``,
+``forward``, ``supports_head_mode``) bound to one device.  Dense only."""
+from __future__ import annotations
+
+from typing import Dict, Union
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+
+class TransformerModel:
+    """Dense dLLM on one device."""
+
+    supports_head_mode = True        # forward(head_mode="hidden") works
+
+    def __init__(self, cfg: ModelConfig,
+                 device: Union[str, torch.device] = "cuda"):
+        transformer.check_dense(cfg)
+        self.cfg = cfg
+        self.device = device_lib.resolve(device)
+
+    def init(self, seed: int = 0) -> Dict:
+        return transformer.init_params(self.cfg, seed, self.device)
+
+    def init_cache(self, batch: int, s_tot: int) -> Dict:
+        return transformer.init_cache(self.cfg, batch, s_tot, self.device)
+
+    def forward(self, params: Dict, tokens: torch.Tensor, **kw):
+        return transformer.forward(params, self.cfg, tokens, **kw)
+
+
+def build_model(cfg: ModelConfig,
+                device: Union[str, torch.device] = "cuda"
+                ) -> TransformerModel:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
+            "Queue 1); build_model supports 'dense'")
+    return TransformerModel(cfg, device)

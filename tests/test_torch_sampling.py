@@ -1,0 +1,199 @@
+"""Sampling stage of the PyTorch port vs the JAX package: the
+counter-Gumbel stream, the fused LM head + Stable-Max (plain version vs
+the JAX oracle and the Pallas kernel in interpret mode), the top-k
+transfer mask, and the full fused sampling step."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import sampling as js
+from repro.kernels import ops
+from repro_torch.core import sampling as ts
+from repro_torch.kernels import fused_head_sampling as tfh
+from repro_torch.kernels import topk_mask as ttk
+
+torch.set_num_threads(1)
+
+
+def _rows_cols(n: int, seed: int):
+    rs = np.random.RandomState(seed)
+    rows = rs.randint(0, 2 ** 31 - 1, size=n).astype(np.int64)
+    cols = rs.randint(0, 2 ** 31 - 1, size=n).astype(np.int64)
+    return rows, cols
+
+
+def test_mix32_bit_exact():
+    x = np.random.RandomState(0).randint(0, 2 ** 32, size=4096,
+                                         dtype=np.uint64)
+    x[:3] = [0, 2 ** 32 - 1, 0x80000000]
+    want = np.asarray(js._mix32(jnp.asarray(x.astype(np.uint32))))
+    got = ts._mix32(torch.from_numpy(x.astype(np.int64))).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", [0, 0xDEADBEEF])
+def test_counter_uniform_bit_exact(seed):
+    """The hash and the uniform it yields match the JAX stream bit for
+    bit (uint32 wraparound in int64)."""
+    rows, cols = _rows_cols(20000, seed % 97)
+    h = js._mix32(jnp.asarray(rows.astype(np.uint32)) * jnp.uint32(0x9E3779B9)
+                  ^ jnp.uint32(seed))
+    h = js._mix32(h ^ jnp.asarray(cols.astype(np.uint32))
+                  * jnp.uint32(0x85EBCA6B))
+    want = np.asarray(((h >> jnp.uint32(8)).astype(jnp.float32) + 0.5)
+                      * (1.0 / (1 << 24)))
+    got = ts.counter_uniform(seed, torch.from_numpy(rows),
+                             torch.from_numpy(cols)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_counter_gumbel_matches():
+    """g = -log(-log(u)) from the bit-exact u.  XLA's CPU log is a
+    polynomial that differs from torch's (nearly correctly rounded) log in
+    the last bit for about 14% of f32 inputs, so g agrees to a few ulp,
+    not bit for bit."""
+    rows, cols = _rows_cols(20000, 3)
+    seed = 0x5A11
+    want = np.asarray(js.counter_gumbel(
+        jnp.uint32(seed), jnp.asarray(rows.astype(np.int32)),
+        jnp.asarray(cols.astype(np.int32))))
+    got = ts.counter_gumbel(seed, torch.from_numpy(rows),
+                            torch.from_numpy(cols)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+
+
+def _head_inputs(R: int, d: int, V: int, dtype: str, seed: int,
+                 boost_col=None):
+    """hidden (R, d) and w_head (d, V) for both packages; ``boost_col``
+    makes that column every row's largest logit."""
+    rs = np.random.RandomState(seed)
+    h = rs.randn(R, d).astype(np.float32)
+    w = (rs.randn(d, V) * 4 / np.sqrt(d)).astype(np.float32)
+    if boost_col is not None:
+        h = np.abs(h)
+        w[:, boost_col] = 1.0
+    ht, wt = torch.from_numpy(h), torch.from_numpy(w)
+    if dtype == "bfloat16":
+        ht, wt = ht.to(torch.bfloat16), wt.to(torch.bfloat16)
+        hj = jnp.asarray(ht.float().numpy()).astype(jnp.bfloat16)
+        wj = jnp.asarray(wt.float().numpy()).astype(jnp.bfloat16)
+    else:
+        hj, wj = jnp.asarray(h), jnp.asarray(w)
+    return ht, wt, hj, wj
+
+
+@pytest.mark.parametrize("fmt", ["none", "bf16", "mxfp8_e4m3"])
+@pytest.mark.parametrize("suppress", [None, 7])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_head_plain_matches_jax(fmt, suppress, temperature, dtype):
+    """R = 13 (not a multiple of the Pallas 8-row tile), V = 1000 (not a
+    multiple of 32).  Both JAX paths get the seed the port gets."""
+    R, d, V = 13, 32, 1000
+    ht, wt, hj, wj = _head_inputs(R, d, V, dtype, seed=R + V,
+                                  boost_col=suppress)
+    key = jax.random.PRNGKey(5)
+    seed = int(js.gumbel_seed(key))
+    conf, tok = tfh.fused_head_sampling(
+        ht, wt, fmt=fmt, suppress_id=suppress, temperature=temperature,
+        seed=seed)
+    oc, ot = js.fused_head_stable_max(
+        hj, wj, fmt, rng=key if temperature > 0 else None,
+        temperature=temperature, suppress_id=suppress, chunk_v=256)
+    kc, kt = ops.fused_head_sampling(
+        hj, wj, fmt=fmt, suppress_id=suppress, temperature=temperature,
+        seed=jnp.uint32(seed), chunk_v=256, interpret=True)
+    rtol = 3e-3 if dtype == "bfloat16" else 1e-5
+    for c_ref, t_ref in ((oc, ot), (kc, kt)):
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(t_ref))
+        np.testing.assert_allclose(conf.numpy(), np.asarray(c_ref),
+                                   rtol=rtol)
+    if suppress is not None:
+        assert not bool((tok == suppress).any())
+
+
+def test_fused_head_logit_scale_rounds_through_the_activation_dtype():
+    """logit_scale joins in bf16, as JAX's weakly typed scale does
+    (bf16(0.3) = 0.30078125).  Held against JAX's eager
+    stable_max(head_logits(...)): its jitted streamed oracle at a bf16
+    logit_scale != 1 differs from that composition by up to 1% in conf
+    (XLA keeps the scaled tile wider), while the port matches the eager
+    composition exactly.  The models here all have logit_scale 1."""
+    ht, wt, hj, wj = _head_inputs(8, 32, 300, "bfloat16", seed=1)
+    conf, tok = tfh.fused_head_sampling(ht, wt, fmt="mxfp8_e4m3",
+                                        logit_scale=0.3)
+    oc, ot = js.stable_max(js.head_logits(hj, wj, logit_scale=0.3),
+                           "mxfp8_e4m3")
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(ot))
+    np.testing.assert_allclose(conf.numpy(), np.asarray(oc), rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,L", [(2, 16), (5, 32), (8, 64), (3, 7)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_topk_plain_matches_jax(B, L, ties):
+    rs = np.random.RandomState(B * L + ties)
+    conf = rs.randn(B, L).astype(np.float32)
+    if ties:                              # coarse values: many exact ties
+        # (+ 0.0 turns -0.0 into 0.0: lax.top_k sorts -0.0 below 0.0,
+        # where the rank formula and the Pallas kernel call them equal)
+        conf = np.round(conf * 2) / 2 + 0.0
+    mask = rs.rand(B, L) < 0.6
+    mask[0] = True
+    k = rs.randint(0, L + 1, size=B).astype(np.int32)
+    k[0] = L // 2
+    got = ttk.topk_mask(torch.from_numpy(conf), torch.from_numpy(mask),
+                        torch.from_numpy(k)).numpy()
+    want = np.asarray(js.topk_transfer_mask(
+        jnp.asarray(conf), jnp.asarray(mask), jnp.asarray(k),
+        use_kernel=False))
+    kern = np.asarray(ops.transfer_mask(jnp.asarray(conf), jnp.asarray(mask),
+                                        jnp.asarray(k), interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, kern)
+
+
+def test_topk_all_tied():
+    conf = np.full((2, 16), 0.5, np.float32)
+    mask = np.ones((2, 16), bool)
+    k = np.array([4, 16], np.int32)
+    got = ttk.topk_mask(torch.from_numpy(conf), torch.from_numpy(mask),
+                        torch.from_numpy(k)).numpy()
+    want = np.asarray(ops.transfer_mask(jnp.asarray(conf), jnp.asarray(mask),
+                                        jnp.asarray(k), interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[0], np.arange(16) < 4)
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "mxfp8_e4m3"])
+def test_fused_sampling_step_matches_jax(fmt):
+    """hidden (B, L, d) -> (tokens, transfer, conf) of one greedy step,
+    committed tokens kept, mask id suppressed."""
+    B, L, d, V, mask_id = 3, 8, 32, 300, 299
+    rs = np.random.RandomState(11)
+    h = rs.randn(B, L, d).astype(np.float32)
+    w = (rs.randn(d, V) / np.sqrt(d) * 4).astype(np.float32)
+    x = rs.randint(0, V - 1, size=(B, L)).astype(np.int32)
+    x[rs.rand(B, L) < 0.6] = mask_id
+    k = np.array([2, 0, 5], np.int32)
+    cfg_j = js.SamplingConfig(fmt=fmt)
+    cfg_t = ts.SamplingConfig(fmt=fmt)
+    nx, tr, cf = ts.fused_sampling_step_full(
+        torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(x),
+        mask_id, torch.from_numpy(k), cfg_t)
+    jx, jtr, jcf = js.fused_sampling_step_full(
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(x), mask_id,
+        jnp.asarray(k), cfg_j, use_kernel=False)
+    np.testing.assert_array_equal(nx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jtr))
+    np.testing.assert_allclose(cf.numpy(), np.asarray(jcf), rtol=1e-5)
+
+
+def test_unported_sampling_options_raise():
+    h, w = torch.zeros(1, 2, 4), torch.zeros(4, 8)
+    x, k = torch.zeros(1, 2, dtype=torch.int32), torch.ones(1)
+    for cfg in (ts.SamplingConfig(strategy="random"),
+                ts.SamplingConfig(fmt="mxint8")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ts.fused_sampling_step_full(h, w, x, 7, k, cfg)
