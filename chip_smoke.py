@@ -9,16 +9,25 @@ Phases, each fatal on failure:
                parallel);
   2. kernels -- each kernel against its plain PyTorch version on the card
                at the main path's shapes, with its time, the plain
-               version's, a one-call PyTorch yardstick's and its bound;
+               version's, a one-call PyTorch yardstick's and its bound
+               (baos_mx_quant bit for bit, stablemax_sampling and the
+               fused head within the near-tie rule);
   3. e2e    -- llada-8b at full width (32 layers, d 4096, bf16, seeded
-               random weights), one-slot generate stepped through
-               tick_forward and tick_sample, each tick's sampling held
-               against the plain functions on the same hidden states;
-  4. engine -- ServingEngine in modes warm and none (4 slots, 8 requests,
-               prompts 16-32, generations 32-64, block 16, 8 steps); every
-               request must finish with no mask id left, and each kernel
-               must have launched on each path (launch counts zeroed just
-               before a path runs, read just after).
+               random weights): one-slot generate in cache mode none,
+               stepped through tick_forward and tick_sample, and in modes
+               dual and prefix with BAOS (minmax, mxint4 KV, mxfp8
+               sampling), through generate() and stepped; each step's
+               sampling held against the plain functions on the same
+               hidden states, and the first warm step's layer-0 cache
+               against the plain smooth_quantize of the same K/V;
+  4. engine -- ServingEngine paths warm, none, warm with BAOS and warm on
+               the unfused head (4 slots, 8 requests, prompts 16-32,
+               generations 32-64, block 16, 8 steps); every request must
+               finish with no mask id left, and each path must launch the
+               kernels it runs and no other (launch counts zeroed just
+               before a path runs, read just after).  Then the sampling
+               stage's device time on the fused, unfused and legacy head
+               paths at the engine's shape.
 Prints the kernels JSON line, the card's name and power limit, and last
 the {"ok": true, ...} line.  Exits non-zero without a result when there is
 no CUDA device or the port is not beside this script.
@@ -44,6 +53,13 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 LLADA = dict(d=4096, V=126464, mask_id=126336)
+# the Pallas kernel each CUDA kernel replaces (def line)
+REPLACES = {
+    "fused_head_sampling": "src/repro/kernels/fused_head_sampling.py:134",
+    "topk_mask": "src/repro/kernels/topk_mask.py:44",
+    "flash_bidir": "src/repro/kernels/flash_bidir.py:78",
+    "baos_mx_quant": "src/repro/kernels/baos_mx_quant.py:61",
+    "stablemax_sampling": "src/repro/kernels/stablemax_sampling.py:71"}
 QWEN2 = dict(d=896, V=151936, mask_id=151935)
 
 
@@ -89,10 +105,29 @@ def require(ok: bool, what: str) -> None:
 
 def head_logits_f32(h, w, fmt, suppress_id):
     """The plain version's quantized f32 logits, for the near-tie rule."""
+    from repro_torch.core import sampling
+    return quantized_f32(sampling.head_logits(h, w), fmt, suppress_id)
+
+
+def quantized_f32(z, fmt, suppress_id):
     from repro_torch.core import mx, sampling
-    z = mx.mx_fake_quant(sampling.head_logits(h, w), fmt).float()
+    z = mx.mx_fake_quant(z, fmt).float()
     z[:, suppress_id] = sampling.NEG_INF
     return z
+
+
+def near_ties(z, tok, temperature, seed, rows):
+    """Whether each row's kernel token is a near-tie of the plain one: its
+    score (the quantized logit, or z/T + g with Gumbel) within 1e-2
+    relative of the row's best score."""
+    from repro_torch.core import sampling
+    if temperature > 0:
+        cols = torch.arange(z.shape[1], device=z.device)[None, :]
+        r = torch.as_tensor(rows, device=z.device)[:, None]
+        z = z / temperature + sampling.counter_gumbel(seed, r, cols)
+    zk = z.gather(1, tok.long()[:, None])[:, 0]
+    zmax = z.amax(-1)
+    return ((zmax - zk).abs() <= 1e-2 * zmax.abs()).tolist()
 
 
 def check_head(widths, temperature, seed, gen, fmt="mxfp8_e4m3", R=64):
@@ -112,9 +147,7 @@ def check_head(widths, temperature, seed, gen, fmt="mxfp8_e4m3", R=64):
     diff_rows = torch.nonzero(~same).flatten().tolist()
     if diff_rows:
         z = head_logits_f32(h[diff_rows], w, fmt, mid)
-        zk = z.gather(1, tok_k[diff_rows].long()[:, None])[:, 0]
-        zmax = z.amax(-1)
-        near = ((zmax - zk).abs() <= 1e-2 * zmax.abs()).tolist()
+        near = near_ties(z, tok_k[diff_rows], temperature, seed, diff_rows)
         require(all(near), f"fused head d={d}: tokens differ off a near-tie "
                            f"in rows {diff_rows}")
     err = (conf_k - conf_p).abs()[same]
@@ -205,6 +238,17 @@ def phase_kernels(gen) -> dict:
                 f"flash_bidir {(B, S, Hq, Hkv, D)} outside atol/rtol 2e-2")
         if Hq == 32 and not baos:
             main_attn = (q, kk, v, valid, float(err.max()))
+    # a refine segment: 16 query rows at positions 40.. over the cache
+    q = torch.randn(2, 16, 32, 128, generator=gen, device=DEVICE).bfloat16()
+    kk = torch.randn(2, 96, 32, 128, generator=gen, device=DEVICE).bfloat16()
+    v = torch.randn(2, 96, 32, 128, generator=gen, device=DEVICE).bfloat16()
+    got = fb.flash_bidir(q, kk, v, window=9, q_offset=40)
+    want = fb.flash_bidir_plain(q, kk, v, window=9, q_offset=40)
+    err = (got.float() - want.float()).abs()
+    log(f"flash_bidir segment Sq=16 at offset 40, Skv=96, window=9: max abs "
+        f"err {float(err.max()):.3g}")
+    require(bool((err <= 2e-2 + 2e-2 * want.float().abs()).all()),
+            "flash_bidir with q_offset outside atol/rtol 2e-2")
     q, kk, v, valid, attn_err = main_attn
     B, S, Hq, D = q.shape
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
@@ -218,17 +262,136 @@ def phase_kernels(gen) -> dict:
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=sdpa_mask), 50),
         bound_ms=b_ms, bound_by=b_by)
+    out["baos_mx_quant"] = check_baos(gen)
+    out["stablemax_sampling"] = check_stablemax(gen)
     return out
+
+
+def check_baos(gen) -> dict:
+    """baos_mx_quant at the warm tick's shape, K of (4, 96, 32, 128) bf16
+    (G = 4 * 32 channel groups) with per-channel offsets and spreads and
+    its minmax calibration: bit for bit against the plain version in each
+    KV format, also when writing into a slice of a longer cache."""
+    from repro_torch.core import baos
+    from repro_torch.kernels import baos_mx_quant as bq
+    B, S, H, D = 4, 96, 32, 128
+    x = (torch.randn(B, S, H, D, generator=gen, device=DEVICE)
+         * (torch.rand(1, 1, H, D, generator=gen, device=DEVICE) * 8 + 0.2)
+         + torch.randn(1, 1, H, D, generator=gen, device=DEVICE) * 3
+         ).bfloat16()
+    cal = baos.calibrate(x, x, baos.BAOSConfig())
+    c, f = cal.k_center, cal.k_scale
+    for fmt in baos.KV_FORMATS:
+        got, want = bq.baos_mx_quant(x, c, f, fmt), \
+            bq.baos_mx_quant_plain(x, c, f, fmt)
+        n_bad = int((got != want).sum())
+        log(f"baos_mx_quant {fmt} (4, 96, 32, 128) bf16: {n_bad} of "
+            f"{got.numel()} values differ from plain")
+        require(n_bad == 0, f"baos_mx_quant {fmt} differs from plain")
+    cache = torch.zeros(B, 2 * S, H, D, dtype=torch.bfloat16, device=DEVICE)
+    bq.baos_mx_quant(x, c, f, "mxint4", out=cache[:, 40:40 + S])
+    require(torch.equal(cache[:, 40:40 + S], bq.baos_mx_quant_plain(
+        x, c, f, "mxint4")) and not bool(cache[:, :40].any())
+            and not bool(cache[:, 40 + S:].any()),
+            "baos_mx_quant into a cache slice differs from plain")
+    b_ms, b_by = bound(2 * x.numel() * 2 + 2 * c.numel() * 4,
+                       5.0 * x.numel(), F32_FLOPS)
+    log(f"baos_mx_quant mxint4 device time (profiler) "
+        f"{device_ms(lambda: bq.baos_mx_quant(x, c, f, 'mxint4'), 50):.4f} "
+        f"ms per call, bound {b_ms:.4f} ms")
+    return dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: bq.baos_mx_quant(x, c, f, "mxint4"), 200),
+        plain_ms=time_ms(lambda: bq.baos_mx_quant_plain(x, c, f, "mxint4"),
+                         20),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_stablemax(gen) -> dict:
+    """stablemax_sampling at the unfused tick's shape, R = 64 rows of
+    llada-8b logits (V = 126464, bf16, made by the head from random hidden
+    states), fmt none, bf16 and mxfp8, greedy and T = 0.8: tokens equal
+    except at near-ties, conf within 1e-2 relative."""
+    from repro_torch.core import sampling
+    from repro_torch.kernels import stablemax_sampling as sms
+    R, d, V, mid = 64, LLADA["d"], LLADA["V"], LLADA["mask_id"]
+    h = torch.randn(R, d, generator=gen, device=DEVICE).to(torch.bfloat16)
+    w = (torch.randn(d, V, generator=gen, device=DEVICE)
+         * (2.0 / (d + V)) ** 0.5 * 8).to(torch.bfloat16)
+    z = sampling.head_logits(h, w)
+    del w
+    max_err = 0.0
+    for fmt in sampling.SUPPORTED_FMTS:
+        for temperature in (0.0, 0.8):
+            kw = dict(fmt=fmt, suppress_id=mid, temperature=temperature,
+                      seed=4321)
+            conf_k, tok_k = sms.stablemax_sampling(z, **kw)
+            conf_p, tok_p = sms.stable_max_plain(
+                z, fmt, temperature=temperature, seed=4321, suppress_id=mid)
+            same = tok_k == tok_p
+            diff_rows = torch.nonzero(~same).flatten().tolist()
+            if diff_rows:
+                zq = quantized_f32(z[diff_rows], fmt, mid)
+                require(all(near_ties(zq, tok_k[diff_rows], temperature,
+                                      4321, diff_rows)),
+                        f"stablemax {fmt} T={temperature}: tokens differ "
+                        f"off a near-tie in rows {diff_rows}")
+            err = (conf_k - conf_p).abs()[same]
+            rel = err / conf_p.abs()[same]
+            log(f"stablemax_sampling {fmt} T={temperature} (64, 126464) "
+                f"bf16: rows differing {len(diff_rows)}/{R}, conf max abs "
+                f"err {float(err.max()):.3g}, max rel {float(rel.max()):.3g}")
+            require(bool((rel <= 1e-2).all()),
+                    f"stablemax {fmt} T={temperature}: conf rel err "
+                    f"{float(rel.max()):.3g} > 1e-2")
+            require(len(diff_rows) <= 0.01 * R,
+                    f"stablemax {fmt} T={temperature}: {len(diff_rows)} "
+                    f"rows differ (> 1%)")
+            if fmt == "mxfp8_e4m3" and temperature == 0.0:
+                max_err = float(err.max())
+    kw = dict(fmt="mxfp8_e4m3", suppress_id=mid)
+    b_ms, b_by = bound(z.numel() * 2 + R * 8, 4.0 * z.numel(), F32_FLOPS)
+    log(f"stablemax_sampling mxfp8 greedy device time (profiler) "
+        f"{device_ms(lambda: sms.stablemax_sampling(z, **kw), 20):.4f} ms "
+        f"per call (partials + combine), bound {b_ms:.4f} ms; softmax + "
+        f"max {device_ms(lambda: torch.max(torch.softmax(z, -1), -1), 20):.4f}"
+        f" ms")
+    return dict(
+        max_abs_err=max_err,
+        ms=time_ms(lambda: sms.stablemax_sampling(z, **kw), 50),
+        plain_ms=time_ms(lambda: sms.stable_max_plain(
+            z, "mxfp8_e4m3", suppress_id=mid), 10),
+        library_ms=time_ms(lambda: torch.max(torch.softmax(z, dim=-1),
+                                             dim=-1), 50),
+        bound_ms=b_ms, bound_by=b_by)
 
 
 # ---------------------------------------------------------------------------
 # phase 3: one-slot generate at full size, sampling held against plain
 # ---------------------------------------------------------------------------
 
-def phase_e2e(model, params, gen) -> None:
-    from repro_torch.core import diffusion
+def check_sampling(hid, w, fmt, mid, m_idx, k, totals):
+    """The fused head on one step's active-block hidden states (L, d)
+    against its plain version; ``totals`` counts sampled tokens, those
+    differing and the near-ties among them.  Returns (conf, tokens)."""
     from repro_torch.kernels import fused_head_sampling as fhs
     from repro_torch.kernels import topk_mask as tk
+    conf_k, tok_k = fhs.fused_head_sampling(hid, w, fmt=fmt, suppress_id=mid)
+    conf_p, tok_p = fhs.fused_head_stable_max(hid, w, fmt, suppress_id=mid)
+    diff = torch.nonzero((tok_k != tok_p) & m_idx[0]).flatten()
+    totals[0] += int(m_idx.sum())
+    totals[1] += len(diff)
+    if len(diff):
+        z = head_logits_f32(hid[diff], w, fmt, mid)
+        totals[2] += sum(near_ties(z, tok_k[diff], 0.0, 0, diff.tolist()))
+    tr_k = tk.topk_mask(conf_k[None], m_idx, k)
+    require(torch.equal(tr_k, tk.topk_mask_plain(conf_k[None], m_idx, k)),
+            "e2e: top-k transfer mask differs from plain")
+    return tr_k, tok_k
+
+
+def phase_e2e(model, params, gen) -> None:
+    from repro_torch.core import diffusion
     cfg = model.cfg
     dcfg = diffusion.DiffusionConfig(gen_length=32, block_length=16,
                                      steps_per_block=8)
@@ -236,73 +399,151 @@ def phase_e2e(model, params, gen) -> None:
                            device=DEVICE)
     state = diffusion.init_state(model, prompt, dcfg, seed=7)
     L, mid, w = dcfg.block_length, cfg.mask_id, params["lm_head"]
-    fmt = dcfg.sampling.fmt
-    n_tok = n_diff = n_near = 0
+    totals = [0, 0, 0]
     t0 = time.perf_counter()
     while not state.done:
         x, bs = state.x, state.block_start
-        feats, _ = diffusion.tick_forward(model, params, x, None, None, dcfg)
+        feats, _ = diffusion.tick_forward(model, params, x, None, None, None,
+                                          dcfg)
         k = state.ks[:, state.step_in_block].to(DEVICE)
-        hid = feats[0, bs:bs + L]
-        m_idx = x[:, bs:bs + L] == mid
-        conf_k, tok_k = fhs.fused_head_sampling(hid, w, fmt=fmt,
-                                                suppress_id=mid)
-        conf_p, tok_p = fhs.fused_head_stable_max(hid, w, fmt,
-                                                  suppress_id=mid)
-        diff = torch.nonzero((tok_k != tok_p) & m_idx[0]).flatten()
-        n_tok += int(m_idx.sum())
-        n_diff += len(diff)
-        if len(diff):
-            z = head_logits_f32(hid[diff], w, fmt, mid)
-            zk = z.gather(1, tok_k[diff].long()[:, None])[:, 0]
-            n_near += int(((z.amax(-1) - zk).abs()
-                           <= 1e-2 * z.amax(-1).abs()).sum())
-        tr_k = tk.topk_mask(conf_k[None], m_idx, k)
-        require(torch.equal(tr_k, tk.topk_mask_plain(conf_k[None], m_idx, k)),
-                "e2e: top-k transfer mask differs from plain")
+        tr_k, tok_k = check_sampling(feats[0, bs:bs + L], w,
+                                     dcfg.sampling.fmt, mid,
+                                     x[:, bs:bs + L] == mid, k, totals)
         x_new, _, _ = diffusion.tick_sample(
             params, feats, x, torch.tensor([bs], device=DEVICE), k,
             diffusion.tick_seed(state.seed, state.ticks), dcfg, mid, model)
         require(torch.equal(x_new[0, bs:bs + L][tr_k[0]], tok_k[tr_k[0]]),
                 "e2e: tick_sample committed other tokens than sampled")
-        state = dataclasses.replace(state, x=x_new)
-        state = _next_step(state)
+        state = diffusion.advance(state, x_new)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     require(not bool((state.x == mid).any()), "e2e: mask ids left")
-    log(f"e2e llada-8b generate (1 x {state.x.shape[1]}, {state.ticks} "
-        f"ticks, {dt:.3f} s): sampled tokens differing from plain "
-        f"{n_diff}/{n_tok}, of which near-ties {n_near}")
-    require(n_diff == n_near, "e2e: a sampled token differs off a near-tie")
+    log(f"e2e llada-8b generate mode none (1 x {state.x.shape[1]}, "
+        f"{state.ticks} ticks, {dt:.3f} s): sampled tokens differing from "
+        f"plain {totals[1]}/{totals[0]}, of which near-ties {totals[2]}")
+    require(totals[1] == totals[2],
+            "e2e: a sampled token differs off a near-tie")
 
 
-def _next_step(state):
-    """The counters diffusion.step advances after its tick."""
-    t = state.step_in_block + 1
-    block_idx = state.block_idx
-    if t == state.dcfg.steps_per_block:
-        t, block_idx = 0, block_idx + 1
-    return dataclasses.replace(state, ticks=state.ticks + 1,
-                               block_idx=block_idx, step_in_block=t)
+def expect_launches(counts, expected, what):
+    """Each kernel the path runs launched at least once, the others never."""
+    for name, n in counts.items():
+        if name in expected:
+            require(n > 0, f"{what}: kernel {name} never launched")
+        else:
+            require(n == 0, f"{what}: kernel {name} launched {n} times on a "
+                            f"path that does not run it")
+
+
+def phase_cached(model, params, gen, cache_mode) -> dict:
+    """generate() in a cached mode with BAOS on (the tests/test_system.py
+    setting: minmax, mxint4 KV, mxfp8 sampling), once through the entry
+    point and once stepped with checks; the two must give the same
+    tokens.  Returns the entry point's launch counts."""
+    from repro_torch.core import baos, diffusion
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import baos_mx_quant as bq
+    from repro_torch.models import layers, transformer
+    cfg = model.cfg
+    dcfg = diffusion.DiffusionConfig(
+        gen_length=32, block_length=16, steps_per_block=8,
+        cache_mode=cache_mode,
+        baos=baos.BAOSConfig(enabled=True, variant="minmax",
+                             kv_format="mxint4"))
+    prompt = torch.randint(0, cfg.vocab - 200, (1, 16), generator=gen,
+                           device=DEVICE)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = diffusion.generate(model, params, prompt, dcfg, seed=7)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    what = f"generate {cache_mode} + BAOS"
+    expect_launches(counts, ("flash_bidir", "baos_mx_quant",
+                             "fused_head_sampling", "topk_mask"), what)
+    require(not bool((out == cfg.mask_id).any()), f"{what}: mask ids left")
+
+    state = diffusion.init_state(model, prompt, dcfg, seed=7)
+    L, mid, w = dcfg.block_length, cfg.mask_id, params["lm_head"]
+    totals = [0, 0, 0]
+    while not state.done:
+        feats = diffusion.step_forward(model, params, state)
+        if state.ticks == 0:
+            # layer 0 of the first warm step: its K/V recomputed, their
+            # calibration and plain smooth_quantize vs the cache
+            lp = params["layers"][0]
+            h = layers.rms_norm(transformer.embed(params, cfg, state.x),
+                                lp["ln1"], cfg.norm_eps)
+            pos = torch.arange(state.x.shape[1], device=DEVICE)
+            _, k0, v0 = transformer.qkv(h, lp, cfg, pos)
+            cal = baos.calibrate(k0, v0, dcfg.baos)
+            c = state.cache
+            require(all(torch.equal(c[n][0], t)
+                        for n, t in zip(cal._fields, cal)),
+                    f"{what}: layer-0 calibration differs from plain")
+            for name, x0, cn, sn in (("k", k0, "k_center", "k_scale"),
+                                     ("v", v0, "v_center", "v_scale")):
+                want = bq.baos_mx_quant_plain(x0, c[cn][0], c[sn][0],
+                                              "mxint4")
+                n_bad = int((c[name][0] != want).sum())
+                log(f"{what}: warm step layer-0 {name} cache vs plain "
+                    f"smooth_quantize: {n_bad} of {want.numel()} differ")
+                require(n_bad == 0, f"{what}: layer-0 {name} cache differs")
+        bs = state.block_start
+        m_idx = state.x[:, bs:bs + L] == mid
+        k = state.ks[:, state.step_in_block].to(DEVICE)
+        tr_k, tok_k = check_sampling(feats[0], w, dcfg.sampling.fmt, mid,
+                                     m_idx, k, totals)
+        x = diffusion.commit_block(model, params, state, feats)
+        require(torch.equal(x[0, bs:bs + L][tr_k[0]], tok_k[tr_k[0]]),
+                f"{what}: the commit differs from the sampled tokens")
+        state = diffusion.advance(state, x)
+    torch.cuda.synchronize()
+    log(f"e2e llada-8b {what} (1 x {out.shape[1]}, {state.ticks} steps, "
+        f"{dt:.3f} s through generate()): sampled tokens differing from "
+        f"plain {totals[1]}/{totals[0]}, of which near-ties {totals[2]}; "
+        f"launches {counts}")
+    require(totals[1] == totals[2],
+            f"{what}: a sampled token differs off a near-tie")
+    require(torch.equal(state.x, out),
+            f"{what}: the stepped run differs from generate()")
+    return counts
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the serving engine, modes warm and none
+# phase 4: the serving engine on each path
 # ---------------------------------------------------------------------------
+
+def engine_paths():
+    """(name, engine mode, DiffusionConfig, kernels the path runs)."""
+    from repro_torch.core import baos, diffusion
+    base = dict(block_length=16, steps_per_block=8)
+    common = ("flash_bidir", "topk_mask")
+    return [
+        ("warm", "warm", diffusion.DiffusionConfig(**base),
+         common + ("fused_head_sampling",)),
+        ("none", "none", diffusion.DiffusionConfig(**base),
+         common + ("fused_head_sampling",)),
+        ("warm+baos", "warm", diffusion.DiffusionConfig(
+            baos=baos.BAOSConfig(enabled=True, kv_format="mxint4"), **base),
+         common + ("fused_head_sampling", "baos_mx_quant")),
+        ("warm-unfused", "warm", diffusion.DiffusionConfig(
+            head_path="unfused", **base),
+         common + ("stablemax_sampling",)),
+    ]
+
 
 def phase_engine(model, params) -> dict:
     import numpy as np
-    from repro_torch.core import diffusion
     from repro_torch.kernels import _build
     from repro_torch.serving import EngineConfig, Request, ServingEngine
     cfg = model.cfg
-    dcfg = diffusion.DiffusionConfig(block_length=16, steps_per_block=8)
     rs = np.random.RandomState(0)
     trace = [(rs.randint(0, cfg.vocab - 200, size=(rs.randint(16, 33),))
               .astype(np.int32), int(rs.choice([32, 48, 64])))
              for _ in range(8)]
     launches = {name: 0 for name in _build.KERNELS}
-    for mode in ("warm", "none"):
+    for name, mode, dcfg, expected in engine_paths():
         eng = ServingEngine(model, params, dcfg,
                             EngineConfig(num_slots=4, max_seq_len=96,
                                          mode=mode))
@@ -321,39 +562,41 @@ def phase_engine(model, params) -> dict:
         done = eng.completed
         s = eng.metrics.summary()
         p50, p84 = np.percentile(np.array(tick_s) * 1e3, [50, 84])
-        log(f"engine mode={mode}: {len(done)} requests, {len(tick_s)} "
+        log(f"engine path={name}: {len(done)} requests, {len(tick_s)} "
             f"ticks, tick wall ms median {p50:.2f} p84 {p84:.2f}, "
             f"{s['tokens_per_s']:.1f} tokens/s, request latency median "
             f"{s['latency_p50_s']:.3f} s, max memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
             f"launches {counts}")
-        require(len(done) == len(trace), f"engine {mode}: requests missing")
+        require(len(done) == len(trace), f"engine {name}: requests missing")
         for c in done:
             require(len(c.tokens) == c.prompt_len + c.gen_length and
                     not bool((c.tokens == cfg.mask_id).any()),
-                    f"engine {mode}: request {c.uid} left mask ids")
-        for name, n in counts.items():
-            require(n > 0, f"engine {mode}: kernel {name} never launched")
-            launches[name] += n
-        phase_tick_breakdown(eng, model, params, dcfg, mode)
+                    f"engine {name}: request {c.uid} left mask ids")
+        expect_launches(counts, expected, f"engine {name}")
+        for kname, n in counts.items():
+            launches[kname] += n
+        phase_tick_breakdown(eng, model, params, dcfg, name)
+        if name == "warm":
+            phase_sampling_stage(eng, model, params, dcfg)
     return launches
 
 
-def phase_tick_breakdown(eng, model, params, dcfg, mode) -> None:
+def phase_tick_breakdown(eng, model, params, dcfg, name) -> None:
     """Device time of the tick's two halves at the engine's shape, on the
     engine's final canvas (all slots idle: the work is the same)."""
     from repro_torch.core import diffusion
-    cache = eng.pool.cache if mode == "warm" else None
+    cache = eng.pool.cache if eng.mode == "warm" else None
     B = eng.num_slots
     bs = torch.zeros(B, dtype=torch.int32, device=DEVICE)
     k = torch.full((B,), 2, dtype=torch.int32, device=DEVICE)
-    feats, _ = diffusion.tick_forward(model, params, eng.x, eng.kv_valid,
+    feats, _ = diffusion.tick_forward(model, params, eng.x, eng.kv_valid, bs,
                                       cache, dcfg)
     fwd = time_ms(lambda: diffusion.tick_forward(
-        model, params, eng.x, eng.kv_valid, cache, dcfg), 5)
+        model, params, eng.x, eng.kv_valid, bs, cache, dcfg), 5)
     smp = time_ms(lambda: diffusion.tick_sample(
         params, feats, eng.x, bs, k, 0, dcfg, eng.mask_id, model), 10)
-    log(f"tick breakdown mode={mode} ({B} x {eng.max_seq_len}): "
+    log(f"tick breakdown path={name} ({B} x {eng.max_seq_len}): "
         f"tick_forward {fwd:.3f} ms, tick_sample {smp:.3f} ms")
     cfg = model.cfg
     hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
@@ -361,10 +604,61 @@ def phase_tick_breakdown(eng, model, params, dcfg, mode) -> None:
                                     + 3 * cfg.d_model * cfg.d_ff)
     profile_ticks(lambda: diffusion.batched_tick(
         model, params, eng.x, eng.kv_valid, bs, k, 0, cache, dcfg,
-        eng.mask_id), mode, gemm_flops=2.0 * eng.x.numel() * layer_weights)
+        eng.mask_id), name, gemm_flops=2.0 * eng.x.numel() * layer_weights)
 
 
-def profile_ticks(tick, mode: str, gemm_flops: float, n: int = 3) -> None:
+def phase_sampling_stage(eng, model, params, dcfg) -> None:
+    """The sampling stage on each head path at the engine's shape (4 rows
+    of 16-position blocks, R = 64): device time of tick_sample from the
+    profiler (fused: the streamed head; unfused: the cuBLAS head on the
+    (4, 16, d) slice, then Stable-Max on the stored logits; legacy: the
+    slice of full-sequence logits, then Stable-Max) and, for legacy, of
+    the full-sequence head product its forward adds."""
+    from repro_torch.core import diffusion
+    from repro_torch.models import layers
+    B = eng.num_slots
+    bs = torch.tensor([16, 20, 24, 32][:B], dtype=torch.int32,
+                      device=DEVICE)
+    k = torch.full((B,), 2, dtype=torch.int32, device=DEVICE)
+    hidden, _ = diffusion.tick_forward(model, params, eng.x, eng.kv_valid,
+                                       bs, None, dcfg)
+    parts = []
+    for head_path in ("fused", "unfused", "legacy"):
+        d = dataclasses.replace(dcfg, head_path=head_path)
+        feats = hidden
+        if head_path == "legacy":
+            feats = layers.qdot(hidden, params["lm_head"])
+        dev_ms = device_ms(lambda: diffusion.tick_sample(
+            params, feats, eng.x, bs, k, 0, d, eng.mask_id, model), 10)
+        ev_ms = time_ms(lambda: diffusion.tick_sample(
+            params, feats, eng.x, bs, k, 0, d, eng.mask_id, model), 10)
+        parts.append(f"{head_path} {dev_ms:.3f} ms device "
+                     f"({ev_ms:.3f} ms CUDA events)")
+    head_ms = device_ms(lambda: layers.qdot(hidden, params["lm_head"]), 10)
+    log(f"sampling stage ({B} x 16 rows, V {model.cfg.vocab}): "
+        f"tick_sample {', '.join(parts)}; legacy's full-sequence head "
+        f"product in the forward ({B} x {eng.max_seq_len} rows) {head_ms:.3f}"
+        f" ms device")
+
+
+def device_ms(fn, n: int) -> float:
+    """Device time per call of ``fn`` from the profiler (the sum of its
+    kernels' device time over n calls, / n), after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / n / 1e3
+
+
+def profile_ticks(tick, name: str, gemm_flops: float, n: int = 3) -> None:
     """torch.profiler over n ticks: device time per kernel class (device
     events only), the achieved GEMM rate, and the device's idle share of
     the wall time, which the profiler's own host cost inflates."""
@@ -384,12 +678,14 @@ def profile_ticks(tick, mode: str, gemm_flops: float, n: int = 3) -> None:
         us = e.self_device_time_total
         if e.device_type != DeviceType.CUDA or us <= 0:
             continue                 # host ops repeat their kernels' time
-        name = e.key.lower()
-        cls = ("flash_bidir" if "flash_bidir" in name else
-               "fused_head" if "head_" in name else
-               "topk_mask" if "topk_mask" in name else
-               "gemm" if any(s in name for s in ("gemm", "nvjet", "xmma",
-                                                 "cutlass")) else
+        key = e.key.lower()
+        cls = ("flash_bidir" if "flash_bidir" in key else
+               "baos_mx_quant" if "baos_mx_quant" in key else
+               "stablemax_sampling" if "stablemax" in key else
+               "fused_head" if "head_" in key else
+               "topk_mask" if "topk_mask" in key else
+               "gemm" if any(s in key for s in ("gemm", "nvjet", "xmma",
+                                                "cutlass")) else
                "other")
         classes[cls] = classes.get(cls, 0.0) + us
         kernels.append((us, e.count // n, e.key[:70]))
@@ -400,13 +696,13 @@ def profile_ticks(tick, mode: str, gemm_flops: float, n: int = 3) -> None:
     launches = sum(calls for _, calls, _ in kernels)
     gemm_us = classes.get("gemm", 0.0) / n
     gemm_tflops = gemm_flops / (gemm_us * 1e-6) / 1e12 if gemm_us else 0.0
-    log(f"profile mode={mode}, per tick: wall {wall_us / n / 1e3:.3f} ms, "
+    log(f"profile path={name}, per tick: wall {wall_us / n / 1e3:.3f} ms, "
         f"device busy {busy / n / 1e3:.3f} ms "
         f"(idle {max(0.0, 1 - busy / wall_us) * 100:.1f}%), {launches} "
         f"kernels, GEMMs {gemm_flops / 1e12:.2f} TFLOP at "
         f"{gemm_tflops:.0f} TFLOP/s: {parts}")
-    for us, calls, name in sorted(kernels, reverse=True)[:8]:
-        log(f"  {us / n / 1e3:8.3f} ms/tick  {calls:4d} calls/tick  {name}")
+    for us, calls, kname in sorted(kernels, reverse=True)[:8]:
+        log(f"  {us / n / 1e3:8.3f} ms/tick  {calls:4d} calls/tick  {kname}")
 
 
 def main() -> int:
@@ -446,18 +742,16 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s, "
             f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
         phase_e2e(model, params, gen)
+        for cache_mode in ("dual", "prefix"):
+            phase_cached(model, params, gen, cache_mode)
         launches = phase_engine(model, params)
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    sources = {"fused_head_sampling": "src/repro/kernels/"
-               "fused_head_sampling.py:134",
-               "topk_mask": "src/repro/kernels/topk_mask.py:44",
-               "flash_bidir": "src/repro/kernels/flash_bidir.py:78"}
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/kernels/csrc/{name}.cu",
-                 replaces=sources[name], launches=launches[name],
+                 replaces=REPLACES[name], launches=launches[name],
                  **kernels[name]) for name in _build.KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

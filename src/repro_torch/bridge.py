@@ -1,9 +1,11 @@
-"""Parameters of the JAX package, as numpy arrays, into the port's layout.
+"""Parameters and KV caches of the JAX package, as numpy arrays, into the
+port's layout.
 
 The tests build parameters with the JAX ``init_params``, turn them into
 numpy (``jax.tree.map(np.asarray, params)``) and hand them here, so both
-packages run on identical weights.  This module imports neither JAX nor
-the JAX package.
+packages run on identical weights; ``cache_from_numpy`` does the same for
+a KV cache, so a step can start from the very cache state JAX produced.
+This module imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -43,3 +45,25 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     return {"embed": t(tree["embed"]), "layers": layers,
             "final_norm": t(tree["final_norm"]["w"]),
             "lm_head": t(tree["lm_head"])}
+
+
+CACHE_KEYS = ("k", "v", "k_center", "k_scale", "v_center", "v_scale")
+
+
+def cache_from_numpy(tree: Mapping, cfg: ModelConfig,
+                     device: Union[str, torch.device] = "cuda") -> Dict:
+    """A JAX dense-transformer KV cache (``init_cache`` layout: k, v
+    (n_layers, B, s_tot, Hkv, D) and the four BAOS calibration arrays
+    (n_layers, B, 1, Hkv, D)) -> the port's cache: k, v in ``cfg.dtype``,
+    the calibration in f32, on ``device``."""
+    if "k_act" in tree:
+        raise NotImplementedError(
+            "the split k_act/v_act cache layout is not ported yet "
+            "(ROADMAP.md, Queue 1)")
+    dev = device_lib.resolve(device)
+    out = {}
+    for name in CACHE_KEYS:
+        dt = cfg.torch_dtype if name in ("k", "v") else torch.float32
+        out[name] = torch.from_numpy(
+            np.asarray(tree[name], dtype=np.float32)).to(device=dev, dtype=dt)
+    return out

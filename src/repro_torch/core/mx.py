@@ -5,8 +5,9 @@ Blocks of ``block`` contiguous elements along the last axis share one
 power-of-two scale (E8M0): the smallest 2^e with amax / 2^e <= grid_max,
 e = ceil(log2(amax / grid_max)).  Elements are fake-quantized
 (quantize -> dequantize) so results are bit-faithful to the format.  The
-CUDA fused head applies the same exponent rule with the device's log2f, the
-function torch.log2 calls on the card, so kernel and plain version agree.
+CUDA kernels (csrc/common.cuh ``fake_quant``) apply the same exponent rule
+with the device's log2f, the function torch.log2 calls on the card, and
+the same IEEE divisions, so kernels and plain versions agree.
 """
 from __future__ import annotations
 
@@ -89,8 +90,11 @@ def _shared_scale(amax: torch.Tensor, fmt: MXFormat) -> torch.Tensor:
     amax / 2^e <= grid_max."""
     one = torch.ones_like(amax)
     safe = torch.where(amax > 0, amax, one)
-    e = torch.clamp(torch.ceil(torch.log2(safe / fmt.grid_max)),
-                    -127.0, 127.0)
+    # a tensor divisor: on the card torch turns division by a Python float
+    # into a multiplication by its rounded reciprocal, which the kernels'
+    # IEEE division would not match
+    e = torch.clamp(torch.ceil(torch.log2(
+        safe / torch.full_like(safe, fmt.grid_max))), -127.0, 127.0)
     return torch.where(amax > 0, torch.exp2(e), one)
 
 

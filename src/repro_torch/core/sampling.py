@@ -3,12 +3,13 @@ src/repro/core/sampling.py (the main-path subset).
 
 Per masked position, over the vocabulary logit vector z:
 Stable-Max m = max z, i* = argmax z, conf = 1 / sum_j exp(z_j - m), then a
-top-k over the block's positions and the masked commit.  The vocab-wide
-logits are never materialized on the card: ``fused_sampling_step_full``
-streams hidden states through the fused LM-head kernel
-(kernels/fused_head_sampling.py), and the top-k runs in
-kernels/topk_mask.py.  Each kernel module holds the plain PyTorch version
-the CPU runs.
+top-k over the block's positions and the masked commit.  Two head paths
+feed it.  ``fused_sampling_step_full`` streams hidden states through the
+fused LM-head kernel (kernels/fused_head_sampling.py), so the vocab-wide
+logits are never stored.  ``sampling_step_full`` takes stored logits (the
+unfused and legacy head paths) through ``stable_max``, one launch of
+kernels/stablemax_sampling.py.  The top-k runs in kernels/topk_mask.py.
+Each kernel module holds the plain PyTorch version the CPU runs.
 """
 from __future__ import annotations
 
@@ -128,6 +129,38 @@ def _select_and_commit(conf, x0, x, m_idx, k):
     x0 = torch.where(m_idx, x0, x)                 # keep committed tokens
     transfer = topk_transfer_mask(conf, m_idx, k)
     return commit_tokens(x, x0, transfer), transfer, conf
+
+
+def stable_max(logits: torch.Tensor, fmt: str = "none",
+               seed: Optional[int] = None, temperature: float = 0.0,
+               suppress_id: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (..., V) -> (conf (...) f32, token (...) int32): the sampling
+    fake-quant, the suppressed id masked after it, Stable-Max.  With
+    temperature > 0 and a ``seed`` the token is the counter-Gumbel argmax
+    (the stream the fused head draws; JAX draws jax.random.gumbel here) and
+    conf the softmax probability of that token."""
+    from repro_torch.kernels import stablemax_sampling as sms   # lazy
+    *lead, V = logits.shape
+    temp = temperature if seed is not None else 0.0
+    conf, idx = sms.stablemax_sampling(
+        logits.reshape(-1, V).contiguous(), fmt=fmt, suppress_id=suppress_id,
+        temperature=temp, seed=0 if seed is None else seed)
+    return conf.reshape(lead), idx.reshape(lead)
+
+
+def sampling_step_full(logits: torch.Tensor, x: torch.Tensor, mask_id: int,
+                       k: torch.Tensor, cfg: SamplingConfig,
+                       seed: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One sampling stage on stored logits (B, L, V): Stable-Max (the CUDA
+    kernel on the card), then top-k and commit.  Returns (new tokens
+    (B, L), transfer (B, L), conf (B, L)); greedy without a ``seed``."""
+    check_supported(cfg)
+    sup = mask_id if cfg.suppress_mask_token else None
+    conf, x0 = stable_max(logits, cfg.fmt, seed, cfg.temperature,
+                          suppress_id=sup)
+    return _select_and_commit(conf, x0, x, x == mask_id, k)
 
 
 def fused_sampling_step_full(hidden: torch.Tensor, w_head: torch.Tensor,

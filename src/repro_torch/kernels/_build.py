@@ -23,9 +23,10 @@ from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("fused_head_sampling", "topk_mask", "flash_bidir")
+KERNELS = ("fused_head_sampling", "topk_mask", "flash_bidir",
+           "baos_mx_quant", "stablemax_sampling")
 # no --use_fast_math: the MX exponent rule and the Gumbel log need the
-# full-precision log2f/logf
+# full-precision log2f/logf, and divisions must stay IEEE divisions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -5,11 +5,12 @@
 // online softmax over KV tiles in f32, GQA by index (KV head = q_head // G,
 // nothing repeated in memory), the BAOS fusion of the Pallas kernel
 // (q * f_k * D^-1/2 on the way in, out * f_v + c_v at the end), the optional
-// |q - k| < window mask, and a per-row kv_valid (B, Skv) mask that the
-// Pallas kernel lacks.  Masked scores are -1e30 (not -inf), so a row with no
-// valid key averages every key, as the reference does; keys past Skv (the
-// ragged last tile) get probability 0, so no divisibility is required.  The
-// output divides by max(l, 1e-30).
+// |q_pos - k_pos| < window mask with query row r at position q_offset + r
+// (a segment of a longer cache) and key j at j, and a per-row kv_valid
+// (B, Skv) mask that the Pallas kernel lacks.  Masked scores are -1e30
+// (not -inf), so a row with no valid key averages every key, as the
+// reference does; keys past Skv (the ragged last tile) get probability 0,
+// so no divisibility is required.  The output divides by max(l, 1e-30).
 //
 // What bounds it: at the main-path shape (B 4, S 96, H 32, D 128, bf16) one
 // layer moves 12.6 MB (q, k, v, out) and does 0.6 GFLOP, so the card could
@@ -38,7 +39,8 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const unsigned char* __restrict__ kv_valid,
                    const float* __restrict__ fk, const float* __restrict__ fv,
                    const float* __restrict__ cv, T* __restrict__ out, int Sq,
-                   int Skv, int Hq, int Hkv, float scale, int window) {
+                   int Skv, int Hq, int Hkv, float scale, int window,
+                   int q_offset) {
   constexpr int D = 32 * DPL;
   __shared__ float qs[BQ][D];
   __shared__ float ks[BK][D + 1];
@@ -93,7 +95,8 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s = 0.f;
 #pragma unroll 8
       for (int dd = 0; dd < D; ++dd) s = fmaf(qs[row][dd], ks[lane][dd], s);
-      const bool ok = valid && (window <= 0 || abs(gq - gk) < window);
+      const bool ok =
+          valid && (window <= 0 || abs(q_offset + gq - gk) < window);
       s = in_range ? (ok ? s : NEG) : -INFINITY;
       const float m_new = fmaxf(m[i], warp_max(s));
       const float p = expf(s - m_new);
@@ -132,14 +135,15 @@ template <typename T, int DPL>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_valid, const void* fk, const void* fv,
                    const void* cv, void* out, int B, int Sq, int Skv, int Hq,
-                   int Hkv, float scale, int window, cudaStream_t stream) {
+                   int Hkv, float scale, int window, int q_offset,
+                   cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_bidir_kernel<T, DPL><<<grid, 32 * WARPS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const unsigned char*>(kv_valid),
       static_cast<const float*>(fk), static_cast<const float*>(fv),
       static_cast<const float*>(cv), static_cast<T*>(out), Sq, Skv, Hq, Hkv,
-      scale, window);
+      scale, window, q_offset);
   return cudaGetLastError();
 }
 
@@ -148,17 +152,17 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        const void* kv_valid, const void* fk, const void* fv,
                        const void* cv, void* out, int B, int Sq, int Skv,
                        int Hq, int Hkv, float scale, int window,
-                       cudaStream_t stream) {
+                       int q_offset, cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch<T, 1>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, Skv, Hq,
-                          Hkv, scale, window, stream);
+                          Hkv, scale, window, q_offset, stream);
     case 64:
       return launch<T, 2>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, Skv, Hq,
-                          Hkv, scale, window, stream);
+                          Hkv, scale, window, q_offset, stream);
     case 128:
       return launch<T, 4>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, Skv, Hq,
-                          Hkv, scale, window, stream);
+                          Hkv, scale, window, q_offset, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -170,19 +174,20 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 // (is_bf16 = 0) or all bf16, contiguous; D in {32, 64, 128}.  kv_valid
 // (B, Skv) bool and fk/fv/cv (B, Hkv, D) f32 may each be null.  scale is
 // the softmax scale (D^-1/2, rounded to f32 by the caller); window <= 0
-// means no window.
+// means no window; query row r sits at position q_offset + r.
 extern "C" int flash_bidir_launch(const void* q, const void* k, const void* v,
                                   const void* kv_valid, const void* fk,
                                   const void* fv, const void* cv, void* out,
                                   int B, int Sq, int Skv, int Hq, int Hkv,
-                                  int D, float scale, int window, int is_bf16,
-                                  void* stream) {
+                                  int D, float scale, int window, int q_offset,
+                                  int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       is_bf16 ? dispatch_d<__nv_bfloat16>(D, q, k, v, kv_valid, fk, fv, cv,
-                                          out, B, Sq, Skv, Hq, Hkv, scale, window, st)
+                                          out, B, Sq, Skv, Hq, Hkv, scale,
+                                          window, q_offset, st)
               : dispatch_d<float>(D, q, k, v, kv_valid, fk, fv, cv, out, B, Sq,
-                                  Skv, Hq, Hkv, scale, window, st));
+                                  Skv, Hq, Hkv, scale, window, q_offset, st));
 }
 
 extern "C" const char* flash_bidir_error_string(int err) {

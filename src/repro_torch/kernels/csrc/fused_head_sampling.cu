@@ -37,44 +37,6 @@ constexpr int TN = 64;        // vocab columns per CTA: two MX blocks
 constexpr int TK = 32;        // depth of one shared-memory stage
 constexpr int THREADS = 256;  // 16 x 16 threads, each 4 columns x RPT rows
 
-enum Fmt { FMT_NONE = 0, FMT_BF16 = 1, FMT_MXFP8 = 2 };
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x = (x ^ (x >> 16)) * 0x7FEB352Du;
-  x = (x ^ (x >> 15)) * 0x846CA68Bu;
-  return x ^ (x >> 16);
-}
-
-// core/sampling.counter_gumbel, element by element.
-__device__ __forceinline__ float counter_gumbel(uint32_t seed, uint32_t row,
-                                                uint32_t col) {
-  uint32_t h = mix32(row * 0x9E3779B9u ^ seed);
-  h = mix32(h ^ col * 0x85EBCA6Bu);
-  float u = (static_cast<float>(h >> 8) + 0.5f) * (1.0f / 16777216.0f);
-  return -logf(-logf(u));
-}
-
-// Fake-quant of one logit per lane; the warp's 32 lanes are one MX block.
-// Must be called by all 32 lanes together.
-template <typename T>
-__device__ __forceinline__ float fake_quant(float v, int fmt) {
-  if (fmt == FMT_BF16) return round_to<T>(round_to<__nv_bfloat16>(v));
-  if (fmt == FMT_MXFP8) {
-    float amax = warp_max(fabsf(v));
-    float scale = 1.f;
-    if (amax > 0.f) {
-      float e = ceilf(log2f(amax / 448.f));
-      e = fminf(fmaxf(e, -127.f), 127.f);
-      scale = exp2f(e);
-    }
-    float x = fminf(fmaxf(v / scale, -448.f), 448.f);
-    __nv_fp8_storage_t q8 = __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
-    float q = __half2float(__half(__nv_cvt_fp8_to_halfraw(q8, __NV_E4M3)));
-    return round_to<T>(q * scale);
-  }
-  return v;
-}
-
 template <typename T, int RPT>
 __global__ void __launch_bounds__(THREADS)
 head_partials_kernel(const T* __restrict__ hidden, const T* __restrict__ w,
@@ -180,10 +142,8 @@ head_partials_kernel(const T* __restrict__ hidden, const T* __restrict__ w,
   }
 }
 
-// One warp per row merges the row's n_vt partials (core/sampling.py
-// combine_partials): m = max m_t, s = sum s_t e^(m_t - m), the index from
-// the lowest column among the tiles holding the max (or the best Gumbel
-// score).
+// One warp per row merges the row's n_vt partials (common.cuh
+// combine_row: the combine_partials rule of core/sampling.py).
 __global__ void head_combine_kernel(const float* __restrict__ part_m,
                                     const int* __restrict__ part_i,
                                     const float* __restrict__ part_s,
@@ -192,46 +152,10 @@ __global__ void head_combine_kernel(const float* __restrict__ part_m,
                                     int n_vt, int gumbel,
                                     float* __restrict__ conf,
                                     int* __restrict__ token) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (r >= R) return;
-  const size_t base = static_cast<size_t>(r) * n_vt;
-  float m = NEG;
-  for (int t = lane; t < n_vt; t += 32) m = fmaxf(m, part_m[base + t]);
-  m = warp_max(m);
-  float s = 0.f;
-  for (int t = lane; t < n_vt; t += 32)
-    s += part_s[base + t] * expf(part_m[base + t] - m);
-  s = warp_sum(s);
-  int idx = BIG;
-  float zat = NEG;
-  if (!gumbel) {
-    for (int t = lane; t < n_vt; t += 32)
-      if (part_m[base + t] >= m) idx = min(idx, part_i[base + t]);
-    idx = warp_min(idx);
-  } else {
-    float best = -INFINITY;
-    for (int t = lane; t < n_vt; t += 32) best = fmaxf(best, part_b[base + t]);
-    best = warp_max(best);
-    for (int t = lane; t < n_vt; t += 32) {
-      if (part_b[base + t] >= best && part_i[base + t] < idx) {
-        idx = part_i[base + t];
-        zat = part_z[base + t];
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const int oi = __shfl_xor_sync(FULL_MASK, idx, o);
-      const float oz = __shfl_xor_sync(FULL_MASK, zat, o);
-      if (oi < idx) {
-        idx = oi;
-        zat = oz;
-      }
-    }
-  }
-  if (lane == 0) {
-    conf[r] = gumbel ? expf(zat - m) / s : 1.f / s;
-    token[r] = idx;
-  }
+  combine_row(part_m, part_i, part_s, part_b, part_z, r, n_vt, gumbel != 0,
+              conf, token);
 }
 
 template <typename T, int RPT>

@@ -4,8 +4,9 @@ Port of the Pallas kernel src/repro/kernels/flash_bidir.py, the twin of the
 model's layers.attention.  q (B, Sq, Hq, D) attends, without a causal mask,
 to k/v (B, Skv, Hkv, D) with KV head = q_head // (Hq / Hkv).  Optional BAOS
 fusion as in the Pallas kernel (q * f_k * D^-1/2 on the way in,
-out * f_v + c_v at the end), an optional |q_pos - k_pos| < window mask with
-positions the row indices, and a per-row ``kv_valid`` (B, Skv) mask.
+out * f_v + c_v at the end), an optional |q_pos - k_pos| < window mask
+(query row r at position q_offset + r, key j at j: a segment of a longer
+cache), and a per-row ``kv_valid`` (B, Skv) mask.
 Masked scores are -1e30, so a row with no valid key averages every key, as
 the JAX reference does; the output divides by max(l, 1e-30).
 
@@ -34,7 +35,8 @@ def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       fk: Optional[torch.Tensor] = None,
                       fv: Optional[torch.Tensor] = None,
                       cv: Optional[torch.Tensor] = None,
-                      window: Optional[int] = None) -> torch.Tensor:
+                      window: Optional[int] = None,
+                      q_offset: int = 0) -> torch.Tensor:
     """Plain version: dense f32 scores and softmax, (B, Sq, Hq, D) in
     q's dtype."""
     B, Sq, Hq, D = q.shape
@@ -51,7 +53,7 @@ def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_valid is not None:
         ok = ok & kv_valid.to(torch.bool)[:, None, None, :]
     if window is not None:
-        qp = torch.arange(Sq, device=q.device)[:, None]
+        qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
         kp = torch.arange(Skv, device=q.device)[None, :]
         ok = ok & (torch.abs(qp - kp) < window)
     s = torch.where(ok, s, sampling.NEG_INF)
@@ -70,7 +72,7 @@ def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _kernel_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.function(NAME, "flash_bidir_launch",
-                           [p] * 8 + [i] * 6 + [ctypes.c_float, i, i, p])
+                           [p] * 8 + [i] * 6 + [ctypes.c_float, i, i, i, p])
 
 
 def _cal(t: Optional[torch.Tensor], shape, dev) -> Optional[int]:
@@ -89,9 +91,11 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 fk: Optional[torch.Tensor] = None,
                 fv: Optional[torch.Tensor] = None,
                 cv: Optional[torch.Tensor] = None,
-                window: Optional[int] = None) -> torch.Tensor:
+                window: Optional[int] = None,
+                q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); kv_valid (B, Skv) bool;
-    fk/fv/cv (B, Hkv, D) f32.  Returns (B, Sq, Hq, D) in q's dtype.  CUDA
+    fk/fv/cv (B, Hkv, D) f32; query row r at position q_offset + r.
+    Returns (B, Sq, Hq, D) in q's dtype.  CUDA
     tensors run the kernel; CPU tensors the plain version."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
@@ -101,7 +105,8 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_valid is not None and kv_valid.shape != (B, Skv):
         raise ValueError(f"kv_valid {tuple(kv_valid.shape)} != {(B, Skv)}")
     if q.device.type == "cpu":
-        return flash_bidir_plain(q, k, v, kv_valid, fk, fv, cv, window)
+        return flash_bidir_plain(q, k, v, kv_valid, fk, fv, cv, window,
+                                 q_offset)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("q, k and v must lie on one CUDA device")
@@ -126,7 +131,7 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        _build.ptr(valid), _cal(fk, (B, Hkv, D), dev),
                        _cal(fv, (B, Hkv, D), dev), _cal(cv, (B, Hkv, D), dev),
                        out.data_ptr(), B, Sq, Skv, Hq, Hkv, D, D ** -0.5,
-                       0 if window is None else int(window),
+                       0 if window is None else int(window), int(q_offset),
                        int(q.dtype == torch.bfloat16),
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME, err)

@@ -1,0 +1,109 @@
+"""One-pass Stable-Max over stored logits: CUDA kernel and plain version.
+
+Port of the Pallas kernel src/repro/kernels/stablemax_sampling.py, the
+twin of core/sampling.stable_max.  logits (R, V) -> per row the sampling
+fake-quant (none | bf16 | MXFP8 in 32-column blocks), the suppressed id
+masked after the quantization (it still counts toward its block's amax),
+then max m, first-occurrence argmax and exp-sum s: conf = 1/s, or, with
+temperature > 0, the counter-Gumbel argmax of z/T + g with
+conf = exp(z_at - m)/s.  The Pallas kernel does the reduction alone; the
+kernel here also does the fake-quant and the Gumbel draw, so the whole of
+``stable_max`` is one launch (plus the merge of its per-tile partials).
+
+``stablemax_sampling`` launches csrc/stablemax_sampling.cu for CUDA
+tensors and runs ``stable_max_plain`` for CPU tensors; a CUDA tensor never
+reaches the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import mx
+from repro_torch.core import sampling
+from repro_torch.kernels import _build
+
+NAME = "stablemax_sampling"
+# fmt argument of the C entry point: 0 none, 1 bf16, 2 mxfp8_e4m3
+_FMT_CODES = {f: i for i, f in enumerate(sampling.SUPPORTED_FMTS)}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def stable_max_plain(logits: torch.Tensor, fmt: str = "none", *,
+                     temperature: float = 0.0, seed: int = 0,
+                     suppress_id: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: logits (R, V) -> (conf (R,) f32, token (R,) i32)."""
+    R, V = logits.shape
+    z = mx.mx_fake_quant(logits, fmt).to(torch.float32)
+    col = torch.arange(V, device=logits.device)
+    if suppress_id is not None:
+        z = torch.where(col == suppress_id, sampling.NEG_INF, z)
+    m = torch.amax(z, dim=-1)
+    s = torch.sum(torch.exp(z - m[:, None]), dim=-1)
+    if temperature > 0.0:
+        rows = torch.arange(R, device=logits.device)[:, None]
+        sc = z / temperature + sampling.counter_gumbel(seed, rows,
+                                                       col[None, :])
+        idx = torch.argmax(sc, dim=-1)                # first occurrence
+        z_at = torch.gather(z, 1, idx[:, None])[:, 0]
+        return torch.exp(z_at - m) / s, idx.to(torch.int32)
+    return 1.0 / s, torch.argmax(z, dim=-1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    launch = _build.function(NAME, "stablemax_sampling_launch",
+                             [p] * 8 + [i] * 4 + [f, ctypes.c_uint, i, p])
+    tiles = _build.function(NAME, "stablemax_sampling_tiles", [i])
+    return launch, tiles
+
+
+def stablemax_sampling(logits: torch.Tensor, *, fmt: str = "none",
+                       suppress_id: Optional[int] = None,
+                       temperature: float = 0.0, seed: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (R, V) -> (conf (R,) f32, token (R,) i32).  CUDA tensors run
+    the kernel; CPU tensors the plain version."""
+    if fmt not in _FMT_CODES:
+        raise ValueError(f"fmt {fmt!r} not in {tuple(_FMT_CODES)}")
+    if logits.dim() != 2:
+        raise ValueError(f"expected logits (R, V); got "
+                         f"{tuple(logits.shape)}")
+    if logits.device.type == "cpu":
+        return stable_max_plain(logits, fmt, temperature=temperature,
+                                seed=seed, suppress_id=suppress_id)
+    if logits.device.type != "cuda":
+        raise ValueError(f"logits on {logits.device}: need a CUDA device")
+    if logits.dtype not in _DTYPES:
+        raise ValueError(f"logits dtype {logits.dtype} not in {_DTYPES}")
+    if not logits.is_contiguous():
+        raise ValueError("logits must be contiguous")
+    R, V = logits.shape
+    dev = logits.device
+    launch, tiles = _kernel_fns()
+    n_vt = tiles(V)
+    gumbel = temperature > 0.0
+    part_m = torch.empty((R, n_vt), dtype=torch.float32, device=dev)
+    part_i = torch.empty((R, n_vt), dtype=torch.int32, device=dev)
+    part_s = torch.empty_like(part_m)
+    part_b = torch.empty_like(part_m) if gumbel else None
+    part_z = torch.empty_like(part_m) if gumbel else None
+    conf = torch.empty((R,), dtype=torch.float32, device=dev)
+    token = torch.empty((R,), dtype=torch.int32, device=dev)
+    if R == 0 or V == 0:
+        return conf, token
+    err = launch(logits.data_ptr(), part_m.data_ptr(), part_i.data_ptr(),
+                 part_s.data_ptr(), _build.ptr(part_b), _build.ptr(part_z),
+                 conf.data_ptr(), token.data_ptr(), R, V,
+                 int(logits.dtype == torch.bfloat16), _FMT_CODES[fmt],
+                 float(temperature), int(seed) & sampling.MASK32,
+                 -1 if suppress_id is None else int(suppress_id),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(NAME, err)
+    _build.launch_counts[NAME] += 1
+    return conf, token

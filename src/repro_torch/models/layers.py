@@ -1,6 +1,7 @@
 """Transformer building blocks, ported from src/repro/models/layers.py:
 GEMMs with f32 accumulation, RMSNorm, NeoX RoPE, SwiGLU, and bidirectional
-GQA attention (kernels/flash_bidir.py on the card), plus the seeded
+GQA attention with the BAOS fusion (kernels/flash_bidir.py on the card),
+plus the seeded
 parameter init with the JAX package's distributions."""
 from __future__ import annotations
 
@@ -60,12 +61,22 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_valid: Optional[torch.Tensor] = None,
-              window: Optional[int] = None) -> torch.Tensor:
+              window: Optional[int] = None, baos_calib=None,
+              q_offset: int = 0) -> torch.Tensor:
     """Bidirectional GQA attention, q (B, Sq, Hq, D) over k/v
-    (B, Skv, Hkv, D) with a per-row ``kv_valid`` (B, Skv) mask; query and
-    key positions are their row indices.  The hand-written kernel runs for
-    CUDA tensors, its plain version for CPU ones."""
-    return flash_bidir.flash_bidir(q, k, v, kv_valid, window=window)
+    (B, Skv, Hkv, D) with a per-row ``kv_valid`` (B, Skv) mask; key j sits
+    at position j and query row r at ``q_offset + r``.  With ``baos_calib``
+    (core/baos.BAOSCalib) k/v are the smoothed cache: f_k joins the query
+    and f_v, c_v the output, in f32 inside the kernel (the JAX model rounds
+    q * f_k and out * f_v + c_v to the activation dtype).  The hand-written
+    kernel runs for CUDA tensors, its plain version for CPU ones."""
+    fk = fv = cv = None
+    if baos_calib is not None:
+        B, _, Hkv, D = k.shape
+        fk, fv, cv = (t.reshape(B, Hkv, D) for t in (
+            baos_calib.k_scale, baos_calib.v_scale, baos_calib.v_center))
+    return flash_bidir.flash_bidir(q, k, v, kv_valid, fk, fv, cv,
+                                   window=window, q_offset=q_offset)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,

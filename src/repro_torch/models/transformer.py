@@ -6,12 +6,16 @@ w_down``), ``final_norm`` (d,) and ``lm_head`` (d, V) -- the JAX layout,
 with the layer stack split into a list and not an ``nn.Linear`` (which
 would store the head transposed).
 
-``forward`` covers the two shapes of the serving tick: ``cache=None``
-(full recompute; like the JAX forward it then attends over every position
-and ignores ``kv_valid``) and the full warm cache, whose K/V it rewrites
-in place for the whole sequence before attending with ``kv_valid``.  The
-JAX forward returns a new cache instead; in place saves the copy, and a
-warm tick never reads a cache entry it has not just written.
+``forward`` runs a segment of tokens at positions ``seg_start + r``.
+Without a cache it is the full recompute (like the JAX forward it then
+attends over every position and ignores ``kv_valid``).  With one, it
+writes the segment's K/V into the cache at ``seg_start`` -- smoothed and
+MX-quantized by the BAOS kernel when BAOS is on -- and attends over the
+whole cache through ``kv_valid``: the warm step (the whole sequence,
+``calibrate=True``) and the refine steps of cache modes dual and prefix (a
+block or block + suffix, reading the stored calibration).  The JAX
+forward returns a new cache instead; writing in place saves the copy, and
+is the write-back the paper describes.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import device as device_lib
+from repro_torch.core import baos as baos_lib
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -77,23 +82,91 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 def init_cache(cfg: ModelConfig, batch: int, s_tot: int,
                device: Union[str, torch.device] = "cuda") -> Dict:
-    """Full-length KV buffers (n_layers, batch, s_tot, Hkv, D), zeroed."""
+    """Full-length KV buffers (n_layers, batch, s_tot, Hkv, D), zeroed, and
+    the stacked BAOS calibration (n_layers, batch, 1, Hkv, D) f32: zero
+    centers, unit scales.  (The JAX package's split ``k_act``/``v_act``
+    layout is not ported.)"""
     dev = device_lib.resolve(device)
     shape = (cfg.n_layers, batch, s_tot, cfg.n_kv_heads, cfg.d_head)
+    cal = (cfg.n_layers, batch, 1, cfg.n_kv_heads, cfg.d_head)
+
+    def f32(fill):
+        return torch.full(cal, fill, dtype=torch.float32, device=dev)
+
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)}
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            "k_center": f32(0.0), "k_scale": f32(1.0),
+            "v_center": f32(0.0), "v_scale": f32(1.0)}
+
+
+def embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
+          ) -> torch.Tensor:
+    """Token embeddings x embed_scale, in the activation dtype."""
+    return (F.embedding(tokens, params["embed"]) * cfg.embed_scale
+            ).to(cfg.torch_dtype)
+
+
+def qkv(h: torch.Tensor, lp: Dict, cfg: ModelConfig,
+        positions: torch.Tensor):
+    """A layer's q (B, S, Hq, D) and k, v (B, S, Hkv, D) from its normed
+    input, RoPE at ``positions``."""
+    B, S, _ = h.shape
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = layers.qdot(h, lp["wq"], lp.get("bq")).reshape(B, S, Hq, D)
+    k = layers.qdot(h, lp["wk"], lp.get("bk")).reshape(B, S, Hkv, D)
+    v = layers.qdot(h, lp["wv"], lp.get("bv")).reshape(B, S, Hkv, D)
+    if cfg.rope_theta > 0:
+        q = layers.rope(q, positions, cfg.rope_theta)
+        k = layers.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _cache_attention(q, k, v, lcache: Dict, seg_start: int, kv_valid,
+                     cfg: ModelConfig, baos_cfg: baos_lib.BAOSConfig,
+                     calibrate: bool, calib_mask):
+    """The cached branch of a layer: (re)calibrate or read the stored
+    calibration, write the segment's K/V into the cache at ``seg_start``
+    (through the BAOS kernel when enabled), attend over the whole cache.
+    The calibration is computed only with BAOS on: nothing reads it
+    otherwise (the JAX forward computes and stores it either way)."""
+    S = k.shape[1]
+    calib = None
+    if baos_cfg.enabled:
+        if calibrate:
+            new = baos_lib.calibrate(k, v, baos_cfg, calib_mask)
+            for name, t in zip(baos_lib.BAOSCalib._fields, new):
+                lcache[name].copy_(t)
+        calib = baos_lib.BAOSCalib(*(lcache[name] for name in
+                                     baos_lib.BAOSCalib._fields))
+    seg = slice(seg_start, seg_start + S)
+    for name, x, center, scale in (
+            ("k", k, "k_center", "k_scale"), ("v", v, "v_center", "v_scale")):
+        if calib is None:
+            lcache[name][:, seg].copy_(x)
+        else:
+            baos_lib.smooth_quantize(x, lcache[center], lcache[scale],
+                                     baos_cfg, out=lcache[name][:, seg])
+    return layers.attention(q, lcache["k"], lcache["v"], kv_valid,
+                            window=cfg.window, baos_calib=calib,
+                            q_offset=seg_start)
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: Optional[Dict] = None,
+            cache: Optional[Dict] = None, seg_start: int = 0,
             kv_valid: Optional[torch.Tensor] = None,
+            baos_cfg: Optional[baos_lib.BAOSConfig] = None,
+            calibrate: bool = False,
+            calib_mask: Optional[torch.Tensor] = None,
             logits_slice: Optional[Tuple[int, int]] = None,
             head_mode: str = "logits", quant=None
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """tokens (B, S) -> (logits (B, S', V), or with ``head_mode='hidden'``
-    the final-norm hidden states (B, S', d); the cache), S' = S or the
-    ``logits_slice`` (start, length).  ``quant`` (the JAX QuantPolicy at
-    the GEMM boundaries) must be None or disabled."""
+    """tokens (B, S) at positions seg_start + r -> (logits (B, S', V), or
+    with ``head_mode='hidden'`` the final-norm hidden states (B, S', d);
+    the cache), S' = S or the ``logits_slice`` (start, length).  With
+    ``cache``: ``baos_cfg`` (off by default), ``calibrate`` (recompute the
+    calibration from this segment's K/V, restricted to ``calib_mask``
+    (B, S) when given) and ``kv_valid`` (B, s_tot).  ``quant`` (the JAX
+    QuantPolicy at the GEMM boundaries) must be None or disabled."""
     check_dense(cfg)
     if quant is not None and getattr(quant, "enabled", True):
         raise NotImplementedError(
@@ -101,31 +174,29 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             f"ported yet ({ROADMAP})")
     if head_mode not in ("logits", "hidden"):
         raise ValueError(f"unknown head_mode {head_mode!r}")
+    baos_cfg = baos_cfg or baos_lib.BAOSConfig(enabled=False)
     B, S = tokens.shape
-    if cache is not None and cache["k"].shape[2] != S:
-        raise NotImplementedError(
-            f"a {S}-token segment into a {cache['k'].shape[2]}-long cache "
-            f"(cache modes dual/prefix) is not ported yet ({ROADMAP}); the "
-            "warm tick rewrites the whole cache")
-    x = (F.embedding(tokens, params["embed"]) * cfg.embed_scale
-         ).to(cfg.torch_dtype)
-    positions = torch.arange(S, device=x.device)
-    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if cache is not None:
+        if "k_act" in cache:
+            raise NotImplementedError(
+                f"the split k_act/v_act cache layout is not ported yet "
+                f"({ROADMAP})")
+        s_tot = cache["k"].shape[2]
+        if not 0 <= seg_start <= s_tot - S:
+            raise ValueError(f"segment [{seg_start}, {seg_start + S}) does "
+                             f"not fit a {s_tot}-long cache")
+    x = embed(params, cfg, tokens)
+    positions = seg_start + torch.arange(S, device=x.device)
+    Hq, D = cfg.n_heads, cfg.d_head
     for i, lp in enumerate(params["layers"]):
         h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q = layers.qdot(h, lp["wq"], lp.get("bq")).reshape(B, S, Hq, D)
-        k = layers.qdot(h, lp["wk"], lp.get("bk")).reshape(B, S, Hkv, D)
-        v = layers.qdot(h, lp["wv"], lp.get("bv")).reshape(B, S, Hkv, D)
-        if cfg.rope_theta > 0:
-            q = layers.rope(q, positions, cfg.rope_theta)
-            k = layers.rope(k, positions, cfg.rope_theta)
+        q, k, v = qkv(h, lp, cfg, positions)
         if cache is None:
             attn = layers.attention(q, k, v, window=cfg.window)
         else:
-            cache["k"][i].copy_(k)
-            cache["v"][i].copy_(v)
-            attn = layers.attention(q, cache["k"][i], cache["v"][i],
-                                    kv_valid, window=cfg.window)
+            lcache = {name: t[i] for name, t in cache.items()}
+            attn = _cache_attention(q, k, v, lcache, seg_start, kv_valid,
+                                    cfg, baos_cfg, calibrate, calib_mask)
         x = x + layers.qdot(attn.reshape(B, S, Hq * D), lp["wo"]) * \
             cfg.residual_scale
         h2 = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)

@@ -2,9 +2,9 @@
 src/repro/serving/engine.py (slot pool, one tick per call).
 
 Every engine tick advances *all* active requests by one denoising step with
-a single forward + fused Stable-Max sampling call (core/diffusion
-``batched_tick``), whatever each request's block index or step within the
-block.  Requests are packed into fixed batch slots backed by a slot KV pool;
+a single forward + Stable-Max sampling call (core/diffusion
+``batched_tick``, on the head path ``dcfg.head_path`` selects), whatever
+each request's block index or step within the block.  Requests are packed into fixed batch slots backed by a slot KV pool;
 a slot frees (and a queued request admits) the moment its request's last
 block unmasks.
 
@@ -13,7 +13,8 @@ Tick modes:
     one-slot engine in this mode runs exactly what
     ``generate(cache_mode='none')`` runs.
   * ``warm``: every tick is a warm step through the pooled KV cache: all KV
-    recomputed and rewritten, attention masked by each slot's length.
+    recomputed and rewritten (with ``dcfg.baos`` on: recalibrated, smoothed
+    and MX-quantized), attention masked by each slot's length.
 
 ``submit(request, on_commit=cb)`` registers a per-request commit callback:
 every tick the engine diffs the request's row against its host-tracked mask

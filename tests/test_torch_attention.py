@@ -1,13 +1,16 @@
 """Bidirectional attention of the PyTorch port (plain version, the CPU
 side of kernels/flash_bidir.py) vs the JAX model's layers.attention, the
-flash_bidir oracle and the Pallas kernel in interpret mode."""
+flash_bidir oracle and the Pallas kernel in interpret mode; with BAOS
+calibration and a query segment at an offset into a longer cache."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import baos as jbaos
 from repro.kernels import ops, ref
 from repro.models import layers as jlayers
+from repro_torch.core import baos as tbaos
 from repro_torch.kernels import flash_bidir as tfb
 from repro_torch.models import layers as tlayers
 
@@ -62,6 +65,71 @@ def test_flash_plain_matches_oracle_and_pallas(window, Hq, Hkv):
     for w in (want, kern):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=RTOL,
                                    atol=ATOL)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (2, 2)])
+def test_baos_segment_attention_matches_model_attention(window, Hq, Hkv):
+    """A refine step's attention: 8 query rows at positions 12..19 over a
+    40-long smoothed cache with its BAOS calibration (f_k into the query,
+    f_v, c_v onto the output) and ragged kv_valid.  In f32 the port's
+    in-kernel f32 fusion and the JAX model's activation-dtype rounding are
+    the same arithmetic."""
+    B, Sq, Skv, D, off = 2, 8, 40, 16, 12
+    q, k, v = _qkv(B, Sq, Skv, Hq, Hkv, D, seed=7 + Hq + (window or 0))
+    valid = np.arange(Skv)[None, :] < np.array([[Skv], [30]])
+    cal_j = jbaos.calibrate(jnp.asarray(k), jnp.asarray(v),
+                            jbaos.BAOSConfig())
+    ks, vs = (np.asarray(a) for a in jbaos.smooth_quantize_kv(
+        jnp.asarray(k), jnp.asarray(v), cal_j, jbaos.BAOSConfig()))
+    want = jlayers.attention(
+        jnp.asarray(q), jnp.asarray(ks), jnp.asarray(vs),
+        q_pos=jnp.broadcast_to(off + jnp.arange(Sq)[None], (B, Sq)),
+        kv_pos=jnp.broadcast_to(jnp.arange(Skv)[None], (B, Skv)),
+        kv_valid=jnp.asarray(valid), window=window, baos_calib=cal_j,
+        kv_chunk=Skv)
+    cal_t = tbaos.BAOSCalib(*(torch.from_numpy(np.asarray(a)) for a in cal_j))
+    got = tlayers.attention(torch.from_numpy(q), torch.from_numpy(ks),
+                            torch.from_numpy(vs), torch.from_numpy(valid),
+                            window=window, baos_calib=cal_t, q_offset=off)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_baos_fusion_rounding_at_bf16():
+    """The JAX model rounds q * f_k and out * f_v + c_v to the activation
+    dtype; the port's kernel (and its plain version) apply them in f32 and
+    round once.  At bf16 the two differ by a few bf16 ulp of the output
+    (up to 1.3% of its largest value on these inputs, with per-channel
+    offsets as in real K/V), and the port is the closer of the two to the
+    same attention computed in f32 from the same bf16 inputs."""
+    rs = np.random.RandomState(0)
+    B, Sq, Skv, Hq, Hkv, D = 2, 16, 48, 8, 4, 64
+
+    def kv():
+        return (rs.randn(B, Skv, Hkv, D) * rs.uniform(0.2, 8, (1, 1, Hkv, D))
+                + rs.randn(1, 1, Hkv, D) * 3).astype(np.float32)
+
+    qb, kb, vb = (torch.from_numpy(a).bfloat16() for a in (
+        rs.randn(B, Sq, Hq, D).astype(np.float32), kv(), kv()))
+    cal = tbaos.calibrate(kb, vb, tbaos.BAOSConfig())
+    ks, vs = tbaos.smooth_quantize_kv(kb, vb, cal, tbaos.BAOSConfig())
+    cal_j = jbaos.BAOSCalib(*(jnp.asarray(c.numpy()) for c in cal))
+    pos = jnp.broadcast_to(jnp.arange(Skv)[None], (B, Skv))
+
+    def jax_attention(dtype):
+        a = [jnp.asarray(t.float().numpy()).astype(dtype) for t in (qb, ks, vs)]
+        out = jlayers.attention(*a, q_pos=pos[:, 8:8 + Sq], kv_pos=pos,
+                                kv_valid=jnp.ones((B, Skv), bool),
+                                baos_calib=cal_j, kv_chunk=Skv)
+        return np.asarray(out.astype(jnp.float32))
+
+    got = tlayers.attention(qb, ks, vs, baos_calib=cal, q_offset=8)
+    got = got.float().numpy()
+    want, exact = jax_attention(jnp.bfloat16), jax_attention(jnp.float32)
+    top = np.abs(exact).max()
+    assert np.abs(got - want).max() <= 0.02 * top
+    assert np.abs(got - exact).max() <= np.abs(want - exact).max()
 
 
 def test_flash_rejects_mismatched_shapes():

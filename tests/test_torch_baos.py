@@ -1,0 +1,177 @@
+"""BAOS of the PyTorch port vs the JAX package: calibration, the smoothed
+MX quantization of the KV write-back (core/baos.smooth_quantize and the
+plain version of kernels/baos_mx_quant.py, against repro.core.baos, the
+Pallas kernel in interpret mode and its jnp oracle), and the query/output
+fusion helpers.
+
+The quantized values are held bit for bit.  The inputs are seeded and
+chosen as tests/test_torch_mx.py chooses them: no subnormal or near-f32-max
+block, and no block whose amax / grid_max lies within 2 ulp of a power of
+two, where XLA's and torch's log2 may round the exponent differently."""
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import baos as jbaos
+from repro.core import mx as jmx
+from repro.kernels import ops, ref
+from repro_torch.core import baos as tbaos
+from repro_torch.kernels import baos_mx_quant as tbq
+
+torch.set_num_threads(1)
+
+KV_FORMATS = ["mxint4", "mxint8", "mxfp8_e4m3"]
+
+
+def _far_from_scale_edges(xs: np.ndarray, fmt: str) -> bool:
+    """True when no 32-block's amax / grid_max is within 2 ulp of a power
+    of two (blocks along the last axis)."""
+    amax = np.abs(xs.reshape(*xs.shape[:-1], -1, 32)).max(-1)
+    r = (amax[amax > 0] / np.float32(jmx.FORMATS[fmt].grid_max)).astype(
+        np.float32)
+    p = (2.0 ** np.round(np.log2(r))).astype(np.float32)
+    return bool((np.abs(r - p) > 2 * np.spacing(p)).all())
+
+
+def _kv_inputs(B, S, H, D, fmt, dtype, seed):
+    """x (B, S, H, D) with per-channel offsets and spreads (the outlier
+    channels BAOS is for), and its minmax calibration; the first seed from
+    ``seed`` whose smoothed blocks are clear of the scale edges."""
+    for s in itertools.count(seed):
+        rs = np.random.RandomState(s)
+        x = (rs.randn(B, S, H, D) * rs.uniform(0.2, 8.0, (1, 1, H, D))
+             + rs.randn(1, 1, H, D) * 3).astype(np.float32)
+        xt = torch.from_numpy(x).to(getattr(torch, dtype))
+        x = xt.float().numpy()
+        c, f = jbaos._calibrate_one(jnp.asarray(x), jbaos.BAOSConfig())
+        c, f = np.asarray(c), np.asarray(f)
+        if _far_from_scale_edges((x - c) / f, fmt):
+            return xt, c, f
+
+
+@pytest.mark.parametrize("variant", ["minmax", "mean"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_calibrate_matches(variant, masked):
+    """Centers and scales, over the whole sequence or a block mask (the
+    active-block scope).  minmax centers are exact; mean sums in another
+    order, so its centers agree to 1e-6 absolute.  The scales go through
+    f ** 0.5, which XLA and torch round apart by up to an ulp."""
+    rs = np.random.RandomState(3)
+    k = (rs.randn(2, 24, 3, 32) * 4 + 1).astype(np.float32)
+    v = rs.randn(2, 24, 3, 32).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.zeros((2, 24), bool)
+        mask[0, 8:16] = mask[1, 4:20] = True
+    cfg_j = jbaos.BAOSConfig(variant=variant, alpha=0.5)
+    cfg_t = tbaos.BAOSConfig(variant=variant, alpha=0.5)
+    want = jbaos.calibrate(jnp.asarray(k), jnp.asarray(v), cfg_j,
+                           None if mask is None else jnp.asarray(mask))
+    got = tbaos.calibrate(torch.from_numpy(k), torch.from_numpy(v), cfg_t,
+                          None if mask is None else torch.from_numpy(mask))
+    assert got._fields == want._fields
+    for name, g, w in zip(got._fields, got, want):
+        assert tuple(g.shape) == (2, 1, 3, 32) and g.dtype == torch.float32
+        if variant == "minmax" and name.endswith("center"):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                       atol=1e-6)
+
+
+def test_config_copy_matches():
+    """Same fields, same defaults."""
+    def fields(cfg):
+        return {f: getattr(cfg, f) for f in cfg.__dataclass_fields__}
+    assert fields(tbaos.BAOSConfig()) == fields(jbaos.BAOSConfig())
+
+
+@pytest.mark.parametrize("fmt", KV_FORMATS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smooth_quantize_bit_exact(fmt, dtype):
+    """core/baos.smooth_quantize (the kernel's plain version on the CPU)
+    vs repro.core.baos.smooth_quantize, the JAX model path."""
+    xt, c, f = _kv_inputs(2, 20, 3, 64, fmt, dtype, seed=KV_FORMATS.index(fmt))
+    xj = jnp.asarray(xt.float().numpy()).astype(getattr(jnp, dtype))
+    want = jbaos.smooth_quantize(xj, jnp.asarray(c), jnp.asarray(f),
+                                 jbaos.BAOSConfig(kv_format=fmt))
+    got = tbaos.smooth_quantize(xt, torch.from_numpy(c), torch.from_numpy(f),
+                                tbaos.BAOSConfig(kv_format=fmt))
+    assert got.dtype == xt.dtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("fmt", KV_FORMATS)
+def test_baos_plain_matches_pallas_and_oracle(fmt):
+    """The plain version of baos_mx_quant vs the Pallas kernel (interpret
+    mode, its (G, S, D) grid through ops.baos_quantize, S = 40 padded to
+    its tile) and the jnp oracle kernels/ref.baos_mx_quant_ref."""
+    B, S, H, D = 2, 40, 3, 64
+    xt, c, f = _kv_inputs(B, S, H, D, fmt, "float32", seed=20)
+    x = xt.numpy()
+    got = tbq.baos_mx_quant(xt, torch.from_numpy(c), torch.from_numpy(f),
+                            fmt).numpy()
+    kern = np.asarray(ops.baos_quantize(jnp.asarray(x), jnp.asarray(c),
+                                        jnp.asarray(f), fmt_name=fmt,
+                                        interpret=True))
+    g = lambda a: a.transpose(0, 2, 1, 3).reshape(B * H, -1, D)  # noqa: E731
+    oracle = np.asarray(ref.baos_mx_quant_ref(
+        jnp.asarray(g(x)), jnp.asarray(g(c)), jnp.asarray(g(f)), fmt))
+    np.testing.assert_array_equal(got, kern)
+    np.testing.assert_array_equal(g(got), oracle)
+
+
+def test_baos_writes_into_a_cache_slice():
+    """``out=`` a strided slice of a (B, s_tot, H, D) cache: the segment is
+    written in place and nothing else changes."""
+    xt, c, f = _kv_inputs(2, 8, 3, 32, "mxint4", "bfloat16", seed=30)
+    cache = torch.full((2, 20, 3, 32), 7.0, dtype=torch.bfloat16)
+    out = tbq.baos_mx_quant(xt, torch.from_numpy(c), torch.from_numpy(f),
+                            "mxint4", out=cache[:, 5:13])
+    want = tbq.baos_mx_quant_plain(xt, torch.from_numpy(c),
+                                   torch.from_numpy(f), "mxint4")
+    assert out.data_ptr() == cache[:, 5:13].data_ptr()
+    assert torch.equal(cache[:, 5:13], want)
+    assert bool((cache[:, :5] == 7).all()) and bool((cache[:, 13:] == 7).all())
+    with pytest.raises(ValueError):
+        tbq.baos_mx_quant(xt, torch.from_numpy(c)[:, :, :2],
+                          torch.from_numpy(f), "mxint4")
+
+
+def test_query_output_fusion_and_dequantize_match():
+    """scale_query, correct_output (GQA 6 query heads over 2 KV heads) and
+    dequantize_kv vs JAX."""
+    rs = np.random.RandomState(5)
+    cal = [rs.rand(2, 1, 2, 16).astype(np.float32) + 0.5 for _ in range(4)]
+    q = rs.randn(2, 5, 6, 16).astype(np.float32)
+    ks = rs.randn(2, 5, 2, 16).astype(np.float32)
+    vs = rs.randn(2, 5, 2, 16).astype(np.float32)
+    cj = jbaos.BAOSCalib(*(jnp.asarray(a) for a in cal))
+    ct = tbaos.BAOSCalib(*(torch.from_numpy(a) for a in cal))
+    pairs = [(tbaos.scale_query(torch.from_numpy(q), ct, 6),
+              jbaos.scale_query(jnp.asarray(q), cj, 6)),
+             (tbaos.correct_output(torch.from_numpy(q), ct, 6),
+              jbaos.correct_output(jnp.asarray(q), cj, 6))]
+    pairs += list(zip(tbaos.dequantize_kv(torch.from_numpy(ks),
+                                          torch.from_numpy(vs), ct),
+                      jbaos.dequantize_kv(jnp.asarray(ks), jnp.asarray(vs),
+                                          cj)))
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    ident = tbaos.identity_calib(2, 2, 16)
+    assert bool((ident.k_center == 0).all()) and bool((ident.v_scale == 1).all())
+
+
+def test_unported_kv_formats_raise():
+    """mxfp6/mxfp4 KV have no kernel: the configuration is refused (the
+    CPU plain version could compute them; the card could not)."""
+    for fmt in ("mxfp4_e2m1", "mxfp6_e3m2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbaos.check_supported(tbaos.BAOSConfig(kv_format=fmt))
+    tbaos.check_supported(tbaos.BAOSConfig(enabled=False, kv_format="mxfp4"))
+    for fmt in KV_FORMATS + ["int4", "int8", "fp8"]:
+        tbaos.check_supported(tbaos.BAOSConfig(kv_format=fmt))

@@ -1,9 +1,12 @@
 """The serving tick and greedy generate() of the PyTorch port vs the JAX
-package, both SMOKE configs, same weights (JAX init -> numpy -> bridge).
+package, both SMOKE configs, same weights (JAX init -> numpy -> bridge):
+cache modes none, dual and prefix, BAOS off and on, head paths fused,
+unfused and legacy, and a refine step started from a JAX cache.
 
 Greedy tokens must be equal.  The rule allows a difference only at a
-near-tie (the reference's top-2 gap < 1e-5); these seeds have none, so
-the checks are exact."""
+near-tie (the reference's top-2 gap < 1e-5, or with BAOS on one
+quantization step's effect, ~1e-3); these seeds have none, so the checks
+are exact."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,12 +14,16 @@ import pytest
 import torch
 
 from repro.configs import base as jbase
+from repro.core import baos as jbaos
 from repro.core import diffusion as jdiff
 from repro.models.registry import build_model as jbuild
 from repro_torch import bridge
 from repro_torch.configs import base as tbase
+from repro_torch.core import baos as tbaos
 from repro_torch.core import diffusion as tdiff
+from repro_torch.core import sampling as tsampling
 from repro_torch.models.registry import build_model as tbuild
+from repro_torch.serving import EngineConfig, ServingEngine
 
 torch.set_num_threads(1)
 
@@ -101,12 +108,102 @@ def test_state_machine_is_resumable(models):
         tdiff.step(model_t, params_t, s)
 
 
+def _baos(kv_format):
+    """(JAX, port) BAOSConfig: off for None, else minmax with kv_format."""
+    on = kv_format is not None
+    kw = dict(enabled=on, kv_format=kv_format or "mxint4")
+    return jbaos.BAOSConfig(**kw), tbaos.BAOSConfig(**kw)
+
+
+def _generate_both(models, cache_mode, prompt_seed=5, **kw):
+    model_j, model_t, params_j, params_t = models
+    prompt = np.random.RandomState(prompt_seed).randint(
+        0, model_t.cfg.vocab - 2, size=(2, 12)).astype(np.int32)
+    kw = dict(gen_length=16, block_length=8, steps_per_block=4, **kw)
+    baos = kw.pop("baos", (jbaos.BAOSConfig(enabled=False),
+                           tbaos.BAOSConfig(enabled=False)))
+    dj = jdiff.DiffusionConfig(cache_mode=cache_mode, baos=baos[0], **kw)
+    dt = tdiff.DiffusionConfig(cache_mode=cache_mode, baos=baos[1], **kw)
+    want = jdiff.generate(model_j, params_j, jnp.asarray(prompt), dj,
+                          rng=jax.random.PRNGKey(11))
+    got = tdiff.generate(model_t, params_t, torch.from_numpy(prompt), dt,
+                         seed=11)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("kv_format", [None, "mxint8", "mxint4"])
+@pytest.mark.parametrize("cache_mode", ["dual", "prefix"])
+def test_generate_cached_modes_match(models, cache_mode, kv_format):
+    """Warm step at each block's start (calibrating, with BAOS on, and
+    writing the smoothed MX cache), then refine steps over the block
+    (dual) or block + suffix (prefix)."""
+    got, want = _generate_both(models, cache_mode, baos=_baos(kv_format))
+    np.testing.assert_array_equal(got, want)
+    assert not (got == models[1].cfg.mask_id).any()
+
+
+@pytest.mark.parametrize("head_path", ["unfused", "legacy"])
+@pytest.mark.parametrize("cache_mode", ["none", "dual"])
+def test_generate_head_paths_match(models, cache_mode, head_path):
+    """Stable-Max over stored logits: the head applied to the active
+    block's hidden states (unfused) or full-sequence logits out of the
+    forward (legacy).  Greedy tokens equal JAX's (and so the fused path's,
+    which the tests above hold to JAX on the same prompt)."""
+    got, want = _generate_both(models, cache_mode, head_path=head_path)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("cache_mode", ["dual", "prefix"])
+def test_refine_step_from_a_jax_cache(models, cache_mode):
+    """JAX takes the warm step of block 0 (BAOS mxint4); the port's refine
+    step then starts from that very cache (bridge.cache_from_numpy).  The
+    refine feats, the cache it writes and the tokens it commits match
+    JAX's refine step from the same state."""
+    model_j, model_t, params_j, params_t = models
+    bj, bt = _baos("mxint4")
+    kw = dict(gen_length=16, block_length=8, steps_per_block=4)
+    dj = jdiff.DiffusionConfig(cache_mode=cache_mode, baos=bj, **kw)
+    dt = tdiff.DiffusionConfig(cache_mode=cache_mode, baos=bt, **kw)
+    prompt = np.random.RandomState(6).randint(
+        0, model_t.cfg.vocab - 2, size=(2, 12)).astype(np.int32)
+    sj = jdiff.init_state(model_j, jnp.asarray(prompt), dj,
+                          rng=jax.random.PRNGKey(0))
+    sj = jdiff.step(model_j, params_j, sj)                  # the warm step
+    cache_t = bridge.cache_from_numpy(jax.tree.map(np.asarray, sj.cache),
+                                      model_t.cfg, "cpu")
+    st = tdiff.init_state(model_t, torch.from_numpy(prompt), dt)
+    st = tdiff.DiffusionState(
+        x=torch.from_numpy(np.asarray(sj.x)), ks=st.ks, dcfg=dt,
+        mask_id=st.mask_id, prompt_len=12, cache=cache_t, ticks=1,
+        step_in_block=1)
+    suffix = 28 - 20 if cache_mode == "prefix" else 0
+    want, cache_j = jdiff.refine_step(model_j, params_j, sj.x, sj.cache,
+                                      jnp.int32(12), dj, suffix_len=suffix,
+                                      head_mode="hidden")
+    got = tdiff.step_forward(model_t, params_t, st)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    for name in ("k", "v"):
+        diff = np.abs(cache_t[name].numpy() - np.asarray(cache_j[name]))
+        assert (diff > 0).mean() <= 1e-3 and diff.max() <= 0.25, name
+    sj = jdiff.step(model_j, params_j, sj)
+    np.testing.assert_array_equal(tdiff.step(model_t, params_t, st).x.numpy(),
+                                  np.asarray(sj.x))
+
+
 def test_unported_modes_raise(models):
+    """Options still unported raise NotImplementedError pointing at the
+    ROADMAP: the random transfer strategy, sampling formats other than
+    none/bf16/mxfp8, KV formats without a kernel, and the megatick."""
     _, model_t, _, params_t = models
     prompt = torch.zeros((1, 4), dtype=torch.int32)
-    for kw in (dict(cache_mode="dual"), dict(cache_mode="prefix"),
-               dict(head_path="unfused"), dict(head_path="legacy"),
-               dict(baos_enabled=True)):
+    for kw in (dict(sampling=tsampling.SamplingConfig(strategy="random")),
+               dict(sampling=tsampling.SamplingConfig(fmt="mxint8")),
+               dict(cache_mode="dual",
+                    baos=tbaos.BAOSConfig(kv_format="mxfp4"))):
         dcfg = tdiff.DiffusionConfig(gen_length=8, block_length=8, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdiff.generate(model_t, params_t, prompt, dcfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(model_t, params_t, tdiff.DiffusionConfig(),
+                      EngineConfig(megatick_k=2))

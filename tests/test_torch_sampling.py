@@ -1,7 +1,9 @@
 """Sampling stage of the PyTorch port vs the JAX package: the
 counter-Gumbel stream, the fused LM head + Stable-Max (plain version vs
-the JAX oracle and the Pallas kernel in interpret mode), the top-k
-transfer mask, and the full fused sampling step."""
+the JAX oracle and the Pallas kernel in interpret mode), Stable-Max over
+stored logits (the plain version of kernels/stablemax_sampling.py vs
+stable_max and the Pallas kernel), the top-k transfer mask, and the full
+fused and unfused sampling steps."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,9 +11,10 @@ import pytest
 import torch
 
 from repro.core import sampling as js
-from repro.kernels import ops
+from repro.kernels import ops, ref
 from repro_torch.core import sampling as ts
 from repro_torch.kernels import fused_head_sampling as tfh
+from repro_torch.kernels import stablemax_sampling as tsm
 from repro_torch.kernels import topk_mask as ttk
 
 torch.set_num_threads(1)
@@ -130,6 +133,87 @@ def test_fused_head_logit_scale_rounds_through_the_activation_dtype():
     np.testing.assert_allclose(conf.numpy(), np.asarray(oc), rtol=1e-5)
 
 
+def _logits(R: int, V: int, dtype: str, seed: int, boost_col=None):
+    """Stored logits (R, V) for both packages, made as the head makes them
+    (``_head_inputs``), so MX blocks and near-ties look like the real
+    ones."""
+    ht, wt, hj, wj = _head_inputs(R, 32, V, dtype, seed, boost_col)
+    return ts.head_logits(ht, wt), js.head_logits(hj, wj)
+
+
+@pytest.mark.parametrize("suppress", [None, 7])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stablemax_plain_matches_pallas(suppress, dtype):
+    """No fake-quant (the Pallas kernel has none): the plain version vs the
+    Pallas kernel in interpret mode (R = 13 and V = 1000, both padded to
+    its tiles) and the jnp oracle kernels/ref.stablemax_sampling_ref.
+    Tokens equal; conf to 1e-5 (the exp-sums run in other orders)."""
+    zt, zj = _logits(13, 1000, dtype, seed=2, boost_col=suppress)
+    conf, tok = tsm.stablemax_sampling(zt, suppress_id=suppress)
+    kc, kt = ops.fused_sampling(zj, suppress_id=suppress, interpret=True)
+    oc, ot = ref.stablemax_sampling_ref(zj, suppress_id=suppress)
+    for c_ref, t_ref in ((kc, kt), (oc, ot)):
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(t_ref))
+        np.testing.assert_allclose(conf.numpy(), np.asarray(c_ref),
+                                   rtol=1e-5)
+    if suppress is not None:
+        assert not bool((tok == suppress).any())
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "mxfp8_e4m3"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stable_max_matches_jax(fmt, dtype):
+    """Greedy stable_max with the sampling fake-quant, (2, 5, V) logits
+    (leading dims flattened), the suppressed id still in its MX block."""
+    zt, zj = _logits(10, 1000, dtype, seed=3, boost_col=7)
+    zt, zj = zt.reshape(2, 5, -1), zj.reshape(2, 5, -1)
+    conf, tok = ts.stable_max(zt, fmt, suppress_id=7)
+    oc, ot = js.stable_max(zj, fmt, suppress_id=7)
+    assert tuple(tok.shape) == (2, 5) and tok.dtype == torch.int32
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(ot))
+    np.testing.assert_allclose(conf.numpy(), np.asarray(oc), rtol=1e-5)
+
+
+@pytest.mark.parametrize("fmt", ["none", "mxfp8_e4m3"])
+def test_stable_max_gumbel_matches_the_fused_stream(fmt):
+    """temperature > 0: the port draws counter_gumbel with its seed (JAX's
+    stable_max draws jax.random.gumbel), so stable_max on the stored
+    logits must equal JAX's fused-head oracle fed the same seed."""
+    R, d, V = 13, 32, 1000
+    ht, wt, hj, wj = _head_inputs(R, d, V, "float32", seed=4)
+    key = jax.random.PRNGKey(9)
+    seed = int(js.gumbel_seed(key))
+    conf, tok = ts.stable_max(ts.head_logits(ht, wt), fmt, seed, 0.8,
+                              suppress_id=3)
+    oc, ot = js.fused_head_stable_max(hj, wj, fmt, rng=key, temperature=0.8,
+                                      suppress_id=3, chunk_v=256)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(ot))
+    np.testing.assert_allclose(conf.numpy(), np.asarray(oc), rtol=1e-5)
+    greedy = ts.stable_max(ts.head_logits(ht, wt), fmt, None, 0.8)[1]
+    assert not torch.equal(greedy, tok)     # no seed: greedy, as in JAX
+
+
+@pytest.mark.parametrize("fmt", ["none", "mxfp8_e4m3"])
+def test_sampling_step_full_matches_jax(fmt):
+    """Stored block logits (B, L, V) -> (tokens, transfer, conf) of one
+    greedy step, committed tokens kept, mask id suppressed."""
+    B, L, V, mask_id = 3, 8, 300, 299
+    zt, zj = _logits(B * L, V, "float32", seed=12)
+    rs = np.random.RandomState(13)
+    x = rs.randint(0, V - 1, size=(B, L)).astype(np.int32)
+    x[rs.rand(B, L) < 0.6] = mask_id
+    k = np.array([2, 0, 5], np.int32)
+    nx, tr, cf = ts.sampling_step_full(
+        zt.reshape(B, L, V), torch.from_numpy(x), mask_id,
+        torch.from_numpy(k), ts.SamplingConfig(fmt=fmt))
+    jx, jtr, jcf = js.sampling_step_full(
+        zj.reshape(B, L, V), jnp.asarray(x), mask_id, jnp.asarray(k),
+        js.SamplingConfig(fmt=fmt))
+    np.testing.assert_array_equal(nx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jtr))
+    np.testing.assert_allclose(cf.numpy(), np.asarray(jcf), rtol=1e-5)
+
+
 @pytest.mark.parametrize("B,L", [(2, 16), (5, 32), (8, 64), (3, 7)])
 @pytest.mark.parametrize("ties", [False, True])
 def test_topk_plain_matches_jax(B, L, ties):
@@ -197,3 +281,5 @@ def test_unported_sampling_options_raise():
                 ts.SamplingConfig(fmt="mxint8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ts.fused_sampling_step_full(h, w, x, 7, k, cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ts.sampling_step_full(torch.zeros(1, 2, 8), x, 7, k, cfg)

@@ -1,6 +1,7 @@
 """ServingEngine of the PyTorch port vs the JAX engine: modes 'none' and
-'warm' on a mixed-length trace (2 slots, 4 requests, all arriving at 0 so
-admission does not depend on the wall clock).  Final tokens and every
+'warm' (also with BAOS, and on the unfused and legacy head paths) on a
+mixed-length trace (2 slots, 4 requests, all arriving at 0 so admission
+does not depend on the wall clock).  Final tokens and every
 CommitEvent (tick, block/step, positions, tokens, masks_left, done,
 final row) must be equal; ``now`` is wall-clock and is not compared."""
 import jax
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from repro.configs import base as jbase
+from repro.core import baos as jbaos
 from repro.core import diffusion as jdiff
 from repro.models.registry import build_model as jbuild
 from repro.serving import EngineConfig as JEngineConfig
@@ -16,6 +18,7 @@ from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JEngine
 from repro_torch import bridge
 from repro_torch.configs import base as tbase
+from repro_torch.core import baos as tbaos
 from repro_torch.core import diffusion as tdiff
 from repro_torch.models.registry import build_model as tbuild
 from repro_torch.serving import (EngineConfig, Request, ServingEngine,
@@ -55,16 +58,20 @@ def _run(engine, make_request, trace):
     return {c.uid: c.tokens.tolist() for c in done}, rows
 
 
-@pytest.mark.parametrize("mode", ["none", "warm"])
-def test_engine_matches_jax_engine(models, mode):
+def _compare_engines(models, mode, baos=None, **dcfg_kw):
+    """Run the same trace through both engines; tokens, CommitEvents and
+    tick counts must be equal.  ``baos`` is a BAOSConfig field dict."""
     model_j, model_t, params_j, params_t = models
-    kw = dict(gen_length=16, block_length=8, steps_per_block=4)
+    kw = dict(gen_length=16, block_length=8, steps_per_block=4, **dcfg_kw)
+    bj = jbaos.BAOSConfig(**baos) if baos else jbaos.BAOSConfig(enabled=False)
+    bt = tbaos.BAOSConfig(**baos) if baos else tbaos.BAOSConfig(enabled=False)
     trace = _trace(model_t.cfg.vocab)
     eng_j = JEngine(model_j, params_j,
-                    jdiff.DiffusionConfig(cache_mode="none", **kw),
+                    jdiff.DiffusionConfig(cache_mode="none", baos=bj, **kw),
                     JEngineConfig(num_slots=2, max_seq_len=48, mode=mode,
                                   rng=jax.random.PRNGKey(0)))
-    eng_t = ServingEngine(model_t, params_t, tdiff.DiffusionConfig(**kw),
+    eng_t = ServingEngine(model_t, params_t,
+                          tdiff.DiffusionConfig(baos=bt, **kw),
                           EngineConfig(num_slots=2, max_seq_len=48,
                                        mode=mode))
     tok_j, ev_j = _run(eng_j, JRequest, trace)
@@ -74,6 +81,29 @@ def test_engine_matches_jax_engine(models, mode):
     assert eng_t.ticks_total == eng_j.ticks_total
     for toks in tok_t.values():
         assert model_t.cfg.mask_id not in toks
+
+
+@pytest.mark.parametrize("mode", ["none", "warm"])
+def test_engine_matches_jax_engine(models, mode):
+    _compare_engines(models, mode)
+
+
+@pytest.mark.parametrize("baos", [
+    dict(kv_format="mxint4"),
+    dict(kv_format="mxfp8_e4m3", calib_scope="active_block"),
+    dict(kv_format="mxint8", variant="mean")],
+    ids=["mxint4", "mxfp8-active_block", "mxint8-mean"])
+def test_warm_engine_with_baos_matches_jax_engine(models, baos):
+    """Every warm tick recalibrates over the pool (idle and padding rows
+    included, as JAX does; or each row's active block) and writes the
+    smoothed MX cache through the BAOS kernel's plain version."""
+    _compare_engines(models, "warm", baos=baos)
+
+
+@pytest.mark.parametrize("mode,head_path", [("warm", "unfused"),
+                                            ("none", "legacy")])
+def test_engine_head_paths_match_jax_engine(models, mode, head_path):
+    _compare_engines(models, mode, head_path=head_path)
 
 
 def test_one_slot_engine_equals_generate(models):
