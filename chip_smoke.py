@@ -11,7 +11,11 @@ Phases, each fatal on failure:
                at the main path's shapes, with its time, the plain
                version's, a one-call PyTorch yardstick's and its bound
                (baos_mx_quant bit for bit, stablemax_sampling and the
-               fused head within the near-tie rule);
+               fused head within the near-tie rule on every fmt, T and
+               R in {16, 64, 200}, flash_bidir within one bf16 ulp +
+               1e-6); the f32 routes of the fused head and flash_bidir
+               at a small shape; the profiler's device time of each
+               kernel and of its library yardstick;
   3. e2e    -- llada-8b at full width (32 layers, d 4096, bf16, seeded
                random weights): one-slot generate in cache mode none,
                stepped through tick_forward and tick_sample, and in modes
@@ -130,57 +134,96 @@ def near_ties(z, tok, temperature, seed, rows):
     return ((zmax - zk).abs() <= 1e-2 * zmax.abs()).tolist()
 
 
-def check_head(widths, temperature, seed, gen, fmt="mxfp8_e4m3", R=64):
-    """Kernel vs plain at R rows; returns (rows that differ, rows,
-    max abs conf error on agreeing rows, inputs)."""
+def check_head(h, w, mid, fmt, temperature, seed):
+    """Kernel vs plain on hidden h (R, d) and head w (d, V); returns (rows
+    that differ, max abs conf error on agreeing rows).  Every differing
+    row must be a near-tie, and conf within 1e-2 relative."""
     from repro_torch.kernels import fused_head_sampling as fhs
-    d, V, mid = widths["d"], widths["V"], widths["mask_id"]
-    h = torch.randn(R, d, generator=gen, device=DEVICE).to(torch.bfloat16)
-    w = (torch.randn(d, V, generator=gen, device=DEVICE)
-         * (2.0 / (d + V)) ** 0.5 * 8).to(torch.bfloat16)
+    R, d = h.shape
     kw = dict(fmt=fmt, suppress_id=mid, temperature=temperature, seed=seed)
     conf_k, tok_k = fhs.fused_head_sampling(h, w, **kw)
     conf_p, tok_p = fhs.fused_head_stable_max(
         h, w, fmt, suppress_id=mid, temperature=temperature, seed=seed)
     torch.cuda.synchronize()
+    what = f"fused head {h.dtype} R={R} d={d} {fmt} T={temperature}"
     same = tok_k == tok_p
     diff_rows = torch.nonzero(~same).flatten().tolist()
     if diff_rows:
         z = head_logits_f32(h[diff_rows], w, fmt, mid)
         near = near_ties(z, tok_k[diff_rows], temperature, seed, diff_rows)
-        require(all(near), f"fused head d={d}: tokens differ off a near-tie "
-                           f"in rows {diff_rows}")
+        require(all(near), f"{what}: tokens differ off a near-tie in rows "
+                           f"{diff_rows}")
     err = (conf_k - conf_p).abs()[same]
     rel = (err / conf_p.abs()[same])
     require(bool((rel <= 1e-2).all()),
-            f"fused head d={d}: conf rel err {float(rel.max()):.3g} > 1e-2")
-    return len(diff_rows), R, float(err.max()), (h, w, kw)
+            f"{what}: conf rel err {float(rel.max()):.3g} > 1e-2")
+    return len(diff_rows), float(err.max())
+
+
+def random_head(widths, gen, dtype=torch.bfloat16):
+    d, V = widths["d"], widths["V"]
+    return (torch.randn(d, V, generator=gen, device=DEVICE)
+            * (2.0 / (d + V)) ** 0.5 * 8).to(dtype)
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each value of bf16 x (8 significant bits; 0 at 0)."""
+    _, e = torch.frexp(x.float())
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+    return torch.where(x == 0, 0.0, ulp)
 
 
 def phase_kernels(gen) -> dict:
     import torch.nn.functional as F
+    from repro_torch.core import sampling
     from repro_torch.kernels import flash_bidir as fb
     from repro_torch.kernels import fused_head_sampling as fhs
     from repro_torch.kernels import topk_mask as tk
     out = {}
 
-    # fused head: llada widths greedy (the main path) and T > 0, qwen2
+    # fused head, bf16 (tensor cores): llada and qwen2 widths, R 16 (one
+    # generate block), 64 (the engine's 4 x 16, the main path) and 200
+    # (four row groups), greedy and T = 0.8, every sampling fmt
     n_diff = n_rows = 0
-    head_err = 0.0
-    for widths, temperature in ((LLADA, 0.0), (LLADA, 0.8), (QWEN2, 0.0)):
-        nd, nr, err, inputs = check_head(widths, temperature, 1234, gen)
-        n_diff, n_rows = n_diff + nd, n_rows + nr
-        log(f"fused_head d={widths['d']} V={widths['V']} T={temperature}: "
-            f"rows differing {nd}/{nr}, conf max abs err {err:.3g}")
-        if widths is LLADA and temperature == 0.0:
-            main_inputs, head_err = inputs, err
+    for widths in (LLADA, QWEN2):
+        w = random_head(widths, gen)
+        for R in (16, 64, 200):
+            h = torch.randn(R, widths["d"], generator=gen,
+                            device=DEVICE).to(torch.bfloat16)
+            for fmt in sampling.SUPPORTED_FMTS:
+                for temperature in (0.0, 0.8):
+                    nd, err = check_head(h, w, widths["mask_id"], fmt,
+                                         temperature, 1234)
+                    n_diff, n_rows = n_diff + nd, n_rows + R
+                    log(f"fused_head bf16 d={widths['d']} V={widths['V']} "
+                        f"R={R} {fmt} T={temperature}: rows differing "
+                        f"{nd}/{R}, conf max abs err {err:.3g}")
+                    if (widths is LLADA and R == 64 and temperature == 0.0
+                            and fmt == "mxfp8_e4m3"):
+                        main_inputs, head_err = (h, w), err
+        del w
     require(n_diff <= 0.01 * n_rows,
             f"fused head: {n_diff}/{n_rows} rows differ (> 1%)")
-    h, w, kw = main_inputs
+    # the f32 route (CUDA cores) at a small shape
+    w = random_head(dict(d=256, V=3000), gen, torch.float32)
+    h = torch.randn(24, 256, generator=gen, device=DEVICE)
+    for fmt in sampling.SUPPORTED_FMTS:
+        for temperature in (0.0, 0.8):
+            nd, err = check_head(h, w, 2999, fmt, temperature, 99)
+            log(f"fused_head f32 (24, 256) @ (256, 3000) {fmt} "
+                f"T={temperature}: rows differing {nd}/24, conf max abs "
+                f"err {err:.3g}")
+    h, w = main_inputs
+    kw = dict(fmt="mxfp8_e4m3", suppress_id=LLADA["mask_id"])
     R, d = h.shape
     V = w.shape[1]
     b_ms, b_by = bound(R * d * 2 + d * V * 2 + R * 8, 2.0 * R * d * V,
                        BF16_FLOPS)
+    log(f"fused_head bf16 ({R}, {d}) @ ({d}, {V}) mxfp8 greedy device "
+        f"time (profiler) {device_ms(lambda: fhs.fused_head_sampling(h, w, **kw), 20):.4f}"
+        f" ms per call (partials + combine), bound {b_ms:.4f} ms; "
+        f"torch.matmul(h, w) {device_ms(lambda: torch.matmul(h, w), 20):.4f}"
+        f" ms")
     out["fused_head_sampling"] = dict(
         max_abs_err=head_err,
         ms=time_ms(lambda: fhs.fused_head_sampling(h, w, **kw), 20),
@@ -188,6 +231,7 @@ def phase_kernels(gen) -> dict:
             h, w, kw["fmt"], suppress_id=kw["suppress_id"]), 5),
         library_ms=time_ms(lambda: torch.matmul(h, w), 20),
         bound_ms=b_ms, bound_by=b_by)
+    del h, w, main_inputs
 
     # top-k: main path (4, 16) and (8, 64), ties forced
     for R, L in ((4, 16), (8, 64)):
@@ -214,47 +258,76 @@ def phase_kernels(gen) -> dict:
         plain_ms=time_ms(lambda: tk.topk_mask_plain(conf, mask, k), 50),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
-    # attention: main path (warm tick: ragged kv_valid), GQA, BAOS + window
-    for (B, S, Hq, Hkv, D, baos, win) in ((4, 96, 32, 32, 128, False, None),
-                                         (4, 96, 14, 2, 64, False, None),
-                                         (2, 80, 32, 32, 128, True, 17)):
+    # attention, bf16 (tensor cores): main path (warm tick: ragged
+    # kv_valid), GQA, BAOS + window, D 32, a batch row with no valid key
+    # (every key counts), a refine segment (16 query rows at positions 40..
+    # over a 96-long cache) and a long sequence that runs the K/V ring over
+    # 32 tiles; each within one bf16 ulp of the plain value + 1e-6
+    for (B, S, Sk, Hq, Hkv, D, baos, win, off, lens) in (
+            (4, 96, 96, 32, 32, 128, False, None, 0, (96, 48, 37, 1)),
+            (4, 96, 96, 14, 2, 64, False, None, 0, (96, 48, 37, 1)),
+            (2, 80, 80, 32, 32, 128, True, 17, 0, (80, 40)),
+            (4, 96, 96, 8, 4, 32, True, 9, 0, (96, 48, 37, 1)),
+            (3, 64, 64, 8, 8, 64, False, None, 0, (0, 64, 33)),
+            (2, 16, 96, 32, 32, 128, False, 9, 40, (96, 48)),
+            (1, 1024, 1024, 32, 32, 128, False, None, 0, (1024,))):
         q = torch.randn(B, S, Hq, D, generator=gen, device=DEVICE).bfloat16()
-        kk = torch.randn(B, S, Hkv, D, generator=gen, device=DEVICE).bfloat16()
-        v = torch.randn(B, S, Hkv, D, generator=gen, device=DEVICE).bfloat16()
-        lens = torch.tensor([S, S // 2, 37, 1][:B], device=DEVICE)
-        valid = torch.arange(S, device=DEVICE)[None, :] < lens[:, None]
+        kk = torch.randn(B, Sk, Hkv, D, generator=gen, device=DEVICE).bfloat16()
+        v = torch.randn(B, Sk, Hkv, D, generator=gen, device=DEVICE).bfloat16()
+        valid = torch.arange(Sk, device=DEVICE)[None, :] < torch.tensor(
+            lens, device=DEVICE)[:, None]
         cal = [None] * 3
         if baos:
             cal = [torch.rand(B, Hkv, D, generator=gen, device=DEVICE) + 0.5,
                    torch.rand(B, Hkv, D, generator=gen, device=DEVICE) + 0.5,
                    torch.randn(B, Hkv, D, generator=gen, device=DEVICE)]
-        got = fb.flash_bidir(q, kk, v, valid, *cal, window=win)
-        want = fb.flash_bidir_plain(q, kk, v, valid, *cal, window=win)
+        got = fb.flash_bidir(q, kk, v, valid, *cal, window=win, q_offset=off)
+        want = fb.flash_bidir_plain(q, kk, v, valid, *cal, window=win,
+                                    q_offset=off)
         err = (got.float() - want.float()).abs()
-        tol = 2e-2 + 2e-2 * want.float().abs()
-        log(f"flash_bidir B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} baos={baos} "
-            f"window={win}: max abs err {float(err.max()):.3g}")
-        require(bool((err <= tol).all()),
-                f"flash_bidir {(B, S, Hq, Hkv, D)} outside atol/rtol 2e-2")
-        if Hq == 32 and not baos:
+        excess = float((err - bf16_ulp(want)).max())
+        log(f"flash_bidir bf16 B={B} Sq={S} Skv={Sk} Hq={Hq} Hkv={Hkv} D={D} "
+            f"baos={baos} window={win} q_offset={off} kv_valid lengths "
+            f"{lens}: max abs err "
+            f"{float(err.max()):.3g}, max err beyond one bf16 ulp "
+            f"{excess:.3g}")
+        require(excess <= 1e-6, f"flash_bidir {(B, S, Sk, Hq, Hkv, D)} "
+                                f"beyond one bf16 ulp + 1e-6")
+        if (B, S, Hq, D) == (4, 96, 32, 128):
             main_attn = (q, kk, v, valid, float(err.max()))
-    # a refine segment: 16 query rows at positions 40.. over the cache
-    q = torch.randn(2, 16, 32, 128, generator=gen, device=DEVICE).bfloat16()
-    kk = torch.randn(2, 96, 32, 128, generator=gen, device=DEVICE).bfloat16()
-    v = torch.randn(2, 96, 32, 128, generator=gen, device=DEVICE).bfloat16()
-    got = fb.flash_bidir(q, kk, v, window=9, q_offset=40)
-    want = fb.flash_bidir_plain(q, kk, v, window=9, q_offset=40)
-    err = (got.float() - want.float()).abs()
-    log(f"flash_bidir segment Sq=16 at offset 40, Skv=96, window=9: max abs "
-        f"err {float(err.max()):.3g}")
-    require(bool((err <= 2e-2 + 2e-2 * want.float().abs()).all()),
-            "flash_bidir with q_offset outside atol/rtol 2e-2")
+    # the f32 route (CUDA cores) at a small shape, BAOS, window, kv_valid
+    q = torch.randn(2, 40, 4, 64, generator=gen, device=DEVICE)
+    kk = torch.randn(2, 40, 2, 64, generator=gen, device=DEVICE)
+    v = torch.randn(2, 40, 2, 64, generator=gen, device=DEVICE)
+    valid = torch.arange(40, device=DEVICE)[None, :] < torch.tensor(
+        [[40], [0]], device=DEVICE)
+    cal = [torch.rand(2, 2, 64, generator=gen, device=DEVICE) + 0.5,
+           torch.rand(2, 2, 64, generator=gen, device=DEVICE) + 0.5,
+           torch.randn(2, 2, 64, generator=gen, device=DEVICE)]
+    got = fb.flash_bidir(q, kk, v, valid, *cal, window=7, q_offset=3)
+    want = fb.flash_bidir_plain(q, kk, v, valid, *cal, window=7, q_offset=3)
+    err = float((got - want).abs().max())
+    log(f"flash_bidir f32 (2, 40, 4, 2, 64) baos window=7 q_offset=3: max "
+        f"abs err {err:.3g} (max |out| {float(want.abs().max()):.3g})")
+    require(err <= 1e-5 * float(want.abs().max()),
+            "flash_bidir f32 route differs from plain beyond 1e-5 of max|out|")
     q, kk, v, valid, attn_err = main_attn
     B, S, Hq, D = q.shape
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
     sdpa_mask = valid[:, None, None, :]
-    b_ms, b_by = bound(4 * q.numel() * 2 + valid.numel(),
-                       4.0 * B * Hq * S * S * D, BF16_FLOPS)
+    # what this run's data needs: q and out, and K and V at the keys that
+    # count (the valid ones, or every key of a row without a valid key)
+    n_keys = int(torch.where(valid.any(1), valid.sum(1), S).sum())
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * n_keys * kk.shape[2] * D * 2
+                       + valid.numel(), 4.0 * Hq * S * n_keys * D,
+                       BF16_FLOPS)
+    log(f"flash_bidir bf16 (4, 96, 32, 32, 128) kv_valid device time "
+        f"(profiler) {device_ms(lambda: fb.flash_bidir(q, kk, v, valid), 50):.4f}"
+        f" ms per call (all keys valid: "
+        f"{device_ms(lambda: fb.flash_bidir(q, kk, v), 50):.4f} ms), bound "
+        f"{b_ms:.4f} ms; scaled_dot_product_attention "
+        f"{device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask), 50):.4f}"
+        f" ms")
     out["flash_bidir"] = dict(
         max_abs_err=attn_err,
         ms=time_ms(lambda: fb.flash_bidir(q, kk, v, valid), 50),

@@ -1,9 +1,10 @@
 // Helpers shared by the port's CUDA kernels: dtype conversion, warp
 // reductions, the constants the Pallas kernels use (-1e30 for a masked
 // score, 2^30 for "no index"), the counter-based Gumbel stream, the MX
-// fake-quant of one 32-wide block per warp, and the merge of per-tile
-// Stable-Max partials.  Every reduction leaves its result in all 32 lanes,
-// taken from lane 0 so the lanes agree bit for bit.
+// fake-quant of one 32-wide block per warp, the merge of per-tile
+// Stable-Max partials, and PTX wrappers for cp.async, ldmatrix and
+// mma.sync (bf16 in, f32 accumulate).  Every reduction leaves its result
+// in all 32 lanes, taken from lane 0 so the lanes agree bit for bit.
 //
 // No fast-math anywhere: the MX exponent rule ceil(log2(amax / grid_max))
 // and the Gumbel log must call the full-precision log2f/logf that
@@ -120,6 +121,15 @@ __device__ __forceinline__ float quant_element(float y, int fmt) {
   return __fmul_rn(fminf(fmaxf(r, lo), hi), 1.f / step);
 }
 
+// The shared power-of-two scale of an MX block whose largest magnitude is
+// amax: 2^clip(ceil(log2(amax / grid_max)), -127, 127), or 1 for amax 0.
+__device__ __forceinline__ float mx_block_scale(float amax, int fmt) {
+  if (!(amax > 0.f)) return 1.f;
+  float e = ceilf(log2f(amax / grid_max(fmt)));
+  e = fminf(fmaxf(e, -127.f), 127.f);
+  return exp2f(e);
+}
+
 // Fake-quant of one value per lane; the warp's 32 lanes are one MX block
 // (pad lanes hold 0).  Must be called by all 32 lanes together.  The result
 // is rounded to T, as core/mx.mx_fake_quant returns its input's dtype.
@@ -127,14 +137,67 @@ template <typename T>
 __device__ __forceinline__ float fake_quant(float v, int fmt) {
   if (fmt == FMT_NONE) return v;
   if (fmt == FMT_BF16) return round_to<T>(round_to<__nv_bfloat16>(v));
-  const float amax = warp_max(fabsf(v));
-  float scale = 1.f;
-  if (amax > 0.f) {
-    float e = ceilf(log2f(amax / grid_max(fmt)));
-    e = fminf(fmaxf(e, -127.f), 127.f);
-    scale = exp2f(e);
-  }
+  const float scale = mx_block_scale(warp_max(fabsf(v)), fmt);
   return round_to<T>(__fmul_rn(quant_element(v / scale, fmt), scale));
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies and tensor-core tiles (cp.async, ldmatrix, mma.sync)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1.  With ok false nothing is read
+// and the 16 bytes are zero-filled (src must still be a valid address).
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8, and register i receives matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The same, each matrix transposed on the way into the registers.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col) in bf16 with f32 accumulation.
+// Fragments (g = lane / 4, c = lane % 4): a = {A[g][2c..], A[g+8][2c..],
+// A[g][2c+8..], A[g+8][2c+8..]}, b = {B[2c..][g], B[2c+8..][g]},
+// d = {C[g][2c], C[g][2c+1], C[g+8][2c], C[g+8][2c+1]}.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

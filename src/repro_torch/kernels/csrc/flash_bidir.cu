@@ -14,15 +14,34 @@
 //
 // What bounds it: at the main-path shape (B 4, S 96, H 32, D 128, bf16) one
 // layer moves 12.6 MB (q, k, v, out) and does 0.6 GFLOP, so the card could
-// finish it in about 4 us (bytes).  This first version runs the two products with
-// f32 FMAs from shared memory on the CUDA cores and is bound by those
-// operations; mma/wgmma tiles are the next step.
+// finish it in about 4 us (bytes).
 //
-// Design: one CTA per (q tile of 16 rows, q head, batch row), 4 warps, each
-// warp owning 4 query rows.  Per 32-key tile the K and V tiles are staged
-// in shared memory as f32 (K padded against bank conflicts); lane j scores
-// key j, the row max and sum are warp shuffles, and each lane accumulates
-// D/32 output dimensions, broadcasting p_j by shuffle.
+// bf16 route, on the tensor cores (mma.sync m16n8k16, f32 accumulate):
+//   * One CTA per (q tile, KV head, batch row).  The G query heads of a KV
+//     head are one tile of G * Sq rows (row r: position r / G, head
+//     hk * G + r % G), so they share each K/V tile in shared memory; up to
+//     8 warps of 16 rows each.  At the main shape that is 128 CTAs of 6
+//     warps, one wave.
+//   * K and V stream through a 3-stage cp.async ring of 32-key tiles (keys
+//     past Skv zero-filled); K feeds the score product through ldmatrix,
+//     V the output product through ldmatrix.trans.
+//   * The Pallas kernel keeps q, k and v in f32 and runs both products in
+//     f32.  Here K and V are bf16 and exact.  Without BAOS q is bf16 and
+//     exact too: the score product is one bf16 product, f32-accumulated,
+//     and D^-1/2 scales the f32 scores.  With BAOS, q * f_k (f32) and in
+//     every case the f32 probabilities P are split into SPLIT bf16 terms
+//     (x = t0 + t1 + ..., t_i = bf16(x - t0 - ... - t_(i-1))), and every
+//     term runs through the tensor cores into the same f32 accumulator.
+//     Three terms carry 24 bits, the f32 significand, so the products keep
+//     the Pallas kernel's function.  P is the score accumulator reused as
+//     the A fragment (FA2), so it never leaves registers.
+//   * What bounds it on the card: the products at the mma.sync rate, three
+//     of them per P tile.
+//   * Online softmax per row in f32 (row max and sum over the quad),
+//     out * (1 / max(l, 1e-30)) * f_v + c_v in f32, rounded once.
+// f32 route, on the CUDA cores (TF32 would change its arithmetic): one CTA
+// per (16-row q tile, q head, batch row), K/V tiles staged as f32, lane j
+// scoring key j with f32 FMAs.
 #include "common.cuh"
 
 namespace {
@@ -131,41 +150,372 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DPL>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* kv_valid, const void* fk, const void* fv,
-                   const void* cv, void* out, int B, int Sq, int Skv, int Hq,
-                   int Hkv, float scale, int window, int q_offset,
-                   cudaStream_t stream) {
+template <int DPL>
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       const unsigned char* kv_valid, const float* fk,
+                       const float* fv, const float* cv, float* out, int B,
+                       int Sq, int Skv, int Hq, int Hkv, float scale,
+                       int window, int q_offset, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_bidir_kernel<T, DPL><<<grid, 32 * WARPS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const unsigned char*>(kv_valid),
-      static_cast<const float*>(fk), static_cast<const float*>(fv),
-      static_cast<const float*>(cv), static_cast<T*>(out), Sq, Skv, Hq, Hkv,
-      scale, window, q_offset);
+  flash_bidir_kernel<float, DPL><<<grid, 32 * WARPS, 0, stream>>>(
+      q, k, v, kv_valid, fk, fv, cv, out, Sq, Skv, Hq, Hkv, scale, window,
+      q_offset);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const void* kv_valid, const void* fk, const void* fv,
-                       const void* cv, void* out, int B, int Sq, int Skv,
-                       int Hq, int Hkv, float scale, int window,
-                       int q_offset, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 1>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, Skv, Hq,
-                          Hkv, scale, window, q_offset, stream);
-    case 64:
-      return launch<T, 2>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, Skv, Hq,
-                          Hkv, scale, window, q_offset, stream);
-    case 128:
-      return launch<T, 4>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, Skv, Hq,
-                          Hkv, scale, window, q_offset, stream);
-    default:
-      return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores, split-bf16 operands
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_BKV = 32;       // keys per stage
+constexpr int TC_STAGES = 3;
+constexpr int TC_MAX_WARPS = 8;  // 16 query rows each
+constexpr int SPLIT = 3;         // bf16 terms of an f32 operand
+
+// The next split term of (x0, x1) as one bf16x2 register; x0, x1 keep the
+// residual (exact in f32).
+__device__ __forceinline__ uint32_t split_term(float& x0, float& x1) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(x0, x1);
+  x0 -= __low2float(t);
+  x1 -= __high2float(t);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// Dynamic shared memory of one CTA of `warps` warps with QS terms of q, in
+// bytes: the K and V rings, each warp's q terms and the three BAOS vectors.
+template <int D, int QS>
+constexpr int tc_smem_bytes(int warps) {
+  return (2 * TC_STAGES * TC_BKV + warps * QS * 16) * (D + 8) * 2 + 3 * D * 4;
+}
+
+// QS is the number of bf16 terms of the query operand: 1 without BAOS (q is
+// bf16 and exact, D^-1/2 scales the f32 scores), SPLIT with f_k (q * f_k
+// is f32).
+template <int D, int QS>
+__global__ void __launch_bounds__(32 * TC_MAX_WARPS, 1)
+flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const unsigned char* __restrict__ kv_valid,
+                      const float* __restrict__ fk,
+                      const float* __restrict__ fv,
+                      const float* __restrict__ cv, bf16* __restrict__ out,
+                      int Sq, int Skv, int Hq, int Hkv, float scale,
+                      int window, int q_offset) {
+  constexpr int DP = D + 8;      // shared rows padded by 16 bytes: ldmatrix's
+  //                                eight row addresses hit eight bank groups
+  constexpr int KT = D / 16;     // depth steps of the score product
+  constexpr int NT = D / 8;      // 8-column tiles of the output
+  constexpr int KV_STAGE = TC_BKV * DP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);    // [STAGES][BKV][DP]
+  bf16* vs = ks + TC_STAGES * KV_STAGE;            // [STAGES][BKV][DP]
+  bf16* qs = vs + TC_STAGES * KV_STAGE;            // [warps][QS][16][DP]
+
+  const int G = Hq / Hkv, hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3, nwarps = blockDim.x >> 5;
+  const int n_rows = G * Sq;
+  const int row0 = (blockIdx.x * nwarps + warp) * 16;
+  const size_t cal = (static_cast<size_t>(b) * Hkv + hk) * D;
+  const int n_t = (Skv + TC_BKV - 1) / TC_BKV;
+  float* cals = reinterpret_cast<float*>(qs + nwarps * QS * 16 * DP);
+  //                                                 [3][D]: f_k, f_v, c_v
+
+  auto load_kv = [&](int t) {
+    bf16* kd = ks + (t % TC_STAGES) * KV_STAGE;
+    bf16* vd = vs + (t % TC_STAGES) * KV_STAGE;
+    for (int e = tid; e < TC_BKV * (D / 8); e += blockDim.x) {
+      const int j = e / (D / 8), dc = (e % (D / 8)) * 8, key = t * TC_BKV + j;
+      const bool ok = key < Skv;
+      const size_t o =
+          ok ? ((static_cast<size_t>(b) * Skv + key) * Hkv + hk) * D + dc : 0;
+      cp_async_16(smem_addr(kd + j * DP + dc), k + o, ok);
+      cp_async_16(smem_addr(vd + j * DP + dc), v + o, ok);
+    }
+  };
+
+  // group 0: this warp's 16 q rows (raw, into the slot of term 0; rows past
+  // G * Sq zero-filled), the BAOS vectors and K/V tile 0
+  bf16* qw = qs + warp * QS * 16 * DP;
+#pragma unroll
+  for (int e = lane; e < 16 * (D / 8); e += 32) {
+    const int r = e / (D / 8), dc = (e % (D / 8)) * 8, row = row0 + r;
+    const bool ok = row < n_rows;
+    const size_t o =
+        ok ? ((static_cast<size_t>(b) * Sq + row / G) * Hq + hk * G + row % G)
+                 * D + dc
+           : 0;
+    cp_async_16(smem_addr(qw + r * DP + dc), q + o, ok);
   }
+  if (warp == 0)
+    for (int e = lane; e < 3 * (D / 4); e += 32) {
+      const float* src = e < D / 4 ? fk : (e < D / 2 ? fv : cv);
+      if (src != nullptr)
+        cp_async_16(smem_addr(cals + e * 4), src + cal + (e % (D / 4)) * 4,
+                    true);
+    }
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < n_t) load_kv(s);
+    cp_async_commit();
+  }
+  cp_async_wait<TC_STAGES - 2>();
+  __syncthreads();
+
+  if (QS > 1) {
+    // q * f_k in f32 as QS bf16 terms, 8 values a lane at a time; each lane
+    // rewrites the chunks it loaded
+#pragma unroll
+    for (int e = lane; e < 16 * (D / 8); e += 32) {
+      const int r = e / (D / 8), dc = (e % (D / 8)) * 8;
+      const uint4 raw = *reinterpret_cast<const uint4*>(qw + r * DP + dc);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      float x[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 pair =
+            *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+        x[2 * i] = __low2float(pair) * cals[dc + 2 * i];
+        x[2 * i + 1] = __high2float(pair) * cals[dc + 2 * i + 1];
+      }
+#pragma unroll
+      for (int t = 0; t < QS; ++t) {
+        uint4 term;
+        term.x = split_term(x[0], x[1]);
+        term.y = split_term(x[2], x[3]);
+        term.z = split_term(x[4], x[5]);
+        term.w = split_term(x[6], x[7]);
+        *reinterpret_cast<uint4*>(qw + (t * 16 + r) * DP + dc) = term;
+      }
+    }
+    __syncwarp();
+  }
+
+  // the lane's two rows: g and g + 8 of the warp's 16
+  int qpos[2];
+  bool live[2];
+  size_t orow[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + g + 8 * hh;
+    live[hh] = row < n_rows;
+    const int r = live[hh] ? row : 0;
+    qpos[hh] = q_offset + r / G;
+    orow[hh] = ((static_cast<size_t>(b) * Sq + r / G) * Hq + hk * G + r % G) * D;
+  }
+
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_t; ++t) {
+    cp_async_wait<TC_STAGES - 2>();      // tile t has landed
+    __syncthreads();                     // ... for all, and tile t - 1 is
+    //                                      no longer being read
+    if (t + TC_STAGES - 1 < n_t) load_kv(t + TC_STAGES - 1);
+    cp_async_commit();
+    const bf16* kt = ks + (t % TC_STAGES) * KV_STAGE;
+    const bf16* vt = vs + (t % TC_STAGES) * KV_STAGE;
+
+    // kv_valid of this lane's keys (key 8j + 2c + e of the tile at 2j + e),
+    // loaded without a branch here and read after the score product, so
+    // the loads overlap it
+    unsigned char kvv[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = t * TC_BKV + 8 * j + 2 * c + e;
+        kvv[2 * j + e] = kv_valid != nullptr && key < Skv
+                             ? kv_valid[static_cast<size_t>(b) * Skv + key]
+                             : 1;
+      }
+
+    // scores: 16 rows x 32 keys, four 8-key tiles
+    float st[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t a[QS][4];
+#pragma unroll
+      for (int s = 0; s < QS; ++s)
+        ldmatrix_x4(a[s], smem_addr(qw + (s * 16 + (lane & 15)) * DP + kk * 16
+                                    + (lane >> 4) * 8));
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, smem_addr(kt + (jp * 16 + (lane & 7) + (lane >> 4) * 8)
+                                  * DP + kk * 16 + ((lane >> 3) & 1) * 8));
+#pragma unroll
+        for (int s = QS - 1; s >= 0; --s) {      // small terms first
+          mma_bf16(st[2 * jp], a[s], bk[0], bk[1]);
+          mma_bf16(st[2 * jp + 1], a[s], bk[2], bk[3]);
+        }
+      }
+    }
+
+    // x D^-1/2; masks: -1e30 for a masked key, -inf (probability 0) past Skv
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = t * TC_BKV + 8 * j + 2 * c + e;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const bool ok = kvv[2 * j + e] != 0 &&
+                          (window <= 0 || abs(qpos[hh] - key) < window);
+          float& x = st[j][2 * hh + e];
+          x = key < Skv ? (ok ? x * scale : NEG) : -INFINITY;
+        }
+      }
+
+    // online softmax, each row's statistics over its quad
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = NEG;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mx = fmaxf(mx, fmaxf(st[j][2 * hh], st[j][2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 2));
+      const float m_new = fmaxf(m[hh], mx);
+      const float corr = expf(m[hh] - m_new);
+      m[hh] = m_new;
+      if (corr != 1.f) {                 // exact: most tiles keep the max
+        l[hh] *= corr;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          o[n][2 * hh] *= corr;
+          o[n][2 * hh + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(st[j][2 * hh + e] - m_new);
+          st[j][2 * hh + e] = p;
+          l[hh] += p;
+        }
+    }
+
+    // out += P V: the score tile is the A fragment, 16 keys at a time
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      float x[8] = {st[2 * kk][0], st[2 * kk][1], st[2 * kk][2],
+                    st[2 * kk][3], st[2 * kk + 1][0], st[2 * kk + 1][1],
+                    st[2 * kk + 1][2], st[2 * kk + 1][3]};
+      uint32_t pa[SPLIT][4];
+#pragma unroll
+      for (int s = 0; s < SPLIT; ++s)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[s][r] = split_term(x[2 * r], x[2 * r + 1]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, smem_addr(vt + (kk * 16 + (lane & 15)) * DP
+                                        + np * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int s = SPLIT - 1; s >= 0; --s) {
+          mma_bf16(o[2 * np], pa[s], bv[0], bv[1]);
+          mma_bf16(o[2 * np + 1], pa[s], bv[2], bv[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(FULL_MASK, l[hh], 1);
+    l[hh] += __shfl_xor_sync(FULL_MASK, l[hh], 2);
+    if (!live[hh]) continue;
+    // one reciprocal per row (the CUDA-core route's rule too), not an IEEE
+    // division per value
+    const float inv_l = 1.f / fmaxf(l[hh], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int dd = 8 * n + 2 * c;
+      float o0 = o[n][2 * hh] * inv_l, o1 = o[n][2 * hh + 1] * inv_l;
+      if (fv != nullptr) {
+        o0 = __fmul_rn(o0, cals[D + dd]);
+        o1 = __fmul_rn(o1, cals[D + dd + 1]);
+      }
+      if (cv != nullptr) {
+        o0 = __fadd_rn(o0, cals[2 * D + dd]);
+        o1 = __fadd_rn(o1, cals[2 * D + dd + 1]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(out + orow[hh] + dd) =
+          __floats2bfloat162_rn(o0, o1);
+    }
+  }
+}
+
+template <int D, int QS>
+cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
+                        const unsigned char* kv_valid, const float* fk,
+                        const float* fv, const float* cv, bf16* out, int B,
+                        int Sq, int Skv, int Hq, int Hkv, float scale,
+                        int window, int q_offset, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bidir_tc_kernel<D, QS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tc_smem_bytes<D, QS>(TC_MAX_WARPS));
+  if (attr != cudaSuccess) return attr;
+  const int rows = (Hq / Hkv) * Sq;
+  const int warps = rows >= 16 * TC_MAX_WARPS ? TC_MAX_WARPS : (rows + 15) / 16;
+  const dim3 grid((rows + 16 * warps - 1) / (16 * warps), Hkv, B);
+  flash_bidir_tc_kernel<D, QS>
+      <<<grid, 32 * warps, tc_smem_bytes<D, QS>(warps), stream>>>(
+          q, k, v, kv_valid, fk, fv, cv, out, Sq, Skv, Hq, Hkv, scale, window,
+          q_offset);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
+                          const unsigned char* kv_valid, const float* fk,
+                          const float* fv, const float* cv, bf16* out, int B,
+                          int Sq, int Skv, int Hq, int Hkv, float scale,
+                          int window, int q_offset, cudaStream_t stream) {
+#define FB_LAUNCH(DD)                                                        \
+  return fk == nullptr                                                       \
+             ? launch_bf16<DD, 1>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, \
+                                  Skv, Hq, Hkv, scale, window, q_offset,     \
+                                  stream)                                    \
+             : launch_bf16<DD, SPLIT>(q, k, v, kv_valid, fk, fv, cv, out, B, \
+                                      Sq, Skv, Hq, Hkv, scale, window,       \
+                                      q_offset, stream)
+  switch (D) {
+    case 32: FB_LAUNCH(32);
+    case 64: FB_LAUNCH(64);
+    case 128: FB_LAUNCH(128);
+    default: return cudaErrorInvalidValue;
+  }
+#undef FB_LAUNCH
+}
+
+cudaError_t dispatch_f32(int D, const float* q, const float* k, const float* v,
+                         const unsigned char* kv_valid, const float* fk,
+                         const float* fv, const float* cv, float* out, int B,
+                         int Sq, int Skv, int Hq, int Hkv, float scale,
+                         int window, int q_offset, cudaStream_t stream) {
+#define FB_LAUNCH(DPL)                                                      \
+  return launch_f32<DPL>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, Skv, Hq, \
+                         Hkv, scale, window, q_offset, stream)
+  switch (D) {
+    case 32: FB_LAUNCH(1);
+    case 64: FB_LAUNCH(2);
+    case 128: FB_LAUNCH(4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef FB_LAUNCH
 }
 
 }  // namespace
@@ -182,12 +532,21 @@ extern "C" int flash_bidir_launch(const void* q, const void* k, const void* v,
                                   int D, float scale, int window, int q_offset,
                                   int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_bf16 ? dispatch_d<__nv_bfloat16>(D, q, k, v, kv_valid, fk, fv, cv,
-                                          out, B, Sq, Skv, Hq, Hkv, scale,
-                                          window, q_offset, st)
-              : dispatch_d<float>(D, q, k, v, kv_valid, fk, fv, cv, out, B, Sq,
-                                  Skv, Hq, Hkv, scale, window, q_offset, st));
+  const auto* valid = static_cast<const unsigned char*>(kv_valid);
+  const auto* fk_ = static_cast<const float*>(fk);
+  const auto* fv_ = static_cast<const float*>(fv);
+  const auto* cv_ = static_cast<const float*>(cv);
+  if (!is_bf16)
+    return static_cast<int>(dispatch_f32(
+        D, static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), valid, fk_, fv_, cv_,
+        static_cast<float*>(out), B, Sq, Skv, Hq, Hkv, scale, window,
+        q_offset, st));
+  return static_cast<int>(dispatch_bf16(
+      D, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), valid, fk_, fv_, cv_,
+      static_cast<bf16*>(out), B, Sq, Skv, Hq, Hkv, scale, window, q_offset,
+      st));
 }
 
 extern "C" const char* flash_bidir_error_string(int err) {

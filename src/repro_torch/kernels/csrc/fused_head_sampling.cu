@@ -8,30 +8,47 @@
 //
 // What bounds it: at the main-path shape (R = 64 rows, d = 4096,
 // V = 126464, bf16) the work is one pass over w_head, 1.04 GB, about
-// 0.31 ms at 3.35 TB/s, and 66 GFLOP.  This first version does the product
-// with f32 FMAs on the CUDA cores, so it is bound by those operations, well
-// above the byte bound; tensor cores (wgmma) are the next step.
-//
-// Design:
-//   * The Pallas grid (R/8, V/chunk) re-reads every weight slab once per
-//     8-row tile.  Here one CTA holds up to 128 rows, so w_head streams from
-//     device memory once per call.
-//   * V is split across CTAs in 64-column ranges: whole 32-wide MX blocks,
-//     aligned to column 0 exactly as a full-row fake-quant aligns them.
-//   * The product is tiled over d in shared memory (32-deep stages) and
-//     accumulated in f32 registers.
-//   * The epilogue runs per 32-column MX block, one warp's lanes: cast to the
-//     activation dtype, x logit_scale, fake-quant (bf16 / MXFP8 with the
-//     block amax from a warp shuffle), mask pad columns and the suppressed
-//     id, then the online reduction.  Each CTA writes one partial per row.
-//   * A second small kernel merges the partials with the combine_partials
-//     rule of core/sampling.py: ties go to the lowest global column, and for
-//     Gumbel only a strictly greater score replaces the best so far.
+// 0.31 ms at 3.35 TB/s, and 66 GFLOP: 64 FLOP per byte of w_head, far
+// below the 295 at which the tensor cores would bound it.  So the bf16
+// route is built to keep w_head streaming:
+//   * The product runs on the tensor cores (mma.sync m16n8k16, bf16 in,
+//     f32 accumulate: the Pallas kernel's own jnp.dot arithmetic), A from
+//     ldmatrix, B from ldmatrix.trans since w_head is N-major.
+//   * One CTA per SM owns a contiguous range of whole 32-column MX blocks
+//     (kernels/fused_head_sampling.column_plan, computed by the wrapper),
+//     walks it in 256-column tiles, and keeps one of its two shared-memory
+//     stages (128-deep slices of w_head and hidden, 85 KB each) in flight
+//     with cp.async while the tensor cores work on the other: 85 KB in
+//     flight per SM, over three times what Little's law asks at 3.35 TB/s.
+//     On the H100 fewer, deeper stages ran faster than more, shallower
+//     ones (fewer barriers per byte).
+//     The (tile, depth) loop is one sequence, so the next tile's loads run
+//     under this tile's epilogue.
+//   * The epilogue works on the accumulators in registers.  A warp owns
+//     32 rows x 64 columns; for one row a 32-column MX block lies in one
+//     quad (8 values per lane), so two xor shuffles give the block amax.
+//     Per logit: f32 -> activation dtype -> x logit_scale -> fake-quant ->
+//     mask pad columns and the suppressed id, then an online fold into the
+//     lane's running (m, s, idx[, best, z_at]) per row, in increasing
+//     column order.
+//   * Quads, then the four column warps, merge with the combine rule; the
+//     CTA writes one partial per row, (R, n_cta) in all, and a second
+//     small kernel merges them (common.cuh combine_row): ties go to the
+//     lowest column, and for Gumbel only a strictly greater score replaces
+//     the best so far.
+//   * More than 64 rows add a grid dimension: w_head is read once per
+//     group of 64 rows.
+// The f32 route runs on the CUDA cores (f32 FMAs, 64-column CTAs): TF32
+// would change its arithmetic.
 // No fast-math: the MX exponent rule ceil(log2(amax / 448)) and the Gumbel
 // log must use the full-precision library functions.
 #include "common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32 route: the product with f32 FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int TN = 64;        // vocab columns per CTA: two MX blocks
 constexpr int TK = 32;        // depth of one shared-memory stage
@@ -158,31 +175,26 @@ __global__ void head_combine_kernel(const float* __restrict__ part_m,
               conf, token);
 }
 
-template <typename T, int RPT>
-cudaError_t launch_partials(const void* hidden, const void* w, int R, int d,
-                            int V, int fmt, float logit_scale,
-                            float temperature, uint32_t seed, int suppress_id,
-                            void* pm, void* pi, void* ps, void* pb, void* pz,
-                            cudaStream_t stream) {
+template <int RPT>
+cudaError_t launch_f32(const float* hidden, const float* w, int R, int d,
+                       int V, int fmt, float logit_scale, float temperature,
+                       uint32_t seed, int suppress_id, float* pm, int* pi,
+                       float* ps, float* pb, float* pz, cudaStream_t stream) {
   constexpr int TM = 16 * RPT;
   const dim3 grid((V + TN - 1) / TN, (R + TM - 1) / TM);
-  head_partials_kernel<T, RPT><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(hidden), static_cast<const T*>(w), R, d, V, fmt,
-      logit_scale, temperature, seed, suppress_id, static_cast<float*>(pm),
-      static_cast<int*>(pi), static_cast<float*>(ps), static_cast<float*>(pb),
-      static_cast<float*>(pz));
+  head_partials_kernel<float, RPT><<<grid, THREADS, 0, stream>>>(
+      hidden, w, R, d, V, fmt, logit_scale, temperature, seed, suppress_id,
+      pm, pi, ps, pb, pz);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_rows(int R, const void* hidden, const void* w, int d,
-                          int V, int fmt, float logit_scale, float temperature,
-                          uint32_t seed, int suppress_id, void* pm, void* pi,
-                          void* ps, void* pb, void* pz, cudaStream_t stream) {
-#define FHS_LAUNCH(RPT)                                                     \
-  return launch_partials<T, RPT>(hidden, w, R, d, V, fmt, logit_scale,      \
-                                 temperature, seed, suppress_id, pm, pi, ps, \
-                                 pb, pz, stream)
+cudaError_t dispatch_f32(int R, const float* hidden, const float* w, int d,
+                         int V, int fmt, float logit_scale, float temperature,
+                         uint32_t seed, int suppress_id, float* pm, int* pi,
+                         float* ps, float* pb, float* pz, cudaStream_t stream) {
+#define FHS_LAUNCH(RPT)                                                    \
+  return launch_f32<RPT>(hidden, w, R, d, V, fmt, logit_scale, temperature, \
+                         seed, suppress_id, pm, pi, ps, pb, pz, stream)
   if (R <= 16) FHS_LAUNCH(1);
   if (R <= 32) FHS_LAUNCH(2);
   if (R <= 64) FHS_LAUNCH(4);
@@ -190,35 +202,353 @@ cudaError_t dispatch_rows(int R, const void* hidden, const void* w, int d,
 #undef FHS_LAUNCH
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores fed by a cp.async ring
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_ROWS = 64;      // hidden rows per CTA (one row group)
+constexpr int TC_BN = 256;       // vocab columns per tile
+constexpr int TC_BK = 128;       // depth of one stage
+constexpr int TC_STAGES = 2;
+constexpr int TC_THREADS = 256;  // 8 warps: 2 (rows) x 4 (columns)
+// shared rows padded by 16 bytes: ldmatrix's eight row addresses then fall
+// in eight different bank groups
+constexpr int TC_WP = TC_BN + 8;
+constexpr int TC_HP = TC_BK + 8;
+constexpr int TC_W_STAGE = TC_BK * TC_WP;    // elements
+constexpr int TC_H_STAGE = TC_ROWS * TC_HP;
+constexpr int TC_SMEM = TC_STAGES * (TC_W_STAGE + TC_H_STAGE) * 2;  // bytes
+
+// One row's running Stable-Max partial: max logit m, exp-sum s relative to
+// m, index i (argmax of the logit, or with Gumbel of the score), best
+// Gumbel score b and the logit z at i.
+struct Part {
+  float m, s, b, z;
+  int i;
+};
+
+__device__ __forceinline__ Part empty_part() { return {NEG, 0.f, -INFINITY, NEG, BIG}; }
+
+// a <- merge(a, o): combine_partials' rule (common.cuh combine_row).
+__device__ __forceinline__ void merge_part(Part& a, const Part& o,
+                                           bool gumbel) {
+  const float m = fmaxf(a.m, o.m);
+  a.s = a.s * expf(a.m - m) + o.s * expf(o.m - m);
+  if (gumbel) {
+    if (o.b > a.b || (o.b == a.b && o.i < a.i)) {
+      a.b = o.b;
+      a.i = o.i;
+      a.z = o.z;
+    }
+  } else if (o.m > a.m || (o.m == a.m && o.i < a.i)) {
+    a.i = o.i;
+  }
+  a.m = m;
+}
+
+__device__ __forceinline__ Part shfl_xor_part(const Part& p, int mask) {
+  return {__shfl_xor_sync(FULL_MASK, p.m, mask),
+          __shfl_xor_sync(FULL_MASK, p.s, mask),
+          __shfl_xor_sync(FULL_MASK, p.b, mask),
+          __shfl_xor_sync(FULL_MASK, p.z, mask),
+          __shfl_xor_sync(FULL_MASK, p.i, mask)};
+}
+
+// Fold one lane's 8 values of one row's MX block (columns col0 + 8j + e for
+// value 2j + e, increasing) into the row's partial p.  Pad columns hold
+// -inf and never count.
+__device__ __forceinline__ void fold_group(Part& p, const float (&z)[8],
+                                           int col0, int row, bool gumbel,
+                                           float temperature, uint32_t seed) {
+  float lm = z[0];
+  int lq = 0;
+#pragma unroll
+  for (int q = 1; q < 8; ++q)
+    if (z[q] > lm) {               // strict: the first occurrence stays
+      lm = z[q];
+      lq = q;
+    }
+  const float mn = fmaxf(p.m, lm);
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) s += expf(z[q] - mn);
+  p.s = p.s * expf(p.m - mn) + s;
+  if (gumbel) {
+    float lb = -INFINITY, lz = NEG;
+    int lbq = 0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = col0 + (q >> 1) * 8 + (q & 1);
+      const float sc = z[q] / temperature + counter_gumbel(seed, row, col);
+      if (sc > lb) {
+        lb = sc;
+        lbq = q;
+        lz = z[q];
+      }
+    }
+    if (lb > p.b) {
+      p.b = lb;
+      p.i = col0 + (lbq >> 1) * 8 + (lbq & 1);
+      p.z = lz;
+    }
+  } else if (lm > p.m) {
+    p.i = col0 + (lq >> 1) * 8 + (lq & 1);
+  }
+  p.m = mn;
+}
+
+// Fold one finished 64 x 256 tile: this warp's 32 x 64 accumulators, whose
+// columns start at wcol (global), rows at wrow.
+__device__ __forceinline__ void fold_tile(const float (&acc)[2][8][4],
+                                          Part (&part)[2][2], int wrow,
+                                          int wcol, int R, int c_end, int fmt,
+                                          float scale_t, bool gumbel,
+                                          float temperature, uint32_t seed,
+                                          int suppress_id, int g, int c) {
+#pragma unroll
+  for (int blk = 0; blk < 2; ++blk) {
+    const int b0 = wcol + 32 * blk;           // first column of the block
+    if (b0 >= c_end) break;                   // warp-uniform
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (wrow + 16 * i >= R) break;          // warp-uniform
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float z[8];
+        float amax = 0.f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          // f32 accumulator -> activation dtype -> x logit_scale
+          float v = round_to<bf16>(acc[i][4 * blk + (q >> 1)][2 * h + (q & 1)]);
+          v = round_to<bf16>(v * scale_t);
+          z[q] = v;
+          amax = fmaxf(amax, fabsf(v));       // pad columns are zero here
+        }
+        if (fmt == FMT_MXFP8) {
+          amax = fmaxf(amax, __shfl_xor_sync(FULL_MASK, amax, 1));
+          amax = fmaxf(amax, __shfl_xor_sync(FULL_MASK, amax, 2));
+          const float scale = mx_block_scale(amax, fmt);
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            z[q] = round_to<bf16>(
+                __fmul_rn(quant_element(z[q] / scale, fmt), scale));
+        }                 // FMT_BF16 is exact on bf16 logits; FMT_NONE too
+        const int row = wrow + 16 * i + g + 8 * h;
+        if (row >= R) continue;
+        const int col0 = b0 + 2 * c;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int col = col0 + (q >> 1) * 8 + (q & 1);
+          if (col >= c_end) z[q] = -INFINITY;
+          else if (col == suppress_id) z[q] = NEG;
+        }
+        fold_group(part[i][h], z, col0, row, gumbel, temperature, seed);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+head_partials_tc_kernel(const bf16* __restrict__ hidden,
+                        const bf16* __restrict__ w, int R, int d, int V,
+                        int cols_per_cta, int fmt, float logit_scale,
+                        float temperature, uint32_t seed, int suppress_id,
+                        float* __restrict__ part_m, int* __restrict__ part_i,
+                        float* __restrict__ part_s,
+                        float* __restrict__ part_b,
+                        float* __restrict__ part_z) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ Part merged[4][TC_ROWS];        // per column warp, per row
+  bf16* ws = reinterpret_cast<bf16*>(smem_raw);        // [STAGES][BK][WP]
+  bf16* hs = ws + TC_STAGES * TC_W_STAGE;              // [STAGES][ROWS][HP]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, c = lane & 3;
+  const int c_begin = blockIdx.x * cols_per_cta;
+  const int c_end = min(c_begin + cols_per_cta, V);
+  const int r0 = blockIdx.y * TC_ROWS;
+  const int n_k = (d + TC_BK - 1) / TC_BK;
+  const int n_it = (c_end - c_begin + TC_BN - 1) / TC_BN * n_k;
+  const bool gumbel = temperature > 0.f;
+  // logit_scale joins the product in the activation dtype, as a weakly
+  // typed Python float does in the JAX reference
+  const float scale_t = round_to<bf16>(logit_scale);
+
+  // stage `it`: the (tile it / n_k, depth slice it % n_k) of w_head and the
+  // matching hidden slice; 16-byte chunks past d, past the CTA's columns or
+  // past R are zero-filled without a read (d and V are multiples of 8)
+  auto load_stage = [&](int it) {
+    const int st = it % TC_STAGES, k0 = (it % n_k) * TC_BK;
+    const int n0 = c_begin + (it / n_k) * TC_BN;
+    bf16* wd = ws + st * TC_W_STAGE;
+#pragma unroll
+    for (int e = tid; e < TC_BK * (TC_BN / 8); e += TC_THREADS) {
+      const int kk = e / (TC_BN / 8), cc = (e % (TC_BN / 8)) * 8;
+      const int gk = k0 + kk, gc = n0 + cc;
+      const bool ok = gk < d && gc < c_end;
+      cp_async_16(smem_addr(wd + kk * TC_WP + cc),
+                  ok ? w + static_cast<size_t>(gk) * V + gc : w, ok);
+    }
+    bf16* hd = hs + st * TC_H_STAGE;
+#pragma unroll
+    for (int e = tid; e < TC_ROWS * (TC_BK / 8); e += TC_THREADS) {
+      const int r = e / (TC_BK / 8), kc = (e % (TC_BK / 8)) * 8;
+      const int gr = r0 + r, gk = k0 + kc;
+      const bool ok = gr < R && gk < d;
+      cp_async_16(smem_addr(hd + r * TC_HP + kc),
+                  ok ? hidden + static_cast<size_t>(gr) * d + gk : hidden, ok);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < n_it) load_stage(s);
+    cp_async_commit();
+  }
+
+  Part part[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) part[i][h] = empty_part();
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<TC_STAGES - 2>();      // stage `it` has landed
+    __syncthreads();                     // ... for every thread, and stage
+    //                                      it - 1 is no longer being read
+    if (it + TC_STAGES - 1 < n_it) load_stage(it + TC_STAGES - 1);
+    cp_async_commit();
+
+    const bf16* wt = ws + (it % TC_STAGES) * TC_W_STAGE;
+    const bf16* ht = hs + (it % TC_STAGES) * TC_H_STAGE;
+#pragma unroll
+    for (int ks = 0; ks < TC_BK / 16; ++ks) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldmatrix_x4(a[i], smem_addr(ht + (wm * 32 + i * 16 + (lane & 15)) * TC_HP
+                                    + ks * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bm[4];
+        ldmatrix_x4_trans(bm, smem_addr(wt + (ks * 16 + (lane & 15)) * TC_WP
+                                        + wn * 64 + jp * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * jp], a[i], bm[0], bm[1]);
+          mma_bf16(acc[i][2 * jp + 1], a[i], bm[2], bm[3]);
+        }
+      }
+    }
+
+    if (it % n_k == n_k - 1) {           // the tile's product is complete
+      fold_tile(acc, part, r0 + wm * 32,
+                c_begin + (it / n_k) * TC_BN + wn * 64, R, c_end, fmt,
+                scale_t, gumbel, temperature, seed, suppress_id, g, c);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+  }
+
+  // a row's partial lives in the 4 lanes of a quad in each of 4 warps
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      merge_part(part[i][h], shfl_xor_part(part[i][h], 1), gumbel);
+      merge_part(part[i][h], shfl_xor_part(part[i][h], 2), gumbel);
+      if (c == 0) merged[wn][wm * 32 + i * 16 + g + 8 * h] = part[i][h];
+    }
+  __syncthreads();
+  if (tid < TC_ROWS && r0 + tid < R) {
+    Part p = merged[0][tid];
+#pragma unroll
+    for (int j = 1; j < 4; ++j) merge_part(p, merged[j][tid], gumbel);
+    const size_t o = static_cast<size_t>(r0 + tid) * gridDim.x + blockIdx.x;
+    part_m[o] = p.m;
+    part_i[o] = p.i;
+    part_s[o] = p.s;
+    if (gumbel) {
+      part_b[o] = p.b;
+      part_z[o] = p.z;
+    }
+  }
+}
+
+cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
+                        int V, int cols_per_cta, int n_parts, int fmt,
+                        float logit_scale, float temperature, uint32_t seed,
+                        int suppress_id, float* pm, int* pi, float* ps,
+                        float* pb, float* pz, cudaStream_t stream) {
+  if (d % 8 || V % 8 || cols_per_cta <= 0 || cols_per_cta % 32 ||
+      static_cast<long long>(cols_per_cta) * n_parts < V ||
+      static_cast<long long>(cols_per_cta) * (n_parts - 1) >= V)
+    return cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      head_partials_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      TC_SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(n_parts, (R + TC_ROWS - 1) / TC_ROWS);
+  head_partials_tc_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
+      hidden, w, R, d, V, cols_per_cta, fmt, logit_scale, temperature, seed,
+      suppress_id, pm, pi, ps, pb, pz);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Number of 64-column vocab tiles: the partials workspace is (R, tiles).
+// Number of 64-column vocab tiles of the f32 route: its partials
+// workspace is (R, tiles).
 extern "C" int fused_head_sampling_tiles(int V) { return (V + TN - 1) / TN; }
 
 // hidden (R, d) and w (d, V), both f32 (is_bf16 = 0) or both bf16; the
-// partials workspace part_* is (R, tiles) each (part_b/part_z only read
+// partials workspace part_* is (R, n_parts) each (part_b/part_z only read
 // and written when temperature > 0); conf (R,) f32, token (R,) i32.
+// The bf16 route takes the column plan: cols_per_cta columns (whole MX
+// blocks) for each of n_parts CTAs, covering V; it needs d and V to be
+// multiples of 8 (16-byte rows).  The f32 route ignores cols_per_cta and
+// takes n_parts = fused_head_sampling_tiles(V).
 // fmt: 0 none, 1 bf16, 2 mxfp8_e4m3.  suppress_id < 0 suppresses nothing.
 extern "C" int fused_head_sampling_launch(
     const void* hidden, const void* w, void* part_m, void* part_i,
     void* part_s, void* part_b, void* part_z, void* conf, void* token, int R,
     int d, int V, int is_bf16, int fmt, float logit_scale, float temperature,
-    unsigned int seed, int suppress_id, void* stream) {
+    unsigned int seed, int suppress_id, int cols_per_cta, int n_parts,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? dispatch_rows<__nv_bfloat16>(R, hidden, w, d, V, fmt,
-                                             logit_scale, temperature, seed,
-                                             suppress_id, part_m, part_i,
-                                             part_s, part_b, part_z, st)
-              : dispatch_rows<float>(R, hidden, w, d, V, fmt, logit_scale,
-                                     temperature, seed, suppress_id, part_m,
-                                     part_i, part_s, part_b, part_z, st);
+  float* pm = static_cast<float*>(part_m);
+  int* pi = static_cast<int*>(part_i);
+  float* ps = static_cast<float*>(part_s);
+  float* pb = static_cast<float*>(part_b);
+  float* pz = static_cast<float*>(part_z);
+  cudaError_t err;
+  if (is_bf16) {
+    err = launch_bf16(static_cast<const bf16*>(hidden),
+                      static_cast<const bf16*>(w), R, d, V, cols_per_cta,
+                      n_parts, fmt, logit_scale, temperature, seed,
+                      suppress_id, pm, pi, ps, pb, pz, st);
+  } else {
+    if (n_parts != (V + TN - 1) / TN) return cudaErrorInvalidValue;
+    err = dispatch_f32(R, static_cast<const float*>(hidden),
+                       static_cast<const float*>(w), d, V, fmt, logit_scale,
+                       temperature, seed, suppress_id, pm, pi, ps, pb, pz, st);
+  }
   if (err != cudaSuccess) return err;
-  const int n_vt = (V + TN - 1) / TN;
   head_combine_kernel<<<(R + 3) / 4, 128, 0, st>>>(
-      static_cast<const float*>(part_m), static_cast<const int*>(part_i),
-      static_cast<const float*>(part_s), static_cast<const float*>(part_b),
-      static_cast<const float*>(part_z), R, n_vt, temperature > 0.f,
+      pm, pi, ps, pb, pz, R, n_parts, temperature > 0.f,
       static_cast<float*>(conf), static_cast<int*>(token));
   return cudaGetLastError();
 }

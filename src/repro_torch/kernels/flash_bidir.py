@@ -12,7 +12,13 @@ the JAX reference does; the output divides by max(l, 1e-30).
 
 ``flash_bidir`` launches csrc/flash_bidir.cu for CUDA tensors and runs
 ``flash_bidir_plain`` for CPU tensors; a CUDA tensor never reaches the
-plain version.
+plain version.  bf16 tensors take the kernel's tensor-core route: K, V and
+(without BAOS) q are exact bf16 operands, D^-1/2 scales the f32 scores,
+and the f32 operands -- q * f_k with BAOS, and always the probabilities
+P -- enter the products as ``SPLIT_TERMS`` bf16 terms
+t_i = bf16(x - t_0 - ... - t_(i-1)), so the products keep the f32
+function of the Pallas kernel.  f32 tensors take its CUDA-core route (f32
+FMAs, no TF32).
 """
 from __future__ import annotations
 
@@ -28,6 +34,9 @@ from repro_torch.kernels import _build
 NAME = "flash_bidir"
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+# bf16 terms of each f32 operand on the tensor-core route (SPLIT in
+# csrc/flash_bidir.cu): three carry the 24-bit f32 significand
+SPLIT_TERMS = 3
 
 
 def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -12,7 +12,12 @@ toward its block's amax.
 ``fused_head_sampling`` launches csrc/fused_head_sampling.cu for CUDA
 tensors and runs ``fused_head_stable_max`` (the plain version, a port of
 the JAX oracle of the same name) for CPU tensors.  There is no fallback:
-a CUDA tensor goes to the kernel or the call raises.
+a CUDA tensor goes to the kernel or the call raises.  bf16 tensors take
+the kernel's tensor-core route, which splits V across one CTA per SM by
+``column_plan``: each CTA folds its column range into one partial per row
+(``head_partials_plain`` computes the same partials in plain arithmetic)
+and a second kernel merges them (``combine_rows_plain``).  f32 tensors
+take its CUDA-core route (f32 FMAs, no TF32).
 """
 from __future__ import annotations
 
@@ -82,12 +87,84 @@ def fused_head_stable_max(hidden: torch.Tensor, w_head: torch.Tensor,
     return conf, idx.to(torch.int32)
 
 
+def column_plan(V: int, n_sm: int) -> Tuple[int, int]:
+    """(columns per CTA, CTAs): V split into n_sm or fewer contiguous ranges
+    of whole 32-column MX blocks, aligned to column 0 as a full-row
+    fake-quant aligns them; the last range may be ragged."""
+    blocks = -(-V // mx.MX_BLOCK)
+    cols = -(-blocks // n_sm) * mx.MX_BLOCK
+    return cols, -(-V // cols)
+
+
+def head_partials_plain(hidden: torch.Tensor, w_head: torch.Tensor,
+                        plan: Tuple[int, int], fmt: str = "none", *,
+                        logit_scale: float = 1.0, temperature: float = 0.0,
+                        seed: int = 0, suppress_id: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The per-range partials of the tensor-core route in plain arithmetic:
+    (m, idx, s, best, z_at), each (R, n_ranges), for the column ranges of
+    ``plan``.  m is the range's largest quantized logit, s its exp-sum
+    relative to m; idx is the first column holding m, or with
+    temperature > 0 the first holding the largest Gumbel score best, whose
+    logit is z_at (best and z_at are -inf/-1e30 when greedy)."""
+    cols, n = plan
+    R, V = hidden.shape[0], w_head.shape[1]
+    parts = [[] for _ in range(5)]
+    rows = torch.arange(R, device=hidden.device)[:, None]
+    for r in range(n):
+        c0, c1 = r * cols, min((r + 1) * cols, V)
+        z = sampling.head_logits(hidden, w_head[:, c0:c1],
+                                 logit_scale=logit_scale)
+        z = mx.mx_fake_quant(z, fmt).to(torch.float32)
+        col = torch.arange(c0, c1, device=hidden.device)
+        if suppress_id is not None:
+            z = torch.where(col == suppress_id, sampling.NEG_INF, z)
+        m, i = torch.max(z, dim=-1)                   # first occurrence
+        s = torch.sum(torch.exp(z - m[:, None]), dim=-1)
+        best = torch.full_like(m, -float("inf"))
+        z_at = torch.full_like(m, sampling.NEG_INF)
+        if temperature > 0.0:
+            sc = z / temperature + sampling.counter_gumbel(seed, rows,
+                                                           col[None, :])
+            best, i = torch.max(sc, dim=-1)
+            z_at = torch.gather(z, 1, i[:, None])[:, 0]
+        for acc, t in zip(parts, (m, i + c0, s, best, z_at)):
+            acc.append(t)
+    return tuple(torch.stack(t, dim=1) for t in parts)
+
+
+def combine_rows_plain(m: torch.Tensor, idx: torch.Tensor, s: torch.Tensor,
+                       best: torch.Tensor, z_at: torch.Tensor, gumbel: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The merge of per-range partials (R, n) into (conf, token), line for
+    line as csrc/common.cuh combine_row: m = max m_t,
+    s = sum s_t e^(m_t - m); the token is the lowest index among the
+    ranges holding m, or with Gumbel among those holding the best score,
+    with z_at from that range; conf = 1/s, or e^(z_at - m)/s."""
+    big = torch.full_like(idx, 1 << 30)
+    m_all = torch.amax(m, dim=1)
+    s_all = torch.sum(s * torch.exp(m - m_all[:, None]), dim=1)
+    if not gumbel:
+        tok = torch.amin(torch.where(m >= m_all[:, None], idx, big), dim=1)
+        return 1.0 / s_all, tok.to(torch.int32)
+    b_all = torch.amax(best, dim=1)
+    tok = torch.amin(torch.where(best >= b_all[:, None], idx, big), dim=1)
+    zat = torch.gather(z_at, 1, torch.argmax((idx == tok[:, None]).to(
+        torch.int32), dim=1)[:, None])[:, 0]
+    return torch.exp(zat - m_all) / s_all, tok.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     launch = _build.function(
         NAME, "fused_head_sampling_launch",
-        [p] * 9 + [i] * 5 + [f, f, ctypes.c_uint, i, p])
+        [p] * 9 + [i] * 5 + [f, f, ctypes.c_uint, i, i, i, p])
     tiles = _build.function(NAME, "fused_head_sampling_tiles", [i])
     return launch, tiles
 
@@ -99,8 +176,8 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hidden (R, d), w_head (d, V) -> (conf (R,) f32, token (R,) i32)
     without materializing the (R, V) logits.  w_head joins the product in
-    hidden's dtype.  CUDA tensors run the kernel; CPU tensors the plain
-    version."""
+    hidden's dtype.  CUDA tensors run the kernel (bf16 needs d and V to be
+    multiples of 8: 16-byte rows); CPU tensors the plain version."""
     if fmt not in _FMT_CODES:
         raise ValueError(f"fmt {fmt!r} not in {tuple(_FMT_CODES)}")
     if hidden.dim() != 2 or w_head.dim() != 2 or \
@@ -122,11 +199,18 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
     R, d = hidden.shape
     V = w.shape[1]
     launch, tiles = _kernel_fns()
-    n_vt = tiles(V)
     dev = hidden.device
+    bf16 = hidden.dtype == torch.bfloat16
+    if bf16:
+        if d % 8 or V % 8:
+            raise ValueError(f"bf16 route needs d and V to be multiples of 8 "
+                             f"(16-byte rows); got d={d}, V={V}")
+        cols, n_parts = column_plan(V, _sm_count(dev))
+    else:
+        cols, n_parts = 0, tiles(V)
     gumbel = temperature > 0.0
-    part_m = torch.empty((R, n_vt), dtype=torch.float32, device=dev)
-    part_i = torch.empty((R, n_vt), dtype=torch.int32, device=dev)
+    part_m = torch.empty((R, n_parts), dtype=torch.float32, device=dev)
+    part_i = torch.empty((R, n_parts), dtype=torch.int32, device=dev)
     part_s = torch.empty_like(part_m)
     part_b = torch.empty_like(part_m) if gumbel else None
     part_z = torch.empty_like(part_m) if gumbel else None
@@ -137,12 +221,11 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
     err = launch(hidden.data_ptr(), w.data_ptr(), part_m.data_ptr(),
                  part_i.data_ptr(), part_s.data_ptr(), _build.ptr(part_b),
                  _build.ptr(part_z), conf.data_ptr(), token.data_ptr(),
-                 R, d, V,
-                 int(hidden.dtype == torch.bfloat16), _FMT_CODES[fmt],
+                 R, d, V, int(bf16), _FMT_CODES[fmt],
                  float(logit_scale), float(temperature),
                  int(seed) & sampling.MASK32,
                  -1 if suppress_id is None else int(suppress_id),
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 cols, n_parts, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME, err)
     _build.launch_counts[NAME] += 1
     return conf, token

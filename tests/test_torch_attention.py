@@ -132,6 +132,116 @@ def test_baos_fusion_rounding_at_bf16():
     assert np.abs(got - exact).max() <= np.abs(want - exact).max()
 
 
+def _split_bf16(x: torch.Tensor, terms: int) -> list:
+    """f32 x as ``terms`` bf16 values (held in f32) t_i =
+    bf16(x - t_0 - ... - t_(i-1)): the operands the tensor-core route
+    feeds for q * f_k and P."""
+    out, r = [], x
+    for _ in range(terms):
+        t = r.to(torch.bfloat16).to(torch.float32)
+        out.append(t)
+        r = r - t
+    return out
+
+
+def _flash_split_emulation(q, k, v, kv_valid, fk, fv, cv, window, q_offset,
+                           terms, tile=32):
+    """The arithmetic of csrc/flash_bidir.cu's bf16 route in torch: K, V
+    and (without f_k) q exact bf16, q * f_k split into ``terms`` bf16
+    terms, scores as f32 sums of bf16 products (the smallest terms first)
+    times D^-1/2, an online softmax over 32-key tiles with P split the same
+    way, and out / max(l, 1e-30) * f_v + c_v in f32.  Returns f32."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qs = [q.float()]
+    if fk is not None:
+        qs = _split_bf16(q.float() * fk.repeat_interleave(G, dim=1)[:, None],
+                         terms)
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    ok = torch.ones((B, 1, Sq, Skv), dtype=torch.bool)
+    if kv_valid is not None:
+        ok = ok & kv_valid[:, None, None, :]
+    if window is not None:
+        qp = q_offset + torch.arange(Sq)[:, None]
+        ok = ok & ((qp - torch.arange(Skv)[None, :]).abs() < window)
+    m = torch.full((B, Hq, Sq), -1e30)
+    l = torch.zeros((B, Hq, Sq))
+    o = torch.zeros((B, Hq, Sq, D))
+    for t0 in range(0, Skv, tile):
+        kt, vt = kf[:, t0:t0 + tile], vf[:, t0:t0 + tile]
+        s = sum(torch.einsum("bqhd,bkhd->bhqk", qt, kt)
+                for qt in reversed(qs)) * D ** -0.5
+        s = torch.where(ok[..., t0:t0 + tile], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + sum(
+            torch.einsum("bhqk,bkhd->bhqd", pt, vt)
+            for pt in reversed(_split_bf16(p, terms)))
+        m = m_new
+    out = (o / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2)
+    if fv is not None:
+        out = out * fv.repeat_interleave(G, dim=1)[:, None]
+    if cv is not None:
+        out = out + cv.repeat_interleave(G, dim=1)[:, None]
+    return out
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of bf16 x (8 significant bits; 0 at 0)."""
+    _, e = torch.frexp(x.float())
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+    return torch.where(x == 0, 0.0, ulp)
+
+
+@pytest.mark.parametrize(
+    "Hq,Hkv,Sq,q_offset,window,baos,valid",
+    [(7, 1, 48, 0, None, False, False), (7, 1, 48, 0, 5, True, False),
+     (14, 2, 48, 0, None, True, True), (14, 2, 16, 12, 5, False, True),
+     (7, 1, 16, 12, 5, True, True), (4, 4, 48, 0, None, False, True)])
+def test_split_bf16_products_keep_the_f32_function(Hq, Hkv, Sq, q_offset,
+                                                   window, baos, valid):
+    """The split-bf16 design of flash_bidir's tensor-core route (one exact
+    bf16 term for q without BAOS, three for q * f_k and for P), emulated
+    in torch on bf16 inputs (Skv = 48: one full and one ragged 32-key
+    tile; GQA G = 7; one batch row with no valid key): within 1e-5 of
+    max|out| of the f32 plain version and of the Pallas kernel in
+    interpret mode (which has no kv_valid and no query offset), and,
+    rounded to bf16, within one bf16 ulp of the plain bf16 output."""
+    B, Skv, D = 2, 48, 32
+    rs = np.random.RandomState(Hq + Sq + (window or 0) + 2 * baos + valid)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(
+        B, Sq, Skv, Hq, Hkv, D, seed=Hq * Sq + q_offset))
+    kv_valid = None
+    if valid:
+        kv_valid = torch.from_numpy(np.arange(Skv)[None, :]
+                                    < np.array([[37], [0]]))
+    cal = [None] * 3
+    if baos:
+        cal = [torch.from_numpy(a.astype(np.float32)) for a in (
+            rs.rand(B, Hkv, D) + 0.5, rs.rand(B, Hkv, D) + 0.5,
+            rs.randn(B, Hkv, D))]
+    emu = _flash_split_emulation(q, k, v, kv_valid, *cal, window, q_offset,
+                                 tfb.SPLIT_TERMS)
+    want = tfb.flash_bidir_plain(q.float(), k.float(), v.float(), kv_valid,
+                                 *cal, window=window, q_offset=q_offset)
+    top = float(want.abs().max())
+    assert float((emu - want).abs().max()) <= 1e-5 * top
+    if not valid and q_offset == 0:
+        kern = np.asarray(ops.flash_attention(
+            *(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+            *(None if c is None else jnp.asarray(c.numpy()) for c in cal),
+            window=window, bq=16, bk=16, interpret=True))
+        assert np.abs(emu.numpy() - kern).max() <= 1e-5 * top
+    want16 = tfb.flash_bidir_plain(q, k, v, kv_valid, *cal, window=window,
+                                   q_offset=q_offset).float()
+    err = (emu.bfloat16().float() - want16).abs()
+    assert bool((err <= _bf16_ulp(want16)).all())
+
+
 def test_flash_rejects_mismatched_shapes():
     q, k, v = _qkv(1, 4, 6, 3, 2, 8, seed=0)
     with pytest.raises(ValueError):

@@ -133,6 +133,61 @@ def test_fused_head_logit_scale_rounds_through_the_activation_dtype():
     np.testing.assert_allclose(conf.numpy(), np.asarray(oc), rtol=1e-5)
 
 
+@pytest.mark.parametrize("n_sm", [1, 3, 132])
+@pytest.mark.parametrize("fmt", ["none", "bf16", "mxfp8_e4m3"])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_column_partition_matches_jax(n_sm, fmt, temperature, dtype):
+    """The tensor-core route's partition: V = 1000 split by column_plan
+    into whole-MX-block ranges (one, three with a ragged last range, or 32
+    of one block each), each folded into one partial per row
+    (head_partials_plain) and the partials merged in a shuffled order by
+    the twin of common.cuh combine_row.  Two columns on either side of a
+    range boundary hold equal maximum logits (the first must win), and the
+    suppressed id sits in the block just past the boundary with a larger
+    logit still.  Held against JAX's oracle and the Pallas kernel in
+    interpret mode, with the fused head test's tolerances."""
+    R, d, V = 13, 32, 1000
+    cols, n_parts = plan = tfh.column_plan(V, n_sm)
+    assert cols % 32 == 0 and (n_parts - 1) * cols < V <= n_parts * cols
+    edge = cols if n_parts > 1 else 512
+    rs = np.random.RandomState(n_sm + 7)
+    h = np.abs(rs.randn(R, d)).astype(np.float32)
+    w = (rs.randn(d, V) * 4 / np.sqrt(d)).astype(np.float32)
+    w[:, edge - 1] = w[:, edge] = 1.0            # an exact tie across ranges
+    suppress = edge + 3
+    w[:, suppress] = 1.5
+    ht, wt = torch.from_numpy(h), torch.from_numpy(w)
+    if dtype == "bfloat16":
+        ht, wt = ht.to(torch.bfloat16), wt.to(torch.bfloat16)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    hj = jnp.asarray(ht.float().numpy()).astype(jdt)
+    wj = jnp.asarray(wt.float().numpy()).astype(jdt)
+    key = jax.random.PRNGKey(5)
+    seed = int(js.gumbel_seed(key))
+    parts = tfh.head_partials_plain(ht, wt, plan, fmt,
+                                    temperature=temperature, seed=seed,
+                                    suppress_id=suppress)
+    assert all(tuple(t.shape) == (R, n_parts) for t in parts)
+    order = torch.from_numpy(rs.permutation(n_parts))
+    conf, tok = tfh.combine_rows_plain(*(t[:, order] for t in parts),
+                                       gumbel=temperature > 0)
+    oc, ot = js.fused_head_stable_max(
+        hj, wj, fmt, rng=key if temperature > 0 else None,
+        temperature=temperature, suppress_id=suppress, chunk_v=256)
+    kc, kt = ops.fused_head_sampling(
+        hj, wj, fmt=fmt, suppress_id=suppress, temperature=temperature,
+        seed=jnp.uint32(seed), chunk_v=256, interpret=True)
+    rtol = 3e-3 if dtype == "bfloat16" else 1e-5
+    for c_ref, t_ref in ((oc, ot), (kc, kt)):
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(t_ref))
+        np.testing.assert_allclose(conf.numpy(), np.asarray(c_ref),
+                                   rtol=rtol)
+    if temperature == 0.0:
+        assert bool((tok == edge - 1).all())
+    assert not bool((tok == suppress).any())
+
+
 def _logits(R: int, V: int, dtype: str, seed: int, boost_col=None):
     """Stored logits (R, V) for both packages, made as the head makes them
     (``_head_inputs``), so MX blocks and near-ties look like the real
