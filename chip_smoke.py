@@ -10,12 +10,17 @@ Phases, each fatal on failure:
   2. kernels -- each kernel against its plain PyTorch version on the card
                at the main path's shapes, with its time, the plain
                version's, a one-call PyTorch yardstick's and its bound
-               (baos_mx_quant bit for bit, stablemax_sampling and the
-               fused head within the near-tie rule on every fmt, T and
-               R in {16, 64, 200}, flash_bidir within one bf16 ulp +
-               1e-6); the f32 routes of the fused head and flash_bidir
-               at a small shape; the profiler's device time of each
-               kernel and of its library yardstick;
+               (baos_mx_quant bit for bit, also on the f32 route, on zero
+               and extreme-exponent blocks, at D 32, into an odd-offset
+               cache slice and at unaligned addresses, after torch.exp2
+               is checked at every integer in [-127, 127];
+               stablemax_sampling and the fused head within the near-tie
+               rule on every fmt and T, the head at R in {16, 64, 200},
+               Stable-Max on bf16 and f32 logits and a (3, 1003) case with
+               a tie across a vocab-range boundary; flash_bidir within one
+               bf16 ulp + 1e-6); the f32 routes of the fused head and
+               flash_bidir at a small shape; the profiler's device time of
+               each kernel and of its library yardstick;
   3. e2e    -- llada-8b at full width (32 layers, d 4096, bf16, seeded
                random weights): one-slot generate in cache mode none,
                stepped through tick_forward and tick_sample, and in modes
@@ -340,13 +345,59 @@ def phase_kernels(gen) -> dict:
     return out
 
 
+def check_exp2() -> None:
+    """Which integers e in [-127, 127] torch.exp2 maps exactly to 2^e on the
+    card (2^e built on the host; torch.ldexp beside it).  The kernels
+    multiply by the exact inverse 2^-e only where exp2f, which torch.exp2
+    calls, gives 2^e, and divide elsewhere; on the H100 that is e = -127,
+    whose 2^e is subnormal.  Fails if exp2 misses a normal power of two."""
+    import numpy as np
+    e = np.arange(-127, 128)
+    exact = torch.from_numpy(np.ldexp(np.float32(1), e).astype(np.float32))
+    et = torch.from_numpy(e.astype(np.float32)).to(DEVICE)
+    got = torch.exp2(et).cpu()
+    ld = torch.ldexp(torch.ones_like(et), et).cpu()
+    off = (got.view(torch.int32) != exact.view(torch.int32)).numpy()
+    log(f"exp2 exactness: torch.exp2 differs from 2^e at e in "
+        f"{e[off].tolist()} (there {got[off].tolist()} for "
+        f"{exact[off].tolist()}); torch.ldexp(1, e) at "
+        f"{e[(ld.view(torch.int32) != exact.view(torch.int32)).numpy()].tolist()}")
+    require(bool((e[off] < -126).all()),
+            f"torch.exp2 misses a normal power of two at e in "
+            f"{e[off & (e >= -126)].tolist()}")
+
+
+def baos_edge_blocks(gen, B, S, H, D, dtype):
+    """x (B, S, H, D) of dtype whose 32-blocks along D are, in turn, all
+    zero, at the top exponent (amax 3.385e38: e = 128 clips to 127 for the
+    integer formats), at the bottom (amax <= 1.3e-39, subnormal values: e
+    clips to -127), and ordinary; with identity calibration the smoothed
+    values are x itself."""
+    shape = (B, S, H, D // 32, 32)
+    x = torch.randn(*shape, generator=gen, device=DEVICE)
+    sign = torch.where(torch.rand(*shape, generator=gen, device=DEVICE)
+                       < 0.5, -1.0, 1.0)
+    top = sign * 3.385e38 * (0.5 + 0.5 * torch.rand(
+        *shape, generator=gen, device=DEVICE))
+    top[..., 0] = 3.385e38
+    kinds = (torch.arange(D // 32, device=DEVICE) % 4)[:, None]
+    x = torch.where(kinds == 0, 0.0, x)
+    x = torch.where(kinds == 1, top, x)
+    x = torch.where(kinds == 2, x.clamp(-1, 1) * 1.3e-39, x)
+    return x.reshape(B, S, H, D).to(dtype)
+
+
 def check_baos(gen) -> dict:
-    """baos_mx_quant at the warm tick's shape, K of (4, 96, 32, 128) bf16
-    (G = 4 * 32 channel groups) with per-channel offsets and spreads and
-    its minmax calibration: bit for bit against the plain version in each
-    KV format, also when writing into a slice of a longer cache."""
+    """baos_mx_quant bit for bit against the plain version in each KV
+    format: at the warm tick's shape, K of (4, 96, 32, 128) bf16 (G = 4 * 32
+    channel groups) with per-channel offsets and spreads and its minmax
+    calibration, on the bf16 and f32 routes; blocks of zeros and at both
+    exponent extremes; D 32 with a ragged row run; a slice of a longer cache
+    at odd B and S offsets; and x and out at addresses that are not 16-byte
+    aligned (the scalar route)."""
     from repro_torch.core import baos
     from repro_torch.kernels import baos_mx_quant as bq
+    check_exp2()
     B, S, H, D = 4, 96, 32, 128
     x = (torch.randn(B, S, H, D, generator=gen, device=DEVICE)
          * (torch.rand(1, 1, H, D, generator=gen, device=DEVICE) * 8 + 0.2)
@@ -354,19 +405,47 @@ def check_baos(gen) -> dict:
          ).bfloat16()
     cal = baos.calibrate(x, x, baos.BAOSConfig())
     c, f = cal.k_center, cal.k_scale
+
+    def same(xx, cc, ff, what, out=None):
+        for fmt in baos.KV_FORMATS:
+            got = bq.baos_mx_quant(xx, cc, ff, fmt, out=out)
+            want = bq.baos_mx_quant_plain(xx, cc, ff, fmt)
+            n_bad = int((got != want).sum())
+            log(f"baos_mx_quant {fmt} {what}: {n_bad} of {got.numel()} "
+                f"values differ from plain")
+            require(n_bad == 0, f"baos_mx_quant {fmt} {what} differs from "
+                                f"plain")
+
+    same(x, c, f, "(4, 96, 32, 128) bf16")
+    same(x.float(), c, f, "(4, 96, 32, 128) f32")
+    for dtype in (torch.bfloat16, torch.float32):
+        xe = baos_edge_blocks(gen, 2, 10, 4, 128, dtype)
+        ident = baos.identity_calib(2, 4, 128, DEVICE)
+        same(xe, ident.k_center, ident.k_scale,
+             f"(2, 10, 4, 128) {dtype} zero / top / bottom / ordinary blocks")
+    x32 = torch.randn(3, 50, 8, 32, generator=gen, device=DEVICE) * 4
+    cal32 = baos.calibrate(x32, x32, baos.BAOSConfig())
+    same(x32.bfloat16(), cal32.k_center, cal32.k_scale, "(3, 50, 8, 32) bf16")
+    cache = torch.zeros(B + 2, 2 * S + 3, H, D, dtype=torch.bfloat16,
+                        device=DEVICE)
     for fmt in baos.KV_FORMATS:
-        got, want = bq.baos_mx_quant(x, c, f, fmt), \
-            bq.baos_mx_quant_plain(x, c, f, fmt)
-        n_bad = int((got != want).sum())
-        log(f"baos_mx_quant {fmt} (4, 96, 32, 128) bf16: {n_bad} of "
-            f"{got.numel()} values differ from plain")
-        require(n_bad == 0, f"baos_mx_quant {fmt} differs from plain")
-    cache = torch.zeros(B, 2 * S, H, D, dtype=torch.bfloat16, device=DEVICE)
-    bq.baos_mx_quant(x, c, f, "mxint4", out=cache[:, 40:40 + S])
-    require(torch.equal(cache[:, 40:40 + S], bq.baos_mx_quant_plain(
-        x, c, f, "mxint4")) and not bool(cache[:, :40].any())
-            and not bool(cache[:, 40 + S:].any()),
-            "baos_mx_quant into a cache slice differs from plain")
+        cache.zero_()
+        bq.baos_mx_quant(x, c, f, fmt, out=cache[1:1 + B, 41:41 + S])
+        seg = cache[1:1 + B, 41:41 + S]
+        rest = cache.clone()
+        rest[1:1 + B, 41:41 + S] = 0
+        require(torch.equal(seg, bq.baos_mx_quant_plain(x, c, f, fmt))
+                and not bool(rest.any()),
+                f"baos_mx_quant {fmt} into a cache slice at B offset 1, S "
+                f"offset 41 differs from plain")
+    log("baos_mx_quant into a cache slice at B offset 1, S offset 41: equal "
+        "to plain in each KV format, nothing else written")
+    buf = torch.empty(2 * x.numel() + 1, dtype=torch.bfloat16, device=DEVICE)
+    xu = buf[1:1 + x.numel()].view(x.shape)
+    xu.copy_(x)
+    ou = buf[x.numel() + 1:].view(x.shape)
+    same(xu, c, f, "(4, 96, 32, 128) bf16, x and out not 16-byte aligned",
+         out=ou)
     b_ms, b_by = bound(2 * x.numel() * 2 + 2 * c.numel() * 4,
                        5.0 * x.numel(), F32_FLOPS)
     log(f"baos_mx_quant mxint4 device time (profiler) "
@@ -380,12 +459,47 @@ def check_baos(gen) -> dict:
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
+def check_stablemax_case(z, fmt, temperature, mid, what):
+    """stablemax_sampling vs its plain version on logits z: tokens equal
+    except at near-ties (at most 1% of rows), conf within 1e-2 relative.
+    Returns the max abs conf error on agreeing rows."""
+    from repro_torch.kernels import stablemax_sampling as sms
+    R = z.shape[0]
+    kw = dict(fmt=fmt, suppress_id=mid, temperature=temperature, seed=4321)
+    conf_k, tok_k = sms.stablemax_sampling(z, **kw)
+    conf_p, tok_p = sms.stable_max_plain(
+        z, fmt, temperature=temperature, seed=4321, suppress_id=mid)
+    same = tok_k == tok_p
+    diff_rows = torch.nonzero(~same).flatten().tolist()
+    if diff_rows:
+        zq = quantized_f32(z[diff_rows], fmt, mid)
+        require(all(near_ties(zq, tok_k[diff_rows], temperature, 4321,
+                              diff_rows)),
+                f"stablemax {what} {fmt} T={temperature}: tokens differ off "
+                f"a near-tie in rows {diff_rows}")
+    err = (conf_k - conf_p).abs()[same]
+    rel = err / conf_p.abs()[same]
+    log(f"stablemax_sampling {what} {fmt} T={temperature}: rows differing "
+        f"{len(diff_rows)}/{R}, conf max abs err {float(err.max()):.3g}, "
+        f"max rel {float(rel.max()):.3g}")
+    require(bool((rel <= 1e-2).all()),
+            f"stablemax {what} {fmt} T={temperature}: conf rel err "
+            f"{float(rel.max()):.3g} > 1e-2")
+    require(len(diff_rows) <= 0.01 * R,
+            f"stablemax {what} {fmt} T={temperature}: {len(diff_rows)} rows "
+            f"differ (> 1%)")
+    return float(err.max())
+
+
 def check_stablemax(gen) -> dict:
     """stablemax_sampling at the unfused tick's shape, R = 64 rows of
-    llada-8b logits (V = 126464, bf16, made by the head from random hidden
-    states), fmt none, bf16 and mxfp8, greedy and T = 0.8: tokens equal
-    except at near-ties, conf within 1e-2 relative."""
+    llada-8b logits (V = 126464, made by the head from random hidden
+    states), bf16 and f32; and (3, 1003) bf16, whose rows are not 16-byte
+    aligned and whose last MX block is ragged (the scalar route), with an
+    exact tie across the first vocab-range boundary and a larger suppressed
+    logit just past it; fmt none, bf16 and mxfp8, greedy and T = 0.8."""
     from repro_torch.core import sampling
+    from repro_torch.kernels import _build
     from repro_torch.kernels import stablemax_sampling as sms
     R, d, V, mid = 64, LLADA["d"], LLADA["V"], LLADA["mask_id"]
     h = torch.randn(R, d, generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -393,42 +507,31 @@ def check_stablemax(gen) -> dict:
          * (2.0 / (d + V)) ** 0.5 * 8).to(torch.bfloat16)
     z = sampling.head_logits(h, w)
     del w
-    max_err = 0.0
-    for fmt in sampling.SUPPORTED_FMTS:
-        for temperature in (0.0, 0.8):
-            kw = dict(fmt=fmt, suppress_id=mid, temperature=temperature,
-                      seed=4321)
-            conf_k, tok_k = sms.stablemax_sampling(z, **kw)
-            conf_p, tok_p = sms.stable_max_plain(
-                z, fmt, temperature=temperature, seed=4321, suppress_id=mid)
-            same = tok_k == tok_p
-            diff_rows = torch.nonzero(~same).flatten().tolist()
-            if diff_rows:
-                zq = quantized_f32(z[diff_rows], fmt, mid)
-                require(all(near_ties(zq, tok_k[diff_rows], temperature,
-                                      4321, diff_rows)),
-                        f"stablemax {fmt} T={temperature}: tokens differ "
-                        f"off a near-tie in rows {diff_rows}")
-            err = (conf_k - conf_p).abs()[same]
-            rel = err / conf_p.abs()[same]
-            log(f"stablemax_sampling {fmt} T={temperature} (64, 126464) "
-                f"bf16: rows differing {len(diff_rows)}/{R}, conf max abs "
-                f"err {float(err.max()):.3g}, max rel {float(rel.max()):.3g}")
-            require(bool((rel <= 1e-2).all()),
-                    f"stablemax {fmt} T={temperature}: conf rel err "
-                    f"{float(rel.max()):.3g} > 1e-2")
-            require(len(diff_rows) <= 0.01 * R,
-                    f"stablemax {fmt} T={temperature}: {len(diff_rows)} "
-                    f"rows differ (> 1%)")
-            if fmt == "mxfp8_e4m3" and temperature == 0.0:
-                max_err = float(err.max())
+    zs = torch.randn(3, 1003, generator=gen, device=DEVICE) * 3
+    edge, _ = sms.vocab_plan(1003, 3, _build.sm_count(zs.device))
+    zs[:, edge - 1] = zs[:, edge] = 20.0
+    zs[:, edge + 3] = 30.0
+    zs[1, 1002] = 25.0
+    cases = ((z, mid, f"({R}, {V}) bf16"),
+             (z.float(), mid, f"({R}, {V}) f32"),
+             (zs.bfloat16(), edge + 3, f"(3, 1003) bf16, tie at columns "
+                                       f"{edge - 1}/{edge}"))
+    for zz, sup, what in cases:
+        for fmt in sampling.SUPPORTED_FMTS:
+            for temperature in (0.0, 0.8):
+                err = check_stablemax_case(zz, fmt, temperature, sup, what)
+                if zz is z and fmt == "mxfp8_e4m3" and temperature == 0.0:
+                    max_err = err
     kw = dict(fmt="mxfp8_e4m3", suppress_id=mid)
     b_ms, b_by = bound(z.numel() * 2 + R * 8, 4.0 * z.numel(), F32_FLOPS)
+    per_kernel = device_ms_by_kernel(lambda: sms.stablemax_sampling(z, **kw),
+                                     20)
     log(f"stablemax_sampling mxfp8 greedy device time (profiler) "
-        f"{device_ms(lambda: sms.stablemax_sampling(z, **kw), 20):.4f} ms "
-        f"per call (partials + combine), bound {b_ms:.4f} ms; softmax + "
-        f"max {device_ms(lambda: torch.max(torch.softmax(z, -1), -1), 20):.4f}"
-        f" ms")
+        f"{sum(per_kernel.values()):.4f} ms per call ("
+        + ", ".join(f"{k[:40]} {v:.4f}" for k, v in per_kernel.items())
+        + f"), bound {b_ms:.4f} ms; softmax + max "
+        f"{device_ms(lambda: torch.max(torch.softmax(z, -1), -1), 20):.4f}"
+        f" ms; plan {sms.vocab_plan(V, R, _build.sm_count(z.device))}")
     return dict(
         max_abs_err=max_err,
         ms=time_ms(lambda: sms.stablemax_sampling(z, **kw), 50),
@@ -714,9 +817,10 @@ def phase_sampling_stage(eng, model, params, dcfg) -> None:
         f" ms device")
 
 
-def device_ms(fn, n: int) -> float:
-    """Device time per call of ``fn`` from the profiler (the sum of its
-    kernels' device time over n calls, / n), after one warm-up call."""
+def device_ms_by_kernel(fn, n: int) -> dict:
+    """Device time per call of each kernel ``fn`` launches, from the
+    profiler (its device time over n calls, / n), after one warm-up
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -726,9 +830,16 @@ def device_ms(fn, n: int) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / n / 1e3
+    return {e.key: e.self_device_time_total / n / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def device_ms(fn, n: int) -> float:
+    """Device time per call of ``fn`` from the profiler: the sum over the
+    kernels it launches."""
+    return sum(device_ms_by_kernel(fn, n).values())
 
 
 def profile_ticks(tick, name: str, gemm_flops: float, n: int = 3) -> None:

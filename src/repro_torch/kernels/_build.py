@@ -14,6 +14,7 @@ drives the main path and reads them after.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -100,6 +101,13 @@ def function(name: str, symbol: str, argtypes: Iterable) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev) -> int:
+    """The number of SMs of CUDA device ``dev`` (the kernels' grid plans)."""
+    import torch
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def ptr(t) -> Optional[int]:

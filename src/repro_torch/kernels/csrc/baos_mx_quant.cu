@@ -10,36 +10,101 @@
 // itself: the smoothed, quantized K/V are written in place, as the paper's
 // warm step writes the cache, and never round-trip through a temporary.
 //
-// What bounds it: bytes.  At the warm tick's shape (B 4, S 96, H 32,
-// D 128, bf16) one call reads 3.1 MB and writes 3.1 MB, about 1.9 us at
-// 3.35 TB/s, and does a handful of operations per element.  The tick makes
-// 64 calls (K and V of 32 layers), so launch latency dominates.
+// What bounds it: bytes, in principle.  At the warm tick's shape (B 4,
+// S 96, H 32, D 128, bf16) one call reads 3.1 MB and writes 3.1 MB, about
+// 1.9 us at 3.35 TB/s; the K/V were just written by the QKV projection, so
+// they are read from L2.
+// With one element per thread the first port spent its time on
+// instructions (two IEEE divisions, a 5-shuffle warp amax, log2f and exp2f
+// per element) and on 6,144 CTAs that each ended after one element.
 //
-// Design: one warp per MX block, one element per lane; the block amax is a
-// warp shuffle.  One CTA row per (b, s), so the index math is two 32-bit
-// operations.  True IEEE division for (x - c)/f and for the block scale,
-// so kernel and plain version agree bit for bit.
+// Design:
+//   * A lane owns 8 consecutive channels (one 16-byte load of bf16, two of
+//     f32), so a quad holds one 32-wide MX block along D and the block amax
+//     is a reduction over the quad (common.cuh quad_block_scales).
+//   * A CTA covers one b, a run of 512 channels and 8 sequence rows: 4 row
+//     groups of 64 threads, each thread ROWS = 2 rows.  A thread loads its
+//     8 channels' c and f into registers once and issues its 2 rows' loads
+//     together; the 4 row groups share the calibration through L1, so L2
+//     serves c and f once per 8 rows, not once per element.  The main
+//     shape launches (8, 12, 4) = 384 CTAs of 256 threads, about 3 per SM.
+//     On the H100 this ran faster than 1024 channels x 4 rows per thread
+//     (one thread per block scale, but half the warps in flight).
+//   * The 2 rows are the 2 blocks of quad_block_scales: two quad lanes
+//     compute each block's scale (IEEE division, log2f, exp2f), and the
+//     elementwise quotient v / scale becomes v * 2^-e, equal bit for bit
+//     (a block whose exp2f is not exactly 2^e, on the H100 only e = -127,
+//     keeps the division).
+//   * (x - c) / f stays an IEEE division, as the plain version divides; the
+//     integer rounding keeps quant_element's explicit __fmul_rn/__fadd_rn,
+//     and mxfp8 its saturating e4m3 cast.  What holds the kernel back is
+//     each thread's one chain of loads, divisions, block exponent and
+//     quantization: with the division or the quantization taken out (not
+//     exact), the kernel ran measurably faster on the H100.
+//   * 16-byte loads and stores need x, out, c and f 16-byte aligned with
+//     B/S strides to match; otherwise the same kernel runs on scalar loads
+//     and stores.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps: 8 MX blocks of one (b, s) row
+constexpr int CH_THREADS = 64;     // threads along H * D: 512 channels
+constexpr int GROUPS = 4;          // row groups of CH_THREADS threads
+constexpr int ROWS = 2;            // sequence rows per thread: the blocks
+constexpr int THREADS = CH_THREADS * GROUPS;
+constexpr int CHANNELS = 8 * CH_THREADS;
+constexpr int CTA_ROWS = ROWS * GROUPS;
 
-// grid (B * S, ceil(H * D / THREADS)): blockIdx.x is the (b, s) row, and
-// thread t of CTA y the element h * D + dd = y * THREADS + t of that row,
-// so each warp's 32 lanes are one MX block (D is a multiple of 32).
+// grid (ceil(H * D / CHANNELS), ceil(S / CTA_ROWS), B): thread t of CTA
+// (x, y, b) owns channels hd = 8 * (x * CH_THREADS + t % CH_THREADS) ..
+// hd + 7 of the ROWS rows from (y * GROUPS + t / CH_THREADS) * ROWS.  Lanes
+// past H * D and rows past S take part in the shuffles and store nothing;
+// D is a multiple of 32, so a quad is live or dead as a whole.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 baos_mx_quant_kernel(const T* __restrict__ x, const float* __restrict__ c,
                      const float* __restrict__ f, T* __restrict__ out, int S,
                      int HD, long long x_sb, long long x_ss, long long o_sb,
-                     long long o_ss, int fmt) {
-  const int hd = blockIdx.y * THREADS + threadIdx.x;
-  if (hd - static_cast<int>(threadIdx.x & 31) >= HD) return;  // whole warps
-  const int b = blockIdx.x / S, s = blockIdx.x % S;
+                     long long o_ss, int fmt, bool vec) {
+  const int t = threadIdx.x % CH_THREADS, g = threadIdx.x / CH_THREADS;
+  const int hd = 8 * (blockIdx.x * CH_THREADS + t);
+  const bool live = hd < HD;
+  const int b = blockIdx.z, s0 = (blockIdx.y * GROUPS + g) * ROWS;
   const size_t cal = static_cast<size_t>(b) * HD + hd;
-  const float v = (to_f32(x[b * x_sb + s * x_ss + hd]) - c[cal]) / f[cal];
-  out[b * o_sb + s * o_ss + hd] = from_f32<T>(fake_quant<float>(v, fmt));
+  float cc[8], ff[8];
+  load8(c + cal, live ? 8 : 0, vec, cc);
+  load8(f + cal, live ? 8 : 0, vec, ff);
+  float v[ROWS][8];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const bool ok = live && s0 + r < S;
+    load8(x + b * x_sb + (s0 + r) * x_ss + hd, ok ? 8 : 0, vec, v[r]);
+  }
+  float amax[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    amax[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[r][j] = live ? (v[r][j] - cc[j]) / ff[j] : 0.f;
+      amax[r] = fmaxf(amax[r], fabsf(v[r][j]));
+    }
+  }
+  float scale[ROWS], inv[ROWS];
+  quad_block_scales(amax, fmt, scale, inv);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    scale_down8(v[r], scale[r], inv[r]);
+    quant8(v[r], fmt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[r][j] = __fmul_rn(v[r][j], scale[r]);
+    if (live && s0 + r < S)
+      store8(out + b * o_sb + (s0 + r) * o_ss + hd, v[r], vec);
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>
@@ -47,11 +112,16 @@ cudaError_t launch(const void* x, const void* c, const void* f, void* out,
                    int B, int S, int H, int D, long long x_sb, long long x_ss,
                    long long o_sb, long long o_ss, int fmt,
                    cudaStream_t stream) {
-  const dim3 grid(B * S, (H * D + THREADS - 1) / THREADS);
+  const long long step = 16 / sizeof(T);     // elements per 16 bytes
+  const bool vec = aligned16(x) && aligned16(out) && aligned16(c) &&
+                   aligned16(f) && x_sb % step == 0 && x_ss % step == 0 &&
+                   o_sb % step == 0 && o_ss % step == 0;
+  const dim3 grid((H * D + CHANNELS - 1) / CHANNELS,
+                  (S + CTA_ROWS - 1) / CTA_ROWS, B);
   baos_mx_quant_kernel<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(c),
       static_cast<const float*>(f), static_cast<T*>(out), S, H * D, x_sb,
-      x_ss, o_sb, o_ss, fmt);
+      x_ss, o_sb, o_ss, fmt, vec);
   return cudaGetLastError();
 }
 

@@ -1,15 +1,19 @@
 // Helpers shared by the port's CUDA kernels: dtype conversion, warp
 // reductions, the constants the Pallas kernels use (-1e30 for a masked
 // score, 2^30 for "no index"), the counter-based Gumbel stream, the MX
-// fake-quant of one 32-wide block per warp, the merge of per-tile
-// Stable-Max partials, and PTX wrappers for cp.async, ldmatrix and
-// mma.sync (bf16 in, f32 accumulate).  Every reduction leaves its result
+// fake-quant of one 32-wide block per warp, 8-wide lanes with one MX block
+// per quad (16-byte loads, block scales computed once per quad), the merge
+// of per-tile Stable-Max partials, and PTX wrappers for cp.async, ldmatrix
+// and mma.sync (bf16 in, f32 accumulate).  Every reduction leaves its result
 // in all 32 lanes, taken from lane 0 so the lanes agree bit for bit.
 //
 // No fast-math anywhere: the MX exponent rule ceil(log2(amax / grid_max))
 // and the Gumbel log must call the full-precision log2f/logf that
 // torch.log2/torch.log call on the card, and divisions must be IEEE
-// divisions, so that each kernel agrees with its plain PyTorch version.
+// divisions (or multiplies by an exact inverse power of two, which round
+// alike), so that each kernel agrees with its plain PyTorch version.  The
+// one approximation is stablemax_sampling's exp-sum, which feeds conf
+// alone (ex2.approx; conf is held to 1e-2).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -121,13 +125,17 @@ __device__ __forceinline__ float quant_element(float y, int fmt) {
   return __fmul_rn(fminf(fmaxf(r, lo), hi), 1.f / step);
 }
 
-// The shared power-of-two scale of an MX block whose largest magnitude is
-// amax: 2^clip(ceil(log2(amax / grid_max)), -127, 127), or 1 for amax 0.
+// The exponent of the shared scale of an MX block whose largest magnitude
+// is amax: clip(ceil(log2(amax / grid_max)), -127, 127), or 0 for amax 0.
+__device__ __forceinline__ int mx_block_exp(float amax, int fmt) {
+  if (!(amax > 0.f)) return 0;
+  const float e = ceilf(log2f(amax / grid_max(fmt)));
+  return static_cast<int>(fminf(fmaxf(e, -127.f), 127.f));
+}
+
+// The shared power-of-two scale of that block, 2^e (1 for amax 0).
 __device__ __forceinline__ float mx_block_scale(float amax, int fmt) {
-  if (!(amax > 0.f)) return 1.f;
-  float e = ceilf(log2f(amax / grid_max(fmt)));
-  e = fminf(fmaxf(e, -127.f), 127.f);
-  return exp2f(e);
+  return exp2f(static_cast<float>(mx_block_exp(amax, fmt)));
 }
 
 // Fake-quant of one value per lane; the warp's 32 lanes are one MX block
@@ -139,6 +147,167 @@ __device__ __forceinline__ float fake_quant(float v, int fmt) {
   if (fmt == FMT_BF16) return round_to<T>(round_to<__nv_bfloat16>(v));
   const float scale = mx_block_scale(warp_max(fabsf(v)), fmt);
   return round_to<T>(__fmul_rn(quant_element(v / scale, fmt), scale));
+}
+
+// ---------------------------------------------------------------------------
+// 8-wide lanes, one MX block per quad (baos_mx_quant, stablemax_sampling)
+// ---------------------------------------------------------------------------
+// A lane owns 8 consecutive elements: one 16-byte load of bf16, two of f32.
+// The four lanes of a quad (lanes 4k..4k+3) then hold one 32-wide MX block,
+// so a block's amax is a reduction over the quad alone.
+
+__device__ __forceinline__ void unpack_bf16x2(uint32_t w, float& lo,
+                                              float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The 8 values at p as f32: 16-byte loads when vec (p 16-byte aligned) and
+// n == 8, else scalar loads of the first n (0 <= n <= 8) and 0 for the rest.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, int n,
+                                      bool vec, float (&v)[8]) {
+  if (vec && n == 8) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+    unpack_bf16x2(w.x, v[0], v[1]);
+    unpack_bf16x2(w.y, v[2], v[3]);
+    unpack_bf16x2(w.z, v[4], v[5]);
+    unpack_bf16x2(w.w, v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = j < n ? __bfloat162float(p[j]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, int n, bool vec,
+                                      float (&v)[8]) {
+  if (vec && n == 8) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = j < n ? p[j] : 0.f;
+  }
+}
+
+// v rounded to T, 8 values at p: 16-byte stores when vec, else scalar.
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8],
+                                       bool vec) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                   pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) p[j] = __float2bfloat16_rn(v[j]);
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8],
+                                       bool vec) {
+  if (vec) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) p[j] = v[j];
+  }
+}
+
+// round_to<T> of 8 values; bf16 rounds in pairs (cvt.rn.bf16x2.f32).
+template <typename T>
+__device__ __forceinline__ void round8(float (&v)[8]) {
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) unpack_bf16x2(pack_bf16x2(v[j], v[j + 1]),
+                                                 v[j], v[j + 1]);
+  }
+}
+
+// quant_element of 8 values already multiplied by their block's inverse
+// scale.  mxfp8 converts in pairs (cvt.rn.satfinite.e4m3x2.f32): for finite
+// y the same value as quant_element's clip to +-448 and SATFINITE cast,
+// since |y| <= 448 rounds alike either way and larger |y| saturates to 448
+// either way.  The e4m3 bytes come back to f32 by bit moves, not through
+// the conversion unit: sign to bit 31, exponent and mantissa to bits
+// 26..20, which reads as the value times 2^-120 (subnormal codes
+// included), then an exact multiply by 2^120.
+__device__ __forceinline__ float e4m3_to_f32(uint32_t q) {
+  const float v = __uint_as_float((q & 0x80u) << 24 | (q & 0x7fu) << 20);
+  return __fmul_rn(v, 1.329227995784916e36f);     // 2^120
+}
+
+__device__ __forceinline__ void quant8(float (&y)[8], int fmt) {
+  if (fmt == FMT_MXFP8) {
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      uint16_t q;
+      asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;"
+          : "=h"(q)
+          : "f"(y[j + 1]), "f"(y[j]));
+      y[j] = e4m3_to_f32(q);
+      y[j + 1] = e4m3_to_f32(q >> 8);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) y[j] = quant_element(y[j], fmt);
+  }
+}
+
+// 2^e exactly, for an integer e in [-149, 127] (below -126 a subnormal).
+__device__ __forceinline__ float pow2i(int e) {
+  return e >= -126 ? __int_as_float((e + 127) << 23)
+                   : __int_as_float(1 << (e + 149));
+}
+
+// The scales of two MX blocks per quad, one per row or step u of the
+// caller: a[u] is this lane's amax over its 8 values of block u.  A
+// reduce-scatter over the quad (2 shuffles) leaves block 0's amax in lanes
+// 0-1 and block 1's in lanes 2-3, which apply mx_block_scale's rule to it,
+// so each block's exponent is computed by two lanes, not once per value;
+// 4 shuffles then give every lane of the quad each block's scale and its
+// exact inverse 2^-e, built from the exponent bits, never as 1 / scale.
+// v * inv equals the IEEE quotient v / scale bit for bit, subnormal results
+// included (both round the same real number), wherever exp2f gives exactly
+// 2^e.  On the H100 it does for every e but -127, whose 2^e is subnormal
+// (chip_smoke.py checks torch.exp2, which calls it); where it does not, inv
+// is 0 and scale_down8 divides, as the plain version does.  Must be called
+// by all 32 lanes together.
+__device__ __forceinline__ void quad_block_scales(const float (&a)[2],
+                                                  int fmt, float (&scale)[2],
+                                                  float (&inv)[2]) {
+  const bool hi = threadIdx.x & 2;
+  float amax = fmaxf(hi ? a[1] : a[0],
+                     __shfl_xor_sync(FULL_MASK, hi ? a[0] : a[1], 2));
+  amax = fmaxf(amax, __shfl_xor_sync(FULL_MASK, amax, 1));
+  const int e = mx_block_exp(amax, fmt);
+  const float sc = exp2f(static_cast<float>(e));
+  const int quad = threadIdx.x & 28;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    scale[u] = __shfl_sync(FULL_MASK, sc, quad + 2 * u);
+    const int eu = __shfl_sync(FULL_MASK, e, quad + 2 * u);
+    inv[u] = scale[u] == pow2i(eu) ? pow2i(-eu) : 0.f;
+  }
+}
+
+// v / scale for the 8 values of one block: the multiply by the exact
+// inverse, or the IEEE division where there is none (inv 0).
+__device__ __forceinline__ void scale_down8(float (&v)[8], float scale,
+                                            float inv) {
+  if (inv != 0.f) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = __fmul_rn(v[j], inv);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = v[j] / scale;
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -108,29 +108,42 @@ def head_partials_plain(hidden: torch.Tensor, w_head: torch.Tensor,
     temperature > 0 the first holding the largest Gumbel score best, whose
     logit is z_at (best and z_at are -inf/-1e30 when greedy)."""
     cols, n = plan
-    R, V = hidden.shape[0], w_head.shape[1]
-    parts = [[] for _ in range(5)]
-    rows = torch.arange(R, device=hidden.device)[:, None]
+    V = w_head.shape[1]
+    parts = []
     for r in range(n):
         c0, c1 = r * cols, min((r + 1) * cols, V)
         z = sampling.head_logits(hidden, w_head[:, c0:c1],
                                  logit_scale=logit_scale)
-        z = mx.mx_fake_quant(z, fmt).to(torch.float32)
-        col = torch.arange(c0, c1, device=hidden.device)
-        if suppress_id is not None:
-            z = torch.where(col == suppress_id, sampling.NEG_INF, z)
-        m, i = torch.max(z, dim=-1)                   # first occurrence
-        s = torch.sum(torch.exp(z - m[:, None]), dim=-1)
-        best = torch.full_like(m, -float("inf"))
-        z_at = torch.full_like(m, sampling.NEG_INF)
-        if temperature > 0.0:
-            sc = z / temperature + sampling.counter_gumbel(seed, rows,
-                                                           col[None, :])
-            best, i = torch.max(sc, dim=-1)
-            z_at = torch.gather(z, 1, i[:, None])[:, 0]
-        for acc, t in zip(parts, (m, i + c0, s, best, z_at)):
-            acc.append(t)
-    return tuple(torch.stack(t, dim=1) for t in parts)
+        parts.append(range_partials(mx.mx_fake_quant(z, fmt), c0,
+                                    temperature=temperature, seed=seed,
+                                    suppress_id=suppress_id))
+    return tuple(torch.stack(t, dim=1) for t in zip(*parts))
+
+
+def range_partials(z: torch.Tensor, c0: int, *, temperature: float = 0.0,
+                   seed: int = 0, suppress_id: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, ...]:
+    """One column range's partials (m, idx, s, best, z_at), each (R,), from
+    its fake-quantized logits z (R, n) of columns c0 .. c0 + n - 1: the
+    suppressed id masked, m the largest logit, s the exp-sum relative to
+    m, idx the first column holding m, or with temperature > 0 the first
+    holding the largest Gumbel score best, whose logit is z_at (best and
+    z_at are -inf/-1e30 when greedy)."""
+    z = z.to(torch.float32)
+    col = torch.arange(c0, c0 + z.shape[1], device=z.device)
+    if suppress_id is not None:
+        z = torch.where(col == suppress_id, sampling.NEG_INF, z)
+    m, i = torch.max(z, dim=-1)                       # first occurrence
+    s = torch.sum(torch.exp(z - m[:, None]), dim=-1)
+    best = torch.full_like(m, -float("inf"))
+    z_at = torch.full_like(m, sampling.NEG_INF)
+    if temperature > 0.0:
+        rows = torch.arange(z.shape[0], device=z.device)[:, None]
+        sc = z / temperature + sampling.counter_gumbel(seed, rows,
+                                                       col[None, :])
+        best, i = torch.max(sc, dim=-1)
+        z_at = torch.gather(z, 1, i[:, None])[:, 0]
+    return m, i + c0, s, best, z_at
 
 
 def combine_rows_plain(m: torch.Tensor, idx: torch.Tensor, s: torch.Tensor,
@@ -152,11 +165,6 @@ def combine_rows_plain(m: torch.Tensor, idx: torch.Tensor, s: torch.Tensor,
     zat = torch.gather(z_at, 1, torch.argmax((idx == tok[:, None]).to(
         torch.int32), dim=1)[:, None])[:, 0]
     return torch.exp(zat - m_all) / s_all, tok.to(torch.int32)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,7 +213,7 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
         if d % 8 or V % 8:
             raise ValueError(f"bf16 route needs d and V to be multiples of 8 "
                              f"(16-byte rows); got d={d}, V={V}")
-        cols, n_parts = column_plan(V, _sm_count(dev))
+        cols, n_parts = column_plan(V, _build.sm_count(dev))
     else:
         cols, n_parts = 0, tiles(V)
     gumbel = temperature > 0.0

@@ -8,7 +8,11 @@ then max m, first-occurrence argmax and exp-sum s: conf = 1/s, or, with
 temperature > 0, the counter-Gumbel argmax of z/T + g with
 conf = exp(z_at - m)/s.  The Pallas kernel does the reduction alone; the
 kernel here also does the fake-quant and the Gumbel draw, so the whole of
-``stable_max`` is one launch (plus the merge of its per-tile partials).
+``stable_max`` is one launch, plus the merge of its partials: the kernel
+splits V into the column ranges of ``vocab_plan``, folds each range of a
+row into one partial (``stablemax_partials_plain`` computes the same
+partials in plain arithmetic), and a second kernel merges them with the
+combine rule (``fused_head_sampling.combine_rows_plain``).
 
 ``stablemax_sampling`` launches csrc/stablemax_sampling.cu for CUDA
 tensors and runs ``stable_max_plain`` for CPU tensors; a CUDA tensor never
@@ -25,11 +29,17 @@ import torch
 from repro_torch.core import mx
 from repro_torch.core import sampling
 from repro_torch.kernels import _build
+from repro_torch.kernels.fused_head_sampling import range_partials
 
 NAME = "stablemax_sampling"
 # fmt argument of the C entry point: 0 none, 1 bf16, 2 mxfp8_e4m3
 _FMT_CODES = {f: i for i, f in enumerate(sampling.SUPPORTED_FMTS)}
 _DTYPES = (torch.float32, torch.bfloat16)
+# the kernel's CTA steps through its range 2048 columns (64 MX blocks) at a
+# time, two steps per pass; the plan aims at a few CTAs per SM
+STEP_BLOCKS = 64
+PASS_BLOCKS = 2 * STEP_BLOCKS
+CTAS_PER_SM = 4
 
 
 def stable_max_plain(logits: torch.Tensor, fmt: str = "none", *,
@@ -54,13 +64,44 @@ def stable_max_plain(logits: torch.Tensor, fmt: str = "none", *,
     return 1.0 / s, torch.argmax(z, dim=-1).to(torch.int32)
 
 
+def vocab_plan(V: int, R: int, n_sm: int) -> Tuple[int, int]:
+    """(columns per CTA, CTAs per row): V split into contiguous ranges of
+    whole 32-column MX blocks, aligned to column 0 as a full-row fake-quant
+    aligns them, about CTAS_PER_SM CTAs per SM over all R rows.  A range
+    longer than one CTA step is rounded up to whole steps, and one longer
+    than one pass to whole passes, so no CTA runs a step with no column;
+    the last range may be ragged."""
+    blocks = -(-V // mx.MX_BLOCK)
+    n = max(1, min(blocks, -(-CTAS_PER_SM * n_sm // max(R, 1))))
+    per = -(-blocks // n)
+    for unit in (PASS_BLOCKS, STEP_BLOCKS):
+        if per > unit:
+            per = -(-per // unit) * unit
+            break
+    cols = per * mx.MX_BLOCK
+    return cols, -(-V // cols)
+
+
+def stablemax_partials_plain(logits: torch.Tensor, plan: Tuple[int, int],
+                             fmt: str = "none", *, temperature: float = 0.0,
+                             seed: int = 0, suppress_id: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, ...]:
+    """The kernel's per-range partials in plain arithmetic: (m, idx, s,
+    best, z_at), each (R, n_ranges), for the column ranges of ``plan``
+    (``fused_head_sampling.range_partials`` per range)."""
+    cols, n = plan
+    z = mx.mx_fake_quant(logits, fmt)
+    parts = [range_partials(z[:, r * cols:(r + 1) * cols], r * cols,
+                            temperature=temperature, seed=seed,
+                            suppress_id=suppress_id) for r in range(n)]
+    return tuple(torch.stack(t, dim=1) for t in zip(*parts))
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fns():
+def _kernel_fn():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    launch = _build.function(NAME, "stablemax_sampling_launch",
-                             [p] * 8 + [i] * 4 + [f, ctypes.c_uint, i, p])
-    tiles = _build.function(NAME, "stablemax_sampling_tiles", [i])
-    return launch, tiles
+    return _build.function(NAME, "stablemax_sampling_launch",
+                           [p] * 8 + [i] * 5 + [f, ctypes.c_uint, i, p])
 
 
 def stablemax_sampling(logits: torch.Tensor, *, fmt: str = "none",
@@ -85,25 +126,25 @@ def stablemax_sampling(logits: torch.Tensor, *, fmt: str = "none",
         raise ValueError("logits must be contiguous")
     R, V = logits.shape
     dev = logits.device
-    launch, tiles = _kernel_fns()
-    n_vt = tiles(V)
+    conf = torch.empty((R,), dtype=torch.float32, device=dev)
+    token = torch.empty((R,), dtype=torch.int32, device=dev)
+    if R == 0 or V == 0:
+        return conf, token
+    cols, n_vt = vocab_plan(V, R, _build.sm_count(dev))
     gumbel = temperature > 0.0
     part_m = torch.empty((R, n_vt), dtype=torch.float32, device=dev)
     part_i = torch.empty((R, n_vt), dtype=torch.int32, device=dev)
     part_s = torch.empty_like(part_m)
     part_b = torch.empty_like(part_m) if gumbel else None
     part_z = torch.empty_like(part_m) if gumbel else None
-    conf = torch.empty((R,), dtype=torch.float32, device=dev)
-    token = torch.empty((R,), dtype=torch.int32, device=dev)
-    if R == 0 or V == 0:
-        return conf, token
-    err = launch(logits.data_ptr(), part_m.data_ptr(), part_i.data_ptr(),
-                 part_s.data_ptr(), _build.ptr(part_b), _build.ptr(part_z),
-                 conf.data_ptr(), token.data_ptr(), R, V,
-                 int(logits.dtype == torch.bfloat16), _FMT_CODES[fmt],
-                 float(temperature), int(seed) & sampling.MASK32,
-                 -1 if suppress_id is None else int(suppress_id),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    err = _kernel_fn()(logits.data_ptr(), part_m.data_ptr(),
+                       part_i.data_ptr(), part_s.data_ptr(),
+                       _build.ptr(part_b), _build.ptr(part_z),
+                       conf.data_ptr(), token.data_ptr(), R, V, cols,
+                       int(logits.dtype == torch.bfloat16), _FMT_CODES[fmt],
+                       float(temperature), int(seed) & sampling.MASK32,
+                       -1 if suppress_id is None else int(suppress_id),
+                       torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME, err)
     _build.launch_counts[NAME] += 1
     return conf, token

@@ -10,7 +10,9 @@ block, and no block whose amax / grid_max lies within 2 ulp of a power of
 two, where XLA's and torch's log2 may round the exponent differently."""
 import itertools
 
+import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -140,6 +142,121 @@ def test_baos_writes_into_a_cache_slice():
     with pytest.raises(ValueError):
         tbq.baos_mx_quant(xt, torch.from_numpy(c)[:, :, :2],
                           torch.from_numpy(f), "mxint4")
+
+
+def _g(a: np.ndarray) -> np.ndarray:
+    """(B, S, H, D) -> the Pallas kernel's and oracle's (G = B * H, S, D)."""
+    B, S, H, D = a.shape
+    return a.transpose(0, 2, 1, 3).reshape(B * H, S, D)
+
+
+@pytest.mark.parametrize("fmt", KV_FORMATS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_baos_plain_zero_blocks_and_d32_match_oracle(fmt, dtype):
+    """D = 32 (one MX block per head) with whole blocks equal to their
+    centers, so their smoothed values are all zero (scale 1), and a ragged
+    S: the plain version vs the JAX oracle kernels/ref.baos_mx_quant_ref,
+    bit for bit."""
+    B, S, H, D = 2, 13, 3, 32
+    for seed in itertools.count(40):
+        rs = np.random.RandomState(seed)
+        c = torch.from_numpy(rs.randn(B, 1, H, D).astype(np.float32) * 3)
+        c = c.to(getattr(torch, dtype)).float()     # x can equal c exactly
+        f = torch.from_numpy(rs.uniform(0.5, 2.0, (B, 1, H, D)).astype(
+            np.float32))
+        x = (c + torch.from_numpy(rs.randn(B, S, H, D).astype(np.float32))
+             * f * 4).to(getattr(torch, dtype))
+        x[:, :, 1] = c[:, :, 1].to(x.dtype)          # head 1: zero blocks
+        x[0, 5] = c[0, 0].to(x.dtype)                # a zero row
+        xs = ((x.float() - c) / f).numpy()
+        if _far_from_scale_edges(xs, fmt):
+            break
+    got = tbq.baos_mx_quant(x, c, f, fmt)
+    assert bool((got[:, :, 1] == 0).all()) and bool((got[0, 5] == 0).all())
+    oracle = np.asarray(ref.baos_mx_quant_ref(
+        jnp.asarray(_g(x.float().numpy())).astype(getattr(jnp, dtype)),
+        jnp.asarray(_g(c.numpy())), jnp.asarray(_g(f.numpy())), fmt
+    ).astype(jnp.float32))
+    np.testing.assert_array_equal(_g(got.float().numpy()), oracle)
+
+
+def _np_baos_mx_quant(x: np.ndarray, c: np.ndarray, f: np.ndarray,
+                      fmt: str) -> np.ndarray:
+    """core/mx's rule transcribed to numpy f32 (no flush to zero, exact
+    np.ldexp powers of two): (x - c)/f, then the MX fake-quant of each
+    32-block along the last axis, in f32."""
+    fm = jmx.FORMATS[fmt]
+    xs = ((x - c) / f).astype(np.float32)
+    xb = xs.reshape(*xs.shape[:-1], -1, 32)
+    amax = np.abs(xb).max(-1, keepdims=True)
+    safe = np.where(amax > 0, amax, np.float32(1))
+    e = np.clip(np.ceil(np.log2(safe / np.float32(fm.grid_max))), -127, 127)
+    scale = np.where(amax > 0, np.ldexp(np.float32(1), e.astype(np.int32)),
+                     np.float32(1)).astype(np.float32)
+    y = (xb / scale).astype(np.float32)
+    if fm.is_int:
+        t = y * np.float32(2 ** fm.frac_bits)
+        lo, hi = -(2 ** (fm.element_bits - 1)), 2 ** (fm.element_bits - 1) - 1
+        q = np.clip(np.sign(t) * np.floor(np.abs(t) + np.float32(0.5)), lo, hi)
+        q = (q * np.float32(2.0 ** -fm.frac_bits)).astype(np.float32)
+    else:
+        q = np.clip(y, -448, 448).astype(ml_dtypes.float8_e4m3fn).astype(
+            np.float32)
+    with np.errstate(over="ignore"):
+        return (q * scale).astype(np.float32).reshape(xs.shape), e
+
+
+def _exact_exp2(e):
+    """2^e exactly for integer-valued e in [-126, 127], from the exponent
+    bits (XLA's CPU exp2 is off by several ulp for most |e| >= 13)."""
+    return jax.lax.bitcast_convert_type(
+        jnp.left_shift(e.astype(jnp.int32) + 127, 23), jnp.float32)
+
+
+@pytest.mark.parametrize("fmt", KV_FORMATS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_baos_plain_at_exponent_extremes(fmt, dtype, monkeypatch):
+    """Blocks at both ends of the E8M0 range, with identity calibration:
+    amax 3.385e38 (for the integer formats ceil(log2(amax / grid_max)) is
+    128 and clips to 127; mxfp8 reaches 120) and amax <= 1.1e-39, subnormal
+    values whose exponent clips to -127, beside zero and ordinary blocks.
+    The plain version, bit for bit, vs a numpy transcription of the rule
+    everywhere, and vs the JAX oracle kernels/ref.baos_mx_quant_ref off the
+    bottom blocks, run op by op with XLA's CPU exp2 replaced by the exact
+    power of two (XLA's exp2 is inexact there, and XLA flushes the
+    subnormal bottom blocks to zero)."""
+    B, S, H, D = 1, 5, 2, 128
+    for seed in itertools.count(50):
+        rs = np.random.RandomState(seed)
+        x = rs.randn(B, S, H, D // 32, 32).astype(np.float32)
+        top = np.where(rs.rand(*x.shape) < 0.5, -1, 1) * 3.385e38 * \
+            rs.uniform(0.5, 1.0, x.shape)
+        top[..., 0] = 3.385e38
+        x[:, :, :, 0] = 0.0
+        x[:, :, :, 1] = top[:, :, :, 1]
+        x[:, :, :, 2] = np.clip(x[:, :, :, 2], -1, 1) * np.float32(1.1e-39)
+        xt = torch.from_numpy(x.reshape(B, S, H, D)).to(getattr(torch, dtype))
+        x = xt.float().numpy()
+        if _far_from_scale_edges(x, fmt):
+            break
+    c = np.zeros((B, 1, H, D), np.float32)
+    f = np.ones((B, 1, H, D), np.float32)
+    got = tbq.baos_mx_quant(xt, torch.from_numpy(c), torch.from_numpy(f),
+                            fmt).float().numpy()
+    want, e = _np_baos_mx_quant(x, c, f, fmt)
+    want = torch.from_numpy(want).to(xt.dtype).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    e = e[..., 0].reshape(B, S, H, D // 32)
+    assert (e[..., 2] == -127).all()
+    assert (e[..., 1] == (120 if fmt == "mxfp8_e4m3" else 127)).all()
+    monkeypatch.setattr(jnp, "exp2", _exact_exp2)
+    with jax.disable_jit():
+        oracle = np.asarray(ref.baos_mx_quant_ref(
+            jnp.asarray(_g(x)).astype(getattr(jnp, dtype)),
+            jnp.asarray(_g(c)), jnp.asarray(_g(f)), fmt
+        ).astype(jnp.float32))
+    keep = np.arange(D) // 32 % 4 != 2
+    np.testing.assert_array_equal(_g(got)[..., keep], oracle[..., keep])
 
 
 def test_query_output_fusion_and_dequantize_match():

@@ -65,3 +65,46 @@ def test_mxfp8_saturates_where_the_cast_would_overflow():
     np.testing.assert_array_equal(q.numpy(), [[448.0, -448.0, 448.0, 1.0]])
     want = np.asarray(jmx._quant_element(jnp.asarray(x.numpy()), jmx.MXFP8))
     np.testing.assert_array_equal(q.numpy(), want)
+
+
+def _inverse_scale_inputs(kind: str) -> np.ndarray:
+    """f32 values for the exact-inverse test: random magnitudes over the
+    whole normal range, the largest normals, the smallest normals, and
+    values whose quotients by 2^e land in the subnormal range."""
+    rs = np.random.RandomState(11)
+    sign = np.where(rs.rand(4096) < 0.5, -1.0, 1.0)
+    mant = 1.0 + rs.randint(0, 2 ** 23, 4096) / 2.0 ** 23
+    if kind == "random":
+        exp = rs.randint(-126, 128, 4096)
+    elif kind == "largest_normal":
+        mant[:2] = 2.0 - 2.0 ** -23                  # FLT_MAX itself
+        exp = np.full(4096, 127)
+    elif kind == "smallest_normal":
+        mant[:2] = 1.0                               # FLT_MIN itself
+        exp = np.full(4096, -126)
+    else:                                            # subnormal results
+        exp = rs.randint(-126, -90, 4096)
+    return (sign * np.ldexp(mant, exp)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "largest_normal",
+                                  "smallest_normal", "subnormal_results"])
+def test_inverse_power_of_two_scale_is_exact(kind):
+    """The kernels' premise: x * 2^-e equals the plain version's quotient
+    x / 2^e bit for bit in torch f32, for every integer e in [-127, 127]
+    (2^-127 and the quotients below 2^-126 are subnormal, the largest
+    normals overflow alike), and torch.exp2(e), the plain version's scale,
+    is exactly 2^e."""
+    x = torch.from_numpy(_inverse_scale_inputs(kind))
+    es = np.arange(-127, 128)
+    scales = np.ldexp(np.float32(1), es).astype(np.float32)
+    np.testing.assert_array_equal(
+        torch.exp2(torch.from_numpy(es.astype(np.float32))).numpy(), scales)
+    n_subnormal = 0
+    for e, scale in zip(es, scales):
+        inv = torch.tensor(np.ldexp(np.float32(1), -e).astype(np.float32))
+        quot = x / torch.full_like(x, scale)
+        prod = x * inv
+        assert torch.equal(prod.view(torch.int32), quot.view(torch.int32)), e
+        n_subnormal += int(((quot != 0) & (quot.abs() < 2.0 ** -126)).sum())
+    assert kind != "subnormal_results" or n_subnormal > 10000

@@ -215,6 +215,64 @@ def test_stablemax_plain_matches_pallas(suppress, dtype):
         assert not bool((tok == suppress).any())
 
 
+@pytest.mark.parametrize("V,n_sm", [(1003, 132), (4096, 3)])
+@pytest.mark.parametrize("fmt", ["none", "bf16", "mxfp8_e4m3"])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stablemax_vocab_plan_matches_jax(V, n_sm, fmt, temperature, dtype):
+    """The stored-logit kernel's partition: V split by vocab_plan (V 1003
+    on 132 SMs: 32 ranges of one MX block, the last ragged; V 4096 on 3:
+    two ranges of one 2048-column CTA step), each range folded into one
+    partial per row (stablemax_partials_plain) and the partials merged in
+    a shuffled order by the twin of common.cuh combine_row.  The two
+    columns on either side of the first range boundary hold equal maximum
+    logits (the first must win), the suppressed id sits just past it with
+    a larger logit still, and one row's maximum lies in the ragged last
+    block.  Held against stable_max_plain, JAX's core/sampling.stable_max
+    (greedy) or its fused-head oracle on an identity hidden state, which
+    streams the same logits through the counter-Gumbel draw (T = 0.8), and
+    the Pallas kernel in interpret mode where it applies (fmt none,
+    greedy); tolerances as in the tests above."""
+    R = 6
+    cols, n_parts = plan = tsm.vocab_plan(V, R, n_sm)
+    assert cols % 32 == 0 and n_parts > 1
+    assert (n_parts - 1) * cols < V <= n_parts * cols
+    edge, suppress = cols, cols + 3
+    rs = np.random.RandomState(V + n_sm)
+    z = (rs.randn(R, V) * 3).astype(np.float32)
+    z[:, edge - 1] = z[:, edge] = 20.0        # an exact tie across ranges
+    z[:, suppress] = 30.0
+    z[1, V - 1] = 25.0                        # in the ragged last block
+    zt = torch.from_numpy(z).to(getattr(torch, dtype))
+    zj = jnp.asarray(zt.float().numpy()).astype(getattr(jnp, dtype))
+    key = jax.random.PRNGKey(7)
+    seed = int(js.gumbel_seed(key))
+    kw = dict(temperature=temperature, seed=seed, suppress_id=suppress)
+    parts = tsm.stablemax_partials_plain(zt, plan, fmt, **kw)
+    assert all(tuple(t.shape) == (R, n_parts) for t in parts)
+    order = torch.from_numpy(rs.permutation(n_parts))
+    conf, tok = tfh.combine_rows_plain(*(t[:, order] for t in parts),
+                                       gumbel=temperature > 0)
+    pc, pt = tsm.stable_max_plain(zt, fmt, **kw)
+    refs = [(pc, pt)]
+    if temperature > 0:
+        refs.append(js.fused_head_stable_max(
+            jnp.eye(R, dtype=zj.dtype), zj, fmt, rng=key,
+            temperature=temperature, suppress_id=suppress, chunk_v=256))
+    else:
+        refs.append(js.stable_max(zj, fmt, suppress_id=suppress))
+        if fmt == "none":
+            refs.append(ops.fused_sampling(zj, suppress_id=suppress,
+                                           interpret=True))
+    for c_ref, t_ref in refs:
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(t_ref))
+        np.testing.assert_allclose(conf.numpy(), np.asarray(c_ref),
+                                   rtol=1e-5)
+    if temperature == 0.0:
+        assert tok.tolist() == [edge - 1, V - 1] + [edge - 1] * (R - 2)
+    assert not bool((tok == suppress).any())
+
+
 @pytest.mark.parametrize("fmt", ["bf16", "mxfp8_e4m3"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_stable_max_matches_jax(fmt, dtype):
