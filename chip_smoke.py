@@ -18,14 +18,19 @@ Phases, each fatal on failure:
                rule on every fmt and T, the head at R in {16, 64, 200},
                Stable-Max on bf16 and f32 logits and a (3, 1003) case with
                a tie across a vocab-range boundary; flash_bidir within one
-               bf16 ulp + 1e-6); the f32 routes of the fused head and
-               flash_bidir at a small shape; the profiler's device time of
-               each kernel and of its library yardstick;
+               bf16 ulp + 1e-6; topk_mask with 0 differences on bool masks,
+               k int32 and int64, L 1/16/33/64, R not a multiple of 4,
+               ties, and one launch per top-k; the sampling kernels with
+               the seed from device memory; the empty kernel's device
+               time, the floor of a launch); the f32 routes of the fused
+               head and flash_bidir at a small shape; the profiler's
+               device time of each kernel and of its library yardstick;
   3. e2e    -- llada-8b at full width (32 layers, d 4096, bf16, seeded
                random weights): one-slot generate in cache mode none,
                stepped through tick_forward and tick_sample, and in modes
                dual and prefix with BAOS (minmax, mxint4 KV, mxfp8
-               sampling), through generate() and stepped; each step's
+               sampling), through generate() and stepped, and mode none
+               through generate(megatick_k=4) (graphed); each step's
                sampling held against the plain functions on the same
                hidden states, and the first warm step's layer-0 cache
                against the plain smooth_quantize of the same K/V;
@@ -36,13 +41,27 @@ Phases, each fatal on failure:
                kernels it runs and no other (launch counts zeroed just
                before a path runs, read just after).  Then the sampling
                stage's device time on the fused, unfused and legacy head
-               paths at the engine's shape.
+               paths at the engine's shape.  Each path runs three ways:
+               eager K=1 (jit_steps=False), graphed K=1 (the tick a CUDA
+               graph) and graphed K=8 (the megatick); the graphed runs
+               must give the eager run's tokens, per-request ticks,
+               CommitEvents and ticks_total, and its launch counts plus
+               those of any tick run after a megastep's stop.  Per run:
+               tick wall median/p84, tokens/s, latency, peak memory, host
+               syncs per tick; per graphed run a profile: device busy and
+               idle share, the gap before each topk_mask launch, and each
+               port kernel's launches per tick as the profiler sees them
+               inside the graphs, which must equal the eager run's per
+               tick and the counts the graph replays added; on path warm
+               a SlowFast(0) trace, whose megasteps stop mid-way, eager
+               K=1 against graphed K=1 and K=8.
 Prints the kernels JSON line, the card's name and power limit, and last
 the {"ok": true, ...} line.  Exits non-zero without a result when there is
 no CUDA device or the port is not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -70,6 +89,13 @@ REPLACES = {
     "baos_mx_quant": "src/repro/kernels/baos_mx_quant.py:61",
     "stablemax_sampling": "src/repro/kernels/stablemax_sampling.py:71"}
 QWEN2 = dict(d=896, V=151936, mask_id=151935)
+# the device kernel each wrapper call launches once, as the profiler names
+# it (the head and Stable-Max wrappers then launch their combine kernel)
+DEVICE_KERNEL = {"fused_head_sampling": "head_partials",
+                 "topk_mask": "topk_mask_kernel",
+                 "flash_bidir": "flash_bidir",
+                 "baos_mx_quant": "baos_mx_quant_kernel",
+                 "stablemax_sampling": "stablemax_kernel"}
 
 
 def log(*args) -> None:
@@ -97,6 +123,30 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
     t_bytes, t_ops = bytes_moved / HBM_BPS, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+# Host sleep at both ends of a profiler window, with the device idle
+PROFILE_PAD_S = 0.05
+
+
+@contextlib.contextmanager
+def profiled():
+    """torch.profiler over host and device activity.  The profiler keeps a
+    device activity only if it lies inside the window on the host's clock,
+    into which the device's timestamps are converted; where the two clocks
+    disagree, the first or last kernels of a window that starts just
+    before its first launch, or ends just after its last synchronize, are
+    dropped although they ran.  One H100 run lost the last five kernels of
+    a 16-tick window so.  The device is idle and the host asleep for
+    PROFILE_PAD_S at both ends, so such skew falls on empty time.  The
+    caller synchronizes before the window and before leaving it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
 
 
 class Failure(RuntimeError):
@@ -236,32 +286,10 @@ def phase_kernels(gen) -> dict:
             h, w, kw["fmt"], suppress_id=kw["suppress_id"]), 5),
         library_ms=time_ms(lambda: torch.matmul(h, w), 20),
         bound_ms=b_ms, bound_by=b_by)
-    del h, w, main_inputs
 
-    # top-k: main path (4, 16) and (8, 64), ties forced
-    for R, L in ((4, 16), (8, 64)):
-        conf = torch.rand(R, L, generator=gen, device=DEVICE)
-        conf[:, ::3] = 0.5
-        conf[1] = 0.25
-        mask = torch.rand(R, L, generator=gen, device=DEVICE) < 0.7
-        k = torch.randint(0, L + 1, (R,), generator=gen, device=DEVICE)
-        k[0] = L // 2
-        got, want = tk.topk_mask(conf, mask, k), tk.topk_mask_plain(conf,
-                                                                  mask, k)
-        n_bad = int((got != want).sum())
-        log(f"topk_mask ({R}, {L}): {n_bad} positions differ")
-        require(n_bad == 0, f"topk_mask ({R}, {L}) differs from plain")
-        if (R, L) == (4, 16):
-            main_topk = (conf, mask, k)
-    conf, mask, k = main_topk
-    R, L = conf.shape
-    b_ms, b_by = bound(R * L * (4 + 1 + 1) + R * 4, float(R * L * L),
-                       F32_FLOPS)
-    out["topk_mask"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: tk.topk_mask(conf, mask, k), 200),
-        plain_ms=time_ms(lambda: tk.topk_mask_plain(conf, mask, k), 50),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    check_seed_tensor(h, w, LLADA["mask_id"])
+    del h, w, main_inputs
+    out["topk_mask"] = check_topk(gen)
 
     # attention, bf16 (tensor cores): main path (warm tick: ragged
     # kv_valid), GQA, BAOS + window, D 32, a batch row with no valid key
@@ -343,6 +371,86 @@ def phase_kernels(gen) -> dict:
     out["baos_mx_quant"] = check_baos(gen)
     out["stablemax_sampling"] = check_stablemax(gen)
     return out
+
+
+def check_topk(gen) -> dict:
+    """topk_mask against its plain version with 0 positions differing: the
+    main path's (4, 16), (8, 64), and L 1, 16, 33, 64 at R 3, 5, 7, 6 (not
+    multiples of 4); each with exact ties, a row with nothing masked, k
+    past L and k as int32 and as int64; bool in, bool out.  Then: a top-k
+    of the sampling stage is one launch (no casts around it); the empty
+    kernel's device time, the floor of any launch; the kernel's device
+    time, its host time per call, and its bound."""
+    from repro_torch.core import sampling
+    from repro_torch.kernels import topk_mask as tk
+    for R, L in ((4, 16), (8, 64), (3, 1), (5, 16), (7, 33), (6, 64)):
+        for k_dtype in (torch.int32, torch.int64):
+            conf = torch.rand(R, L, generator=gen, device=DEVICE)
+            conf[:, ::3] = 0.5
+            conf[1] = 0.25
+            mask = torch.rand(R, L, generator=gen, device=DEVICE) < 0.7
+            mask[R - 1] = False
+            k = torch.randint(0, L + 2, (R,), generator=gen,
+                              device=DEVICE).to(k_dtype)
+            k[0] = L // 2
+            got = tk.topk_mask(conf, mask, k)
+            want = tk.topk_mask_plain(conf, mask, k)
+            n_bad = int((got != want).sum())
+            log(f"topk_mask ({R}, {L}) k {k_dtype}: {n_bad} positions "
+                f"differ ({got.dtype} out)")
+            require(got.dtype == torch.bool and n_bad == 0,
+                    f"topk_mask ({R}, {L}) k {k_dtype} differs from plain")
+            if (R, L, k_dtype) == (4, 16, torch.int32):
+                main = (conf, mask, k)
+    conf, mask, k = main
+    per_call = device_kernels(
+        lambda: sampling.topk_transfer_mask(conf, mask, k), 20)
+    log(f"topk_transfer_mask on f32 conf, bool mask, int32 k: "
+        f"{sum(n for _, n in per_call.values()):g} kernel launches per call "
+        f"({', '.join(per_call)})")
+    require(sum(n for _, n in per_call.values()) == 1,
+            "a top-k of the sampling stage launches more than one kernel")
+    R, L = conf.shape
+    b_ms, b_by = bound(R * L * (4 + 1 + 1) + R * 4, float(R * L * L),
+                       F32_FLOPS)
+    floor_dev = device_ms(lambda: tk.empty_launch(DEVICE), 200)
+    floor_ev = time_ms(lambda: tk.empty_launch(DEVICE), 200)
+    dev_ms = device_ms(lambda: tk.topk_mask(conf, mask, k), 200)
+    h_ms = host_ms(lambda: tk.topk_mask(conf, mask, k), 200)
+    log(f"topk_mask (4, 16) device time (profiler) {dev_ms:.5f} ms per "
+        f"call, host time {h_ms:.5f} ms per call; bound {b_ms:.3g} ms ({b_by}); empty kernel (the "
+        f"floor of one launch) {floor_dev:.5f} ms device, {floor_ev:.5f} ms "
+        f"per launch back to back (CUDA events)")
+    return dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: tk.topk_mask(conf, mask, k), 200),
+        plain_ms=time_ms(lambda: tk.topk_mask_plain(conf, mask, k), 50),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_seed_tensor(h, w, mid) -> None:
+    """Both sampling kernels read the seed from device memory: at T 0.8 a
+    tick_seed computed on the device from a device tick counter gives the
+    tokens and conf, bit for bit, of the same seed passed as an int."""
+    from repro_torch.core import diffusion, sampling
+    from repro_torch.kernels import fused_head_sampling as fhs
+    from repro_torch.kernels import stablemax_sampling as sms
+    s_int = diffusion.tick_seed(7, 5)
+    s_dev = diffusion.tick_seed(7, torch.tensor([5], device=DEVICE))
+    require(int(s_dev) == s_int, "tick_seed on the device differs")
+    z = sampling.head_logits(h, w)
+    for fmt in sampling.SUPPORTED_FMTS:
+        kw = dict(fmt=fmt, suppress_id=mid, temperature=0.8)
+        for what, fn, x in (("fused head", fhs.fused_head_sampling, (h, w)),
+                            ("stablemax", sms.stablemax_sampling, (z,))):
+            c1, t1 = fn(*x, seed=s_int, **kw)
+            c2, t2 = fn(*x, seed=s_dev, **kw)
+            require(torch.equal(t1, t2) and torch.equal(c1, c2),
+                    f"{what} {fmt} T=0.8: a device seed differs from the "
+                    f"int seed")
+    log("seed from device memory (tick_seed of a device tick counter): "
+        "fused head and stablemax at T=0.8 equal the int seed's tokens and "
+        "conf bit for bit in every fmt")
 
 
 def check_exp2() -> None:
@@ -599,6 +707,15 @@ def phase_e2e(model, params, gen) -> None:
         f"plain {totals[1]}/{totals[0]}, of which near-ties {totals[2]}")
     require(totals[1] == totals[2],
             "e2e: a sampled token differs off a near-tie")
+    t0 = time.perf_counter()
+    out = diffusion.generate(model, params, prompt, dcfg, seed=7,
+                             megatick_k=4)
+    torch.cuda.synchronize()
+    log(f"e2e llada-8b generate mode none megatick_k=4 (graphed): "
+        f"{time.perf_counter() - t0:.3f} s, tokens equal to the stepped "
+        f"run: {bool(torch.equal(out, state.x))}")
+    require(torch.equal(out, state.x),
+            "e2e: generate(megatick_k=4) differs from the stepped run")
 
 
 def expect_launches(counts, expected, what):
@@ -709,10 +826,51 @@ def engine_paths():
     ]
 
 
-def phase_engine(model, params) -> dict:
-    import numpy as np
+VARIANTS = (("eager K=1", dict(jit_steps=False)),
+            ("graphed K=1", dict(jit_steps=True)),
+            ("graphed K=8", dict(jit_steps=True, megatick_k=8)))
+
+
+def engine_run(model, params, dcfg, mode, trace, sinks, **cfg):
+    """One engine over ``trace`` to the end: (engine, commit-event keys,
+    wall ms of each denoising tick, launch counts of the run).  A tick()
+    call that ran n ticks (a megastep) gives each of them 1/n of its wall
+    time.  The counts are zeroed after warmup, just before the run."""
     from repro_torch.kernels import _build
     from repro_torch.serving import EngineConfig, Request, ServingEngine
+    eng = ServingEngine(model, params, dcfg,
+                        EngineConfig(num_slots=4, max_seq_len=96, mode=mode,
+                                     **cfg))
+    eng.warmup()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    events = []
+    for p, g in trace:
+        eng.submit(Request(prompt=p, gen_length=g),
+                   on_commit=events.append if sinks else None)
+    tick_ms = []
+    while eng.pending:
+        t0, n0 = time.perf_counter(), eng.ticks_total
+        eng.tick()                           # ends in a device sync
+        n = eng.ticks_total - n0
+        tick_ms += [(time.perf_counter() - t0) * 1e3 / n] * n
+    torch.cuda.synchronize()
+    keys = [(e.uid, e.tick, e.block_idx, e.step_in_block, e.masks_left,
+             e.done, e.positions.tolist(), e.tokens.tolist())
+            for e in events]
+    return eng, keys, tick_ms, dict(_build.launch_counts)
+
+
+def phase_engine(model, params) -> dict:
+    """Each path through the eager K=1 engine (as in earlier runs), the
+    graphed K=1 engine and the graphed megatick (K=8): each must finish
+    every request with no mask id left and launch exactly its kernels; the
+    graphed runs must give the eager run's tokens, per-request ticks,
+    CommitEvents (a second run of each with streaming sinks) and
+    ticks_total, and its launch counts (K=8: plus those of the ticks run
+    after a stop)."""
+    import numpy as np
+    from repro_torch.kernels import _build
     cfg = model.cfg
     rs = np.random.RandomState(0)
     trace = [(rs.randint(0, cfg.vocab - 200, size=(rs.randint(16, 33),))
@@ -720,42 +878,206 @@ def phase_engine(model, params) -> dict:
              for _ in range(8)]
     launches = {name: 0 for name in _build.KERNELS}
     for name, mode, dcfg, expected in engine_paths():
-        eng = ServingEngine(model, params, dcfg,
-                            EngineConfig(num_slots=4, max_seq_len=96,
-                                         mode=mode))
-        eng.warmup()
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launch_counts()
-        for p, g in trace:
-            eng.submit(Request(prompt=p, gen_length=g))
-        tick_s = []
-        while eng.pending:
-            t0 = time.perf_counter()
-            eng.tick()                       # ends in a device sync
-            tick_s.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        counts = dict(_build.launch_counts)
-        done = eng.completed
-        s = eng.metrics.summary()
-        p50, p84 = np.percentile(np.array(tick_s) * 1e3, [50, 84])
-        log(f"engine path={name}: {len(done)} requests, {len(tick_s)} "
-            f"ticks, tick wall ms median {p50:.2f} p84 {p84:.2f}, "
-            f"{s['tokens_per_s']:.1f} tokens/s, request latency median "
-            f"{s['latency_p50_s']:.3f} s, max memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
-            f"launches {counts}")
-        require(len(done) == len(trace), f"engine {name}: requests missing")
-        for c in done:
-            require(len(c.tokens) == c.prompt_len + c.gen_length and
-                    not bool((c.tokens == cfg.mask_id).any()),
-                    f"engine {name}: request {c.uid} left mask ids")
-        expect_launches(counts, expected, f"engine {name}")
-        for kname, n in counts.items():
-            launches[kname] += n
-        phase_tick_breakdown(eng, model, params, dcfg, name)
+        runs = {}
+        for vname, vcfg in VARIANTS:
+            what = f"engine path={name} {vname}"
+            eng, _, tick_ms, counts = engine_run(model, params, dcfg, mode,
+                                                 trace, False, **vcfg)
+            done = eng.completed
+            s = eng.metrics.summary()
+            p50, p84 = np.percentile(np.array(tick_ms), [50, 84])
+            mt = eng._megatick_fn
+            log(f"{what}: {len(done)} requests, {eng.ticks_total} ticks, "
+                f"tick wall ms median {p50:.2f} p84 {p84:.2f}, "
+                f"{s['tokens_per_s']:.1f} tokens/s, request latency median "
+                f"{s['latency_p50_s']:.3f} s, max memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+                f"host syncs per tick {eng.host_waits / eng.ticks_total:.3f}"
+                f" (waits on a tick with one more in flight "
+                f"{0 if mt is None else mt.event_waits / eng.ticks_total:.3f}"
+                f"), host_syncs_elided {eng.host_syncs_elided}, ticks after "
+                f"a stop {0 if mt is None else mt.ticks_wasted}, launches "
+                f"{counts}")
+            require(len(done) == len(trace), f"{what}: requests missing")
+            for c in done:
+                require(len(c.tokens) == c.prompt_len + c.gen_length and
+                        not bool((c.tokens == cfg.mask_id).any()),
+                        f"{what}: request {c.uid} left mask ids")
+            expect_launches(counts, expected, what)
+            step = (eng._megatick_fn._step if mt is not None
+                    else eng._tick_fn)
+            if step is not None:             # graphed: every tick replayed
+                require(step.replays >= eng.ticks_total,
+                        f"{what}: {step.replays} graph replays for "
+                        f"{eng.ticks_total} ticks")
+            for kname, n in counts.items():
+                launches[kname] += n
+            _, keys, _, _ = engine_run(model, params, dcfg, mode, trace, True,
+                                       **vcfg)
+            runs[vname] = dict(
+                tokens={c.uid: c.tokens.tolist() for c in done},
+                ticks={c.uid: c.ticks for c in done}, events=keys,
+                ticks_total=eng.ticks_total, counts=counts, p50=p50,
+                elided=eng.host_syncs_elided,
+                wasted=0 if mt is None else mt.ticks_wasted)
+            if vname == "eager K=1":
+                phase_tick_breakdown(eng, model, params, dcfg, name)
+                if name == "warm":
+                    phase_sampling_stage(eng, model, params, dcfg)
+            del eng
+        ref = runs["eager K=1"]
+        per_tick = {}
+        for kname, n in ref["counts"].items():
+            require(n % ref["ticks_total"] == 0,
+                    f"engine {name}: {kname} launched {n} times in "
+                    f"{ref['ticks_total']} ticks, not the same per tick")
+            per_tick[kname] = n // ref["ticks_total"]
+        for vname in ("graphed K=1", "graphed K=8"):
+            run, what = runs[vname], f"engine path={name} {vname}"
+            for key in ("tokens", "ticks", "events", "ticks_total"):
+                require(run[key] == ref[key],
+                        f"{what}: {key} differ from the eager K=1 run")
+            want = {k: n + run["wasted"] * per_tick[k]
+                    for k, n in ref["counts"].items()}
+            require(run["counts"] == want,
+                    f"{what}: launch counts {run['counts']} != eager "
+                    f"{ref['counts']} + {run['wasted']} ticks after a stop")
+        require(runs["graphed K=8"]["elided"] > ref["elided"],
+                f"engine {name}: the megatick elided no host sync")
+        log(f"engine path={name}: graphed K=1 and K=8 equal eager K=1 in "
+            f"tokens, per-request ticks, {len(ref['events'])} CommitEvents "
+            f"and ticks_total ({ref['ticks_total']}); launches per tick "
+            f"{per_tick}")
+        busy = {}
+        for vname, vcfg in VARIANTS[1:]:
+            busy[vname] = profile_engine(model, params, dcfg, mode, trace,
+                                         f"{name} {vname}", vcfg, per_tick)
+        log(f"engine path={name}: device idle share of the unprofiled tick "
+            f"wall median (1 - profiled busy / median): " + ", ".join(
+                f"{v} {(1 - busy[v] / runs[v]['p50']) * 100:.1f}%"
+                for v in busy))
+        log(f"engine path={name} graphed K=8: "
+            f"{runs['graphed K=8']['wasted']} ticks ran after a stop, "
+            f"{runs['graphed K=8']['wasted'] * busy['graphed K=1']:.3f} ms "
+            f"of device time")
         if name == "warm":
-            phase_sampling_stage(eng, model, params, dcfg)
+            check_slowfast_megatick(model, params, dcfg, mode, trace,
+                                    per_tick, busy["graphed K=1"])
     return launches
+
+
+def check_slowfast_megatick(model, params, dcfg, mode, trace, per_tick,
+                            busy_ms) -> None:
+    """SlowFast at threshold 0 (a block finishes the tick after its first
+    commit) stops megasteps at releases that fall inside them, so ticks
+    run after a stop: eager K=1, graphed K=1 and graphed K=8 must give the
+    same tokens, ticks, early exits and CommitEvents, K=1 the eager run's
+    launch counts and K=8 those plus the launches of its wasted ticks.
+    Prints each run's tick wall and tokens/s: whether the megatick pays
+    where stops fall inside megasteps."""
+    import numpy as np
+    from repro_torch.serving import SlowFastPolicy
+    runs = {}
+    for vname, vcfg in VARIANTS:
+        eng, keys, tick_ms, counts = engine_run(
+            model, params, dcfg, mode, trace, True,
+            policy=SlowFastPolicy(threshold=0.0), **vcfg)
+        mt = eng._megatick_fn
+        wasted = 0 if mt is None else mt.ticks_wasted
+        p50, p84 = np.percentile(np.array(tick_ms), [50, 84])
+        runs[vname] = dict(
+            tokens=[c.tokens.tolist() for c in eng.completed],
+            ticks_total=eng.ticks_total, exits=eng.policy.early_exits,
+            events=keys, wasted=wasted, counts=counts)
+        log(f"engine warm SlowFast(0) {vname}: {eng.ticks_total} ticks, "
+            f"{eng.policy.early_exits} early exits, tick wall ms median "
+            f"{p50:.2f} p84 {p84:.2f}, "
+            f"{eng.metrics.summary()['tokens_per_s']:.1f} tokens/s, "
+            f"{wasted} ticks after a stop"
+            + ("" if mt is None else f" ({mt.ticks_run} enqueued), "
+               f"{wasted * busy_ms:.3f} ms of device time"))
+        del eng
+    ref = runs["eager K=1"]
+    for vname in ("graphed K=1", "graphed K=8"):
+        run, what = runs[vname], f"engine warm SlowFast(0) {vname}"
+        for key in ("tokens", "ticks_total", "exits", "events"):
+            require(run[key] == ref[key],
+                    f"{what}: {key} differ from eager K=1")
+        want = {kn: n + run["wasted"] * per_tick[kn]
+                for kn, n in ref["counts"].items()}
+        require(run["counts"] == want,
+                f"{what}: launch counts differ from eager K=1 plus the "
+                f"ticks run after a stop")
+    log(f"engine warm SlowFast(0): graphed K=1 and K=8 equal eager K=1 in "
+        f"tokens, {len(ref['events'])} CommitEvents, {ref['ticks_total']} "
+        f"ticks and {ref['exits']} early exits")
+
+
+def profile_engine(model, params, dcfg, mode, trace, name, vcfg, per_tick,
+                   n_ticks: int = 16) -> float:
+    """torch.profiler over n_ticks denoising ticks of a graphed engine run
+    (after 2 unprofiled ticks): wall and device busy per tick, the device's
+    idle share, kernels per tick, and the device-time gap before each
+    topk_mask launch (its start minus the end of the kernel before it).
+    Each port kernel's launches inside the replayed graphs, as the profiler
+    sees them on the card, must equal ``per_tick`` (the eager run's) times
+    the graph replays, and the launch counts the replays added.  Returns
+    the device busy ms per tick."""
+    from torch.autograd import DeviceType
+    from repro_torch.kernels import _build
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    eng = ServingEngine(model, params, dcfg,
+                        EngineConfig(num_slots=4, max_seq_len=96, mode=mode,
+                                     **vcfg))
+    eng.warmup()
+    for p, g in trace:
+        eng.submit(Request(prompt=p, gen_length=g))
+    while eng.ticks_total < 2:
+        eng.tick()
+    torch.cuda.synchronize()
+    n0 = eng.ticks_total
+    step = (eng._tick_fn if eng._megatick_fn is None
+            else eng._megatick_fn._step)
+    replays0 = step.replays
+    _build.reset_launch_counts()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        while eng.ticks_total < n0 + n_ticks:
+            eng.tick(max_ticks=n0 + n_ticks - eng.ticks_total)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n, replays = eng.ticks_total - n0, step.replays - replays0
+    counted = dict(_build.launch_counts)
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+    seen = {k: sum(dev in kname for _, _, kname in kernels)
+            for k, dev in DEVICE_KERNEL.items()}
+    want = {k: per_tick[k] * replays for k in DEVICE_KERNEL}
+    require(seen == want == counted,
+            f"profile {name}: port kernels launched on the card in "
+            f"{replays} graph replays {seen}, eager per tick x replays "
+            f"{want}, counted by the replays {counted}; the last device "
+            f"activities seen: {[kname[:40] for _, _, kname in kernels[-6:]]}")
+    busy_us = sum(end - start for start, end, _ in kernels)
+    classes = {}
+    for start, end, kname in kernels:
+        cls = kernel_class(kname)
+        classes[cls] = classes.get(cls, 0.0) + end - start
+    gaps = [start - prev_end for (_, prev_end, _), (start, _, kname)
+            in zip(kernels, kernels[1:]) if "topk_mask" in kname]
+    log(f"profile path={name}, per tick over {n} ticks ({replays} graph "
+        f"replays): wall {wall_us / n / 1e3:.3f} ms, device busy "
+        f"{busy_us / n / 1e3:.3f} ms (idle "
+        f"{max(0.0, 1 - busy_us / wall_us) * 100:.1f}%), "
+        f"{len(kernels) / n:.0f} device activities per tick, port kernel "
+        f"launches seen on the card {seen} (= eager per tick x replays); "
+        f"gap before topk_mask mean {sum(gaps) / max(len(gaps), 1):.3f} us "
+        f"over {len(gaps)} launches (min {min(gaps, default=0):.3f}, max "
+        f"{max(gaps, default=0):.3f}); device ms per tick: "
+        + ", ".join(f"{c} {us / n / 1e3:.4f}" for c, us in
+                    sorted(classes.items(), key=lambda kv: -kv[1])))
+    return busy_us / n / 1e3
 
 
 def phase_tick_breakdown(eng, model, params, dcfg, name) -> None:
@@ -821,19 +1143,36 @@ def device_ms_by_kernel(fn, n: int) -> dict:
     """Device time per call of each kernel ``fn`` launches, from the
     profiler (its device time over n calls, / n), after one warm-up
     call."""
+    return {k: ms for k, (ms, _) in device_kernels(fn, n).items()}
+
+
+def device_kernels(fn, n: int) -> dict:
+    """{kernel: (device ms, launches)} per call of ``fn`` from the profiler
+    (over n calls, / n), after one warm-up call."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / n / 1e3
+    return {e.key: (e.self_device_time_total / n / 1e3, e.count / n)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0}
+
+
+def host_ms(fn, n: int) -> float:
+    """Host time per call of ``fn`` (perf_counter over n calls, no sync
+    inside the loop: the cost of enqueuing), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e3
 
 
 def device_ms(fn, n: int) -> float:
@@ -842,16 +1181,27 @@ def device_ms(fn, n: int) -> float:
     return sum(device_ms_by_kernel(fn, n).values())
 
 
+def kernel_class(name: str) -> str:
+    """The kernel class a profiled device activity counts under."""
+    key = name.lower()
+    return ("flash_bidir" if "flash_bidir" in key else
+            "baos_mx_quant" if "baos_mx_quant" in key else
+            "stablemax_sampling" if "stablemax" in key else
+            "fused_head" if "head_" in key else
+            "topk_mask" if "topk_mask" in key else
+            "gemm" if any(s in key for s in ("gemm", "nvjet", "xmma",
+                                             "cutlass")) else
+            "other")
+
+
 def profile_ticks(tick, name: str, gemm_flops: float, n: int = 3) -> None:
     """torch.profiler over n ticks: device time per kernel class (device
     events only), the achieved GEMM rate, and the device's idle share of
     the wall time, which the profiler's own host cost inflates."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     tick()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             tick()
@@ -862,15 +1212,7 @@ def profile_ticks(tick, name: str, gemm_flops: float, n: int = 3) -> None:
         us = e.self_device_time_total
         if e.device_type != DeviceType.CUDA or us <= 0:
             continue                 # host ops repeat their kernels' time
-        key = e.key.lower()
-        cls = ("flash_bidir" if "flash_bidir" in key else
-               "baos_mx_quant" if "baos_mx_quant" in key else
-               "stablemax_sampling" if "stablemax" in key else
-               "fused_head" if "head_" in key else
-               "topk_mask" if "topk_mask" in key else
-               "gemm" if any(s in key for s in ("gemm", "nvjet", "xmma",
-                                                "cutlass")) else
-               "other")
+        cls = kernel_class(e.key)
         classes[cls] = classes.get(cls, 0.0) + us
         kernels.append((us, e.count // n, e.key[:70]))
     busy = sum(classes.values())

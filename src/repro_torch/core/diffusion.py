@@ -21,7 +21,13 @@ takes full-sequence logits out of the forward and slices them.
 Randomness is an explicit uint32 seed: step t of a stream seeded s draws
 its counter-Gumbel noise from ``tick_seed(s, t)``, so a saved state
 resumes bit for bit.  Greedy decoding (temperature 0, the default) draws
-nothing.
+nothing.  ``tick_seed`` also takes a device tick counter and gives the
+seed as a device tensor, which the sampling kernels read from memory.
+
+``get_tick_fn`` is the engine's tick, a CUDA graph on the card with
+``jit_steps`` (core/graphs.py, the counterpart of ``jax.jit``), and
+``get_megatick_fn`` the JAX megatick: up to K ticks with each row's
+block/step/k bookkeeping on the device and one host sync per megastep.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import baos as baos_lib
+from repro_torch.core import graphs
 from repro_torch.core import sampling as sampling_lib
 from repro_torch.core import schedule as schedule_lib
 
@@ -86,11 +93,20 @@ def _forward_head_mode(model, dcfg: DiffusionConfig) -> str:
     return "logits" if head_feed_mode(model, dcfg) == "logits" else "hidden"
 
 
-def tick_seed(seed: int, tick: int) -> int:
+def tick_seed(seed: sampling_lib.Seed, tick):
     """uint32 counter-Gumbel seed of tick ``tick`` of a stream seeded
-    ``seed``."""
-    x = (int(seed) ^ (int(tick) * 0x9E3779B9)) & sampling_lib.MASK32
-    return int(sampling_lib._mix32(torch.tensor(x)))
+    ``seed``: _mix32(seed ^ tick * 0x9E3779B9).  With ints an int; with a
+    tensor tick (or seed), the same bits computed where the tensor lies, as
+    a one-element int64 tensor (``sampling.Seed``): the form a captured
+    graph computes on the device from a device tick counter."""
+    mask = sampling_lib.MASK32
+    if not isinstance(tick, torch.Tensor) and \
+            not isinstance(seed, torch.Tensor):
+        x = (int(seed) ^ (int(tick) * 0x9E3779B9)) & mask
+        return int(sampling_lib._mix32(torch.tensor(x)))
+    t = torch.as_tensor(tick).to(torch.int64).reshape(1) & mask
+    x = sampling_lib._seed_bits(seed) ^ sampling_lib._mul32(t, 0x9E3779B9)
+    return sampling_lib._mix32(x)
 
 
 def _active_mask(batch: int, s_tot: int, block_start, block_len: int,
@@ -234,6 +250,258 @@ def batched_tick(model, params, x: torch.Tensor,
     return x_new, cache, conf_min, masks_left
 
 
+def get_tick_fn(model, dcfg: DiffusionConfig, mask_id: int,
+                jit_steps: bool = True):
+    """``batched_tick`` as ``tick(params, x, kv_valid, block_start, k,
+    seed, cache=None) -> (x_new, cache, conf_min, masks_left)``, shared by
+    the serving engine; the JAX ``get_tick_fn``.  With ``jit_steps`` and
+    CUDA tensors it replays a CUDA graph (core/graphs.py), the counterpart
+    of ``jax.jit``: its tensor arguments are then its static buffers, read
+    by address (``seed`` a ``sampling.Seed`` tensor, or it is baked in),
+    and its outputs live until the next call.  Without, or on the CPU, the
+    tick runs eagerly."""
+    def tick(params, x, kv_valid, block_start, k, seed, cache=None):
+        return batched_tick(model, params, x, kv_valid, block_start, k, seed,
+                            cache, dcfg, mask_id)
+
+    return graphs.GraphedStep(tick) if jit_steps else tick
+
+
+# ---------------------------------------------------------------------------
+# Device-resident megatick: K ticks with the per-row scheduler state on the
+# device and one host sync per megastep (the JAX get_megatick_fn)
+# ---------------------------------------------------------------------------
+
+def megatick_state(prompt_len, gen_blocks, dcfg: DiffusionConfig,
+                   block_idx=None, step_in_block=None, block_masks_left=None,
+                   last_conf=None, active=None, device=None) -> Dict:
+    """Per-row state carried through a megatick, a dict of (B,) tensors on
+    ``device`` (default: prompt_len's, or the CPU) with the JAX defaults:
+    ``prompt_len``/``gen_blocks`` per row, the rest block 0, step 0, a full
+    block of masks, last confidence -inf, every row active."""
+    if device is None:
+        device = (prompt_len.device if isinstance(prompt_len, torch.Tensor)
+                  else "cpu")
+    pl = torch.as_tensor(prompt_len).to(device=device, dtype=torch.int32)
+    B = pl.shape[0]
+
+    def vec(v, dtype, fill=None):
+        if v is None:
+            return torch.full((B,), fill, dtype=dtype, device=device)
+        return torch.as_tensor(v).to(device=device, dtype=dtype)
+
+    return {"prompt_len": pl,
+            "gen_blocks": vec(gen_blocks, torch.int32),
+            "block_idx": vec(block_idx, torch.int32, 0),
+            "step_in_block": vec(step_in_block, torch.int32, 0),
+            "block_masks_left": vec(block_masks_left, torch.int32,
+                                    dcfg.block_length),
+            "last_conf": vec(last_conf, torch.float32, float("-inf")),
+            "active": vec(active, torch.bool, True)}
+
+
+class Megatick:
+    """The megastep of ``get_megatick_fn``.  A call runs up to
+    ``k_req <= k_max`` serving ticks over the canvas ``x`` (and the warm
+    ``cache``), both updated in place and returned (the port's counterpart
+    of JAX's donation), with each row's block/step/k bookkeeping and the
+    SlowFast early exit on the device.  Each tick appends one record to
+    the ``(k_max, ...)`` buffers (post-tick active-block tokens ``xa``,
+    ``block_start``, ``block_idx``, ``step_in_block``, ``masks_left``,
+    ``k``, min committed ``conf``, ``active``, ``released``, ``early``;
+    rows past ``n`` are zero).  The loop stops when every row has
+    released, or with ``stop_on_release`` when any row releases, or after
+    k_req ticks.  Tick j draws its noise from ``tick_seed(seed, tick + j)``.
+
+    Returns ``(x, cache, tick + n, state, buffers, n)``; ``state`` and
+    ``buffers`` are this object's device tensors, valid until the next
+    call.
+
+    JAX runs the loop as a ``lax.while_loop`` on the device.  Here every
+    tick is one predicated step: it reads ``i``, ``k_req`` and the stop
+    flag from device memory, and once the loop has stopped it commits
+    nothing (every row gets k = 0) and changes no canvas, state, counter or
+    buffer; in warm mode it rewrites the K/V from the unchanged canvas, as
+    every tick does before it reads them.  With ``jit_steps`` on the card
+    the step is a CUDA graph (core/graphs.py) replayed back to back: before
+    it enqueues tick j + 1 the host waits for tick j - 1 and reads its stop
+    flag (copied to pinned memory), so one tick is in flight while the host
+    decides, and at most one tick runs after the stop.  ``ticks_wasted``
+    counts those and ``ticks_run`` every tick enqueued; ``host_waits``
+    counts the host's waits that drain the device's queue (the final read
+    of the tick count), ``event_waits`` those that leave a tick in flight.
+    Eagerly (``jit_steps=False``, or on the CPU) the host reads the flag
+    after each tick, a wait that drains the queue, and wastes no tick."""
+
+    def __init__(self, model, dcfg: DiffusionConfig, mask_id: int,
+                 k_max: int, jit_steps: bool = True,
+                 slowfast_threshold: Optional[float] = None):
+        if k_max < 1:
+            raise ValueError(f"megatick k_max must be >= 1, got {k_max}")
+        check_supported(dcfg)
+        self.model, self.dcfg, self.mask_id = model, dcfg, int(mask_id)
+        self.k_max = int(k_max)
+        self.thr = (None if slowfast_threshold is None
+                    else float(slowfast_threshold))
+        self.jit_steps = jit_steps
+        self._step = (graphs.GraphedStep(self._tick) if jit_steps
+                      else self._tick)
+        self._carry: Dict[Tuple, Dict] = {}
+        self.ticks_run = 0
+        self.ticks_wasted = 0
+        self.host_waits = 0
+        self.event_waits = 0
+
+    def _carry_for(self, x: torch.Tensor) -> Dict:
+        """The device buffers of one batch shape, made at its first call
+        (a graph replays against fixed addresses)."""
+        key = (tuple(x.shape), x.device)
+        c = self._carry.get(key)
+        if c is not None:
+            return c
+        B, dev = x.shape[0], x.device
+        L, T, K = (self.dcfg.block_length, self.dcfg.steps_per_block,
+                   self.k_max)
+
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        bufs = {"xa": z((K, B, L), torch.int32)}
+        for name in ("block_start", "block_idx", "step_in_block",
+                     "masks_left", "k"):
+            bufs[name] = z((K, B), torch.int32)
+        bufs["conf"] = z((K, B), torch.float32)
+        for name in ("active", "released", "early"):
+            bufs[name] = z((K, B), torch.bool)
+        c = {"scalars": {"i": z((1,), torch.int32),
+                         "stop": z((1,), torch.bool),
+                         "tick": z((1,), torch.int64),
+                         "seed": z((1,), torch.int64),
+                         "k_req": z((1,), torch.int32),
+                         "stop_on_release": z((1,), torch.bool)},
+             "state": megatick_state(z((B,), torch.int32),
+                                     z((B,), torch.int32), self.dcfg,
+                                     device=dev),
+             "bufs": bufs,
+             "ksched": schedule_lib.linear_unmask_schedule(L, T).to(
+                 device=dev, dtype=torch.int32),
+             "flag": torch.zeros((1,), dtype=torch.bool,
+                                 pin_memory=dev.type == "cuda")}
+        self._carry[key] = c
+        return c
+
+    def _tick(self, params, x, kv_valid, cache, sc, st, bufs, ksched):
+        """One predicated tick, in place on device tensors."""
+        L, T = self.dcfg.block_length, self.dcfg.steps_per_block
+        S = x.shape[1]
+        run = (sc["i"] < sc["k_req"]) & ~sc["stop"]          # (1,)
+        bi, t = st["block_idx"], st["step_in_block"]
+        bml, lc = st["block_masks_left"], st["last_conf"]
+        act = st["active"] & run
+        bs = torch.where(act, st["prompt_len"] + bi * L, 0)
+        dk = torch.where(t < T, ksched[torch.clamp(t, 0, T - 1).long()], bml)
+        if self.thr is not None:
+            fire = (t > 0) & (bml > 0) & torch.isfinite(lc) & (lc >= self.thr)
+            k = torch.where(fire, bml, dk)
+            early = fire & (bml > dk)
+        else:
+            k, early = dk, torch.zeros_like(act)
+        k = torch.where(act, torch.clamp(k, max=L), 0)
+        seed = tick_seed(sc["seed"], sc["tick"])
+        x_new, _, conf_min, masks_left = batched_tick(
+            self.model, params, x, kv_valid, bs, k, seed, cache, self.dcfg,
+            self.mask_id)
+        boundary = act & (masks_left == 0)
+        released = boundary & (bi + 1 >= st["gen_blocks"])
+        new = {"block_idx": torch.where(boundary, bi + 1, bi),
+               "step_in_block": torch.where(
+                   act, torch.where(boundary, 0, t + 1), t),
+               "last_conf": torch.where(
+                   act, torch.where(boundary, float("-inf"), conf_min), lc),
+               "block_masks_left": torch.where(
+                   act, torch.where(boundary, L, masks_left), bml),
+               "active": st["active"] & ~released}
+        start = torch.clamp(bs.to(torch.int64), 0, S - L)
+        cols = start[:, None] + torch.arange(L, device=x.device)
+        rows = torch.arange(x.shape[0], device=x.device)[:, None]
+        upd = {"xa": x_new[rows, cols], "block_start": bs, "block_idx": bi,
+               "step_in_block": t, "conf": conf_min,
+               "masks_left": torch.where(act, masks_left, 0), "k": k,
+               "active": act, "released": released, "early": early}
+        row = torch.clamp(sc["i"], max=self.k_max - 1).to(torch.int64)
+        for name, buf in bufs.items():
+            keep = buf.index_select(0, row)
+            put = torch.where(run.reshape((1,) * buf.dim()),
+                              upd[name].to(buf.dtype)[None], keep)
+            buf.index_copy_(0, row, put)
+        stop = sc["stop"] | (run & (~new["active"].any() | (
+            sc["stop_on_release"] & released.any())))
+        for name, v in new.items():
+            st[name].copy_(v)
+        x.copy_(x_new)
+        sc["stop"].copy_(stop)
+        sc["i"].add_(run.to(torch.int32))
+        sc["tick"].add_(run.to(torch.int64))
+
+    def __call__(self, params, x: torch.Tensor, kv_valid, state: Dict,
+                 tick: int, k_req: int, stop_on_release: bool,
+                 cache: Optional[Dict] = None, seed: int = 0):
+        c = self._carry_for(x)
+        sc, st, bufs = c["scalars"], c["state"], c["bufs"]
+        k_req = max(0, min(int(k_req), self.k_max))
+        for name, v in (("i", 0), ("stop", False), ("tick", int(tick)),
+                        ("seed", int(seed) & sampling_lib.MASK32),
+                        ("k_req", k_req),
+                        ("stop_on_release", bool(stop_on_release))):
+            sc[name].fill_(v)
+        for name, t in st.items():
+            t.copy_(state[name])
+        for buf in bufs.values():
+            buf.zero_()
+        args = (params, x, kv_valid, cache, sc, st, bufs, c["ksched"])
+        graphed = self.jit_steps and x.device.type == "cuda"
+        enqueued = 0
+        if graphed:
+            flag = c["flag"]
+            flag.fill_(False)
+            done = [torch.cuda.Event(), torch.cuda.Event()]
+            for j in range(k_req):
+                if j >= 2:          # tick j - 2 is done: read its stop flag
+                    done[j % 2].synchronize()
+                    self.event_waits += 1
+                    if bool(flag[0]):
+                        break
+                self._step(*args)
+                flag.copy_(sc["stop"], non_blocking=True)
+                done[j % 2].record()
+                enqueued += 1
+        else:
+            for _ in range(k_req):
+                self._step(*args)
+                enqueued += 1
+                self.host_waits += 1
+                if bool(sc["stop"][0]):
+                    break
+        n = int(sc["i"][0])                 # the megastep's device sync
+        self.host_waits += graphed
+        self.ticks_run += enqueued
+        self.ticks_wasted += enqueued - n
+        return x, cache, int(tick) + n, st, bufs, n
+
+
+def get_megatick_fn(model, dcfg: DiffusionConfig, mask_id: int, k_max: int,
+                    jit_steps: bool = True,
+                    slowfast_threshold: Optional[float] = None) -> Megatick:
+    """The fused K-tick megastep (``Megatick``), the JAX get_megatick_fn's
+    non-mesh branch: ``fn(params, x, kv_valid, state, tick, k_req,
+    stop_on_release, cache=None, seed=0) -> (x, cache, tick, state,
+    buffers, n_ticks)``, with ``tick`` the counter of the tick_seed stream
+    in place of JAX's rng.  ``slowfast_threshold`` moves
+    SlowFastPolicy.step_k onto the device."""
+    return Megatick(model, dcfg, mask_id, k_max, jit_steps=jit_steps,
+                    slowfast_threshold=slowfast_threshold)
+
+
 # ---------------------------------------------------------------------------
 # Resumable per-request state machine and generate()
 # ---------------------------------------------------------------------------
@@ -357,11 +625,49 @@ def step(model, params, state: DiffusionState) -> DiffusionState:
 
 
 def generate(model, params, prompt: torch.Tensor, dcfg: DiffusionConfig,
-             seed: int = 0, mask_id: Optional[int] = None) -> torch.Tensor:
+             seed: int = 0, mask_id: Optional[int] = None,
+             megatick_k: int = 1, jit_steps: bool = True) -> torch.Tensor:
     """Blocked diffusion generation (paper Alg. 2 outer loops) in
     ``dcfg.cache_mode``.  prompt (B, P) int -> (B, P + gen_length)
-    int32."""
+    int32.  ``megatick_k > 1`` (cache_mode 'none' only, as in JAX) runs
+    the ticks K at a time through ``get_megatick_fn`` (graphed on the card
+    with ``jit_steps``); the tick_seed stream is the same, so the tokens
+    equal the per-step path's."""
+    if megatick_k > 1:
+        return _generate_megatick(model, params, prompt, dcfg, seed,
+                                  mask_id, megatick_k, jit_steps)
     state = init_state(model, prompt, dcfg, seed=seed, mask_id=mask_id)
     while not state.done:
         state = step(model, params, state)
     return state.x
+
+
+def _generate_megatick(model, params, prompt: torch.Tensor,
+                       dcfg: DiffusionConfig, seed: int,
+                       mask_id: Optional[int], megatick_k: int,
+                       jit_steps: bool) -> torch.Tensor:
+    """generate() through the megatick: the tick count is fixed
+    (num_blocks * steps_per_block), so ceil(total / K) megasteps of K."""
+    if dcfg.cache_mode != "none":
+        raise ValueError(
+            "generate(megatick_k>1) requires cache_mode='none' (the "
+            "megatick is built on the uniform batched tick)")
+    check_supported(dcfg)
+    mask_id = int(model.cfg.mask_id if mask_id is None else mask_id)
+    B, P = prompt.shape
+    dev = model.device
+    x = torch.cat([prompt.to(device=dev, dtype=torch.int32),
+                   torch.full((B, dcfg.gen_length), mask_id,
+                              dtype=torch.int32, device=dev)], dim=1)
+    kv_valid = torch.ones(x.shape, dtype=torch.bool, device=dev)
+    state = megatick_state(torch.full((B,), P, dtype=torch.int32),
+                           torch.full((B,), dcfg.num_blocks,
+                                      dtype=torch.int32), dcfg, device=dev)
+    fn = get_megatick_fn(model, dcfg, mask_id, int(megatick_k),
+                         jit_steps=jit_steps)
+    tick = 0
+    total = dcfg.num_blocks * dcfg.steps_per_block
+    for _ in range(-(-total // megatick_k)):
+        x, _, tick, state, _, _ = fn(params, x, kv_valid, state, tick,
+                                     megatick_k, False, None, seed)
+    return x

@@ -14,7 +14,7 @@ Each kernel module holds the plain PyTorch version the CPU runs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -23,6 +23,9 @@ from repro_torch.core import mx
 NEG_INF = -1e30
 MASK32 = 0xFFFFFFFF
 SUPPORTED_FMTS = ("none", "bf16", "mxfp8_e4m3")
+# a counter-Gumbel seed: a uint32 int, or an int64 tensor holding one (the
+# form a captured CUDA graph reads from device memory at every replay)
+Seed = Union[int, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +60,9 @@ def head_logits(hidden: torch.Tensor, w_head: torch.Tensor, *,
     typed Python float does in JAX)."""
     dt = hidden.dtype
     z = torch.matmul(hidden, w_head.to(dt))
-    return z * torch.tensor(logit_scale, dtype=dt, device=z.device)
+    # torch.full, not torch.tensor: a fill needs no host-to-device copy,
+    # which a CUDA graph capture would refuse
+    return z * torch.full((), logit_scale, dtype=dt, device=z.device)
 
 
 def _chunk_grid(V: int, chunk_v: int) -> Tuple[int, int]:
@@ -85,18 +90,41 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def counter_uniform(seed: int, rows: torch.Tensor, cols: torch.Tensor
+def seed_tensor(seed: Seed, device) -> torch.Tensor:
+    """``seed`` as the one-element int64 device tensor the sampling kernels
+    read: a tensor passes through (checked), an int is filled in (a fill,
+    no host-to-device copy)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1 or \
+                seed.device != torch.device(device):
+            raise ValueError(f"a seed tensor must be one int64 on {device}; "
+                             f"got {seed.dtype} {tuple(seed.shape)} on "
+                             f"{seed.device}")
+        return seed
+    return torch.full((1,), int(seed) & MASK32, dtype=torch.int64,
+                      device=device)
+
+
+def _seed_bits(seed: Seed):
+    """A seed's uint32 bits: an int, or an int64 tensor broadcasting as a
+    scalar."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(torch.int64).reshape(()) & MASK32
+    return int(seed) & MASK32
+
+
+def counter_uniform(seed: Seed, rows: torch.Tensor, cols: torch.Tensor
                     ) -> torch.Tensor:
     """The uniform u in (0, 1] behind ``counter_gumbel``: a hash of
-    (seed, row, col), f32."""
+    (seed, row, col), f32; ``seed`` an int or a tensor (``Seed``)."""
     rows = rows.to(torch.int64) & MASK32
     cols = cols.to(torch.int64) & MASK32
-    h = _mix32(_mul32(rows, 0x9E3779B9) ^ (int(seed) & MASK32))
+    h = _mix32(_mul32(rows, 0x9E3779B9) ^ _seed_bits(seed))
     h = _mix32(h ^ _mul32(cols, 0x85EBCA6B))
     return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
-def counter_gumbel(seed: int, rows: torch.Tensor, cols: torch.Tensor
+def counter_gumbel(seed: Seed, rows: torch.Tensor, cols: torch.Tensor
                    ) -> torch.Tensor:
     """Deterministic counter-based Gumbel(0,1) noise g(seed, row, col), the
     stream the fused-head kernel regenerates tile by tile."""
@@ -113,9 +141,10 @@ def topk_transfer_mask(conf: torch.Tensor, mask_idx: torch.Tensor,
     """conf (B, L) float; mask_idx (B, L) bool (True = still masked);
     k (B,) int -> transfer mask (B, L) bool with exactly min(k, #masked)
     True entries per row, at the highest-confidence masked positions
-    (ties toward the lower index)."""
+    (ties toward the lower index).  On the card this is one launch: the
+    kernel takes f32 conf, the bool mask and k as they come."""
     from repro_torch.kernels import topk_mask   # lazy: kernels import core
-    return topk_mask.topk_mask(conf.to(torch.float32), mask_idx, k)
+    return topk_mask.topk_mask(conf, mask_idx, k)
 
 
 def commit_tokens(x: torch.Tensor, x0: torch.Tensor, transfer: torch.Tensor
@@ -132,7 +161,7 @@ def _select_and_commit(conf, x0, x, m_idx, k):
 
 
 def stable_max(logits: torch.Tensor, fmt: str = "none",
-               seed: Optional[int] = None, temperature: float = 0.0,
+               seed: Optional[Seed] = None, temperature: float = 0.0,
                suppress_id: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits (..., V) -> (conf (...) f32, token (...) int32): the sampling
@@ -151,7 +180,7 @@ def stable_max(logits: torch.Tensor, fmt: str = "none",
 
 def sampling_step_full(logits: torch.Tensor, x: torch.Tensor, mask_id: int,
                        k: torch.Tensor, cfg: SamplingConfig,
-                       seed: Optional[int] = None
+                       seed: Optional[Seed] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One sampling stage on stored logits (B, L, V): Stable-Max (the CUDA
     kernel on the card), then top-k and commit.  Returns (new tokens
@@ -165,7 +194,7 @@ def sampling_step_full(logits: torch.Tensor, x: torch.Tensor, mask_id: int,
 
 def fused_sampling_step_full(hidden: torch.Tensor, w_head: torch.Tensor,
                              x: torch.Tensor, mask_id: int, k: torch.Tensor,
-                             cfg: SamplingConfig, seed: Optional[int] = None,
+                             cfg: SamplingConfig, seed: Optional[Seed] = None,
                              *, logit_scale: float = 1.0
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:

@@ -9,7 +9,9 @@ every module and have no nvcc.
 
 Every kernel wrapper adds one to ``launch_counts[name]`` where it launches
 its kernel, and nowhere else; ``chip_smoke.py`` zeroes the counts before it
-drives the main path and reads them after.
+drives the main path and reads them after.  A wrapper called while a CUDA
+graph is captured launches nothing then: core/graphs.py takes the counts
+the capture added back out and adds them at every replay instead.
 """
 from __future__ import annotations
 
@@ -38,6 +40,13 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def add_launch_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` to the counts: what a replayed CUDA graph launches,
+    recorded once when it was captured (core/graphs.py)."""
+    for name, n in delta.items():
+        launch_counts[name] += n
 
 
 def _nvcc() -> str:

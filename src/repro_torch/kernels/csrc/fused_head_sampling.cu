@@ -58,7 +58,8 @@ template <typename T, int RPT>
 __global__ void __launch_bounds__(THREADS)
 head_partials_kernel(const T* __restrict__ hidden, const T* __restrict__ w,
                      int R, int d, int V, int fmt, float logit_scale,
-                     float temperature, uint32_t seed, int suppress_id,
+                     float temperature, const uint32_t* __restrict__ seed_ptr,
+                     int suppress_id,
                      float* __restrict__ part_m, int* __restrict__ part_i,
                      float* __restrict__ part_s, float* __restrict__ part_b,
                      float* __restrict__ part_z) {
@@ -118,6 +119,8 @@ head_partials_kernel(const T* __restrict__ hidden, const T* __restrict__ w,
 
   const int warp = tid >> 5, lane = tid & 31;
   const bool gumbel = temperature > 0.f;
+  // the seed lives in device memory: a captured graph reads each tick's
+  const uint32_t seed = gumbel ? *seed_ptr : 0u;
   // logit_scale joins the product in the activation dtype, as a weakly
   // typed Python float does in the JAX reference
   const float scale_t = round_to<T>(logit_scale);
@@ -178,7 +181,8 @@ __global__ void head_combine_kernel(const float* __restrict__ part_m,
 template <int RPT>
 cudaError_t launch_f32(const float* hidden, const float* w, int R, int d,
                        int V, int fmt, float logit_scale, float temperature,
-                       uint32_t seed, int suppress_id, float* pm, int* pi,
+                       const uint32_t* seed, int suppress_id, float* pm,
+                       int* pi,
                        float* ps, float* pb, float* pz, cudaStream_t stream) {
   constexpr int TM = 16 * RPT;
   const dim3 grid((V + TN - 1) / TN, (R + TM - 1) / TM);
@@ -190,7 +194,8 @@ cudaError_t launch_f32(const float* hidden, const float* w, int R, int d,
 
 cudaError_t dispatch_f32(int R, const float* hidden, const float* w, int d,
                          int V, int fmt, float logit_scale, float temperature,
-                         uint32_t seed, int suppress_id, float* pm, int* pi,
+                         const uint32_t* seed, int suppress_id, float* pm,
+                         int* pi,
                          float* ps, float* pb, float* pz, cudaStream_t stream) {
 #define FHS_LAUNCH(RPT)                                                    \
   return launch_f32<RPT>(hidden, w, R, d, V, fmt, logit_scale, temperature, \
@@ -354,7 +359,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 head_partials_tc_kernel(const bf16* __restrict__ hidden,
                         const bf16* __restrict__ w, int R, int d, int V,
                         int cols_per_cta, int fmt, float logit_scale,
-                        float temperature, uint32_t seed, int suppress_id,
+                        float temperature,
+                        const uint32_t* __restrict__ seed_ptr, int suppress_id,
                         float* __restrict__ part_m, int* __restrict__ part_i,
                         float* __restrict__ part_s,
                         float* __restrict__ part_b,
@@ -372,6 +378,7 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
   const int n_k = (d + TC_BK - 1) / TC_BK;
   const int n_it = (c_end - c_begin + TC_BN - 1) / TC_BN * n_k;
   const bool gumbel = temperature > 0.f;
+  const uint32_t seed = gumbel ? *seed_ptr : 0u;  // from device memory
   // logit_scale joins the product in the activation dtype, as a weakly
   // typed Python float does in the JAX reference
   const float scale_t = round_to<bf16>(logit_scale);
@@ -490,8 +497,9 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
 
 cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
                         int V, int cols_per_cta, int n_parts, int fmt,
-                        float logit_scale, float temperature, uint32_t seed,
-                        int suppress_id, float* pm, int* pi, float* ps,
+                        float logit_scale, float temperature,
+                        const uint32_t* seed, int suppress_id, float* pm,
+                        int* pi, float* ps,
                         float* pb, float* pz, cudaStream_t stream) {
   if (d % 8 || V % 8 || cols_per_cta <= 0 || cols_per_cta % 32 ||
       static_cast<long long>(cols_per_cta) * n_parts < V ||
@@ -522,13 +530,16 @@ extern "C" int fused_head_sampling_tiles(int V) { return (V + TN - 1) / TN; }
 // multiples of 8 (16-byte rows).  The f32 route ignores cols_per_cta and
 // takes n_parts = fused_head_sampling_tiles(V).
 // fmt: 0 none, 1 bf16, 2 mxfp8_e4m3.  suppress_id < 0 suppresses nothing.
+// seed_ptr: the uint32 counter-Gumbel seed in device memory (the low word
+// of an int64 holding it), read only when temperature > 0.
 extern "C" int fused_head_sampling_launch(
     const void* hidden, const void* w, void* part_m, void* part_i,
     void* part_s, void* part_b, void* part_z, void* conf, void* token, int R,
     int d, int V, int is_bf16, int fmt, float logit_scale, float temperature,
-    unsigned int seed, int suppress_id, int cols_per_cta, int n_parts,
+    const void* seed_ptr, int suppress_id, int cols_per_cta, int n_parts,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* seed = static_cast<const uint32_t*>(seed_ptr);
   float* pm = static_cast<float*>(part_m);
   int* pi = static_cast<int*>(part_i);
   float* ps = static_cast<float*>(part_s);

@@ -208,7 +208,7 @@ __device__ __forceinline__ void fold_pass(State& st, float& mL,
 struct Args {
   int V, cols;                   // cols: columns per CTA, a multiple of 32
   float temperature;
-  uint32_t seed;
+  const uint32_t* seed;          // in device memory, read when GUMBEL
   int suppress_id;               // < 0: none
   float *part_m, *part_s, *part_b, *part_z;
   int* part_i;
@@ -228,6 +228,8 @@ stablemax_kernel(const T* __restrict__ logits, const Args a) {
   // 16-byte loads need the row start 16-byte aligned
   const bool vec = reinterpret_cast<uintptr_t>(row) % 16 == 0;
 
+  // the seed lives in device memory: a captured graph reads each tick's
+  const uint32_t seed = GUMBEL ? *a.seed : 0u;
   State st = empty_state();
   float mL = NEG * LOG2E;
   for (int base = c_begin; base < c_end; base += STEPS * STEP_COLS) {
@@ -254,7 +256,7 @@ stablemax_kernel(const T* __restrict__ logits, const Args a) {
           if (j >= n[u]) z[u][j] = -INFINITY;
       }
     }
-    fold_pass<GUMBEL>(st, mL, z, c0, n, a.temperature, a.seed, r);
+    fold_pass<GUMBEL>(st, mL, z, c0, n, a.temperature, seed, r);
   }
   merge_lanes(st, 16, GUMBEL);
   if (lane == 0) warp_state[warp] = st;
@@ -320,11 +322,13 @@ cudaError_t launch(const void* logits, int R, int fmt, const Args& a,
 // multiple of 32, the columns per CTA; the partials workspace part_* is
 // (R, ceil(V / cols)) each (part_b/part_z only read and written when
 // temperature > 0); conf (R,) f32, token (R,) i32.  fmt: 0 none, 1 bf16,
-// 2 mxfp8_e4m3.  suppress_id < 0 suppresses nothing.
+// 2 mxfp8_e4m3.  suppress_id < 0 suppresses nothing.  seed: the uint32
+// counter-Gumbel seed in device memory (the low word of an int64 holding
+// it), read only when temperature > 0.
 extern "C" int stablemax_sampling_launch(
     const void* logits, void* part_m, void* part_i, void* part_s,
     void* part_b, void* part_z, void* conf, void* token, int R, int V,
-    int cols, int is_bf16, int fmt, float temperature, unsigned int seed,
+    int cols, int is_bf16, int fmt, float temperature, const void* seed,
     int suppress_id, void* stream) {
   if ((fmt != FMT_NONE && fmt != FMT_BF16 && fmt != FMT_MXFP8) || cols <= 0 ||
       cols % 32)
@@ -333,7 +337,7 @@ extern "C" int stablemax_sampling_launch(
   const Args a = {V,
                   cols,
                   temperature,
-                  seed,
+                  static_cast<const uint32_t*>(seed),
                   suppress_id,
                   static_cast<float*>(part_m),
                   static_cast<float*>(part_s),

@@ -39,7 +39,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def fused_head_stable_max(hidden: torch.Tensor, w_head: torch.Tensor,
                           fmt: str = "none", *, logit_scale: float = 1.0,
-                          temperature: float = 0.0, seed: int = 0,
+                          temperature: float = 0.0, seed: sampling.Seed = 0,
                           suppress_id: Optional[int] = None,
                           chunk_v: int = 4096
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,7 +99,8 @@ def column_plan(V: int, n_sm: int) -> Tuple[int, int]:
 def head_partials_plain(hidden: torch.Tensor, w_head: torch.Tensor,
                         plan: Tuple[int, int], fmt: str = "none", *,
                         logit_scale: float = 1.0, temperature: float = 0.0,
-                        seed: int = 0, suppress_id: Optional[int] = None
+                        seed: sampling.Seed = 0,
+                        suppress_id: Optional[int] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """The per-range partials of the tensor-core route in plain arithmetic:
     (m, idx, s, best, z_at), each (R, n_ranges), for the column ranges of
@@ -121,7 +122,8 @@ def head_partials_plain(hidden: torch.Tensor, w_head: torch.Tensor,
 
 
 def range_partials(z: torch.Tensor, c0: int, *, temperature: float = 0.0,
-                   seed: int = 0, suppress_id: Optional[int] = None
+                   seed: sampling.Seed = 0,
+                   suppress_id: Optional[int] = None
                    ) -> Tuple[torch.Tensor, ...]:
     """One column range's partials (m, idx, s, best, z_at), each (R,), from
     its fake-quantized logits z (R, n) of columns c0 .. c0 + n - 1: the
@@ -172,7 +174,7 @@ def _kernel_fns():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     launch = _build.function(
         NAME, "fused_head_sampling_launch",
-        [p] * 9 + [i] * 5 + [f, f, ctypes.c_uint, i, i, i, p])
+        [p] * 9 + [i] * 5 + [f, f, p, i, i, i, p])
     tiles = _build.function(NAME, "fused_head_sampling_tiles", [i])
     return launch, tiles
 
@@ -180,12 +182,16 @@ def _kernel_fns():
 def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
                         fmt: str = "none", logit_scale: float = 1.0,
                         suppress_id: Optional[int] = None,
-                        temperature: float = 0.0, seed: int = 0
+                        temperature: float = 0.0,
+                        seed: sampling.Seed = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hidden (R, d), w_head (d, V) -> (conf (R,) f32, token (R,) i32)
     without materializing the (R, V) logits.  w_head joins the product in
-    hidden's dtype.  CUDA tensors run the kernel (bf16 needs d and V to be
-    multiples of 8: 16-byte rows); CPU tensors the plain version."""
+    hidden's dtype.  ``seed`` is a uint32 int or an int64 tensor of one
+    element holding one (``sampling.seed_tensor``); the kernel reads it
+    from device memory, so a captured graph draws each replay's seed.
+    CUDA tensors run the kernel (bf16 needs d and V to be multiples of 8:
+    16-byte rows); CPU tensors the plain version."""
     if fmt not in _FMT_CODES:
         raise ValueError(f"fmt {fmt!r} not in {tuple(_FMT_CODES)}")
     if hidden.dim() != 2 or w_head.dim() != 2 or \
@@ -231,7 +237,8 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
                  _build.ptr(part_z), conf.data_ptr(), token.data_ptr(),
                  R, d, V, int(bf16), _FMT_CODES[fmt],
                  float(logit_scale), float(temperature),
-                 int(seed) & sampling.MASK32,
+                 _build.ptr(sampling.seed_tensor(seed, dev) if gumbel
+                            else None),
                  -1 if suppress_id is None else int(suppress_id),
                  cols, n_parts, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME, err)

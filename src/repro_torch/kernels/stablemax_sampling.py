@@ -43,7 +43,7 @@ CTAS_PER_SM = 4
 
 
 def stable_max_plain(logits: torch.Tensor, fmt: str = "none", *,
-                     temperature: float = 0.0, seed: int = 0,
+                     temperature: float = 0.0, seed: sampling.Seed = 0,
                      suppress_id: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: logits (R, V) -> (conf (R,) f32, token (R,) i32)."""
@@ -84,7 +84,8 @@ def vocab_plan(V: int, R: int, n_sm: int) -> Tuple[int, int]:
 
 def stablemax_partials_plain(logits: torch.Tensor, plan: Tuple[int, int],
                              fmt: str = "none", *, temperature: float = 0.0,
-                             seed: int = 0, suppress_id: Optional[int] = None
+                             seed: sampling.Seed = 0,
+                             suppress_id: Optional[int] = None
                              ) -> Tuple[torch.Tensor, ...]:
     """The kernel's per-range partials in plain arithmetic: (m, idx, s,
     best, z_at), each (R, n_ranges), for the column ranges of ``plan``
@@ -101,15 +102,18 @@ def stablemax_partials_plain(logits: torch.Tensor, plan: Tuple[int, int],
 def _kernel_fn():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.function(NAME, "stablemax_sampling_launch",
-                           [p] * 8 + [i] * 5 + [f, ctypes.c_uint, i, p])
+                           [p] * 8 + [i] * 5 + [f, p, i, p])
 
 
 def stablemax_sampling(logits: torch.Tensor, *, fmt: str = "none",
                        suppress_id: Optional[int] = None,
-                       temperature: float = 0.0, seed: int = 0
+                       temperature: float = 0.0,
+                       seed: sampling.Seed = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """logits (R, V) -> (conf (R,) f32, token (R,) i32).  CUDA tensors run
-    the kernel; CPU tensors the plain version."""
+    """logits (R, V) -> (conf (R,) f32, token (R,) i32).  ``seed`` is a
+    uint32 int or an int64 tensor of one element holding one, read by the
+    kernel from device memory.  CUDA tensors run the kernel; CPU tensors
+    the plain version."""
     if fmt not in _FMT_CODES:
         raise ValueError(f"fmt {fmt!r} not in {tuple(_FMT_CODES)}")
     if logits.dim() != 2:
@@ -142,7 +146,9 @@ def stablemax_sampling(logits: torch.Tensor, *, fmt: str = "none",
                        _build.ptr(part_b), _build.ptr(part_z),
                        conf.data_ptr(), token.data_ptr(), R, V, cols,
                        int(logits.dtype == torch.bfloat16), _FMT_CODES[fmt],
-                       float(temperature), int(seed) & sampling.MASK32,
+                       float(temperature),
+                       _build.ptr(sampling.seed_tensor(seed, dev) if gumbel
+                                  else None),
                        -1 if suppress_id is None else int(suppress_id),
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME, err)

@@ -8,7 +8,10 @@ stable on ties, so the plain version computes the rank formula itself.
 
 ``topk_mask`` launches csrc/topk_mask.cu for CUDA tensors and runs
 ``topk_mask_plain`` for CPU tensors; a CUDA tensor never reaches the plain
-version.
+version.  Launch latency bounds the kernel, not its bytes: the wrapper
+hands it the bool mask and the integer k as the caller has them and takes
+back a bool mask, so a top-k is one launch.  It is a plain launch:
+programmatic dependent launch lost in the graphed tick (csrc/topk_mask.cu).
 """
 from __future__ import annotations
 
@@ -39,15 +42,19 @@ def topk_mask_plain(conf: torch.Tensor, mask: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
+def _kernel_fns():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.function(NAME, "topk_mask_launch", [p] * 4 + [i, i, p])
+    launch = _build.function(NAME, "topk_mask_launch", [p] * 4 + [i] * 3 + [p])
+    empty = _build.function(NAME, "topk_mask_empty_launch", [p])
+    return launch, empty
 
 
 def topk_mask(conf: torch.Tensor, mask: torch.Tensor, k: torch.Tensor
               ) -> torch.Tensor:
-    """conf (R, L) f32, mask (R, L) bool, k (R,) int -> transfer (R, L)
-    bool.  CUDA tensors run the kernel; CPU tensors the plain version."""
+    """conf (R, L) f32, mask (R, L) bool, k (R,) int32 or int64 ->
+    transfer (R, L) bool.  CUDA tensors run the kernel, one launch that
+    reads these types as they are (nothing is cast around it); CPU tensors
+    the plain version."""
     if conf.dim() != 2 or mask.shape != conf.shape or \
             k.shape != conf.shape[:1]:
         raise ValueError(f"expected conf/mask (R, L) and k (R,); got "
@@ -61,18 +68,27 @@ def topk_mask(conf: torch.Tensor, mask: torch.Tensor, k: torch.Tensor
     R, L = conf.shape
     if not 1 <= L <= MAX_L:
         raise ValueError(f"block length {L} not in [1, {MAX_L}]")
+    if conf.dtype != torch.float32 or mask.dtype != torch.bool or \
+            k.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"need conf f32, mask bool and k int32 or int64; "
+                         f"got {conf.dtype}, {mask.dtype}, {k.dtype}")
     if not (conf.is_contiguous() and mask.is_contiguous() and
             k.is_contiguous()):
         raise ValueError("conf, mask and k must be contiguous")
-    conf = conf.to(torch.float32)
-    mask_i = mask.to(torch.int32)
-    k_i = k.to(torch.int32)
-    out = torch.empty((R, L), dtype=torch.int32, device=conf.device)
+    out = torch.empty((R, L), dtype=torch.bool, device=conf.device)
     if R == 0:
-        return out.bool()
-    err = _kernel_fn()(conf.data_ptr(), mask_i.data_ptr(), k_i.data_ptr(),
-                       out.data_ptr(), R, L,
-                       torch.cuda.current_stream(conf.device).cuda_stream)
+        return out
+    err = _kernel_fns()[0](conf.data_ptr(), mask.data_ptr(), k.data_ptr(),
+                           out.data_ptr(), R, L, int(k.dtype == torch.int64),
+                           torch.cuda.current_stream(conf.device).cuda_stream)
     _build.check(NAME, err)
     _build.launch_counts[NAME] += 1
-    return out.bool()
+    return out
+
+
+def empty_launch(device) -> None:
+    """Launch the empty kernel of csrc/topk_mask.cu once on ``device``'s
+    current stream: the card's floor for one launch, which bounds
+    ``topk_mask`` (not counted in ``launch_counts``)."""
+    err = _kernel_fns()[1](torch.cuda.current_stream(device).cuda_stream)
+    _build.check(NAME, err)

@@ -44,8 +44,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
     (B, S) or (S,).  Frequencies exp(-log(theta) * i / half) in f32."""
     d = x.shape[-1]
     half = d // 2
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32,
-                                       device=x.device))
+    # a fill, not torch.tensor: no host-to-device copy (a CUDA graph
+    # capture refuses one)
+    log_theta = torch.log(torch.full((), theta, dtype=torch.float32,
+                                     device=x.device))
     freqs = torch.exp(-log_theta * torch.arange(
         half, dtype=torch.float32, device=x.device) / half)
     if positions.dim() == 1:

@@ -20,8 +20,19 @@ Tick modes:
 every tick the engine diffs the request's row against its host-tracked mask
 state and hands the callback a :class:`CommitEvent` with the positions and
 tokens that committed on that tick.  ``cancel(uid)`` removes a still-queued
-request.  Not ported yet (ROADMAP.md): the paged pool, megatick, the mesh,
+request.  Not ported yet (ROADMAP.md): the paged pool, the mesh,
 per-stage breakdown timing and the observability hooks.
+
+``EngineConfig.jit_steps`` (default True) is the JAX field of the same
+name: on the card the tick then replays a captured CUDA graph
+(core/graphs.py) against the engine's static device buffers (the canvas
+``x``, ``kv_valid``, a staging vector of block starts, k and the tick's
+seed, and the warm cache), which the host fills with ``copy_`` from pinned
+memory.  ``megatick_k > 1`` runs each ``tick()`` as a *megastep* of up to
+K ticks (core/diffusion.get_megatick_fn, the scheduler state on the
+device, one host sync per megastep) and replays its drained commit
+buffers tick by tick through the same host state machine, so requests,
+CommitEvents and tick numbering equal the K=1 engine's.
 """
 from __future__ import annotations
 
@@ -35,7 +46,8 @@ import torch
 from repro_torch.core import diffusion, schedule as schedule_lib
 from repro_torch.serving.cache_pool import CachePool
 from repro_torch.serving.metrics import MetricsTracker
-from repro_torch.serving.scheduler import FIFOPolicy, Policy, get_policy
+from repro_torch.serving.scheduler import (FIFOPolicy, Policy,
+                                           SlowFastPolicy, get_policy)
 
 
 @dataclasses.dataclass(eq=False)
@@ -115,17 +127,33 @@ class _Slot:
 class EngineConfig:
     """The JAX EngineConfig's fields; ``seed`` (uint32, the counter-Gumbel
     stream) stands for its ``rng``, and the device is the model's.  The
-    mesh, megatick, paged-pool and breakdown options are not ported yet
-    and raise unless left at their defaults."""
+    mesh, paged-pool and breakdown options are not ported yet and raise
+    unless left at their defaults."""
     num_slots: int = 4
     max_seq_len: int = 128
     mode: str = "warm"
     policy: Optional[Policy] = None
     seed: int = 0
+    jit_steps: bool = True
     mesh: Any = None
     megatick_k: int = 1
     pool: str = "slot"
     breakdown: bool = False
+
+
+class _HostCanvas:
+    """The engine's canvas copied to the host once, at its first use in a
+    tick or megastep (one device sync, counted in ``host_waits``)."""
+
+    def __init__(self, engine: "ServingEngine"):
+        self.engine = engine
+        self.host: Optional[np.ndarray] = None
+
+    def __call__(self) -> np.ndarray:
+        if self.host is None:
+            self.host = self.engine.x.cpu().numpy()
+            self.engine.host_waits += 1
+        return self.host
 
 
 class ServingEngine:
@@ -136,8 +164,28 @@ class ServingEngine:
         config = config or EngineConfig()
         if config.mode not in ("warm", "none"):
             raise ValueError(f"unknown engine mode {config.mode!r}")
-        for name, default in (("mesh", None), ("megatick_k", 1),
-                              ("pool", "slot"), ("breakdown", False)):
+        policy = config.policy or FIFOPolicy()
+        self.megatick_k = int(config.megatick_k)
+        if self.megatick_k < 1:
+            raise ValueError(
+                f"megatick_k must be >= 1, got {config.megatick_k}")
+        self._sf_threshold: Optional[float] = None
+        if self.megatick_k > 1:
+            if config.breakdown:
+                raise ValueError(
+                    "megatick_k > 1 is incompatible with breakdown timing "
+                    "(the megastep is one fused loop on the device)")
+            if isinstance(policy, SlowFastPolicy):
+                # step_k moves on device: the loop applies the confidence
+                # early exit per tick without a host round-trip
+                self._sf_threshold = float(policy.threshold)
+            elif type(policy).step_k is not Policy.step_k:
+                raise ValueError(
+                    f"policy {policy.name!r} overrides step_k; only the "
+                    "default schedule and SlowFastPolicy run on the device "
+                    "inside a megatick")
+        for name, default in (("mesh", None), ("pool", "slot"),
+                              ("breakdown", False)):
             if getattr(config, name) != default:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={getattr(config, name)!r} is not "
@@ -151,8 +199,9 @@ class ServingEngine:
         self.num_slots = config.num_slots
         self.max_seq_len = config.max_seq_len
         self.mask_id = int(model.cfg.mask_id)
-        self.policy = config.policy or FIFOPolicy()
+        self.policy = policy
         self.seed = config.seed
+        self.jit_steps = config.jit_steps
         self.device = model.device
         self.pool = CachePool(model, self.num_slots, self.max_seq_len,
                               with_cache=(self.mode == "warm"))
@@ -166,17 +215,48 @@ class ServingEngine:
         self.now = 0.0                      # engine clock (seconds)
         self.ticks_total = 0
         self._commit_cbs: Dict[int, Callable[[CommitEvent], None]] = {}
+        # canvas fetches (and, with megatick, per-tick result syncs)
+        # skipped because no streaming sink needed them, counted as JAX
+        # counts them; host_waits counts the host's waits that drain the
+        # device's queue (result and canvas fetches; a megastep's event
+        # waits, which keep a tick in flight, are its megatick fn's
+        # event_waits)
+        self.host_syncs_elided = 0
+        self.host_waits = 0
 
+        B, S = self.num_slots, self.max_seq_len
         L, T = dcfg.block_length, dcfg.steps_per_block
         self._ksched = schedule_lib.linear_unmask_schedule(L, T).numpy()
-        self.x = torch.full((self.num_slots, self.max_seq_len), self.mask_id,
-                            dtype=torch.int32, device=self.device)
+        # x and kv_valid keep their storage for the engine's life (a
+        # graphed tick reads them by address); the host writes kv_valid
+        # and the staging vector from pinned memory
+        self.x = torch.full((B, S), self.mask_id, dtype=torch.int32,
+                            device=self.device)
+        pin = self.device.type == "cuda"
+        self._valid_host = torch.zeros((B, S), dtype=torch.bool,
+                                       pin_memory=pin)
+        self._valid_np = self._valid_host.numpy()
         # idle rows keep one valid key so their (discarded) attention rows
         # never see an all-masked softmax
-        self._valid_np = np.tile(np.arange(self.max_seq_len) < 1,
-                                 (self.num_slots, 1))
-        self.kv_valid = torch.as_tensor(self._valid_np, device=self.device)
+        self._valid_np[:] = np.arange(S) < 1
+        self.kv_valid = self._valid_host.to(self.device, copy=True)
         self._kv_dirty = False
+        # the graphed K=1 tick's inputs: block starts, k and the seed
+        self._stage_host = torch.zeros((2 * B + 1,), dtype=torch.int64,
+                                       pin_memory=pin)
+        self._stage_np = self._stage_host.numpy()
+        self._stage = self._stage_host.to(self.device, copy=True)
+        # a megatick engine runs every tick() as a megastep, so it holds
+        # the megatick fn and no K=1 tick fn
+        self._tick_fn = (diffusion.get_tick_fn(model, dcfg, self.mask_id)
+                         if self.jit_steps and self.megatick_k == 1
+                         else None)
+        self._megatick_fn = None
+        if self.megatick_k > 1:
+            self._megatick_fn = diffusion.get_megatick_fn(
+                model, dcfg, self.mask_id, self.megatick_k,
+                jit_steps=self.jit_steps,
+                slowfast_threshold=self._sf_threshold)
 
     # -- request lifecycle --------------------------------------------------
 
@@ -202,6 +282,11 @@ class ServingEngine:
         pol: Optional[Policy] = None
         if request.policy is not None:
             pol = get_policy(request.policy, **(request.policy_params or {}))
+            if self.megatick_k > 1 and not self._policy_matches(pol):
+                raise ValueError(
+                    f"per-request policy {request.policy!r} must match the "
+                    f"engine policy {self.policy.name!r} under megatick "
+                    "(step_k runs on device inside the fused loop)")
         L = self.dcfg.block_length
         if request.gen_length <= 0 or request.gen_length % L:
             raise ValueError(
@@ -219,6 +304,15 @@ class ServingEngine:
         self.metrics.request_arrived(request.uid, request.arrival_time,
                                      request.gen_length)
         return uid
+
+    def _policy_matches(self, pol: Policy) -> bool:
+        """Whether a per-request policy resolves to the same on-device
+        step behavior as the engine policy (the megatick constraint)."""
+        if type(pol) is not type(self.policy):
+            return False
+        if isinstance(pol, SlowFastPolicy):
+            return pol.threshold == self.policy.threshold
+        return True
 
     def cancel(self, uid: int) -> bool:
         """Remove a still-*queued* request.  Returns False when the uid is
@@ -288,29 +382,57 @@ class ServingEngine:
         """One host->device refresh of the validity mask after admission
         and release settle."""
         if self._kv_dirty:
-            self.kv_valid = torch.as_tensor(self._valid_np,
-                                            device=self.device)
+            self.kv_valid.copy_(self._valid_host, non_blocking=True)
             self._kv_dirty = False
 
     def warmup(self) -> "ServingEngine":
         """Build and load the kernels with a zero-commit tick (outputs
-        discarded), so the first timed tick pays no build.  Leaves the
-        clock, metrics and canvas untouched; in warm mode it rewrites the
-        pool's K/V, which every tick rewrites before reading anyway."""
+        discarded) and, with ``jit_steps``, capture the graphed tick (or,
+        with megatick_k > 1, the megastep's) on the card, so the first
+        timed tick pays no build and no capture.  Leaves the clock, metrics
+        and canvas untouched; in warm mode it rewrites the pool's K/V,
+        which every tick rewrites before reading anyway."""
         self._flush_kv_valid()
-        zeros = torch.zeros((self.num_slots,), dtype=torch.int32,
-                            device=self.device)
+        B = self.num_slots
         cache = self.pool.cache if self.mode == "warm" else None
-        diffusion.batched_tick(self.model, self.params, self.x,
-                               self.kv_valid, zeros, zeros, 0, cache,
-                               self.dcfg, self.mask_id)
+        if self._tick_fn is not None:
+            self._stage_np[:] = 0
+            for _ in range(2):              # the eager call, then capture
+                self._graphed_tick(cache)
+        elif self._megatick_fn is None:
+            zeros = torch.zeros((B,), dtype=torch.int32, device=self.device)
+            diffusion.batched_tick(self.model, self.params, self.x,
+                                   self.kv_valid, zeros, zeros, 0, cache,
+                                   self.dcfg, self.mask_id)
+        else:
+            zeros = np.zeros((B,), np.int32)
+            state = diffusion.megatick_state(
+                zeros, zeros, self.dcfg, active=np.zeros((B,), bool))
+            fn = self._megatick_fn
+            for _ in range(2):              # the eager call, then capture
+                fn(self.params, self.x, self.kv_valid, state, 0, 1, False,
+                   cache, self.seed)
+            fn.ticks_run = fn.ticks_wasted = 0
+            fn.host_waits = fn.event_waits = 0
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
 
-    def tick(self) -> bool:
-        """Admit, run one batched step, advance slot states.  Returns False
-        when there is nothing to do (drained)."""
+    def _graphed_tick(self, cache):
+        """One tick through the (graphed) tick fn on the static buffers:
+        the staging vector goes up, the canvas is updated in place.
+        Returns the graph's (conf_min, masks_left)."""
+        B = self.num_slots
+        self._stage.copy_(self._stage_host, non_blocking=True)
+        x_new, _, conf_min, masks_left = self._tick_fn(
+            self.params, self.x, self.kv_valid, self._stage[:B],
+            self._stage[B:2 * B], self._stage[2 * B:], cache)
+        self.x.copy_(x_new)
+        return conf_min, masks_left
+
+    def _admit_or_idle(self) -> bool:
+        """Admit; when no slot is busy, fast-forward the clock to the next
+        arrival and admit again.  False when there is nothing to do."""
         self._admit()
         if self.active_slots == 0:
             nxt = self._next_arrival()
@@ -319,6 +441,19 @@ class ServingEngine:
             self.now = max(self.now, nxt)     # fast-forward through idle gap
             self._admit()
         self._flush_kv_valid()
+        return True
+
+    def tick(self, max_ticks: Optional[int] = None) -> bool:
+        """Admit, run one batched step, advance slot states.  Returns False
+        when there is nothing to do (drained).  With ``megatick_k > 1`` a
+        call runs one megastep of up to megatick_k ticks (fewer under
+        queue pressure or early release); ``max_ticks`` caps the ticks
+        this call may run.  ``ticks_total`` counts denoising ticks either
+        way."""
+        if self.megatick_k > 1:
+            return self._megastep(max_ticks)
+        if not self._admit_or_idle():
+            return False
 
         T = self.dcfg.steps_per_block
         L = self.dcfg.block_length
@@ -335,72 +470,185 @@ class ServingEngine:
 
         t0 = time.perf_counter()
         cache = self.pool.cache if self.mode == "warm" else None
-        x_new, new_cache, conf_min, masks_left = diffusion.batched_tick(
-            self.model, self.params, self.x, self.kv_valid,
-            torch.as_tensor(bs_np, device=self.device),
-            torch.as_tensor(k_np, device=self.device),
-            diffusion.tick_seed(self.seed, self.ticks_total), cache,
-            self.dcfg, self.mask_id)
+        seed = diffusion.tick_seed(self.seed, self.ticks_total)
+        if self._tick_fn is None:
+            x_new, new_cache, conf_min, masks_left = diffusion.batched_tick(
+                self.model, self.params, self.x, self.kv_valid,
+                torch.as_tensor(bs_np, device=self.device),
+                torch.as_tensor(k_np, device=self.device), seed, cache,
+                self.dcfg, self.mask_id)
+            self.x = x_new
+            if self.mode == "warm":
+                self.pool.update(new_cache)
+        else:
+            B = self.num_slots
+            self._stage_np[:B] = bs_np
+            self._stage_np[B:2 * B] = k_np
+            self._stage_np[2 * B] = seed
+            conf_min, masks_left = self._graphed_tick(cache)
         conf_np = conf_min.cpu().numpy()      # device sync point
         masks_np = masks_left.cpu().numpy()
+        self.host_waits += 1
         dt = time.perf_counter() - t0
-        self.x = x_new
-        if self.mode == "warm":
-            self.pool.update(new_cache)
 
         n_active = self.active_slots
         self.now += dt
         self.ticks_total += 1
         self.metrics.record_tick(dt, n_active)
-        x_host: Optional[np.ndarray] = None
+        canvas = _HostCanvas(self)
         for i, s in enumerate(self.slots):
             if s is None:
                 continue
-            s.ticks += 1
-            uid = s.request.uid
-            cb = self._commit_cbs.get(uid)
-            masks_left_i = int(masks_np[i])
-            # host copy only when someone reads it: a streaming diff, or a
-            # request completing this tick (release needs the row)
-            if x_host is None and (cb is not None or (
-                    masks_left_i == 0
-                    and (s.block_idx + 1) * L >= s.request.gen_length)):
-                x_host = self.x.cpu().numpy()  # one copy serves all rows
-            positions = tokens = None
-            if cb is not None:
-                row = x_host[i, :s.request.total_len]
-                newly = s.masked & (row != self.mask_id)
-                positions = np.nonzero(newly)[0]
-                tokens = row[positions].copy()
-                s.masked &= ~newly
-            if not s.first_commit and masks_left_i < L:
-                s.first_commit = True
-                self.metrics.request_first_commit(uid, self.now)
-            block_idx, step_in_block = s.block_idx, s.step_in_block
-            done = False
-            final: Optional[np.ndarray] = None
-            if masks_left_i == 0:             # block fully committed
-                s.block_idx += 1
-                s.step_in_block = 0
-                s.last_conf = float("-inf")
-                s.block_masks_left = L
-                if s.block_idx * L >= s.request.gen_length:
-                    done = True
-                    if cb is not None:
-                        final = x_host[i, :s.request.total_len].copy()
-                    self._release(i, x_host[i])
-            else:
-                s.step_in_block += 1
-                s.last_conf = float(conf_np[i])
-                s.block_masks_left = masks_left_i
-            if cb is not None:
-                cb(CommitEvent(
-                    uid=uid, tick=self.ticks_total, now=self.now,
-                    block_idx=block_idx, step_in_block=step_in_block,
-                    positions=positions, tokens=tokens,
-                    masks_left=masks_left_i, done=done, final_tokens=final))
-                if done:
-                    del self._commit_cbs[uid]
+            diff = None
+            if s.request.uid in self._commit_cbs:
+                diff = (0, canvas()[i, :s.request.total_len])
+            self._advance_slot(i, s, int(masks_np[i]), float(conf_np[i]),
+                               diff, canvas)
+        if canvas.host is None and n_active:
+            # no streaming sink and no release needed the canvas this tick
+            self.host_syncs_elided += 1
+        return True
+
+    def _advance_slot(self, i: int, s: _Slot, masks_left: int, conf: float,
+                      diff: Optional[tuple], canvas: _HostCanvas) -> None:
+        """The host state machine of slot ``i`` after one tick that left
+        ``masks_left`` masks in its block with min committed confidence
+        ``conf``: tick count, streaming diff, first commit, block advance
+        and release, and the CommitEvent.  ``diff`` is ``(offset, row)``, a
+        host copy of the canvas row from position ``offset`` that covers
+        this tick's commits (given when the request has a commit sink);
+        ``canvas()`` gives the host canvas a release reads."""
+        L = self.dcfg.block_length
+        s.ticks += 1
+        uid = s.request.uid
+        cb = self._commit_cbs.get(uid)
+        positions = tokens = None
+        if cb is not None:
+            off, row = diff
+            span = slice(off, off + len(row))
+            newly = s.masked[span] & (row != self.mask_id)
+            local = np.nonzero(newly)[0]
+            positions = off + local
+            tokens = row[local].copy()
+            s.masked[span] &= ~newly
+        if not s.first_commit and masks_left < L:
+            s.first_commit = True
+            self.metrics.request_first_commit(uid, self.now)
+        block_idx, step_in_block = s.block_idx, s.step_in_block
+        done = False
+        final: Optional[np.ndarray] = None
+        if masks_left == 0:                   # block fully committed
+            s.block_idx += 1
+            s.step_in_block = 0
+            s.last_conf = float("-inf")
+            s.block_masks_left = L
+            if s.block_idx * L >= s.request.gen_length:
+                done = True
+                x_host = canvas()
+                if cb is not None:
+                    final = x_host[i, :s.request.total_len].copy()
+                self._release(i, x_host[i])
+        else:
+            s.step_in_block += 1
+            s.last_conf = conf
+            s.block_masks_left = masks_left
+        if cb is not None:
+            cb(CommitEvent(
+                uid=uid, tick=self.ticks_total, now=self.now,
+                block_idx=block_idx, step_in_block=step_in_block,
+                positions=positions, tokens=tokens, masks_left=masks_left,
+                done=done, final_tokens=final))
+            if done:
+                del self._commit_cbs[uid]
+
+    # -- device-resident megatick -------------------------------------------
+
+    def _choose_megatick_k(self, max_ticks: Optional[int]) -> tuple:
+        """Megastep depth from queue pressure (the JAX rule): admission
+        happens only at megastep boundaries, so with requests queued the
+        loop stops at the first release (``stop_on_release``), and if slots
+        are already free (the queued work has not arrived on the clock
+        yet) the depth drops to 1, the K=1 admission cadence."""
+        k = self.megatick_k
+        if max_ticks is not None:
+            k = max(1, min(k, int(max_ticks)))
+        if self.queue:
+            if self.pool.free_slots:
+                k = 1
+            return k, True
+        return k, False
+
+    def _megastep(self, max_ticks: Optional[int] = None) -> bool:
+        """One megastep: admit at the boundary, run up to K ticks on the
+        device with one host sync, then replay the drained commit buffers
+        tick by tick through the host state machine: metrics and streaming
+        callbacks see the K=1 event sequence, with contiguous tick numbers
+        and ``now`` advanced by an equal share of the megastep per tick."""
+        if not self._admit_or_idle():
+            return False
+        k_req, stop_on_release = self._choose_megatick_k(max_ticks)
+        L = self.dcfg.block_length
+        B = self.num_slots
+        pl = np.zeros((B,), np.int32)
+        gb = np.zeros((B,), np.int32)
+        bi = np.zeros((B,), np.int32)
+        ti = np.zeros((B,), np.int32)
+        bml = np.zeros((B,), np.int32)
+        lc = np.full((B,), -np.inf, np.float32)
+        act = np.zeros((B,), bool)
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            pl[i] = s.request.prompt_len
+            gb[i] = s.request.gen_length // L
+            bi[i] = s.block_idx
+            ti[i] = s.step_in_block
+            bml[i] = s.block_masks_left
+            lc[i] = s.last_conf
+            act[i] = True
+        cache = self.pool.cache if self.mode == "warm" else None
+
+        t0 = time.perf_counter()
+        state = diffusion.megatick_state(
+            pl, gb, self.dcfg, block_idx=bi, step_in_block=ti,
+            block_masks_left=bml, last_conf=lc, active=act)
+        fn = self._megatick_fn
+        waits0 = fn.host_waits
+        _, _, _, _, bufs, n = fn(self.params, self.x, self.kv_valid, state,
+                                 self.ticks_total, k_req, stop_on_release,
+                                 cache, self.seed)
+        self.host_waits += fn.host_waits - waits0
+        masks_b = bufs["masks_left"][:n].cpu().numpy()
+        conf_b = bufs["conf"][:n].cpu().numpy()
+        early_b = (bufs["early"][:n].cpu().numpy()
+                   if self._sf_threshold is not None else None)
+        sinks = any(s is not None and s.request.uid in self._commit_cbs
+                    for s in self.slots)
+        xa_b = bufs["xa"][:n].cpu().numpy() if sinks else None
+        dt = time.perf_counter() - t0
+        elided = (n - 1) + (0 if sinks else 1)
+        if elided > 0:
+            self.host_syncs_elided += elided
+
+        now0 = self.now
+        # released rows tick with k = 0 after their release, so the final
+        # canvas still holds them
+        canvas = _HostCanvas(self)
+        for j in range(n):
+            self.now = now0 + dt * (j + 1) / n
+            self.ticks_total += 1
+            self.metrics.record_tick(dt / n, self.active_slots)
+            for i, s in enumerate(self.slots):
+                if s is None:
+                    continue
+                diff = None
+                if s.request.uid in self._commit_cbs:
+                    diff = (s.request.prompt_len + s.block_idx * L,
+                            xa_b[j, i])
+                self._advance_slot(i, s, int(masks_b[j, i]),
+                                   float(conf_b[j, i]), diff, canvas)
+        if early_b is not None:
+            self.policy.early_exits += int(early_b.sum())
         return True
 
     def run(self, requests: Optional[Sequence[Request]] = None

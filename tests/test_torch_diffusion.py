@@ -194,7 +194,8 @@ def test_refine_step_from_a_jax_cache(models, cache_mode):
 def test_unported_modes_raise(models):
     """Options still unported raise NotImplementedError pointing at the
     ROADMAP: the random transfer strategy, sampling formats other than
-    none/bf16/mxfp8, KV formats without a kernel, and the megatick."""
+    none/bf16/mxfp8, KV formats without a kernel, and the megatick over
+    a mesh (the megatick itself is ported)."""
     _, model_t, _, params_t = models
     prompt = torch.zeros((1, 4), dtype=torch.int32)
     for kw in (dict(sampling=tsampling.SamplingConfig(strategy="random")),
@@ -206,4 +207,4 @@ def test_unported_modes_raise(models):
             tdiff.generate(model_t, params_t, prompt, dcfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(model_t, params_t, tdiff.DiffusionConfig(),
-                      EngineConfig(megatick_k=2))
+                      EngineConfig(megatick_k=2, mesh=object()))

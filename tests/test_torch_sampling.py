@@ -2,8 +2,9 @@
 counter-Gumbel stream, the fused LM head + Stable-Max (plain version vs
 the JAX oracle and the Pallas kernel in interpret mode), Stable-Max over
 stored logits (the plain version of kernels/stablemax_sampling.py vs
-stable_max and the Pallas kernel), the top-k transfer mask, and the full
-fused and unfused sampling steps."""
+stable_max and the Pallas kernel), the top-k transfer mask (with the
+bool mask and int32/int64 k the kernel takes), the tensor form of the
+tick seed, and the full fused and unfused sampling steps."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -361,6 +362,55 @@ def test_topk_all_tied():
                                         jnp.asarray(k), interpret=True))
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got[0], np.arange(16) < 4)
+
+
+@pytest.mark.parametrize("k_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("R,L", [(3, 1), (5, 16), (7, 33), (6, 64)])
+def test_topk_bool_mask_and_integer_k_match_jax(R, L, k_dtype):
+    """The types the kernel takes on the card: a bool mask in, a bool mask
+    out, k as int32 or int64; R not a multiple of 4, exact ties, a row with
+    nothing masked and k past L."""
+    rs = np.random.RandomState(R * 100 + L)
+    conf = (np.round(rs.randn(R, L) * 2) / 2 + 0.0).astype(np.float32)
+    mask = rs.rand(R, L) < 0.6
+    mask[0] = True
+    mask[1] = False
+    k = rs.randint(0, L + 2, size=R).astype(k_dtype)
+    got = ttk.topk_mask(torch.from_numpy(conf), torch.from_numpy(mask),
+                        torch.from_numpy(k))
+    assert got.dtype == torch.bool and got.shape == (R, L)
+    args = (jnp.asarray(conf), jnp.asarray(mask),
+            jnp.asarray(k.astype(np.int32)))
+    want = np.asarray(ref.topk_mask_ref(*args)).astype(bool)
+    kern = np.asarray(ops.transfer_mask(*args, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), kern)
+    np.testing.assert_array_equal(
+        got.numpy().sum(1), np.minimum(k, mask.sum(1)))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 0xDEADBEEF, 2 ** 32 - 1])
+def test_tensor_seeds_are_bit_equal_to_int_seeds(seed):
+    """tick_seed from a tensor tick (and seed), as a captured graph
+    computes it on the device, equals the int form; counter_uniform and
+    counter_gumbel with a tensor seed equal the int seed's draws."""
+    from repro_torch.core import diffusion as tdiff
+    rows, cols = _rows_cols(4096, seed & 0xFFFF)
+    rows_t, cols_t = torch.from_numpy(rows), torch.from_numpy(cols)
+    for tick in (0, 1, 2, 1000, 2 ** 31 - 1, 2 ** 31, 2 ** 32 + 5):
+        want = tdiff.tick_seed(seed, tick)
+        got = tdiff.tick_seed(seed, torch.tensor([tick]))
+        both = tdiff.tick_seed(torch.tensor([seed]), torch.tensor(tick))
+        assert got.dtype == torch.int64 and got.shape == (1,)
+        assert int(got) == int(both) == want
+        assert torch.equal(ts.counter_uniform(got, rows_t, cols_t),
+                           ts.counter_uniform(want, rows_t, cols_t))
+        assert torch.equal(ts.counter_gumbel(got, rows_t, cols_t),
+                           ts.counter_gumbel(want, rows_t, cols_t))
+    assert torch.equal(ts.seed_tensor(seed, "cpu"),
+                       torch.tensor([seed], dtype=torch.int64))
+    with pytest.raises(ValueError):
+        ts.seed_tensor(torch.tensor([1], dtype=torch.int32), "cpu")
 
 
 @pytest.mark.parametrize("fmt", ["bf16", "mxfp8_e4m3"])
