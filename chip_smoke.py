@@ -25,6 +25,12 @@ Phases, each fatal on failure:
                time, the floor of a launch); the f32 routes of the fused
                head and flash_bidir at a small shape; the profiler's
                device time of each kernel and of its library yardstick;
+               the limits lifted in this slice: topk_mask at L 65, 128,
+               256 and 1000 (the CTA route), the fused head's bf16 route
+               on padded heads at V 122753 (minicpm-2b, R 64) and 1003
+               (R 3) against plain and the f32 route, flash_bidir at
+               D 256 (10 q heads on 1 KV head, window 2048, kv_valid,
+               BAOS), D 16 and D 96, each with its time and bound;
   3. e2e    -- llada-8b at full width (32 layers, d 4096, bf16, seeded
                random weights): one-slot generate in cache mode none,
                stepped through tick_forward and tick_sample, and in modes
@@ -54,7 +60,22 @@ Phases, each fatal on failure:
                inside the graphs, which must equal the eager run's per
                tick and the counts the graph replays added; on path warm
                a SlowFast(0) trace, whose megasteps stop mid-way, eager
-               K=1 against graphed K=1 and K=8.
+               K=1 against graphed K=1 and K=8;
+  3b. table6 -- llada-8b at the paper's Table 6 shape (B 16, prompt 128,
+               gen 256, block 64, 16 steps) in cache modes none, prefix +
+               BAOS and dual + BAOS (mxint4 KV), and dual + BAOS under
+               QuantPolicy (MXINT4 weights, MXINT8 activations, bf16
+               sampling): step() eager against graphed (equal tokens),
+               step wall, tokens/s, peak memory, graphs captured, then a
+               second graphed generate() that must capture nothing; the
+               QuantPolicy run's sampling held against plain;
+  5. configs -- llama3.2-3b (generate, block 128: topk_mask's CTA route),
+               minicpm-2b (engine warm: the padded fused head; each
+               tick's sampling held against plain) and codeqwen1.5-7b
+               (engine warm) at full width, one model at a time, eager
+               against graphed K=1.
+Every path's launch counts are zeroed just before it and read just after;
+the kernels line sums them over phases 4, 3b and 5.
 Prints the kernels JSON line, the card's name and power limit, and last
 the {"ok": true, ...} line.  Exits non-zero without a result when there is
 no CUDA device or the port is not beside this script.
@@ -63,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -89,6 +111,7 @@ REPLACES = {
     "baos_mx_quant": "src/repro/kernels/baos_mx_quant.py:61",
     "stablemax_sampling": "src/repro/kernels/stablemax_sampling.py:71"}
 QWEN2 = dict(d=896, V=151936, mask_id=151935)
+MINICPM = dict(d=2304, V=122753, mask_id=122752)
 # the device kernel each wrapper call launches once, as the profiler names
 # it (the head and Stable-Max wrappers then launch their combine kernel)
 DEVICE_KERNEL = {"fused_head_sampling": "head_partials",
@@ -162,10 +185,11 @@ def require(ok: bool, what: str) -> None:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def head_logits_f32(h, w, fmt, suppress_id):
+def head_logits_f32(h, w, fmt, suppress_id, logit_scale=1.0):
     """The plain version's quantized f32 logits, for the near-tie rule."""
     from repro_torch.core import sampling
-    return quantized_f32(sampling.head_logits(h, w), fmt, suppress_id)
+    return quantized_f32(sampling.head_logits(h, w, logit_scale=logit_scale),
+                         fmt, suppress_id)
 
 
 def quantized_f32(z, fmt, suppress_id):
@@ -268,6 +292,7 @@ def phase_kernels(gen) -> dict:
             log(f"fused_head f32 (24, 256) @ (256, 3000) {fmt} "
                 f"T={temperature}: rows differing {nd}/24, conf max abs "
                 f"err {err:.3g}")
+    check_head_ragged(gen)
     h, w = main_inputs
     kw = dict(fmt="mxfp8_e4m3", suppress_id=LLADA["mask_id"])
     R, d = h.shape
@@ -344,6 +369,7 @@ def phase_kernels(gen) -> dict:
         f"abs err {err:.3g} (max |out| {float(want.abs().max()):.3g})")
     require(err <= 1e-5 * float(want.abs().max()),
             "flash_bidir f32 route differs from plain beyond 1e-5 of max|out|")
+    check_attn_head_dims(gen)
     q, kk, v, valid, attn_err = main_attn
     B, S, Hq, D = q.shape
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
@@ -373,6 +399,141 @@ def phase_kernels(gen) -> dict:
     return out
 
 
+def check_head_ragged(gen) -> None:
+    """The bf16 route at a vocabulary that is not a multiple of 8, on heads
+    stored by pad_head (rows padded to padded_vocab(V) once, nothing copied
+    per call): minicpm-2b's head (d 2304, V 122753) at the engine's 64
+    rows, and (R 3, d 64, V 1003).  Every fmt, T 0 and 0.8 against the
+    plain version (check_head: the near-tie rule, conf 1e-2, at most 1% of
+    rows); at fmt none and bf16, greedy, against the f32 route on the same
+    values (a differing token must be a near-tie of the f32 logits; mxfp8
+    and Gumbel scores are not compared across routes: the f32 route's
+    logits are not rounded to bf16, and mxfp8's 3-bit grid turns that
+    0.2% into a whole grid step).  Then the time at minicpm-2b's shape
+    against its byte bound and torch.matmul's."""
+    from repro_torch.core import sampling
+    from repro_torch.kernels import fused_head_sampling as fhs
+    n_diff = n_rows = 0
+    for widths, R in ((MINICPM, 64), (dict(d=64, V=1003, mask_id=1002), 3)):
+        d, V, mid = widths["d"], widths["V"], widths["mask_id"]
+        w = fhs.pad_head(random_head(widths, gen))
+        require(w.stride(0) == fhs.padded_vocab(V) and w.shape == (d, V),
+                f"pad_head of V {V}: stride {w.stride(0)}")
+        h = torch.randn(R, d, generator=gen, device=DEVICE).to(torch.bfloat16)
+        for fmt in sampling.SUPPORTED_FMTS:
+            for temperature in (0.0, 0.8):
+                nd, err = check_head(h, w, mid, fmt, temperature, 1234)
+                n_diff, n_rows = n_diff + nd, n_rows + R
+                log(f"fused_head bf16 padded d={d} V={V} (row stride "
+                    f"{w.stride(0)}) R={R} {fmt} T={temperature}: rows "
+                    f"differing from plain {nd}/{R}, conf max abs err "
+                    f"{err:.3g}")
+        hf, wf = h.float(), w.float()
+        for fmt in ("none", "bf16"):
+            kw = dict(fmt=fmt, suppress_id=mid)
+            _, tok_b = fhs.fused_head_sampling(h, w, **kw)
+            _, tok_f = fhs.fused_head_sampling(hf, wf, **kw)
+            rows = torch.nonzero(tok_b != tok_f).flatten().tolist()
+            if rows:
+                z = head_logits_f32(hf[rows], wf, fmt, mid)
+                require(all(near_ties(z, tok_b[rows], 0.0, 0, rows)),
+                        f"fused head V {V} {fmt}: the bf16 and f32 routes "
+                        f"differ off a near-tie in rows {rows}")
+            log(f"fused_head V={V} {fmt} greedy: bf16 route vs f32 route "
+                f"rows differing {len(rows)}/{R} (near-ties)")
+        if widths is MINICPM:
+            main = (h, w)
+        del w, wf
+    require(n_diff <= 0.01 * n_rows,
+            f"fused head, padded vocab: {n_diff}/{n_rows} rows differ (> 1%)")
+    h, w = main
+    R, d = h.shape
+    V = w.shape[1]
+    kw = dict(fmt="mxfp8_e4m3", suppress_id=MINICPM["mask_id"])
+    b_ms, b_by = bound(R * d * 2 + d * V * 2 + R * 8, 2.0 * R * d * V,
+                       BF16_FLOPS)
+    log(f"fused_head bf16 padded ({R}, {d}) @ ({d}, {V}) mxfp8 greedy: "
+        f"{time_ms(lambda: fhs.fused_head_sampling(h, w, **kw), 20):.4f} ms "
+        f"(CUDA events), device time (profiler) "
+        f"{device_ms(lambda: fhs.fused_head_sampling(h, w, **kw), 20):.4f} "
+        f"ms, plain {time_ms(lambda: fhs.fused_head_stable_max(h, w, kw['fmt'], suppress_id=kw['suppress_id']), 3):.3f}"
+        f" ms, bound {b_ms:.4f} ms ({b_by}); torch.matmul(h, w) "
+        f"{time_ms(lambda: torch.matmul(h, w), 20):.4f} ms (device "
+        f"{device_ms(lambda: torch.matmul(h, w), 20):.4f} ms)")
+
+
+def check_attn_head_dims(gen) -> None:
+    """flash_bidir at head dims past the 32/64/128 of the main path:
+    D 256 at recurrentgemma-2b's attention layout (10 query heads on 1 KV
+    head, window 2048, kv_valid), with and without BAOS; D 16 and D 96
+    (the 32- and 128-wide tiles, predicated loads); each bf16 within one
+    bf16 ulp + 1e-6 of the plain version; the f32 route at D 256 and 96
+    within 1e-5 of max|out|.  Then D 256's time against its bound and
+    scaled_dot_product_attention's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_bidir as fb
+    cases = ((2, 128, 128, 10, 1, 256, False, 2048, (128, 61)),
+             (2, 128, 128, 10, 1, 256, True, 2048, (128, 61)),
+             (3, 80, 80, 10, 1, 256, False, 9, (80, 0, 33)),
+             (4, 96, 96, 8, 2, 16, True, None, (96, 48, 37, 1)),
+             (4, 96, 96, 12, 4, 96, False, None, (96, 48, 37, 1)),
+             (2, 64, 64, 6, 3, 96, True, 5, (64, 20)))
+    for B, S, Sk, Hq, Hkv, D, baos, win, lens in cases:
+        q = torch.randn(B, S, Hq, D, generator=gen, device=DEVICE)
+        kk = torch.randn(B, Sk, Hkv, D, generator=gen, device=DEVICE)
+        v = torch.randn(B, Sk, Hkv, D, generator=gen, device=DEVICE)
+        valid = torch.arange(Sk, device=DEVICE)[None, :] < torch.tensor(
+            lens, device=DEVICE)[:, None]
+        cal = [None] * 3
+        if baos:
+            cal = [torch.rand(B, Hkv, D, generator=gen, device=DEVICE) + 0.5,
+                   torch.rand(B, Hkv, D, generator=gen, device=DEVICE) + 0.5,
+                   torch.randn(B, Hkv, D, generator=gen, device=DEVICE)]
+        what = (f"B={B} Sq={S} Skv={Sk} Hq={Hq} Hkv={Hkv} D={D} baos={baos} "
+                f"window={win} kv_valid lengths {lens}")
+        qb, kb, vb = q.bfloat16(), kk.bfloat16(), v.bfloat16()
+        got = fb.flash_bidir(qb, kb, vb, valid, *cal, window=win)
+        want = fb.flash_bidir_plain(qb, kb, vb, valid, *cal, window=win)
+        err = (got.float() - want.float()).abs()
+        excess = float((err - bf16_ulp(want)).max())
+        log(f"flash_bidir bf16 {what} (route {fb.route(D, qb.dtype)}): max "
+            f"abs err {float(err.max()):.3g}, beyond one bf16 ulp "
+            f"{excess:.3g}")
+        require(excess <= 1e-6, f"flash_bidir bf16 {what}: beyond one bf16 "
+                                f"ulp + 1e-6")
+        if D in (256, 96) and not baos:
+            got = fb.flash_bidir(q, kk, v, valid, *cal, window=win)
+            want = fb.flash_bidir_plain(q, kk, v, valid, *cal, window=win)
+            e32 = float((got - want).abs().max())
+            log(f"flash_bidir f32 {what}: max abs err {e32:.3g} (max |out| "
+                f"{float(want.abs().max()):.3g})")
+            require(e32 <= 1e-5 * float(want.abs().max()),
+                    f"flash_bidir f32 {what}: beyond 1e-5 of max|out|")
+    B, S, Hq, Hkv, D = 4, 256, 10, 1, 256
+    q = torch.randn(B, S, Hq, D, generator=gen, device=DEVICE).bfloat16()
+    kk = torch.randn(B, S, Hkv, D, generator=gen, device=DEVICE).bfloat16()
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=DEVICE).bfloat16()
+    valid = torch.arange(S, device=DEVICE)[None, :] < torch.tensor(
+        (256, 128, 77, 1), device=DEVICE)[:, None]
+    n_keys = int(valid.sum())
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * n_keys * Hkv * D * 2
+                       + valid.numel(), 4.0 * Hq * S * n_keys * D, BF16_FLOPS)
+    qt = q.transpose(1, 2)
+    kt = kk.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+    mask = valid[:, None, None, :]
+    fn = lambda: fb.flash_bidir(q, kk, v, valid, window=2048)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask)
+    log(f"flash_bidir bf16 (4, 256, 10, 1, 256) window 2048 kv_valid: "
+        f"{time_ms(fn, 50):.4f} ms (CUDA events), device time (profiler) "
+        f"{device_ms(fn, 50):.4f} ms, plain "
+        f"{time_ms(lambda: fb.flash_bidir_plain(q, kk, v, valid, window=2048), 10):.4f}"
+        f" ms, bound {b_ms:.4f} ms ({b_by}); scaled_dot_product_attention "
+        f"(K/V repeated to 10 heads beforehand) {time_ms(lib, 50):.4f} ms "
+        f"(device {device_ms(lib, 50):.4f} ms)")
+
+
 def check_topk(gen) -> dict:
     """topk_mask against its plain version with 0 positions differing: the
     main path's (4, 16), (8, 64), and L 1, 16, 33, 64 at R 3, 5, 7, 6 (not
@@ -383,7 +544,8 @@ def check_topk(gen) -> dict:
     time, its host time per call, and its bound."""
     from repro_torch.core import sampling
     from repro_torch.kernels import topk_mask as tk
-    for R, L in ((4, 16), (8, 64), (3, 1), (5, 16), (7, 33), (6, 64)):
+    for R, L in ((4, 16), (8, 64), (3, 1), (5, 16), (7, 33), (6, 64),
+                 (3, 65), (5, 128), (7, 256), (6, 1000)):
         for k_dtype in (torch.int32, torch.int64):
             conf = torch.rand(R, L, generator=gen, device=DEVICE)
             conf[:, ::3] = 0.5
@@ -396,8 +558,8 @@ def check_topk(gen) -> dict:
             got = tk.topk_mask(conf, mask, k)
             want = tk.topk_mask_plain(conf, mask, k)
             n_bad = int((got != want).sum())
-            log(f"topk_mask ({R}, {L}) k {k_dtype}: {n_bad} positions "
-                f"differ ({got.dtype} out)")
+            log(f"topk_mask ({R}, {L}) k {k_dtype} route {tk.route(L)}: "
+                f"{n_bad} positions differ ({got.dtype} out)")
             require(got.dtype == torch.bool and n_bad == 0,
                     f"topk_mask ({R}, {L}) k {k_dtype} differs from plain")
             if (R, L, k_dtype) == (4, 16, torch.int32):
@@ -410,6 +572,7 @@ def check_topk(gen) -> dict:
         f"({', '.join(per_call)})")
     require(sum(n for _, n in per_call.values()) == 1,
             "a top-k of the sampling stage launches more than one kernel")
+    check_topk_cta(gen)
     R, L = conf.shape
     b_ms, b_by = bound(R * L * (4 + 1 + 1) + R * 4, float(R * L * L),
                        F32_FLOPS)
@@ -426,6 +589,39 @@ def check_topk(gen) -> dict:
         ms=time_ms(lambda: tk.topk_mask(conf, mask, k), 200),
         plain_ms=time_ms(lambda: tk.topk_mask_plain(conf, mask, k), 50),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_topk_cta(gen) -> None:
+    """The CTA route (L > 64) at llama3.2-3b's block of 128 on 4 rows:
+    one launch per top-k of the sampling stage, device time against the
+    empty kernel's and the bound, host time per call; and at (64, 1000),
+    a long row that streams through two shared-memory tiles' worth of
+    positions."""
+    from repro_torch.core import sampling
+    from repro_torch.kernels import topk_mask as tk
+    for R, L in ((4, 128), (64, 1000)):
+        conf = torch.rand(R, L, generator=gen, device=DEVICE)
+        mask = torch.rand(R, L, generator=gen, device=DEVICE) < 0.7
+        k = torch.full((R,), L // 8, dtype=torch.int32, device=DEVICE)
+        require(torch.equal(tk.topk_mask(conf, mask, k),
+                            tk.topk_mask_plain(conf, mask, k)),
+                f"topk_mask ({R}, {L}) differs from plain")
+        per_call = device_kernels(
+            lambda: sampling.topk_transfer_mask(conf, mask, k), 20)
+        n_launch = sum(n for _, n in per_call.values())
+        require(n_launch == 1, f"topk ({R}, {L}): {n_launch} launches per "
+                               f"top-k")
+        b_ms, b_by = bound(R * L * (4 + 1 + 1) + R * 4, float(R * L * L),
+                           F32_FLOPS)
+        log(f"topk_mask ({R}, {L}) route {tk.route(L)}: 1 launch per top-k "
+            f"({', '.join(per_call)}); device time (profiler) "
+            f"{device_ms(lambda: tk.topk_mask(conf, mask, k), 200):.5f} ms "
+            f"per call, back to back (CUDA events) "
+            f"{time_ms(lambda: tk.topk_mask(conf, mask, k), 200):.5f} ms, "
+            f"host time {host_ms(lambda: tk.topk_mask(conf, mask, k), 200):.5f}"
+            f" ms, plain {time_ms(lambda: tk.topk_mask_plain(conf, mask, k), 20):.4f}"
+            f" ms; bound {b_ms:.3g} ms ({b_by}); library: none "
+            f"(torch.topk is not stable)")
 
 
 def check_seed_tensor(h, w, mid) -> None:
@@ -654,19 +850,21 @@ def check_stablemax(gen) -> dict:
 # phase 3: one-slot generate at full size, sampling held against plain
 # ---------------------------------------------------------------------------
 
-def check_sampling(hid, w, fmt, mid, m_idx, k, totals):
+def check_sampling(hid, w, fmt, mid, m_idx, k, totals, logit_scale=1.0):
     """The fused head on one step's active-block hidden states (L, d)
     against its plain version; ``totals`` counts sampled tokens, those
     differing and the near-ties among them.  Returns (conf, tokens)."""
     from repro_torch.kernels import fused_head_sampling as fhs
     from repro_torch.kernels import topk_mask as tk
-    conf_k, tok_k = fhs.fused_head_sampling(hid, w, fmt=fmt, suppress_id=mid)
-    conf_p, tok_p = fhs.fused_head_stable_max(hid, w, fmt, suppress_id=mid)
+    conf_k, tok_k = fhs.fused_head_sampling(hid, w, fmt=fmt, suppress_id=mid,
+                                            logit_scale=logit_scale)
+    conf_p, tok_p = fhs.fused_head_stable_max(hid, w, fmt, suppress_id=mid,
+                                              logit_scale=logit_scale)
     diff = torch.nonzero((tok_k != tok_p) & m_idx[0]).flatten()
     totals[0] += int(m_idx.sum())
     totals[1] += len(diff)
     if len(diff):
-        z = head_logits_f32(hid[diff], w, fmt, mid)
+        z = head_logits_f32(hid[diff], w, fmt, mid, logit_scale)
         totals[2] += sum(near_ties(z, tok_k[diff], 0.0, 0, diff.tolist()))
     tr_k = tk.topk_mask(conf_k[None], m_idx, k)
     require(torch.equal(tr_k, tk.topk_mask_plain(conf_k[None], m_idx, k)),
@@ -716,6 +914,310 @@ def phase_e2e(model, params, gen) -> None:
         f"run: {bool(torch.equal(out, state.x))}")
     require(torch.equal(out, state.x),
             "e2e: generate(megatick_k=4) differs from the stepped run")
+
+
+def stepped_run(model, params, prompt, dcfg, jit_steps, quant=None,
+                seed=7):
+    """One generation through step(), timed step by step (each step ends
+    in a device sync): (tokens, per-step wall ms, total s, peak GiB, launch
+    counts).  The graphed run decodes into its step entry's cache, as
+    generate() does; the counts are zeroed just before the run."""
+    from repro_torch.core import diffusion
+    from repro_torch.kernels import _build
+    B, P = prompt.shape
+    cache = None
+    if jit_steps and dcfg.cache_mode != "none":
+        cache = diffusion.step_graphs(model, dcfg, model.cfg.mask_id, quant,
+                                      B, P + dcfg.gen_length).cache
+    state = diffusion.init_state(model, prompt, dcfg, seed=seed, cache=cache)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    walls = []
+    t0 = time.perf_counter()
+    while not state.done:
+        t = time.perf_counter()
+        state = diffusion.step(model, params, state, jit_steps=jit_steps,
+                               quant=quant)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    total = time.perf_counter() - t0
+    return (state.x, walls, total,
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+            dict(_build.launch_counts))
+
+
+def eager_vs_graphed(model, params, prompt, dcfg, what, expected,
+                     quant=None) -> dict:
+    """``dcfg`` through step() eager (jit_steps=False) and graphed, then a
+    second graphed call through generate() itself: equal tokens, no mask
+    id left, each run launching exactly ``expected``, and the second
+    graphed call capturing no graph.  Logs each run's step wall median and
+    p84, tokens/s, peak memory, launches, the graphs captured and the
+    memory their pools hold.  Returns the launch counts of the three
+    runs, summed."""
+    import numpy as np
+    from repro_torch.core import diffusion
+    from repro_torch.kernels import _build
+    B, P = prompt.shape
+    n_tok = B * dcfg.gen_length
+    diffusion.clear_step_graphs()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    total_counts = {}
+    outs = {}
+    for jit_steps in (False, True):
+        x, walls, secs, peak, counts = stepped_run(model, params, prompt,
+                                                   dcfg, jit_steps, quant)
+        name = "graphed K=1" if jit_steps else "eager K=1"
+        p50, p84 = np.percentile(np.array(walls), [50, 84])
+        extra = ""
+        if jit_steps:
+            g = diffusion.step_graphs(model, dcfg, model.cfg.mask_id, quant,
+                                      B, P + dcfg.gen_length)
+            cache_gib = sum(t.numel() * t.element_size()
+                            for t in (g.cache or {}).values()) / 2 ** 30
+            added = (torch.cuda.memory_reserved() - reserved0) / 2 ** 30
+            extra = (f" (its first steps capture), {g.captures} graphs "
+                     f"captured ({len(g._steps)} graphed steps); memory the "
+                     f"step entry adds: {added:.2f} GiB reserved, of which "
+                     f"its static cache {cache_gib:.2f} GiB and graph pools "
+                     f"and buffers {added - cache_gib:.2f} GiB")
+        log(f"{what} {name}: {len(walls)} steps, step wall ms median "
+            f"{p50:.2f} p84 {p84:.2f}, {n_tok / secs:.1f} tokens/s "
+            f"({secs:.3f} s), peak memory {peak:.2f} GiB, launches "
+            f"{counts}{extra}")
+        require(not bool((x == model.cfg.mask_id).any()),
+                f"{what} {name}: mask ids left")
+        expect_launches(counts, expected, f"{what} {name}")
+        outs[name] = x
+        for k, n in counts.items():
+            total_counts[k] = total_counts.get(k, 0) + n
+    require(torch.equal(outs["eager K=1"], outs["graphed K=1"]),
+            f"{what}: graphed tokens differ from eager")
+    g = diffusion.step_graphs(model, dcfg, model.cfg.mask_id, quant, B,
+                              P + dcfg.gen_length)
+    captures0 = g.captures
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = diffusion.generate(model, params, prompt, dcfg, seed=7,
+                             jit_steps=True, quant=quant)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    log(f"{what} graphed K=1, second call through generate(): {secs:.3f} s, "
+        f"{n_tok / secs:.1f} tokens/s, {g.captures - captures0} graphs "
+        f"captured, tokens equal to eager: {bool(torch.equal(out, outs['eager K=1']))}")
+    require(g.captures == captures0,
+            f"{what}: the second graphed generate() captured "
+            f"{g.captures - captures0} graphs")
+    require(torch.equal(out, outs["eager K=1"]),
+            f"{what}: the second graphed generate() differs from eager")
+    for k, n in counts.items():
+        total_counts[k] = total_counts.get(k, 0) + n
+    return total_counts
+
+
+def phase_table6(model, params, gen) -> dict:
+    """llada-8b at the paper's Table 6 shape (B 16, prompt 128, gen 256,
+    block 64, 16 steps per block) in cache mode none, prefix + BAOS and
+    dual + BAOS (mxint4 KV), eager K=1 against graphed K=1; then dual +
+    BAOS at Table 6's operating point, QuantPolicy(enabled=True) (MXINT4
+    weights, MXINT8 activations) with bf16 sampling, whose sampling is
+    also held against the plain functions on the same (fake-quantized)
+    hidden states at a warm and a refine step.  Returns the launch counts
+    of every run."""
+    from repro_torch.core import baos, diffusion, sampling
+    from repro_torch.kernels import fused_head_sampling as fhs
+    from repro_torch.models import layers
+    cfg = model.cfg
+    B, P = 16, 128
+    prompt = torch.randint(0, cfg.vocab - 200, (B, P), generator=gen,
+                           device=DEVICE)
+    shape = dict(gen_length=256, block_length=64, steps_per_block=16)
+    kv = baos.BAOSConfig(enabled=True, kv_format="mxint4")
+    common = ("flash_bidir", "fused_head_sampling", "topk_mask")
+    total = {}
+    runs = (("none", diffusion.DiffusionConfig(**shape), common, None),
+            ("prefix + BAOS", diffusion.DiffusionConfig(
+                cache_mode="prefix", baos=kv, **shape),
+             common + ("baos_mx_quant",), None),
+            ("dual + BAOS", diffusion.DiffusionConfig(
+                cache_mode="dual", baos=kv, **shape),
+             common + ("baos_mx_quant",), None),
+            ("dual + BAOS + QuantPolicy, bf16 sampling",
+             diffusion.DiffusionConfig(
+                 cache_mode="dual", baos=kv,
+                 sampling=sampling.SamplingConfig(fmt="bf16"), **shape),
+             common + ("baos_mx_quant",), layers.QuantPolicy(enabled=True)))
+    for name, dcfg, expected, quant in runs:
+        counts = eager_vs_graphed(model, params, prompt, dcfg,
+                                  f"table6 llada-8b (B {B}, prompt {P}, gen "
+                                  f"256, block 64, 16 steps) {name}",
+                                  expected, quant)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    # the quantized run's sampling against plain on the same hidden states
+    dcfg, quant = runs[-1][1], runs[-1][3]
+    state = diffusion.init_state(model, prompt[:4], dcfg, seed=7)
+    L, mid, V = dcfg.block_length, cfg.mask_id, cfg.vocab
+    w = quant.weights(fhs.head_storage(params["lm_head"]))[:, :V]
+    totals = [0, 0, 0]
+    for _ in range(2):                  # the warm step, then a refine step
+        feats = diffusion.step_forward(model, params, state, quant)
+        bs = state.block_start
+        hq = quant.acts(feats)
+        for r in range(feats.shape[0]):
+            m_idx = state.x[r:r + 1, bs:bs + L] == mid
+            k = state.ks[r:r + 1, state.step_in_block].to(DEVICE)
+            check_sampling(hq[r], w, "bf16", mid, m_idx, k, totals)
+        state = diffusion.advance(state, diffusion.commit_block(
+            model, params, state, feats, quant))
+    log(f"table6 QuantPolicy sampling (warm and refine step, 4 rows): "
+        f"sampled tokens differing from plain {totals[1]}/{totals[0]}, of "
+        f"which near-ties {totals[2]}")
+    require(totals[1] == totals[2],
+            "table6 QuantPolicy: a sampled token differs off a near-tie")
+    diffusion.clear_step_graphs()
+    return total
+
+
+def phase_configs(gen) -> dict:
+    """The three dense configs this slice adds, at full width with seeded
+    random weights, one model at a time (each freed before the next):
+    llama3.2-3b through generate() in cache mode none with a block of 128
+    (topk_mask's CTA route on the path), B 4, prompt 64, gen 256, eager
+    against graphed; minicpm-2b (V 122753: the fused head's padded bf16
+    route on the path) through the engine on path warm, eager K=1 against
+    graphed K=1 (tokens, CommitEvents, launch counts), its sampling held
+    tick by tick against the plain version at the engine's rows;
+    codeqwen1.5-7b (QKV bias, full MHA, V 92416) through the engine on
+    path warm, eager K=1 against graphed K=1.  Returns the launch counts
+    of every run."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import base
+    from repro_torch.core import diffusion
+    from repro_torch.kernels import topk_mask as tk
+    from repro_torch.models.registry import build_model
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    common = ("flash_bidir", "fused_head_sampling", "topk_mask")
+    for arch in ("llama3.2-3b", "minicpm-2b", "codeqwen1.5-7b"):
+        cfg = base.get_config(arch)
+        model = build_model(cfg, DEVICE)
+        t0 = time.perf_counter()
+        params = model.init(seed=0)
+        torch.cuda.synchronize()
+        w = params["lm_head"]
+        log(f"{arch} params: {cfg.param_count() / 1e9:.2f} B, init "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB; LM head "
+            f"{tuple(w.shape)} stored with row stride {w.stride(0)}")
+        if arch == "llama3.2-3b":
+            dcfg = diffusion.DiffusionConfig(gen_length=256, block_length=128,
+                                             steps_per_block=16)
+            require(tk.route(dcfg.block_length) == "cta",
+                    "llama3.2-3b block 128 does not take the CTA route")
+            prompt = torch.randint(0, cfg.vocab - 200, (4, 64),
+                                   generator=gen, device=DEVICE)
+            add(eager_vs_graphed(
+                model, params, prompt, dcfg, "llama3.2-3b generate none "
+                "(B 4, prompt 64, gen 256, block 128, 16 steps)", common))
+        else:
+            dcfg = diffusion.DiffusionConfig(block_length=16,
+                                             steps_per_block=8)
+            rs = np.random.RandomState(1)
+            trace = [(rs.randint(0, cfg.vocab - 200,
+                                 size=(rs.randint(16, 33),)).astype(np.int32),
+                      int(rs.choice([32, 48, 64]))) for _ in range(8)]
+            runs = {}
+            for vname, vcfg in VARIANTS[:2]:
+                eng, keys, tick_ms, counts = engine_run(
+                    model, params, dcfg, "warm", trace, True, **vcfg)
+                p50, p84 = np.percentile(np.array(tick_ms), [50, 84])
+                s = eng.metrics.summary()
+                what = f"{arch} engine warm {vname}"
+                log(f"{what}: {len(eng.completed)} requests, "
+                    f"{eng.ticks_total} ticks, tick wall ms median "
+                    f"{p50:.2f} p84 {p84:.2f}, {s['tokens_per_s']:.1f} "
+                    f"tokens/s, max memory "
+                    f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+                    f"launches {counts}")
+                require(len(eng.completed) == len(trace),
+                        f"{what}: requests missing")
+                for c in eng.completed:
+                    require(not bool((c.tokens == cfg.mask_id).any()),
+                            f"{what}: request {c.uid} left mask ids")
+                expect_launches(counts, common, what)
+                runs[vname] = dict(
+                    tokens={c.uid: c.tokens.tolist() for c in eng.completed},
+                    events=keys, counts=counts, ticks=eng.ticks_total)
+                add(counts)
+                del eng
+            ref, got = runs["eager K=1"], runs["graphed K=1"]
+            for key in ("tokens", "events", "counts", "ticks"):
+                require(got[key] == ref[key],
+                        f"{arch} engine warm graphed K=1: {key} differ from "
+                        f"eager K=1")
+            log(f"{arch} engine warm: graphed K=1 equals eager K=1 in tokens, "
+                f"{len(ref['events'])} CommitEvents, {ref['ticks']} ticks "
+                f"and launch counts")
+            if arch == "minicpm-2b":
+                check_ticks_sampling(model, params, gen)
+        del model, params, w
+        diffusion.clear_step_graphs()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def check_ticks_sampling(model, params, gen) -> None:
+    """Each tick's fused-head sampling at the engine's rows (4 slots of 16
+    positions, mode none, full recompute) against the plain version on the
+    same hidden states, with the model's logit_scale, and the tick's
+    commit against the sampled tokens."""
+    from repro_torch.core import diffusion
+    cfg = model.cfg
+    dcfg = diffusion.DiffusionConfig(gen_length=32, block_length=16,
+                                     steps_per_block=8)
+    prompt = torch.randint(0, cfg.vocab - 200, (4, 24), generator=gen,
+                           device=DEVICE)
+    state = diffusion.init_state(model, prompt, dcfg, seed=7)
+    L, mid, w = dcfg.block_length, cfg.mask_id, params["lm_head"]
+    B = prompt.shape[0]
+    totals = [0, 0, 0]
+    while not state.done:
+        x, bs = state.x, state.block_start
+        feats, _ = diffusion.tick_forward(model, params, x, None, None, None,
+                                          dcfg)
+        k = state.ks[:, state.step_in_block].to(DEVICE)
+        picks = []
+        for r in range(B):
+            picks.append(check_sampling(
+                feats[r, bs:bs + L], w, dcfg.sampling.fmt, mid,
+                x[r:r + 1, bs:bs + L] == mid, k[r:r + 1], totals,
+                cfg.logit_scale))
+        x_new, _, _ = diffusion.tick_sample(
+            params, feats, x, torch.full((B,), bs, device=DEVICE), k,
+            diffusion.tick_seed(state.seed, state.ticks), dcfg, mid, model)
+        for r, (tr_k, tok_k) in enumerate(picks):
+            require(torch.equal(x_new[r, bs:bs + L][tr_k[0]],
+                                tok_k[tr_k[0]]),
+                    f"{cfg.name}: tick_sample committed other tokens than "
+                    f"sampled")
+        state = diffusion.advance(state, x_new)
+    require(not bool((state.x == mid).any()), f"{cfg.name}: mask ids left")
+    log(f"{cfg.name} ticks at 4 x 16 rows (V {cfg.vocab}, logit_scale "
+        f"{cfg.logit_scale:.4f}, head row stride {w.stride(0)}): sampled "
+        f"tokens differing from plain {totals[1]}/{totals[0]}, of which "
+        f"near-ties {totals[2]}")
+    require(totals[1] == totals[2],
+            f"{cfg.name}: a sampled token differs off a near-tie")
 
 
 def expect_launches(counts, expected, what):
@@ -1271,6 +1773,13 @@ def main() -> int:
         for cache_mode in ("dual", "prefix"):
             phase_cached(model, params, gen, cache_mode)
         launches = phase_engine(model, params)
+        for name, n in phase_table6(model, params, gen).items():
+            launches[name] += n
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, n in phase_configs(gen).items():
+            launches[name] += n
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.kernels import fused_head_sampling
 from repro_torch.models.config import ModelConfig
 
 
@@ -22,7 +23,9 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                       device: Union[str, torch.device] = "cuda") -> Dict:
     """JAX dense-transformer params (``layers`` stacked on axis 0) ->
     the port's params (``layers`` a list of per-layer dicts), in
-    ``cfg.dtype`` on ``device``.  bf16 arrays pass through f32, exactly."""
+    ``cfg.dtype`` on ``device``.  bf16 arrays pass through f32, exactly.
+    The LM head is stored with 16-byte rows for the fused head's bf16 route
+    (kernels/fused_head_sampling.pad_head)."""
     dev = device_lib.resolve(device)
 
     def t(a) -> torch.Tensor:
@@ -44,7 +47,7 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
         layers.append(lp)
     return {"embed": t(tree["embed"]), "layers": layers,
             "final_norm": t(tree["final_norm"]["w"]),
-            "lm_head": t(tree["lm_head"])}
+            "lm_head": fused_head_sampling.pad_head(t(tree["lm_head"]))}
 
 
 CACHE_KEYS = ("k", "v", "k_center", "k_scale", "v_center", "v_scale")

@@ -25,4 +25,5 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
 
 
 def _ensure_loaded() -> None:
-    from repro_torch.configs import llada_8b, qwen2_0_5b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        codeqwen15_7b, llada_8b, llama32_3b, minicpm_2b, qwen2_0_5b)

@@ -28,10 +28,19 @@ seed as a device tensor, which the sampling kernels read from memory.
 ``jit_steps`` (core/graphs.py, the counterpart of ``jax.jit``), and
 ``get_megatick_fn`` the JAX megatick: up to K ticks with each row's
 block/step/k bookkeeping on the device and one host sync per megastep.
+``step``/``generate`` with ``jit_steps`` run each step as CUDA graphs too:
+``step_graphs`` keeps, per (model, dcfg, mask id, quant, batch, canvas
+length), the graphed steps and the static buffers they read (the
+counterpart of JAX's lru-cached ``_cached_step_fn``/``_cached_commit_fn``
+compiles), so a second ``generate`` of the same shapes captures nothing.
+
+``**fwd_kw`` takes ``quant``, a ``models/layers.QuantPolicy``: the MX
+fake-quant at every GEMM boundary and on both operands of the LM head.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -119,9 +128,9 @@ def _active_mask(batch: int, s_tot: int, block_start, block_len: int,
 
 
 def _active_sampling_step(feats: torch.Tensor, xa: torch.Tensor,
-                          k: torch.Tensor, seed: int, params: Dict,
+                          k: torch.Tensor, seed, params: Dict,
                           mode: str, dcfg: DiffusionConfig, mask_id: int,
-                          model):
+                          model, quant=None):
     """Route one active block through the head path.  feats is (B, L, V)
     block logits (mode 'logits') or (B, L, d) hidden states (modes 'fused'
     and 'unfused').  Returns (new tokens, transfer, conf), each (B, L)."""
@@ -132,12 +141,12 @@ def _active_sampling_step(feats: torch.Tensor, xa: torch.Tensor,
     if mode == "fused":
         return sampling_lib.fused_sampling_step_full(
             feats, params["lm_head"], xa, mask_id, k, dcfg.sampling, seed,
-            logit_scale=scale)
+            logit_scale=scale, quant=quant)
     # unfused: the head after the (B, L, d) slice, so at most (B, L, V)
     # block logits exist; JAX computes this product outside any Pallas
     # kernel, so it stays on torch.matmul
     logits = sampling_lib.head_logits(feats, params["lm_head"],
-                                      logit_scale=scale)
+                                      logit_scale=scale, quant=quant)
     return sampling_lib.sampling_step_full(logits, xa, mask_id, k,
                                            dcfg.sampling, seed)
 
@@ -146,11 +155,13 @@ def _active_sampling_step(feats: torch.Tensor, xa: torch.Tensor,
 # Warm and refine steps (cache modes dual and prefix)
 # ---------------------------------------------------------------------------
 
-def warm_step(model, params, x: torch.Tensor, cache: Dict, block_start: int,
-              dcfg: DiffusionConfig, head_mode: str = "logits"):
+def warm_step(model, params, x: torch.Tensor, cache: Dict, block_start,
+              dcfg: DiffusionConfig, head_mode: str = "logits", quant=None):
     """Full-sequence forward that rewrites the whole cache (and, with BAOS,
     recalibrates it).  Returns (active-block logits, or with
-    ``head_mode='hidden'`` hidden states (B, L, d); the cache)."""
+    ``head_mode='hidden'`` hidden states (B, L, d); the cache).
+    ``block_start`` is an int, or a one-element device tensor (a graph's
+    block start)."""
     B, s_tot = x.shape
     L = dcfg.block_length
     calib_mask = (_active_mask(B, s_tot, block_start, L, x.device)
@@ -158,21 +169,29 @@ def warm_step(model, params, x: torch.Tensor, cache: Dict, block_start: int,
     return model.forward(params, x, cache=cache, seg_start=0,
                          baos_cfg=dcfg.baos, calibrate=True,
                          calib_mask=calib_mask,
-                         logits_slice=(block_start, L), head_mode=head_mode)
+                         logits_slice=(block_start, L), head_mode=head_mode,
+                         quant=quant)
 
 
 def refine_step(model, params, x: torch.Tensor, cache: Dict,
-                block_start: int, dcfg: DiffusionConfig, suffix_len: int = 0,
-                head_mode: str = "logits"):
+                block_start, dcfg: DiffusionConfig, suffix_len: int = 0,
+                head_mode: str = "logits", quant=None):
     """One refinement forward over the segment x[block_start:
     block_start + L + suffix_len] (dual: suffix_len 0; prefix: the whole
     suffix), its K/V written into the cache in place, the stored
-    calibration read.  Returns (active-block feats, the cache)."""
+    calibration read.  Returns (active-block feats, the cache).
+    ``block_start`` is an int, or a one-element device tensor."""
     L = dcfg.block_length
-    seg = x[:, block_start:block_start + L + suffix_len]
+    if isinstance(block_start, torch.Tensor):
+        cols = block_start.reshape(()).to(torch.int64) + torch.arange(
+            L + suffix_len, device=x.device)
+        seg = x.index_select(1, cols)
+    else:
+        seg = x[:, block_start:block_start + L + suffix_len]
     return model.forward(params, seg, cache=cache, seg_start=block_start,
                          baos_cfg=dcfg.baos, calibrate=False,
-                         logits_slice=(0, L), head_mode=head_mode)
+                         logits_slice=(0, L), head_mode=head_mode,
+                         quant=quant)
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +200,7 @@ def refine_step(model, params, x: torch.Tensor, cache: Dict,
 
 def tick_forward(model, params, x: torch.Tensor,
                  kv_valid: Optional[torch.Tensor], block_start: torch.Tensor,
-                 cache, dcfg: DiffusionConfig):
+                 cache, dcfg: DiffusionConfig, quant=None):
     """Forward half of a tick: full-sequence hidden states (B, S, d), or
     full-sequence logits (B, S, V) on the legacy head path.  Without
     ``cache`` this is the full recompute (cache_mode 'none'; like the JAX
@@ -194,7 +213,7 @@ def tick_forward(model, params, x: torch.Tensor,
     head_mode = _forward_head_mode(model, dcfg)
     if cache is None:
         return model.forward(params, x, kv_valid=kv_valid,
-                             head_mode=head_mode)
+                             head_mode=head_mode, quant=quant)
     B, s_tot = x.shape
     calib_mask = None
     if dcfg.baos.calib_scope == "active_block":
@@ -203,12 +222,12 @@ def tick_forward(model, params, x: torch.Tensor,
     return model.forward(params, x, cache=cache, seg_start=0,
                          kv_valid=kv_valid, baos_cfg=dcfg.baos,
                          calibrate=True, calib_mask=calib_mask,
-                         head_mode=head_mode)
+                         head_mode=head_mode, quant=quant)
 
 
 def tick_sample(params, feats: torch.Tensor, x: torch.Tensor,
-                block_start: torch.Tensor, k: torch.Tensor, seed: int,
-                dcfg: DiffusionConfig, mask_id: int, model
+                block_start: torch.Tensor, k: torch.Tensor, seed,
+                dcfg: DiffusionConfig, mask_id: int, model, quant=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sampling half of a tick: each row's active block sliced out of the
     full-sequence feats ((B, L, d) hidden states, or (B, L, V) logits on
@@ -227,7 +246,7 @@ def tick_sample(params, feats: torch.Tensor, x: torch.Tensor,
     rows = torch.arange(B, device=x.device)[:, None]
     xa_new, transfer, conf = _active_sampling_step(
         feats[rows, cols], x[rows, cols], k, seed, params,
-        head_feed_mode(model, dcfg), dcfg, mask_id, model)
+        head_feed_mode(model, dcfg), dcfg, mask_id, model, quant)
     x_new = x.clone()
     x_new[rows, cols] = xa_new
     conf_min = torch.amin(torch.where(transfer, conf, float("inf")), dim=-1)
@@ -237,34 +256,36 @@ def tick_sample(params, feats: torch.Tensor, x: torch.Tensor,
 
 def batched_tick(model, params, x: torch.Tensor,
                  kv_valid: Optional[torch.Tensor], block_start: torch.Tensor,
-                 k: torch.Tensor, seed: int, cache, dcfg: DiffusionConfig,
-                 mask_id: int):
+                 k: torch.Tensor, seed, cache, dcfg: DiffusionConfig,
+                 mask_id: int, quant=None):
     """One engine tick over all serving slots: one forward, one sampling
     call.  Also the cache_mode='none' step of ``generate`` (block_start
     broadcast), so a one-slot engine runs exactly what generate runs.
     Returns (x_new, cache, conf_min, masks_left)."""
     feats, cache = tick_forward(model, params, x, kv_valid, block_start,
-                                cache, dcfg)
+                                cache, dcfg, quant)
     x_new, conf_min, masks_left = tick_sample(
-        params, feats, x, block_start, k, seed, dcfg, mask_id, model)
+        params, feats, x, block_start, k, seed, dcfg, mask_id, model, quant)
     return x_new, cache, conf_min, masks_left
 
 
 def get_tick_fn(model, dcfg: DiffusionConfig, mask_id: int,
-                jit_steps: bool = True):
+                jit_steps: bool = True, quant=None, pool=None):
     """``batched_tick`` as ``tick(params, x, kv_valid, block_start, k,
-    seed, cache=None) -> (x_new, cache, conf_min, masks_left)``, shared by
-    the serving engine; the JAX ``get_tick_fn``.  With ``jit_steps`` and
-    CUDA tensors it replays a CUDA graph (core/graphs.py), the counterpart
-    of ``jax.jit``: its tensor arguments are then its static buffers, read
-    by address (``seed`` a ``sampling.Seed`` tensor, or it is baked in),
-    and its outputs live until the next call.  Without, or on the CPU, the
-    tick runs eagerly."""
+    seed, cache=None) -> (x_new, cache, conf_min, masks_left)``, the JAX
+    ``get_tick_fn``.  With ``jit_steps`` and CUDA tensors it replays a CUDA
+    graph (core/graphs.py, in memory ``pool``), the counterpart of
+    ``jax.jit``: its tensor arguments are then its static buffers, read by
+    address (``seed`` a ``sampling.Seed`` tensor, or it is baked in), and
+    its outputs live until the next call.  Without, or on the CPU, the tick
+    runs eagerly.  Each call makes a new tick: a graph holds the buffers it
+    was captured on, so each engine, and each ``step_graphs`` entry, owns
+    its own (JAX shares compiles, which hold no buffers)."""
     def tick(params, x, kv_valid, block_start, k, seed, cache=None):
         return batched_tick(model, params, x, kv_valid, block_start, k, seed,
-                            cache, dcfg, mask_id)
+                            cache, dcfg, mask_id, quant)
 
-    return graphs.GraphedStep(tick) if jit_steps else tick
+    return graphs.GraphedStep(tick, pool) if jit_steps else tick
 
 
 # ---------------------------------------------------------------------------
@@ -335,11 +356,12 @@ class Megatick:
 
     def __init__(self, model, dcfg: DiffusionConfig, mask_id: int,
                  k_max: int, jit_steps: bool = True,
-                 slowfast_threshold: Optional[float] = None):
+                 slowfast_threshold: Optional[float] = None, quant=None):
         if k_max < 1:
             raise ValueError(f"megatick k_max must be >= 1, got {k_max}")
         check_supported(dcfg)
         self.model, self.dcfg, self.mask_id = model, dcfg, int(mask_id)
+        self.quant = quant
         self.k_max = int(k_max)
         self.thr = (None if slowfast_threshold is None
                     else float(slowfast_threshold))
@@ -390,6 +412,19 @@ class Megatick:
         self._carry[key] = c
         return c
 
+    def canvas(self, B: int, S: int, device) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+        """A static canvas (B, S) int32 and an all-valid kv_valid for
+        ``generate``, made once per shape, so the graphs captured on them
+        are replayed by every later call of that shape."""
+        key = ("canvas", B, S, torch.device(device))
+        c = self._carry.get(key)
+        if c is None:
+            c = self._carry[key] = (
+                torch.zeros((B, S), dtype=torch.int32, device=device),
+                torch.ones((B, S), dtype=torch.bool, device=device))
+        return c
+
     def _tick(self, params, x, kv_valid, cache, sc, st, bufs, ksched):
         """One predicated tick, in place on device tensors."""
         L, T = self.dcfg.block_length, self.dcfg.steps_per_block
@@ -410,7 +445,7 @@ class Megatick:
         seed = tick_seed(sc["seed"], sc["tick"])
         x_new, _, conf_min, masks_left = batched_tick(
             self.model, params, x, kv_valid, bs, k, seed, cache, self.dcfg,
-            self.mask_id)
+            self.mask_id, self.quant)
         boundary = act & (masks_left == 0)
         released = boundary & (bi + 1 >= st["gen_blocks"])
         new = {"block_idx": torch.where(boundary, bi + 1, bi),
@@ -491,15 +526,29 @@ class Megatick:
 
 def get_megatick_fn(model, dcfg: DiffusionConfig, mask_id: int, k_max: int,
                     jit_steps: bool = True,
-                    slowfast_threshold: Optional[float] = None) -> Megatick:
+                    slowfast_threshold: Optional[float] = None,
+                    quant=None) -> Megatick:
     """The fused K-tick megastep (``Megatick``), the JAX get_megatick_fn's
     non-mesh branch: ``fn(params, x, kv_valid, state, tick, k_req,
     stop_on_release, cache=None, seed=0) -> (x, cache, tick, state,
     buffers, n_ticks)``, with ``tick`` the counter of the tick_seed stream
     in place of JAX's rng.  ``slowfast_threshold`` moves
-    SlowFastPolicy.step_k onto the device."""
+    SlowFastPolicy.step_k onto the device.  Shared across calls with the
+    same arguments, as JAX's lru_cache shares the compile: its graphs and
+    the buffers they read are made once per shape (``generate`` runs on
+    ``canvas``).  A serving engine makes its own ``Megatick``: its graphs
+    hold the engine's buffers."""
+    return _shared_megatick(
+        model, dcfg, int(mask_id), int(k_max), bool(jit_steps),
+        None if slowfast_threshold is None else float(slowfast_threshold),
+        quant)
+
+
+@functools.lru_cache(maxsize=16)
+def _shared_megatick(model, dcfg, mask_id, k_max, jit_steps, threshold,
+                     quant) -> Megatick:
     return Megatick(model, dcfg, mask_id, k_max, jit_steps=jit_steps,
-                    slowfast_threshold=slowfast_threshold)
+                    slowfast_threshold=threshold, quant=quant)
 
 
 # ---------------------------------------------------------------------------
@@ -535,19 +584,22 @@ class DiffusionState:
 
 
 def init_state(model, prompt: torch.Tensor, dcfg: DiffusionConfig,
-               seed: int = 0, mask_id: Optional[int] = None
-               ) -> DiffusionState:
+               seed: int = 0, mask_id: Optional[int] = None,
+               cache: Optional[Dict] = None) -> DiffusionState:
     """Step-0 state of a (batched) request: masked canvas on the model's
-    device, a fresh KV cache for the cached modes, transfer schedule,
-    seed."""
+    device, a KV cache for the cached modes (``cache`` if given, else a
+    fresh one: a warm step rewrites all of it before anything reads it),
+    transfer schedule, seed."""
     check_supported(dcfg)
     mask_id = model.cfg.mask_id if mask_id is None else mask_id
     B, P = prompt.shape
     x = torch.cat([prompt.to(device=model.device, dtype=torch.int32),
                    torch.full((B, dcfg.gen_length), mask_id,
                               dtype=torch.int32, device=model.device)], dim=1)
-    cache = (model.init_cache(B, P + dcfg.gen_length)
-             if dcfg.cache_mode != "none" else None)
+    if dcfg.cache_mode == "none":
+        cache = None
+    elif cache is None:
+        cache = model.init_cache(B, P + dcfg.gen_length)
     ks = schedule_lib.get_num_transfer_tokens(
         torch.full((B,), dcfg.block_length, dtype=torch.int32),
         dcfg.steps_per_block)
@@ -555,7 +607,8 @@ def init_state(model, prompt: torch.Tensor, dcfg: DiffusionConfig,
                           prompt_len=P, cache=cache, seed=seed)
 
 
-def step_forward(model, params, state: DiffusionState) -> torch.Tensor:
+def step_forward(model, params, state: DiffusionState,
+                 quant=None) -> torch.Tensor:
     """The forward of the next step of a cached mode: the warm step at
     step_in_block 0, a refine step after it.  Updates ``state.cache`` in
     place and returns the active block's feats ((B, L, d) hidden states,
@@ -565,17 +618,17 @@ def step_forward(model, params, state: DiffusionState) -> torch.Tensor:
     bs = state.block_start
     if state.step_in_block == 0:
         feats, _ = warm_step(model, params, state.x, state.cache, bs, dcfg,
-                             head_mode)
+                             head_mode, quant)
     else:
         suffix = (state.x.shape[1] - (bs + dcfg.block_length)
                   if dcfg.cache_mode == "prefix" else 0)
         feats, _ = refine_step(model, params, state.x, state.cache, bs,
-                               dcfg, suffix, head_mode)
+                               dcfg, suffix, head_mode, quant)
     return feats
 
 
-def commit_block(model, params, state: DiffusionState, feats: torch.Tensor
-                 ) -> torch.Tensor:
+def commit_block(model, params, state: DiffusionState, feats: torch.Tensor,
+                 quant=None) -> torch.Tensor:
     """The sampling half of a cached-mode step: the head path on the
     active block's feats, top-k and commit of ks[:, t] tokens.  Returns the
     new canvas."""
@@ -585,7 +638,7 @@ def commit_block(model, params, state: DiffusionState, feats: torch.Tensor
         feats, state.x[:, bs:bs + L],
         state.ks[:, state.step_in_block].to(state.x.device),
         tick_seed(state.seed, state.ticks), params,
-        head_feed_mode(model, dcfg), dcfg, state.mask_id, model)
+        head_feed_mode(model, dcfg), dcfg, state.mask_id, model, quant)
     x = state.x.clone()
     x[:, bs:bs + L] = xa_new
     return x
@@ -602,14 +655,156 @@ def advance(state: DiffusionState, x: torch.Tensor) -> DiffusionState:
                                block_idx=block_idx, step_in_block=t)
 
 
-def step(model, params, state: DiffusionState) -> DiffusionState:
+# ---------------------------------------------------------------------------
+# Graphed steps of step()/generate() (JAX's jit_steps)
+# ---------------------------------------------------------------------------
+
+class StepGraphs:
+    """The graphed steps of ``step``/``generate`` for one (model, dcfg,
+    mask id, quant) at one canvas shape (B, S), and the static device
+    buffers they read: the canvas ``x``, the block start ``bs``, the
+    step's ``k`` (ks[:, t]) and its tick ``seed``, written before each
+    replay, and for the cached modes the KV ``cache`` that ``generate``
+    decodes into.  Cache mode none runs ``get_tick_fn``'s graphed tick;
+    the cached modes run three kinds of ``GraphedStep``: the warm step,
+    the refine step (one per suffix length: prefix mode's suffix shrinks
+    block by block, as JAX re-jits per suffix) and the commit.  All their
+    graphs share one memory pool (they run one after another on one
+    stream).  On the CPU the steps simply run, on the same buffers.
+
+    Each step's graph bakes in the addresses of the params dict's tensors
+    and of the cache it was given: a ``step`` on another state's cache
+    captures anew (and keeps that cache alive with the graph)."""
+
+    def __init__(self, model, dcfg: DiffusionConfig, mask_id: int, quant,
+                 B: int, S: int):
+        dev = model.device
+        self.model, self.dcfg, self.mask_id, self.quant = (
+            model, dcfg, int(mask_id), quant)
+        self.mode = head_feed_mode(model, dcfg)
+        self.pool = (torch.cuda.graph_pool_handle() if dev.type == "cuda"
+                     else None)
+        self.x = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        self.bs = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self.k = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self.seed = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._ks_host: Optional[torch.Tensor] = None
+        self._ks = None
+        self.cache = None
+        self._steps: Dict[Tuple[str, int], graphs.GraphedStep] = {}
+        if dcfg.cache_mode == "none":
+            self._steps["tick", 0] = get_tick_fn(model, dcfg, mask_id, True,
+                                                 quant, self.pool)
+        else:
+            self.cache = model.init_cache(B, S)
+            self._steps["commit", 0] = graphs.GraphedStep(self._commit,
+                                                          self.pool)
+
+    @property
+    def captures(self) -> int:
+        """Graphs captured so far by this entry's steps."""
+        return sum(s.captures for s in self._steps.values())
+
+    def _forward(self, kind: str, suffix: int) -> graphs.GraphedStep:
+        fn = self._steps.get((kind, suffix))
+        if fn is None:
+            head_mode = _forward_head_mode(self.model, self.dcfg)
+
+            def forward(params, x, cache, bs):
+                bs = bs[:1]
+                if kind == "warm":
+                    return warm_step(self.model, params, x, cache, bs,
+                                     self.dcfg, head_mode, self.quant)[0]
+                return refine_step(self.model, params, x, cache, bs,
+                                   self.dcfg, suffix, head_mode,
+                                   self.quant)[0]
+
+            fn = self._steps[kind, suffix] = graphs.GraphedStep(forward,
+                                                                self.pool)
+        return fn
+
+    def _commit(self, params, feats, x, bs, k, seed):
+        cols = bs[0] + torch.arange(self.dcfg.block_length, device=x.device)
+        xa_new, _, _ = _active_sampling_step(
+            feats, x.index_select(1, cols), k, seed, params, self.mode,
+            self.dcfg, self.mask_id, self.model, self.quant)
+        return x.clone().index_copy_(1, cols, xa_new)
+
+    def __call__(self, params, state: DiffusionState) -> torch.Tensor:
+        """The canvas after ``state``'s next step (a new tensor)."""
+        dcfg, t = self.dcfg, state.step_in_block
+        if self._ks_host is None or not torch.equal(self._ks_host, state.ks):
+            self._ks_host = state.ks.clone()
+            self._ks = state.ks.to(device=self.k.device, dtype=torch.int64)
+        self.x.copy_(state.x)
+        self.bs.fill_(state.block_start)
+        self.k.copy_(self._ks[:, t])
+        self.seed.fill_(tick_seed(state.seed, state.ticks))
+        if dcfg.cache_mode == "none":
+            x_new = self._steps["tick", 0](params, self.x, None, self.bs,
+                                           self.k, self.seed, None)[0]
+            return x_new.clone()
+        if t == 0:
+            fwd = self._forward("warm", 0)
+        else:
+            S, L = self.x.shape[1], dcfg.block_length
+            fwd = self._forward("refine", S - (state.block_start + L)
+                                if dcfg.cache_mode == "prefix" else 0)
+        feats = fwd(params, self.x, state.cache, self.bs)
+        return self._steps["commit", 0](params, feats, self.x, self.bs,
+                                        self.k, self.seed).clone()
+
+
+_STEP_GRAPHS: Dict[Tuple, StepGraphs] = {}
+
+
+def step_graphs(model, dcfg: DiffusionConfig, mask_id: int, quant, B: int,
+                S: int) -> StepGraphs:
+    """The ``StepGraphs`` of (model, dcfg, mask_id, quant, B, S), made at
+    its first use and kept at module level, as JAX's lru_cache keeps its
+    compiles; ``clear_step_graphs`` frees them."""
+    key = (model, dcfg, int(mask_id), quant, int(B), int(S))
+    g = _STEP_GRAPHS.get(key)
+    if g is None:
+        check_supported(dcfg)
+        g = _STEP_GRAPHS[key] = StepGraphs(model, dcfg, mask_id, quant, B, S)
+    return g
+
+
+def clear_step_graphs() -> None:
+    """Free every graphed step and shared megatick (and the buffers,
+    parameters and caches their graphs hold), e.g. before loading another
+    model."""
+    _STEP_GRAPHS.clear()
+    _shared_megatick.cache_clear()
+
+
+def _quant_of(fwd_kw: Dict):
+    """The ``quant`` policy out of forward kwargs; the port's forward takes
+    no other."""
+    fwd_kw = dict(fwd_kw)
+    quant = fwd_kw.pop("quant", None)
+    if fwd_kw:
+        raise ValueError(f"unsupported forward kwargs {sorted(fwd_kw)}; the "
+                         "port's forward takes quant")
+    return quant
+
+
+def step(model, params, state: DiffusionState, jit_steps: bool = True,
+         **fwd_kw) -> DiffusionState:
     """Advance one denoising step: the forward for the cache mode (a
     batched tick for 'none'; warm at step_in_block 0, else refine), then
-    the commit of ks[:, t] tokens of the active block."""
+    the commit of ks[:, t] tokens of the active block.  With ``jit_steps``
+    the step runs as the CUDA graphs of ``step_graphs`` (on the CPU the
+    same code eagerly); ``fwd_kw`` takes ``quant``."""
     if state.done:
         raise ValueError("step() called on a finished DiffusionState")
+    quant = _quant_of(fwd_kw)
     dcfg = state.dcfg
-    if dcfg.cache_mode == "none":
+    if jit_steps:
+        x = step_graphs(model, dcfg, state.mask_id, quant,
+                        *state.x.shape)(params, state)
+    elif dcfg.cache_mode == "none":
         B = state.x.shape[0]
         dev = state.x.device
         x, _, _, _ = batched_tick(
@@ -617,37 +812,51 @@ def step(model, params, state: DiffusionState) -> DiffusionState:
             torch.full((B,), state.block_start, dtype=torch.int32,
                        device=dev),
             state.ks[:, state.step_in_block].to(dev),
-            tick_seed(state.seed, state.ticks), None, dcfg, state.mask_id)
+            tick_seed(state.seed, state.ticks), None, dcfg, state.mask_id,
+            quant)
     else:
-        feats = step_forward(model, params, state)
-        x = commit_block(model, params, state, feats)
+        feats = step_forward(model, params, state, quant)
+        x = commit_block(model, params, state, feats, quant)
     return advance(state, x)
 
 
 def generate(model, params, prompt: torch.Tensor, dcfg: DiffusionConfig,
              seed: int = 0, mask_id: Optional[int] = None,
-             megatick_k: int = 1, jit_steps: bool = True) -> torch.Tensor:
+             megatick_k: int = 1, jit_steps: bool = True,
+             **fwd_kw) -> torch.Tensor:
     """Blocked diffusion generation (paper Alg. 2 outer loops) in
     ``dcfg.cache_mode``.  prompt (B, P) int -> (B, P + gen_length)
-    int32.  ``megatick_k > 1`` (cache_mode 'none' only, as in JAX) runs
-    the ticks K at a time through ``get_megatick_fn`` (graphed on the card
-    with ``jit_steps``); the tick_seed stream is the same, so the tokens
-    equal the per-step path's."""
+    int32.  With ``jit_steps`` every step replays the CUDA graphs of
+    ``step_graphs`` and decodes into its cache, so a second call with the
+    same shapes captures nothing.  ``megatick_k > 1`` (cache_mode 'none'
+    only, as in JAX) runs the ticks K at a time through
+    ``get_megatick_fn`` (graphed on the card with ``jit_steps``); the
+    tick_seed stream is the same, so the tokens equal the per-step
+    path's.  ``fwd_kw`` takes ``quant`` (a ``layers.QuantPolicy``)."""
+    quant = _quant_of(fwd_kw)
     if megatick_k > 1:
         return _generate_megatick(model, params, prompt, dcfg, seed,
-                                  mask_id, megatick_k, jit_steps)
-    state = init_state(model, prompt, dcfg, seed=seed, mask_id=mask_id)
+                                  mask_id, megatick_k, jit_steps, quant)
+    mask_id = int(model.cfg.mask_id if mask_id is None else mask_id)
+    cache = None
+    if jit_steps and dcfg.cache_mode != "none":
+        B, P = prompt.shape
+        cache = step_graphs(model, dcfg, mask_id, quant, B,
+                            P + dcfg.gen_length).cache
+    state = init_state(model, prompt, dcfg, seed=seed, mask_id=mask_id,
+                       cache=cache)
     while not state.done:
-        state = step(model, params, state)
+        state = step(model, params, state, jit_steps=jit_steps, quant=quant)
     return state.x
 
 
 def _generate_megatick(model, params, prompt: torch.Tensor,
                        dcfg: DiffusionConfig, seed: int,
                        mask_id: Optional[int], megatick_k: int,
-                       jit_steps: bool) -> torch.Tensor:
+                       jit_steps: bool, quant=None) -> torch.Tensor:
     """generate() through the megatick: the tick count is fixed
-    (num_blocks * steps_per_block), so ceil(total / K) megasteps of K."""
+    (num_blocks * steps_per_block), so ceil(total / K) megasteps of K, on
+    the shared megatick's static canvas."""
     if dcfg.cache_mode != "none":
         raise ValueError(
             "generate(megatick_k>1) requires cache_mode='none' (the "
@@ -656,18 +865,17 @@ def _generate_megatick(model, params, prompt: torch.Tensor,
     mask_id = int(model.cfg.mask_id if mask_id is None else mask_id)
     B, P = prompt.shape
     dev = model.device
-    x = torch.cat([prompt.to(device=dev, dtype=torch.int32),
-                   torch.full((B, dcfg.gen_length), mask_id,
-                              dtype=torch.int32, device=dev)], dim=1)
-    kv_valid = torch.ones(x.shape, dtype=torch.bool, device=dev)
+    fn = get_megatick_fn(model, dcfg, mask_id, int(megatick_k),
+                         jit_steps=jit_steps, quant=quant)
+    x, kv_valid = fn.canvas(B, P + dcfg.gen_length, dev)
+    x[:, :P].copy_(prompt.to(device=dev, dtype=torch.int32))
+    x[:, P:].fill_(mask_id)
     state = megatick_state(torch.full((B,), P, dtype=torch.int32),
                            torch.full((B,), dcfg.num_blocks,
                                       dtype=torch.int32), dcfg, device=dev)
-    fn = get_megatick_fn(model, dcfg, mask_id, int(megatick_k),
-                         jit_steps=jit_steps)
     tick = 0
     total = dcfg.num_blocks * dcfg.steps_per_block
     for _ in range(-(-total // megatick_k)):
         x, _, tick, state, _, _ = fn(params, x, kv_valid, state, tick,
                                      megatick_k, False, None, seed)
-    return x
+    return x.clone()

@@ -20,9 +20,14 @@ object can take their address or identity while its graph exists.
 
 The first call of each such step runs eagerly on the capture stream: it
 builds and loads the kernels it reaches (kernels/_build.py) and lets the
-libraries it calls set up, which a capture cannot; its results are the
-call's.  The capture follows, and every later call replays.  A capture
-that fails raises: nothing falls back to eager.  The kernels' launch
+libraries it calls set up, which a capture cannot.  The capture follows,
+and every later call replays.  Its results are copied into the graph's
+output tensors, so every call of a step, the first included, returns the
+same tensors: a step that consumes another's output then sees one address
+and captures once.  A capture that fails raises: nothing falls back to
+eager.  Graphs given one ``pool`` (``torch.cuda.graph_pool_handle()``)
+share its memory; they must then run one after another on one stream, as
+the steps of one generation do.  The kernels' launch
 counts (``_build.launch_counts``) count what runs on the card, so the
 counts a capture adds are taken back out and added again at each replay.
 
@@ -76,10 +81,12 @@ class _Captured:
 
 class GraphedStep:
     """``fn`` captured as a CUDA graph per distinct call (see the module
-    note) and replayed.  ``captures`` and ``replays`` count both."""
+    note) and replayed, its graphs in memory ``pool`` (None: a private pool
+    each).  ``captures`` and ``replays`` count both."""
 
-    def __init__(self, fn: Callable[..., Any]):
+    def __init__(self, fn: Callable[..., Any], pool=None):
         self.fn = fn
+        self.pool = pool
         self._graphs: Dict[Hashable, _Captured] = {}
         self._stream: Optional[torch.cuda.Stream] = None
         self.captures = 0
@@ -110,11 +117,14 @@ class GraphedStep:
             t.record_stream(main)
         before = dict(_build.launch_counts)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        with torch.cuda.graph(graph, pool=self.pool, stream=side):
             outputs = self.fn(*args)
         launches = {name: n - before[name]
                     for name, n in _build.launch_counts.items()}
         _build.launch_counts.update(before)  # captured, not launched
         self._graphs[key] = _Captured(graph, args, outputs, launches)
         self.captures += 1
-        return out
+        for static, value in zip(_flat_tensors(outputs), _flat_tensors(out)):
+            if static is not value:          # (an input returned as is)
+                static.copy_(value)
+        return outputs

@@ -98,18 +98,22 @@ def _shared_scale(amax: torch.Tensor, fmt: MXFormat) -> torch.Tensor:
     return torch.where(amax > 0, torch.exp2(e), one)
 
 
-def _fake_quant_impl(x: torch.Tensor, fmt: MXFormat, block: int
+def _fake_quant_impl(x: torch.Tensor, fmt: MXFormat, block: int, axis: int
                      ) -> torch.Tensor:
-    n = x.shape[-1]
+    """Blocks of ``block`` along ``axis`` (padded with zeros at its end),
+    computed in x's own layout: a (K, N) weight quantized along K stays
+    row-major, with no transpose."""
+    n = x.shape[axis]
     xf = x.to(torch.float32)
     pad = (-n) % block
     if pad:
-        xf = F.pad(xf, (0, pad))
-    xb = xf.reshape(*xf.shape[:-1], -1, block)
-    amax = torch.amax(torch.abs(xb), dim=-1, keepdim=True)
+        xf = F.pad(xf, (0, 0) * (x.ndim - 1 - axis) + (0, pad))
+    shape = xf.shape
+    xb = xf.reshape(*shape[:axis], -1, block, *shape[axis + 1:])
+    amax = torch.amax(torch.abs(xb), dim=axis + 1, keepdim=True)
     scale = _shared_scale(amax, fmt)
-    q = _quant_element(xb / scale, fmt) * scale
-    return q.reshape(*x.shape[:-1], -1)[..., :n].to(x.dtype)
+    q = (_quant_element(xb / scale, fmt) * scale).reshape(shape)
+    return q.narrow(axis, 0, n).to(x.dtype)
 
 
 def mx_fake_quant(x: torch.Tensor, fmt: Union[MXFormat, str],
@@ -120,7 +124,4 @@ def mx_fake_quant(x: torch.Tensor, fmt: Union[MXFormat, str],
         return x
     if fmt is BF16:
         return x.to(torch.bfloat16).to(x.dtype)
-    if axis not in (-1, x.ndim - 1):
-        out = _fake_quant_impl(torch.movedim(x, axis, -1), fmt, block)
-        return torch.movedim(out, -1, axis)
-    return _fake_quant_impl(x, fmt, block)
+    return _fake_quant_impl(x, fmt, block, axis % x.ndim)

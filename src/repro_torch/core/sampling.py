@@ -53,11 +53,14 @@ def check_supported(cfg: SamplingConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def head_logits(hidden: torch.Tensor, w_head: torch.Tensor, *,
-                logit_scale: float = 1.0) -> torch.Tensor:
+                logit_scale: float = 1.0, quant=None) -> torch.Tensor:
     """hidden (..., d) @ w_head (d, V) -> logits (..., V) in hidden.dtype:
-    f32 accumulation, one rounding to the activation dtype, then
-    x logit_scale in that dtype (the scale rounds to it first, as a weakly
-    typed Python float does in JAX)."""
+    the ``quant`` policy's (models/layers.QuantPolicy) fake-quant of both
+    operands when enabled, f32 accumulation, one rounding to the activation
+    dtype, then x logit_scale in that dtype (the scale rounds to it first,
+    as a weakly typed Python float does in JAX)."""
+    if quant is not None and quant.enabled:
+        hidden, w_head = quant.acts(hidden), quant.weights(w_head)
     dt = hidden.dtype
     z = torch.matmul(hidden, w_head.to(dt))
     # torch.full, not torch.tensor: a fill needs no host-to-device copy,
@@ -195,7 +198,7 @@ def sampling_step_full(logits: torch.Tensor, x: torch.Tensor, mask_id: int,
 def fused_sampling_step_full(hidden: torch.Tensor, w_head: torch.Tensor,
                              x: torch.Tensor, mask_id: int, k: torch.Tensor,
                              cfg: SamplingConfig, seed: Optional[Seed] = None,
-                             *, logit_scale: float = 1.0
+                             *, logit_scale: float = 1.0, quant=None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """One sampling stage fed by active-block hidden states: hidden
@@ -203,9 +206,17 @@ def fused_sampling_step_full(hidden: torch.Tensor, w_head: torch.Tensor,
     (the CUDA kernel on the card), then top-k and commit.  Returns
     (new tokens (B, L), transfer (B, L), conf (B, L)).  ``seed`` (uint32)
     feeds the counter-Gumbel stream when cfg.temperature > 0; without one
-    the step is greedy, as the JAX reference is without an rng."""
+    the step is greedy, as the JAX reference is without an rng.  An
+    enabled ``quant`` policy fake-quantizes the hidden states and the head
+    before the kernel, as JAX does before its Pallas kernel; the head's
+    fake-quant runs on its padded rows (fused_head_sampling.head_storage),
+    so the kernel reads the padded layout."""
     from repro_torch.kernels import fused_head_sampling as fhs   # lazy
     check_supported(cfg)
+    if quant is not None and quant.enabled:
+        V = w_head.shape[1]
+        hidden = quant.acts(hidden)
+        w_head = quant.weights(fhs.head_storage(w_head))[:, :V]
     B, L, d = hidden.shape
     m_idx = x == mask_id
     sup = mask_id if cfg.suppress_mask_token else None

@@ -40,8 +40,18 @@
 //   * Online softmax per row in f32 (row max and sum over the quad),
 //     out * (1 / max(l, 1e-30)) * f_v + c_v in f32, rounded once.
 // f32 route, on the CUDA cores (TF32 would change its arithmetic): one CTA
-// per (16-row q tile, q head, batch row), K/V tiles staged as f32, lane j
-// scoring key j with f32 FMAs.
+// per (16-row q tile, q head, batch row), K/V tiles staged as f32 in
+// dynamic shared memory, lane j scoring key j with f32 FMAs.
+//
+// Head dims: both routes are instantiated for tiles of DT = 32, 64, 128 and
+// 256 columns; a head dim D that is a multiple of 8 up to 256 runs in the
+// smallest tile DT >= D, its columns past D loaded as zeros by predicated
+// loads (they add nothing to a score) and never stored.  At DT 256
+// (recurrentgemma-2b) the bf16 route keeps q in shared memory as before
+// and its 3-stage ring of 32-key K/V tiles takes 99 KB; beside it shared
+// memory holds the query rows of 8 warps without BAOS (168 KB in all) and,
+// with BAOS's three q terms a warp, of 5 (226 KB of the 227):
+// tc_max_warps.  The output accumulators are 128 f32 registers a thread.
 #include "common.cuh"
 
 namespace {
@@ -51,6 +61,11 @@ constexpr int BK = 32;      // keys per tile: one per lane
 constexpr int WARPS = 4;
 constexpr int RPW = BQ / WARPS;
 
+// Dynamic shared memory of the f32 route at tile width DT, in bytes.
+constexpr int f32_smem_bytes(int DT) {
+  return (BQ * DT + BK * (DT + 1) + BK * DT) * 4;
+}
+
 template <typename T, int DPL>
 __global__ void __launch_bounds__(32 * WARPS)
 flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -58,22 +73,24 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const unsigned char* __restrict__ kv_valid,
                    const float* __restrict__ fk, const float* __restrict__ fv,
                    const float* __restrict__ cv, T* __restrict__ out, int Sq,
-                   int Skv, int Hq, int Hkv, float scale, int window,
+                   int Skv, int Hq, int Hkv, int D, float scale, int window,
                    int q_offset) {
-  constexpr int D = 32 * DPL;
-  __shared__ float qs[BQ][D];
-  __shared__ float ks[BK][D + 1];
-  __shared__ float vs[BK][D];
+  constexpr int DT = 32 * DPL;   // tile width; columns >= D are zeros
+  extern __shared__ __align__(16) float smem_f32[];
+  float(*qs)[DT] = reinterpret_cast<float(*)[DT]>(smem_f32);
+  float(*ks)[DT + 1] = reinterpret_cast<float(*)[DT + 1]>(smem_f32 + BQ * DT);
+  float(*vs)[DT] = reinterpret_cast<float(*)[DT]>(
+      smem_f32 + BQ * DT + BK * (DT + 1));
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t cal = (static_cast<size_t>(b) * Hkv + hk) * D;
 
-  for (int e = tid; e < BQ * D; e += 32 * WARPS) {
-    const int r = e / D, dd = e % D, gq = q0 + r;
+  for (int e = tid; e < BQ * DT; e += 32 * WARPS) {
+    const int r = e / DT, dd = e % DT, gq = q0 + r;
     float x = 0.f;
-    if (gq < Sq) {
+    if (gq < Sq && dd < D) {
       x = to_f32(q[((static_cast<size_t>(b) * Sq + gq) * Hq + h) * D + dd]);
       if (fk != nullptr) x *= fk[cal + dd];
     }
@@ -91,10 +108,10 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < Skv; k0 += BK) {
     __syncthreads();  // previous tile fully read (and the q tile written)
-    for (int e = tid; e < BK * D; e += 32 * WARPS) {
-      const int j = e / D, dd = e % D, gk = k0 + j;
+    for (int e = tid; e < BK * DT; e += 32 * WARPS) {
+      const int j = e / DT, dd = e % DT, gk = k0 + j;
       float kx = 0.f, vx = 0.f;
-      if (gk < Skv) {
+      if (gk < Skv && dd < D) {
         const size_t o = ((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D + dd;
         kx = to_f32(k[o]);
         vx = to_f32(v[o]);
@@ -113,7 +130,7 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = warp * RPW + i, gq = q0 + row;
       float s = 0.f;
 #pragma unroll 8
-      for (int dd = 0; dd < D; ++dd) s = fmaf(qs[row][dd], ks[lane][dd], s);
+      for (int dd = 0; dd < DT; ++dd) s = fmaf(qs[row][dd], ks[lane][dd], s);
       const bool ok =
           valid && (window <= 0 || abs(q_offset + gq - gk) < window);
       s = in_range ? (ok ? s : NEG) : -INFINITY;
@@ -142,6 +159,7 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
       const int dd = lane + 32 * j;
+      if (dd >= D) break;
       float o = acc[i][j] * inv_l;
       if (fv != nullptr) o *= fv[cal + dd];
       if (cv != nullptr) o += cv[cal + dd];
@@ -154,11 +172,16 @@ template <int DPL>
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        const unsigned char* kv_valid, const float* fk,
                        const float* fv, const float* cv, float* out, int B,
-                       int Sq, int Skv, int Hq, int Hkv, float scale,
+                       int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                        int window, int q_offset, cudaStream_t stream) {
+  constexpr int smem = f32_smem_bytes(32 * DPL);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bidir_kernel<float, DPL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_bidir_kernel<float, DPL><<<grid, 32 * WARPS, 0, stream>>>(
-      q, k, v, kv_valid, fk, fv, cv, out, Sq, Skv, Hq, Hkv, scale, window,
+  flash_bidir_kernel<float, DPL><<<grid, 32 * WARPS, smem, stream>>>(
+      q, k, v, kv_valid, fk, fv, cv, out, Sq, Skv, Hq, Hkv, D, scale, window,
       q_offset);
   return cudaGetLastError();
 }
@@ -183,17 +206,28 @@ __device__ __forceinline__ uint32_t split_term(float& x0, float& x1) {
   return *reinterpret_cast<const uint32_t*>(&t);
 }
 
-// Dynamic shared memory of one CTA of `warps` warps with QS terms of q, in
-// bytes: the K and V rings, each warp's q terms and the three BAOS vectors.
-template <int D, int QS>
+// Dynamic shared memory of one CTA of `warps` warps with QS terms of q at
+// tile width DT, in bytes: the K and V rings, each warp's q terms and the
+// three BAOS vectors.
+template <int DT, int QS>
 constexpr int tc_smem_bytes(int warps) {
-  return (2 * TC_STAGES * TC_BKV + warps * QS * 16) * (D + 8) * 2 + 3 * D * 4;
+  return (2 * TC_STAGES * TC_BKV + warps * QS * 16) * (DT + 8) * 2 + 3 * DT * 4;
+}
+
+// The most warps a CTA takes at tile width DT with QS q terms: TC_MAX_WARPS,
+// or fewer where their q rows would not fit the 227 KB of shared memory.
+template <int DT, int QS>
+constexpr int tc_max_warps() {
+  int w = TC_MAX_WARPS;
+  while (w > 1 && tc_smem_bytes<DT, QS>(w) > 232448) --w;
+  return w;
 }
 
 // QS is the number of bf16 terms of the query operand: 1 without BAOS (q is
 // bf16 and exact, D^-1/2 scales the f32 scores), SPLIT with f_k (q * f_k
-// is f32).
-template <int D, int QS>
+// is f32).  DT is the tile width, D <= DT the head dim: columns past D are
+// loaded as zeros and not stored.
+template <int DT, int QS>
 __global__ void __launch_bounds__(32 * TC_MAX_WARPS, 1)
 flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -201,12 +235,12 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const float* __restrict__ fk,
                       const float* __restrict__ fv,
                       const float* __restrict__ cv, bf16* __restrict__ out,
-                      int Sq, int Skv, int Hq, int Hkv, float scale,
+                      int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                       int window, int q_offset) {
-  constexpr int DP = D + 8;      // shared rows padded by 16 bytes: ldmatrix's
+  constexpr int DP = DT + 8;     // shared rows padded by 16 bytes: ldmatrix's
   //                                eight row addresses hit eight bank groups
-  constexpr int KT = D / 16;     // depth steps of the score product
-  constexpr int NT = D / 8;      // 8-column tiles of the output
+  constexpr int KT = DT / 16;    // depth steps of the score product
+  constexpr int NT = DT / 8;     // 8-column tiles of the output
   constexpr int KV_STAGE = TC_BKV * DP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);    // [STAGES][BKV][DP]
@@ -221,14 +255,14 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t cal = (static_cast<size_t>(b) * Hkv + hk) * D;
   const int n_t = (Skv + TC_BKV - 1) / TC_BKV;
   float* cals = reinterpret_cast<float*>(qs + nwarps * QS * 16 * DP);
-  //                                                 [3][D]: f_k, f_v, c_v
+  //                                                 [3][DT]: f_k, f_v, c_v
 
   auto load_kv = [&](int t) {
     bf16* kd = ks + (t % TC_STAGES) * KV_STAGE;
     bf16* vd = vs + (t % TC_STAGES) * KV_STAGE;
-    for (int e = tid; e < TC_BKV * (D / 8); e += blockDim.x) {
-      const int j = e / (D / 8), dc = (e % (D / 8)) * 8, key = t * TC_BKV + j;
-      const bool ok = key < Skv;
+    for (int e = tid; e < TC_BKV * (DT / 8); e += blockDim.x) {
+      const int j = e / (DT / 8), dc = (e % (DT / 8)) * 8, key = t * TC_BKV + j;
+      const bool ok = key < Skv && dc < D;
       const size_t o =
           ok ? ((static_cast<size_t>(b) * Skv + key) * Hkv + hk) * D + dc : 0;
       cp_async_16(smem_addr(kd + j * DP + dc), k + o, ok);
@@ -237,12 +271,12 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // group 0: this warp's 16 q rows (raw, into the slot of term 0; rows past
-  // G * Sq zero-filled), the BAOS vectors and K/V tile 0
+  // G * Sq and columns past D zero-filled), the BAOS vectors and K/V tile 0
   bf16* qw = qs + warp * QS * 16 * DP;
 #pragma unroll
-  for (int e = lane; e < 16 * (D / 8); e += 32) {
-    const int r = e / (D / 8), dc = (e % (D / 8)) * 8, row = row0 + r;
-    const bool ok = row < n_rows;
+  for (int e = lane; e < 16 * (DT / 8); e += 32) {
+    const int r = e / (DT / 8), dc = (e % (DT / 8)) * 8, row = row0 + r;
+    const bool ok = row < n_rows && dc < D;
     const size_t o =
         ok ? ((static_cast<size_t>(b) * Sq + row / G) * Hq + hk * G + row % G)
                  * D + dc
@@ -250,11 +284,12 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_16(smem_addr(qw + r * DP + dc), q + o, ok);
   }
   if (warp == 0)
-    for (int e = lane; e < 3 * (D / 4); e += 32) {
-      const float* src = e < D / 4 ? fk : (e < D / 2 ? fv : cv);
-      if (src != nullptr)
-        cp_async_16(smem_addr(cals + e * 4), src + cal + (e % (D / 4)) * 4,
-                    true);
+    for (int e = lane; e < 3 * (DT / 4); e += 32) {
+      const float* src = e < DT / 4 ? fk : (e < DT / 2 ? fv : cv);
+      const int c4 = (e % (DT / 4)) * 4;   // columns past D: zeros, so
+      if (src != nullptr)                  // q * f_k is 0 there, not NaN
+        cp_async_16(smem_addr(cals + e * 4), src + cal + (c4 < D ? c4 : 0),
+                    c4 < D);
     }
 #pragma unroll
   for (int s = 0; s < TC_STAGES - 1; ++s) {
@@ -268,8 +303,8 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // q * f_k in f32 as QS bf16 terms, 8 values a lane at a time; each lane
     // rewrites the chunks it loaded
 #pragma unroll
-    for (int e = lane; e < 16 * (D / 8); e += 32) {
-      const int r = e / (D / 8), dc = (e % (D / 8)) * 8;
+    for (int e = lane; e < 16 * (DT / 8); e += 32) {
+      const int r = e / (DT / 8), dc = (e % (DT / 8)) * 8;
       const uint4 raw = *reinterpret_cast<const uint4*>(qw + r * DP + dc);
       const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
       float x[8];
@@ -419,7 +454,7 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int r = 0; r < 4; ++r) pa[s][r] = split_term(x[2 * r], x[2 * r + 1]);
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
+      for (int np = 0; np < DT / 16; ++np) {
         uint32_t bv[4];
         ldmatrix_x4_trans(bv, smem_addr(vt + (kk * 16 + (lane & 15)) * DP
                                         + np * 16 + (lane >> 4) * 8));
@@ -443,14 +478,15 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int dd = 8 * n + 2 * c;
+      if (dd >= D) break;                // D is a multiple of 8
       float o0 = o[n][2 * hh] * inv_l, o1 = o[n][2 * hh + 1] * inv_l;
       if (fv != nullptr) {
-        o0 = __fmul_rn(o0, cals[D + dd]);
-        o1 = __fmul_rn(o1, cals[D + dd + 1]);
+        o0 = __fmul_rn(o0, cals[DT + dd]);
+        o1 = __fmul_rn(o1, cals[DT + dd + 1]);
       }
       if (cv != nullptr) {
-        o0 = __fadd_rn(o0, cals[2 * D + dd]);
-        o1 = __fadd_rn(o1, cals[2 * D + dd + 1]);
+        o0 = __fadd_rn(o0, cals[2 * DT + dd]);
+        o1 = __fadd_rn(o1, cals[2 * DT + dd + 1]);
       }
       *reinterpret_cast<__nv_bfloat162*>(out + orow[hh] + dd) =
           __floats2bfloat162_rn(o0, o1);
@@ -458,25 +494,33 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int QS>
+template <int DT, int QS>
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
                         const unsigned char* kv_valid, const float* fk,
                         const float* fv, const float* cv, bf16* out, int B,
-                        int Sq, int Skv, int Hq, int Hkv, float scale,
+                        int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                         int window, int q_offset, cudaStream_t stream) {
+  constexpr int max_warps = tc_max_warps<DT, QS>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bidir_tc_kernel<D, QS>,
+      flash_bidir_tc_kernel<DT, QS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      tc_smem_bytes<D, QS>(TC_MAX_WARPS));
+      tc_smem_bytes<DT, QS>(max_warps));
   if (attr != cudaSuccess) return attr;
   const int rows = (Hq / Hkv) * Sq;
-  const int warps = rows >= 16 * TC_MAX_WARPS ? TC_MAX_WARPS : (rows + 15) / 16;
+  const int warps = rows >= 16 * max_warps ? max_warps : (rows + 15) / 16;
   const dim3 grid((rows + 16 * warps - 1) / (16 * warps), Hkv, B);
-  flash_bidir_tc_kernel<D, QS>
-      <<<grid, 32 * warps, tc_smem_bytes<D, QS>(warps), stream>>>(
-          q, k, v, kv_valid, fk, fv, cv, out, Sq, Skv, Hq, Hkv, scale, window,
-          q_offset);
+  flash_bidir_tc_kernel<DT, QS>
+      <<<grid, 32 * warps, tc_smem_bytes<DT, QS>(warps), stream>>>(
+          q, k, v, kv_valid, fk, fv, cv, out, Sq, Skv, Hq, Hkv, D, scale,
+          window, q_offset);
   return cudaGetLastError();
+}
+
+// The tile width a head dim runs in: the smallest of 32, 64, 128, 256 that
+// holds it (0: D is not a multiple of 8 in [8, 256]).
+int tile_of(int D) {
+  if (D < 8 || D > 256 || D % 8) return 0;
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
 cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
@@ -484,18 +528,19 @@ cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
                           const float* fv, const float* cv, bf16* out, int B,
                           int Sq, int Skv, int Hq, int Hkv, float scale,
                           int window, int q_offset, cudaStream_t stream) {
-#define FB_LAUNCH(DD)                                                        \
+#define FB_LAUNCH(DT)                                                        \
   return fk == nullptr                                                       \
-             ? launch_bf16<DD, 1>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, \
-                                  Skv, Hq, Hkv, scale, window, q_offset,     \
+             ? launch_bf16<DT, 1>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, \
+                                  Skv, Hq, Hkv, D, scale, window, q_offset,  \
                                   stream)                                    \
-             : launch_bf16<DD, SPLIT>(q, k, v, kv_valid, fk, fv, cv, out, B, \
-                                      Sq, Skv, Hq, Hkv, scale, window,       \
+             : launch_bf16<DT, SPLIT>(q, k, v, kv_valid, fk, fv, cv, out, B, \
+                                      Sq, Skv, Hq, Hkv, D, scale, window,    \
                                       q_offset, stream)
-  switch (D) {
+  switch (tile_of(D)) {
     case 32: FB_LAUNCH(32);
     case 64: FB_LAUNCH(64);
     case 128: FB_LAUNCH(128);
+    case 256: FB_LAUNCH(256);
     default: return cudaErrorInvalidValue;
   }
 #undef FB_LAUNCH
@@ -508,11 +553,12 @@ cudaError_t dispatch_f32(int D, const float* q, const float* k, const float* v,
                          int window, int q_offset, cudaStream_t stream) {
 #define FB_LAUNCH(DPL)                                                      \
   return launch_f32<DPL>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, Skv, Hq, \
-                         Hkv, scale, window, q_offset, stream)
-  switch (D) {
+                         Hkv, D, scale, window, q_offset, stream)
+  switch (tile_of(D)) {
     case 32: FB_LAUNCH(1);
     case 64: FB_LAUNCH(2);
     case 128: FB_LAUNCH(4);
+    case 256: FB_LAUNCH(8);
     default: return cudaErrorInvalidValue;
   }
 #undef FB_LAUNCH
@@ -521,7 +567,8 @@ cudaError_t dispatch_f32(int D, const float* q, const float* k, const float* v,
 }  // namespace
 
 // q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) and out (B, Sq, Hq, D), all f32
-// (is_bf16 = 0) or all bf16, contiguous; D in {32, 64, 128}.  kv_valid
+// (is_bf16 = 0) or all bf16, contiguous; D a multiple of 8 in [8, 256].
+// kv_valid
 // (B, Skv) bool and fk/fv/cv (B, Hkv, D) f32 may each be null.  scale is
 // the softmax scale (D^-1/2, rounded to f32 by the caller); window <= 0
 // means no window; query row r sits at position q_offset + r.

@@ -38,6 +38,13 @@
 //     the best so far.
 //   * More than 64 rows add a grid dimension: w_head is read once per
 //     group of 64 rows.
+//   * A vocabulary that is not a multiple of 8 (minicpm-2b: V 122753): a
+//     row of w_head would not start on a 16-byte address, so the head is
+//     stored once, at load, with its rows padded to ldw, a multiple of 8
+//     (kernels/fused_head_sampling.pad_head), as the Pallas kernel pads V
+//     to its chunk.  The kernel takes the logical V and ldw; columns >= V
+//     enter the MX block amax as zeros and every reduction as -inf, so
+//     neither the pad's content nor a ragged last block changes a logit.
 // The f32 route runs on the CUDA cores (f32 FMAs, 64-column CTAs): TF32
 // would change its arithmetic.
 // No fast-math: the MX exponent rule ceil(log2(amax / 448)) and the Gumbel
@@ -57,7 +64,8 @@ constexpr int THREADS = 256;  // 16 x 16 threads, each 4 columns x RPT rows
 template <typename T, int RPT>
 __global__ void __launch_bounds__(THREADS)
 head_partials_kernel(const T* __restrict__ hidden, const T* __restrict__ w,
-                     int R, int d, int V, int fmt, float logit_scale,
+                     int R, int d, int V, int ldw, int fmt,
+                     float logit_scale,
                      float temperature, const uint32_t* __restrict__ seed_ptr,
                      int suppress_id,
                      float* __restrict__ part_m, int* __restrict__ part_i,
@@ -92,7 +100,7 @@ head_partials_kernel(const T* __restrict__ hidden, const T* __restrict__ w,
     for (int e = tid; e < TK * TN; e += THREADS) {
       const int kk = e / TN, c = e % TN, gk = k0 + kk, gc = v0 + c;
       ws[kk][c] = (gk < d && gc < V)
-                      ? to_f32(w[static_cast<size_t>(gk) * V + gc])
+                      ? to_f32(w[static_cast<size_t>(gk) * ldw + gc])
                       : 0.f;
     }
     __syncthreads();
@@ -180,26 +188,29 @@ __global__ void head_combine_kernel(const float* __restrict__ part_m,
 
 template <int RPT>
 cudaError_t launch_f32(const float* hidden, const float* w, int R, int d,
-                       int V, int fmt, float logit_scale, float temperature,
+                       int V, int ldw, int fmt, float logit_scale,
+                       float temperature,
                        const uint32_t* seed, int suppress_id, float* pm,
                        int* pi,
                        float* ps, float* pb, float* pz, cudaStream_t stream) {
   constexpr int TM = 16 * RPT;
   const dim3 grid((V + TN - 1) / TN, (R + TM - 1) / TM);
   head_partials_kernel<float, RPT><<<grid, THREADS, 0, stream>>>(
-      hidden, w, R, d, V, fmt, logit_scale, temperature, seed, suppress_id,
-      pm, pi, ps, pb, pz);
+      hidden, w, R, d, V, ldw, fmt, logit_scale, temperature, seed,
+      suppress_id, pm, pi, ps, pb, pz);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(int R, const float* hidden, const float* w, int d,
-                         int V, int fmt, float logit_scale, float temperature,
+                         int V, int ldw, int fmt, float logit_scale,
+                         float temperature,
                          const uint32_t* seed, int suppress_id, float* pm,
                          int* pi,
                          float* ps, float* pb, float* pz, cudaStream_t stream) {
 #define FHS_LAUNCH(RPT)                                                    \
-  return launch_f32<RPT>(hidden, w, R, d, V, fmt, logit_scale, temperature, \
-                         seed, suppress_id, pm, pi, ps, pb, pz, stream)
+  return launch_f32<RPT>(hidden, w, R, d, V, ldw, fmt, logit_scale,        \
+                         temperature, seed, suppress_id, pm, pi, ps, pb, pz, \
+                         stream)
   if (R <= 16) FHS_LAUNCH(1);
   if (R <= 32) FHS_LAUNCH(2);
   if (R <= 64) FHS_LAUNCH(4);
@@ -321,15 +332,19 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[2][8][4],
       if (wrow + 16 * i >= R) break;          // warp-uniform
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        const int col0 = b0 + 2 * c;
         float z[8];
         float amax = 0.f;
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          // f32 accumulator -> activation dtype -> x logit_scale
+          // f32 accumulator -> activation dtype -> x logit_scale; a column
+          // past the range is a zero logit for the block amax (past c_end
+          // within a block only at c_end == V: ranges hold whole blocks)
           float v = round_to<bf16>(acc[i][4 * blk + (q >> 1)][2 * h + (q & 1)]);
           v = round_to<bf16>(v * scale_t);
+          if (col0 + (q >> 1) * 8 + (q & 1) >= c_end) v = 0.f;
           z[q] = v;
-          amax = fmaxf(amax, fabsf(v));       // pad columns are zero here
+          amax = fmaxf(amax, fabsf(v));
         }
         if (fmt == FMT_MXFP8) {
           amax = fmaxf(amax, __shfl_xor_sync(FULL_MASK, amax, 1));
@@ -342,7 +357,6 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[2][8][4],
         }                 // FMT_BF16 is exact on bf16 logits; FMT_NONE too
         const int row = wrow + 16 * i + g + 8 * h;
         if (row >= R) continue;
-        const int col0 = b0 + 2 * c;
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
           const int col = col0 + (q >> 1) * 8 + (q & 1);
@@ -358,7 +372,7 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[2][8][4],
 __global__ void __launch_bounds__(TC_THREADS, 1)
 head_partials_tc_kernel(const bf16* __restrict__ hidden,
                         const bf16* __restrict__ w, int R, int d, int V,
-                        int cols_per_cta, int fmt, float logit_scale,
+                        int ldw, int cols_per_cta, int fmt, float logit_scale,
                         float temperature,
                         const uint32_t* __restrict__ seed_ptr, int suppress_id,
                         float* __restrict__ part_m, int* __restrict__ part_i,
@@ -385,7 +399,8 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
 
   // stage `it`: the (tile it / n_k, depth slice it % n_k) of w_head and the
   // matching hidden slice; 16-byte chunks past d, past the CTA's columns or
-  // past R are zero-filled without a read (d and V are multiples of 8)
+  // past R are zero-filled without a read (d and ldw are multiples of 8; a
+  // chunk that starts before V and ends past it reads the row's pad)
   auto load_stage = [&](int it) {
     const int st = it % TC_STAGES, k0 = (it % n_k) * TC_BK;
     const int n0 = c_begin + (it / n_k) * TC_BN;
@@ -396,7 +411,7 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
       const int gk = k0 + kk, gc = n0 + cc;
       const bool ok = gk < d && gc < c_end;
       cp_async_16(smem_addr(wd + kk * TC_WP + cc),
-                  ok ? w + static_cast<size_t>(gk) * V + gc : w, ok);
+                  ok ? w + static_cast<size_t>(gk) * ldw + gc : w, ok);
     }
     bf16* hd = hs + st * TC_H_STAGE;
 #pragma unroll
@@ -496,12 +511,14 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
 }
 
 cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
-                        int V, int cols_per_cta, int n_parts, int fmt,
+                        int V, int ldw, int cols_per_cta, int n_parts,
+                        int fmt,
                         float logit_scale, float temperature,
                         const uint32_t* seed, int suppress_id, float* pm,
                         int* pi, float* ps,
                         float* pb, float* pz, cudaStream_t stream) {
-  if (d % 8 || V % 8 || cols_per_cta <= 0 || cols_per_cta % 32 ||
+  if (d % 8 || ldw % 8 || ldw < V || cols_per_cta <= 0 ||
+      cols_per_cta % 32 ||
       static_cast<long long>(cols_per_cta) * n_parts < V ||
       static_cast<long long>(cols_per_cta) * (n_parts - 1) >= V)
     return cudaErrorInvalidValue;
@@ -511,8 +528,8 @@ cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_parts, (R + TC_ROWS - 1) / TC_ROWS);
   head_partials_tc_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
-      hidden, w, R, d, V, cols_per_cta, fmt, logit_scale, temperature, seed,
-      suppress_id, pm, pi, ps, pb, pz);
+      hidden, w, R, d, V, ldw, cols_per_cta, fmt, logit_scale, temperature,
+      seed, suppress_id, pm, pi, ps, pb, pz);
   return cudaGetLastError();
 }
 
@@ -522,11 +539,12 @@ cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
 // workspace is (R, tiles).
 extern "C" int fused_head_sampling_tiles(int V) { return (V + TN - 1) / TN; }
 
-// hidden (R, d) and w (d, V), both f32 (is_bf16 = 0) or both bf16; the
+// hidden (R, d) and w (d, V) with rows ldw >= V elements apart, both f32
+// (is_bf16 = 0) or both bf16; the
 // partials workspace part_* is (R, n_parts) each (part_b/part_z only read
 // and written when temperature > 0); conf (R,) f32, token (R,) i32.
 // The bf16 route takes the column plan: cols_per_cta columns (whole MX
-// blocks) for each of n_parts CTAs, covering V; it needs d and V to be
+// blocks) for each of n_parts CTAs, covering V; it needs d and ldw to be
 // multiples of 8 (16-byte rows).  The f32 route ignores cols_per_cta and
 // takes n_parts = fused_head_sampling_tiles(V).
 // fmt: 0 none, 1 bf16, 2 mxfp8_e4m3.  suppress_id < 0 suppresses nothing.
@@ -535,8 +553,8 @@ extern "C" int fused_head_sampling_tiles(int V) { return (V + TN - 1) / TN; }
 extern "C" int fused_head_sampling_launch(
     const void* hidden, const void* w, void* part_m, void* part_i,
     void* part_s, void* part_b, void* part_z, void* conf, void* token, int R,
-    int d, int V, int is_bf16, int fmt, float logit_scale, float temperature,
-    const void* seed_ptr, int suppress_id, int cols_per_cta, int n_parts,
+    int d, int V, int ldw, int is_bf16, int fmt, float logit_scale,
+    float temperature, const void* seed_ptr, int suppress_id, int cols_per_cta, int n_parts,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* seed = static_cast<const uint32_t*>(seed_ptr);
@@ -548,14 +566,15 @@ extern "C" int fused_head_sampling_launch(
   cudaError_t err;
   if (is_bf16) {
     err = launch_bf16(static_cast<const bf16*>(hidden),
-                      static_cast<const bf16*>(w), R, d, V, cols_per_cta,
+                      static_cast<const bf16*>(w), R, d, V, ldw, cols_per_cta,
                       n_parts, fmt, logit_scale, temperature, seed,
                       suppress_id, pm, pi, ps, pb, pz, st);
   } else {
-    if (n_parts != (V + TN - 1) / TN) return cudaErrorInvalidValue;
+    if (n_parts != (V + TN - 1) / TN || ldw < V) return cudaErrorInvalidValue;
     err = dispatch_f32(R, static_cast<const float*>(hidden),
-                       static_cast<const float*>(w), d, V, fmt, logit_scale,
-                       temperature, seed, suppress_id, pm, pi, ps, pb, pz, st);
+                       static_cast<const float*>(w), d, V, ldw, fmt,
+                       logit_scale, temperature, seed, suppress_id, pm, pi,
+                       ps, pb, pz, st);
   }
   if (err != cudaSuccess) return err;
   head_combine_kernel<<<(R + 3) / 4, 128, 0, st>>>(

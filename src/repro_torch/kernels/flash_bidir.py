@@ -18,13 +18,17 @@ and the f32 operands -- q * f_k with BAOS, and always the probabilities
 P -- enter the products as ``SPLIT_TERMS`` bf16 terms
 t_i = bf16(x - t_0 - ... - t_(i-1)), so the products keep the f32
 function of the Pallas kernel.  f32 tensors take its CUDA-core route (f32
-FMAs, no TF32).
+FMAs, no TF32).  Both take any head dim D that is a multiple of 8 up to
+256, in the smallest instantiated tile that holds it (``route``); D past
+256 or not a multiple of 8 raises ``NotImplementedError``
+(``check_head_dim``), which ``models/layers.attention`` and the model's
+config check call before any tick runs.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,11 +36,34 @@ from repro_torch.core import sampling
 from repro_torch.kernels import _build
 
 NAME = "flash_bidir"
-HEAD_DIMS = (32, 64, 128)
+# the tile widths the kernel is instantiated for (csrc/flash_bidir.cu
+# tile_of); a head dim runs in the smallest one that holds it
+TILES = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
+_ROUTES = {torch.bfloat16: "tensor cores", torch.float32: "CUDA cores"}
 # bf16 terms of each f32 operand on the tensor-core route (SPLIT in
 # csrc/flash_bidir.cu): three carry the 24-bit f32 significand
 SPLIT_TERMS = 3
+
+
+def check_head_dim(D: int) -> None:
+    """Raise NotImplementedError for a head dim the kernel does not take:
+    past 256 or not a multiple of 8 (no config in src/repro/configs/ has
+    one: their head dims are 64, 128 and 256)."""
+    if not (8 <= D <= TILES[-1] and D % 8 == 0):
+        raise NotImplementedError(
+            f"head dim {D}: flash_bidir takes multiples of 8 up to "
+            f"{TILES[-1]} (ROADMAP.md, Queue 3)")
+
+
+def route(D: int, dtype: torch.dtype) -> Tuple[str, int]:
+    """(route, tile width) the kernel runs head dim D of ``dtype`` in:
+    'tensor cores' for bf16, 'CUDA cores' for f32, and the smallest of
+    ``TILES`` >= D (columns past D are loaded as zeros and not stored)."""
+    check_head_dim(D)
+    if dtype not in _ROUTES:
+        raise ValueError(f"dtype {dtype} not in {_DTYPES}")
+    return _ROUTES[dtype], next(t for t in TILES if t >= D)
 
 
 def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -122,8 +149,7 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: "
                          f"need one of {_DTYPES} for all three")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    route(D, q.dtype)
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be positive")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

@@ -18,6 +18,13 @@ the kernel's tensor-core route, which splits V across one CTA per SM by
 (``head_partials_plain`` computes the same partials in plain arithmetic)
 and a second kernel merges them (``combine_rows_plain``).  f32 tensors
 take its CUDA-core route (f32 FMAs, no TF32).
+
+The bf16 route reads w_head in 16-byte row chunks, so each row must start
+on a 16-byte address: its row stride must be a multiple of 8 elements.  A
+vocabulary that is not (minicpm-2b: V 122753) is stored once, at load, by
+``pad_head``: a (d, V) view of zero-padded (d, ``padded_vocab(V)``)
+storage, which the plain path reads as the logical head and the kernel by
+its row stride.  Nothing copies the head per call.
 """
 from __future__ import annotations
 
@@ -35,6 +42,37 @@ NAME = "fused_head_sampling"
 # fmt argument of the C entry point: 0 none, 1 bf16, 2 mxfp8_e4m3
 _FMT_CODES = {f: i for i, f in enumerate(sampling.SUPPORTED_FMTS)}
 _DTYPES = (torch.float32, torch.bfloat16)
+# the bf16 route's row alignment in elements: 16 bytes of bf16
+ROW_ALIGN = 8
+
+
+def padded_vocab(V: int) -> int:
+    """The row stride, in elements, of a head of V columns stored for the
+    bf16 route: V rounded up to a multiple of ``ROW_ALIGN``."""
+    return -(-V // ROW_ALIGN) * ROW_ALIGN
+
+
+def pad_head(w: torch.Tensor) -> torch.Tensor:
+    """w (d, V) as a (d, V) view of zero-padded (d, padded_vocab(V))
+    storage, made once at load; ``w`` itself when its rows already lie
+    16 bytes apart (V a multiple of 8, contiguous)."""
+    d, V = w.shape
+    if w.is_contiguous() and V % ROW_ALIGN == 0:
+        return w
+    full = torch.zeros((d, padded_vocab(V)), dtype=w.dtype, device=w.device)
+    full[:, :V] = w
+    return full[:, :V]
+
+
+def head_storage(w: torch.Tensor) -> torch.Tensor:
+    """The full rows behind a head w (d, V) with unit column stride: a
+    (d, w.stride(0)) tensor, pad columns included (``w`` itself when it is
+    contiguous).  A per-column function of the head (the QuantPolicy's
+    weight fake-quant, whose MX blocks run along d) applied to it and
+    sliced back to V keeps the padded layout."""
+    if w.stride(1) != 1:
+        raise ValueError(f"head column stride {w.stride(1)} != 1")
+    return torch.as_strided(w, (w.shape[0], w.stride(0)), (w.stride(0), 1))
 
 
 def fused_head_stable_max(hidden: torch.Tensor, w_head: torch.Tensor,
@@ -174,7 +212,7 @@ def _kernel_fns():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     launch = _build.function(
         NAME, "fused_head_sampling_launch",
-        [p] * 9 + [i] * 5 + [f, f, p, i, i, i, p])
+        [p] * 9 + [i] * 6 + [f, f, p, i, i, i, p])
     tiles = _build.function(NAME, "fused_head_sampling_tiles", [i])
     return launch, tiles
 
@@ -190,8 +228,9 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
     hidden's dtype.  ``seed`` is a uint32 int or an int64 tensor of one
     element holding one (``sampling.seed_tensor``); the kernel reads it
     from device memory, so a captured graph draws each replay's seed.
-    CUDA tensors run the kernel (bf16 needs d and V to be multiples of 8:
-    16-byte rows); CPU tensors the plain version."""
+    CUDA tensors run the kernel (bf16 needs d and w_head's row stride to
+    be multiples of 8, 16-byte rows: see ``pad_head``); CPU tensors the
+    plain version."""
     if fmt not in _FMT_CODES:
         raise ValueError(f"fmt {fmt!r} not in {tuple(_FMT_CODES)}")
     if hidden.dim() != 2 or w_head.dim() != 2 or \
@@ -208,17 +247,25 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
     if hidden.dtype not in _DTYPES:
         raise ValueError(f"hidden dtype {hidden.dtype} not in {_DTYPES}")
     w = w_head.to(hidden.dtype)
-    if not (hidden.is_contiguous() and w.is_contiguous()):
-        raise ValueError("hidden and w_head must be contiguous")
+    if not hidden.is_contiguous() or w.stride(1) != 1:
+        raise ValueError("hidden must be contiguous and w_head's columns "
+                         "adjacent")
     R, d = hidden.shape
-    V = w.shape[1]
+    V, ldw = w.shape[1], w.stride(0)
     launch, tiles = _kernel_fns()
     dev = hidden.device
     bf16 = hidden.dtype == torch.bfloat16
     if bf16:
-        if d % 8 or V % 8:
-            raise ValueError(f"bf16 route needs d and V to be multiples of 8 "
-                             f"(16-byte rows); got d={d}, V={V}")
+        if d % ROW_ALIGN:
+            # no config has one: every d in src/repro/configs/ is a
+            # multiple of 64
+            raise NotImplementedError(
+                f"the bf16 route needs d to be a multiple of {ROW_ALIGN} "
+                f"(16-byte hidden rows); got d={d} (ROADMAP.md, Queue 3)")
+        if ldw % ROW_ALIGN or w.data_ptr() % 16:
+            raise ValueError(
+                f"the bf16 route needs w_head's rows 16 bytes apart and "
+                f"aligned (row stride {ldw}); store the head with pad_head")
         cols, n_parts = column_plan(V, _build.sm_count(dev))
     else:
         cols, n_parts = 0, tiles(V)
@@ -235,7 +282,7 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
     err = launch(hidden.data_ptr(), w.data_ptr(), part_m.data_ptr(),
                  part_i.data_ptr(), part_s.data_ptr(), _build.ptr(part_b),
                  _build.ptr(part_z), conf.data_ptr(), token.data_ptr(),
-                 R, d, V, int(bf16), _FMT_CODES[fmt],
+                 R, d, V, ldw, int(bf16), _FMT_CODES[fmt],
                  float(logit_scale), float(temperature),
                  _build.ptr(sampling.seed_tensor(seed, dev) if gumbel
                             else None),

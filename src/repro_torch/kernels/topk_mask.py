@@ -1,7 +1,7 @@
 """Top-k transfer mask: CUDA kernel and plain version.
 
 Port of the Pallas kernel src/repro/kernels/topk_mask.py.  Per row of
-L <= 64 block positions: unmasked confidences become -1e30, the stable
+L block positions: unmasked confidences become -1e30, the stable
 descending rank is r_i = #{c_j > c_i} + #{j < i, c_j == c_i}, and
 transfer_i = masked_i & (r_i < min(k, #masked)).  ``torch.topk`` is not
 stable on ties, so the plain version computes the rank formula itself.
@@ -12,6 +12,8 @@ version.  Launch latency bounds the kernel, not its bytes: the wrapper
 hands it the bool mask and the integer k as the caller has them and takes
 back a bool mask, so a top-k is one launch.  It is a plain launch:
 programmatic dependent launch lost in the graphed tick (csrc/topk_mask.cu).
+The kernel has two routes, ``route(L)``: one warp per row for L <= 64, one
+CTA per row (the row streamed through shared memory) for any longer L.
 """
 from __future__ import annotations
 
@@ -24,7 +26,17 @@ from repro_torch.core import sampling
 from repro_torch.kernels import _build
 
 NAME = "topk_mask"
-MAX_L = 64
+# the longest row the warp route holds (two positions a lane)
+WARP_MAX_L = 64
+_ROUTES = ("warp", "cta")
+
+
+def route(L: int) -> str:
+    """The kernel route for rows of L positions: 'warp' (one warp per row,
+    L <= 64) or 'cta' (one CTA per row, any L)."""
+    if L < 1:
+        raise ValueError(f"block length {L} must be positive")
+    return "warp" if L <= WARP_MAX_L else "cta"
 
 
 def topk_mask_plain(conf: torch.Tensor, mask: torch.Tensor,
@@ -44,7 +56,7 @@ def topk_mask_plain(conf: torch.Tensor, mask: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = _build.function(NAME, "topk_mask_launch", [p] * 4 + [i] * 3 + [p])
+    launch = _build.function(NAME, "topk_mask_launch", [p] * 4 + [i] * 4 + [p])
     empty = _build.function(NAME, "topk_mask_empty_launch", [p])
     return launch, empty
 
@@ -66,8 +78,7 @@ def topk_mask(conf: torch.Tensor, mask: torch.Tensor, k: torch.Tensor
             k.device != conf.device:
         raise ValueError("conf, mask and k must lie on one CUDA device")
     R, L = conf.shape
-    if not 1 <= L <= MAX_L:
-        raise ValueError(f"block length {L} not in [1, {MAX_L}]")
+    kernel_route = _ROUTES.index(route(L))
     if conf.dtype != torch.float32 or mask.dtype != torch.bool or \
             k.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"need conf f32, mask bool and k int32 or int64; "
@@ -80,6 +91,7 @@ def topk_mask(conf: torch.Tensor, mask: torch.Tensor, k: torch.Tensor
         return out
     err = _kernel_fns()[0](conf.data_ptr(), mask.data_ptr(), k.data_ptr(),
                            out.data_ptr(), R, L, int(k.dtype == torch.int64),
+                           kernel_route,
                            torch.cuda.current_stream(conf.device).cuda_stream)
     _build.check(NAME, err)
     _build.launch_counts[NAME] += 1

@@ -1,25 +1,55 @@
 """Transformer building blocks, ported from src/repro/models/layers.py:
+the MX quantization policy at the GEMM boundaries (``QuantPolicy``),
 GEMMs with f32 accumulation, RMSNorm, NeoX RoPE, SwiGLU, and bidirectional
 GQA attention with the BAOS fusion (kernels/flash_bidir.py on the card),
 plus the seeded
 parameter init with the JAX package's distributions."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import mx
 from repro_torch.kernels import flash_bidir
 
 
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    """MX fake-quant at the GEMM boundaries (paper §3.1.1, the asymmetric
+    data path), field for field the JAX QuantPolicy: weights in
+    ``weight_fmt`` with MX blocks along the contraction (first) axis of
+    (K, N) weights, activations in ``act_fmt`` along their last axis.  It
+    stays plain PyTorch, as the JAX package computes it in jnp outside any
+    Pallas kernel; weights are fake-quantized at every call, as in JAX."""
+    enabled: bool = False
+    weight_fmt: str = "mxint4"
+    act_fmt: str = "mxint8"
+
+    def weights(self, w: torch.Tensor) -> torch.Tensor:
+        if not self.enabled:
+            return w
+        return mx.mx_fake_quant(w, self.weight_fmt, axis=0)
+
+    def acts(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.enabled:
+            return x
+        return mx.mx_fake_quant(x, self.act_fmt, axis=-1)
+
+
 def qdot(x: torch.Tensor, w: torch.Tensor,
+         policy: Optional[QuantPolicy] = None,
          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (..., K) @ w (K, N) with f32 accumulation and one rounding to
-    x.dtype; ``bias`` is added in f32 before that rounding.  Without a bias
-    a bf16 product goes to cuBLAS, which accumulates in f32 (TF32 and
+    """x (..., K) @ w (K, N) with the ``policy``'s fake-quant of both
+    operands (when enabled), f32 accumulation and one rounding to x.dtype;
+    ``bias`` is added in f32 before that rounding.  Without a bias a bf16
+    product goes to cuBLAS, which accumulates in f32 (TF32 and
     reduced-precision reductions off, device.py) and rounds once; with one,
     the product runs in f32 so the bias joins before the cast."""
+    if policy is not None and policy.enabled:
+        x, w = policy.acts(x), policy.weights(w)
     w = w.to(x.dtype)
     if bias is None:
         return torch.matmul(x, w)
@@ -71,7 +101,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (core/baos.BAOSCalib) k/v are the smoothed cache: f_k joins the query
     and f_v, c_v the output, in f32 inside the kernel (the JAX model rounds
     q * f_k and out * f_v + c_v to the activation dtype).  The hand-written
-    kernel runs for CUDA tensors, its plain version for CPU ones."""
+    kernel runs for CUDA tensors, its plain version for CPU ones; both
+    raise NotImplementedError for a head dim the kernel does not take
+    (kernels/flash_bidir.check_head_dim)."""
+    flash_bidir.check_head_dim(q.shape[-1])
     fk = fv = cv = None
     if baos_calib is not None:
         B, _, Hkv, D = k.shape

@@ -16,6 +16,14 @@ whole cache through ``kv_valid``: the warm step (the whole sequence,
 block or block + suffix, reading the stored calibration).  The JAX
 forward returns a new cache instead; writing in place saves the copy, and
 is the write-back the paper describes.
+
+``seg_start`` (and the start of ``logits_slice``) may also be a device
+tensor of one element: the block start a captured CUDA graph reads from
+memory (core/diffusion's graphed steps).  The segment's K/V are then
+scattered into the cache at that start (``index_copy_``) instead of
+written through a slice, with the same values.  ``quant``, a
+``layers.QuantPolicy``, fake-quantizes both operands of every GEMM,
+the LM head's included, as the JAX forward does.
 """
 from __future__ import annotations
 
@@ -26,10 +34,13 @@ import torch.nn.functional as F
 
 from repro_torch import device as device_lib
 from repro_torch.core import baos as baos_lib
+from repro_torch.kernels import flash_bidir, fused_head_sampling
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
 ROADMAP = "ROADMAP.md, Queue 1"
+# a segment start: an int, or a one-element device tensor
+SegStart = Union[int, torch.Tensor]
 
 
 def check_dense(cfg: ModelConfig) -> None:
@@ -43,6 +54,7 @@ def check_dense(cfg: ModelConfig) -> None:
             f"norm={cfg.norm!r}, ffn={cfg.ffn!r}, attn_mode="
             f"{cfg.attn_mode!r} are not ported yet ({ROADMAP}); the port "
             "runs rms / swiglu / bidir")
+    flash_bidir.check_head_dim(cfg.d_head)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -50,7 +62,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Seeded parameters with the JAX package's distributions (normal
     weights with std sqrt(2 / (d_in + d_out)), embeddings with std 0.02,
     unit norms, zero biases).  The draws are torch's, not JAX's: for
-    parity tests convert the JAX parameters with ``bridge``."""
+    parity tests convert the JAX parameters with ``bridge``.  The LM head
+    is stored with 16-byte rows for the fused head's bf16 route
+    (kernels/fused_head_sampling.pad_head)."""
     check_dense(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -77,7 +91,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         stack.append(lp)
     return {"embed": layers.embed_init(gen, cfg.vocab, d, dt, dev),
             "layers": stack, "final_norm": ones(d),
-            "lm_head": dense(d, cfg.vocab)}
+            "lm_head": fused_head_sampling.pad_head(dense(d, cfg.vocab))}
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_tot: int,
@@ -107,28 +121,31 @@ def embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
 
 
 def qkv(h: torch.Tensor, lp: Dict, cfg: ModelConfig,
-        positions: torch.Tensor):
+        positions: torch.Tensor, quant=None):
     """A layer's q (B, S, Hq, D) and k, v (B, S, Hkv, D) from its normed
     input, RoPE at ``positions``."""
     B, S, _ = h.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = layers.qdot(h, lp["wq"], lp.get("bq")).reshape(B, S, Hq, D)
-    k = layers.qdot(h, lp["wk"], lp.get("bk")).reshape(B, S, Hkv, D)
-    v = layers.qdot(h, lp["wv"], lp.get("bv")).reshape(B, S, Hkv, D)
+    q = layers.qdot(h, lp["wq"], quant, lp.get("bq")).reshape(B, S, Hq, D)
+    k = layers.qdot(h, lp["wk"], quant, lp.get("bk")).reshape(B, S, Hkv, D)
+    v = layers.qdot(h, lp["wv"], quant, lp.get("bv")).reshape(B, S, Hkv, D)
     if cfg.rope_theta > 0:
         q = layers.rope(q, positions, cfg.rope_theta)
         k = layers.rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _cache_attention(q, k, v, lcache: Dict, seg_start: int, kv_valid,
+def _cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
                      cfg: ModelConfig, baos_cfg: baos_lib.BAOSConfig,
                      calibrate: bool, calib_mask):
     """The cached branch of a layer: (re)calibrate or read the stored
     calibration, write the segment's K/V into the cache at ``seg_start``
     (through the BAOS kernel when enabled), attend over the whole cache.
     The calibration is computed only with BAOS on: nothing reads it
-    otherwise (the JAX forward computes and stores it either way)."""
+    otherwise (the JAX forward computes and stores it either way).  A
+    tensor ``seg_start`` scatters the segment (a graph's block start); the
+    window's query offset is then unknown to the host, so a windowed
+    model refuses it."""
     S = k.shape[1]
     calib = None
     if baos_cfg.enabled:
@@ -138,21 +155,35 @@ def _cache_attention(q, k, v, lcache: Dict, seg_start: int, kv_valid,
                 lcache[name].copy_(t)
         calib = baos_lib.BAOSCalib(*(lcache[name] for name in
                                      baos_lib.BAOSCalib._fields))
-    seg = slice(seg_start, seg_start + S)
+    on_device = isinstance(seg_start, torch.Tensor)
+    if on_device:
+        if cfg.window is not None:
+            raise NotImplementedError(
+                f"a windowed model's cached step with a device block start "
+                f"is not ported yet ({ROADMAP})")
+        idx = seg_start.reshape(()).to(torch.int64) + torch.arange(
+            S, device=k.device)
     for name, x, center, scale in (
             ("k", k, "k_center", "k_scale"), ("v", v, "v_center", "v_scale")):
-        if calib is None:
-            lcache[name][:, seg].copy_(x)
+        if on_device:
+            if calib is not None:
+                x = baos_lib.smooth_quantize(x, lcache[center],
+                                             lcache[scale], baos_cfg)
+            lcache[name].index_copy_(1, idx, x)
+        elif calib is None:
+            lcache[name][:, seg_start:seg_start + S].copy_(x)
         else:
-            baos_lib.smooth_quantize(x, lcache[center], lcache[scale],
-                                     baos_cfg, out=lcache[name][:, seg])
+            baos_lib.smooth_quantize(
+                x, lcache[center], lcache[scale], baos_cfg,
+                out=lcache[name][:, seg_start:seg_start + S])
+    # the query offset places the window; without one it is unused
     return layers.attention(q, lcache["k"], lcache["v"], kv_valid,
                             window=cfg.window, baos_calib=calib,
-                            q_offset=seg_start)
+                            q_offset=0 if on_device else seg_start)
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: Optional[Dict] = None, seg_start: int = 0,
+            cache: Optional[Dict] = None, seg_start: SegStart = 0,
             kv_valid: Optional[torch.Tensor] = None,
             baos_cfg: Optional[baos_lib.BAOSConfig] = None,
             calibrate: bool = False,
@@ -165,13 +196,9 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     the cache), S' = S or the ``logits_slice`` (start, length).  With
     ``cache``: ``baos_cfg`` (off by default), ``calibrate`` (recompute the
     calibration from this segment's K/V, restricted to ``calib_mask``
-    (B, S) when given) and ``kv_valid`` (B, s_tot).  ``quant`` (the JAX
-    QuantPolicy at the GEMM boundaries) must be None or disabled."""
+    (B, S) when given) and ``kv_valid`` (B, s_tot).  ``quant``: a
+    ``layers.QuantPolicy`` at every GEMM boundary (None: none)."""
     check_dense(cfg)
-    if quant is not None and getattr(quant, "enabled", True):
-        raise NotImplementedError(
-            f"MX fake-quant at the GEMM boundaries (QuantPolicy) is not "
-            f"ported yet ({ROADMAP})")
     if head_mode not in ("logits", "hidden"):
         raise ValueError(f"unknown head_mode {head_mode!r}")
     baos_cfg = baos_cfg or baos_lib.BAOSConfig(enabled=False)
@@ -182,32 +209,45 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                 f"the split k_act/v_act cache layout is not ported yet "
                 f"({ROADMAP})")
         s_tot = cache["k"].shape[2]
-        if not 0 <= seg_start <= s_tot - S:
+        if not isinstance(seg_start, torch.Tensor) and \
+                not 0 <= seg_start <= s_tot - S:
             raise ValueError(f"segment [{seg_start}, {seg_start + S}) does "
                              f"not fit a {s_tot}-long cache")
     x = embed(params, cfg, tokens)
-    positions = seg_start + torch.arange(S, device=x.device)
+    positions = _start(seg_start) + torch.arange(S, device=x.device)
     Hq, D = cfg.n_heads, cfg.d_head
     for i, lp in enumerate(params["layers"]):
         h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = qkv(h, lp, cfg, positions)
+        q, k, v = qkv(h, lp, cfg, positions, quant)
         if cache is None:
             attn = layers.attention(q, k, v, window=cfg.window)
         else:
             lcache = {name: t[i] for name, t in cache.items()}
             attn = _cache_attention(q, k, v, lcache, seg_start, kv_valid,
                                     cfg, baos_cfg, calibrate, calib_mask)
-        x = x + layers.qdot(attn.reshape(B, S, Hq * D), lp["wo"]) * \
+        x = x + layers.qdot(attn.reshape(B, S, Hq * D), lp["wo"], quant) * \
             cfg.residual_scale
         h2 = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        ffn = layers.qdot(layers.swiglu(layers.qdot(h2, lp["w_gate"]),
-                                        layers.qdot(h2, lp["w_up"])),
-                          lp["w_down"])
+        ffn = layers.qdot(layers.swiglu(layers.qdot(h2, lp["w_gate"], quant),
+                                        layers.qdot(h2, lp["w_up"], quant)),
+                          lp["w_down"], quant)
         x = x + ffn * cfg.residual_scale
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_slice is not None:
         start, length = logits_slice
-        x = x[:, start:start + length]
+        if isinstance(start, torch.Tensor):
+            x = x.index_select(1, _start(start) + torch.arange(
+                length, device=x.device))
+        else:
+            x = x[:, start:start + length]
     if head_mode == "hidden":
         return x, cache
-    return layers.qdot(x, params["lm_head"]) * cfg.logit_scale, cache
+    return layers.qdot(x, params["lm_head"], quant) * cfg.logit_scale, cache
+
+
+def _start(seg_start: SegStart):
+    """A segment start as an int, or a one-element device tensor as an
+    int64 scalar tensor."""
+    if isinstance(seg_start, torch.Tensor):
+        return seg_start.reshape(()).to(torch.int64)
+    return seg_start

@@ -23,6 +23,10 @@ tokens that committed on that tick.  ``cancel(uid)`` removes a still-queued
 request.  Not ported yet (ROADMAP.md): the paged pool, the mesh,
 per-stage breakdown timing and the observability hooks.
 
+``EngineConfig.fwd_kw`` carries the forward's keyword arguments, as in
+JAX: ``{"quant": layers.QuantPolicy(...)}`` runs every tick with the MX
+fake-quant at the GEMM boundaries and on the head's operands.
+
 ``EngineConfig.jit_steps`` (default True) is the JAX field of the same
 name: on the card the tick then replays a captured CUDA graph
 (core/graphs.py) against the engine's static device buffers (the canvas
@@ -126,7 +130,8 @@ class _Slot:
 @dataclasses.dataclass
 class EngineConfig:
     """The JAX EngineConfig's fields; ``seed`` (uint32, the counter-Gumbel
-    stream) stands for its ``rng``, and the device is the model's.  The
+    stream) stands for its ``rng``, and the device is the model's.
+    ``fwd_kw`` takes ``quant`` (a ``models/layers.QuantPolicy``).  The
     mesh, paged-pool and breakdown options are not ported yet and raise
     unless left at their defaults."""
     num_slots: int = 4
@@ -139,6 +144,7 @@ class EngineConfig:
     megatick_k: int = 1
     pool: str = "slot"
     breakdown: bool = False
+    fwd_kw: Optional[dict] = None
 
 
 class _HostCanvas:
@@ -191,6 +197,9 @@ class ServingEngine:
                     f"EngineConfig.{name}={getattr(config, name)!r} is not "
                     "ported yet (ROADMAP.md, Queue 1)")
         diffusion.check_supported(dcfg)
+        # the policy is bound into the tick fns, as JAX binds it statically
+        # into its jitted ones
+        self._quant = diffusion._quant_of(config.fwd_kw or {})
         self.config = config
         self.model = model
         self.params = params
@@ -248,15 +257,18 @@ class ServingEngine:
         self._stage = self._stage_host.to(self.device, copy=True)
         # a megatick engine runs every tick() as a megastep, so it holds
         # the megatick fn and no K=1 tick fn
-        self._tick_fn = (diffusion.get_tick_fn(model, dcfg, self.mask_id)
+        self._tick_fn = (diffusion.get_tick_fn(model, dcfg, self.mask_id,
+                                               quant=self._quant)
                          if self.jit_steps and self.megatick_k == 1
                          else None)
         self._megatick_fn = None
         if self.megatick_k > 1:
-            self._megatick_fn = diffusion.get_megatick_fn(
+            # the engine's own megatick, not get_megatick_fn's shared one:
+            # its graphs hold this engine's canvas and cache
+            self._megatick_fn = diffusion.Megatick(
                 model, dcfg, self.mask_id, self.megatick_k,
                 jit_steps=self.jit_steps,
-                slowfast_threshold=self._sf_threshold)
+                slowfast_threshold=self._sf_threshold, quant=self._quant)
 
     # -- request lifecycle --------------------------------------------------
 
@@ -403,7 +415,7 @@ class ServingEngine:
             zeros = torch.zeros((B,), dtype=torch.int32, device=self.device)
             diffusion.batched_tick(self.model, self.params, self.x,
                                    self.kv_valid, zeros, zeros, 0, cache,
-                                   self.dcfg, self.mask_id)
+                                   self.dcfg, self.mask_id, self._quant)
         else:
             zeros = np.zeros((B,), np.int32)
             state = diffusion.megatick_state(
@@ -476,7 +488,7 @@ class ServingEngine:
                 self.model, self.params, self.x, self.kv_valid,
                 torch.as_tensor(bs_np, device=self.device),
                 torch.as_tensor(k_np, device=self.device), seed, cache,
-                self.dcfg, self.mask_id)
+                self.dcfg, self.mask_id, self._quant)
             self.x = x_new
             if self.mode == "warm":
                 self.pool.update(new_cache)

@@ -15,6 +15,7 @@ from repro.models.registry import build_model as jbuild
 from repro_torch import bridge
 from repro_torch.configs import base as tbase
 from repro_torch.core import baos as tbaos
+from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttr
 from repro_torch.models.registry import build_model as tbuild
 
@@ -162,6 +163,10 @@ def test_seeded_init_shapes_and_scales():
 
 
 def test_unported_features_raise():
+    """Features still unported raise NotImplementedError pointing at the
+    ROADMAP: other model families and the split k_act/v_act cache.  The
+    QuantPolicy is ported: forward(quant=...) gives JAX's logits (its
+    parity in full is tests/test_torch_quant.py)."""
     cfg = tbase.get_config("llada-8b", smoke=True)
     moe = tbase.ModelConfig(**{**cfg.__dict__, "family": "moe"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -170,7 +175,14 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttr.forward({}, cfg, torch.zeros(1, 8, dtype=torch.int32),
                     cache=split)
-    quant = jlayers.QuantPolicy(enabled=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.forward({}, cfg, torch.zeros(1, 8, dtype=torch.int32),
-                    quant=quant)
+    cfg_j = jbase.get_config("llada-8b", smoke=True)
+    params_j = jbuild(cfg_j).init(jax.random.PRNGKey(0))
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        cfg, "cpu")
+    toks = _tokens(cfg_j, 2, 16, seed=4)
+    want, _, _ = jtr.forward(params_j, cfg_j, jnp.asarray(toks),
+                             quant=jlayers.QuantPolicy(enabled=True))
+    got, _ = ttr.forward(params_t, cfg, torch.from_numpy(toks),
+                         quant=tlayers.QuantPolicy(enabled=True))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
