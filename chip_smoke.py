@@ -61,6 +61,22 @@ Phases, each fatal on failure:
                tick and the counts the graph replays added; on path warm
                a SlowFast(0) trace, whose megasteps stop mid-way, eager
                K=1 against graphed K=1 and K=8;
+  4b. paged -- the engine trace of phase 4 through the paged pool (page
+               16) on paths warm, none and warm with BAOS, each eager K=1,
+               graphed K=1 and graphed K=8: tokens, per-request ticks,
+               CommitEvents, ticks_total and launch counts equal to the
+               slot pool's run at the same settings, and no graph captured
+               after warmup(); a profile of the paged warm graphed K=1
+               tick beside the slot tick's, and the gather and scatter's
+               device time beside their byte bound; a warm + BAOS graphed
+               run with a request preempted mid-block (spilled to the host
+               and restored), equal to the uninterrupted run, with the
+               spill bytes and the spill and restore times; the
+               prefix-heavy goodput case at an equal page budget (48
+               requests in two groups sharing a 64-token prompt, 20 pages
+               of 16: the slot pool's 4 slots against the paged pool's
+               12), tokens/s, latency, tick wall, peak pages, prefix hit
+               rate and peak memory for each;
   3b. table6 -- llada-8b at the paper's Table 6 shape (B 16, prompt 128,
                gen 256, block 64, 16 steps) in cache modes none, prefix +
                BAOS and dual + BAOS (mxint4 KV), and dual + BAOS under
@@ -75,7 +91,7 @@ Phases, each fatal on failure:
                (engine warm) at full width, one model at a time, eager
                against graphed K=1.
 Every path's launch counts are zeroed just before it and read just after;
-the kernels line sums them over phases 4, 3b and 5.
+the kernels line sums them over phases 4, 4b, 3b and 5.
 Prints the kernels JSON line, the card's name and power limit, and last
 the {"ok": true, ...} line.  Exits non-zero without a result when there is
 no CUDA device or the port is not beside this script.
@@ -1137,7 +1153,7 @@ def phase_configs(gen) -> dict:
                       int(rs.choice([32, 48, 64]))) for _ in range(8)]
             runs = {}
             for vname, vcfg in VARIANTS[:2]:
-                eng, keys, tick_ms, counts = engine_run(
+                eng, keys, tick_ms, counts, _ = engine_run(
                     model, params, dcfg, "warm", trace, True, **vcfg)
                 p50, p84 = np.percentile(np.array(tick_ms), [50, 84])
                 s = eng.metrics.summary()
@@ -1333,17 +1349,38 @@ VARIANTS = (("eager K=1", dict(jit_steps=False)),
             ("graphed K=8", dict(jit_steps=True, megatick_k=8)))
 
 
+def engine_trace(cfg):
+    """The engine trace: 8 requests, prompts 16-32, generations 32-64."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    return [(rs.randint(0, cfg.vocab - 200, size=(rs.randint(16, 33),))
+             .astype(np.int32), int(rs.choice([32, 48, 64])))
+            for _ in range(8)]
+
+
+def graph_step(eng):
+    """The engine's graphed step (its K=1 tick or its megatick's), or None
+    when its ticks run eagerly."""
+    from repro_torch.core import graphs
+    step = (eng._tick_fn if eng._megatick_fn is None
+            else eng._megatick_fn._step)
+    return step if isinstance(step, graphs.GraphedStep) else None
+
+
 def engine_run(model, params, dcfg, mode, trace, sinks, **cfg):
     """One engine over ``trace`` to the end: (engine, commit-event keys,
-    wall ms of each denoising tick, launch counts of the run).  A tick()
-    call that ran n ticks (a megastep) gives each of them 1/n of its wall
-    time.  The counts are zeroed after warmup, just before the run."""
+    wall ms of each denoising tick, launch counts of the run, graphs
+    captured by warmup()).  A tick() call that ran n ticks (a megastep)
+    gives each of them 1/n of its wall time.  The counts are zeroed after
+    warmup, just before the run."""
     from repro_torch.kernels import _build
     from repro_torch.serving import EngineConfig, Request, ServingEngine
     eng = ServingEngine(model, params, dcfg,
                         EngineConfig(num_slots=4, max_seq_len=96, mode=mode,
                                      **cfg))
     eng.warmup()
+    step = graph_step(eng)
+    captures0 = 0 if step is None else step.captures
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     events = []
@@ -1357,34 +1394,38 @@ def engine_run(model, params, dcfg, mode, trace, sinks, **cfg):
         n = eng.ticks_total - n0
         tick_ms += [(time.perf_counter() - t0) * 1e3 / n] * n
     torch.cuda.synchronize()
-    keys = [(e.uid, e.tick, e.block_idx, e.step_in_block, e.masks_left,
+    return (eng, event_keys(events), tick_ms, dict(_build.launch_counts),
+            captures0)
+
+
+def event_keys(events):
+    """The CommitEvents' fields but ``now`` (wall clock)."""
+    return [(e.uid, e.tick, e.block_idx, e.step_in_block, e.masks_left,
              e.done, e.positions.tolist(), e.tokens.tolist())
             for e in events]
-    return eng, keys, tick_ms, dict(_build.launch_counts)
 
 
-def phase_engine(model, params) -> dict:
+def phase_engine(model, params):
     """Each path through the eager K=1 engine (as in earlier runs), the
     graphed K=1 engine and the graphed megatick (K=8): each must finish
     every request with no mask id left and launch exactly its kernels; the
     graphed runs must give the eager run's tokens, per-request ticks,
     CommitEvents (a second run of each with streaming sinks) and
     ticks_total, and its launch counts (K=8: plus those of the ticks run
-    after a stop)."""
+    after a stop).  Returns (launch counts, per path its runs, launches
+    per tick and graphed device busy ms per tick)."""
     import numpy as np
     from repro_torch.kernels import _build
     cfg = model.cfg
-    rs = np.random.RandomState(0)
-    trace = [(rs.randint(0, cfg.vocab - 200, size=(rs.randint(16, 33),))
-              .astype(np.int32), int(rs.choice([32, 48, 64])))
-             for _ in range(8)]
+    trace = engine_trace(cfg)
     launches = {name: 0 for name in _build.KERNELS}
+    paths = {}
     for name, mode, dcfg, expected in engine_paths():
         runs = {}
         for vname, vcfg in VARIANTS:
             what = f"engine path={name} {vname}"
-            eng, _, tick_ms, counts = engine_run(model, params, dcfg, mode,
-                                                 trace, False, **vcfg)
+            eng, _, tick_ms, counts, _ = engine_run(
+                model, params, dcfg, mode, trace, False, **vcfg)
             done = eng.completed
             s = eng.metrics.summary()
             p50, p84 = np.percentile(np.array(tick_ms), [50, 84])
@@ -1406,20 +1447,20 @@ def phase_engine(model, params) -> dict:
                         not bool((c.tokens == cfg.mask_id).any()),
                         f"{what}: request {c.uid} left mask ids")
             expect_launches(counts, expected, what)
-            step = (eng._megatick_fn._step if mt is not None
-                    else eng._tick_fn)
+            step = graph_step(eng)
             if step is not None:             # graphed: every tick replayed
                 require(step.replays >= eng.ticks_total,
                         f"{what}: {step.replays} graph replays for "
                         f"{eng.ticks_total} ticks")
             for kname, n in counts.items():
                 launches[kname] += n
-            _, keys, _, _ = engine_run(model, params, dcfg, mode, trace, True,
-                                       **vcfg)
+            _, keys, sink_ms, _, _ = engine_run(model, params, dcfg, mode,
+                                                trace, True, **vcfg)
             runs[vname] = dict(
                 tokens={c.uid: c.tokens.tolist() for c in done},
                 ticks={c.uid: c.ticks for c in done}, events=keys,
                 ticks_total=eng.ticks_total, counts=counts, p50=p50,
+                sink_p50=float(np.median(sink_ms)),
                 elided=eng.host_syncs_elided,
                 wasted=0 if mt is None else mt.ticks_wasted)
             if vname == "eager K=1":
@@ -1465,7 +1506,8 @@ def phase_engine(model, params) -> dict:
         if name == "warm":
             check_slowfast_megatick(model, params, dcfg, mode, trace,
                                     per_tick, busy["graphed K=1"])
-    return launches
+        paths[name] = dict(runs=runs, per_tick=per_tick, busy=busy)
+    return launches, paths
 
 
 def check_slowfast_megatick(model, params, dcfg, mode, trace, per_tick,
@@ -1481,7 +1523,7 @@ def check_slowfast_megatick(model, params, dcfg, mode, trace, per_tick,
     from repro_torch.serving import SlowFastPolicy
     runs = {}
     for vname, vcfg in VARIANTS:
-        eng, keys, tick_ms, counts = engine_run(
+        eng, keys, tick_ms, counts, _ = engine_run(
             model, params, dcfg, mode, trace, True,
             policy=SlowFastPolicy(threshold=0.0), **vcfg)
         mt = eng._megatick_fn
@@ -1538,8 +1580,7 @@ def profile_engine(model, params, dcfg, mode, trace, name, vcfg, per_tick,
         eng.tick()
     torch.cuda.synchronize()
     n0 = eng.ticks_total
-    step = (eng._tick_fn if eng._megatick_fn is None
-            else eng._megatick_fn._step)
+    step = graph_step(eng)
     replays0 = step.replays
     _build.reset_launch_counts()
     with profiled() as prof:
@@ -1568,6 +1609,10 @@ def profile_engine(model, params, dcfg, mode, trace, name, vcfg, per_tick,
         classes[cls] = classes.get(cls, 0.0) + end - start
     gaps = [start - prev_end for (_, prev_end, _), (start, _, kname)
             in zip(kernels, kernels[1:]) if "topk_mask" in kname]
+    # index_select, index_copy_ and advanced indexing (within "other"):
+    # the paged tick's gathers and scatters add to these
+    index_us = sum(end - start for start, end, kname in kernels
+                   if "index" in kname.lower())
     log(f"profile path={name}, per tick over {n} ticks ({replays} graph "
         f"replays): wall {wall_us / n / 1e3:.3f} ms, device busy "
         f"{busy_us / n / 1e3:.3f} ms (idle "
@@ -1578,8 +1623,299 @@ def profile_engine(model, params, dcfg, mode, trace, name, vcfg, per_tick,
         f"over {len(gaps)} launches (min {min(gaps, default=0):.3f}, max "
         f"{max(gaps, default=0):.3f}); device ms per tick: "
         + ", ".join(f"{c} {us / n / 1e3:.4f}" for c, us in
-                    sorted(classes.items(), key=lambda kv: -kv[1])))
+                    sorted(classes.items(), key=lambda kv: -kv[1]))
+        + f" (of other: indexing kernels {index_us / n / 1e3:.4f})")
     return busy_us / n / 1e3
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the paged pool on each path
+# ---------------------------------------------------------------------------
+
+PAGED = dict(pool="paged", page_size=16)
+
+
+def phase_paged(model, params, slot) -> dict:
+    """The engine trace of phase 4 through the paged pool (page 16) on
+    paths warm, none and warm+baos, each eager K=1, graphed K=1 and
+    graphed K=8: tokens, per-request ticks, CommitEvents and ticks_total
+    must equal the slot pool's run at the same settings (``slot``, from
+    phase_engine), its launch counts too (K=8: up to each run's own ticks
+    after a stop), and a graphed run must capture no graph after
+    warmup().  Then a profile of the paged warm graphed K=1 tick against
+    the slot tick's, the gather and scatter against their byte bound,
+    preemption at full width and the prefix-heavy goodput case.  Returns
+    the launch counts of the runs."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    cfg = model.cfg
+    trace = engine_trace(cfg)
+    launches = {name: 0 for name in _build.KERNELS}
+    dcfgs, warm_eng = {}, None
+    for name, mode, dcfg, expected in engine_paths():
+        if name not in ("warm", "none", "warm+baos"):
+            continue
+        dcfgs[name] = dcfg
+        ref, per_tick = slot[name]["runs"], slot[name]["per_tick"]
+        walls = []
+        for vname, vcfg in VARIANTS:
+            what = f"paged engine path={name} {vname}"
+            eng, keys, tick_ms, counts, captures0 = engine_run(
+                model, params, dcfg, mode, trace, True, **vcfg, **PAGED)
+            step = graph_step(eng)
+            captured = 0 if step is None else step.captures - captures0
+            mt = eng._megatick_fn
+            wasted = 0 if mt is None else mt.ticks_wasted
+            p50, p84 = np.percentile(np.array(tick_ms), [50, 84])
+            st = eng.pool.stats()
+            log(f"{what}: {len(eng.completed)} requests, {eng.ticks_total} "
+                f"ticks, tick wall ms median {p50:.2f} p84 {p84:.2f} (slot "
+                f"pool, same settings and sinks: {ref[vname]['sink_p50']:.2f}"
+                f"), {eng.metrics.summary()['tokens_per_s']:.1f} tokens/s, "
+                f"max memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+                f"paged_io {eng.metrics.stage_s['paged_io'] * 1e3:.2f} ms "
+                f"in all, peak pages in use (canvas + KV) "
+                f"{st['peak_pages_in_use']}, {st['num_pages'] - 1} usable in "
+                f"each store, graphs captured after warmup "
+                f"{captured}, ticks after a stop {wasted}, launches {counts}")
+            run = dict(tokens={c.uid: c.tokens.tolist()
+                               for c in eng.completed},
+                       ticks={c.uid: c.ticks for c in eng.completed},
+                       events=keys, ticks_total=eng.ticks_total)
+            for key, got in run.items():
+                require(got == ref[vname][key],
+                        f"{what}: {key} differ from the slot pool's")
+            want = {k: n + (wasted - ref[vname]["wasted"]) * per_tick[k]
+                    for k, n in ref[vname]["counts"].items()}
+            require(counts == want,
+                    f"{what}: launch counts {counts} != the slot pool's "
+                    f"{ref[vname]['counts']} with {wasted} ticks after a "
+                    f"stop for its {ref[vname]['wasted']}")
+            expect_launches(counts, expected, what)
+            require(captured == 0,
+                    f"{what}: {captured} graphs captured after warmup()")
+            for kname, n in counts.items():
+                launches[kname] += n
+            walls.append(f"{vname} {p50:.2f} vs {ref[vname]['sink_p50']:.2f}")
+            if name == "warm" and vname == "graphed K=1":
+                warm_eng = eng
+            if name == "warm+baos" and vname == "graphed K=1":
+                baos_run = run
+            del eng
+        log(f"paged engine path={name}: eager K=1, graphed K=1 and K=8 equal "
+            f"the slot pool's in tokens, per-request ticks, "
+            f"{len(ref['eager K=1']['events'])} CommitEvents, ticks_total "
+            f"and launches; tick wall median ms paged vs slot: "
+            + ", ".join(walls))
+    busy = profile_engine(model, params, dcfgs["warm"], "warm", trace,
+                          "paged warm graphed K=1",
+                          dict(jit_steps=True, **PAGED),
+                          slot["warm"]["per_tick"])
+    log(f"paged warm graphed K=1: device busy {busy:.3f} ms a tick against "
+        f"the slot pool's {slot['warm']['busy']['graphed K=1']:.3f} ms")
+    check_page_io(warm_eng)
+    del warm_eng
+    for kname, n in check_preempt(model, params, dcfgs["warm+baos"], trace,
+                                  baos_run).items():
+        launches[kname] += n
+    for kname, n in phase_goodput(model, params).items():
+        launches[kname] += n
+    return launches
+
+
+def check_page_io(eng) -> None:
+    """Device time of the paged tick's gather (pages -> dense views) and
+    scatter (back) at the engine's shape, from the profiler, beside their
+    byte bound: the gather reads each distinct page once and writes the
+    dense views, the scatter reads them and writes each distinct page
+    once (with distinct pages, 4 passes over the dense K, V and canvas).
+    Once with every row on pages of its own, once with the second half of
+    each row on the null page (repeated indices, as short rows and idle
+    slots have), each kernel named."""
+    from repro_torch.core import diffusion
+    pool = eng.pool
+    B, R = pool.canvas_table.shape
+    flags = pool._paged_flags
+    distinct = torch.arange(1, 1 + B * R, device=DEVICE).reshape(B, R)
+    half_null = distinct.clone()
+    half_null[:, R // 2:] = 0
+    for what, table in (("distinct pages", distinct),
+                        ("half on the null page", half_null)):
+        rows = diffusion.gather_canvas_rows(pool.canvas_pages, table)
+        dense = diffusion.gather_cache_rows(pool.cache, table, flags)
+
+        def gather():
+            diffusion.gather_canvas_rows(pool.canvas_pages, table)
+            diffusion.gather_cache_rows(pool.cache, table, flags)
+
+        def scatter():
+            diffusion.scatter_canvas_rows(pool.canvas_pages, table, rows)
+            diffusion.scatter_cache_rows(pool.cache, table, dense, flags)
+
+        parts = {}
+        for half, fn in (("gather", gather), ("scatter", scatter)):
+            parts[half] = device_kernels(fn, 10)
+        ms = {half: sum(t for t, _ in k.values())
+              for half, k in parts.items()}
+        dense_bytes = rows.numel() * rows.element_size() + sum(
+            dense[n].numel() * dense[n].element_size()
+            for n, paged in zip(sorted(pool.cache), flags) if paged)
+        n_pages = int(table.unique().numel())
+        moved = 2 * dense_bytes * (1 + n_pages / (B * R))
+        bound_ms = moved / HBM_BPS * 1e3
+        log(f"paged gather + scatter per tick, {what} ({B} x {R} entries, "
+            f"{n_pages} pages of {pool.page_size}; dense K, V and canvas "
+            f"{dense_bytes / 1e6:.1f} MB): gather {ms['gather']:.4f} ms + "
+            f"scatter {ms['scatter']:.4f} ms = "
+            f"{ms['gather'] + ms['scatter']:.4f} ms device, bound "
+            f"{bound_ms:.4f} ms (bytes, {moved / 1e6:.1f} MB); kernels: "
+            + "; ".join(
+                f"{half} {name[:60]} x{n:g} {t:.4f} ms"
+                for half, k in parts.items()
+                for name, (t, n) in sorted(k.items(),
+                                           key=lambda kv: -kv[1][0])))
+
+
+def check_preempt(model, params, dcfg, trace, ref) -> dict:
+    """Warm+BAOS, graphed K=1, paged: after tick 3 one request is
+    preempted in the middle of its block (spilled to the host: canvas row,
+    KV pages, calibration rows) and restores at the next admission; its
+    tokens and every CommitEvent must equal the uninterrupted run's
+    (``ref``), and no graph may be captured.  Prints the spill bytes and
+    the spill and restore times.  Returns the run's launch counts."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    eng = ServingEngine(model, params, dcfg, EngineConfig(
+        num_slots=4, max_seq_len=96, mode="warm", jit_steps=True, **PAGED))
+    eng.warmup()
+    captures0 = eng._tick_fn.captures
+    restore_ms = []
+    restore = eng.pool.restore
+
+    def timed_restore(slot, sp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore(slot, sp)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+
+    eng.pool.restore = timed_restore
+    _build.reset_launch_counts()
+    events = []
+    for p, g in trace:
+        eng.submit(Request(prompt=p, gen_length=g), on_commit=events.append)
+    while eng.pending:
+        eng.tick()
+        if eng.ticks_total == 3:
+            victim = next(s for s in eng.slots
+                          if s is not None and s.step_in_block > 0)
+            uid = victim.request.uid
+            where = f"block {victim.block_idx} step {victim.step_in_block}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            require(eng.preempt(uid), "preempt: the request is not live")
+            spill_ms = (time.perf_counter() - t0) * 1e3
+            nbytes = eng._preempted[uid][1].nbytes
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    st = eng.pool.stats()
+    tokens = {c.uid: c.tokens.tolist() for c in eng.completed}
+    what = "paged warm+baos graphed K=1 with a preemption"
+    log(f"{what}: request {uid} spilled at {where}: {nbytes} bytes "
+        f"to the host in {spill_ms:.3f} ms, restored in "
+        f"{', '.join(f'{t:.3f}' for t in restore_ms)} ms (KV pages and "
+        f"calibration rows; its canvas pages go up with the next flush); "
+        f"preemptions {st['preemptions']}, restores {st['restores']}, "
+        f"graphs captured after warmup "
+        f"{eng._tick_fn.captures - captures0}, launches {counts}")
+    require(st["preemptions"] == 1 and st["restores"] == 1,
+            f"{what}: {st['preemptions']} preemptions, {st['restores']} "
+            "restores")
+    require(tokens == ref["tokens"], f"{what}: tokens differ from the "
+                                     "uninterrupted run")
+    require(event_keys(events) == ref["events"],
+            f"{what}: CommitEvents differ from the uninterrupted run")
+    require(eng._tick_fn.captures == captures0,
+            f"{what}: graphs captured after warmup()")
+    return counts
+
+
+def phase_goodput(model, params) -> dict:
+    """The prefix-heavy goodput case at an equal page budget (the JAX
+    package's benchmarks/paged_cache.py goodput case at page 16, on real
+    ticks): mode none, graphed K=1, block 16, 8 steps; 48 requests at
+    t = 0 in two groups of 24 sharing a 64-token prompt (4 full pages),
+    each generating 16 tokens (one private page); max_seq_len 80 (5 pages
+    a row) and 20 pages for both pools: the slot pool's 4 slots, the paged
+    pool's 12 slots with num_pages 20 (page 0 reserved).  Every request
+    must complete with no mask id left.  Prints per pool tokens/s (over
+    the run's wall time), latency median, tick wall median, peak pages in
+    use, prefix hit rate and peak device memory.  Returns the launch
+    counts of both runs."""
+    import numpy as np
+    from repro_torch.core import diffusion
+    from repro_torch.kernels import _build
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = model.cfg
+    dcfg = diffusion.DiffusionConfig(block_length=16, steps_per_block=8)
+    rs = np.random.RandomState(7)
+    groups = [rs.randint(0, cfg.vocab - 200, size=(64,)).astype(np.int32)
+              for _ in range(2)]
+    n_req, gen, row_pages, budget = 48, 16, 5, 20
+    total = {name: 0 for name in _build.KERNELS}
+    rates = {}
+    for pool, slots, extra in (("slot", budget // row_pages, {}),
+                               ("paged", 12, dict(num_pages=budget))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        eng = ServingEngine(model, params, dcfg, EngineConfig(
+            num_slots=slots, max_seq_len=80, mode="none", jit_steps=True,
+            pool=pool, page_size=16, **extra))
+        eng.warmup()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        for i in range(n_req):
+            eng.submit(Request(prompt=groups[i % 2].copy(), gen_length=gen))
+        tick_ms = []
+        t0 = time.perf_counter()
+        while eng.pending:
+            t = time.perf_counter()
+            eng.tick()
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        for k, n in counts.items():
+            total[k] += n
+        what = f"goodput {pool} pool ({slots} slots)"
+        require(len(eng.completed) == n_req, f"{what}: requests missing")
+        for c in eng.completed:
+            require(not bool((c.tokens == cfg.mask_id).any()),
+                    f"{what}: request {c.uid} left mask ids")
+        s = eng.metrics.summary()
+        if pool == "paged":
+            st = eng.pool.stats()
+            pages, hit = st["peak_pages_in_use"], st["prefix_hit_rate"]
+        else:
+            pages, hit = eng.pool.peak_in_use * row_pages, 0.0
+        rates[pool] = n_req * gen / wall
+        log(f"{what}, {budget} pages of 16: {n_req} requests in {wall:.3f} s"
+            f", {eng.ticks_total} ticks, {rates[pool]:.1f} tokens/s, "
+            f"latency median {s['latency_p50_s']:.3f} s (engine clock), "
+            f"tick wall median {np.median(tick_ms):.2f} ms, peak requests "
+            f"in flight {eng.pool.peak_in_use}, peak pages in use {pages}, "
+            f"prefix hit rate {hit:.3f}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+            f"allocated, of which the engine's pool, graphs and buffers "
+            f"reserve {(torch.cuda.max_memory_reserved() - reserved0) / 2 ** 20:.1f}"
+            f" MiB, launches {counts}")
+        del eng
+    log(f"goodput paged / slot at {budget} pages: "
+        f"{rates['paged'] / rates['slot']:.3f}x")
+    return total
 
 
 def phase_tick_breakdown(eng, model, params, dcfg, name) -> None:
@@ -1772,7 +2108,9 @@ def main() -> int:
         phase_e2e(model, params, gen)
         for cache_mode in ("dual", "prefix"):
             phase_cached(model, params, gen, cache_mode)
-        launches = phase_engine(model, params)
+        launches, slot_paths = phase_engine(model, params)
+        for name, n in phase_paged(model, params, slot_paths).items():
+            launches[name] += n
         for name, n in phase_table6(model, params, gen).items():
             launches[name] += n
         del model, params

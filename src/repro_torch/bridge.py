@@ -4,12 +4,13 @@ port's layout.
 The tests build parameters with the JAX ``init_params``, turn them into
 numpy (``jax.tree.map(np.asarray, params)``) and hand them here, so both
 packages run on identical weights; ``cache_from_numpy`` does the same for
-a KV cache, so a step can start from the very cache state JAX produced.
+a KV cache, so a step can start from the very cache state JAX produced,
+and ``load_paged_pool`` for a paged pool's stores and block tables.
 This module imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -70,3 +71,25 @@ def cache_from_numpy(tree: Mapping, cfg: ModelConfig,
         out[name] = torch.from_numpy(
             np.asarray(tree[name], dtype=np.float32)).to(device=dev, dtype=dt)
     return out
+
+
+def load_paged_pool(pool, canvas_pages, canvas_table, kv_table,
+                    cache: Optional[Mapping] = None) -> None:
+    """A JAX ``PagedCachePool``'s device state, as numpy arrays (its
+    ``canvas_pages``, ``canvas_table``, ``kv_table`` and, with a cache, its
+    page-store ``cache``), written in place into the port's
+    ``serving.cache_pool.PagedCachePool`` ``pool`` of the same geometry:
+    the stores, the device tables and their host mirrors.  The host-side
+    bookkeeping (free lists, radix tree) is not carried: both pools reach
+    the same bookkeeping through the same calls."""
+    pool.canvas_pages.copy_(torch.from_numpy(
+        np.asarray(canvas_pages, np.int32)))
+    pool._canvas_np[:] = np.asarray(canvas_table)
+    pool._kv_np[:] = np.asarray(kv_table)
+    pool.canvas_table.copy_(pool._canvas_host)
+    pool.kv_table.copy_(pool._kv_host)
+    if cache is not None:
+        for name, t in cache.items():
+            dt = pool.cache[name].dtype
+            pool.cache[name].copy_(torch.from_numpy(
+                np.asarray(t, dtype=np.float32)).to(dt))

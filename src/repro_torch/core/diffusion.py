@@ -33,6 +33,9 @@ block/step/k bookkeeping on the device and one host sync per megastep.
 length), the graphed steps and the static buffers they read (the
 counterpart of JAX's lru-cached ``_cached_step_fn``/``_cached_commit_fn``
 compiles), so a second ``generate`` of the same shapes captures nothing.
+``get_paged_tick_fn`` and ``PagedMegatick`` are the tick and the megastep
+on the paged pool: gather the pages into dense views, the unchanged tick
+body, scatter back.
 
 ``**fwd_kw`` takes ``quant``, a ``models/layers.QuantPolicy``: the MX
 fake-quant at every GEMM boundary and on both operands of the LM head.
@@ -549,6 +552,229 @@ def _shared_megatick(model, dcfg, mask_id, k_max, jit_steps, threshold,
                      quant) -> Megatick:
     return Megatick(model, dcfg, mask_id, k_max, jit_steps=jit_steps,
                     slowfast_threshold=threshold, quant=quant)
+
+
+# ---------------------------------------------------------------------------
+# Paged block-pool tick: the serving canvas and KV cache live in fixed-size
+# physical pages addressed through per-slot block tables
+# (serving/cache_pool.PagedCachePool).  The device math is the unchanged
+# batched tick: a paged tick gathers the pages into the dense (B, S) views
+# the tick body expects, runs it, and scatters the results back, so greedy
+# tokens equal the slot pool's by construction.  A cache is a dict; its
+# leaves are taken in sorted key order, the order jax.tree flattens a dict
+# in, so the per-leaf lists below line up with the JAX package's.
+# ---------------------------------------------------------------------------
+
+def paged_cache_layout(model, page_size: int, s_tot: int):
+    """Probe ``model.init_cache``'s leaf layout for the paged pool.
+
+    Returns ``(names, paged, batch_axis)``: the cache's keys in sorted
+    order and, per key, whether the leaf carries a full sequence dimension
+    (it then moves into a page store) and where its batch dimension lies
+    (per-slot leaves, the BAOS calibration, are spilled and restored along
+    it).  The probe builds ``device="meta"`` tensors, so no cache is
+    allocated.  Layouts whose sequence axis is not axis 2 (with batch at
+    axis 1) are rejected: the gather and scatter views assume (stack,
+    batch, seq, ...)."""
+    def shapes(batch, s):
+        cache = model.init_cache(batch, s, device="meta")
+        return sorted(cache), [tuple(cache[n].shape) for n in sorted(cache)]
+
+    names, base = shapes(2, s_tot)
+    _, grown = shapes(2, s_tot + page_size)
+    _, wider = shapes(3, s_tot)
+    paged, batch_axis = [], []
+    for lb, lg, lw in zip(base, grown, wider):
+        seq_axes = [i for i, (a, b) in enumerate(zip(lb, lg)) if a != b]
+        bat_axes = [i for i, (a, b) in enumerate(zip(lb, lw)) if a != b]
+        if len(bat_axes) != 1:
+            raise ValueError(
+                f"paged pool: cannot locate the batch axis of cache leaf "
+                f"with shape {lb}")
+        if seq_axes and (seq_axes != [2] or bat_axes != [1]):
+            raise ValueError(
+                f"paged pool supports (stack, batch, seq, ...) cache "
+                f"leaves only; got shape {lb} with seq axes {seq_axes}, "
+                f"batch axes {bat_axes}")
+        paged.append(bool(seq_axes))
+        batch_axis.append(bat_axes[0])
+    return names, paged, batch_axis
+
+
+def _page_index(table: torch.Tensor) -> torch.Tensor:
+    return table.reshape(-1).to(torch.int64)
+
+
+def gather_canvas_rows(canvas_pages: torch.Tensor, canvas_table: torch.Tensor,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(NP, page) canvas pages + (B, R) block table -> dense (B, S) rows,
+    into ``out`` when given."""
+    B, R = canvas_table.shape
+    ps = canvas_pages.shape[1]
+    idx = _page_index(canvas_table)
+    if out is None:
+        return canvas_pages.index_select(0, idx).reshape(B, R * ps)
+    torch.index_select(canvas_pages, 0, idx, out=out.view(B * R, ps))
+    return out
+
+
+def scatter_canvas_rows(canvas_pages: torch.Tensor, canvas_table: torch.Tensor,
+                        rows: torch.Tensor) -> torch.Tensor:
+    """Write dense (B, S) rows back through the block table, in place.
+
+    Shared radix-cached prompt pages and the null page 0 appear more than
+    once in the table, and where an index repeats, ``index_copy_`` on the
+    card lets an arbitrary writer win.  Every writer of such a page writes
+    the same values: prompt content never changes, and null-mapped tail
+    and idle positions carry the page's own gathered content (a tick
+    commits only inside each row's active block, which lies on private
+    pages).  So the result does not depend on the order."""
+    B, R = canvas_table.shape
+    ps = canvas_pages.shape[1]
+    return canvas_pages.index_copy_(0, _page_index(canvas_table),
+                                    rows.reshape(B * R, ps))
+
+
+def _paged_view(store: torch.Tensor, B: int, R: int) -> Tuple[int, ...]:
+    """The (stack, B * R, page, ...) shape of a dense leaf of B rows."""
+    return store.shape[:1] + (B * R, store.shape[2]) + store.shape[3:]
+
+
+def gather_cache_rows(cache_store: Dict, kv_table: torch.Tensor, paged_flags,
+                      out: Optional[Dict] = None) -> Dict:
+    """Page-store cache -> the dense per-slot cache the tick body expects.
+    Per-slot leaves pass through as the store's own tensors, or with
+    ``out`` (a dict of dense buffers) are copied into it."""
+    B, R = kv_table.shape
+    idx = _page_index(kv_table)
+    dense = {} if out is None else out
+    for name, paged in zip(sorted(cache_store), paged_flags):
+        leaf = cache_store[name]
+        if not paged:
+            if out is None:
+                dense[name] = leaf
+            else:
+                out[name].copy_(leaf)
+        elif out is None:
+            dense[name] = leaf.index_select(1, idx).reshape(
+                leaf.shape[:1] + (B, R * leaf.shape[2]) + leaf.shape[3:])
+        else:
+            torch.index_select(leaf, 1, idx,
+                               out=out[name].view(_paged_view(leaf, B, R)))
+    return dense
+
+
+def scatter_cache_rows(cache_store: Dict, kv_table: torch.Tensor,
+                       new_cache: Dict, paged_flags) -> Dict:
+    """Write a tick's dense cache back into the page stores, in place.
+    KV pages are private per slot (the warm tick rewrites every position
+    every tick, so sharing would break the moment it was established).
+    Only tail and idle entries alias the null page 0, and there the
+    writers differ, so which one wins is arbitrary: safe, because those
+    positions are masked out of ``kv_valid``, never read by a valid
+    position, and every warm tick rewrites them before it attends."""
+    B, R = kv_table.shape
+    idx = _page_index(kv_table)
+    for name, paged in zip(sorted(cache_store), paged_flags):
+        store, new = cache_store[name], new_cache[name]
+        if paged:
+            store.index_copy_(1, idx, new.reshape(_paged_view(store, B, R)))
+        elif new is not store:
+            store.copy_(new)
+    return cache_store
+
+
+def get_paged_tick_fn(model, dcfg: DiffusionConfig, mask_id: int,
+                      page_size: int, s_tot: int, with_cache: bool = True,
+                      jit_steps: bool = True, quant=None, pool=None):
+    """``batched_tick`` reading and writing through block tables, the JAX
+    ``get_paged_tick_fn``: ``tick(params, canvas_pages, cache_store,
+    canvas_table, kv_table, kv_valid, block_start, k, seed) ->
+    (canvas_pages, cache_store, x, conf_min, masks_left)``.  Gather the
+    canvas and KV pages into dense (B, S) views, run the unchanged tick
+    body, scatter back into the stores in place; ``x`` is the post-tick
+    dense canvas, the copy that streaming diffs and request release read.
+    With ``jit_steps`` on the card gather, tick and scatter are one CUDA
+    graph (core/graphs.py, in memory ``pool``): the stores, tables and
+    inputs are then its static buffers, written in place between calls,
+    and the outputs live until the next call.  Without, or on the CPU, the
+    same function runs eagerly."""
+    flags = (paged_cache_layout(model, page_size, s_tot)[1]
+             if with_cache else None)
+
+    def tick(params, canvas_pages, cache_store, canvas_table, kv_table,
+             kv_valid, block_start, k, seed):
+        x = gather_canvas_rows(canvas_pages, canvas_table)
+        cache = (None if cache_store is None
+                 else gather_cache_rows(cache_store, kv_table, flags))
+        x_new, cache, conf_min, masks_left = batched_tick(
+            model, params, x, kv_valid, block_start, k, seed, cache, dcfg,
+            mask_id, quant)
+        scatter_canvas_rows(canvas_pages, canvas_table, x_new)
+        if cache_store is not None:
+            scatter_cache_rows(cache_store, kv_table, cache, flags)
+        return canvas_pages, cache_store, x_new, conf_min, masks_left
+
+    return graphs.GraphedStep(tick, pool) if jit_steps else tick
+
+
+class PagedMegatick(Megatick):
+    """The paged megastep, the JAX ``get_paged_megatick_fn``: ``fn(params,
+    canvas_pages, cache_store, canvas_table, kv_table, kv_valid, state,
+    tick, k_req, stop_on_release, seed=0) -> (canvas_pages, cache_store,
+    x, tick + n, state, buffers, n)``.  The block tables are fixed across a
+    megastep (admission and release happen at its boundaries), so the
+    pages are gathered once into dense canvas and cache buffers that this
+    object owns (made at the first call of a shape), the megatick runs on
+    them as on the slot pool's, and they are scattered back once.  The
+    buffers keep their addresses, so the megatick's graphs capture once;
+    per-slot leaves are copied in and out with the KV, so a call on copies
+    of the stores (the engine's warmup) leaves the engine's own untouched.
+    ``x`` is the dense canvas buffer, valid until the next call."""
+
+    def __init__(self, model, dcfg: DiffusionConfig, mask_id: int,
+                 k_max: int, page_size: int, s_tot: int,
+                 with_cache: bool = True, jit_steps: bool = True,
+                 slowfast_threshold: Optional[float] = None, quant=None):
+        super().__init__(model, dcfg, mask_id, k_max, jit_steps=jit_steps,
+                         slowfast_threshold=slowfast_threshold, quant=quant)
+        self.flags = (paged_cache_layout(model, page_size, s_tot)[1]
+                      if with_cache else None)
+
+    def _dense_for(self, canvas_pages: torch.Tensor,
+                   canvas_table: torch.Tensor, cache_store: Optional[Dict]):
+        B, R = canvas_table.shape
+        S, dev = R * canvas_pages.shape[1], canvas_pages.device
+        key = ("dense", B, S, dev)
+        if key not in self._carry:
+            cache = None
+            if cache_store is not None:
+                cache = {}
+                for name, paged in zip(sorted(cache_store), self.flags):
+                    leaf = cache_store[name]
+                    shape = (leaf.shape[:1] + (B, S) + leaf.shape[3:]
+                             if paged else leaf.shape)
+                    cache[name] = torch.zeros(shape, dtype=leaf.dtype,
+                                              device=dev)
+            self._carry[key] = (torch.zeros((B, S), dtype=canvas_pages.dtype,
+                                            device=dev), cache)
+        return self._carry[key]
+
+    def __call__(self, params, canvas_pages: torch.Tensor,
+                 cache_store: Optional[Dict], canvas_table: torch.Tensor,
+                 kv_table: torch.Tensor, kv_valid, state: Dict, tick: int,
+                 k_req: int, stop_on_release: bool, seed: int = 0):
+        x, cache = self._dense_for(canvas_pages, canvas_table, cache_store)
+        gather_canvas_rows(canvas_pages, canvas_table, out=x)
+        if cache is not None:
+            gather_cache_rows(cache_store, kv_table, self.flags, out=cache)
+        x, cache, tick, st, bufs, n = super().__call__(
+            params, x, kv_valid, state, tick, k_req, stop_on_release, cache,
+            seed)
+        scatter_canvas_rows(canvas_pages, canvas_table, x)
+        if cache is not None:
+            scatter_cache_rows(cache_store, kv_table, cache, self.flags)
+        return canvas_pages, cache_store, x, tick, st, bufs, n
 
 
 # ---------------------------------------------------------------------------

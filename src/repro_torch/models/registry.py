@@ -26,8 +26,13 @@ class TransformerModel:
     def init(self, seed: int = 0) -> Dict:
         return transformer.init_params(self.cfg, seed, self.device)
 
-    def init_cache(self, batch: int, s_tot: int) -> Dict:
-        return transformer.init_cache(self.cfg, batch, s_tot, self.device)
+    def init_cache(self, batch: int, s_tot: int,
+                   device: Union[str, torch.device, None] = None) -> Dict:
+        """The cache on ``device`` (default: the model's; ``"meta"``
+        gives shapes and dtypes without allocating)."""
+        return transformer.init_cache(self.cfg, batch, s_tot,
+                                      self.device if device is None
+                                      else device)
 
     def forward(self, params: Dict, tokens: torch.Tensor, **kw):
         return transformer.forward(params, self.cfg, tokens, **kw)

@@ -20,8 +20,19 @@ Tick modes:
 every tick the engine diffs the request's row against its host-tracked mask
 state and hands the callback a :class:`CommitEvent` with the positions and
 tokens that committed on that tick.  ``cancel(uid)`` removes a still-queued
-request.  Not ported yet (ROADMAP.md): the paged pool, the mesh,
-per-stage breakdown timing and the observability hooks.
+request.  Not ported yet (ROADMAP.md): the mesh, per-stage breakdown
+timing and the observability hooks.
+
+``EngineConfig(pool="paged")`` stores the canvas and the warm KV in pages
+behind per-slot block tables (serving/cache_pool.PagedCachePool): full
+prompt pages are shared through a radix tree, admission counts pages
+(``page_size``, ``num_pages``, ``prefix_cache``), and a request can be
+preempted to the host (``preempt(uid)``, or a ``Policy.preempt`` hook when
+a request's pages do not fit) and restored bit for bit.  Each tick flushes
+the pool's staged pages and tables (timed as the ``paged_io`` stage), then
+gathers the pages into dense views, runs the unchanged tick and scatters
+back (core/diffusion.get_paged_tick_fn, PagedMegatick), so tokens and
+CommitEvents equal the slot pool's.
 
 ``EngineConfig.fwd_kw`` carries the forward's keyword arguments, as in
 JAX: ``{"quant": layers.QuantPolicy(...)}`` runs every tick with the MX
@@ -42,13 +53,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import diffusion, schedule as schedule_lib
-from repro_torch.serving.cache_pool import CachePool
+from repro_torch.serving.cache_pool import (CachePool, PagedCachePool,
+                                            SpilledSlot)
 from repro_torch.serving.metrics import MetricsTracker
 from repro_torch.serving.scheduler import (FIFOPolicy, Policy,
                                            SlowFastPolicy, get_policy)
@@ -131,8 +143,11 @@ class _Slot:
 class EngineConfig:
     """The JAX EngineConfig's fields; ``seed`` (uint32, the counter-Gumbel
     stream) stands for its ``rng``, and the device is the model's.
-    ``fwd_kw`` takes ``quant`` (a ``models/layers.QuantPolicy``).  The
-    mesh, paged-pool and breakdown options are not ported yet and raise
+    ``fwd_kw`` takes ``quant`` (a ``models/layers.QuantPolicy``).
+    ``pool`` selects the storage: ``"slot"`` (one fixed region per batch
+    slot) or ``"paged"`` (block pool + radix prefix cache);
+    ``page_size``/``num_pages``/``prefix_cache`` apply to the paged pool
+    only.  The mesh and breakdown options are not ported yet and raise
     unless left at their defaults."""
     num_slots: int = 4
     max_seq_len: int = 128
@@ -145,6 +160,9 @@ class EngineConfig:
     pool: str = "slot"
     breakdown: bool = False
     fwd_kw: Optional[dict] = None
+    page_size: int = 16
+    num_pages: Optional[int] = None
+    prefix_cache: bool = True
 
 
 class _HostCanvas:
@@ -170,6 +188,14 @@ class ServingEngine:
         config = config or EngineConfig()
         if config.mode not in ("warm", "none"):
             raise ValueError(f"unknown engine mode {config.mode!r}")
+        if config.pool not in ("slot", "paged"):
+            raise ValueError(f"unknown pool backend {config.pool!r}; "
+                             "choose 'slot' or 'paged'")
+        self.paged = config.pool == "paged"
+        if self.paged and config.breakdown:
+            raise ValueError(
+                "the paged pool is incompatible with breakdown timing (the "
+                "paged tick is one gather/tick/scatter step)")
         policy = config.policy or FIFOPolicy()
         self.megatick_k = int(config.megatick_k)
         if self.megatick_k < 1:
@@ -190,8 +216,7 @@ class ServingEngine:
                     f"policy {policy.name!r} overrides step_k; only the "
                     "default schedule and SlowFastPolicy run on the device "
                     "inside a megatick")
-        for name, default in (("mesh", None), ("pool", "slot"),
-                              ("breakdown", False)):
+        for name, default in (("mesh", None), ("breakdown", False)):
             if getattr(config, name) != default:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={getattr(config, name)!r} is not "
@@ -212,11 +237,20 @@ class ServingEngine:
         self.seed = config.seed
         self.jit_steps = config.jit_steps
         self.device = model.device
-        self.pool = CachePool(model, self.num_slots, self.max_seq_len,
-                              with_cache=(self.mode == "warm"))
+        with_cache = self.mode == "warm"
+        if self.paged:
+            self.pool = PagedCachePool(
+                model, self.num_slots, self.max_seq_len,
+                page_size=config.page_size, num_pages=config.num_pages,
+                with_cache=with_cache, mask_id=self.mask_id,
+                prefix_cache=config.prefix_cache, device=self.device)
+        else:
+            self.pool = CachePool(model, self.num_slots, self.max_seq_len,
+                                  with_cache=with_cache)
         self.slots: List[Optional[_Slot]] = [None] * self.num_slots
         self.slot_of_uid: Dict[int, int] = {}
         self.queue: List[Request] = []
+        self._preempted: Dict[int, Tuple[_Slot, SpilledSlot]] = {}
         self._req_policy: Dict[int, Policy] = {}
         self._next_uid = 1
         self.completed: List[CompletedRequest] = []
@@ -256,19 +290,32 @@ class ServingEngine:
         self._stage_np = self._stage_host.numpy()
         self._stage = self._stage_host.to(self.device, copy=True)
         # a megatick engine runs every tick() as a megastep, so it holds
-        # the megatick fn and no K=1 tick fn
-        self._tick_fn = (diffusion.get_tick_fn(model, dcfg, self.mask_id,
-                                               quant=self._quant)
-                         if self.jit_steps and self.megatick_k == 1
-                         else None)
+        # the megatick fn and no K=1 tick fn; the paged K=1 tick runs
+        # through its tick fn eagerly too (jit_steps=False)
+        self._tick_fn = None
+        if self.megatick_k == 1 and self.paged:
+            self._tick_fn = diffusion.get_paged_tick_fn(
+                model, dcfg, self.mask_id, config.page_size,
+                self.max_seq_len, with_cache=with_cache,
+                jit_steps=self.jit_steps, quant=self._quant)
+        elif self.megatick_k == 1 and self.jit_steps:
+            self._tick_fn = diffusion.get_tick_fn(model, dcfg, self.mask_id,
+                                                  quant=self._quant)
         self._megatick_fn = None
         if self.megatick_k > 1:
             # the engine's own megatick, not get_megatick_fn's shared one:
-            # its graphs hold this engine's canvas and cache
-            self._megatick_fn = diffusion.Megatick(
-                model, dcfg, self.mask_id, self.megatick_k,
-                jit_steps=self.jit_steps,
-                slowfast_threshold=self._sf_threshold, quant=self._quant)
+            # its graphs hold this engine's canvas and cache (the paged
+            # one's: its own dense buffers)
+            kw = dict(jit_steps=self.jit_steps,
+                      slowfast_threshold=self._sf_threshold,
+                      quant=self._quant)
+            self._megatick_fn = (
+                diffusion.PagedMegatick(
+                    model, dcfg, self.mask_id, self.megatick_k,
+                    config.page_size, self.max_seq_len,
+                    with_cache=with_cache, **kw) if self.paged
+                else diffusion.Megatick(model, dcfg, self.mask_id,
+                                        self.megatick_k, **kw))
 
     # -- request lifecycle --------------------------------------------------
 
@@ -339,11 +386,25 @@ class ServingEngine:
         return False
 
     def _admit(self) -> None:
+        if self.paged:
+            self._restore_preempted()
         while self.pool.free_slots:
             arrived = [r for r in self.queue if r.arrival_time <= self.now]
             if not arrived:
                 break
             pick = arrived[self.policy.select(arrived, self.now)]
+            if self.paged and not self.pool.can_admit(
+                    np.asarray(pick.prompt, np.int32), pick.total_len):
+                # footprint-blocked: the slot exists but the projected
+                # pages do not fit.  Ask the policy for a victim to spill;
+                # with no preemption hook the request waits in the queue
+                victim = self.policy.preempt(self.slots, pick, self.now)
+                if victim is None or self.slots[victim] is None:
+                    break
+                self.preempt(self.slots[victim].request.uid)
+                if not self.pool.can_admit(
+                        np.asarray(pick.prompt, np.int32), pick.total_len):
+                    break
             self.queue.remove(pick)
             slot = self.pool.acquire()
             self.slots[slot] = _Slot(
@@ -357,10 +418,57 @@ class ServingEngine:
             self.slot_of_uid[pick.uid] = slot
             row = np.full((self.max_seq_len,), self.mask_id, np.int32)
             row[:pick.prompt_len] = np.asarray(pick.prompt, np.int32)
-            self.x[slot] = torch.as_tensor(row, device=self.device)
+            if self.paged:
+                # prompt pages dedup through the radix cache; uploads are
+                # staged and flushed once per tick (PagedCachePool.flush)
+                self.pool.bind_row(slot, row, pick.prompt_len,
+                                   pick.total_len)
+            else:
+                self.x[slot] = torch.as_tensor(row, device=self.device)
             self._valid_np[slot] = np.arange(self.max_seq_len) < pick.total_len
             self._kv_dirty = True      # uploaded once per tick, not per admit
             self.metrics.request_admitted(pick.uid, self.now)
+
+    # -- preemption (paged pool only) ---------------------------------------
+
+    def preempt(self, uid: int) -> bool:
+        """Spill an admitted request to host memory and free its slot and
+        pages; it re-admits with bit-identical state once pages free up,
+        ahead of the queue.  Returns False for an unknown or unadmitted
+        uid."""
+        if not self.paged:
+            raise RuntimeError("preempt() requires the paged pool "
+                               "(EngineConfig(pool='paged'))")
+        slot = self.slot_of_uid.get(uid)
+        if slot is None:
+            return False
+        s = self.slots[slot]
+        sp = self.pool.spill(slot)
+        sp.prompt_len = s.request.prompt_len
+        self._preempted[uid] = (s, sp)
+        self.slots[slot] = None
+        del self.slot_of_uid[uid]
+        self._valid_np[slot] = np.arange(self.max_seq_len) < 1
+        self._kv_dirty = True
+        return True
+
+    def _restore_preempted(self) -> None:
+        """Re-admit spilled requests (oldest first) while slots and pages
+        allow: they resume where they left off, so they outrank the
+        queue."""
+        for uid in list(self._preempted):
+            if not self.pool.free_slots:
+                break
+            s, sp = self._preempted[uid]
+            if not self.pool.can_restore(sp):
+                break
+            slot = self.pool.acquire()
+            self.pool.restore(slot, sp)
+            self.slots[slot] = s
+            self.slot_of_uid[uid] = slot
+            self._valid_np[slot] = np.arange(self.max_seq_len) < sp.total_len
+            self._kv_dirty = True
+            del self._preempted[uid]
 
     def _release(self, slot: int, x_host: np.ndarray) -> None:
         s = self.slots[slot]
@@ -385,7 +493,7 @@ class ServingEngine:
 
     @property
     def pending(self) -> int:
-        return len(self.queue) + self.active_slots
+        return len(self.queue) + self.active_slots + len(self._preempted)
 
     def _next_arrival(self) -> Optional[float]:
         return min((r.arrival_time for r in self.queue), default=None)
@@ -403,14 +511,21 @@ class ServingEngine:
         with megatick_k > 1, the megastep's) on the card, so the first
         timed tick pays no build and no capture.  Leaves the clock, metrics
         and canvas untouched; in warm mode it rewrites the pool's K/V,
-        which every tick rewrites before reading anyway."""
+        which every tick rewrites before reading anyway.  The paged
+        megatick warms up on copies of the page stores, as JAX's does (its
+        dense buffers, which its graphs read, are the live run's)."""
         self._flush_kv_valid()
+        if self.paged:
+            self.pool.flush()
         B = self.num_slots
         cache = self.pool.cache if self.mode == "warm" else None
         if self._tick_fn is not None:
             self._stage_np[:] = 0
             for _ in range(2):              # the eager call, then capture
-                self._graphed_tick(cache)
+                if self.paged:
+                    self._paged_tick()
+                else:
+                    self._graphed_tick(cache)
         elif self._megatick_fn is None:
             zeros = torch.zeros((B,), dtype=torch.int32, device=self.device)
             diffusion.batched_tick(self.model, self.params, self.x,
@@ -421,9 +536,18 @@ class ServingEngine:
             state = diffusion.megatick_state(
                 zeros, zeros, self.dcfg, active=np.zeros((B,), bool))
             fn = self._megatick_fn
+            if self.paged:
+                pool = self.pool
+                store = (None if cache is None else
+                         {name: t.clone() for name, t in cache.items()})
+                args = (self.params, pool.canvas_pages.clone(), store,
+                        pool.canvas_table, pool.kv_table, self.kv_valid,
+                        state, 0, 1, False, self.seed)
+            else:
+                args = (self.params, self.x, self.kv_valid, state, 0, 1,
+                        False, cache, self.seed)
             for _ in range(2):              # the eager call, then capture
-                fn(self.params, self.x, self.kv_valid, state, 0, 1, False,
-                   cache, self.seed)
+                fn(*args)
             fn.ticks_run = fn.ticks_wasted = 0
             fn.host_waits = fn.event_waits = 0
         if self.device.type == "cuda":
@@ -441,6 +565,27 @@ class ServingEngine:
             self._stage[B:2 * B], self._stage[2 * B:], cache)
         self.x.copy_(x_new)
         return conf_min, masks_left
+
+    def _paged_tick(self):
+        """One tick through the paged tick fn on the pool's stores and
+        tables and the staging vector; ``x`` becomes the post-tick dense
+        canvas (with a graph, its output tensor).  Returns (conf_min,
+        masks_left)."""
+        B, pool = self.num_slots, self.pool
+        self._stage.copy_(self._stage_host, non_blocking=True)
+        _, _, self.x, conf_min, masks_left = self._tick_fn(
+            self.params, pool.canvas_pages, pool.cache, pool.canvas_table,
+            pool.kv_table, self.kv_valid, self._stage[:B],
+            self._stage[B:2 * B], self._stage[2 * B:])
+        return conf_min, masks_left
+
+    def _flush_pages(self) -> None:
+        """The paged pool's staged pages and tables go up before a tick
+        (or megastep), timed apart from it as the ``paged_io`` stage."""
+        if self.paged:
+            t0 = time.perf_counter()
+            self.pool.flush()
+            self.metrics.record_stage("paged_io", time.perf_counter() - t0)
 
     def _admit_or_idle(self) -> bool:
         """Admit; when no slot is busy, fast-forward the clock to the next
@@ -466,6 +611,7 @@ class ServingEngine:
             return self._megastep(max_ticks)
         if not self._admit_or_idle():
             return False
+        self._flush_pages()
 
         T = self.dcfg.steps_per_block
         L = self.dcfg.block_length
@@ -497,7 +643,8 @@ class ServingEngine:
             self._stage_np[:B] = bs_np
             self._stage_np[B:2 * B] = k_np
             self._stage_np[2 * B] = seed
-            conf_min, masks_left = self._graphed_tick(cache)
+            conf_min, masks_left = (self._paged_tick() if self.paged
+                                    else self._graphed_tick(cache))
         conf_np = conf_min.cpu().numpy()      # device sync point
         masks_np = masks_left.cpu().numpy()
         self.host_waits += 1
@@ -598,6 +745,7 @@ class ServingEngine:
         and ``now`` advanced by an equal share of the megastep per tick."""
         if not self._admit_or_idle():
             return False
+        self._flush_pages()
         k_req, stop_on_release = self._choose_megatick_k(max_ticks)
         L = self.dcfg.block_length
         B = self.num_slots
@@ -626,9 +774,16 @@ class ServingEngine:
             block_masks_left=bml, last_conf=lc, active=act)
         fn = self._megatick_fn
         waits0 = fn.host_waits
-        _, _, _, _, bufs, n = fn(self.params, self.x, self.kv_valid, state,
-                                 self.ticks_total, k_req, stop_on_release,
-                                 cache, self.seed)
+        if self.paged:
+            pool = self.pool
+            _, _, self.x, _, _, bufs, n = fn(
+                self.params, pool.canvas_pages, cache, pool.canvas_table,
+                pool.kv_table, self.kv_valid, state, self.ticks_total, k_req,
+                stop_on_release, self.seed)
+        else:
+            _, _, _, _, bufs, n = fn(self.params, self.x, self.kv_valid,
+                                     state, self.ticks_total, k_req,
+                                     stop_on_release, cache, self.seed)
         self.host_waits += fn.host_waits - waits0
         masks_b = bufs["masks_left"][:n].cpu().numpy()
         conf_b = bufs["conf"][:n].cpu().numpy()

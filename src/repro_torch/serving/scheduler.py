@@ -4,7 +4,8 @@ queue-deadline helper.
 
 Admission (``select``) picks which queued request takes a freed slot;
 the step hook (``step_k``) can override how many tokens a slot commits on
-the next tick.  The SlowFast policy implements the adaptive-step idea of
+the next tick; the preemption hook (``preempt``) names a slot to spill
+when a request's pages do not fit the paged pool.  The SlowFast policy implements the adaptive-step idea of
 "SlowFast Sampling" (PAPERS.md): once every token committed in a tick
 clears a confidence threshold, the model is in its convergent phase and
 the rest of the block is committed in one shot.
@@ -30,6 +31,12 @@ class Policy:
     def step_k(self, slot, default_k: int) -> int:
         """Tokens slot should commit next tick (default: transfer schedule)."""
         return default_k
+
+    def preempt(self, slots: Sequence, incoming, now: float):
+        """Slot index to spill so page-blocked ``incoming`` can admit, or
+        None to leave it queued (paged pool only).  The default never
+        preempts: admitted work runs to completion."""
+        return None
 
 
 class FIFOPolicy(Policy):

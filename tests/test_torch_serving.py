@@ -148,10 +148,11 @@ def test_engine_policies_cancel_and_validation(models):
     assert eng.metrics.summary()["requests_completed"] == 2
 
 
-# the megatick is ported; its mesh variant waits for the mesh (ROADMAP
-# Queue 1 item 12), so option0 is the mesh megatick
+# the megatick and the paged pool are ported; their mesh variants wait
+# for the mesh (ROADMAP Queue 1 item 12), so option0 is the mesh megatick
+# and option1 the paged pool under a mesh
 @pytest.mark.parametrize("option", [dict(megatick_k=4, mesh=object()),
-                                    dict(pool="paged"),
+                                    dict(pool="paged", mesh=object()),
                                     dict(breakdown=True), dict(mesh=object())])
 def test_unported_engine_options_raise(models, option):
     _, model_t, _, params_t = models
