@@ -90,8 +90,31 @@ Phases, each fatal on failure:
                tick's sampling held against plain) and codeqwen1.5-7b
                (engine warm) at full width, one model at a time, eager
                against graphed K=1.
+  6. serve -- the port's serving stack on llada-8b at full width.  6a:
+               the engine trace with EngineConfig(breakdown=True) on paths
+               warm, warm + BAOS and warm on the legacy head at fmt none
+               (the Fig. 1 pair with warm's fused mxfp8 head), eager and
+               graphed: tokens, per-request ticks, CommitEvents and
+               ticks_total equal the plain engine's; the forward,
+               sampling, host_prep and host_sync medians and the sampling
+               share.  6b: warm graphed K=1 and K=8 with obs off, metrics
+               + drift, and metrics + drift + trace + event log: tokens,
+               CommitEvents and host waits equal; the log and the trace
+               valid, /metrics ticks and tokens equal the engine's, drift
+               has ticks; tick wall medians.  6c: build_frontend on
+               127.0.0.1: one slot in mode none, a streamed and a gathered
+               request equal generate() bit for bit; four slots warm
+               graphed: 17 requests on paused workers (one answered 429),
+               each complete with its commit positions partitioning its
+               generation region, monotone ticks, no mask id; a
+               torch.profiler trace of 4 ticks; loadgen's 16 requests
+               (TTFT, tokens/s, latency); a graceful drain.  6d:
+               ``python -m repro_torch.launch.serve --arch llada-8b
+               --full`` as a subprocess with --breakdown, a trace and an
+               event log (both valid, logquery --validate exits 0), and
+               with --legacy; each exits 0.
 Every path's launch counts are zeroed just before it and read just after;
-the kernels line sums them over phases 4, 4b, 3b and 5.
+the kernels line sums them over phases 4, 4b, 3b, 5 and 6a-6c.
 Prints the kernels JSON line, the card's name and power limit, and last
 the {"ok": true, ...} line.  Exits non-zero without a result when there is
 no CUDA device or the port is not beside this script.
@@ -1421,7 +1444,7 @@ def phase_engine(model, params):
     launches = {name: 0 for name in _build.KERNELS}
     paths = {}
     for name, mode, dcfg, expected in engine_paths():
-        runs = {}
+        runs, halves, stage = {}, None, None
         for vname, vcfg in VARIANTS:
             what = f"engine path={name} {vname}"
             eng, _, tick_ms, counts, _ = engine_run(
@@ -1464,9 +1487,9 @@ def phase_engine(model, params):
                 elided=eng.host_syncs_elided,
                 wasted=0 if mt is None else mt.ticks_wasted)
             if vname == "eager K=1":
-                phase_tick_breakdown(eng, model, params, dcfg, name)
+                halves = phase_tick_breakdown(eng, model, params, dcfg, name)
                 if name == "warm":
-                    phase_sampling_stage(eng, model, params, dcfg)
+                    stage = phase_sampling_stage(eng, model, params, dcfg)
             del eng
         ref = runs["eager K=1"]
         per_tick = {}
@@ -1506,7 +1529,8 @@ def phase_engine(model, params):
         if name == "warm":
             check_slowfast_megatick(model, params, dcfg, mode, trace,
                                     per_tick, busy["graphed K=1"])
-        paths[name] = dict(runs=runs, per_tick=per_tick, busy=busy)
+        paths[name] = dict(runs=runs, per_tick=per_tick, busy=busy,
+                           halves=halves, sampling_stage=stage)
     return launches, paths
 
 
@@ -1918,9 +1942,418 @@ def phase_goodput(model, params) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serve -- breakdown timing, observability on the hot path, the
+# HTTP frontend and the CLI at full width
+# ---------------------------------------------------------------------------
+
+SERVE_DIR = ROOT / "build" / "chip_smoke"
+
+
+def record_stages(obs):
+    """Wrap ``obs.tick`` so each tick's stage seconds are kept; returns the
+    list they go into."""
+    ticks = []
+    tick = obs.tick
+
+    def recording(stages, *args, **kw):
+        ticks.append(dict(stages))
+        return tick(stages, *args, **kw)
+
+    obs.tick = recording
+    return ticks
+
+
+def run_record(eng, keys) -> dict:
+    """What two runs of one trace must agree on."""
+    done = eng.completed
+    return dict(tokens={c.uid: c.tokens.tolist() for c in done},
+                ticks={c.uid: c.ticks for c in done}, events=keys,
+                ticks_total=eng.ticks_total)
+
+
+def phase_breakdown(model, params, slot_paths) -> dict:
+    """6a: the engine trace with EngineConfig(breakdown=True) on paths warm
+    (fused head, mxfp8), warm+baos and the Fig. 1 pair's reference side,
+    warm on the legacy head at fmt none; each eager and graphed, equal to
+    the plain engine's run of the path (tokens, per-request ticks,
+    CommitEvents, ticks_total).  Prints the stage medians and the sampling
+    share sampling / (forward + sampling), and the graphed forward +
+    sampling beside phase 4's graphed device busy and the CUDA-event times
+    of the tick's halves.  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.core import sampling
+    from repro_torch.kernels import _build
+    from repro_torch.obs import ServingObs
+    trace = engine_trace(model.cfg)
+    paths = {name: (mode, dcfg, expected)
+             for name, mode, dcfg, expected in engine_paths()}
+    mode, warm, expected = paths["warm"]
+    legacy = dataclasses.replace(warm, head_path="legacy",
+                                 sampling=sampling.SamplingConfig(fmt="none"))
+    cases = [("warm", *paths["warm"]), ("warm+baos", *paths["warm+baos"]),
+             ("warm legacy fmt none", "warm", legacy,
+              ("flash_bidir", "topk_mask", "stablemax_sampling"))]
+    launches = {name: 0 for name in _build.KERNELS}
+    shares = {}
+    for name, mode, dcfg, expected in cases:
+        if name in slot_paths:
+            ref = slot_paths[name]["runs"]["eager K=1"]
+        else:
+            eng, keys, _, counts, _ = engine_run(model, params, dcfg, mode,
+                                                 trace, True,
+                                                 jit_steps=False)
+            ref = run_record(eng, keys)
+            expect_launches(counts, expected, f"breakdown {name} plain")
+            del eng
+        for vname, vcfg in (("eager", dict(jit_steps=False)),
+                            ("graphed", dict(jit_steps=True))):
+            what = f"breakdown path={name} {vname}"
+            obs = ServingObs().for_replica("replica-0")
+            stages = record_stages(obs)
+            eng, keys, tick_ms, counts, _ = engine_run(
+                model, params, dcfg, mode, trace, True, breakdown=True,
+                obs=obs, **vcfg)
+            got = run_record(eng, keys)
+            for key in ("tokens", "ticks", "events", "ticks_total"):
+                require(got[key] == ref[key],
+                        f"{what}: {key} differ from the plain engine's")
+            expect_launches(counts, expected, what)
+            for kname, n in counts.items():
+                launches[kname] += n
+            require(all(set(st) == {"host_prep", "forward", "sampling",
+                                    "host_sync", "commit"}
+                        for st in stages) and len(stages) == eng.ticks_total,
+                    f"{what}: stage names {sorted(stages[0])}")
+            med = {s: float(np.median([st[s] for st in stages])) * 1e3
+                   for s in ("forward", "sampling", "host_prep",
+                             "host_sync", "commit")}
+            share = med["sampling"] / (med["forward"] + med["sampling"])
+            shares[(name, vname)] = (med, share)
+            log(f"{what}: {eng.ticks_total} ticks equal the plain engine's "
+                f"(tokens, ticks, {len(keys)} CommitEvents); stage medians "
+                f"ms: " + ", ".join(f"{s} {v:.3f}" for s, v in med.items())
+                + f"; sampling share {share * 100:.2f}%; tick wall median "
+                f"{float(np.median(tick_ms)):.2f} ms; host waits per tick "
+                f"{eng.host_waits / eng.ticks_total:.3f}")
+            del eng
+        med, share = shares[(name, "graphed")]
+        info = slot_paths.get(name)
+        if info is not None:
+            fwd_ev, smp_ev = info["halves"]
+            log(f"breakdown path={name}: graphed forward + sampling "
+                f"{med['forward'] + med['sampling']:.3f} ms (host clock, "
+                f"each ending in a device wait) against phase 4's graphed "
+                f"K=1 device busy {info['busy']['graphed K=1']:.3f} ms and "
+                f"the eager halves' CUDA-event times tick_forward "
+                f"{fwd_ev:.3f} + tick_sample {smp_ev:.3f} ms")
+    head = slot_paths["warm"]["sampling_stage"]["legacy head product"]
+    (fw, fs), (lw, ls) = (shares[("warm", "graphed")],
+                          shares[("warm legacy fmt none", "graphed")])
+    moved = (lw["sampling"] + head) / (lw["forward"] + lw["sampling"])
+    log(f"Fig. 1 sampling share on the card (graphed): legacy head fmt none "
+        f"{ls * 100:.2f}% (forward {lw['forward']:.3f}, sampling "
+        f"{lw['sampling']:.3f} ms), fused head mxfp8 {fs * 100:.2f}% "
+        f"(forward {fw['forward']:.3f}, sampling {fw['sampling']:.3f} ms); "
+        f"the legacy forward holds the full-sequence head product, "
+        f"{head:.3f} ms device (phase 4): charged to sampling, the legacy "
+        f"share would be {moved * 100:.2f}% (the paper: up to 71% on its "
+        f"reference path, under 10% fused)")
+    return launches
+
+
+def phase_obs(model, params) -> dict:
+    """6b: the warm path graphed at K=1 and K=8, three ways: obs off,
+    metrics + drift, and metrics + drift + trace + an event log.  Tokens,
+    CommitEvents and host waits must be equal across the three; the event
+    log must validate with every request terminal, the trace must
+    validate, the /metrics tick counter must equal ticks_total and the
+    committed-token counter the tokens generated, and the drift report
+    must have ticks.  Prints each way's tick wall median.  Returns the
+    launch counts."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.obs import (EventLog, ServingObs, TraceCollector,
+                                 modeled_tick_stages, parse_exposition,
+                                 read_events, validate_events,
+                                 validate_trace)
+    from repro_torch.sim.analytical import HostConfig
+    trace = engine_trace(model.cfg)
+    gen_tokens = sum(g for _, g in trace)
+    name, mode, dcfg, expected = engine_paths()[0]
+    launches = {k: 0 for k in _build.KERNELS}
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    for vname, vcfg in (("graphed K=1", dict(jit_steps=True)),
+                        ("graphed K=8", dict(jit_steps=True,
+                                             megatick_k=8))):
+        runs = {}
+        for way in ("obs off", "metrics + drift",
+                    "metrics + drift + trace + event log"):
+            what = f"obs path={name} {vname} {way}"
+            root = obs = log_path = None
+            if way != "obs off":
+                root = ServingObs(trace=TraceCollector(
+                    enabled="trace" in way))
+                if "event log" in way:
+                    log_path = SERVE_DIR / f"events-{vname[-3:]}.jsonl"
+                    log_path.unlink(missing_ok=True)
+                    root.set_event_log(EventLog(str(log_path)))
+                obs = root.for_replica("replica-0")
+                obs.set_drift_model(modeled_tick_stages(
+                    model.cfg, dcfg, batch=4, prompt_len=32,
+                    megatick_k=vcfg.get("megatick_k", 1),
+                    host=HostConfig()),
+                    host_stages=("dispatch", "device_sync"))
+            eng, keys, tick_ms, counts, _ = engine_run(
+                model, params, dcfg, mode, trace, True, obs=obs, **vcfg)
+            expect_launches(counts, expected, what)
+            for kname, n in counts.items():
+                launches[kname] += n
+            runs[way] = dict(run_record(eng, keys), waits=eng.host_waits,
+                             p50=float(np.median(tick_ms)))
+            if root is not None:
+                m = parse_exposition(root.registry.expose())
+                ticks = m["dllm_ticks_total"]['{replica="replica-0"}']
+                toks = m["dllm_tokens_committed_total"][
+                    '{replica="replica-0"}']
+                require(ticks == eng.ticks_total and toks == gen_tokens,
+                        f"{what}: /metrics ticks {ticks} tokens {toks}, "
+                        f"engine {eng.ticks_total} ticks {gen_tokens} "
+                        f"tokens")
+                rep = obs.drift_report()
+                require(rep["ticks"] > 0, f"{what}: drift saw no tick")
+                detail = (f"; /metrics ticks {ticks:.0f}, tokens "
+                          f"{toks:.0f}; drift scale {rep['scale']:.4g}")
+                if "trace" in way:
+                    validate_trace(root.trace.to_json())
+                    root.events.close()
+                    summary = validate_events(read_events(str(log_path)),
+                                              require_terminal=True)
+                    require(len(summary["uids"]) == len(trace),
+                            f"{what}: event log has {summary['uids']}")
+                    detail += (f"; trace valid ({len(root.trace.events())} "
+                               f"events), event log valid "
+                               f"({summary['records']} records)")
+            else:
+                detail = ""
+            log(f"{what}: tick wall median {runs[way]['p50']:.3f} ms, host "
+                f"waits {eng.host_waits}{detail}")
+            del eng
+        ref = runs["obs off"]
+        for way, run in runs.items():
+            for key in ("tokens", "ticks", "events", "ticks_total",
+                        "waits"):
+                require(run[key] == ref[key],
+                        f"obs {vname} {way}: {key} differ from obs off")
+        log(f"obs path={name} {vname}: tokens, {len(ref['events'])} "
+            f"CommitEvents and {ref['waits']} host waits equal with obs "
+            f"off and on; tick wall medians " + ", ".join(
+                f"{way} {run['p50']:.3f}" for way, run in runs.items())
+            + " ms")
+    return launches
+
+
+def phase_http(model, params) -> dict:
+    """6c: build_frontend at full width on 127.0.0.1 (ephemeral port).  One
+    slot in mode none: a streamed and a gathered request equal
+    generate(cache_mode='none') bit for bit.  Four slots in mode warm,
+    graphed, profile_ticks=4: 17 streamed requests on paused workers (16
+    accepted, one answered 429), then served; each completes, its commit
+    positions partition its generation region, its ticks increase and no
+    mask id is left; a torch.profiler trace is written; then loadgen's 16
+    requests (TTFT, tokens/s and latency printed) and a graceful drain
+    that completes the work pending at shutdown.  Returns the launch
+    counts."""
+    import asyncio
+    import numpy as np
+    from repro_torch.core import diffusion
+    from repro_torch.kernels import _build
+    from repro_torch.obs import parse_exposition
+    from repro_torch.serving.frontend import build_frontend, loadgen
+    cfg = model.cfg
+    launches = {k: 0 for k in _build.KERNELS}
+    common = ("flash_bidir", "fused_head_sampling", "topk_mask")
+    rs = np.random.RandomState(6)
+
+    def count(what):
+        counts = dict(_build.launch_counts)
+        expect_launches(counts, common, what)
+        for kname, n in counts.items():
+            launches[kname] += n
+
+    # one slot, mode none: the engine runs what generate runs
+    dcfg = diffusion.DiffusionConfig(gen_length=32, block_length=16,
+                                     steps_per_block=8)
+    prompt = rs.randint(0, cfg.vocab - 200, size=(16,)).astype(np.int32)
+    ref = diffusion.generate(model, params,
+                             torch.as_tensor(prompt, device=DEVICE)[None],
+                             dcfg)[0, 16:].tolist()
+    diffusion.clear_step_graphs()
+
+    async def one_slot():
+        fe = build_frontend(model, params, dcfg, model_name="llada-8b",
+                            num_slots=1, max_seq_len=48, mode="none")
+        _build.reset_launch_counts()
+        await fe.start()
+        try:
+            row = await loadgen.complete(fe.url, prompt.tolist(), 32)
+            gathered = await loadgen.complete(fe.url, prompt.tolist(), 32,
+                                              stream=False)
+        finally:
+            await fe.shutdown()
+        return row, gathered
+
+    t0 = time.perf_counter()
+    row, gathered = asyncio.run(one_slot())
+    count("http one slot")
+    require(row["status"] == "ok" and gathered["status"] == "ok",
+            f"http one slot: {row.get('status')} {gathered.get('status')}")
+    require(row["token_ids"] == ref and gathered["token_ids"] == ref,
+            "http one slot: the stream differs from generate()")
+    require(row["ticks_monotone"] and sorted(row["positions"]) ==
+            list(range(16, 48)), "http one slot: ticks or positions")
+    log(f"http one slot (mode none, prompt 16, gen 32): streamed and "
+        f"gathered tokens equal generate() bit for bit; {len(row['ticks'])} "
+        f"commit events, TTFT {row['ttft_s'] * 1e3:.1f} ms, latency "
+        f"{row['latency_s'] * 1e3:.1f} ms ({time.perf_counter() - t0:.1f} s "
+        f"with set-up)")
+
+    # four slots, mode warm, graphed
+    _, mode, dcfg, _ = engine_paths()[0]
+    dcfg = dataclasses.replace(dcfg, gen_length=64)
+    reqs = [(rs.randint(0, cfg.vocab - 200, size=(rs.randint(16, 33),))
+             .astype(np.int32), int(rs.choice([32, 48, 64])))
+            for _ in range(17)]
+
+    async def four_slots():
+        fe = build_frontend(model, params, dcfg, model_name="llada-8b",
+                            num_slots=4, max_seq_len=96, mode=mode,
+                            max_queue=12, profile_ticks=4,
+                            profile_dir=str(SERVE_DIR / "profile"))
+        captures = [w.engine.graph_captures for w in fe.router.workers]
+        _build.reset_launch_counts()
+        await fe.start(start_workers=False)
+        try:
+            tasks = [asyncio.ensure_future(
+                loadgen.complete(fe.url, p.tolist(), g)) for p, g in reqs]
+            for _ in range(2000):
+                if sum(t.done() for t in tasks) >= 1 and \
+                        fe.router.load >= 16:
+                    break
+                await asyncio.sleep(0.005)
+            fe.start_workers()
+            rows = await asyncio.gather(*tasks)
+            t1 = time.perf_counter()
+            rep = await loadgen.run_load(
+                fe.url, rate=20.0, n_requests=16, prompt_len=24,
+                max_tokens=32, seed=1, scrape=True)
+            t_load = time.perf_counter() - t1
+            tail = [asyncio.ensure_future(
+                loadgen.complete(fe.url, p.tolist(), g))
+                for p, g in reqs[:6]]
+            for _ in range(2000):
+                if fe.router.load >= 6:
+                    break
+                await asyncio.sleep(0.005)
+            pending = fe.router.load
+            await fe.shutdown(drain=True)
+            drained = await asyncio.gather(*tail)
+            metrics = parse_exposition(fe.obs.registry.expose())
+        except BaseException:
+            await fe.shutdown(drain=False)
+            raise
+        return fe, rows, rep, t_load, pending, drained, metrics, captures
+
+    t0 = time.perf_counter()
+    fe, rows, rep, t_load, pending, drained, metrics, captures = \
+        asyncio.run(four_slots())
+    count("http four slots")
+    shed = [r for r in rows if r["status"] == "shed"]
+    ok = [r for r in rows if r["status"] == "ok"]
+    require(len(shed) == 1 and shed[0].get("http") == 429 and len(ok) == 16,
+            f"http four slots: {len(ok)} ok, {len(shed)} answered 429 "
+            f"(want 16 and 1): {[r['status'] for r in rows]}")
+    for (p, g), r in zip(reqs, rows):
+        if r["status"] != "ok":
+            continue
+        require(r["ticks_monotone"] and cfg.mask_id not in r["token_ids"],
+                "http four slots: ticks not monotone or a mask id left")
+        require(sorted(r["positions"]) == list(range(len(p), len(p) + g)),
+                "http four slots: commit positions do not partition the "
+                "generation region")
+    require(rep["completed"] == 16 and rep["errors"] == 0 and
+            rep["shed"] == 0 and rep["ticks_monotone"],
+            f"http loadgen: {rep}")
+    require(all(r["status"] == "ok" for r in drained) and pending >= 6,
+            f"http drain: {[r['status'] for r in drained]} of {pending}")
+    eng = fe.router.workers[0].engine
+    require([w.engine.graph_captures for w in fe.router.workers] ==
+            captures, "http: a worker captured a graph")
+    ticks = metrics["dllm_ticks_total"]['{replica="replica-0"}']
+    require(ticks == eng.ticks_total, f"http /metrics ticks {ticks} != "
+            f"{eng.ticks_total}")
+    prof = fe.router.workers[0].profile_path
+    require(prof is not None and Path(prof).stat().st_size > 0,
+            "http: no torch.profiler trace written")
+    log(f"http four slots (mode warm, graphed, max_queue 12): 16 of 17 "
+        f"streamed requests accepted and complete, {len(shed)} answered "
+        f"429; positions partition each generation region, ticks "
+        f"increase, no mask id left; loadgen 16 requests at 20/s: TTFT "
+        f"p50 {rep['ttft_p50_s'] * 1e3:.1f} ms p99 "
+        f"{rep['ttft_p99_s'] * 1e3:.1f} ms, {rep['goodput_tok_s']:.1f} "
+        f"tokens/s, latency p50 {rep['latency_p50_s'] * 1e3:.1f} ms p99 "
+        f"{rep['latency_p99_s'] * 1e3:.1f} ms over {t_load:.2f} s; drain "
+        f"completed {len(drained)} pending requests; /metrics ticks "
+        f"{ticks:.0f} = engine; torch.profiler trace {prof} "
+        f"({Path(prof).stat().st_size / 2 ** 20:.1f} MiB); "
+        f"{time.perf_counter() - t0:.1f} s with set-up")
+    return launches
+
+
+def phase_cli() -> None:
+    """6d: ``python -m repro_torch.launch.serve --arch llada-8b --full`` as
+    a subprocess on the engine path with --breakdown, a trace and an event
+    log, and once with --legacy: each must exit 0, the trace and the log
+    must validate, and ``python -m repro_torch.obs.logquery LOG
+    --validate`` must exit 0.  Prints each run's summary lines."""
+    import os
+    from repro_torch.obs import read_events, validate_events, validate_trace
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    trace, events = SERVE_DIR / "cli-trace.json", SERVE_DIR / "cli.jsonl"
+    events.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base_cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+                "--arch", "llada-8b", "--full"]
+    for what, extra in (("engine", ["--breakdown", "--trace-out",
+                                    str(trace), "--event-log",
+                                    str(events)]),
+                        ("legacy", ["--legacy"])):
+        t0 = time.perf_counter()
+        r = subprocess.run(base_cmd + extra, cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=600)
+        require(r.returncode == 0, f"cli {what}: exit {r.returncode}: "
+                f"{r.stderr[-2000:]}")
+        log(f"cli {what} ({' '.join(extra[:1]) or 'engine'}): exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for line in r.stdout.splitlines():
+            log(f"  {line}")
+    with open(trace) as f:
+        validate_trace(json.load(f))
+    summary = validate_events(read_events(str(events)),
+                              require_terminal=True)
+    q = subprocess.run([sys.executable, "-m", "repro_torch.obs.logquery",
+                        str(events), "--validate"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    require(q.returncode == 0, f"cli logquery --validate: {q.stdout}"
+            f"{q.stderr}")
+    log(f"cli: trace valid, event log valid ({summary['records']} records,"
+        f" {len(summary['uids'])} requests); logquery: {q.stdout.strip()}")
+
+
 def phase_tick_breakdown(eng, model, params, dcfg, name) -> None:
     """Device time of the tick's two halves at the engine's shape, on the
-    engine's final canvas (all slots idle: the work is the same)."""
+    engine's final canvas (all slots idle: the work is the same).  Returns
+    (tick_forward ms, tick_sample ms), CUDA events."""
     from repro_torch.core import diffusion
     cache = eng.pool.cache if eng.mode == "warm" else None
     B = eng.num_slots
@@ -1941,6 +2374,7 @@ def phase_tick_breakdown(eng, model, params, dcfg, name) -> None:
     profile_ticks(lambda: diffusion.batched_tick(
         model, params, eng.x, eng.kv_valid, bs, k, 0, cache, dcfg,
         eng.mask_id), name, gemm_flops=2.0 * eng.x.numel() * layer_weights)
+    return fwd, smp
 
 
 def phase_sampling_stage(eng, model, params, dcfg) -> None:
@@ -1949,7 +2383,9 @@ def phase_sampling_stage(eng, model, params, dcfg) -> None:
     profiler (fused: the streamed head; unfused: the cuBLAS head on the
     (4, 16, d) slice, then Stable-Max on the stored logits; legacy: the
     slice of full-sequence logits, then Stable-Max) and, for legacy, of
-    the full-sequence head product its forward adds."""
+    the full-sequence head product its forward adds.  Returns {head path:
+    device ms}, with the legacy head product's under "legacy head
+    product"."""
     from repro_torch.core import diffusion
     from repro_torch.models import layers
     B = eng.num_slots
@@ -1958,7 +2394,7 @@ def phase_sampling_stage(eng, model, params, dcfg) -> None:
     k = torch.full((B,), 2, dtype=torch.int32, device=DEVICE)
     hidden, _ = diffusion.tick_forward(model, params, eng.x, eng.kv_valid,
                                        bs, None, dcfg)
-    parts = []
+    parts, out = [], {}
     for head_path in ("fused", "unfused", "legacy"):
         d = dataclasses.replace(dcfg, head_path=head_path)
         feats = hidden
@@ -1970,11 +2406,14 @@ def phase_sampling_stage(eng, model, params, dcfg) -> None:
             params, feats, eng.x, bs, k, 0, d, eng.mask_id, model), 10)
         parts.append(f"{head_path} {dev_ms:.3f} ms device "
                      f"({ev_ms:.3f} ms CUDA events)")
+        out[head_path] = dev_ms
     head_ms = device_ms(lambda: layers.qdot(hidden, params["lm_head"]), 10)
+    out["legacy head product"] = head_ms
     log(f"sampling stage ({B} x 16 rows, V {model.cfg.vocab}): "
         f"tick_sample {', '.join(parts)}; legacy's full-sequence head "
         f"product in the forward ({B} x {eng.max_seq_len} rows) {head_ms:.3f}"
         f" ms device")
+    return out
 
 
 def device_ms_by_kernel(fn, n: int) -> dict:
@@ -2113,11 +2552,20 @@ def main() -> int:
             launches[name] += n
         for name, n in phase_table6(model, params, gen).items():
             launches[name] += n
+        t0 = time.perf_counter()
+        for counts in (phase_breakdown(model, params, slot_paths),
+                       phase_obs(model, params), phase_http(model, params)):
+            for name, n in counts.items():
+                launches[name] += n
+        log(f"phase 6a-6c: {time.perf_counter() - t0:.1f} s")
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
         for name, n in phase_configs(gen).items():
             launches[name] += n
+        t0 = time.perf_counter()
+        phase_cli()
+        log(f"phase 6d: {time.perf_counter() - t0:.1f} s")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -25,9 +25,11 @@ nothing.  ``tick_seed`` also takes a device tick counter and gives the
 seed as a device tensor, which the sampling kernels read from memory.
 
 ``get_tick_fn`` is the engine's tick, a CUDA graph on the card with
-``jit_steps`` (core/graphs.py, the counterpart of ``jax.jit``), and
-``get_megatick_fn`` the JAX megatick: up to K ticks with each row's
-block/step/k bookkeeping on the device and one host sync per megastep.
+``jit_steps`` (core/graphs.py, the counterpart of ``jax.jit``);
+``get_tick_stage_fns`` the same tick as two calls, forward and sampling
+(the engine's breakdown mode); ``get_megatick_fn`` the JAX megatick: up
+to K ticks with each row's block/step/k bookkeeping on the device and one
+host sync per megastep.
 ``step``/``generate`` with ``jit_steps`` run each step as CUDA graphs too:
 ``step_graphs`` keeps, per (model, dcfg, mask id, quant, batch, canvas
 length), the graphed steps and the static buffers they read (the
@@ -289,6 +291,38 @@ def get_tick_fn(model, dcfg: DiffusionConfig, mask_id: int,
                             cache, dcfg, mask_id, quant)
 
     return graphs.GraphedStep(tick, pool) if jit_steps else tick
+
+
+def get_tick_stage_fns(model, dcfg: DiffusionConfig, mask_id: int,
+                       jit_steps: bool = True, quant=None):
+    """``(forward, sampling)``: the tick's two halves as separate calls,
+    the engine's per-stage breakdown mode (the paper's Fig. 1 split), the
+    JAX ``get_tick_stage_fns``.  ``forward(params, x, kv_valid,
+    block_start, cache=None) -> (feats, cache)`` and ``sampling(params,
+    feats, x, block_start, k, seed) -> (x_new, conf_min, masks_left)``;
+    the math is ``batched_tick``'s.  The sampling stage owns the LM head
+    (``feats`` are hidden states on the fused and unfused paths); on the
+    legacy path the forward returns the full-sequence logits, so the head
+    product is charged to the forward, as in JAX.
+
+    With ``jit_steps`` and CUDA tensors each stage is a CUDA graph
+    (core/graphs.py), both in one memory pool: the sampling graph reads
+    the forward graph's ``feats`` output by address, so each captures
+    once.  Without, or on the CPU, the stages run eagerly."""
+    def forward(params, x, kv_valid, block_start, cache=None):
+        return tick_forward(model, params, x, kv_valid, block_start, cache,
+                            dcfg, quant)
+
+    def sampling(params, feats, x, block_start, k, seed):
+        return tick_sample(params, feats, x, block_start, k, seed, dcfg,
+                           mask_id, model, quant)
+
+    if not jit_steps:
+        return forward, sampling
+    pool = torch.cuda.graph_pool_handle() if torch.cuda.is_available() \
+        else None
+    return graphs.GraphedStep(forward, pool), graphs.GraphedStep(sampling,
+                                                                 pool)
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,9 @@ src/repro/serving/engine.py (slot pool, one tick per call).
 Every engine tick advances *all* active requests by one denoising step with
 a single forward + Stable-Max sampling call (core/diffusion
 ``batched_tick``, on the head path ``dcfg.head_path`` selects), whatever
-each request's block index or step within the block.  Requests are packed into fixed batch slots backed by a slot KV pool;
-a slot frees (and a queued request admits) the moment its request's last
-block unmasks.
+each request's block index or step within the block.  Requests are
+packed into fixed batch slots backed by a slot KV pool; a slot frees (and
+a queued request admits) the moment its request's last block unmasks.
 
 Tick modes:
   * ``none``: cache-free full recompute per tick (Block Diffusion).  A
@@ -19,9 +19,25 @@ Tick modes:
 ``submit(request, on_commit=cb)`` registers a per-request commit callback:
 every tick the engine diffs the request's row against its host-tracked mask
 state and hands the callback a :class:`CommitEvent` with the positions and
-tokens that committed on that tick.  ``cancel(uid)`` removes a still-queued
-request.  Not ported yet (ROADMAP.md): the mesh, per-stage breakdown
-timing and the observability hooks.
+tokens that committed on that tick.  ``cancel(uid, reason)`` removes a
+still-queued request.  The mesh is not ported yet (ROADMAP.md).
+
+``EngineConfig.obs`` takes a ``repro_torch.obs.ServingObs``: the JAX
+engine's hooks at the same places (request lifecycle counters and
+histograms, per-stage tick histograms, drift, spans, and with an event log
+one record per lifecycle edge, the paged pool's page edges included).
+Every hook receives data the tick already has, so ``obs`` adds host
+bookkeeping only: no device sync (``host_waits`` is the same with and
+without it).  Each tick times its stages under JAX's names: ``host_prep``,
+``paged_io`` (paged pool), ``dispatch`` (until the tick is enqueued),
+``device_sync`` (the wait for its results) and ``commit`` (the host state
+machine); ``metrics`` records them whether or not ``obs`` is set.
+
+``EngineConfig(breakdown=True)`` runs each tick as its two halves
+(core/diffusion.get_tick_stage_fns, each its own CUDA graph with
+``jit_steps``) with a device wait after each, and times them as the
+``forward``, ``sampling`` and ``host_sync`` stages: the paper's Fig. 1
+split.  Slot pool and K = 1 only, as in JAX.
 
 ``EngineConfig(pool="paged")`` stores the canvas and the warm KV in pages
 behind per-slot block tables (serving/cache_pool.PagedCachePool): full
@@ -58,7 +74,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import diffusion, schedule as schedule_lib
+from repro_torch.core import diffusion, graphs
+from repro_torch.core import schedule as schedule_lib
 from repro_torch.serving.cache_pool import (CachePool, PagedCachePool,
                                             SpilledSlot)
 from repro_torch.serving.metrics import MetricsTracker
@@ -78,6 +95,12 @@ class Request:
     arrival_time: float = 0.0
     policy: Optional[str] = None
     policy_params: Optional[dict] = None
+    # SLO tier (repro_torch.obs.slo): deadlines are measured from
+    # ``arrival_time``, the first submit; preempt/restore never re-stamps it
+    slo_class: str = "standard"
+    # W3C trace id (32 hex chars) linking this request across the event
+    # log, trace spans, SSE stream and /metrics exemplars; "" = none
+    trace_id: str = ""
 
     @property
     def prompt_len(self) -> int:
@@ -133,6 +156,7 @@ class _Slot:
     last_conf: float = float("-inf")
     block_masks_left: int = 0
     first_commit: bool = False
+    first_commit_t: Optional[float] = None   # engine clock at first commit
     # host mirror of still-masked positions, kept only for requests with a
     # commit callback (the per-tick streaming diff)
     masked: Optional[np.ndarray] = None
@@ -147,8 +171,9 @@ class EngineConfig:
     ``pool`` selects the storage: ``"slot"`` (one fixed region per batch
     slot) or ``"paged"`` (block pool + radix prefix cache);
     ``page_size``/``num_pages``/``prefix_cache`` apply to the paged pool
-    only.  The mesh and breakdown options are not ported yet and raise
-    unless left at their defaults."""
+    only.  ``obs`` takes a ``repro_torch.obs.ServingObs``; ``breakdown``
+    splits each tick into timed forward and sampling stages.  The mesh is
+    not ported yet and raises unless left at None."""
     num_slots: int = 4
     max_seq_len: int = 128
     mode: str = "warm"
@@ -163,6 +188,7 @@ class EngineConfig:
     page_size: int = 16
     num_pages: Optional[int] = None
     prefix_cache: bool = True
+    obs: Any = None
 
 
 class _HostCanvas:
@@ -216,11 +242,10 @@ class ServingEngine:
                     f"policy {policy.name!r} overrides step_k; only the "
                     "default schedule and SlowFastPolicy run on the device "
                     "inside a megatick")
-        for name, default in (("mesh", None), ("breakdown", False)):
-            if getattr(config, name) != default:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(config, name)!r} is not "
-                    "ported yet (ROADMAP.md, Queue 1)")
+        if config.mesh is not None:
+            raise NotImplementedError(
+                f"EngineConfig.mesh={config.mesh!r} is not ported yet "
+                "(ROADMAP.md, Queue 1)")
         diffusion.check_supported(dcfg)
         # the policy is bound into the tick fns, as JAX binds it statically
         # into its jitted ones
@@ -236,7 +261,17 @@ class ServingEngine:
         self.policy = policy
         self.seed = config.seed
         self.jit_steps = config.jit_steps
+        self.breakdown = config.breakdown
         self.device = model.device
+        # optional repro_torch.obs.ServingObs; obs=None keeps the tick as
+        # it is, obs set adds host bookkeeping only
+        self.obs = config.obs
+        # the structured event-log hook (a no-op inside ServingObs until an
+        # EventLog is attached)
+        self._event = (config.obs.event if config.obs is not None
+                       and hasattr(config.obs, "event") else None)
+        self._early_exits_seen = 0
+        self._early_exits_released = 0  # from released per-request policies
         with_cache = self.mode == "warm"
         if self.paged:
             self.pool = PagedCachePool(
@@ -247,6 +282,10 @@ class ServingEngine:
         else:
             self.pool = CachePool(model, self.num_slots, self.max_seq_len,
                                   with_cache=with_cache)
+        if self.paged and self._event is not None:
+            # the pool's page edges (spill/restore/prefix_hit/evict) go
+            # through the same hook, uid-less
+            self.pool.event_cb = self._event
         self.slots: List[Optional[_Slot]] = [None] * self.num_slots
         self.slot_of_uid: Dict[int, int] = {}
         self.queue: List[Request] = []
@@ -284,6 +323,7 @@ class ServingEngine:
         self._valid_np[:] = np.arange(S) < 1
         self.kv_valid = self._valid_host.to(self.device, copy=True)
         self._kv_dirty = False
+        self.kv_valid_uploads = 0           # host->device refreshes
         # the graphed K=1 tick's inputs: block starts, k and the seed
         self._stage_host = torch.zeros((2 * B + 1,), dtype=torch.int64,
                                        pin_memory=pin)
@@ -293,7 +333,12 @@ class ServingEngine:
         # the megatick fn and no K=1 tick fn; the paged K=1 tick runs
         # through its tick fn eagerly too (jit_steps=False)
         self._tick_fn = None
-        if self.megatick_k == 1 and self.paged:
+        self._fwd_fn = self._smp_fn = None
+        if self.breakdown:
+            self._fwd_fn, self._smp_fn = diffusion.get_tick_stage_fns(
+                model, dcfg, self.mask_id, jit_steps=self.jit_steps,
+                quant=self._quant)
+        elif self.megatick_k == 1 and self.paged:
             self._tick_fn = diffusion.get_paged_tick_fn(
                 model, dcfg, self.mask_id, config.page_size,
                 self.max_seq_len, with_cache=with_cache,
@@ -362,6 +407,14 @@ class ServingEngine:
             self._commit_cbs[uid] = on_commit
         self.metrics.request_arrived(request.uid, request.arrival_time,
                                      request.gen_length)
+        if self.obs is not None:
+            self.obs.request_queued(uid, trace=request.trace_id,
+                                    cls=request.slo_class)
+        if self._event is not None:
+            self._event("submit", uid=uid, trace=request.trace_id,
+                        cls=request.slo_class, t=request.arrival_time,
+                        prompt_len=request.prompt_len,
+                        gen_length=request.gen_length)
         return uid
 
     def _policy_matches(self, pol: Policy) -> bool:
@@ -373,15 +426,28 @@ class ServingEngine:
             return pol.threshold == self.policy.threshold
         return True
 
-    def cancel(self, uid: int) -> bool:
-        """Remove a still-*queued* request.  Returns False when the uid is
-        unknown or already admitted to a slot."""
+    def cancel(self, uid: int, reason: str = "shed") -> bool:
+        """Remove a still-*queued* request (the frontend's shed path).
+        Returns False when the uid is unknown or already admitted to a
+        slot: admitted work is never interrupted.  ``reason="deadline"``
+        marks a queue-deadline expiry, which counts as an SLO violation
+        for the request's class."""
         for i, r in enumerate(self.queue):
             if r.uid == uid:
                 del self.queue[i]
                 self._commit_cbs.pop(uid, None)
                 self._req_policy.pop(uid, None)
                 self.metrics.request_shed(uid, self.now)
+                if self.obs is not None:
+                    self.obs.request_shed(uid, cls=r.slo_class,
+                                          trace=r.trace_id,
+                                          deadline=(reason == "deadline"))
+                if self._event is not None:
+                    self._event(
+                        "shed", uid=uid, trace=r.trace_id,
+                        cls=r.slo_class, t=self.now, reason=reason,
+                        queue_wait_s=round(
+                            max(0.0, self.now - r.arrival_time), 6))
                 return True
         return False
 
@@ -401,6 +467,12 @@ class ServingEngine:
                 victim = self.policy.preempt(self.slots, pick, self.now)
                 if victim is None or self.slots[victim] is None:
                     break
+                if self._event is not None:
+                    self._event("policy_decision", uid=pick.uid,
+                                trace=pick.trace_id, cls=pick.slo_class,
+                                t=self.now, kind="preempt_victim",
+                                victim=int(self.slots[victim].request.uid),
+                                policy=self.policy.name)
                 self.preempt(self.slots[victim].request.uid)
                 if not self.pool.can_admit(
                         np.asarray(pick.prompt, np.int32), pick.total_len):
@@ -428,6 +500,20 @@ class ServingEngine:
             self._valid_np[slot] = np.arange(self.max_seq_len) < pick.total_len
             self._kv_dirty = True      # uploaded once per tick, not per admit
             self.metrics.request_admitted(pick.uid, self.now)
+            pol = self.slots[slot].policy or self.policy
+            if self.obs is not None:
+                self.obs.request_admitted(
+                    pick.uid, max(0.0, self.now - pick.arrival_time))
+                self.obs.request_policy(pol.name)
+            if self._event is not None:
+                self._event(
+                    "admit", uid=pick.uid, trace=pick.trace_id,
+                    cls=pick.slo_class, t=self.now, slot=slot,
+                    queue_wait_s=round(
+                        max(0.0, self.now - pick.arrival_time), 6))
+                self._event("policy_decision", uid=pick.uid,
+                            trace=pick.trace_id, cls=pick.slo_class,
+                            t=self.now, kind="admit", policy=pol.name)
 
     # -- preemption (paged pool only) ---------------------------------------
 
@@ -450,6 +536,12 @@ class ServingEngine:
         del self.slot_of_uid[uid]
         self._valid_np[slot] = np.arange(self.max_seq_len) < 1
         self._kv_dirty = True
+        if self.obs is not None:
+            self.obs.request_preempted(uid)
+        if self._event is not None:
+            self._event("preempt", uid=uid, trace=s.request.trace_id,
+                        cls=s.request.slo_class, t=self.now, slot=slot,
+                        total_len=sp.total_len)
         return True
 
     def _restore_preempted(self) -> None:
@@ -469,6 +561,12 @@ class ServingEngine:
             self._valid_np[slot] = np.arange(self.max_seq_len) < sp.total_len
             self._kv_dirty = True
             del self._preempted[uid]
+            if self.obs is not None:
+                self.obs.request_restored(uid)
+            if self._event is not None:
+                self._event("restore", uid=uid, trace=s.request.trace_id,
+                            cls=s.request.slo_class, t=self.now, slot=slot,
+                            total_len=sp.total_len)
 
     def _release(self, slot: int, x_host: np.ndarray) -> None:
         s = self.slots[slot]
@@ -479,11 +577,56 @@ class ServingEngine:
             arrival_time=req.arrival_time, admitted_time=s.admitted_time,
             completed_time=self.now, ticks=s.ticks))
         self.metrics.request_completed(req.uid, self.now, s.ticks)
+        if s.policy is not None:
+            # fold the released per-request policy's early exits into the
+            # accumulator, so the obs total stays monotone
+            self._early_exits_released += getattr(s.policy, "early_exits", 0)
+        latency_s = max(0.0, self.now - req.arrival_time)
+        ttft_s = (None if s.first_commit_t is None
+                  else max(0.0, s.first_commit_t - req.arrival_time))
+        kinds: Tuple[str, ...] = ()
+        if self.obs is not None:
+            # obs owns the SLO class table; it returns the deadline kinds
+            # this request missed, for the done record
+            kinds = self.obs.request_done(
+                req.uid, latency_s, s.ticks, ttft_s=ttft_s,
+                cls=req.slo_class, trace=req.trace_id,
+                tokens=req.gen_length) or ()
+        if self._event is not None:
+            self._event(
+                "done", uid=req.uid, trace=req.trace_id,
+                cls=req.slo_class, t=self.now,
+                latency_s=round(latency_s, 6),
+                ttft_s=None if ttft_s is None else round(ttft_s, 6),
+                ticks=s.ticks, tokens=req.gen_length,
+                violations=list(kinds))
         self.slots[slot] = None
         del self.slot_of_uid[req.uid]
         self._valid_np[slot] = np.arange(self.max_seq_len) < 1
         self._kv_dirty = True
         self.pool.release(slot)
+
+    def _emit_commit(self, req: Request, cb, tick: int, block_idx: int,
+                     step_in_block: int, positions, tokens,
+                     masks_left: int, block_masks_before: int) -> None:
+        """Event-log record of one tick's commits on a request: streaming
+        requests (``cb`` set) get one record per tick with the
+        ``block_committed`` SSE payload's fields; the others one summary
+        record per completed block (no positions: the canvas diff never
+        ran, so the host fetch stays elided)."""
+        if self._event is None:
+            return
+        if cb is not None:
+            self._event("block_commit", uid=req.uid, trace=req.trace_id,
+                        cls=req.slo_class, t=self.now, tick=tick,
+                        block_idx=block_idx, step_in_block=step_in_block,
+                        positions=positions, tokens=tokens,
+                        masks_left=masks_left)
+        elif masks_left == 0:
+            self._event("block_commit", uid=req.uid, trace=req.trace_id,
+                        cls=req.slo_class, t=self.now, tick=tick,
+                        block_idx=block_idx, step_in_block=step_in_block,
+                        committed=block_masks_before, masks_left=0)
 
     # -- stepping -----------------------------------------------------------
 
@@ -495,6 +638,27 @@ class ServingEngine:
     def pending(self) -> int:
         return len(self.queue) + self.active_slots + len(self._preempted)
 
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs the engine's graphed steps have captured (0 while
+        its ticks run eagerly).  All capture happens in ``warmup()``; a
+        replica's worker thread holds its ticks to capturing none."""
+        steps = [self._tick_fn, self._fwd_fn, self._smp_fn]
+        if self._megatick_fn is not None:
+            steps.append(self._megatick_fn._step)
+        return sum(s.captures for s in steps
+                   if isinstance(s, graphs.GraphedStep))
+
+    def _early_exits_total(self) -> int:
+        """Early exits across the engine policy, live per-request policies
+        and released ones."""
+        tot = getattr(self.policy, "early_exits", 0)
+        tot += self._early_exits_released
+        for s in self.slots:
+            if s is not None and s.policy is not None:
+                tot += getattr(s.policy, "early_exits", 0)
+        return tot
+
     def _next_arrival(self) -> Optional[float]:
         return min((r.arrival_time for r in self.queue), default=None)
 
@@ -504,22 +668,32 @@ class ServingEngine:
         if self._kv_dirty:
             self.kv_valid.copy_(self._valid_host, non_blocking=True)
             self._kv_dirty = False
+            self.kv_valid_uploads += 1
+            if self.obs is not None:
+                self.obs.kv_valid_upload()
 
     def warmup(self) -> "ServingEngine":
         """Build and load the kernels with a zero-commit tick (outputs
-        discarded) and, with ``jit_steps``, capture the graphed tick (or,
-        with megatick_k > 1, the megastep's) on the card, so the first
-        timed tick pays no build and no capture.  Leaves the clock, metrics
-        and canvas untouched; in warm mode it rewrites the pool's K/V,
-        which every tick rewrites before reading anyway.  The paged
-        megatick warms up on copies of the page stores, as JAX's does (its
-        dense buffers, which its graphs read, are the live run's)."""
+        discarded) and, with ``jit_steps``, capture the graphed tick (or
+        its two breakdown stages, or with megatick_k > 1 the megastep's)
+        on the card, so the first timed tick pays no build and no capture.
+        Leaves the clock, metrics and canvas untouched; in warm mode it
+        rewrites the pool's K/V, which every tick rewrites before reading
+        anyway.  The paged megatick warms up on copies of the page stores,
+        as JAX's does (its dense buffers, which its graphs read, are the
+        live run's)."""
         self._flush_kv_valid()
         if self.paged:
             self.pool.flush()
         B = self.num_slots
         cache = self.pool.cache if self.mode == "warm" else None
-        if self._tick_fn is not None:
+        if self._fwd_fn is not None:
+            zeros = np.zeros((B,), np.int32)
+            for _ in range(2 if self.jit_steps else 1):
+                bs, k, seed = self._stage_inputs(zeros, zeros, 0)
+                feats = self._forward_stage(bs, cache)
+                self._sampling_stage(feats, bs, k, seed)
+        elif self._tick_fn is not None:
             self._stage_np[:] = 0
             for _ in range(2):              # the eager call, then capture
                 if self.paged:
@@ -579,13 +753,67 @@ class ServingEngine:
             self._stage[B:2 * B], self._stage[2 * B:])
         return conf_min, masks_left
 
-    def _flush_pages(self) -> None:
+    # -- breakdown stages ---------------------------------------------------
+
+    def _fill_stage(self, bs_np: np.ndarray, k_np: np.ndarray, seed) -> None:
+        """Write a tick's block starts, k and seed into the pinned host
+        staging vector."""
+        B = self.num_slots
+        self._stage_np[:B] = bs_np
+        self._stage_np[B:2 * B] = k_np
+        self._stage_np[2 * B] = seed
+
+    def _stage_inputs(self, bs_np: np.ndarray, k_np: np.ndarray, seed):
+        """A breakdown tick's block starts, k and seed: with ``jit_steps``
+        the staging vector's slices (the graphs' static inputs), else new
+        tensors and an int seed."""
+        if not self.jit_steps:
+            return (torch.as_tensor(bs_np, device=self.device),
+                    torch.as_tensor(k_np, device=self.device), seed)
+        B = self.num_slots
+        self._fill_stage(bs_np, k_np, seed)
+        self._stage.copy_(self._stage_host, non_blocking=True)
+        return self._stage[:B], self._stage[B:2 * B], self._stage[2 * B:]
+
+    def _forward_stage(self, bs, cache):
+        """The breakdown's forward stage; returns its feats (with a graph,
+        its output tensor, which the sampling graph reads by address)."""
+        feats, new_cache = self._fwd_fn(self.params, self.x, self.kv_valid,
+                                        bs, cache)
+        if self.mode == "warm":
+            self.pool.update(new_cache)
+        return feats
+
+    def _sampling_stage(self, feats, bs, k, seed):
+        """The breakdown's sampling stage: head path, top-k and commit into
+        the canvas (in place on the static canvas with ``jit_steps``).
+        Returns (conf_min, masks_left)."""
+        x_new, conf_min, masks_left = self._smp_fn(self.params, feats,
+                                                   self.x, bs, k, seed)
+        if self.jit_steps:
+            self.x.copy_(x_new)
+        else:
+            self.x = x_new
+        return conf_min, masks_left
+
+    def _device_wait(self) -> None:
+        """The breakdown's wait for a stage's work (JAX's
+        ``block_until_ready``), counted in ``host_waits``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.host_waits += 1
+
+    # -- one tick -----------------------------------------------------------
+
+    def _flush_pages(self) -> float:
         """The paged pool's staged pages and tables go up before a tick
-        (or megastep), timed apart from it as the ``paged_io`` stage."""
-        if self.paged:
-            t0 = time.perf_counter()
-            self.pool.flush()
-            self.metrics.record_stage("paged_io", time.perf_counter() - t0)
+        (or megastep); returns the seconds it took (the ``paged_io``
+        stage; 0 on the slot pool)."""
+        if not self.paged:
+            return 0.0
+        t0 = time.perf_counter()
+        self.pool.flush()
+        return time.perf_counter() - t0
 
     def _admit_or_idle(self) -> bool:
         """Admit; when no slot is busy, fast-forward the clock to the next
@@ -609,9 +837,10 @@ class ServingEngine:
         way."""
         if self.megatick_k > 1:
             return self._megastep(max_ticks)
+        t_enter = time.perf_counter()
         if not self._admit_or_idle():
             return False
-        self._flush_pages()
+        paged_io = self._flush_pages()
 
         T = self.dcfg.steps_per_block
         L = self.dcfg.block_length
@@ -626,10 +855,31 @@ class ServingEngine:
             pol = s.policy or self.policy
             k_np[i] = min(pol.step_k(s, default_k), L)
 
+        # per-stage timing, at JAX's boundaries: host_prep is the host's
+        # admission and k-schedule bookkeeping; dispatch ends when the
+        # tick is enqueued, device_sync when its results are on the host
+        # (with breakdown: forward and sampling, each ending in a wait,
+        # then host_sync)
+        stages: Dict[str, float] = {}
         t0 = time.perf_counter()
+        stages["host_prep"] = t0 - t_enter - paged_io
+        if self.paged:
+            stages["paged_io"] = paged_io
         cache = self.pool.cache if self.mode == "warm" else None
         seed = diffusion.tick_seed(self.seed, self.ticks_total)
-        if self._tick_fn is None:
+        if self.breakdown:
+            bs, k, seed = self._stage_inputs(bs_np, k_np, seed)
+            feats = self._forward_stage(bs, cache)
+            self._device_wait()
+            t1 = time.perf_counter()
+            self.metrics.record_stage("forward", t1 - t0)
+            stages["forward"] = t1 - t0
+            conf_min, masks_left = self._sampling_stage(feats, bs, k, seed)
+            self._device_wait()
+            t2 = time.perf_counter()
+            self.metrics.record_stage("sampling", t2 - t1)
+            stages["sampling"] = t2 - t1
+        elif self._tick_fn is None:
             x_new, new_cache, conf_min, masks_left = diffusion.batched_tick(
                 self.model, self.params, self.x, self.kv_valid,
                 torch.as_tensor(bs_np, device=self.device),
@@ -638,22 +888,27 @@ class ServingEngine:
             self.x = x_new
             if self.mode == "warm":
                 self.pool.update(new_cache)
+            t2 = time.perf_counter()
+            stages["dispatch"] = t2 - t0
         else:
-            B = self.num_slots
-            self._stage_np[:B] = bs_np
-            self._stage_np[B:2 * B] = k_np
-            self._stage_np[2 * B] = seed
+            self._fill_stage(bs_np, k_np, seed)
             conf_min, masks_left = (self._paged_tick() if self.paged
                                     else self._graphed_tick(cache))
+            t2 = time.perf_counter()
+            stages["dispatch"] = t2 - t0
         conf_np = conf_min.cpu().numpy()      # device sync point
         masks_np = masks_left.cpu().numpy()
         self.host_waits += 1
-        dt = time.perf_counter() - t0
+        t3 = time.perf_counter()
+        stages["host_sync" if self.breakdown else "device_sync"] = t3 - t2
+        dt = t3 - t0
 
         n_active = self.active_slots
         self.now += dt
         self.ticks_total += 1
         self.metrics.record_tick(dt, n_active)
+        t4 = time.perf_counter()
+        committed = 0
         canvas = _HostCanvas(self)
         for i, s in enumerate(self.slots):
             if s is None:
@@ -661,26 +916,54 @@ class ServingEngine:
             diff = None
             if s.request.uid in self._commit_cbs:
                 diff = (0, canvas()[i, :s.request.total_len])
-            self._advance_slot(i, s, int(masks_np[i]), float(conf_np[i]),
-                               diff, canvas)
+            committed += self._advance_slot(i, s, int(masks_np[i]),
+                                            float(conf_np[i]), diff, canvas)
         if canvas.host is None and n_active:
             # no streaming sink and no release needed the canvas this tick
             self.host_syncs_elided += 1
+            if self.obs is not None:
+                self.obs.host_syncs_elided(1)
+        stages["commit"] = time.perf_counter() - t4
+        for name, sec in stages.items():
+            if name not in ("forward", "sampling"):   # recorded above
+                self.metrics.record_stage(name, sec)
+        if self.obs is not None:
+            self._obs_committed(committed)
+            self.obs.tick(stages, dt, self.active_slots, len(self.queue),
+                          t_start_us=t_enter * 1e6)
         return True
 
+    def _obs_committed(self, committed: int) -> None:
+        """The obs hooks after a tick's (or megastep's) commits: tokens,
+        SlowFast early exits, the paged pool's gauges."""
+        obs = self.obs
+        obs.tokens_committed(committed)
+        ee = self._early_exits_total()
+        if ee > self._early_exits_seen:
+            obs.policy_early_exit(ee - self._early_exits_seen)
+            if self._event is not None:
+                self._event("early_exit", t=self.now,
+                            n=ee - self._early_exits_seen)
+            self._early_exits_seen = ee
+        if self.paged:
+            obs.pool_pages(self.pool)
+
     def _advance_slot(self, i: int, s: _Slot, masks_left: int, conf: float,
-                      diff: Optional[tuple], canvas: _HostCanvas) -> None:
+                      diff: Optional[tuple], canvas: _HostCanvas) -> int:
         """The host state machine of slot ``i`` after one tick that left
         ``masks_left`` masks in its block with min committed confidence
         ``conf``: tick count, streaming diff, first commit, block advance
-        and release, and the CommitEvent.  ``diff`` is ``(offset, row)``, a
-        host copy of the canvas row from position ``offset`` that covers
-        this tick's commits (given when the request has a commit sink);
-        ``canvas()`` gives the host canvas a release reads."""
+        and release, the obs hooks and the CommitEvent.  ``diff`` is
+        ``(offset, row)``, a host copy of the canvas row from position
+        ``offset`` that covers this tick's commits (given when the request
+        has a commit sink); ``canvas()`` gives the host canvas a release
+        reads.  Returns the tokens committed."""
         L = self.dcfg.block_length
+        obs = self.obs
         s.ticks += 1
         uid = s.request.uid
         cb = self._commit_cbs.get(uid)
+        committed = max(0, s.block_masks_left - masks_left)
         positions = tokens = None
         if cb is not None:
             off, row = diff
@@ -692,11 +975,24 @@ class ServingEngine:
             s.masked[span] &= ~newly
         if not s.first_commit and masks_left < L:
             s.first_commit = True
+            s.first_commit_t = self.now
             self.metrics.request_first_commit(uid, self.now)
+            if obs is not None:
+                obs.request_first_commit(
+                    uid, max(0.0, self.now - s.request.arrival_time))
         block_idx, step_in_block = s.block_idx, s.step_in_block
+        # the commit record precedes the done record a release emits
+        self._emit_commit(s.request, cb, self.ticks_total, block_idx,
+                          step_in_block, positions, tokens, masks_left,
+                          s.block_masks_left)
         done = False
         final: Optional[np.ndarray] = None
         if masks_left == 0:                   # block fully committed
+            if obs is not None:
+                obs.block_committed(
+                    uid, block_idx, self.ticks_total,
+                    len(positions) if positions is not None
+                    else s.block_masks_left, positions, tokens)
             s.block_idx += 1
             s.step_in_block = 0
             s.last_conf = float("-inf")
@@ -719,6 +1015,7 @@ class ServingEngine:
                 done=done, final_tokens=final))
             if done:
                 del self._commit_cbs[uid]
+        return committed
 
     # -- device-resident megatick -------------------------------------------
 
@@ -740,12 +1037,14 @@ class ServingEngine:
     def _megastep(self, max_ticks: Optional[int] = None) -> bool:
         """One megastep: admit at the boundary, run up to K ticks on the
         device with one host sync, then replay the drained commit buffers
-        tick by tick through the host state machine: metrics and streaming
-        callbacks see the K=1 event sequence, with contiguous tick numbers
-        and ``now`` advanced by an equal share of the megastep per tick."""
+        tick by tick through the host state machine: metrics, streaming
+        callbacks and obs hooks see the K=1 event sequence, with
+        contiguous tick numbers and ``now`` advanced by an equal share of
+        the megastep per tick."""
+        t_enter = time.perf_counter()
         if not self._admit_or_idle():
             return False
-        self._flush_pages()
+        paged_io = self._flush_pages()
         k_req, stop_on_release = self._choose_megatick_k(max_ticks)
         L = self.dcfg.block_length
         B = self.num_slots
@@ -768,7 +1067,14 @@ class ServingEngine:
             act[i] = True
         cache = self.pool.cache if self.mode == "warm" else None
 
+        # stages as the K=1 tick's: dispatch ends when the megastep's
+        # ticks are enqueued and its tick count is read, device_sync when
+        # its commit buffers are on the host
+        stages: Dict[str, float] = {}
         t0 = time.perf_counter()
+        stages["host_prep"] = t0 - t_enter - paged_io
+        if self.paged:
+            stages["paged_io"] = paged_io
         state = diffusion.megatick_state(
             pl, gb, self.dcfg, block_idx=bi, step_in_block=ti,
             block_masks_left=bml, last_conf=lc, active=act)
@@ -785,6 +1091,8 @@ class ServingEngine:
                                      state, self.ticks_total, k_req,
                                      stop_on_release, cache, self.seed)
         self.host_waits += fn.host_waits - waits0
+        t2 = time.perf_counter()
+        stages["dispatch"] = t2 - t0
         masks_b = bufs["masks_left"][:n].cpu().numpy()
         conf_b = bufs["conf"][:n].cpu().numpy()
         early_b = (bufs["early"][:n].cpu().numpy()
@@ -792,18 +1100,26 @@ class ServingEngine:
         sinks = any(s is not None and s.request.uid in self._commit_cbs
                     for s in self.slots)
         xa_b = bufs["xa"][:n].cpu().numpy() if sinks else None
-        dt = time.perf_counter() - t0
+        t3 = time.perf_counter()
+        stages["device_sync"] = t3 - t2
+        dt = t3 - t0
         elided = (n - 1) + (0 if sinks else 1)
         if elided > 0:
             self.host_syncs_elided += elided
+            if self.obs is not None:
+                self.obs.host_syncs_elided(elided)
 
+        t4 = time.perf_counter()
         now0 = self.now
+        committed = 0
+        active_counts: List[int] = []
         # released rows tick with k = 0 after their release, so the final
         # canvas still holds them
         canvas = _HostCanvas(self)
         for j in range(n):
             self.now = now0 + dt * (j + 1) / n
             self.ticks_total += 1
+            active_counts.append(self.active_slots)
             self.metrics.record_tick(dt / n, self.active_slots)
             for i, s in enumerate(self.slots):
                 if s is None:
@@ -812,10 +1128,24 @@ class ServingEngine:
                 if s.request.uid in self._commit_cbs:
                     diff = (s.request.prompt_len + s.block_idx * L,
                             xa_b[j, i])
-                self._advance_slot(i, s, int(masks_b[j, i]),
-                                   float(conf_b[j, i]), diff, canvas)
+                committed += self._advance_slot(
+                    i, s, int(masks_b[j, i]), float(conf_b[j, i]), diff,
+                    canvas)
         if early_b is not None:
             self.policy.early_exits += int(early_b.sum())
+        stages["commit"] = time.perf_counter() - t4
+        for name, sec in stages.items():
+            self.metrics.record_stage(name, sec)
+        if self.obs is not None:
+            self._obs_committed(committed)
+            # each replayed tick carries 1/n of the megastep's stage
+            # seconds, so the stage histograms show the amortization
+            per_tick = {name: sec / n for name, sec in stages.items()}
+            queued = len(self.queue)
+            for j in range(n):
+                self.obs.tick(per_tick, dt / n, active_counts[j], queued,
+                              t_start_us=(t_enter + j * (dt / n)) * 1e6)
+            self.obs.megastep(n, k_req, dt, t_start_us=t_enter * 1e6)
         return True
 
     def run(self, requests: Optional[Sequence[Request]] = None

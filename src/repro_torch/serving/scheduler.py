@@ -1,11 +1,12 @@
 """Pluggable admission + step policies for the serving engine: a copy of
-src/repro/serving/scheduler.py (pure Python), without the frontend's
-queue-deadline helper.
+src/repro/serving/scheduler.py (pure Python).
 
 Admission (``select``) picks which queued request takes a freed slot;
 the step hook (``step_k``) can override how many tokens a slot commits on
 the next tick; the preemption hook (``preempt``) names a slot to spill
-when a request's pages do not fit the paged pool.  The SlowFast policy implements the adaptive-step idea of
+when a request's pages do not fit the paged pool;
+``expired_requests`` is the frontend's queue-deadline shed rule.  The
+SlowFast policy implements the adaptive-step idea of
 "SlowFast Sampling" (PAPERS.md): once every token committed in a tick
 clears a confidence threshold, the model is in its convergent phase and
 the rest of the block is committed in one shot.
@@ -93,3 +94,28 @@ def get_policy(name: str, **kwargs) -> Policy:
     except KeyError:
         raise ValueError(
             f"unknown policy {name!r}; choose from {sorted(_POLICIES)}")
+
+
+def expired_requests(queue: Sequence, now: float,
+                     max_queue_wait: float,
+                     slo_classes=None) -> list:
+    """Still-queued requests whose wait exceeds their deadline: the
+    frontend cancels these on the engine and answers 429/overloaded
+    instead of letting queue waits grow without bound.
+
+    With ``slo_classes`` (a name -> :class:`repro_torch.obs.slo.SLOClass`
+    table) each request's deadline is the tighter of ``max_queue_wait``
+    and its class ``queue_deadline_s``; waits are always measured from
+    ``arrival_time`` (the first submit, never a restore)."""
+    if slo_classes is None:
+        if max_queue_wait is None:
+            return []
+        return [r for r in queue if now - r.arrival_time > max_queue_wait]
+    from repro_torch.obs import slo as slo_lib
+    out = []
+    for r in queue:
+        cls = slo_lib.get_class(slo_classes, getattr(r, "slo_class", ""))
+        deadline = slo_lib.queue_deadline(cls, max_queue_wait)
+        if deadline is not None and now - r.arrival_time > deadline:
+            out.append(r)
+    return out

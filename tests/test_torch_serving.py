@@ -148,12 +148,14 @@ def test_engine_policies_cancel_and_validation(models):
     assert eng.metrics.summary()["requests_completed"] == 2
 
 
-# the megatick and the paged pool are ported; their mesh variants wait
-# for the mesh (ROADMAP Queue 1 item 12), so option0 is the mesh megatick
-# and option1 the paged pool under a mesh
+# the megatick, the paged pool and breakdown timing are ported; their
+# mesh variants wait for the mesh (ROADMAP Queue 1 item 12), so option0 is
+# the mesh megatick, option1 the paged pool and option2 breakdown timing
+# under a mesh
 @pytest.mark.parametrize("option", [dict(megatick_k=4, mesh=object()),
                                     dict(pool="paged", mesh=object()),
-                                    dict(breakdown=True), dict(mesh=object())])
+                                    dict(breakdown=True, mesh=object()),
+                                    dict(mesh=object())])
 def test_unported_engine_options_raise(models, option):
     _, model_t, _, params_t = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
