@@ -10,7 +10,9 @@ Phases, each fatal on failure:
   2. kernels -- each kernel against its plain PyTorch version on the card
                at the main path's shapes, with its time, the plain
                version's, a one-call PyTorch yardstick's and its bound
-               (baos_mx_quant bit for bit, also on the f32 route, on zero
+               (baos_mx_quant bit for bit in every KV format of core/mx,
+               mxfp6_e3m2 and mxfp4_e2m1 included, each timed, also on
+               the f32 route, on zero
                and extreme-exponent blocks, at D 32, into an odd-offset
                cache slice and at unaligned addresses, after torch.exp2
                is checked at every integer in [-127, 127];
@@ -113,8 +115,30 @@ Phases, each fatal on failure:
                --full`` as a subprocess with --breakdown, a trace and an
                event log (both valid, logquery --validate exits 0), and
                with --legacy; each exits 0.
+  7. moe  -- the MoE family, one model at a time after llada-8b is freed:
+               llada-moe-7b-a1b at full width and depth (24 layers, d 2048,
+               64 experts top-2, bf16, seeded random weights) through
+               generate (mode none stepped, each step's sampling held
+               against plain; dual + BAOS and prefix + BAOS as phase 3),
+               the engine's four paths eager K=1, graphed K=1 and K=8
+               with phase 4's checks, warm + BAOS with an mxfp4_e2m1 KV
+               cache (graphed K=1 equal to eager), the paged pool on warm
+               graphed K=1 and K=8 (equal to the slot pool, no capture
+               after warmup()), breakdown on warm graphed (the MoE
+               sampling share), the Table 6 shape in modes none, prefix +
+               BAOS and dual + BAOS (eager against graphed, a second
+               generate() capturing nothing, tokens/s beside the paper's
+               H100 rows), the batched expert dispatch at the engine's
+               shape against JAX's one-group algorithm row by row (kept
+               pairs equal, output within one bf16 ulp) and the expert
+               products' device time against their byte floors; then
+               qwen2-moe-a2.7b and moonshot-v1-16b-a3b at full width
+               through the engine on path warm, eager against graphed
+               K=1, each tick's sampling held against plain (a model whose
+               weights leave under 12 GiB free runs at a cut depth,
+               logged).
 Every path's launch counts are zeroed just before it and read just after;
-the kernels line sums them over phases 4, 4b, 3b, 5 and 6a-6c.
+the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c and 7.
 Prints the kernels JSON line, the card's name and power limit, and last
 the {"ok": true, ...} line.  Exits non-zero without a result when there is
 no CUDA device or the port is not beside this script.
@@ -732,7 +756,9 @@ def baos_edge_blocks(gen, B, S, H, D, dtype):
 
 def check_baos(gen) -> dict:
     """baos_mx_quant bit for bit against the plain version in each KV
-    format: at the warm tick's shape, K of (4, 96, 32, 128) bf16 (G = 4 * 32
+    format (every format of core/mx: mxint4, mxint8, mxfp8_e4m3,
+    mxfp6_e3m2, mxfp4_e2m1, bf16 and none, each timed): at the warm tick's
+    shape, K of (4, 96, 32, 128) bf16 (G = 4 * 32
     channel groups) with per-channel offsets and spreads and its minmax
     calibration, on the bf16 and f32 routes; blocks of zeros and at both
     exponent extremes; D 32 with a ragged row run; a slice of a longer cache
@@ -791,15 +817,24 @@ def check_baos(gen) -> dict:
          out=ou)
     b_ms, b_by = bound(2 * x.numel() * 2 + 2 * c.numel() * 4,
                        5.0 * x.numel(), F32_FLOPS)
-    log(f"baos_mx_quant mxint4 device time (profiler) "
-        f"{device_ms(lambda: bq.baos_mx_quant(x, c, f, 'mxint4'), 50):.4f} "
-        f"ms per call, bound {b_ms:.4f} ms")
+    by_fmt = {}
+    for fmt in baos.KV_FORMATS:
+        by_fmt[fmt] = dict(
+            device_ms=device_ms(lambda: bq.baos_mx_quant(x, c, f, fmt), 50),
+            ms=time_ms(lambda: bq.baos_mx_quant(x, c, f, fmt), 200),
+            plain_ms=time_ms(lambda: bq.baos_mx_quant_plain(x, c, f, fmt),
+                             20))
+        log(f"baos_mx_quant {fmt} (4, 96, 32, 128) bf16: device time "
+            f"(profiler) {by_fmt[fmt]['device_ms']:.4f} ms per call, "
+            f"CUDA events {by_fmt[fmt]['ms']:.4f} ms, plain "
+            f"{by_fmt[fmt]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+    main = by_fmt["mxint4"]
     return dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: bq.baos_mx_quant(x, c, f, "mxint4"), 200),
-        plain_ms=time_ms(lambda: bq.baos_mx_quant_plain(x, c, f, "mxint4"),
-                         20),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        ms_by_fmt={k: v["ms"] for k, v in by_fmt.items()},
+        plain_ms_by_fmt={k: v["plain_ms"] for k, v in by_fmt.items()})
 
 
 def check_stablemax_case(z, fmt, temperature, mid, what):
@@ -939,7 +974,7 @@ def phase_e2e(model, params, gen) -> None:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     require(not bool((state.x == mid).any()), "e2e: mask ids left")
-    log(f"e2e llada-8b generate mode none (1 x {state.x.shape[1]}, "
+    log(f"e2e {cfg.name} generate mode none (1 x {state.x.shape[1]}, "
         f"{state.ticks} ticks, {dt:.3f} s): sampled tokens differing from "
         f"plain {totals[1]}/{totals[0]}, of which near-ties {totals[2]}")
     require(totals[1] == totals[2],
@@ -948,7 +983,7 @@ def phase_e2e(model, params, gen) -> None:
     out = diffusion.generate(model, params, prompt, dcfg, seed=7,
                              megatick_k=4)
     torch.cuda.synchronize()
-    log(f"e2e llada-8b generate mode none megatick_k=4 (graphed): "
+    log(f"e2e {cfg.name} generate mode none megatick_k=4 (graphed): "
         f"{time.perf_counter() - t0:.3f} s, tokens equal to the stepped "
         f"run: {bool(torch.equal(out, state.x))}")
     require(torch.equal(out, state.x),
@@ -987,14 +1022,14 @@ def stepped_run(model, params, prompt, dcfg, jit_steps, quant=None,
 
 
 def eager_vs_graphed(model, params, prompt, dcfg, what, expected,
-                     quant=None) -> dict:
+                     quant=None, tps=None) -> dict:
     """``dcfg`` through step() eager (jit_steps=False) and graphed, then a
     second graphed call through generate() itself: equal tokens, no mask
     id left, each run launching exactly ``expected``, and the second
     graphed call capturing no graph.  Logs each run's step wall median and
     p84, tokens/s, peak memory, launches, the graphs captured and the
     memory their pools hold.  Returns the launch counts of the three
-    runs, summed."""
+    runs, summed; each run's tokens/s goes into ``tps`` when given."""
     import numpy as np
     from repro_torch.core import diffusion
     from repro_torch.kernels import _build
@@ -1030,6 +1065,8 @@ def eager_vs_graphed(model, params, prompt, dcfg, what, expected,
                 f"{what} {name}: mask ids left")
         expect_launches(counts, expected, f"{what} {name}")
         outs[name] = x
+        if tps is not None:
+            tps[name] = n_tok / secs
         for k, n in counts.items():
             total_counts[k] = total_counts.get(k, 0) + n
     require(torch.equal(outs["eager K=1"], outs["graphed K=1"]),
@@ -1052,20 +1089,31 @@ def eager_vs_graphed(model, params, prompt, dcfg, what, expected,
             f"{g.captures - captures0} graphs")
     require(torch.equal(out, outs["eager K=1"]),
             f"{what}: the second graphed generate() differs from eager")
+    if tps is not None:
+        tps["graphed, second generate()"] = n_tok / secs
     for k, n in counts.items():
         total_counts[k] = total_counts.get(k, 0) + n
     return total_counts
 
 
-def phase_table6(model, params, gen) -> dict:
-    """llada-8b at the paper's Table 6 shape (B 16, prompt 128, gen 256,
+# the paper's Table 6 H100 tokens/s (B 16, gen 256, block 64, 16 steps),
+# by (arch, cache mode): benchmarks/table6_end2end.py:16-33
+PAPER_H100_TPS = {("llada-8b", "none"): 126, ("llada-8b", "prefix"): 180,
+                  ("llada-8b", "dual"): 500,
+                  ("llada-moe-7b-a1b", "none"): 466,
+                  ("llada-moe-7b-a1b", "prefix"): 656,
+                  ("llada-moe-7b-a1b", "dual"): 1279}
+
+
+def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
+    """The model at the paper's Table 6 shape (B 16, prompt 128, gen 256,
     block 64, 16 steps per block) in cache mode none, prefix + BAOS and
-    dual + BAOS (mxint4 KV), eager K=1 against graphed K=1; then dual +
-    BAOS at Table 6's operating point, QuantPolicy(enabled=True) (MXINT4
-    weights, MXINT8 activations) with bf16 sampling, whose sampling is
-    also held against the plain functions on the same (fake-quantized)
-    hidden states at a warm and a refine step.  Returns the launch counts
-    of every run."""
+    dual + BAOS (mxint4 KV), eager K=1 against graphed K=1; then, with
+    ``with_quant``, dual + BAOS at Table 6's operating point,
+    QuantPolicy(enabled=True) (MXINT4 weights, MXINT8 activations) with
+    bf16 sampling, whose sampling is also held against the plain functions
+    on the same (fake-quantized) hidden states at a warm and a refine step.
+    Returns the launch counts of every run."""
     from repro_torch.core import baos, diffusion, sampling
     from repro_torch.kernels import fused_head_sampling as fhs
     from repro_torch.models import layers
@@ -1089,13 +1137,26 @@ def phase_table6(model, params, gen) -> dict:
                  cache_mode="dual", baos=kv,
                  sampling=sampling.SamplingConfig(fmt="bf16"), **shape),
              common + ("baos_mx_quant",), layers.QuantPolicy(enabled=True)))
-    for name, dcfg, expected, quant in runs:
+    for name, dcfg, expected, quant in runs[:None if with_quant else -1]:
+        tps = {}
         counts = eager_vs_graphed(model, params, prompt, dcfg,
-                                  f"table6 llada-8b (B {B}, prompt {P}, gen "
-                                  f"256, block 64, 16 steps) {name}",
-                                  expected, quant)
+                                  f"table6 {cfg.name} (B {B}, prompt {P}, "
+                                  f"gen 256, block 64, 16 steps) {name}",
+                                  expected, quant, tps)
+        if quant is None:
+            profile_steps(model, params, prompt, dcfg,
+                          f"table6 {cfg.name} {name}")
+        paper = PAPER_H100_TPS.get((cfg.name, dcfg.cache_mode))
+        if quant is None and paper is not None:
+            log(f"table6 {cfg.name} {name}: tokens/s "
+                + ", ".join(f"{k} {v:.1f}" for k, v in tps.items())
+                + f"; the paper's H100 row for mode {dcfg.cache_mode}: "
+                f"{paper} (its number, not the port's)")
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
+    if not with_quant:
+        diffusion.clear_step_graphs()
+        return total
     # the quantized run's sampling against plain on the same hidden states
     dcfg, quant = runs[-1][1], runs[-1][3]
     state = diffusion.init_state(model, prompt[:4], dcfg, seed=7)
@@ -1121,18 +1182,48 @@ def phase_table6(model, params, gen) -> dict:
     return total
 
 
-def phase_configs(gen) -> dict:
-    """The three dense configs this slice adds, at full width with seeded
-    random weights, one model at a time (each freed before the next):
-    llama3.2-3b through generate() in cache mode none with a block of 128
-    (topk_mask's CTA route on the path), B 4, prompt 64, gen 256, eager
-    against graphed; minicpm-2b (V 122753: the fused head's padded bf16
-    route on the path) through the engine on path warm, eager K=1 against
-    graphed K=1 (tokens, CommitEvents, launch counts), its sampling held
-    tick by tick against the plain version at the engine's rows;
-    codeqwen1.5-7b (QKV bias, full MHA, V 92416) through the engine on
-    path warm, eager K=1 against graphed K=1.  Returns the launch counts
-    of every run."""
+DENSE_CONFIGS = ("llama3.2-3b", "minicpm-2b", "codeqwen1.5-7b")
+# room left beside a model's weights for its runs (cache, activations,
+# graph pools) before its depth is cut
+HEADROOM_GIB = 12.0
+
+
+def profile_steps(model, params, prompt, dcfg, name, n: int = 16) -> None:
+    """profile_ticks over n graphed step() calls from a fresh state (the
+    step graphs already captured): in a cached mode one block's worth, a
+    warm step and refine steps; the GEMM rate only in mode none, where
+    every step is the same forward."""
+    from repro_torch.core import diffusion
+    B, P = prompt.shape
+    cache = None
+    if dcfg.cache_mode != "none":
+        cache = diffusion.step_graphs(model, dcfg, model.cfg.mask_id, None,
+                                      B, P + dcfg.gen_length).cache
+    box = [diffusion.init_state(model, prompt, dcfg, seed=7, cache=cache)]
+
+    def step():
+        box[0] = diffusion.step(model, params, box[0])
+
+    flops = (forward_gemm_flops(model.cfg, B, P + dcfg.gen_length)
+             if dcfg.cache_mode == "none" else None)
+    profile_ticks(step, name, flops, n)
+
+
+def phase_configs(gen, archs=DENSE_CONFIGS) -> dict:
+    """Further configs ``archs`` at full width with seeded random weights,
+    one model at a time (each freed before the next): llama3.2-3b through
+    generate() in cache mode none with a block of 128 (topk_mask's CTA
+    route on the path), B 4, prompt 64, gen 256, eager against graphed;
+    the others through the engine on path warm, eager K=1 against graphed
+    K=1 (tokens, CommitEvents, launch counts): minicpm-2b (V 122753: the
+    fused head's padded bf16 route on the path), codeqwen1.5-7b (QKV bias,
+    full MHA, V 92416), and the MoE configs qwen2-moe-a2.7b (60 experts
+    top-4, 4 shared, QKV bias, V 151936) and moonshot-v1-16b-a3b (64
+    top-6, 2 shared, V 163840); minicpm-2b's and the MoE configs' sampling
+    held tick by tick against the plain version at the engine's rows.  A
+    model whose weights leave less than HEADROOM_GIB of the card free runs
+    at the depth that leaves it (logged).  Returns the launch counts of
+    every run."""
     import gc
     import numpy as np
     from repro_torch.configs import base
@@ -1146,8 +1237,8 @@ def phase_configs(gen) -> dict:
             total[k] = total.get(k, 0) + n
 
     common = ("flash_bidir", "fused_head_sampling", "topk_mask")
-    for arch in ("llama3.2-3b", "minicpm-2b", "codeqwen1.5-7b"):
-        cfg = base.get_config(arch)
+    for arch in archs:
+        cfg = fit_depth(base.get_config(arch))
         model = build_model(cfg, DEVICE)
         t0 = time.perf_counter()
         params = model.init(seed=0)
@@ -1206,13 +1297,32 @@ def phase_configs(gen) -> dict:
             log(f"{arch} engine warm: graphed K=1 equals eager K=1 in tokens, "
                 f"{len(ref['events'])} CommitEvents, {ref['ticks']} ticks "
                 f"and launch counts")
-            if arch == "minicpm-2b":
+            if arch == "minicpm-2b" or cfg.family == "moe":
                 check_ticks_sampling(model, params, gen)
         del model, params, w
         diffusion.clear_step_graphs()
         gc.collect()
         torch.cuda.empty_cache()
     return total
+
+
+def fit_depth(cfg):
+    """``cfg``, or with fewer layers if its bf16 weights would leave less
+    than HEADROOM_GIB of the card free (the cut is logged)."""
+    free = torch.cuda.mem_get_info()[0] / 2 ** 30
+    per_layer = (cfg.param_count() - 2 * cfg.vocab * cfg.d_model) \
+        / cfg.n_layers * 2 / 2 ** 30
+    fixed = 2 * cfg.vocab * cfg.d_model * 2 / 2 ** 30
+    need = fixed + cfg.n_layers * per_layer + HEADROOM_GIB
+    log(f"{cfg.name}: {cfg.param_count() * 2 / 2 ** 30:.2f} GiB of bf16 "
+        f"weights, {free:.2f} GiB free on the card")
+    if need <= free:
+        return cfg
+    depth = int((free - HEADROOM_GIB - fixed) // per_layer)
+    require(depth >= 1, f"{cfg.name}: not one layer fits")
+    log(f"{cfg.name}: depth cut from {cfg.n_layers} to {depth} layers to "
+        f"leave {HEADROOM_GIB} GiB free")
+    return dataclasses.replace(cfg, n_layers=depth)
 
 
 def check_ticks_sampling(model, params, gen) -> None:
@@ -1333,7 +1443,7 @@ def phase_cached(model, params, gen, cache_mode) -> dict:
                 f"{what}: the commit differs from the sampled tokens")
         state = diffusion.advance(state, x)
     torch.cuda.synchronize()
-    log(f"e2e llada-8b {what} (1 x {out.shape[1]}, {state.ticks} steps, "
+    log(f"e2e {cfg.name} {what} (1 x {out.shape[1]}, {state.ticks} steps, "
         f"{dt:.3f} s through generate()): sampled tokens differing from "
         f"plain {totals[1]}/{totals[0]}, of which near-ties {totals[2]}; "
         f"launches {counts}")
@@ -1428,15 +1538,16 @@ def event_keys(events):
             for e in events]
 
 
-def phase_engine(model, params):
+def phase_engine(model, params, slowfast: bool = True):
     """Each path through the eager K=1 engine (as in earlier runs), the
     graphed K=1 engine and the graphed megatick (K=8): each must finish
     every request with no mask id left and launch exactly its kernels; the
     graphed runs must give the eager run's tokens, per-request ticks,
     CommitEvents (a second run of each with streaming sinks) and
     ticks_total, and its launch counts (K=8: plus those of the ticks run
-    after a stop).  Returns (launch counts, per path its runs, launches
-    per tick and graphed device busy ms per tick)."""
+    after a stop); with ``slowfast``, path warm also on the SlowFast(0)
+    trace.  Returns (launch counts, per path its runs, launches per tick
+    and graphed device busy ms per tick)."""
     import numpy as np
     from repro_torch.kernels import _build
     cfg = model.cfg
@@ -1526,7 +1637,7 @@ def phase_engine(model, params):
             f"{runs['graphed K=8']['wasted']} ticks ran after a stop, "
             f"{runs['graphed K=8']['wasted'] * busy['graphed K=1']:.3f} ms "
             f"of device time")
-        if name == "warm":
+        if name == "warm" and slowfast:
             check_slowfast_megatick(model, params, dcfg, mode, trace,
                                     per_tick, busy["graphed K=1"])
         paths[name] = dict(runs=runs, per_tick=per_tick, busy=busy,
@@ -1659,17 +1770,18 @@ def profile_engine(model, params, dcfg, mode, trace, name, vcfg, per_tick,
 PAGED = dict(pool="paged", page_size=16)
 
 
-def phase_paged(model, params, slot) -> dict:
+def phase_paged(model, params, slot, names=("warm", "none", "warm+baos"),
+                variants=VARIANTS, extras: bool = True) -> dict:
     """The engine trace of phase 4 through the paged pool (page 16) on
-    paths warm, none and warm+baos, each eager K=1, graphed K=1 and
-    graphed K=8: tokens, per-request ticks, CommitEvents and ticks_total
-    must equal the slot pool's run at the same settings (``slot``, from
-    phase_engine), its launch counts too (K=8: up to each run's own ticks
-    after a stop), and a graphed run must capture no graph after
-    warmup().  Then a profile of the paged warm graphed K=1 tick against
-    the slot tick's, the gather and scatter against their byte bound,
-    preemption at full width and the prefix-heavy goodput case.  Returns
-    the launch counts of the runs."""
+    paths ``names`` (warm, none and warm+baos), each in ``variants``
+    (eager K=1, graphed K=1 and graphed K=8): tokens, per-request ticks,
+    CommitEvents and ticks_total must equal the slot pool's run at the
+    same settings (``slot``, from phase_engine), its launch counts too
+    (K=8: up to each run's own ticks after a stop), and a graphed run must
+    capture no graph after warmup().  Then, with ``extras``, a profile of
+    the paged warm graphed K=1 tick against the slot tick's, the gather
+    and scatter against their byte bound, preemption at full width and the
+    prefix-heavy goodput case.  Returns the launch counts of the runs."""
     import numpy as np
     from repro_torch.kernels import _build
     cfg = model.cfg
@@ -1677,12 +1789,12 @@ def phase_paged(model, params, slot) -> dict:
     launches = {name: 0 for name in _build.KERNELS}
     dcfgs, warm_eng = {}, None
     for name, mode, dcfg, expected in engine_paths():
-        if name not in ("warm", "none", "warm+baos"):
+        if name not in names:
             continue
         dcfgs[name] = dcfg
         ref, per_tick = slot[name]["runs"], slot[name]["per_tick"]
         walls = []
-        for vname, vcfg in VARIANTS:
+        for vname, vcfg in variants:
             what = f"paged engine path={name} {vname}"
             eng, keys, tick_ms, counts, captures0 = engine_run(
                 model, params, dcfg, mode, trace, True, **vcfg, **PAGED)
@@ -1727,11 +1839,14 @@ def phase_paged(model, params, slot) -> dict:
             if name == "warm+baos" and vname == "graphed K=1":
                 baos_run = run
             del eng
-        log(f"paged engine path={name}: eager K=1, graphed K=1 and K=8 equal "
-            f"the slot pool's in tokens, per-request ticks, "
+        log(f"paged engine path={name}: "
+            f"{', '.join(v for v, _ in variants)} equal the slot pool's in "
+            f"tokens, per-request ticks, "
             f"{len(ref['eager K=1']['events'])} CommitEvents, ticks_total "
             f"and launches; tick wall median ms paged vs slot: "
             + ", ".join(walls))
+    if not extras:
+        return launches
     busy = profile_engine(model, params, dcfgs["warm"], "warm", trace,
                           "paged warm graphed K=1",
                           dict(jit_steps=True, **PAGED),
@@ -1972,15 +2087,22 @@ def run_record(eng, keys) -> dict:
                 ticks_total=eng.ticks_total)
 
 
-def phase_breakdown(model, params, slot_paths) -> dict:
-    """6a: the engine trace with EngineConfig(breakdown=True) on paths warm
-    (fused head, mxfp8), warm+baos and the Fig. 1 pair's reference side,
-    warm on the legacy head at fmt none; each eager and graphed, equal to
-    the plain engine's run of the path (tokens, per-request ticks,
-    CommitEvents, ticks_total).  Prints the stage medians and the sampling
-    share sampling / (forward + sampling), and the graphed forward +
-    sampling beside phase 4's graphed device busy and the CUDA-event times
-    of the tick's halves.  Returns the launch counts."""
+BREAKDOWN_VARIANTS = (("eager", dict(jit_steps=False)),
+                      ("graphed", dict(jit_steps=True)))
+
+
+def phase_breakdown(model, params, slot_paths,
+                    names=("warm", "warm+baos", "warm legacy fmt none"),
+                    variants=BREAKDOWN_VARIANTS) -> dict:
+    """6a: the engine trace with EngineConfig(breakdown=True) on paths
+    ``names``: warm (fused head, mxfp8), warm+baos and the Fig. 1 pair's
+    reference side, warm on the legacy head at fmt none; each in
+    ``variants`` (eager and graphed), equal to the plain engine's run of
+    the path (tokens, per-request ticks, CommitEvents, ticks_total).
+    Prints the stage medians and the sampling share sampling / (forward +
+    sampling), and the graphed forward + sampling beside phase 4's graphed
+    device busy and the CUDA-event times of the tick's halves (and, with
+    the legacy path, the Fig. 1 pair).  Returns the launch counts."""
     import numpy as np
     from repro_torch.core import sampling
     from repro_torch.kernels import _build
@@ -1997,6 +2119,8 @@ def phase_breakdown(model, params, slot_paths) -> dict:
     launches = {name: 0 for name in _build.KERNELS}
     shares = {}
     for name, mode, dcfg, expected in cases:
+        if name not in names:
+            continue
         if name in slot_paths:
             ref = slot_paths[name]["runs"]["eager K=1"]
         else:
@@ -2006,9 +2130,8 @@ def phase_breakdown(model, params, slot_paths) -> dict:
             ref = run_record(eng, keys)
             expect_launches(counts, expected, f"breakdown {name} plain")
             del eng
-        for vname, vcfg in (("eager", dict(jit_steps=False)),
-                            ("graphed", dict(jit_steps=True))):
-            what = f"breakdown path={name} {vname}"
+        for vname, vcfg in variants:
+            what = f"breakdown {model.cfg.name} path={name} {vname}"
             obs = ServingObs().for_replica("replica-0")
             stages = record_stages(obs)
             eng, keys, tick_ms, counts, _ = engine_run(
@@ -2041,12 +2164,15 @@ def phase_breakdown(model, params, slot_paths) -> dict:
         info = slot_paths.get(name)
         if info is not None:
             fwd_ev, smp_ev = info["halves"]
-            log(f"breakdown path={name}: graphed forward + sampling "
+            log(f"breakdown {model.cfg.name} path={name}: graphed forward "
+                f"+ sampling "
                 f"{med['forward'] + med['sampling']:.3f} ms (host clock, "
                 f"each ending in a device wait) against phase 4's graphed "
                 f"K=1 device busy {info['busy']['graphed K=1']:.3f} ms and "
                 f"the eager halves' CUDA-event times tick_forward "
                 f"{fwd_ev:.3f} + tick_sample {smp_ev:.3f} ms")
+    if "warm legacy fmt none" not in names:
+        return launches
     head = slot_paths["warm"]["sampling_stage"]["legacy head product"]
     (fw, fs), (lw, ls) = (shares[("warm", "graphed")],
                           shares[("warm legacy fmt none", "graphed")])
@@ -2367,14 +2493,33 @@ def phase_tick_breakdown(eng, model, params, dcfg, name) -> None:
         params, feats, eng.x, bs, k, 0, dcfg, eng.mask_id, model), 10)
     log(f"tick breakdown path={name} ({B} x {eng.max_seq_len}): "
         f"tick_forward {fwd:.3f} ms, tick_sample {smp:.3f} ms")
-    cfg = model.cfg
-    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
-    layer_weights = cfg.n_layers * (2 * cfg.d_model * (hq + hkv)
-                                    + 3 * cfg.d_model * cfg.d_ff)
     profile_ticks(lambda: diffusion.batched_tick(
         model, params, eng.x, eng.kv_valid, bs, k, 0, cache, dcfg,
-        eng.mask_id), name, gemm_flops=2.0 * eng.x.numel() * layer_weights)
+        eng.mask_id), name, gemm_flops=forward_gemm_flops(model.cfg,
+                                                          *eng.x.shape))
     return fwd, smp
+
+
+def forward_gemm_flops(cfg, B: int, S: int) -> float:
+    """GEMM FLOPs of one forward over (B, S): per token the QKV and output
+    projections and a dense layer's SwiGLU, or an MoE layer's router and
+    shared experts; an MoE layer's expert products run over E·C capacity
+    rows per dispatch group, empty slots included."""
+    from repro_torch.models import moe
+    d = cfg.d_model
+    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    per_token = 2 * d * (hq + hkv)
+    grouped = 0
+    if cfg.moe is None:
+        per_token += 3 * d * cfg.d_ff
+    else:
+        m = cfg.moe
+        per_token += d * m.num_experts + 3 * d * (
+            m.d_ff_shared or m.num_shared_experts * m.d_ff_expert)
+        G, T = (B, S) if m.group_dispatch and B > 1 else (1, B * S)
+        grouped = G * m.num_experts * moe.capacity(T, m) * 3 * d \
+            * m.d_ff_expert
+    return 2.0 * cfg.n_layers * (B * S * per_token + grouped)
 
 
 def phase_sampling_stage(eng, model, params, dcfg) -> None:
@@ -2471,10 +2616,11 @@ def kernel_class(name: str) -> str:
             "other")
 
 
-def profile_ticks(tick, name: str, gemm_flops: float, n: int = 3) -> None:
+def profile_ticks(tick, name: str, gemm_flops, n: int = 3) -> None:
     """torch.profiler over n ticks: device time per kernel class (device
-    events only), the achieved GEMM rate, and the device's idle share of
-    the wall time, which the profiler's own host cost inflates."""
+    events only), the achieved GEMM rate (when ``gemm_flops``, a tick's
+    GEMM FLOPs, is given), and the device's idle share of the wall time,
+    which the profiler's own host cost inflates."""
     from torch.autograd import DeviceType
     tick()
     torch.cuda.synchronize()
@@ -2498,14 +2644,242 @@ def profile_ticks(tick, name: str, gemm_flops: float, n: int = 3) -> None:
                                           key=lambda kv: -kv[1]))
     launches = sum(calls for _, calls, _ in kernels)
     gemm_us = classes.get("gemm", 0.0) / n
-    gemm_tflops = gemm_flops / (gemm_us * 1e-6) / 1e12 if gemm_us else 0.0
+    rate = ""
+    if gemm_flops is not None and gemm_us:
+        rate = (f", GEMMs {gemm_flops / 1e12:.2f} TFLOP at "
+                f"{gemm_flops / (gemm_us * 1e-6) / 1e12:.0f} TFLOP/s")
     log(f"profile path={name}, per tick: wall {wall_us / n / 1e3:.3f} ms, "
         f"device busy {busy / n / 1e3:.3f} ms "
         f"(idle {max(0.0, 1 - busy / wall_us) * 100:.1f}%), {launches} "
-        f"kernels, GEMMs {gemm_flops / 1e12:.2f} TFLOP at "
-        f"{gemm_tflops:.0f} TFLOP/s: {parts}")
+        f"kernels{rate}: {parts}")
     for us, calls, kname in sorted(kernels, reverse=True)[:8]:
         log(f"  {us / n / 1e3:8.3f} ms/tick  {calls:4d} calls/tick  {kname}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the MoE family
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "llada-moe-7b-a1b"
+MOE_CONFIGS = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
+
+
+def phase_moe(gen) -> dict:
+    """7: llada-moe-7b-a1b at full width and depth (24 layers, d 2048, 64
+    experts top-2, bf16, seeded random weights) through generate (mode
+    none stepped with each step's sampling held against plain, dual +
+    BAOS and prefix + BAOS), the engine's four paths each eager K=1,
+    graphed K=1 and K=8 (phase 4's checks), warm + BAOS with an mxfp4 KV
+    cache (eager against graphed K=1), the paged pool on warm graphed K=1
+    and K=8 (equal to the slot pool), breakdown on warm graphed (the MoE
+    sampling share), the Table 6 shape in modes none, prefix + BAOS and
+    dual + BAOS (eager against graphed, a second generate() capturing
+    nothing), the batched dispatch against JAX's one-group algorithm per
+    row, and the expert products' device time against their byte floors;
+    then qwen2-moe-a2.7b and moonshot-v1-16b-a3b through the engine
+    (phase_configs).  Returns the launch counts of the runs."""
+    from repro_torch.configs import base
+    from repro_torch.core import diffusion
+    from repro_torch.models.registry import build_model
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    t_phase = time.perf_counter()
+    cfg = base.get_config(MOE_ARCH)
+    model = build_model(cfg, DEVICE)
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    log(f"{MOE_ARCH} params: {cfg.param_count() / 1e9:.2f} B "
+        f"({cfg.active_param_count() / 1e9:.2f} B read by one token), init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    phase_e2e(model, params, gen)
+    for cache_mode in ("dual", "prefix"):
+        phase_cached(model, params, gen, cache_mode)
+    counts, slot_paths = phase_engine(model, params, slowfast=False)
+    add(counts)
+    add(check_kv_fp4(model, params))
+    add(phase_paged(model, params, slot_paths, names=("warm",),
+                    variants=VARIANTS[1:], extras=False))
+    add(phase_breakdown(model, params, slot_paths, names=("warm",),
+                        variants=BREAKDOWN_VARIANTS[1:]))
+    add(phase_table6(model, params, gen, with_quant=False))
+    check_moe_dispatch(model, params, gen)
+    log(f"phase 7 {MOE_ARCH}: {time.perf_counter() - t_phase:.1f} s")
+    del model, params, slot_paths
+    diffusion.clear_step_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    add(phase_configs(gen, MOE_CONFIGS))
+    log(f"phase 7 {', '.join(MOE_CONFIGS)}: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 7 launches: {total}")
+    return total
+
+
+def check_kv_fp4(model, params) -> dict:
+    """The engine trace on warm + BAOS with the KV cache in mxfp4_e2m1
+    (baos_mx_quant's fp4 grid on the path): graphed K=1 equal to eager K=1
+    in tokens, per-request ticks, CommitEvents, ticks_total and launch
+    counts.  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.core import baos, diffusion
+    dcfg = diffusion.DiffusionConfig(
+        block_length=16, steps_per_block=8,
+        baos=baos.BAOSConfig(enabled=True, kv_format="mxfp4_e2m1"))
+    trace = engine_trace(model.cfg)
+    expected = ("flash_bidir", "topk_mask", "fused_head_sampling",
+                "baos_mx_quant")
+    runs, total = {}, {}
+    for vname, vcfg in VARIANTS[:2]:
+        what = f"engine {model.cfg.name} warm+baos mxfp4_e2m1 {vname}"
+        eng, keys, tick_ms, counts, _ = engine_run(
+            model, params, dcfg, "warm", trace, True, **vcfg)
+        expect_launches(counts, expected, what)
+        runs[vname] = dict(run_record(eng, keys), counts=counts)
+        log(f"{what}: {eng.ticks_total} ticks, tick wall ms median "
+            f"{float(np.median(tick_ms)):.2f}, "
+            f"{eng.metrics.summary()['tokens_per_s']:.1f} tokens/s, "
+            f"launches {counts}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        del eng
+    ref, got = runs["eager K=1"], runs["graphed K=1"]
+    for key in ("tokens", "ticks", "events", "ticks_total", "counts"):
+        require(got[key] == ref[key],
+                f"engine warm+baos mxfp4_e2m1 graphed K=1: {key} differ "
+                f"from eager K=1")
+    log(f"engine {model.cfg.name} warm+baos mxfp4_e2m1: graphed K=1 equals "
+        f"eager K=1 in tokens, {len(ref['events'])} CommitEvents, "
+        f"{ref['ticks_total']} ticks and launch counts")
+    return total
+
+
+def moe_one_group(x, topk_w, topk_e, p, mcfg):
+    """JAX's one-group dispatch and combine (src/repro/models/moe.py
+    _moe_tokens), written out for one group x (T, d) with its routing:
+    (kept (token, expert) pairs, the expert buffer (E, C, d), the routed
+    output (T, d)).  The plain reference of the port's batched dispatch."""
+    from repro_torch.models import layers, moe
+    T, d = x.shape
+    K, E = mcfg.top_k, mcfg.num_experts
+    C = moe.capacity(T, mcfg)
+    P = T * K
+    flat_e = topk_e.reshape(P)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    starts = torch.searchsorted(se, torch.arange(E, device=x.device),
+                                side="left")
+    pos = torch.arange(P, device=x.device) - starts[se]
+    keep = pos < C
+    slot = torch.where(keep, se * C + pos, E * C)
+    tok = order // K
+    src = torch.full((E * C + 1,), T, dtype=torch.int64, device=x.device)
+    src[slot] = tok
+    x_pad = torch.cat([x, x.new_zeros(1, d)])
+    expert_in = x_pad[src[:E * C]].reshape(E, C, d)
+    h = layers.swiglu(torch.matmul(expert_in, p["w_gate"]),
+                      torch.matmul(expert_in, p["w_up"]))
+    expert_out = torch.matmul(h, p["w_down"])
+    out_pad = torch.cat([expert_out.reshape(E * C, d), x.new_zeros(1, d)])
+    pair = out_pad[slot][torch.argsort(order)].reshape(T, K, d)
+    out = torch.sum(pair * topk_w[..., None].to(x.dtype), dim=1)
+    kept = set(zip(tok[keep].tolist(), se[keep].tolist()))
+    return kept, expert_in, out
+
+
+def check_moe_dispatch(model, params, gen) -> None:
+    """Each MoE layer's FFN input at the engine's shape (4 slots x 96, one
+    forward over random tokens, taken from moe_ffn's calls): the batched
+    dispatch (models/moe, one group per row) against moe_one_group run
+    row by row on the same routing, the kept (token, expert) pairs equal
+    and the output within one bf16 ulp; then the expert products (three
+    GEMMs and the SwiGLU on each layer's dispatched buffer, every layer)
+    timed on the card beside two byte floors: every expert's weights, and
+    only the experts this forward's kept pairs use (the one-token top-k
+    floor, K experts a layer, is printed too)."""
+    from repro_torch.models import layers, moe
+    cfg = model.cfg
+    mcfg = cfg.moe
+    B, S = 4, 96
+    tokens = torch.randint(0, cfg.vocab - 200, (B, S), generator=gen,
+                           device=DEVICE)
+    inputs = []
+    plain_ffn = moe.moe_ffn
+
+    def recording_ffn(h, p, c, quant=None):
+        inputs.append(h.clone())
+        return plain_ffn(h, p, c, quant)
+
+    moe.moe_ffn = recording_ffn
+    try:
+        model.forward(params, tokens, head_mode="hidden")
+    finally:
+        moe.moe_ffn = plain_ffn
+    require(len(inputs) == cfg.n_layers, "moe_ffn ran on a layer count "
+                                         f"{len(inputs)}")
+    E, K, d, Fe = mcfg.num_experts, mcfg.top_k, cfg.d_model, \
+        mcfg.d_ff_expert
+    C = moe.capacity(S, mcfg)
+    n_pairs = n_kept = 0
+    worst = 0.0
+    used, buffers = [], []
+    for i, h in enumerate(inputs):
+        p = params["layers"][i]["moe"]
+        got, _ = moe.moe_ffn(h, p, mcfg)
+        topk_w, topk_e, _ = moe.route(h, p["router"], mcfg)
+        order, slot = moe.dispatch_slots(topk_e, mcfg, C)
+        flat_e = topk_e.reshape(B, S * K)
+        layer_used, ins = set(), []
+        for r in range(B):
+            kept = slot[r] < E * C
+            pairs = set(zip((order[r][kept] // K).tolist(),
+                            flat_e[r][order[r][kept]].tolist()))
+            want_pairs, expert_in, want = moe_one_group(
+                h[r], topk_w[r], topk_e[r], p, mcfg)
+            require(pairs == want_pairs,
+                    f"moe dispatch layer {i} row {r}: kept pairs differ "
+                    f"from the one-group algorithm's")
+            err = (got[r].float() - want.float()).abs()
+            worst = max(worst, float((err - bf16_ulp(want)).max()))
+            n_pairs, n_kept = n_pairs + S * K, n_kept + len(pairs)
+            layer_used |= {e for _, e in pairs}
+            ins.append(expert_in)
+        used.append(len(layer_used))
+        buffers.append((torch.stack(ins, 1).reshape(E, B * C, d), p))
+    log(f"moe dispatch at the engine's shape ({B} x {S}, {cfg.n_layers} "
+        f"layers, E {E}, top-{K}, C {C} per row): kept pairs equal the "
+        f"one-group algorithm's row by row ({n_kept} of {n_pairs} kept); "
+        f"output max error beyond one bf16 ulp {worst:.3g}")
+    require(worst <= 0.0, "moe dispatch: output beyond one bf16 ulp of the "
+                          "one-group algorithm's")
+
+    def products():
+        for xe, p in buffers:
+            hh = layers.swiglu(torch.bmm(xe, p["w_gate"]),
+                               torch.bmm(xe, p["w_up"]))
+            torch.bmm(hh, p["w_down"])
+
+    w_bytes = 3 * d * Fe * 2                    # one expert's weights
+    act_bytes = 2 * B * C * d * 2 * E * cfg.n_layers
+    ops = 2.0 * 3 * E * B * C * d * Fe * cfg.n_layers
+    all_ms, all_by = bound(E * w_bytes * cfg.n_layers + act_bytes, ops,
+                           BF16_FLOPS)
+    used_ms, used_by = bound(sum(used) * w_bytes + act_bytes, ops,
+                             BF16_FLOPS)
+    topk_ms = K * w_bytes * cfg.n_layers / HBM_BPS * 1e3
+    dev = device_ms(products, 5)
+    log(f"moe expert products per forward at the engine's shape ({B} x {S}"
+        f", {cfg.n_layers} layers, {E} x ({B * C}, {d}) @ ({d}, {Fe})): "
+        f"device {dev:.3f} ms (profiler); floor reading every expert "
+        f"{all_ms:.3f} ms ({all_by}); floor reading only the experts with "
+        f"kept pairs ({sum(used) / cfg.n_layers:.1f} of {E} a layer) "
+        f"{used_ms:.3f} ms ({used_by}); one token's top-{K} experts "
+        f"{topk_ms:.3f} ms; {dev / all_ms:.2f}x the every-expert floor")
 
 
 def main() -> int:
@@ -2566,6 +2940,8 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_cli()
         log(f"phase 6d: {time.perf_counter() - t0:.1f} s")
+        for name, n in phase_moe(gen).items():
+            launches[name] += n
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -22,9 +22,13 @@ from repro_torch.models.config import ModelConfig
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                       device: Union[str, torch.device] = "cuda") -> Dict:
-    """JAX dense-transformer params (``layers`` stacked on axis 0) ->
-    the port's params (``layers`` a list of per-layer dicts), in
-    ``cfg.dtype`` on ``device``.  bf16 arrays pass through f32, exactly.
+    """JAX transformer params (``layers`` stacked on axis 0) -> the
+    port's params (``layers`` a list of per-layer dicts), in ``cfg.dtype``
+    on ``device``.  A dense layer's ``mlp`` becomes its ``w_gate``,
+    ``w_up`` and ``w_down``; an MoE layer keeps JAX's ``moe`` subtree (the
+    router (d, E), the stacked experts (E, d, F) / (E, F, d) and any
+    ``shared`` experts with their ``gate_proj``).  bf16 arrays pass
+    through f32, exactly.
     The LM head is stored with 16-byte rows for the fused head's bf16 route
     (kernels/fused_head_sampling.pad_head)."""
     dev = device_lib.resolve(device)
@@ -33,15 +37,21 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
         return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(
             device=dev, dtype=cfg.torch_dtype)
 
+    def layer(sub: Mapping, i: int) -> Dict:
+        return {k: layer(v, i) if isinstance(v, Mapping) else t(v[i])
+                for k, v in sub.items()}
+
     stack = tree["layers"]
-    attn, mlp = stack["attn"], stack["mlp"]
+    attn = stack["attn"]
     layers = []
     for i in range(cfg.n_layers):
         lp = {"ln1": t(stack["ln1"]["w"][i]), "ln2": t(stack["ln2"]["w"][i]),
               "wq": t(attn["wq"][i]), "wk": t(attn["wk"][i]),
-              "wv": t(attn["wv"][i]), "wo": t(attn["wo"][i]),
-              "w_gate": t(mlp["w_gate"][i]), "w_up": t(mlp["w_up"][i]),
-              "w_down": t(mlp["w_down"][i])}
+              "wv": t(attn["wv"][i]), "wo": t(attn["wo"][i])}
+        if cfg.moe is not None:
+            lp["moe"] = layer(stack["moe"], i)
+        else:
+            lp.update(layer(stack["mlp"], i))
         if cfg.qkv_bias:
             for name in ("bq", "bk", "bv"):
                 lp[name] = t(attn[name][i])

@@ -24,7 +24,7 @@ import torch
 from repro_torch.core import mx
 from repro_torch.kernels import baos_mx_quant
 
-# the KV formats the CUDA kernel quantizes (the Pallas kernel's three)
+# the KV formats the CUDA kernel quantizes: every format of core/mx
 KV_FORMATS = tuple(baos_mx_quant.FMT_CODES)
 
 
@@ -139,10 +139,8 @@ def dequantize_kv(ks: torch.Tensor, vs: torch.Tensor, calib: BAOSCalib):
 
 
 def check_supported(cfg: BAOSConfig) -> None:
-    """Raise for the BAOS options the port lacks."""
-    if cfg.enabled and mx.FORMATS.get(cfg.kv_format, mx.NONE).name \
-            not in KV_FORMATS:
-        raise NotImplementedError(
-            f"BAOS kv_format {cfg.kv_format!r} is not ported yet "
-            f"(ROADMAP.md, Queue 1); the port quantizes the KV cache in "
-            f"{KV_FORMATS}")
+    """Raise for a KV format that core/mx does not know (every format it
+    knows has a kernel)."""
+    if cfg.enabled and cfg.kv_format not in mx.FORMATS:
+        raise ValueError(f"unknown BAOS kv_format {cfg.kv_format!r}; "
+                         f"core/mx knows {sorted(mx.FORMATS)}")

@@ -10,9 +10,10 @@ cache mode:
     (dual: the suffix KV stays frozen from the warm step) or over the block
     and its suffix (prefix: the suffix KV is recomputed every step).
 
-``batched_tick`` is one engine tick: ``tick_forward`` (the dense forward,
-with or without the warm KV cache) and ``tick_sample`` (each row's active
-block sliced, the head path, the top-k transfer mask and the commit).  The
+``batched_tick`` is one engine tick: ``tick_forward`` (the model's
+forward over the canvas, with or without the warm KV cache) and
+``tick_sample`` (each row's active block sliced, the head path, the top-k
+transfer mask and the commit).  The
 head path (``head_feed_mode``): "fused" streams hidden states through the
 fused LM head + Stable-Max kernel; "unfused" applies the head to the
 (B, L, d) slice and runs Stable-Max on the stored block logits; "legacy"

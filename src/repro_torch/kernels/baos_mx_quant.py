@@ -4,10 +4,15 @@ plain version.
 Port of the Pallas kernel src/repro/kernels/baos_mx_quant.py, the twin of
 core/baos.smooth_quantize.  x (B, S, H, D) with the calibration
 center/scale (B, 1, H, D) f32: (x - c) / f per channel, then the MX
-fake-quant of each 32-wide block along D (mxint4 | mxint8 | mxfp8_e4m3),
-cast to x's dtype.  The Pallas kernel takes the same data as
-(G = B * H, S, D); the model's (B, S, H, D) layout is kept here so the
-output can be a slice of the KV cache, written in place.
+fake-quant of each 32-wide block along D in any format of core/mx.FORMATS
+(mxint4 | mxint8 | mxfp8_e4m3 | mxfp6_e3m2 | mxfp4_e2m1, or the bf16 and
+none pseudo-formats), cast to x's dtype.  The formats are core/mx's, as
+the JAX model path writes its cache (core/baos.smooth_quantize): the
+Pallas kernel itself casts every non-integer format through e4m3, so for
+fp6 and fp4 it differs from that path, which never reaches it.  The
+Pallas kernel takes the same data as (G = B * H, S, D); the model's
+(B, S, H, D) layout is kept here so the output can be a slice of the KV
+cache, written in place.
 
 ``baos_mx_quant`` launches csrc/baos_mx_quant.cu for CUDA tensors and runs
 ``baos_mx_quant_plain`` for CPU tensors; a CUDA tensor never reaches the
@@ -25,11 +30,11 @@ from repro_torch.core import mx
 from repro_torch.kernels import _build
 
 NAME = "baos_mx_quant"
-# fmt argument of the C entry point (csrc/common.cuh Fmt): the KV formats
-# the Pallas kernel supports
-FMT_CODES = {"mxfp8_e4m3": 2, "mxint8": 3, "mxint4": 4}
+# fmt argument of the C entry point (csrc/common.cuh Fmt), by the
+# canonical name of every format of core/mx.FORMATS
+FMT_CODES = {"none": 0, "bf16": 1, "mxfp8_e4m3": 2, "mxint8": 3,
+             "mxint4": 4, "mxfp6_e3m2": 5, "mxfp4_e2m1": 6}
 _DTYPES = (torch.float32, torch.bfloat16)
-ROADMAP = "ROADMAP.md, Queue 1"
 
 
 def baos_mx_quant_plain(x: torch.Tensor, center: torch.Tensor,
@@ -77,10 +82,6 @@ def baos_mx_quant(x: torch.Tensor, center: torch.Tensor,
     if x.device.type == "cpu":
         y = baos_mx_quant_plain(x, center, scale, fmt)
         return y if out is None else out.copy_(y)
-    if mx.FORMATS[fmt].name not in FMT_CODES:
-        raise NotImplementedError(
-            f"KV format {fmt!r} has no baos_mx_quant kernel yet ({ROADMAP}); "
-            f"it supports {tuple(FMT_CODES)}")
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in (center, scale)):
         raise ValueError("x, center and scale must lie on one CUDA device")

@@ -4,8 +4,10 @@
 // src/repro/kernels/baos_mx_quant.py.  Per channel (b, h, d) of a K or V
 // tensor (B, S, H, D): x_s = (x - c) / f with the BAOS calibration c, f
 // (B, 1, H, D) f32, then the MX fake-quant of each 32-wide block along D
-// (mxint4 | mxint8 | mxfp8_e4m3, core/mx.mx_fake_quant's rules, common.cuh
-// fake_quant), and the result cast to x's dtype.  The output goes through
+// in any format of core/mx.FORMATS (mxint4 | mxint8 | mxfp8_e4m3 |
+// mxfp6_e3m2 | mxfp4_e2m1, core/mx.mx_fake_quant's rules, common.cuh
+// quant_element; bf16 rounds each value to bf16, none keeps it), and the
+// result cast to x's dtype.  The output goes through
 // its own pointer and strides, so the caller can hand it the KV cache slice
 // itself: the smoothed, quantized K/V are written in place, as the paper's
 // warm step writes the cache, and never round-trip through a temporary.
@@ -36,8 +38,8 @@
 //     (a block whose exp2f is not exactly 2^e, on the H100 only e = -127,
 //     keeps the division).
 //   * (x - c) / f stays an IEEE division, as the plain version divides; the
-//     integer rounding keeps quant_element's explicit __fmul_rn/__fadd_rn,
-//     and mxfp8 its saturating e4m3 cast.  What holds the kernel back is
+//     integer and fp6/fp4 grid rounding keep quant_element's explicit
+//     __fmul_rn/__fadd_rn, and mxfp8 its saturating e4m3 cast.  What holds the kernel back is
 //     each thread's one chain of loads, divisions, block exponent and
 //     quantization: with the division or the quantization taken out (not
 //     exact), the kernel ran measurably faster on the H100.
@@ -59,13 +61,15 @@ constexpr int CTA_ROWS = ROWS * GROUPS;
 // (x, y, b) owns channels hd = 8 * (x * CH_THREADS + t % CH_THREADS) ..
 // hd + 7 of the ROWS rows from (y * GROUPS + t / CH_THREADS) * ROWS.  Lanes
 // past H * D and rows past S take part in the shuffles and store nothing;
-// D is a multiple of 32, so a quad is live or dead as a whole.
-template <typename T>
+// D is a multiple of 32, so a quad is live or dead as a whole.  The format
+// is a template argument, so each instantiation holds its own rounding and
+// no per-value branch on the format.
+template <typename T, int FMT>
 __global__ void __launch_bounds__(THREADS)
 baos_mx_quant_kernel(const T* __restrict__ x, const float* __restrict__ c,
                      const float* __restrict__ f, T* __restrict__ out, int S,
                      int HD, long long x_sb, long long x_ss, long long o_sb,
-                     long long o_ss, int fmt, bool vec) {
+                     long long o_ss, bool vec) {
   const int t = threadIdx.x % CH_THREADS, g = threadIdx.x / CH_THREADS;
   const int hd = 8 * (blockIdx.x * CH_THREADS + t);
   const bool live = hd < HD;
@@ -90,14 +94,19 @@ baos_mx_quant_kernel(const T* __restrict__ x, const float* __restrict__ c,
       amax[r] = fmaxf(amax[r], fabsf(v[r][j]));
     }
   }
+  constexpr bool MX = FMT != FMT_NONE && FMT != FMT_BF16;
   float scale[ROWS], inv[ROWS];
-  quad_block_scales(amax, fmt, scale, inv);
+  if constexpr (MX) quad_block_scales(amax, FMT, scale, inv);
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    scale_down8(v[r], scale[r], inv[r]);
-    quant8(v[r], fmt);
+    if constexpr (MX) {
+      scale_down8(v[r], scale[r], inv[r]);
+      quant8(v[r], FMT);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[r][j] = __fmul_rn(v[r][j], scale[r]);
+      for (int j = 0; j < 8; ++j) v[r][j] = __fmul_rn(v[r][j], scale[r]);
+    } else if constexpr (FMT == FMT_BF16) {
+      round8<__nv_bfloat16>(v[r]);
+    }
     if (live && s0 + r < S)
       store8(out + b * o_sb + (s0 + r) * o_ss + hd, v[r], vec);
   }
@@ -107,37 +116,60 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T>
+template <typename T, int FMT>
 cudaError_t launch(const void* x, const void* c, const void* f, void* out,
                    int B, int S, int H, int D, long long x_sb, long long x_ss,
-                   long long o_sb, long long o_ss, int fmt,
-                   cudaStream_t stream) {
+                   long long o_sb, long long o_ss, cudaStream_t stream) {
   const long long step = 16 / sizeof(T);     // elements per 16 bytes
   const bool vec = aligned16(x) && aligned16(out) && aligned16(c) &&
                    aligned16(f) && x_sb % step == 0 && x_ss % step == 0 &&
                    o_sb % step == 0 && o_ss % step == 0;
   const dim3 grid((H * D + CHANNELS - 1) / CHANNELS,
                   (S + CTA_ROWS - 1) / CTA_ROWS, B);
-  baos_mx_quant_kernel<T><<<grid, THREADS, 0, stream>>>(
+  baos_mx_quant_kernel<T, FMT><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(c),
       static_cast<const float*>(f), static_cast<T*>(out), S, H * D, x_sb,
-      x_ss, o_sb, o_ss, fmt, vec);
+      x_ss, o_sb, o_ss, vec);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* c, const void* f, void* out,
+                   int B, int S, int H, int D, long long x_sb, long long x_ss,
+                   long long o_sb, long long o_ss, int fmt,
+                   cudaStream_t stream) {
+#define BAOS_FMT(F)                                                      \
+  case F:                                                                \
+    return launch<T, F>(x, c, f, out, B, S, H, D, x_sb, x_ss, o_sb, o_ss, \
+                        stream)
+  switch (fmt) {
+    BAOS_FMT(FMT_NONE);
+    BAOS_FMT(FMT_BF16);
+    BAOS_FMT(FMT_MXFP8);
+    BAOS_FMT(FMT_MXINT8);
+    BAOS_FMT(FMT_MXINT4);
+    BAOS_FMT(FMT_MXFP6);
+    BAOS_FMT(FMT_MXFP4);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef BAOS_FMT
 }
 
 }  // namespace
 
 // x (B, S, H, D) and out (B, S, H, D), both f32 (is_bf16 = 0) or both bf16,
 // each with (H, D) contiguous and the given B and S strides in elements;
-// c and f (B, 1, H, D) f32 contiguous; D a multiple of 32.  fmt:
-// 2 mxfp8_e4m3, 3 mxint8, 4 mxint4 (common.cuh Fmt).
+// c and f (B, 1, H, D) f32 contiguous; D a multiple of 32.  fmt: 0 none,
+// 1 bf16, 2 mxfp8_e4m3, 3 mxint8, 4 mxint4, 5 mxfp6_e3m2, 6 mxfp4_e2m1
+// (common.cuh Fmt).
 extern "C" int baos_mx_quant_launch(const void* x, const void* c,
                                     const void* f, void* out, int B, int S,
                                     int H, int D, long long x_sb,
                                     long long x_ss, long long o_sb,
                                     long long o_ss, int fmt, int is_bf16,
                                     void* stream) {
-  if (D % 32 || (fmt != FMT_MXFP8 && fmt != FMT_MXINT8 && fmt != FMT_MXINT4))
+  if (D % 32 || fmt < FMT_NONE || fmt > FMT_MXFP4)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * S * H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

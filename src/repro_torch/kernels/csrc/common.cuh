@@ -90,23 +90,58 @@ __device__ __forceinline__ float counter_gumbel(uint32_t seed, uint32_t row,
 // ---------------------------------------------------------------------------
 
 // Format codes: 0-2 are the sampling formats (core/sampling.SUPPORTED_FMTS
-// order), 3-4 the integer KV formats of BAOS.
+// order), 3-6 the other KV formats of BAOS (core/mx.FORMATS).
 enum Fmt {
   FMT_NONE = 0,
   FMT_BF16 = 1,
   FMT_MXFP8 = 2,
   FMT_MXINT8 = 3,
-  FMT_MXINT4 = 4
+  FMT_MXINT4 = 4,
+  FMT_MXFP6 = 5,
+  FMT_MXFP4 = 6
 };
 
 // OCP MX element grids: the largest magnitude and, for the INT formats,
 // the fraction bits and the integer clip range.
 __device__ __forceinline__ float grid_max(int fmt) {
-  return fmt == FMT_MXFP8 ? 448.f : (fmt == FMT_MXINT8 ? 127.f / 64.f : 1.75f);
+  switch (fmt) {
+    case FMT_MXFP8: return 448.f;
+    case FMT_MXINT8: return 127.f / 64.f;
+    case FMT_MXFP6: return 28.f;
+    case FMT_MXFP4: return 6.f;
+    default: return 1.75f;
+  }
+}
+
+// 2^e exactly, for an integer e in [-149, 127] (below -126 a subnormal).
+__device__ __forceinline__ float pow2i(int e) {
+  return e >= -126 ? __int_as_float((e + 127) << 23)
+                   : __int_as_float(1 << (e + 149));
+}
+
+// core/mx._quant_grid on the e3m2 (mbits 2, emin -2, largest point 28) or
+// e2m1 (1, 0, 6) grid: |y| to the nearest grid point, a midpoint up, then
+// the sign.  In the binade [2^e, 2^(e+1)), and below 2^emin, the grid step
+// is q = 2^(max(e, emin) - mbits) and the midpoints are (k + 0.5) q: with
+// s = |y| / q (exact, a power of two) and t = floor(s), the nearest point
+// is (t + 1) q where s - t >= 0.5 (exact: Sterbenz), else t q, capped at
+// the largest point.  (floor(s + 0.5) would round s + 0.5 below 2^emin.)
+__device__ __forceinline__ float quant_fp_grid(float y, int mbits, int emin,
+                                               float top) {
+  const float a = fabsf(y);
+  if (a != a) return y;                        // NaN stays NaN
+  const int e = max(((__float_as_int(a) >> 23) & 0xff) - 127, emin);
+  const float s = __fmul_rn(a, pow2i(mbits - e));
+  float t = floorf(s);
+  if (__fsub_rn(s, t) >= 0.5f) t = __fadd_rn(t, 1.f);
+  const float mag = fminf(__fmul_rn(t, pow2i(e - mbits)), top);
+  return y > 0.f ? mag : (y < 0.f ? -mag : 0.f);
 }
 
 // Quantize one element already divided by its block's shared scale.
 __device__ __forceinline__ float quant_element(float y, int fmt) {
+  if (fmt == FMT_MXFP6) return quant_fp_grid(y, 2, -2, 28.f);
+  if (fmt == FMT_MXFP4) return quant_fp_grid(y, 1, 0, 6.f);
   if (fmt == FMT_MXFP8) {
     // clip first: OCP MX saturates, and torch's cast is checked against it
     const float x = fminf(fmaxf(y, -448.f), 448.f);
@@ -258,12 +293,6 @@ __device__ __forceinline__ void quant8(float (&y)[8], int fmt) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) y[j] = quant_element(y[j], fmt);
   }
-}
-
-// 2^e exactly, for an integer e in [-149, 127] (below -126 a subnormal).
-__device__ __forceinline__ float pow2i(int e) {
-  return e >= -126 ? __int_as_float((e + 127) << 23)
-                   : __int_as_float(1 << (e + 149));
 }
 
 // The scales of two MX blocks per quad, one per row or step u of the

@@ -349,11 +349,11 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[2][8][4],
         if (fmt == FMT_MXFP8) {
           amax = fmaxf(amax, __shfl_xor_sync(FULL_MASK, amax, 1));
           amax = fmaxf(amax, __shfl_xor_sync(FULL_MASK, amax, 2));
-          const float scale = mx_block_scale(amax, fmt);
+          const float scale = mx_block_scale(amax, FMT_MXFP8);
 #pragma unroll
           for (int q = 0; q < 8; ++q)
             z[q] = round_to<bf16>(
-                __fmul_rn(quant_element(z[q] / scale, fmt), scale));
+                __fmul_rn(quant_element(z[q] / scale, FMT_MXFP8), scale));
         }                 // FMT_BF16 is exact on bf16 logits; FMT_NONE too
         const int row = wrow + 16 * i + g + 8 * h;
         if (row >= R) continue;

@@ -1,1 +1,2 @@
-"""Dense dLLM transformer: config, layers, forward, registry."""
+"""dLLM transformer, dense or MoE: config, layers, MoE FFN, forward,
+registry."""

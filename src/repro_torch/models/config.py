@@ -1,6 +1,7 @@
 """Model configuration: a copy of the JAX package's ``ModelConfig``
 (src/repro/models/transformer.py), field for field, so a configuration
-reads the same in both packages.  The port runs the dense family only."""
+reads the same in both packages.  The port runs the dense and MoE
+families (``moe`` a models/moe.MoEConfig)."""
 from __future__ import annotations
 
 import dataclasses
@@ -57,10 +58,26 @@ class ModelConfig:
         return getattr(torch, self.dtype)
 
     def param_count(self) -> int:
-        """Dense parameter count (the JAX formula without the MoE branch)."""
+        """The JAX formula: every expert counted for an MoE model."""
         d, h = self.d_model, self.n_heads * self.d_head
         hkv = self.n_kv_heads * self.d_head
         attn = d * h + 2 * d * hkv + h * d
-        ff = 3 * d * self.d_ff if self.ffn == "swiglu" else 2 * d * self.d_ff
+        if self.moe is not None:
+            m = self.moe
+            ff = m.num_experts * 3 * d * m.d_ff_expert + d * m.num_experts
+            ff += 3 * d * (m.d_ff_shared or
+                           m.num_shared_experts * m.d_ff_expert)
+        else:
+            ff = 3 * d * self.d_ff if self.ffn == "swiglu" \
+                else 2 * d * self.d_ff
         per_layer = attn + ff + 2 * d
         return self.n_layers * per_layer + 2 * self.vocab * d + d
+
+    def active_param_count(self) -> int:
+        """Parameters one token reads: an MoE model's top-k experts only."""
+        if self.moe is None:
+            return self.param_count()
+        d, m = self.d_model, self.moe
+        ff_all = m.num_experts * 3 * d * m.d_ff_expert
+        ff_act = m.top_k * 3 * d * m.d_ff_expert
+        return self.param_count() - self.n_layers * (ff_all - ff_act)

@@ -1,6 +1,7 @@
 """Model registry of the port: ``build_model(cfg, device)`` returns a model
 with the JAX package's contract (``cfg``, ``init``, ``init_cache``,
-``forward``, ``supports_head_mode``) bound to one device.  Dense only."""
+``forward``, ``supports_head_mode``) bound to one device.  Families dense
+and moe (models/transformer.FAMILIES)."""
 from __future__ import annotations
 
 from typing import Dict, Union
@@ -13,13 +14,13 @@ from repro_torch.models.config import ModelConfig
 
 
 class TransformerModel:
-    """Dense dLLM on one device."""
+    """A dLLM transformer (dense or MoE) on one device."""
 
     supports_head_mode = True        # forward(head_mode="hidden") works
 
     def __init__(self, cfg: ModelConfig,
                  device: Union[str, torch.device] = "cuda"):
-        transformer.check_dense(cfg)
+        transformer.check_supported(cfg)
         self.cfg = cfg
         self.device = device_lib.resolve(device)
 
@@ -41,8 +42,4 @@ class TransformerModel:
 def build_model(cfg: ModelConfig,
                 device: Union[str, torch.device] = "cuda"
                 ) -> TransformerModel:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            "Queue 1); build_model supports 'dense'")
     return TransformerModel(cfg, device)

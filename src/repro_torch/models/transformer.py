@@ -1,10 +1,12 @@
-"""Dense dLLM transformer, ported from src/repro/models/transformer.py.
+"""dLLM transformer, dense or MoE, ported from
+src/repro/models/transformer.py.
 
 Parameters are plain dicts: ``embed`` (V, d), ``layers`` (a list of
-per-layer dicts ``ln1, ln2, wq, wk, wv, wo, [bq, bk, bv], w_gate, w_up,
-w_down``), ``final_norm`` (d,) and ``lm_head`` (d, V) -- the JAX layout,
-with the layer stack split into a list and not an ``nn.Linear`` (which
-would store the head transposed).
+per-layer dicts ``ln1, ln2, wq, wk, wv, wo, [bq, bk, bv]`` and the FFN:
+``w_gate, w_up, w_down``, or for an MoE model the JAX ``moe`` subtree,
+models/moe.py), ``final_norm`` (d,) and ``lm_head`` (d, V) -- the JAX
+layout, with the layer stack split into a list and not an ``nn.Linear``
+(which would store the head transposed).
 
 ``forward`` runs a segment of tokens at positions ``seg_start + r``.
 Without a cache it is the full recompute (like the JAX forward it then
@@ -36,6 +38,7 @@ from repro_torch import device as device_lib
 from repro_torch.core import baos as baos_lib
 from repro_torch.kernels import flash_bidir, fused_head_sampling
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 
 ROADMAP = "ROADMAP.md, Queue 1"
@@ -43,12 +46,17 @@ ROADMAP = "ROADMAP.md, Queue 1"
 SegStart = Union[int, torch.Tensor]
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for model features this slice of the port lacks."""
-    if cfg.family != "dense" or cfg.moe is not None:
+FAMILIES = ("dense", "moe")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for model features the port lacks."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet ({ROADMAP}); "
-            "the port runs dense transformers")
+            f"the port runs {FAMILIES}")
+    if (cfg.family == "moe") != (cfg.moe is not None):
+        raise ValueError(f"family {cfg.family!r} with moe={cfg.moe!r}")
     if cfg.norm != "rms" or cfg.ffn != "swiglu" or cfg.attn_mode != "bidir":
         raise NotImplementedError(
             f"norm={cfg.norm!r}, ffn={cfg.ffn!r}, attn_mode="
@@ -61,11 +69,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Union[str, torch.device] = "cuda") -> Dict:
     """Seeded parameters with the JAX package's distributions (normal
     weights with std sqrt(2 / (d_in + d_out)), embeddings with std 0.02,
-    unit norms, zero biases).  The draws are torch's, not JAX's: for
-    parity tests convert the JAX parameters with ``bridge``.  The LM head
-    is stored with 16-byte rows for the fused head's bf16 route
-    (kernels/fused_head_sampling.pad_head)."""
-    check_dense(cfg)
+    unit norms, zero biases; models/moe.init_moe_params for the experts).
+    The draws are torch's, not JAX's: for parity tests convert the JAX
+    parameters with ``bridge``.  The LM head is stored with 16-byte rows
+    for the fused head's bf16 route (kernels/fused_head_sampling.pad_head)."""
+    check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.torch_dtype
@@ -82,9 +90,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     for _ in range(cfg.n_layers):
         lp = {"ln1": ones(d), "ln2": ones(d),
               "wq": dense(d, hq), "wk": dense(d, hkv), "wv": dense(d, hkv),
-              "wo": dense(hq, d),
-              "w_gate": dense(d, ff), "w_up": dense(d, ff),
-              "w_down": dense(ff, d)}
+              "wo": dense(hq, d)}
+        if cfg.moe is not None:
+            lp["moe"] = moe_lib.init_moe_params(gen, d, cfg.moe, dt, dev)
+        else:
+            lp.update(w_gate=dense(d, ff), w_up=dense(d, ff),
+                      w_down=dense(ff, d))
         if cfg.qkv_bias:
             for name, n in (("bq", hq), ("bk", hkv), ("bv", hkv)):
                 lp[name] = torch.zeros((n,), dtype=dt, device=dev)
@@ -133,6 +144,17 @@ def qkv(h: torch.Tensor, lp: Dict, cfg: ModelConfig,
         q = layers.rope(q, positions, cfg.rope_theta)
         k = layers.rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def ffn(h: torch.Tensor, lp: Dict, cfg: ModelConfig, quant=None
+        ) -> torch.Tensor:
+    """A layer's FFN on its normed input: SwiGLU, or for an MoE layer
+    models/moe.moe_ffn with its aux loss dropped (nothing here trains)."""
+    if cfg.moe is not None:
+        return moe_lib.moe_ffn(h, lp["moe"], cfg.moe, quant)[0]
+    return layers.qdot(layers.swiglu(layers.qdot(h, lp["w_gate"], quant),
+                                     layers.qdot(h, lp["w_up"], quant)),
+                       lp["w_down"], quant)
 
 
 def _cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
@@ -198,7 +220,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     calibration from this segment's K/V, restricted to ``calib_mask``
     (B, S) when given) and ``kv_valid`` (B, s_tot).  ``quant``: a
     ``layers.QuantPolicy`` at every GEMM boundary (None: none)."""
-    check_dense(cfg)
+    check_supported(cfg)
     if head_mode not in ("logits", "hidden"):
         raise ValueError(f"unknown head_mode {head_mode!r}")
     baos_cfg = baos_cfg or baos_lib.BAOSConfig(enabled=False)
@@ -228,10 +250,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         x = x + layers.qdot(attn.reshape(B, S, Hq * D), lp["wo"], quant) * \
             cfg.residual_scale
         h2 = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        ffn = layers.qdot(layers.swiglu(layers.qdot(h2, lp["w_gate"], quant),
-                                        layers.qdot(h2, lp["w_up"], quant)),
-                          lp["w_down"], quant)
-        x = x + ffn * cfg.residual_scale
+        x = x + ffn(h2, lp, cfg, quant) * cfg.residual_scale
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_slice is not None:
         start, length = logits_slice

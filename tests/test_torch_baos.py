@@ -21,6 +21,7 @@ from repro.core import baos as jbaos
 from repro.core import mx as jmx
 from repro.kernels import ops, ref
 from repro_torch.core import baos as tbaos
+from repro_torch.core import mx as tmx
 from repro_torch.kernels import baos_mx_quant as tbq
 
 torch.set_num_threads(1)
@@ -283,12 +284,104 @@ def test_query_output_fusion_and_dequantize_match():
     assert bool((ident.k_center == 0).all()) and bool((ident.v_scale == 1).all())
 
 
-def test_unported_kv_formats_raise():
-    """mxfp6/mxfp4 KV have no kernel: the configuration is refused (the
-    CPU plain version could compute them; the card could not)."""
-    for fmt in ("mxfp4_e2m1", "mxfp6_e3m2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbaos.check_supported(tbaos.BAOSConfig(kv_format=fmt))
-    tbaos.check_supported(tbaos.BAOSConfig(enabled=False, kv_format="mxfp4"))
-    for fmt in KV_FORMATS + ["int4", "int8", "fp8"]:
-        tbaos.check_supported(tbaos.BAOSConfig(kv_format=fmt))
+# every name core/mx knows, aliases included, and one it does not
+KV_NAMES = sorted(tmx.FORMATS) + ["mxfp3"]
+
+
+@pytest.mark.parametrize("fmt", KV_NAMES)
+def test_unported_kv_formats_raise(fmt):
+    """Every KV format core/mx knows is accepted and has a kernel format
+    code (mxfp6/mxfp4 since the kernel learned their grids); a name it
+    does not know is refused, as JAX's lookup refuses it."""
+    cfg = tbaos.BAOSConfig(kv_format=fmt)
+    if fmt not in tmx.FORMATS:
+        with pytest.raises(ValueError, match="unknown"):
+            tbaos.check_supported(cfg)
+        with pytest.raises(KeyError):
+            jmx.mx_fake_quant(jnp.zeros((32,)), fmt)
+    else:
+        tbaos.check_supported(cfg)
+        assert tmx.FORMATS[fmt].name in tbaos.KV_FORMATS
+        assert tmx.FORMATS[fmt].name in tbq.FMT_CODES
+    tbaos.check_supported(tbaos.BAOSConfig(enabled=False, kv_format=fmt))
+
+
+# the KV formats beyond the Pallas kernel's three: the fp6/fp4 grids and
+# the bf16 / none pseudo-formats, which JAX's model path writes through
+# core/mx (the Pallas kernel casts non-integer formats through e4m3)
+GRID_FORMATS = ["mxfp6_e3m2", "mxfp4_e2m1", "bf16", "none"]
+
+
+@pytest.mark.parametrize("fmt", GRID_FORMATS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smooth_quantize_grid_formats_bit_exact(fmt, dtype):
+    """core/baos.smooth_quantize (the kernel's plain version on the CPU) vs
+    JAX's smooth_quantize, the function the JAX model path writes its cache
+    with, bit for bit; zero and D-32 blocks included."""
+    scale_fmt = fmt if fmt.startswith("mx") else "mxint4"
+    xt, c, f = _kv_inputs(2, 20, 3, 64, scale_fmt, dtype,
+                          seed=GRID_FORMATS.index(fmt))
+    xt[:, :, 1, :32] = 0
+    bj = jbaos.BAOSConfig(kv_format=fmt)
+    bt = tbaos.BAOSConfig(kv_format=fmt)
+    got = tbaos.smooth_quantize(xt, torch.from_numpy(c), torch.from_numpy(f),
+                                bt)
+    want = jbaos.smooth_quantize(jnp.asarray(xt.float().numpy()).astype(
+        getattr(jnp, dtype)), jnp.asarray(c), jnp.asarray(f), bj)
+    assert got.dtype == xt.dtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.fixture(scope="module")
+def dense_models():
+    from repro.configs import base as jcfg
+    from repro.models.registry import build_model as jbuild
+    from repro_torch import bridge
+    from repro_torch.configs import base as tcfg
+    from repro_torch.models.registry import build_model as tbuild
+    cfg_j = jcfg.get_config("llada-8b", smoke=True)
+    cfg_t = tcfg.get_config("llada-8b", smoke=True)
+    model_j, model_t = jbuild(cfg_j), tbuild(cfg_t, "cpu")
+    params_j = model_j.init(jax.random.PRNGKey(0))
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        cfg_t, "cpu")
+    return model_j, model_t, params_j, params_t
+
+
+@pytest.mark.parametrize("fmt", ["mxfp6_e3m2", "mxfp4_e2m1"])
+def test_warm_step_with_grid_kv_format_matches(dense_models, fmt):
+    """A warm step (the whole sequence: calibrate, write the smoothed fp6 /
+    fp4 cache, attend over it) vs JAX's warm_step: the calibration, the
+    cache and the active block's hidden states.  K/V computed 1e-7 apart
+    (GEMM summation order) may round to neighbouring grid points on a
+    rounding edge: at most one element in 10^3 may differ, by at most one
+    grid step (0.5 on fp4's grid at a block amax of 1, the largest a
+    minmax-smoothed value reaches)."""
+    from repro.core import diffusion as jdiff
+    from repro_torch.core import diffusion as tdiff
+    model_j, model_t, params_j, params_t = dense_models
+    cfg = model_t.cfg
+    B, S, L, bs = 2, 40, 8, 16
+    x = np.random.RandomState(7).randint(0, cfg.vocab - 2, size=(B, S))
+    x = x.astype(np.int32)
+    x[:, bs:] = cfg.mask_id
+    kw = dict(gen_length=24, block_length=L, steps_per_block=4,
+              cache_mode="dual")
+    dj = jdiff.DiffusionConfig(baos=jbaos.BAOSConfig(kv_format=fmt), **kw)
+    dt = tdiff.DiffusionConfig(baos=tbaos.BAOSConfig(kv_format=fmt), **kw)
+    want, cache_j = jdiff.warm_step(model_j, params_j, jnp.asarray(x),
+                                    model_j.init_cache(B, S), bs, dj,
+                                    head_mode="hidden")
+    got, cache_t = tdiff.warm_step(model_t, params_t, torch.from_numpy(x),
+                                   model_t.init_cache(B, S), bs, dt,
+                                   head_mode="hidden")
+    for name in tbaos.BAOSCalib._fields:
+        np.testing.assert_allclose(cache_t[name].numpy(),
+                                   np.asarray(cache_j[name]), rtol=1e-4,
+                                   atol=1e-5)
+    for name in ("k", "v"):
+        diff = np.abs(cache_t[name].numpy() - np.asarray(cache_j[name]))
+        assert (diff > 0).mean() <= 1e-3 and diff.max() <= 0.5, name
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=5e-3)

@@ -194,14 +194,12 @@ def test_refine_step_from_a_jax_cache(models, cache_mode):
 def test_unported_modes_raise(models):
     """Options still unported raise NotImplementedError pointing at the
     ROADMAP: the random transfer strategy, sampling formats other than
-    none/bf16/mxfp8, KV formats without a kernel, and the megatick over
-    a mesh (the megatick itself is ported)."""
+    none/bf16/mxfp8, and the megatick over a mesh (the megatick itself is
+    ported; every KV format is, tests/test_torch_baos.py)."""
     _, model_t, _, params_t = models
     prompt = torch.zeros((1, 4), dtype=torch.int32)
     for kw in (dict(sampling=tsampling.SamplingConfig(strategy="random")),
-               dict(sampling=tsampling.SamplingConfig(fmt="mxint8")),
-               dict(cache_mode="dual",
-                    baos=tbaos.BAOSConfig(kv_format="mxfp4"))):
+               dict(sampling=tsampling.SamplingConfig(fmt="mxint8"))):
         dcfg = tdiff.DiffusionConfig(gen_length=8, block_length=8, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdiff.generate(model_t, params_t, prompt, dcfg)
