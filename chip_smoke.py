@@ -83,10 +83,12 @@ Phases, each fatal on failure:
                gen 256, block 64, 16 steps) in cache modes none, prefix +
                BAOS and dual + BAOS (mxint4 KV), and dual + BAOS under
                QuantPolicy (MXINT4 weights, MXINT8 activations, bf16
-               sampling): step() eager against graphed (equal tokens),
-               step wall, tokens/s, peak memory, graphs captured, then a
-               second graphed generate() that must capture nothing; the
-               QuantPolicy run's sampling held against plain;
+               sampling; the first 16 of 32 layers, a depth cut for the
+               script's time limit): step() eager against
+               graphed (equal tokens), step wall, tokens/s, peak memory,
+               graphs captured, then a second graphed generate() that
+               must capture nothing; the QuantPolicy run's sampling held
+               against plain;
   5. configs -- llama3.2-3b (generate, block 128: topk_mask's CTA route),
                minicpm-2b (engine warm: the padded fused head; each
                tick's sampling held against plain) and codeqwen1.5-7b
@@ -132,16 +134,38 @@ Phases, each fatal on failure:
                shape against JAX's one-group algorithm row by row (kept
                pairs equal, output within one bf16 ulp) and the expert
                products' device time against their byte floors; then
-               qwen2-moe-a2.7b and moonshot-v1-16b-a3b at full width
-               through the engine on path warm, eager against graphed
-               K=1, each tick's sampling held against plain (a model whose
-               weights leave under 12 GiB free runs at a cut depth,
-               logged).
+               qwen2-moe-a2.7b at full width and depth and
+               moonshot-v1-16b-a3b at full width, 24 of 48 layers (a depth
+               cut for the script's time limit), through the
+               engine on path warm, eager against graphed K=1, each tick's
+               sampling held against plain (a model whose weights leave
+               under 12 GiB free runs at a cut depth, logged).
+  8. recurrent -- a windowed refine past the window on the card (smoke
+               widths, bf16: graphed equals eager); then the recurrent
+               families at full width and depth, one model at a time, on
+               the legacy head (full-sequence logits, stablemax_sampling,
+               topk_mask; no fused head): recurrentgemma-2b (26 layers, d
+               2560, MQA 10 on 1 KV head of D 256, V 256000) through
+               generate (mode none stepped, dual + BAOS and prefix + BAOS
+               stepped and through generate()), the engine paths warm,
+               none and warm + BAOS eager K=1, graphed K=1 and K=8 with
+               phase 4's checks, the paged pool on warm graphed K=1 and
+               K=8, breakdown on warm graphed and the Table 6 shape in
+               modes none, prefix + BAOS and dual + BAOS; mamba2-130m (24
+               layers, d 768, state 128, V 50280) through generate (none,
+               dual, prefix with BAOS on the state) and the engine paths
+               warm and none; per model the RG-LRU or SSD scan's device
+               time at 4 x 96 and 16 x 384, flash_bidir at D 256 in the
+               warm tick's shape against its bound and SDPA,
+               stablemax_sampling at (1024, V) and (64, V) against plain,
+               its bound and softmax + max, and the legacy head product
+               against its bound (which must show device time).
 Every path's launch counts are zeroed just before it and read just after;
-the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c and 7.
-Prints the kernels JSON line, the card's name and power limit, and last
-the {"ok": true, ...} line.  Exits non-zero without a result when there is
-no CUDA device or the port is not beside this script.
+the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 7 and 8.
+Prints the run's time, the kernels JSON line, the card's name and power
+limit, and last the {"ok": true, ...} line.  Exits non-zero without a
+result when there is no CUDA device or the port is not beside this
+script.
 """
 from __future__ import annotations
 
@@ -761,9 +785,10 @@ def check_baos(gen) -> dict:
     shape, K of (4, 96, 32, 128) bf16 (G = 4 * 32
     channel groups) with per-channel offsets and spreads and its minmax
     calibration, on the bf16 and f32 routes; blocks of zeros and at both
-    exponent extremes; D 32 with a ragged row run; a slice of a longer cache
-    at odd B and S offsets; and x and out at addresses that are not 16-byte
-    aligned (the scalar route)."""
+    exponent extremes; D 32 with a ragged row run; recurrentgemma-2b's one
+    KV head of D 256 at (4, 96) (timed) and (16, 384); a slice of a
+    longer cache at odd B and S offsets; and x and out at addresses that
+    are not 16-byte aligned (the scalar route)."""
     from repro_torch.core import baos
     from repro_torch.kernels import baos_mx_quant as bq
     check_exp2()
@@ -795,6 +820,27 @@ def check_baos(gen) -> dict:
     x32 = torch.randn(3, 50, 8, 32, generator=gen, device=DEVICE) * 4
     cal32 = baos.calibrate(x32, x32, baos.BAOSConfig())
     same(x32.bfloat16(), cal32.k_center, cal32.k_scale, "(3, 50, 8, 32) bf16")
+    # recurrentgemma-2b's K/V (one KV head of D 256) at the engine's warm
+    # tick and at Table 6's
+    for shape in ((4, 96, 1, 256), (16, 384, 1, 256)):
+        xr = (torch.randn(*shape, generator=gen, device=DEVICE)
+              * (torch.rand(1, 1, 1, 256, generator=gen, device=DEVICE) * 8
+                 + 0.2)
+              + torch.randn(1, 1, 1, 256, generator=gen, device=DEVICE) * 3
+              ).bfloat16()
+        calr = baos.calibrate(xr, xr, baos.BAOSConfig())
+        same(xr, calr.k_center, calr.k_scale, f"{shape} bf16")
+        if shape[0] == 4:
+            args = (xr, calr.k_center, calr.k_scale, "mxint4")
+            rb_ms, rb_by = bound(2 * xr.numel() * 2 + 2 * 256 * 4 * 4,
+                                 5.0 * xr.numel(), F32_FLOPS)
+            r_dev = device_ms(lambda: bq.baos_mx_quant(*args), 50)
+            r_ms = time_ms(lambda: bq.baos_mx_quant(*args), 200)
+            r_plain = time_ms(lambda: bq.baos_mx_quant_plain(*args), 20)
+            log(f"baos_mx_quant mxint4 {shape} bf16 (recurrentgemma-2b's "
+                f"warm tick): device time (profiler) {r_dev:.4f} ms per "
+                f"call, CUDA events {r_ms:.4f} ms, plain {r_plain:.4f} ms, "
+                f"bound {rb_ms:.4f} ms ({rb_by})")
     cache = torch.zeros(B + 2, 2 * S + 3, H, D, dtype=torch.bfloat16,
                         device=DEVICE)
     for fmt in baos.KV_FORMATS:
@@ -946,6 +992,39 @@ def check_sampling(hid, w, fmt, mid, m_idx, k, totals, logit_scale=1.0):
     return tr_k, tok_k
 
 
+def check_sampling_logits(z, fmt, mid, m_idx, k, totals):
+    """stablemax_sampling on one step's active-block logits (L, V) (the
+    legacy head of a model without head_mode) against its plain version;
+    ``totals`` as in check_sampling.  Returns (transfer, tokens)."""
+    from repro_torch.kernels import stablemax_sampling as sms
+    from repro_torch.kernels import topk_mask as tk
+    conf_k, tok_k = sms.stablemax_sampling(z, fmt=fmt, suppress_id=mid)
+    _, tok_p = sms.stable_max_plain(z, fmt, suppress_id=mid)
+    diff = torch.nonzero((tok_k != tok_p) & m_idx[0]).flatten()
+    totals[0] += int(m_idx.sum())
+    totals[1] += len(diff)
+    if len(diff):
+        zq = quantized_f32(z[diff], fmt, mid)
+        totals[2] += sum(near_ties(zq, tok_k[diff], 0.0, 0, diff.tolist()))
+    tr_k = tk.topk_mask(conf_k[None], m_idx, k)
+    require(torch.equal(tr_k, tk.topk_mask_plain(conf_k[None], m_idx, k)),
+            "e2e: top-k transfer mask differs from plain")
+    return tr_k, tok_k
+
+
+def check_step_sampling(model, params, feats, dcfg, m_idx, k, totals):
+    """One step's sampling on its active-block feats against plain: the
+    fused head on hidden states (L, d), or for a model without head_mode
+    Stable-Max on its logits (L, V)."""
+    from repro_torch.core import diffusion
+    cfg = model.cfg
+    if diffusion.head_feed_mode(model, dcfg) == "logits":
+        return check_sampling_logits(feats, dcfg.sampling.fmt, cfg.mask_id,
+                                     m_idx, k, totals)
+    return check_sampling(feats, params["lm_head"], dcfg.sampling.fmt,
+                          cfg.mask_id, m_idx, k, totals, cfg.logit_scale)
+
+
 def phase_e2e(model, params, gen) -> None:
     from repro_torch.core import diffusion
     cfg = model.cfg
@@ -954,7 +1033,7 @@ def phase_e2e(model, params, gen) -> None:
     prompt = torch.randint(0, cfg.vocab - 200, (1, 16), generator=gen,
                            device=DEVICE)
     state = diffusion.init_state(model, prompt, dcfg, seed=7)
-    L, mid, w = dcfg.block_length, cfg.mask_id, params["lm_head"]
+    L, mid = dcfg.block_length, cfg.mask_id
     totals = [0, 0, 0]
     t0 = time.perf_counter()
     while not state.done:
@@ -962,9 +1041,9 @@ def phase_e2e(model, params, gen) -> None:
         feats, _ = diffusion.tick_forward(model, params, x, None, None, None,
                                           dcfg)
         k = state.ks[:, state.step_in_block].to(DEVICE)
-        tr_k, tok_k = check_sampling(feats[0, bs:bs + L], w,
-                                     dcfg.sampling.fmt, mid,
-                                     x[:, bs:bs + L] == mid, k, totals)
+        tr_k, tok_k = check_step_sampling(model, params, feats[0, bs:bs + L],
+                                          dcfg, x[:, bs:bs + L] == mid, k,
+                                          totals)
         x_new, _, _ = diffusion.tick_sample(
             params, feats, x, torch.tensor([bs], device=DEVICE), k,
             diffusion.tick_seed(state.seed, state.ticks), dcfg, mid, model)
@@ -1112,36 +1191,41 @@ def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
     ``with_quant``, dual + BAOS at Table 6's operating point,
     QuantPolicy(enabled=True) (MXINT4 weights, MXINT8 activations) with
     bf16 sampling, whose sampling is also held against the plain functions
-    on the same (fake-quantized) hidden states at a warm and a refine step.
-    Returns the launch counts of every run."""
+    on the same (fake-quantized) hidden states at a warm and a refine step,
+    at the model's depth in DEPTH_CUTS.  Returns the launch counts of
+    every run."""
     from repro_torch.core import baos, diffusion, sampling
     from repro_torch.kernels import fused_head_sampling as fhs
     from repro_torch.models import layers
+    from repro_torch.models.registry import build_model
     cfg = model.cfg
     B, P = 16, 128
     prompt = torch.randint(0, cfg.vocab - 200, (B, P), generator=gen,
                            device=DEVICE)
     shape = dict(gen_length=256, block_length=64, steps_per_block=16)
     kv = baos.BAOSConfig(enabled=True, kv_format="mxint4")
-    common = ("flash_bidir", "fused_head_sampling", "topk_mask")
     total = {}
-    runs = (("none", diffusion.DiffusionConfig(**shape), common, None),
+    runs = (("none", diffusion.DiffusionConfig(**shape), None),
             ("prefix + BAOS", diffusion.DiffusionConfig(
-                cache_mode="prefix", baos=kv, **shape),
-             common + ("baos_mx_quant",), None),
+                cache_mode="prefix", baos=kv, **shape), None),
             ("dual + BAOS", diffusion.DiffusionConfig(
-                cache_mode="dual", baos=kv, **shape),
-             common + ("baos_mx_quant",), None),
+                cache_mode="dual", baos=kv, **shape), None),
             ("dual + BAOS + QuantPolicy, bf16 sampling",
              diffusion.DiffusionConfig(
                  cache_mode="dual", baos=kv,
                  sampling=sampling.SamplingConfig(fmt="bf16"), **shape),
-             common + ("baos_mx_quant",), layers.QuantPolicy(enabled=True)))
-    for name, dcfg, expected, quant in runs[:None if with_quant else -1]:
+             layers.QuantPolicy(enabled=True)))
+    for name, dcfg, quant in runs[:None if with_quant else -1]:
+        if quant is not None and cfg.name in DEPTH_CUTS:
+            cfg = cut_depth(cfg, DEPTH_CUTS[cfg.name])
+            model = build_model(cfg, DEVICE)
+            params = dict(params, layers=params["layers"][:cfg.n_layers])
+        expected = path_kernels(model, dcfg, dcfg.cache_mode != "none")
         tps = {}
         counts = eager_vs_graphed(model, params, prompt, dcfg,
-                                  f"table6 {cfg.name} (B {B}, prompt {P}, "
-                                  f"gen 256, block 64, 16 steps) {name}",
+                                  f"table6 {cfg.name} ({cfg.n_layers} "
+                                  f"layers, B {B}, prompt {P}, gen 256, "
+                                  f"block 64, 16 steps) {name}",
                                   expected, quant, tps)
         if quant is None:
             profile_steps(model, params, prompt, dcfg,
@@ -1158,7 +1242,7 @@ def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
         diffusion.clear_step_graphs()
         return total
     # the quantized run's sampling against plain on the same hidden states
-    dcfg, quant = runs[-1][1], runs[-1][3]
+    dcfg, quant = runs[-1][1:]
     state = diffusion.init_state(model, prompt[:4], dcfg, seed=7)
     L, mid, V = dcfg.block_length, cfg.mask_id, cfg.vocab
     w = quant.weights(fhs.head_storage(params["lm_head"]))[:, :V]
@@ -1180,6 +1264,23 @@ def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
             "table6 QuantPolicy: a sampled token differs off a near-tie")
     diffusion.clear_step_graphs()
     return total
+
+
+# depth cuts that keep the whole script inside its time limit (about
+# 1,000 s of 1,200 without them): llada-8b's QuantPolicy Table 6 run (~75
+# s at full depth; its other runs stay at full depth) and
+# moonshot-v1-16b-a3b in phase 7
+DEPTH_CUTS = {"llada-8b": 16, "moonshot-v1-16b-a3b": 24}
+
+
+def cut_depth(cfg, n_layers: int, why: str = "for the script's time limit"):
+    """``cfg`` with its first ``n_layers`` layers (the cut logged), or
+    ``cfg`` itself when it has no more."""
+    if n_layers >= cfg.n_layers:
+        return cfg
+    log(f"{cfg.name}: depth cut from {cfg.n_layers} to {n_layers} layers "
+        f"{why}")
+    return dataclasses.replace(cfg, n_layers=n_layers)
 
 
 DENSE_CONFIGS = ("llama3.2-3b", "minicpm-2b", "codeqwen1.5-7b")
@@ -1238,7 +1339,8 @@ def phase_configs(gen, archs=DENSE_CONFIGS) -> dict:
 
     common = ("flash_bidir", "fused_head_sampling", "topk_mask")
     for arch in archs:
-        cfg = fit_depth(base.get_config(arch))
+        cfg = base.get_config(arch)
+        cfg = fit_depth(cut_depth(cfg, DEPTH_CUTS.get(arch, cfg.n_layers)))
         model = build_model(cfg, DEVICE)
         t0 = time.perf_counter()
         params = model.init(seed=0)
@@ -1320,9 +1422,7 @@ def fit_depth(cfg):
         return cfg
     depth = int((free - HEADROOM_GIB - fixed) // per_layer)
     require(depth >= 1, f"{cfg.name}: not one layer fits")
-    log(f"{cfg.name}: depth cut from {cfg.n_layers} to {depth} layers to "
-        f"leave {HEADROOM_GIB} GiB free")
-    return dataclasses.replace(cfg, n_layers=depth)
+    return cut_depth(cfg, depth, f"to leave {HEADROOM_GIB} GiB free")
 
 
 def check_ticks_sampling(model, params, gen) -> None:
@@ -1387,7 +1487,6 @@ def phase_cached(model, params, gen, cache_mode) -> dict:
     from repro_torch.core import baos, diffusion
     from repro_torch.kernels import _build
     from repro_torch.kernels import baos_mx_quant as bq
-    from repro_torch.models import layers, transformer
     cfg = model.cfg
     dcfg = diffusion.DiffusionConfig(
         gen_length=32, block_length=16, steps_per_block=8,
@@ -1403,41 +1502,40 @@ def phase_cached(model, params, gen, cache_mode) -> dict:
     dt = time.perf_counter() - t0
     counts = dict(_build.launch_counts)
     what = f"generate {cache_mode} + BAOS"
-    expect_launches(counts, ("flash_bidir", "baos_mx_quant",
-                             "fused_head_sampling", "topk_mask"), what)
+    expect_launches(counts, path_kernels(model, dcfg, True), what)
     require(not bool((out == cfg.mask_id).any()), f"{what}: mask ids left")
 
     state = diffusion.init_state(model, prompt, dcfg, seed=7)
-    L, mid, w = dcfg.block_length, cfg.mask_id, params["lm_head"]
+    L, mid = dcfg.block_length, cfg.mask_id
     totals = [0, 0, 0]
     while not state.done:
         feats = diffusion.step_forward(model, params, state)
-        if state.ticks == 0:
-            # layer 0 of the first warm step: its K/V recomputed, their
-            # calibration and plain smooth_quantize vs the cache
-            lp = params["layers"][0]
-            h = layers.rms_norm(transformer.embed(params, cfg, state.x),
-                                lp["ln1"], cfg.norm_eps)
-            pos = torch.arange(state.x.shape[1], device=DEVICE)
-            _, k0, v0 = transformer.qkv(h, lp, cfg, pos)
+        if state.ticks == 0 and "k" in state.cache:
+            # the first attention layer of the first warm step: its K/V
+            # recomputed, their calibration and plain smooth_quantize vs
+            # the cache
+            k0, v0 = first_attn_kv(model, params, state.x)
             cal = baos.calibrate(k0, v0, dcfg.baos)
             c = state.cache
             require(all(torch.equal(c[n][0], t)
                         for n, t in zip(cal._fields, cal)),
-                    f"{what}: layer-0 calibration differs from plain")
+                    f"{what}: first attention layer's calibration differs "
+                    f"from plain")
             for name, x0, cn, sn in (("k", k0, "k_center", "k_scale"),
                                      ("v", v0, "v_center", "v_scale")):
                 want = bq.baos_mx_quant_plain(x0, c[cn][0], c[sn][0],
                                               "mxint4")
                 n_bad = int((c[name][0] != want).sum())
-                log(f"{what}: warm step layer-0 {name} cache vs plain "
-                    f"smooth_quantize: {n_bad} of {want.numel()} differ")
-                require(n_bad == 0, f"{what}: layer-0 {name} cache differs")
+                log(f"{what}: warm step first attention layer's {name} "
+                    f"cache {tuple(want.shape)} vs plain smooth_quantize: "
+                    f"{n_bad} of {want.numel()} differ")
+                require(n_bad == 0, f"{what}: first attention layer's "
+                                    f"{name} cache differs")
         bs = state.block_start
         m_idx = state.x[:, bs:bs + L] == mid
         k = state.ks[:, state.step_in_block].to(DEVICE)
-        tr_k, tok_k = check_sampling(feats[0], w, dcfg.sampling.fmt, mid,
-                                     m_idx, k, totals)
+        tr_k, tok_k = check_step_sampling(model, params, feats[0], dcfg,
+                                          m_idx, k, totals)
         x = diffusion.commit_block(model, params, state, feats)
         require(torch.equal(x[0, bs:bs + L][tr_k[0]], tok_k[tr_k[0]]),
                 f"{what}: the commit differs from the sampled tokens")
@@ -1454,27 +1552,64 @@ def phase_cached(model, params, gen, cache_mode) -> dict:
     return counts
 
 
+def first_attn_kv(model, params, tokens):
+    """K/V (B, S, Hkv, D) of the model's first attention layer (the
+    hybrid's: triple 0's, after its two rec sub-layers), recomputed from
+    ``tokens`` outside the forward at positions 0..S-1."""
+    from repro_torch.models import transformer
+    cfg = model.cfg
+    x = transformer.embed(params, cfg, tokens)
+    if cfg.family == "hybrid":
+        tp = params["triples"][0]
+        for name in ("rec1", "rec2"):
+            x = model._rec_sub(x, tp[name])[0]
+        ln, w = tp["attn"]["ln1"], tp["attn"]["temporal"]
+    else:
+        w = params["layers"][0]
+        ln = w["ln1"]
+    h = transformer.apply_norm(x, ln, cfg)
+    pos = torch.arange(tokens.shape[1], device=DEVICE)
+    return transformer.qkv(h, w, cfg, pos)[1:]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving engine on each path
 # ---------------------------------------------------------------------------
 
-def engine_paths():
-    """(name, engine mode, DiffusionConfig, kernels the path runs)."""
+def path_kernels(model, dcfg, cached: bool) -> tuple:
+    """The port kernels a forward + sampling of ``model`` under ``dcfg``
+    launches: topk_mask; the fused head, or stablemax_sampling on the
+    unfused head and for a model without head_mode (the legacy head);
+    flash_bidir where the model attends (not the SSM); baos_mx_quant with
+    BAOS on a KV cache (``cached``: engine mode warm, generate's modes
+    dual and prefix; the SSM's state takes core/mx instead)."""
+    from repro_torch.core import diffusion
+    head = diffusion.head_feed_mode(model, dcfg)
+    names = {"topk_mask", "fused_head_sampling" if head == "fused"
+             else "stablemax_sampling"}
+    if model.cfg.family != "ssm":
+        names.add("flash_bidir")
+        if cached and dcfg.baos.enabled:
+            names.add("baos_mx_quant")
+    return tuple(sorted(names))
+
+
+def engine_paths(model):
+    """(name, engine mode, DiffusionConfig, kernels the path runs): warm,
+    none, warm+baos, and for a model with head_mode warm on the unfused
+    head."""
     from repro_torch.core import baos, diffusion
     base = dict(block_length=16, steps_per_block=8)
-    common = ("flash_bidir", "topk_mask")
-    return [
-        ("warm", "warm", diffusion.DiffusionConfig(**base),
-         common + ("fused_head_sampling",)),
-        ("none", "none", diffusion.DiffusionConfig(**base),
-         common + ("fused_head_sampling",)),
-        ("warm+baos", "warm", diffusion.DiffusionConfig(
-            baos=baos.BAOSConfig(enabled=True, kv_format="mxint4"), **base),
-         common + ("fused_head_sampling", "baos_mx_quant")),
-        ("warm-unfused", "warm", diffusion.DiffusionConfig(
-            head_path="unfused", **base),
-         common + ("stablemax_sampling",)),
-    ]
+    paths = [("warm", "warm", diffusion.DiffusionConfig(**base)),
+             ("none", "none", diffusion.DiffusionConfig(**base)),
+             ("warm+baos", "warm", diffusion.DiffusionConfig(
+                 baos=baos.BAOSConfig(enabled=True, kv_format="mxint4"),
+                 **base))]
+    if model.supports_head_mode:
+        paths.append(("warm-unfused", "warm", diffusion.DiffusionConfig(
+            head_path="unfused", **base)))
+    return [(name, mode, dcfg, path_kernels(model, dcfg, mode == "warm"))
+            for name, mode, dcfg in paths]
 
 
 VARIANTS = (("eager K=1", dict(jit_steps=False)),
@@ -1538,7 +1673,7 @@ def event_keys(events):
             for e in events]
 
 
-def phase_engine(model, params, slowfast: bool = True):
+def phase_engine(model, params, slowfast: bool = True, names=None):
     """Each path through the eager K=1 engine (as in earlier runs), the
     graphed K=1 engine and the graphed megatick (K=8): each must finish
     every request with no mask id left and launch exactly its kernels; the
@@ -1554,7 +1689,9 @@ def phase_engine(model, params, slowfast: bool = True):
     trace = engine_trace(cfg)
     launches = {name: 0 for name in _build.KERNELS}
     paths = {}
-    for name, mode, dcfg, expected in engine_paths():
+    for name, mode, dcfg, expected in engine_paths(model):
+        if names is not None and name not in names:
+            continue
         runs, halves, stage = {}, None, None
         for vname, vcfg in VARIANTS:
             what = f"engine path={name} {vname}"
@@ -1788,7 +1925,7 @@ def phase_paged(model, params, slot, names=("warm", "none", "warm+baos"),
     trace = engine_trace(cfg)
     launches = {name: 0 for name in _build.KERNELS}
     dcfgs, warm_eng = {}, None
-    for name, mode, dcfg, expected in engine_paths():
+    for name, mode, dcfg, expected in engine_paths(model):
         if name not in names:
             continue
         dcfgs[name] = dcfg
@@ -2109,13 +2246,13 @@ def phase_breakdown(model, params, slot_paths,
     from repro_torch.obs import ServingObs
     trace = engine_trace(model.cfg)
     paths = {name: (mode, dcfg, expected)
-             for name, mode, dcfg, expected in engine_paths()}
+             for name, mode, dcfg, expected in engine_paths(model)}
     mode, warm, expected = paths["warm"]
     legacy = dataclasses.replace(warm, head_path="legacy",
                                  sampling=sampling.SamplingConfig(fmt="none"))
     cases = [("warm", *paths["warm"]), ("warm+baos", *paths["warm+baos"]),
              ("warm legacy fmt none", "warm", legacy,
-              ("flash_bidir", "topk_mask", "stablemax_sampling"))]
+              path_kernels(model, legacy, True))]
     launches = {name: 0 for name in _build.KERNELS}
     shares = {}
     for name, mode, dcfg, expected in cases:
@@ -2206,7 +2343,7 @@ def phase_obs(model, params) -> dict:
     from repro_torch.sim.analytical import HostConfig
     trace = engine_trace(model.cfg)
     gen_tokens = sum(g for _, g in trace)
-    name, mode, dcfg, expected = engine_paths()[0]
+    name, mode, dcfg, expected = engine_paths(model)[0]
     launches = {k: 0 for k in _build.KERNELS}
     SERVE_DIR.mkdir(parents=True, exist_ok=True)
     for vname, vcfg in (("graphed K=1", dict(jit_steps=True)),
@@ -2345,7 +2482,7 @@ def phase_http(model, params) -> dict:
         f"with set-up)")
 
     # four slots, mode warm, graphed
-    _, mode, dcfg, _ = engine_paths()[0]
+    _, mode, dcfg, _ = engine_paths(model)[0]
     dcfg = dataclasses.replace(dcfg, gen_length=64)
     reqs = [(rs.randint(0, cfg.vocab - 200, size=(rs.randint(16, 33),))
              .astype(np.int32), int(rs.choice([32, 48, 64])))
@@ -2500,12 +2637,15 @@ def phase_tick_breakdown(eng, model, params, dcfg, name) -> None:
     return fwd, smp
 
 
-def forward_gemm_flops(cfg, B: int, S: int) -> float:
-    """GEMM FLOPs of one forward over (B, S): per token the QKV and output
-    projections and a dense layer's SwiGLU, or an MoE layer's router and
-    shared experts; an MoE layer's expert products run over E·C capacity
-    rows per dispatch group, empty slots included."""
+def forward_gemm_flops(cfg, B: int, S: int):
+    """GEMM FLOPs of one forward over (B, S) of a transformer stack: per
+    token the QKV and output projections and a dense layer's SwiGLU, or an
+    MoE layer's router and shared experts; an MoE layer's expert products
+    run over E·C capacity rows per dispatch group, empty slots included.
+    None for the recurrent families (not modeled)."""
     from repro_torch.models import moe
+    if cfg.family not in ("dense", "moe"):
+        return None
     d = cfg.d_model
     hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
     per_token = 2 * d * (hq + hkv)
@@ -2527,24 +2667,35 @@ def phase_sampling_stage(eng, model, params, dcfg) -> None:
     of 16-position blocks, R = 64): device time of tick_sample from the
     profiler (fused: the streamed head; unfused: the cuBLAS head on the
     (4, 16, d) slice, then Stable-Max on the stored logits; legacy: the
-    slice of full-sequence logits, then Stable-Max) and, for legacy, of
-    the full-sequence head product its forward adds.  Returns {head path:
-    device ms}, with the legacy head product's under "legacy head
-    product"."""
+    slice of full-sequence logits, then Stable-Max; a model without
+    head_mode has the legacy head only) and of the full-sequence head
+    product the legacy forward adds, which must show device time.
+    Returns {head path: device ms}, with the legacy head product's under
+    "legacy head product"."""
     from repro_torch.core import diffusion
     from repro_torch.models import layers
+    cfg = model.cfg
     B = eng.num_slots
     bs = torch.tensor([16, 20, 24, 32][:B], dtype=torch.int32,
                       device=DEVICE)
     k = torch.full((B,), 2, dtype=torch.int32, device=DEVICE)
-    hidden, _ = diffusion.tick_forward(model, params, eng.x, eng.kv_valid,
-                                       bs, None, dcfg)
+    out_all, _ = diffusion.tick_forward(model, params, eng.x, eng.kv_valid,
+                                        bs, None, dcfg)
+    if model.supports_head_mode:
+        hidden, heads = out_all, ("fused", "unfused", "legacy")
+    else:
+        # the forward returns the logits; the product's time does not
+        # depend on the hidden states' values
+        hidden = torch.randn(*eng.x.shape, cfg.d_model, device=DEVICE,
+                             dtype=cfg.torch_dtype)
+        heads = ("legacy",)
     parts, out = [], {}
-    for head_path in ("fused", "unfused", "legacy"):
+    for head_path in heads:
         d = dataclasses.replace(dcfg, head_path=head_path)
         feats = hidden
         if head_path == "legacy":
-            feats = layers.qdot(hidden, params["lm_head"])
+            feats = (layers.qdot(hidden, params["lm_head"])
+                     if model.supports_head_mode else out_all)
         dev_ms = device_ms(lambda: diffusion.tick_sample(
             params, feats, eng.x, bs, k, 0, d, eng.mask_id, model), 10)
         ev_ms = time_ms(lambda: diffusion.tick_sample(
@@ -2552,12 +2703,14 @@ def phase_sampling_stage(eng, model, params, dcfg) -> None:
         parts.append(f"{head_path} {dev_ms:.3f} ms device "
                      f"({ev_ms:.3f} ms CUDA events)")
         out[head_path] = dev_ms
-    head_ms = device_ms(lambda: layers.qdot(hidden, params["lm_head"]), 10)
+    del feats, out_all
+    head_ms = kernel_ms(lambda: layers.qdot(hidden, params["lm_head"]), 10,
+                        "the legacy head product")
     out["legacy head product"] = head_ms
-    log(f"sampling stage ({B} x 16 rows, V {model.cfg.vocab}): "
+    log(f"sampling stage ({B} x 16 rows, V {cfg.vocab}): "
         f"tick_sample {', '.join(parts)}; legacy's full-sequence head "
         f"product in the forward ({B} x {eng.max_seq_len} rows) {head_ms:.3f}"
-        f" ms device")
+        f" ms device (a graph of 10 calls)")
     return out
 
 
@@ -2601,6 +2754,26 @@ def device_ms(fn, n: int) -> float:
     """Device time per call of ``fn`` from the profiler: the sum over the
     kernels it launches."""
     return sum(device_ms_by_kernel(fn, n).values())
+
+
+def kernel_ms(fn, n: int, what: str) -> float:
+    """Device time per call of ``fn``: n calls captured in one CUDA graph
+    (after a warm-up call), its replay timed with CUDA events, / n, so no
+    host launch cost falls between the calls; the run fails unless it is
+    above 0.  Late in a run the profiler records no device activity in a
+    short window: llada-moe's legacy head product read 0.000 ms from it
+    in whole runs of this script, as did phase 8's kernels and softmax +
+    max."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = time_ms(graph.replay, 5) / n
+    del graph
+    require(ms > 0, f"{what}: no device time")
+    return ms
 
 
 def kernel_class(name: str) -> str:
@@ -2882,6 +3055,192 @@ def check_moe_dispatch(model, params, gen) -> None:
         f"{topk_ms:.3f} ms; {dev / all_ms:.2f}x the every-expert floor")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the recurrent families
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("recurrentgemma-2b", "mamba2-130m")
+
+
+def phase_recurrent(gen, archs=RECURRENT_ARCHS) -> dict:
+    """8: the recurrent families at full width and depth with seeded random
+    weights, one model at a time (each freed before the next); neither has
+    head_mode, so every path samples on the legacy head (full-sequence
+    logits, stablemax_sampling, topk_mask).  recurrentgemma-2b (26 layers:
+    8 (rec, rec, attn) triples and 2 rec, d 2560, MQA 10 on 1 KV head of
+    D 256, window 2048, V 256000): generate in mode none stepped with each
+    step's sampling held against plain, dual + BAOS and prefix + BAOS
+    through generate() and stepped; the engine paths warm, none and
+    warm + BAOS eager K=1, graphed K=1 and K=8 (phase 4's checks); the
+    paged pool on warm graphed K=1 and K=8; breakdown on warm graphed; the
+    Table 6 shape in modes none, prefix + BAOS and dual + BAOS.
+    mamba2-130m (24 layers, d 768, state 128, V 50280): generate in modes
+    none, dual and prefix (BAOS on the state through core/mx), the engine
+    paths warm and none.  Then per model the scans' device time
+    (check_recurrent_ops).  Returns the launch counts of the runs."""
+    from repro_torch.configs import base
+    from repro_torch.core import diffusion
+    from repro_torch.models.registry import build_model
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    for arch in archs:
+        t_phase = time.perf_counter()
+        cfg = base.get_config(arch)
+        model = build_model(cfg, DEVICE)
+        t0 = time.perf_counter()
+        params = model.init(seed=0)
+        torch.cuda.synchronize()
+        log(f"{arch} params: init {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+        phase_e2e(model, params, gen)
+        for cache_mode in ("dual", "prefix"):
+            add(phase_cached(model, params, gen, cache_mode))
+        hybrid = cfg.family == "hybrid"
+        counts, slot_paths = phase_engine(
+            model, params, slowfast=False,
+            names=None if hybrid else ("warm", "none"))
+        add(counts)
+        if hybrid:
+            add(phase_paged(model, params, slot_paths, names=("warm",),
+                            variants=VARIANTS[1:], extras=False))
+            add(phase_breakdown(model, params, slot_paths, names=("warm",),
+                                variants=BREAKDOWN_VARIANTS[1:]))
+            add(phase_table6(model, params, gen, with_quant=False))
+        check_recurrent_ops(model, params, gen)
+        log(f"phase 8 {arch}: {time.perf_counter() - t_phase:.1f} s, peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        del model, params, slot_paths
+        diffusion.clear_step_graphs()
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 8 launches: {total}")
+    return total
+
+
+def check_recurrent_ops(model, params, gen) -> None:
+    """Device time per tick (profiler) of the work a recurrent model's
+    tick adds or moves, at the engine's shape (4 x 96) and Table 6's
+    (16 x 384): the RG-LRU scan over the 18 rec layers
+    (rglru.rglru_scan) or the SSD scan over the 24 layers
+    (ssm.ssd_chunked), each with its kernels per layer; for
+    recurrentgemma-2b flash_bidir at D 256 in the warm tick's shape (MQA
+    10 on 1, kv_valid, 8 layers) beside its bound and SDPA's time;
+    stablemax_sampling at (64, V) beside its byte bound and softmax + max;
+    the legacy head product (B·S, d) x (d, V) beside its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_bidir as fb
+    from repro_torch.kernels import stablemax_sampling as sms
+    from repro_torch.models import layers, rglru, ssm
+    cfg = model.cfg
+    dt = cfg.torch_dtype
+
+    def rand(*shape, dtype=dt):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+    for B, S in ((4, 96), (16, 384)):
+        if cfg.family == "hybrid":
+            n_layers = 2 * (cfg.n_layers // 3) + 2
+            D = cfg.d_rnn
+            x = rand(B, S, D)
+            r, i = torch.sigmoid(rand(B, S, D)), torch.sigmoid(rand(B, S, D))
+            lam = torch.full((D,), 0.7, device=DEVICE)
+            fn = lambda: rglru.rglru_scan(x, r, i, lam)  # noqa: E731
+            what = f"RG-LRU scan ({B}, {S}, {D})"
+            n_bytes = 3 * x.numel() * x.element_size() + x.numel() * 4
+        else:
+            n_layers = cfg.n_layers
+            d_inner, hp, nh, ng, dn, _ = ssm.mamba_dims(cfg)
+            xs, Bv, Cv = rand(B, S, nh, hp), rand(B, S, ng, dn), \
+                rand(B, S, ng, dn)
+            dtv = F.softplus(rand(B, S, nh, dtype=torch.float32))
+            A = -torch.exp(torch.linspace(0.0, 2.77, nh, device=DEVICE))
+            fn = lambda: ssm.ssd_chunked(xs, dtv, A, Bv, Cv)  # noqa: E731
+            what = f"SSD scan ({B}, {S}, {nh} heads x {hp}, state {dn})"
+            n_bytes = (xs.numel() + 2 * Bv.numel()) * xs.element_size() + \
+                dtv.numel() * 4 + xs.numel() * 4 + \
+                B * (S // ssm.SSD_CHUNK + 1) * nh * hp * dn * 4
+        per = device_kernels(fn, 10)
+        dev = sum(ms for ms, _ in per.values())
+        calls = sum(c for _, c in per.values())
+        require(dev > 0, f"{cfg.name} {what}: the profiler shows no device "
+                         f"time")
+        log(f"{cfg.name} {what}: device {dev:.4f} ms a layer "
+            f"({calls:.0f} kernels), {dev * n_layers:.3f} ms a forward of "
+            f"{n_layers} layers; CUDA events {time_ms(fn, 10):.4f} ms a "
+            f"layer; byte floor (inputs read once, outputs written once) "
+            f"{n_bytes / HBM_BPS * 1e3:.4f} ms a layer")
+    B, S = 4, 96
+    if cfg.family == "hybrid":
+        Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        q, kk, v = rand(B, S, Hq, D), rand(B, S, Hkv, D), rand(B, S, Hkv, D)
+        valid = torch.arange(S, device=DEVICE)[None, :] < torch.tensor(
+            (96, 64, 48, 1), device=DEVICE)[:, None]
+        n_keys = int(valid.sum())
+        b_ms, b_by = bound(2 * q.numel() * 2 + 2 * n_keys * Hkv * D * 2
+                           + valid.numel(), 4.0 * Hq * S * n_keys * D,
+                           BF16_FLOPS)
+        got = fb.flash_bidir(q, kk, v, valid)
+        want = fb.flash_bidir_plain(q, kk, v, valid)
+        excess = float(((got.float() - want.float()).abs()
+                        - bf16_ulp(want)).max())
+        require(excess <= 1e-6, f"{cfg.name} flash_bidir at the tick's shape"
+                                f": beyond one bf16 ulp + 1e-6")
+        qt = q.transpose(1, 2)
+        kt = kk.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+        mask = valid[:, None, None, :]
+        fn = lambda: fb.flash_bidir(q, kk, v, valid)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask)
+        dev = kernel_ms(fn, 20, f"{cfg.name} flash_bidir")
+        plain = time_ms(lambda: fb.flash_bidir_plain(q, kk, v, valid), 20)
+        log(f"{cfg.name} flash_bidir D {D} at the warm tick's shape ({B}, "
+            f"{S}, {Hq} on {Hkv}, kv_valid), within one bf16 ulp of plain: "
+            f"device {dev:.4f} ms a layer (a graph of 20 calls), "
+            f"{dev * (cfg.n_layers // 3):.3f} ms a tick of "
+            f"{cfg.n_layers // 3} layers; CUDA events, back to back "
+            f"{time_ms(fn, 20):.4f} ms; plain {plain:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}), "
+            f"{dev / b_ms:.1f}x; scaled_dot_product_attention (K/V repeated "
+            f"beforehand) device {kernel_ms(lib, 20, 'sdpa'):.4f} ms")
+    V = cfg.vocab
+    # Table 6's legacy head rows (16 x 64): logits that end on a 2 MiB page
+    # at V 256000, where a read one past the end faulted
+    zl = rand(1024, V) * 3
+    check_stablemax_case(zl, "mxfp8_e4m3", 0.0, cfg.mask_id,
+                         f"(1024, {V}) bf16")
+    zl = rand(64, V) * 3
+    kw = dict(fmt="mxfp8_e4m3", suppress_id=cfg.mask_id)
+    err = check_stablemax_case(zl, "mxfp8_e4m3", 0.0, cfg.mask_id,
+                               f"(64, {V}) bf16")
+    b_ms, b_by = bound(zl.numel() * 2 + 64 * 8, 4.0 * zl.numel(), F32_FLOPS)
+    fn = lambda: sms.stablemax_sampling(zl, **kw)  # noqa: E731
+    lib = lambda: torch.max(torch.softmax(zl, -1), -1)  # noqa: E731
+    dev = kernel_ms(fn, 20, f"{cfg.name} stablemax_sampling")
+    plain = time_ms(lambda: sms.stable_max_plain(zl, **kw), 20)
+    log(f"{cfg.name} stablemax_sampling mxfp8 greedy (64, {V}) bf16: conf "
+        f"max abs err {err:.3g}; device {dev:.4f} ms (a graph of 20 "
+        f"calls), CUDA events, back to back "
+        f"{time_ms(fn, 20):.4f} ms, plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms "
+        f"({b_by}), {dev / b_ms:.1f}x; softmax + max device "
+        f"{kernel_ms(lib, 20, 'softmax + max'):.4f} ms")
+    h = rand(B, S, cfg.d_model)
+    head = lambda: layers.qdot(h, params["lm_head"])  # noqa: E731
+    hb_ms, hb_by = bound((cfg.d_model * V + B * S * cfg.d_model
+                          + B * S * V) * 2, 2.0 * B * S * cfg.d_model * V,
+                         BF16_FLOPS)
+    dev = kernel_ms(head, 10, f"{cfg.name} legacy head product")
+    log(f"{cfg.name} legacy head product ({B * S}, {cfg.d_model}) x "
+        f"({cfg.d_model}, {V}): device {dev:.4f} ms a tick (a graph of 10 "
+        f"calls), CUDA events, back to back "
+        f"{time_ms(head, 10):.4f} ms, bound {hb_ms:.4f} ms ({hb_by})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2897,6 +3256,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     device.resolve("cuda")
+    t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     try:
@@ -2942,10 +3302,15 @@ def main() -> int:
         log(f"phase 6d: {time.perf_counter() - t0:.1f} s")
         for name, n in phase_moe(gen).items():
             launches[name] += n
+        t0 = time.perf_counter()
+        for name, n in phase_recurrent(gen).items():
+            launches[name] += n
+        log(f"phase 8: {time.perf_counter() - t0:.1f} s")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/kernels/csrc/{name}.cu",
                  replaces=REPLACES[name], launches=launches[name],

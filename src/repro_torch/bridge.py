@@ -1,5 +1,5 @@
-"""Parameters and KV caches of the JAX package, as numpy arrays, into the
-port's layout.
+"""Parameters and caches of the JAX package (every family the port runs),
+as numpy arrays, into the port's layout.
 
 The tests build parameters with the JAX ``init_params``, turn them into
 numpy (``jax.tree.map(np.asarray, params)``) and hand them here, so both
@@ -20,27 +20,53 @@ from repro_torch.kernels import fused_head_sampling
 from repro_torch.models.config import ModelConfig
 
 
+# leaves JAX keeps in f32 whatever the model's dtype
+F32_LEAVES = ("A_log", "D", "dt_bias", "lam")
+
+
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                       device: Union[str, torch.device] = "cuda") -> Dict:
-    """JAX transformer params (``layers`` stacked on axis 0) -> the
-    port's params (``layers`` a list of per-layer dicts), in ``cfg.dtype``
-    on ``device``.  A dense layer's ``mlp`` becomes its ``w_gate``,
-    ``w_up`` and ``w_down``; an MoE layer keeps JAX's ``moe`` subtree (the
-    router (d, E), the stacked experts (E, d, F) / (E, F, d) and any
-    ``shared`` experts with their ``gate_proj``).  bf16 arrays pass
-    through f32, exactly.
-    The LM head is stored with 16-byte rows for the fused head's bf16 route
-    (kernels/fused_head_sampling.pad_head)."""
+    """JAX params (stacked on axis 0) -> the port's params (stacks split
+    into lists of per-layer dicts), in ``cfg.dtype`` (``F32_LEAVES`` in
+    f32) on ``device``; bf16 arrays pass through f32, exactly.  Norms
+    (JAX's ``{"w": ...}``) become plain tensors.
+
+    * dense / moe: ``layers`` a list of dicts; a dense layer's ``mlp``
+      becomes its ``w_gate``, ``w_up`` and ``w_down``; an MoE layer keeps
+      JAX's ``moe`` subtree (the router (d, E), the stacked experts
+      (E, d, F) / (E, F, d) and any ``shared`` experts with their
+      ``gate_proj``).
+    * ssm: ``layers`` a list of Mamba2 layer dicts (models/ssm.py).
+    * hybrid: ``triples`` a list of ``{"rec1", "rec2", "attn"}`` and
+      ``tail`` a list of 2 rec sub-layers (models/rglru.py).
+
+    The LM head is stored with 16-byte rows for the fused head's bf16
+    route (kernels/fused_head_sampling.pad_head)."""
     dev = device_lib.resolve(device)
 
-    def t(a) -> torch.Tensor:
+    def t(a, name: str = "") -> torch.Tensor:
+        dt = torch.float32 if name in F32_LEAVES else cfg.torch_dtype
         return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(
-            device=dev, dtype=cfg.torch_dtype)
+            device=dev, dtype=dt)
 
-    def layer(sub: Mapping, i: int) -> Dict:
-        return {k: layer(v, i) if isinstance(v, Mapping) else t(v[i])
+    def item(sub: Mapping, i: int) -> Dict:
+        """Item i of a stacked subtree, norms as plain tensors."""
+        return {k: (t(v["w"][i]) if isinstance(v, Mapping) and set(v) == {"w"}
+                    else item(v, i) if isinstance(v, Mapping)
+                    else t(v[i], k))
                 for k, v in sub.items()}
 
+    out = {"embed": t(tree["embed"]),
+           "final_norm": t(tree["final_norm"]["w"]),
+           "lm_head": fused_head_sampling.pad_head(t(tree["lm_head"]))}
+    if cfg.family == "ssm":
+        out["layers"] = [item(tree["layers"], i) for i in range(cfg.n_layers)]
+        return out
+    if cfg.family == "hybrid":
+        nt = cfg.n_layers // 3
+        out["triples"] = [item(tree["triples"], i) for i in range(nt)]
+        out["tail"] = [item(tree["tail"], i) for i in range(2)]
+        return out
     stack = tree["layers"]
     attn = stack["attn"]
     layers = []
@@ -49,37 +75,42 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
               "wq": t(attn["wq"][i]), "wk": t(attn["wk"][i]),
               "wv": t(attn["wv"][i]), "wo": t(attn["wo"][i])}
         if cfg.moe is not None:
-            lp["moe"] = layer(stack["moe"], i)
+            lp["moe"] = item(stack["moe"], i)
         else:
-            lp.update(layer(stack["mlp"], i))
+            lp.update(item(stack["mlp"], i))
         if cfg.qkv_bias:
             for name in ("bq", "bk", "bv"):
                 lp[name] = t(attn[name][i])
         layers.append(lp)
-    return {"embed": t(tree["embed"]), "layers": layers,
-            "final_norm": t(tree["final_norm"]["w"]),
-            "lm_head": fused_head_sampling.pad_head(t(tree["lm_head"]))}
+    out["layers"] = layers
+    return out
 
 
-CACHE_KEYS = ("k", "v", "k_center", "k_scale", "v_center", "v_scale")
+# cache leaves JAX keeps in f32: the BAOS calibration and the recurrent
+# states
+F32_CACHE = ("k_center", "k_scale", "v_center", "v_scale", "state",
+             "rec_state", "tail_state")
 
 
 def cache_from_numpy(tree: Mapping, cfg: ModelConfig,
                      device: Union[str, torch.device] = "cuda") -> Dict:
-    """A JAX dense-transformer KV cache (``init_cache`` layout: k, v
-    (n_layers, B, s_tot, Hkv, D) and the four BAOS calibration arrays
-    (n_layers, B, 1, Hkv, D)) -> the port's cache: k, v in ``cfg.dtype``,
-    the calibration in f32, on ``device``."""
+    """A JAX cache, as numpy arrays -> the port's, on ``device``, each leaf
+    in the dtype JAX's ``init_cache`` gives it (``F32_CACHE`` in f32, the
+    rest in ``cfg.dtype``).  Dense / moe: k, v (n_layers, B, s_tot, Hkv,
+    D) and the four calibration arrays (n_layers, B, 1, Hkv, D); ssm:
+    ``state`` and ``conv``; hybrid: k, v and the calibration over the
+    triples plus ``rec_state``, ``rec_conv``, ``tail_state`` and
+    ``tail_conv``."""
     if "k_act" in tree:
         raise NotImplementedError(
             "the split k_act/v_act cache layout is not ported yet "
             "(ROADMAP.md, Queue 1)")
     dev = device_lib.resolve(device)
     out = {}
-    for name in CACHE_KEYS:
-        dt = cfg.torch_dtype if name in ("k", "v") else torch.float32
-        out[name] = torch.from_numpy(
-            np.asarray(tree[name], dtype=np.float32)).to(device=dev, dtype=dt)
+    for name, a in tree.items():
+        dt = torch.float32 if name in F32_CACHE else cfg.torch_dtype
+        out[name] = torch.from_numpy(np.asarray(a, dtype=np.float32)).to(
+            device=dev, dtype=dt)
     return out
 
 

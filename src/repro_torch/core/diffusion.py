@@ -600,39 +600,57 @@ def _shared_megatick(model, dcfg, mask_id, k_max, jit_steps, threshold,
 # in, so the per-leaf lists below line up with the JAX package's.
 # ---------------------------------------------------------------------------
 
+def _leaf_shapes(model, batch: int, s_tot: int):
+    """The cache's keys in sorted order and their shapes, from
+    ``device="meta"`` tensors (nothing is allocated)."""
+    cache = model.init_cache(batch, s_tot, device="meta")
+    return sorted(cache), [tuple(cache[n].shape) for n in sorted(cache)]
+
+
+def _batch_axes(base, wider):
+    axes = []
+    for lb, lw in zip(base, wider):
+        ax = [i for i, (a, b) in enumerate(zip(lb, lw)) if a != b]
+        if len(ax) != 1:
+            raise ValueError(f"cannot locate the batch axis of cache leaf "
+                             f"with shape {lb}")
+        axes.append(ax[0])
+    return axes
+
+
+def cache_batch_axes(model, s_tot: int) -> Dict[str, int]:
+    """The batch axis of each leaf of ``model.init_cache``, probed as in
+    ``paged_cache_layout`` (axis 1 for a stacked KV leaf, 2 for the
+    hybrid's ``rec_state``/``rec_conv``)."""
+    names, base = _leaf_shapes(model, 2, s_tot)
+    return dict(zip(names, _batch_axes(base, _leaf_shapes(model, 3,
+                                                          s_tot)[1])))
+
+
 def paged_cache_layout(model, page_size: int, s_tot: int):
     """Probe ``model.init_cache``'s leaf layout for the paged pool.
 
     Returns ``(names, paged, batch_axis)``: the cache's keys in sorted
     order and, per key, whether the leaf carries a full sequence dimension
     (it then moves into a page store) and where its batch dimension lies
-    (per-slot leaves, the BAOS calibration, are spilled and restored along
-    it).  The probe builds ``device="meta"`` tensors, so no cache is
-    allocated.  Layouts whose sequence axis is not axis 2 (with batch at
-    axis 1) are rejected: the gather and scatter views assume (stack,
-    batch, seq, ...)."""
-    def shapes(batch, s):
-        cache = model.init_cache(batch, s, device="meta")
-        return sorted(cache), [tuple(cache[n].shape) for n in sorted(cache)]
-
-    names, base = shapes(2, s_tot)
-    _, grown = shapes(2, s_tot + page_size)
-    _, wider = shapes(3, s_tot)
-    paged, batch_axis = [], []
-    for lb, lg, lw in zip(base, grown, wider):
+    (per-slot leaves -- the BAOS calibration, the recurrent families'
+    states and conv rows, whose batch axis may be 2 -- are spilled and
+    restored along it).  The probe builds ``device="meta"`` tensors, so no
+    cache is allocated.  Layouts whose sequence axis is not axis 2 (with
+    batch at axis 1) are rejected: the gather and scatter views assume
+    (stack, batch, seq, ...)."""
+    names, base = _leaf_shapes(model, 2, s_tot)
+    _, grown = _leaf_shapes(model, 2, s_tot + page_size)
+    batch_axis = _batch_axes(base, _leaf_shapes(model, 3, s_tot)[1])
+    paged = []
+    for lb, lg, ax in zip(base, grown, batch_axis):
         seq_axes = [i for i, (a, b) in enumerate(zip(lb, lg)) if a != b]
-        bat_axes = [i for i, (a, b) in enumerate(zip(lb, lw)) if a != b]
-        if len(bat_axes) != 1:
-            raise ValueError(
-                f"paged pool: cannot locate the batch axis of cache leaf "
-                f"with shape {lb}")
-        if seq_axes and (seq_axes != [2] or bat_axes != [1]):
+        if seq_axes and (seq_axes != [2] or ax != 1):
             raise ValueError(
                 f"paged pool supports (stack, batch, seq, ...) cache "
                 f"leaves only; got shape {lb} with seq axes {seq_axes}, "
-                f"batch axes {bat_axes}")
+                f"batch axis {ax}")
         paged.append(bool(seq_axes))
-        batch_axis.append(bat_axes[0])
     return names, paged, batch_axis
 
 

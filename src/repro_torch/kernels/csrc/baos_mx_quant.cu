@@ -75,14 +75,18 @@ baos_mx_quant_kernel(const T* __restrict__ x, const float* __restrict__ c,
   const bool live = hd < HD;
   const int b = blockIdx.z, s0 = (blockIdx.y * GROUPS + g) * ROWS;
   const size_t cal = static_cast<size_t>(b) * HD + hd;
-  float cc[8], ff[8];
-  load8(c + cal, live ? 8 : 0, vec, cc);
-  load8(f + cal, live ? 8 : 0, vec, ff);
-  float v[ROWS][8];
+  // lanes past H * D and rows past S form no pointer and read nothing
+  // (as in stablemax_sampling.cu: a pointer past the end was read)
+  float cc[8] = {}, ff[8] = {};
+  if (live) {
+    load8(c + cal, 8, vec, cc);
+    load8(f + cal, 8, vec, ff);
+  }
+  float v[ROWS][8] = {};
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    const bool ok = live && s0 + r < S;
-    load8(x + b * x_sb + (s0 + r) * x_ss + hd, ok ? 8 : 0, vec, v[r]);
+    if (live && s0 + r < S)
+      load8(x + b * x_sb + (s0 + r) * x_ss + hd, 8, vec, v[r]);
   }
   float amax[ROWS];
 #pragma unroll

@@ -238,8 +238,17 @@ stablemax_kernel(const T* __restrict__ logits, const Args a) {
     int n[STEPS];
 #pragma unroll
     for (int u = 0; u < STEPS; ++u) {
-      n[u] = max(0, min(8, c_end - c0 - u * STEP_COLS));
-      load8(row + c0 + u * STEP_COLS, n[u], vec, z[u]);
+      // a step with no column forms no pointer: one past the logits' end
+      // was read as a 16-byte load, which faults where the logits end on
+      // a page ((512, 256000) bf16 ends on a 2 MiB boundary)
+      const int c = c0 + u * STEP_COLS;
+      n[u] = max(0, min(8, c_end - c));
+      if (n[u] > 0) {
+        load8(row + c, n[u], vec, z[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) z[u][j] = 0.f;
+      }
     }
     fake_quant_pass<T, FMT>(z);
 #pragma unroll

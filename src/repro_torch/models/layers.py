@@ -1,9 +1,11 @@
 """Transformer building blocks, ported from src/repro/models/layers.py:
 the MX quantization policy at the GEMM boundaries (``QuantPolicy``),
-GEMMs with f32 accumulation, RMSNorm, NeoX RoPE, SwiGLU, and bidirectional
-GQA attention with the BAOS fusion (kernels/flash_bidir.py on the card),
-plus the seeded
-parameter init with the JAX package's distributions."""
+GEMMs with f32 accumulation (and an optional bias), RMSNorm, NeoX RoPE,
+SwiGLU, GELU and softplus as JAX computes them, the recurrent families'
+causal conv and block-start captures (models/ssm.py, models/rglru.py),
+and bidirectional GQA attention with the BAOS fusion
+(kernels/flash_bidir.py on the card), plus the seeded parameter init with
+the JAX package's distributions."""
 from __future__ import annotations
 
 import dataclasses
@@ -66,6 +68,75 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0), with no linear
+    cut-off (``F.softplus`` switches to x past a threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def causal_conv(xc: torch.Tensor, w: torch.Tensor,
+                conv_state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv of width W = w.shape[0], without bias or
+    activation: xc (B, S, C), w (W, C), ``conv_state`` (B, W - 1, C) the
+    previous segment's trailing inputs (zeros when None).  The W products
+    are summed left to right, as JAX's ``sum`` does."""
+    W = w.shape[0]
+    if conv_state is None:
+        pad = torch.zeros((xc.shape[0], W - 1, xc.shape[2]), dtype=xc.dtype,
+                          device=xc.device)
+    else:
+        pad = conv_state.to(xc.dtype)
+    xp = torch.cat([pad, xc], dim=1)
+    S = xc.shape[1]
+    out = xp[:, 0:S] * w[0]
+    for i in range(1, W):
+        out = out + xp[:, i:i + S] * w[i]
+    return out
+
+
+def capture_rows(x: torch.Tensor, capture_at, n: int) -> torch.Tensor:
+    """The n rows of x (B, S, C) before position ``capture_at`` (an int or
+    a one-element device tensor): JAX's dynamic_slice from
+    max(capture_at - n, 0), zeros while capture_at < n."""
+    S = x.shape[1]
+    if isinstance(capture_at, torch.Tensor):
+        at = capture_at.reshape(()).to(torch.int64)
+        start = torch.clamp(at - n, 0, S - n)
+        got = x.index_select(1, start + torch.arange(n, device=x.device))
+        return torch.where(at >= n, got, torch.zeros_like(got))
+    if capture_at < n:
+        return torch.zeros_like(x[:, :n])
+    start = min(capture_at - n, S - n)
+    return x[:, start:start + n]
+
+
+def row_at(x: torch.Tensor, capture_at) -> torch.Tensor:
+    """Row max(capture_at - 1, 0) of x (B, S, ...), zeros while
+    capture_at < 1; ``capture_at`` an int or a one-element device tensor."""
+    if isinstance(capture_at, torch.Tensor):
+        at = capture_at.reshape(()).to(torch.int64)
+        idx = torch.clamp(at - 1, min=0).reshape(1)
+        got = x.index_select(1, idx)[:, 0]
+        return torch.where(at >= 1, got, torch.zeros_like(got))
+    if capture_at < 1:
+        return torch.zeros_like(x[:, 0])
+    return x[:, capture_at - 1]
+
+
+def check_head_mode(head_mode: str) -> None:
+    """The recurrent models run the legacy head only
+    (``supports_head_mode`` is False, as in JAX)."""
+    if head_mode != "logits":
+        raise ValueError(f"head_mode {head_mode!r}: this model returns "
+                         "logits only (supports_head_mode is False)")
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0

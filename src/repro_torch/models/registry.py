@@ -1,7 +1,10 @@
 """Model registry of the port: ``build_model(cfg, device)`` returns a model
 with the JAX package's contract (``cfg``, ``init``, ``init_cache``,
 ``forward``, ``supports_head_mode``) bound to one device.  Families dense
-and moe (models/transformer.FAMILIES)."""
+and moe (models/transformer.py), ssm (models/ssm.MambaModel) and hybrid
+(models/rglru.GriffinModel): ``FAMILIES``.  The others raise
+NotImplementedError naming ROADMAP.md; each model checks its own
+family's features."""
 from __future__ import annotations
 
 from typing import Dict, Union
@@ -11,6 +14,8 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.rglru import GriffinModel
+from repro_torch.models.ssm import MambaModel
 
 
 class TransformerModel:
@@ -39,7 +44,15 @@ class TransformerModel:
         return transformer.forward(params, self.cfg, tokens, **kw)
 
 
-def build_model(cfg: ModelConfig,
-                device: Union[str, torch.device] = "cuda"
-                ) -> TransformerModel:
-    return TransformerModel(cfg, device)
+_MODELS = {"dense": TransformerModel, "moe": TransformerModel,
+           "ssm": MambaModel, "hybrid": GriffinModel}
+FAMILIES = tuple(_MODELS)
+
+
+def build_model(cfg: ModelConfig, device: Union[str, torch.device] = "cuda"):
+    model = _MODELS.get(cfg.family)
+    if model is None:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet "
+            f"({transformer.ROADMAP}); the port runs {FAMILIES}")
+    return model(cfg, device)

@@ -1,0 +1,337 @@
+"""RecurrentGemma / Griffin hybrid: RG-LRU recurrent blocks + local
+attention, ported from src/repro/models/rglru.py.
+
+The layer pattern is (rec, rec, attn) repeated: 26 layers are 8 triples
+and 2 tail recurrent layers.  The attention layers follow the dense model
+(a windowed MQA KV cache, BAOS-smoothed: transformer.cache_attention, so
+flash_bidir and baos_mx_quant on the card); the recurrent layers follow
+the SSM model (a warm step captures each layer's RG-LRU hidden state at
+``capture_at - 1`` and its W - 1 pre-conv rows before ``capture_at``; a
+refine step replays the segment from them and leaves them as they are).
+
+``rglru_scan`` is JAX's ``lax.associative_scan``, recursion for recursion:
+O(log S) levels of strided even/odd slices, never a loop over positions,
+so the order of the f32 combines is XLA's.  JAX computes it outside any
+Pallas kernel, so it stays plain PyTorch.
+
+Parameters: ``embed``, ``triples`` (a list of ``{"rec1", "rec2",
+"attn"}``), ``tail`` (a list of 2), ``final_norm``, ``lm_head``; each
+sub-layer a dict ``ln1``, ``ln2``, ``temporal`` (rec: ``w_y``,
+``w_gate``, ``conv_w``, ``conv_b``, ``w_a``, ``b_a``, ``w_x``, ``b_x``,
+``lam`` f32, ``w_out``; attn: ``wq``, ``wk``, ``wv``, ``wo``) and
+``mlp`` (``w_gate``, ``w_up``, ``w_down``: GeGLU).  The cache: ``k``,
+``v`` (nt, B, s_tot, Hkv, D), the four BAOS calibration arrays
+(nt, B, 1, Hkv, D) f32, ``rec_state`` (nt, 2, B, d_rnn) f32 and
+``rec_conv`` (nt, 2, B, W - 1, d_rnn) (batch on axis 2), ``tail_state``
+(2, B, d_rnn) f32 and ``tail_conv`` (2, B, W - 1, d_rnn), written in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.core import baos as baos_lib
+from repro_torch.kernels import flash_bidir, fused_head_sampling
+from repro_torch.models import layers, transformer
+from repro_torch.models.config import ModelConfig
+
+RGLRU_C = 8.0
+ATTN_KEYS = ("k", "v", "k_center", "k_scale", "v_center", "v_scale")
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrence
+# ---------------------------------------------------------------------------
+
+def _combine(lhs, rhs):
+    a1, b1 = lhs
+    a2, b2 = rhs
+    return a2 * a1, a2 * b1 + b2
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """even[0], odd[0], even[1], ... along dim 1 (even one longer, or
+    the same length)."""
+    m = odd.shape[1]
+    out = torch.stack([even[:, :m], odd], dim=2).reshape(
+        (odd.shape[0], 2 * m) + odd.shape[2:])
+    if even.shape[1] > m:
+        out = torch.cat([out, even[:, m:]], dim=1)
+    return out
+
+
+def associative_scan(a: torch.Tensor, b: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of h -> a h + b along dim 1: ``jax.lax.
+    associative_scan`` with ``_combine``, the same recursion (pairs
+    combined, the half-length scan, the even positions filled in)."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd = associative_scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]),
+                                     (a[:, 1::2], b[:, 1::2])))
+    if n % 2 == 0:
+        odd_head = (odd[0][:, :-1], odd[1][:, :-1])
+    else:
+        odd_head = odd
+    ea, eb = _combine(odd_head, (a[:, 2::2], b[:, 2::2]))
+    ea = torch.cat([a[:, :1], ea], dim=1)
+    eb = torch.cat([b[:, :1], eb], dim=1)
+    return _interleave(ea, odd[0]), _interleave(eb, odd[1])
+
+
+def rglru_scan(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
+               lam: torch.Tensor, h0: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """x, r, i (B, S, D); lam (D,) the learnable Λ.
+    h_t = a_t h_(t-1) + sqrt(1 - a_t^2) (i_t ⊙ x_t),
+    a_t = exp(-c softplus(Λ) r_t).  Returns h (B, S, D) f32."""
+    f32 = torch.float32
+    log_a = -RGLRU_C * layers.softplus(lam)[None, None, :] * r.to(f32)
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0)) * \
+        (i.to(f32) * x.to(f32))
+    sa, sb = associative_scan(a, b)
+    if h0 is None:
+        return sb
+    return sb + sa * h0[:, None, :].to(f32)
+
+
+def rglru_ref(x, r, i, lam, h0=None) -> torch.Tensor:
+    """Sequential recurrence, one position at a time (the tests' oracle;
+    never on a path)."""
+    log_a = -RGLRU_C * layers.softplus(lam)[None, :]
+    B, S, D = x.shape
+    h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.to(torch.float32))
+    hs = []
+    for t in range(S):
+        a = torch.exp(log_a * r[:, t].to(torch.float32))
+        h = a * h + torch.sqrt(torch.clamp(1 - a * a, min=0)) * \
+            (i[:, t] * x[:, t]).to(torch.float32)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def rec_block(x: torch.Tensor, p: Dict, cfg: ModelConfig, h0=None,
+              conv_state=None, capture_at=None):
+    """Griffin's recurrent temporal block on its normed input x
+    (B, S, d_model).  Returns (y, h at capture_at - 1 (B, d_rnn) f32 or
+    None, the W - 1 pre-conv rows before capture_at or None)."""
+    W = cfg.conv_width
+    y = layers.qdot(x, p["w_y"])
+    gate = layers.gelu(layers.qdot(x, p["w_gate"]))
+    conv_cap = (None if capture_at is None
+                else layers.capture_rows(y, capture_at, W - 1))
+    y = layers.causal_conv(y, p["conv_w"], conv_state) + p["conv_b"]
+    r = torch.sigmoid(layers.qdot(y, p["w_a"], None, p["b_a"]))
+    i = torch.sigmoid(layers.qdot(y, p["w_x"], None, p["b_x"]))
+    h = rglru_scan(y, r, i, p["lam"], h0)
+    h_cap = None if capture_at is None else layers.row_at(h, capture_at)
+    out = layers.qdot(h.to(x.dtype) * gate, p["w_out"])
+    return out, h_cap, conv_cap
+
+
+def geglu_mlp(x: torch.Tensor, p: Dict) -> torch.Tensor:
+    h = layers.gelu(layers.qdot(x, p["w_gate"])) * layers.qdot(x, p["w_up"])
+    return layers.qdot(h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+class GriffinModel:
+    """The Griffin stack on one device: ``n_layers // 3`` (rec, rec, attn)
+    triples and 2 tail rec layers, with the transformer's forward contract
+    (``cfg``, ``init``, ``init_cache``, ``forward``)."""
+
+    supports_head_mode = False
+
+    def __init__(self, cfg: ModelConfig,
+                 device: Union[str, torch.device] = "cuda"):
+        if cfg.family != "hybrid":
+            raise ValueError(f"GriffinModel runs family 'hybrid', not "
+                             f"{cfg.family!r}")
+        if cfg.norm != "rms" or cfg.ffn != "geglu" or \
+                cfg.attn_mode != "bidir":
+            raise NotImplementedError(
+                f"hybrid: norm={cfg.norm!r}, ffn={cfg.ffn!r}, attn_mode="
+                f"{cfg.attn_mode!r} are not ported yet "
+                f"({transformer.ROADMAP}); the port runs rms / geglu / bidir")
+        flash_bidir.check_head_dim(cfg.d_head)
+        if cfg.n_layers % 3 != 2:
+            raise ValueError(
+                f"expect 3k+2 layers (rec,rec,attn)*k + 2; "
+                f"got n_layers={cfg.n_layers}")
+        self.cfg = cfg
+        self.n_triples = cfg.n_layers // 3
+        self.device = device_lib.resolve(device)
+
+    # -- params ------------------------------------------------------------
+    def init(self, seed: int = 0) -> Dict:
+        """Seeded parameters with the JAX package's distributions (torch's
+        draws; for parity convert JAX's with ``bridge``)."""
+        cfg, dev = self.cfg, self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        dt, f32 = cfg.torch_dtype, torch.float32
+        d, dr = cfg.d_model, cfg.d_rnn
+        hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+
+        def dense(d_in, d_out):
+            return layers.dense_init(gen, d_in, d_out, dt, dev)
+
+        def vec(n, fill, dtype=dt):
+            return torch.full((n,), fill, dtype=dtype, device=dev)
+
+        def sub(kind):
+            if kind == "rec":
+                conv_w = torch.randn((cfg.conv_width, dr), generator=gen,
+                                     dtype=f32, device=dev) * 0.1
+                temporal = {"w_y": dense(d, dr), "w_gate": dense(d, dr),
+                            "conv_w": conv_w.to(dt), "conv_b": vec(dr, 0.0),
+                            "w_a": dense(dr, dr), "b_a": vec(dr, 0.0),
+                            "w_x": dense(dr, dr), "b_x": vec(dr, 0.0),
+                            "lam": vec(dr, 0.7, f32), "w_out": dense(dr, d)}
+            else:
+                temporal = {"wq": dense(d, hq), "wk": dense(d, hkv),
+                            "wv": dense(d, hkv), "wo": dense(hq, d)}
+            return {"ln1": vec(d, 1.0), "ln2": vec(d, 1.0),
+                    "temporal": temporal,
+                    "mlp": {"w_gate": dense(d, cfg.d_ff),
+                            "w_up": dense(d, cfg.d_ff),
+                            "w_down": dense(cfg.d_ff, d)}}
+
+        return {"embed": layers.embed_init(gen, cfg.vocab, d, dt, dev),
+                "triples": [{"rec1": sub("rec"), "rec2": sub("rec"),
+                             "attn": sub("attn")}
+                            for _ in range(self.n_triples)],
+                "tail": [sub("rec") for _ in range(2)],
+                "final_norm": vec(d, 1.0),
+                "lm_head": fused_head_sampling.pad_head(
+                    dense(d, cfg.vocab))}
+
+    # -- cache ---------------------------------------------------------------
+    def init_cache(self, batch: int, s_tot: int,
+                   device: Union[str, torch.device, None] = None) -> Dict:
+        """Zeroed K/V, identity calibration, zeroed recurrent states and
+        conv rows, with JAX's shapes and dtypes; ``device="meta"`` gives
+        shapes and dtypes without allocating."""
+        cfg = self.cfg
+        dev = self.device if device is None else device
+        nt, dt, f32 = self.n_triples, cfg.torch_dtype, torch.float32
+        kv = (nt, batch, s_tot, cfg.n_kv_heads, cfg.d_head)
+        cal = (nt, batch, 1, cfg.n_kv_heads, cfg.d_head)
+        W1, dr = cfg.conv_width - 1, cfg.d_rnn
+
+        def full(shape, fill, dtype):
+            return torch.full(shape, fill, dtype=dtype, device=dev)
+
+        return {"k": full(kv, 0.0, dt), "v": full(kv, 0.0, dt),
+                "k_center": full(cal, 0.0, f32),
+                "k_scale": full(cal, 1.0, f32),
+                "v_center": full(cal, 0.0, f32),
+                "v_scale": full(cal, 1.0, f32),
+                "rec_state": full((nt, 2, batch, dr), 0.0, f32),
+                "rec_conv": full((nt, 2, batch, W1, dr), 0.0, dt),
+                "tail_state": full((2, batch, dr), 0.0, f32),
+                "tail_conv": full((2, batch, W1, dr), 0.0, dt)}
+
+    # -- forward -------------------------------------------------------------
+    def _rec_sub(self, x, p, h0=None, conv=None, capture_at=None):
+        cfg = self.cfg
+        y, hc, cc = rec_block(transformer.apply_norm(x, p["ln1"], cfg),
+                              p["temporal"], cfg, h0, conv, capture_at)
+        x = x + y
+        x = x + geglu_mlp(transformer.apply_norm(x, p["ln2"], cfg), p["mlp"])
+        return x, hc, cc
+
+    def _attn_sub(self, x, p, lcache, *, seg_start, positions, kv_valid,
+                  baos_cfg, calibrate, calib_mask):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        h = transformer.apply_norm(x, p["ln1"], cfg)
+        q, k, v = transformer.qkv(h, p["temporal"], cfg, positions)
+        if lcache is None:
+            # no cache: every position is valid and kv_valid is ignored,
+            # as in JAX
+            attn = layers.attention(q, k, v, window=cfg.window)
+        else:
+            attn = transformer.cache_attention(
+                q, k, v, lcache, seg_start, kv_valid, cfg, baos_cfg,
+                calibrate, calib_mask)
+        x = x + layers.qdot(attn.reshape(B, S, cfg.n_heads * cfg.d_head),
+                            p["temporal"]["wo"])
+        return x + geglu_mlp(transformer.apply_norm(x, p["ln2"], cfg),
+                             p["mlp"])
+
+    def forward(self, params: Dict, tokens: torch.Tensor, *,
+                cache: Optional[Dict] = None, seg_start=0,
+                kv_valid: Optional[torch.Tensor] = None,
+                baos_cfg: Optional[baos_lib.BAOSConfig] = None,
+                calibrate: bool = False,
+                calib_mask: Optional[torch.Tensor] = None,
+                logits_slice=None, head_mode: str = "logits", quant=None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+        """tokens (B, S) at positions seg_start + r -> (logits (B, S', V),
+        the cache).  Without a cache a full forward (attention over every
+        position, ``kv_valid`` ignored).  With one and ``calibrate``, the
+        warm step: the attention layers write their K/V (and with BAOS the
+        calibration) as the dense model does, the recurrent layers their
+        state and conv rows captured at ``logits_slice[0]`` (0 without a
+        slice).  With one and no ``calibrate``, a refine step: K/V written
+        at ``seg_start``, the recurrent layers replayed from the cache.
+        ``quant`` reaches only the LM head product, as in JAX."""
+        layers.check_head_mode(head_mode)
+        cfg = self.cfg
+        baos_cfg = baos_cfg or baos_lib.BAOSConfig(enabled=False)
+        B, S = tokens.shape
+        if cache is not None:
+            s_tot = cache["k"].shape[2]
+            if not isinstance(seg_start, torch.Tensor) and \
+                    not 0 <= seg_start <= s_tot - S:
+                raise ValueError(f"segment [{seg_start}, {seg_start + S}) "
+                                 f"does not fit a {s_tot}-long cache")
+        x = transformer.embed(params, cfg, tokens)
+        positions = transformer.start_of(seg_start) + torch.arange(
+            S, device=x.device)
+        warm = calibrate and cache is not None
+        capture_at = (logits_slice[0] if warm and logits_slice is not None
+                      else 0)
+        attn_kw = dict(seg_start=seg_start, positions=positions,
+                       kv_valid=kv_valid, baos_cfg=baos_cfg,
+                       calibrate=calibrate, calib_mask=calib_mask)
+
+        def rec(x, p, state, conv):
+            """One rec sub-layer; ``state``/``conv`` its cache views."""
+            if cache is None:
+                return self._rec_sub(x, p)[0]
+            if not warm:
+                return self._rec_sub(x, p, state, conv)[0]
+            x, hc, cc = self._rec_sub(x, p, capture_at=capture_at)
+            state.copy_(hc)
+            conv.copy_(cc)
+            return x
+
+        for t, tp in enumerate(params["triples"]):
+            for j, name in enumerate(("rec1", "rec2")):
+                x = rec(x, tp[name],
+                        *((None, None) if cache is None else
+                          (cache["rec_state"][t, j], cache["rec_conv"][t, j])))
+            lcache = (None if cache is None else
+                      {name: cache[name][t] for name in ATTN_KEYS})
+            x = self._attn_sub(x, tp["attn"], lcache, **attn_kw)
+        for j, tp in enumerate(params["tail"]):
+            x = rec(x, tp,
+                    *((None, None) if cache is None else
+                      (cache["tail_state"][j], cache["tail_conv"][j])))
+        x = transformer.apply_norm(x, params["final_norm"], cfg)
+        if logits_slice is not None:
+            x = transformer.rows(x, *logits_slice)
+        return transformer.head_logits(x, params, cfg, quant), cache

@@ -1,5 +1,7 @@
 """dLLM transformer, dense or MoE, ported from
-src/repro/models/transformer.py.
+src/repro/models/transformer.py, and the helpers the recurrent families
+share with it (``embed``, ``apply_norm``, ``cache_attention``,
+``head_logits``, ``rows``).
 
 Parameters are plain dicts: ``embed`` (V, d), ``layers`` (a list of
 per-layer dicts ``ln1, ln2, wq, wk, wv, wo, [bq, bk, bv]`` and the FFN:
@@ -46,15 +48,19 @@ ROADMAP = "ROADMAP.md, Queue 1"
 SegStart = Union[int, torch.Tensor]
 
 
+# this module's stacks (models/registry.py maps every family to its model)
 FAMILIES = ("dense", "moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for model features the port lacks."""
+    """Raise for a dense or MoE config's features the port lacks: a norm
+    other than RMSNorm, an FFN other than SwiGLU, causal attention, a head
+    dim flash_bidir does not take.  A config of another family is not this
+    module's stack (ValueError)."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet ({ROADMAP}); "
-            f"the port runs {FAMILIES}")
+        raise ValueError(f"family {cfg.family!r} is not a transformer stack "
+                         f"{FAMILIES}: build it with "
+                         f"models/registry.build_model")
     if (cfg.family == "moe") != (cfg.moe is not None):
         raise ValueError(f"family {cfg.family!r} with moe={cfg.moe!r}")
     if cfg.norm != "rms" or cfg.ffn != "swiglu" or cfg.attn_mode != "bidir":
@@ -63,6 +69,13 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.attn_mode!r} are not ported yet ({ROADMAP}); the port "
             "runs rms / swiglu / bidir")
     flash_bidir.check_head_dim(cfg.d_head)
+
+
+def apply_norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """The config's norm (RMSNorm: ``check_supported`` refuses LayerNorm),
+    JAX's ``_apply_norm``."""
+    return layers.rms_norm(x, w, cfg.norm_eps)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -157,18 +170,23 @@ def ffn(h: torch.Tensor, lp: Dict, cfg: ModelConfig, quant=None
                        lp["w_down"], quant)
 
 
-def _cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
-                     cfg: ModelConfig, baos_cfg: baos_lib.BAOSConfig,
-                     calibrate: bool, calib_mask):
-    """The cached branch of a layer: (re)calibrate or read the stored
-    calibration, write the segment's K/V into the cache at ``seg_start``
-    (through the BAOS kernel when enabled), attend over the whole cache.
-    The calibration is computed only with BAOS on: nothing reads it
-    otherwise (the JAX forward computes and stores it either way).  A
-    tensor ``seg_start`` scatters the segment (a graph's block start); the
-    window's query offset is then unknown to the host, so a windowed
-    model refuses it."""
+def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
+                    cfg: ModelConfig, baos_cfg: baos_lib.BAOSConfig,
+                    calibrate: bool, calib_mask):
+    """The cached branch of an attention layer (this module's and
+    models/rglru.py's): (re)calibrate or read the stored calibration,
+    write the segment's K/V into the cache at ``seg_start`` (through the
+    BAOS kernel when enabled), attend over the whole cache.  The
+    calibration is computed only with BAOS on: nothing reads it otherwise
+    (the JAX forward computes and stores it either way).  A window no
+    shorter than the cache masks nothing (|q - k| < s_tot <= window) and
+    is dropped.  A tensor ``seg_start`` scatters the segment (a graph's
+    block start); the window's query offset is then unknown to the host,
+    so a shorter window refuses it."""
     S = k.shape[1]
+    window = cfg.window
+    if window is not None and window >= lcache["k"].shape[1]:
+        window = None
     calib = None
     if baos_cfg.enabled:
         if calibrate:
@@ -179,10 +197,11 @@ def _cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
                                      baos_lib.BAOSCalib._fields))
     on_device = isinstance(seg_start, torch.Tensor)
     if on_device:
-        if cfg.window is not None:
+        if window is not None:
             raise NotImplementedError(
                 f"a windowed model's cached step with a device block start "
-                f"is not ported yet ({ROADMAP})")
+                f"and a cache longer than the window is not ported yet "
+                f"({ROADMAP})")
         idx = seg_start.reshape(()).to(torch.int64) + torch.arange(
             S, device=k.device)
     for name, x, center, scale in (
@@ -200,7 +219,7 @@ def _cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
                 out=lcache[name][:, seg_start:seg_start + S])
     # the query offset places the window; without one it is unused
     return layers.attention(q, lcache["k"], lcache["v"], kv_valid,
-                            window=cfg.window, baos_calib=calib,
+                            window=window, baos_calib=calib,
                             q_offset=0 if on_device else seg_start)
 
 
@@ -236,7 +255,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             raise ValueError(f"segment [{seg_start}, {seg_start + S}) does "
                              f"not fit a {s_tot}-long cache")
     x = embed(params, cfg, tokens)
-    positions = _start(seg_start) + torch.arange(S, device=x.device)
+    positions = start_of(seg_start) + torch.arange(S, device=x.device)
     Hq, D = cfg.n_heads, cfg.d_head
     for i, lp in enumerate(params["layers"]):
         h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -245,7 +264,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             attn = layers.attention(q, k, v, window=cfg.window)
         else:
             lcache = {name: t[i] for name, t in cache.items()}
-            attn = _cache_attention(q, k, v, lcache, seg_start, kv_valid,
+            attn = cache_attention(q, k, v, lcache, seg_start, kv_valid,
                                     cfg, baos_cfg, calibrate, calib_mask)
         x = x + layers.qdot(attn.reshape(B, S, Hq * D), lp["wo"], quant) * \
             cfg.residual_scale
@@ -253,18 +272,31 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         x = x + ffn(h2, lp, cfg, quant) * cfg.residual_scale
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_slice is not None:
-        start, length = logits_slice
-        if isinstance(start, torch.Tensor):
-            x = x.index_select(1, _start(start) + torch.arange(
-                length, device=x.device))
-        else:
-            x = x[:, start:start + length]
+        x = rows(x, *logits_slice)
     if head_mode == "hidden":
         return x, cache
-    return layers.qdot(x, params["lm_head"], quant) * cfg.logit_scale, cache
+    return head_logits(x, params, cfg, quant), cache
 
 
-def _start(seg_start: SegStart):
+def head_logits(x: torch.Tensor, params: Dict, cfg: ModelConfig, quant=None
+                ) -> torch.Tensor:
+    """The LM head product (B, S', V), times ``logit_scale`` (skipped at
+    1.0, which leaves every value as it is)."""
+    logits = layers.qdot(x, params["lm_head"], quant)
+    return logits if cfg.logit_scale == 1.0 else logits * cfg.logit_scale
+
+
+def rows(x: torch.Tensor, start: SegStart, length: int) -> torch.Tensor:
+    """x[:, start:start + length] for an int ``start``; for a one-element
+    device tensor the same rows through ``index_select`` (what a captured
+    graph reads from memory)."""
+    if isinstance(start, torch.Tensor):
+        return x.index_select(1, start_of(start) + torch.arange(
+            length, device=x.device))
+    return x[:, start:start + length]
+
+
+def start_of(seg_start: SegStart):
     """A segment start as an int, or a one-element device tensor as an
     int64 scalar tensor."""
     if isinstance(seg_start, torch.Tensor):

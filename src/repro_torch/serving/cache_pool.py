@@ -40,9 +40,11 @@ from repro_torch.core import diffusion
 class CachePool:
     """Fixed pool of KV cache slots, acquired/released as requests come and go.
 
-    The cache tensors are laid out (n_layers, num_slots, max_seq_len, ...):
-    slot i owns batch row i.  A warm tick rewrites the whole pool's K/V in
-    place (models/transformer.py), so :meth:`update` only rebinds.
+    Slot i owns batch row i of every cache leaf, along the leaf's own
+    batch axis (axis 1 of the stacked KV, (n_layers, num_slots,
+    max_seq_len, ...); axis 2 of the hybrid's ``rec_state``/``rec_conv``).
+    A warm tick rewrites the whole pool's cache in place (the models'
+    forward), so :meth:`update` only rebinds.
     """
 
     def __init__(self, model, num_slots: int, max_seq_len: int,
@@ -51,6 +53,8 @@ class CachePool:
         self.max_seq_len = max_seq_len
         self.cache: Optional[Dict] = (
             model.init_cache(num_slots, max_seq_len) if with_cache else None)
+        self._batch_axes = (diffusion.cache_batch_axes(model, max_seq_len)
+                            if with_cache else {})
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
         self.acquires = 0
         self.releases = 0
@@ -75,15 +79,17 @@ class CachePool:
         return slot
 
     def release(self, slot: int, zero: bool = False) -> None:
-        """Free ``slot``; with ``zero`` its row of every cache tensor is
-        zeroed, as the JAX pool does."""
+        """Free ``slot``; with ``zero`` its row of every cache leaf is
+        zeroed, along the leaf's batch axis (JAX's pool zeroes ``[:, slot]``
+        of every leaf, the wrong axis for the hybrid's recurrent state;
+        no engine path releases with ``zero``)."""
         if slot in self._free:
             raise ValueError(f"slot {slot} double-released")
         self._free.append(slot)
         self.releases += 1
         if zero and self.cache is not None:
-            for t in self.cache.values():
-                t[:, slot].zero_()
+            for name, t in self.cache.items():
+                t.select(self._batch_axes[name], slot).zero_()
 
     def update(self, new_cache) -> None:
         """Store the cache returned by a warm tick."""

@@ -19,8 +19,9 @@ Tick modes:
 ``submit(request, on_commit=cb)`` registers a per-request commit callback:
 every tick the engine diffs the request's row against its host-tracked mask
 state and hands the callback a :class:`CommitEvent` with the positions and
-tokens that committed on that tick.  ``cancel(uid, reason)`` removes a
-still-queued request.  The mesh is not ported yet (ROADMAP.md).
+tokens that committed on that tick, once the tick's obs hooks have run.
+``cancel(uid, reason)`` removes a still-queued request.  The mesh is not
+ported yet (ROADMAP.md).
 
 ``EngineConfig.obs`` takes a ``repro_torch.obs.ServingObs``: the JAX
 engine's hooks at the same places (request lifecycle counters and
@@ -297,6 +298,9 @@ class ServingEngine:
         self.now = 0.0                      # engine clock (seconds)
         self.ticks_total = 0
         self._commit_cbs: Dict[int, Callable[[CommitEvent], None]] = {}
+        # a tick's CommitEvents, handed to their callbacks once the tick's
+        # counters are recorded (``_deliver``)
+        self._outbox: List[Tuple[Callable, CommitEvent]] = []
         # canvas fetches (and, with megatick, per-tick result syncs)
         # skipped because no streaming sink needed them, counted as JAX
         # counts them; host_waits counts the host's waits that drain the
@@ -931,6 +935,7 @@ class ServingEngine:
             self._obs_committed(committed)
             self.obs.tick(stages, dt, self.active_slots, len(self.queue),
                           t_start_us=t_enter * 1e6)
+        self._deliver()
         return True
 
     def _obs_committed(self, committed: int) -> None:
@@ -1008,14 +1013,22 @@ class ServingEngine:
             s.last_conf = conf
             s.block_masks_left = masks_left
         if cb is not None:
-            cb(CommitEvent(
+            self._outbox.append((cb, CommitEvent(
                 uid=uid, tick=self.ticks_total, now=self.now,
                 block_idx=block_idx, step_in_block=step_in_block,
                 positions=positions, tokens=tokens, masks_left=masks_left,
-                done=done, final_tokens=final))
+                done=done, final_tokens=final)))
             if done:
                 del self._commit_cbs[uid]
         return committed
+
+    def _deliver(self) -> None:
+        """Hand the tick's CommitEvents to their callbacks, in order.  It
+        runs after the obs hooks, so a client that sees its request's last
+        commit and then scrapes ``/metrics`` finds the tick counted."""
+        out, self._outbox = self._outbox, []
+        for cb, ev in out:
+            cb(ev)
 
     # -- device-resident megatick -------------------------------------------
 
@@ -1146,6 +1159,7 @@ class ServingEngine:
                 self.obs.tick(per_tick, dt / n, active_counts[j], queued,
                               t_start_us=(t_enter + j * (dt / n)) * 1e6)
             self.obs.megastep(n, k_req, dt, t_start_us=t_enter * 1e6)
+        self._deliver()
         return True
 
     def run(self, requests: Optional[Sequence[Request]] = None

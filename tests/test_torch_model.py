@@ -164,14 +164,15 @@ def test_seeded_init_shapes_and_scales():
 
 def test_unported_features_raise():
     """Features still unported raise NotImplementedError pointing at the
-    ROADMAP: model families other than dense and MoE (here ssm; MoE is
-    tests/test_torch_moe.py) and the split k_act/v_act cache.  The
+    ROADMAP: model families the port does not run (here audio; MoE is
+    tests/test_torch_moe.py, ssm and hybrid tests/test_torch_ssm.py and
+    tests/test_torch_rglru.py) and the split k_act/v_act cache.  The
     QuantPolicy is ported: forward(quant=...) gives JAX's logits (its
     parity in full is tests/test_torch_quant.py)."""
     cfg = tbase.get_config("llada-8b", smoke=True)
-    ssm = tbase.ModelConfig(**{**cfg.__dict__, "family": "ssm"})
+    audio = tbase.ModelConfig(**{**cfg.__dict__, "family": "audio"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(ssm, "cpu")
+        tbuild(audio, "cpu")
     split = dict(ttr.init_cache(cfg, 1, 16, "cpu"), k_act=None, v_act=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttr.forward({}, cfg, torch.zeros(1, 8, dtype=torch.int32),

@@ -405,14 +405,14 @@ def test_serve_command_on_an_moe_arch(capsys):
 
 
 def test_moe_is_a_ported_family():
-    """build_model builds every MoE config; the other families stay
-    unported."""
+    """build_model builds every MoE config; the families the port does not
+    run (here vlm) raise."""
     for arch in MOE:
         assert tbuild(tbase.get_config(arch), "cpu").cfg.family == "moe"
-    ssm = dataclasses.replace(tbase.get_config("llada-8b", smoke=True),
-                              family="ssm")
+    vlm = dataclasses.replace(tbase.get_config("llada-8b", smoke=True),
+                              family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(ssm, "cpu")
+        tbuild(vlm, "cpu")
     with pytest.raises(ValueError):
         ttr.check_supported(dataclasses.replace(
             tbase.get_config("llada-moe-7b-a1b", smoke=True), moe=None))

@@ -219,8 +219,8 @@ def test_modeled_tick_stages_equal(arch, paged, megatick_k):
 
 
 def test_analytical_model_rejects_uncovered_family():
-    cfg = dataclasses.replace(tbase.get_config("llada-8b"), family="ssm")
-    with pytest.raises(NotImplementedError, match="ssm"):
+    cfg = dataclasses.replace(tbase.get_config("llada-8b"), family="audio")
+    with pytest.raises(NotImplementedError, match="audio"):
         tdrift.modeled_tick_stages(cfg, tdiff.DiffusionConfig(), batch=1,
                                    prompt_len=8)
 
