@@ -33,6 +33,11 @@ Phases, each fatal on failure:
                (R 3) against plain and the f32 route, flash_bidir at
                D 256 (10 q heads on 1 KV head, window 2048, kv_valid,
                BAOS), D 16 and D 96, each with its time and bound;
+               the shapes phase 9 first gives: flash_bidir's whisper
+               cross-attention (4, 96, 16, 64) on (4, 1500, 16, 64) and
+               encoder self-attention (4, 1500, 16, 64), no mask, against
+               SDPA; stablemax_sampling at (64, 51865) and (64, 92553)
+               bf16 (rows not 16-byte aligned) against softmax + max;
   3. e2e    -- llada-8b at full width (32 layers, d 4096, bf16, seeded
                random weights): one-slot generate in cache mode none,
                stepped through tick_forward and tick_sample, and in modes
@@ -160,8 +165,21 @@ Phases, each fatal on failure:
                stablemax_sampling at (1024, V) and (64, V) against plain,
                its bound and softmax + max, and the legacy head product
                against its bound (which must show device time).
+  9. audio, vlm -- the last two families, one model at a time, on the
+               legacy head, in a process of its own (phase_audio_vlm;
+               budget PHASE9_BUDGET_S):
+               whisper-medium at full width and depth with the cross K/V
+               of seeded frames (4, 1500, 1024) through generate (none
+               stepped, dual and prefix + BAOS), the engine's warm, none
+               and warm + BAOS eager and graphed K=1 (the paged pool and
+               the megatick must refuse the kwargs), breakdown and the
+               serve CLI; internvl2-26b at full width (24 of its 48
+               layers, a depth cut for the script's time limit) with
+               image embeddings through generate (prompts 288, gen 64) and
+               the engine text-only (warm and none, eager, K=1, K=8; paged
+               warm K=1).
 Every path's launch counts are zeroed just before it and read just after;
-the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 7 and 8.
+the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 7, 8 and 9.
 Prints the run's time, the kernels JSON line, the card's name and power
 limit, and last the {"ok": true, ...} line.  Exits non-zero without a
 result when there is no CUDA device or the port is not beside this
@@ -483,7 +501,33 @@ def phase_kernels(gen) -> dict:
         bound_ms=b_ms, bound_by=b_by)
     out["baos_mx_quant"] = check_baos(gen)
     out["stablemax_sampling"] = check_stablemax(gen)
+    check_audio_vlm_shapes(gen)
     return out
+
+
+def check_audio_vlm_shapes(gen) -> None:
+    """The shapes phase 9's models first give two kernels, each against
+    its plain version with its bound and its library call: flash_bidir's
+    cross-attention (4, 96, 16 heads of D 64) on 1,500 encoder frames with
+    no mask and the encoder's self-attention (4, 1500, 16, 64), both
+    whisper-medium's (24 calls a forward each); stablemax_sampling at
+    (64, 51865) and (64, 92553) bf16 (whisper-medium's and internvl2-26b's
+    legacy heads), rows that are not 16-byte aligned (the scalar route)."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen,
+                           device=DEVICE).to(torch.bfloat16)
+
+    frames_kv = rand(4, 1500, 16, 64), rand(4, 1500, 16, 64)
+    attn_row(rand(4, 96, 16, 64), *frames_kv, None,
+             "whisper-medium cross-attention flash_bidir (4, 96, 16, 64) on "
+             "(4, 1500, 16, 64), no mask", 24)
+    attn_row(rand(4, 1500, 16, 64), *frames_kv, None,
+             "whisper-medium encoder flash_bidir (4, 1500, 16, 64) on "
+             "itself, no mask", 24)
+    for name, V in (("whisper-medium", 51865), ("internvl2-26b", 92553)):
+        zl = rand(64, V) * 3
+        require(zl.stride(0) * 2 % 16 != 0, f"(64, {V}) rows are aligned")
+        stablemax_row(zl, V - 1, name)
 
 
 def check_head_ragged(gen) -> None:
@@ -1025,13 +1069,19 @@ def check_step_sampling(model, params, feats, dcfg, m_idx, k, totals):
                           cfg.mask_id, m_idx, k, totals, cfg.logit_scale)
 
 
-def phase_e2e(model, params, gen) -> None:
+def phase_e2e(model, params, gen, fwd_kw=None, prompt_len: int = 16,
+              gen_len: int = 32) -> None:
+    """One-slot generate in mode none, stepped through tick_forward and
+    tick_sample with each step's sampling held against plain; then
+    generate(megatick_k=4), equal to it, or with forward kwargs
+    (``fwd_kw``: cross_kv, image_embeds of batch 1) its refusal."""
     from repro_torch.core import diffusion
     cfg = model.cfg
-    dcfg = diffusion.DiffusionConfig(gen_length=32, block_length=16,
+    fwd_kw = fwd_kw or {}
+    dcfg = diffusion.DiffusionConfig(gen_length=gen_len, block_length=16,
                                      steps_per_block=8)
-    prompt = torch.randint(0, cfg.vocab - 200, (1, 16), generator=gen,
-                           device=DEVICE)
+    prompt = torch.randint(0, cfg.vocab - 200, (1, prompt_len),
+                           generator=gen, device=DEVICE)
     state = diffusion.init_state(model, prompt, dcfg, seed=7)
     L, mid = dcfg.block_length, cfg.mask_id
     totals = [0, 0, 0]
@@ -1039,7 +1089,7 @@ def phase_e2e(model, params, gen) -> None:
     while not state.done:
         x, bs = state.x, state.block_start
         feats, _ = diffusion.tick_forward(model, params, x, None, None, None,
-                                          dcfg)
+                                          dcfg, **fwd_kw)
         k = state.ks[:, state.step_in_block].to(DEVICE)
         tr_k, tok_k = check_step_sampling(model, params, feats[0, bs:bs + L],
                                           dcfg, x[:, bs:bs + L] == mid, k,
@@ -1058,6 +1108,16 @@ def phase_e2e(model, params, gen) -> None:
         f"plain {totals[1]}/{totals[0]}, of which near-ties {totals[2]}")
     require(totals[1] == totals[2],
             "e2e: a sampled token differs off a near-tie")
+    if fwd_kw:
+        try:
+            diffusion.generate(model, params, prompt, dcfg, seed=7,
+                               megatick_k=4, **fwd_kw)
+        except ValueError as e:
+            log(f"e2e {cfg.name} generate(megatick_k=4) with "
+                f"{sorted(fwd_kw)} refused, as in JAX: {e}")
+            return
+        raise Failure(f"e2e {cfg.name}: generate(megatick_k=4) took "
+                      f"{sorted(fwd_kw)}")
     t0 = time.perf_counter()
     out = diffusion.generate(model, params, prompt, dcfg, seed=7,
                              megatick_k=4)
@@ -1268,9 +1328,11 @@ def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
 
 # depth cuts that keep the whole script inside its time limit (about
 # 1,000 s of 1,200 without them): llada-8b's QuantPolicy Table 6 run (~75
-# s at full depth; its other runs stay at full depth) and
-# moonshot-v1-16b-a3b in phase 7
-DEPTH_CUTS = {"llada-8b": 16, "moonshot-v1-16b-a3b": 24}
+# s at full depth; its other runs stay at full depth), moonshot-v1-16b-a3b
+# in phase 7 and internvl2-26b in phase 9 (~80 s at full depth, over the
+# phase's budget)
+DEPTH_CUTS = {"llada-8b": 16, "moonshot-v1-16b-a3b": 24,
+              "internvl2-26b": 24}
 
 
 def cut_depth(cfg, n_layers: int, why: str = "for the script's time limit"):
@@ -1479,25 +1541,28 @@ def expect_launches(counts, expected, what):
                             f"path that does not run it")
 
 
-def phase_cached(model, params, gen, cache_mode) -> dict:
+def phase_cached(model, params, gen, cache_mode, fwd_kw=None,
+                 prompt_len: int = 16, gen_len: int = 32) -> dict:
     """generate() in a cached mode with BAOS on (the tests/test_system.py
     setting: minmax, mxint4 KV, mxfp8 sampling), once through the entry
     point and once stepped with checks; the two must give the same
-    tokens.  Returns the entry point's launch counts."""
+    tokens.  ``fwd_kw`` (batch 1) reaches every forward of both.  Returns
+    the entry point's launch counts."""
     from repro_torch.core import baos, diffusion
     from repro_torch.kernels import _build
     from repro_torch.kernels import baos_mx_quant as bq
     cfg = model.cfg
+    fwd_kw = fwd_kw or {}
     dcfg = diffusion.DiffusionConfig(
-        gen_length=32, block_length=16, steps_per_block=8,
+        gen_length=gen_len, block_length=16, steps_per_block=8,
         cache_mode=cache_mode,
         baos=baos.BAOSConfig(enabled=True, variant="minmax",
                              kv_format="mxint4"))
-    prompt = torch.randint(0, cfg.vocab - 200, (1, 16), generator=gen,
-                           device=DEVICE)
+    prompt = torch.randint(0, cfg.vocab - 200, (1, prompt_len),
+                           generator=gen, device=DEVICE)
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    out = diffusion.generate(model, params, prompt, dcfg, seed=7)
+    out = diffusion.generate(model, params, prompt, dcfg, seed=7, **fwd_kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(_build.launch_counts)
@@ -1509,12 +1574,13 @@ def phase_cached(model, params, gen, cache_mode) -> dict:
     L, mid = dcfg.block_length, cfg.mask_id
     totals = [0, 0, 0]
     while not state.done:
-        feats = diffusion.step_forward(model, params, state)
+        feats = diffusion.step_forward(model, params, state, **fwd_kw)
         if state.ticks == 0 and "k" in state.cache:
             # the first attention layer of the first warm step: its K/V
             # recomputed, their calibration and plain smooth_quantize vs
             # the cache
-            k0, v0 = first_attn_kv(model, params, state.x)
+            k0, v0 = first_attn_kv(model, params, state.x,
+                                   fwd_kw.get("image_embeds"))
             cal = baos.calibrate(k0, v0, dcfg.baos)
             c = state.cache
             require(all(torch.equal(c[n][0], t)
@@ -1552,13 +1618,15 @@ def phase_cached(model, params, gen, cache_mode) -> dict:
     return counts
 
 
-def first_attn_kv(model, params, tokens):
+def first_attn_kv(model, params, tokens, image_embeds=None):
     """K/V (B, S, Hkv, D) of the model's first attention layer (the
     hybrid's: triple 0's, after its two rec sub-layers), recomputed from
-    ``tokens`` outside the forward at positions 0..S-1."""
+    ``tokens`` (the vlm's with ``image_embeds`` spliced) outside the
+    forward at positions 0..S-1."""
     from repro_torch.models import transformer
     cfg = model.cfg
-    x = transformer.embed(params, cfg, tokens)
+    x = (model.embed(params, tokens, image_embeds) if cfg.family == "vlm"
+         else transformer.embed(params, cfg, tokens))
     if cfg.family == "hybrid":
         tp = params["triples"][0]
         for name in ("rec1", "rec2"):
@@ -1673,27 +1741,31 @@ def event_keys(events):
             for e in events]
 
 
-def phase_engine(model, params, slowfast: bool = True, names=None):
+def phase_engine(model, params, slowfast: bool = True, names=None,
+                 variants=VARIANTS, extra=None):
     """Each path through the eager K=1 engine (as in earlier runs), the
-    graphed K=1 engine and the graphed megatick (K=8): each must finish
-    every request with no mask id left and launch exactly its kernels; the
-    graphed runs must give the eager run's tokens, per-request ticks,
-    CommitEvents (a second run of each with streaming sinks) and
-    ticks_total, and its launch counts (K=8: plus those of the ticks run
-    after a stop); with ``slowfast``, path warm also on the SlowFast(0)
-    trace.  Returns (launch counts, per path its runs, launches per tick
-    and graphed device busy ms per tick)."""
+    graphed K=1 engine and the graphed megatick (K=8), or ``variants``:
+    each must finish every request with no mask id left and launch
+    exactly its kernels; the graphed runs must give the eager run's
+    tokens, per-request ticks, CommitEvents (a second run of each with
+    streaming sinks) and ticks_total, and its launch counts (K=8: plus
+    those of the ticks run after a stop); with ``slowfast``, path warm
+    also on the SlowFast(0) trace.  ``extra``: EngineConfig fields of
+    every run (``fwd_kw``).  Returns (launch counts, per path its runs,
+    launches per tick and graphed device busy ms per tick)."""
     import numpy as np
     from repro_torch.kernels import _build
     cfg = model.cfg
     trace = engine_trace(cfg)
     launches = {name: 0 for name in _build.KERNELS}
     paths = {}
+    variants = [(vname, {**vcfg, **(extra or {})})
+                for vname, vcfg in variants]
     for name, mode, dcfg, expected in engine_paths(model):
         if names is not None and name not in names:
             continue
         runs, halves, stage = {}, None, None
-        for vname, vcfg in VARIANTS:
+        for vname, vcfg in variants:
             what = f"engine path={name} {vname}"
             eng, _, tick_ms, counts, _ = engine_run(
                 model, params, dcfg, mode, trace, False, **vcfg)
@@ -1746,7 +1818,7 @@ def phase_engine(model, params, slowfast: bool = True, names=None):
                     f"engine {name}: {kname} launched {n} times in "
                     f"{ref['ticks_total']} ticks, not the same per tick")
             per_tick[kname] = n // ref["ticks_total"]
-        for vname in ("graphed K=1", "graphed K=8"):
+        for vname in list(runs)[1:]:
             run, what = runs[vname], f"engine path={name} {vname}"
             for key in ("tokens", "ticks", "events", "ticks_total"):
                 require(run[key] == ref[key],
@@ -1756,24 +1828,25 @@ def phase_engine(model, params, slowfast: bool = True, names=None):
             require(run["counts"] == want,
                     f"{what}: launch counts {run['counts']} != eager "
                     f"{ref['counts']} + {run['wasted']} ticks after a stop")
-        require(runs["graphed K=8"]["elided"] > ref["elided"],
+        k8 = runs.get("graphed K=8")
+        require(k8 is None or k8["elided"] > ref["elided"],
                 f"engine {name}: the megatick elided no host sync")
-        log(f"engine path={name}: graphed K=1 and K=8 equal eager K=1 in "
-            f"tokens, per-request ticks, {len(ref['events'])} CommitEvents "
-            f"and ticks_total ({ref['ticks_total']}); launches per tick "
-            f"{per_tick}")
+        log(f"engine path={name}: {' and '.join(list(runs)[1:])} equal "
+            f"eager K=1 in tokens, per-request ticks, "
+            f"{len(ref['events'])} CommitEvents and ticks_total "
+            f"({ref['ticks_total']}); launches per tick {per_tick}")
         busy = {}
-        for vname, vcfg in VARIANTS[1:]:
+        for vname, vcfg in variants[1:]:
             busy[vname] = profile_engine(model, params, dcfg, mode, trace,
                                          f"{name} {vname}", vcfg, per_tick)
         log(f"engine path={name}: device idle share of the unprofiled tick "
             f"wall median (1 - profiled busy / median): " + ", ".join(
                 f"{v} {(1 - busy[v] / runs[v]['p50']) * 100:.1f}%"
                 for v in busy))
-        log(f"engine path={name} graphed K=8: "
-            f"{runs['graphed K=8']['wasted']} ticks ran after a stop, "
-            f"{runs['graphed K=8']['wasted'] * busy['graphed K=1']:.3f} ms "
-            f"of device time")
+        if k8 is not None:
+            log(f"engine path={name} graphed K=8: {k8['wasted']} ticks ran "
+                f"after a stop, {k8['wasted'] * busy['graphed K=1']:.3f} ms "
+                f"of device time")
         if name == "warm" and slowfast:
             check_slowfast_megatick(model, params, dcfg, mode, trace,
                                     per_tick, busy["graphed K=1"])
@@ -1868,12 +1941,23 @@ def profile_engine(model, params, dcfg, mode, trace, name, vcfg, per_tick,
                      if e.device_type == DeviceType.CUDA)
     seen = {k: sum(dev in kname for _, _, kname in kernels)
             for k, dev in DEVICE_KERNEL.items()}
+    # the first device activity against the first graph launch on the host
+    # (both on the profiler's clock): negative when the device's converted
+    # timestamps run ahead of the host's
+    launched = [e.time_range.start for e in prof.events()
+                if e.device_type == DeviceType.CPU
+                and e.name == "cudaGraphLaunch"]
+    skew_ms = ((kernels[0][0] - min(launched)) / 1e3
+               if kernels and launched else float("nan"))
     want = {k: per_tick[k] * replays for k in DEVICE_KERNEL}
     require(seen == want == counted,
             f"profile {name}: port kernels launched on the card in "
             f"{replays} graph replays {seen}, eager per tick x replays "
-            f"{want}, counted by the replays {counted}; the last device "
-            f"activities seen: {[kname[:40] for _, _, kname in kernels[-6:]]}")
+            f"{want}, counted by the replays {counted}; the first and last "
+            f"device activities seen: "
+            f"{[kname[:40] for _, _, kname in kernels[:3] + kernels[-6:]]}"
+            f"; first device activity - first cudaGraphLaunch "
+            f"{skew_ms:.3f} ms")
     busy_us = sum(end - start for start, end, _ in kernels)
     classes = {}
     for start, end, kname in kernels:
@@ -1896,7 +1980,8 @@ def profile_engine(model, params, dcfg, mode, trace, name, vcfg, per_tick,
         f"{max(gaps, default=0):.3f}); device ms per tick: "
         + ", ".join(f"{c} {us / n / 1e3:.4f}" for c, us in
                     sorted(classes.items(), key=lambda kv: -kv[1]))
-        + f" (of other: indexing kernels {index_us / n / 1e3:.4f})")
+        + f" (of other: indexing kernels {index_us / n / 1e3:.4f}); first "
+        f"device activity - first cudaGraphLaunch {skew_ms:.3f} ms")
     return busy_us / n / 1e3
 
 
@@ -2230,7 +2315,7 @@ BREAKDOWN_VARIANTS = (("eager", dict(jit_steps=False)),
 
 def phase_breakdown(model, params, slot_paths,
                     names=("warm", "warm+baos", "warm legacy fmt none"),
-                    variants=BREAKDOWN_VARIANTS) -> dict:
+                    variants=BREAKDOWN_VARIANTS, extra=None) -> dict:
     """6a: the engine trace with EngineConfig(breakdown=True) on paths
     ``names``: warm (fused head, mxfp8), warm+baos and the Fig. 1 pair's
     reference side, warm on the legacy head at fmt none; each in
@@ -2239,7 +2324,8 @@ def phase_breakdown(model, params, slot_paths,
     Prints the stage medians and the sampling share sampling / (forward +
     sampling), and the graphed forward + sampling beside phase 4's graphed
     device busy and the CUDA-event times of the tick's halves (and, with
-    the legacy path, the Fig. 1 pair).  Returns the launch counts."""
+    the legacy path, the Fig. 1 pair).  ``extra``: EngineConfig fields of
+    every run (``fwd_kw``).  Returns the launch counts."""
     import numpy as np
     from repro_torch.core import sampling
     from repro_torch.kernels import _build
@@ -2263,7 +2349,8 @@ def phase_breakdown(model, params, slot_paths,
         else:
             eng, keys, _, counts, _ = engine_run(model, params, dcfg, mode,
                                                  trace, True,
-                                                 jit_steps=False)
+                                                 jit_steps=False,
+                                                 **(extra or {}))
             ref = run_record(eng, keys)
             expect_launches(counts, expected, f"breakdown {name} plain")
             del eng
@@ -2273,7 +2360,7 @@ def phase_breakdown(model, params, slot_paths,
             stages = record_stages(obs)
             eng, keys, tick_ms, counts, _ = engine_run(
                 model, params, dcfg, mode, trace, True, breakdown=True,
-                obs=obs, **vcfg)
+                obs=obs, **vcfg, **(extra or {}))
             got = run_record(eng, keys)
             for key in ("tokens", "ticks", "events", "ticks_total"):
                 require(got[key] == ref[key],
@@ -2622,18 +2709,19 @@ def phase_tick_breakdown(eng, model, params, dcfg, name) -> None:
     B = eng.num_slots
     bs = torch.zeros(B, dtype=torch.int32, device=DEVICE)
     k = torch.full((B,), 2, dtype=torch.int32, device=DEVICE)
+    kw = eng.fwd_kw
     feats, _ = diffusion.tick_forward(model, params, eng.x, eng.kv_valid, bs,
-                                      cache, dcfg)
+                                      cache, dcfg, **kw)
     fwd = time_ms(lambda: diffusion.tick_forward(
-        model, params, eng.x, eng.kv_valid, bs, cache, dcfg), 5)
+        model, params, eng.x, eng.kv_valid, bs, cache, dcfg, **kw), 5)
     smp = time_ms(lambda: diffusion.tick_sample(
         params, feats, eng.x, bs, k, 0, dcfg, eng.mask_id, model), 10)
     log(f"tick breakdown path={name} ({B} x {eng.max_seq_len}): "
         f"tick_forward {fwd:.3f} ms, tick_sample {smp:.3f} ms")
     profile_ticks(lambda: diffusion.batched_tick(
         model, params, eng.x, eng.kv_valid, bs, k, 0, cache, dcfg,
-        eng.mask_id), name, gemm_flops=forward_gemm_flops(model.cfg,
-                                                          *eng.x.shape))
+        eng.mask_id, **kw), name, gemm_flops=forward_gemm_flops(
+            model.cfg, *eng.x.shape))
     return fwd, smp
 
 
@@ -2642,9 +2730,10 @@ def forward_gemm_flops(cfg, B: int, S: int):
     token the QKV and output projections and a dense layer's SwiGLU, or an
     MoE layer's router and shared experts; an MoE layer's expert products
     run over E·C capacity rows per dispatch group, empty slots included.
-    None for the recurrent families (not modeled)."""
+    None for the recurrent families and whisper's encoder-decoder (not
+    modeled)."""
     from repro_torch.models import moe
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         return None
     d = cfg.d_model
     hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
@@ -2680,7 +2769,7 @@ def phase_sampling_stage(eng, model, params, dcfg) -> None:
                       device=DEVICE)
     k = torch.full((B,), 2, dtype=torch.int32, device=DEVICE)
     out_all, _ = diffusion.tick_forward(model, params, eng.x, eng.kv_valid,
-                                        bs, None, dcfg)
+                                        bs, None, dcfg, **eng.fwd_kw)
     if model.supports_head_mode:
         hidden, heads = out_all, ("fused", "unfused", "legacy")
     else:
@@ -3132,8 +3221,6 @@ def check_recurrent_ops(model, params, gen) -> None:
     stablemax_sampling at (64, V) beside its byte bound and softmax + max;
     the legacy head product (B·S, d) x (d, V) beside its bound."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_bidir as fb
-    from repro_torch.kernels import stablemax_sampling as sms
     from repro_torch.models import layers, rglru, ssm
     cfg = model.cfg
     dt = cfg.torch_dtype
@@ -3179,56 +3266,16 @@ def check_recurrent_ops(model, params, gen) -> None:
         q, kk, v = rand(B, S, Hq, D), rand(B, S, Hkv, D), rand(B, S, Hkv, D)
         valid = torch.arange(S, device=DEVICE)[None, :] < torch.tensor(
             (96, 64, 48, 1), device=DEVICE)[:, None]
-        n_keys = int(valid.sum())
-        b_ms, b_by = bound(2 * q.numel() * 2 + 2 * n_keys * Hkv * D * 2
-                           + valid.numel(), 4.0 * Hq * S * n_keys * D,
-                           BF16_FLOPS)
-        got = fb.flash_bidir(q, kk, v, valid)
-        want = fb.flash_bidir_plain(q, kk, v, valid)
-        excess = float(((got.float() - want.float()).abs()
-                        - bf16_ulp(want)).max())
-        require(excess <= 1e-6, f"{cfg.name} flash_bidir at the tick's shape"
-                                f": beyond one bf16 ulp + 1e-6")
-        qt = q.transpose(1, 2)
-        kt = kk.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
-        vt = v.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
-        mask = valid[:, None, None, :]
-        fn = lambda: fb.flash_bidir(q, kk, v, valid)  # noqa: E731
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, attn_mask=mask)
-        dev = kernel_ms(fn, 20, f"{cfg.name} flash_bidir")
-        plain = time_ms(lambda: fb.flash_bidir_plain(q, kk, v, valid), 20)
-        log(f"{cfg.name} flash_bidir D {D} at the warm tick's shape ({B}, "
-            f"{S}, {Hq} on {Hkv}, kv_valid), within one bf16 ulp of plain: "
-            f"device {dev:.4f} ms a layer (a graph of 20 calls), "
-            f"{dev * (cfg.n_layers // 3):.3f} ms a tick of "
-            f"{cfg.n_layers // 3} layers; CUDA events, back to back "
-            f"{time_ms(fn, 20):.4f} ms; plain {plain:.4f} ms; bound "
-            f"{b_ms:.4f} ms ({b_by}), "
-            f"{dev / b_ms:.1f}x; scaled_dot_product_attention (K/V repeated "
-            f"beforehand) device {kernel_ms(lib, 20, 'sdpa'):.4f} ms")
+        attn_row(q, kk, v, valid, f"{cfg.name} flash_bidir D {D} at the "
+                 f"warm tick's shape ({B}, {S}, {Hq} on {Hkv}, kv_valid)",
+                 cfg.n_layers // 3)
     V = cfg.vocab
     # Table 6's legacy head rows (16 x 64): logits that end on a 2 MiB page
     # at V 256000, where a read one past the end faulted
     zl = rand(1024, V) * 3
     check_stablemax_case(zl, "mxfp8_e4m3", 0.0, cfg.mask_id,
                          f"(1024, {V}) bf16")
-    zl = rand(64, V) * 3
-    kw = dict(fmt="mxfp8_e4m3", suppress_id=cfg.mask_id)
-    err = check_stablemax_case(zl, "mxfp8_e4m3", 0.0, cfg.mask_id,
-                               f"(64, {V}) bf16")
-    b_ms, b_by = bound(zl.numel() * 2 + 64 * 8, 4.0 * zl.numel(), F32_FLOPS)
-    fn = lambda: sms.stablemax_sampling(zl, **kw)  # noqa: E731
-    lib = lambda: torch.max(torch.softmax(zl, -1), -1)  # noqa: E731
-    dev = kernel_ms(fn, 20, f"{cfg.name} stablemax_sampling")
-    plain = time_ms(lambda: sms.stable_max_plain(zl, **kw), 20)
-    log(f"{cfg.name} stablemax_sampling mxfp8 greedy (64, {V}) bf16: conf "
-        f"max abs err {err:.3g}; device {dev:.4f} ms (a graph of 20 "
-        f"calls), CUDA events, back to back "
-        f"{time_ms(fn, 20):.4f} ms, plain {plain:.4f} ms, bound "
-        f"{b_ms:.4f} ms "
-        f"({b_by}), {dev / b_ms:.1f}x; softmax + max device "
-        f"{kernel_ms(lib, 20, 'softmax + max'):.4f} ms")
+    stablemax_row(rand(64, V) * 3, cfg.mask_id, cfg.name)
     h = rand(B, S, cfg.d_model)
     head = lambda: layers.qdot(h, params["lm_head"])  # noqa: E731
     hb_ms, hb_by = bound((cfg.d_model * V + B * S * cfg.d_model
@@ -3239,6 +3286,327 @@ def check_recurrent_ops(model, params, gen) -> None:
         f"({cfg.d_model}, {V}): device {dev:.4f} ms a tick (a graph of 10 "
         f"calls), CUDA events, back to back "
         f"{time_ms(head, 10):.4f} ms, bound {hb_ms:.4f} ms ({hb_by})")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the audio and vlm families
+# ---------------------------------------------------------------------------
+
+# phase 9's budget, stated before its first run: the whole script stays
+# under 1,050 s of its 1,200 s limit
+PHASE9_BUDGET_S = 150.0
+# internvl2-26b's prompts: the 256 image positions and 32 of text
+VLM_PROMPT = 288
+
+
+def free() -> None:
+    """Drop the step graphs and the card's cached memory (the caller has
+    deleted its own references to a model)."""
+    from repro_torch.core import diffusion
+    diffusion.clear_step_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_audio_vlm(gen) -> dict:
+    """9: the last two families, one model at a time, each freed before
+    the next; neither has head_mode, so both sample on the legacy head.
+    whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers, d 1024, 16 heads of D 64, V 51865): frames (4, 1500, 1024)
+    from the seeded generator through encode + cross_kv (timed);
+    generate with the cross K/V in mode none stepped (each step's
+    sampling held against plain; generate(megatick_k=4) must refuse
+    them), dual + BAOS and prefix + BAOS (phase 3's checks); the engine
+    paths warm, none and warm + BAOS, eager K=1 and graphed K=1 with
+    phase 4's checks and EngineConfig(fwd_kw={"cross_kv": ...}); the
+    paged pool and the megatick refusing the kwargs; breakdown on warm
+    graphed; ``serve --arch whisper-medium --full`` as a subprocess.
+    internvl2-26b at full width (d 6144, 48 heads on 8 of D 128, V 92553;
+    24 of its 48 layers, a ``DEPTH_CUTS`` cut, logged): generate with
+    image embeddings (1, 256, 6144) over prompts of 288 (gen 64) in
+    mode none stepped, dual + BAOS and prefix + BAOS; the engine text-only
+    (as JAX's serve runs it) on paths warm and none, eager K=1, graphed
+    K=1 and K=8, and the paged pool on warm graphed K=1; its graphed tick
+    beside the time its bf16 weights take to read once.  Returns the
+    launch counts of the runs."""
+    import os
+    from repro_torch.configs import base
+    from repro_torch.core import diffusion
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import EngineConfig, ServingEngine
+    total = {}
+    t_start = time.perf_counter()
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    def load(arch):
+        cfg = base.get_config(arch)
+        if arch in DEPTH_CUTS:
+            cfg = cut_depth(cfg, DEPTH_CUTS[arch])
+        model = build_model(cfg, DEVICE)
+        t0 = time.perf_counter()
+        params = model.init(seed=0)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _flat(params))
+        log(f"{arch} params: {n / 1e9:.3f} B ({n * 2 / 2 ** 30:.2f} GiB "
+            f"bf16), init {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+        return model, params, n
+
+    # whisper-medium
+    t_model = time.perf_counter()
+    model, params, _ = load("whisper-medium")
+    cfg = model.cfg
+    frames = torch.randn(4, cfg.n_audio_ctx, cfg.d_model, generator=gen,
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckv = model.cross_kv(params, model.encode(params, frames))
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    again = time_ms(lambda: model.cross_kv(params, model.encode(params,
+                                                                frames)), 3)
+    log(f"whisper-medium encode + cross_kv of (4, {cfg.n_audio_ctx}, "
+        f"{cfg.d_model}) frames: first call {first * 1e3:.1f} ms, then "
+        f"{again:.2f} ms (CUDA events); cross K/V "
+        f"{tuple(ckv[0].shape)} x 2, "
+        f"{sum(t.numel() * 2 for t in ckv) / 2 ** 20:.0f} MiB")
+    require(all(bool(torch.isfinite(t).all()) for t in ckv),
+            "whisper-medium: cross K/V not finite")
+    kw1 = {"cross_kv": tuple(t[:, :1].contiguous() for t in ckv)}
+    phase_e2e(model, params, gen, kw1)
+    for cache_mode in ("dual", "prefix"):
+        add(phase_cached(model, params, gen, cache_mode, kw1))
+    check_kwargs_in_place(model, params, gen, kw1, {
+        "cross_kv": tuple(t[:, 1:2].contiguous() for t in ckv)})
+    extra = {"fwd_kw": {"cross_kv": ckv}}
+    counts, slot_paths = phase_engine(
+        model, params, slowfast=False, names=("warm", "none", "warm+baos"),
+        variants=VARIANTS[:2], extra=extra)
+    add(counts)
+    for refused in (PAGED, dict(megatick_k=8)):
+        try:
+            ServingEngine(model, params, diffusion.DiffusionConfig(),
+                          EngineConfig(num_slots=4, max_seq_len=96,
+                                       **extra, **refused))
+        except ValueError as e:
+            log(f"whisper-medium engine {refused} with cross_kv refused, as "
+                f"in JAX: {e}")
+        else:
+            raise Failure(f"whisper-medium: the engine {refused} took "
+                          f"cross_kv")
+    add(phase_breakdown(model, params, slot_paths, names=("warm",),
+                        variants=BREAKDOWN_VARIANTS[1:], extra=extra))
+    del model, params, ckv, kw1, extra, slot_paths, frames
+    free()
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--arch", "whisper-medium", "--full", "--requests",
+                        "1"], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+    require(r.returncode == 0, f"cli whisper-medium: exit {r.returncode}: "
+            f"{r.stderr[-2000:]}")
+    log(f"cli serve --arch whisper-medium --full: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in r.stdout.splitlines():
+        log(f"  {line}")
+    log(f"phase 9 whisper-medium: {time.perf_counter() - t_model:.1f} s")
+
+    # internvl2-26b
+    t_model = time.perf_counter()
+    model, params, n_params = load("internvl2-26b")
+    cfg = model.cfg
+    image = torch.randn(1, cfg.n_image_tokens, cfg.d_model, generator=gen,
+                        device=DEVICE).to(cfg.torch_dtype)
+    kw1 = {"image_embeds": image}
+    phase_e2e(model, params, gen, kw1, prompt_len=VLM_PROMPT, gen_len=64)
+    for cache_mode in ("dual", "prefix"):
+        add(phase_cached(model, params, gen, cache_mode, kw1,
+                         prompt_len=VLM_PROMPT, gen_len=64))
+    free()
+    counts, slot_paths = phase_engine(model, params, slowfast=False,
+                                      names=("warm", "none"))
+    add(counts)
+    add(phase_paged(model, params, slot_paths, names=("warm",),
+                    variants=VARIANTS[1:2], extras=False))
+    floor_ms = n_params * 2 / HBM_BPS * 1e3
+    for name in ("warm", "none"):
+        info = slot_paths[name]
+        log(f"internvl2-26b engine path={name} graphed K=1: tick wall "
+            f"median {info['runs']['graphed K=1']['p50']:.2f} ms, device "
+            f"busy {info['busy']['graphed K=1']:.3f} ms, against "
+            f"{floor_ms:.2f} ms to read its {n_params * 2 / 1e9:.1f} GB of "
+            f"bf16 weights once")
+    del model, params, image, kw1, slot_paths
+    free()
+    log(f"phase 9 internvl2-26b: {time.perf_counter() - t_model:.1f} s")
+    dt = time.perf_counter() - t_start
+    log(f"phase 9: {dt:.1f} s against its budget of {PHASE9_BUDGET_S:.0f} s"
+        f"; launches {total}")
+    return total
+
+
+def phase_audio_vlm_process() -> dict:
+    """Phase 9 in a process of its own (``phase9_main``): late in one
+    process the profiler drops device activities (two whole runs of this
+    script lost one flash_bidir launch of a 16-tick window there, while a
+    fresh process saw every one), and the phase's engine profiles hold the
+    kernels the card ran to the launch counts exactly.  Its output joins
+    this log; returns its launch counts."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c",
+                        "import sys, chip_smoke; "
+                        "sys.exit(chip_smoke.phase9_main())"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    counts = None
+    for line in r.stdout.splitlines():
+        if line.startswith(PHASE9_COUNTS):
+            counts = json.loads(line[len(PHASE9_COUNTS):])
+        else:
+            log(line)
+    require(r.returncode == 0 and counts is not None,
+            f"phase 9 process: exit {r.returncode}: {r.stderr[-3000:]}")
+    return counts
+
+
+PHASE9_COUNTS = "phase 9 counts "
+
+
+def phase9_main() -> int:
+    """The body of phase 9's process: load the built kernels, run
+    ``phase_audio_vlm`` and print its launch counts."""
+    from repro_torch import device
+    from repro_torch.kernels import _build
+    device.resolve("cuda")
+    _build.build()
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    try:
+        counts = phase_audio_vlm(gen)
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    print(PHASE9_COUNTS + json.dumps(counts), flush=True)
+    return 0
+
+
+def check_kwargs_in_place(model, params, gen, kw_a, kw_b) -> None:
+    """The graphed steps read forward kwargs in place and key on their
+    addresses: graphed generate() with kw_b's tensors (other frames)
+    captures anew and equals the eager run with kw_b; kw_b's values copied
+    into kw_a's tensors then replay kw_a's graphs (no capture) and give
+    the same tokens (dual + BAOS, 1 x 48)."""
+    from repro_torch.core import baos, diffusion
+    cfg = model.cfg
+    dcfg = diffusion.DiffusionConfig(
+        gen_length=32, block_length=16, steps_per_block=8, cache_mode="dual",
+        baos=baos.BAOSConfig(enabled=True, kv_format="mxint4"))
+    prompt = torch.randint(0, cfg.vocab - 200, (1, 16), generator=gen,
+                           device=DEVICE)
+    g = diffusion.step_graphs(model, dcfg, cfg.mask_id, None, 1, 48)
+    out_a = diffusion.generate(model, params, prompt, dcfg, seed=7, **kw_a)
+    n_a = g.captures
+    out_b = diffusion.generate(model, params, prompt, dcfg, seed=7, **kw_b)
+    n_b = g.captures
+    want = diffusion.generate(model, params, prompt, dcfg, seed=7,
+                              jit_steps=False, **kw_b)
+    for name, value in kw_b.items():
+        for dst, src in zip(kw_a[name], value):
+            dst.copy_(src)
+    again = diffusion.generate(model, params, prompt, dcfg, seed=7, **kw_a)
+    log(f"{cfg.name} forward kwargs in the graphed steps: first frames "
+        f"{n_a} graphs, other frames {n_b - n_a} new graphs (tokens equal "
+        f"to eager: {bool(torch.equal(out_b, want))}, differ from the first"
+        f" frames': {not bool(torch.equal(out_b, out_a))}), the other "
+        f"frames copied in place: {g.captures - n_b} new graphs, tokens "
+        f"equal: {bool(torch.equal(again, want))}")
+    require(n_b > n_a and torch.equal(out_b, want),
+            f"{cfg.name}: new forward kwargs replayed a stale graph")
+    require(g.captures == n_b and torch.equal(again, want),
+            f"{cfg.name}: forward kwargs written in place were not read")
+
+
+def _flat(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return [t for sub in tree for t in _flat(sub)]
+
+
+def attn_row(q, kk, v, valid, what: str, n_layers: int) -> dict:
+    """flash_bidir on q (B, Sq, Hq, D) over kk/v (B, Skv, Hkv, D) bf16
+    (``valid`` (B, Skv) or None) against its plain version (within one
+    bf16 ulp + 1e-6), its device time (a graph of 20 calls) beside its
+    bound, the plain version's and SDPA's (K/V repeated beforehand);
+    ``n_layers`` calls a tick.  Returns the row's numbers."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_bidir as fb
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = kk.shape[1], kk.shape[2]
+    n_keys = B * Skv if valid is None else int(valid.sum())
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * n_keys * Hkv * D * 2
+                       + (0 if valid is None else valid.numel()),
+                       4.0 * Hq * Sq * n_keys * D, BF16_FLOPS)
+    got = fb.flash_bidir(q, kk, v, valid)
+    want = fb.flash_bidir_plain(q, kk, v, valid)
+    err = (got.float() - want.float()).abs()
+    excess = float((err - bf16_ulp(want)).max())
+    require(excess <= 1e-6, f"{what}: beyond one bf16 ulp + 1e-6")
+    qt = q.transpose(1, 2)
+    kt = kk.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+    mask = None if valid is None else valid[:, None, None, :]
+    fn = lambda: fb.flash_bidir(q, kk, v, valid)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask)
+    row = dict(max_abs_err=float(err.max()),
+               device_ms=kernel_ms(fn, 20, what), ms=time_ms(fn, 20),
+               plain_ms=time_ms(lambda: fb.flash_bidir_plain(q, kk, v,
+                                                             valid), 5),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=kernel_ms(lib, 20, f"{what} sdpa"))
+    log(f"{what}, within one bf16 ulp of plain (max abs err "
+        f"{row['max_abs_err']:.3g}): device {row['device_ms']:.4f} ms a call "
+        f"(a graph of 20 calls), {row['device_ms'] * n_layers:.3f} ms for "
+        f"{n_layers} calls; CUDA events, back to back {row['ms']:.4f} ms; "
+        f"plain {row['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+        f"{row['device_ms'] / b_ms:.1f}x; scaled_dot_product_attention "
+        f"device {row['library_ms']:.4f} ms")
+    return row
+
+
+def stablemax_row(zl, mid: int, who: str) -> dict:
+    """stablemax_sampling mxfp8 greedy on logits zl (R, V) against its
+    plain version (check_stablemax_case), its device time (a graph of 20
+    calls) beside its byte bound, the plain version's and softmax + max's.
+    Returns the row's numbers."""
+    from repro_torch.kernels import stablemax_sampling as sms
+    R, V = zl.shape
+    what = f"({R}, {V}) {str(zl.dtype).replace('torch.', '')}"
+    err = check_stablemax_case(zl, "mxfp8_e4m3", 0.0, mid, what)
+    kw = dict(fmt="mxfp8_e4m3", suppress_id=mid)
+    b_ms, b_by = bound(zl.numel() * zl.element_size() + R * 8,
+                       4.0 * zl.numel(), F32_FLOPS)
+    fn = lambda: sms.stablemax_sampling(zl, **kw)  # noqa: E731
+    lib = lambda: torch.max(torch.softmax(zl, -1), -1)  # noqa: E731
+    row = dict(max_abs_err=err,
+               device_ms=kernel_ms(fn, 20, f"{who} stablemax_sampling"),
+               ms=time_ms(fn, 20),
+               plain_ms=time_ms(lambda: sms.stable_max_plain(zl, **kw), 20),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=kernel_ms(lib, 20, "softmax + max"))
+    log(f"{who} stablemax_sampling mxfp8 greedy {what}: conf max abs err "
+        f"{err:.3g}; device {row['device_ms']:.4f} ms (a graph of 20 "
+        f"calls), CUDA events, back to back {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{row['device_ms'] / b_ms:.1f}x; softmax + max device "
+        f"{row['library_ms']:.4f} ms")
+    return row
 
 
 def main() -> int:
@@ -3306,6 +3674,10 @@ def main() -> int:
         for name, n in phase_recurrent(gen).items():
             launches[name] += n
         log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for name, n in phase_audio_vlm_process().items():
+            launches[name] += n
+        log(f"phase 9 (its own process): {time.perf_counter() - t0:.1f} s")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,4 +1,4 @@
-"""Parameters and caches of the JAX package (every family the port runs),
+"""Parameters and caches of the JAX package (every family),
 as numpy arrays, into the port's layout.
 
 The tests build parameters with the JAX ``init_params``, turn them into
@@ -28,14 +28,19 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                       device: Union[str, torch.device] = "cuda") -> Dict:
     """JAX params (stacked on axis 0) -> the port's params (stacks split
     into lists of per-layer dicts), in ``cfg.dtype`` (``F32_LEAVES`` in
-    f32) on ``device``; bf16 arrays pass through f32, exactly.  Norms
-    (JAX's ``{"w": ...}``) become plain tensors.
+    f32) on ``device``; bf16 arrays pass through f32, exactly.  RMSNorms
+    (JAX's ``{"w": ...}``) become plain tensors; LayerNorms stay
+    ``{"w", "b"}``.
 
-    * dense / moe: ``layers`` a list of dicts; a dense layer's ``mlp``
-      becomes its ``w_gate``, ``w_up`` and ``w_down``; an MoE layer keeps
-      JAX's ``moe`` subtree (the router (d, E), the stacked experts
-      (E, d, F) / (E, F, d) and any ``shared`` experts with their
-      ``gate_proj``).
+    * dense / moe / vlm: ``layers`` a list of dicts; a layer's ``attn``
+      and a dense layer's ``mlp`` are flattened into it (``wq``...,
+      ``w_gate``, ``w_up``, ``w_down``, or ``w_in``, ``b_in``,
+      ``w_out``, ``b_out``); an MoE layer keeps JAX's ``moe`` subtree
+      (the router (d, E), the stacked experts (E, d, F) / (E, F, d) and
+      any ``shared`` experts with their ``gate_proj``).
+    * audio: the decoder as above, each layer keeping ``ln_x`` and its
+      ``xattn`` subtree, plus ``encoder``: ``layers`` (a list, as
+      above), ``pos_embed`` and ``final_norm``.
     * ssm: ``layers`` a list of Mamba2 layer dicts (models/ssm.py).
     * hybrid: ``triples`` a list of ``{"rec1", "rec2", "attn"}`` and
       ``tail`` a list of 2 rec sub-layers (models/rglru.py).
@@ -56,8 +61,23 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                     else t(v[i], k))
                 for k, v in sub.items()}
 
+    def norm(p: Mapping):
+        return t(p["w"]) if set(p) == {"w"} else {k: t(v) for k, v in
+                                                  p.items()}
+
+    def stack(sub: Mapping, n: int):
+        """A stacked transformer layer tree -> a list of n layer dicts,
+        ``attn`` and ``mlp`` flattened into each."""
+        out = []
+        for i in range(n):
+            lp = item(sub, i)
+            lp.update(lp.pop("attn"))
+            lp.update(lp.pop("mlp", {}))
+            out.append(lp)
+        return out
+
     out = {"embed": t(tree["embed"]),
-           "final_norm": t(tree["final_norm"]["w"]),
+           "final_norm": norm(tree["final_norm"]),
            "lm_head": fused_head_sampling.pad_head(t(tree["lm_head"]))}
     if cfg.family == "ssm":
         out["layers"] = [item(tree["layers"], i) for i in range(cfg.n_layers)]
@@ -67,22 +87,13 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
         out["triples"] = [item(tree["triples"], i) for i in range(nt)]
         out["tail"] = [item(tree["tail"], i) for i in range(2)]
         return out
-    stack = tree["layers"]
-    attn = stack["attn"]
-    layers = []
-    for i in range(cfg.n_layers):
-        lp = {"ln1": t(stack["ln1"]["w"][i]), "ln2": t(stack["ln2"]["w"][i]),
-              "wq": t(attn["wq"][i]), "wk": t(attn["wk"][i]),
-              "wv": t(attn["wv"][i]), "wo": t(attn["wo"][i])}
-        if cfg.moe is not None:
-            lp["moe"] = item(stack["moe"], i)
-        else:
-            lp.update(item(stack["mlp"], i))
-        if cfg.qkv_bias:
-            for name in ("bq", "bk", "bv"):
-                lp[name] = t(attn[name][i])
-        layers.append(lp)
-    out["layers"] = layers
+    out["layers"] = stack(tree["layers"], cfg.n_layers)
+    if cfg.family == "audio":
+        enc = tree["encoder"]
+        out["encoder"] = {"layers": stack(enc["layers"],
+                                          cfg.n_encoder_layers),
+                          "pos_embed": t(enc["pos_embed"]),
+                          "final_norm": norm(enc["final_norm"])}
     return out
 
 

@@ -26,6 +26,6 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
 
 def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401
-        codeqwen15_7b, llada_8b, llada_moe_7b_a1b, llama32_3b, mamba2_130m,
-        minicpm_2b, moonshot_v1_16b_a3b, qwen2_0_5b, qwen2_moe_a27b,
-        recurrentgemma_2b)
+        codeqwen15_7b, internvl2_26b, llada_8b, llada_moe_7b_a1b, llama32_3b,
+        mamba2_130m, minicpm_2b, moonshot_v1_16b_a3b, qwen2_0_5b,
+        qwen2_moe_a27b, recurrentgemma_2b, whisper_medium)

@@ -40,8 +40,14 @@ compiles), so a second ``generate`` of the same shapes captures nothing.
 on the paged pool: gather the pages into dense views, the unchanged tick
 body, scatter back.
 
-``**fwd_kw`` takes ``quant``, a ``models/layers.QuantPolicy``: the MX
-fake-quant at every GEMM boundary and on both operands of the LM head.
+``**fwd_kw`` takes ``quant``, a ``models/layers.QuantPolicy`` (the MX
+fake-quant at every GEMM boundary and on both operands of the LM head),
+bound into the steps as JAX binds it statically, and the forward's
+tensor inputs ``FWD_TENSORS``: ``cross_kv`` (the audio family's encoder
+K/V) and ``image_embeds`` (the vlm family's image), which every forward
+of a step reads, the refine steps' too.  A captured graph reads them in
+place as static buffers, keyed by address (core/graphs.py), so new
+tensors capture anew and never replay a stale graph.
 """
 from __future__ import annotations
 
@@ -58,6 +64,8 @@ from repro_torch.core import schedule as schedule_lib
 
 CACHE_MODES = ("none", "dual", "prefix")
 HEAD_PATHS = ("fused", "unfused", "legacy")
+# forward kwargs beside quant: tensors every forward of a step reads
+FWD_TENSORS = ("cross_kv", "image_embeds")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,7 +170,8 @@ def _active_sampling_step(feats: torch.Tensor, xa: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def warm_step(model, params, x: torch.Tensor, cache: Dict, block_start,
-              dcfg: DiffusionConfig, head_mode: str = "logits", quant=None):
+              dcfg: DiffusionConfig, head_mode: str = "logits", quant=None,
+              **fwd_kw):
     """Full-sequence forward that rewrites the whole cache (and, with BAOS,
     recalibrates it).  Returns (active-block logits, or with
     ``head_mode='hidden'`` hidden states (B, L, d); the cache).
@@ -176,12 +185,12 @@ def warm_step(model, params, x: torch.Tensor, cache: Dict, block_start,
                          baos_cfg=dcfg.baos, calibrate=True,
                          calib_mask=calib_mask,
                          logits_slice=(block_start, L), head_mode=head_mode,
-                         quant=quant)
+                         quant=quant, **fwd_kw)
 
 
 def refine_step(model, params, x: torch.Tensor, cache: Dict,
                 block_start, dcfg: DiffusionConfig, suffix_len: int = 0,
-                head_mode: str = "logits", quant=None):
+                head_mode: str = "logits", quant=None, **fwd_kw):
     """One refinement forward over the segment x[block_start:
     block_start + L + suffix_len] (dual: suffix_len 0; prefix: the whole
     suffix), its K/V written into the cache in place, the stored
@@ -197,7 +206,7 @@ def refine_step(model, params, x: torch.Tensor, cache: Dict,
     return model.forward(params, seg, cache=cache, seg_start=block_start,
                          baos_cfg=dcfg.baos, calibrate=False,
                          logits_slice=(0, L), head_mode=head_mode,
-                         quant=quant)
+                         quant=quant, **fwd_kw)
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +215,7 @@ def refine_step(model, params, x: torch.Tensor, cache: Dict,
 
 def tick_forward(model, params, x: torch.Tensor,
                  kv_valid: Optional[torch.Tensor], block_start: torch.Tensor,
-                 cache, dcfg: DiffusionConfig, quant=None):
+                 cache, dcfg: DiffusionConfig, quant=None, **fwd_kw):
     """Forward half of a tick: full-sequence hidden states (B, S, d), or
     full-sequence logits (B, S, V) on the legacy head path.  Without
     ``cache`` this is the full recompute (cache_mode 'none'; like the JAX
@@ -219,7 +228,7 @@ def tick_forward(model, params, x: torch.Tensor,
     head_mode = _forward_head_mode(model, dcfg)
     if cache is None:
         return model.forward(params, x, kv_valid=kv_valid,
-                             head_mode=head_mode, quant=quant)
+                             head_mode=head_mode, quant=quant, **fwd_kw)
     B, s_tot = x.shape
     calib_mask = None
     if dcfg.baos.calib_scope == "active_block":
@@ -228,7 +237,7 @@ def tick_forward(model, params, x: torch.Tensor,
     return model.forward(params, x, cache=cache, seg_start=0,
                          kv_valid=kv_valid, baos_cfg=dcfg.baos,
                          calibrate=True, calib_mask=calib_mask,
-                         head_mode=head_mode, quant=quant)
+                         head_mode=head_mode, quant=quant, **fwd_kw)
 
 
 def tick_sample(params, feats: torch.Tensor, x: torch.Tensor,
@@ -263,13 +272,13 @@ def tick_sample(params, feats: torch.Tensor, x: torch.Tensor,
 def batched_tick(model, params, x: torch.Tensor,
                  kv_valid: Optional[torch.Tensor], block_start: torch.Tensor,
                  k: torch.Tensor, seed, cache, dcfg: DiffusionConfig,
-                 mask_id: int, quant=None):
+                 mask_id: int, quant=None, **fwd_kw):
     """One engine tick over all serving slots: one forward, one sampling
     call.  Also the cache_mode='none' step of ``generate`` (block_start
     broadcast), so a one-slot engine runs exactly what generate runs.
     Returns (x_new, cache, conf_min, masks_left)."""
     feats, cache = tick_forward(model, params, x, kv_valid, block_start,
-                                cache, dcfg, quant)
+                                cache, dcfg, quant, **fwd_kw)
     x_new, conf_min, masks_left = tick_sample(
         params, feats, x, block_start, k, seed, dcfg, mask_id, model, quant)
     return x_new, cache, conf_min, masks_left
@@ -278,18 +287,20 @@ def batched_tick(model, params, x: torch.Tensor,
 def get_tick_fn(model, dcfg: DiffusionConfig, mask_id: int,
                 jit_steps: bool = True, quant=None, pool=None):
     """``batched_tick`` as ``tick(params, x, kv_valid, block_start, k,
-    seed, cache=None) -> (x_new, cache, conf_min, masks_left)``, the JAX
-    ``get_tick_fn``.  With ``jit_steps`` and CUDA tensors it replays a CUDA
-    graph (core/graphs.py, in memory ``pool``), the counterpart of
-    ``jax.jit``: its tensor arguments are then its static buffers, read by
-    address (``seed`` a ``sampling.Seed`` tensor, or it is baked in), and
+    seed, cache=None, **fwd_kw) -> (x_new, cache, conf_min, masks_left)``,
+    the JAX ``get_tick_fn`` (``fwd_kw``: ``FWD_TENSORS``).  With
+    ``jit_steps`` and CUDA tensors it replays a CUDA graph
+    (core/graphs.py, in memory ``pool``), the counterpart of ``jax.jit``:
+    its tensor arguments are then its static buffers, read by address
+    (``seed`` a ``sampling.Seed`` tensor, or it is baked in), and
     its outputs live until the next call.  Without, or on the CPU, the tick
     runs eagerly.  Each call makes a new tick: a graph holds the buffers it
     was captured on, so each engine, and each ``step_graphs`` entry, owns
     its own (JAX shares compiles, which hold no buffers)."""
-    def tick(params, x, kv_valid, block_start, k, seed, cache=None):
+    def tick(params, x, kv_valid, block_start, k, seed, cache=None,
+             **fwd_kw):
         return batched_tick(model, params, x, kv_valid, block_start, k, seed,
-                            cache, dcfg, mask_id, quant)
+                            cache, dcfg, mask_id, quant, **fwd_kw)
 
     return graphs.GraphedStep(tick, pool) if jit_steps else tick
 
@@ -299,8 +310,9 @@ def get_tick_stage_fns(model, dcfg: DiffusionConfig, mask_id: int,
     """``(forward, sampling)``: the tick's two halves as separate calls,
     the engine's per-stage breakdown mode (the paper's Fig. 1 split), the
     JAX ``get_tick_stage_fns``.  ``forward(params, x, kv_valid,
-    block_start, cache=None) -> (feats, cache)`` and ``sampling(params,
-    feats, x, block_start, k, seed) -> (x_new, conf_min, masks_left)``;
+    block_start, cache=None, **fwd_kw) -> (feats, cache)`` and
+    ``sampling(params, feats, x, block_start, k, seed) -> (x_new,
+    conf_min, masks_left)``;
     the math is ``batched_tick``'s.  The sampling stage owns the LM head
     (``feats`` are hidden states on the fused and unfused paths); on the
     legacy path the forward returns the full-sequence logits, so the head
@@ -310,9 +322,9 @@ def get_tick_stage_fns(model, dcfg: DiffusionConfig, mask_id: int,
     (core/graphs.py), both in one memory pool: the sampling graph reads
     the forward graph's ``feats`` output by address, so each captures
     once.  Without, or on the CPU, the stages run eagerly."""
-    def forward(params, x, kv_valid, block_start, cache=None):
+    def forward(params, x, kv_valid, block_start, cache=None, **fwd_kw):
         return tick_forward(model, params, x, kv_valid, block_start, cache,
-                            dcfg, quant)
+                            dcfg, quant, **fwd_kw)
 
     def sampling(params, feats, x, block_start, k, seed):
         return tick_sample(params, feats, x, block_start, k, seed, dcfg,
@@ -887,7 +899,7 @@ def init_state(model, prompt: torch.Tensor, dcfg: DiffusionConfig,
 
 
 def step_forward(model, params, state: DiffusionState,
-                 quant=None) -> torch.Tensor:
+                 quant=None, **fwd_kw) -> torch.Tensor:
     """The forward of the next step of a cached mode: the warm step at
     step_in_block 0, a refine step after it.  Updates ``state.cache`` in
     place and returns the active block's feats ((B, L, d) hidden states,
@@ -897,12 +909,12 @@ def step_forward(model, params, state: DiffusionState,
     bs = state.block_start
     if state.step_in_block == 0:
         feats, _ = warm_step(model, params, state.x, state.cache, bs, dcfg,
-                             head_mode, quant)
+                             head_mode, quant, **fwd_kw)
     else:
         suffix = (state.x.shape[1] - (bs + dcfg.block_length)
                   if dcfg.cache_mode == "prefix" else 0)
         feats, _ = refine_step(model, params, state.x, state.cache, bs,
-                               dcfg, suffix, head_mode, quant)
+                               dcfg, suffix, head_mode, quant, **fwd_kw)
     return feats
 
 
@@ -989,14 +1001,15 @@ class StepGraphs:
         if fn is None:
             head_mode = _forward_head_mode(self.model, self.dcfg)
 
-            def forward(params, x, cache, bs):
+            def forward(params, x, cache, bs, **fwd_kw):
                 bs = bs[:1]
                 if kind == "warm":
                     return warm_step(self.model, params, x, cache, bs,
-                                     self.dcfg, head_mode, self.quant)[0]
+                                     self.dcfg, head_mode, self.quant,
+                                     **fwd_kw)[0]
                 return refine_step(self.model, params, x, cache, bs,
                                    self.dcfg, suffix, head_mode,
-                                   self.quant)[0]
+                                   self.quant, **fwd_kw)[0]
 
             fn = self._steps[kind, suffix] = graphs.GraphedStep(forward,
                                                                 self.pool)
@@ -1009,8 +1022,10 @@ class StepGraphs:
             self.dcfg, self.mask_id, self.model, self.quant)
         return x.clone().index_copy_(1, cols, xa_new)
 
-    def __call__(self, params, state: DiffusionState) -> torch.Tensor:
-        """The canvas after ``state``'s next step (a new tensor)."""
+    def __call__(self, params, state: DiffusionState,
+                 **fwd_kw) -> torch.Tensor:
+        """The canvas after ``state``'s next step (a new tensor); the
+        forward reads ``fwd_kw`` (``FWD_TENSORS``) in place."""
         dcfg, t = self.dcfg, state.step_in_block
         if self._ks_host is None or not torch.equal(self._ks_host, state.ks):
             self._ks_host = state.ks.clone()
@@ -1021,7 +1036,8 @@ class StepGraphs:
         self.seed.fill_(tick_seed(state.seed, state.ticks))
         if dcfg.cache_mode == "none":
             x_new = self._steps["tick", 0](params, self.x, None, self.bs,
-                                           self.k, self.seed, None)[0]
+                                           self.k, self.seed, None,
+                                           **fwd_kw)[0]
             return x_new.clone()
         if t == 0:
             fwd = self._forward("warm", 0)
@@ -1029,7 +1045,7 @@ class StepGraphs:
             S, L = self.x.shape[1], dcfg.block_length
             fwd = self._forward("refine", S - (state.block_start + L)
                                 if dcfg.cache_mode == "prefix" else 0)
-        feats = fwd(params, self.x, state.cache, self.bs)
+        feats = fwd(params, self.x, state.cache, self.bs, **fwd_kw)
         return self._steps["commit", 0](params, feats, self.x, self.bs,
                                         self.k, self.seed).clone()
 
@@ -1058,15 +1074,16 @@ def clear_step_graphs() -> None:
     _shared_megatick.cache_clear()
 
 
-def _quant_of(fwd_kw: Dict):
-    """The ``quant`` policy out of forward kwargs; the port's forward takes
-    no other."""
-    fwd_kw = dict(fwd_kw)
-    quant = fwd_kw.pop("quant", None)
-    if fwd_kw:
-        raise ValueError(f"unsupported forward kwargs {sorted(fwd_kw)}; the "
-                         "port's forward takes quant")
-    return quant
+def split_fwd_kw(fwd_kw: Dict) -> Tuple[Optional[object], Dict]:
+    """(the ``quant`` policy, the other forward kwargs) out of forward
+    kwargs, which may be ``quant`` and ``FWD_TENSORS``."""
+    extra = dict(fwd_kw)
+    quant = extra.pop("quant", None)
+    unknown = sorted(set(extra) - set(FWD_TENSORS))
+    if unknown:
+        raise ValueError(f"unsupported forward kwargs {unknown}; the port's "
+                         f"forward takes quant and {', '.join(FWD_TENSORS)}")
+    return quant, extra
 
 
 def step(model, params, state: DiffusionState, jit_steps: bool = True,
@@ -1075,14 +1092,14 @@ def step(model, params, state: DiffusionState, jit_steps: bool = True,
     batched tick for 'none'; warm at step_in_block 0, else refine), then
     the commit of ks[:, t] tokens of the active block.  With ``jit_steps``
     the step runs as the CUDA graphs of ``step_graphs`` (on the CPU the
-    same code eagerly); ``fwd_kw`` takes ``quant``."""
+    same code eagerly); ``fwd_kw`` takes ``quant`` and ``FWD_TENSORS``."""
     if state.done:
         raise ValueError("step() called on a finished DiffusionState")
-    quant = _quant_of(fwd_kw)
+    quant, extra = split_fwd_kw(fwd_kw)
     dcfg = state.dcfg
     if jit_steps:
         x = step_graphs(model, dcfg, state.mask_id, quant,
-                        *state.x.shape)(params, state)
+                        *state.x.shape)(params, state, **extra)
     elif dcfg.cache_mode == "none":
         B = state.x.shape[0]
         dev = state.x.device
@@ -1092,9 +1109,9 @@ def step(model, params, state: DiffusionState, jit_steps: bool = True,
                        device=dev),
             state.ks[:, state.step_in_block].to(dev),
             tick_seed(state.seed, state.ticks), None, dcfg, state.mask_id,
-            quant)
+            quant, **extra)
     else:
-        feats = step_forward(model, params, state, quant)
+        feats = step_forward(model, params, state, quant, **extra)
         x = commit_block(model, params, state, feats, quant)
     return advance(state, x)
 
@@ -1111,9 +1128,13 @@ def generate(model, params, prompt: torch.Tensor, dcfg: DiffusionConfig,
     only, as in JAX) runs the ticks K at a time through
     ``get_megatick_fn`` (graphed on the card with ``jit_steps``); the
     tick_seed stream is the same, so the tokens equal the per-step
-    path's.  ``fwd_kw`` takes ``quant`` (a ``layers.QuantPolicy``)."""
-    quant = _quant_of(fwd_kw)
+    path's.  ``fwd_kw`` takes ``quant`` (a ``layers.QuantPolicy``) and
+    ``FWD_TENSORS`` (not with the megatick, as in JAX)."""
+    quant, extra = split_fwd_kw(fwd_kw)
     if megatick_k > 1:
+        if extra:
+            raise ValueError("generate(megatick_k>1) does not support extra "
+                             f"forward kwargs: {sorted(extra)}")
         return _generate_megatick(model, params, prompt, dcfg, seed,
                                   mask_id, megatick_k, jit_steps, quant)
     mask_id = int(model.cfg.mask_id if mask_id is None else mask_id)
@@ -1125,7 +1146,8 @@ def generate(model, params, prompt: torch.Tensor, dcfg: DiffusionConfig,
     state = init_state(model, prompt, dcfg, seed=seed, mask_id=mask_id,
                        cache=cache)
     while not state.done:
-        state = step(model, params, state, jit_steps=jit_steps, quant=quant)
+        state = step(model, params, state, jit_steps=jit_steps, quant=quant,
+                     **extra)
     return state.x
 
 

@@ -11,8 +11,10 @@ work it captured, so a graphed step runs against static buffers.  The
 tensors it is called with are its inputs by address: the caller writes
 new values into the same tensors (``copy_``, ``fill_``) between calls, and
 reads the outputs (tensors the graph owns, overwritten by the next replay)
-before calling again.  Dicts and lists (parameters, a KV cache) are bound
-by identity: their tensors must not be rebound.  A call whose tensors
+before calling again.  Keyword arguments (the forward's ``cross_kv`` and
+``image_embeds``) are inputs in the same way, by name.  Dicts and lists
+(parameters, a KV cache) are bound by identity: their tensors must not be
+rebound.  A call whose tensors
 differ in shape, type or address, or whose other arguments differ, is a
 new step and is captured anew, as ``jax.jit`` traces a new shape.  Each
 captured step holds on to the arguments it was captured with, so no other
@@ -75,6 +77,7 @@ def _device_of(args) -> Optional[torch.device]:
 class _Captured:
     graph: "torch.cuda.CUDAGraph"
     args: tuple           # kept alive: the key holds their ids and addresses
+    kw: dict
     outputs: Any
     launches: Dict[str, int]
 
@@ -92,37 +95,38 @@ class GraphedStep:
         self.captures = 0
         self.replays = 0
 
-    def __call__(self, *args):
-        dev = _device_of(args)
+    def __call__(self, *args, **kw):
+        dev = _device_of(args + tuple(kw.values()))
         if dev is None or dev.type != "cuda":
-            return self.fn(*args)
-        key = tuple(_key_of(a) for a in args)
+            return self.fn(*args, **kw)
+        key = (tuple(_key_of(a) for a in args),
+               tuple((name, _key_of(kw[name])) for name in sorted(kw)))
         cap = self._graphs.get(key)
         if cap is None:
-            return self._run_and_capture(key, dev, args)
+            return self._run_and_capture(key, dev, args, kw)
         cap.graph.replay()
         _build.add_launch_counts(cap.launches)
         self.replays += 1
         return cap.outputs
 
-    def _run_and_capture(self, key, dev: torch.device, args):
+    def _run_and_capture(self, key, dev: torch.device, args, kw):
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
         side, main = self._stream, torch.cuda.current_stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            out = self.fn(*args)             # eager: this call's results
+            out = self.fn(*args, **kw)       # eager: this call's results
         main.wait_stream(side)
         for t in _flat_tensors(out):
             t.record_stream(main)
         before = dict(_build.launch_counts)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, stream=side):
-            outputs = self.fn(*args)
+            outputs = self.fn(*args, **kw)
         launches = {name: n - before[name]
                     for name, n in _build.launch_counts.items()}
         _build.launch_counts.update(before)  # captured, not launched
-        self._graphs[key] = _Captured(graph, args, outputs, launches)
+        self._graphs[key] = _Captured(graph, args, kw, outputs, launches)
         self.captures += 1
         for static, value in zip(_flat_tensors(outputs), _flat_tensors(out)):
             if static is not value:          # (an input returned as is)

@@ -6,7 +6,11 @@ frontend (``--http PORT``).  It runs on the card unless ``--device cpu`` asks fo
 Engine path: packs requests into batch slots over a KV slot pool and
 advances all of them with one forward + Stable-Max sampling call per tick
 (repro_torch.serving); prints slot occupancy, p50/p99 request latency, and
-the per-stage breakdown with ``--breakdown``.
+the per-stage breakdown with ``--breakdown``.  For the audio family
+(whisper-medium) the engine and the legacy loop feed every forward the
+encoder's cross-attention K/V of frames drawn from a seeded generator
+(the stub frontend), as JAX's serve does; the vlm family (internvl2-26b)
+serves text only, as in JAX.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --batch 4 --prompt-len 32 --gen-len 64 --block-len 16 --steps 8
@@ -146,7 +150,30 @@ def make_dcfg(args) -> diffusion.DiffusionConfig:
                                  kv_format=args.kv_format))
 
 
+def audio_frames(cfg, batch: int, device) -> torch.Tensor:
+    """The stub audio frontend's frame embeddings (batch, n_audio_ctx,
+    d_model) f32, standard normal from a generator seeded 1 (JAX's serve
+    draws ``jax.random.normal(PRNGKey(1), ...)``)."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    return torch.randn((batch, cfg.n_audio_ctx, cfg.d_model), generator=gen,
+                       device=device)
+
+
+def _fwd_kw(cfg, model, params, batch: int, frames=None) -> dict:
+    """The forward kwargs of ``batch`` rows: for the audio family the
+    cross-attention K/V of ``frames`` (default ``audio_frames``), encoded
+    once; none for the others."""
+    kw = {}
+    if cfg.family == "audio":
+        if frames is None:
+            frames = audio_frames(cfg, batch, model.device)
+        frames = torch.as_tensor(frames, device=model.device)
+        kw["cross_kv"] = model.cross_kv(params, model.encode(params, frames))
+    return kw
+
+
 def run_legacy(args, cfg, model, params, dcfg) -> None:
+    fwd_kw = _fwd_kw(cfg, model, params, args.batch)
     rs = np.random.RandomState(args.seed)
     total_tokens = 0
     t_total = 0.0
@@ -159,7 +186,7 @@ def run_legacy(args, cfg, model, params, dcfg) -> None:
         t0 = time.perf_counter()
         out = diffusion.generate(model, params, prompt, dcfg,
                                  seed=args.seed + req,
-                                 megatick_k=args.megatick)
+                                 megatick_k=args.megatick, **fwd_kw)
         if model.device.type == "cuda":
             torch.cuda.synchronize(model.device)
         dt = time.perf_counter() - t0
@@ -200,9 +227,10 @@ def make_requests(args, cfg, seed: int) -> list:
 
 def make_obs(args, cfg, dcfg, num_slots: int, max_seq: int):
     """Root ServingObs for the offline engine path: tracing on iff
-    --trace-out, drift armed when the analytical model covers the model's
-    family.  The drift baseline includes the host dispatch/device_sync
-    stages at their K-amortized cost."""
+    --trace-out, drift armed unless --no-drift (the analytical model gives
+    every family its dense-shaped estimate, as in JAX).  The drift
+    baseline includes the host dispatch/device_sync stages at their
+    K-amortized cost."""
     from repro_torch.obs import EventLog, ServingObs, TraceCollector
     from repro_torch.obs.drift import modeled_tick_stages
     from repro_torch.sim.analytical import HostConfig
@@ -214,17 +242,12 @@ def make_obs(args, cfg, dcfg, num_slots: int, max_seq: int):
         obs.set_event_log(EventLog(args.event_log))
     if args.drift:
         paged = args.pool == "paged"
-        try:
-            modeled = modeled_tick_stages(
-                cfg, dcfg, batch=num_slots,
-                prompt_len=max(1, max_seq - dcfg.gen_length),
-                megatick_k=args.megatick, host=HostConfig(), paged=paged)
-        except NotImplementedError as e:   # family outside the model
-            print(f"drift monitor disabled (no analytical model): {e}")
-        else:
-            obs.set_drift_model(modeled, host_stages=(
-                "dispatch", "device_sync") + (("paged_io",) if paged
-                                              else ()))
+        modeled = modeled_tick_stages(
+            cfg, dcfg, batch=num_slots,
+            prompt_len=max(1, max_seq - dcfg.gen_length),
+            megatick_k=args.megatick, host=HostConfig(), paged=paged)
+        obs.set_drift_model(modeled, host_stages=(
+            "dispatch", "device_sync") + (("paged_io",) if paged else ()))
     return obs
 
 
@@ -258,13 +281,14 @@ def run_engine(args, cfg, model, params, dcfg) -> None:
     max_seq = args.prompt_len + args.gen_len
     policy = _policy(args)
     reqs = make_requests(args, cfg, args.seed)
+    fwd_kw = _fwd_kw(cfg, model, params, num_slots)
     obs = make_obs(args, cfg, dcfg, num_slots, max_seq)
 
     eng = ServingEngine(model, params, dcfg, EngineConfig(
         num_slots=num_slots, max_seq_len=max_seq, mode=args.mode,
-        policy=policy, seed=args.seed, breakdown=args.breakdown, obs=obs,
-        megatick_k=args.megatick, pool=args.pool, page_size=args.page_size,
-        num_pages=args.num_pages))
+        policy=policy, seed=args.seed, breakdown=args.breakdown,
+        fwd_kw=fwd_kw, obs=obs, megatick_k=args.megatick, pool=args.pool,
+        page_size=args.page_size, num_pages=args.num_pages))
     eng.warmup()    # build and capture off-clock
     completed = eng.run(reqs)
     for c in completed[: min(8, len(completed))]:

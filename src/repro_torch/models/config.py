@@ -1,7 +1,7 @@
 """Model configuration: a copy of the JAX package's ``ModelConfig``
 (src/repro/models/transformer.py), field for field, so a configuration
-reads the same in both packages.  The port runs the dense and MoE
-families (``moe`` a models/moe.MoEConfig)."""
+reads the same in both packages.  The port runs all six families
+(``moe`` a models/moe.MoEConfig)."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,9 +1,9 @@
 """Transformer building blocks, ported from src/repro/models/layers.py:
 the MX quantization policy at the GEMM boundaries (``QuantPolicy``),
-GEMMs with f32 accumulation (and an optional bias), RMSNorm, NeoX RoPE,
-SwiGLU, GELU and softplus as JAX computes them, the recurrent families'
-causal conv and block-start captures (models/ssm.py, models/rglru.py),
-and bidirectional GQA attention with the BAOS fusion
+GEMMs with f32 accumulation (and an optional bias), RMSNorm, LayerNorm,
+NeoX RoPE, SwiGLU, GELU and softplus as JAX computes them, the recurrent
+families' causal conv and block-start captures (models/ssm.py,
+models/rglru.py), and bidirectional GQA attention with the BAOS fusion
 (kernels/flash_bidir.py on the card), plus the seeded parameter init with
 the JAX package's distributions."""
 from __future__ import annotations
@@ -64,6 +64,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """JAX's ``layer_norm``: mean and variance in f32, the normed value
+    rounded to x.dtype, then ``* w + b`` in that dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

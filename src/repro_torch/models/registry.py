@@ -1,10 +1,10 @@
 """Model registry of the port: ``build_model(cfg, device)`` returns a model
 with the JAX package's contract (``cfg``, ``init``, ``init_cache``,
-``forward``, ``supports_head_mode``) bound to one device.  Families dense
-and moe (models/transformer.py), ssm (models/ssm.MambaModel) and hybrid
-(models/rglru.GriffinModel): ``FAMILIES``.  The others raise
-NotImplementedError naming ROADMAP.md; each model checks its own
-family's features."""
+``forward``, ``supports_head_mode``) bound to one device.  All six
+families of the JAX package (``FAMILIES``): dense and moe
+(models/transformer.py), ssm (models/ssm.MambaModel), hybrid
+(models/rglru.GriffinModel), audio (models/whisper.WhisperModel) and vlm
+(models/vlm.VLMModel); each model checks its own family's features."""
 from __future__ import annotations
 
 from typing import Dict, Union
@@ -16,6 +16,8 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rglru import GriffinModel
 from repro_torch.models.ssm import MambaModel
+from repro_torch.models.vlm import VLMModel
+from repro_torch.models.whisper import WhisperModel
 
 
 class TransformerModel:
@@ -45,14 +47,14 @@ class TransformerModel:
 
 
 _MODELS = {"dense": TransformerModel, "moe": TransformerModel,
-           "ssm": MambaModel, "hybrid": GriffinModel}
+           "ssm": MambaModel, "hybrid": GriffinModel, "audio": WhisperModel,
+           "vlm": VLMModel}
 FAMILIES = tuple(_MODELS)
 
 
 def build_model(cfg: ModelConfig, device: Union[str, torch.device] = "cuda"):
     model = _MODELS.get(cfg.family)
     if model is None:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet "
-            f"({transformer.ROADMAP}); the port runs {FAMILIES}")
+        raise ValueError(f"unknown model family {cfg.family!r}; the port "
+                         f"runs {FAMILIES}")
     return model(cfg, device)

@@ -1,14 +1,18 @@
-"""dLLM transformer, dense or MoE, ported from
+"""dLLM transformer, dense or MoE (also the decoder of the audio family
+and the backbone of the vlm family), ported from
 src/repro/models/transformer.py, and the helpers the recurrent families
 share with it (``embed``, ``apply_norm``, ``cache_attention``,
 ``head_logits``, ``rows``).
 
 Parameters are plain dicts: ``embed`` (V, d), ``layers`` (a list of
 per-layer dicts ``ln1, ln2, wq, wk, wv, wo, [bq, bk, bv]`` and the FFN:
-``w_gate, w_up, w_down``, or for an MoE model the JAX ``moe`` subtree,
-models/moe.py), ``final_norm`` (d,) and ``lm_head`` (d, V) -- the JAX
-layout, with the layer stack split into a list and not an ``nn.Linear``
-(which would store the head transposed).
+``w_gate, w_up, w_down`` (SwiGLU), ``w_in, b_in, w_out, b_out`` (GELU),
+or for an MoE model the JAX ``moe`` subtree, models/moe.py; with
+cross-attention also ``ln_x`` and ``xattn`` ``{wq, wk, wv, wo}``),
+``final_norm`` and ``lm_head`` (d, V) -- the JAX layout, with the layer
+stack split into a list and not an ``nn.Linear`` (which would store the
+head transposed).  A norm is its weight (d,) for RMSNorm, and JAX's
+``{"w", "b"}`` for LayerNorm (``norm="ln"``).
 
 ``forward`` runs a segment of tokens at positions ``seg_start + r``.
 Without a cache it is the full recompute (like the JAX forward it then
@@ -20,6 +24,13 @@ whole cache through ``kv_valid``: the warm step (the whole sequence,
 block or block + suffix, reading the stored calibration).  The JAX
 forward returns a new cache instead; writing in place saves the copy, and
 is the write-back the paper describes.
+
+``forward(embeds=...)`` takes the segment's embeddings in place of its
+tokens (the vlm family's image splice, models/vlm.py), and
+``forward(cross_kv=(k, v))`` adds a cross-attention sublayer to every
+layer over the stacked encoder K/V (n_layers, B, S_enc, Hkv, D) (the
+audio family, models/whisper.py): no RoPE, no mask, after the
+self-attention residual and before ``ln2``.
 
 ``seg_start`` (and the start of ``logits_slice``) may also be a device
 tensor of one element: the block start a captured CUDA graph reads from
@@ -49,13 +60,13 @@ SegStart = Union[int, torch.Tensor]
 
 
 # this module's stacks (models/registry.py maps every family to its model)
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a dense or MoE config's features the port lacks: a norm
-    other than RMSNorm, an FFN other than SwiGLU, causal attention, a head
-    dim flash_bidir does not take.  A config of another family is not this
+    """Raise for a transformer config's features the port lacks: causal
+    attention, a head dim flash_bidir does not take (norms rms and ln, FFNs
+    swiglu and gelu are ported).  A config of another family is not this
     module's stack (ValueError)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not a transformer stack "
@@ -63,59 +74,90 @@ def check_supported(cfg: ModelConfig) -> None:
                          f"models/registry.build_model")
     if (cfg.family == "moe") != (cfg.moe is not None):
         raise ValueError(f"family {cfg.family!r} with moe={cfg.moe!r}")
-    if cfg.norm != "rms" or cfg.ffn != "swiglu" or cfg.attn_mode != "bidir":
+    if cfg.norm not in ("rms", "ln") or cfg.ffn not in ("swiglu", "gelu") \
+            or cfg.attn_mode != "bidir":
         raise NotImplementedError(
             f"norm={cfg.norm!r}, ffn={cfg.ffn!r}, attn_mode="
             f"{cfg.attn_mode!r} are not ported yet ({ROADMAP}); the port "
-            "runs rms / swiglu / bidir")
+            "runs rms or ln / swiglu or gelu / bidir")
     flash_bidir.check_head_dim(cfg.d_head)
 
 
-def apply_norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig
-               ) -> torch.Tensor:
-    """The config's norm (RMSNorm: ``check_supported`` refuses LayerNorm),
-    JAX's ``_apply_norm``."""
-    return layers.rms_norm(x, w, cfg.norm_eps)
+def apply_norm(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    """The config's norm, JAX's ``_apply_norm``: RMSNorm with weight ``p``,
+    or LayerNorm with ``p`` = ``{"w", "b"}``."""
+    if cfg.norm == "ln":
+        return layers.layer_norm(x, p["w"], p["b"], cfg.norm_eps)
+    return layers.rms_norm(x, p, cfg.norm_eps)
+
+
+def norm_params(cfg: ModelConfig, d: int, device) -> Union[torch.Tensor,
+                                                            Dict]:
+    """A fresh norm: unit weight, and for LayerNorm a zero bias."""
+    w = torch.ones((d,), dtype=cfg.torch_dtype, device=device)
+    if cfg.norm == "ln":
+        return {"w": w, "b": torch.zeros_like(w)}
+    return w
+
+
+def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
+                      device: torch.device, cross_attn: bool = False
+                      ) -> Dict:
+    """One layer's seeded parameters (``init_params``'s distributions),
+    with the cross-attention sublayer when ``cross_attn``."""
+    dt = cfg.torch_dtype
+    d, ff = cfg.d_model, cfg.d_ff
+    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+
+    def dense(d_in, d_out):
+        return layers.dense_init(gen, d_in, d_out, dt, device)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dt, device=device)
+
+    lp = {"ln1": norm_params(cfg, d, device),
+          "ln2": norm_params(cfg, d, device),
+          "wq": dense(d, hq), "wk": dense(d, hkv), "wv": dense(d, hkv),
+          "wo": dense(hq, d)}
+    if cfg.moe is not None:
+        lp["moe"] = moe_lib.init_moe_params(gen, d, cfg.moe, dt, device)
+    elif cfg.ffn == "swiglu":
+        lp.update(w_gate=dense(d, ff), w_up=dense(d, ff),
+                  w_down=dense(ff, d))
+    else:
+        lp.update(w_in=dense(d, ff), b_in=zeros(ff), w_out=dense(ff, d),
+                  b_out=zeros(d))
+    if cfg.qkv_bias:
+        for name, n in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            lp[name] = zeros(n)
+    if cross_attn:
+        lp["ln_x"] = norm_params(cfg, d, device)
+        lp["xattn"] = {"wq": dense(d, hq), "wk": dense(d, hkv),
+                       "wv": dense(d, hkv), "wo": dense(hq, d)}
+    return lp
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: Union[str, torch.device] = "cuda") -> Dict:
+                device: Union[str, torch.device] = "cuda",
+                cross_attn: bool = False) -> Dict:
     """Seeded parameters with the JAX package's distributions (normal
     weights with std sqrt(2 / (d_in + d_out)), embeddings with std 0.02,
-    unit norms, zero biases; models/moe.init_moe_params for the experts).
+    unit norms, zero biases; models/moe.init_moe_params for the experts),
+    each layer with a cross-attention sublayer when ``cross_attn``.
     The draws are torch's, not JAX's: for parity tests convert the JAX
     parameters with ``bridge``.  The LM head is stored with 16-byte rows
     for the fused head's bf16 route (kernels/fused_head_sampling.pad_head)."""
     check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dt = cfg.torch_dtype
-    d, ff = cfg.d_model, cfg.d_ff
-    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
-
-    def dense(d_in, d_out):
-        return layers.dense_init(gen, d_in, d_out, dt, dev)
-
-    def ones(n):
-        return torch.ones((n,), dtype=dt, device=dev)
-
-    stack = []
-    for _ in range(cfg.n_layers):
-        lp = {"ln1": ones(d), "ln2": ones(d),
-              "wq": dense(d, hq), "wk": dense(d, hkv), "wv": dense(d, hkv),
-              "wo": dense(hq, d)}
-        if cfg.moe is not None:
-            lp["moe"] = moe_lib.init_moe_params(gen, d, cfg.moe, dt, dev)
-        else:
-            lp.update(w_gate=dense(d, ff), w_up=dense(d, ff),
-                      w_down=dense(ff, d))
-        if cfg.qkv_bias:
-            for name, n in (("bq", hq), ("bk", hkv), ("bv", hkv)):
-                lp[name] = torch.zeros((n,), dtype=dt, device=dev)
-        stack.append(lp)
-    return {"embed": layers.embed_init(gen, cfg.vocab, d, dt, dev),
-            "layers": stack, "final_norm": ones(d),
-            "lm_head": fused_head_sampling.pad_head(dense(d, cfg.vocab))}
+    d = cfg.d_model
+    stack = [init_layer_params(gen, cfg, dev, cross_attn)
+             for _ in range(cfg.n_layers)]
+    return {"embed": layers.embed_init(gen, cfg.vocab, d, cfg.torch_dtype,
+                                       dev),
+            "layers": stack, "final_norm": norm_params(cfg, d, dev),
+            "lm_head": fused_head_sampling.pad_head(layers.dense_init(
+                gen, d, cfg.vocab, cfg.torch_dtype, dev))}
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_tot: int,
@@ -161,13 +203,33 @@ def qkv(h: torch.Tensor, lp: Dict, cfg: ModelConfig,
 
 def ffn(h: torch.Tensor, lp: Dict, cfg: ModelConfig, quant=None
         ) -> torch.Tensor:
-    """A layer's FFN on its normed input: SwiGLU, or for an MoE layer
-    models/moe.moe_ffn with its aux loss dropped (nothing here trains)."""
+    """A layer's FFN on its normed input: SwiGLU, the GELU MLP with biases
+    (``jax.nn.gelu``'s tanh form between two biased products), or for an
+    MoE layer models/moe.moe_ffn with its aux loss dropped (nothing here
+    trains)."""
     if cfg.moe is not None:
         return moe_lib.moe_ffn(h, lp["moe"], cfg.moe, quant)[0]
+    if cfg.ffn == "gelu":
+        return layers.qdot(layers.gelu(layers.qdot(h, lp["w_in"], quant,
+                                                   lp["b_in"])),
+                           lp["w_out"], quant, lp["b_out"])
     return layers.qdot(layers.swiglu(layers.qdot(h, lp["w_gate"], quant),
                                      layers.qdot(h, lp["w_up"], quant)),
                        lp["w_down"], quant)
+
+
+def cross_attention(x: torch.Tensor, lp: Dict, ck: torch.Tensor,
+                    cv: torch.Tensor, cfg: ModelConfig, quant=None
+                    ) -> torch.Tensor:
+    """The cross-attention sublayer's residual branch: ``ln_x``, the query
+    (no RoPE, no bias), bidirectional attention over every encoder frame
+    of ck/cv (B, S_enc, Hkv, D) with no mask, the output projection."""
+    B, S, _ = x.shape
+    Hq, D = cfg.n_heads, cfg.d_head
+    hx = apply_norm(x, lp["ln_x"], cfg)
+    q = layers.qdot(hx, lp["xattn"]["wq"], quant).reshape(B, S, Hq, D)
+    out = layers.attention(q, ck, cv)
+    return layers.qdot(out.reshape(B, S, Hq * D), lp["xattn"]["wo"], quant)
 
 
 def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
@@ -223,27 +285,33 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
                             q_offset=0 if on_device else seg_start)
 
 
-def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+def forward(params: Dict, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None, *,
+            embeds: Optional[torch.Tensor] = None,
             cache: Optional[Dict] = None, seg_start: SegStart = 0,
             kv_valid: Optional[torch.Tensor] = None,
             baos_cfg: Optional[baos_lib.BAOSConfig] = None,
             calibrate: bool = False,
             calib_mask: Optional[torch.Tensor] = None,
             logits_slice: Optional[Tuple[int, int]] = None,
-            head_mode: str = "logits", quant=None
+            head_mode: str = "logits", quant=None,
+            cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """tokens (B, S) at positions seg_start + r -> (logits (B, S', V), or
-    with ``head_mode='hidden'`` the final-norm hidden states (B, S', d);
-    the cache), S' = S or the ``logits_slice`` (start, length).  With
-    ``cache``: ``baos_cfg`` (off by default), ``calibrate`` (recompute the
-    calibration from this segment's K/V, restricted to ``calib_mask``
-    (B, S) when given) and ``kv_valid`` (B, s_tot).  ``quant``: a
-    ``layers.QuantPolicy`` at every GEMM boundary (None: none)."""
+    """tokens (B, S) -- or their ``embeds`` (B, S, d) -- at positions
+    seg_start + r -> (logits (B, S', V), or with ``head_mode='hidden'``
+    the final-norm hidden states (B, S', d); the cache), S' = S or the
+    ``logits_slice`` (start, length).  With ``cache``: ``baos_cfg`` (off
+    by default), ``calibrate`` (recompute the calibration from this
+    segment's K/V, restricted to ``calib_mask`` (B, S) when given) and
+    ``kv_valid`` (B, s_tot).  ``quant``: a ``layers.QuantPolicy`` at every
+    GEMM boundary (None: none).  ``cross_kv``: the stacked encoder K/V
+    (n_layers, B, S_enc, Hkv, D) each, for the cross-attention
+    sublayers."""
     check_supported(cfg)
     if head_mode not in ("logits", "hidden"):
         raise ValueError(f"unknown head_mode {head_mode!r}")
     baos_cfg = baos_cfg or baos_lib.BAOSConfig(enabled=False)
-    B, S = tokens.shape
+    B, S = (tokens if embeds is None else embeds).shape[:2]
     if cache is not None:
         if "k_act" in cache:
             raise NotImplementedError(
@@ -254,11 +322,12 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                 not 0 <= seg_start <= s_tot - S:
             raise ValueError(f"segment [{seg_start}, {seg_start + S}) does "
                              f"not fit a {s_tot}-long cache")
-    x = embed(params, cfg, tokens)
+    x = embed(params, cfg, tokens) if embeds is None \
+        else embeds.to(cfg.torch_dtype)
     positions = start_of(seg_start) + torch.arange(S, device=x.device)
     Hq, D = cfg.n_heads, cfg.d_head
     for i, lp in enumerate(params["layers"]):
-        h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        h = apply_norm(x, lp["ln1"], cfg)
         q, k, v = qkv(h, lp, cfg, positions, quant)
         if cache is None:
             attn = layers.attention(q, k, v, window=cfg.window)
@@ -268,9 +337,12 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                                     cfg, baos_cfg, calibrate, calib_mask)
         x = x + layers.qdot(attn.reshape(B, S, Hq * D), lp["wo"], quant) * \
             cfg.residual_scale
-        h2 = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if cross_kv is not None:
+            x = x + cross_attention(x, lp, cross_kv[0][i], cross_kv[1][i],
+                                    cfg, quant) * cfg.residual_scale
+        h2 = apply_norm(x, lp["ln2"], cfg)
         x = x + ffn(h2, lp, cfg, quant) * cfg.residual_scale
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = apply_norm(x, params["final_norm"], cfg)
     if logits_slice is not None:
         x = rows(x, *logits_slice)
     if head_mode == "hidden":

@@ -53,7 +53,11 @@ CommitEvents equal the slot pool's.
 
 ``EngineConfig.fwd_kw`` carries the forward's keyword arguments, as in
 JAX: ``{"quant": layers.QuantPolicy(...)}`` runs every tick with the MX
-fake-quant at the GEMM boundaries and on the head's operands.
+fake-quant at the GEMM boundaries and on the head's operands;
+``cross_kv`` (whisper's encoder K/V, batch ``num_slots``) and
+``image_embeds`` reach every tick's forward, eager, graphed (read in
+place) and with breakdown.  Like JAX, the paged pool and the megatick
+refuse any but ``quant``.
 
 ``EngineConfig.jit_steps`` (default True) is the JAX field of the same
 name: on the card the tick then replays a captured CUDA graph
@@ -168,7 +172,8 @@ class _Slot:
 class EngineConfig:
     """The JAX EngineConfig's fields; ``seed`` (uint32, the counter-Gumbel
     stream) stands for its ``rng``, and the device is the model's.
-    ``fwd_kw`` takes ``quant`` (a ``models/layers.QuantPolicy``).
+    ``fwd_kw`` takes ``quant`` (a ``models/layers.QuantPolicy``) and, on
+    the slot pool at K = 1, ``cross_kv`` and ``image_embeds``.
     ``pool`` selects the storage: ``"slot"`` (one fixed region per batch
     slot) or ``"paged"`` (block pool + radix prefix cache);
     ``page_size``/``num_pages``/``prefix_cache`` apply to the paged pool
@@ -223,6 +228,13 @@ class ServingEngine:
             raise ValueError(
                 "the paged pool is incompatible with breakdown timing (the "
                 "paged tick is one gather/tick/scatter step)")
+        # the policy is bound into the tick fns, as JAX binds it statically
+        # into its jitted ones; the other kwargs are the tick's inputs
+        self._quant, self.fwd_kw = diffusion.split_fwd_kw(
+            config.fwd_kw or {})
+        if self.paged and self.fwd_kw:
+            raise ValueError(
+                "paged serving does not support extra forward kwargs")
         policy = config.policy or FIFOPolicy()
         self.megatick_k = int(config.megatick_k)
         if self.megatick_k < 1:
@@ -234,6 +246,10 @@ class ServingEngine:
                 raise ValueError(
                     "megatick_k > 1 is incompatible with breakdown timing "
                     "(the megastep is one fused loop on the device)")
+            if self.fwd_kw:
+                raise ValueError(
+                    "megatick serving does not support extra forward "
+                    "kwargs")
             if isinstance(policy, SlowFastPolicy):
                 # step_k moves on device: the loop applies the confidence
                 # early exit per tick without a host round-trip
@@ -248,9 +264,6 @@ class ServingEngine:
                 f"EngineConfig.mesh={config.mesh!r} is not ported yet "
                 "(ROADMAP.md, Queue 1)")
         diffusion.check_supported(dcfg)
-        # the policy is bound into the tick fns, as JAX binds it statically
-        # into its jitted ones
-        self._quant = diffusion._quant_of(config.fwd_kw or {})
         self.config = config
         self.model = model
         self.params = params
@@ -708,7 +721,8 @@ class ServingEngine:
             zeros = torch.zeros((B,), dtype=torch.int32, device=self.device)
             diffusion.batched_tick(self.model, self.params, self.x,
                                    self.kv_valid, zeros, zeros, 0, cache,
-                                   self.dcfg, self.mask_id, self._quant)
+                                   self.dcfg, self.mask_id, self._quant,
+                                   **self.fwd_kw)
         else:
             zeros = np.zeros((B,), np.int32)
             state = diffusion.megatick_state(
@@ -740,7 +754,7 @@ class ServingEngine:
         self._stage.copy_(self._stage_host, non_blocking=True)
         x_new, _, conf_min, masks_left = self._tick_fn(
             self.params, self.x, self.kv_valid, self._stage[:B],
-            self._stage[B:2 * B], self._stage[2 * B:], cache)
+            self._stage[B:2 * B], self._stage[2 * B:], cache, **self.fwd_kw)
         self.x.copy_(x_new)
         return conf_min, masks_left
 
@@ -783,7 +797,7 @@ class ServingEngine:
         """The breakdown's forward stage; returns its feats (with a graph,
         its output tensor, which the sampling graph reads by address)."""
         feats, new_cache = self._fwd_fn(self.params, self.x, self.kv_valid,
-                                        bs, cache)
+                                        bs, cache, **self.fwd_kw)
         if self.mode == "warm":
             self.pool.update(new_cache)
         return feats
@@ -888,7 +902,7 @@ class ServingEngine:
                 self.model, self.params, self.x, self.kv_valid,
                 torch.as_tensor(bs_np, device=self.device),
                 torch.as_tensor(k_np, device=self.device), seed, cache,
-                self.dcfg, self.mask_id, self._quant)
+                self.dcfg, self.mask_id, self._quant, **self.fwd_kw)
             self.x = x_new
             if self.mode == "warm":
                 self.pool.update(new_cache)

@@ -401,8 +401,8 @@ def build_frontend(model, params, dcfg, *, model_name: str,
     forward/sampling stages so the per-stage histograms and the drift
     monitor see the paper's Fig. 1 split; ``drift=True`` arms each replica
     with the sim/analytical per-tick stage prediction for this exact
-    model/serving config (a model family the analytical model does not
-    cover leaves drift off).  ``profile_ticks=N`` wraps the first N ticks
+    model/serving config (every family: the analytical model's
+    dense-shaped estimate, as in JAX).  ``profile_ticks=N`` wraps the first N ticks
     of each replica in a torch.profiler trace under ``profile_dir``.
     ``megatick_k=K`` fuses up to K ticks per engine dispatch
     (docs/megatick.md) — commit callbacks still see every per-tick event.
@@ -428,13 +428,10 @@ def build_frontend(model, params, dcfg, *, model_name: str,
     if drift:
         from repro_torch.obs.drift import modeled_tick_stages
         from repro_torch.sim.analytical import HostConfig
-        try:
-            modeled = modeled_tick_stages(
-                model.cfg, dcfg, batch=num_slots,
-                prompt_len=max(1, max_seq_len - dcfg.gen_length),
-                megatick_k=megatick_k, host=HostConfig(), paged=paged)
-        except NotImplementedError as e:   # family outside the model
-            print(f"drift monitor disabled (no analytical model): {e}")
+        modeled = modeled_tick_stages(
+            model.cfg, dcfg, batch=num_slots,
+            prompt_len=max(1, max_seq_len - dcfg.gen_length),
+            megatick_k=megatick_k, host=HostConfig(), paged=paged)
     host_stages = ("dispatch", "device_sync") + (
         ("paged_io",) if paged else ())
     workers = []

@@ -69,10 +69,6 @@ LATENCY_LIB: Dict[str, int] = {
     name: instr.lat for name, instr in ISA.items()
     if instr.engine in ("vector", "scalar")}
 
-# model families the transformer pass below costs; the others (ssm,
-# hybrid, audio, vlm) have layers it does not model
-COVERED_FAMILIES = ("dense", "moe")
-
 
 @dataclasses.dataclass
 class Cost:
@@ -383,12 +379,8 @@ def end_to_end(cfg: ModelConfig, hw: HWConfig, *, B: int, prompt: int,
     (B/data_shards) rows x (V/model_shards) head columns (the model pass is
     still charged globally — forward TP is out of scope here).
 
-    Raises NotImplementedError for a model family outside
-    ``COVERED_FAMILIES``."""
-    if cfg.family not in COVERED_FAMILIES:
-        raise NotImplementedError(
-            f"the analytical model does not cover family {cfg.family!r} "
-            f"(covered: {', '.join(COVERED_FAMILIES)})")
+    Every family gets the dense-shaped estimate, as in the JAX package:
+    it holds no recurrent scan and no encoder or cross-attention."""
     n_blocks = gen_len // block_len
     lrows = 0 if sampling_engine in ("fused", "sharded") else B * block_len
     model = model_side_cost(cfg, hw, B=B, prompt=prompt, gen_len=gen_len,

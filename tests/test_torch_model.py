@@ -16,6 +16,7 @@ from repro_torch import bridge
 from repro_torch.configs import base as tbase
 from repro_torch.core import baos as tbaos
 from repro_torch.models import layers as tlayers
+from repro_torch.models import registry as tregistry
 from repro_torch.models import transformer as ttr
 from repro_torch.models.registry import build_model as tbuild
 
@@ -164,15 +165,18 @@ def test_seeded_init_shapes_and_scales():
 
 def test_unported_features_raise():
     """Features still unported raise NotImplementedError pointing at the
-    ROADMAP: model families the port does not run (here audio; MoE is
-    tests/test_torch_moe.py, ssm and hybrid tests/test_torch_ssm.py and
-    tests/test_torch_rglru.py) and the split k_act/v_act cache.  The
-    QuantPolicy is ported: forward(quant=...) gives JAX's logits (its
+    ROADMAP: the split k_act/v_act cache.  Every model family is ported:
+    build_model builds all six (audio and vlm since their slice; their
+    parity is tests/test_torch_whisper.py and tests/test_torch_vlm.py).
+    The QuantPolicy is ported: forward(quant=...) gives JAX's logits (its
     parity in full is tests/test_torch_quant.py)."""
     cfg = tbase.get_config("llada-8b", smoke=True)
-    audio = tbase.ModelConfig(**{**cfg.__dict__, "family": "audio"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(audio, "cpu")
+    for arch in ("whisper-medium", "internvl2-26b"):
+        model = tbuild(tbase.get_config(arch), "cpu")
+        assert type(model).__name__ == type(
+            jbuild(jbase.get_config(arch))).__name__
+    assert set(tregistry.FAMILIES) == {"dense", "moe", "ssm", "hybrid",
+                                       "audio", "vlm"}
     split = dict(ttr.init_cache(cfg, 1, 16, "cpu"), k_act=None, v_act=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttr.forward({}, cfg, torch.zeros(1, 8, dtype=torch.int32),

@@ -405,14 +405,15 @@ def test_serve_command_on_an_moe_arch(capsys):
 
 
 def test_moe_is_a_ported_family():
-    """build_model builds every MoE config; the families the port does not
-    run (here vlm) raise."""
+    """build_model builds every MoE config, and a dense config relabelled
+    vlm (the vlm family's backbone is the dense stack) as JAX's VLMModel;
+    a transformer config whose moe field disagrees with its family is
+    refused."""
     for arch in MOE:
         assert tbuild(tbase.get_config(arch), "cpu").cfg.family == "moe"
     vlm = dataclasses.replace(tbase.get_config("llada-8b", smoke=True),
                               family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(vlm, "cpu")
+    assert type(tbuild(vlm, "cpu")).__name__ == "VLMModel"
     with pytest.raises(ValueError):
         ttr.check_supported(dataclasses.replace(
             tbase.get_config("llada-moe-7b-a1b", smoke=True), moe=None))

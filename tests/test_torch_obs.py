@@ -205,7 +205,9 @@ def test_slo_classes_equal():
 
 @pytest.mark.parametrize("megatick_k", [1, 4])
 @pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
-@pytest.mark.parametrize("arch", ["llada-8b", "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", [
+    "llada-8b", "qwen2-0.5b", "llada-moe-7b-a1b", "mamba2-130m",
+    "recurrentgemma-2b", "whisper-medium", "internvl2-26b"])
 def test_modeled_tick_stages_equal(arch, paged, megatick_k):
     kw = dict(gen_length=64, block_length=16, steps_per_block=8,
               cache_mode="dual")
@@ -218,11 +220,17 @@ def test_modeled_tick_stages_equal(arch, paged, megatick_k):
     assert ("paged_io" in stages[1]) == paged
 
 
-def test_analytical_model_rejects_uncovered_family():
-    cfg = dataclasses.replace(tbase.get_config("llada-8b"), family="audio")
-    with pytest.raises(NotImplementedError, match="audio"):
-        tdrift.modeled_tick_stages(cfg, tdiff.DiffusionConfig(), batch=1,
-                                   prompt_len=8)
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b",
+                                  "whisper-medium", "internvl2-26b"])
+def test_analytical_model_covers_every_family(arch):
+    """end_to_end gives every family JAX's dense-shaped estimate (no scan,
+    no encoder): the same result field for field, in each cache mode."""
+    for mode in ("none", "prefix", "dual"):
+        got, want = (a.end_to_end(b.get_config(arch), a.HWConfig(), B=4,
+                                  prompt=32, gen_len=64, block_len=16,
+                                  steps=8, cache_mode=mode)
+                     for a, b in ((tana, tbase), (jana, jbase)))
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_drift_monitor_reports_equal():

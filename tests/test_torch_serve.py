@@ -118,10 +118,13 @@ def test_requests_and_flags_equal_jax():
 
 
 def test_drift_armed_for_dense_configs():
+    """make_obs arms drift for every arch the port registers (all six
+    families), as JAX's serve does."""
     args = serve.build_parser().parse_args(SMALL)
     from repro_torch.configs import base
-    for arch in ("llada-8b", "qwen2-0.5b", "llama3.2-3b", "minicpm-2b",
-                 "codeqwen1.5-7b"):
+    archs = sorted(base.REGISTRY)
+    assert len(archs) == 12
+    for arch in archs:
         cfg = base.get_config(arch)
         obs = serve.make_obs(args, cfg, serve.make_dcfg(args), 2, 32)
         assert obs.drift is not None, arch
