@@ -38,6 +38,13 @@ Phases, each fatal on failure:
                encoder self-attention (4, 1500, 16, 64), no mask, against
                SDPA; stablemax_sampling at (64, 51865) and (64, 92553)
                bf16 (rows not 16-byte aligned) against softmax + max;
+               phase 10's kernel cases: the fused head at (64, 4096,
+               126464) bf16 and stablemax_sampling at (64, 126464) bf16 in
+               mxint8, mxint4, mxfp6_e3m2 and mxfp4_e2m1 (NEW_FMTS), T 0
+               and 0.8, against plain, each timed with its bound and its
+               library call (torch.matmul; softmax + max); every format of
+               core/mx on the f32 routes, the padded heads, Stable-Max's
+               (64, 126464) f32 and (3, 1003) cases and the device seed;
   3. e2e    -- llada-8b at full width (32 layers, d 4096, bf16, seeded
                random weights): one-slot generate in cache mode none,
                stepped through tick_forward and tick_sample, and in modes
@@ -123,7 +130,8 @@ Phases, each fatal on failure:
                event log (both valid, logquery --validate exits 0), and
                with --legacy; each exits 0.
   7. moe  -- the MoE family, one model at a time after llada-8b is freed:
-               llada-moe-7b-a1b at full width and depth (24 layers, d 2048,
+               llada-moe-7b-a1b at full width, 8 of its 24 layers (a
+               depth cut for the script's time limit; d 2048,
                64 experts top-2, bf16, seeded random weights) through
                generate (mode none stepped, each step's sampling held
                against plain; dual + BAOS and prefix + BAOS as phase 3),
@@ -178,8 +186,29 @@ Phases, each fatal on failure:
                image embeddings through generate (prompts 288, gen 64) and
                the engine text-only (warm and none, eager, K=1, K=8; paged
                warm K=1).
+  10. formats, random, sim -- on llada-8b after phase 6, in the main
+               process (budget PHASE10_BUDGET_S): the engine's warm path
+               graphed K=1 for 16 ticks at sampling format mxint4 (the
+               fused head) and at mxint8 on the unfused head
+               (stablemax_sampling), exactly one sampling-kernel and one
+               topk_mask launch a tick and no plain version run; each
+               tick's sampling at 4 x 16 rows against plain in both
+               (check_ticks_sampling); strategy 'random' on the warm path
+               eager K=1, graphed K=1 and K=8 (equal tokens, CommitEvents,
+               ticks; no mask id left), each tick's transfer the plain
+               top-k of the documented draw (sampling.random_select of the
+               tick seed), and generate dual + BAOS graphed = eager; then
+               sim/trace.capture_tick_trace of llada-8b on the meta device
+               at the engine's shape (B 4, s_tot 96, L 16) and Table 6's
+               (B 16, s_tot 384, L 64), head paths fused, unfused and
+               legacy, cache none and warm: an eager tick on the card with
+               a Tracer records the same op list, and each trace's
+               simulated NPU sampling stage (sim/cycle.simulate) is
+               printed beside the card's measured tick_sample.
 Every path's launch counts are zeroed just before it and read just after;
-the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 7, 8 and 9.
+the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 7, 8 and
+9; the fused head's and Stable-Max's rows carry ``by_fmt``, phase 10's
+kernel cases per new format.
 Prints the run's time, the kernels JSON line, the card's name and power
 limit, and last the {"ok": true, ...} line.  Exits non-zero without a
 result when there is no CUDA device or the port is not beside this
@@ -208,6 +237,11 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 LLADA = dict(d=4096, V=126464, mask_id=126336)
+# sampling formats: the three the sampling kernels took before phase 10,
+# then the four MX formats they learnt with it (core/mx.FORMATS)
+BASE_FMTS = ("none", "bf16", "mxfp8_e4m3")
+NEW_FMTS = ("mxint8", "mxint4", "mxfp6_e3m2", "mxfp4_e2m1")
+ALL_FMTS = BASE_FMTS + NEW_FMTS
 # the Pallas kernel each CUDA kernel replaces (def line)
 REPLACES = {
     "fused_head_sampling": "src/repro/kernels/fused_head_sampling.py:134",
@@ -374,7 +408,7 @@ def phase_kernels(gen) -> dict:
         for R in (16, 64, 200):
             h = torch.randn(R, widths["d"], generator=gen,
                             device=DEVICE).to(torch.bfloat16)
-            for fmt in sampling.SUPPORTED_FMTS:
+            for fmt in BASE_FMTS:
                 for temperature in (0.0, 0.8):
                     nd, err = check_head(h, w, widths["mask_id"], fmt,
                                          temperature, 1234)
@@ -391,7 +425,7 @@ def phase_kernels(gen) -> dict:
     # the f32 route (CUDA cores) at a small shape
     w = random_head(dict(d=256, V=3000), gen, torch.float32)
     h = torch.randn(24, 256, generator=gen, device=DEVICE)
-    for fmt in sampling.SUPPORTED_FMTS:
+    for fmt in ALL_FMTS:
         for temperature in (0.0, 0.8):
             nd, err = check_head(h, w, 2999, fmt, temperature, 99)
             log(f"fused_head f32 (24, 256) @ (256, 3000) {fmt} "
@@ -501,6 +535,8 @@ def phase_kernels(gen) -> dict:
         bound_ms=b_ms, bound_by=b_by)
     out["baos_mx_quant"] = check_baos(gen)
     out["stablemax_sampling"] = check_stablemax(gen)
+    for name, rows in check_sampling_formats(gen).items():
+        out[name]["by_fmt"] = rows
     check_audio_vlm_shapes(gen)
     return out
 
@@ -551,7 +587,7 @@ def check_head_ragged(gen) -> None:
         require(w.stride(0) == fhs.padded_vocab(V) and w.shape == (d, V),
                 f"pad_head of V {V}: stride {w.stride(0)}")
         h = torch.randn(R, d, generator=gen, device=DEVICE).to(torch.bfloat16)
-        for fmt in sampling.SUPPORTED_FMTS:
+        for fmt in ALL_FMTS:
             for temperature in (0.0, 0.8):
                 nd, err = check_head(h, w, mid, fmt, temperature, 1234)
                 n_diff, n_rows = n_diff + nd, n_rows + R
@@ -766,7 +802,7 @@ def check_seed_tensor(h, w, mid) -> None:
     s_dev = diffusion.tick_seed(7, torch.tensor([5], device=DEVICE))
     require(int(s_dev) == s_int, "tick_seed on the device differs")
     z = sampling.head_logits(h, w)
-    for fmt in sampling.SUPPORTED_FMTS:
+    for fmt in ALL_FMTS:
         kw = dict(fmt=fmt, suppress_id=mid, temperature=0.8)
         for what, fn, x in (("fused head", fhs.fused_head_sampling, (h, w)),
                             ("stablemax", sms.stablemax_sampling, (z,))):
@@ -985,7 +1021,7 @@ def check_stablemax(gen) -> dict:
              (zs.bfloat16(), edge + 3, f"(3, 1003) bf16, tie at columns "
                                        f"{edge - 1}/{edge}"))
     for zz, sup, what in cases:
-        for fmt in sampling.SUPPORTED_FMTS:
+        for fmt in ALL_FMTS:
             for temperature in (0.0, 0.8):
                 err = check_stablemax_case(zz, fmt, temperature, sup, what)
                 if zz is z and fmt == "mxfp8_e4m3" and temperature == 0.0:
@@ -1008,6 +1044,67 @@ def check_stablemax(gen) -> dict:
         library_ms=time_ms(lambda: torch.max(torch.softmax(z, dim=-1),
                                              dim=-1), 50),
         bound_ms=b_ms, bound_by=b_by)
+
+
+def check_sampling_formats(gen) -> dict:
+    """Phase 10's kernel cases, run with phase 2: the fused head at
+    (64, 4096, 126464) bf16 and stablemax_sampling at (64, 126464) bf16
+    (logits the head makes) in each MX format the two kernels learnt with
+    phase 10 (NEW_FMTS), greedy and T 0.8, against their plain versions
+    (check_head, check_stablemax_case: tokens equal off near-ties, at most
+    1% of rows, conf 1e-2), each timed greedy: device ms (kernel_ms, a
+    graph of 20 calls), CUDA events back to back, the plain version's, the
+    bound, and the library call's device ms (torch.matmul for the head,
+    softmax + max for Stable-Max).  Returns {kernel: {fmt: row}}."""
+    from repro_torch.core import sampling
+    from repro_torch.kernels import fused_head_sampling as fhs
+    from repro_torch.kernels import stablemax_sampling as sms
+    R, d, V, mid = 64, LLADA["d"], LLADA["V"], LLADA["mask_id"]
+    w = random_head(LLADA, gen)
+    h = torch.randn(R, d, generator=gen, device=DEVICE).to(torch.bfloat16)
+    z = sampling.head_logits(h, w)
+    hb_ms, hb_by = bound(R * d * 2 + d * V * 2 + R * 8, 2.0 * R * d * V,
+                         BF16_FLOPS)
+    zb_ms, zb_by = bound(z.numel() * 2 + R * 8, 4.0 * z.numel(), F32_FLOPS)
+    head_lib = kernel_ms(lambda: torch.matmul(h, w), 20, "torch.matmul")
+    sm_lib = kernel_ms(lambda: torch.max(torch.softmax(z, -1), -1), 20,
+                       "softmax + max")
+    out = {"fused_head_sampling": {}, "stablemax_sampling": {}}
+    for fmt in NEW_FMTS:
+        head_err, sm_err = [], []
+        for temperature in (0.0, 0.8):
+            nd, err = check_head(h, w, mid, fmt, temperature, 1234)
+            require(nd <= 0.01 * R, f"fused head {fmt} T={temperature}: "
+                                    f"{nd}/{R} rows differ (> 1%)")
+            log(f"fused_head bf16 ({R}, {d}) @ ({d}, {V}) {fmt} "
+                f"T={temperature}: rows differing {nd}/{R}, conf max abs "
+                f"err {err:.3g}")
+            head_err.append(err)
+            sm_err.append(check_stablemax_case(z, fmt, temperature, mid,
+                                               f"({R}, {V}) bf16"))
+        kw = dict(fmt=fmt, suppress_id=mid)
+        fh = lambda: fhs.fused_head_sampling(h, w, **kw)  # noqa: E731
+        sm = lambda: sms.stablemax_sampling(z, **kw)  # noqa: E731
+        rows = (
+            ("fused_head_sampling", fh, lambda: fhs.fused_head_stable_max(
+                h, w, fmt, suppress_id=mid), 3, max(head_err), hb_ms, hb_by,
+             head_lib, "torch.matmul"),
+            ("stablemax_sampling", sm, lambda: sms.stable_max_plain(
+                z, fmt, suppress_id=mid), 10, max(sm_err), zb_ms, zb_by,
+             sm_lib, "softmax + max"))
+        for name, fn, plain, n_plain, err, b_ms, b_by, lib, lib_name in rows:
+            row = dict(max_abs_err=err,
+                       device_ms=kernel_ms(fn, 20, f"{name} {fmt}"),
+                       ms=time_ms(fn, 20), plain_ms=time_ms(plain, n_plain),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            out[name][fmt] = row
+            log(f"{name} {fmt} greedy at the main shape: device "
+                f"{row['device_ms']:.4f} ms (a graph of 20 calls), CUDA "
+                f"events, back to back {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{row['device_ms'] / b_ms:.2f}x; {lib_name} device "
+                f"{lib:.4f} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1332,7 +1429,7 @@ def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
 # in phase 7 and internvl2-26b in phase 9 (~80 s at full depth, over the
 # phase's budget)
 DEPTH_CUTS = {"llada-8b": 16, "moonshot-v1-16b-a3b": 24,
-              "internvl2-26b": 24}
+              "internvl2-26b": 24, "llada-moe-7b-a1b": 8}
 
 
 def cut_depth(cfg, n_layers: int, why: str = "for the script's time limit"):
@@ -1487,19 +1584,31 @@ def fit_depth(cfg):
     return cut_depth(cfg, depth, f"to leave {HEADROOM_GIB} GiB free")
 
 
-def check_ticks_sampling(model, params, gen) -> None:
-    """Each tick's fused-head sampling at the engine's rows (4 slots of 16
-    positions, mode none, full recompute) against the plain version on the
-    same hidden states, with the model's logit_scale, and the tick's
-    commit against the sampled tokens."""
-    from repro_torch.core import diffusion
+def check_ticks_sampling(model, params, gen, dcfg=None) -> None:
+    """Each tick's sampling at the engine's rows (4 slots of 16 positions,
+    mode none, full recompute) against the plain version on the same
+    hidden states, with the model's logit_scale, in ``dcfg``'s sampling
+    format, head path and strategy (default: mxfp8, fused, stablemax):
+    the kernel call the tick makes (the fused head on the (64, d) block,
+    or on the unfused head stablemax_sampling on its (64, V) logits)
+    against its plain version, tokens equal off near-ties; then the tick's
+    commit: its transfer must be the plain top-k of the tick's selection
+    key (the kernel's conf, or under strategy 'random' the documented
+    draw, sampling.random_select of the tick seed), and the committed
+    tokens the sampled ones."""
+    from repro_torch.core import diffusion, sampling
+    from repro_torch.kernels import fused_head_sampling as fhs
+    from repro_torch.kernels import stablemax_sampling as sms
+    from repro_torch.kernels import topk_mask as tk
     cfg = model.cfg
-    dcfg = diffusion.DiffusionConfig(gen_length=32, block_length=16,
-                                     steps_per_block=8)
+    dcfg = dcfg or diffusion.DiffusionConfig(gen_length=32, block_length=16,
+                                             steps_per_block=8)
     prompt = torch.randint(0, cfg.vocab - 200, (4, 24), generator=gen,
                            device=DEVICE)
     state = diffusion.init_state(model, prompt, dcfg, seed=7)
     L, mid, w = dcfg.block_length, cfg.mask_id, params["lm_head"]
+    fmt, scale = dcfg.sampling.fmt, cfg.logit_scale
+    head = diffusion.head_feed_mode(model, dcfg)
     B = prompt.shape[0]
     totals = [0, 0, 0]
     while not state.done:
@@ -1507,26 +1616,53 @@ def check_ticks_sampling(model, params, gen) -> None:
         feats, _ = diffusion.tick_forward(model, params, x, None, None, None,
                                           dcfg)
         k = state.ks[:, state.step_in_block].to(DEVICE)
-        picks = []
-        for r in range(B):
-            picks.append(check_sampling(
-                feats[r, bs:bs + L], w, dcfg.sampling.fmt, mid,
-                x[r:r + 1, bs:bs + L] == mid, k[r:r + 1], totals,
-                cfg.logit_scale))
+        seed = diffusion.tick_seed(state.seed, state.ticks)
+        # the block gathered as tick_sample gathers it: the same product
+        rows = torch.arange(B, device=DEVICE)[:, None]
+        hid = feats[rows, bs + torch.arange(L, device=DEVICE)]
+        m_idx = x[:, bs:bs + L] == mid
+        if head == "fused":
+            h2 = hid.reshape(B * L, -1)
+            conf_k, tok_k = fhs.fused_head_sampling(
+                h2, w, fmt=fmt, suppress_id=mid, logit_scale=scale)
+            _, tok_p = fhs.fused_head_stable_max(
+                h2, w, fmt, suppress_id=mid, logit_scale=scale)
+        else:
+            h2 = None
+            z = sampling.head_logits(hid, w, logit_scale=scale)
+            z = z.reshape(B * L, -1)
+            conf_k, tok_k = sms.stablemax_sampling(z, fmt=fmt,
+                                                   suppress_id=mid)
+            _, tok_p = sms.stable_max_plain(z, fmt, suppress_id=mid)
+        diff = torch.nonzero((tok_k != tok_p) & m_idx.reshape(-1)).flatten()
+        totals[0] += int(m_idx.sum())
+        totals[1] += len(diff)
+        if len(diff):
+            zq = (head_logits_f32(h2[diff], w, fmt, mid, scale)
+                  if h2 is not None else quantized_f32(z[diff], fmt, mid))
+            totals[2] += sum(near_ties(zq, tok_k[diff], 0.0, 0,
+                                       diff.tolist()))
+        select = conf_k.reshape(B, L)
+        if dcfg.sampling.strategy == "random":
+            select = sampling.random_select(seed, (B, L), DEVICE)
+        want = tk.topk_mask_plain(select, m_idx, k)
         x_new, _, _ = diffusion.tick_sample(
-            params, feats, x, torch.full((B,), bs, device=DEVICE), k,
-            diffusion.tick_seed(state.seed, state.ticks), dcfg, mid, model)
-        for r, (tr_k, tok_k) in enumerate(picks):
-            require(torch.equal(x_new[r, bs:bs + L][tr_k[0]],
-                                tok_k[tr_k[0]]),
-                    f"{cfg.name}: tick_sample committed other tokens than "
-                    f"sampled")
+            params, feats, x, torch.full((B,), bs, device=DEVICE), k, seed,
+            dcfg, mid, model)
+        new = x_new[:, bs:bs + L]
+        require(torch.equal(new != x[:, bs:bs + L], want),
+                f"{cfg.name} {fmt} {head} {dcfg.sampling.strategy}: the "
+                f"tick's transfer differs from the plain top-k of its key")
+        require(torch.equal(new[want], tok_k.reshape(B, L)[want]),
+                f"{cfg.name}: tick_sample committed other tokens than "
+                f"sampled")
         state = diffusion.advance(state, x_new)
     require(not bool((state.x == mid).any()), f"{cfg.name}: mask ids left")
     log(f"{cfg.name} ticks at 4 x 16 rows (V {cfg.vocab}, logit_scale "
-        f"{cfg.logit_scale:.4f}, head row stride {w.stride(0)}): sampled "
-        f"tokens differing from plain {totals[1]}/{totals[0]}, of which "
-        f"near-ties {totals[2]}")
+        f"{scale:.4f}, head row stride {w.stride(0)}, {head} head, {fmt}, "
+        f"strategy {dcfg.sampling.strategy}): sampled tokens differing "
+        f"from plain {totals[1]}/{totals[0]}, of which near-ties "
+        f"{totals[2]}; every transfer the plain top-k of its key")
     require(totals[1] == totals[2],
             f"{cfg.name}: a sampled token differs off a near-tie")
 
@@ -2927,7 +3063,8 @@ MOE_CONFIGS = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
 
 
 def phase_moe(gen) -> dict:
-    """7: llada-moe-7b-a1b at full width and depth (24 layers, d 2048, 64
+    """7: llada-moe-7b-a1b at full width and 8 of its 24 layers (a
+    ``DEPTH_CUTS`` cut for the script's time limit, logged; d 2048, 64
     experts top-2, bf16, seeded random weights) through generate (mode
     none stepped with each step's sampling held against plain, dual +
     BAOS and prefix + BAOS), the engine's four paths each eager K=1,
@@ -2950,7 +3087,7 @@ def phase_moe(gen) -> dict:
             total[k] = total.get(k, 0) + n
 
     t_phase = time.perf_counter()
-    cfg = base.get_config(MOE_ARCH)
+    cfg = cut_depth(base.get_config(MOE_ARCH), DEPTH_CUTS[MOE_ARCH])
     model = build_model(cfg, DEVICE)
     t0 = time.perf_counter()
     params = model.init(seed=0)
@@ -3530,6 +3667,284 @@ def check_kwargs_in_place(model, params, gen, kw_a, kw_b) -> None:
             f"{cfg.name}: forward kwargs written in place were not read")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: every sampling format, the random strategy and the simulator
+# ---------------------------------------------------------------------------
+
+# the phase's target, stated before its first run on the card
+PHASE10_BUDGET_S = 45.0
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def no_plain():
+    """The sampling kernels' plain versions raise while this is open: a
+    run inside it computes its sampling on the kernels alone."""
+    from repro_torch.kernels import fused_head_sampling as fhs
+    from repro_torch.kernels import stablemax_sampling as sms
+    from repro_torch.kernels import topk_mask as tk
+
+    def refuse(*_, **__):
+        raise Failure("a plain sampling version ran on the card")
+
+    names = ((fhs, "fused_head_stable_max"), (sms, "stable_max_plain"),
+             (tk, "topk_mask_plain"))
+    saved = [getattr(m, n) for m, n in names]
+    for m, n in names:
+        setattr(m, n, refuse)
+    try:
+        yield
+    finally:
+        for (m, n), f in zip(names, saved):
+            setattr(m, n, f)
+
+
+def check_format_engine(model, params, fmt: str, head_path: str,
+                        n_ticks: int = 16) -> dict:
+    """The engine's warm path, graphed K=1, for n_ticks ticks of the engine
+    trace at sampling format ``fmt`` on ``head_path``: exactly one launch
+    of the path's sampling kernel (the fused head, or on the unfused head
+    stablemax_sampling) and of topk_mask per tick, flash_bidir once per
+    layer and tick, no other kernel, a graph replay per tick, and no plain
+    version called.  Returns the launch counts."""
+    from repro_torch.core import diffusion, sampling
+    from repro_torch.kernels import _build
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = model.cfg
+    dcfg = diffusion.DiffusionConfig(
+        block_length=16, steps_per_block=8, head_path=head_path,
+        sampling=sampling.SamplingConfig(fmt=fmt))
+    eng = ServingEngine(model, params, dcfg,
+                        EngineConfig(num_slots=4, max_seq_len=96,
+                                     mode="warm", jit_steps=True))
+    eng.warmup()
+    for p, g in engine_trace(cfg):
+        eng.submit(Request(prompt=p, gen_length=g))
+    step = graph_step(eng)
+    replays0 = step.replays
+    _build.reset_launch_counts()
+    with no_plain():
+        for _ in range(n_ticks):
+            eng.tick()
+        torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    head = ("fused_head_sampling" if head_path == "fused"
+            else "stablemax_sampling")
+    want = {name: 0 for name in counts}
+    want.update({head: n_ticks, "topk_mask": n_ticks,
+                 "flash_bidir": n_ticks * cfg.n_layers})
+    what = f"engine warm graphed K=1 {head_path} {fmt}"
+    require(eng.ticks_total == n_ticks and
+            step.replays - replays0 == n_ticks,
+            f"{what}: {eng.ticks_total} ticks, "
+            f"{step.replays - replays0} replays")
+    require(counts == want, f"{what}: launches {counts} != {want}")
+    log(f"{what}: {n_ticks} ticks, {n_ticks} graph replays, launches "
+        f"{counts} (exactly one {head} and one topk_mask a tick; no plain "
+        f"version ran)")
+    del eng
+    return counts
+
+
+def check_random_engine(model, params) -> dict:
+    """Strategy 'random' on the engine's warm path over the engine trace:
+    eager K=1, graphed K=1 and graphed K=8 (the megatick) must finish every
+    request with no mask id left and give equal tokens, per-request ticks,
+    CommitEvents and ticks_total, launch exactly the path's kernels (K=8:
+    plus the ticks run after a stop) and call no plain version.  Returns
+    the summed launch counts."""
+    from repro_torch.core import diffusion, sampling
+    from repro_torch.kernels import _build
+    cfg = model.cfg
+    dcfg = diffusion.DiffusionConfig(
+        block_length=16, steps_per_block=8,
+        sampling=sampling.SamplingConfig(strategy="random"))
+    trace = engine_trace(cfg)
+    expected = path_kernels(model, dcfg, True)
+    total = {name: 0 for name in _build.KERNELS}
+    runs = {}
+    for vname, vcfg in VARIANTS:
+        what = f"engine warm random {vname}"
+        with no_plain():
+            eng, keys, tick_ms, counts, _ = engine_run(
+                model, params, dcfg, "warm", trace, True, **vcfg)
+        mt = eng._megatick_fn
+        require(len(eng.completed) == len(trace),
+                f"{what}: requests missing")
+        for c in eng.completed:
+            require(not bool((c.tokens == cfg.mask_id).any()),
+                    f"{what}: request {c.uid} left mask ids")
+        expect_launches(counts, expected, what)
+        runs[vname] = dict(
+            tokens={c.uid: c.tokens.tolist() for c in eng.completed},
+            ticks={c.uid: c.ticks for c in eng.completed}, events=keys,
+            ticks_total=eng.ticks_total, counts=counts,
+            wasted=0 if mt is None else mt.ticks_wasted)
+        for name, n in counts.items():
+            total[name] += n
+        log(f"{what}: {len(eng.completed)} requests, {eng.ticks_total} "
+            f"ticks, tick wall median {sorted(tick_ms)[len(tick_ms) // 2]:.2f}"
+            f" ms, ticks after a stop {runs[vname]['wasted']}, launches "
+            f"{counts}")
+        del eng
+    ref = runs["eager K=1"]
+    per_tick = {k: n // ref["ticks_total"] for k, n in ref["counts"].items()}
+    for vname in list(runs)[1:]:
+        run = runs[vname]
+        for key in ("tokens", "ticks", "events", "ticks_total"):
+            require(run[key] == ref[key], f"engine warm random {vname}: "
+                                          f"{key} differ from eager K=1")
+        want = {k: n + run["wasted"] * per_tick[k]
+                for k, n in ref["counts"].items()}
+        require(run["counts"] == want, f"engine warm random {vname}: "
+                                       f"launches {run['counts']} != {want}")
+    log(f"engine warm random: graphed K=1 and K=8 equal eager K=1 in "
+        f"tokens, per-request ticks, {len(ref['events'])} CommitEvents and "
+        f"ticks_total ({ref['ticks_total']})")
+    return total
+
+
+def check_random_generate(model, params, gen) -> dict:
+    """generate() in cache mode dual with BAOS (mxint4 KV) under strategy
+    'random': graphed (step graphs) equal to eager, no mask id left,
+    exactly the path's kernels launched.  Returns the graphed run's
+    launch counts."""
+    from repro_torch.core import baos, diffusion, sampling
+    from repro_torch.kernels import _build
+    cfg = model.cfg
+    dcfg = diffusion.DiffusionConfig(
+        gen_length=32, block_length=16, steps_per_block=8,
+        cache_mode="dual", baos=baos.BAOSConfig(enabled=True,
+                                                 kv_format="mxint4"),
+        sampling=sampling.SamplingConfig(strategy="random"))
+    prompt = torch.randint(0, cfg.vocab - 200, (1, 16), generator=gen,
+                           device=DEVICE)
+    what = "generate dual + BAOS, strategy random"
+    _build.reset_launch_counts()
+    with no_plain():
+        out = diffusion.generate(model, params, prompt, dcfg, seed=5)
+        torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    eager = diffusion.generate(model, params, prompt, dcfg, seed=5,
+                               jit_steps=False)
+    greedy = diffusion.generate(model, params, prompt, dataclasses.replace(
+        dcfg, sampling=sampling.SamplingConfig()), seed=5)
+    require(torch.equal(out, eager), f"{what}: graphed differs from eager")
+    require(not bool((out == cfg.mask_id).any()), f"{what}: mask ids left")
+    expect_launches(counts, path_kernels(model, dcfg, True), what)
+    log(f"{what}: graphed equals eager ({out.shape[1]} tokens, no mask "
+        f"id), {int((out != greedy).sum())} tokens differ from the "
+        f"stablemax strategy's; launches {counts}")
+    diffusion.clear_step_graphs()
+    return counts
+
+
+def check_traces(model, params, stage_ms: dict, card: str) -> None:
+    """sim/trace.capture_tick_trace of llada-8b on the meta device at the
+    engine's shape (B 4, s_tot 96, L 16) and Table 6's (B 16, s_tot 384,
+    L 64), head paths fused, unfused and legacy, cache modes none and
+    warm (dual): an eager tick on the card with a Tracer active must
+    record the same op list.  Each trace simulated (sim/cycle.simulate at
+    the paper's NPU point): its sampling stage in µs a tick beside the
+    card's tick_sample at the same shape (CUDA events; at the engine's
+    shape also phase 4's profiler device time ``stage_ms``).  Printed, not
+    claimed."""
+    from repro_torch.core import diffusion
+    from repro_torch.sim import cycle, trace
+    cfg = model.cfg
+    mid, V = cfg.mask_id, cfg.vocab
+    for B, S, L, shape in ((4, 96, 16, "engine"), (16, 384, 64, "Table 6")):
+        x = torch.randint(0, V - 200, (B, S), generator=torch.Generator(
+            device=DEVICE).manual_seed(B), device=DEVICE, dtype=torch.int32)
+        x[:, S - L:] = mid
+        kv_valid = torch.ones((B, S), dtype=torch.bool, device=DEVICE)
+        bs = torch.full((B,), S - L, dtype=torch.int32, device=DEVICE)
+        k = torch.full((B,), 2, dtype=torch.int32, device=DEVICE)
+        for head_path in ("fused", "unfused", "legacy"):
+            for cache_mode in ("none", "dual"):
+                dcfg = diffusion.DiffusionConfig(
+                    gen_length=L, block_length=L, steps_per_block=8,
+                    cache_mode=cache_mode, head_path=head_path)
+                t0 = time.perf_counter()
+                cap = trace.capture_tick_trace(model, dcfg, B=B, s_tot=S)
+                t_cap = time.perf_counter() - t0
+                cache = (model.init_cache(B, S) if cache_mode != "none"
+                         else None)
+                tracer = trace.Tracer()
+                diffusion.batched_tick(model, params, x, kv_valid, bs, k, 0,
+                                       cache, dcfg, mid, tracer=tracer)
+                torch.cuda.synchronize()
+                got = [o.to_dict() for o in tracer.finish().ops]
+                what = f"trace {shape} {head_path} cache={cache_mode}"
+                require(got == [o.to_dict() for o in cap.ops],
+                        f"{what}: the tick on the card recorded other ops "
+                        f"than the meta capture")
+                del cache
+                sim = cycle.simulate(cap)
+                stages = {n: round(c) for n, c in sim.stage_cycles().items()}
+                line = (f"{what}: {len(cap)} ops, meta capture "
+                        f"{t_cap:.2f} s, equal to the card's traced eager "
+                        f"tick; simulated NPU (paper §6.2 point) "
+                        f"{sim.time_s * 1e6:.2f} us a tick, stage cycles "
+                        f"{stages}, HBM {sim.hbm_bytes / 1e6:.2f} MB, SRAM "
+                        f"peak {sim.sram_peak_bytes / 1e6:.3f} MB")
+                if cache_mode == "none":
+                    feats, _ = diffusion.tick_forward(
+                        model, params, x, kv_valid, bs, None, dcfg)
+                    ev = time_ms(lambda: diffusion.tick_sample(
+                        params, feats, x, bs, k, 0, dcfg, mid, model), 10)
+                    del feats
+                    line += (f"; the card's tick_sample {ev * 1e3:.1f} us "
+                             f"(CUDA events)")
+                    if shape == "engine":
+                        line += (f", {stage_ms[head_path] * 1e3:.1f} us "
+                                 f"device (phase 4's profiler)")
+                log(line + f" [{card}]")
+        del x, kv_valid
+        torch.cuda.empty_cache()
+
+
+def phase_formats_random_sim(model, params, gen, stage_ms: dict) -> dict:
+    """Phase 10 on llada-8b (the model of phases 3-6): the sampling formats
+    end to end (check_format_engine at mxint4 on the fused head and mxint8
+    on the unfused head; check_ticks_sampling in both), the random
+    strategy (check_random_engine, check_ticks_sampling, check_random_
+    generate) and the trace and simulator at full width (check_traces).
+    Returns the launch counts of its engine and generate runs."""
+    from repro_torch.core import diffusion, sampling
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    card = card_line()
+    launches = {name: 0 for name in _build.KERNELS}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    base = dict(gen_length=32, block_length=16, steps_per_block=8)
+    for fmt, head_path in (("mxint4", "fused"), ("mxint8", "unfused")):
+        add(check_format_engine(model, params, fmt, head_path))
+        check_ticks_sampling(model, params, gen, diffusion.DiffusionConfig(
+            head_path=head_path, sampling=sampling.SamplingConfig(fmt=fmt),
+            **base))
+    add(check_random_engine(model, params))
+    check_ticks_sampling(model, params, gen, diffusion.DiffusionConfig(
+        sampling=sampling.SamplingConfig(strategy="random"), **base))
+    add(check_random_generate(model, params, gen))
+    check_traces(model, params, stage_ms, card)
+    dt = time.perf_counter() - t0
+    log(f"phase 10: {dt:.1f} s against its budget of {PHASE10_BUDGET_S:.0f}"
+        f" s [{card}]; launches {launches}")
+    return launches
+
+
 def _flat(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -3660,6 +4075,10 @@ def main() -> int:
             for name, n in counts.items():
                 launches[name] += n
         log(f"phase 6a-6c: {time.perf_counter() - t0:.1f} s")
+        for name, n in phase_formats_random_sim(
+                model, params, gen,
+                slot_paths["warm"]["sampling_stage"]).items():
+            launches[name] += n
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3688,10 +4107,7 @@ def main() -> int:
                  replaces=REPLACES[name], launches=launches[name],
                  **kernels[name]) for name in _build.KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

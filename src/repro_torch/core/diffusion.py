@@ -61,6 +61,7 @@ from repro_torch.core import baos as baos_lib
 from repro_torch.core import graphs
 from repro_torch.core import sampling as sampling_lib
 from repro_torch.core import schedule as schedule_lib
+from repro_torch.sim import trace as trace_lib
 
 CACHE_MODES = ("none", "dual", "prefix")
 HEAD_PATHS = ("fused", "unfused", "legacy")
@@ -77,6 +78,8 @@ class DiffusionConfig:
     steps_per_block: int = 8
     cache_mode: str = "none"          # none | prefix | dual
     head_path: str = "fused"          # fused | unfused | legacy
+    head_chunk: int = 4096            # vocab chunk of the fused stream's
+    #                                   plain version and of its trace
     sampling: sampling_lib.SamplingConfig = sampling_lib.SamplingConfig()
     baos: baos_lib.BAOSConfig = baos_lib.BAOSConfig(enabled=False)
 
@@ -155,7 +158,7 @@ def _active_sampling_step(feats: torch.Tensor, xa: torch.Tensor,
     if mode == "fused":
         return sampling_lib.fused_sampling_step_full(
             feats, params["lm_head"], xa, mask_id, k, dcfg.sampling, seed,
-            logit_scale=scale, quant=quant)
+            logit_scale=scale, quant=quant, chunk_v=dcfg.head_chunk)
     # unfused: the head after the (B, L, d) slice, so at most (B, L, V)
     # block logits exist; JAX computes this product outside any Pallas
     # kernel, so it stays on torch.matmul
@@ -223,9 +226,18 @@ def tick_forward(model, params, x: torch.Tensor,
     warm step per tick that rewrites every K/V of the cache in place
     (calibrated and MX-quantized with ``dcfg.baos`` on, over the rows'
     active blocks with calib_scope 'active_block') and attends through
-    kv_valid."""
+    kv_valid.  An active tracer (sim/trace.py) records the forward as one
+    XU_FORWARD marker and, on the legacy path, the full-sequence head the
+    forward pays, as JAX's does."""
     check_supported(dcfg)
     head_mode = _forward_head_mode(model, dcfg)
+    if trace_lib.is_active():
+        B, s_tot = x.shape
+        d = int(model.cfg.d_model)
+        trace_lib.emit("XU_FORWARD", (B, s_tot, d), stage="forward",
+                       note=f"cache={cache is not None}")
+        if head_mode == "logits":
+            trace_lib.emit_legacy_head(B * s_tot, d, int(model.cfg.vocab))
     if cache is None:
         return model.forward(params, x, kv_valid=kv_valid,
                              head_mode=head_mode, quant=quant, **fwd_kw)
@@ -272,15 +284,23 @@ def tick_sample(params, feats: torch.Tensor, x: torch.Tensor,
 def batched_tick(model, params, x: torch.Tensor,
                  kv_valid: Optional[torch.Tensor], block_start: torch.Tensor,
                  k: torch.Tensor, seed, cache, dcfg: DiffusionConfig,
-                 mask_id: int, quant=None, **fwd_kw):
+                 mask_id: int, quant=None, tracer=None, **fwd_kw):
     """One engine tick over all serving slots: one forward, one sampling
     call.  Also the cache_mode='none' step of ``generate`` (block_start
     broadcast), so a one-slot engine runs exactly what generate runs.
-    Returns (x_new, cache, conf_min, masks_left)."""
-    feats, cache = tick_forward(model, params, x, kv_valid, block_start,
-                                cache, dcfg, quant, **fwd_kw)
-    x_new, conf_min, masks_left = tick_sample(
-        params, feats, x, block_start, k, seed, dcfg, mask_id, model, quant)
+    Returns (x_new, cache, conf_min, masks_left).
+
+    ``tracer`` (a sim/trace.Tracer) records the tick's instruction stream
+    for the cycle simulator.  Pass it only on eager calls (on meta tensors,
+    sim/trace.capture_tick_trace, or on the card): a replayed CUDA graph
+    runs no Python and would record nothing, so no graphed tick takes
+    one."""
+    with trace_lib.activate(tracer):
+        feats, cache = tick_forward(model, params, x, kv_valid, block_start,
+                                    cache, dcfg, quant, **fwd_kw)
+        x_new, conf_min, masks_left = tick_sample(
+            params, feats, x, block_start, k, seed, dcfg, mask_id, model,
+            quant)
     return x_new, cache, conf_min, masks_left
 
 

@@ -34,6 +34,8 @@ counts (``_build.launch_counts``) count what runs on the card, so the
 counts a capture adds are taken back out and added again at each replay.
 
 Only CUDA tensors are graphed; with CPU tensors the step simply runs.
+A graphed call raises while a trace is recorded (sim/trace.py): a replay
+runs no Python, so it would record nothing; trace an eager call.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from typing import Any, Callable, Dict, Hashable, List, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.sim import trace as trace_lib
 
 
 def _flat_tensors(obj) -> List[torch.Tensor]:
@@ -99,6 +102,10 @@ class GraphedStep:
         dev = _device_of(args + tuple(kw.values()))
         if dev is None or dev.type != "cuda":
             return self.fn(*args, **kw)
+        if trace_lib.is_active():
+            raise RuntimeError("a trace is being recorded: a graphed step "
+                               "records nothing at replay; trace an eager "
+                               "call (jit_steps=False)")
         key = (tuple(_key_of(a) for a in args),
                tuple((name, _key_of(kw[name])) for name in sorted(kw)))
         cap = self._graphs.get(key)

@@ -12,7 +12,7 @@ the same IEEE divisions, so kernels and plain versions agree.
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,6 +30,11 @@ class MXFormat:
     frac_bits: int = 0  # INT formats: fraction bits (OCP fixed point)
     grid_max: float = 0.0   # largest representable element magnitude
 
+    @property
+    def bits_per_element(self) -> float:
+        """Effective storage bits/element incl. the shared E8M0 scale byte."""
+        return self.element_bits + 8.0 / MX_BLOCK
+
 
 MXINT8 = MXFormat("mxint8", 8, 1, True, frac_bits=6, grid_max=127 / 64)
 MXINT4 = MXFormat("mxint4", 4, 1, True, frac_bits=2, grid_max=7 / 4)
@@ -45,6 +50,21 @@ FORMATS.update({
     "int8": MXINT8, "int4": MXINT4, "fp8": MXFP8, "fp6": MXFP6,
     "fp4": MXFP4, "bf16": BF16, "fp64": NONE, "fp32": NONE,
 })
+
+# The format argument of the CUDA kernels (csrc/common.cuh enum Fmt), by
+# canonical name; ``fmt_code`` takes every name and alias of FORMATS.
+FMT_CODES = {"none": 0, "bf16": 1, "mxfp8_e4m3": 2, "mxint8": 3,
+             "mxint4": 4, "mxfp6_e3m2": 5, "mxfp4_e2m1": 6}
+
+
+def fmt_code(fmt: str) -> int:
+    """The kernels' code of format ``fmt`` (a name or an alias of
+    FORMATS); ValueError for a name core/mx does not know."""
+    if fmt not in FORMATS:
+        raise ValueError(f"unknown MX format {fmt!r}; core/mx knows "
+                         f"{sorted(FORMATS)}")
+    return FMT_CODES[FORMATS[fmt].name]
+
 
 _E2M1_GRID = np.array([0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0], np.float32)
 _E3M2_GRID = np.array(
@@ -98,6 +118,16 @@ def _shared_scale(amax: torch.Tensor, fmt: MXFormat) -> torch.Tensor:
     return torch.where(amax > 0, torch.exp2(e), one)
 
 
+def _blockize(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, int]:
+    """Reshape the last axis into (nblocks, block), zero-padding the
+    tail."""
+    n = x.shape[-1]
+    pad = (-n) % block
+    if pad:
+        x = F.pad(x, (0, pad))
+    return x.reshape(*x.shape[:-1], -1, block), pad
+
+
 def _fake_quant_impl(x: torch.Tensor, fmt: MXFormat, block: int, axis: int
                      ) -> torch.Tensor:
     """Blocks of ``block`` along ``axis`` (padded with zeros at its end),
@@ -125,3 +155,45 @@ def mx_fake_quant(x: torch.Tensor, fmt: Union[MXFormat, str],
     if fmt is BF16:
         return x.to(torch.bfloat16).to(x.dtype)
     return _fake_quant_impl(x, fmt, block, axis % x.ndim)
+
+
+def mx_quantize(x: torch.Tensor, fmt: Union[MXFormat, str],
+                block: int = MX_BLOCK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(element codes as f32 (..., nblocks, block), shared scales
+    (..., nblocks, 1)).  Last-axis blocks."""
+    fmt = FORMATS[fmt] if isinstance(fmt, str) else fmt
+    xb, _ = _blockize(x.to(torch.float32), block)
+    amax = torch.amax(torch.abs(xb), dim=-1, keepdim=True)
+    scale = _shared_scale(amax, fmt)
+    return _quant_element(xb / scale, fmt), scale
+
+
+def mx_dequantize(codes: torch.Tensor, scale: torch.Tensor,
+                  n: Optional[int] = None, dtype=torch.float32
+                  ) -> torch.Tensor:
+    x = (codes * scale).reshape(*codes.shape[:-2], -1)
+    if n is not None:
+        x = x[..., :n]
+    return x.to(dtype)
+
+
+def quant_error(x: torch.Tensor, fmt: Union[MXFormat, str],
+                block: int = MX_BLOCK) -> torch.Tensor:
+    """Relative L2 quantization error (the accuracy simulator's metric)."""
+    q = mx_fake_quant(x, fmt, block)
+    num = torch.linalg.vector_norm((q - x).to(torch.float32))
+    den = torch.linalg.vector_norm(x.to(torch.float32)) + 1e-12
+    return num / den
+
+
+def storage_bytes(shape: Tuple[int, ...], fmt: Union[MXFormat, str],
+                  block: int = MX_BLOCK) -> int:
+    """HBM bytes for a tensor stored in ``fmt`` (scales included)."""
+    fmt = FORMATS[fmt] if isinstance(fmt, str) else fmt
+    n = int(np.prod(shape))
+    if fmt is NONE:
+        return 4 * n
+    if fmt is BF16:
+        return 2 * n
+    nblocks = -(-shape[-1] // block) * (n // shape[-1])
+    return (n * fmt.element_bits) // 8 + nblocks  # +1 E8M0 byte per block

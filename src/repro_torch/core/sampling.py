@@ -1,5 +1,5 @@
 """Diffusion sampling stage (paper §3.2, Alg. 2), ported from
-src/repro/core/sampling.py (the main-path subset).
+src/repro/core/sampling.py.
 
 Per masked position, over the vocabulary logit vector z:
 Stable-Max m = max z, i* = argmax z, conf = 1 / sum_j exp(z_j - m), then a
@@ -10,42 +10,102 @@ logits are never stored.  ``sampling_step_full`` takes stored logits (the
 unfused and legacy head paths) through ``stable_max``, one launch of
 kernels/stablemax_sampling.py.  The top-k runs in kernels/topk_mask.py.
 Each kernel module holds the plain PyTorch version the CPU runs.
+
+Sampling precision (paper Fig. 1 / §6.1) is any format of core/mx.FORMATS
+(names and aliases): the logits are fake-quantized to it before the
+reductions, by the kernels on the card.  The transfer strategy is
+"stablemax" (the highest-confidence positions commit) or "random" (a
+uniform draw orders the selection; conf stays the Stable-Max conf).
+
+The trace hooks (sim/trace.py) record what the paper's NPU would execute
+for each call, with JAX's op groups from the same places: ``stable_max``,
+``head_logits``, the fused step's streamed head (emitted once with the
+chunk count of ``_chunk_grid``), ``topk_transfer_mask`` and
+``_select_and_commit``.  They are no-ops unless a tracer is active.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import mx
+from repro_torch.sim import isa as isa_lib
+from repro_torch.sim import trace as trace_lib
 
 NEG_INF = -1e30
 MASK32 = 0xFFFFFFFF
-SUPPORTED_FMTS = ("none", "bf16", "mxfp8_e4m3")
+STRATEGIES = ("stablemax", "random")
 # a counter-Gumbel seed: a uint32 int, or an int64 tensor holding one (the
 # form a captured CUDA graph reads from device memory at every replay)
 Seed = Union[int, torch.Tensor]
+# Modeled storage format of the LM-head weight stream in traces (matches
+# sim/analytical's w_bytes=0.5 MXINT4 default)
+TRACE_W_FMT = "mxint4"
+# the random strategy's draw: a counter stream apart from the Gumbel noise
+# that the same tick seed drives ("RAND")
+RANDOM_SALT = 0x52414E44
 
 
 @dataclasses.dataclass(frozen=True)
 class SamplingConfig:
-    fmt: str = "mxfp8_e4m3"     # sampling precision: bf16 | mxfp8_e4m3 | none
+    fmt: str = "mxfp8_e4m3"     # sampling precision: any core/mx format
     temperature: float = 0.0     # 0 => greedy (LLaDA reference)
-    strategy: str = "stablemax"  # "stablemax" only in the port
+    strategy: str = "stablemax"  # "stablemax" (low-confidence) | "random"
     suppress_mask_token: bool = True  # never sample the mask id itself
 
 
 def check_supported(cfg: SamplingConfig) -> None:
-    """Raise for the sampling options this slice of the port lacks."""
-    if cfg.strategy != "stablemax":
-        raise NotImplementedError(
-            f"strategy={cfg.strategy!r} is not ported yet (ROADMAP.md, "
-            "Queue 1); the port samples with strategy='stablemax'")
-    if cfg.fmt not in SUPPORTED_FMTS:
-        raise NotImplementedError(
-            f"sampling fmt {cfg.fmt!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1); the port supports {SUPPORTED_FMTS}")
+    """ValueError for a format core/mx does not know or an unknown
+    strategy; every other configuration runs."""
+    mx.fmt_code(cfg.fmt)
+    if cfg.strategy not in STRATEGIES:
+        raise ValueError(f"unknown sampling strategy {cfg.strategy!r}; "
+                         f"expected one of {STRATEGIES}")
+
+
+def _rows_of(a: torch.Tensor) -> int:
+    """The product of the leading (non-vocab) dims, for trace hooks."""
+    return int(math.prod(a.shape[:-1]))
+
+
+def _emit_head_stream(R: int, d: int, chunk: int, n_chunks: int,
+                      gumbel: bool = False) -> None:
+    """Trace hook for the streamed-head chunk loop, emitted once by the
+    caller with the chunk count of ``_chunk_grid`` (the loop itself runs
+    under ``trace_lib.suppress()``).  One vocab chunk = weight slab burst
+    into SRAM, matrix-unit logit tile, online (max+idx, exp, sum)
+    reduction, carry rescale; the slab and logit tile are alloc/freed
+    every chunk so the simulator's allocator observes the in-place
+    reuse."""
+    trace_lib.emit("HBM_RD", (R, d), "bf16", "stream", "hidden")
+    trace_lib.emit("SRAM_ALLOC", (3, R), "fp32", "stream", "carry")
+    for _ in range(n_chunks):
+        trace_lib.emit("SRAM_ALLOC", (d, chunk), TRACE_W_FMT, "stream",
+                       "w_slab")
+        trace_lib.emit("HBM_RD", (d, chunk), TRACE_W_FMT, "stream", "head_w")
+        trace_lib.emit("SRAM_ALLOC", (isa_lib.TILE_R, chunk), "fp32",
+                       "stream", "logit_tile")
+        trace_lib.emit("GEMM_TILE", (R, d, chunk), stage="stream")
+        trace_lib.emit("V_RED_MAX_IDX", (R, chunk), stage="stream")
+        trace_lib.emit("V_EXP_V", (R, chunk), stage="stream")
+        trace_lib.emit("V_RED_SUM", (R, chunk), stage="stream")
+        if gumbel:
+            trace_lib.emit("V_GUMBEL", (R, chunk), stage="stream")
+            trace_lib.emit("V_ADD_VV", (R, chunk), stage="stream",
+                           note="gumbel_score")
+            trace_lib.emit("V_RED_MAX", (R, chunk), stage="stream",
+                           note="best_score")
+            trace_lib.emit("V_SELECT_INT", (3, R), stage="stream",
+                           note="best_update")
+        trace_lib.emit("V_ADD_VV", (R,), stage="stream",
+                       note="online_rescale")
+        trace_lib.emit("SRAM_FREE", stage="stream", note="logit_tile")
+        trace_lib.emit("SRAM_FREE", stage="stream", note="w_slab")
+    trace_lib.emit("SRAM_FREE", stage="stream", note="carry")
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +119,12 @@ def head_logits(hidden: torch.Tensor, w_head: torch.Tensor, *,
     operands when enabled, f32 accumulation, one rounding to the activation
     dtype, then x logit_scale in that dtype (the scale rounds to it first,
     as a weakly typed Python float does in JAX)."""
+    if trace_lib.is_active():
+        M, K, N = _rows_of(hidden), hidden.shape[-1], w_head.shape[-1]
+        trace_lib.emit("HBM_RD", (M, K), "bf16", "head", "hidden")
+        trace_lib.emit("HBM_RD", (K, N), TRACE_W_FMT, "head", "head_w")
+        trace_lib.emit("GEMM_TILE", (M, K, N), stage="head")
+        trace_lib.emit("HBM_WR", (M, N), "bf16", "head", "logits")
     if quant is not None and quant.enabled:
         hidden, w_head = quant.acts(hidden), quant.weights(w_head)
     dt = hidden.dtype
@@ -135,6 +201,28 @@ def counter_gumbel(seed: Seed, rows: torch.Tensor, cols: torch.Tensor
     return -torch.log(-torch.log(u))
 
 
+def selection_seed(seed: Seed) -> Seed:
+    """The seed of the random strategy's draw, _mix32(seed ^ RANDOM_SALT):
+    derived from the tick seed and apart from its Gumbel stream.  A tensor
+    seed gives a tensor, computed where it lies."""
+    if isinstance(seed, torch.Tensor):
+        return _mix32(_seed_bits(seed) ^ RANDOM_SALT)
+    return int(_mix32(torch.tensor((int(seed) & MASK32) ^ RANDOM_SALT)))
+
+
+def random_select(seed: Seed, shape: Tuple[int, int], device
+                  ) -> torch.Tensor:
+    """The random strategy's selection key for a (B, L) block: a uniform
+    in (0, 1] per position, ``counter_uniform`` on ``selection_seed(seed)``
+    at (row b, column l).  A seed tensor is read from device memory, so a
+    replayed graph draws each tick's.  (JAX draws
+    ``jax.random.uniform(rng)``: the two packages select differently.)"""
+    B, L = shape
+    rows = torch.arange(B, device=device)[:, None]
+    cols = torch.arange(L, device=device)[None, :]
+    return counter_uniform(selection_seed(seed), rows, cols)
+
+
 # ---------------------------------------------------------------------------
 # Top-k transfer mask + commit
 # ---------------------------------------------------------------------------
@@ -147,6 +235,10 @@ def topk_transfer_mask(conf: torch.Tensor, mask_idx: torch.Tensor,
     (ties toward the lower index).  On the card this is one launch: the
     kernel takes f32 conf, the bool mask and k as they come."""
     from repro_torch.kernels import topk_mask   # lazy: kernels import core
+    if trace_lib.is_active():
+        B, L = conf.shape
+        trace_lib.emit("S_MAP_V_FP", (B * L,), stage="commit")
+        trace_lib.emit("V_TOPK_MASK_PER_ELT", (B * L,), stage="commit")
     return topk_mask.topk_mask(conf, mask_idx, k)
 
 
@@ -156,10 +248,23 @@ def commit_tokens(x: torch.Tensor, x0: torch.Tensor, transfer: torch.Tensor
     return torch.where(transfer, x0, x)
 
 
-def _select_and_commit(conf, x0, x, m_idx, k):
-    """Transfer selection, top-k mask, masked commit."""
+def _select_and_commit(conf, x0, x, m_idx, k, cfg: SamplingConfig,
+                       seed: Optional[Seed]):
+    """Shared tail of the fused and unfused sampling steps: transfer
+    selection (the Stable-Max conf, or under strategy 'random' the
+    uniform draw of ``random_select``), top-k mask, masked commit."""
+    select = conf
+    if cfg.strategy == "random":
+        if seed is None:
+            raise ValueError(
+                "strategy='random' requires a seed: without one every call "
+                "would reuse the identical transfer order")
+        select = random_select(seed, tuple(conf.shape), conf.device)
     x0 = torch.where(m_idx, x0, x)                 # keep committed tokens
-    transfer = topk_transfer_mask(conf, m_idx, k)
+    transfer = topk_transfer_mask(select, m_idx, k)
+    if trace_lib.is_active():
+        trace_lib.emit("V_SELECT_INT", (2 * int(math.prod(x.shape)),),
+                       stage="commit")
     return commit_tokens(x, x0, transfer), transfer, conf
 
 
@@ -175,10 +280,38 @@ def stable_max(logits: torch.Tensor, fmt: str = "none",
     from repro_torch.kernels import stablemax_sampling as sms   # lazy
     *lead, V = logits.shape
     temp = temperature if seed is not None else 0.0
+    if trace_lib.is_active():
+        rows = _rows_of(logits)
+        trace_lib.emit("HBM_RD", (rows, V), fmt, "stream", "logits")
+        trace_lib.emit("SRAM_ALLOC", (3, rows), "fp32", "stream", "carry")
+        if temp > 0.0:
+            trace_lib.emit("V_GUMBEL", (rows, V), stage="stream")
+            trace_lib.emit("V_ADD_VV", (rows, V), stage="stream",
+                           note="gumbel_score")
+        trace_lib.emit("V_RED_MAX_IDX", (rows, V), stage="stream")
+        trace_lib.emit("V_EXP_V", (rows, V), stage="stream")
+        trace_lib.emit("V_RED_SUM", (rows, V), stage="stream")
+        trace_lib.emit("SRAM_FREE", stage="stream", note="carry")
+        trace_lib.emit("S_RECIP", (rows,), stage="tail")
+        trace_lib.emit("S_ST", (2 * rows,), stage="tail", note="conf_idx_wb")
     conf, idx = sms.stablemax_sampling(
         logits.reshape(-1, V).contiguous(), fmt=fmt, suppress_id=suppress_id,
         temperature=temp, seed=0 if seed is None else seed)
     return conf.reshape(lead), idx.reshape(lead)
+
+
+def stable_max_two_pass(logits: torch.Tensor, fmt: str = "none"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paper's phase structure: pass 1 = V_RED_MAX_IDX, pass 2 =
+    V_EXP_V + V_RED_SUM, then S_RECIP.  Numerically identical to greedy
+    ``stable_max`` without suppression; kept separate because the
+    analytical model charges it 2x logit reads (the single-pass kernel
+    reads once).  Plain PyTorch, as JAX's is jnp."""
+    z = mx.mx_fake_quant(logits, fmt).to(torch.float32)
+    m = torch.amax(z, dim=-1)                              # pass 1a
+    idx = torch.argmax(z, dim=-1).to(torch.int32)          # pass 1b
+    s = torch.sum(torch.exp(z - m[..., None]), dim=-1)     # pass 2
+    return 1.0 / s, idx
 
 
 def sampling_step_full(logits: torch.Tensor, x: torch.Tensor, mask_id: int,
@@ -187,30 +320,36 @@ def sampling_step_full(logits: torch.Tensor, x: torch.Tensor, mask_id: int,
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One sampling stage on stored logits (B, L, V): Stable-Max (the CUDA
     kernel on the card), then top-k and commit.  Returns (new tokens
-    (B, L), transfer (B, L), conf (B, L)); greedy without a ``seed``."""
+    (B, L), transfer (B, L), conf (B, L)); conf is the Stable-Max conf of
+    the sampled tokens under either strategy.  Greedy without a
+    ``seed``; strategy 'random' needs one (ValueError)."""
     check_supported(cfg)
     sup = mask_id if cfg.suppress_mask_token else None
     conf, x0 = stable_max(logits, cfg.fmt, seed, cfg.temperature,
                           suppress_id=sup)
-    return _select_and_commit(conf, x0, x, x == mask_id, k)
+    return _select_and_commit(conf, x0, x, x == mask_id, k, cfg, seed)
 
 
 def fused_sampling_step_full(hidden: torch.Tensor, w_head: torch.Tensor,
                              x: torch.Tensor, mask_id: int, k: torch.Tensor,
                              cfg: SamplingConfig, seed: Optional[Seed] = None,
-                             *, logit_scale: float = 1.0, quant=None
+                             *, logit_scale: float = 1.0, quant=None,
+                             chunk_v: int = 4096
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """One sampling stage fed by active-block hidden states: hidden
     (B, L, d) and w_head (d, V) stream through the fused head + Stable-Max
-    (the CUDA kernel on the card), then top-k and commit.  Returns
-    (new tokens (B, L), transfer (B, L), conf (B, L)).  ``seed`` (uint32)
-    feeds the counter-Gumbel stream when cfg.temperature > 0; without one
-    the step is greedy, as the JAX reference is without an rng.  An
-    enabled ``quant`` policy fake-quantizes the hidden states and the head
-    before the kernel, as JAX does before its Pallas kernel; the head's
-    fake-quant runs on its padded rows (fused_head_sampling.head_storage),
-    so the kernel reads the padded layout."""
+    (the CUDA kernel on the card, in every sampling format), then top-k
+    and commit.  Returns (new tokens (B, L), transfer (B, L), conf (B, L)).
+    ``seed`` (uint32) feeds the counter-Gumbel stream when
+    cfg.temperature > 0 and the random strategy's draw; without one the
+    step is greedy, as the JAX reference is without an rng.  ``chunk_v``
+    is the vocab chunk of the plain version's stream and of the trace (the
+    kernel tiles the vocab its own way).  An enabled ``quant`` policy
+    fake-quantizes the hidden states and the head before the kernel, as
+    JAX does before its Pallas kernel; the head's fake-quant runs on its
+    padded rows (fused_head_sampling.head_storage), so the kernel reads
+    the padded layout."""
     from repro_torch.kernels import fused_head_sampling as fhs   # lazy
     check_supported(cfg)
     if quant is not None and quant.enabled:
@@ -218,12 +357,106 @@ def fused_sampling_step_full(hidden: torch.Tensor, w_head: torch.Tensor,
         hidden = quant.acts(hidden)
         w_head = quant.weights(fhs.head_storage(w_head))[:, :V]
     B, L, d = hidden.shape
+    R = B * L
     m_idx = x == mask_id
     sup = mask_id if cfg.suppress_mask_token else None
     temp = cfg.temperature if seed is not None else 0.0
-    conf, x0 = fhs.fused_head_sampling(
-        hidden.reshape(B * L, d), w_head, fmt=cfg.fmt,
-        logit_scale=logit_scale, suppress_id=sup, temperature=temp,
-        seed=0 if seed is None else seed)
+    if trace_lib.is_active():
+        chunk, Vp = _chunk_grid(w_head.shape[-1], chunk_v)
+        _emit_head_stream(R, d, chunk, Vp // chunk, gumbel=temp > 0.0)
+        trace_lib.emit("S_RECIP", (R,), stage="tail")
+        trace_lib.emit("S_ST", (2 * R,), stage="tail", note="conf_idx_wb")
+    with trace_lib.suppress():
+        conf, x0 = fhs.fused_head_sampling(
+            hidden.reshape(R, d), w_head, fmt=cfg.fmt,
+            logit_scale=logit_scale, suppress_id=sup, temperature=temp,
+            seed=0 if seed is None else seed, chunk_v=chunk_v)
     return _select_and_commit(conf.reshape(B, L), x0.reshape(B, L), x,
-                              m_idx, k)
+                              m_idx, k, cfg, seed)
+
+
+def sampling_step(logits: torch.Tensor, x: torch.Tensor, mask_id: int,
+                  k: torch.Tensor, cfg: SamplingConfig,
+                  seed: Optional[Seed] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """As ``sampling_step_full`` without the confidence output."""
+    new_x, transfer, _ = sampling_step_full(logits, x, mask_id, k, cfg, seed)
+    return new_x, transfer
+
+
+def full_softmax_reference(logits: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The naive Eq. 2 path (materializes the V-wide probability vector);
+    used only to validate Stable-Max equivalence in tests."""
+    p = torch.softmax(logits.to(torch.float32), dim=-1)
+    idx = torch.argmax(logits, dim=-1).to(torch.int32)
+    conf = torch.gather(p, -1, idx[..., None].to(torch.int64))[..., 0]
+    return conf, idx
+
+
+# ---------------------------------------------------------------------------
+# Vocab-sharded head math without a mesh: the per-chip view of the SPMD
+# tick, which sim/trace.capture_sampling_trace('sharded') records (the
+# combine and the mesh wait for ROADMAP.md Queue 1 item 12)
+# ---------------------------------------------------------------------------
+
+def pad_head_for_mesh(w_head: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Zero-pad the (d, V) LM head so it splits into ``n_shards`` equal
+    vocab shards whose width is a multiple of the MX block (shard
+    boundaries then fall on the full-row fake-quant's block boundaries).
+    The head itself when already aligned."""
+    step = n_shards * mx.MX_BLOCK
+    V = w_head.shape[-1]
+    Vp = -(-V // step) * step
+    if Vp != V:
+        w_head = F.pad(w_head, (0, Vp - V))
+    return w_head
+
+
+def fused_head_local_partials(hidden: torch.Tensor, w_shard: torch.Tensor,
+                              fmt: str = "none", *, logit_scale: float = 1.0,
+                              col_offset: int = 0,
+                              suppress_id: Optional[int] = None,
+                              chunk_v: int = 4096, quant=None,
+                              col_limit: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Streamed-head Stable-Max partials over one vocab shard, plain
+    PyTorch (JAX's is its jnp oracle): hidden (R, d), w_shard (d, V_loc) ->
+    (m (R,), gidx (R,) int32, s (R,)) with s relative to m and gidx global
+    (``col_offset`` = shard * V_loc).  ``col_limit`` masks global columns
+    >= the true vocab size (the zero pad of ``pad_head_for_mesh``).  One
+    (R, chunk) logit tile at a time, never (R, V_loc)."""
+    R = hidden.shape[0]
+    V = w_shard.shape[-1]
+    chunk, Vp = _chunk_grid(V, chunk_v)
+    if Vp != V:
+        w_shard = F.pad(w_shard, (0, Vp - V))
+    if quant is not None and quant.enabled:
+        hidden, w_shard = quant.acts(hidden), quant.weights(w_shard)
+    n_chunks = Vp // chunk
+    if trace_lib.is_active():
+        _emit_head_stream(R, hidden.shape[-1], chunk, n_chunks)
+    dev = hidden.device
+    m = torch.full((R,), NEG_INF, dtype=torch.float32, device=dev)
+    s = torch.zeros((R,), dtype=torch.float32, device=dev)
+    idx = torch.zeros((R,), dtype=torch.int64, device=dev)
+    with trace_lib.suppress():
+        for c in range(n_chunks):
+            z = head_logits(hidden, w_shard[:, c * chunk:(c + 1) * chunk],
+                            logit_scale=logit_scale)
+            z = mx.mx_fake_quant(z, fmt).to(torch.float32)
+            col = c * chunk + torch.arange(chunk, device=dev)
+            z = torch.where(col < V, z, NEG_INF)
+            if col_limit is not None:
+                z = torch.where(col + col_offset < col_limit, z, NEG_INF)
+            if suppress_id is not None:
+                z = torch.where(col + col_offset == suppress_id, NEG_INF, z)
+            local_m = torch.amax(z, dim=-1)
+            m_new = torch.maximum(m, local_m)
+            s = s * torch.exp(m - m_new) + \
+                torch.sum(torch.exp(z - m_new[:, None]), dim=-1)
+            local_i = torch.argmax(z, dim=-1) + c * chunk  # first occurrence
+            idx = torch.where(local_m > m, local_i, idx)   # first chunk wins
+            m = m_new
+    return m, (idx + col_offset).to(torch.int32), s

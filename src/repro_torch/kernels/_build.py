@@ -33,6 +33,11 @@ KERNELS = ("fused_head_sampling", "topk_mask", "flash_bidir",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# devices whose tensors a wrapper sends to its kernel's plain version: the
+# CPU, and meta, where the plain version computes shapes only (the trace
+# capture of sim/trace.py); a CUDA tensor goes to the kernel or raises
+PLAIN_DEVICES = ("cpu", "meta")
+
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 _libs: Dict[str, ctypes.CDLL] = {}
 

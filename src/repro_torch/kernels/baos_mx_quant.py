@@ -32,8 +32,7 @@ from repro_torch.kernels import _build
 NAME = "baos_mx_quant"
 # fmt argument of the C entry point (csrc/common.cuh Fmt), by the
 # canonical name of every format of core/mx.FORMATS
-FMT_CODES = {"none": 0, "bf16": 1, "mxfp8_e4m3": 2, "mxint8": 3,
-             "mxint4": 4, "mxfp6_e3m2": 5, "mxfp4_e2m1": 6}
+FMT_CODES = mx.FMT_CODES
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -67,8 +66,7 @@ def baos_mx_quant(x: torch.Tensor, center: torch.Tensor,
     (B, S, H, D) in x's dtype, written into ``out`` when given (any B and S
     strides, e.g. a slice of the KV cache).  CUDA tensors run the kernel;
     CPU tensors the plain version."""
-    if fmt not in mx.FORMATS:
-        raise ValueError(f"unknown MX format {fmt!r}")
+    code = mx.fmt_code(fmt)
     if x.dim() != 4:
         raise ValueError(f"expected x (B, S, H, D); got {tuple(x.shape)}")
     B, S, H, D = x.shape
@@ -79,7 +77,7 @@ def baos_mx_quant(x: torch.Tensor, center: torch.Tensor,
     if out is not None and (out.shape != x.shape or out.dtype != x.dtype):
         raise ValueError(f"out {out.dtype} {tuple(out.shape)} != x "
                          f"{x.dtype} {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if x.device.type in _build.PLAIN_DEVICES:
         y = baos_mx_quant_plain(x, center, scale, fmt)
         return y if out is None else out.copy_(y)
     dev = x.device
@@ -103,7 +101,7 @@ def baos_mx_quant(x: torch.Tensor, center: torch.Tensor,
     err = _kernel_fn()(x.data_ptr(), center.data_ptr(), scale.data_ptr(),
                        out.data_ptr(), B, S, H, D, x.stride(0), x.stride(1),
                        out.stride(0), out.stride(1),
-                       FMT_CODES[mx.FORMATS[fmt].name],
+                       code,
                        int(x.dtype == torch.bfloat16),
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME, err)

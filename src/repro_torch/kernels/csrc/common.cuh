@@ -89,8 +89,8 @@ __device__ __forceinline__ float counter_gumbel(uint32_t seed, uint32_t row,
 // MX fake-quant (core/mx.mx_fake_quant), one 32-wide block per warp
 // ---------------------------------------------------------------------------
 
-// Format codes: 0-2 are the sampling formats (core/sampling.SUPPORTED_FMTS
-// order), 3-6 the other KV formats of BAOS (core/mx.FORMATS).
+// Format codes (core/mx.FMT_CODES): every format of core/mx, for the
+// sampling logits and for the BAOS KV cache alike.
 enum Fmt {
   FMT_NONE = 0,
   FMT_BF16 = 1,

@@ -27,6 +27,10 @@
 //   * The epilogue works on the accumulators in registers.  A warp owns
 //     32 rows x 64 columns; for one row a 32-column MX block lies in one
 //     quad (8 values per lane), so two xor shuffles give the block amax.
+//     Every format of core/mx (common.cuh Fmt) quantizes there, the
+//     format a template argument of the kernel (one instantiation per MX
+//     format, and one for none and bf16, which leave bf16 logits as they
+//     are): a per-value branch on a runtime format slowed mxfp8 itself.
 //     Per logit: f32 -> activation dtype -> x logit_scale -> fake-quant ->
 //     mask pad columns and the suppressed id, then an online fold into the
 //     lane's running (m, s, idx[, best, z_at]) per row, in increasing
@@ -315,11 +319,25 @@ __device__ __forceinline__ void fold_group(Part& p, const float (&z)[8],
   p.m = mn;
 }
 
+// The MX fake-quant of one lane's 8 logits of a block whose largest
+// magnitude, over its quad, is amax: core/mx's rule (the IEEE quotient by
+// the block's power-of-two scale, the element grid of FMT, times the
+// scale) rounded to bf16, as the plain version returns the logits' dtype.
+// FMT is a constant, so each format's element rule is inlined.
+template <int FMT>
+__device__ __forceinline__ void quant_block8(float (&z)[8], float amax) {
+  const float scale = mx_block_scale(amax, FMT);
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    z[q] = round_to<bf16>(__fmul_rn(quant_element(z[q] / scale, FMT), scale));
+}
+
 // Fold one finished 64 x 256 tile: this warp's 32 x 64 accumulators, whose
 // columns start at wcol (global), rows at wrow.
+template <int FMT>
 __device__ __forceinline__ void fold_tile(const float (&acc)[2][8][4],
                                           Part (&part)[2][2], int wrow,
-                                          int wcol, int R, int c_end, int fmt,
+                                          int wcol, int R, int c_end,
                                           float scale_t, bool gumbel,
                                           float temperature, uint32_t seed,
                                           int suppress_id, int g, int c) {
@@ -346,14 +364,10 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[2][8][4],
           z[q] = v;
           amax = fmaxf(amax, fabsf(v));
         }
-        if (fmt == FMT_MXFP8) {
+        if constexpr (FMT >= FMT_MXFP8) {
           amax = fmaxf(amax, __shfl_xor_sync(FULL_MASK, amax, 1));
           amax = fmaxf(amax, __shfl_xor_sync(FULL_MASK, amax, 2));
-          const float scale = mx_block_scale(amax, FMT_MXFP8);
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-            z[q] = round_to<bf16>(
-                __fmul_rn(quant_element(z[q] / scale, FMT_MXFP8), scale));
+          quant_block8<FMT>(z, amax);
         }                 // FMT_BF16 is exact on bf16 logits; FMT_NONE too
         const int row = wrow + 16 * i + g + 8 * h;
         if (row >= R) continue;
@@ -369,10 +383,11 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[2][8][4],
   }
 }
 
+template <int FMT>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 head_partials_tc_kernel(const bf16* __restrict__ hidden,
                         const bf16* __restrict__ w, int R, int d, int V,
-                        int ldw, int cols_per_cta, int fmt, float logit_scale,
+                        int ldw, int cols_per_cta, float logit_scale,
                         float temperature,
                         const uint32_t* __restrict__ seed_ptr, int suppress_id,
                         float* __restrict__ part_m, int* __restrict__ part_i,
@@ -473,9 +488,9 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
     }
 
     if (it % n_k == n_k - 1) {           // the tile's product is complete
-      fold_tile(acc, part, r0 + wm * 32,
-                c_begin + (it / n_k) * TC_BN + wn * 64, R, c_end, fmt,
-                scale_t, gumbel, temperature, seed, suppress_id, g, c);
+      fold_tile<FMT>(acc, part, r0 + wm * 32,
+                     c_begin + (it / n_k) * TC_BN + wn * 64, R, c_end,
+                     scale_t, gumbel, temperature, seed, suppress_id, g, c);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -510,6 +525,24 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
   }
 }
 
+template <int FMT>
+cudaError_t launch_tc(const bf16* hidden, const bf16* w, int R, int d, int V,
+                      int ldw, int cols_per_cta, int n_parts,
+                      float logit_scale, float temperature,
+                      const uint32_t* seed, int suppress_id, float* pm,
+                      int* pi, float* ps, float* pb, float* pz,
+                      cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      head_partials_tc_kernel<FMT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(n_parts, (R + TC_ROWS - 1) / TC_ROWS);
+  head_partials_tc_kernel<FMT><<<grid, TC_THREADS, TC_SMEM, stream>>>(
+      hidden, w, R, d, V, ldw, cols_per_cta, logit_scale, temperature, seed,
+      suppress_id, pm, pi, ps, pb, pz);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
                         int V, int ldw, int cols_per_cta, int n_parts,
                         int fmt,
@@ -522,15 +555,19 @@ cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
       static_cast<long long>(cols_per_cta) * n_parts < V ||
       static_cast<long long>(cols_per_cta) * (n_parts - 1) >= V)
     return cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      head_partials_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TC_SMEM);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid(n_parts, (R + TC_ROWS - 1) / TC_ROWS);
-  head_partials_tc_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
-      hidden, w, R, d, V, ldw, cols_per_cta, fmt, logit_scale, temperature,
-      seed, suppress_id, pm, pi, ps, pb, pz);
-  return cudaGetLastError();
+#define FHS_TC(F)                                                           \
+  return launch_tc<F>(hidden, w, R, d, V, ldw, cols_per_cta, n_parts,       \
+                      logit_scale, temperature, seed, suppress_id, pm, pi,  \
+                      ps, pb, pz, stream)
+  switch (fmt) {
+    case FMT_MXFP8: FHS_TC(FMT_MXFP8);
+    case FMT_MXINT8: FHS_TC(FMT_MXINT8);
+    case FMT_MXINT4: FHS_TC(FMT_MXINT4);
+    case FMT_MXFP6: FHS_TC(FMT_MXFP6);
+    case FMT_MXFP4: FHS_TC(FMT_MXFP4);
+    default: FHS_TC(FMT_NONE);     // none and bf16: bf16 logits stay as is
+  }
+#undef FHS_TC
 }
 
 }  // namespace
@@ -547,7 +584,8 @@ extern "C" int fused_head_sampling_tiles(int V) { return (V + TN - 1) / TN; }
 // blocks) for each of n_parts CTAs, covering V; it needs d and ldw to be
 // multiples of 8 (16-byte rows).  The f32 route ignores cols_per_cta and
 // takes n_parts = fused_head_sampling_tiles(V).
-// fmt: 0 none, 1 bf16, 2 mxfp8_e4m3.  suppress_id < 0 suppresses nothing.
+// fmt: a code of common.cuh Fmt (core/mx.FMT_CODES), 0 none to 6
+// mxfp4_e2m1.  suppress_id < 0 suppresses nothing.
 // seed_ptr: the uint32 counter-Gumbel seed in device memory (the low word
 // of an int64 holding it), read only when temperature > 0.
 extern "C" int fused_head_sampling_launch(
@@ -556,6 +594,7 @@ extern "C" int fused_head_sampling_launch(
     int d, int V, int ldw, int is_bf16, int fmt, float logit_scale,
     float temperature, const void* seed_ptr, int suppress_id, int cols_per_cta, int n_parts,
     void* stream) {
+  if (fmt < FMT_NONE || fmt > FMT_MXFP4) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* seed = static_cast<const uint32_t*>(seed_ptr);
   float* pm = static_cast<float*>(part_m);

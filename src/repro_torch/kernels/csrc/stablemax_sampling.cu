@@ -3,8 +3,9 @@
 // Replaces the Pallas kernel `stablemax_sampling` in
 // src/repro/kernels/stablemax_sampling.py, and computes all of
 // core/sampling.stable_max in one launch: per row of logits (R, V), the
-// sampling fake-quant of each 32-column block (none | bf16 | mxfp8_e4m3,
-// common.cuh fake_quant's rules), the suppressed id set to -1e30 after the
+// sampling fake-quant of each 32-column block (any format of core/mx:
+// none | bf16 | mxfp8_e4m3 | mxint8 | mxint4 | mxfp6_e3m2 | mxfp4_e2m1,
+// common.cuh's rules, the format a template argument), the suppressed id set to -1e30 after the
 // quantization (so it still counts toward its block's amax), then the
 // online (max m, first-occurrence argmax, exp-sum s): conf = 1/s.  With
 // temperature > 0 the token is the counter-Gumbel argmax of z/T + g and
@@ -26,8 +27,9 @@
 //     the elementwise quotient becomes a multiply by the exact inverse
 //     power of two (the division stays where exp2f is not exact, on the
 //     H100 only at e = -127).  The e4m3 codes come back to f32 by bit
-//     moves (common.cuh quant8), and a product q * 2^e that bf16 holds
-//     exactly is not rounded again.  fmt none and bf16 have no block step.
+//     moves (common.cuh quant8), the other MX grids through
+//     quant_element, and a product q * 2^e that bf16 holds exactly is
+//     not rounded again.  fmt none and bf16 have no block step.
 //   * Per pass a lane folds its 16 quantized logits at once: their max
 //     first; only when it beats the lane's running max does the lane look
 //     for the first column holding it and rescale its sum (a branch per
@@ -115,7 +117,7 @@ __device__ __forceinline__ void merge_lanes(State& st, int o, bool gumbel) {
 // step u, which lie in one MX block with the rest of its quad.
 template <typename T, int FMT>
 __device__ __forceinline__ void fake_quant_pass(float (&z)[STEPS][8]) {
-  if (FMT == FMT_MXFP8) {
+  if (FMT >= FMT_MXFP8) {        // the MX formats
     float amax[STEPS], scale[STEPS], inv[STEPS];
 #pragma unroll
     for (int u = 0; u < STEPS; ++u) {
@@ -130,7 +132,8 @@ __device__ __forceinline__ void fake_quant_pass(float (&z)[STEPS][8]) {
       quant8(z[u], FMT);
 #pragma unroll
       for (int j = 0; j < 8; ++j) z[u][j] = __fmul_rn(z[u][j], scale[u]);
-      // q * 2^e has at most 4 significant bits: bf16 holds it exactly
+      // q * 2^e has at most 8 significant bits (mxint8's k / 64, |k| <=
+      // 128; e4m3 4, e3m2 3, mxint4 3, e2m1 2): bf16 holds it exactly
       // unless it falls below the normal range
       if (scale[u] < 1e-30f) round8<T>(z[u]);
     }
@@ -319,9 +322,21 @@ cudaError_t launch(const void* logits, int R, int fmt, const Args& a,
     case FMT_BF16:
       return g ? launch<T, FMT_BF16, true>(x, R, a, stream)
                : launch<T, FMT_BF16, false>(x, R, a, stream);
-    default:
+    case FMT_MXFP8:
       return g ? launch<T, FMT_MXFP8, true>(x, R, a, stream)
                : launch<T, FMT_MXFP8, false>(x, R, a, stream);
+    case FMT_MXINT8:
+      return g ? launch<T, FMT_MXINT8, true>(x, R, a, stream)
+               : launch<T, FMT_MXINT8, false>(x, R, a, stream);
+    case FMT_MXINT4:
+      return g ? launch<T, FMT_MXINT4, true>(x, R, a, stream)
+               : launch<T, FMT_MXINT4, false>(x, R, a, stream);
+    case FMT_MXFP6:
+      return g ? launch<T, FMT_MXFP6, true>(x, R, a, stream)
+               : launch<T, FMT_MXFP6, false>(x, R, a, stream);
+    default:
+      return g ? launch<T, FMT_MXFP4, true>(x, R, a, stream)
+               : launch<T, FMT_MXFP4, false>(x, R, a, stream);
   }
 }
 
@@ -330,8 +345,9 @@ cudaError_t launch(const void* logits, int R, int fmt, const Args& a,
 // logits (R, V) contiguous, f32 (is_bf16 = 0) or bf16; cols, a positive
 // multiple of 32, the columns per CTA; the partials workspace part_* is
 // (R, ceil(V / cols)) each (part_b/part_z only read and written when
-// temperature > 0); conf (R,) f32, token (R,) i32.  fmt: 0 none, 1 bf16,
-// 2 mxfp8_e4m3.  suppress_id < 0 suppresses nothing.  seed: the uint32
+// temperature > 0); conf (R,) f32, token (R,) i32.  fmt: a code of
+// common.cuh Fmt (core/mx.FMT_CODES), 0 none to 6 mxfp4_e2m1.
+// suppress_id < 0 suppresses nothing.  seed: the uint32
 // counter-Gumbel seed in device memory (the low word of an int64 holding
 // it), read only when temperature > 0.
 extern "C" int stablemax_sampling_launch(
@@ -339,8 +355,7 @@ extern "C" int stablemax_sampling_launch(
     void* part_b, void* part_z, void* conf, void* token, int R, int V,
     int cols, int is_bf16, int fmt, float temperature, const void* seed,
     int suppress_id, void* stream) {
-  if ((fmt != FMT_NONE && fmt != FMT_BF16 && fmt != FMT_MXFP8) || cols <= 0 ||
-      cols % 32)
+  if (fmt < FMT_NONE || fmt > FMT_MXFP4 || cols <= 0 || cols % 32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0 || V == 0) return 0;
   const Args a = {V,

@@ -140,7 +140,7 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}: not a GQA attention")
     if kv_valid is not None and kv_valid.shape != (B, Skv):
         raise ValueError(f"kv_valid {tuple(kv_valid.shape)} != {(B, Skv)}")
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return flash_bidir_plain(q, k, v, kv_valid, fk, fv, cv, window,
                                  q_offset)
     dev = q.device

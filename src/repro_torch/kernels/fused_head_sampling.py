@@ -5,13 +5,14 @@ hidden (R, d) @ w_head (d, V) is reduced straight into per-row
 (max, first-occurrence argmax, exp-sum): conf = 1/s, or, with
 temperature > 0, the counter-Gumbel argmax with conf = exp(z_at - m)/s.
 Per logit: f32 accumulate -> activation dtype -> x logit_scale -> sampling
-fake-quant (none | bf16 | MXFP8 in 32-column blocks) -> activation dtype
--> f32; the suppressed id is masked after quantization, so it still counts
-toward its block's amax.
+fake-quant (any format of core/mx: none | bf16 | an MX format in
+32-column blocks) -> activation dtype -> f32; the suppressed id is masked
+after quantization, so it still counts toward its block's amax.
 
 ``fused_head_sampling`` launches csrc/fused_head_sampling.cu for CUDA
 tensors and runs ``fused_head_stable_max`` (the plain version, a port of
-the JAX oracle of the same name) for CPU tensors.  There is no fallback:
+the JAX oracle of the same name) for CPU tensors, and for meta tensors,
+where it computes shapes only (sim/trace.py).  There is no fallback:
 a CUDA tensor goes to the kernel or the call raises.  bf16 tensors take
 the kernel's tensor-core route, which splits V across one CTA per SM by
 ``column_plan``: each CTA folds its column range into one partial per row
@@ -39,8 +40,6 @@ from repro_torch.core import sampling
 from repro_torch.kernels import _build
 
 NAME = "fused_head_sampling"
-# fmt argument of the C entry point: 0 none, 1 bf16, 2 mxfp8_e4m3
-_FMT_CODES = {f: i for i, f in enumerate(sampling.SUPPORTED_FMTS)}
 _DTYPES = (torch.float32, torch.bfloat16)
 # the bf16 route's row alignment in elements: 16 bytes of bf16
 ROW_ALIGN = 8
@@ -221,26 +220,29 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
                         fmt: str = "none", logit_scale: float = 1.0,
                         suppress_id: Optional[int] = None,
                         temperature: float = 0.0,
-                        seed: sampling.Seed = 0
+                        seed: sampling.Seed = 0, chunk_v: int = 4096
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hidden (R, d), w_head (d, V) -> (conf (R,) f32, token (R,) i32)
     without materializing the (R, V) logits.  w_head joins the product in
-    hidden's dtype.  ``seed`` is a uint32 int or an int64 tensor of one
-    element holding one (``sampling.seed_tensor``); the kernel reads it
-    from device memory, so a captured graph draws each replay's seed.
+    hidden's dtype.  ``fmt`` is any name or alias of core/mx.FORMATS (the
+    kernel's fmt code, ``mx.fmt_code``).  ``chunk_v`` is the plain
+    version's vocab chunk; the kernel splits V by ``column_plan``.
+    ``seed`` is a uint32 int or an int64 tensor of one element holding one
+    (``sampling.seed_tensor``); the kernel reads it from device memory, so
+    a captured graph draws each replay's seed.
     CUDA tensors run the kernel (bf16 needs d and w_head's row stride to
     be multiples of 8, 16-byte rows: see ``pad_head``); CPU tensors the
     plain version."""
-    if fmt not in _FMT_CODES:
-        raise ValueError(f"fmt {fmt!r} not in {tuple(_FMT_CODES)}")
+    code = mx.fmt_code(fmt)
     if hidden.dim() != 2 or w_head.dim() != 2 or \
             hidden.shape[1] != w_head.shape[0]:
         raise ValueError(f"expected hidden (R, d) and w_head (d, V); got "
                          f"{tuple(hidden.shape)} and {tuple(w_head.shape)}")
-    if hidden.device.type == "cpu":
+    if hidden.device.type in _build.PLAIN_DEVICES:
         return fused_head_stable_max(
             hidden, w_head, fmt, logit_scale=logit_scale,
-            temperature=temperature, seed=seed, suppress_id=suppress_id)
+            temperature=temperature, seed=seed, suppress_id=suppress_id,
+            chunk_v=chunk_v)
     if hidden.device.type != "cuda" or w_head.device != hidden.device:
         raise ValueError(f"hidden on {hidden.device} and w_head on "
                          f"{w_head.device}: both must be on one CUDA device")
@@ -282,7 +284,7 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
     err = launch(hidden.data_ptr(), w.data_ptr(), part_m.data_ptr(),
                  part_i.data_ptr(), part_s.data_ptr(), _build.ptr(part_b),
                  _build.ptr(part_z), conf.data_ptr(), token.data_ptr(),
-                 R, d, V, ldw, int(bf16), _FMT_CODES[fmt],
+                 R, d, V, ldw, int(bf16), code,
                  float(logit_scale), float(temperature),
                  _build.ptr(sampling.seed_tensor(seed, dev) if gumbel
                             else None),

@@ -2,11 +2,11 @@
 
 Port of the Pallas kernel src/repro/kernels/stablemax_sampling.py, the
 twin of core/sampling.stable_max.  logits (R, V) -> per row the sampling
-fake-quant (none | bf16 | MXFP8 in 32-column blocks), the suppressed id
-masked after the quantization (it still counts toward its block's amax),
-then max m, first-occurrence argmax and exp-sum s: conf = 1/s, or, with
-temperature > 0, the counter-Gumbel argmax of z/T + g with
-conf = exp(z_at - m)/s.  The Pallas kernel does the reduction alone; the
+fake-quant (any format of core/mx: none | bf16 | an MX format in 32-column
+blocks), the suppressed id masked after the quantization (it still counts
+toward its block's amax), then max m, first-occurrence argmax and exp-sum
+s: conf = 1/s, or, with temperature > 0, the counter-Gumbel argmax of
+z/T + g with conf = exp(z_at - m)/s.  The Pallas kernel does the reduction alone; the
 kernel here also does the fake-quant and the Gumbel draw, so the whole of
 ``stable_max`` is one launch, plus the merge of its partials: the kernel
 splits V into the column ranges of ``vocab_plan``, folds each range of a
@@ -15,8 +15,8 @@ partials in plain arithmetic), and a second kernel merges them with the
 combine rule (``fused_head_sampling.combine_rows_plain``).
 
 ``stablemax_sampling`` launches csrc/stablemax_sampling.cu for CUDA
-tensors and runs ``stable_max_plain`` for CPU tensors; a CUDA tensor never
-reaches the plain version.
+tensors and runs ``stable_max_plain`` for CPU tensors (and meta tensors,
+shapes only); a CUDA tensor never reaches the plain version.
 """
 from __future__ import annotations
 
@@ -32,8 +32,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_head_sampling import range_partials
 
 NAME = "stablemax_sampling"
-# fmt argument of the C entry point: 0 none, 1 bf16, 2 mxfp8_e4m3
-_FMT_CODES = {f: i for i, f in enumerate(sampling.SUPPORTED_FMTS)}
 _DTYPES = (torch.float32, torch.bfloat16)
 # the kernel's CTA steps through its range 2048 columns (64 MX blocks) at a
 # time, two steps per pass; the plan aims at a few CTAs per SM
@@ -110,16 +108,16 @@ def stablemax_sampling(logits: torch.Tensor, *, fmt: str = "none",
                        temperature: float = 0.0,
                        seed: sampling.Seed = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """logits (R, V) -> (conf (R,) f32, token (R,) i32).  ``seed`` is a
-    uint32 int or an int64 tensor of one element holding one, read by the
-    kernel from device memory.  CUDA tensors run the kernel; CPU tensors
+    """logits (R, V) -> (conf (R,) f32, token (R,) i32).  ``fmt`` is any
+    name or alias of core/mx.FORMATS.  ``seed`` is a uint32 int or an
+    int64 tensor of one element holding one, read by the kernel from device
+    memory.  CUDA tensors run the kernel; CPU tensors
     the plain version."""
-    if fmt not in _FMT_CODES:
-        raise ValueError(f"fmt {fmt!r} not in {tuple(_FMT_CODES)}")
+    code = mx.fmt_code(fmt)
     if logits.dim() != 2:
         raise ValueError(f"expected logits (R, V); got "
                          f"{tuple(logits.shape)}")
-    if logits.device.type == "cpu":
+    if logits.device.type in _build.PLAIN_DEVICES:
         return stable_max_plain(logits, fmt, temperature=temperature,
                                 seed=seed, suppress_id=suppress_id)
     if logits.device.type != "cuda":
@@ -145,7 +143,7 @@ def stablemax_sampling(logits: torch.Tensor, *, fmt: str = "none",
                        part_i.data_ptr(), part_s.data_ptr(),
                        _build.ptr(part_b), _build.ptr(part_z),
                        conf.data_ptr(), token.data_ptr(), R, V, cols,
-                       int(logits.dtype == torch.bfloat16), _FMT_CODES[fmt],
+                       int(logits.dtype == torch.bfloat16), code,
                        float(temperature),
                        _build.ptr(sampling.seed_tensor(seed, dev) if gumbel
                                   else None),

@@ -72,7 +72,7 @@ def topk_mask(conf: torch.Tensor, mask: torch.Tensor, k: torch.Tensor
         raise ValueError(f"expected conf/mask (R, L) and k (R,); got "
                          f"{tuple(conf.shape)}, {tuple(mask.shape)}, "
                          f"{tuple(k.shape)}")
-    if conf.device.type == "cpu":
+    if conf.device.type in _build.PLAIN_DEVICES:
         return topk_mask_plain(conf, mask, k)
     if conf.device.type != "cuda" or mask.device != conf.device or \
             k.device != conf.device:

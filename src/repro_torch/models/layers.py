@@ -195,6 +195,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    window=window, q_offset=q_offset)
 
 
+def seeded_generator(device: torch.device, seed: int
+                     ) -> Optional[torch.Generator]:
+    """The generator an ``init`` draws from: seeded on ``device``, or None
+    on ``meta``, which has no generator and whose draws are shapes only
+    (sim/trace.capture_tick_trace builds its parameters there)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     std = (2.0 / (d_in + d_out)) ** 0.5

@@ -179,7 +179,7 @@ class GriffinModel:
         """Seeded parameters with the JAX package's distributions (torch's
         draws; for parity convert JAX's with ``bridge``)."""
         cfg, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = layers.seeded_generator(dev, seed)
         dt, f32 = cfg.torch_dtype, torch.float32
         d, dr = cfg.d_model, cfg.d_rnn
         hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head

@@ -189,7 +189,7 @@ class MambaModel:
         draws; for parity convert JAX's with ``bridge``)."""
         cfg, dev = self.cfg, self.device
         d_inner, hp, nh, ng, dn, conv_dim = mamba_dims(cfg)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = layers.seeded_generator(dev, seed)
         dt, f32 = cfg.torch_dtype, torch.float32
 
         def dense(d_in, d_out):

@@ -149,7 +149,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     for the fused head's bf16 route (kernels/fused_head_sampling.pad_head)."""
     check_supported(cfg)
     dev = device_lib.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = layers.seeded_generator(dev, seed)
     d = cfg.d_model
     stack = [init_layer_params(gen, cfg, dev, cross_attn)
              for _ in range(cfg.n_layers)]

@@ -52,7 +52,7 @@ class WhisperModel:
         ``seed``, the encoder from ``seed + 1``."""
         cfg, dev = self.cfg, self.device
         params = transformer.init_params(cfg, seed, dev, cross_attn=True)
-        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        gen = layers.seeded_generator(dev, seed + 1)
         params["encoder"] = {
             "layers": [transformer.init_layer_params(gen, self.enc_cfg, dev)
                        for _ in range(self.enc_cfg.n_layers)],

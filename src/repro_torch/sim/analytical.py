@@ -1,15 +1,14 @@
-"""Analytical performance model (paper §4.1): a copy of the part of
-src/repro/sim/analytical.py that ``obs/drift.modeled_tick_stages`` reaches
-(``HWConfig``, ``HostConfig``, ``end_to_end``, ``host_overhead_per_tick``
-and their helpers), on the port's ``models/config.ModelConfig``.
+"""Analytical performance model (paper §4.1), a copy of
+src/repro/sim/analytical.py on the port's ``models/config.ModelConfig``:
+the drift baseline of ``obs/drift.modeled_tick_stages`` and the stage
+models the cycle simulator (sim/cycle.py) is cross-validated against.
 
 A hardware-derived per-instruction latency library, an
 instruction-granularity roofline ``T_op = max(T_cmp, T_mem)``, per-phase
 memory strategies for blocked diffusion (warm vs refine), and the
 diffusion sampling engine model.  The numbers are the paper's NPU at its
 §6.2 operating point, not an H100's: the drift monitor calibrates them
-to measured seconds by one scale factor.  The rest of ``sim/`` (the cycle
-simulator, trace capture) is not ported (ROADMAP.md, Queue 1 item 14).
+to measured seconds by one scale factor.
 
 Latency library cycle counts follow paper Table 3 (RTL-calibrated):
 V_* pipelined throughput + the -6-cycle pipeline-fill structural term the
@@ -245,6 +244,36 @@ def sharded_fused_head_sampling_stage(B: int, L: int, V: int, d: int,
     return c
 
 
+def unfused_head_sampling_stage(B: int, L: int, V: int, d: int,
+                                hw: HWConfig, *, fmt: str = "mxfp8_e4m3",
+                                w_bytes: float = 0.5, act_bytes: float = 2.0,
+                                logit_rows: Optional[int] = None,
+                                two_pass: bool = False) -> Cost:
+    """The unfused comparison point: head GEMM writes ``logit_rows`` x V
+    logits back to HBM (bf16), then the sampling engine streams the B*L
+    active rows back in at the sampling precision.  ``logit_rows`` defaults
+    to B*L (the block-sliced fallback); the pre-fusion serving tick
+    materialized the *full-sequence* B*S rows — pass that to model it."""
+    rows = logit_rows if logit_rows is not None else B * L
+    c = gemm(rows, d, V, hw, w_bytes=w_bytes, act_bytes=act_bytes)
+    c += sampling_stage(B, L, V, hw, fmt=fmt, v_chunk=4096,
+                        two_pass=two_pass)
+    return c
+
+
+def sampling_sram_footprint(B: int, L: int, V: int, v_chunk: int,
+                            vlen: int) -> Dict[str, float]:
+    """Paper Eq. 4-6 (bytes; vector/FP entries bf16 = 2B, int = 4B)."""
+    if v_chunk < V:
+        vec = 3 * B * L + v_chunk
+    else:
+        r = 1
+        vec = 3 * B * L + V * L * r
+    return {"vector_sram": vec * 2.0,
+            "fp_sram": max(L, vlen) * 2.0,
+            "int_sram": 2 * B * L * 4.0}
+
+
 # ---------------------------------------------------------------------------
 # Transformer forward (paper Alg. 1) per phase
 # ---------------------------------------------------------------------------
@@ -338,7 +367,9 @@ def model_side_cost(cfg: ModelConfig, hw: HWConfig, *, B: int, prompt: int,
     """Transformer-phase cost of one blocked-diffusion decode (warm +
     refinement forwards per block, paper §4.1) *without* the sampling
     stage.  ``end_to_end`` composes this with an analytical sampling
-    engine."""
+    engine; sim/cycle.end_to_end_cycle composes it with the trace-driven
+    cycle simulator (which carries its own head work, hence
+    ``logits_rows=0`` there)."""
     n_blocks = gen_len // block_len
     s_tot = prompt + gen_len
     model = Cost()

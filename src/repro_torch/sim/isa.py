@@ -1,8 +1,14 @@
-"""Instruction set of the analytical model: a copy of the part of
-src/repro/sim/isa.py that ``sim/analytical.py`` reads (the storage-format
-widths ``BYTES`` and the ISA table with the paper Table 3 pipelined cycle
-counts).  The cycle simulator's ``NPUConfig`` and trace capture are not
-ported (ROADMAP.md, Queue 1 item 14).
+"""Instruction set + NPU configuration of the cycle-level simulator, a
+copy of src/repro/sim/isa.py.
+
+The trace-driven simulator (sim/cycle.py) executes instruction streams
+recorded from the port's tick (sim/trace.py).  This module is the shared
+vocabulary: every ``TraceOp.op`` names an :class:`Instr` here, each bound to
+an execution engine and (for vector/scalar ops) the paper Table 3
+RTL-calibrated pipelined cycle count -- the latency library
+sim/analytical.py uses too, so the two simulators can be cross-validated
+without retuning constants.  The numbers describe the paper's NPU, not the
+H100 the port runs on.
 
 Engines
   vector   VLEN-lane vector unit (reductions, exp, select, top-k mask)
@@ -20,7 +26,9 @@ from typing import Dict
 
 # ---------------------------------------------------------------------------
 # Storage formats (bytes / element); the analytical model imports this
-# table.
+# table.  As in the JAX package it has no mxfp6_e3m2 and no short aliases
+# ("fp8", "int4"): a trace in those formats records, and simulating it
+# raises KeyError, as JAX's does.
 # ---------------------------------------------------------------------------
 
 BYTES: Dict[str, float] = {
@@ -28,6 +36,22 @@ BYTES: Dict[str, float] = {
     "bf16": 2.0, "fp32": 4.0, "int32": 4.0, "fp64": 8.0, "none": 8.0,
     "bool": 1.0,
 }
+
+
+def fmt_bytes(fmt: str) -> float:
+    return BYTES[fmt]
+
+
+def is_mx(fmt: str) -> bool:
+    """MX formats pass through the block decode unit on the HBM path."""
+    return fmt.startswith("mx")
+
+
+# Row tile of the Pallas fused-head kernel (src/repro/kernels/
+# fused_head_sampling.py, tile_r): the per-grid-step logit tile staged in
+# the NPU's SRAM is (TILE_R, chunk_v).  The trace describes that NPU, not
+# the port's CUDA kernel, whose tiles are its own.
+TILE_R = 8
 
 
 # ---------------------------------------------------------------------------
@@ -77,3 +101,65 @@ _INSTRS = [
 ]
 
 ISA: Dict[str, Instr] = {i.name: i for i in _INSTRS}
+
+
+# ---------------------------------------------------------------------------
+# NPU configuration (the simulator's design-space knobs)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NPUConfig:
+    """Parameterized sampling-datapath NPU for the cycle simulator.
+
+    Matches sim/analytical.HWConfig at the paper §6.2 operating point by
+    default (``NPUConfig.from_hw`` bridges the two), plus the knobs the
+    closed-form model cannot express: SRAM banking/porting, MX decode
+    width, and the collective port.
+    """
+    vlen: int = 2048               # vector lanes
+    blen: int = 64                 # systolic sub-array dim
+    mlen: int = 512                # K-slice width
+    grid: int = 4                  # Matrix Unit grid replication
+    freq: float = 1e9              # Hz
+    hbm_bw: float = 4 * 409.5e9    # bytes/s (4-stack point)
+    pipeline_fill: int = 6         # structural fill per issued op group
+    # SRAM hierarchy: capacity bound + banked port bandwidth that can
+    # throttle vector issue when lanes outrun the banks
+    sram_bytes: int = 32 * 2 ** 20
+    sram_banks: int = 32
+    sram_port_bytes: int = 256     # bytes/bank/cycle
+    # MX block decode unit on the HBM path (elements/cycle); narrow widths
+    # turn cheap-byte formats into decode-bound streams
+    mx_decode_width: int = 4096
+    # collective port for the vocab-sharded combine
+    net_bw: float = 4 * 409.5e9    # bytes/s
+    net_lat_cycles: int = 64       # per-collective launch overhead
+    # energy constants (same 7nm-class calibration as HWConfig)
+    e_mac_int8: float = 0.6e-12
+    e_vec_op: float = 1.2e-12
+    e_hbm_byte: float = 6.0e-12
+    p_static: float = 12.0
+
+    @property
+    def hbm_bytes_per_cycle(self) -> float:
+        return self.hbm_bw / self.freq
+
+    @property
+    def net_bytes_per_cycle(self) -> float:
+        return self.net_bw / self.freq
+
+    @property
+    def sram_bytes_per_cycle(self) -> float:
+        return float(self.sram_banks * self.sram_port_bytes)
+
+    @classmethod
+    def from_hw(cls, hw, **overrides) -> "NPUConfig":
+        """Build from a sim/analytical.HWConfig (duck-typed: no import)."""
+        kw = dict(vlen=hw.vlen, blen=hw.blen, mlen=hw.mlen, grid=hw.grid,
+                  freq=hw.freq, hbm_bw=hw.hbm_bw,
+                  pipeline_fill=hw.pipeline_fill, net_bw=hw.hbm_bw,
+                  e_mac_int8=hw.e_mac_int8, e_vec_op=hw.e_vec_op,
+                  e_hbm_byte=hw.e_hbm_byte, p_static=hw.p_static)
+        kw.update(overrides)
+        return cls(**kw)

@@ -7,6 +7,8 @@ Greedy tokens must be equal.  The rule allows a difference only at a
 near-tie (the reference's top-2 gap < 1e-5, or with BAOS on one
 quantization step's effect, ~1e-3); these seeds have none, so the checks
 are exact."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 from repro.configs import base as jbase
 from repro.core import baos as jbaos
 from repro.core import diffusion as jdiff
+from repro.core import sampling as jsampling
 from repro.models.registry import build_model as jbuild
 from repro_torch import bridge
 from repro_torch.configs import base as tbase
@@ -23,7 +26,7 @@ from repro_torch.core import baos as tbaos
 from repro_torch.core import diffusion as tdiff
 from repro_torch.core import sampling as tsampling
 from repro_torch.models.registry import build_model as tbuild
-from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.serving import EngineConfig, Request, ServingEngine
 
 torch.set_num_threads(1)
 
@@ -192,17 +195,81 @@ def test_refine_step_from_a_jax_cache(models, cache_mode):
 
 
 def test_unported_modes_raise(models):
-    """Options still unported raise NotImplementedError pointing at the
-    ROADMAP: the random transfer strategy, sampling formats other than
-    none/bf16/mxfp8, and the megatick over a mesh (the megatick itself is
-    ported; every KV format is, tests/test_torch_baos.py)."""
+    """The random transfer strategy and every sampling format now run:
+    generate in modes none and dual + BAOS and the engine (warm, eager)
+    finish with no mask id left.  The megatick over a mesh still raises
+    NotImplementedError pointing at the ROADMAP."""
     _, model_t, _, params_t = models
-    prompt = torch.zeros((1, 4), dtype=torch.int32)
-    for kw in (dict(sampling=tsampling.SamplingConfig(strategy="random")),
-               dict(sampling=tsampling.SamplingConfig(fmt="mxint8"))):
-        dcfg = tdiff.DiffusionConfig(gen_length=8, block_length=8, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdiff.generate(model_t, params_t, prompt, dcfg)
+    mid = model_t.cfg.mask_id
+    prompt = torch.arange(3, 11, dtype=torch.int32)[None]
+    for sampling in (tsampling.SamplingConfig(strategy="random"),
+                     tsampling.SamplingConfig(fmt="mxint8"),
+                     tsampling.SamplingConfig(fmt="fp4", strategy="random",
+                                              temperature=0.8)):
+        for kw in (dict(), dict(cache_mode="dual",
+                                baos=tbaos.BAOSConfig(kv_format="mxint4"))):
+            dcfg = tdiff.DiffusionConfig(gen_length=16, block_length=8,
+                                         steps_per_block=4,
+                                         sampling=sampling, **kw)
+            out = tdiff.generate(model_t, params_t, prompt, dcfg, seed=3)
+            assert out.shape == (1, 24) and not bool((out == mid).any())
+        eng = ServingEngine(model_t, params_t, dcfg,
+                            EngineConfig(num_slots=2, max_seq_len=32,
+                                         mode="warm"))
+        done = eng.run([Request(prompt=np.arange(3, 11, dtype=np.int32),
+                                gen_length=16)])
+        assert not bool((done[0].tokens == mid).any())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(model_t, params_t, tdiff.DiffusionConfig(),
                       EngineConfig(megatick_k=2, mesh=object()))
+
+
+@pytest.mark.parametrize("fmt", ["mxint4", "mxfp6_e3m2"])
+@pytest.mark.parametrize("strategy", ["stablemax", "random"])
+def test_one_slot_engine_equals_generate(models, strategy, fmt):
+    """generate(cache_mode='none') and a one-slot mode-none engine on a
+    canvas of the request's length run the same ticks: equal tokens
+    under either strategy and a format new to the port's kernels (the
+    random draw comes from the same tick seed stream)."""
+    _, model_t, _, params_t = models
+    dcfg = tdiff.DiffusionConfig(
+        gen_length=16, block_length=8, steps_per_block=4,
+        sampling=tsampling.SamplingConfig(fmt=fmt, strategy=strategy))
+    prompt = np.arange(3, 19, dtype=np.int32)
+    ref = tdiff.generate(model_t, params_t, torch.from_numpy(prompt)[None],
+                         dcfg, seed=9)
+    eng = ServingEngine(model_t, params_t, dcfg,
+                        EngineConfig(num_slots=1, max_seq_len=32,
+                                     mode="none", seed=9))
+    done = eng.run([Request(prompt=prompt, gen_length=16)])
+    np.testing.assert_array_equal(done[0].tokens, ref[0].numpy())
+    if strategy == "random":
+        greedy = tdiff.generate(
+            model_t, params_t, torch.from_numpy(prompt)[None],
+            dataclasses.replace(dcfg, sampling=tsampling.SamplingConfig(
+                fmt=fmt)), seed=9)
+        assert not torch.equal(greedy, ref)
+
+
+@pytest.mark.parametrize("fmt", ["mxint8", "mxint4", "mxfp6_e3m2",
+                                 "mxfp4_e2m1"])
+def test_generate_every_format_matches_jax(models, fmt):
+    """Greedy generate in a sampling format new to the port's kernels,
+    mode none and dual + BAOS (mxint4 KV), against JAX: equal tokens."""
+    model_j, model_t, params_j, params_t = models
+    prompt = np.random.RandomState(5).randint(
+        0, model_t.cfg.vocab - 2, size=(2, 12)).astype(np.int32)
+    kw = dict(gen_length=16, block_length=8, steps_per_block=4)
+    for cache_mode, baos in (("none", _baos(None)), ("dual",
+                                                     _baos("mxint4"))):
+        dj = jdiff.DiffusionConfig(
+            cache_mode=cache_mode, baos=baos[0],
+            sampling=jsampling.SamplingConfig(fmt=fmt), **kw)
+        dt = tdiff.DiffusionConfig(
+            cache_mode=cache_mode, baos=baos[1],
+            sampling=tsampling.SamplingConfig(fmt=fmt), **kw)
+        want = jdiff.generate(model_j, params_j, jnp.asarray(prompt), dj,
+                              rng=jax.random.PRNGKey(11))
+        got = tdiff.generate(model_t, params_t, torch.from_numpy(prompt),
+                             dt, seed=11)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

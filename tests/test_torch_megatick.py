@@ -29,6 +29,7 @@ from repro_torch import bridge
 from repro_torch.configs import base as tbase
 from repro_torch.core import baos as tbaos
 from repro_torch.core import diffusion as tdiff
+from repro_torch.core import sampling as tsampling
 from repro_torch.models.registry import build_model as tbuild
 from repro_torch.serving import (EngineConfig, Policy, Request,
                                  ServingEngine, SlowFastPolicy)
@@ -268,6 +269,28 @@ def test_warm_megatick_variants_equal_k1(models, variant):
     _same(out, ref)
 
 
+@pytest.mark.parametrize("fmt", ["mxfp8_e4m3", "mxint4"])
+@pytest.mark.parametrize("mode", ["none", "warm"])
+def test_random_strategy_megatick_equals_k1(models, mode, fmt):
+    """strategy='random': the megatick (K=4) gives the K=1 engine's
+    tokens, per-request ticks, CommitEvents and ticks_total: tick j draws
+    from tick_seed(seed, tick + j) in both, the megatick counting ticks on
+    the device.  generate(megatick_k=4) equals generate too."""
+    _, model_t, _, params_t = models
+    dcfg = _dcfg(tdiff, sampling=tsampling.SamplingConfig(
+        strategy="random", fmt=fmt))
+    ref = _run_port(models, mode, dcfg, jit_steps=False)
+    _same(_run_port(models, mode, dcfg, megatick_k=4), ref)
+    for c in ref[1]:
+        assert not bool((c.tokens == model_t.cfg.mask_id).any())
+    if mode == "none":
+        prompt = torch.from_numpy(np.stack(_prompts(model_t.cfg.vocab, 2)))
+        one = tdiff.generate(model_t, params_t, prompt, dcfg, seed=4)
+        four = tdiff.generate(model_t, params_t, prompt, dcfg, seed=4,
+                              megatick_k=4)
+        assert torch.equal(one, four)
+
+
 def _megatick_inputs(model_t, B=3, S=48):
     """Three rows at prompt offsets 8, 16, 12 with 2, 1, 2 blocks of 8."""
     rs = np.random.RandomState(1)
@@ -308,20 +331,24 @@ def test_megatick_buffers_match_jax(models, stop_on_release):
             np.testing.assert_array_equal(buf.numpy(), want, err_msg=name)
 
 
-@pytest.mark.parametrize("variant", ["none", "warm", "warm+baos"])
+@pytest.mark.parametrize("variant", ["none", "warm", "warm+baos",
+                                     "none+random"])
 def test_stopped_tick_changes_nothing(models, variant):
     """A predicated tick run after the loop stopped (what the graphed
     megastep may enqueue once) leaves the canvas, the per-row state, the
-    counters and the buffers as they were; in warm mode it rewrites the K/V
-    from the unchanged canvas, and doing so again (BAOS recalibration
-    included) gives the same cache bit for bit."""
+    counters and the buffers as they were, under the random strategy too
+    (every row gets k = 0, so its draw selects nothing); in warm mode it
+    rewrites the K/V from the unchanged canvas, and doing so again (BAOS
+    recalibration included) gives the same cache bit for bit."""
     _, model_t, _, params_t = models
     kw = (dict(baos=tbaos.BAOSConfig(kv_format="mxint4"))
           if variant == "warm+baos" else {})
+    if variant == "none+random":
+        kw = dict(sampling=tsampling.SamplingConfig(strategy="random"))
     dcfg = _dcfg(tdiff, **kw)
     x, valid, pl, gb = _megatick_inputs(model_t)
     cache = (model_t.init_cache(x.shape[0], x.shape[1])
-             if variant != "none" else None)
+             if variant.startswith("warm") else None)
     fn = tdiff.get_megatick_fn(model_t, dcfg, model_t.cfg.mask_id, 4)
     xt = torch.from_numpy(x.copy())
     vt = torch.from_numpy(valid)

@@ -1,4 +1,8 @@
-"""MX fake-quant of the PyTorch port vs the JAX package, bit for bit."""
+"""MX fake-quant of the PyTorch port vs the JAX package, bit for bit, and
+the rest of core/mx (mx_quantize, mx_dequantize, quant_error,
+storage_bytes, the kernels' format codes) in each format.  Codes, scales
+and byte counts are exact; quant_error, a ratio of two norms summed in
+other orders, within rtol 1e-6."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,3 +112,66 @@ def test_inverse_power_of_two_scale_is_exact(kind):
         assert torch.equal(prod.view(torch.int32), quot.view(torch.int32)), e
         n_subnormal += int(((quot != 0) & (quot.abs() < 2.0 ** -126)).sum())
     assert kind != "subnormal_results" or n_subnormal > 10000
+
+
+MX_FMTS = ["mxfp8_e4m3", "mxint8", "mxint4", "mxfp6_e3m2", "mxfp4_e2m1"]
+
+
+@pytest.mark.parametrize("fmt", MX_FMTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mx_quantize_and_dequantize_bit_exact(fmt, dtype):
+    """Element codes (..., nblocks, 32) and E8M0 scales (..., nblocks, 1)
+    equal JAX's; dequantized (cut to n) they are the fake-quant."""
+    x = _blocks(MX_FMTS.index(fmt) + 20)
+    xt, xj = ((torch.from_numpy(x), jnp.asarray(x)) if dtype == "float32"
+              else _as_bf16(x))
+    codes, scale = tmx.mx_quantize(xt, fmt)
+    jcodes, jscale = jmx.mx_quantize(xj, fmt)
+    assert tuple(codes.shape) == jcodes.shape == (4, 4, 32)
+    assert tuple(scale.shape) == jscale.shape == (4, 4, 1)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
+    back = tmx.mx_dequantize(codes, scale, n=100)
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jmx.mx_dequantize(jcodes, jscale, n=100)))
+    np.testing.assert_array_equal(
+        back.numpy(), tmx.mx_fake_quant(xt, fmt).float().numpy())
+    assert tmx.mx_dequantize(codes, scale, dtype=torch.bfloat16).dtype == \
+        torch.bfloat16
+
+
+@pytest.mark.parametrize("fmt", ["none", "bf16"])
+def test_mx_quantize_refuses_pseudo_formats_as_jax(fmt):
+    """none and bf16 have no element grid: mx_quantize raises ValueError
+    in both packages."""
+    x = _blocks(3)
+    with pytest.raises(ValueError, match="unknown element format"):
+        tmx.mx_quantize(torch.from_numpy(x), fmt)
+    with pytest.raises(ValueError, match="unknown element format"):
+        jmx.mx_quantize(jnp.asarray(x), fmt)
+
+
+@pytest.mark.parametrize("fmt", sorted(tmx.FORMATS))
+def test_quant_error_and_storage_bytes_match_jax(fmt):
+    """Every name and alias of FORMATS: the relative L2 error of the
+    fake-quant (rtol 1e-6), storage bytes of several shapes (ragged last
+    blocks included, exact), the bits per element, and the kernels' code
+    of the format."""
+    x = _blocks(sorted(tmx.FORMATS).index(fmt) + 40)
+    got = float(tmx.quant_error(torch.from_numpy(x), fmt))
+    want = float(jmx.quant_error(jnp.asarray(x), fmt))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    for shape in ((100,), (4, 100), (3, 5, 32), (7, 1)):
+        assert tmx.storage_bytes(shape, fmt) == jmx.storage_bytes(shape, fmt)
+    assert tmx.FORMATS[fmt].bits_per_element == \
+        jmx.FORMATS[fmt].bits_per_element
+    assert tmx.fmt_code(fmt) == tmx.FMT_CODES[tmx.FORMATS[fmt].name]
+
+
+def test_format_codes_cover_every_format():
+    """Each canonical format has its own code (csrc/common.cuh Fmt, 0-6);
+    an unknown name raises ValueError."""
+    assert sorted(tmx.FMT_CODES.values()) == list(range(7))
+    assert {f.name for f in tmx.FORMATS.values()} == set(tmx.FMT_CODES)
+    with pytest.raises(ValueError, match="unknown MX format"):
+        tmx.fmt_code("mxint3")

@@ -10,6 +10,8 @@ CommitEvent keys (uid, tick, block/step, masks_left, done, positions,
 tokens; ``now`` is wall clock and is not compared).  On the CPU the
 graphed paths run eagerly: the CUDA graphs are exercised by
 chip_smoke.py."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ from repro_torch import bridge
 from repro_torch.configs import base as tbase
 from repro_torch.core import baos as tbaos
 from repro_torch.core import diffusion as tdiff
+from repro_torch.core import sampling as tsampling
 from repro_torch.models import layers as tlayers
 from repro_torch.models.registry import build_model as tbuild
 from repro_torch.serving import (CachePool, EngineConfig, FIFOPolicy,
@@ -493,6 +496,28 @@ def test_paged_engine_under_quant_policy_matches_slot_pool(models):
     kw = dict(mode="warm", fwd_kw={"quant": tlayers.QuantPolicy(True)})
     assert (_serve(_port(models, dt, pool="paged", **kw), Request, trace)
             == _serve(_port(models, dt, pool="slot", **kw), Request, trace))
+
+
+@pytest.mark.parametrize("megatick_k", [1, 4])
+@pytest.mark.parametrize("sampling", [
+    dict(strategy="random"), dict(fmt="mxint4"),
+    dict(fmt="mxfp4_e2m1", strategy="random")],
+    ids=["random", "mxint4", "mxfp4-random"])
+def test_paged_engine_sampling_options_match_slot_pool(models, sampling,
+                                                       megatick_k):
+    """The random strategy and formats new to the sampling kernels on the
+    paged pool (warm, K=1 and the megatick): tokens, ticks and
+    CommitEvents equal the slot pool's, with no mask id left."""
+    _, dt = _dcfgs(None)
+    dt = dataclasses.replace(dt, sampling=tsampling.SamplingConfig(
+        **sampling))
+    trace = _trace(models[1].cfg.vocab)
+    kw = dict(mode="warm", megatick_k=megatick_k)
+    paged = _serve(_port(models, dt, pool="paged", **kw), Request, trace)
+    assert paged == _serve(_port(models, dt, pool="slot", **kw), Request,
+                           trace)
+    for toks in paged[0].values():
+        assert models[1].cfg.mask_id not in toks
 
 
 def test_admission_waits_for_pages(models):

@@ -4,15 +4,23 @@ the JAX oracle and the Pallas kernel in interpret mode), Stable-Max over
 stored logits (the plain version of kernels/stablemax_sampling.py vs
 stable_max and the Pallas kernel), the top-k transfer mask (with the
 bool mask and int32/int64 k the kernel takes), the tensor form of the
-tick seed, and the full fused and unfused sampling steps."""
+tick seed, and the full fused and unfused sampling steps; in every format
+of core/mx.FORMATS (names and aliases) and under both transfer
+strategies.  The random strategy draws otherwise than JAX (the port's
+counter stream, JAX's jax.random.uniform), so its tests inject one numpy
+draw into both.  Tolerances: tokens and transfer masks exact; conf
+rtol 1e-5 (f32; the exp-sums run in other orders), 3e-3 on bf16
+inputs."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import mx as jmx
 from repro.core import sampling as js
 from repro.kernels import ops, ref
+from repro_torch.core import mx as tmx
 from repro_torch.core import sampling as ts
 from repro_torch.kernels import fused_head_sampling as tfh
 from repro_torch.kernels import stablemax_sampling as tsm
@@ -438,11 +446,309 @@ def test_fused_sampling_step_matches_jax(fmt):
 
 
 def test_unported_sampling_options_raise():
-    h, w = torch.zeros(1, 2, 4), torch.zeros(4, 8)
-    x, k = torch.zeros(1, 2, dtype=torch.int32), torch.ones(1)
-    for cfg in (ts.SamplingConfig(strategy="random"),
-                ts.SamplingConfig(fmt="mxint8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.fused_sampling_step_full(h, w, x, 7, k, cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.sampling_step_full(torch.zeros(1, 2, 8), x, 7, k, cfg)
+    """Both packages run each transfer strategy and every format of
+    core/mx.FORMATS (names and aliases) through the fused and the unfused
+    step.  A name the port does not know raises ValueError there; JAX
+    raises KeyError for an unknown format and treats an unknown strategy
+    as 'stablemax' (ROADMAP.md, Queue 3)."""
+    B, L, d, V, mid = 1, 4, 32, 64, 63
+    rs = np.random.RandomState(2)
+    h = rs.randn(B, L, d).astype(np.float32)
+    w = rs.randn(d, V).astype(np.float32)
+    z = rs.randn(B, L, V).astype(np.float32)
+    x = np.full((B, L), mid, np.int32)
+    k = np.array([2], np.int32)
+    key = jax.random.PRNGKey(3)
+    for fmt in tmx.FORMATS:
+        for strategy in ts.STRATEGIES:
+            cfg_t = ts.SamplingConfig(fmt=fmt, strategy=strategy)
+            cfg_j = js.SamplingConfig(fmt=fmt, strategy=strategy)
+            for out_t, out_j in (
+                    (ts.fused_sampling_step_full(
+                        torch.from_numpy(h), torch.from_numpy(w),
+                        torch.from_numpy(x), mid, torch.from_numpy(k),
+                        cfg_t, 5),
+                     js.fused_sampling_step_full(
+                        jnp.asarray(h), jnp.asarray(w), jnp.asarray(x), mid,
+                        jnp.asarray(k), cfg_j, key, use_kernel=False)),
+                    (ts.sampling_step_full(
+                        torch.from_numpy(z), torch.from_numpy(x), mid,
+                        torch.from_numpy(k), cfg_t, 5),
+                     js.sampling_step_full(
+                        jnp.asarray(z), jnp.asarray(x), mid, jnp.asarray(k),
+                        cfg_j, key))):
+                assert int(out_t[1].sum()) == int(out_j[1].sum()) == 2
+                assert not bool((out_t[0] == mid).all())
+    xt, kt = torch.from_numpy(x), torch.from_numpy(k)
+    for cfg in (ts.SamplingConfig(fmt="mxint3"),
+                ts.SamplingConfig(strategy="confidence")):
+        with pytest.raises(ValueError):
+            ts.fused_sampling_step_full(torch.from_numpy(h),
+                                        torch.from_numpy(w), xt, mid, kt,
+                                        cfg, 5)
+        with pytest.raises(ValueError):
+            ts.sampling_step_full(torch.from_numpy(z), xt, mid, kt, cfg, 5)
+    with pytest.raises(KeyError):
+        js.sampling_step_full(jnp.asarray(z), jnp.asarray(x), mid,
+                              jnp.asarray(k), js.SamplingConfig(fmt="mxint3"))
+    j_odd = js.sampling_step_full(jnp.asarray(z), jnp.asarray(x), mid,
+                                  jnp.asarray(k),
+                                  js.SamplingConfig(strategy="confidence"))
+    j_ref = js.sampling_step_full(jnp.asarray(z), jnp.asarray(x), mid,
+                                  jnp.asarray(k), js.SamplingConfig())
+    np.testing.assert_array_equal(np.asarray(j_odd[1]), np.asarray(j_ref[1]))
+
+
+ALL_NAMES = sorted(tmx.FORMATS)
+CANONICAL = ["none", "bf16", "mxfp8_e4m3", "mxint8", "mxint4", "mxfp6_e3m2",
+             "mxfp4_e2m1"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ALL_NAMES)
+def test_stable_max_every_format_matches_jax(fmt, dtype):
+    """Greedy stable_max in every name and alias of core/mx.FORMATS, the
+    suppressed id still in its MX block, (2, 5, V) logits; the plain
+    version of the kernel underneath (CPU tensors)."""
+    zt, zj = _logits(10, 1000, dtype, seed=ALL_NAMES.index(fmt),
+                     boost_col=7)
+    zt, zj = zt.reshape(2, 5, -1), zj.reshape(2, 5, -1)
+    conf, tok = ts.stable_max(zt, fmt, suppress_id=7)
+    oc, ot = js.stable_max(zj, fmt, suppress_id=7)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(ot))
+    np.testing.assert_allclose(conf.numpy(), np.asarray(oc), rtol=1e-5)
+
+
+@pytest.mark.parametrize("fmt", CANONICAL)
+def test_two_pass_and_full_softmax_match_jax(fmt):
+    """stable_max_two_pass against JAX's and against the one-pass
+    stable_max (no suppression: the same function); the naive
+    full_softmax_reference against JAX's and, at fmt none, against
+    Stable-Max's conf."""
+    zt, zj = _logits(12, 500, "float32", seed=21)
+    c2, t2 = ts.stable_max_two_pass(zt, fmt)
+    jc, jt = js.stable_max_two_pass(zj, fmt)
+    np.testing.assert_array_equal(t2.numpy(), np.asarray(jt))
+    np.testing.assert_allclose(c2.numpy(), np.asarray(jc), rtol=1e-5)
+    c1, t1 = ts.stable_max(zt, fmt)
+    np.testing.assert_array_equal(t1.numpy(), t2.numpy())
+    np.testing.assert_allclose(c1.numpy(), c2.numpy(), rtol=1e-5)
+    fc, ft = ts.full_softmax_reference(zt)
+    jfc, jft = js.full_softmax_reference(zj)
+    np.testing.assert_array_equal(ft.numpy(), np.asarray(jft))
+    np.testing.assert_allclose(fc.numpy(), np.asarray(jfc), rtol=1e-5)
+    if fmt == "none":
+        np.testing.assert_allclose(c1.numpy(), fc.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("fmt", CANONICAL)
+def test_sampling_steps_every_format_match_jax(fmt):
+    """sampling_step_full (stored logits) and sampling_step in every
+    format, greedy, committed tokens kept, mask id suppressed."""
+    B, L, V, mask_id = 3, 8, 300, 299
+    zt, zj = _logits(B * L, V, "float32", seed=31)
+    rs = np.random.RandomState(32)
+    x = rs.randint(0, V - 1, size=(B, L)).astype(np.int32)
+    x[rs.rand(B, L) < 0.6] = mask_id
+    k = np.array([2, 0, 5], np.int32)
+    args_t = (zt.reshape(B, L, V), torch.from_numpy(x), mask_id,
+              torch.from_numpy(k), ts.SamplingConfig(fmt=fmt))
+    args_j = (zj.reshape(B, L, V), jnp.asarray(x), mask_id, jnp.asarray(k),
+              js.SamplingConfig(fmt=fmt))
+    nx, tr, cf = ts.sampling_step_full(*args_t)
+    jx, jtr, jcf = js.sampling_step_full(*args_j)
+    np.testing.assert_array_equal(nx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jtr))
+    np.testing.assert_allclose(cf.numpy(), np.asarray(jcf), rtol=1e-5)
+    sx, st = ts.sampling_step(*args_t)
+    jsx, jst = js.sampling_step(*args_j)
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(jsx))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(jst))
+
+
+def _step_inputs(B=3, L=8, d=32, V=300, seed=11):
+    rs = np.random.RandomState(seed)
+    h = rs.randn(B, L, d).astype(np.float32)
+    w = (rs.randn(d, V) / np.sqrt(d) * 4).astype(np.float32)
+    x = rs.randint(0, V - 1, size=(B, L)).astype(np.int32)
+    x[rs.rand(B, L) < 0.6] = V - 1
+    return h, w, x, np.array([2, 0, 5], np.int32)[:B]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("fmt", CANONICAL)
+def test_fused_step_every_format_matches_jax(fmt, temperature):
+    """The plain fused step (CPU tensors) against JAX's lax.scan oracle in
+    every format, greedy and T 0.8: both draw counter_gumbel with the
+    seed JAX folds from its key, so sampled tokens are equal too."""
+    h, w, x, k = _step_inputs()
+    mask_id = w.shape[1] - 1
+    key = jax.random.PRNGKey(8)
+    nx, tr, cf = ts.fused_sampling_step_full(
+        torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(x),
+        mask_id, torch.from_numpy(k),
+        ts.SamplingConfig(fmt=fmt, temperature=temperature),
+        int(js.gumbel_seed(key)))
+    jx, jtr, jcf = js.fused_sampling_step_full(
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(x), mask_id,
+        jnp.asarray(k), js.SamplingConfig(fmt=fmt, temperature=temperature),
+        key, use_kernel=False)
+    np.testing.assert_array_equal(nx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jtr))
+    np.testing.assert_allclose(cf.numpy(), np.asarray(jcf), rtol=1e-5)
+
+
+@pytest.mark.parametrize("chunk_v", [32, 96, 256, 4096])
+def test_fused_step_chunk_v_matches_jax(chunk_v):
+    """chunk_v sets the plain stream's vocab chunk and the trace's chunk
+    count, as in JAX: tokens equal at every chunk width, conf within the
+    exp-sum's order, and the trace holds one GEMM tile per chunk of
+    _chunk_grid."""
+    from repro_torch.sim import trace as ttr
+    h, w, x, k = _step_inputs(V=1000)
+    V, mask_id = w.shape[1], w.shape[1] - 1
+    cfg_t, cfg_j = ts.SamplingConfig(), js.SamplingConfig()
+    args = (torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(x),
+            mask_id, torch.from_numpy(k), cfg_t)
+    with ttr.activate(ttr.Tracer()) as tracer:
+        nx, tr, cf = ts.fused_sampling_step_full(*args, chunk_v=chunk_v)
+    jx, jtr, jcf = js.fused_sampling_step_full(
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(x), mask_id,
+        jnp.asarray(k), cfg_j, use_kernel=False, chunk_v=chunk_v)
+    np.testing.assert_array_equal(nx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jtr))
+    np.testing.assert_allclose(cf.numpy(), np.asarray(jcf), rtol=1e-5)
+    chunk, Vp = ts._chunk_grid(V, chunk_v)
+    assert (chunk, Vp) == js._chunk_grid(V, chunk_v)
+    assert sum(o.op == "GEMM_TILE" for o in tracer.ops) == Vp // chunk
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("head", ["fused", "unfused"])
+def test_random_strategy_with_an_injected_draw_matches_jax(
+        monkeypatch, head, temperature):
+    """strategy='random' with one numpy uniform draw injected into JAX's
+    jax.random.uniform and into the port's random_select: the transfer,
+    the tokens and the (Stable-Max) conf equal JAX's.  Without a seed
+    (rng) both raise ValueError."""
+    h, w, x, k = _step_inputs()
+    B, L = x.shape
+    V, mask_id = w.shape[1], w.shape[1] - 1
+    u = np.random.RandomState(17).rand(B, L).astype(np.float32)
+    calls = []
+
+    def jax_uniform(rng, shape, *a, **kw):
+        calls.append("jax")
+        assert tuple(shape) == (B, L)
+        return jnp.asarray(u)
+
+    def port_draw(seed, shape, device):
+        calls.append("port")
+        assert tuple(shape) == (B, L) and seed is not None
+        return torch.from_numpy(u)
+    monkeypatch.setattr(jax.random, "uniform", jax_uniform)
+    monkeypatch.setattr(ts, "random_select", port_draw)
+    key = jax.random.PRNGKey(4)
+    cfg_t = ts.SamplingConfig(strategy="random", temperature=temperature)
+    cfg_j = js.SamplingConfig(strategy="random", temperature=temperature)
+    seed = int(js.gumbel_seed(key))
+    if head == "fused":
+        got = ts.fused_sampling_step_full(
+            torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(x),
+            mask_id, torch.from_numpy(k), cfg_t, seed)
+        want = js.fused_sampling_step_full(
+            jnp.asarray(h), jnp.asarray(w), jnp.asarray(x), mask_id,
+            jnp.asarray(k), cfg_j, key, use_kernel=False)
+    else:
+        zt = ts.head_logits(torch.from_numpy(h), torch.from_numpy(w))
+        zj = js.head_logits(jnp.asarray(h), jnp.asarray(w))
+        got = ts.sampling_step_full(zt, torch.from_numpy(x), mask_id,
+                                    torch.from_numpy(k), cfg_t, seed)
+        # JAX's unfused path draws jax.random.gumbel at T > 0: hold the
+        # port's counter-Gumbel tokens against JAX's fused oracle there
+        want = (js.sampling_step_full(zj, jnp.asarray(x), mask_id,
+                                      jnp.asarray(k), cfg_j, key)
+                if temperature == 0.0 else js.fused_sampling_step_full(
+                    jnp.asarray(h), jnp.asarray(w), jnp.asarray(x), mask_id,
+                    jnp.asarray(k), cfg_j, key, use_kernel=False))
+    assert calls == ["port", "jax"]
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                               rtol=1e-5)
+    # the draw, not conf, chose: the k largest draws among masked positions
+    m_idx = x == mask_id
+    for r in range(B):
+        n = min(k[r], m_idx[r].sum())
+        order = np.argsort(-np.where(m_idx[r], u[r], -1.0), kind="stable")
+        assert set(np.nonzero(got[1][r].numpy())[0]) == set(order[:n])
+    with pytest.raises(ValueError, match="seed"):
+        ts.fused_sampling_step_full(
+            torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(x),
+            mask_id, torch.from_numpy(k), cfg_t)
+    with pytest.raises(ValueError, match="rng"):
+        js.fused_sampling_step_full(
+            jnp.asarray(h), jnp.asarray(w), jnp.asarray(x), mask_id,
+            jnp.asarray(k), cfg_j, use_kernel=False)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 0xDEADBEEF])
+def test_random_draw_is_a_counter_stream_of_the_tick_seed(seed):
+    """The random strategy's draw: counter_uniform on selection_seed(seed)
+    at (row, position), in (0, 1]; the same bits from a tensor seed (the
+    form a graph reads from device memory) as from the int; a stream
+    apart from the Gumbel noise of the same seed (another seed word)."""
+    from repro_torch.core import diffusion as tdiff
+    tick = tdiff.tick_seed(seed, 3)
+    u = ts.random_select(tick, (4, 16), "cpu")
+    assert u.shape == (4, 16) and u.dtype == torch.float32
+    assert bool(((u > 0) & (u <= 1)).all())
+    u_dev = ts.random_select(tdiff.tick_seed(seed, torch.tensor([3])),
+                             (4, 16), "cpu")
+    assert torch.equal(u, u_dev)
+    sel = ts.selection_seed(tick)
+    assert sel != tick and int(ts.selection_seed(torch.tensor([tick]))) == sel
+    rows, cols = torch.arange(4)[:, None], torch.arange(16)[None, :]
+    assert torch.equal(u, ts.counter_uniform(sel, rows, cols))
+    assert not torch.equal(u, ts.counter_uniform(tick, rows, cols))
+    assert not torch.equal(u, ts.random_select(tdiff.tick_seed(seed, 4),
+                                               (4, 16), "cpu"))
+
+
+@pytest.mark.parametrize("fmt", ["none", "mxfp8_e4m3", "mxint4"])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_head_partials_match_jax(n_shards, fmt):
+    """pad_head_for_mesh and the per-shard streamed partials
+    (fused_head_local_partials with col_offset, col_limit, suppression)
+    against JAX's, shard by shard; merged by the combine rule they give
+    the unsharded fused head's token and conf."""
+    R, d, V, mid = 6, 32, 1000, 7
+    ht, wt, hj, wj = _head_inputs(R, d, V, "float32", seed=n_shards,
+                                  boost_col=mid)
+    wpt = ts.pad_head_for_mesh(wt, n_shards)
+    wpj = js.pad_head_for_mesh(wj, n_shards)
+    assert tuple(wpt.shape) == wpj.shape
+    assert wpt.shape[1] % (n_shards * 32) == 0
+    np.testing.assert_array_equal(wpt.numpy(), np.asarray(wpj))
+    vloc = wpt.shape[1] // n_shards
+    parts = []
+    for sh in range(n_shards):
+        kw = dict(col_offset=sh * vloc, suppress_id=mid, chunk_v=256,
+                  col_limit=V)
+        m, gi, s = ts.fused_head_local_partials(
+            ht, wpt[:, sh * vloc:(sh + 1) * vloc], fmt, **kw)
+        jm, jgi, js_ = js.fused_head_local_partials(
+            hj, wpj[:, sh * vloc:(sh + 1) * vloc], fmt, **kw)
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(jgi))
+        np.testing.assert_allclose(m.numpy(), np.asarray(jm), rtol=1e-5)
+        np.testing.assert_allclose(s.numpy(), np.asarray(js_), rtol=1e-5)
+        parts.append((m, gi, s))
+    m = torch.stack([p[0] for p in parts], 1)
+    gi = torch.stack([p[1] for p in parts], 1)
+    s = torch.stack([p[2] for p in parts], 1)
+    gm = m.amax(1)
+    conf = 1.0 / (s * torch.exp(m - gm[:, None])).sum(1)
+    tok = torch.where(m >= gm[:, None], gi, 1 << 30).amin(1)
+    fc, ft = tfh.fused_head_stable_max(ht, wt, fmt, suppress_id=mid)
+    np.testing.assert_array_equal(tok.numpy(), ft.numpy())
+    np.testing.assert_allclose(conf.numpy(), fc.numpy(), rtol=1e-5)

@@ -50,8 +50,12 @@ def test_engine_path_with_breakdown_trace_and_event_log(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra", [["--megatick", "4"],
                                    ["--pool", "paged", "--mode", "none"],
-                                   ["--policy", "slowfast", "--mixed"]],
-                         ids=["megatick", "paged", "slowfast-mixed"])
+                                   ["--policy", "slowfast", "--mixed"],
+                                   ["--sampling-fmt", "mxint4"],
+                                   ["--sampling-fmt", "fp6", "--megatick",
+                                    "4"]],
+                         ids=["megatick", "paged", "slowfast-mixed",
+                              "sampling-mxint4", "sampling-fp6-megatick"])
 def test_engine_path_options(extra, capsys):
     serve.main(SMALL + extra)
     out = capsys.readouterr().out
