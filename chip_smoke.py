@@ -45,6 +45,16 @@ Phases, each fatal on failure:
                library call (torch.matmul; softmax + max); every format of
                core/mx on the f32 routes, the padded heads, Stable-Max's
                (64, 126464) f32 and (3, 1003) cases and the device seed;
+               phase 11's kernel: flash_bidir_bwd against its plain
+               version at llada-8b's (8, 128, 32 on 32, 128) and
+               qwen2-0.5b's (8, 128, 14 on 2, 64) training attention, D 256
+               with window 2048 and kv_valid (4, 256, 10 on 1), all bf16
+               (error against an f32 recomputation at most 2x the plain
+               bf16 version's plus one bf16 ulp), and the f32 route with a
+               row that has no valid key (1e-4 of max|grad|; its dq and
+               dk 0), two launches bit for bit, each timed beside its
+               bound and SDPA's backward; the four kernels without a
+               backward refuse inputs that require grad;
   3. e2e    -- llada-8b at full width (32 layers, d 4096, bf16, seeded
                random weights): one-slot generate in cache mode none,
                stepped through tick_forward and tick_sample, and in modes
@@ -155,17 +165,18 @@ Phases, each fatal on failure:
                under 12 GiB free runs at a cut depth, logged).
   8. recurrent -- a windowed refine past the window on the card (smoke
                widths, bf16: graphed equals eager); then the recurrent
-               families at full width and depth, one model at a time, on
-               the legacy head (full-sequence logits, stablemax_sampling,
-               topk_mask; no fused head): recurrentgemma-2b (26 layers, d
-               2560, MQA 10 on 1 KV head of D 256, V 256000) through
+               families at full width, one model at a time, on the
+               legacy head (full-sequence logits, stablemax_sampling,
+               topk_mask; no fused head): recurrentgemma-2b (11 of 26
+               layers, a depth cut for the script's time limit, d 2560,
+               MQA 10 on 1 KV head of D 256, V 256000) through
                generate (mode none stepped, dual + BAOS and prefix + BAOS
                stepped and through generate()), the engine paths warm,
                none and warm + BAOS eager K=1, graphed K=1 and K=8 with
                phase 4's checks, the paged pool on warm graphed K=1 and
                K=8, breakdown on warm graphed and the Table 6 shape in
-               modes none, prefix + BAOS and dual + BAOS; mamba2-130m (24
-               layers, d 768, state 128, V 50280) through generate (none,
+               modes none, prefix + BAOS and dual + BAOS; mamba2-130m (12
+               of 24 layers, d 768, state 128, V 50280) through generate (none,
                dual, prefix with BAOS on the state) and the engine paths
                warm and none; per model the RG-LRU or SSD scan's device
                time at 4 x 96 and 16 x 384, flash_bidir at D 256 in the
@@ -176,12 +187,13 @@ Phases, each fatal on failure:
   9. audio, vlm -- the last two families, one model at a time, on the
                legacy head, in a process of its own (phase_audio_vlm;
                budget PHASE9_BUDGET_S):
-               whisper-medium at full width and depth with the cross K/V
+               whisper-medium at full width (24 encoder layers, 12 of 24
+               decoder layers, a depth cut) with the cross K/V
                of seeded frames (4, 1500, 1024) through generate (none
                stepped, dual and prefix + BAOS), the engine's warm, none
                and warm + BAOS eager and graphed K=1 (the paged pool and
                the megatick must refuse the kwargs), breakdown and the
-               serve CLI; internvl2-26b at full width (24 of its 48
+               serve CLI; internvl2-26b at full width (12 of its 48
                layers, a depth cut for the script's time limit) with
                image embeddings through generate (prompts 288, gen 64) and
                the engine text-only (warm and none, eager, K=1, K=8; paged
@@ -205,10 +217,27 @@ Phases, each fatal on failure:
                a Tracer records the same op list, and each trace's
                simulated NPU sampling stage (sim/cycle.simulate) is
                printed beside the card's measured tick_sample.
+  11. train -- the training path, in a process of its own after phase 9
+               (budget PHASE11_BUDGET_S): (a) qwen2-0.5b at full width and
+               depth (24 layers, d 896, 14 q heads on 2, V 151936, bf16,
+               seeded random weights), one step of loss and every
+               gradient at B 8 x S 128 through the kernels (24 launches
+               each of flash_bidir and flash_bidir_bwd) against plain
+               attention under autograd and an f32 reference
+               (check_train_step's gates); (b) 20 steps through
+               launch/train.main with a checkpoint every 5 and a failure
+               injected at step 7 (restarts=1, every loss finite), then a
+               resume from the step-15 checkpoint whose steps 16-20 equal
+               the first run's losses bit for bit; step wall, tokens/s,
+               peak memory; (c) packed MX storage at llada-8b's cache
+               shape (4, 96, 32, 128) bf16: unpack(pack(x)) ==
+               mx_fake_quant(x) bit for bit in mxint4 and mxint8, its
+               bytes, and QuaRot keeping QKᵀ within 1e-5 of its largest
+               value.
 Every path's launch counts are zeroed just before it and read just after;
-the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 7, 8 and
-9; the fused head's and Stable-Max's rows carry ``by_fmt``, phase 10's
-kernel cases per new format.
+the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 7, 8, 9
+and 11; the fused head's and Stable-Max's rows carry ``by_fmt``, phase
+10's kernel cases per new format.
 Prints the run's time, the kernels JSON line, the card's name and power
 limit, and last the {"ok": true, ...} line.  Exits non-zero without a
 result when there is no CUDA device or the port is not beside this
@@ -220,6 +249,8 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -248,16 +279,20 @@ REPLACES = {
     "topk_mask": "src/repro/kernels/topk_mask.py:44",
     "flash_bidir": "src/repro/kernels/flash_bidir.py:78",
     "baos_mx_quant": "src/repro/kernels/baos_mx_quant.py:61",
-    "stablemax_sampling": "src/repro/kernels/stablemax_sampling.py:71"}
+    "stablemax_sampling": "src/repro/kernels/stablemax_sampling.py:71",
+    "flash_bidir_bwd": "jax.grad of src/repro/models/layers.py attention "
+                       "(no Pallas backward)"}
 QWEN2 = dict(d=896, V=151936, mask_id=151935)
 MINICPM = dict(d=2304, V=122753, mask_id=122752)
 # the device kernel each wrapper call launches once, as the profiler names
-# it (the head and Stable-Max wrappers then launch their combine kernel)
+# it (the head and Stable-Max wrappers then launch their combine kernel,
+# flash_bidir_bwd its dk/dv kernel)
 DEVICE_KERNEL = {"fused_head_sampling": "head_partials",
                  "topk_mask": "topk_mask_kernel",
                  "flash_bidir": "flash_bidir",
                  "baos_mx_quant": "baos_mx_quant_kernel",
-                 "stablemax_sampling": "stablemax_kernel"}
+                 "stablemax_sampling": "stablemax_kernel",
+                 "flash_bidir_bwd": "flash_bidir_bwd_dq"}
 
 
 def log(*args) -> None:
@@ -533,12 +568,183 @@ def phase_kernels(gen) -> dict:
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=sdpa_mask), 50),
         bound_ms=b_ms, bound_by=b_by)
+    out["flash_bidir_bwd"] = check_attn_backward(gen)
+    check_no_backward_guard(gen)
     out["baos_mx_quant"] = check_baos(gen)
     out["stablemax_sampling"] = check_stablemax(gen)
     for name, rows in check_sampling_formats(gen).items():
         out[name]["by_fmt"] = rows
     check_audio_vlm_shapes(gen)
     return out
+
+
+def attn_mask_pairs(B, Sq, Skv, valid, window) -> int:
+    """The (row, key) pairs attention's gradient needs per query head: the
+    keys each row attends to, or every key for a row with none (it
+    averages V)."""
+    from repro_torch.kernels import flash_bidir as fb
+    ok = fb._mask(B, Sq, Skv, valid, window, 0, DEVICE)[:, 0]
+    n = ok.sum(-1)
+    return int(torch.where(n > 0, n, Skv).sum())
+
+
+def check_attn_backward(gen) -> dict:
+    """flash_bidir_bwd (csrc/flash_bidir_bwd.cu) against
+    flash_bidir_bwd_plain on the card: llada-8b's training attention (8,
+    128, 32 on 32, 128) bf16, qwen2-0.5b's (8, 128, 14 on 2, 64) bf16 (the
+    shape phase 11's train step gives it), D 256 with window 2048 and
+    kv_valid (4, 256, 10 on 1) bf16, and the f32 route at a small shape
+    with a batch row that has no valid key.  f32: within 1e-4 x the
+    largest reference gradient, and dq = dk = 0 on the row with no valid
+    key.  bf16: the kernel's error against an f32 recomputation of the
+    same bf16 inputs at most 2x the plain bf16 version's, plus one bf16
+    ulp.  Two launches give the same bits.  Each case timed (CUDA events;
+    a graph of 20 calls) beside its bound and the library yardstick, the
+    backward of scaled_dot_product_attention (its forward + backward less
+    its forward, timed only).  Returns qwen2-0.5b's row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_bidir as fb
+    cases = (("llada-8b training", 8, 128, 32, 32, 128, torch.bfloat16,
+              None, None),
+             ("qwen2-0.5b training", 8, 128, 14, 2, 64, torch.bfloat16,
+              None, None),
+             ("D 256 window 2048 kv_valid", 4, 256, 10, 1, 256,
+              torch.bfloat16, 2048, (256, 128, 77, 1)),
+             ("f32 route, a row with no valid key", 3, 40, 6, 2, 64,
+              torch.float32, 7, (40, 0, 13)))
+    rows = {}
+    for what, B, S, Hq, Hkv, D, dt, win, lens in cases:
+        q, o_grad = (torch.randn(B, S, Hq, D, generator=gen, device=DEVICE)
+                     .to(dt) for _ in range(2))
+        kk, v = (torch.randn(B, S, Hkv, D, generator=gen, device=DEVICE)
+                 .to(dt) for _ in range(2))
+        valid = None
+        if lens is not None:
+            valid = torch.arange(S, device=DEVICE)[None, :] < torch.tensor(
+                lens, device=DEVICE)[:, None]
+        args = (q, kk, v, o_grad, valid, win, 0)
+        got = fb.flash_bidir_bwd(*args)
+        again = fb.flash_bidir_bwd(*args)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"flash_bidir_bwd {what}: two launches differ")
+        ref = fb.flash_bidir_bwd_plain(*(t.float() for t in args[:4]),
+                                       valid, win, 0)
+        errs = []
+        if dt == torch.float32:
+            for n, g, r in zip("qkv", got, ref):
+                err = float((g - r).abs().max())
+                errs.append(err)
+                require(bool(torch.isfinite(g).all()) and
+                        err <= 1e-4 * float(r.abs().max()),
+                        f"flash_bidir_bwd {what}: d{n} beyond 1e-4 of "
+                        f"max|d{n}| ({err:.3g})")
+            dead = ~valid.any(1)
+            require(not got[0][dead].any() and not got[1][dead].any(),
+                    f"flash_bidir_bwd {what}: dq/dk nonzero on a row "
+                    f"with no valid key")
+            note = "within 1e-4 of max|grad|"
+        else:
+            plain = fb.flash_bidir_bwd_plain(*args)
+            worst = 0.0
+            for n, g, p, r in zip("qkv", got, plain, ref):
+                e_k = float(((g.float() - r).abs() - bf16_ulp(r)).max())
+                e_p = float((p.float() - r).abs().max())
+                errs.append(float((g.float() - r).abs().max()))
+                worst = max(worst, e_k / e_p)
+                require(e_k <= 2 * e_p, f"flash_bidir_bwd {what}: d{n} "
+                        f"error {e_k:.3g} beyond one bf16 ulp, over 2x the "
+                        f"plain bf16 version's {e_p:.3g}")
+            note = (f"error beyond one bf16 ulp at most {worst:.3f}x the "
+                    f"plain bf16 version's")
+        fn = lambda: fb.flash_bidir_bwd(*args)  # noqa: E731
+        n_pairs = attn_mask_pairs(B, S, S, valid, win)
+        es = q.element_size()
+        n_keys = B * S if valid is None else int(valid.sum())
+        b_ms, b_by = bound(3 * q.numel() * es + 2 * n_keys * Hkv * D * es
+                           + 2 * kk.numel() * es
+                           + (0 if valid is None else valid.numel()),
+                           8.0 * Hq * D * n_pairs,
+                           BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        row = dict(max_abs_err=max(errs), device_ms=kernel_ms(fn, 20, what),
+                   ms=time_ms(fn, 20),
+                   plain_ms=time_ms(lambda: fb.flash_bidir_bwd_plain(*args),
+                                    5),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if dt == torch.bfloat16:
+            G = Hq // Hkv
+            qt = q.transpose(1, 2).detach().requires_grad_()
+            kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+                      .detach().requires_grad_() for t in (kk, v))
+            mask = None if valid is None else fb._mask(B, S, S, valid, win,
+                                                       0, DEVICE)
+            dot = o_grad.transpose(1, 2)
+            lib_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask)
+            lib_fb = lambda: lib_f().backward(dot)  # noqa: E731
+            row["library_ms"] = time_ms(lib_fb, 20) - time_ms(lib_f, 20)
+        rows[what] = row
+        lib = ("n/a (SDPA's masked row is NaN)" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
+        log(f"flash_bidir_bwd {what} (B {B}, S {S}, {Hq} q heads on {Hkv}, "
+            f"D {D}, {str(dt).replace('torch.', '')}, window {win}, kv_valid "
+            f"{lens}): {note}, max abs err {max(errs):.3g}, two launches "
+            f"bit for bit; device {row['device_ms']:.4f} ms (a graph of 20 "
+            f"calls), CUDA events {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{'bf16 tensor-core' if dt == torch.bfloat16 else 'f32'} peak), "
+            f"{row['device_ms'] / b_ms:.0f}x; SDPA backward {lib}")
+    return rows["qwen2-0.5b training"]
+
+
+def check_no_backward_guard(gen) -> None:
+    """The four kernels without a backward refuse inputs that require grad
+    while grad mode is on (their output would cut the graph), and
+    flash_bidir refuses BAOS calibration under autograd; each still runs
+    under torch.no_grad()."""
+    from repro_torch.kernels import baos_mx_quant as bmq
+    from repro_torch.kernels import flash_bidir as fb
+    from repro_torch.kernels import fused_head_sampling as fhs
+    from repro_torch.kernels import stablemax_sampling as sms
+    from repro_torch.kernels import topk_mask as tk
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+    h, w = randn(16, 256), randn(256, 1024)
+    z = randn(16, 1024)
+    conf = randn(4, 16, dtype=torch.float32)
+    mask = torch.ones(4, 16, dtype=torch.bool, device=DEVICE)
+    k = torch.full((4,), 3, dtype=torch.int32, device=DEVICE)
+    x = randn(2, 32, 4, 64)
+    center = torch.zeros(2, 1, 4, 64, device=DEVICE)
+    scale = torch.ones(2, 1, 4, 64, device=DEVICE)
+    calls = {
+        "fused_head_sampling": (lambda a: fhs.fused_head_sampling(a, w), h),
+        "stablemax_sampling": (lambda a: sms.stablemax_sampling(a), z),
+        "topk_mask": (lambda a: tk.topk_mask(a, mask, k), conf),
+        "baos_mx_quant": (lambda a: bmq.baos_mx_quant(a, center, scale), x)}
+    for name, (call, arg) in calls.items():
+        try:
+            call(arg.detach().requires_grad_())
+        except RuntimeError as e:
+            require("no backward" in str(e), f"{name}: {e}")
+        else:
+            raise Failure(f"{name} ran on an input that requires grad")
+        with torch.no_grad():
+            call(arg.detach().requires_grad_())
+    q, kv = randn(2, 8, 4, 64).requires_grad_(), randn(2, 8, 2, 64)
+    cal = torch.ones(2, 2, 64, device=DEVICE)
+    try:
+        fb.flash_bidir(q, kv, kv, fk=cal, fv=cal, cv=cal)
+    except NotImplementedError:
+        pass
+    else:
+        raise Failure("flash_bidir took BAOS calibration under autograd")
+    torch.cuda.synchronize()
+    log("no-backward guard: fused_head_sampling, stablemax_sampling, "
+        "topk_mask and baos_mx_quant raise on inputs that require grad "
+        "(and run under no_grad); flash_bidir refuses BAOS under autograd")
 
 
 def check_audio_vlm_shapes(gen) -> None:
@@ -1423,13 +1629,17 @@ def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
     return total
 
 
-# depth cuts that keep the whole script inside its time limit (about
-# 1,000 s of 1,200 without them): llada-8b's QuantPolicy Table 6 run (~75
-# s at full depth; its other runs stay at full depth), moonshot-v1-16b-a3b
-# in phase 7 and internvl2-26b in phase 9 (~80 s at full depth, over the
-# phase's budget)
+# depth cuts that keep the whole script inside its time limit: llada-8b's
+# QuantPolicy Table 6 run (~75 s at full depth; its other runs stay at
+# full depth), moonshot-v1-16b-a3b and llada-moe-7b-a1b in phase 7,
+# internvl2-26b and whisper-medium's decoder in phase 9, recurrentgemma-2b
+# (3 triples + the 2-layer tail) and mamba2-130m in phase 8.  With phase 11
+# the script took 994.8 s, then 1,229.5 s on a slower host (the host-bound
+# eager paths ran 1.2-1.9x longer), before the last four cuts.
 DEPTH_CUTS = {"llada-8b": 16, "moonshot-v1-16b-a3b": 24,
-              "internvl2-26b": 24, "llada-moe-7b-a1b": 8}
+              "internvl2-26b": 12, "llada-moe-7b-a1b": 8,
+              "whisper-medium": 12, "recurrentgemma-2b": 11,
+              "mamba2-130m": 12}
 
 
 def cut_depth(cfg, n_layers: int, why: str = "for the script's time limit"):
@@ -2802,7 +3012,6 @@ def phase_cli() -> None:
     log, and once with --legacy: each must exit 0, the trace and the log
     must validate, and ``python -m repro_torch.obs.logquery LOG
     --validate`` must exit 0.  Prints each run's summary lines."""
-    import os
     from repro_torch.obs import read_events, validate_events, validate_trace
     SERVE_DIR.mkdir(parents=True, exist_ok=True)
     trace, events = SERVE_DIR / "cli-trace.json", SERVE_DIR / "cli.jsonl"
@@ -3289,18 +3498,19 @@ RECURRENT_ARCHS = ("recurrentgemma-2b", "mamba2-130m")
 
 
 def phase_recurrent(gen, archs=RECURRENT_ARCHS) -> dict:
-    """8: the recurrent families at full width and depth with seeded random
-    weights, one model at a time (each freed before the next); neither has
-    head_mode, so every path samples on the legacy head (full-sequence
-    logits, stablemax_sampling, topk_mask).  recurrentgemma-2b (26 layers:
-    8 (rec, rec, attn) triples and 2 rec, d 2560, MQA 10 on 1 KV head of
+    """8: the recurrent families at full width with seeded random weights,
+    at the depths of DEPTH_CUTS, one model at a time (each freed before the
+    next); neither has head_mode, so every path samples on the legacy head
+    (full-sequence logits, stablemax_sampling, topk_mask).
+    recurrentgemma-2b (11 of its 26 layers: 3 (rec, rec, attn) triples and
+    2 rec, d 2560, MQA 10 on 1 KV head of
     D 256, window 2048, V 256000): generate in mode none stepped with each
     step's sampling held against plain, dual + BAOS and prefix + BAOS
     through generate() and stepped; the engine paths warm, none and
     warm + BAOS eager K=1, graphed K=1 and K=8 (phase 4's checks); the
     paged pool on warm graphed K=1 and K=8; breakdown on warm graphed; the
     Table 6 shape in modes none, prefix + BAOS and dual + BAOS.
-    mamba2-130m (24 layers, d 768, state 128, V 50280): generate in modes
+    mamba2-130m (12 of 24 layers, d 768, state 128, V 50280): generate in modes
     none, dual and prefix (BAOS on the state through core/mx), the engine
     paths warm and none.  Then per model the scans' device time
     (check_recurrent_ops).  Returns the launch counts of the runs."""
@@ -3315,7 +3525,7 @@ def phase_recurrent(gen, archs=RECURRENT_ARCHS) -> dict:
 
     for arch in archs:
         t_phase = time.perf_counter()
-        cfg = base.get_config(arch)
+        cfg = cut_depth(base.get_config(arch), DEPTH_CUTS[arch])
         model = build_model(cfg, DEVICE)
         t0 = time.perf_counter()
         params = model.init(seed=0)
@@ -3350,11 +3560,12 @@ def phase_recurrent(gen, archs=RECURRENT_ARCHS) -> dict:
 def check_recurrent_ops(model, params, gen) -> None:
     """Device time per tick (profiler) of the work a recurrent model's
     tick adds or moves, at the engine's shape (4 x 96) and Table 6's
-    (16 x 384): the RG-LRU scan over the 18 rec layers
-    (rglru.rglru_scan) or the SSD scan over the 24 layers
+    (16 x 384): the RG-LRU scan over the model's rec layers
+    (rglru.rglru_scan) or the SSD scan over its layers
     (ssm.ssd_chunked), each with its kernels per layer; for
     recurrentgemma-2b flash_bidir at D 256 in the warm tick's shape (MQA
-    10 on 1, kv_valid, 8 layers) beside its bound and SDPA's time;
+    10 on 1, kv_valid, one call per attention layer) beside its bound and
+    SDPA's time;
     stablemax_sampling at (64, V) beside its byte bound and softmax + max;
     the legacy head product (B·S, d) x (d, V) beside its bound."""
     import torch.nn.functional as F
@@ -3448,8 +3659,8 @@ def free() -> None:
 def phase_audio_vlm(gen) -> dict:
     """9: the last two families, one model at a time, each freed before
     the next; neither has head_mode, so both sample on the legacy head.
-    whisper-medium at full width and depth (24 encoder and 24 decoder
-    layers, d 1024, 16 heads of D 64, V 51865): frames (4, 1500, 1024)
+    whisper-medium at full width (24 encoder layers and 12 of the 24
+    decoder layers, DEPTH_CUTS; d 1024, 16 heads of D 64, V 51865): frames (4, 1500, 1024)
     from the seeded generator through encode + cross_kv (timed);
     generate with the cross K/V in mode none stepped (each step's
     sampling held against plain; generate(megatick_k=4) must refuse
@@ -3459,14 +3670,13 @@ def phase_audio_vlm(gen) -> dict:
     paged pool and the megatick refusing the kwargs; breakdown on warm
     graphed; ``serve --arch whisper-medium --full`` as a subprocess.
     internvl2-26b at full width (d 6144, 48 heads on 8 of D 128, V 92553;
-    24 of its 48 layers, a ``DEPTH_CUTS`` cut, logged): generate with
+    12 of its 48 layers, a ``DEPTH_CUTS`` cut, logged): generate with
     image embeddings (1, 256, 6144) over prompts of 288 (gen 64) in
     mode none stepped, dual + BAOS and prefix + BAOS; the engine text-only
     (as JAX's serve runs it) on paths warm and none, eager K=1, graphed
     K=1 and K=8, and the paged pool on warm graphed K=1; its graphed tick
     beside the time its bf16 weights take to read once.  Returns the
     launch counts of the runs."""
-    import os
     from repro_torch.configs import base
     from repro_torch.core import diffusion
     from repro_torch.models.registry import build_model
@@ -3593,7 +3803,6 @@ def phase_audio_vlm_process() -> dict:
     fresh process saw every one), and the phase's engine profiles hold the
     kernels the card ran to the launch counts exactly.  Its output joins
     this log; returns its launch counts."""
-    import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c",
                         "import sys, chip_smoke; "
@@ -3945,6 +4154,289 @@ def phase_formats_random_sim(model, params, gen, stage_ms: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the training path
+# ---------------------------------------------------------------------------
+
+# the phase's target, stated before its first run on the card
+PHASE11_BUDGET_S = 75.0
+TRAIN_ARCH = "qwen2-0.5b"
+PHASE11_COUNTS = "phase 11 counts "
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Check-only switch: attention runs its plain PyTorch version, forward
+    and backward under autograd, instead of the kernels."""
+    from repro_torch.kernels import flash_bidir as fb
+    saved = fb.flash_bidir
+    fb.flash_bidir = fb.flash_bidir_plain
+    try:
+        yield
+    finally:
+        fb.flash_bidir = saved
+
+
+def check_train_step(gen) -> dict:
+    """(a) One train step of qwen2-0.5b at full width and depth (seeded
+    random weights, bf16) at JAX's train.py defaults (B 8, S 128): the
+    loss and every parameter's gradient through the kernels (flash_bidir
+    forward, flash_bidir_bwd backward, once per layer each), the same step
+    with attention's plain version under autograd, and an f32 reference
+    (the same weights and draw in f32, plain attention).  Gates: loss
+    relative difference <= 1e-3; every leaf's gradient nonzero where
+    plain's is (at most 1e-4 of a leaf's elements may round to zero on one
+    side only); per leaf, cosine(kernels, plain) >= 0.999 where the plain
+    bf16 route itself reaches 0.999 against f32.  Where it does not (the
+    query and key projections of the deeper layers at random weights:
+    their gradients are differences of near-equal terms, fixed by bf16
+    rounding only to 0.987-0.997), two bf16 routes cannot agree to 0.999
+    either, and the kernels' cosine against f32 must be at least plain's
+    less 0.005.  Returns the step's launch counts."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import base
+    from repro_torch.core import diffusion
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    cfg = base.get_config(TRAIN_ARCH)
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                        global_batch=8, seed=0))
+    tokens = torch.from_numpy(corpus.batch(0)).to(DEVICE, torch.int64)
+
+    def loss_grads(model, params):
+        leaves = tree_lib.leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = diffusion.masked_diffusion_loss(
+            model, params, tokens, diffusion.step_generator(0, 0, DEVICE))
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def timed(model, params):
+        loss_grads(model, params)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = loss_grads(model, params)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(_build.launch_counts)
+
+    model = build_model(cfg, DEVICE)
+    params = model.init(seed=0)
+    names = [k for k, _ in tree_lib.flatten_with_paths(params)]
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), DEVICE)
+    params32 = tree_lib.tree_map(lambda p: p.detach().float(), params)
+    with plain_attention():
+        _, grads32 = loss_grads(model32, params32)
+    del params32
+    (loss_k, grads_k), wall_k, counts = timed(model, params)
+    want = {n: 0 for n in counts}
+    want.update(flash_bidir=cfg.n_layers, flash_bidir_bwd=cfg.n_layers)
+    require(counts == want, f"train step launches {counts}, want {want}")
+    with plain_attention():
+        (loss_p, grads_p), wall_p, plain_counts = timed(model, params)
+    require(not any(plain_counts.values()),
+            f"plain attention launched {plain_counts}")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(
+            a.reshape(1, -1), b.reshape(1, -1)))
+
+    worst_kp, worst_f32, n_f32 = (2.0, ""), (2.0, ""), 0
+    for name, gk, gp, g32 in zip(names, grads_k, grads_p, grads32):
+        gk, gp = gk.float(), gp.float()
+        lost = int(((gp != 0) & (gk == 0)).sum())
+        require(not (gp.any() and not gk.any()),
+                f"train step: the gradient of {name} is zero through the "
+                f"kernels and not through plain attention")
+        require(lost <= 1e-4 * gp.numel(),
+                f"train step: {name} has {lost} zero gradients where plain "
+                f"attention's are nonzero")
+        if not gp.any():
+            continue
+        c_kp, c_k32, c_p32 = cos(gk, gp), cos(gk, g32), cos(gp, g32)
+        if c_p32 >= 0.999:
+            worst_kp = min(worst_kp, (c_kp, name))
+            require(c_kp >= 0.999, f"train step: {name} cosine(kernels, "
+                                   f"plain) {c_kp:.6f} < 0.999")
+        else:
+            n_f32 += 1
+            worst_f32 = min(worst_f32, (c_k32 - c_p32, name))
+            require(c_k32 >= c_p32 - 0.005,
+                    f"train step: {name} cosine to f32 {c_k32:.6f} through "
+                    f"the kernels, {c_p32:.6f} through plain attention")
+    log(f"phase 11a: {TRAIN_ARCH} full width and depth ({cfg.n_layers} "
+        f"layers, d {cfg.d_model}, {cfg.n_heads} q heads on "
+        f"{cfg.n_kv_heads}, V {cfg.vocab}, {cfg.dtype}), B 8 x S 128, loss "
+        f"and {len(names)} gradients: kernels loss {float(loss_k):.6f} in "
+        f"{wall_k * 1e3:.1f} ms (flash_bidir and flash_bidir_bwd "
+        f"{cfg.n_layers} launches each), plain attention under autograd "
+        f"{float(loss_p):.6f} in {wall_p * 1e3:.1f} ms; loss relative "
+        f"difference {rel:.3g}; worst cosine(kernels, plain) "
+        f"{worst_kp[0]:.6f} ({worst_kp[1]}) over the {len(names) - n_f32} "
+        f"leaves plain fixes to 0.999 of f32; on the other {n_f32} the "
+        f"kernels' cosine to f32 less plain's is at worst "
+        f"{worst_f32[0]:+.6f} ({worst_f32[1]})")
+    require(rel <= 1e-3, f"train step loss differs by {rel:.3g} (> 1e-3)")
+    del grads_p, grads32
+    # where the step's time goes: the loss and gradients by kernel class
+    # (profiler), then AdamW over every parameter (CUDA events)
+    by_class = {}
+    for name, (ms, _) in device_kernels(lambda: loss_grads(model, params),
+                                        2).items():
+        key = name.lower()
+        cls = ("flash_bidir_bwd" if "flash_bidir_bwd" in key else
+               kernel_class(name))
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+    opt_cfg = adamw.OptConfig(lr=3e-4, schedule="cosine")
+    state = adamw.init_state(params)
+    opt_ms = time_ms(lambda: adamw.apply_updates(params, grads_k, state,
+                                                 opt_cfg), 3)
+    log(f"phase 11a: the kernels' loss and gradients, device ms by class "
+        f"(profiler): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            by_class.items(), key=lambda kv: -kv[1]))
+        + f" ({sum(by_class.values()):.2f} in all); AdamW over "
+        f"{sum(p.numel() for p in tree_lib.leaves(params)) / 1e6:.1f} M "
+        f"parameters in {len(names)} leaves {opt_ms:.2f} ms (CUDA events)")
+    del params, grads_k, state
+    free()
+    return counts
+
+
+def check_train_run() -> dict:
+    """(b) 20 steps through launch/train.main at full size, a checkpoint
+    every 5 and a failure injected at step 7: restarts=1 and every loss
+    finite; a --resume from the step-15 checkpoint replays steps 16-20
+    with bit-identical losses.  Returns the run's launch counts."""
+    import shutil
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    root = SERVE_DIR / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--arch", TRAIN_ARCH, "--full", "--device", DEVICE, "--steps",
+              "20", "--batch", "8", "--seq", "128", "--ckpt-every", "5"]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train.main(common + ["--ckpt-dir", str(root / "a"),
+                                 "--inject-failure-at", "7"])
+    t_first = time.perf_counter() - t0
+    losses = first["losses"]
+    require(first["restarts"] == 1, f"restarts={first['restarts']}")
+    require(len(losses) == 22 and all(map(math.isfinite, losses)),
+            f"20 steps with a restart gave losses {losses}")
+    (root / "b").mkdir(parents=True)
+    os.replace(root / "a" / "step_00000015", root / "b" / "step_00000015")
+    shutil.rmtree(root / "a")
+    ckpt_bytes = sum(f.stat().st_size
+                     for f in (root / "b" / "step_00000015").iterdir())
+    t0 = time.perf_counter()
+    again = train.main(common + ["--ckpt-dir", str(root / "b"), "--resume"])
+    t_again = time.perf_counter() - t0
+    shutil.rmtree(root)
+    require(again["losses"] == losses[-5:],
+            f"resumed steps 16-20 {again['losses']} != {losses[-5:]}")
+    steps = sorted(first["step_s"][1:])
+    med = steps[len(steps) // 2]
+    log(f"phase 11b: 20 steps with a failure at step 7: restarts=1, 22 "
+        f"losses finite ({losses[0]:.4f} -> {losses[-1]:.4f}), {t_first:.1f}"
+        f" s with 5 checkpoints of "
+        f"{ckpt_bytes / 2 ** 30:.2f} GiB; resumed from step 15: "
+        f"steps 16-20 bit for bit, {t_again:.1f} s; step wall median "
+        f"{med * 1e3:.2f} ms (steps 2-22), {8 * 128 / med:.0f} tokens/s, "
+        f"peak memory {(first['peak_bytes'] or 0) / 2 ** 30:.2f} GiB")
+    return dict(_build.launch_counts)
+
+
+def check_packed_quarot(gen) -> None:
+    """(c) Table 5's storage at llada-8b's cache shape (4, 96, 32, 128)
+    bf16: unpack(pack(x)) equals mx_fake_quant(x) bit for bit in mxint4
+    and mxint8, the packed bytes equal packed_bytes; QuaRot keeps QKᵀ
+    within 1e-5 of max|QKᵀ| (f32, TF32 off)."""
+    from repro_torch.core import mx, packed, quarot
+    shape = (4, 96, 32, 128)
+    x = (torch.randn(shape, generator=gen, device=DEVICE) * torch.rand(
+        1, 1, 32, 128, generator=gen, device=DEVICE) * 4).bfloat16()
+    for fmt in ("mxint4", "mxint8"):
+        p = packed.pack(x, fmt)
+        same = torch.equal(packed.unpack(p, dtype=torch.bfloat16),
+                           mx.mx_fake_quant(x, fmt))
+        fn = lambda: packed.unpack(packed.pack(x, fmt),  # noqa: E731
+                                   dtype=torch.bfloat16)
+        log(f"phase 11c: packed {fmt} {shape} bf16: unpack(pack(x)) == "
+            f"mx_fake_quant(x) bit for bit: {same}; {p.nbytes} bytes "
+            f"(packed_bytes {packed.packed_bytes(shape, fmt)}, "
+            f"{packed.compression_ratio(shape, fmt):.2f}x below bf16); "
+            f"pack + unpack {time_ms(fn, 5):.3f} ms (CUDA events)")
+        require(same, f"packed {fmt}: unpack(pack(x)) != mx_fake_quant(x)")
+        require(p.nbytes == packed.packed_bytes(shape, fmt),
+                f"packed {fmt}: {p.nbytes} bytes")
+    q, k = (torch.randn(shape, generator=gen, device=DEVICE)
+            for _ in range(2))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    s_r = torch.einsum("bqhd,bkhd->bhqk", quarot.rotate(q), quarot.rotate(k))
+    err = float((s_r - s).abs().max())
+    log(f"phase 11c: QuaRot (Hadamard 128, seed 0) Q_r K_rᵀ against QKᵀ at "
+        f"{shape} f32: max abs err {err:.3g} (max |QKᵀ| "
+        f"{float(s.abs().max()):.3g})")
+    require(err <= 1e-5 * float(s.abs().max()),
+            "QuaRot moved QKᵀ beyond 1e-5 of its largest value")
+
+
+def phase_train(gen) -> dict:
+    """Phase 11: (a) the train step against plain attention, (b) the
+    20-step run with a failure and a resume, (c) packed storage and
+    QuaRot.  Returns the launch counts of (a) and (b)."""
+    t0 = time.perf_counter()
+    counts = check_train_step(gen)
+    for name, n in check_train_run().items():
+        counts[name] += n
+    check_packed_quarot(gen)
+    dt = time.perf_counter() - t0
+    log(f"phase 11: {dt:.1f} s against its budget of {PHASE11_BUDGET_S:.0f}"
+        f" s")
+    return counts
+
+
+def phase_train_process() -> dict:
+    """Phase 11 in a process of its own, as phase 9: it loads a model of
+    its own, and its launch counts and profiles start clean.  Its output
+    joins this log; returns its launch counts."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c",
+                        "import sys, chip_smoke; "
+                        "sys.exit(chip_smoke.phase11_main())"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    counts = None
+    for line in r.stdout.splitlines():
+        if line.startswith(PHASE11_COUNTS):
+            counts = json.loads(line[len(PHASE11_COUNTS):])
+        else:
+            log(line)
+    require(r.returncode == 0 and counts is not None,
+            f"phase 11 process: exit {r.returncode}: {r.stderr[-3000:]}")
+    return counts
+
+
+def phase11_main() -> int:
+    """The body of phase 11's process."""
+    from repro_torch import device
+    from repro_torch.kernels import _build
+    device.resolve("cuda")
+    _build.build()
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    try:
+        counts = phase_train(gen)
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    print(PHASE11_COUNTS + json.dumps(counts), flush=True)
+    return 0
+
+
 def _flat(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -4097,6 +4589,10 @@ def main() -> int:
         for name, n in phase_audio_vlm_process().items():
             launches[name] += n
         log(f"phase 9 (its own process): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for name, n in phase_train_process().items():
+            launches[name] += n
+        log(f"phase 11 (its own process): {time.perf_counter() - t0:.1f} s")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,11 +1,15 @@
 """Parameters and caches of the JAX package (every family),
-as numpy arrays, into the port's layout.
+as numpy arrays, into the port's layout, and back.
 
 The tests build parameters with the JAX ``init_params``, turn them into
 numpy (``jax.tree.map(np.asarray, params)``) and hand them here, so both
 packages run on identical weights; ``cache_from_numpy`` does the same for
 a KV cache, so a step can start from the very cache state JAX produced,
 and ``load_paged_pool`` for a paged pool's stores and block tables.
+``params_to_numpy`` is the inverse of ``params_from_numpy`` (a tree of
+the port's layout, parameters or their gradients, as JAX's stacked numpy
+tree), and ``opt_state_from_numpy`` / ``opt_state_to_numpy`` carry
+AdamW's state, so the tests hold gradients and train steps to JAX's.
 This module imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
@@ -25,7 +29,8 @@ F32_LEAVES = ("A_log", "D", "dt_bias", "lam")
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
-                      device: Union[str, torch.device] = "cuda") -> Dict:
+                      device: Union[str, torch.device] = "cuda",
+                      dtype: Optional[torch.dtype] = None) -> Dict:
     """JAX params (stacked on axis 0) -> the port's params (stacks split
     into lists of per-layer dicts), in ``cfg.dtype`` (``F32_LEAVES`` in
     f32) on ``device``; bf16 arrays pass through f32, exactly.  RMSNorms
@@ -46,11 +51,13 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
       ``tail`` a list of 2 rec sub-layers (models/rglru.py).
 
     The LM head is stored with 16-byte rows for the fused head's bf16
-    route (kernels/fused_head_sampling.pad_head)."""
+    route (kernels/fused_head_sampling.pad_head).  ``dtype`` puts every
+    leaf in that dtype instead (f32 for AdamW's moments)."""
     dev = device_lib.resolve(device)
 
     def t(a, name: str = "") -> torch.Tensor:
-        dt = torch.float32 if name in F32_LEAVES else cfg.torch_dtype
+        dt = dtype or (torch.float32 if name in F32_LEAVES
+                       else cfg.torch_dtype)
         return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(
             device=dev, dtype=dt)
 
@@ -95,6 +102,82 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                           "pos_embed": t(enc["pos_embed"]),
                           "final_norm": norm(enc["final_norm"])}
     return out
+
+
+# the keys of JAX's norm subtrees ({"w"} RMSNorms become plain tensors in
+# the port; LayerNorms stay {"w", "b"}), and the leaves params_from_numpy
+# flattens out of a stacked transformer layer's "attn" and "mlp"
+NORM_KEYS = ("ln1", "ln2", "ln_x", "norm", "gate_norm", "final_norm")
+ATTN_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+MLP_KEYS = ("w_gate", "w_up", "w_down", "w_in", "b_in", "w_out", "b_out")
+
+
+def params_to_numpy(params: Mapping, cfg: ModelConfig) -> Dict:
+    """The port's params (or a tree of their gradients) -> JAX's layout as
+    f32 numpy arrays: per-layer lists stacked on axis 0, ``attn`` and
+    ``mlp`` nested again, RMSNorms as ``{"w": ...}``, the LM head as
+    (d, V) without its 16-byte padding."""
+    def a(x) -> np.ndarray:
+        return x.detach().to("cpu", torch.float32).contiguous().numpy()
+
+    def norm(x):
+        return ({"w": a(x)} if isinstance(x, torch.Tensor)
+                else {n: a(t) for n, t in x.items()})
+
+    def jax_item(sub: Mapping) -> Dict:
+        """One layer dict in JAX's nesting, not yet stacked."""
+        return {k: norm(v) if k in NORM_KEYS
+                else jax_item(v) if isinstance(v, Mapping) else a(v)
+                for k, v in sub.items()}
+
+    def unflat(lp: Mapping) -> Dict:
+        """A stacked transformer layer's item: attn and mlp nested."""
+        out = jax_item(lp)
+        out["attn"] = {k: out.pop(k) for k in ATTN_KEYS if k in out}
+        mlp = {k: out.pop(k) for k in MLP_KEYS if k in out}
+        if mlp:
+            out["mlp"] = mlp
+        return out
+
+    def stack(items):
+        if isinstance(items[0], Mapping):
+            return {k: stack([it[k] for it in items]) for k in items[0]}
+        return np.stack(items)
+
+    out = {"embed": a(params["embed"]),
+           "final_norm": norm(params["final_norm"]),
+           "lm_head": a(params["lm_head"])}
+    if cfg.family == "ssm":
+        out["layers"] = stack([jax_item(lp) for lp in params["layers"]])
+        return out
+    if cfg.family == "hybrid":
+        out["triples"] = stack([jax_item(t) for t in params["triples"]])
+        out["tail"] = stack([jax_item(t) for t in params["tail"]])
+        return out
+    out["layers"] = stack([unflat(lp) for lp in params["layers"]])
+    if cfg.family == "audio":
+        enc = params["encoder"]
+        out["encoder"] = {
+            "layers": stack([unflat(lp) for lp in enc["layers"]]),
+            "pos_embed": a(enc["pos_embed"]),
+            "final_norm": norm(enc["final_norm"])}
+    return out
+
+
+def opt_state_from_numpy(state: Mapping, cfg: ModelConfig,
+                         device: Union[str, torch.device] = "cuda") -> Dict:
+    """JAX's AdamW state ({"m", "v"} stacked like its params, "step") ->
+    optim/adamw's: f32 moments in the port's layout, step an int."""
+    return {"m": params_from_numpy(state["m"], cfg, device, torch.float32),
+            "v": params_from_numpy(state["v"], cfg, device, torch.float32),
+            "step": int(np.asarray(state["step"]))}
+
+
+def opt_state_to_numpy(state: Mapping, cfg: ModelConfig) -> Dict:
+    """optim/adamw's state -> JAX's layout (step an int32 array)."""
+    return {"m": params_to_numpy(state["m"], cfg),
+            "v": params_to_numpy(state["v"], cfg),
+            "step": np.asarray(state["step"], np.int32)}
 
 
 # cache leaves JAX keeps in f32: the BAOS calibration and the recurrent

@@ -144,3 +144,20 @@ def check_supported(cfg: BAOSConfig) -> None:
     if cfg.enabled and cfg.kv_format not in mx.FORMATS:
         raise ValueError(f"unknown BAOS kv_format {cfg.kv_format!r}; "
                          f"core/mx knows {sorted(mx.FORMATS)}")
+
+
+def outlier_channel_overlap(x_warm: torch.Tensor, x_refine: torch.Tensor,
+                            top_frac: float = 0.01) -> torch.Tensor:
+    """Paper §4.4.1's metric: the fraction of the top-|channel| (H, D)
+    indices shared between the warm step's x (B, S, H, D) and a
+    refinement step's (>70% in the paper's profiling); f32."""
+    def top_idx(x):
+        mag = torch.mean(torch.abs(x.to(torch.float32)), dim=(0, 1))
+        flat = mag.reshape(-1)
+        k = max(1, int(flat.shape[0] * top_frac))
+        return torch.topk(flat, k).indices, k
+
+    iw, k = top_idx(x_warm)
+    ir, _ = top_idx(x_refine)
+    shared = torch.sum(torch.isin(iw, ir))
+    return shared.to(torch.float32) / k

@@ -1200,3 +1200,80 @@ def _generate_megatick(model, params, prompt: torch.Tensor,
         x, _, tick, state, _, _ = fn(params, x, kv_valid, state, tick,
                                      megatick_k, False, None, seed)
     return x.clone()
+
+
+# ---------------------------------------------------------------------------
+# Training objective (LLaDA masked diffusion)
+# ---------------------------------------------------------------------------
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of train step ``step``'s mask draw, on ``device``:
+    seeded with (seed << 32) | step, so a step replayed from a checkpoint
+    draws the same mask.  (JAX folds the step into a threefry key; its
+    draw cannot be reproduced without JAX, so the tests hand JAX's own
+    draw to ``masked_diffusion_loss`` instead.)"""
+    return torch.Generator(device=device).manual_seed(
+        ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+
+
+def forward_mask(gen: torch.Generator, tokens: torch.Tensor, mask_id: int,
+                 eps: float = 1e-3):
+    """LLaDA forward process: t ~ U(eps, 1) per sequence, each position
+    masked iid with probability t.  -> (noisy, mask, t (B, 1) f32)."""
+    B, S = tokens.shape
+    u = torch.rand((B, 1), generator=gen, device=tokens.device)
+    t = torch.clamp(u * (1.0 - eps) + eps, min=eps)
+    mask = torch.rand((B, S), generator=gen, device=tokens.device) < t
+    noisy = torch.where(mask, mask_id, tokens)
+    return noisy, mask, t
+
+
+def masked_diffusion_loss(model, params, tokens: torch.Tensor,
+                          gen: Optional[torch.Generator] = None,
+                          quant=None, aux_weight: float = 0.0,
+                          valid: Optional[torch.Tensor] = None,
+                          loss_chunk: Optional[int] = None,
+                          draw: Optional[Tuple] = None, **fwd_kw):
+    """LLaDA objective: E_t E_mask [ 1/t * sum_masked CE ] / (B * S), the
+    f32 function of JAX's ``masked_diffusion_loss``.  The mask comes from
+    ``forward_mask(gen, ...)`` or, given ``draw``, is that
+    ``(noisy, mask, t)``.  An MoE model adds ``aux_weight`` x its
+    load-balance aux summed over the layers.  ``valid`` (B, S) weights
+    each position's CE; ``loss_chunk`` takes the CE over sequence chunks,
+    the f32 copy of the (B, S, V) logits never whole (when S divides).
+    -> (loss, metrics: loss, ce_masked, mask_frac, aux, detached)."""
+    cfg = model.cfg
+    noisy, mask, t = draw if draw is not None else forward_mask(
+        gen, tokens, cfg.mask_id)
+    if cfg.moe is not None:
+        logits, _, aux = model.forward(params, noisy, quant=quant,
+                                       return_aux=True, **fwd_kw)
+    else:
+        logits, _ = model.forward(params, noisy, quant=quant, **fwd_kw)
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    B, S = tokens.shape
+
+    def ce_of(lg, tk):
+        lf = lg.to(torch.float32)
+        gold = torch.gather(lf, -1, tk[..., None].to(torch.int64))[..., 0]
+        return torch.logsumexp(lf, dim=-1) - gold
+
+    if loss_chunk is not None and S % loss_chunk == 0:
+        ce = torch.cat([ce_of(logits[:, c:c + loss_chunk],
+                              tokens[:, c:c + loss_chunk])
+                        for c in range(0, S, loss_chunk)], dim=1)
+    else:
+        ce = ce_of(logits, tokens)
+    maskf = mask.to(torch.float32)
+    w = maskf / t
+    if valid is not None:
+        w = w * valid.to(torch.float32)
+    loss = torch.sum(ce * w) / (B * S)
+    if aux_weight:
+        loss = loss + aux_weight * aux
+    metrics = {"loss": loss,
+               "ce_masked": torch.sum(ce * maskf) / torch.clamp(
+                   torch.sum(maskf), min=1.0),
+               "mask_frac": torch.mean(maskf),
+               "aux": aux}
+    return loss, {k: v.detach() for k, v in metrics.items()}

@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Optional, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("fused_head_sampling", "topk_mask", "flash_bidir",
-           "baos_mx_quant", "stablemax_sampling")
+           "baos_mx_quant", "stablemax_sampling", "flash_bidir_bwd")
 # no --use_fast_math: the MX exponent rule and the Gumbel log need the
 # full-precision log2f/logf, and divisions must stay IEEE divisions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -127,6 +127,21 @@ def sm_count(dev) -> int:
 def ptr(t) -> Optional[int]:
     """A tensor's device address for a ``c_void_p`` argument; None -> null."""
     return None if t is None else t.data_ptr()
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where kernel ``name``, which has no backward, would cut an
+    autograd graph: grad mode is on and one of ``tensors`` (None allowed)
+    requires grad.  Its output would carry no ``grad_fn``, so a
+    ``backward()`` through it would quietly skip it.  The wrappers call
+    this on their kernel route only: on the CPU their plain versions stay
+    differentiable."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on "
+            f"tensors that do not require grad")
 
 
 def check(name: str, err: int) -> None:

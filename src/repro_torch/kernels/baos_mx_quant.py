@@ -80,6 +80,7 @@ def baos_mx_quant(x: torch.Tensor, center: torch.Tensor,
     if x.device.type in _build.PLAIN_DEVICES:
         y = baos_mx_quant_plain(x, center, scale, fmt)
         return y if out is None else out.copy_(y)
+    _build.refuse_grad(NAME, x, center, scale)
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in (center, scale)):
         raise ValueError("x, center and scale must lie on one CUDA device")

@@ -23,6 +23,16 @@ FMAs, no TF32).  Both take any head dim D that is a multiple of 8 up to
 256 or not a multiple of 8 raises ``NotImplementedError``
 (``check_head_dim``), which ``models/layers.attention`` and the model's
 config check call before any tick runs.
+
+Gradients: while grad mode is on and q, k or v requires grad,
+``flash_bidir`` runs as ``FlashBidir``, a ``torch.autograd.Function``
+whose forward is the same kernel (or plain version) and whose backward is
+``flash_bidir_bwd``: csrc/flash_bidir_bwd.cu for CUDA tensors, which
+replaces no Pallas kernel (the JAX package trains through jax.grad of
+models/layers.attention), and ``flash_bidir_bwd_plain`` for CPU tensors.
+A row with no valid key averages V whatever its scores, so its dq and its
+share of dk are 0.  BAOS calibration under autograd raises
+``NotImplementedError``: training runs without a cache, as in JAX.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from repro_torch.core import sampling
 from repro_torch.kernels import _build
 
 NAME = "flash_bidir"
+BWD_NAME = "flash_bidir_bwd"
 # the tile widths the kernel is instantiated for (csrc/flash_bidir.cu
 # tile_of); a head dim runs in the smallest one that holds it
 TILES = (32, 64, 128, 256)
@@ -85,13 +96,7 @@ def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.to(torch.float32).repeat_interleave(G, dim=2)
     vf = v.to(torch.float32).repeat_interleave(G, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    ok = torch.ones((B, 1, Sq, Skv), dtype=torch.bool, device=q.device)
-    if kv_valid is not None:
-        ok = ok & kv_valid.to(torch.bool)[:, None, None, :]
-    if window is not None:
-        qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
-        kp = torch.arange(Skv, device=q.device)[None, :]
-        ok = ok & (torch.abs(qp - kp) < window)
+    ok = _mask(B, Sq, Skv, kv_valid, window, q_offset, q.device)
     s = torch.where(ok, s, sampling.NEG_INF)
     p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
     l = torch.sum(p, dim=-1)                               # (B, Hq, Sq)
@@ -132,7 +137,9 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); kv_valid (B, Skv) bool;
     fk/fv/cv (B, Hkv, D) f32; query row r at position q_offset + r.
     Returns (B, Sq, Hq, D) in q's dtype.  CUDA
-    tensors run the kernel; CPU tensors the plain version."""
+    tensors run the kernel; CPU tensors the plain version.  Under
+    autograd (grad mode on, q, k or v requiring grad) the result carries
+    ``FlashBidir``'s backward."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or Hq % Hkv:
@@ -140,6 +147,19 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}: not a GQA attention")
     if kv_valid is not None and kv_valid.shape != (B, Skv):
         raise ValueError(f"kv_valid {tuple(kv_valid.shape)} != {(B, Skv)}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, fk, fv, cv)):
+        if fk is not None or fv is not None or cv is not None:
+            raise NotImplementedError(
+                "flash_bidir's backward takes no BAOS calibration: training "
+                "runs without a cache (ROADMAP.md, Queue 3)")
+        return FlashBidir.apply(q, k, v, kv_valid, window, q_offset)
+    return _forward(q, k, v, kv_valid, fk, fv, cv, window, q_offset)
+
+
+def _forward(q, k, v, kv_valid, fk, fv, cv, window, q_offset):
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
     if q.device.type in _build.PLAIN_DEVICES:
         return flash_bidir_plain(q, k, v, kv_valid, fk, fv, cv, window,
                                  q_offset)
@@ -172,3 +192,130 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(NAME, err)
     _build.launch_counts[NAME] += 1
     return out
+
+
+class FlashBidir(torch.autograd.Function):
+    """Attention with a backward: the forward kernel (or plain version),
+    unchanged, then ``flash_bidir_bwd`` from the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, window, q_offset):
+        ctx.save_for_backward(q, k, v, kv_valid)
+        ctx.window, ctx.q_offset = window, q_offset
+        return _forward(q, k, v, kv_valid, None, None, None, window,
+                        q_offset)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_valid = ctx.saved_tensors
+        dq, dk, dv = flash_bidir_bwd(q, k, v, dout.contiguous(), kv_valid,
+                                     ctx.window, ctx.q_offset)
+        return dq, dk, dv, None, None, None
+
+
+def _mask(B: int, Sq: int, Skv: int, kv_valid, window, q_offset, device
+          ) -> torch.Tensor:
+    """(B, 1, Sq, Skv) bool: the keys each query row attends to."""
+    ok = torch.ones((B, 1, Sq, Skv), dtype=torch.bool, device=device)
+    if kv_valid is not None:
+        ok = ok & kv_valid.to(torch.bool)[:, None, None, :]
+    if window is not None:
+        qp = q_offset + torch.arange(Sq, device=device)[:, None]
+        kp = torch.arange(Skv, device=device)[None, :]
+        ok = ok & (torch.abs(qp - kp) < window)
+    return ok
+
+
+def flash_bidir_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          dout: torch.Tensor,
+                          kv_valid: Optional[torch.Tensor] = None,
+                          window: Optional[int] = None, q_offset: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Plain version of the backward, step by step in f32 from recomputed
+    probabilities: (dq, dk, dv) in the inputs' dtype.  delta_i =
+    sum_j p_ij dp_ij, the f32 value of dO_i . o_i (the forward's output,
+    rounded to bf16, would carry that rounding into every ds_ij); dk and dv
+    sum over the q heads of each KV head's group."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    qf, dof = q.to(torch.float32), dout.to(torch.float32)
+    kf = k.to(torch.float32).repeat_interleave(G, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(G, dim=2)
+    ok = _mask(B, Sq, Skv, kv_valid, window, q_offset, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    s = torch.where(ok, s, sampling.NEG_INF)
+    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    p = e / torch.clamp(torch.sum(e, dim=-1, keepdim=True), min=1e-30)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = torch.sum(p * dp, dim=-1, keepdim=True)
+    ds = torch.where(ok, p * (dp - delta), 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(B, Skv, Hkv, G, D).sum(dim=3)
+    dv = dv.reshape(B, Skv, Hkv, G, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.function(BWD_NAME, "flash_bidir_bwd_launch",
+                           [p] * 9 + [i] * 6 + [ctypes.c_float, i, i, i, p])
+
+
+def flash_bidir_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    dout: torch.Tensor,
+                    kv_valid: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None, q_offset: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_bidir`` (no BAOS) at q, k, v
+    for the output gradient ``dout`` (B, Sq, Hq, D).  CUDA
+    tensors run csrc/flash_bidir_bwd.cu (one count in ``launch_counts``
+    per call: its two kernels, dq then dk/dv); CPU tensors the plain
+    version."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or Hq % Hkv or \
+            dout.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, dout {tuple(dout.shape)}: not "
+                         f"a GQA attention")
+    if q.device.type in _build.PLAIN_DEVICES:
+        return flash_bidir_bwd_plain(q, k, v, dout, kv_valid, window,
+                                     q_offset)
+    dev = q.device
+    ts = (q, k, v, dout)
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError("q, k, v and dout must lie on one CUDA device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"q/k/v/dout dtypes "
+                         f"{[str(t.dtype) for t in ts]}: need one of "
+                         f"{_DTYPES} for all four")
+    route(D, q.dtype)
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} must be positive")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("q, k, v and dout must be contiguous")
+    valid = None
+    if kv_valid is not None:
+        if kv_valid.device != dev or not kv_valid.is_contiguous():
+            raise ValueError(f"kv_valid must be contiguous on {dev}")
+        valid = kv_valid.to(torch.bool)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    stats = torch.empty(3 * B * Hq * Sq, dtype=torch.float32, device=dev)
+    err = _bwd_kernel_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        _build.ptr(valid), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), stats.data_ptr(), B, Sq, Skv, Hq, Hkv, D, D ** -0.5,
+        0 if window is None else int(window), int(q_offset),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(BWD_NAME, err)
+    _build.launch_counts[BWD_NAME] += 1
+    return dq, dk, dv

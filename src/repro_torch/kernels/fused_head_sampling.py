@@ -243,6 +243,7 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
             hidden, w_head, fmt, logit_scale=logit_scale,
             temperature=temperature, seed=seed, suppress_id=suppress_id,
             chunk_v=chunk_v)
+    _build.refuse_grad(NAME, hidden, w_head)
     if hidden.device.type != "cuda" or w_head.device != hidden.device:
         raise ValueError(f"hidden on {hidden.device} and w_head on "
                          f"{w_head.device}: both must be on one CUDA device")

@@ -120,6 +120,7 @@ def stablemax_sampling(logits: torch.Tensor, *, fmt: str = "none",
     if logits.device.type in _build.PLAIN_DEVICES:
         return stable_max_plain(logits, fmt, temperature=temperature,
                                 seed=seed, suppress_id=suppress_id)
+    _build.refuse_grad(NAME, logits)
     if logits.device.type != "cuda":
         raise ValueError(f"logits on {logits.device}: need a CUDA device")
     if logits.dtype not in _DTYPES:

@@ -74,6 +74,7 @@ def topk_mask(conf: torch.Tensor, mask: torch.Tensor, k: torch.Tensor
                          f"{tuple(k.shape)}")
     if conf.device.type in _build.PLAIN_DEVICES:
         return topk_mask_plain(conf, mask, k)
+    _build.refuse_grad(NAME, conf)
     if conf.device.type != "cuda" or mask.device != conf.device or \
             k.device != conf.device:
         raise ValueError("conf, mask and k must lie on one CUDA device")

@@ -202,20 +202,22 @@ def qkv(h: torch.Tensor, lp: Dict, cfg: ModelConfig,
 
 
 def ffn(h: torch.Tensor, lp: Dict, cfg: ModelConfig, quant=None
-        ) -> torch.Tensor:
-    """A layer's FFN on its normed input: SwiGLU, the GELU MLP with biases
-    (``jax.nn.gelu``'s tanh form between two biased products), or for an
-    MoE layer models/moe.moe_ffn with its aux loss dropped (nothing here
-    trains)."""
+        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A layer's FFN on its normed input -> (out, aux): SwiGLU or the GELU
+    MLP with biases (``jax.nn.gelu``'s tanh form between two biased
+    products), aux None; or for an MoE layer models/moe.moe_ffn and its
+    load-balance aux loss (an f32 scalar), which ``forward`` sums over
+    the layers and returns with ``return_aux`` (the training loss,
+    core/diffusion.masked_diffusion_loss)."""
     if cfg.moe is not None:
-        return moe_lib.moe_ffn(h, lp["moe"], cfg.moe, quant)[0]
+        return moe_lib.moe_ffn(h, lp["moe"], cfg.moe, quant)
     if cfg.ffn == "gelu":
         return layers.qdot(layers.gelu(layers.qdot(h, lp["w_in"], quant,
                                                    lp["b_in"])),
-                           lp["w_out"], quant, lp["b_out"])
+                           lp["w_out"], quant, lp["b_out"]), None
     return layers.qdot(layers.swiglu(layers.qdot(h, lp["w_gate"], quant),
                                      layers.qdot(h, lp["w_up"], quant)),
-                       lp["w_down"], quant)
+                       lp["w_down"], quant), None
 
 
 def cross_attention(x: torch.Tensor, lp: Dict, ck: torch.Tensor,
@@ -295,8 +297,8 @@ def forward(params: Dict, cfg: ModelConfig,
             calib_mask: Optional[torch.Tensor] = None,
             logits_slice: Optional[Tuple[int, int]] = None,
             head_mode: str = "logits", quant=None,
-            cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-            ) -> Tuple[torch.Tensor, Optional[Dict]]:
+            cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            return_aux: bool = False):
     """tokens (B, S) -- or their ``embeds`` (B, S, d) -- at positions
     seg_start + r -> (logits (B, S', V), or with ``head_mode='hidden'``
     the final-norm hidden states (B, S', d); the cache), S' = S or the
@@ -306,7 +308,9 @@ def forward(params: Dict, cfg: ModelConfig,
     ``kv_valid`` (B, s_tot).  ``quant``: a ``layers.QuantPolicy`` at every
     GEMM boundary (None: none).  ``cross_kv``: the stacked encoder K/V
     (n_layers, B, S_enc, Hkv, D) each, for the cross-attention
-    sublayers."""
+    sublayers.  ``return_aux``: return (logits, cache, aux), aux the MoE
+    layers' load-balance losses summed over the layers (f32; 0 for a
+    dense model), as JAX's forward returns it."""
     check_supported(cfg)
     if head_mode not in ("logits", "hidden"):
         raise ValueError(f"unknown head_mode {head_mode!r}")
@@ -326,6 +330,7 @@ def forward(params: Dict, cfg: ModelConfig,
         else embeds.to(cfg.torch_dtype)
     positions = start_of(seg_start) + torch.arange(S, device=x.device)
     Hq, D = cfg.n_heads, cfg.d_head
+    aux = None
     for i, lp in enumerate(params["layers"]):
         h = apply_norm(x, lp["ln1"], cfg)
         q, k, v = qkv(h, lp, cfg, positions, quant)
@@ -341,13 +346,19 @@ def forward(params: Dict, cfg: ModelConfig,
             x = x + cross_attention(x, lp, cross_kv[0][i], cross_kv[1][i],
                                     cfg, quant) * cfg.residual_scale
         h2 = apply_norm(x, lp["ln2"], cfg)
-        x = x + ffn(h2, lp, cfg, quant) * cfg.residual_scale
+        ff, aux_l = ffn(h2, lp, cfg, quant)
+        x = x + ff * cfg.residual_scale
+        if return_aux and aux_l is not None:
+            aux = aux_l if aux is None else aux + aux_l
     x = apply_norm(x, params["final_norm"], cfg)
     if logits_slice is not None:
         x = rows(x, *logits_slice)
-    if head_mode == "hidden":
-        return x, cache
-    return head_logits(x, params, cfg, quant), cache
+    out = x if head_mode == "hidden" else head_logits(x, params, cfg, quant)
+    if not return_aux:
+        return out, cache
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return out, cache, aux
 
 
 def head_logits(x: torch.Tensor, params: Dict, cfg: ModelConfig, quant=None
