@@ -234,9 +234,39 @@ Phases, each fatal on failure:
                mx_fake_quant(x) bit for bit in mxint4 and mxint8, its
                bytes, and QuaRot keeping QKᵀ within 1e-5 of its largest
                value.
+  12. mesh and split cache -- (budget PHASE12_BUDGET_S) (a) in the main
+               process after phase 10, llada-8b at full width and depth on
+               a (1, 1) mesh, a one-rank NCCL group: the engine's warm and
+               none paths eager K=1, graphed K=1 (the tick and its
+               collectives one CUDA graph) and graphed K=8, each equal to
+               phase 4's run of the same path without a mesh (tokens,
+               per-request ticks, CommitEvents, ticks), every tick exactly
+               one launch of the fused head's vocab-shard entry (route A)
+               and one of topk_mask, no plain version; (c) llada-8b
+               generate in dual mode + BAOS mxint4 at Table 6's shape
+               (B 16, prompt 128, gen 256, block 64, 16 steps) through the
+               split cache (act_len 64), eager and graphed: graphed equal
+               to eager, no mask id left, a refine launching route B
+               (flash_bidir over the cache and the active buffer) once a
+               layer, one refine's logits with BAOS mxint8 within 5% of
+               the largest logit of the unified cache's (JAX's
+               tests/test_split_cache.py case and bound; mxint4's
+               printed), step wall and tokens/s; (b) after phase 10's model
+               is freed, meshes (1, 2) and (2, 1) of two ranks sharing the
+               card (gloo, eager) in a job of their own
+               (torch.distributed.run, ``phase12b_main``): llada-8b at full
+               width, 8 of its 32 layers (a depth cut for memory and
+               time), the engine's warm path against a one-rank run of the
+               same model, canvas for canvas each tick, any difference a
+               recorded near-tie, and each tick's collective time.  Phase
+               2 holds route A at (64, 4096, V_pad / 2) bf16 mxfp8, shard
+               1, and on padded heads (col_limit), and route B at the split
+               refine's shape (16, 64, 32 on 32, 128) over 384 + 64 keys
+               with BAOS, each against its plain version, timed beside its
+               bound and a library call.
 Every path's launch counts are zeroed just before it and read just after;
-the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 7, 8, 9
-and 11; the fused head's and Stable-Max's rows carry ``by_fmt``, phase
+the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 12, 7, 8,
+9 and 11; the fused head's and Stable-Max's rows carry ``by_fmt``, phase
 10's kernel cases per new format.
 Prints the run's time, the kernels JSON line, the card's name and power
 limit, and last the {"ok": true, ...} line.  Exits non-zero without a
@@ -273,8 +303,13 @@ LLADA = dict(d=4096, V=126464, mask_id=126336)
 BASE_FMTS = ("none", "bf16", "mxfp8_e4m3")
 NEW_FMTS = ("mxint8", "mxint4", "mxfp6_e3m2", "mxfp4_e2m1")
 ALL_FMTS = BASE_FMTS + NEW_FMTS
+# phase 12's time budget, seconds (stated before its first run)
+PHASE12_BUDGET_S = 120
 # the Pallas kernel each CUDA kernel replaces (def line)
 REPLACES = {
+    "fused_head_sampling_shard":
+        "src/repro/kernels/fused_head_sampling.py:134",
+    "flash_bidir_split": "src/repro/kernels/flash_bidir.py:78",
     "fused_head_sampling": "src/repro/kernels/fused_head_sampling.py:134",
     "topk_mask": "src/repro/kernels/topk_mask.py:44",
     "flash_bidir": "src/repro/kernels/flash_bidir.py:78",
@@ -570,6 +605,8 @@ def phase_kernels(gen) -> dict:
         bound_ms=b_ms, bound_by=b_by)
     out["flash_bidir_bwd"] = check_attn_backward(gen)
     check_no_backward_guard(gen)
+    out["fused_head_sampling_shard"] = check_route_a(gen)
+    out["flash_bidir_split"] = check_route_b(gen)
     out["baos_mx_quant"] = check_baos(gen)
     out["stablemax_sampling"] = check_stablemax(gen)
     for name, rows in check_sampling_formats(gen).items():
@@ -2103,7 +2140,7 @@ def phase_engine(model, params, slowfast: bool = True, names=None,
     from repro_torch.kernels import _build
     cfg = model.cfg
     trace = engine_trace(cfg)
-    launches = {name: 0 for name in _build.KERNELS}
+    launches = {name: 0 for name in _build.COUNTED}
     paths = {}
     variants = [(vname, {**vcfg, **(extra or {})})
                 for vname, vcfg in variants]
@@ -2281,7 +2318,10 @@ def profile_engine(model, params, dcfg, mode, trace, name, vcfg, per_tick,
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     n, replays = eng.ticks_total - n0, step.replays - replays0
-    counted = dict(_build.launch_counts)
+    require(all(_build.launch_counts[r] == 0 for r in _build.ROUTES),
+            f"profile {name}: a route launched without a mesh or a split "
+            f"cache: {_build.launch_counts}")
+    counted = {k: _build.launch_counts[k] for k in DEVICE_KERNEL}
     kernels = sorted((e.time_range.start, e.time_range.end, e.name)
                      for e in prof.events()
                      if e.device_type == DeviceType.CUDA)
@@ -2354,7 +2394,7 @@ def phase_paged(model, params, slot, names=("warm", "none", "warm+baos"),
     from repro_torch.kernels import _build
     cfg = model.cfg
     trace = engine_trace(cfg)
-    launches = {name: 0 for name in _build.KERNELS}
+    launches = {name: 0 for name in _build.COUNTED}
     dcfgs, warm_eng = {}, None
     for name, mode, dcfg, expected in engine_paths(model):
         if name not in names:
@@ -2570,7 +2610,7 @@ def phase_goodput(model, params) -> dict:
     groups = [rs.randint(0, cfg.vocab - 200, size=(64,)).astype(np.int32)
               for _ in range(2)]
     n_req, gen, row_pages, budget = 48, 16, 5, 20
-    total = {name: 0 for name in _build.KERNELS}
+    total = {name: 0 for name in _build.COUNTED}
     rates = {}
     for pool, slots, extra in (("slot", budget // row_pages, {}),
                                ("paged", 12, dict(num_pages=budget))):
@@ -2685,7 +2725,7 @@ def phase_breakdown(model, params, slot_paths,
     cases = [("warm", *paths["warm"]), ("warm+baos", *paths["warm+baos"]),
              ("warm legacy fmt none", "warm", legacy,
               path_kernels(model, legacy, True))]
-    launches = {name: 0 for name in _build.KERNELS}
+    launches = {name: 0 for name in _build.COUNTED}
     shares = {}
     for name, mode, dcfg, expected in cases:
         if name not in names:
@@ -2777,7 +2817,7 @@ def phase_obs(model, params) -> dict:
     trace = engine_trace(model.cfg)
     gen_tokens = sum(g for _, g in trace)
     name, mode, dcfg, expected = engine_paths(model)[0]
-    launches = {k: 0 for k in _build.KERNELS}
+    launches = {k: 0 for k in _build.COUNTED}
     SERVE_DIR.mkdir(parents=True, exist_ok=True)
     for vname, vcfg in (("graphed K=1", dict(jit_steps=True)),
                         ("graphed K=8", dict(jit_steps=True,
@@ -2867,7 +2907,7 @@ def phase_http(model, params) -> dict:
     from repro_torch.obs import parse_exposition
     from repro_torch.serving.frontend import build_frontend, loadgen
     cfg = model.cfg
-    launches = {k: 0 for k in _build.KERNELS}
+    launches = {k: 0 for k in _build.COUNTED}
     common = ("flash_bidir", "fused_head_sampling", "topk_mask")
     rs = np.random.RandomState(6)
 
@@ -3904,7 +3944,7 @@ def no_plain():
         raise Failure("a plain sampling version ran on the card")
 
     names = ((fhs, "fused_head_stable_max"), (sms, "stable_max_plain"),
-             (tk, "topk_mask_plain"))
+             (tk, "topk_mask_plain"), (fhs, "head_shard_partials_plain"))
     saved = [getattr(m, n) for m, n in names]
     for m, n in names:
         setattr(m, n, refuse)
@@ -3977,7 +4017,7 @@ def check_random_engine(model, params) -> dict:
         sampling=sampling.SamplingConfig(strategy="random"))
     trace = engine_trace(cfg)
     expected = path_kernels(model, dcfg, True)
-    total = {name: 0 for name in _build.KERNELS}
+    total = {name: 0 for name in _build.COUNTED}
     runs = {}
     for vname, vcfg in VARIANTS:
         what = f"engine warm random {vname}"
@@ -4131,7 +4171,7 @@ def phase_formats_random_sim(model, params, gen, stage_ms: dict) -> dict:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     card = card_line()
-    launches = {name: 0 for name in _build.KERNELS}
+    launches = {name: 0 for name in _build.COUNTED}
 
     def add(counts):
         for name, n in counts.items():
@@ -4436,6 +4476,554 @@ def phase11_main() -> int:
     print(PHASE11_COUNTS + json.dumps(counts), flush=True)
     return 0
 
+# ---------------------------------------------------------------------------
+# the two kernel routes of phase 12 (in phase 2) and phase 12
+# ---------------------------------------------------------------------------
+
+def route_a_case(h, w_full, n: int, shard: int, suppress_id, what: str):
+    """Route A on shard ``shard`` of ``n`` of the head w_full (d, V) padded
+    by pad_head_for_mesh, against its plain version: m and the global
+    index equal, s within 1e-6 relative.  Returns (shard, kwargs, max abs
+    err of s, max relative err of s)."""
+    from repro_torch.core import sampling
+    from repro_torch.kernels import fused_head_sampling as fhs
+    V = w_full.shape[1]
+    wp = sampling.pad_head_for_mesh(w_full, n)
+    vloc = wp.shape[1] // n
+    ws = wp[:, shard * vloc:(shard + 1) * vloc].contiguous()
+    kw = dict(fmt="mxfp8_e4m3", col_offset=shard * vloc, col_limit=V,
+              suppress_id=suppress_id)
+    m_k, i_k, s_k = fhs.head_shard_partials(h, ws, **kw)
+    m_p, i_p, s_p = fhs.head_shard_partials_plain(h, ws, **kw)
+    torch.cuda.synchronize()
+    err = (s_k - s_p).abs()
+    rel = float((err / s_p.clamp(min=1e-30)).max())
+    log(f"route A {what}: shard {shard} of {n}, V_loc {vloc}, "
+        f"{fhs.shard_columns(vloc, shard * vloc, V)} valid columns: m "
+        f"differs in {int((m_k != m_p).sum())} rows, the index in "
+        f"{int((i_k != i_p).sum())}, s max rel err {rel:.3g}")
+    require(torch.equal(m_k, m_p) and torch.equal(i_k, i_p),
+            f"route A {what}: m or the global index differ from plain")
+    require(rel <= 1e-6, f"route A {what}: s rel err {rel:.3g} > 1e-6")
+    return ws, kw, float(err.max()), rel
+
+
+def check_route_a(gen) -> dict:
+    """Route A, the fused head's vocab-shard entry (the SPMD tick's head):
+    llada-8b's head on 2 shards, shard 1, at (64, 4096) bf16 mxfp8 greedy
+    (the engine tick's rows), and padded heads: V 1003 on 2 shards (shard
+    1 holds 491 valid columns of 512) and V 257 on 4 (shard 3 is pad
+    only), each against its plain version; its device time (a graph of
+    20) beside its byte bound, the plain version's and torch.matmul on the
+    shard."""
+    from repro_torch.kernels import fused_head_sampling as fhs
+    d = LLADA["d"]
+    for V, n, shard, R in ((1003, 2, 1, 24), (257, 4, 3, 8), (257, 4, 0, 8)):
+        w = random_head(dict(d=d, V=V), gen)
+        h = torch.randn(R, d, generator=gen, device=DEVICE).bfloat16()
+        route_a_case(h, w, n, shard, V - 1, f"({R}, {d}) @ ({d}, {V})")
+    w = random_head(LLADA, gen)
+    h = torch.randn(64, d, generator=gen, device=DEVICE).bfloat16()
+    what = f"(64, {d}) @ llada-8b's head"
+    ws, kw, err, rel = route_a_case(h, w, 2, 1, LLADA["mask_id"], what)
+    del w
+    R, vloc = h.shape[0], ws.shape[1]
+    b_ms, b_by = bound(R * d * 2 + d * vloc * 2 + R * 12,
+                       2.0 * R * d * vloc, BF16_FLOPS)
+    fn = lambda: fhs.head_shard_partials(h, ws, **kw)  # noqa: E731
+    lib = lambda: torch.matmul(h, ws)  # noqa: E731
+    row = dict(max_abs_err=err, device_ms=kernel_ms(fn, 20, "route A"),
+               ms=time_ms(fn, 20),
+               plain_ms=time_ms(lambda: fhs.head_shard_partials_plain(
+                   h, ws, **kw), 3),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=kernel_ms(lib, 20, "route A torch.matmul"))
+    log(f"route A {what}, shard 1 of 2 ({d}, {vloc}) bf16 mxfp8: device "
+        f"{row['device_ms']:.4f} ms (a graph of 20 calls; partials + "
+        f"merge), CUDA events, back to back {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{row['device_ms'] / b_ms:.2f}x; torch.matmul on the shard device "
+        f"{row['library_ms']:.4f} ms")
+    return row
+
+
+def check_route_b(gen) -> dict:
+    """Route B, flash_bidir over the cache and a second K/V source: the
+    split refine's shape on llada-8b, q (16, 64, 32, 128) over a 384-key
+    cache (its stale copy of the block at 128..191 masked) and the 64-key
+    active buffer, with BAOS; a window, a masked buffer key and GQA at a
+    small shape; the f32 route.  Each within one bf16 ulp + 1e-6 of its
+    plain version (f32: 1e-5 of max |out|).  Its device time beside its
+    bound, the plain version's and SDPA on the concatenated K/V."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_bidir as fb
+
+    def case(B, Sq, Skv, Hq, Hkv, D, off, win, dtype, valid2_cut):
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+        q, kk, v = r(B, Sq, Hq, D), r(B, Skv, Hkv, D), r(B, Skv, Hkv, D)
+        k2, v2 = r(B, Sq, Hkv, D), r(B, Sq, Hkv, D)
+        pos = torch.arange(Skv, device=DEVICE)
+        valid = ~((pos >= off) & (pos < off + Sq))[None].expand(B, Skv)
+        valid = valid.contiguous()
+        valid2 = None
+        if valid2_cut:
+            valid2 = (torch.arange(Sq, device=DEVICE)[None] < Sq - 3
+                      ).expand(B, Sq).contiguous()
+        cal = [torch.rand(B, Hkv, D, generator=gen, device=DEVICE) + 0.5,
+               torch.rand(B, Hkv, D, generator=gen, device=DEVICE) + 0.5,
+               torch.randn(B, Hkv, D, generator=gen, device=DEVICE)]
+        args = (q, kk, v, valid, *cal)
+        kw = dict(window=win, q_offset=off, extra_kv=(k2, v2, valid2))
+        got = fb.flash_bidir(*args, **kw)
+        want = fb.flash_bidir_plain(*args, **kw)
+        err = (got.float() - want.float()).abs()
+        what = (f"route B {str(dtype).replace('torch.', '')} q ({B}, {Sq}, "
+                f"{Hq}, {D}) on {Hkv} KV heads over {Skv} + {Sq} keys, block "
+                f"at {off}, window {win}, buffer keys masked "
+                f"{3 if valid2_cut else 0}")
+        if dtype == torch.bfloat16:
+            excess = float((err - bf16_ulp(want)).max())
+            log(f"{what}: max abs err {float(err.max()):.3g}, beyond one "
+                f"bf16 ulp {excess:.3g}")
+            require(excess <= 1e-6, f"{what}: beyond one bf16 ulp + 1e-6")
+        else:
+            top = float(want.abs().max())
+            log(f"{what}: max abs err {float(err.max()):.3g} (max |out| "
+                f"{top:.3g})")
+            require(float(err.max()) <= 1e-5 * top,
+                    f"{what}: beyond 1e-5 of max |out|")
+        return args, kw, float(err.max())
+
+    case(2, 16, 80, 8, 2, 64, 32, 9, torch.bfloat16, True)
+    case(2, 16, 80, 8, 2, 64, 32, 9, torch.float32, True)
+    args, kw, err = case(16, 64, 384, 32, 32, 128, 128, None,
+                         torch.bfloat16, False)
+    q, kk, v, valid = args[:4]
+    k2, v2, _ = kw["extra_kv"]
+    B, Sq, Hq, D = q.shape
+    n_keys = int(valid.sum()) + B * Sq
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * n_keys * kk.shape[2] * D * 2
+                       + valid.numel() + 3 * B * kk.shape[2] * D * 4,
+                       4.0 * Hq * Sq * n_keys * D, BF16_FLOPS)
+    qt = q.transpose(1, 2)
+    kt = torch.cat([kk, k2], 1).transpose(1, 2)
+    vt = torch.cat([v, v2], 1).transpose(1, 2)
+    mask = torch.cat([valid, torch.ones((B, Sq), dtype=torch.bool,
+                                        device=DEVICE)], 1)[:, None, None]
+    fn = lambda: fb.flash_bidir(*args, **kw)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask)
+    row = dict(max_abs_err=err, device_ms=kernel_ms(fn, 20, "route B"),
+               ms=time_ms(fn, 20),
+               plain_ms=time_ms(lambda: fb.flash_bidir_plain(*args, **kw),
+                                5),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=kernel_ms(lib, 20, "route B sdpa"))
+    log(f"route B at the split refine's shape: device {row['device_ms']:.4f}"
+        f" ms a call (a graph of 20), CUDA events, back to back "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {row['device_ms'] / b_ms:.1f}x; "
+        f"scaled_dot_product_attention on the concatenated K/V device "
+        f"{row['library_ms']:.4f} ms")
+    return row
+
+
+def phase_mesh(model, params, slot_paths) -> dict:
+    """Phase 12a: llada-8b on a (1, 1) mesh, a one-rank NCCL group in this
+    process: the engine's warm and none paths eager K=1, graphed K=1 and
+    graphed K=8 (the tick, collectives included, one CUDA graph), each
+    equal to phase 4's run of the same path without a mesh in tokens,
+    per-request ticks, CommitEvents and ticks; every tick run exactly one
+    launch of route A and one of topk_mask, the single-device head never,
+    and no plain version.  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_debug_mesh(1, 1, DEVICE)
+    require(mesh.backend == "nccl" and mesh.capturable,
+            f"a one-rank mesh on the card runs {mesh.backend}, not NCCL")
+    log(f"phase 12a: {mesh}")
+    trace = engine_trace(model.cfg)
+    launches = {name: 0 for name in _build.COUNTED}
+    paths = {name: (mode, dcfg) for name, mode, dcfg, _ in
+             engine_paths(model)}
+    for name in ("warm", "none"):
+        mode, dcfg = paths[name]
+        per_tick = slot_paths[name]["per_tick"]
+        for vname, vcfg in VARIANTS:
+            what = f"mesh (1, 1) engine path={name} {vname}"
+            ref = slot_paths[name]["runs"][vname]
+            with no_plain():
+                eng, keys, tick_ms, counts, _ = engine_run(
+                    model, params, dcfg, mode, trace, True, mesh=mesh,
+                    **vcfg)
+            done = eng.completed
+            require({c.uid: c.tokens.tolist() for c in done} ==
+                    ref["tokens"], f"{what}: tokens differ without a mesh")
+            require({c.uid: c.ticks for c in done} == ref["ticks"],
+                    f"{what}: per-request ticks differ")
+            require(keys == ref["events"], f"{what}: CommitEvents differ")
+            require(eng.ticks_total == ref["ticks_total"],
+                    f"{what}: ticks differ")
+            mt = eng._megatick_fn
+            n_run = eng.ticks_total + (0 if mt is None else mt.ticks_wasted)
+            want = {k: 0 for k in counts}
+            want.update(fused_head_sampling_shard=n_run, topk_mask=n_run,
+                        flash_bidir=per_tick["flash_bidir"] * n_run)
+            require(counts == want, f"{what}: launches {counts} != {want}")
+            step = graph_step(eng)
+            p50 = float(np.median(tick_ms))
+            log(f"{what}: equal to the run without a mesh ({len(done)} "
+                f"requests, {eng.ticks_total} ticks, {len(keys)} "
+                f"CommitEvents); {n_run} ticks run, one route A and one "
+                f"topk_mask launch each, no plain version; tick wall median "
+                f"{p50:.2f} ms (without a mesh {ref['sink_p50']:.2f}); graph "
+                f"replays {0 if step is None else step.replays}")
+            for k, n in counts.items():
+                launches[k] += n
+            del eng
+    mesh_lib.destroy()
+    log(f"phase 12a: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+TABLE6 = dict(B=16, prompt=128, gen=256, block=64, steps=16)
+
+
+def phase_split_cache(model, params, gen) -> dict:
+    """Phase 12c: llada-8b generate in dual mode + BAOS mxint4 at Table
+    6's shape through the split cache (``init_cache(act_len=64)``, as JAX's
+    tests/test_split_cache.py sets it): one refine's logits within 5% of
+    the largest logit of the unified cache's; generate eager and graphed
+    (twice: the second captures nothing), graphed equal to eager, no mask
+    id left, each refine launching route B once a layer and the warm
+    steps flash_bidir; step wall and tokens/s.  Returns the launch counts
+    of the eager and the second graphed run."""
+    import functools
+    from repro_torch.core import baos, diffusion
+    from repro_torch.kernels import _build
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    B, P, G, L, T = (TABLE6[k] for k in ("B", "prompt", "gen", "block",
+                                         "steps"))
+    dcfg = diffusion.DiffusionConfig(
+        gen_length=G, block_length=L, steps_per_block=T, cache_mode="dual",
+        baos=baos.BAOSConfig(enabled=True, kv_format="mxint4"))
+    prompt = torch.randint(0, cfg.vocab - 200, (B, P), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    x = torch.cat([prompt, torch.full((B, G), cfg.mask_id, device=DEVICE,
+                                      dtype=torch.int32)], 1)
+    # JAX's bound is for its test's KV format, mxint8; mxint4 (the
+    # generate runs') is printed beside it
+    for fmt in ("mxint8", "mxint4"):
+        dc = dataclasses.replace(dcfg, baos=baos.BAOSConfig(
+            enabled=True, kv_format=fmt))
+        logits = {}
+        for split in (False, True):
+            cache = model.init_cache(B, P + G, act_len=L if split else None)
+            diffusion.warm_step(model, params, x, cache, P, dc)
+            lg, _ = diffusion.refine_step(model, params, x, cache, P, dc)
+            logits[split] = lg.float()
+            del cache, lg
+        err = float((logits[True] - logits[False]).abs().max())
+        top = float(logits[False].abs().max())
+        del logits
+        log(f"split cache, BAOS {fmt}: one refine's logits (B {B}, L {L}) "
+            f"max abs err {err:.4g} against the unified cache's, "
+            f"{err / top * 100:.2f}% of the largest logit {top:.4g}"
+            + (" (bound 5%)" if fmt == "mxint8" else ""))
+        require(fmt != "mxint8" or err < 0.05 * top,
+                "split cache: a refine's logits beyond 5% of the unified "
+                "cache's largest logit")
+    n_steps = (G // L) * T
+    want_split = (G // L) * (T - 1) * cfg.n_layers
+    orig = model.init_cache
+    diffusion.clear_step_graphs()
+    model.init_cache = functools.partial(orig, act_len=L)
+    runs, total = {}, {name: 0 for name in _build.COUNTED}
+    try:
+        for name, jit in (("eager", False), ("graphed, capturing", True),
+                          ("graphed", True)):
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = diffusion.generate(model, params, prompt, dcfg,
+                                     jit_steps=jit)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = dict(_build.launch_counts)
+            runs[name] = out
+            what = f"split cache generate dual + BAOS mxint4 {name}"
+            require(not bool((out[:, P:] == cfg.mask_id).any()),
+                    f"{what}: mask ids left")
+            if name != "graphed, capturing":
+                require(counts["flash_bidir_split"] == want_split and
+                        counts["flash_bidir"] == (G // L) * cfg.n_layers,
+                        f"{what}: launches {counts}")
+                for k, n in counts.items():
+                    total[k] += n
+            graphs = diffusion.step_graphs(model, dcfg, cfg.mask_id, None,
+                                           B, P + G)
+            log(f"{what}: step wall {dt / n_steps * 1e3:.2f} ms, "
+                f"{B * G / dt:.1f} tokens/s ({n_steps} steps, {dt:.2f} s), "
+                f"graphs captured {graphs.captures}, launches {counts}")
+        require("k_act" in graphs.cache, "split cache: the graphed steps' "
+                                         "cache has no active buffer")
+        for name in ("graphed, capturing", "graphed"):
+            require(torch.equal(runs[name], runs["eager"]),
+                    f"split cache generate {name} != eager")
+    finally:
+        model.init_cache = orig
+        diffusion.clear_step_graphs()
+    log(f"phase 12c: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+PHASE12B_ARG = "--phase12b"
+PHASE12B_COUNTS = "phase 12b counts "
+PHASE12B_LAYERS = 8
+
+
+def phase_mesh_ranks() -> dict:
+    """Phase 12b's job: two ranks sharing the card, launched by
+    torch.distributed.run (``phase12b_main`` in each).  Rank 0's output
+    joins this log; returns the launch counts of both ranks' mesh runs
+    (summed by rank 0)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc-per-node", "2",
+                        str(ROOT / "chip_smoke.py"), PHASE12B_ARG],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    total = None
+    for line in r.stdout.splitlines():
+        if line.startswith(PHASE12B_COUNTS):
+            total = json.loads(line[len(PHASE12B_COUNTS):])
+        else:
+            log(line)
+    require(r.returncode == 0 and total is not None,
+            f"phase 12b job: exit {r.returncode}: {r.stderr[-3000:]}")
+    log(f"phase 12b (two ranks, their own job): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+class CollectiveClock:
+    """Wall ms spent in torch.distributed's all_reduce and all_gather,
+    each call between two device syncs (so the work queued before it is
+    not counted), while ``on``."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.ms, self._saved = 0.0, {}
+        for name in ("all_reduce", "all_gather"):
+            fn = getattr(dist, name)
+            self._saved[name] = fn
+            setattr(dist, name, self._timed(fn))
+
+    def _timed(self, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    def close(self):
+        import torch.distributed as dist
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+
+
+def record_ticks(model, params, dcfg, trace):
+    """The one-rank engine (warm, eager, no mesh) over ``trace``, with each
+    tick's inputs (canvas, kv_valid, block starts, k) and output canvas on
+    the host.  Returns (completed tokens by uid, the records)."""
+    from repro_torch.core import diffusion
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    eng = ServingEngine(model, params, dcfg, EngineConfig(
+        num_slots=4, max_seq_len=96, mode="warm", jit_steps=False))
+    eng.warmup()
+    recs, inner = [], diffusion.batched_tick
+
+    def tick(model_, params_, x, kv_valid, bs, k, *a, **kw):
+        out = inner(model_, params_, x, kv_valid, bs, k, *a, **kw)
+        recs.append(tuple(t.to("cpu", copy=True)
+                          for t in (x, kv_valid, bs, k, out[0])))
+        return out
+
+    diffusion.batched_tick = tick
+    try:
+        done = eng.run([Request(prompt=p, gen_length=g) for p, g in trace])
+    finally:
+        diffusion.batched_tick = inner
+    return {c.uid: c.tokens.tolist() for c in done}, recs
+
+
+def near_tie_divergence(model, params, dcfg, rec, got) -> list:
+    """At the first tick where a mesh run's canvas ``got`` differs from
+    the one-rank run's (``rec``: that tick's inputs and output): each
+    differing position, which must lie in its row's active block and be
+    a near-tie of the one-rank run's quantized f32 logits: two committed
+    tokens whose logits lie within 1e-2 of the row's largest, or a
+    position committed by one run and not the other whose confidence lies
+    within 1e-2 relative of the top-k boundary.  Returns [(row, position,
+    kind)]."""
+    from repro_torch.core import diffusion
+    x, kv, bs, k, want = (t.to(DEVICE) for t in rec)
+    got = got.to(DEVICE)
+    B, S = x.shape
+    L, mid = dcfg.block_length, model.cfg.mask_id
+    cache = model.init_cache(B, S)
+    feats, _ = diffusion.tick_forward(model, params, x, kv, bs, cache, dcfg)
+    cols = bs.long()[:, None] + torch.arange(L, device=DEVICE)
+    rows = torch.arange(B, device=DEVICE)[:, None]
+    h = feats[rows, cols].reshape(B * L, -1)
+    z = head_logits_f32(h, params["lm_head"], dcfg.sampling.fmt,
+                        mid).view(B, L, -1)
+    conf = 1.0 / torch.exp(z - z.amax(-1, keepdim=True)).sum(-1)
+    out = []
+    for i, p in torch.nonzero(got != want).tolist():
+        l = p - int(bs[i])
+        require(0 <= l < L, f"mesh run: position {p} of row {i} differs "
+                            f"outside the active block")
+        a, b = int(want[i, p]), int(got[i, p])
+        if a != mid and b != mid:
+            zmax = float(z[i, l].max())
+            ok = abs(float(z[i, l, a] - z[i, l, b])) <= 1e-2 * abs(zmax)
+            kind = "token"
+        else:
+            masked = x[i, cols[i]] == mid
+            n_commit = int(masked.sum()) - int(
+                (want[i, cols[i]] == mid).sum())
+            kth = float(conf[i][masked].sort(descending=True).values[
+                max(n_commit, 1) - 1])
+            ok = abs(float(conf[i, l]) - kth) <= 1e-2 * kth
+            kind = "transfer"
+        require(ok, f"mesh run: row {i} position {p} differs off a "
+                    f"near-tie ({kind})")
+        out.append((i, p, kind))
+    return out
+
+
+def phase12b_main() -> int:
+    """One rank of phase 12b (torch.distributed.run, two ranks on the one
+    card): meshes (1, 2) and (2, 1) over gloo, llada-8b at full width and
+    PHASE12B_LAYERS layers, the engine's warm path eager, each tick's
+    canvas against the one-rank run's (rank 0), any difference a recorded
+    near-tie; per tick one route A and one topk_mask launch and no plain
+    version; each tick's collective time.  Prints its launch counts."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import device
+    from repro_torch.configs import base
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    device.resolve(DEVICE)
+    _build.build()
+    try:
+        meshes = [mesh_lib.make_debug_mesh(1, 2, DEVICE),
+                  mesh_lib.make_debug_mesh(2, 1, DEVICE)]
+        rank = meshes[0].rank
+        say = log if rank == 0 else (lambda *a: None)
+        for mesh in meshes:
+            require(mesh.backend == "gloo" and not mesh.capturable,
+                    f"{mesh}: two ranks on one card must run gloo")
+        say(f"phase 12b: {meshes[0]} and {meshes[1]} (rank 0's view): "
+            f"gloo, the ranks share the card, so the ticks run eagerly")
+        cfg = base.get_config("llada-8b")
+        if rank == 0:
+            cfg = cut_depth(cfg, PHASE12B_LAYERS, "for two ranks sharing "
+                            "the card and the script's time limit")
+        else:
+            cfg = dataclasses.replace(cfg, n_layers=PHASE12B_LAYERS)
+        model = build_model(cfg, meshes[0].device)
+        params = model.init(seed=0)
+        dcfg = [d for n, _, d, _ in engine_paths(model) if n == "warm"][0]
+        trace = engine_trace(cfg)
+        if rank == 0:
+            ref_tokens, recs = record_ticks(model, params, dcfg, trace)
+            say(f"phase 12b: the one-rank run: {len(recs)} ticks")
+        dist.barrier()
+        total = {name: 0 for name in _build.COUNTED}
+        for mesh in meshes:
+            what = f"mesh {tuple(mesh.shape.values())} engine path=warm eager"
+            eng = ServingEngine(model, params, dcfg, EngineConfig(
+                num_slots=4, max_seq_len=96, mode="warm", mesh=mesh,
+                jit_steps=False))
+            eng.warmup()
+            _build.reset_launch_counts()
+            for p, g in trace:
+                eng.submit(Request(prompt=p, gen_length=g))
+            clock = CollectiveClock()
+            snaps, coll, wall = [], [], []
+            try:
+                with no_plain():
+                    while eng.pending:
+                        clock.ms = 0.0
+                        t0 = time.perf_counter()
+                        eng.tick()
+                        wall.append((time.perf_counter() - t0) * 1e3)
+                        coll.append(clock.ms)
+                        snaps.append(eng.x.to("cpu", copy=True))
+            finally:
+                clock.close()
+            counts = dict(_build.launch_counts)
+            n = eng.ticks_total
+            require(counts["fused_head_sampling_shard"] == n and
+                    counts["topk_mask"] == n and
+                    counts["fused_head_sampling"] == 0,
+                    f"{what}: launches {counts} for {n} ticks")
+            for c in eng.completed:
+                require(not bool((c.tokens[c.prompt_len:] ==
+                                  cfg.mask_id).any()),
+                        f"{what}: request {c.uid} left mask ids")
+            for k, v in counts.items():
+                total[k] += v
+            if rank == 0:
+                ties, first = [], None
+                for t, (rec, got) in enumerate(zip(recs, snaps)):
+                    if not torch.equal(rec[4], got):
+                        first = t
+                        ties = near_tie_divergence(model, params, dcfg, rec,
+                                                   got)
+                        break
+                same = {c.uid: c.tokens.tolist()
+                        for c in eng.completed} == ref_tokens
+                require(first is not None or (same and len(snaps) ==
+                                              len(recs)),
+                        f"{what}: the runs differ with no differing tick")
+                say(f"{what}: {n} ticks, every canvas equal to the one-rank "
+                    f"run's" if first is None else
+                    f"{what}: {n} ticks; the canvases first differ at tick "
+                    f"{first}, at recorded near-ties {ties} (the runs part "
+                    f"there; every request still finishes)")
+                say(f"{what}: tick wall median {np.median(wall):.2f} ms, "
+                    f"collectives per tick median {np.median(coll):.3f} ms, "
+                    f"max {max(coll):.3f} ms (all_reduce + all_gather "
+                    f"between device syncs); launches {counts}")
+            del eng
+            dist.barrier()
+        # both ranks' counts, summed on the host over gloo, printed once
+        names = sorted(total)
+        both = torch.tensor([total[k] for k in names], dtype=torch.int64)
+        dist.all_reduce(both)
+        total = dict(zip(names, both.tolist()))
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    if rank == 0:
+        print(PHASE12B_COUNTS + json.dumps(total), flush=True)
+    mesh_lib.destroy()
+    return 0
+
 
 def _flat(tree):
     if isinstance(tree, torch.Tensor):
@@ -4571,9 +5159,20 @@ def main() -> int:
                 model, params, gen,
                 slot_paths["warm"]["sampling_stage"]).items():
             launches[name] += n
+        t12 = time.perf_counter()
+        for counts in (phase_mesh(model, params, slot_paths),
+                       phase_split_cache(model, params, gen)):
+            for name, n in counts.items():
+                launches[name] += n
+        t12 = time.perf_counter() - t12
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for name, n in phase_mesh_ranks().items():
+            launches[name] += n
+        t12 += time.perf_counter() - t0
+        log(f"phase 12: {t12:.1f} s (budget {PHASE12_BUDGET_S} s)")
         for name, n in phase_configs(gen).items():
             launches[name] += n
         t0 = time.perf_counter()
@@ -4599,9 +5198,10 @@ def main() -> int:
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     rows = [dict(name=name, route="cuda",
-                 source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                 source="src/repro_torch/kernels/csrc/"
+                        f"{_build.ROUTES.get(name, name)}.cu",
                  replaces=REPLACES[name], launches=launches[name],
-                 **kernels[name]) for name in _build.KERNELS]
+                 **kernels[name]) for name in _build.COUNTED]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4611,4 +5211,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [PHASE12B_ARG]:      # a rank of phase 12b's job
+        sys.exit(phase12b_main())
     sys.exit(main())

@@ -194,11 +194,9 @@ def cache_from_numpy(tree: Mapping, cfg: ModelConfig,
     D) and the four calibration arrays (n_layers, B, 1, Hkv, D); ssm:
     ``state`` and ``conv``; hybrid: k, v and the calibration over the
     triples plus ``rec_state``, ``rec_conv``, ``tail_state`` and
-    ``tail_conv``."""
-    if "k_act" in tree:
-        raise NotImplementedError(
-            "the split k_act/v_act cache layout is not ported yet "
-            "(ROADMAP.md, Queue 1)")
+    ``tail_conv``.  A split cache's ``k_act``/``v_act`` (n_layers, B,
+    act_len, Hkv, D) carry over as they are, in ``cfg.dtype``
+    (``cache_to_numpy`` takes them back)."""
     dev = device_lib.resolve(device)
     out = {}
     for name, a in tree.items():
@@ -206,6 +204,14 @@ def cache_from_numpy(tree: Mapping, cfg: ModelConfig,
         out[name] = torch.from_numpy(np.asarray(a, dtype=np.float32)).to(
             device=dev, dtype=dt)
     return out
+
+
+def cache_to_numpy(cache: Mapping) -> Dict:
+    """The port's cache -> JAX's, as f32 numpy arrays per leaf (the split
+    layout's ``k_act``/``v_act`` included); ``cache_from_numpy`` inverts
+    it up to the leaves' dtypes."""
+    return {name: t.detach().to("cpu", torch.float32).numpy()
+            for name, t in cache.items()}
 
 
 def load_paged_pool(pool, canvas_pages, canvas_table, kv_table,

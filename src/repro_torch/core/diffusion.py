@@ -38,7 +38,11 @@ counterpart of JAX's lru-cached ``_cached_step_fn``/``_cached_commit_fn``
 compiles), so a second ``generate`` of the same shapes captures nothing.
 ``get_paged_tick_fn`` and ``PagedMegatick`` are the tick and the megastep
 on the paged pool: gather the pages into dense views, the unchanged tick
-body, scatter back.
+body, scatter back.  ``get_spmd_tick_fn`` is the tick over a (data, model)
+mesh (launch/mesh.py): each rank's rows, the LM head's columns sharded
+over ``model`` and merged by ``sampling.combine_partials``, the outputs
+gathered over ``data``; ``step``, ``generate``, the megatick and the
+engine take it through ``mesh=``.
 
 ``**fwd_kw`` takes ``quant``, a ``models/layers.QuantPolicy`` (the MX
 fake-quant at every GEMM boundary and on both operands of the LM head),
@@ -147,14 +151,26 @@ def _active_mask(batch: int, s_tot: int, block_start, block_len: int,
 def _active_sampling_step(feats: torch.Tensor, xa: torch.Tensor,
                           k: torch.Tensor, seed, params: Dict,
                           mode: str, dcfg: DiffusionConfig, mask_id: int,
-                          model, quant=None):
+                          model, quant=None, axis=None):
     """Route one active block through the head path.  feats is (B, L, V)
     block logits (mode 'logits') or (B, L, d) hidden states (modes 'fused'
-    and 'unfused').  Returns (new tokens, transfer, conf), each (B, L)."""
+    and 'unfused').  Returns (new tokens, transfer, conf), each (B, L).
+
+    With ``axis`` (a launch/mesh.Axis, JAX's ``axis_name`` inside
+    shard_map) ``params['lm_head']`` is this rank's (d, V/n) column shard
+    (``place_spmd_params``): the partials merge over the axis and
+    ``col_limit`` masks the head's zero-pad columns."""
     if mode == "logits":
         return sampling_lib.sampling_step_full(feats, xa, mask_id, k,
                                                dcfg.sampling, seed)
     scale = float(model.cfg.logit_scale)
+    if axis is not None:
+        if mode != "fused":
+            raise ValueError("the SPMD tick requires head_path='fused'")
+        return sampling_lib.sharded_fused_sampling_step_full(
+            feats, params["lm_head"], xa, mask_id, k, dcfg.sampling, seed,
+            axis=axis, logit_scale=scale, quant=quant,
+            chunk_v=dcfg.head_chunk, col_limit=int(model.cfg.vocab))
     if mode == "fused":
         return sampling_lib.fused_sampling_step_full(
             feats, params["lm_head"], xa, mask_id, k, dcfg.sampling, seed,
@@ -254,7 +270,8 @@ def tick_forward(model, params, x: torch.Tensor,
 
 def tick_sample(params, feats: torch.Tensor, x: torch.Tensor,
                 block_start: torch.Tensor, k: torch.Tensor, seed,
-                dcfg: DiffusionConfig, mask_id: int, model, quant=None
+                dcfg: DiffusionConfig, mask_id: int, model, quant=None,
+                axis=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sampling half of a tick: each row's active block sliced out of the
     full-sequence feats ((B, L, d) hidden states, or (B, L, V) logits on
@@ -264,7 +281,8 @@ def tick_sample(params, feats: torch.Tensor, x: torch.Tensor,
     Returns (x_new, conf_min, masks_left): conf_min is the minimum
     confidence over the tokens committed this tick (+inf when none, the
     SlowFast signal), masks_left the masked positions left in each row's
-    active block."""
+    active block.  ``axis``: the vocab-sharded head of the SPMD tick
+    (``_active_sampling_step``)."""
     L = dcfg.block_length
     B, S = x.shape
     # the JAX dynamic_slice clamps a start so the block fits; so does this
@@ -273,7 +291,7 @@ def tick_sample(params, feats: torch.Tensor, x: torch.Tensor,
     rows = torch.arange(B, device=x.device)[:, None]
     xa_new, transfer, conf = _active_sampling_step(
         feats[rows, cols], x[rows, cols], k, seed, params,
-        head_feed_mode(model, dcfg), dcfg, mask_id, model, quant)
+        head_feed_mode(model, dcfg), dcfg, mask_id, model, quant, axis)
     x_new = x.clone()
     x_new[rows, cols] = xa_new
     conf_min = torch.amin(torch.where(transfer, conf, float("inf")), dim=-1)
@@ -284,7 +302,8 @@ def tick_sample(params, feats: torch.Tensor, x: torch.Tensor,
 def batched_tick(model, params, x: torch.Tensor,
                  kv_valid: Optional[torch.Tensor], block_start: torch.Tensor,
                  k: torch.Tensor, seed, cache, dcfg: DiffusionConfig,
-                 mask_id: int, quant=None, tracer=None, **fwd_kw):
+                 mask_id: int, quant=None, tracer=None, axis=None,
+                 **fwd_kw):
     """One engine tick over all serving slots: one forward, one sampling
     call.  Also the cache_mode='none' step of ``generate`` (block_start
     broadcast), so a one-slot engine runs exactly what generate runs.
@@ -294,13 +313,14 @@ def batched_tick(model, params, x: torch.Tensor,
     for the cycle simulator.  Pass it only on eager calls (on meta tensors,
     sim/trace.capture_tick_trace, or on the card): a replayed CUDA graph
     runs no Python and would record nothing, so no graphed tick takes
-    one."""
+    one.  ``axis``: the model axis of the SPMD tick (the head sharded
+    over it, ``get_spmd_tick_fn``)."""
     with trace_lib.activate(tracer):
         feats, cache = tick_forward(model, params, x, kv_valid, block_start,
                                     cache, dcfg, quant, **fwd_kw)
         x_new, conf_min, masks_left = tick_sample(
             params, feats, x, block_start, k, seed, dcfg, mask_id, model,
-            quant)
+            quant, axis)
     return x_new, cache, conf_min, masks_left
 
 
@@ -356,6 +376,114 @@ def get_tick_stage_fns(model, dcfg: DiffusionConfig, mask_id: int,
         else None
     return graphs.GraphedStep(forward, pool), graphs.GraphedStep(sampling,
                                                                  pool)
+
+
+# ---------------------------------------------------------------------------
+# The SPMD tick over a (data, model) mesh (launch/mesh.py)
+# ---------------------------------------------------------------------------
+
+class SpmdParams(dict):
+    """Parameters placed for one mesh (``place_spmd_params``)."""
+    mesh = None
+
+
+def place_spmd_params(params: Dict, mesh) -> Dict:
+    """This rank's parameters for the SPMD tick, placed once: the LM head
+    zero-padded to MX-block-aligned shard boundaries
+    (``sampling.pad_head_for_mesh``) and cut to this rank's column shard
+    along ``model``, stored contiguously (16-byte rows: its width is a
+    multiple of 32); every other leaf replicated (this rank's own
+    tensors, shared with ``params``).  Parameters already placed for
+    ``mesh`` pass through, as JAX's placement is a no-op on them."""
+    if "model" not in getattr(mesh, "axis_names", ()):
+        raise ValueError(f"SPMD params need a mesh with a 'model' axis; "
+                         f"got {getattr(mesh, 'axis_names', None)}")
+    if isinstance(params, SpmdParams) and params.mesh is mesh:
+        return params
+    n = mesh.shape["model"]
+    w = sampling_lib.pad_head_for_mesh(params["lm_head"], n)
+    vloc = w.shape[-1] // n
+    m = mesh.axis("model").index
+    out = SpmdParams(params)
+    out["lm_head"] = w[:, m * vloc:(m + 1) * vloc].contiguous()
+    out.mesh = mesh
+    return out
+
+
+def check_spmd(model, dcfg: DiffusionConfig, mesh, jit_steps: bool) -> None:
+    """The SPMD tick's refusals, JAX's in type and meaning, then the
+    port's one: a graphed step (``jit_steps`` on the card) over a mesh
+    whose collectives a CUDA graph cannot capture (gloo)."""
+    from repro_torch.launch import mesh as mesh_lib
+    names = tuple(getattr(mesh, "axis_names", ()))
+    for ax in mesh_lib.AXES:
+        if ax not in names:
+            raise ValueError(f"SPMD tick needs mesh axes ('data', 'model'); "
+                             f"got {names}")
+    if not isinstance(mesh, mesh_lib.Mesh):
+        raise TypeError(f"mesh {mesh!r} is not a launch/mesh.Mesh")
+    check_supported(dcfg)
+    if head_feed_mode(model, dcfg) != "fused":
+        raise ValueError(
+            "the SPMD tick requires head_path='fused' and a "
+            "head-mode-capable model (supports_head_mode)")
+    if dcfg.sampling.temperature > 0.0 or dcfg.sampling.strategy == "random":
+        raise NotImplementedError(
+            "SPMD tick supports greedy Stable-Max decoding only "
+            "(temperature == 0, strategy='stablemax'): the tick seed is the "
+            "same on every rank, so per-shard noise draws would correlate "
+            "the data shards")
+    if jit_steps and mesh.device.type == "cuda" and not mesh.capturable:
+        raise ValueError(
+            f"jit_steps=True captures the SPMD tick in a CUDA graph, and "
+            f"the {mesh.backend} collectives of {mesh!r} cannot be "
+            f"captured: pass jit_steps=False")
+
+
+def get_spmd_tick_fn(model, dcfg: DiffusionConfig, mask_id: int, mesh,
+                     jit_steps: bool = True, quant=None, pool=None):
+    """``batched_tick`` over a (data, model) mesh, the JAX
+    ``get_spmd_tick_fn``: ``tick(params, x, kv_valid, block_start, k,
+    seed, cache=None) -> (x_new, cache, conf_min, masks_left)``.  ``x``,
+    ``kv_valid``, ``block_start`` and ``k`` are the whole batch, as a JAX
+    host holds them; ``params`` come from ``place_spmd_params``;
+    ``cache`` holds this rank's rows only.  The data axis shards the rows
+    (each rank's forward sees its B/n_data rows), the model axis the LM
+    head's columns: each rank streams its (d, V/n_model) shard through
+    the fused head's shard entry (route A) and the per-row (m, idx, s)
+    partials merge over ``model`` (``sampling.combine_partials``); the
+    top-k and commit follow on each rank's rows.  The port is
+    multi-controller, so the outputs are then gathered over ``data``: every
+    rank's host sees the whole ``x_new``, ``conf_min`` and ``masks_left``,
+    as JAX's one host does from its out_specs.
+
+    Greedy tokens equal the single-device fused tick's: the shards fall
+    on MX-block boundaries, and the combine's lowest-index tie rule is the
+    fused head's first-column rule.  With ``jit_steps`` on the card the
+    tick, collectives included, is a CUDA graph (NCCL only)."""
+    check_spmd(model, dcfg, mesh, jit_steps)
+    from repro_torch.launch import mesh as mesh_lib
+    n_model, data, axis = (mesh.shape["model"], mesh.axis("data"),
+                           mesh.axis("model"))
+    vpad = -(-int(model.cfg.vocab) // (n_model * 32)) * n_model * 32
+
+    def tick(params, x, kv_valid, block_start, k, seed, cache=None):
+        if params["lm_head"].shape[-1] * n_model != vpad:
+            raise ValueError(
+                f"lm_head {tuple(params['lm_head'].shape)} is not a "
+                f"{n_model}-way shard of the padded head: place the params "
+                f"with place_spmd_params")
+        r0, r1 = mesh.rows(x.shape[0])
+        x_new, cache, conf_min, masks_left = batched_tick(
+            model, params, x[r0:r1],
+            None if kv_valid is None else kv_valid[r0:r1],
+            block_start[r0:r1], k[r0:r1], seed, cache, dcfg, mask_id, quant,
+            axis=axis)
+        return (mesh_lib.all_gather_rows(x_new, data), cache,
+                mesh_lib.all_gather_rows(conf_min, data),
+                mesh_lib.all_gather_rows(masks_left, data))
+
+    return graphs.GraphedStep(tick, pool) if jit_steps else tick
 
 
 # ---------------------------------------------------------------------------
@@ -422,14 +550,30 @@ class Megatick:
     counts the host's waits that drain the device's queue (the final read
     of the tick count), ``event_waits`` those that leave a tick in flight.
     Eagerly (``jit_steps=False``, or on the CPU) the host reads the flag
-    after each tick, a wait that drains the queue, and wastes no tick."""
+    after each tick, a wait that drains the queue, and wastes no tick.
+
+    With ``mesh`` (JAX's megatick inside one shard_map) each rank runs the
+    loop on its rows of the whole batch it is given (``x``, ``kv_valid``
+    and ``state``; ``cache`` holds its rows only), each tick the SPMD
+    tick's body with the head sharded over ``model``, and the stop flag
+    reduced over ``data`` (a psum in JAX), so every rank stops at the
+    same tick.  After the megastep the canvas, state and buffers are
+    gathered over ``data``: the outputs are the whole batch's, as JAX's
+    out_specs give its one host."""
 
     def __init__(self, model, dcfg: DiffusionConfig, mask_id: int,
                  k_max: int, jit_steps: bool = True,
-                 slowfast_threshold: Optional[float] = None, quant=None):
+                 slowfast_threshold: Optional[float] = None, quant=None,
+                 mesh=None):
         if k_max < 1:
             raise ValueError(f"megatick k_max must be >= 1, got {k_max}")
         check_supported(dcfg)
+        if mesh is not None:
+            # the SPMD tick's checks (mesh axes, fused greedy head, a
+            # capturable mesh for graphs)
+            check_spmd(model, dcfg, mesh, jit_steps)
+        self.mesh = mesh
+        self._axis = None if mesh is None else mesh.axis("model")
         self.model, self.dcfg, self.mask_id = model, dcfg, int(mask_id)
         self.quant = quant
         self.k_max = int(k_max)
@@ -515,7 +659,7 @@ class Megatick:
         seed = tick_seed(sc["seed"], sc["tick"])
         x_new, _, conf_min, masks_left = batched_tick(
             self.model, params, x, kv_valid, bs, k, seed, cache, self.dcfg,
-            self.mask_id, self.quant)
+            self.mask_id, self.quant, axis=self._axis)
         boundary = act & (masks_left == 0)
         released = boundary & (bi + 1 >= st["gen_blocks"])
         new = {"block_idx": torch.where(boundary, bi + 1, bi),
@@ -539,8 +683,14 @@ class Megatick:
             put = torch.where(run.reshape((1,) * buf.dim()),
                               upd[name].to(buf.dtype)[None], keep)
             buf.index_copy_(0, row, put)
-        stop = sc["stop"] | (run & (~new["active"].any() | (
-            sc["stop_on_release"] & released.any())))
+        any_active, any_released = new["active"].any(), released.any()
+        if self.mesh is not None:
+            from repro_torch.launch import mesh as mesh_lib
+            data = self.mesh.axis("data")
+            any_active = mesh_lib.any_over(any_active, data)
+            any_released = mesh_lib.any_over(any_released, data)
+        stop = sc["stop"] | (run & (~any_active | (
+            sc["stop_on_release"] & any_released)))
         for name, v in new.items():
             st[name].copy_(v)
         x.copy_(x_new)
@@ -551,6 +701,33 @@ class Megatick:
     def __call__(self, params, x: torch.Tensor, kv_valid, state: Dict,
                  tick: int, k_req: int, stop_on_release: bool,
                  cache: Optional[Dict] = None, seed: int = 0):
+        if self.mesh is None:
+            return self._run(params, x, kv_valid, state, tick, k_req,
+                             stop_on_release, cache, seed)
+        from repro_torch.launch import mesh as mesh_lib
+        r0, r1 = self.mesh.rows(x.shape[0])
+        key = ("rows", tuple(x.shape), x.device)
+        if key not in self._carry:          # static: the graphs read them
+            self._carry[key] = (torch.empty_like(x[r0:r1]),
+                                torch.empty_like(kv_valid[r0:r1]))
+        x_l, kv_l = self._carry[key]
+        x_l.copy_(x[r0:r1])
+        kv_l.copy_(kv_valid[r0:r1])
+        x_l, cache, tick, st, bufs, n = self._run(
+            params, x_l, kv_l, {name: t[r0:r1] for name, t in state.items()},
+            tick, k_req, stop_on_release, cache, seed)
+        data = self.mesh.axis("data")
+        x.copy_(mesh_lib.all_gather_rows(x_l, data))
+        st = {name: mesh_lib.all_gather_rows(t, data)
+              for name, t in st.items()}
+        bufs = {name: mesh_lib.all_gather_rows(b.transpose(0, 1), data
+                                               ).transpose(0, 1)
+                for name, b in bufs.items()}
+        return x, cache, tick, st, bufs, n
+
+    def _run(self, params, x: torch.Tensor, kv_valid, state: Dict,
+             tick: int, k_req: int, stop_on_release: bool,
+             cache: Optional[Dict] = None, seed: int = 0):
         c = self._carry_for(x)
         sc, st, bufs = c["scalars"], c["state"], c["bufs"]
         k_req = max(0, min(int(k_req), self.k_max))
@@ -597,9 +774,10 @@ class Megatick:
 def get_megatick_fn(model, dcfg: DiffusionConfig, mask_id: int, k_max: int,
                     jit_steps: bool = True,
                     slowfast_threshold: Optional[float] = None,
-                    quant=None) -> Megatick:
-    """The fused K-tick megastep (``Megatick``), the JAX get_megatick_fn's
-    non-mesh branch: ``fn(params, x, kv_valid, state, tick, k_req,
+                    quant=None, mesh=None) -> Megatick:
+    """The fused K-tick megastep (``Megatick``), the JAX get_megatick_fn
+    (with ``mesh``, its shard_map branch): ``fn(params, x, kv_valid,
+    state, tick, k_req,
     stop_on_release, cache=None, seed=0) -> (x, cache, tick, state,
     buffers, n_ticks)``, with ``tick`` the counter of the tick_seed stream
     in place of JAX's rng.  ``slowfast_threshold`` moves
@@ -611,14 +789,14 @@ def get_megatick_fn(model, dcfg: DiffusionConfig, mask_id: int, k_max: int,
     return _shared_megatick(
         model, dcfg, int(mask_id), int(k_max), bool(jit_steps),
         None if slowfast_threshold is None else float(slowfast_threshold),
-        quant)
+        quant, mesh)
 
 
 @functools.lru_cache(maxsize=16)
 def _shared_megatick(model, dcfg, mask_id, k_max, jit_steps, threshold,
-                     quant) -> Megatick:
+                     quant, mesh) -> Megatick:
     return Megatick(model, dcfg, mask_id, k_max, jit_steps=jit_steps,
-                    slowfast_threshold=threshold, quant=quant)
+                    slowfast_threshold=threshold, quant=quant, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -988,7 +1166,7 @@ class StepGraphs:
     captures anew (and keeps that cache alive with the graph)."""
 
     def __init__(self, model, dcfg: DiffusionConfig, mask_id: int, quant,
-                 B: int, S: int):
+                 B: int, S: int, mesh=None):
         dev = model.device
         self.model, self.dcfg, self.mask_id, self.quant = (
             model, dcfg, int(mask_id), quant)
@@ -1003,7 +1181,10 @@ class StepGraphs:
         self._ks = None
         self.cache = None
         self._steps: Dict[Tuple[str, int], graphs.GraphedStep] = {}
-        if dcfg.cache_mode == "none":
+        if mesh is not None:
+            self._steps["tick", 0] = get_spmd_tick_fn(
+                model, dcfg, mask_id, mesh, True, quant, self.pool)
+        elif dcfg.cache_mode == "none":
             self._steps["tick", 0] = get_tick_fn(model, dcfg, mask_id, True,
                                                  quant, self.pool)
         else:
@@ -1054,7 +1235,7 @@ class StepGraphs:
         self.bs.fill_(state.block_start)
         self.k.copy_(self._ks[:, t])
         self.seed.fill_(tick_seed(state.seed, state.ticks))
-        if dcfg.cache_mode == "none":
+        if ("tick", 0) in self._steps:
             x_new = self._steps["tick", 0](params, self.x, None, self.bs,
                                            self.k, self.seed, None,
                                            **fwd_kw)[0]
@@ -1074,15 +1255,17 @@ _STEP_GRAPHS: Dict[Tuple, StepGraphs] = {}
 
 
 def step_graphs(model, dcfg: DiffusionConfig, mask_id: int, quant, B: int,
-                S: int) -> StepGraphs:
-    """The ``StepGraphs`` of (model, dcfg, mask_id, quant, B, S), made at
-    its first use and kept at module level, as JAX's lru_cache keeps its
-    compiles; ``clear_step_graphs`` frees them."""
-    key = (model, dcfg, int(mask_id), quant, int(B), int(S))
+                S: int, mesh=None) -> StepGraphs:
+    """The ``StepGraphs`` of (model, dcfg, mask_id, quant, B, S[, mesh]),
+    made at its first use and kept at module level, as JAX's lru_cache
+    keeps its compiles; ``clear_step_graphs`` frees them.  With ``mesh``
+    the step is the graphed SPMD tick (cache mode none)."""
+    key = (model, dcfg, int(mask_id), quant, int(B), int(S), mesh)
     g = _STEP_GRAPHS.get(key)
     if g is None:
         check_supported(dcfg)
-        g = _STEP_GRAPHS[key] = StepGraphs(model, dcfg, mask_id, quant, B, S)
+        g = _STEP_GRAPHS[key] = StepGraphs(model, dcfg, mask_id, quant, B, S,
+                                           mesh)
     return g
 
 
@@ -1106,20 +1289,47 @@ def split_fwd_kw(fwd_kw: Dict) -> Tuple[Optional[object], Dict]:
     return quant, extra
 
 
+def _check_mesh_step(dcfg: DiffusionConfig, mesh, extra: Dict,
+                     what: str) -> None:
+    if mesh is None:
+        return
+    if dcfg.cache_mode != "none":
+        raise ValueError(
+            f"{what}(mesh=...) supports cache_mode='none' only (the SPMD "
+            "path runs the batched tick; use the serving engine for "
+            "pooled warm-cache SPMD ticks)")
+    if extra:
+        raise ValueError(f"{what}(mesh=...) does not support extra forward "
+                         "kwargs")
+
+
 def step(model, params, state: DiffusionState, jit_steps: bool = True,
-         **fwd_kw) -> DiffusionState:
+         mesh=None, **fwd_kw) -> DiffusionState:
     """Advance one denoising step: the forward for the cache mode (a
     batched tick for 'none'; warm at step_in_block 0, else refine), then
     the commit of ks[:, t] tokens of the active block.  With ``jit_steps``
     the step runs as the CUDA graphs of ``step_graphs`` (on the CPU the
-    same code eagerly); ``fwd_kw`` takes ``quant`` and ``FWD_TENSORS``."""
+    same code eagerly); ``fwd_kw`` takes ``quant`` and ``FWD_TENSORS``.
+    With ``mesh`` (cache mode none only, params from
+    ``place_spmd_params``) the step is the SPMD tick."""
     if state.done:
         raise ValueError("step() called on a finished DiffusionState")
     quant, extra = split_fwd_kw(fwd_kw)
     dcfg = state.dcfg
+    _check_mesh_step(dcfg, mesh, extra, "step")
     if jit_steps:
         x = step_graphs(model, dcfg, state.mask_id, quant,
-                        *state.x.shape)(params, state, **extra)
+                        *state.x.shape, mesh=mesh)(params, state, **extra)
+    elif mesh is not None:
+        B = state.x.shape[0]
+        dev = state.x.device
+        x = get_spmd_tick_fn(model, dcfg, state.mask_id, mesh, False,
+                             quant)(
+            params, state.x, None,
+            torch.full((B,), state.block_start, dtype=torch.int32,
+                       device=dev),
+            state.ks[:, state.step_in_block].to(dev),
+            tick_seed(state.seed, state.ticks), None)[0]
     elif dcfg.cache_mode == "none":
         B = state.x.shape[0]
         dev = state.x.device
@@ -1138,7 +1348,7 @@ def step(model, params, state: DiffusionState, jit_steps: bool = True,
 
 def generate(model, params, prompt: torch.Tensor, dcfg: DiffusionConfig,
              seed: int = 0, mask_id: Optional[int] = None,
-             megatick_k: int = 1, jit_steps: bool = True,
+             megatick_k: int = 1, jit_steps: bool = True, mesh=None,
              **fwd_kw) -> torch.Tensor:
     """Blocked diffusion generation (paper Alg. 2 outer loops) in
     ``dcfg.cache_mode``.  prompt (B, P) int -> (B, P + gen_length)
@@ -1149,14 +1359,26 @@ def generate(model, params, prompt: torch.Tensor, dcfg: DiffusionConfig,
     ``get_megatick_fn`` (graphed on the card with ``jit_steps``); the
     tick_seed stream is the same, so the tokens equal the per-step
     path's.  ``fwd_kw`` takes ``quant`` (a ``layers.QuantPolicy``) and
-    ``FWD_TENSORS`` (not with the megatick, as in JAX)."""
+    ``FWD_TENSORS`` (not with the megatick, as in JAX).
+
+    With ``mesh`` (a launch/mesh.Mesh; cache mode none only, as in JAX)
+    every step runs the SPMD tick (``get_spmd_tick_fn``): the batch rows
+    shard over ``data``, the LM head's columns over ``model``; the params
+    are placed once (``place_spmd_params``).  Every rank gets the whole
+    canvas back.  A mesh whose collectives a graph cannot capture (gloo on
+    the card) needs ``jit_steps=False``."""
     quant, extra = split_fwd_kw(fwd_kw)
+    if mesh is not None:
+        _check_mesh_step(dcfg, mesh, extra, "generate")
+        check_spmd(model, dcfg, mesh, jit_steps)
+        params = place_spmd_params(params, mesh)     # once, not per step
     if megatick_k > 1:
         if extra:
             raise ValueError("generate(megatick_k>1) does not support extra "
                              f"forward kwargs: {sorted(extra)}")
         return _generate_megatick(model, params, prompt, dcfg, seed,
-                                  mask_id, megatick_k, jit_steps, quant)
+                                  mask_id, megatick_k, jit_steps, quant,
+                                  mesh)
     mask_id = int(model.cfg.mask_id if mask_id is None else mask_id)
     cache = None
     if jit_steps and dcfg.cache_mode != "none":
@@ -1166,15 +1388,16 @@ def generate(model, params, prompt: torch.Tensor, dcfg: DiffusionConfig,
     state = init_state(model, prompt, dcfg, seed=seed, mask_id=mask_id,
                        cache=cache)
     while not state.done:
-        state = step(model, params, state, jit_steps=jit_steps, quant=quant,
-                     **extra)
+        state = step(model, params, state, jit_steps=jit_steps, mesh=mesh,
+                     quant=quant, **extra)
     return state.x
 
 
 def _generate_megatick(model, params, prompt: torch.Tensor,
                        dcfg: DiffusionConfig, seed: int,
                        mask_id: Optional[int], megatick_k: int,
-                       jit_steps: bool, quant=None) -> torch.Tensor:
+                       jit_steps: bool, quant=None,
+                       mesh=None) -> torch.Tensor:
     """generate() through the megatick: the tick count is fixed
     (num_blocks * steps_per_block), so ceil(total / K) megasteps of K, on
     the shared megatick's static canvas."""
@@ -1187,7 +1410,7 @@ def _generate_megatick(model, params, prompt: torch.Tensor,
     B, P = prompt.shape
     dev = model.device
     fn = get_megatick_fn(model, dcfg, mask_id, int(megatick_k),
-                         jit_steps=jit_steps, quant=quant)
+                         jit_steps=jit_steps, quant=quant, mesh=mesh)
     x, kv_valid = fn.canvas(B, P + dcfg.gen_length, dev)
     x[:, :P].copy_(prompt.to(device=dev, dtype=torch.int32))
     x[:, P:].fill_(mask_id)

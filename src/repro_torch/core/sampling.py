@@ -17,6 +17,11 @@ reductions, by the kernels on the card.  The transfer strategy is
 "stablemax" (the highest-confidence positions commit) or "random" (a
 uniform draw orders the selection; conf stays the Stable-Max conf).
 
+Over a mesh (launch/mesh.py) the LM head's columns shard over the
+``model`` axis: ``sharded_fused_sampling_step_full`` reduces this rank's
+shard to per-row (m, idx, s) partials (the fused head's shard entry) and
+``combine_partials`` merges them with one all_reduce MAX, SUM and MIN.
+
 The trace hooks (sim/trace.py) record what the paper's NPU would execute
 for each call, with JAX's op groups from the same places: ``stable_max``,
 ``head_logits``, the fused step's streamed head (emitted once with the
@@ -395,9 +400,120 @@ def full_softmax_reference(logits: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# Vocab-sharded head math without a mesh: the per-chip view of the SPMD
-# tick, which sim/trace.capture_sampling_trace('sharded') records (the
-# combine and the mesh wait for ROADMAP.md Queue 1 item 12)
+# Vocab-sharded Stable-Max: the LM head's columns split over a mesh axis
+# (launch/mesh.py; JAX's shard_map axis 'model').  Each rank reduces its
+# (d, V/n) shard to per-row (m, global idx, s) partials, and one max, one
+# sum and one min over the axis merge them.
+# ---------------------------------------------------------------------------
+
+BIG_INDEX = 1 << 30
+
+
+def local_partials(logits_shard: torch.Tensor, fmt: str = "none"
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-shard partials of stored logits (..., V_loc): (m, idx, s) with
+    idx local and s relative to m.  Plain PyTorch, as JAX's is jnp."""
+    z = mx.mx_fake_quant(logits_shard, fmt).to(torch.float32)
+    m = torch.amax(z, dim=-1)
+    idx = torch.argmax(z, dim=-1).to(torch.int32)
+    s = torch.sum(torch.exp(z - m[..., None]), dim=-1)
+    return m, idx, s
+
+
+def combine_partials(m: torch.Tensor, gidx: torch.Tensor, s: torch.Tensor,
+                     axis) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard (m, global idx, s) Stable-Max partials over
+    ``axis`` (a launch/mesh.Axis, JAX's ``axis_name``): m = max_i m_i,
+    S = sum_i S_i e^(m_i - m), the index from the shard holding the global
+    max (the lowest index among ties).  One all_reduce MAX, one SUM and one
+    MIN of per-row scalars.  Returns (conf = 1/S, idx int32)."""
+    from repro_torch.launch import mesh as mesh_lib   # lazy: launch -> core
+    if trace_lib.is_active():
+        trace_lib.emit_combine(int(math.prod(m.shape)))
+    gm = mesh_lib.all_reduce(m, "max", axis)
+    gs = mesh_lib.all_reduce(s * torch.exp(m - gm), "sum", axis)
+    cand = torch.where(m >= gm, gidx.to(torch.int32),
+                       torch.full_like(gidx, BIG_INDEX, dtype=torch.int32))
+    gi = mesh_lib.all_reduce(cand, "min", axis)
+    return 1.0 / gs, gi.to(torch.int32)
+
+
+def sharded_stable_max(logits_shard: torch.Tensor, axis, fmt: str = "none"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable-Max over a vocab sharded on ``axis``: this rank's
+    ``local_partials`` with global indices (shard x V_loc), then
+    ``combine_partials``."""
+    vloc = logits_shard.shape[-1]
+    m, idx, s = local_partials(logits_shard, fmt)
+    return combine_partials(m, idx + axis.index * vloc, s, axis)
+
+
+def sharded_fused_head_stable_max(hidden: torch.Tensor,
+                                  w_shard: torch.Tensor, axis,
+                                  fmt: str = "none", *,
+                                  logit_scale: float = 1.0,
+                                  suppress_id: Optional[int] = None,
+                                  chunk_v: int = 4096, quant=None,
+                                  col_limit: Optional[int] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused head + Stable-Max with the head's columns sharded on
+    ``axis``: this rank's (d, V_loc) shard (``w_shard``, column offset
+    axis.index * V_loc) through the fused head's shard entry
+    (kernels/fused_head_sampling.head_shard_partials: the CUDA kernel on
+    the card), then ``combine_partials``.  ``col_limit`` masks the pad
+    columns of ``pad_head_for_mesh``.  hidden (..., d) -> (conf (...),
+    token (...))."""
+    from repro_torch.kernels import fused_head_sampling as fhs   # lazy
+    *lead, d = hidden.shape
+    h = hidden.reshape(-1, d)
+    if quant is not None and quant.enabled:
+        h, w_shard = quant.acts(h), quant.weights(w_shard)
+    vloc = w_shard.shape[-1]
+    R = h.shape[0]
+    if trace_lib.is_active():
+        chunk, Vp = _chunk_grid(vloc, chunk_v)
+        _emit_head_stream(R, d, chunk, Vp // chunk)
+    with trace_lib.suppress():
+        m, gidx, s = fhs.head_shard_partials(
+            h, w_shard, fmt=fmt, logit_scale=logit_scale,
+            col_offset=axis.index * vloc, col_limit=col_limit,
+            suppress_id=suppress_id, chunk_v=chunk_v)
+    conf, idx = combine_partials(m, gidx, s, axis)
+    if trace_lib.is_active():
+        trace_lib.emit("S_ST", (2 * R,), stage="tail", note="conf_idx_wb")
+    return conf.reshape(lead), idx.reshape(lead)
+
+
+def sharded_fused_sampling_step_full(hidden: torch.Tensor,
+                                     w_shard: torch.Tensor, x: torch.Tensor,
+                                     mask_id: int, k: torch.Tensor,
+                                     cfg: SamplingConfig,
+                                     seed: Optional[Seed] = None, *, axis,
+                                     logit_scale: float = 1.0, quant=None,
+                                     chunk_v: int = 4096,
+                                     col_limit: Optional[int] = None
+                                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """``fused_sampling_step_full`` with the LM head column-sharded on
+    ``axis``: per-shard partials, the combine, then the transfer selection
+    and commit (the same on every rank of the axis).  Greedy only, as in
+    JAX: temperature > 0 with a seed raises NotImplementedError."""
+    check_supported(cfg)
+    if cfg.temperature > 0.0 and seed is not None:
+        raise NotImplementedError(
+            "vocab-sharded sampling supports greedy decoding only "
+            "(temperature == 0)")
+    m_idx = x == mask_id
+    sup = mask_id if cfg.suppress_mask_token else None
+    conf, x0 = sharded_fused_head_stable_max(
+        hidden, w_shard, axis, cfg.fmt, logit_scale=logit_scale,
+        suppress_id=sup, chunk_v=chunk_v, quant=quant, col_limit=col_limit)
+    return _select_and_commit(conf, x0, x, m_idx, k, cfg, seed)
+
+
+# ---------------------------------------------------------------------------
+# The per-shard head math: pad_head_for_mesh and the streamed partials of
+# one shard (JAX's jnp oracle; the kernel's plain version restricts it)
 # ---------------------------------------------------------------------------
 
 def pad_head_for_mesh(w_head: torch.Tensor, n_shards: int) -> torch.Tensor:

@@ -8,7 +8,8 @@ loads as it is.  Nothing here runs at import time: the CPU tests import
 every module and have no nvcc.
 
 Every kernel wrapper adds one to ``launch_counts[name]`` where it launches
-its kernel, and nowhere else; ``chip_smoke.py`` zeroes the counts before it
+its kernel, and nowhere else (``ROUTES`` name two entries counted apart
+from their library's); ``chip_smoke.py`` zeroes the counts before it
 drives the main path and reads them after.  A wrapper called while a CUDA
 graph is captured launches nothing then: core/graphs.py takes the counts
 the capture added back out and adds them at every replay instead.
@@ -28,6 +29,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("fused_head_sampling", "topk_mask", "flash_bidir",
            "baos_mx_quant", "stablemax_sampling", "flash_bidir_bwd")
+# entries of those libraries counted apart, each named for its route: the
+# fused head's vocab-shard entry (route A, the SPMD tick) and attention
+# over a second K/V source (route B, the split cache's refine)
+ROUTES = {"fused_head_sampling_shard": "fused_head_sampling",
+          "flash_bidir_split": "flash_bidir"}
+COUNTED = KERNELS + tuple(ROUTES)
 # no --use_fast_math: the MX exponent rule and the Gumbel log need the
 # full-precision log2f/logf, and divisions must stay IEEE divisions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -38,7 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # capture of sim/trace.py); a CUDA tensor goes to the kernel or raises
 PLAIN_DEVICES = ("cpu", "meta")
 
-launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+launch_counts: Dict[str, int] = {name: 0 for name in COUNTED}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

@@ -43,6 +43,17 @@
 // per (16-row q tile, q head, batch row), K/V tiles staged as f32 in
 // dynamic shared memory, lane j scoring key j with f32 FMAs.
 //
+// Route B, a second K/V source (the split active-block cache of
+// models/transformer.py): k2/v2 (B, S2, Hkv, D) with kv_valid2 (B, S2),
+// key j of it at position q_offset + j (the active block sits at the
+// refined segment's start), in the same smoothed space as the cache.  Both
+// routes walk its tiles after the cache's, in the same online softmax, so
+// the two sources merge exactly as the JAX model's two partials do; the
+// BAOS fusion is applied once (q * f_k before, out * f_v + c_v after) and
+// the output rounds once.  A tile never spans the two sources: each one's
+// last tile is ragged on its own length.  Bound: the bytes of both K/V
+// sources, q and out.
+//
 // Head dims: both routes are instantiated for tiles of DT = 32, 64, 128 and
 // 256 columns; a head dim D that is a multiple of 8 up to 256 runs in the
 // smallest tile DT >= D, its columns past D loaded as zeros by predicated
@@ -66,11 +77,26 @@ constexpr int f32_smem_bytes(int DT) {
   return (BQ * DT + BK * (DT + 1) + BK * DT) * 4;
 }
 
+// The K/V source of tile t of the walk: the cache's tiles, then those of
+// the second source (n_t1 tiles of the first).
+struct KvSrc {
+  int len, t0, pos0;   // keys, first key of the tile, position of key 0
+  int second;
+};
+
+__device__ __forceinline__ KvSrc kv_src(int t, int n_t1, int BKT, int Skv,
+                                        int S2, int q_offset) {
+  return t < n_t1 ? KvSrc{Skv, t * BKT, 0, 0}
+                  : KvSrc{S2, (t - n_t1) * BKT, q_offset, 1};
+}
+
 template <typename T, int DPL>
 __global__ void __launch_bounds__(32 * WARPS)
 flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v,
                    const unsigned char* __restrict__ kv_valid,
+                   const T* __restrict__ k2, const T* __restrict__ v2,
+                   const unsigned char* __restrict__ kv_valid2, int S2,
                    const float* __restrict__ fk, const float* __restrict__ fv,
                    const float* __restrict__ cv, T* __restrict__ out, int Sq,
                    int Skv, int Hq, int Hkv, int D, float scale, int window,
@@ -106,15 +132,23 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DPL; ++j) acc[i][j] = 0.f;
   }
 
-  for (int k0 = 0; k0 < Skv; k0 += BK) {
+  const int n_t1 = (Skv + BK - 1) / BK;
+  const int n_t = n_t1 + (k2 != nullptr ? (S2 + BK - 1) / BK : 0);
+  for (int t = 0; t < n_t; ++t) {
+    const KvSrc src = kv_src(t, n_t1, BK, Skv, S2, q_offset);
+    const T* kk_src = src.second ? k2 : k;
+    const T* vv_src = src.second ? v2 : v;
+    const unsigned char* val = src.second ? kv_valid2 : kv_valid;
+    const int k0 = src.t0;
     __syncthreads();  // previous tile fully read (and the q tile written)
     for (int e = tid; e < BK * DT; e += 32 * WARPS) {
       const int j = e / DT, dd = e % DT, gk = k0 + j;
       float kx = 0.f, vx = 0.f;
-      if (gk < Skv && dd < D) {
-        const size_t o = ((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D + dd;
-        kx = to_f32(k[o]);
-        vx = to_f32(v[o]);
+      if (gk < src.len && dd < D) {
+        const size_t o =
+            ((static_cast<size_t>(b) * src.len + gk) * Hkv + hk) * D + dd;
+        kx = to_f32(kk_src[o]);
+        vx = to_f32(vv_src[o]);
       }
       ks[j][dd] = kx;
       vs[j][dd] = vx;
@@ -122,9 +156,9 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     const int gk = k0 + lane;
-    const bool in_range = gk < Skv;
+    const bool in_range = gk < src.len;
     const bool valid = in_range &&
-        (kv_valid == nullptr || kv_valid[static_cast<size_t>(b) * Skv + gk]);
+        (val == nullptr || val[static_cast<size_t>(b) * src.len + gk]);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int row = warp * RPW + i, gq = q0 + row;
@@ -132,7 +166,7 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 8
       for (int dd = 0; dd < DT; ++dd) s = fmaf(qs[row][dd], ks[lane][dd], s);
       const bool ok =
-          valid && (window <= 0 || abs(q_offset + gq - gk) < window);
+          valid && (window <= 0 || abs(q_offset + gq - (src.pos0 + gk)) < window);
       s = in_range ? (ok ? s : NEG) : -INFINITY;
       const float m_new = fmaxf(m[i], warp_max(s));
       const float p = expf(s - m_new);
@@ -170,7 +204,9 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int DPL>
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
-                       const unsigned char* kv_valid, const float* fk,
+                       const unsigned char* kv_valid, const float* k2,
+                       const float* v2, const unsigned char* kv_valid2, int S2,
+                       const float* fk,
                        const float* fv, const float* cv, float* out, int B,
                        int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                        int window, int q_offset, cudaStream_t stream) {
@@ -181,8 +217,8 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
   if (attr != cudaSuccess) return attr;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_bidir_kernel<float, DPL><<<grid, 32 * WARPS, smem, stream>>>(
-      q, k, v, kv_valid, fk, fv, cv, out, Sq, Skv, Hq, Hkv, D, scale, window,
-      q_offset);
+      q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv, out, Sq, Skv, Hq,
+      Hkv, D, scale, window, q_offset);
   return cudaGetLastError();
 }
 
@@ -232,6 +268,9 @@ __global__ void __launch_bounds__(32 * TC_MAX_WARPS, 1)
 flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const unsigned char* __restrict__ kv_valid,
+                      const bf16* __restrict__ k2,
+                      const bf16* __restrict__ v2,
+                      const unsigned char* __restrict__ kv_valid2, int S2,
                       const float* __restrict__ fk,
                       const float* __restrict__ fv,
                       const float* __restrict__ cv, bf16* __restrict__ out,
@@ -253,20 +292,25 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_rows = G * Sq;
   const int row0 = (blockIdx.x * nwarps + warp) * 16;
   const size_t cal = (static_cast<size_t>(b) * Hkv + hk) * D;
-  const int n_t = (Skv + TC_BKV - 1) / TC_BKV;
+  const int n_t1 = (Skv + TC_BKV - 1) / TC_BKV;
+  const int n_t = n_t1 + (k2 != nullptr ? (S2 + TC_BKV - 1) / TC_BKV : 0);
   float* cals = reinterpret_cast<float*>(qs + nwarps * QS * 16 * DP);
   //                                                 [3][DT]: f_k, f_v, c_v
 
   auto load_kv = [&](int t) {
     bf16* kd = ks + (t % TC_STAGES) * KV_STAGE;
     bf16* vd = vs + (t % TC_STAGES) * KV_STAGE;
+    const KvSrc src = kv_src(t, n_t1, TC_BKV, Skv, S2, q_offset);
+    const bf16* kk_src = src.second ? k2 : k;
+    const bf16* vv_src = src.second ? v2 : v;
     for (int e = tid; e < TC_BKV * (DT / 8); e += blockDim.x) {
-      const int j = e / (DT / 8), dc = (e % (DT / 8)) * 8, key = t * TC_BKV + j;
-      const bool ok = key < Skv && dc < D;
+      const int j = e / (DT / 8), dc = (e % (DT / 8)) * 8, key = src.t0 + j;
+      const bool ok = key < src.len && dc < D;
       const size_t o =
-          ok ? ((static_cast<size_t>(b) * Skv + key) * Hkv + hk) * D + dc : 0;
-      cp_async_16(smem_addr(kd + j * DP + dc), k + o, ok);
-      cp_async_16(smem_addr(vd + j * DP + dc), v + o, ok);
+          ok ? ((static_cast<size_t>(b) * src.len + key) * Hkv + hk) * D + dc
+             : 0;
+      cp_async_16(smem_addr(kd + j * DP + dc), kk_src + o, ok);
+      cp_async_16(smem_addr(vd + j * DP + dc), vv_src + o, ok);
     }
   };
 
@@ -356,6 +400,8 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     const bf16* kt = ks + (t % TC_STAGES) * KV_STAGE;
     const bf16* vt = vs + (t % TC_STAGES) * KV_STAGE;
+    const KvSrc src = kv_src(t, n_t1, TC_BKV, Skv, S2, q_offset);
+    const unsigned char* val = src.second ? kv_valid2 : kv_valid;
 
     // kv_valid of this lane's keys (key 8j + 2c + e of the tile at 2j + e),
     // loaded without a branch here and read after the score product, so
@@ -365,9 +411,9 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int key = t * TC_BKV + 8 * j + 2 * c + e;
-        kvv[2 * j + e] = kv_valid != nullptr && key < Skv
-                             ? kv_valid[static_cast<size_t>(b) * Skv + key]
+        const int key = src.t0 + 8 * j + 2 * c + e;
+        kvv[2 * j + e] = val != nullptr && key < src.len
+                             ? val[static_cast<size_t>(b) * src.len + key]
                              : 1;
       }
 
@@ -397,18 +443,20 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // x D^-1/2; masks: -1e30 for a masked key, -inf (probability 0) past Skv
+    // x D^-1/2; masks: -1e30 for a masked key, -inf (probability 0) past
+    // the source's length
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int key = t * TC_BKV + 8 * j + 2 * c + e;
+        const int key = src.t0 + 8 * j + 2 * c + e;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const bool ok = kvv[2 * j + e] != 0 &&
-                          (window <= 0 || abs(qpos[hh] - key) < window);
+          const bool ok =
+              kvv[2 * j + e] != 0 &&
+              (window <= 0 || abs(qpos[hh] - (src.pos0 + key)) < window);
           float& x = st[j][2 * hh + e];
-          x = key < Skv ? (ok ? x * scale : NEG) : -INFINITY;
+          x = key < src.len ? (ok ? x * scale : NEG) : -INFINITY;
         }
       }
 
@@ -496,7 +544,9 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DT, int QS>
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
-                        const unsigned char* kv_valid, const float* fk,
+                        const unsigned char* kv_valid, const bf16* k2,
+                        const bf16* v2, const unsigned char* kv_valid2,
+                        int S2, const float* fk,
                         const float* fv, const float* cv, bf16* out, int B,
                         int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                         int window, int q_offset, cudaStream_t stream) {
@@ -511,8 +561,8 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
   const dim3 grid((rows + 16 * warps - 1) / (16 * warps), Hkv, B);
   flash_bidir_tc_kernel<DT, QS>
       <<<grid, 32 * warps, tc_smem_bytes<DT, QS>(warps), stream>>>(
-          q, k, v, kv_valid, fk, fv, cv, out, Sq, Skv, Hq, Hkv, D, scale,
-          window, q_offset);
+          q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv, out, Sq, Skv,
+          Hq, Hkv, D, scale, window, q_offset);
   return cudaGetLastError();
 }
 
@@ -524,18 +574,21 @@ int tile_of(int D) {
 }
 
 cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
-                          const unsigned char* kv_valid, const float* fk,
+                          const unsigned char* kv_valid, const bf16* k2,
+                          const bf16* v2, const unsigned char* kv_valid2,
+                          int S2, const float* fk,
                           const float* fv, const float* cv, bf16* out, int B,
                           int Sq, int Skv, int Hq, int Hkv, float scale,
                           int window, int q_offset, cudaStream_t stream) {
 #define FB_LAUNCH(DT)                                                        \
   return fk == nullptr                                                       \
-             ? launch_bf16<DT, 1>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, \
-                                  Skv, Hq, Hkv, D, scale, window, q_offset,  \
-                                  stream)                                    \
-             : launch_bf16<DT, SPLIT>(q, k, v, kv_valid, fk, fv, cv, out, B, \
-                                      Sq, Skv, Hq, Hkv, D, scale, window,    \
-                                      q_offset, stream)
+             ? launch_bf16<DT, 1>(q, k, v, kv_valid, k2, v2, kv_valid2, S2,  \
+                                  fk, fv, cv, out, B, Sq, Skv, Hq, Hkv, D,   \
+                                  scale, window, q_offset, stream)           \
+             : launch_bf16<DT, SPLIT>(q, k, v, kv_valid, k2, v2, kv_valid2,  \
+                                      S2, fk, fv, cv, out, B, Sq, Skv, Hq,   \
+                                      Hkv, D, scale, window, q_offset,       \
+                                      stream)
   switch (tile_of(D)) {
     case 32: FB_LAUNCH(32);
     case 64: FB_LAUNCH(64);
@@ -547,13 +600,16 @@ cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
 }
 
 cudaError_t dispatch_f32(int D, const float* q, const float* k, const float* v,
-                         const unsigned char* kv_valid, const float* fk,
+                         const unsigned char* kv_valid, const float* k2,
+                         const float* v2, const unsigned char* kv_valid2,
+                         int S2, const float* fk,
                          const float* fv, const float* cv, float* out, int B,
                          int Sq, int Skv, int Hq, int Hkv, float scale,
                          int window, int q_offset, cudaStream_t stream) {
-#define FB_LAUNCH(DPL)                                                      \
-  return launch_f32<DPL>(q, k, v, kv_valid, fk, fv, cv, out, B, Sq, Skv, Hq, \
-                         Hkv, D, scale, window, q_offset, stream)
+#define FB_LAUNCH(DPL)                                                       \
+  return launch_f32<DPL>(q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv,   \
+                         cv, out, B, Sq, Skv, Hq, Hkv, D, scale, window,     \
+                         q_offset, stream)
   switch (tile_of(D)) {
     case 32: FB_LAUNCH(1);
     case 64: FB_LAUNCH(2);
@@ -571,27 +627,36 @@ cudaError_t dispatch_f32(int D, const float* q, const float* k, const float* v,
 // kv_valid
 // (B, Skv) bool and fk/fv/cv (B, Hkv, D) f32 may each be null.  scale is
 // the softmax scale (D^-1/2, rounded to f32 by the caller); window <= 0
-// means no window; query row r sits at position q_offset + r.
+// means no window; query row r sits at position q_offset + r.  Route B:
+// k2/v2 (B, S2, Hkv, D) of q's dtype, contiguous, a second K/V source
+// whose key j sits at q_offset + j, with kv_valid2 (B, S2) bool (may be
+// null); k2 null (S2 ignored): the cache alone.
 extern "C" int flash_bidir_launch(const void* q, const void* k, const void* v,
-                                  const void* kv_valid, const void* fk,
+                                  const void* kv_valid, const void* k2,
+                                  const void* v2, const void* kv_valid2,
+                                  int S2, const void* fk,
                                   const void* fv, const void* cv, void* out,
                                   int B, int Sq, int Skv, int Hq, int Hkv,
                                   int D, float scale, int window, int q_offset,
                                   int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k2 != nullptr && (v2 == nullptr || S2 < 1)) return cudaErrorInvalidValue;
   const auto* valid = static_cast<const unsigned char*>(kv_valid);
+  const auto* valid2 = static_cast<const unsigned char*>(kv_valid2);
   const auto* fk_ = static_cast<const float*>(fk);
   const auto* fv_ = static_cast<const float*>(fv);
   const auto* cv_ = static_cast<const float*>(cv);
   if (!is_bf16)
     return static_cast<int>(dispatch_f32(
         D, static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), valid, fk_, fv_, cv_,
+        static_cast<const float*>(v), valid, static_cast<const float*>(k2),
+        static_cast<const float*>(v2), valid2, S2, fk_, fv_, cv_,
         static_cast<float*>(out), B, Sq, Skv, Hq, Hkv, scale, window,
         q_offset, st));
   return static_cast<int>(dispatch_bf16(
       D, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), valid, fk_, fv_, cv_,
+      static_cast<const bf16*>(v), valid, static_cast<const bf16*>(k2),
+      static_cast<const bf16*>(v2), valid2, S2, fk_, fv_, cv_,
       static_cast<bf16*>(out), B, Sq, Skv, Hq, Hkv, scale, window, q_offset,
       st));
 }

@@ -51,6 +51,12 @@
 //     neither the pad's content nor a ragged last block changes a logit.
 // The f32 route runs on the CUDA cores (f32 FMAs, 64-column CTAs): TF32
 // would change its arithmetic.
+//
+// Route A (fused_head_sampling_shard_launch) serves the SPMD tick's vocab-
+// sharded head: the same per-CTA partials over one rank's (d, V/n) shard
+// of a head padded to MX-block shard boundaries, then a merge that writes
+// per-row (m, global idx, s) for the cross-rank combine.  It moves V/n of
+// the head's bytes, so its bound is the single-device bound over n.
 // No fast-math: the MX exponent rule ceil(log2(amax / 448)) and the Gumbel
 // log must use the full-precision library functions.
 #include "common.cuh"
@@ -570,6 +576,42 @@ cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
 #undef FHS_TC
 }
 
+// Route A, the vocab-shard entry: one warp per row merges the row's n_vt
+// per-CTA partials with combine_row's greedy rule and writes the
+// partials themselves, (m, global idx, s), in place of (conf, token): the
+// SPMD tick merges them across ranks (core/sampling.combine_partials).
+// A row with no valid column (n_vt = 0: a shard of pad only) gets
+// m = NEG, s = 0, idx = BIG, which no combine picks.
+__global__ void head_shard_merge_kernel(const float* __restrict__ part_m,
+                                        const int* __restrict__ part_i,
+                                        const float* __restrict__ part_s,
+                                        int R, int n_vt, int col_offset,
+                                        float* __restrict__ m_out,
+                                        int* __restrict__ idx_out,
+                                        float* __restrict__ s_out) {
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int lane = threadIdx.x & 31;
+  const size_t base = static_cast<size_t>(r) * n_vt;
+  float m = NEG;
+  for (int t = lane; t < n_vt; t += 32) m = fmaxf(m, part_m[base + t]);
+  m = warp_max(m);
+  float s = 0.f;
+  int idx = BIG;
+  for (int t = lane; t < n_vt; t += 32) {
+    s += part_s[base + t] * expf(part_m[base + t] - m);
+    if (part_m[base + t] >= m) idx = min(idx, part_i[base + t]);
+  }
+  s = warp_sum(s);
+  idx = warp_min(idx);
+  if (lane == 0) {
+    const bool empty = !(m > NEG);
+    m_out[r] = m;
+    s_out[r] = empty ? 0.f : s;
+    idx_out[r] = empty ? BIG : idx + col_offset;
+  }
+}
+
 }  // namespace
 
 // Number of 64-column vocab tiles of the f32 route: its partials
@@ -619,6 +661,50 @@ extern "C" int fused_head_sampling_launch(
   head_combine_kernel<<<(R + 3) / 4, 128, 0, st>>>(
       pm, pi, ps, pb, pz, R, n_parts, temperature > 0.f,
       static_cast<float*>(conf), static_cast<int*>(token));
+  return cudaGetLastError();
+}
+
+// Route A: the greedy partials of one vocab shard.  w (d, V) is the
+// shard's first V columns that lie below the true vocabulary (the rest of
+// its ldw >= V columns are the zero pad of pad_head_for_mesh, whose
+// logits are the zeros a ragged block is padded with), at global column
+// col_offset; suppress_id is a column of the shard (< 0: none).  The
+// per-CTA partials are the single-device entry's (cols_per_cta and
+// n_parts as there); m_out, s_out (R,) f32 and idx_out (R,) i32 receive
+// the merged (m, global idx, s).  V = 0 (a shard of pad only) launches
+// the merge alone.
+extern "C" int fused_head_sampling_shard_launch(
+    const void* hidden, const void* w, void* part_m, void* part_i,
+    void* part_s, void* m_out, void* idx_out, void* s_out, int R, int d,
+    int V, int ldw, int is_bf16, int fmt, float logit_scale,
+    int suppress_id, int col_offset, int cols_per_cta, int n_parts,
+    void* stream) {
+  if (fmt < FMT_NONE || fmt > FMT_MXFP4 || V < 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pm = static_cast<float*>(part_m);
+  int* pi = static_cast<int*>(part_i);
+  float* ps = static_cast<float*>(part_s);
+  int n_vt = 0;
+  if (V > 0) {
+    cudaError_t err;
+    if (is_bf16) {
+      err = launch_bf16(static_cast<const bf16*>(hidden),
+                        static_cast<const bf16*>(w), R, d, V, ldw,
+                        cols_per_cta, n_parts, fmt, logit_scale, 0.f, nullptr,
+                        suppress_id, pm, pi, ps, nullptr, nullptr, st);
+    } else {
+      if (n_parts != (V + TN - 1) / TN || ldw < V) return cudaErrorInvalidValue;
+      err = dispatch_f32(R, static_cast<const float*>(hidden),
+                         static_cast<const float*>(w), d, V, ldw, fmt,
+                         logit_scale, 0.f, nullptr, suppress_id, pm, pi, ps,
+                         nullptr, nullptr, st);
+    }
+    if (err != cudaSuccess) return err;
+    n_vt = n_parts;
+  }
+  head_shard_merge_kernel<<<(R + 3) / 4, 128, 0, st>>>(
+      pm, pi, ps, R, n_vt, col_offset, static_cast<float*>(m_out),
+      static_cast<int*>(idx_out), static_cast<float*>(s_out));
   return cudaGetLastError();
 }
 

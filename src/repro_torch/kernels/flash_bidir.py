@@ -33,6 +33,14 @@ models/layers.attention), and ``flash_bidir_bwd_plain`` for CPU tensors.
 A row with no valid key averages V whatever its scores, so its dq and its
 share of dk are 0.  BAOS calibration under autograd raises
 ``NotImplementedError``: training runs without a cache, as in JAX.
+
+Route B, ``extra_kv=(k2, v2, valid2)``: a second K/V source, the split
+active-block cache's buffer (models/transformer.py; JAX's
+``layers.attention(extra_kv=)``), in the cache's smoothed space, its key j
+at position q_offset + j.  The kernel walks its keys after the cache's in
+the same online softmax, BAOS fused once, and counts the launch as
+``flash_bidir_split``; the plain version takes the two sources as one key
+set.  Autograd refuses it, as it refuses the calibration.
 """
 from __future__ import annotations
 
@@ -47,6 +55,8 @@ from repro_torch.kernels import _build
 
 NAME = "flash_bidir"
 BWD_NAME = "flash_bidir_bwd"
+# route B's launches (a second K/V source), counted apart from NAME's
+SPLIT_NAME = "flash_bidir_split"
 # the tile widths the kernel is instantiated for (csrc/flash_bidir.cu
 # tile_of); a head dim runs in the smallest one that holds it
 TILES = (32, 64, 128, 256)
@@ -83,12 +93,27 @@ def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       fv: Optional[torch.Tensor] = None,
                       cv: Optional[torch.Tensor] = None,
                       window: Optional[int] = None,
-                      q_offset: int = 0) -> torch.Tensor:
+                      q_offset: int = 0, extra_kv=None) -> torch.Tensor:
     """Plain version: dense f32 scores and softmax, (B, Sq, Hq, D) in
-    q's dtype."""
+    q's dtype; ``extra_kv`` joins the key set (its key j at q_offset + j)."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
+    kpos = None
+    if extra_kv is not None:
+        k2, v2, valid2 = extra_kv
+        S2 = k2.shape[1]
+        kpos = torch.cat([torch.arange(Skv, device=q.device),
+                          q_offset + torch.arange(S2, device=q.device)])
+        if kv_valid is not None or valid2 is not None:
+            ones = torch.ones((B, Skv + S2), dtype=torch.bool,
+                              device=q.device)
+            kv_valid = torch.cat([ones[:, :Skv] if kv_valid is None
+                                  else kv_valid.to(torch.bool),
+                                  ones[:, Skv:] if valid2 is None
+                                  else valid2.to(torch.bool)], dim=1)
+        k, v = torch.cat([k, k2], dim=1), torch.cat([v, v2], dim=1)
+        Skv += S2
     qf = q.to(torch.float32)
     if fk is not None:
         qf = qf * fk.to(torch.float32).repeat_interleave(G, dim=1)[:, None]
@@ -96,7 +121,7 @@ def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.to(torch.float32).repeat_interleave(G, dim=2)
     vf = v.to(torch.float32).repeat_interleave(G, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    ok = _mask(B, Sq, Skv, kv_valid, window, q_offset, q.device)
+    ok = _mask(B, Sq, Skv, kv_valid, window, q_offset, q.device, kpos)
     s = torch.where(ok, s, sampling.NEG_INF)
     p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
     l = torch.sum(p, dim=-1)                               # (B, Hq, Sq)
@@ -113,7 +138,8 @@ def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _kernel_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.function(NAME, "flash_bidir_launch",
-                           [p] * 8 + [i] * 6 + [ctypes.c_float, i, i, i, p])
+                           [p] * 7 + [i] + [p] * 4 + [i] * 6 +
+                           [ctypes.c_float, i, i, i, p])
 
 
 def _cal(t: Optional[torch.Tensor], shape, dev) -> Optional[int]:
@@ -133,10 +159,12 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 fv: Optional[torch.Tensor] = None,
                 cv: Optional[torch.Tensor] = None,
                 window: Optional[int] = None,
-                q_offset: int = 0) -> torch.Tensor:
+                q_offset: int = 0, extra_kv=None) -> torch.Tensor:
     """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); kv_valid (B, Skv) bool;
-    fk/fv/cv (B, Hkv, D) f32; query row r at position q_offset + r.
-    Returns (B, Sq, Hq, D) in q's dtype.  CUDA
+    fk/fv/cv (B, Hkv, D) f32; query row r at position q_offset + r;
+    ``extra_kv`` = (k2, v2, valid2): route B's second K/V source,
+    (B, S2, Hkv, D) each and valid2 (B, S2) bool or None, key j at
+    q_offset + j.  Returns (B, Sq, Hq, D) in q's dtype.  CUDA
     tensors run the kernel; CPU tensors the plain version.  Under
     autograd (grad mode on, q, k or v requiring grad) the result carries
     ``FlashBidir``'s backward."""
@@ -147,22 +175,38 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}: not a GQA attention")
     if kv_valid is not None and kv_valid.shape != (B, Skv):
         raise ValueError(f"kv_valid {tuple(kv_valid.shape)} != {(B, Skv)}")
+    if extra_kv is not None:
+        k2, v2, valid2 = extra_kv
+        S2 = k2.shape[1]
+        if k2.shape != (B, S2, Hkv, D) or v2.shape != k2.shape or \
+                (valid2 is not None and valid2.shape != (B, S2)):
+            raise ValueError(f"extra_kv k2 {tuple(k2.shape)}, v2 "
+                             f"{tuple(v2.shape)}: not a second source of "
+                             f"k {tuple(k.shape)}")
+    extra = () if extra_kv is None else tuple(extra_kv)
     if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, fk, fv, cv)):
+            t is not None and t.requires_grad
+            for t in (q, k, v, fk, fv, cv) + extra):
         if fk is not None or fv is not None or cv is not None:
             raise NotImplementedError(
                 "flash_bidir's backward takes no BAOS calibration: training "
                 "runs without a cache (ROADMAP.md, Queue 3)")
+        if extra_kv is not None:
+            raise NotImplementedError(
+                "flash_bidir's backward takes no second K/V source: "
+                "training runs without a cache (ROADMAP.md, Queue 3)")
         return FlashBidir.apply(q, k, v, kv_valid, window, q_offset)
-    return _forward(q, k, v, kv_valid, fk, fv, cv, window, q_offset)
+    return _forward(q, k, v, kv_valid, fk, fv, cv, window, q_offset,
+                    extra_kv)
 
 
-def _forward(q, k, v, kv_valid, fk, fv, cv, window, q_offset):
+def _forward(q, k, v, kv_valid, fk, fv, cv, window, q_offset,
+             extra_kv=None):
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     if q.device.type in _build.PLAIN_DEVICES:
         return flash_bidir_plain(q, k, v, kv_valid, fk, fv, cv, window,
-                                 q_offset)
+                                 q_offset, extra_kv)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("q, k and v must lie on one CUDA device")
@@ -179,18 +223,34 @@ def _forward(q, k, v, kv_valid, fk, fv, cv, window, q_offset):
         if kv_valid.device != dev or not kv_valid.is_contiguous():
             raise ValueError(f"kv_valid must be contiguous on {dev}")
         valid = kv_valid.to(torch.bool)
+    k2 = v2 = valid2 = None
+    S2 = 0
+    if extra_kv is not None:
+        k2, v2, valid2 = extra_kv
+        S2 = k2.shape[1]
+        if any(t.device != dev or t.dtype != q.dtype or
+               not t.is_contiguous() for t in (k2, v2)):
+            raise ValueError(f"extra_kv's k2 and v2 must be contiguous "
+                             f"{q.dtype} on {dev}")
+        if valid2 is not None:
+            if valid2.device != dev or not valid2.is_contiguous():
+                raise ValueError(f"extra_kv's valid2 must be contiguous on "
+                                 f"{dev}")
+            valid2 = valid2.to(torch.bool)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       _build.ptr(valid), _cal(fk, (B, Hkv, D), dev),
+                       _build.ptr(valid), _build.ptr(k2), _build.ptr(v2),
+                       _build.ptr(valid2), S2,
+                       _cal(fk, (B, Hkv, D), dev),
                        _cal(fv, (B, Hkv, D), dev), _cal(cv, (B, Hkv, D), dev),
                        out.data_ptr(), B, Sq, Skv, Hq, Hkv, D, D ** -0.5,
                        0 if window is None else int(window), int(q_offset),
                        int(q.dtype == torch.bfloat16),
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME, err)
-    _build.launch_counts[NAME] += 1
+    _build.launch_counts[NAME if extra_kv is None else SPLIT_NAME] += 1
     return out
 
 
@@ -213,15 +273,17 @@ class FlashBidir(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def _mask(B: int, Sq: int, Skv: int, kv_valid, window, q_offset, device
-          ) -> torch.Tensor:
-    """(B, 1, Sq, Skv) bool: the keys each query row attends to."""
+def _mask(B: int, Sq: int, Skv: int, kv_valid, window, q_offset, device,
+          kpos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, 1, Sq, Skv) bool: the keys each query row attends to; key j at
+    position ``kpos[j]`` (default j)."""
     ok = torch.ones((B, 1, Sq, Skv), dtype=torch.bool, device=device)
     if kv_valid is not None:
         ok = ok & kv_valid.to(torch.bool)[:, None, None, :]
     if window is not None:
         qp = q_offset + torch.arange(Sq, device=device)[:, None]
-        kp = torch.arange(Skv, device=device)[None, :]
+        kp = (torch.arange(Skv, device=device) if kpos is None
+              else kpos)[None, :]
         ok = ok & (torch.abs(qp - kp) < window)
     return ok
 

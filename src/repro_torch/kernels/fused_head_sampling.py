@@ -40,6 +40,9 @@ from repro_torch.core import sampling
 from repro_torch.kernels import _build
 
 NAME = "fused_head_sampling"
+# the launch count of the vocab-shard entry (route A of the SPMD tick):
+# the same library, counted apart from the single-device entry
+SHARD_NAME = "fused_head_sampling_shard"
 _DTYPES = (torch.float32, torch.bfloat16)
 # the bf16 route's row alignment in elements: 16 bytes of bf16
 ROW_ALIGN = 8
@@ -213,7 +216,124 @@ def _kernel_fns():
         NAME, "fused_head_sampling_launch",
         [p] * 9 + [i] * 6 + [f, f, p, i, i, i, p])
     tiles = _build.function(NAME, "fused_head_sampling_tiles", [i])
-    return launch, tiles
+    shard = _build.function(
+        NAME, "fused_head_sampling_shard_launch",
+        [p] * 8 + [i] * 6 + [f, i, i, i, i, p])
+    return launch, tiles, shard
+
+
+def shard_columns(V_loc: int, col_offset: int,
+                  col_limit: Optional[int]) -> int:
+    """The columns of a shard at ``col_offset`` that lie below
+    ``col_limit`` (the true vocabulary; None: all V_loc): the rest are the
+    zero pad of ``sampling.pad_head_for_mesh``."""
+    if col_limit is None:
+        return V_loc
+    return max(0, min(V_loc, col_limit - col_offset))
+
+
+def head_shard_partials_plain(hidden: torch.Tensor, w_shard: torch.Tensor,
+                              fmt: str = "none", *,
+                              logit_scale: float = 1.0, col_offset: int = 0,
+                              col_limit: Optional[int] = None,
+                              suppress_id: Optional[int] = None,
+                              chunk_v: int = 4096
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain version of the shard entry: ``sampling.fused_head_local_
+    partials`` (the streamed partials of one vocab shard, JAX's jnp
+    oracle), restricted to what the kernel computes: (m, global idx, s),
+    each (R,), and a row with no valid column (a shard of pad only) as the
+    kernel leaves it, m = -1e30, s = 0, idx = 2^30 (no combine reads
+    them: another shard holds a larger m)."""
+    m, gidx, s = sampling.fused_head_local_partials(
+        hidden, w_shard, fmt, logit_scale=logit_scale,
+        col_offset=col_offset, suppress_id=suppress_id, chunk_v=chunk_v,
+        col_limit=col_limit)
+    empty = m <= sampling.NEG_INF
+    return (m, torch.where(empty, sampling.BIG_INDEX, gidx),
+            torch.where(empty, 0.0, s))
+
+
+def head_shard_partials(hidden: torch.Tensor, w_shard: torch.Tensor, *,
+                        fmt: str = "none", logit_scale: float = 1.0,
+                        col_offset: int = 0, col_limit: Optional[int] = None,
+                        suppress_id: Optional[int] = None,
+                        chunk_v: int = 4096
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused head's vocab-shard entry (greedy): hidden (R, d) and one
+    (d, V_loc) shard of a head padded by ``sampling.pad_head_for_mesh``,
+    at global column ``col_offset`` -> per-row partials (m (R,) f32, the
+    global index of the first column holding m (R,) i32, s (R,) f32
+    relative to m), the sampling fake-quant before the reductions and
+    columns at or past ``col_limit`` (the true V) masked after it, as
+    ``sampling.fused_head_local_partials`` masks them.  CUDA tensors run
+    the kernel: the per-CTA partials of the single-device entry over the
+    shard's first ``shard_columns`` columns (the rest are zero columns,
+    so their logits are the zeros the kernel pads a block with), then a
+    merge that emits (m, idx, s) in place of (conf, token).  V_loc is a
+    multiple of 32 (shard boundaries on MX blocks), so each rank's shard
+    is its own contiguous storage with 16-byte rows: no copy per call.
+    CPU tensors run ``head_shard_partials_plain``."""
+    code = mx.fmt_code(fmt)
+    if hidden.dim() != 2 or w_shard.dim() != 2 or \
+            hidden.shape[1] != w_shard.shape[0]:
+        raise ValueError(f"expected hidden (R, d) and w_shard (d, V_loc); "
+                         f"got {tuple(hidden.shape)} and "
+                         f"{tuple(w_shard.shape)}")
+    if hidden.device.type in _build.PLAIN_DEVICES:
+        return head_shard_partials_plain(
+            hidden, w_shard, fmt, logit_scale=logit_scale,
+            col_offset=col_offset, col_limit=col_limit,
+            suppress_id=suppress_id, chunk_v=chunk_v)
+    _build.refuse_grad(NAME, hidden, w_shard)
+    if hidden.device.type != "cuda" or w_shard.device != hidden.device:
+        raise ValueError(f"hidden on {hidden.device} and w_shard on "
+                         f"{w_shard.device}: both must be on one CUDA "
+                         f"device")
+    if hidden.dtype not in _DTYPES:
+        raise ValueError(f"hidden dtype {hidden.dtype} not in {_DTYPES}")
+    w = w_shard.to(hidden.dtype)
+    R, d = hidden.shape
+    V_loc, ldw = w.shape[1], w.stride(0)
+    if V_loc % mx.MX_BLOCK or not hidden.is_contiguous() or \
+            w.stride(1) != 1:
+        raise ValueError(
+            f"a head shard needs V_loc a multiple of {mx.MX_BLOCK} (got "
+            f"{V_loc}), contiguous hidden and adjacent columns: pad the "
+            f"head with sampling.pad_head_for_mesh")
+    dev = hidden.device
+    V = shard_columns(V_loc, col_offset, col_limit)
+    bf16 = hidden.dtype == torch.bfloat16
+    _, tiles, launch = _kernel_fns()
+    if bf16:
+        if d % ROW_ALIGN or ldw % ROW_ALIGN or w.data_ptr() % 16:
+            raise ValueError(
+                f"the bf16 route needs d and the shard's row stride to be "
+                f"multiples of {ROW_ALIGN} with 16-byte aligned rows; got "
+                f"d={d}, row stride {ldw}")
+        cols, n_parts = column_plan(max(V, 1), _build.sm_count(dev))
+    else:
+        cols, n_parts = 0, tiles(max(V, 1))
+    m = torch.empty((R,), dtype=torch.float32, device=dev)
+    idx = torch.empty((R,), dtype=torch.int32, device=dev)
+    s = torch.empty_like(m)
+    if R == 0:
+        return m, idx, s
+    part_m = torch.empty((R, n_parts), dtype=torch.float32, device=dev)
+    part_i = torch.empty((R, n_parts), dtype=torch.int32, device=dev)
+    part_s = torch.empty_like(part_m)
+    # the suppressed id as a column of this shard (negative: not in it)
+    sup = -1 if suppress_id is None else int(suppress_id) - int(col_offset)
+    err = launch(hidden.data_ptr(), w.data_ptr(), part_m.data_ptr(),
+                 part_i.data_ptr(), part_s.data_ptr(), m.data_ptr(),
+                 idx.data_ptr(), s.data_ptr(), R, d, V, ldw, int(bf16), code,
+                 float(logit_scale), sup if sup < V_loc else -1,
+                 int(col_offset), cols, n_parts,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(NAME, err)
+    _build.launch_counts[SHARD_NAME] += 1
+    return m, idx, s
 
 
 def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
@@ -255,7 +375,7 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
                          "adjacent")
     R, d = hidden.shape
     V, ldw = w.shape[1], w.stride(0)
-    launch, tiles = _kernel_fns()
+    launch, tiles, _ = _kernel_fns()
     dev = hidden.device
     bf16 = hidden.dtype == torch.bfloat16
     if bf16:

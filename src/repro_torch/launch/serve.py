@@ -22,11 +22,22 @@ until interrupted (Ctrl-C drains gracefully):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --http 8080 --replicas 2 --slots 4 --max-seq-len 128 --mode none
 
+``--mesh D,M`` serves over a (data, model) mesh (launch/mesh.py): the
+slots shard over data, the LM head's columns over model.  A (1, 1) mesh
+runs in this process; a larger one runs one process per rank:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch llada-8b --mesh 1,2 --mode none
+
+Ranks that share a card talk through gloo, whose collectives a CUDA graph
+cannot capture, so their engine ticks eagerly (printed with the mesh).
+``--http`` under a mesh of more than one rank is refused: the frontend's
+submissions would have to reach every rank (ROADMAP.md, Queue 3).
+
 Flags as in JAX, with these differences: ``--device`` (default cuda)
-picks the card or the CPU; ``--mesh`` is not ported (ROADMAP.md, Queue 1
-item 12); ``--compilation-cache-dir`` names XLA's persistent cache, which
-the port does not have, and is refused; ``--profile-ticks`` writes
-torch.profiler traces.
+picks the card or the CPU; ``--compilation-cache-dir`` names XLA's
+persistent cache, which the port does not have, and is refused;
+``--profile-ticks`` writes torch.profiler traces.
 """
 from __future__ import annotations
 
@@ -77,7 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["fifo", "sgf", "sjf", "slowfast"])
     ap.add_argument("--slowfast-threshold", type=float, default=0.9)
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="not ported yet (ROADMAP.md, Queue 1 item 12)")
+                    help="serve over a (data, model) mesh, e.g. --mesh "
+                         "1,2: one process per rank under python -m "
+                         "torch.distributed.run (1,1 needs none)")
     ap.add_argument("--mixed", action="store_true",
                     help="vary request prompt/gen lengths across the trace")
     ap.add_argument("--breakdown", action="store_true",
@@ -172,8 +185,12 @@ def _fwd_kw(cfg, model, params, batch: int, frames=None) -> dict:
     return kw
 
 
-def run_legacy(args, cfg, model, params, dcfg) -> None:
+def run_legacy(args, cfg, model, params, dcfg, mesh=None) -> None:
     fwd_kw = _fwd_kw(cfg, model, params, args.batch)
+    jit = _jit_steps(model, mesh)
+    if mesh is not None:
+        # once, so generate() finds the head already sharded
+        params = diffusion.place_spmd_params(params, mesh)
     rs = np.random.RandomState(args.seed)
     total_tokens = 0
     t_total = 0.0
@@ -186,7 +203,8 @@ def run_legacy(args, cfg, model, params, dcfg) -> None:
         t0 = time.perf_counter()
         out = diffusion.generate(model, params, prompt, dcfg,
                                  seed=args.seed + req,
-                                 megatick_k=args.megatick, **fwd_kw)
+                                 megatick_k=args.megatick, mesh=mesh,
+                                 jit_steps=jit, **fwd_kw)
         if model.device.type == "cuda":
             torch.cuda.synchronize(model.device)
         dt = time.perf_counter() - t0
@@ -276,7 +294,7 @@ def _policy(args):
             if args.policy == "slowfast" else get_policy(args.policy))
 
 
-def run_engine(args, cfg, model, params, dcfg) -> None:
+def run_engine(args, cfg, model, params, dcfg, mesh=None) -> None:
     num_slots = args.slots or args.batch
     max_seq = args.prompt_len + args.gen_len
     policy = _policy(args)
@@ -288,7 +306,8 @@ def run_engine(args, cfg, model, params, dcfg) -> None:
         num_slots=num_slots, max_seq_len=max_seq, mode=args.mode,
         policy=policy, seed=args.seed, breakdown=args.breakdown,
         fwd_kw=fwd_kw, obs=obs, megatick_k=args.megatick, pool=args.pool,
-        page_size=args.page_size, num_pages=args.num_pages))
+        page_size=args.page_size, num_pages=args.num_pages, mesh=mesh,
+        jit_steps=_jit_steps(model, mesh)))
     eng.warmup()    # build and capture off-clock
     completed = eng.run(reqs)
     for c in completed[: min(8, len(completed))]:
@@ -303,14 +322,22 @@ def run_engine(args, cfg, model, params, dcfg) -> None:
             raise RuntimeError(f"request {c.uid}: {n_masked} masks left")
     print(f"engine: slots={num_slots} mode={args.mode} "
           f"policy={policy.name} pool={eng.pool.stats()} "
-          f"device={model.device}")
+          f"device={model.device}"
+          + (f" mesh={mesh.shape} rank={mesh.rank}" if mesh is not None
+             else ""))
     print(eng.metrics.format_summary())
     _finish_obs(args, obs)
 
 
-def run_http(args, cfg, model, params, dcfg) -> None:
+def run_http(args, cfg, model, params, dcfg, mesh=None) -> None:
     """Boot the online streaming frontend and serve until interrupted."""
     import asyncio
+
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"--http under a mesh of {mesh.size} ranks: the frontend on one "
+            f"rank would have to broadcast every submission to the others "
+            f"(ROADMAP.md, Queue 3)")
 
     from repro_torch.obs import ServingObs, TraceCollector
     from repro_torch.serving.frontend import build_frontend, serve_forever
@@ -322,7 +349,7 @@ def run_http(args, cfg, model, params, dcfg) -> None:
         replicas=args.replicas, num_slots=args.slots or args.batch,
         max_seq_len=max_seq, mode=args.mode, strategy=args.route,
         max_queue=args.max_queue, max_queue_wait=args.max_queue_wait,
-        policy=_policy(args), host=args.host, port=args.http,
+        policy=_policy(args), mesh=mesh, host=args.host, port=args.http,
         seed=args.seed, obs=obs, breakdown=args.breakdown,
         drift=args.drift, profile_ticks=args.profile_ticks,
         profile_dir=args.profile_dir, megatick_k=args.megatick,
@@ -346,11 +373,32 @@ def run_http(args, cfg, model, params, dcfg) -> None:
         _finish_obs(args, obs)
 
 
+def _jit_steps(model, mesh) -> bool:
+    """Graphed ticks, unless the mesh's collectives cannot be captured
+    (gloo, where ranks share a card): then the ticks run eagerly, and the
+    mesh line says so."""
+    return mesh is None or mesh.capturable or model.device.type != "cuda"
+
+
+def make_mesh_arg(spec: str, device):
+    """'--mesh D,M' -> this process's rank of a (data, model) mesh."""
+    from repro_torch.launch import mesh as mesh_lib
+    try:
+        data, model_ax = (int(v) for v in spec.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh expects DATA,MODEL integers, got {spec!r}")
+    try:
+        mesh = mesh_lib.make_debug_mesh(data, model_ax, device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {spec}: {e}")
+    print(f"mesh: {mesh} ({'graphed' if mesh.capturable else 'eager'} "
+          f"ticks: {mesh.backend} collectives "
+          f"{'can' if mesh.capturable else 'cannot'} be captured)")
+    return mesh
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh is not ported yet: the mesh is ROADMAP.md "
-                         "Queue 1 item 12")
     if args.compilation_cache_dir is not None:
         raise SystemExit("--compilation-cache-dir names XLA's persistent "
                          "compilation cache, which the port does not have; "
@@ -359,16 +407,24 @@ def main(argv=None):
     if args.legacy and args.http is not None:
         raise SystemExit("--legacy and --http are mutually exclusive "
                          "(the legacy loop has no online frontend)")
+    if args.mesh and args.legacy and args.cache != "none":
+        raise SystemExit("--mesh --legacy requires --cache none")
+    mesh = make_mesh_arg(args.mesh, args.device) if args.mesh else None
     cfg = configs.get_config(args.arch, smoke=args.smoke)
-    model = build_model(cfg, args.device)
+    model = build_model(cfg, args.device if mesh is None else mesh.device)
     params = model.init(args.seed)
     dcfg = make_dcfg(args)
-    if args.legacy:
-        run_legacy(args, cfg, model, params, dcfg)
-    elif args.http is not None:
-        run_http(args, cfg, model, params, dcfg)
-    else:
-        run_engine(args, cfg, model, params, dcfg)
+    try:
+        if args.legacy:
+            run_legacy(args, cfg, model, params, dcfg, mesh)
+        elif args.http is not None:
+            run_http(args, cfg, model, params, dcfg, mesh)
+        else:
+            run_engine(args, cfg, model, params, dcfg, mesh)
+    finally:
+        if mesh is not None and mesh.size > 1:
+            from repro_torch.launch import mesh as mesh_lib
+            mesh_lib.destroy()
 
 
 if __name__ == "__main__":

@@ -175,7 +175,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_valid: Optional[torch.Tensor] = None,
               window: Optional[int] = None, baos_calib=None,
-              q_offset: int = 0) -> torch.Tensor:
+              q_offset: int = 0, extra_kv=None) -> torch.Tensor:
     """Bidirectional GQA attention, q (B, Sq, Hq, D) over k/v
     (B, Skv, Hkv, D) with a per-row ``kv_valid`` (B, Skv) mask; key j sits
     at position j and query row r at ``q_offset + r``.  With ``baos_calib``
@@ -184,7 +184,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q * f_k and out * f_v + c_v to the activation dtype).  The hand-written
     kernel runs for CUDA tensors, its plain version for CPU ones; both
     raise NotImplementedError for a head dim the kernel does not take
-    (kernels/flash_bidir.check_head_dim)."""
+    (kernels/flash_bidir.check_head_dim).  ``extra_kv`` = (k2, v2,
+    valid2): a second K/V source in the same smoothed space (the split
+    active-block buffer), its key j at position q_offset + j; one softmax
+    spans both sources (the kernel's route B), as JAX merges the two
+    sources' partials exactly."""
     flash_bidir.check_head_dim(q.shape[-1])
     fk = fv = cv = None
     if baos_calib is not None:
@@ -192,7 +196,69 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fk, fv, cv = (t.reshape(B, Hkv, D) for t in (
             baos_calib.k_scale, baos_calib.v_scale, baos_calib.v_center))
     return flash_bidir.flash_bidir(q, k, v, kv_valid, fk, fv, cv,
-                                   window=window, q_offset=q_offset)
+                                   window=window, q_offset=q_offset,
+                                   extra_kv=extra_kv)
+
+
+# ---------------------------------------------------------------------------
+# Online-softmax partials (JAX's attention_partials / combine_partials /
+# finalize_partials): plain PyTorch for the CPU and the tests.  Partials of
+# disjoint key sets merge exactly, which is what lets the split cache's
+# two sources share one softmax; on the card route B of flash_bidir
+# computes the merged result in one pass.
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                       kv_valid: torch.Tensor, mode: str = "bidir",
+                       window: Optional[int] = None,
+                       softmax_scale: Optional[float] = None):
+    """(m, l, o_unnorm), each (B, Hkv, G, Sq[, D]) f32: the row max of the
+    masked scores (at least -1e30), the exp-sum relative to it and the
+    unnormalized output, over one key set: q (B, Sq, Hq, D), k/v
+    (B, Skv, Hkv, D), q_pos (B, Sq), kv_pos and kv_valid (B, Skv);
+    ``mode`` 'bidir' or 'causal', ``window`` |q - k| < window (causal:
+    q - k < window).  JAX chunks the keys; one chunk computes the same
+    function."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    qg = (q.to(torch.float32) * scale).reshape(B, Sq, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
+    ok = kv_valid.to(torch.bool)[:, None, :]
+    qp, kp = q_pos[:, :, None], kv_pos[:, None, :]
+    if mode == "causal":
+        ok = ok & (kp <= qp)
+        if window is not None:
+            ok = ok & (qp - kp < window)
+    elif window is not None:
+        ok = ok & (torch.abs(qp - kp) < window)
+    s = s + torch.where(ok, 0.0, NEG_INF)[:, None, None]
+    m = torch.clamp(torch.amax(s, dim=-1), min=NEG_INF)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(torch.float32))
+    return m, torch.sum(p, dim=-1), o
+
+
+def combine_partials(a, b):
+    """Exact online-softmax merge of two (m, l, o_unnorm) partials."""
+    m_a, l_a, o_a = a
+    m_b, l_b, o_b = b
+    m = torch.maximum(m_a, m_b)
+    ca, cb = torch.exp(m_a - m), torch.exp(m_b - m)
+    return m, l_a * ca + l_b * cb, o_a * ca[..., None] + o_b * cb[..., None]
+
+
+def finalize_partials(p, B: int, Sq: int, Hq: int, D: int,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """o / max(l, 1e-30) as (B, Sq, Hq, D) in ``dtype``."""
+    _, l, o = p
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(dtype)
 
 
 def seeded_generator(device: torch.device, seed: int

@@ -7,7 +7,7 @@ families of the JAX package (``FAMILIES``): dense and moe
 (models/vlm.VLMModel); each model checks its own family's features."""
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -35,12 +35,13 @@ class TransformerModel:
         return transformer.init_params(self.cfg, seed, self.device)
 
     def init_cache(self, batch: int, s_tot: int,
+                   act_len: Optional[int] = None,
                    device: Union[str, torch.device, None] = None) -> Dict:
         """The cache on ``device`` (default: the model's; ``"meta"``
         gives shapes and dtypes without allocating)."""
         return transformer.init_cache(self.cfg, batch, s_tot,
                                       self.device if device is None
-                                      else device)
+                                      else device, act_len)
 
     def forward(self, params: Dict, tokens: torch.Tensor, **kw):
         return transformer.forward(params, self.cfg, tokens, **kw)

@@ -219,10 +219,12 @@ class GriffinModel:
 
     # -- cache ---------------------------------------------------------------
     def init_cache(self, batch: int, s_tot: int,
+                   act_len: Optional[int] = None,
                    device: Union[str, torch.device, None] = None) -> Dict:
         """Zeroed K/V, identity calibration, zeroed recurrent states and
         conv rows, with JAX's shapes and dtypes; ``device="meta"`` gives
-        shapes and dtypes without allocating."""
+        shapes and dtypes without allocating.  ``act_len`` (the split
+        attention cache) is not applied to the hybrid, as in JAX."""
         cfg = self.cfg
         dev = self.device if device is None else device
         nt, dt, f32 = self.n_triples, cfg.torch_dtype, torch.float32

@@ -219,9 +219,12 @@ class MambaModel:
                     dense(cfg.d_model, cfg.vocab))}
 
     def init_cache(self, batch: int, s_tot: int,
+                   act_len: Optional[int] = None,
                    device: Union[str, torch.device, None] = None) -> Dict:
         """The zeroed state (n_layers, B, nh, hp, dn) f32 and conv rows
         (n_layers, B, W - 1, conv_dim); ``s_tot`` sizes nothing (no KV).
+        ``act_len`` (the split attention cache) is inapplicable: no KV
+        cache, as in JAX.
         ``device="meta"`` gives shapes and dtypes without allocating."""
         cfg = self.cfg
         dev = self.device if device is None else device

@@ -161,11 +161,16 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_tot: int,
-               device: Union[str, torch.device] = "cuda") -> Dict:
+               device: Union[str, torch.device] = "cuda",
+               act_len: Optional[int] = None) -> Dict:
     """Full-length KV buffers (n_layers, batch, s_tot, Hkv, D), zeroed, and
     the stacked BAOS calibration (n_layers, batch, 1, Hkv, D) f32: zero
-    centers, unit scales.  (The JAX package's split ``k_act``/``v_act``
-    layout is not ported.)"""
+    centers, unit scales.  ``act_len`` adds JAX's SPLIT layout:
+    ``k_act``/``v_act`` (n_layers, batch, act_len, Hkv, D), the active
+    block's smoothed but unquantized K/V, which a refine step writes in
+    place of the full buffer (the paper's "active block stays in SRAM";
+    see ``cache_attention``).  ``device`` comes before ``act_len`` here,
+    as callers pass it by position."""
     dev = device_lib.resolve(device)
     shape = (cfg.n_layers, batch, s_tot, cfg.n_kv_heads, cfg.d_head)
     cal = (cfg.n_layers, batch, 1, cfg.n_kv_heads, cfg.d_head)
@@ -173,10 +178,30 @@ def init_cache(cfg: ModelConfig, batch: int, s_tot: int,
     def f32(fill):
         return torch.full(cal, fill, dtype=torch.float32, device=dev)
 
-    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            "k_center": f32(0.0), "k_scale": f32(1.0),
-            "v_center": f32(0.0), "v_scale": f32(1.0)}
+    cache = {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+             "k_center": f32(0.0), "k_scale": f32(1.0),
+             "v_center": f32(0.0), "v_scale": f32(1.0)}
+    if act_len is not None:
+        act = (cfg.n_layers, batch, act_len, cfg.n_kv_heads, cfg.d_head)
+        cache["k_act"] = torch.zeros(act, dtype=cfg.torch_dtype, device=dev)
+        cache["v_act"] = torch.zeros(act, dtype=cfg.torch_dtype, device=dev)
+    return cache
+
+
+def cache_specs(cfg: ModelConfig, act_len: Optional[int] = None) -> Dict:
+    """The logical axes of each cache leaf, JAX's ``cache_specs`` (the
+    names its sharding rules read; the port's mesh shards the batch over
+    ``data``)."""
+    kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    cal = ("layers", "batch", None, "kv_heads", "head_dim")
+    spec = {"k": kv, "v": kv, "k_center": cal, "k_scale": cal,
+            "v_center": cal, "v_scale": cal}
+    if act_len is not None:
+        act = ("layers", "batch", None, "kv_heads", "head_dim")
+        spec["k_act"] = act
+        spec["v_act"] = act
+    return spec
 
 
 def embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
@@ -236,7 +261,8 @@ def cross_attention(x: torch.Tensor, lp: Dict, ck: torch.Tensor,
 
 def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
                     cfg: ModelConfig, baos_cfg: baos_lib.BAOSConfig,
-                    calibrate: bool, calib_mask):
+                    calibrate: bool, calib_mask,
+                    act_start: Optional[SegStart] = None):
     """The cached branch of an attention layer (this module's and
     models/rglru.py's): (re)calibrate or read the stored calibration,
     write the segment's K/V into the cache at ``seg_start`` (through the
@@ -246,7 +272,17 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     shorter than the cache masks nothing (|q - k| < s_tot <= window) and
     is dropped.  A tensor ``seg_start`` scatters the segment (a graph's
     block start); the window's query offset is then unknown to the host,
-    so a shorter window refuses it."""
+    so a shorter window refuses it.
+
+    The split layout (``lcache`` holds ``k_act``/``v_act``, JAX's
+    ``transformer._layer`` split branch): a refine step smooths its K/V
+    with the stored calibration (no MX quantization) into the active
+    buffer and leaves the full buffer as it is; attention spans the full
+    buffer, without its stale copy of the block (``kv_valid & ~in_act``),
+    and the active buffer, in one softmax (flash_bidir's route B).  A warm
+    step writes the full buffer as always, then refreshes the active
+    buffer from the rows just written at ``act_start`` (the block start;
+    default ``seg_start``)."""
     S = k.shape[1]
     window = cfg.window
     if window is not None and window >= lcache["k"].shape[1]:
@@ -268,6 +304,10 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
                 f"({ROADMAP})")
         idx = seg_start.reshape(()).to(torch.int64) + torch.arange(
             S, device=k.device)
+    q_offset = 0 if on_device else seg_start
+    if "k_act" in lcache and not calibrate:
+        return _split_refine(q, k, v, lcache, seg_start, kv_valid, window,
+                             calib, q_offset)
     for name, x, center, scale in (
             ("k", k, "k_center", "k_scale"), ("v", v, "v_center", "v_scale")):
         if on_device:
@@ -281,10 +321,47 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
             baos_lib.smooth_quantize(
                 x, lcache[center], lcache[scale], baos_cfg,
                 out=lcache[name][:, seg_start:seg_start + S])
+    if "k_act" in lcache:
+        # the warm step refreshes the active buffer from the just-written
+        # (smoothed, with BAOS quantized) rows at the block start
+        start = seg_start if act_start is None else act_start
+        L_act = lcache["k_act"].shape[1]
+        for name in ("k", "v"):
+            lcache[f"{name}_act"].copy_(rows(lcache[name], start, L_act))
     # the query offset places the window; without one it is unused
     return layers.attention(q, lcache["k"], lcache["v"], kv_valid,
                             window=window, baos_calib=calib,
-                            q_offset=0 if on_device else seg_start)
+                            q_offset=q_offset)
+
+
+def _split_refine(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
+                  window, calib, q_offset):
+    """The split layout's refine (``cache_attention``): the segment, which
+    must be the active block, smoothed into ``k_act``/``v_act``; attention
+    over the full buffer less its copy of the block, and the buffer."""
+    B, S = k.shape[:2]
+    L_act = lcache["k_act"].shape[1]
+    if S != L_act:
+        raise ValueError(
+            f"a split-cache refine writes its {S}-long segment into an "
+            f"active buffer of {L_act}: the segment must be the block "
+            f"(cache mode dual)")
+    for name, x, center, scale in (("k", k, "k_center", "k_scale"),
+                                   ("v", v, "v_center", "v_scale")):
+        if calib is not None:
+            x = (x.to(torch.float32) - lcache[center]) / lcache[scale]
+        lcache[f"{name}_act"].copy_(x)
+    s_tot = lcache["k"].shape[1]
+    pos = torch.arange(s_tot, device=k.device)
+    start = start_of(seg_start)
+    valid = ~((pos >= start) & (pos < start + L_act))
+    valid = valid[None].expand(B, s_tot) if kv_valid is None \
+        else kv_valid.to(torch.bool) & valid[None]
+    return layers.attention(q, lcache["k"], lcache["v"],
+                            valid.contiguous(), window=window,
+                            baos_calib=calib, q_offset=q_offset,
+                            extra_kv=(lcache["k_act"], lcache["v_act"],
+                                      None))
 
 
 def forward(params: Dict, cfg: ModelConfig,
@@ -317,10 +394,6 @@ def forward(params: Dict, cfg: ModelConfig,
     baos_cfg = baos_cfg or baos_lib.BAOSConfig(enabled=False)
     B, S = (tokens if embeds is None else embeds).shape[:2]
     if cache is not None:
-        if "k_act" in cache:
-            raise NotImplementedError(
-                f"the split k_act/v_act cache layout is not ported yet "
-                f"({ROADMAP})")
         s_tot = cache["k"].shape[2]
         if not isinstance(seg_start, torch.Tensor) and \
                 not 0 <= seg_start <= s_tot - S:
@@ -338,8 +411,11 @@ def forward(params: Dict, cfg: ModelConfig,
             attn = layers.attention(q, k, v, window=cfg.window)
         else:
             lcache = {name: t[i] for name, t in cache.items()}
-            attn = cache_attention(q, k, v, lcache, seg_start, kv_valid,
-                                    cfg, baos_cfg, calibrate, calib_mask)
+            attn = cache_attention(
+                q, k, v, lcache, seg_start, kv_valid, cfg, baos_cfg,
+                calibrate, calib_mask,
+                act_start=(logits_slice[0] if calibrate and logits_slice
+                           else None))
         x = x + layers.qdot(attn.reshape(B, S, Hq * D), lp["wo"], quant) * \
             cfg.residual_scale
         if cross_kv is not None:

@@ -43,10 +43,11 @@ class VLMModel:
         return transformer.init_params(self.cfg, seed, self.device)
 
     def init_cache(self, batch: int, s_tot: int,
+                   act_len: Optional[int] = None,
                    device: Union[str, torch.device, None] = None) -> Dict:
         return transformer.init_cache(self.cfg, batch, s_tot,
                                       self.device if device is None
-                                      else device)
+                                      else device, act_len)
 
     def embed(self, params: Dict, tokens: torch.Tensor,
               image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -19,7 +19,7 @@ every path samples on the legacy head.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -64,10 +64,11 @@ class WhisperModel:
         return params
 
     def init_cache(self, batch: int, s_tot: int,
+                   act_len: Optional[int] = None,
                    device: Union[str, torch.device, None] = None) -> Dict:
         return transformer.init_cache(self.cfg, batch, s_tot,
                                       self.device if device is None
-                                      else device)
+                                      else device, act_len)
 
     def encode(self, params: Dict, audio_embeds: torch.Tensor
                ) -> torch.Tensor:

@@ -44,15 +44,21 @@ class CachePool:
     batch axis (axis 1 of the stacked KV, (n_layers, num_slots,
     max_seq_len, ...); axis 2 of the hybrid's ``rec_state``/``rec_conv``).
     A warm tick rewrites the whole pool's cache in place (the models'
-    forward), so :meth:`update` only rebinds.
+    forward), so :meth:`update` only rebinds.  ``rows`` = (r0, r1): the
+    cache holds only slots r0 .. r1 - 1 (this rank's under a mesh's data
+    axis), as its rows 0 .. r1 - r0 - 1; the slot accounting still spans
+    every slot.
     """
 
     def __init__(self, model, num_slots: int, max_seq_len: int,
-                 with_cache: bool = True):
+                 with_cache: bool = True,
+                 rows: Optional[Tuple[int, int]] = None):
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len
+        self.rows = (0, num_slots) if rows is None else tuple(rows)
         self.cache: Optional[Dict] = (
-            model.init_cache(num_slots, max_seq_len) if with_cache else None)
+            model.init_cache(self.rows[1] - self.rows[0], max_seq_len)
+            if with_cache else None)
         self._batch_axes = (diffusion.cache_batch_axes(model, max_seq_len)
                             if with_cache else {})
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
@@ -87,9 +93,10 @@ class CachePool:
             raise ValueError(f"slot {slot} double-released")
         self._free.append(slot)
         self.releases += 1
-        if zero and self.cache is not None:
+        r0, r1 = self.rows
+        if zero and self.cache is not None and r0 <= slot < r1:
             for name, t in self.cache.items():
-                t.select(self._batch_axes[name], slot).zero_()
+                t.select(self._batch_axes[name], slot - r0).zero_()
 
     def update(self, new_cache) -> None:
         """Store the cache returned by a warm tick."""

@@ -20,8 +20,19 @@ Tick modes:
 every tick the engine diffs the request's row against its host-tracked mask
 state and hands the callback a :class:`CommitEvent` with the positions and
 tokens that committed on that tick, once the tick's obs hooks have run.
-``cancel(uid, reason)`` removes a still-queued request.  The mesh is not
-ported yet (ROADMAP.md).
+``cancel(uid, reason)`` removes a still-queued request.
+
+``EngineConfig(mesh=...)`` (a launch/mesh.Mesh) runs every tick as the SPMD
+tick (core/diffusion.get_spmd_tick_fn), as in JAX: the slots shard over
+``data`` (this rank's pool holds its slots' cache rows), the LM head's
+columns over ``model`` (placed once, at construction).  The port is
+multi-controller: every rank runs this engine on the same requests, its
+host holds the whole canvas and every tick's gathered results, and the
+ranks agree on each tick's seconds (the slowest rank's), so their
+schedulers take the same decisions.  Modes none and warm, K = 1 and the
+megatick; a graphed tick needs a mesh whose collectives a CUDA graph
+captures (NCCL).  Breakdown timing and forward kwargs are refused, as in
+JAX; the paged pool under a mesh is not ported (ROADMAP.md, Queue 1).
 
 ``EngineConfig.obs`` takes a ``repro_torch.obs.ServingObs``: the JAX
 engine's hooks at the same places (request lifecycle counters and
@@ -178,8 +189,9 @@ class EngineConfig:
     slot) or ``"paged"`` (block pool + radix prefix cache);
     ``page_size``/``num_pages``/``prefix_cache`` apply to the paged pool
     only.  ``obs`` takes a ``repro_torch.obs.ServingObs``; ``breakdown``
-    splits each tick into timed forward and sampling stages.  The mesh is
-    not ported yet and raises unless left at None."""
+    splits each tick into timed forward and sampling stages.  ``mesh``
+    takes a ``repro_torch.launch.mesh.Mesh`` (modes none and warm on the
+    slot pool)."""
     num_slots: int = 4
     max_seq_len: int = 128
     mode: str = "warm"
@@ -259,10 +271,27 @@ class ServingEngine:
                     f"policy {policy.name!r} overrides step_k; only the "
                     "default schedule and SlowFastPolicy run on the device "
                     "inside a megatick")
-        if config.mesh is not None:
-            raise NotImplementedError(
-                f"EngineConfig.mesh={config.mesh!r} is not ported yet "
-                "(ROADMAP.md, Queue 1)")
+        self.mesh = mesh = config.mesh
+        if mesh is not None:
+            if config.breakdown:
+                raise ValueError(
+                    "breakdown timing is not supported under a mesh (the "
+                    "SPMD tick is one step)")
+            if self.fwd_kw:
+                raise ValueError(
+                    "mesh serving does not support extra forward kwargs")
+            if self.paged:
+                raise NotImplementedError(
+                    "the paged pool under a mesh is not ported yet "
+                    "(ROADMAP.md, Queue 1)")
+            # mesh axes, the fused greedy head, a capturable mesh for graphs
+            diffusion.check_spmd(model, dcfg, mesh, config.jit_steps)
+            if config.num_slots % mesh.shape["data"]:
+                raise ValueError(
+                    f"num_slots {config.num_slots} must be divisible by the "
+                    f"data axis size {mesh.shape['data']}")
+            # once: the LM-head columns over 'model', the rest replicated
+            params = diffusion.place_spmd_params(params, mesh)
         diffusion.check_supported(dcfg)
         self.config = config
         self.model = model
@@ -294,8 +323,10 @@ class ServingEngine:
                 with_cache=with_cache, mask_id=self.mask_id,
                 prefix_cache=config.prefix_cache, device=self.device)
         else:
-            self.pool = CachePool(model, self.num_slots, self.max_seq_len,
-                                  with_cache=with_cache)
+            self.pool = CachePool(
+                model, self.num_slots, self.max_seq_len,
+                with_cache=with_cache,
+                rows=None if mesh is None else mesh.rows(self.num_slots))
         if self.paged and self._event is not None:
             # the pool's page edges (spill/restore/prefix_hit/evict) go
             # through the same hook, uid-less
@@ -360,6 +391,10 @@ class ServingEngine:
                 model, dcfg, self.mask_id, config.page_size,
                 self.max_seq_len, with_cache=with_cache,
                 jit_steps=self.jit_steps, quant=self._quant)
+        elif self.megatick_k == 1 and mesh is not None:
+            self._tick_fn = diffusion.get_spmd_tick_fn(
+                model, dcfg, self.mask_id, mesh, jit_steps=self.jit_steps,
+                quant=self._quant)
         elif self.megatick_k == 1 and self.jit_steps:
             self._tick_fn = diffusion.get_tick_fn(model, dcfg, self.mask_id,
                                                   quant=self._quant)
@@ -377,7 +412,7 @@ class ServingEngine:
                     config.page_size, self.max_seq_len,
                     with_cache=with_cache, **kw) if self.paged
                 else diffusion.Megatick(model, dcfg, self.mask_id,
-                                        self.megatick_k, **kw))
+                                        self.megatick_k, mesh=mesh, **kw))
 
     # -- request lifecycle --------------------------------------------------
 
@@ -919,7 +954,7 @@ class ServingEngine:
         self.host_waits += 1
         t3 = time.perf_counter()
         stages["host_sync" if self.breakdown else "device_sync"] = t3 - t2
-        dt = t3 - t0
+        dt = self._agree(t3 - t0)
 
         n_active = self.active_slots
         self.now += dt
@@ -951,6 +986,15 @@ class ServingEngine:
                           t_start_us=t_enter * 1e6)
         self._deliver()
         return True
+
+    def _agree(self, seconds: float) -> float:
+        """A tick's (or megastep's) seconds on the engine clock: this
+        process's own, or under a mesh the slowest rank's, so every rank's
+        clock, and with it every admission, stays the same."""
+        if self.mesh is None:
+            return seconds
+        from repro_torch.launch import mesh as mesh_lib
+        return mesh_lib.agree_max(seconds, self.mesh)
 
     def _obs_committed(self, committed: int) -> None:
         """The obs hooks after a tick's (or megastep's) commits: tokens,
@@ -1129,7 +1173,7 @@ class ServingEngine:
         xa_b = bufs["xa"][:n].cpu().numpy() if sinks else None
         t3 = time.perf_counter()
         stages["device_sync"] = t3 - t2
-        dt = t3 - t0
+        dt = self._agree(t3 - t0)
         elided = (n - 1) + (0 if sinks else 1)
         if elided > 0:
             self.host_syncs_elided += elided

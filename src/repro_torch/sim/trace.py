@@ -304,32 +304,52 @@ def capture_tick_trace(model, dcfg, mask_id: Optional[int] = None, *,
     from the port's ``core.diffusion.batched_tick`` on meta tensors.  The
     parameters and cache are shape-only (the model rebuilt on ``meta``:
     ``init`` and ``init_cache`` allocate nothing), so this works at full
-    llada-8b width on any host.  ``mesh`` (the shard_mapped SPMD tick of
-    JAX) is not ported."""
+    llada-8b width on any host.  With ``mesh`` (a launch/mesh.Mesh, or
+    any mesh whose ``axis_names`` and ``shape`` hold 'data' and 'model';
+    only its shape is read) it records
+    the SPMD tick as one chip runs it, as JAX's capture inside shard_map
+    does: B/n_data rows through the forward, this chip's
+    (d, V_pad/n_model) head shard through the streamed partials, the
+    combine's ``emit_combine`` inside ``sampling.combine_partials``, then
+    the top-k and commit of its rows; no collective runs (meta tensors)."""
     import torch
 
     from repro_torch.core import diffusion
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models.registry import build_model
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "capture through a mesh waits for the SPMD tick (ROADMAP.md, "
-            "Queue 1 item 12)")
     mask_id = model.cfg.mask_id if mask_id is None else mask_id
     shapes = build_model(model.cfg, device="meta")
     params = shapes.init()
-    cache = None
-    if dcfg.cache_mode != "none":
-        cache = shapes.init_cache(B, s_tot)
     i32 = torch.int32
     tracer = Tracer(meta={
         "kind": "tick", "B": B, "s_tot": s_tot, "L": dcfg.block_length,
         "V": int(model.cfg.vocab), "d": int(model.cfg.d_model),
         "head_path": dcfg.head_path, "cache_mode": dcfg.cache_mode,
-        "fmt": dcfg.sampling.fmt, "mesh": None})
-    # JAX always passes a key here: the tick seed stands for it
-    diffusion.batched_tick(
-        shapes, params, _meta((B, s_tot), i32), _meta((B, s_tot), torch.bool),
-        _meta((B,), i32), _meta((B,), i32), 0, cache, dcfg, mask_id,
-        quant=quant, tracer=tracer)
+        "fmt": dcfg.sampling.fmt,
+        "mesh": dict(mesh.shape) if mesh is not None else None})
+    x = _meta((B, s_tot), i32)
+    kv_valid = _meta((B, s_tot), torch.bool)
+    block_start, k = _meta((B,), i32), _meta((B,), i32)
+    if mesh is None:
+        cache = (shapes.init_cache(B, s_tot)
+                 if dcfg.cache_mode != "none" else None)
+        # JAX always passes a key here: the tick seed stands for it
+        diffusion.batched_tick(
+            shapes, params, x, kv_valid, block_start, k, 0, cache, dcfg,
+            mask_id, quant=quant, tracer=tracer)
+        return tracer.finish()
+    names = tuple(getattr(mesh, "axis_names", ()))
+    if any(ax not in names for ax in mesh_lib.AXES):
+        raise ValueError(f"SPMD tick needs mesh axes ('data', 'model'); "
+                         f"got {names}")
+    view = mesh_lib.shape_mesh(mesh.shape["data"], mesh.shape["model"])
+    r0, r1 = view.rows(B)
+    cache = (shapes.init_cache(r1 - r0, s_tot)
+             if dcfg.cache_mode != "none" else None)
+    tick = diffusion.get_spmd_tick_fn(shapes, dcfg, mask_id, view,
+                                      jit_steps=False, quant=quant)
+    with activate(tracer):
+        tick(diffusion.place_spmd_params(params, view), x, kv_valid,
+             block_start, k, 0, cache)
     return tracer.finish()

@@ -197,8 +197,9 @@ def test_refine_step_from_a_jax_cache(models, cache_mode):
 def test_unported_modes_raise(models):
     """The random transfer strategy and every sampling format now run:
     generate in modes none and dual + BAOS and the engine (warm, eager)
-    finish with no mask id left.  The megatick over a mesh still raises
-    NotImplementedError pointing at the ROADMAP."""
+    finish with no mask id left.  The megatick over a mesh runs (tests/
+    test_torch_spmd.py); given something that is no mesh it raises JAX's
+    ValueError for missing mesh axes."""
     _, model_t, _, params_t = models
     mid = model_t.cfg.mask_id
     prompt = torch.arange(3, 11, dtype=torch.int32)[None]
@@ -219,7 +220,7 @@ def test_unported_modes_raise(models):
         done = eng.run([Request(prompt=np.arange(3, 11, dtype=np.int32),
                                 gen_length=16)])
         assert not bool((done[0].tokens == mid).any())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh axes"):
         ServingEngine(model_t, params_t, tdiff.DiffusionConfig(),
                       EngineConfig(megatick_k=2, mesh=object()))
 

@@ -164,11 +164,13 @@ def test_seeded_init_shapes_and_scales():
 
 
 def test_unported_features_raise():
-    """Features still unported raise NotImplementedError pointing at the
-    ROADMAP: the split k_act/v_act cache.  Every model family is ported:
-    build_model builds all six (audio and vlm since their slice; their
-    parity is tests/test_torch_whisper.py and tests/test_torch_vlm.py).
-    The QuantPolicy is ported: forward(quant=...) gives JAX's logits (its
+    """No feature of this module is left unported.  Every model family
+    is ported: build_model builds all six (audio and vlm since their
+    slice; their parity is tests/test_torch_whisper.py and
+    tests/test_torch_vlm.py).  The split k_act/v_act cache is ported: a
+    warm forward through it refreshes the active buffer from the block's
+    rows (its parity in full is tests/test_torch_split_cache.py).  The
+    QuantPolicy is ported: forward(quant=...) gives JAX's logits (its
     parity in full is tests/test_torch_quant.py)."""
     cfg = tbase.get_config("llada-8b", smoke=True)
     for arch in ("whisper-medium", "internvl2-26b"):
@@ -177,14 +179,15 @@ def test_unported_features_raise():
             jbuild(jbase.get_config(arch))).__name__
     assert set(tregistry.FAMILIES) == {"dense", "moe", "ssm", "hybrid",
                                        "audio", "vlm"}
-    split = dict(ttr.init_cache(cfg, 1, 16, "cpu"), k_act=None, v_act=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.forward({}, cfg, torch.zeros(1, 8, dtype=torch.int32),
-                    cache=split)
     cfg_j = jbase.get_config("llada-8b", smoke=True)
     params_j = jbuild(cfg_j).init(jax.random.PRNGKey(0))
     params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
                                         cfg, "cpu")
+    split = ttr.init_cache(cfg, 1, 16, "cpu", act_len=8)
+    ttr.forward(params_t, cfg, torch.arange(16, dtype=torch.int32)[None],
+                cache=split, calibrate=True, logits_slice=(8, 8))
+    assert torch.equal(split["k_act"], split["k"][:, :, 8:16])
+    assert torch.equal(split["v_act"], split["v"][:, :, 8:16])
     toks = _tokens(cfg_j, 2, 16, seed=4)
     want, _, _ = jtr.forward(params_j, cfg_j, jnp.asarray(toks),
                              quant=jlayers.QuantPolicy(enabled=True))

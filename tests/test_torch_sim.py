@@ -10,6 +10,7 @@ results are held equal, float for float, not within a tolerance.  A trace
 written by either package is read by the other's ``Trace.load``.  The
 tick's tracer records nothing on the numbers: a tick with one gives the
 tokens of a tick without."""
+import argparse
 import dataclasses
 
 import jax
@@ -458,12 +459,21 @@ def test_tick_trace_equals_jax_at_full_width(head_path):
 
 
 def test_spmd_tick_trace_waits_for_the_mesh():
-    """JAX's SPMD capture (a mesh) has no counterpart yet: the port
-    raises, pointing at the ROADMAP."""
+    """The SPMD capture (a mesh) no longer waits: the port records one
+    chip's tick (tests/test_torch_spmd.py holds it to JAX's per-chip
+    sampling trace).  Something that is no mesh raises JAX's ValueError
+    for missing mesh axes."""
+    from repro_torch.launch import mesh as mesh_lib
     _, _, model_t = _smoke_setup()
     _, dt = _dcfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.capture_tick_trace(model_t, dt, B=4, s_tot=32, mesh=object())
+    t = ttr.capture_tick_trace(model_t, dt, B=4, s_tot=32,
+                               mesh=mesh_lib.shape_mesh(2, 2))
+    assert t.meta["mesh"] == {"data": 2, "model": 2}
+    assert [o.op for o in t.ops].count("COLL_PSUM") == 1
+    with pytest.raises(ValueError, match="mesh axes"):
+        ttr.capture_tick_trace(model_t, dt, B=4, s_tot=32,
+                               mesh=argparse.Namespace(
+                                   shape={"data": 1, "model": 1}))
 
 
 @pytest.fixture(scope="module")
