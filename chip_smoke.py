@@ -140,7 +140,7 @@ Phases, each fatal on failure:
                event log (both valid, logquery --validate exits 0), and
                with --legacy; each exits 0.
   7. moe  -- the MoE family, one model at a time after llada-8b is freed:
-               llada-moe-7b-a1b at full width, 8 of its 24 layers (a
+               llada-moe-7b-a1b at full width, 6 of its 24 layers (a
                depth cut for the script's time limit; d 2048,
                64 experts top-2, bf16, seeded random weights) through
                generate (mode none stepped, each step's sampling held
@@ -167,7 +167,7 @@ Phases, each fatal on failure:
                widths, bf16: graphed equals eager); then the recurrent
                families at full width, one model at a time, on the
                legacy head (full-sequence logits, stablemax_sampling,
-               topk_mask; no fused head): recurrentgemma-2b (11 of 26
+               topk_mask; no fused head): recurrentgemma-2b (8 of 26
                layers, a depth cut for the script's time limit, d 2560,
                MQA 10 on 1 KV head of D 256, V 256000) through
                generate (mode none stepped, dual + BAOS and prefix + BAOS
@@ -175,7 +175,7 @@ Phases, each fatal on failure:
                none and warm + BAOS eager K=1, graphed K=1 and K=8 with
                phase 4's checks, the paged pool on warm graphed K=1 and
                K=8, breakdown on warm graphed and the Table 6 shape in
-               modes none, prefix + BAOS and dual + BAOS; mamba2-130m (12
+               modes none, prefix + BAOS and dual + BAOS; mamba2-130m (8
                of 24 layers, d 768, state 128, V 50280) through generate (none,
                dual, prefix with BAOS on the state) and the engine paths
                warm and none; per model the RG-LRU or SSD scan's device
@@ -264,9 +264,34 @@ Phases, each fatal on failure:
                refine's shape (16, 64, 32 on 32, 128) over 384 + 64 keys
                with BAOS, each against its plain version, timed beside its
                bound and a library call.
+  13. step builders -- launch/steps.py (budget PHASE13_BUDGET_S): (a) in
+               phase 11's process, qwen2-0.5b at full width and depth, B 8
+               x S 128: build_step(train) equal to make_train_step on the
+               same draw bit for bit (loss and every updated parameter),
+               loss_chunk=64 within 1e-6 relative, the step on a (1, 1)
+               NCCL mesh equal to no mesh bit for bit, compressed_psum over
+               that mesh's data axis on the step's full gradients equal to
+               dequant(quant(g + e)) with the residual as its error, bit
+               for bit, timed; (b) beside phase 12c, llada-8b at Table 6's
+               shape: build_step(prefill) then build_step(decode) under
+               ServePolicy() and ServePolicy(split_cache=True), the decode
+               canvas equal to refine_step + sampling_step with every
+               kernel plain off recorded near-ties, exact launches a step,
+               no plain version, ms a step; (c) in phase 12b's two-rank
+               job, now run after phase 11: mesh (1, 2) refuses every kind,
+               qwen2-0.5b in f32 at PHASE13C_LAYERS layers (cut_depth)
+               trains on (2, 1) within 1e-5 of one rank (loss relative,
+               each gradient leaf against its largest value; parameters
+               within 2 x lr + 1e-6), llada-8b (8 layers) prefill + decode
+               on (2, 1) equal to one rank bit for bit, compressed_psum
+               over the two ranks within each block's int8 half-step of
+               the plain mean, and the elastic restore of phase 11's
+               qwen2-0.5b checkpoint under (1, 2) and (2, 1) placements,
+               each rank's shard equal to the full leaf's slice bit for
+               bit, with bytes read and ms.
 Every path's launch counts are zeroed just before it and read just after;
-the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 12, 7, 8,
-9 and 11; the fused head's and Stable-Max's rows carry ``by_fmt``, phase
+the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 12, 13b,
+7, 8, 9, 11 (with 13a) and 12b (with 13c); the fused head's and Stable-Max's rows carry ``by_fmt``, phase
 10's kernel cases per new format.
 Prints the run's time, the kernels JSON line, the card's name and power
 limit, and last the {"ok": true, ...} line.  Exits non-zero without a
@@ -1674,9 +1699,9 @@ def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
 # the script took 994.8 s, then 1,229.5 s on a slower host (the host-bound
 # eager paths ran 1.2-1.9x longer), before the last four cuts.
 DEPTH_CUTS = {"llada-8b": 16, "moonshot-v1-16b-a3b": 24,
-              "internvl2-26b": 12, "llada-moe-7b-a1b": 8,
-              "whisper-medium": 12, "recurrentgemma-2b": 11,
-              "mamba2-130m": 12}
+              "internvl2-26b": 12, "llada-moe-7b-a1b": 6,
+              "whisper-medium": 12, "recurrentgemma-2b": 8,
+              "mamba2-130m": 8}
 
 
 def cut_depth(cfg, n_layers: int, why: str = "for the script's time limit"):
@@ -3312,7 +3337,7 @@ MOE_CONFIGS = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
 
 
 def phase_moe(gen) -> dict:
-    """7: llada-moe-7b-a1b at full width and 8 of its 24 layers (a
+    """7: llada-moe-7b-a1b at full width and 6 of its 24 layers (a
     ``DEPTH_CUTS`` cut for the script's time limit, logged; d 2048, 64
     experts top-2, bf16, seeded random weights) through generate (mode
     none stepped with each step's sampling held against plain, dual +
@@ -3542,7 +3567,7 @@ def phase_recurrent(gen, archs=RECURRENT_ARCHS) -> dict:
     at the depths of DEPTH_CUTS, one model at a time (each freed before the
     next); neither has head_mode, so every path samples on the legacy head
     (full-sequence logits, stablemax_sampling, topk_mask).
-    recurrentgemma-2b (11 of its 26 layers: 3 (rec, rec, attn) triples and
+    recurrentgemma-2b (8 of its 26 layers: 2 (rec, rec, attn) triples and
     2 rec, d 2560, MQA 10 on 1 KV head of
     D 256, window 2048, V 256000): generate in mode none stepped with each
     step's sampling held against plain, dual + BAOS and prefix + BAOS
@@ -3550,7 +3575,7 @@ def phase_recurrent(gen, archs=RECURRENT_ARCHS) -> dict:
     warm + BAOS eager K=1, graphed K=1 and K=8 (phase 4's checks); the
     paged pool on warm graphed K=1 and K=8; breakdown on warm graphed; the
     Table 6 shape in modes none, prefix + BAOS and dual + BAOS.
-    mamba2-130m (12 of 24 layers, d 768, state 128, V 50280): generate in modes
+    mamba2-130m (8 of 24 layers, d 768, state 128, V 50280): generate in modes
     none, dual and prefix (BAOS on the state through core/mx), the engine
     paths warm and none.  Then per model the scans' device time
     (check_recurrent_ops).  Returns the launch counts of the runs."""
@@ -4375,7 +4400,9 @@ def check_train_run() -> dict:
     t0 = time.perf_counter()
     again = train.main(common + ["--ckpt-dir", str(root / "b"), "--resume"])
     t_again = time.perf_counter() - t0
-    shutil.rmtree(root)
+    # keep the step-15 checkpoint for phase 13c's elastic restore (it
+    # deletes it); the resumed run's step 20 goes
+    shutil.rmtree(root / "b" / "step_00000020", ignore_errors=True)
     require(again["losses"] == losses[-5:],
             f"resumed steps 16-20 {again['losses']} != {losses[-5:]}")
     steps = sorted(first["step_s"][1:])
@@ -4426,17 +4453,22 @@ def check_packed_quarot(gen) -> None:
 
 
 def phase_train(gen) -> dict:
-    """Phase 11: (a) the train step against plain attention, (b) the
-    20-step run with a failure and a resume, (c) packed storage and
-    QuaRot.  Returns the launch counts of (a) and (b)."""
+    """Phase 11: (a) the train step against plain attention, phase 13a
+    (the step builder's train step), (b) the 20-step run with a failure
+    and a resume, (c) packed storage and QuaRot.  Returns the launch
+    counts of (a), 13a and (b)."""
     t0 = time.perf_counter()
     counts = check_train_step(gen)
+    t13 = time.perf_counter()
+    for name, n in check_steps_train().items():
+        counts[name] += n
+    t13 = time.perf_counter() - t13
     for name, n in check_train_run().items():
         counts[name] += n
     check_packed_quarot(gen)
-    dt = time.perf_counter() - t0
+    dt = time.perf_counter() - t0 - t13
     log(f"phase 11: {dt:.1f} s against its budget of {PHASE11_BUDGET_S:.0f}"
-        f" s")
+        f" s (phase 13a's {t13:.1f} s apart)")
     return counts
 
 
@@ -4454,7 +4486,7 @@ def phase_train_process() -> dict:
     for line in r.stdout.splitlines():
         if line.startswith(PHASE11_COUNTS):
             counts = json.loads(line[len(PHASE11_COUNTS):])
-        else:
+        elif not note_phase13(line):
             log(line)
     require(r.returncode == 0 and counts is not None,
             f"phase 11 process: exit {r.returncode}: {r.stderr[-3000:]}")
@@ -4787,8 +4819,8 @@ PHASE12B_LAYERS = 8
 
 
 def phase_mesh_ranks() -> dict:
-    """Phase 12b's job: two ranks sharing the card, launched by
-    torch.distributed.run (``phase12b_main`` in each).  Rank 0's output
+    """Phase 12b's job, with phase 13c: two ranks sharing the card,
+    launched by torch.distributed.run (``phase12b_main`` in each).  Rank 0's output
     joins this log; returns the launch counts of both ranks' mesh runs
     (summed by rank 0)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -4802,11 +4834,11 @@ def phase_mesh_ranks() -> dict:
     for line in r.stdout.splitlines():
         if line.startswith(PHASE12B_COUNTS):
             total = json.loads(line[len(PHASE12B_COUNTS):])
-        else:
+        elif not note_phase13(line):
             log(line)
     require(r.returncode == 0 and total is not None,
             f"phase 12b job: exit {r.returncode}: {r.stderr[-3000:]}")
-    log(f"phase 12b (two ranks, their own job): "
+    log(f"phase 12b + 13c (two ranks, their own job): "
         f"{time.perf_counter() - t0:.1f} s")
     return total
 
@@ -4917,7 +4949,8 @@ def phase12b_main() -> int:
     PHASE12B_LAYERS layers, the engine's warm path eager, each tick's
     canvas against the one-rank run's (rank 0), any difference a recorded
     near-tie; per tick one route A and one topk_mask launch and no plain
-    version; each tick's collective time.  Prints its launch counts."""
+    version; each tick's collective time; then phase 13c (``phase13c``).
+    Prints its launch counts."""
     import numpy as np
     import torch.distributed as dist
     from repro_torch import device
@@ -5011,6 +5044,8 @@ def phase12b_main() -> int:
                     f"between device syncs); launches {counts}")
             del eng
             dist.barrier()
+        for k, v in phase13c(meshes, rank, say, model, params).items():
+            total[k] += v
         # both ranks' counts, summed on the host over gloo, printed once
         names = sorted(total)
         both = torch.tensor([total[k] for k in names], dtype=torch.int64)
@@ -5023,6 +5058,605 @@ def phase12b_main() -> int:
         print(PHASE12B_COUNTS + json.dumps(total), flush=True)
     mesh_lib.destroy()
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the step builders (launch/steps.py) on the card and over a mesh
+# ---------------------------------------------------------------------------
+
+# the phase's target, seconds (13a + 13b + 13c), stated before its first
+# run on the card
+PHASE13_BUDGET_S = 60.0
+# qwen2-0.5b's depth in the two-rank train step (two f32 copies and a
+# one-rank reference on one card, and gloo moves every gradient through
+# the host)
+PHASE13C_LAYERS = 4
+# the checkpoint phase 11b keeps for phase 13c's elastic restore
+TRAIN_CKPT, TRAIN_CKPT_STEP = SERVE_DIR / "train_ckpt" / "b", 15
+# a sub-phase run in another process prints its seconds on a line that
+# starts so; the main process gathers them into PHASE13_S
+PHASE13_SECONDS = "phase 13 seconds "
+PHASE13_S = {}
+
+
+def note_phase13(line: str) -> bool:
+    """Whether ``line`` is a sub-phase's seconds (then kept in
+    PHASE13_S)."""
+    if line.startswith(PHASE13_SECONDS):
+        PHASE13_S.update(json.loads(line[len(PHASE13_SECONDS):]))
+        return True
+    return False
+
+
+@contextlib.contextmanager
+def all_plain():
+    """Check-only switch: every kernel wrapper of a tick runs its plain
+    PyTorch version on the card (attention, BAOS, Stable-Max, top-k)."""
+    from repro_torch.kernels import baos_mx_quant as bmq
+    from repro_torch.kernels import flash_bidir as fb
+    from repro_torch.kernels import stablemax_sampling as sms
+    from repro_torch.kernels import topk_mask as tk
+
+    def baos(x, center, scale, fmt="mxint4", out=None):
+        y = bmq.baos_mx_quant_plain(x, center, scale, fmt)
+        return y if out is None else out.copy_(y)
+
+    def stablemax(logits, *, fmt="none", suppress_id=None, temperature=0.0,
+                  seed=0):
+        return sms.stable_max_plain(logits, fmt, temperature=temperature,
+                                    seed=seed, suppress_id=suppress_id)
+
+    swaps = ((fb, "flash_bidir", fb.flash_bidir_plain),
+             (bmq, "baos_mx_quant", baos),
+             (sms, "stablemax_sampling", stablemax),
+             (tk, "topk_mask", tk.topk_mask_plain))
+    saved = [getattr(m, n) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for (m, n, _), f in zip(swaps, saved):
+            setattr(m, n, f)
+
+
+def clone_tree(tree):
+    from repro_torch import tree as tree_lib
+    return tree_lib.tree_map(lambda t: t.detach().clone()
+                             if isinstance(t, torch.Tensor) else t, tree)
+
+
+def train_batch(cfg):
+    """JAX's train.py defaults, B 8 x S 128: batch 0 of the corpus."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                        global_batch=8, seed=0))
+    return torch.from_numpy(corpus.batch(0)).to(DEVICE, torch.int32)
+
+
+def check_steps_train() -> dict:
+    """Phase 13a, in phase 11's process: qwen2-0.5b at full width and
+    depth, B 8 x S 128, bf16.  ``build_step(train)`` equals
+    ``launch/train.make_train_step`` on the same draw bit for bit (the
+    loss and every updated parameter); with ``loss_chunk=64`` the loss is
+    within 1e-6 relative; the same step on a (1, 1) NCCL mesh equals no
+    mesh bit for bit; ``compressed_psum`` over that mesh's data axis on
+    the step's full gradients (the second call, whose error state is the
+    first's residual): each leaf dequant(quant(g + e)) and the error (g +
+    e) - that, bit for bit, and its time.  Each step launches
+    flash_bidir and flash_bidir_bwd once a layer.  Returns the launch
+    counts."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import base
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, train
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw, compress
+    t_phase = time.perf_counter()
+    cfg = base.get_config(TRAIN_ARCH)
+    model = build_model(cfg, DEVICE)
+    tokens = train_batch(cfg)
+    opt = train.opt_config(TRAIN_ARCH, 20, 3e-4)
+    shape = base.ShapeConfig("train", 128, 8, "train")
+    params0 = model.init(seed=0)
+    mesh = mesh_lib.make_debug_mesh(1, 1, DEVICE)
+    require(mesh.backend == "nccl", f"{mesh} does not run NCCL")
+    counts = {name: 0 for name in _build.COUNTED}
+    runs = {}
+    for name in ("make_train_step", "build_step", "build_step, mesh (1, 1)"):
+        params = clone_tree(params0)
+        state = adamw.init_state(params)
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "make_train_step":
+            met = train.make_train_step(model, opt, 0)(params, state, tokens,
+                                                       0)
+        else:
+            step, _ = steps.build_step(
+                model, shape, opt_cfg=opt,
+                mesh=mesh if "mesh" in name else None)
+            _, _, met = step(params, state, tokens, 0, {})
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = dict(_build.launch_counts)
+        want = {k: 0 for k in c}
+        want.update(flash_bidir=cfg.n_layers, flash_bidir_bwd=cfg.n_layers)
+        require(c == want, f"phase 13a {name}: launches {c}, want {want}")
+        for k, n in c.items():
+            counts[k] += n
+        runs[name] = (float(met["loss"]), params, dt)
+        del state
+    ref_loss, ref_params, _ = runs["make_train_step"]
+    for name in ("build_step", "build_step, mesh (1, 1)"):
+        loss, p, dt = runs[name]
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves(p), tree_lib.leaves(ref_params)))
+        log(f"phase 13a: {name} train step of {TRAIN_ARCH} (B 8 x S 128): "
+            f"loss {loss:.7f} against make_train_step's {ref_loss:.7f}, "
+            f"every updated parameter equal: {same}; {dt * 1e3:.1f} ms "
+            f"(the first call of its kind)")
+        require(loss == ref_loss and same,
+                f"phase 13a: {name} differs from make_train_step")
+    del runs, ref_params, p
+    free()
+    met, grads = steps.build_grad_fn(model)(params0, tokens, 0, {})
+    met_c, _ = steps.build_grad_fn(model, policy=steps.ServePolicy(
+        loss_chunk=64))(params0, tokens, 0, {})
+    rel = abs(float(met_c["loss"]) - float(met["loss"])) / abs(
+        float(met["loss"]))
+    log(f"phase 13a: loss_chunk=64 loss {float(met_c['loss']):.7f}, "
+        f"unchunked {float(met['loss']):.7f}, relative difference "
+        f"{rel:.3g} (bound 1e-6)")
+    require(rel <= 1e-6, f"phase 13a: the chunked loss differs by {rel:.3g}")
+    _build.reset_launch_counts()
+    grads = tree_lib.unflatten(params0, [g.detach() for g in grads])
+    axis = mesh.axis("data")
+    _, err = compress.compressed_psum(grads, axis,
+                                      compress.init_error(params0))
+    red, new_err = compress.compressed_psum(grads, axis, err)
+    worst = 0
+    for g, e, r, ne in zip(tree_lib.leaves(grads), tree_lib.leaves(err),
+                           tree_lib.leaves(red), tree_lib.leaves(new_err)):
+        gf = g.float() + e
+        q, sc = compress._quant_int8(gf)
+        deq = compress._dequant_int8(q, sc, gf.shape)
+        require(torch.equal(r, deq) and torch.equal(ne, gf - deq),
+                "phase 13a: compressed_psum over (1, 1) is not "
+                "dequant(quant(g + e)) with the residual as its error")
+        worst = max(worst, float((gf - deq).abs().max() / sc.max()))
+    n = sum(g.numel() for g in tree_lib.leaves(grads))
+    ms = time_ms(lambda: compress.compressed_psum(grads, axis, err), 3)
+    log(f"phase 13a: compressed_psum over {mesh}'s data axis on the step's "
+        f"{len(tree_lib.leaves(grads))} gradient leaves ({n / 1e6:.1f} M "
+        f"values): each leaf dequant(quant(g + e)), the error the residual, "
+        f"bit for bit; largest |residual| / scale {worst:.3f} (at most "
+        f"0.5); {ms:.2f} ms a call (CUDA events, one NCCL all_reduce of "
+        f"{n * 4 / 2 ** 20:.0f} MiB)")
+    mesh_lib.destroy()
+    del params0, grads, red, new_err, err
+    free()
+    dt = time.perf_counter() - t_phase
+    log(f"phase 13a: {dt:.1f} s")
+    print(PHASE13_SECONDS + json.dumps({"13a": dt}), flush=True)
+    return counts
+
+
+def step_near_ties(z, err, before, got, want, k, mid) -> list:
+    """Where a decode step's block ``got`` differs from the plain run's
+    ``want`` (both (B, L), from the block ``before``): each position must
+    be a near-tie of the plain run's quantized f32 logits ``z`` (B, L, V),
+    given ``err`` (B,), each row's largest difference between the two
+    runs' logits (their forwards differ: attention's kernel against its
+    plain version, 32 bf16 layers deep): two committed tokens whose
+    logits lie within 2 err + 1e-2 of the row's largest logit of each
+    other, or a position committed by one run and not the other whose
+    confidence lies within 2 (e^(2 err) - 1) + 1e-2 relative of the
+    row's k-th (a confidence moves by at most e^(2 err) - 1 relative when
+    every logit moves by err).  Returns [(row, position, kind)]."""
+    conf = 1.0 / torch.exp(z - z.amax(-1, keepdim=True)).sum(-1)
+    out = []
+    for i, l in torch.nonzero(got != want).tolist():
+        a, b = int(want[i, l]), int(got[i, l])
+        e = float(err[i])
+        if a != mid and b != mid:
+            zmax = float(z[i, l].max())
+            ok = abs(float(z[i, l, a] - z[i, l, b])) <= 2 * e + 1e-2 * abs(
+                zmax)
+            kind = "token"
+        else:
+            masked = before[i] == mid
+            kth = float(conf[i][masked].sort(descending=True).values[
+                int(k[i]) - 1])
+            ok = abs(float(conf[i, l]) - kth) <= (
+                2 * math.expm1(2 * e) + 1e-2) * kth
+            kind = "transfer"
+        require(ok, f"decode step: row {i} position {l} differs off a "
+                    f"near-tie ({kind})")
+        out.append((i, l, kind))
+    return out
+
+
+def phase_steps_serve(model, params, gen) -> dict:
+    """Phase 13b, beside phase 12c: llada-8b at full width and depth,
+    ``build_step(prefill)`` then ``build_step(decode)`` at Table 6's
+    shape (B 16, s_tot 384, block 64 at 128) under ``ServePolicy()``
+    (dual, BAOS mxint4, sampling mxfp8) and ``ServePolicy(split_cache=
+    True)``.  The decode step's canvas equals ``diffusion.refine_step`` +
+    ``sampling.sampling_step`` on the same prefilled cache with every
+    kernel replaced by its plain version, tokens equal off recorded
+    near-ties; exact launches a step (prefill: flash_bidir once and
+    baos_mx_quant twice a layer, K and V; decode: flash_bidir once and
+    baos_mx_quant twice a layer, or with the split cache route B once a
+    layer, then one stablemax_sampling and one topk_mask), no plain
+    version; ms a step.  Against the plain sampling stage on the step's
+    own logits the canvas is equal off 1e-2 near-ties; against the whole
+    plain refine the near-tie rule (``step_near_ties``) widens by the two
+    forwards' measured difference of the quantized logits, and their raw
+    logits must lie within 5% of the largest (JAX's split-cache bound,
+    phase 12c).  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.configs import base
+    from repro_torch.core import diffusion, sampling
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    nl, mid = cfg.n_layers, cfg.mask_id
+    B, P, G, L = (TABLE6[k] for k in ("B", "prompt", "gen", "block"))
+    S = P + G
+    prompt = torch.randint(0, cfg.vocab - 200, (B, P), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    x = torch.cat([prompt, torch.full((B, G), mid, device=DEVICE,
+                                      dtype=torch.int32)], 1)
+    total = {name: 0 for name in _build.COUNTED}
+    for split in (False, True):
+        policy = steps.ServePolicy(split_cache=split)
+        dcfg = steps.make_dcfg(cfg, base.ShapeConfig(
+            "decode", S, B, "decode", block_length=L), policy)
+        k = torch.full((B,), L // policy.steps_per_block, device=DEVICE,
+                       dtype=torch.int32)
+        pre, _ = steps.build_step(model, base.ShapeConfig(
+            "prefill", S, B, "prefill", block_length=L), policy)
+        dec, _ = steps.build_step(model, base.ShapeConfig(
+            "decode", S, B, "decode", block_length=L), policy)
+        what = f"phase 13b: {'split' if split else 'unified'} cache"
+        cache = model.init_cache(B, S, L if split else None)
+        want_pre = {n: 0 for n in _build.COUNTED}
+        want_pre.update(flash_bidir=nl, baos_mx_quant=2 * nl)
+        want_dec = {n: 0 for n in _build.COUNTED}
+        want_dec.update(stablemax_sampling=1, topk_mask=1)
+        want_dec.update({"flash_bidir_split": nl} if split else
+                        {"flash_bidir": nl, "baos_mx_quant": 2 * nl})
+        with no_plain():
+            _build.reset_launch_counts()
+            logits, cache = pre(params, x, cache, P, {})
+            c = dict(_build.launch_counts)
+            require(c == want_pre, f"{what} prefill launches {c}")
+            ref_cache, ker_cache = clone_tree(cache), clone_tree(cache)
+            _build.reset_launch_counts()
+            x1, cache = dec(params, x, cache, P, k, 0, {})
+            c2 = dict(_build.launch_counts)
+            require(c2 == want_dec, f"{what} decode launches {c2}")
+            # the decode step's own logits, for the near-tie rule
+            lk, _ = diffusion.refine_step(model, params, x, ker_cache, P,
+                                          dcfg)
+        for counts in (c, c2):
+            for n, v in counts.items():
+                total[n] += v
+        blk = x[:, P:P + L]
+        seed = diffusion.tick_seed(0, 0)
+        with all_plain():
+            # the sampling stage on the decode step's own logits, then the
+            # whole refine + sampling with every kernel plain
+            xs, _ = sampling.sampling_step(lk, blk, mid, k, dcfg.sampling,
+                                           seed)
+            lg, _ = diffusion.refine_step(model, params, x, ref_cache, P,
+                                          dcfg)
+            xa, _ = sampling.sampling_step(lg, blk, mid, k, dcfg.sampling,
+                                           seed)
+        require(torch.equal(x1[:, :P], x[:, :P]) and
+                torch.equal(x1[:, P + L:], x[:, P + L:]),
+                f"{what}: the decode step wrote outside the block")
+        raw = float((lk.float() - lg.float()).abs().max())
+        top = float(lg.float().abs().max())
+        require(raw <= 0.05 * top,
+                f"{what}: the kernels' refine logits lie {raw} from plain's "
+                f"(5% of the largest logit {top})")
+        fmt = dcfg.sampling.fmt
+        z = quantized_f32(lg.float().reshape(B * L, -1), fmt,
+                          mid).view(B, L, -1)
+        zk = quantized_f32(lk.float().reshape(B * L, -1), fmt,
+                           mid).view(B, L, -1)
+        live = z > sampling.NEG_INF
+        err = torch.where(live, (zk - z).abs(), 0.0).amax((1, 2))
+        own = step_near_ties(zk, torch.zeros_like(err), blk, x1[:, P:P + L],
+                             xs, k, mid)
+        ties = step_near_ties(z, err, blk, x1[:, P:P + L], xa, k, mid)
+        del lg, lk, z, zk, live, ref_cache, ker_cache
+        n_commit = int((x1[:, P:P + L] != mid).sum())
+        require(n_commit == B * int(k[0]), f"{what}: {n_commit} tokens "
+                                           f"committed, want {B * int(k[0])}")
+        walls = {}
+        for name, fn in (("prefill", lambda: pre(params, x, cache, P, {})),
+                         ("decode", lambda: dec(params, x, cache, P, k, 0,
+                                                {}))):
+            ts = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            walls[name] = float(np.median(ts))
+        log(f"{what} (B {B}, s_tot {S}, block {L} at {P}, dual + BAOS "
+            f"mxint4, mxfp8): prefill launches {c}, decode launches {c2}, "
+            f"no plain version; the canvas equal to the plain sampling "
+            f"stage's on the step's own logits"
+            + (f" but at {len(own)} near-ties {own}" if own else "")
+            + f"; the refine's logits within {raw:.4g} of plain's "
+            f"({raw / top:.2%} of the largest, {top:.4g}; bound 5%), "
+            f"{float(err.max()):.4g} after the {fmt} quantization; the "
+            f"canvas equal to refine_step + sampling_step with every kernel "
+            f"plain" + (f" but at {len(ties)} recorded near-ties of that "
+                        f"difference {ties}" if ties else "")
+            + f"; {B * int(k[0])} tokens committed; step wall median of 3: "
+            f"prefill {walls['prefill']:.2f} ms, decode "
+            f"{walls['decode']:.2f} ms")
+        del cache, logits, x1
+    free()
+    PHASE13_S["13b"] = time.perf_counter() - t_phase
+    log(f"phase 13b: {PHASE13_S['13b']:.1f} s")
+    return total
+
+
+def phase13c(meshes, rank: int, say, model, params) -> dict:
+    """Phase 13c, in phase 12b's two-rank job (gloo, two ranks sharing the
+    card): (i) mesh (1, 2) refuses the three step kinds; (ii) qwen2-0.5b
+    in f32 at PHASE13C_LAYERS layers (``cut_depth``), B 8 x S 128: the
+    train step on mesh (2, 1) against one rank on the same global batch,
+    the loss within 1e-5 relative, every gradient leaf within 1e-5 of its
+    largest value, every parameter within 2 x lr + 1e-6 (PERF.md), both
+    ranks holding the same parameters; (iii) llada-8b (phase 12b's model,
+    8 layers) prefill + decode at Table 6's shape on (2, 1): the gathered
+    canvas and cache equal to one rank's bit for bit; (iv)
+    ``compressed_psum`` over the two ranks of each rank's own gradients:
+    within each block's int8 half-step of the plain mean; (v) the elastic
+    restore of phase 11's qwen2-0.5b checkpoint under (1, 2) and (2, 1)
+    placements: each rank's shard equals the slice of the full leaf, bit
+    for bit; bytes read per rank and ms.  Returns this rank's launch
+    counts."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import checkpointing
+    from repro_torch.configs import base
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as launch_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw, compress
+    t_phase = time.perf_counter()
+    wide, mesh = meshes
+    data = mesh.axis("data")
+    counts = {n: 0 for n in _build.COUNTED}
+    # (i) |model| > 1 refuses every kind
+    for kind in ("train", "prefill", "decode"):
+        try:
+            steps.build_step(model, base.ShapeConfig(kind, 384, 16, kind,
+                                                     block_length=64),
+                             mesh=wide)
+            raise Failure(f"phase 13c: a {kind} step on {wide} did not "
+                          f"raise")
+        except NotImplementedError:
+            pass
+    say(f"phase 13c: {wide}: build_step raises NotImplementedError for "
+        f"train, prefill and decode (|model| > 1)")
+
+    # (iii) llada-8b prefill + decode on (2, 1) against one rank
+    cfg = model.cfg
+    B, P, G, L = (TABLE6[k] for k in ("B", "prompt", "gen", "block"))
+    S = P + G
+    gen = torch.Generator(device=mesh.device).manual_seed(13)
+    x = torch.cat([torch.randint(0, cfg.vocab - 200, (B, P), generator=gen,
+                                 device=mesh.device, dtype=torch.int32),
+                   torch.full((B, G), cfg.mask_id, device=mesh.device,
+                              dtype=torch.int32)], 1)
+    k = torch.full((B,), 8, device=mesh.device, dtype=torch.int32)
+    policy = steps.ServePolicy()
+    pre_s = base.ShapeConfig("prefill", S, B, "prefill", block_length=L)
+    dec_s = base.ShapeConfig("decode", S, B, "decode", block_length=L)
+    r0, r1 = mesh.rows(B)
+    res = {}
+    # each rank runs the one-rank step too and holds its own rows to it
+    for name, m in (("one rank", None), ("mesh (2, 1)", mesh)):
+        inp = {"x": x, "k": k, "cache": model.init_cache(B, S)}
+        if m is not None:
+            inp = {"x": x[r0:r1], "k": k[r0:r1],
+                   "cache": model.init_cache(r1 - r0, S)}
+        pre, _ = steps.build_step(model, pre_s, policy, mesh=m)
+        dec, _ = steps.build_step(model, dec_s, policy, mesh=m)
+        _build.reset_launch_counts()
+        with no_plain():
+            _, cache = pre(params, inp["x"], inp["cache"], P, {})
+            x1, cache = dec(params, inp["x"], cache, P, inp["k"], 0, {})
+        if m is not None:
+            for n, v in _build.launch_counts.items():
+                counts[n] += v
+        res[name] = (x1, cache)
+    (xa, ca), (xb, cb) = res["one rank"], res["mesh (2, 1)"]
+    same = torch.tensor([int(torch.equal(xa[r0:r1], xb)), int(all(
+        torch.equal(ca[n][:, r0:r1], cb[n]) for n in ca))],
+        device=mesh.device)
+    same = mesh_lib.all_reduce(same, "min", data)
+    say(f"phase 13c: llada-8b ({cfg.n_layers} layers) prefill + decode at "
+        f"Table 6's shape on {mesh}: every rank's rows of the canvas equal "
+        f"to one rank's {bool(same[0])}, of every cache leaf "
+        f"{bool(same[1])}")
+    require(bool(same.all()),
+            "phase 13c: the (2, 1) decode step differs from one rank's")
+    del res, xa, ca, xb, cb
+    free()
+    dist.barrier()
+
+    # (ii) qwen2-0.5b f32 train step on (2, 1) against one rank
+    tcfg = base.get_config(TRAIN_ARCH)
+    if rank == 0:
+        tcfg = cut_depth(tcfg, PHASE13C_LAYERS, "for two f32 copies and a "
+                         "reference on one card and gloo's host-staged "
+                         "gradients")
+    else:
+        tcfg = dataclasses.replace(tcfg, n_layers=min(PHASE13C_LAYERS,
+                                                      tcfg.n_layers))
+    tcfg = dataclasses.replace(tcfg, dtype="float32")
+    tmodel = build_model(tcfg, mesh.device)
+    tokens = train_batch(tcfg).to(mesh.device)
+    opt = adamw.OptConfig()
+    shape = base.ShapeConfig("train", 128, 8, "train")
+    out = {}
+    for name, m in (("one rank", None), ("mesh (2, 1)", mesh)):
+        if m is None and rank != 0:
+            continue
+        p = tmodel.init(seed=0)
+        tok = tokens if m is None else tokens[slice(*m.rows(8))]
+        met, grads = steps.build_grad_fn(tmodel, mesh=m)(p, tok, 0, {})
+        step, _ = steps.build_step(tmodel, shape, opt_cfg=opt, mesh=m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, met1 = step(p, adamw.init_state(p), tok, 0, {})
+        torch.cuda.synchronize()
+        out[name] = (float(met["loss"]), grads, p, float(met1["lr"]),
+                     time.perf_counter() - t0)
+    # every rank holds the same parameters: bit-level checksums gathered
+    sums = torch.stack([t.view(torch.int32).to(torch.int64).sum()
+                        for t in tree_lib.leaves(out["mesh (2, 1)"][2])])
+    both = [torch.empty_like(sums) for _ in range(2)]
+    dist.all_gather(both, sums, group=data.group)
+    if rank == 0:
+        (l1, g1, p1, lr, t1), (l2, g2, p2, _, t2) = (
+            out["one rank"], out["mesh (2, 1)"])
+        rel = abs(l2 - l1) / abs(l1)
+        gerr = max(float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30) for a, b in zip(g2, g1))
+        diffs = [(a.detach() - b.detach()).abs() for a, b in zip(
+            tree_lib.leaves(p2), tree_lib.leaves(p1))]
+        perr = max(float(d.max()) for d in diffs)
+        moved = sum(int((d > 1e-6).sum()) for d in diffs)
+        say(f"phase 13c: {TRAIN_ARCH} f32 ({tcfg.n_layers} layers) train "
+            f"step, B 8 x S 128, on {mesh} against one rank: loss {l2:.7f} "
+            f"vs {l1:.7f} (relative {rel:.3g}, bound 1e-5); worst gradient "
+            f"leaf error / its largest value {gerr:.3g} (bound 1e-5); "
+            f"largest parameter difference {perr:.3g} (bound 2 x lr + 1e-6 "
+            f"= {2 * lr + 1e-6:.3g}), {moved} elements beyond 1e-6; both "
+            f"ranks' parameters equal: {torch.equal(both[0], both[1])}; "
+            f"step wall {t2 * 1e3:.1f} ms on the mesh, {t1 * 1e3:.1f} ms "
+            f"on one rank (first calls)")
+        require(rel <= 1e-5 and gerr <= 1e-5 and perr <= 2 * lr + 1e-6
+                and torch.equal(both[0], both[1]),
+                "phase 13c: the (2, 1) train step is off one rank's")
+
+    # (iv) compressed_psum over the two ranks of each rank's own gradients
+    p = tmodel.init(seed=0)
+    _, local = steps.build_grad_fn(tmodel)(
+        p, tokens[slice(*mesh.rows(8))], 0, {})
+    local = tree_lib.unflatten(p, [g.detach() for g in local])
+    err = compress.init_error(p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    red, _ = compress.compressed_psum(local, data, err)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ok, worst = True, 0.0
+    for g, r in zip(tree_lib.leaves(local), tree_lib.leaves(red)):
+        plain = mesh_lib.all_reduce(g.float(), "sum", data) / 2
+        _, sc = compress._quant_int8(g.float())
+        half = torch.repeat_interleave(sc[:, 0] / 2, compress.BLOCK)[
+            :g.numel()].view(g.shape)
+        half = mesh_lib.all_reduce(half, "sum", data) / 2
+        off = (r - plain).abs()
+        # the half-step, and 4 f32 ulp of the value for the sums' rounding
+        ok &= bool((off <= half + plain.abs() * 2.0 ** -21).all())
+        worst = max(worst, float((off / half.clamp(min=1e-30)).max()))
+    say(f"phase 13c: compressed_psum over {mesh}'s data axis (two ranks' "
+        f"own gradients, {sum(g.numel() for g in tree_lib.leaves(local)) / 1e6:.1f}"
+        f" M values): within each block's int8 half-step of the plain "
+        f"mean ({ok}; worst |error| / half-step {worst:.3f}); {ms:.1f} ms "
+        f"(host wall, gloo)")
+    require(ok, "phase 13c: compressed_psum beyond the int8 half-step")
+    del out, p, local, red, err, tmodel
+    free()
+    dist.barrier()
+
+    # (v) the elastic restore of phase 11's checkpoint
+    ccfg = base.get_config(TRAIN_ARCH)
+    meta_model = build_model(ccfg, "meta")
+    meta = meta_model.init()
+    manifest = json.loads((TRAIN_CKPT / f"step_{TRAIN_CKPT_STEP:08d}" /
+                           "manifest.json").read_text())
+    files = {m["key"]: m for m in manifest["leaves"]}
+    for m in (wide, mesh):
+        with sharding.use_context(m, launch_sharding.make_rules(ccfg, m)):
+            pl = launch_sharding.tree_shardings(meta_model.param_specs(),
+                                                meta, m)
+        pls = {"params": pl, "opt_state": {
+            "m": pl, "v": pl, "step": launch_sharding.replicated(m)}}
+        like = {"params": tree_lib.tree_map(
+            lambda t: torch.empty(0, dtype=t.dtype, device=m.device), meta),
+            "opt_state": {"m": tree_lib.tree_map(
+                lambda t: torch.empty(0, dtype=torch.float32,
+                                      device=m.device), meta),
+                "v": tree_lib.tree_map(
+                lambda t: torch.empty(0, dtype=torch.float32,
+                                      device=m.device), meta),
+                "step": 0}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = checkpointing.restore(TRAIN_CKPT, TRAIN_CKPT_STEP, like,
+                                       shardings=pls)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n_bytes, n_cut, same = 0, 0, True
+        flat_pl = dict(tree_lib.flatten_with_paths(pls))
+        for key, leaf in tree_lib.flatten_with_paths(got):
+            # the full leaf through a memory map: the chunk below reads
+            # only this rank's slice of it
+            arr = np.load(TRAIN_CKPT / f"step_{TRAIN_CKPT_STEP:08d}" /
+                          files[key]["file"], mmap_mode="r")
+            if not isinstance(leaf, torch.Tensor):
+                same &= leaf == int(arr)
+                continue
+            n_bytes += leaf.numel() * leaf.element_size()
+            full = torch.from_numpy(arr.view(np.int16) if files[key][
+                "dtype"] == "bfloat16" else arr)    # shares the map
+            want = full
+            for dim, ax in enumerate(flat_pl[key].spec):
+                if ax is not None:
+                    want = want.chunk(m.shape[ax], dim)[m.axis(ax).index]
+            n_cut += want.numel() < full.numel()
+            got_bits = (leaf.view(torch.int16) if leaf.dtype ==
+                        torch.bfloat16 else leaf)
+            same &= torch.equal(got_bits.cpu(), want)
+        say(f"phase 13c: elastic restore of {TRAIN_ARCH}'s step-"
+            f"{TRAIN_CKPT_STEP} checkpoint onto {m} (rank {rank}): "
+            f"{len(files)} leaves, {n_cut} cut to this rank's shard, each "
+            f"equal to the slice of the full leaf: {same}; "
+            f"{n_bytes / 2 ** 30:.3f} GiB read on this rank in {ms:.0f} ms")
+        require(same, f"phase 13c: the restore onto {m} differs from the "
+                      f"full leaves' slices on rank {rank}")
+        del got
+        free()
+    dist.barrier()
+    if rank == 0:
+        import shutil
+        shutil.rmtree(TRAIN_CKPT.parent, ignore_errors=True)
+    dt = time.perf_counter() - t_phase
+    say(f"phase 13c: {dt:.1f} s")
+    if rank == 0:
+        print(PHASE13_SECONDS + json.dumps({"13c": dt}), flush=True)
+    return counts
 
 
 def _flat(tree):
@@ -5165,14 +5799,11 @@ def main() -> int:
             for name, n in counts.items():
                 launches[name] += n
         t12 = time.perf_counter() - t12
+        for name, n in phase_steps_serve(model, params, gen).items():
+            launches[name] += n
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        for name, n in phase_mesh_ranks().items():
-            launches[name] += n
-        t12 += time.perf_counter() - t0
-        log(f"phase 12: {t12:.1f} s (budget {PHASE12_BUDGET_S} s)")
         for name, n in phase_configs(gen).items():
             launches[name] += n
         t0 = time.perf_counter()
@@ -5192,6 +5823,19 @@ def main() -> int:
         for name, n in phase_train_process().items():
             launches[name] += n
         log(f"phase 11 (its own process): {time.perf_counter() - t0:.1f} s")
+        # phase 12b's two-rank job, after phase 11: its phase 13c restores
+        # the checkpoint phase 11 keeps
+        t0 = time.perf_counter()
+        for name, n in phase_mesh_ranks().items():
+            launches[name] += n
+        t12 += time.perf_counter() - t0 - PHASE13_S.get("13c", 0.0)
+        log(f"phase 12: {t12:.1f} s (budget {PHASE12_BUDGET_S} s)")
+        t13 = sum(PHASE13_S.values())
+        log(f"phase 13: {t13:.1f} s ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in sorted(PHASE13_S.items()))
+            + f") against its budget of {PHASE13_BUDGET_S:.0f} s")
+        require(sorted(PHASE13_S) == ["13a", "13b", "13c"],
+                f"phase 13 ran only {sorted(PHASE13_S)}")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -9,8 +9,10 @@ by their paths as JAX keys its pytrees, so a checkpoint of f32 leaves that
 JAX's ``save`` wrote restores here, and the other way round.  numpy has
 no bfloat16 without ``ml_dtypes``: a bf16 leaf is stored as its raw bits,
 uint16, with dtype "bfloat16" in the manifest, and restored bit for bit.
-Restoring onto another mesh (JAX's ``shardings=``) waits for the mesh
-(ROADMAP.md, Queue 1 item 12).
+
+``restore(..., shardings=)`` is the elastic restore: a checkpoint saved
+whole restores onto any mesh, each rank reading only its shard of each
+leaf (``sharding.Placement`` per leaf, launch/sharding.tree_shardings).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch import tree as tree_lib
 
 BF16 = "bfloat16"
@@ -114,17 +117,33 @@ def _from_numpy(arr: np.ndarray, dtype: str, like):
     return int(t)
 
 
-def restore(ckpt_dir, step: int, like: Any) -> Tuple[Any, Dict]:
+def restore(ckpt_dir, step: int, like: Any,
+            shardings: Any = None) -> Tuple[Any, Dict]:
     """A new tree of ``like``'s structure, each leaf read from the
     checkpoint by its path key, in the leaf's dtype on its device; and the
-    checkpoint's ``extra``."""
+    checkpoint's ``extra``.
+
+    ``shardings``, a tree of ``sharding.Placement`` of ``like``'s
+    structure (JAX's elastic restore onto a possibly different mesh):
+    each leaf is this rank's shard of the stored full leaf
+    (``sharding.local_shard``), read through a memory map so the rank
+    copies only its slice out of the file; ``like``'s leaves give the
+    dtype and device, their shapes may be the full or the shard's."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     by_key = {m["key"]: m for m in manifest["leaves"]}
 
-    def load(key, ref):
+    def load(key, ref, placement=None):
         m = by_key[key]
-        return _from_numpy(np.load(d / m["file"]), m["dtype"], ref)
+        if placement is None:
+            return _from_numpy(np.load(d / m["file"]), m["dtype"], ref)
+        arr = np.load(d / m["file"], mmap_mode="r")
+        return _from_numpy(sharding.local_shard(arr, placement),
+                           m["dtype"], ref)
 
-    return tree_lib.tree_map(load, tree_lib.path_tree(like), like), \
-        manifest["extra"]
+    paths = tree_lib.path_tree(like)
+    if shardings is None:
+        out = tree_lib.tree_map(load, paths, like)
+    else:
+        out = tree_lib.tree_map(load, paths, like, shardings)
+    return out, manifest["extra"]

@@ -1456,7 +1456,8 @@ def masked_diffusion_loss(model, params, tokens: torch.Tensor,
                           quant=None, aux_weight: float = 0.0,
                           valid: Optional[torch.Tensor] = None,
                           loss_chunk: Optional[int] = None,
-                          draw: Optional[Tuple] = None, **fwd_kw):
+                          draw: Optional[Tuple] = None, axis=None,
+                          **fwd_kw):
     """LLaDA objective: E_t E_mask [ 1/t * sum_masked CE ] / (B * S), the
     f32 function of JAX's ``masked_diffusion_loss``.  The mask comes from
     ``forward_mask(gen, ...)`` or, given ``draw``, is that
@@ -1464,6 +1465,11 @@ def masked_diffusion_loss(model, params, tokens: torch.Tensor,
     load-balance aux summed over the layers.  ``valid`` (B, S) weights
     each position's CE; ``loss_chunk`` takes the CE over sequence chunks,
     the f32 copy of the (B, S, V) logits never whole (when S divides).
+    ``axis``, a launch/mesh ``Axis`` whose ranks each hold B rows of one
+    global batch (a data mesh): the loss divides by the global
+    B * axis.size * S, so the sum of the ranks' gradients is the global
+    batch's, and the metrics come from sums over the axis (the MoE aux,
+    not linear in the batch, is the caller's to refuse).
     -> (loss, metrics: loss, ce_masked, mask_frac, aux, detached)."""
     cfg = model.cfg
     noisy, mask, t = draw if draw is not None else forward_mask(
@@ -1491,9 +1497,19 @@ def masked_diffusion_loss(model, params, tokens: torch.Tensor,
     w = maskf / t
     if valid is not None:
         w = w * valid.to(torch.float32)
-    loss = torch.sum(ce * w) / (B * S)
+    n = 1 if axis is None else axis.size
+    loss = torch.sum(ce * w) / (B * n * S)
     if aux_weight:
         loss = loss + aux_weight * aux
+    if axis is not None:
+        from repro_torch.launch import mesh as mesh_lib
+        sums = mesh_lib.all_reduce(torch.stack(
+            [loss.detach(), torch.sum(ce.detach() * maskf),
+             torch.sum(maskf)]), "sum", axis)
+        metrics = {"loss": sums[0],
+                   "ce_masked": sums[1] / torch.clamp(sums[2], min=1.0),
+                   "mask_frac": sums[2] / (B * n * S), "aux": aux}
+        return loss, {k: v.detach() for k, v in metrics.items()}
     metrics = {"loss": loss,
                "ce_masked": torch.sum(ce * maskf) / torch.clamp(
                    torch.sum(maskf), min=1.0),

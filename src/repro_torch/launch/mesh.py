@@ -29,6 +29,10 @@ in this process.  A larger mesh runs one process per rank under
 environment ``init_process_group`` reads; a test spawns its ranks itself
 and initializes the group before it asks for a mesh.
 
+``make_production_mesh`` gives JAX's production meshes, (16, 16) and
+(2, 16, 16) with a ``pod`` axis, as ``MeshShape``s: axis names and sizes
+that the sharding rules read (launch/sharding.py), with no ranks.
+
 ``Axis`` is what a collective names: the port's counterpart of JAX's
 ``axis_name`` inside ``shard_map`` (this rank's index along the axis, the
 axis size and its process group).  An axis with no group describes a
@@ -110,6 +114,34 @@ class Mesh:
         return (f"Mesh(data={self.shape['data']}, model="
                 f"{self.shape['model']}, rank={self.rank}, "
                 f"backend={self.backend}, device={self.device})")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes with no ranks and no process group:
+    the logical sharding rules read it (sharding.spec_for,
+    launch/sharding.make_rules); no collective runs on it."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """JAX's production meshes as shapes: one pod (data=16, model=16) = 256
+    chips; multi-pod adds a leading ``pod`` axis, (pod=2, data=16,
+    model=16) = 512 chips."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def data_axes(mesh) -> tuple:
+    """The axes the batch shards over: ``pod`` and ``data``, those the mesh
+    has."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
 def shape_mesh(data: int = 1, model: int = 1) -> Mesh:

@@ -22,7 +22,7 @@ import argparse
 import statistics
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -67,23 +67,38 @@ def opt_config(arch: str, steps: int, lr: float) -> adamw.OptConfig:
         decay_steps=max(1, steps // 3))
 
 
+def loss_and_grads(model, params, tokens, gen=None,
+                   fwd_kw_of: Optional[Callable[[Dict], Dict]] = None,
+                   **loss_kw) -> Tuple[Dict, List[torch.Tensor]]:
+    """The masked-diffusion loss and every parameter's gradient
+    (torch.autograd.grad; zeros for a leaf the loss does not reach), the
+    gradients in ``tree.leaves(params)`` order.  ``fwd_kw_of(params)``
+    gives forward kwargs computed under autograd (the audio family's
+    encoder); ``loss_kw`` go to ``masked_diffusion_loss``.
+    -> (metrics, grads)."""
+    leaves = tree_lib.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    fwd_kw = fwd_kw_of(params) if fwd_kw_of is not None else {}
+    loss, metrics = diffusion.masked_diffusion_loss(
+        model, params, tokens, gen, **loss_kw, **fwd_kw)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return metrics, [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+
+
 def make_train_step(model, opt_cfg: adamw.OptConfig, seed: int):
     """step(params, opt_state, tokens, step) -> metrics: the loss and
-    every parameter's gradient (torch.autograd.grad), then AdamW in
+    every parameter's gradient (``loss_and_grads``), then AdamW in
     place.  The MoE family adds its aux loss at weight 0.01, as JAX's
-    driver does."""
+    driver does.  launch/steps.build_train_step is the same step with
+    JAX's step-builder inputs and an optional data mesh."""
     aux_weight = 0.01 if model.cfg.moe is not None else 0.0
 
     def train_step(params, opt_state, tokens, step: int) -> Dict:
-        leaves = tree_lib.leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
         gen = diffusion.step_generator(seed, step, tokens.device)
-        loss, metrics = diffusion.masked_diffusion_loss(
-            model, params, tokens, gen, aux_weight=aux_weight)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
+        metrics, grads = loss_and_grads(model, params, tokens, gen,
+                                        aux_weight=aux_weight)
         _, _, stats = adamw.apply_updates(params, grads, opt_state, opt_cfg)
         return {**metrics, **stats}
 

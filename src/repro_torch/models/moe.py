@@ -78,6 +78,20 @@ def init_moe_params(gen: torch.Generator, d_model: int, cfg: MoEConfig,
     return p
 
 
+def moe_param_specs(cfg: MoEConfig) -> Dict:
+    """The logical axes of ``init_moe_params``'s tree, JAX's
+    ``moe_param_specs``."""
+    p = {"router": ("embed", None),
+         "w_gate": ("experts", "embed", "mlp"),
+         "w_up": ("experts", "embed", "mlp"),
+         "w_down": ("experts", "mlp", "embed")}
+    if cfg.num_shared_experts > 0:
+        p["shared"] = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                       "w_down": ("mlp", "embed"),
+                       "gate_proj": ("embed", None)}
+    return p
+
+
 def capacity(tokens: int, cfg: MoEConfig) -> int:
     """Per-expert capacity C of a group of ``tokens`` tokens, JAX's rule."""
     return max(1, int(-(-tokens * cfg.top_k // cfg.num_experts)

@@ -217,7 +217,41 @@ class GriffinModel:
                 "lm_head": fused_head_sampling.pad_head(
                     dense(d, cfg.vocab))}
 
+    def _sub_specs(self, kind: str) -> Dict:
+        if kind == "rec":
+            t = {"w_y": ("embed", "mlp"), "w_gate": ("embed", "mlp"),
+                 "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+                 "w_a": ("mlp", None), "b_a": ("mlp",),
+                 "w_x": ("mlp", None), "b_x": ("mlp",),
+                 "lam": ("mlp",), "w_out": ("mlp", "embed")}
+        else:
+            t = {"wq": ("embed", "heads"), "wk": ("embed", "heads"),
+                 "wv": ("embed", "heads"), "wo": ("heads", "embed")}
+        return {"ln1": ("embed",), "ln2": ("embed",), "temporal": t,
+                "mlp": {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                        "w_down": ("mlp", "embed")}}
+
+    def param_specs(self) -> Dict:
+        """The logical axes of ``init``'s tree, JAX's ``param_specs``."""
+        return {"embed": ("vocab", "embed"),
+                "triples": [{"rec1": self._sub_specs("rec"),
+                             "rec2": self._sub_specs("rec"),
+                             "attn": self._sub_specs("attn")}
+                            for _ in range(self.n_triples)],
+                "tail": [self._sub_specs("rec") for _ in range(2)],
+                "final_norm": ("embed",), "lm_head": ("embed", "vocab")}
+
     # -- cache ---------------------------------------------------------------
+    def cache_specs(self, act_len: Optional[int] = None) -> Dict:
+        kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        cal = ("layers", "batch", None, "kv_heads", "head_dim")
+        return {"k": kv, "v": kv, "k_center": cal, "k_scale": cal,
+                "v_center": cal, "v_scale": cal,
+                "rec_state": ("layers", None, "batch", "mlp"),
+                "rec_conv": ("layers", None, "batch", None, "mlp"),
+                "tail_state": (None, "batch", "mlp"),
+                "tail_conv": (None, "batch", None, "mlp")}
+
     def init_cache(self, batch: int, s_tot: int,
                    act_len: Optional[int] = None,
                    device: Union[str, torch.device, None] = None) -> Dict:

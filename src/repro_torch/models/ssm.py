@@ -218,6 +218,21 @@ class MambaModel:
                 "lm_head": fused_head_sampling.pad_head(
                     dense(cfg.d_model, cfg.vocab))}
 
+    def param_specs(self) -> Dict:
+        """The logical axes of ``init``'s tree, JAX's ``param_specs``
+        (``mamba_layer_specs`` per layer)."""
+        layer = {"norm": ("embed",), "in_proj": ("embed", "mlp"),
+                 "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+                 "A_log": (None,), "D": (None,), "dt_bias": (None,),
+                 "gate_norm": ("mlp",), "out_proj": ("mlp", "embed")}
+        return {"embed": ("vocab", "embed"),
+                "layers": [dict(layer) for _ in range(self.cfg.n_layers)],
+                "final_norm": ("embed",), "lm_head": ("embed", "vocab")}
+
+    def cache_specs(self, act_len: Optional[int] = None) -> Dict:
+        return {"state": ("layers", "batch", "heads", None, None),
+                "conv": ("layers", "batch", None, "mlp")}
+
     def init_cache(self, batch: int, s_tot: int,
                    act_len: Optional[int] = None,
                    device: Union[str, torch.device, None] = None) -> Dict:

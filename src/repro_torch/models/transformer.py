@@ -137,6 +137,49 @@ def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
     return lp
 
 
+def norm_specs(norm: str):
+    """A norm's logical axes, in the port's layout: RMSNorm a plain
+    tensor, LayerNorm ``{"w", "b"}``."""
+    if norm == "ln":
+        return {"w": ("embed",), "b": ("embed",)}
+    return ("embed",)
+
+
+def layer_param_specs(cfg: ModelConfig, cross_attn: bool = False) -> Dict:
+    """One layer's logical axes, key for key ``init_layer_params``'s dict
+    (JAX's ``layer_param_specs`` with attn and mlp flattened into the
+    layer, as bridge.params_from_numpy lays them out)."""
+    p = {"ln1": norm_specs(cfg.norm), "ln2": norm_specs(cfg.norm),
+         "wq": ("embed", "heads"), "wk": ("embed", "heads"),
+         "wv": ("embed", "heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        p.update(bq=("heads",), bk=("heads",), bv=("heads",))
+    if cross_attn:
+        p["ln_x"] = norm_specs(cfg.norm)
+        p["xattn"] = {"wq": ("embed", "heads"), "wk": ("embed", "heads"),
+                      "wv": ("embed", "heads"), "wo": ("heads", "embed")}
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.moe_param_specs(cfg.moe)
+    elif cfg.ffn == "swiglu":
+        p.update(w_gate=("embed", "mlp"), w_up=("embed", "mlp"),
+                 w_down=("mlp", "embed"))
+    else:
+        p.update(w_in=("embed", "mlp"), b_in=("mlp",),
+                 w_out=("mlp", "embed"), b_out=("embed",))
+    return p
+
+
+def param_specs(cfg: ModelConfig, cross_attn: bool = False) -> Dict:
+    """The logical axes of every parameter, a tree that zips with
+    ``init_params``'s: each layer's dict in the ``layers`` list (the
+    port's per-layer tensors have no ``layers`` dim)."""
+    return {"embed": ("vocab", "embed"),
+            "layers": [layer_param_specs(cfg, cross_attn)
+                       for _ in range(cfg.n_layers)],
+            "final_norm": norm_specs(cfg.norm),
+            "lm_head": ("embed", "vocab")}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Union[str, torch.device] = "cuda",
                 cross_attn: bool = False) -> Dict:
@@ -191,8 +234,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_tot: int,
 
 def cache_specs(cfg: ModelConfig, act_len: Optional[int] = None) -> Dict:
     """The logical axes of each cache leaf, JAX's ``cache_specs`` (the
-    names its sharding rules read; the port's mesh shards the batch over
-    ``data``)."""
+    names launch/sharding's rules read)."""
     kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
     cal = ("layers", "batch", None, "kv_heads", "head_dim")
     spec = {"k": kv, "v": kv, "k_center": cal, "k_scale": cal,

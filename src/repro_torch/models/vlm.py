@@ -42,6 +42,12 @@ class VLMModel:
     def init(self, seed: int = 0) -> Dict:
         return transformer.init_params(self.cfg, seed, self.device)
 
+    def param_specs(self) -> Dict:
+        return transformer.param_specs(self.cfg)
+
+    def cache_specs(self, act_len: Optional[int] = None) -> Dict:
+        return transformer.cache_specs(self.cfg, act_len)
+
     def init_cache(self, batch: int, s_tot: int,
                    act_len: Optional[int] = None,
                    device: Union[str, torch.device, None] = None) -> Dict:

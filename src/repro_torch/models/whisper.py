@@ -63,6 +63,20 @@ class WhisperModel:
                                                   dev)}
         return params
 
+    def param_specs(self) -> Dict:
+        """The decoder's logical axes (each layer with ``ln_x`` and
+        ``xattn``) plus the encoder's, JAX's ``param_specs``."""
+        spec = transformer.param_specs(self.cfg, cross_attn=True)
+        spec["encoder"] = {
+            "layers": [transformer.layer_param_specs(self.enc_cfg)
+                       for _ in range(self.enc_cfg.n_layers)],
+            "pos_embed": (None, "embed"),
+            "final_norm": transformer.norm_specs("ln")}
+        return spec
+
+    def cache_specs(self, act_len: Optional[int] = None) -> Dict:
+        return transformer.cache_specs(self.cfg, act_len)
+
     def init_cache(self, batch: int, s_tot: int,
                    act_len: Optional[int] = None,
                    device: Union[str, torch.device, None] = None) -> Dict:

@@ -9,8 +9,7 @@ parameters) and ``"step"``, a Python int.  ``apply_updates`` works in
 place: it writes the new parameters into the parameter tensors and the
 new moments into the state's tensors (under ``torch.no_grad``), and
 returns the same objects, so a train step holds one copy of each.
-(JAX's ``compress.py``, gradient compression over a mesh axis, waits for
-the mesh: ROADMAP.md, Queue 1 item 12.)
+Gradient compression over a mesh axis is optim/compress.py.
 """
 from __future__ import annotations
 

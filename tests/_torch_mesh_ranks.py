@@ -1,4 +1,5 @@
-"""Rank bodies of tests/test_torch_spmd.py.  ``spawn`` starts one process
+"""Rank bodies of tests/test_torch_spmd.py, test_torch_compress.py and
+test_torch_steps.py.  ``spawn`` starts one process
 per rank (the spawn start method), each joins a gloo group over a
 ``file://`` store in the test's tmp_path and runs one job; rank 0 pickles
 the job's result for the test.  Every process is joined with a deadline,
@@ -6,6 +7,7 @@ so a hung collective fails the test instead of running out its clock.
 Imports torch and the port only (no JAX in the ranks)."""
 from __future__ import annotations
 
+import dataclasses
 import pickle
 import time
 
@@ -120,7 +122,176 @@ def _job_serve(rank: int, world: int, data: int, model: int) -> dict:
     return serve_results(mesh_lib.make_debug_mesh(data, model, "cpu"))
 
 
-JOBS = {"combine": _job_combine, "serve": _job_serve}
+# ---------------------------------------------------------------------------
+# compressed_psum (tests/test_torch_compress.py)
+# ---------------------------------------------------------------------------
+
+COMPRESS_N = (1, 2, 4)
+COMPRESS_SHAPES = {"a": (300,), "b": (2, 256), "c": (3, 5, 7)}
+
+
+def compress_inputs(n: int):
+    """Per-rank gradient and error trees (n of each), from one numpy seed:
+    leaves of 300 (not a multiple of 256), 2 x 256 and 3 x 5 x 7."""
+    rs = np.random.RandomState(5 + n)
+    grads = [{k: (rs.randn(*s) * 3).astype(np.float32)
+              for k, s in COMPRESS_SHAPES.items()} for _ in range(n)]
+    errs = [{k: (rs.randn(*s) * 1e-2).astype(np.float32)
+             for k, s in COMPRESS_SHAPES.items()} for _ in range(n)]
+    return grads, errs
+
+
+def _job_compress(rank: int, world: int) -> dict:
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim import compress
+    groups = {n: dist.new_group(list(range(n))) for n in COMPRESS_N}
+    out = {}
+    for n in COMPRESS_N:
+        if rank >= n:
+            continue
+        grads, errs = compress_inputs(n)
+        axis = mesh_lib.Axis("pod", n, rank, groups[n])
+        red, err = compress.compressed_psum(
+            {k: torch.from_numpy(v) for k, v in grads[rank].items()}, axis,
+            {k: torch.from_numpy(v) for k, v in errs[rank].items()})
+        every = [None] * n
+        dist.all_gather_object(every, ({k: v.numpy() for k, v in red.items()},
+                                       {k: v.numpy() for k, v in err.items()}),
+                               group=groups[n])
+        out[n] = every
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the step builders over a data mesh (tests/test_torch_steps.py)
+# ---------------------------------------------------------------------------
+
+STEP_B, STEP_S, STEP_L, STEP_BS = 4, 32, 8, 16
+
+
+def step_shape(kind: str):
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig(kind, STEP_S, STEP_B, kind, block_length=STEP_L)
+
+
+def step_inputs(cfg):
+    """Tokens (train), the canvas (prefix, the block and the rest masked)
+    and k, from one numpy seed."""
+    rs = np.random.RandomState(11)
+    tokens = rs.randint(0, cfg.vocab - 2, size=(STEP_B, STEP_S))
+    x = rs.randint(0, cfg.vocab - 2, size=(STEP_B, STEP_S))
+    x[:, STEP_BS:] = cfg.mask_id
+    k = np.array([2, 3, 1, 4], np.int32)
+    return tokens.astype(np.int32), x.astype(np.int32), k
+
+
+def _gather(t: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """The data ranks' ``t`` concatenated along ``dim``."""
+    from repro_torch.launch import mesh as mesh_lib
+    return mesh_lib.all_gather_rows(t.movedim(dim, 0).contiguous(),
+                                    axis).movedim(0, dim)
+
+
+def _job_steps(rank: int, world: int) -> dict:
+    """Mesh (2, 1): the train step (f32 smoke llada-8b) and the prefill +
+    decode steps (ServePolicy(), and split_cache for decode) on each
+    rank's shards, gathered over data, beside rank 0's single-device run
+    on the full inputs; mesh (1, 2) must refuse every kind."""
+    from repro_torch import sharding, tree as tree_lib
+    from repro_torch.configs import base
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as launch_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    mesh = mesh_lib.make_debug_mesh(2, 1, "cpu")
+    wide = mesh_lib.make_debug_mesh(1, 2, "cpu")
+    data = mesh.axis("data")
+    cfg = base.get_config("llada-8b", smoke=True)
+    model = build_model(cfg, "cpu")
+    out = {}
+    moe = build_model(base.get_config("llada-moe-7b-a1b", smoke=True), "cpu")
+    hot = steps.ServePolicy(sampling=dataclasses.replace(
+        steps.ServePolicy().sampling, temperature=0.8))
+    for kind, mdl, m, policy in (
+            ("train", model, wide, None), ("prefill", model, wide, None),
+            ("decode", model, wide, None), ("moe train", moe, mesh, None),
+            ("hot decode", model, mesh, hot)):
+        try:
+            steps.build_step(mdl, step_shape(kind.split()[-1]), policy,
+                             mesh=m)
+            out["refused", kind] = None
+        except NotImplementedError as e:
+            out["refused", kind] = str(e)
+    tokens, x, k = (torch.from_numpy(a) for a in step_inputs(cfg))
+    opt = adamw.OptConfig(lr=1e-3, warmup_steps=2)
+
+    def placed(shape, policy=None):
+        specs = steps.input_specs(model, shape, policy)
+        with sharding.use_context(mesh, launch_sharding.make_rules(cfg,
+                                                                   mesh)):
+            return steps.input_shardings(model, shape, mesh, specs, policy)
+
+    # train: rank 0's single-device step, then every rank's mesh step
+    shape = step_shape("train")
+    flat = lambda tree: torch.cat([t.detach().reshape(-1)  # noqa: E731
+                                   for t in tree_lib.leaves(tree)])
+    if rank == 0:
+        params = model.init(seed=0)
+        grad_fn = steps.build_grad_fn(model)
+        met, grads = grad_fn(params, tokens, 3, {})
+        step, _ = steps.build_step(model, shape, opt_cfg=opt)
+        params, _, met1 = step(params, adamw.init_state(params), tokens, 3,
+                               {})
+        out["train", "single"] = (float(met["loss"]),
+                                  [g.numpy() for g in grads],
+                                  flat(params).numpy(), float(met1["lr"]))
+    params = model.init(seed=0)
+    full = {"params": params, "opt_state": adamw.init_state(params),
+            "tokens": tokens, "seed": 3, "extras": {}}
+    mine = steps.shard_inputs(full, placed(shape))
+    assert mine["tokens"].shape[0] == STEP_B // 2
+    met, grads = steps.build_grad_fn(model, mesh=mesh)(
+        mine["params"], mine["tokens"], 3, {})
+    step, _ = steps.build_step(model, shape, opt_cfg=opt, mesh=mesh)
+    new, _, _ = step(mine["params"], mine["opt_state"], mine["tokens"], 3,
+                     {})
+    both = _gather(flat(new)[None], 0, data)
+    out["train", "mesh"] = (float(met["loss"]), [g.numpy() for g in grads],
+                            both[0].numpy())
+    out["train", "ranks equal"] = bool(torch.equal(both[0], both[1]))
+
+    # prefill, then decode from its cache
+    for split in (False, True):
+        policy = steps.ServePolicy(split_cache=split)
+        act = STEP_L if split else None
+        pre, dec = step_shape("prefill"), step_shape("decode")
+        params = model.init(seed=0)
+        res = {}
+        for name in ("single", "mesh"):
+            m = None if name == "single" else mesh
+            fp, _ = steps.build_step(model, pre, policy, mesh=m)
+            fd, _ = steps.build_step(model, dec, policy, mesh=m)
+            inp = {"params": params, "x": x,
+                   "cache": model.init_cache(STEP_B, STEP_S, act),
+                   "block_start": STEP_BS, "k": k, "seed": 5, "extras": {}}
+            if m is not None:
+                inp = steps.shard_inputs(inp, placed(dec, policy))
+            logits, cache = fp(inp["params"], inp["x"], inp["cache"],
+                               STEP_BS, {})
+            x1, cache = fd(inp["params"], inp["x"], cache, STEP_BS,
+                           inp["k"], 5, {})
+            if m is not None:
+                logits, x1 = _gather(logits, 0, data), _gather(x1, 0, data)
+                cache = {n: _gather(t, 1, data) for n, t in cache.items()}
+            res[name] = (logits.numpy(), x1.numpy(),
+                         {n: t.numpy() for n, t in cache.items()})
+        out["serve", split] = res
+    return out
+
+
+JOBS = {"combine": _job_combine, "serve": _job_serve,
+        "compress": _job_compress, "steps": _job_steps}
 
 
 def run_rank(rank: int, world: int, store: str, job: str, out: str,

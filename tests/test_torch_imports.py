@@ -77,3 +77,14 @@ def test_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
+def test_slice_modules_are_covered():
+    """The step builders' slice (launch/steps.py and what it reads) is
+    among the modules the two checks above import and parse."""
+    mods = set(_modules())
+    for m in ("repro_torch.sharding", "repro_torch.launch.sharding",
+              "repro_torch.launch.steps", "repro_torch.optim.compress",
+              "repro_torch.checkpoint.checkpointing",
+              "repro_torch.launch.mesh"):
+        assert m in mods, m
