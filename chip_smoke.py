@@ -105,7 +105,7 @@ Phases, each fatal on failure:
                gen 256, block 64, 16 steps) in cache modes none, prefix +
                BAOS and dual + BAOS (mxint4 KV), and dual + BAOS under
                QuantPolicy (MXINT4 weights, MXINT8 activations, bf16
-               sampling; the first 16 of 32 layers, a depth cut for the
+               sampling; the first 8 of 32 layers, a depth cut for the
                script's time limit): step() eager against
                graphed (equal tokens), step wall, tokens/s, peak memory,
                graphs captured, then a second graphed generate() that
@@ -140,7 +140,7 @@ Phases, each fatal on failure:
                event log (both valid, logquery --validate exits 0), and
                with --legacy; each exits 0.
   7. moe  -- the MoE family, one model at a time after llada-8b is freed:
-               llada-moe-7b-a1b at full width, 6 of its 24 layers (a
+               llada-moe-7b-a1b at full width, 4 of its 24 layers (a
                depth cut for the script's time limit; d 2048,
                64 experts top-2, bf16, seeded random weights) through
                generate (mode none stepped, each step's sampling held
@@ -158,7 +158,7 @@ Phases, each fatal on failure:
                pairs equal, output within one bf16 ulp) and the expert
                products' device time against their byte floors; then
                qwen2-moe-a2.7b at full width and depth and
-               moonshot-v1-16b-a3b at full width, 24 of 48 layers (a depth
+               moonshot-v1-16b-a3b at full width, 12 of 48 layers (a depth
                cut for the script's time limit), through the
                engine on path warm, eager against graphed K=1, each tick's
                sampling held against plain (a model whose weights leave
@@ -167,7 +167,7 @@ Phases, each fatal on failure:
                widths, bf16: graphed equals eager); then the recurrent
                families at full width, one model at a time, on the
                legacy head (full-sequence logits, stablemax_sampling,
-               topk_mask; no fused head): recurrentgemma-2b (8 of 26
+               topk_mask; no fused head): recurrentgemma-2b (5 of 26
                layers, a depth cut for the script's time limit, d 2560,
                MQA 10 on 1 KV head of D 256, V 256000) through
                generate (mode none stepped, dual + BAOS and prefix + BAOS
@@ -175,7 +175,7 @@ Phases, each fatal on failure:
                none and warm + BAOS eager K=1, graphed K=1 and K=8 with
                phase 4's checks, the paged pool on warm graphed K=1 and
                K=8, breakdown on warm graphed and the Table 6 shape in
-               modes none, prefix + BAOS and dual + BAOS; mamba2-130m (8
+               modes none, prefix + BAOS and dual + BAOS; mamba2-130m (4
                of 24 layers, d 768, state 128, V 50280) through generate (none,
                dual, prefix with BAOS on the state) and the engine paths
                warm and none; per model the RG-LRU or SSD scan's device
@@ -187,13 +187,13 @@ Phases, each fatal on failure:
   9. audio, vlm -- the last two families, one model at a time, on the
                legacy head, in a process of its own (phase_audio_vlm;
                budget PHASE9_BUDGET_S):
-               whisper-medium at full width (24 encoder layers, 12 of 24
+               whisper-medium at full width (24 encoder layers, 6 of 24
                decoder layers, a depth cut) with the cross K/V
                of seeded frames (4, 1500, 1024) through generate (none
                stepped, dual and prefix + BAOS), the engine's warm, none
                and warm + BAOS eager and graphed K=1 (the paged pool and
                the megatick must refuse the kwargs), breakdown and the
-               serve CLI; internvl2-26b at full width (12 of its 48
+               serve CLI; internvl2-26b at full width (6 of its 48
                layers, a depth cut for the script's time limit) with
                image embeddings through generate (prompts 288, gen 64) and
                the engine text-only (warm and none, eager, K=1, K=8; paged
@@ -278,8 +278,9 @@ Phases, each fatal on failure:
                canvas equal to refine_step + sampling_step with every
                kernel plain off recorded near-ties, exact launches a step,
                no plain version, ms a step; (c) in phase 12b's two-rank
-               job, now run after phase 11: mesh (1, 2) refuses every kind,
-               qwen2-0.5b in f32 at PHASE13C_LAYERS layers (cut_depth)
+               job, now run after phase 11: llada-8b prefill + decode on
+               mesh (1, 2), the tensor-parallel body against one rank as
+               in phase 14 (``tp_serve_check``, 4 layers), qwen2-0.5b in f32 at PHASE13C_LAYERS layers (cut_depth)
                trains on (2, 1) within 1e-5 of one rank (loss relative,
                each gradient leaf against its largest value; parameters
                within 2 x lr + 1e-6), llada-8b (8 layers) prefill + decode
@@ -289,9 +290,28 @@ Phases, each fatal on failure:
                qwen2-0.5b checkpoint under (1, 2) and (2, 1) placements,
                each rank's shard equal to the full leaf's slice bit for
                bit, with bytes read and ms.
+  14. the tensor-parallel body -- models/tp.py (budget PHASE14_BUDGET_S),
+               four ranks sharing the card over gloo in a job of their own
+               (torch.distributed.run, ``phase14_main``), after phase 12b's
+               job; f32 copies of the models, the BAOS cache in format
+               none (TP_POLICY_FMT), Table 6's shape, each rank holding
+               only its shards: (a) llada-8b at PHASE14_LAYERS layers,
+               prefill + decode on (2, 2) (head-parallel cache, route A);
+               (b) qwen2-0.5b at full depth on (1, 4) (two KV heads: a
+               context-parallel cache, ``wk`` cut mid-head, q/k/v
+               gathered, route A); each against the one-rank steps on the
+               rank's rows: logits, the cache and its calibration within
+               TP_*_BOUND, the decode canvas equal off recorded near-ties,
+               every model rank's canvas equal, exact launches a step, no
+               plain version, ms a step and its collectives' ms; (c)
+               qwen2-0.5b's f32 train step at PHASE13C_LAYERS layers on
+               (2, 2) against one rank (loss 1e-5 relative, gradients 1e-5
+               of each leaf's largest, parameters 2 x lr + 1e-6).  Then the
+               dry run's llada-8b decode_32k cell at (16, 16), traced on
+               meta tensors in the main process (launch/dryrun.py).
 Every path's launch counts are zeroed just before it and read just after;
 the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 12, 13b,
-7, 8, 9, 11 (with 13a) and 12b (with 13c); the fused head's and Stable-Max's rows carry ``by_fmt``, phase
+7, 8, 9, 11 (with 13a), 12b (with 13c) and 14; the fused head's and Stable-Max's rows carry ``by_fmt``, phase
 10's kernel cases per new format.
 Prints the run's time, the kernels JSON line, the card's name and power
 limit, and last the {"ok": true, ...} line.  Exits non-zero without a
@@ -1695,13 +1715,16 @@ def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
 # QuantPolicy Table 6 run (~75 s at full depth; its other runs stay at
 # full depth), moonshot-v1-16b-a3b and llada-moe-7b-a1b in phase 7,
 # internvl2-26b and whisper-medium's decoder in phase 9, recurrentgemma-2b
-# (3 triples + the 2-layer tail) and mamba2-130m in phase 8.  With phase 11
+# (2 triples + the 2-layer tail) and mamba2-130m in phase 8.  With phase 11
 # the script took 994.8 s, then 1,229.5 s on a slower host (the host-bound
-# eager paths ran 1.2-1.9x longer), before the last four cuts.
-DEPTH_CUTS = {"llada-8b": 16, "moonshot-v1-16b-a3b": 24,
-              "internvl2-26b": 12, "llada-moe-7b-a1b": 6,
-              "whisper-medium": 12, "recurrentgemma-2b": 8,
-              "mamba2-130m": 8}
+# eager paths ran 1.2-1.9x longer), before the last four cuts.  With
+# phase 14 (four ranks, ~80 s) and 13c's tensor-parallel steps (~20 s) it
+# took 1,162.1 s, so every cut here was cut again (recurrentgemma-2b: one
+# triple + the 2-layer tail; whisper-medium's encoder keeps its 24).
+DEPTH_CUTS = {"llada-8b": 8, "moonshot-v1-16b-a3b": 12,
+              "internvl2-26b": 6, "llada-moe-7b-a1b": 4,
+              "whisper-medium": 6, "recurrentgemma-2b": 5,
+              "mamba2-130m": 4}
 
 
 def cut_depth(cfg, n_layers: int, why: str = "for the script's time limit"):
@@ -3337,7 +3360,7 @@ MOE_CONFIGS = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
 
 
 def phase_moe(gen) -> dict:
-    """7: llada-moe-7b-a1b at full width and 6 of its 24 layers (a
+    """7: llada-moe-7b-a1b at full width and 4 of its 24 layers (a
     ``DEPTH_CUTS`` cut for the script's time limit, logged; d 2048, 64
     experts top-2, bf16, seeded random weights) through generate (mode
     none stepped with each step's sampling held against plain, dual +
@@ -3567,7 +3590,7 @@ def phase_recurrent(gen, archs=RECURRENT_ARCHS) -> dict:
     at the depths of DEPTH_CUTS, one model at a time (each freed before the
     next); neither has head_mode, so every path samples on the legacy head
     (full-sequence logits, stablemax_sampling, topk_mask).
-    recurrentgemma-2b (8 of its 26 layers: 2 (rec, rec, attn) triples and
+    recurrentgemma-2b (5 of its 26 layers: one (rec, rec, attn) triple and
     2 rec, d 2560, MQA 10 on 1 KV head of
     D 256, window 2048, V 256000): generate in mode none stepped with each
     step's sampling held against plain, dual + BAOS and prefix + BAOS
@@ -3575,7 +3598,7 @@ def phase_recurrent(gen, archs=RECURRENT_ARCHS) -> dict:
     warm + BAOS eager K=1, graphed K=1 and K=8 (phase 4's checks); the
     paged pool on warm graphed K=1 and K=8; breakdown on warm graphed; the
     Table 6 shape in modes none, prefix + BAOS and dual + BAOS.
-    mamba2-130m (8 of 24 layers, d 768, state 128, V 50280): generate in modes
+    mamba2-130m (4 of 24 layers, d 768, state 128, V 50280): generate in modes
     none, dual and prefix (BAOS on the state through core/mx), the engine
     paths warm and none.  Then per model the scans' device time
     (check_recurrent_ops).  Returns the launch counts of the runs."""
@@ -5413,7 +5436,9 @@ def phase_steps_serve(model, params, gen) -> dict:
 
 def phase13c(meshes, rank: int, say, model, params) -> dict:
     """Phase 13c, in phase 12b's two-rank job (gloo, two ranks sharing the
-    card): (i) mesh (1, 2) refuses the three step kinds; (ii) qwen2-0.5b
+    card): (i) llada-8b prefill + decode on mesh (1, 2), the
+    tensor-parallel body against one rank (``tp_serve_check``); (ii)
+    qwen2-0.5b
     in f32 at PHASE13C_LAYERS layers (``cut_depth``), B 8 x S 128: the
     train step on mesh (2, 1) against one rank on the same global batch,
     the loss within 1e-5 relative, every gradient leaf within 1e-5 of its
@@ -5443,18 +5468,15 @@ def phase13c(meshes, rank: int, say, model, params) -> dict:
     wide, mesh = meshes
     data = mesh.axis("data")
     counts = {n: 0 for n in _build.COUNTED}
-    # (i) |model| > 1 refuses every kind
-    for kind in ("train", "prefill", "decode"):
-        try:
-            steps.build_step(model, base.ShapeConfig(kind, 384, 16, kind,
-                                                     block_length=64),
-                             mesh=wide)
-            raise Failure(f"phase 13c: a {kind} step on {wide} did not "
-                          f"raise")
-        except NotImplementedError:
-            pass
-    say(f"phase 13c: {wide}: build_step raises NotImplementedError for "
-        f"train, prefill and decode (|model| > 1)")
+    # (i) llada-8b prefill + decode on (1, 2): the tensor-parallel body
+    for n, v in tp_serve_check(wide, cut_depth(
+            model.cfg, PHASE14_LAYERS, "for an f32 copy beside phase 12b's "
+            "model") if rank == 0 else dataclasses.replace(
+            model.cfg, n_layers=min(PHASE14_LAYERS, model.cfg.n_layers)),
+            say, "phase 13c").items():
+        counts[n] += v
+    free()
+    dist.barrier()
 
     # (iii) llada-8b prefill + decode on (2, 1) against one rank
     cfg = model.cfg
@@ -5659,6 +5681,444 @@ def phase13c(meshes, rank: int, say, model, params) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the tensor-parallel body (models/tp.py) over |model| > 1
+# ---------------------------------------------------------------------------
+
+# the phase's target, seconds, stated before its first run on the card
+PHASE14_BUDGET_S = 60.0
+PHASE14_ARG = "--phase14"
+PHASE14_COUNTS = "phase 14 counts "
+PHASE14_SECONDS = "phase 14 seconds "
+# The tensor-parallel checks hold the sharded body to one rank on f32
+# copies of the models (as 13c's train step does) with the BAOS cache in
+# format none (smoothed, not MX-rounded).  At full width a quantized cache
+# parts the two runs chaotically: an element at a rounding edge flips one
+# grid step, attention reads it, and the next layer's calibration moves
+# (llada-8b, mxint4: in bf16 at 8 layers 11.7% of the cached elements one
+# or two steps apart, the logits 0.98% of the largest; in f32 0.12% at 8
+# layers on (1, 2), 0.25% at 4 on (2, 2); PERF.md), which hides the body
+# behind the rounding.  The CPU tests hold mxint4 to one grid step, 1 in
+# 10^3 (tests/test_torch_tp_steps.py).  Phase 14's llada-8b depth: four
+# ranks each hold an f32 copy for the one-rank reference beside their
+# shards.
+PHASE14_LAYERS = 4
+TP_POLICY_FMT = "none"
+# f32 sums in another order over up to 24 full-width layers: the prefill
+# logits within 1e-4 of the largest; the cached K/V, read back through
+# each run's own calibration (x_s * f + c: the smoothing divides by a
+# channel's range, so a narrow channel magnifies a difference), and the
+# calibration within 1e-4 of each leaf's largest value
+TP_LOGITS_BOUND, TP_KV_BOUND, TP_CALIB_BOUND = 1e-4, 1e-4, 1e-4
+
+
+def _gather_placed(t, placement, mesh):
+    """A rank's shard under ``placement`` gathered whole over ``mesh``."""
+    from repro_torch.launch import mesh as mesh_lib
+    for dim, ax in enumerate(placement.spec):
+        if ax is not None:
+            t = mesh_lib.all_gather(t, dim, mesh.axis(ax))
+    return t
+
+
+def _rows_of_data(t, placement, mesh):
+    """``t`` gathered over ``model`` only (this data rank's rows whole)."""
+    from repro_torch.launch import mesh as mesh_lib
+    for dim, ax in enumerate(placement.spec):
+        if ax == "model":
+            t = mesh_lib.all_gather(t, dim, mesh.axis("model"))
+    return t
+
+
+def tp_serve_check(mesh, cfg, say, what: str) -> dict:
+    """``build_step(prefill)`` then ``build_step(decode)`` under
+    ``ServePolicy()`` with the BAOS cache in TP_POLICY_FMT (dual, BAOS
+    smoothing, mxfp8 sampling) at Table 6's shape over ``mesh`` (|model| >
+    1), on an f32 copy of ``cfg`` (seeded; the f32 routes of the kernels):
+    each rank's parameters and cache only its shards
+    (launch/sharding.place / local_like), the tensor-parallel body,
+    against the one-rank steps on the rank's rows with every parameter:
+    the prefill's logits within TP_LOGITS_BOUND of the largest, the
+    prefilled cache's K/V (unsmoothed) within TP_KV_BOUND and its
+    calibration within TP_CALIB_BOUND of each leaf's largest value,
+    the decode canvas equal off recorded near-ties (``step_near_ties``,
+    given the two refines' logit difference), every ``model`` rank's
+    canvas equal, exact launches a step and no plain version; the steps'
+    ms and their collectives' ms (gloo between ranks sharing a card: the
+    collectives and the parity, not a speed-up).  Returns this rank's
+    launch counts of the mesh steps."""
+    import numpy as np
+    from repro_torch import sharding
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import base
+    from repro_torch.core import baos as baos_lib
+    from repro_torch.core import diffusion, mx
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as launch_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import tp as tp_lib
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg, mesh.device)
+    params = model.init(seed=0)
+    nl, mid = cfg.n_layers, cfg.mask_id
+    n_model = mesh.shape["model"]
+    B, P, G, L = (TABLE6[k] for k in ("B", "prompt", "gen", "block"))
+    S = P + G
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = torch.cat([torch.randint(0, cfg.vocab - 200, (B, P), generator=gen,
+                                 device=dev, dtype=torch.int32),
+                   torch.full((B, G), mid, device=dev, dtype=torch.int32)],
+                  1)
+    policy = steps.ServePolicy(baos=baos_lib.BAOSConfig(
+        enabled=True, kv_format=TP_POLICY_FMT))
+    k = torch.full((B,), L // policy.steps_per_block, device=dev,
+                   dtype=torch.int32)
+    pre_s = base.ShapeConfig("prefill", S, B, "prefill", block_length=L)
+    dec_s = base.ShapeConfig("decode", S, B, "decode", block_length=L)
+    dcfg = steps.make_dcfg(cfg, dec_s, policy)
+    r0, r1 = mesh.rows(B)
+    xr, kr = x[r0:r1], k[r0:r1]
+    specs = steps.input_specs(model, dec_s, policy)
+    with sharding.use_context(mesh, launch_sharding.make_rules(cfg, mesh)):
+        pls = steps.input_shardings(model, dec_s, mesh, specs, policy)
+    head_sharded = cfg.vocab % n_model == 0
+    route_a = head_sharded and (cfg.vocab // n_model) % mx.MX_BLOCK == 0
+
+    # one rank, on this rank's rows
+    pre1, _ = steps.build_step(model, pre_s, policy)
+    dec1, _ = steps.build_step(model, dec_s, policy)
+    with no_plain():
+        lg1, c1 = pre1(params, xr, model.init_cache(r1 - r0, S), P, {})
+        c1_pre = clone_tree(c1)
+        x_ref, _ = dec1(params, xr, c1, P, kr, 0, {})
+    lk1, _ = diffusion.refine_step(model, params, xr, clone_tree(c1_pre), P,
+                                   dcfg)
+    del c1
+
+    # the mesh: this rank's shards only
+    mine = launch_sharding.place(params, pls["params"])
+    meta = build_model(cfg, "meta").init_cache(B, S)
+    cache = launch_sharding.local_like(
+        meta, pls["cache"], lambda path: 1.0 if path.endswith("_scale")
+        else 0.0, device=dev)
+    own = sum(t.numel() * t.element_size() for t in
+              tree_lib.leaves(mine) + tree_lib.leaves(cache))
+    pre, _ = steps.build_step(model, pre_s, policy, mesh=mesh)
+    dec, _ = steps.build_step(model, dec_s, policy, mesh=mesh)
+    want_pre = {n: 0 for n in _build.COUNTED}
+    want_pre.update(flash_bidir=nl, baos_mx_quant=2 * nl)
+    want_dec = dict(want_pre, topk_mask=1)
+    want_dec["fused_head_sampling_shard" if route_a else
+             "fused_head_sampling" if head_sharded
+             else "stablemax_sampling"] = 1
+    total = {n: 0 for n in _build.COUNTED}
+    with no_plain():
+        _build.reset_launch_counts()
+        lg, cache = pre(mine, xr, cache, P, {})
+        c_pre = dict(_build.launch_counts)
+        require(c_pre == want_pre, f"{what}: {mesh} prefill launches "
+                                   f"{c_pre}")
+        tp_pre = clone_tree(cache)
+        _build.reset_launch_counts()
+        x1, cache = dec(mine, xr, cache, P, kr, 0, {})
+        c_dec = dict(_build.launch_counts)
+        require(c_dec == want_dec, f"{what}: {mesh} decode launches "
+                                   f"{c_dec}")
+    for c in (c_pre, c_dec):
+        for n, v in c.items():
+            total[n] += v
+    # the mesh refine's logits, gathered over model, for the near-tie rule
+    with tp_lib.use(tp_lib.Parallel(model=mesh.axis("model"),
+                                    cache_seq=tp_pre["k"].shape[2] != S)):
+        lk, _ = diffusion.refine_step(model, mine, xr, clone_tree(tp_pre),
+                                      P, dcfg)
+    if lk.shape[-1] != cfg.vocab:
+        lk = mesh_lib.all_gather(lk, -1, mesh.axis("model"))
+    if lg.shape[-1] != cfg.vocab:
+        lg = mesh_lib.all_gather(lg, -1, mesh.axis("model"))
+
+    top = float(lg1.float().abs().max())
+    raw = float((lg.float() - lg1.float()).abs().max())
+    kv, calib = 0.0, 0.0
+    got = {n: _rows_of_data(t, pls["cache"][n], mesh).float()
+           for n, t in tp_pre.items()}
+    for name in ("k", "v"):
+        raw_of = [c[name].float() * c[f"{name}_scale"] + c[f"{name}_center"]
+                  for c in (got, c1_pre)]
+        kv = max(kv, float((raw_of[0] - raw_of[1]).abs().max()) / max(
+            float(raw_of[1].abs().max()), 1e-30))
+        for cal in (f"{name}_center", f"{name}_scale"):
+            want = c1_pre[cal].float()
+            calib = max(calib, float((got[cal] - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30))
+    del got, raw_of
+    require(raw <= TP_LOGITS_BOUND * top and kv <= TP_KV_BOUND and
+            calib <= TP_CALIB_BOUND,
+            f"{what}: {mesh}: prefill logits {raw:.4g} from one rank's "
+            f"(largest {top:.4g}), the cached K/V {kv:.4g}, the "
+            f"calibration {calib:.3g}")
+    fmt = dcfg.sampling.fmt
+    z = quantized_f32(lk1.float().reshape((r1 - r0) * L, -1), fmt,
+                      mid).view(r1 - r0, L, -1)
+    zk = quantized_f32(lk.float().reshape((r1 - r0) * L, -1), fmt,
+                       mid).view(r1 - r0, L, -1)
+    live = z > -1e29
+    err = torch.where(live, (zk - z).abs(), 0.0).amax((1, 2))
+    ties = step_near_ties(z, err, xr[:, P:P + L], x1[:, P:P + L],
+                          x_ref[:, P:P + L], kr, mid)
+    require(torch.equal(x1[:, :P], xr[:, :P]) and
+            torch.equal(x1[:, P + L:], xr[:, P + L:]),
+            f"{what}: the decode step wrote outside the block")
+    every = mesh_lib.all_gather(x1[None], 0, mesh.axis("model"))
+    require(bool((every == every[:1]).all()),
+            f"{what}: the model ranks' canvases differ")
+    del z, zk, live, lk, lk1, lg, lg1
+    # ms a step and its collectives' ms: the prefill once more, the decode
+    # the median of 3 (gloo moves every partial sum through the host)
+    walls, colls = {}, {}
+    for name, fn, n in (("prefill", lambda: pre(mine, xr, clone_tree(
+            tp_pre), P, {}), 1), ("decode", lambda: dec(
+                mine, xr, clone_tree(tp_pre), P, kr, 0, {}), 3)):
+        ts, cs = [], []
+        clock = CollectiveClock()
+        try:
+            for _ in range(n):
+                clock.ms = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+                cs.append(clock.ms)
+        finally:
+            clock.close()
+        walls[name], colls[name] = float(np.median(ts)), float(np.median(cs))
+    say(f"{what}: {cfg.name} f32 ({nl} layers, BAOS cache format "
+        f"{TP_POLICY_FMT}) prefill + decode at Table 6's "
+        f"shape (B {B}, s_tot {S}, block {L} at {P}) on {mesh} (rank 0's "
+        f"view; {'head' if tp_pre['k'].shape[3] != cfg.n_kv_heads else 'context'}"
+        f"-parallel cache, {'route A' if route_a else 'the head gathered' if head_sharded else 'a replicated head'}): "
+        f"{own / 2 ** 30:.2f} GiB of parameter and cache shards on this "
+        f"rank; prefill launches {c_pre}, decode launches {c_dec}, no plain "
+        f"version; the prefill logits within {raw:.4g} of one rank's "
+        f"({raw / top:.3g} of the largest, bound {TP_LOGITS_BOUND:g}), "
+        f"the prefilled K/V unsmoothed within {kv:.3g} of the largest "
+        f"(bound {TP_KV_BOUND:g}), the "
+        f"calibration within {calib:.3g} (bound {TP_CALIB_BOUND:g}); the "
+        f"decode canvas equal to one "
+        f"rank's" + (f" but at {len(ties)} recorded near-ties {ties}"
+                     if ties else "")
+        + f", every model rank's canvas equal; ms a step (the prefill's "
+        f"second call, the decode's median of 3; {card_line()}): prefill {walls['prefill']:.2f} (collectives "
+        f"{colls['prefill']:.2f}), decode {walls['decode']:.2f} "
+        f"(collectives {colls['decode']:.2f}); ranks share the card over "
+        f"gloo, so these show the collectives and the parity, not a "
+        f"speed-up")
+    del mine, cache, tp_pre, c1_pre, params, model
+    return total
+
+
+def tp_train_check(mesh, rank: int, say) -> dict:
+    """qwen2-0.5b in f32 at PHASE13C_LAYERS layers (``cut_depth``), B 8 x
+    S 128, full width: the train step over ``mesh`` (|model| > 1, each
+    rank holding its parameter and optimizer shards) against one rank on
+    the same global batch: the loss within 1e-5 relative, every gathered
+    gradient leaf within 1e-5 of its largest value, every gathered
+    parameter within 2 x lr + 1e-6, every rank's loss equal; exact
+    launches (flash_bidir and its backward once a layer) and ms.  Returns
+    this rank's launch counts."""
+    from repro_torch import sharding
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import base
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as launch_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    tcfg = base.get_config(TRAIN_ARCH)
+    tcfg = cut_depth(tcfg, PHASE13C_LAYERS, "for an f32 reference beside "
+                     "four ranks' shards on one card") if rank == 0 else \
+        dataclasses.replace(tcfg, n_layers=min(PHASE13C_LAYERS,
+                                               tcfg.n_layers))
+    tcfg = dataclasses.replace(tcfg, dtype="float32")
+    model = build_model(tcfg, mesh.device)
+    nl = tcfg.n_layers
+    tokens = train_batch(tcfg).to(mesh.device)
+    opt = adamw.OptConfig()
+    shape = base.ShapeConfig("train", 128, 8, "train")
+    specs = steps.input_specs(model, shape)
+    with sharding.use_context(mesh, launch_sharding.make_rules(tcfg, mesh)):
+        pls = steps.input_shardings(model, shape, mesh, specs)["params"]
+    ref = None
+    if rank == 0:
+        p = model.init(seed=0)
+        met, grads = steps.build_grad_fn(model)(p, tokens, 0, {})
+        step, _ = steps.build_step(model, shape, opt_cfg=opt)
+        _, _, met1 = step(p, adamw.init_state(p), tokens, 0, {})
+        ref = (float(met["loss"]), [g.detach() for g in grads], p,
+               float(met1["lr"]))
+        del grads
+    mine = launch_sharding.place(model.init(seed=0), pls)
+    tok = tokens[slice(*mesh.rows(8))]
+    _build.reset_launch_counts()
+    met, grads = steps.build_grad_fn(model, mesh=mesh)(mine, tok, 0, {})
+    c_grad = dict(_build.launch_counts)
+    step, _ = steps.build_step(model, shape, opt_cfg=opt, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    _, _, met2 = step(mine, adamw.init_state(mine), tok, 0, {})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    c_step = dict(_build.launch_counts)
+    want = {n: 0 for n in _build.COUNTED}
+    want.update(flash_bidir=nl, flash_bidir_bwd=nl)
+    require(c_grad == want and c_step == want,
+            f"phase 14c: train launches {c_grad}, {c_step}")
+    leaves = tree_lib.leaves(pls)
+    g_all = [_gather_placed(g.detach(), pl, mesh)
+             for g, pl in zip(grads, leaves)]
+    p_all = [_gather_placed(t.detach(), pl, mesh)
+             for t, pl in zip(tree_lib.leaves(mine), leaves)]
+    losses = mesh_lib.all_gather(met["loss"].reshape(1), 0,
+                                 mesh.axis("model"))
+    require(bool((losses == losses[0]).all()),
+            "phase 14c: the model ranks' losses differ")
+    if rank == 0:
+        l1, g1, p1, lr = ref
+        l2 = float(met["loss"])
+        rel = abs(l2 - l1) / abs(l1)
+        gerr = max(float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30) for a, b in zip(g_all, g1))
+        perr = max(float((a - b.detach()).abs().max())
+                   for a, b in zip(p_all, tree_lib.leaves(p1)))
+        own = sum(t.numel() * t.element_size()
+                  for t in tree_lib.leaves(mine))
+        say(f"phase 14c: {TRAIN_ARCH} f32 ({nl} layers) train step, B 8 x "
+            f"S 128, on {mesh} (rank 0's view; {own / 2 ** 30:.3f} GiB of "
+            f"parameter shards on this rank) against one rank: loss "
+            f"{l2:.7f} vs {l1:.7f} (relative {rel:.3g}, bound 1e-5); worst "
+            f"gradient leaf error / its largest value {gerr:.3g} (bound "
+            f"1e-5); largest parameter difference {perr:.3g} (bound 2 x lr "
+            f"+ 1e-6 = {2 * lr + 1e-6:.3g}); launches a step {c_step}; "
+            f"step wall {ms:.1f} ms (first call; {card_line()}; four ranks "
+            f"share the card over gloo)")
+        require(rel <= 1e-5 and gerr <= 1e-5 and perr <= 2 * lr + 1e-6,
+                "phase 14c: the train step is off one rank's")
+    del mine, grads, g_all, p_all, ref
+    total = {n: c_grad[n] + c_step[n] for n in _build.COUNTED}
+    return total
+
+
+def phase_tp_ranks() -> dict:
+    """Phase 14's job: four ranks sharing the card, launched by
+    torch.distributed.run (``phase14_main`` in each); rank 0's output joins
+    this log.  Returns the four ranks' launch counts, summed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc-per-node", "4",
+                        str(ROOT / "chip_smoke.py"), PHASE14_ARG],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    total = None
+    for line in r.stdout.splitlines():
+        if line.startswith(PHASE14_COUNTS):
+            total = json.loads(line[len(PHASE14_COUNTS):])
+        else:
+            log(line)
+    require(r.returncode == 0 and total is not None,
+            f"phase 14 job: exit {r.returncode}: {r.stderr[-3000:]}")
+    log(f"phase 14 (four ranks, their own job): "
+        f"{time.perf_counter() - t0:.1f} s against its budget of "
+        f"{PHASE14_BUDGET_S:.0f} s")
+    return total
+
+
+def phase14_main() -> int:
+    """One rank of phase 14 (torch.distributed.run, four ranks on the one
+    card, gloo), f32 copies: (a) llada-8b at full width, PHASE14_LAYERS
+    layers, prefill + decode on (2, 2) (a head-parallel cache, route A);
+    (b) qwen2-0.5b at full width and depth, prefill + decode on (1, 4) (two KV
+    heads: a context-parallel cache, ``wk``'s shards half a head, q, k and
+    v gathered); (c) qwen2-0.5b's f32 train step on (2, 2); each against
+    one rank (``tp_serve_check``, ``tp_train_check``).  Prints its launch
+    counts (the ranks' sum)."""
+    import torch.distributed as dist
+    from repro_torch import device
+    from repro_torch.configs import base
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    device.resolve(DEVICE)
+    _build.build()
+    t_phase = time.perf_counter()
+    try:
+        square = mesh_lib.make_debug_mesh(2, 2, DEVICE)
+        row = mesh_lib.make_debug_mesh(1, 4, DEVICE)
+        rank = square.rank
+        say = log if rank == 0 else (lambda *a: None)
+        for mesh in (square, row):
+            require(mesh.backend == "gloo",
+                    f"{mesh}: four ranks on one card must run gloo")
+        total = {n: 0 for n in _build.COUNTED}
+
+        def add(counts):
+            for n, v in counts.items():
+                total[n] += v
+
+        cfg = base.get_config("llada-8b")
+        cfg = cut_depth(cfg, PHASE14_LAYERS, "for four ranks sharing the "
+                        "card, each with an f32 one-rank reference") \
+            if rank == 0 else dataclasses.replace(
+                cfg, n_layers=min(PHASE14_LAYERS, cfg.n_layers))
+        add(tp_serve_check(square, cfg, say, "phase 14a"))
+        free()
+        dist.barrier()
+        add(tp_serve_check(row, base.get_config("qwen2-0.5b"), say,
+                           "phase 14b"))
+        free()
+        dist.barrier()
+        add(tp_train_check(square, rank, say))
+        free()
+        names = sorted(total)
+        both = torch.tensor([total[n] for n in names], dtype=torch.int64)
+        dist.all_reduce(both)
+        total = dict(zip(names, both.tolist()))
+        dt = time.perf_counter() - t_phase
+        say(f"phase 14: {dt:.1f} s in its job (budget "
+            f"{PHASE14_BUDGET_S:.0f} s)")
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    if rank == 0:
+        print(PHASE14_COUNTS + json.dumps(total), flush=True)
+    mesh_lib.destroy()
+    return 0
+
+
+def dryrun_line() -> None:
+    """The dry run's llada-8b decode_32k cell at (16, 16), traced on meta
+    tensors (launch/dryrun.py): no card time."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell("llada-8b", "decode_32k")
+    require(rec["status"] == "ok", f"dry run: {rec}")
+    log(f"dry run (meta tensors, {time.perf_counter() - t0:.1f} s): "
+        f"llada-8b decode_32k at 16x16, per device: "
+        f"{rec['flops_per_device']:.4g} FLOPs, "
+        f"{rec['bytes_per_device']:.4g} bytes (eager per-op), "
+        f"{rec['collective_bytes_per_device']:.4g} collective bytes, "
+        f"params {rec['param_bytes_per_device'] / 2 ** 30:.3f} GiB, cache "
+        f"{rec['cache_bytes_per_device'] / 2 ** 30:.3f} GiB; roofline "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                    rec["roofline"].items())
+        + f" (the H100's published peaks); bottleneck {rec['bottleneck']}")
+
+
 def _flat(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -5829,6 +6289,9 @@ def main() -> int:
         for name, n in phase_mesh_ranks().items():
             launches[name] += n
         t12 += time.perf_counter() - t0 - PHASE13_S.get("13c", 0.0)
+        for name, n in phase_tp_ranks().items():
+            launches[name] += n
+        dryrun_line()
         log(f"phase 12: {t12:.1f} s (budget {PHASE12_BUDGET_S} s)")
         t13 = sum(PHASE13_S.values())
         log(f"phase 13: {t13:.1f} s ("
@@ -5857,4 +6320,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == [PHASE12B_ARG]:      # a rank of phase 12b's job
         sys.exit(phase12b_main())
+    if sys.argv[1:] == [PHASE14_ARG]:       # a rank of phase 14's job
+        sys.exit(phase14_main())
     sys.exit(main())

@@ -1469,7 +1469,10 @@ def masked_diffusion_loss(model, params, tokens: torch.Tensor,
     global batch (a data mesh): the loss divides by the global
     B * axis.size * S, so the sum of the ranks' gradients is the global
     batch's, and the metrics come from sums over the axis (the MoE aux,
-    not linear in the batch, is the caller's to refuse).
+    not linear in the batch, comes global from models/moe.py under
+    models/tp.Parallel(data=)).  Under the tensor-parallel body with a
+    vocab-sharded head the logits are this rank's columns and the CE is
+    models/tp.vocab_ce's global log-softmax.
     -> (loss, metrics: loss, ce_masked, mask_frac, aux, detached)."""
     cfg = model.cfg
     noisy, mask, t = draw if draw is not None else forward_mask(
@@ -1482,8 +1485,12 @@ def masked_diffusion_loss(model, params, tokens: torch.Tensor,
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     B, S = tokens.shape
 
+    from repro_torch.models import tp as tp_lib
+
     def ce_of(lg, tk):
         lf = lg.to(torch.float32)
+        if tp_lib.vocab_sharded(lf, cfg.vocab):
+            return tp_lib.vocab_ce(lf, tk, cfg.vocab)
         gold = torch.gather(lf, -1, tk[..., None].to(torch.int64))[..., 0]
         return torch.logsumexp(lf, dim=-1) - gold
 
@@ -1498,15 +1505,17 @@ def masked_diffusion_loss(model, params, tokens: torch.Tensor,
     if valid is not None:
         w = w * valid.to(torch.float32)
     n = 1 if axis is None else axis.size
-    loss = torch.sum(ce * w) / (B * n * S)
+    loss = ce_loss = torch.sum(ce * w) / (B * n * S)
     if aux_weight:
         loss = loss + aux_weight * aux
     if axis is not None:
         from repro_torch.launch import mesh as mesh_lib
         sums = mesh_lib.all_reduce(torch.stack(
-            [loss.detach(), torch.sum(ce.detach() * maskf),
+            [ce_loss.detach(), torch.sum(ce.detach() * maskf),
              torch.sum(maskf)]), "sum", axis)
-        metrics = {"loss": sums[0],
+        # the aux is the global batch's on every rank: counted once
+        metrics = {"loss": (sums[0] + aux_weight * aux.detach()
+                            if aux_weight else sums[0]),
                    "ce_masked": sums[1] / torch.clamp(sums[2], min=1.0),
                    "mask_frac": sums[2] / (B * n * S), "aux": aux}
         return loss, {k: v.detach() for k, v in metrics.items()}

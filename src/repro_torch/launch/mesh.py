@@ -42,10 +42,12 @@ shapes only, on meta tensors, and raises on any other.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
 import socket
+import threading
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -253,6 +255,29 @@ def destroy() -> None:
 _OPS = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM,
         "min": dist.ReduceOp.MIN}
 
+_recorder = threading.local()
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Record every collective this thread runs while inside: a list of
+    (op, axis name, operand bytes), op 'all_reduce_<sum|max|min>' or
+    'all_gather'.  Backward collectives are recorded too.  On an axis with
+    no process group (meta tensors, launch/dryrun.py) nothing is
+    communicated: the list is all there is."""
+    old = getattr(_recorder, "log", None)
+    _recorder.log = log = []
+    try:
+        yield log
+    finally:
+        _recorder.log = old
+
+
+def _record(op: str, t: torch.Tensor, axis: Axis) -> None:
+    log = getattr(_recorder, "log", None)
+    if log is not None and axis.size > 1:
+        log.append((op, axis.name, t.numel() * t.element_size()))
+
 
 def _shapes_only(t: torch.Tensor, axis: Axis) -> bool:
     if axis.group is not None:
@@ -265,10 +290,12 @@ def _shapes_only(t: torch.Tensor, axis: Axis) -> bool:
 
 def all_reduce(t: torch.Tensor, op: str, axis: Axis) -> torch.Tensor:
     """``t`` reduced (max, sum or min) over ``axis``: a new tensor, the
-    input unchanged."""
+    input unchanged.  No gradient flows through it (``reduce_from`` is the
+    sum under autograd)."""
+    _record(f"all_reduce_{op}", t, axis)
     if _shapes_only(t, axis):
-        return t.clone()
-    out = t.clone()
+        return t.detach().clone()
+    out = t.detach().clone()
     dist.all_reduce(out, op=_OPS[op], group=axis.group)
     return out
 
@@ -276,14 +303,100 @@ def all_reduce(t: torch.Tensor, op: str, axis: Axis) -> torch.Tensor:
 def all_gather_rows(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     """The ranks' ``t`` of ``axis`` concatenated along dim 0, in axis
     order (a batch sharded over ``data`` made whole)."""
+    return all_gather(t, 0, axis)
+
+
+def all_gather(t: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` in axis order, a
+    contiguous tensor (no gradient; ``gather`` is the one under
+    autograd)."""
+    dim = dim % t.dim()
+    t = t.detach()
+    _record("all_gather", t, axis)
     if _shapes_only(t, axis):
-        return t.new_empty((t.shape[0] * axis.size,) + tuple(t.shape[1:]))
+        shape = list(t.shape)
+        shape[dim] *= axis.size
+        return t.new_empty(shape)
     flag = t.dtype == torch.bool          # gathered as bytes
     t = (t.to(torch.uint8) if flag else t).contiguous()
     parts = [torch.empty_like(t) for _ in range(axis.size)]
     dist.all_gather(parts, t, group=axis.group)
-    out = torch.cat(parts, dim=0)
+    out = torch.cat(parts, dim=dim)
     return out.to(torch.bool) if flag else out
+
+
+# ---------------------------------------------------------------------------
+# Collectives under autograd: the tensor-parallel body's (models/tp.py)
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f: the identity forward, the gradient summed over the
+    axis backward (a replicated tensor entering a sharded product)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, "sum", ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g: the sum over the axis forward, the identity
+    backward (partial sums leaving a sharded product)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce(x, "sum", axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """The shards concatenated along ``dim`` forward; backward this rank's
+    slice of the gradient, first summed over the axis when ``sum_grad``
+    (the ranks used different parts of the whole) and not when every rank
+    used the whole alike."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis, sum_grad):
+        ctx.dim, ctx.axis, ctx.sum_grad = dim, axis, sum_grad
+        ctx.n = x.shape[dim]
+        return all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grad:
+            g = all_reduce(g, "sum", ctx.axis)
+        return (g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n), None,
+                None, None)
+
+
+def copy_to(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Identity forward; backward the gradient summed over ``axis``."""
+    return _CopyTo.apply(x, axis)
+
+
+def reduce_from(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum over ``axis`` forward; identity backward."""
+    return _ReduceFrom.apply(x, axis)
+
+
+def gather(x: torch.Tensor, dim: int, axis: Axis,
+           sum_grad: bool = True) -> torch.Tensor:
+    """The ranks' shards of ``x`` concatenated along ``dim``, under
+    autograd (see ``_Gather`` for ``sum_grad``)."""
+    return _Gather.apply(x, dim % x.dim(), axis, sum_grad)
+
+
+def max_over(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The elementwise max over ``axis``, with no gradient (a softmax's
+    shift)."""
+    return all_reduce(x.detach(), "max", axis)
 
 
 def any_over(flag: torch.Tensor, axis: Axis) -> torch.Tensor:

@@ -14,16 +14,25 @@ Kinds:
 
 ``build_step(..., mesh=)`` is the counterpart of ``jax.jit(step,
 in_shardings=input_shardings(...))`` on a (data, model) mesh
-(launch/mesh.py) whose ``model`` axis is 1: rows shard over ``data`` and
-the rest is replicated, as JAX's rules give at |model| = 1.  The port is
-multi-controller, so each rank's step takes and returns its own shards
-(``shard_inputs`` cuts full inputs by ``input_shardings``): prefill and
-decode run on the rank's rows alone (BAOS calibration and the cache are
-per row); the train step draws the global batch's mask and keeps its
-rows, divides the loss by the global B * S and sums the gradients over
-``data`` before AdamW, so every rank applies the same update.  A mesh
-with |model| > 1 raises NotImplementedError: its tensor-parallel body is
-ROADMAP.md, Queue 1 item 12c.
+(launch/mesh.py): rows shard over ``data``, and over ``model`` the
+parameters, the KV cache and the optimizer state as JAX's rules place
+them (launch/sharding.make_rules: heads, MLP, experts and vocab; the
+cache by head or by sequence).  The port is multi-controller, so each
+rank's step takes and returns its own shards (``shard_inputs`` cuts full
+inputs by ``input_shardings``; launch/sharding.place allocates only the
+shards) and runs the tensor-parallel body on them (models/tp.py), where
+GSPMD partitions JAX's step.  Prefill and decode run on the rank's rows
+alone (BAOS calibration and the cache are per row); prefill returns the
+rank's vocab columns of the logits where the head is vocab-sharded, and
+decode samples over such a head through the fused head's vocab-shard
+entry (route A) and ``sampling.combine_partials``, so every ``model``
+rank commits the same tokens.  The train step draws the global batch's
+mask and keeps its rows, divides the loss by the global B * S (the MoE
+aux is the global batch's), sums the gradients over ``data`` before
+AdamW, and clips by the norm of the whole gradient (the sharded leaves'
+squares summed over ``model``), so every rank applies the same update.
+The ssm and hybrid bodies over |model| > 1 raise NotImplementedError
+(ROADMAP.md, Queue 1 item 12d).
 
 JAX seeds each step with ``fold_in(PRNGKey(0), seed)``; the port draws
 the train step's mask from ``diffusion.step_generator(0, seed)`` and
@@ -33,7 +42,7 @@ samples with ``diffusion.tick_seed(0, seed)`` (ROADMAP.md, Queue 3,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -46,11 +55,16 @@ from repro_torch.core import sampling as sampling_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as launch_sharding
 from repro_torch.launch import train as train_lib
+from repro_torch.models import tp as tp_lib
+from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw
 
-TENSOR_PARALLEL = "ROADMAP.md, Queue 1 item 12c"
+# the recurrent families' tensor-parallel body, still to port
+TENSOR_PARALLEL = "ROADMAP.md, Queue 1 item 12d"
+# the families models/tp.py's body runs: the transformer stack's
+TP_FAMILIES = transformer.FAMILIES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,20 +140,52 @@ def _fwd_extras(model, extras: Dict[str, Any], kind: str,
     return kw
 
 
-def _data_axis(mesh) -> Optional[mesh_lib.Axis]:
-    """The mesh's ``data`` axis (None without a mesh); raises for a mesh
-    the port's steps do not run."""
+def _axes(mesh, cfg: ModelConfig
+          ) -> Tuple[Optional[mesh_lib.Axis], Optional[mesh_lib.Axis]]:
+    """The mesh's ``data`` and ``model`` axes (None without a mesh, and
+    ``model`` None at |model| = 1); raises for a mesh the port's steps do
+    not run."""
     if mesh is None:
-        return None
+        return None, None
     if not isinstance(mesh, mesh_lib.Mesh):
         raise TypeError(f"mesh {mesh!r} is not a launch/mesh.Mesh (a mesh "
                         "shape has no ranks to run a step on)")
-    if mesh.shape["model"] > 1:
+    if mesh.shape["model"] == 1:
+        return mesh.axis("data"), None
+    if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
-            f"a step over {mesh!r}: |model| > 1 needs a tensor-parallel "
-            f"body (heads, MLP and vocab over 'model'), which the port does "
-            f"not have yet ({TENSOR_PARALLEL}); run |model| = 1")
-    return mesh.axis("data")
+            f"a {cfg.family} step over {mesh!r}: |model| > 1 needs the "
+            f"{cfg.family} family's tensor-parallel body, which the port "
+            f"does not have yet ({TENSOR_PARALLEL}); the port runs "
+            f"{TP_FAMILIES} over |model| > 1, or run |model| = 1")
+    return mesh.axis("data"), mesh.axis("model")
+
+
+def param_placements(model, mesh):
+    """The parameters' ``sharding.Placement`` tree on ``mesh`` under JAX's
+    rules (launch/sharding.make_rules)."""
+    meta = build_model(model.cfg, "meta").init()
+    with shlib.use_context(mesh, launch_sharding.make_rules(model.cfg,
+                                                            mesh)):
+        return launch_sharding.tree_shardings(model.param_specs(), meta,
+                                              mesh)
+
+
+def _sharded_flags(model, mesh) -> list:
+    """Per parameter leaf (``tree.leaves`` order): whether ``model``
+    shards it."""
+    return ["model" in launch_sharding.spec_axes(p.spec)
+            for p in tree_lib.leaves(param_placements(model, mesh))]
+
+
+def _context(model_ax, data=None, cache=None, x=None):
+    """The tensor-parallel body's ``models/tp.Parallel`` for a step: the
+    cache is context-parallel when its sequence dim is shorter than the
+    canvas's."""
+    if model_ax is None:
+        return tp_lib.Parallel(data=data) if data is not None else None
+    seq = cache is not None and cache["k"].shape[2] != x.shape[1]
+    return tp_lib.Parallel(model=model_ax, data=data, cache_seq=seq)
 
 
 def _block_cols(block_start, L: int, device) -> torch.Tensor:
@@ -166,12 +212,8 @@ def build_grad_fn(model, aux_weight: float = 0.01,
     dtype) and the metrics are global."""
     cfg = model.cfg
     loss_chunk = policy.loss_chunk if policy and policy.loss_chunk else None
-    data = _data_axis(mesh)
-    if data is not None and data.size > 1 and cfg.moe is not None:
-        raise NotImplementedError(
-            "the MoE train step over a data mesh: its load-balance aux is "
-            "not linear in the batch, and the port does not all-reduce the "
-            "router statistics (ROADMAP.md, Queue 3)")
+    data, model_ax = _axes(mesh, cfg)
+    ctx = _context(model_ax, data)
     aux = aux_weight if cfg.moe is not None else 0.0
 
     def grad_fn(params, tokens: torch.Tensor, seed: int, extras: Dict,
@@ -192,10 +234,11 @@ def build_grad_fn(model, aux_weight: float = 0.01,
         if cfg.family == "vlm" and cfg.n_image_tokens:
             pos = torch.arange(S, device=tokens.device)
             valid = (pos >= cfg.n_image_tokens).expand(B, S)
-        metrics, grads = train_lib.loss_and_grads(
-            model, params, tokens, aux_weight=aux, valid=valid,
-            loss_chunk=loss_chunk, draw=draw, axis=data,
-            fwd_kw_of=lambda p: _fwd_extras(model, extras, "train", p))
+        with tp_lib.use(ctx):
+            metrics, grads = train_lib.loss_and_grads(
+                model, params, tokens, aux_weight=aux, valid=valid,
+                loss_chunk=loss_chunk, draw=draw, axis=data,
+                fwd_kw_of=lambda p: _fwd_extras(model, extras, "train", p))
         if data is not None:
             flat = mesh_lib.all_reduce(torch.cat(
                 [g.reshape(-1).to(torch.float32) for g in grads]), "sum",
@@ -216,12 +259,16 @@ def build_train_step(model, opt_cfg: adamw.OptConfig,
     """``train_step(params, opt_state, tokens, seed, extras, draw=None)
     -> (params, opt_state, metrics)``: ``build_grad_fn``'s loss and
     gradients, then AdamW in place (launch/train.make_train_step's
-    arithmetic)."""
+    arithmetic), clipping by the whole gradient's norm over a
+    tensor-parallel mesh."""
     grad_fn = build_grad_fn(model, aux_weight, policy, mesh)
+    _, model_ax = _axes(mesh, model.cfg)
+    sharded = _sharded_flags(model, mesh) if model_ax is not None else None
 
     def train_step(params, opt_state, tokens, seed, extras, draw=None):
         metrics, grads = grad_fn(params, tokens, seed, extras, draw)
-        _, _, stats = adamw.apply_updates(params, grads, opt_state, opt_cfg)
+        _, _, stats = adamw.apply_updates(params, grads, opt_state, opt_cfg,
+                                          model_ax, sharded)
         return params, opt_state, {**metrics, **stats}
 
     return train_step
@@ -230,14 +277,16 @@ def build_train_step(model, opt_cfg: adamw.OptConfig,
 def build_prefill_step(model, dcfg: diffusion.DiffusionConfig, mesh=None):
     """``prefill_step(params, x, cache, block_start, extras) -> (logits of
     the active block, cache)``: ``diffusion.warm_step``, the cache
-    rewritten in place."""
-    _data_axis(mesh)
+    rewritten in place; over |model| > 1 the logits are this rank's
+    vocab columns where the head is vocab-sharded."""
+    _, model_ax = _axes(mesh, model.cfg)
 
     @torch.no_grad()
     def prefill_step(params, x, cache, block_start, extras):
-        kw = _fwd_extras(model, extras, "prefill", params)
-        return diffusion.warm_step(model, params, x, cache, block_start,
-                                   dcfg, **kw)
+        with tp_lib.use(_context(model_ax, cache=cache, x=x)):
+            kw = _fwd_extras(model, extras, "prefill", params)
+            return diffusion.warm_step(model, params, x, cache, block_start,
+                                       dcfg, **kw)
 
     return prefill_step
 
@@ -246,31 +295,64 @@ def build_serve_step(model, dcfg: diffusion.DiffusionConfig, mesh=None):
     """``serve_step(params, x, cache, block_start, k, seed, extras) ->
     (x, cache)``: ``diffusion.refine_step`` over the active block, then
     ``sampling.sampling_step`` on its logits (k[b] tokens committed in
-    row b), the block written into a new canvas."""
-    data = _data_axis(mesh)
-    s = dcfg.sampling
-    if data is not None and data.size > 1 and (
-            s.temperature > 0.0 or s.strategy == "random"):
-        raise NotImplementedError(
-            "the decode step over a data mesh samples greedily only "
-            "(temperature 0, strategy 'stablemax'): the step seed is the "
-            "same on every rank, so noise drawn by local row would repeat "
-            "across the data shards")
+    row b), the block written into a new canvas.  Over |model| > 1 with a
+    vocab-sharded head the refine returns hidden states and ``_sample``
+    runs the sharded head."""
     cfg = model.cfg
+    data, model_ax = _axes(mesh, cfg)
+    s = dcfg.sampling
+    head_sharded = model_ax is not None and cfg.vocab % model_ax.size == 0
+    if (s.temperature > 0.0 or s.strategy == "random") and (
+            (data is not None and data.size > 1) or head_sharded):
+        raise NotImplementedError(
+            "the decode step over a data mesh or a vocab-sharded head "
+            "samples greedily only (temperature 0, strategy 'stablemax'): "
+            "the step seed is the same on every rank, so noise drawn by "
+            "local row or column would repeat across the shards")
     L = dcfg.block_length
 
     @torch.no_grad()
     def serve_step(params, x, cache, block_start, k, seed, extras):
-        kw = _fwd_extras(model, extras, "decode", params)
-        logits, cache = diffusion.refine_step(model, params, x, cache,
-                                              block_start, dcfg, **kw)
+        sharded = model_ax is not None and \
+            params["lm_head"].shape[-1] != cfg.vocab
+        with tp_lib.use(_context(model_ax, cache=cache, x=x)):
+            kw = _fwd_extras(model, extras, "decode", params)
+            feats, cache = diffusion.refine_step(
+                model, params, x, cache, block_start, dcfg,
+                head_mode="hidden" if sharded else "logits", **kw)
         cols = _block_cols(block_start, L, x.device)
-        xa, _ = sampling_lib.sampling_step(
-            logits, x.index_select(1, cols), cfg.mask_id, k, s,
-            diffusion.tick_seed(0, seed))
+        xb = x.index_select(1, cols)
+        seed = diffusion.tick_seed(0, seed)
+        if sharded:
+            xa = _sample_sharded(feats, params["lm_head"], xb, k, cfg, s,
+                                 seed, model_ax)
+        else:
+            xa, _ = sampling_lib.sampling_step(feats, xb, cfg.mask_id, k, s,
+                                               seed)
         return x.index_copy(1, cols, xa.to(x.dtype)), cache
 
     return serve_step
+
+
+def _sample_sharded(hidden, w_loc, xb, k, cfg: ModelConfig, s, seed, axis):
+    """The decode step's sampling over a vocab-sharded head, from the
+    block's hidden states (B, L, d): where each shard's width is a
+    multiple of the MX block, the fused head's vocab-shard entry (route
+    A) and ``sampling.combine_partials`` (the same tokens on every
+    ``model`` rank); otherwise the head gathered over ``model`` and the
+    single-device fused head."""
+    from repro_torch.core import mx
+    from repro_torch.kernels import fused_head_sampling as fhs
+    scale = float(cfg.logit_scale)
+    if w_loc.shape[-1] % mx.MX_BLOCK == 0:
+        xa, _, _ = sampling_lib.sharded_fused_sampling_step_full(
+            hidden, w_loc, xb, cfg.mask_id, k, s, seed, axis=axis,
+            logit_scale=scale, col_limit=int(cfg.vocab))
+        return xa
+    w = fhs.pad_head(mesh_lib.all_gather(w_loc, 1, axis))
+    xa, _, _ = sampling_lib.fused_sampling_step_full(
+        hidden, w, xb, cfg.mask_id, k, s, seed, logit_scale=scale)
+    return xa
 
 
 # ---------------------------------------------------------------------------
@@ -360,7 +442,7 @@ def build_step(model, shape: ShapeConfig,
                policy: Optional[ServePolicy] = None,
                opt_cfg: Optional[adamw.OptConfig] = None, mesh=None):
     """Returns (step_fn, ordered arg names) for the shape kind; with
-    ``mesh`` (|model| = 1) the step of one rank of a data mesh."""
+    ``mesh`` the step of one rank of it, on that rank's shards."""
     policy = policy or ServePolicy()
     if shape.kind == "train":
         fn = build_train_step(model, opt_cfg or adamw.OptConfig(),

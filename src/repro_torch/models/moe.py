@@ -145,16 +145,58 @@ def expert_weights(w: torch.Tensor, quant) -> torch.Tensor:
     return mx.mx_fake_quant(w, quant.weight_fmt, axis=1)
 
 
+def _global_aux(aux: torch.Tensor, probs_stats, cfg: MoEConfig, G: int,
+                data) -> torch.Tensor:
+    """The load-balance aux of the global batch when the batch is sharded
+    over ``data`` (a train step over |data| > 1, models/tp.Parallel): with
+    grouped dispatch each group is a batch row, so the aux is the mean of
+    every rank's rows' (a sum over ``data`` under autograd); one group of
+    all tokens sums its per-expert token counts and router probabilities
+    over ``data`` before the product."""
+    from repro_torch.launch import mesh as mesh_lib
+    if cfg.group_dispatch:
+        return mesh_lib.reduce_from(torch.sum(aux), data) / (G * data.size)
+    counts, psum, T = probs_stats
+    stats = mesh_lib.reduce_from(torch.cat([counts, psum], dim=-1), data)
+    n = T * data.size
+    frac, pmean = stats[..., :cfg.num_experts] / n, \
+        stats[..., cfg.num_experts:] / n
+    return torch.mean(cfg.num_experts * torch.sum(frac * pmean, dim=-1))
+
+
 def moe_ffn(x: torch.Tensor, params: Dict, cfg: MoEConfig, quant=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux loss, an f32 scalar: the mean of
-    the groups')."""
+    the groups').  Under the tensor-parallel body (models/tp.py) with the
+    experts sharded over ``model`` (``w_gate`` (E / |model|, d, F)) or
+    their hidden dim (``(E, d, F / |model|)``), the routing and dispatch
+    run whole on every rank, each rank computes its experts or its
+    hidden slice of every expert, and the combine (with the shared
+    experts' row-parallel partial) is summed over ``model`` in f32."""
+    from repro_torch.models import tp as tp_lib
     B, S, d = x.shape
     G, T = (B, S) if cfg.group_dispatch and B > 1 else (1, B * S)
     K, E = cfg.top_k, cfg.num_experts
     C = capacity(T, cfg)
     xg = x.reshape(G, T, d)
     topk_w, topk_e, aux = route(xg, params["router"], cfg)
+    ctx = tp_lib.current()
+    data = None if ctx is None else ctx.data
+    if data is not None and data.size > 1:
+        stats = None
+        if not cfg.group_dispatch:
+            probs = torch.softmax(torch.matmul(
+                xg.to(torch.float32), params["router"].to(torch.float32)),
+                dim=-1)
+            counts = torch.sum(F.one_hot(topk_e[..., 0], E).to(
+                torch.float32), dim=-2)
+            stats = (counts, torch.sum(probs, dim=-2), T)
+        aux = _global_aux(aux, stats, cfg, G, data)
+    axis = tp_lib.model_axis()
+    if axis is not None and (params["w_gate"].shape[0] != E or
+                             params["w_gate"].shape[2] != cfg.d_ff_expert):
+        return _moe_ffn_tp(x, xg, params, cfg, quant, topk_w, topk_e, C,
+                           axis), torch.mean(aux)
     order, slot = dispatch_slots(topk_e, cfg, C)
     dev, dt = x.device, x.dtype
 
@@ -195,6 +237,92 @@ def moe_ffn(x: torch.Tensor, params: Dict, cfg: MoEConfig, quant=None
                                           sp["gate_proj"].to(torch.float32)))
         out = out + shared_out * gate.to(dt)
     return out.reshape(B, S, d), torch.mean(aux)
+
+
+def _moe_ffn_tp(x, xg, params: Dict, cfg: MoEConfig, quant, topk_w,
+                topk_e, C: int, axis) -> torch.Tensor:
+    """``moe_ffn``'s output on this rank's experts (expert-parallel) or
+    its hidden slice of every expert (expert tensor-parallel): the
+    dispatch of every expert as on one device, the products of this
+    rank's, the combine's partial in f32 (zeros for pairs whose expert is
+    elsewhere) plus the shared experts' partial, one sum over ``model``."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import tp as tp_lib
+    B, S, d = x.shape
+    G, T, K = xg.shape[0], xg.shape[1], cfg.top_k
+    E, Fe = cfg.num_experts, cfg.d_ff_expert
+    order, slot = dispatch_slots(topk_e, cfg, C)
+    dev, dt = x.device, x.dtype
+    E_loc, F_loc = params["w_gate"].shape[0], params["w_gate"].shape[2]
+    e0, e1 = tp_lib.shard_range(E, E_loc, axis)
+
+    xin = mesh_lib.copy_to(xg, axis)
+    src = torch.full((G, E * C + 1), T, dtype=torch.int64, device=dev)
+    src.scatter_(1, slot, order // K)
+    x_pad = torch.cat([xin, torch.zeros((G, 1, d), dtype=dt, device=dev)],
+                      1)
+    rows = src[:, e0 * C:e1 * C] + \
+        (T + 1) * torch.arange(G, device=dev)[:, None]
+    expert_in = x_pad.reshape(G * (T + 1), d).index_select(
+        0, rows.reshape(-1)).reshape(G, E_loc, C, d)
+    xe = expert_in.transpose(0, 1).reshape(E_loc, G * C, d)
+    wg, wu, wd = (expert_weights(params[n], quant).to(dt)
+                  for n in ("w_gate", "w_up", "w_down"))
+    if quant is not None and quant.enabled:
+        xe = quant.acts(xe)
+    h = layers.swiglu(torch.bmm(xe, wg), torch.bmm(xe, wu))
+    if F_loc != Fe and quant is not None and quant.enabled and \
+            F_loc % mx.MX_BLOCK:
+        # MX blocks along F would straddle the shards: the whole product
+        h = mesh_lib.gather(h, -1, axis, sum_grad=False)
+        wd = expert_weights(mesh_lib.gather(params["w_down"], 1, axis,
+                                            sum_grad=False), quant).to(dt)
+        expert_out = torch.bmm(h, wd).to(torch.float32)
+        whole = True
+    else:
+        expert_out = torch.bmm(h.to(torch.float32), wd.to(torch.float32))
+        whole = F_loc == Fe
+    expert_out = expert_out.reshape(E_loc, G, C, d).transpose(0, 1)
+
+    # every expert's slots: this rank's products, zeros for the others'
+    # and for the sentinel
+    f32 = torch.float32
+    out_pad = torch.cat([
+        torch.zeros((G, e0 * C, d), dtype=f32, device=dev),
+        expert_out.reshape(G, E_loc * C, d),
+        torch.zeros((G, (E - e1) * C + 1, d), dtype=f32, device=dev)], 1)
+    pair_slot = torch.empty_like(slot).scatter_(1, order, slot)
+    rows = pair_slot + (E * C + 1) * torch.arange(G, device=dev)[:, None]
+    pair = out_pad.reshape(G * (E * C + 1), d).index_select(
+        0, rows.reshape(-1)).reshape(G, T, K, d)
+    w = mesh_lib.copy_to(topk_w, axis).to(dt).to(f32)
+    part = torch.sum(pair * w[..., None], dim=2)
+    if whole and E_loc == E:
+        # a gathered product is whole on every rank: count it once
+        part = torch.where(torch.full((), axis.index == 0, device=dev),
+                           part, torch.zeros((), dtype=f32, device=dev))
+
+    shared_whole = None
+    if cfg.num_shared_experts > 0:
+        sp = params["shared"]
+        Fs = cfg.d_ff_shared or cfg.num_shared_experts * Fe
+        hin = tp_lib.copy_in(xg)
+        hs = layers.swiglu(
+            tp_lib.col(xg, sp["w_gate"], Fs, quant, hin=hin),
+            tp_lib.col(xg, sp["w_up"], Fs, quant, hin=hin))
+        gate = torch.sigmoid(torch.matmul(
+            xg.to(f32), sp["gate_proj"].to(f32))).to(dt)
+        if sp["w_down"].shape[0] != Fs and not (
+                quant is not None and quant.enabled and
+                sp["w_down"].shape[0] % mx.MX_BLOCK):
+            part = part + tp_lib.partial(hs, sp["w_down"], quant) * \
+                mesh_lib.copy_to(gate, axis).to(f32)
+        else:
+            shared_whole = tp_lib.row(hs, sp["w_down"], Fs, quant) * gate
+    out = mesh_lib.reduce_from(part, axis).to(dt)
+    if shared_whole is not None:
+        out = out + shared_whole
+    return out.reshape(B, S, d)
 
 
 def moe_flops_per_token(d_model: int, cfg: MoEConfig) -> int:

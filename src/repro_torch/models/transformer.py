@@ -39,22 +39,30 @@ scattered into the cache at that start (``index_copy_``) instead of
 written through a slice, with the same values.  ``quant``, a
 ``layers.QuantPolicy``, fake-quantizes both operands of every GEMM,
 the LM head's included, as the JAX forward does.
+
+Inside a step over a mesh with |model| > 1 (launch/steps.py) the same
+code runs the tensor-parallel body on this rank's shards: the products
+through models/tp.py (``col``/``row``), attention on local heads or on
+every head gathered (``attn_layout``), and a context-parallel cache
+gathered per layer (``_context_parallel``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import device as device_lib
 from repro_torch.core import baos as baos_lib
 from repro_torch.kernels import flash_bidir, fused_head_sampling
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import tp as tp_lib
 from repro_torch.models.config import ModelConfig
 
-ROADMAP = "ROADMAP.md, Queue 1"
+ROADMAP = "ROADMAP.md, Queue 3"
 # a segment start: an int, or a one-element device tensor
 SegStart = Union[int, torch.Tensor]
 
@@ -248,24 +256,63 @@ def cache_specs(cfg: ModelConfig, act_len: Optional[int] = None) -> Dict:
 
 def embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
           ) -> torch.Tensor:
-    """Token embeddings x embed_scale, in the activation dtype."""
-    return (F.embedding(tokens, params["embed"]) * cfg.embed_scale
-            ).to(cfg.torch_dtype)
+    """Token embeddings x embed_scale, in the activation dtype (under a
+    vocab-sharded embedding, models/tp.embed's exact sum over
+    ``model``)."""
+    return (tp_lib.embed(params["embed"], tokens, cfg.vocab) *
+            cfg.embed_scale).to(cfg.torch_dtype)
+
+
+def attn_layout(ap: Dict, cfg: ModelConfig) -> Tuple[bool, bool]:
+    """(gather, part) of an attention sublayer's projections ``ap``
+    (``wq wk wv wo``) under the tensor-parallel body (models/tp.py):
+    ``gather`` when q, k and v do not all shard on whole heads (then each
+    is gathered over ``model`` and attention runs on every head), ``part``
+    when ``wo``'s rows are sharded (each rank then feeds it its columns
+    of the attention output).  (False, True) without one."""
+    axis = tp_lib.model_axis()
+    if axis is None:
+        return False, True
+    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    local = (cfg.n_kv_heads % axis.size == 0
+             and ap["wq"].shape[1] != hq and ap["wk"].shape[1] != hkv
+             and ap["wv"].shape[1] != hkv)
+    return not local, ap["wo"].shape[0] != hq
 
 
 def qkv(h: torch.Tensor, lp: Dict, cfg: ModelConfig,
-        positions: torch.Tensor, quant=None):
+        positions: torch.Tensor, quant=None, layout=(False, True)):
     """A layer's q (B, S, Hq, D) and k, v (B, S, Hkv, D) from its normed
-    input, RoPE at ``positions``."""
+    input, RoPE at ``positions``; under the tensor-parallel body this
+    rank's heads, or every head when ``layout`` (``attn_layout``) says to
+    gather."""
     B, S, _ = h.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = layers.qdot(h, lp["wq"], quant, lp.get("bq")).reshape(B, S, Hq, D)
-    k = layers.qdot(h, lp["wk"], quant, lp.get("bk")).reshape(B, S, Hkv, D)
-    v = layers.qdot(h, lp["wv"], quant, lp.get("bv")).reshape(B, S, Hkv, D)
+    gather, part = layout
+    hin = tp_lib.copy_in(h)
+    q, k, v = (tp_lib.col(h, lp[w], n * D, quant, lp.get(b), gather=gather,
+                          part=part, hin=hin).reshape(B, S, -1, D)
+               for w, b, n in (("wq", "bq", Hq), ("wk", "bk", Hkv),
+                               ("wv", "bv", Hkv)))
     if cfg.rope_theta > 0:
         q = layers.rope(q, positions, cfg.rope_theta)
         k = layers.rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def out_proj(attn: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig,
+             quant=None, layout=(False, True)) -> torch.Tensor:
+    """The output projection of attention's (B, S, H, D) result: a
+    row-parallel product under the tensor-parallel body, fed this rank's
+    columns when every head ran on every rank."""
+    B, S = attn.shape[:2]
+    a = attn.reshape(B, S, -1)
+    full = cfg.n_heads * cfg.d_head
+    axis = tp_lib.model_axis()
+    if axis is not None and layout[0] and layout[1]:
+        r0, r1 = tp_lib.shard_range(full, wo.shape[0], axis)
+        a = a[..., r0:r1]
+    return tp_lib.row(a, wo, full, quant)
 
 
 def ffn(h: torch.Tensor, lp: Dict, cfg: ModelConfig, quant=None
@@ -278,13 +325,15 @@ def ffn(h: torch.Tensor, lp: Dict, cfg: ModelConfig, quant=None
     core/diffusion.masked_diffusion_loss)."""
     if cfg.moe is not None:
         return moe_lib.moe_ffn(h, lp["moe"], cfg.moe, quant)
+    ff, hin = cfg.d_ff, tp_lib.copy_in(h)
     if cfg.ffn == "gelu":
-        return layers.qdot(layers.gelu(layers.qdot(h, lp["w_in"], quant,
-                                                   lp["b_in"])),
-                           lp["w_out"], quant, lp["b_out"]), None
-    return layers.qdot(layers.swiglu(layers.qdot(h, lp["w_gate"], quant),
-                                     layers.qdot(h, lp["w_up"], quant)),
-                       lp["w_down"], quant), None
+        return tp_lib.row(layers.gelu(tp_lib.col(h, lp["w_in"], ff, quant,
+                                                 lp["b_in"], hin=hin)),
+                          lp["w_out"], ff, quant, lp["b_out"]), None
+    return tp_lib.row(layers.swiglu(
+        tp_lib.col(h, lp["w_gate"], ff, quant, hin=hin),
+        tp_lib.col(h, lp["w_up"], ff, quant, hin=hin)),
+        lp["w_down"], ff, quant), None
 
 
 def cross_attention(x: torch.Tensor, lp: Dict, ck: torch.Tensor,
@@ -295,10 +344,13 @@ def cross_attention(x: torch.Tensor, lp: Dict, ck: torch.Tensor,
     of ck/cv (B, S_enc, Hkv, D) with no mask, the output projection."""
     B, S, _ = x.shape
     Hq, D = cfg.n_heads, cfg.d_head
+    ap = lp["xattn"]
+    layout = attn_layout(ap, cfg)
     hx = apply_norm(x, lp["ln_x"], cfg)
-    q = layers.qdot(hx, lp["xattn"]["wq"], quant).reshape(B, S, Hq, D)
+    q = tp_lib.col(hx, ap["wq"], Hq * D, quant, gather=layout[0],
+                   part=layout[1]).reshape(B, S, -1, D)
     out = layers.attention(q, ck, cv)
-    return layers.qdot(out.reshape(B, S, Hq * D), lp["xattn"]["wo"], quant)
+    return out_proj(out, ap["wo"], cfg, quant, layout)
 
 
 def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
@@ -316,6 +368,10 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     block start); the window's query offset is then unknown to the host,
     so a shorter window refuses it.
 
+    A context-parallel cache (models/tp.Parallel.cache_seq: this rank's
+    sequence slice of K/V) is gathered over ``model`` first; the step
+    runs on the whole, and the rank keeps its slice of what was written.
+
     The split layout (``lcache`` holds ``k_act``/``v_act``, JAX's
     ``transformer._layer`` split branch): a refine step smooths its K/V
     with the stored calibration (no MX quantization) into the active
@@ -325,6 +381,11 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     step writes the full buffer as always, then refreshes the active
     buffer from the rows just written at ``act_start`` (the block start;
     default ``seg_start``)."""
+    ctx = tp_lib.current()
+    if ctx is not None and ctx.cache_seq and tp_lib.model_axis() is not None:
+        return _context_parallel(q, k, v, lcache, seg_start, kv_valid, cfg,
+                                 baos_cfg, calibrate, calib_mask, act_start,
+                                 ctx)
     S = k.shape[1]
     window = cfg.window
     if window is not None and window >= lcache["k"].shape[1]:
@@ -374,6 +435,27 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     return layers.attention(q, lcache["k"], lcache["v"], kv_valid,
                             window=window, baos_calib=calib,
                             q_offset=q_offset)
+
+
+def _context_parallel(q, k, v, lcache: Dict, seg_start, kv_valid, cfg,
+                      baos_cfg, calibrate, calib_mask, act_start, ctx):
+    """``cache_attention`` over a context-parallel cache: the layer's K/V
+    gathered along the sequence over ``model``, the step on the whole
+    (the calibration and the split cache's active buffer are replicated),
+    then this rank's slice of the written K/V stored back."""
+    axis = ctx.model
+    whole = dict(lcache)
+    for name in ("k", "v"):
+        whole[name] = mesh_lib.all_gather(lcache[name], 1, axis)
+    with tp_lib.use(dataclasses.replace(ctx, cache_seq=False)):
+        out = cache_attention(q, k, v, whole, seg_start, kv_valid, cfg,
+                              baos_cfg, calibrate, calib_mask, act_start)
+    if calibrate or "k_act" not in lcache:     # the full buffer written
+        s_loc = lcache["k"].shape[1]
+        r0 = axis.index * s_loc
+        for name in ("k", "v"):
+            lcache[name].copy_(whole[name][:, r0:r0 + s_loc])
+    return out
 
 
 def _split_refine(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
@@ -437,6 +519,9 @@ def forward(params: Dict, cfg: ModelConfig,
     B, S = (tokens if embeds is None else embeds).shape[:2]
     if cache is not None:
         s_tot = cache["k"].shape[2]
+        ctx = tp_lib.current()
+        if ctx is not None and ctx.cache_seq and tp_lib.model_axis():
+            s_tot *= ctx.model.size
         if not isinstance(seg_start, torch.Tensor) and \
                 not 0 <= seg_start <= s_tot - S:
             raise ValueError(f"segment [{seg_start}, {seg_start + S}) does "
@@ -444,11 +529,11 @@ def forward(params: Dict, cfg: ModelConfig,
     x = embed(params, cfg, tokens) if embeds is None \
         else embeds.to(cfg.torch_dtype)
     positions = start_of(seg_start) + torch.arange(S, device=x.device)
-    Hq, D = cfg.n_heads, cfg.d_head
     aux = None
     for i, lp in enumerate(params["layers"]):
         h = apply_norm(x, lp["ln1"], cfg)
-        q, k, v = qkv(h, lp, cfg, positions, quant)
+        layout = attn_layout(lp, cfg)
+        q, k, v = qkv(h, lp, cfg, positions, quant, layout)
         if cache is None:
             attn = layers.attention(q, k, v, window=cfg.window)
         else:
@@ -458,7 +543,7 @@ def forward(params: Dict, cfg: ModelConfig,
                 calibrate, calib_mask,
                 act_start=(logits_slice[0] if calibrate and logits_slice
                            else None))
-        x = x + layers.qdot(attn.reshape(B, S, Hq * D), lp["wo"], quant) * \
+        x = x + out_proj(attn, lp["wo"], cfg, quant, layout) * \
             cfg.residual_scale
         if cross_kv is not None:
             x = x + cross_attention(x, lp, cross_kv[0][i], cross_kv[1][i],
@@ -482,8 +567,10 @@ def forward(params: Dict, cfg: ModelConfig,
 def head_logits(x: torch.Tensor, params: Dict, cfg: ModelConfig, quant=None
                 ) -> torch.Tensor:
     """The LM head product (B, S', V), times ``logit_scale`` (skipped at
-    1.0, which leaves every value as it is)."""
-    logits = layers.qdot(x, params["lm_head"], quant)
+    1.0, which leaves every value as it is); under the tensor-parallel
+    body with a vocab-sharded head, this rank's (B, S', V / |model|)
+    columns."""
+    logits = tp_lib.col(x, params["lm_head"], cfg.vocab, quant)
     return logits if cfg.logit_scale == 1.0 else logits * cfg.logit_scale
 
 

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.models import layers, transformer
+from repro_torch.models import tp as tp_lib
 from repro_torch.models.config import ModelConfig
 
 
@@ -100,13 +101,22 @@ class WhisperModel:
     def cross_kv(self, params: Dict, enc_out: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every decoder layer's cross-attention K and V from the encoder's
-        output, computed once: two (n_layers, B, S_enc, Hkv, D) stacks."""
+        output, computed once: two (n_layers, B, S_enc, Hkv, D) stacks.
+        Under the tensor-parallel body (models/tp.py) this rank's heads,
+        or every head gathered over ``model`` where the projections do not
+        shard on whole heads (models/transformer.attn_layout)."""
         cfg = self.cfg
         B, S, _ = enc_out.shape
-        shape = (B, S, cfg.n_kv_heads, cfg.d_head)
-        return tuple(torch.stack([
-            layers.qdot(enc_out, lp["xattn"][name]).reshape(shape)
-            for lp in params["layers"]]) for name in ("wk", "wv"))
+        hkv = cfg.n_kv_heads * cfg.d_head
+        hin = tp_lib.copy_in(enc_out)
+        out = ([], [])
+        for lp in params["layers"]:
+            gather, part = transformer.attn_layout(lp["xattn"], cfg)
+            for acc, name in zip(out, ("wk", "wv")):
+                acc.append(tp_lib.col(enc_out, lp["xattn"][name], hkv,
+                                      gather=gather, part=part, hin=hin
+                                      ).reshape(B, S, -1, cfg.d_head))
+        return tuple(torch.stack(acc) for acc in out)
 
     def forward(self, params: Dict, tokens: torch.Tensor, **kw):
         return transformer.forward(params, self.cfg, tokens, **kw)

@@ -68,21 +68,35 @@ def init_state(params) -> Dict[str, Any]:
             "v": tree_lib.tree_map(zeros, params), "step": 0}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, axis=None, sharded=None) -> torch.Tensor:
     """sqrt of the sum over leaves (JAX's order) of each leaf's f32 sum of
-    squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_lib.leaves(tree)))
+    squares.  Over a tensor-parallel mesh, ``sharded`` flags the leaves
+    that hold this rank's shard along ``axis`` (launch/mesh.Axis, the
+    ``model`` axis): their sums of squares are summed over ``axis``, the
+    replicated leaves' counted once."""
+    sq = [torch.sum(torch.square(x.to(torch.float32)))
+          for x in tree_lib.leaves(tree)]
+    if axis is None or axis.size == 1 or not sharded or not any(sharded):
+        return torch.sqrt(sum(sq))
+    from repro_torch.launch import mesh as mesh_lib
+    own = mesh_lib.all_reduce(sum(q for q, s in zip(sq, sharded) if s),
+                              "sum", axis)
+    return torch.sqrt(own + sum((q for q, s in zip(sq, sharded) if not s),
+                                torch.zeros_like(own)))
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: Dict[str, Any], cfg: OptConfig
+def apply_updates(params, grads, state: Dict[str, Any], cfg: OptConfig,
+                  axis=None, sharded=None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place on ``params`` and ``state`` (see the
-    module's note).  Returns (params, state, {"lr", "grad_norm"})."""
+    module's note).  ``axis``/``sharded``: a tensor-parallel mesh's
+    ``model`` axis and the flags of the leaves sharded over it, for the
+    clipping norm (``global_norm``).  Returns (params, state, {"lr",
+    "grad_norm"})."""
     step = state["step"] + 1
     lr = schedule_lr(step, cfg)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, axis, sharded)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     # 1 - b^step in f32, as JAX's b ** step.astype(f32); as Python floats

@@ -191,7 +191,7 @@ def emit_combine(rows: int, stage: str = "combine") -> None:
     """The vocab-sharded Stable-Max combine: one pmax + psum + pmin of
     per-row (m, S, idx) partials, then the reciprocal.  Used by
     ``capture_sampling_trace(head_path='sharded')`` for the per-chip view
-    (the in-mesh combine itself waits for ROADMAP.md item 12)."""
+    and by ``sampling.combine_partials``, the in-mesh combine itself."""
     emit("COLL_PMAX", (rows,), "fp32", stage, note="m")
     emit("COLL_PSUM", (rows,), "fp32", stage, note="s_rescaled")
     emit("COLL_PMIN", (rows,), "int32", stage, note="argmax_tiebreak")

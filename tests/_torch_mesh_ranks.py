@@ -196,7 +196,9 @@ def _job_steps(rank: int, world: int) -> dict:
     """Mesh (2, 1): the train step (f32 smoke llada-8b) and the prefill +
     decode steps (ServePolicy(), and split_cache for decode) on each
     rank's shards, gathered over data, beside rank 0's single-device run
-    on the full inputs; mesh (1, 2) must refuse every kind."""
+    on the full inputs; the MoE steps (``tp_run``, its aux the global
+    batch's); the refusals: sampled decoding over |data| > 1 or a
+    vocab-sharded head, and the ssm body over |model| > 1."""
     from repro_torch import sharding, tree as tree_lib
     from repro_torch.configs import base
     from repro_torch.launch import mesh as mesh_lib
@@ -210,19 +212,21 @@ def _job_steps(rank: int, world: int) -> dict:
     cfg = base.get_config("llada-8b", smoke=True)
     model = build_model(cfg, "cpu")
     out = {}
-    moe = build_model(base.get_config("llada-moe-7b-a1b", smoke=True), "cpu")
     hot = steps.ServePolicy(sampling=dataclasses.replace(
         steps.ServePolicy().sampling, temperature=0.8))
+    ssm = build_model(base.get_config("mamba2-130m", smoke=True), "cpu")
+    v256 = build_model(tp_config("llada-8b v256"), "cpu")
     for kind, mdl, m, policy in (
-            ("train", model, wide, None), ("prefill", model, wide, None),
-            ("decode", model, wide, None), ("moe train", moe, mesh, None),
-            ("hot decode", model, mesh, hot)):
+            ("ssm train", ssm, wide, None), ("ssm decode", ssm, wide, None),
+            ("hot decode", model, mesh, hot),
+            ("hot sharded-head decode", v256, wide, hot)):
         try:
             steps.build_step(mdl, step_shape(kind.split()[-1]), policy,
                              mesh=m)
             out["refused", kind] = None
         except NotImplementedError as e:
             out["refused", kind] = str(e)
+    out["moe"] = tp_run("llada-moe-7b-a1b", mesh)
     tokens, x, k = (torch.from_numpy(a) for a in step_inputs(cfg))
     opt = adamw.OptConfig(lr=1e-3, warmup_steps=2)
 
@@ -290,8 +294,221 @@ def _job_steps(rank: int, world: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the tensor-parallel body (tests/test_torch_tp_steps.py)
+# ---------------------------------------------------------------------------
+
+# smoke configs (f32); "v256": the vocab cut to 256, so the embedding, the
+# loss and the decode step's head shard over ``model`` (every smoke config
+# has V = 257, which no |model| > 1 divides); "e6": six experts, which
+# |model| = 4 does not divide, so the experts' hidden dim shards instead
+TP_CASES = ("llada-8b", "llada-8b v256", "qwen2-0.5b", "llada-moe-7b-a1b",
+            "qwen2-moe-a2.7b e6", "whisper-medium", "internvl2-26b")
+TP_LR = 1e-3
+
+
+def tp_config(case: str):
+    from repro_torch.configs import base
+    arch, *opts = case.split()
+    cfg = base.get_config(arch, smoke=True)
+    if "v256" in opts:
+        cfg = dataclasses.replace(cfg, vocab=256)
+    if cfg.mask_id >= cfg.vocab:
+        cfg = dataclasses.replace(cfg, mask_token_id=cfg.vocab - 1)
+    if "e6" in opts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=6))
+    return cfg
+
+
+def tp_params(model):
+    """Seeded parameters with every norm and bias moved off its constant
+    init by a numpy draw (a bias added twice, or a norm applied to the
+    wrong shard, then shows)."""
+    from repro_torch import tree as tree_lib
+    params = model.init(seed=0)
+    rs = np.random.RandomState(17)
+    for path, t in tree_lib.flatten_with_paths(params):
+        if t.dim() == 1 or path.endswith(("/b", "/w")):
+            t.add_(torch.from_numpy(rs.randn(*t.shape).astype(np.float32)
+                                    * 0.1).to(t.dtype))
+    return params
+
+
+def tp_extras(cfg, kind: str) -> dict:
+    """The audio family's frames or encoder K/V and the vlm family's
+    image, full batch, from numpy."""
+    rs = np.random.RandomState(21)
+    ex = {}
+    if cfg.family == "audio":
+        if kind in ("train", "prefill"):
+            ex["audio_embeds"] = torch.from_numpy(rs.randn(
+                STEP_B, cfg.n_audio_ctx, cfg.d_model).astype(np.float32))
+        else:
+            kv = (cfg.n_layers, STEP_B, cfg.n_audio_ctx, cfg.n_kv_heads,
+                  cfg.d_head)
+            ex["cross_kv"] = tuple(torch.from_numpy(
+                rs.randn(*kv).astype(np.float32)) for _ in range(2))
+    if cfg.family == "vlm" and kind in ("train", "prefill"):
+        ex["image_embeds"] = torch.from_numpy(rs.randn(
+            STEP_B, cfg.n_image_tokens, cfg.d_model).astype(np.float32))
+    return ex
+
+
+def tp_run(case: str, mesh=None) -> dict:
+    """One case's train, prefill and decode (unified and split) steps on
+    the full inputs (no mesh), or on this rank's shards of them over
+    ``mesh``, with every output gathered whole (numpy)."""
+    from repro_torch import sharding, tree as tree_lib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as launch_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    cfg = tp_config(case)
+    model = build_model(cfg, "cpu")
+    tokens, x, k = (torch.from_numpy(a) for a in step_inputs(cfg))
+    opt = adamw.OptConfig(lr=TP_LR, warmup_steps=2)
+    out = {}
+
+    def placed(shape, policy=None):
+        specs = steps.input_specs(model, shape, policy)
+        with sharding.use_context(mesh, launch_sharding.make_rules(cfg,
+                                                                   mesh)):
+            return steps.input_shardings(model, shape, mesh, specs, policy)
+
+    def whole(t, pl):
+        """``t`` (this rank's shard under ``pl``) gathered whole."""
+        if mesh is None or not isinstance(t, torch.Tensor) or t.dim() == 0:
+            return t
+        for dim, ax in enumerate(pl.spec):
+            if ax is not None:
+                t = mesh_lib.all_gather(t, dim, mesh.axis(ax))
+        return t
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for t in tree_lib.leaves(tree)
+                   if isinstance(t, torch.Tensor))
+
+    def equal_over_model(t):
+        """Whether every ``model`` rank holds the same ``t``."""
+        if mesh is None:
+            return True
+        both = mesh_lib.all_gather(t.detach().reshape(1, -1), 0,
+                                   mesh.axis("model"))
+        return bool((both == both[:1]).all())
+
+    # train: the gradients, then one AdamW step
+    shape = step_shape("train")
+    params = tp_params(model)
+    full = {"params": params, "opt_state": adamw.init_state(params),
+            "tokens": tokens, "seed": 3, "extras": tp_extras(cfg, "train")}
+    if mesh is None:
+        mine, pls = full, None
+    else:
+        pls = placed(shape)
+        mine = steps.shard_inputs(full, pls)
+        mine["params"] = launch_sharding.place(params, pls["params"])
+        mine["opt_state"] = adamw.init_state(mine["params"])
+        out["bytes"] = (nbytes(mine["params"]), nbytes(mine["opt_state"]))
+    met, grads = steps.build_grad_fn(model, mesh=mesh)(
+        mine["params"], mine["tokens"], 3, mine["extras"])
+    gpl = [None] * len(grads) if pls is None else \
+        tree_lib.leaves(pls["params"])
+    out["train"] = (float(met["loss"]), float(met["aux"]),
+                    [whole(g, p).numpy() for g, p in zip(grads, gpl)])
+    out["train equal"] = equal_over_model(torch.stack(
+        [met["loss"], met["aux"]]))
+    fresh = launch_sharding.place(tp_params(model), pls["params"]) \
+        if pls is not None else tp_params(model)
+    step, _ = steps.build_step(model, shape, opt_cfg=opt, mesh=mesh)
+    new, _, met1 = step(fresh, adamw.init_state(fresh), mine["tokens"], 3,
+                        mine["extras"])
+    out["train step"] = (float(met1["grad_norm"]), np.concatenate(
+        [whole(t.detach(), p).reshape(-1).numpy() for t, p in zip(
+            tree_lib.leaves(new), gpl)]))
+
+    # prefill, then decode from its cache, unified and split
+    for split in (False, True):
+        policy = steps.ServePolicy(split_cache=split)
+        act = STEP_L if split else None
+        pre, dec = step_shape("prefill"), step_shape("decode")
+        inp = {"params": tp_params(model), "x": x,
+               "cache": model.init_cache(STEP_B, STEP_S, act),
+               "extras": tp_extras(cfg, "prefill")}
+        dex = {"k": k, "extras": tp_extras(cfg, "decode")}
+        if mesh is not None:
+            pls, dpl = placed(pre, policy), placed(dec, policy)
+            meta = build_model(cfg, "meta").init_cache(STEP_B, STEP_S, act)
+            inp = steps.shard_inputs(inp, pls)
+            inp["params"] = launch_sharding.place(tp_params(model),
+                                                  pls["params"])
+            inp["cache"] = launch_sharding.local_like(
+                meta, pls["cache"],
+                lambda path: 1.0 if path.endswith("_scale") else 0.0)
+            dex = steps.shard_inputs(dex, dpl)
+            out["cache bytes", split] = nbytes(inp["cache"])
+        fp, _ = steps.build_step(model, pre, policy, mesh=mesh)
+        fd, _ = steps.build_step(model, dec, policy, mesh=mesh)
+        logits, cache = fp(inp["params"], inp["x"], inp["cache"], STEP_BS,
+                           inp["extras"])
+        x1, cache = fd(inp["params"], inp["x"], cache, STEP_BS, dex["k"], 5,
+                       dex["extras"])
+        if mesh is not None:
+            lpl = sharding.Placement(mesh, sharding.PartitionSpec(
+                "data", None,
+                "model" if logits.shape[-1] != cfg.vocab else None))
+            out["decode equal", split] = equal_over_model(x1)
+            logits = whole(logits, lpl)
+            x1 = whole(x1, pls["x"])
+            cache = {n: whole(t, pls["cache"][n]) for n, t in cache.items()}
+        out["serve", split] = (logits.numpy(), x1.numpy(),
+                               {n: t.numpy() for n, t in cache.items()})
+    return out
+
+
+TP_QUANT_CASES = ("llada-8b", "qwen2-moe-a2.7b e6")
+
+
+def tp_quant_forward(case: str, mesh=None):
+    """The forward's logits (no cache) under ``QuantPolicy(enabled=True)``
+    on the canvas, whole (numpy): on one rank, or over ``mesh`` inside the
+    tensor-parallel body on this rank's shards (where a row-parallel shard
+    is not a multiple of the MX block, its input and weight gathered)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as launch_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import layers, tp as tp_lib
+    from repro_torch.models.registry import build_model
+    cfg = tp_config(case)
+    model = build_model(cfg, "cpu")
+    _, x, _ = step_inputs(cfg)
+    quant = layers.QuantPolicy(enabled=True)
+    params, ctx = tp_params(model), None
+    if mesh is not None:
+        params = launch_sharding.place(params, steps.param_placements(
+            model, mesh))
+        ctx = tp_lib.Parallel(model=mesh.axis("model"))
+    with torch.no_grad(), tp_lib.use(ctx):
+        logits, _ = model.forward(params, torch.from_numpy(x), quant=quant)
+    if logits.shape[-1] != cfg.vocab:
+        logits = mesh_lib.all_gather(logits, -1, mesh.axis("model"))
+    return logits.numpy()
+
+
+def _job_tp(rank: int, world: int, data: int, model: int,
+            cases: tuple) -> dict:
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_debug_mesh(data, model, "cpu")
+    out = {case: tp_run(case, mesh) for case in cases}
+    out["quant"] = {case: tp_quant_forward(case, mesh)
+                    for case in TP_QUANT_CASES}
+    return out
+
+
 JOBS = {"combine": _job_combine, "serve": _job_serve,
-        "compress": _job_compress, "steps": _job_steps}
+        "compress": _job_compress, "steps": _job_steps, "tp": _job_tp}
 
 
 def run_rank(rank: int, world: int, store: str, job: str, out: str,

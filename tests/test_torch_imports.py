@@ -88,3 +88,24 @@ def test_slice_modules_are_covered():
               "repro_torch.checkpoint.checkpointing",
               "repro_torch.launch.mesh"):
         assert m in mods, m
+
+
+def test_dryrun_is_covered():
+    """The dry run (launch/dryrun.py) is one of the modules checked above,
+    and its CLI answers without JAX."""
+    assert "repro_torch.launch.dryrun" in _modules()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys, runpy\n"
+            "sys.argv = ['dryrun', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('repro_torch.launch.dryrun', "
+            "run_name='__main__')\n"
+            "except SystemExit:\n"
+            "    pass\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--multi-pod" in out.stdout

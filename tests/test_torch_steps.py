@@ -25,10 +25,11 @@ and decode bit for bit equal to the single-device step; train within
 largest value, the parameters within 2 x lr + 1e-6 (AdamW's first step
 moves each element by about lr x sign(g), so a gradient element that
 rounds to the other side of 0 moves its parameter by up to 2 x lr), and
-every rank holding the same parameters.  A mesh with |model| > 1, the
-MoE train step and sampled decoding over |data| > 1 raise
-NotImplementedError.  A (1, 1) mesh in this process equals no mesh bit
-for bit.
+every rank holding the same parameters; the MoE steps at the same
+bounds (the aux the global batch's).  The ssm body over |model| > 1 and
+sampled decoding over |data| > 1 or a vocab-sharded head raise
+NotImplementedError (tests/test_torch_tp_steps.py holds |model| > 1).  A
+(1, 1) mesh in this process equals no mesh bit for bit.
 """
 import dataclasses
 import functools
@@ -346,14 +347,32 @@ def test_mesh_2_1_equals_one_rank(mesh_steps):
 
 
 def test_mesh_refusals(mesh_steps):
-    for kind in ("train", "prefill", "decode"):
+    for kind in ("ssm train", "ssm decode"):
         msg = mesh_steps["refused", kind]
-        assert msg is not None and "|model| > 1" in msg and "12c" in msg
-    assert "MoE" in mesh_steps["refused", "moe train"]
+        assert msg is not None and "|model| > 1" in msg and "12d" in msg
     assert "greedily" in mesh_steps["refused", "hot decode"]
+    assert "greedily" in mesh_steps["refused", "hot sharded-head decode"]
     with pytest.raises(TypeError, match="not a launch/mesh.Mesh"):
         tsteps.build_step(_models("llada-8b")[1], _shapes("prefill")[1],
                           mesh=mesh_lib.make_production_mesh())
+
+
+def test_mesh_2_1_moe_equals_one_rank(mesh_steps):
+    """The MoE train step over |data| = 2 (its load-balance aux the
+    global batch's) and its prefill + decode, against one rank at the
+    bounds of test_mesh_2_1_equals_one_rank."""
+    want, got = ranks.tp_run("llada-moe-7b-a1b"), mesh_steps["moe"]
+    (l0, a0, g0), (l1, a1, g1) = want["train"], got["train"]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert abs(a1 - a0) <= 1e-5 * abs(a0)
+    for g, w in zip(g1, g0):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * max(
+            float(np.abs(w).max()), 1e-30))
+    assert np.abs(got["train step"][1] - want["train step"][1]).max() <= \
+        2 * ranks.TP_LR + 1e-6
+    for split in (False, True):
+        np.testing.assert_array_equal(got["serve", split][1],
+                                      want["serve", split][1])
 
 
 def test_mesh_1_1_equals_no_mesh():
