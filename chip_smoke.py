@@ -300,10 +300,15 @@ Phases, each fatal on failure:
                (b) qwen2-0.5b at full depth on (1, 4) (two KV heads: a
                context-parallel cache, ``wk`` cut mid-head, q/k/v
                gathered, route A); each against the one-rank steps on the
-               rank's rows: logits, the cache and its calibration within
-               TP_*_BOUND, the decode canvas equal off recorded near-ties,
-               every model rank's canvas equal, exact launches a step, no
-               plain version, ms a step and its collectives' ms; (c)
+               rank's rows: logits, the cache (per channel) and its
+               calibration within TP_*_BOUND, the decode canvas equal off
+               recorded near-ties, every model rank's canvas equal, exact
+               launches a step, no plain version, ms a step and its
+               collectives' ms; (a') llada-8b at PHASE14_LAYERS layers on
+               (2, 2) in the served configuration (bf16, ServePolicy():
+               the mxint4 cache; ``tp_served_check``): its distance from
+               an f32 run at most TP_BF16_RATIO times one bf16 rank's, the
+               canvas equal to one bf16 rank's off near-ties; (c)
                qwen2-0.5b's f32 train step at PHASE13C_LAYERS layers on
                (2, 2) against one rank (loss 1e-5 relative, gradients 1e-5
                of each leaf's largest, parameters 2 x lr + 1e-6).  Then the
@@ -5705,11 +5710,40 @@ PHASE14_SECONDS = "phase 14 seconds "
 PHASE14_LAYERS = 4
 TP_POLICY_FMT = "none"
 # f32 sums in another order over up to 24 full-width layers: the prefill
-# logits within 1e-4 of the largest; the cached K/V, read back through
-# each run's own calibration (x_s * f + c: the smoothing divides by a
-# channel's range, so a narrow channel magnifies a difference), and the
-# calibration within 1e-4 of each leaf's largest value
+# logits within 1e-4 of the largest; the cached K/V, each run's read back
+# through its own calibration (x_s * f + c), within 1e-4 of each
+# channel's largest value (``kv_channel_err``); the calibration within
+# 1e-4 of each leaf's largest value
 TP_LOGITS_BOUND, TP_KV_BOUND, TP_CALIB_BOUND = 1e-4, 1e-4, 1e-4
+# The served configuration through the body (``tp_served_check``): bf16
+# weights and ServePolicy() (dual, the BAOS cache in mxint4, mxfp8
+# sampling), the kernels' tensor-core routes.  Two bf16 runs part at the
+# cache's rounding edges, so, as phase 11 holds its bf16 gradients to an
+# f32 reference, the mesh run's distance from an f32 run of the same
+# weights and policy may be at most TP_BF16_RATIO times the one-rank bf16
+# run's (RMS over the rank's rows, relative to the f32 run's RMS): the
+# prefill logits, the prefilled K/V (each read back through its own
+# calibration) and the calibration; the decode canvas equals the one-rank
+# bf16 run's off recorded near-ties.
+TP_BF16_RATIO = 2.0
+
+
+def kv_channel_err(got, want) -> float:
+    """The largest difference of two runs' K/V (L, B, S, H, D) relative to
+    its channel's scale: per (layer, head, channel), the largest |got -
+    want| over rows and positions divided by the largest |want| there (at
+    least 1e-3 of the leaf's largest, for a channel near zero)."""
+    diff = (got - want).abs().amax(dim=(1, 2))
+    scale = want.abs().amax(dim=(1, 2))
+    scale = torch.clamp(scale, min=1e-3 * float(scale.max()))
+    return float((diff / scale).max())
+
+
+def _rel_rms(got, want) -> float:
+    """||got - want|| / ||want|| over every element, in f32."""
+    want = want.float()
+    return float(torch.linalg.vector_norm(got.float() - want) /
+                 torch.linalg.vector_norm(want))
 
 
 def _gather_placed(t, placement, mesh):
@@ -5739,8 +5773,9 @@ def tp_serve_check(mesh, cfg, say, what: str) -> dict:
     (launch/sharding.place / local_like), the tensor-parallel body,
     against the one-rank steps on the rank's rows with every parameter:
     the prefill's logits within TP_LOGITS_BOUND of the largest, the
-    prefilled cache's K/V (unsmoothed) within TP_KV_BOUND and its
-    calibration within TP_CALIB_BOUND of each leaf's largest value,
+    prefilled cache's K/V (unsmoothed) within TP_KV_BOUND of each
+    channel's largest value and its calibration within TP_CALIB_BOUND of
+    each leaf's,
     the decode canvas equal off recorded near-ties (``step_near_ties``,
     given the two refines' logit difference), every ``model`` rank's
     canvas equal, exact launches a step and no plain version; the steps'
@@ -5848,8 +5883,7 @@ def tp_serve_check(mesh, cfg, say, what: str) -> dict:
     for name in ("k", "v"):
         raw_of = [c[name].float() * c[f"{name}_scale"] + c[f"{name}_center"]
                   for c in (got, c1_pre)]
-        kv = max(kv, float((raw_of[0] - raw_of[1]).abs().max()) / max(
-            float(raw_of[1].abs().max()), 1e-30))
+        kv = max(kv, kv_channel_err(*raw_of))
         for cal in (f"{name}_center", f"{name}_scale"):
             want = c1_pre[cal].float()
             calib = max(calib, float((got[cal] - want).abs().max()) / max(
@@ -5905,8 +5939,8 @@ def tp_serve_check(mesh, cfg, say, what: str) -> dict:
         f"rank; prefill launches {c_pre}, decode launches {c_dec}, no plain "
         f"version; the prefill logits within {raw:.4g} of one rank's "
         f"({raw / top:.3g} of the largest, bound {TP_LOGITS_BOUND:g}), "
-        f"the prefilled K/V unsmoothed within {kv:.3g} of the largest "
-        f"(bound {TP_KV_BOUND:g}), the "
+        f"the prefilled K/V unsmoothed within {kv:.3g} of their channel's "
+        f"largest (bound {TP_KV_BOUND:g}), the "
         f"calibration within {calib:.3g} (bound {TP_CALIB_BOUND:g}); the "
         f"decode canvas equal to one "
         f"rank's" + (f" but at {len(ties)} recorded near-ties {ties}"
@@ -5918,6 +5952,180 @@ def tp_serve_check(mesh, cfg, say, what: str) -> dict:
         f"gloo, so these show the collectives and the parity, not a "
         f"speed-up")
     del mine, cache, tp_pre, c1_pre, params, model
+    return total
+
+
+def tp_served_check(mesh, cfg, say, what: str) -> dict:
+    """``build_step(prefill)`` then ``build_step(decode)`` over ``mesh``
+    (|model| > 1) in the served configuration: ``cfg``'s bf16 weights
+    (seeded) under ``ServePolicy()`` (dual, BAOS mxint4 cache, mxfp8
+    sampling) at Table 6's shape, each rank holding its shards only.  On
+    this rank's rows, an f32 run of the same weights and policy is the
+    reference; the mesh run's distance from it (prefill logits, prefilled
+    K/V read back through each run's calibration, the calibration; RMS
+    relative to the reference's) at most TP_BF16_RATIO times the one-rank
+    bf16 run's; the decode canvas equal to the one-rank bf16 run's off
+    recorded near-ties (``step_near_ties``), every ``model`` rank's canvas
+    equal; exact launches a step and no plain version.  Returns this
+    rank's launch counts of the mesh steps."""
+    from repro_torch import sharding
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import base
+    from repro_torch.core import diffusion, mx
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as launch_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import tp as tp_lib
+    from repro_torch.models.registry import build_model
+    nl, mid = cfg.n_layers, cfg.mask_id
+    n_model = mesh.shape["model"]
+    B, P, G, L = (TABLE6[k] for k in ("B", "prompt", "gen", "block"))
+    S = P + G
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.cat([torch.randint(0, cfg.vocab - 200, (B, P), generator=gen,
+                                 device=dev, dtype=torch.int32),
+                   torch.full((B, G), mid, device=dev, dtype=torch.int32)],
+                  1)
+    policy = steps.ServePolicy()
+    k = torch.full((B,), L // policy.steps_per_block, device=dev,
+                   dtype=torch.int32)
+    pre_s = base.ShapeConfig("prefill", S, B, "prefill", block_length=L)
+    dec_s = base.ShapeConfig("decode", S, B, "decode", block_length=L)
+    r0, r1 = mesh.rows(B)
+    xr, kr = x[r0:r1], k[r0:r1]
+    head_sharded = cfg.vocab % n_model == 0
+    route_a = head_sharded and (cfg.vocab // n_model) % mx.MX_BLOCK == 0
+
+    def kv_of(c):
+        return {n: c[n].float() * c[f"{n}_scale"] + c[f"{n}_center"]
+                for n in ("k", "v")}
+
+    # one rank on this rank's rows: the f32 reference, then bf16
+    runs = {}
+    params = None
+    for dt in ("float32", "bfloat16"):
+        model = build_model(dataclasses.replace(cfg, dtype=dt), dev)
+        if params is None:
+            params = model.init(seed=0)
+        else:
+            params = tree_lib.tree_map(lambda t: t.to(torch.bfloat16),
+                                       params)
+        pre1, _ = steps.build_step(model, pre_s, policy)
+        dec1, _ = steps.build_step(model, dec_s, policy)
+        with no_plain():
+            lg1, c1 = pre1(params, xr, model.init_cache(r1 - r0, S), P, {})
+            c_pre = clone_tree(c1)
+            x1, _ = dec1(params, xr, c1, P, kr, 0, {})
+        runs[dt] = (lg1.float(), kv_of(c_pre), {
+            n: c_pre[n].float() for n in c_pre if n not in ("k", "v")}, x1)
+        if dt == "bfloat16":
+            dcfg = steps.make_dcfg(model.cfg, dec_s, policy)
+            lk1, _ = diffusion.refine_step(model, params, xr,
+                                           clone_tree(c_pre), P, dcfg)
+        del c1, c_pre
+    free()
+
+    # the mesh: this rank's shards of the bf16 weights only
+    specs = steps.input_specs(model, dec_s, policy)
+    with sharding.use_context(mesh, launch_sharding.make_rules(
+            model.cfg, mesh)):
+        pls = steps.input_shardings(model, dec_s, mesh, specs, policy)
+    mine = launch_sharding.place(params, pls["params"])
+    del params
+    cache = launch_sharding.local_like(
+        build_model(model.cfg, "meta").init_cache(B, S), pls["cache"],
+        lambda path: 1.0 if path.endswith("_scale") else 0.0, device=dev)
+    pre, _ = steps.build_step(model, pre_s, policy, mesh=mesh)
+    dec, _ = steps.build_step(model, dec_s, policy, mesh=mesh)
+    want_pre = {n: 0 for n in _build.COUNTED}
+    want_pre.update(flash_bidir=nl, baos_mx_quant=2 * nl)
+    want_dec = dict(want_pre, topk_mask=1)
+    want_dec["fused_head_sampling_shard" if route_a else
+             "fused_head_sampling" if head_sharded
+             else "stablemax_sampling"] = 1
+    with no_plain():
+        _build.reset_launch_counts()
+        lg, cache = pre(mine, xr, cache, P, {})
+        c_pre = dict(_build.launch_counts)
+        require(c_pre == want_pre, f"{what}: {mesh} bf16 prefill launches "
+                                   f"{c_pre}")
+        tp_pre = clone_tree(cache)
+        _build.reset_launch_counts()
+        xt, cache = dec(mine, xr, cache, P, kr, 0, {})
+        c_dec = dict(_build.launch_counts)
+        require(c_dec == want_dec, f"{what}: {mesh} bf16 decode launches "
+                                   f"{c_dec}")
+    total = {n: c_pre[n] + c_dec[n] for n in _build.COUNTED}
+    with tp_lib.use(tp_lib.Parallel(model=mesh.axis("model"),
+                                    cache_seq=tp_pre["k"].shape[2] != S)):
+        lk, _ = diffusion.refine_step(model, mine, xr, clone_tree(tp_pre),
+                                      P, dcfg)
+    if lk.shape[-1] != cfg.vocab:
+        lk = mesh_lib.all_gather(lk, -1, mesh.axis("model"))
+    if lg.shape[-1] != cfg.vocab:
+        lg = mesh_lib.all_gather(lg, -1, mesh.axis("model"))
+    got = {n: _rows_of_data(t, pls["cache"][n], mesh).float()
+           for n, t in tp_pre.items()}
+    runs["mesh"] = (lg.float(), kv_of(got), {
+        n: got[n] for n in got if n not in ("k", "v")}, xt)
+    del got, tp_pre, cache, mine
+
+    # each bf16 run's distance from the f32 reference
+    err = {}
+    for name, base_ in (("bfloat16", "float32"), ("mesh", "float32"),
+                        ("mesh", "bfloat16")):
+        (lgr, kvr, calr, _), ref = runs[name], runs[base_]
+        err[name, base_] = (
+            _rel_rms(lgr, ref[0]),
+            max(_rel_rms(kvr[n], ref[1][n]) for n in ("k", "v")),
+            max(_rel_rms(calr[n], ref[2][n]) for n in ref[2]))
+    err["bfloat16"], err["mesh"] = err["bfloat16", "float32"], \
+        err["mesh", "float32"]
+    ratios = [m / max(o, 1e-30) for m, o in zip(err["mesh"],
+                                                err["bfloat16"])]
+    fmt = dcfg.sampling.fmt
+    z = quantized_f32(lk1.float().reshape((r1 - r0) * L, -1), fmt,
+                      mid).view(r1 - r0, L, -1)
+    zk = quantized_f32(lk.float().reshape((r1 - r0) * L, -1), fmt,
+                       mid).view(r1 - r0, L, -1)
+    live = z > -1e29
+    lerr = torch.where(live, (zk - z).abs(), 0.0).amax((1, 2))
+    x_one = runs["bfloat16"][3]
+    ties = step_near_ties(z, lerr, xr[:, P:P + L], xt[:, P:P + L],
+                          x_one[:, P:P + L], kr, mid)
+    require(torch.equal(xt[:, :P], xr[:, :P]) and
+            torch.equal(xt[:, P + L:], xr[:, P + L:]),
+            f"{what}: the bf16 decode step wrote outside the block")
+    every = mesh_lib.all_gather(xt[None], 0, mesh.axis("model"))
+    require(bool((every == every[:1]).all()),
+            f"{what}: the model ranks' bf16 canvases differ")
+    off_f32 = [int((runs[n][3] != runs["float32"][3]).sum())
+               for n in ("bfloat16", "mesh")]
+    names = ("logits", "K/V", "calibration")
+    say(f"{what}: {cfg.name} bf16 ({nl} layers) under ServePolicy() (dual, "
+        f"BAOS mxint4, sampling {fmt}) prefill + decode at Table 6's shape "
+        f"on {mesh} (rank 0's view; "
+        f"{'route A' if route_a else 'the head gathered' if head_sharded else 'a replicated head'}); "
+        f"prefill launches {c_pre}, decode launches {c_dec}, no plain "
+        f"version; RMS distance from the f32 run of the same weights "
+        f"(relative), one-rank bf16 / mesh / ratio (bound "
+        f"{TP_BF16_RATIO:g}): " + "; ".join(
+            f"{nm} {a:.4g} / {b:.4g} / {r:.3g}" for nm, a, b, r in zip(
+                names, err["bfloat16"], err["mesh"], ratios))
+        + "; the mesh run from the one-rank bf16 run: " + ", ".join(
+            f"{nm} {d:.4g}" for nm, d in zip(names, err["mesh",
+                                                        "bfloat16"]))
+        + f"; the decode canvas equal to the one-rank bf16 run's"
+        + (f" but at {len(ties)} recorded near-ties {ties}" if ties else "")
+        + f", every model rank's equal; block tokens off the f32 run's: "
+        f"one-rank bf16 {off_f32[0]}, mesh {off_f32[1]} of "
+        f"{(r1 - r0) * L} ({card_line()})")
+    require(all(r <= TP_BF16_RATIO for r in ratios),
+            f"{what}: the bf16 mesh run is {ratios} times as far from the "
+            f"f32 reference as one rank's (logits, K/V, calibration)")
+    del runs, lk, lk1, z, zk, lg
     return total
 
 
@@ -6046,8 +6254,9 @@ def phase14_main() -> int:
     (b) qwen2-0.5b at full width and depth, prefill + decode on (1, 4) (two KV
     heads: a context-parallel cache, ``wk``'s shards half a head, q, k and
     v gathered); (c) qwen2-0.5b's f32 train step on (2, 2); each against
-    one rank (``tp_serve_check``, ``tp_train_check``).  Prints its launch
-    counts (the ranks' sum)."""
+    one rank (``tp_serve_check``, ``tp_train_check``); after (a), (a')
+    llada-8b in bf16 under ServePolicy() on (2, 2) (``tp_served_check``).
+    Prints its launch counts (the ranks' sum)."""
     import torch.distributed as dist
     from repro_torch import device
     from repro_torch.configs import base
@@ -6076,6 +6285,9 @@ def phase14_main() -> int:
             if rank == 0 else dataclasses.replace(
                 cfg, n_layers=min(PHASE14_LAYERS, cfg.n_layers))
         add(tp_serve_check(square, cfg, say, "phase 14a"))
+        free()
+        dist.barrier()
+        add(tp_served_check(square, cfg, say, "phase 14a"))
         free()
         dist.barrier()
         add(tp_serve_check(row, base.get_config("qwen2-0.5b"), say,

@@ -177,35 +177,40 @@ def model_flops(cfg, shape) -> float:
 
 
 VARIANTS = {
-    # JAX's variants: config / policy overrides per cell.  The port reads
-    # no score_dtype, remat or attn_chunk (its attention is flash_bidir at
-    # every size, in f32 inside the kernel), so those variants trace as
-    # their baselines do
+    # JAX's variants that change the port's trace: config / policy
+    # overrides per cell
     "baseline": {},
-    "bf16score": {"cfg": {"score_dtype": "bfloat16"}},
     "split": {"policy": {"split_cache": True}},
-    "split_bf16": {"policy": {"split_cache": True},
-                   "cfg": {"score_dtype": "bfloat16"}},
     "losschunk": {"policy": {"loss_chunk": 512}},
-    "losschunk_bf16": {"policy": {"loss_chunk": 512},
-                       "cfg": {"score_dtype": "bfloat16"}},
-    "remat": {"cfg": {"remat": "dots"}},
-    "remat_bf16": {"cfg": {"remat": "dots", "score_dtype": "bfloat16"}},
-    "bigchunk": {"cfg": {"attn_chunk": 4096}},
+    "split_losschunk": {"policy": {"split_cache": True, "loss_chunk": 512}},
     "padheads48": {"cfg": {"n_heads": 48, "n_kv_heads": 48}},
-    "padheads48_split_bf16": {"cfg": {"n_heads": 48, "n_kv_heads": 48,
-                                      "score_dtype": "bfloat16"},
-                              "policy": {"split_cache": True}},
-    "split_losschunk_bf16": {"policy": {"split_cache": True,
-                                        "loss_chunk": 512},
-                             "cfg": {"score_dtype": "bfloat16"}},
-    "moe_global": {"moe": {"group_dispatch": False}},
+    "padheads48_split": {"cfg": {"n_heads": 48, "n_kv_heads": 48},
+                         "policy": {"split_cache": True}},
     "padheads_g3": {"cfg": {"n_heads": 48, "n_kv_heads": 16}},
+    "moe_global": {"moe": {"group_dispatch": False}},
+}
+
+# JAX's variants that set only what the port does not read (score_dtype,
+# remat, attn_chunk: its attention is flash_bidir at every size, f32 inside
+# the kernel): (the options, the variant whose trace they would repeat)
+NOT_PORTED = {
+    "bf16score": ("score_dtype", "baseline"),
+    "split_bf16": ("score_dtype", "split"),
+    "losschunk_bf16": ("score_dtype", "losschunk"),
+    "remat": ("remat", "baseline"),
+    "remat_bf16": ("remat and score_dtype", "baseline"),
+    "bigchunk": ("attn_chunk", "baseline"),
+    "padheads48_split_bf16": ("score_dtype", "padheads48_split"),
+    "split_losschunk_bf16": ("score_dtype", "split_losschunk"),
 }
 
 
 def variant_config(arch: str, variant: str = "baseline"):
     """(config, policy) of a cell's variant."""
+    if variant in NOT_PORTED:
+        opts, same = NOT_PORTED[variant]
+        raise ValueError(f"variant {variant!r}: the port has no {opts} "
+                         f"option; it would trace as {same!r}")
     overrides = VARIANTS[variant]
     cfg = configs.get_config(arch)
     if overrides.get("cfg"):
@@ -386,9 +391,13 @@ def main(argv=None) -> int:
                     choices=["single", "multi", "both"])
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--variant", default="baseline",
-                    choices=sorted(VARIANTS))
+                    choices=sorted(VARIANTS) + sorted(NOT_PORTED))
     ap.add_argument("--out-dir", default=str(RESULTS))
     args = ap.parse_args(argv)
+    if args.variant in NOT_PORTED:
+        opts, same = NOT_PORTED[args.variant]
+        ap.error(f"variant {args.variant}: the port has no {opts} option; "
+                 f"it would trace as {same}")
     if not args.all and not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
     out_dir = Path(args.out_dir)

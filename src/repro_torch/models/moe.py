@@ -164,6 +164,42 @@ def _global_aux(aux: torch.Tensor, probs_stats, cfg: MoEConfig, G: int,
     return torch.mean(cfg.num_experts * torch.sum(frac * pmean, dim=-1))
 
 
+def _slot_tokens(xg: torch.Tensor, order: torch.Tensor, slot: torch.Tensor,
+                 K: int, n_slots: int, s0: int, s1: int) -> torch.Tensor:
+    """Buffer slots [s0, s1) of each group filled with their tokens: xg
+    (G, T, d) -> (G, s1 - s0, d), rows of x with a zero row T per group
+    the source of empty slots; dropped pairs all write the sentinel slot
+    ``n_slots``."""
+    G, T, d = xg.shape
+    dev = xg.device
+    src = torch.full((G, n_slots + 1), T, dtype=torch.int64, device=dev)
+    src.scatter_(1, slot, order // K)
+    x_pad = torch.cat([xg, torch.zeros((G, 1, d), dtype=xg.dtype,
+                                       device=dev)], 1)
+    rows = src[:, s0:s1] + (T + 1) * torch.arange(G, device=dev)[:, None]
+    return x_pad.reshape(G * (T + 1), d).index_select(
+        0, rows.reshape(-1)).reshape(G, s1 - s0, d)
+
+
+def _pair_outputs(out: torch.Tensor, order: torch.Tensor, slot: torch.Tensor,
+                  K: int, n_slots: int, s0: int) -> torch.Tensor:
+    """Each (token, k) pair's row of the slot outputs: ``out`` (G, S, d)
+    holds slots [s0, s0 + S), zeros stand for the other slots and the
+    sentinel; each pair reads its slot in its original (token, k) order
+    (the inverse permutation of the sort) -> (G, T, K, d)."""
+    G, S, d = out.shape
+    dev = out.device
+    parts = [torch.zeros((G, s0, d), dtype=out.dtype, device=dev)] \
+        if s0 else []
+    parts += [out, torch.zeros((G, n_slots - s0 - S + 1, d),
+                               dtype=out.dtype, device=dev)]
+    out_pad = torch.cat(parts, 1)
+    pair_slot = torch.empty_like(slot).scatter_(1, order, slot)
+    rows = pair_slot + (n_slots + 1) * torch.arange(G, device=dev)[:, None]
+    return out_pad.reshape(G * (n_slots + 1), d).index_select(
+        0, rows.reshape(-1)).reshape(G, slot.shape[1] // K, K, d)
+
+
 def moe_ffn(x: torch.Tensor, params: Dict, cfg: MoEConfig, quant=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux loss, an f32 scalar: the mean of
@@ -171,12 +207,15 @@ def moe_ffn(x: torch.Tensor, params: Dict, cfg: MoEConfig, quant=None
     experts sharded over ``model`` (``w_gate`` (E / |model|, d, F)) or
     their hidden dim (``(E, d, F / |model|)``), the routing and dispatch
     run whole on every rank, each rank computes its experts or its
-    hidden slice of every expert, and the combine (with the shared
-    experts' row-parallel partial) is summed over ``model`` in f32."""
+    hidden slice of every expert, and the combine's f32 partial (zeros for
+    pairs whose expert is elsewhere, plus the shared experts' row-parallel
+    partial) is summed over ``model`` in f32.  The shared experts are
+    column- then row-parallel wherever their weights are sharded."""
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import tp as tp_lib
     B, S, d = x.shape
     G, T = (B, S) if cfg.group_dispatch and B > 1 else (1, B * S)
-    K, E = cfg.top_k, cfg.num_experts
+    K, E, Fe = cfg.top_k, cfg.num_experts, cfg.d_ff_expert
     C = capacity(T, cfg)
     xg = x.reshape(G, T, d)
     topk_w, topk_e, aux = route(xg, params["router"], cfg)
@@ -193,116 +232,54 @@ def moe_ffn(x: torch.Tensor, params: Dict, cfg: MoEConfig, quant=None
             stats = (counts, torch.sum(probs, dim=-2), T)
         aux = _global_aux(aux, stats, cfg, G, data)
     axis = tp_lib.model_axis()
-    if axis is not None and (params["w_gate"].shape[0] != E or
-                             params["w_gate"].shape[2] != cfg.d_ff_expert):
-        return _moe_ffn_tp(x, xg, params, cfg, quant, topk_w, topk_e, C,
-                           axis), torch.mean(aux)
-    order, slot = dispatch_slots(topk_e, cfg, C)
-    dev, dt = x.device, x.dtype
-
-    # gather each slot's token: rows of x with a zero row T per group, the
-    # source of empty slots; dropped pairs all write the sentinel slot E·C
-    src = torch.full((G, E * C + 1), T, dtype=torch.int64, device=dev)
-    src.scatter_(1, slot, order // K)
-    x_pad = torch.cat([xg, torch.zeros((G, 1, d), dtype=dt, device=dev)], 1)
-    rows = src[:, :E * C] + (T + 1) * torch.arange(G, device=dev)[:, None]
-    expert_in = x_pad.reshape(G * (T + 1), d).index_select(
-        0, rows.reshape(-1)).reshape(G, E, C, d)
-
-    # expert SwiGLU: one batched GEMM over E, each expert's G·C rows
-    xe = expert_in.transpose(0, 1).reshape(E, G * C, d)
-    wg, wu, wd = (expert_weights(params[n], quant).to(dt)
-                  for n in ("w_gate", "w_up", "w_down"))
-    if quant is not None and quant.enabled:
-        xe = quant.acts(xe)
-    h = layers.swiglu(torch.bmm(xe, wg), torch.bmm(xe, wu))
-    expert_out = torch.bmm(h, wd).reshape(E, G, C, d).transpose(0, 1)
-
-    # combine: each pair's slot in its original (token, k) order (the
-    # inverse permutation of the sort), the sentinel reading zeros
-    out_pad = torch.cat([expert_out.reshape(G, E * C, d),
-                         torch.zeros((G, 1, d), dtype=dt, device=dev)], 1)
-    pair_slot = torch.empty_like(slot).scatter_(1, order, slot)
-    rows = pair_slot + (E * C + 1) * torch.arange(G, device=dev)[:, None]
-    pair = out_pad.reshape(G * (E * C + 1), d).index_select(
-        0, rows.reshape(-1)).reshape(G, T, K, d)
-    out = torch.sum(pair * topk_w[..., None].to(dt), dim=2)
-
-    if cfg.num_shared_experts > 0:
-        sp = params["shared"]
-        hs = layers.swiglu(layers.qdot(xg, sp["w_gate"], quant),
-                           layers.qdot(xg, sp["w_up"], quant))
-        shared_out = layers.qdot(hs, sp["w_down"], quant)
-        gate = torch.sigmoid(torch.matmul(xg.to(torch.float32),
-                                          sp["gate_proj"].to(torch.float32)))
-        out = out + shared_out * gate.to(dt)
-    return out.reshape(B, S, d), torch.mean(aux)
-
-
-def _moe_ffn_tp(x, xg, params: Dict, cfg: MoEConfig, quant, topk_w,
-                topk_e, C: int, axis) -> torch.Tensor:
-    """``moe_ffn``'s output on this rank's experts (expert-parallel) or
-    its hidden slice of every expert (expert tensor-parallel): the
-    dispatch of every expert as on one device, the products of this
-    rank's, the combine's partial in f32 (zeros for pairs whose expert is
-    elsewhere) plus the shared experts' partial, one sum over ``model``."""
-    from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.models import tp as tp_lib
-    B, S, d = x.shape
-    G, T, K = xg.shape[0], xg.shape[1], cfg.top_k
-    E, Fe = cfg.num_experts, cfg.d_ff_expert
-    order, slot = dispatch_slots(topk_e, cfg, C)
-    dev, dt = x.device, x.dtype
     E_loc, F_loc = params["w_gate"].shape[0], params["w_gate"].shape[2]
-    e0, e1 = tp_lib.shard_range(E, E_loc, axis)
+    sharded = axis is not None and (E_loc != E or F_loc != Fe)
+    e0, e1 = tp_lib.shard_range(E, E_loc, axis) if sharded else (0, E)
+    order, slot = dispatch_slots(topk_e, cfg, C)
+    dt, f32 = x.dtype, torch.float32
+    quantized = quant is not None and quant.enabled
 
-    xin = mesh_lib.copy_to(xg, axis)
-    src = torch.full((G, E * C + 1), T, dtype=torch.int64, device=dev)
-    src.scatter_(1, slot, order // K)
-    x_pad = torch.cat([xin, torch.zeros((G, 1, d), dtype=dt, device=dev)],
-                      1)
-    rows = src[:, e0 * C:e1 * C] + \
-        (T + 1) * torch.arange(G, device=dev)[:, None]
-    expert_in = x_pad.reshape(G * (T + 1), d).index_select(
-        0, rows.reshape(-1)).reshape(G, E_loc, C, d)
-    xe = expert_in.transpose(0, 1).reshape(E_loc, G * C, d)
+    # expert SwiGLU: one batched GEMM over this rank's experts, each
+    # expert's G·C rows
+    xin = mesh_lib.copy_to(xg, axis) if sharded else xg
+    xe = _slot_tokens(xin, order, slot, K, E * C, e0 * C, e1 * C).reshape(
+        G, E_loc, C, d).transpose(0, 1).reshape(E_loc, G * C, d)
     wg, wu, wd = (expert_weights(params[n], quant).to(dt)
                   for n in ("w_gate", "w_up", "w_down"))
-    if quant is not None and quant.enabled:
+    if quantized:
         xe = quant.acts(xe)
     h = layers.swiglu(torch.bmm(xe, wg), torch.bmm(xe, wu))
-    if F_loc != Fe and quant is not None and quant.enabled and \
-            F_loc % mx.MX_BLOCK:
+    whole = not sharded or F_loc == Fe
+    if not sharded:
+        expert_out = torch.bmm(h, wd)
+    elif F_loc != Fe and quantized and F_loc % mx.MX_BLOCK:
         # MX blocks along F would straddle the shards: the whole product
         h = mesh_lib.gather(h, -1, axis, sum_grad=False)
         wd = expert_weights(mesh_lib.gather(params["w_down"], 1, axis,
                                             sum_grad=False), quant).to(dt)
-        expert_out = torch.bmm(h, wd).to(torch.float32)
+        expert_out = torch.bmm(h, wd).to(f32)
         whole = True
     else:
-        expert_out = torch.bmm(h.to(torch.float32), wd.to(torch.float32))
-        whole = F_loc == Fe
+        expert_out = torch.bmm(h.to(f32), wd.to(f32))
     expert_out = expert_out.reshape(E_loc, G, C, d).transpose(0, 1)
+    pair = _pair_outputs(expert_out.reshape(G, E_loc * C, d), order, slot,
+                         K, E * C, e0 * C)
 
-    # every expert's slots: this rank's products, zeros for the others'
-    # and for the sentinel
-    f32 = torch.float32
-    out_pad = torch.cat([
-        torch.zeros((G, e0 * C, d), dtype=f32, device=dev),
-        expert_out.reshape(G, E_loc * C, d),
-        torch.zeros((G, (E - e1) * C + 1, d), dtype=f32, device=dev)], 1)
-    pair_slot = torch.empty_like(slot).scatter_(1, order, slot)
-    rows = pair_slot + (E * C + 1) * torch.arange(G, device=dev)[:, None]
-    pair = out_pad.reshape(G * (E * C + 1), d).index_select(
-        0, rows.reshape(-1)).reshape(G, T, K, d)
-    w = mesh_lib.copy_to(topk_w, axis).to(dt).to(f32)
-    part = torch.sum(pair * w[..., None], dim=2)
-    if whole and E_loc == E:
-        # a gathered product is whole on every rank: count it once
-        part = torch.where(torch.full((), axis.index == 0, device=dev),
-                           part, torch.zeros((), dtype=f32, device=dev))
+    # combine: the pairs times their top-k weights, summed over K; on one
+    # device in x's dtype, sharded as the f32 partial of this rank's pairs
+    if sharded:
+        w = mesh_lib.copy_to(topk_w, axis).to(dt).to(f32)
+        out = torch.sum(pair * w[..., None], dim=2)
+        if whole and E_loc == E:
+            # a gathered product is whole on every rank: count it once
+            out = torch.where(torch.full((), axis.index == 0,
+                                         device=x.device),
+                              out, torch.zeros((), dtype=f32,
+                                               device=x.device))
+    else:
+        out = torch.sum(pair * topk_w[..., None].to(dt), dim=2)
 
-    shared_whole = None
+    shared = None
     if cfg.num_shared_experts > 0:
         sp = params["shared"]
         Fs = cfg.d_ff_shared or cfg.num_shared_experts * Fe
@@ -312,17 +289,18 @@ def _moe_ffn_tp(x, xg, params: Dict, cfg: MoEConfig, quant, topk_w,
             tp_lib.col(xg, sp["w_up"], Fs, quant, hin=hin))
         gate = torch.sigmoid(torch.matmul(
             xg.to(f32), sp["gate_proj"].to(f32))).to(dt)
-        if sp["w_down"].shape[0] != Fs and not (
-                quant is not None and quant.enabled and
-                sp["w_down"].shape[0] % mx.MX_BLOCK):
-            part = part + tp_lib.partial(hs, sp["w_down"], quant) * \
+        if sharded and sp["w_down"].shape[0] != Fs and not (
+                quantized and sp["w_down"].shape[0] % mx.MX_BLOCK):
+            # one all-reduce for the routed and the shared partials
+            out = out + tp_lib.partial(hs, sp["w_down"], quant) * \
                 mesh_lib.copy_to(gate, axis).to(f32)
         else:
-            shared_whole = tp_lib.row(hs, sp["w_down"], Fs, quant) * gate
-    out = mesh_lib.reduce_from(part, axis).to(dt)
-    if shared_whole is not None:
-        out = out + shared_whole
-    return out.reshape(B, S, d)
+            shared = tp_lib.row(hs, sp["w_down"], Fs, quant) * gate
+    if sharded:
+        out = mesh_lib.reduce_from(out, axis).to(dt)
+    if shared is not None:
+        out = out + shared
+    return out.reshape(B, S, d), torch.mean(aux)
 
 
 def moe_flops_per_token(d_model: int, cfg: MoEConfig) -> int:

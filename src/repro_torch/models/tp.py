@@ -103,20 +103,7 @@ def shard_range(full: int, local: int, axis: mesh_lib.Axis
 
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ w (K, N) [or batched (E, R, K) @ (E, K, N)] with f32
-    accumulation and an f32 result.  A bf16 (K, N) product on the card
-    (and on meta) reads its bf16 operands as they are and writes f32
-    (``aten::mm.dtype``, which the CPU build lacks); otherwise both
-    operands are cast to f32 first, as under autograd (``mm.dtype`` has
-    no derivative)."""
-    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
-    if (w.dim() == 2 and x.dtype == torch.bfloat16 == w.dtype and not grad
-            and x.device.type in ("cuda", "meta")):
-        try:
-            y = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                         out_dtype=torch.float32)
-            return y.view(*x.shape[:-1], w.shape[-1])
-        except (TypeError, NotImplementedError, RuntimeError):
-            pass                  # a torch without mm's out_dtype
+    accumulation and an f32 result: both operands cast to f32 first."""
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 

@@ -301,9 +301,13 @@ def _job_steps(rank: int, world: int) -> dict:
 # smoke configs (f32); "v256": the vocab cut to 256, so the embedding, the
 # loss and the decode step's head shard over ``model`` (every smoke config
 # has V = 257, which no |model| > 1 divides); "e6": six experts, which
-# |model| = 4 does not divide, so the experts' hidden dim shards instead
+# |model| = 4 does not divide, so the experts' hidden dim shards instead;
+# "f66": an expert hidden dim of 66, which |model| = 4 does not divide
+# either, so at |model| = 4 the experts stay whole on every rank while
+# the shared experts (hidden 128) shard
 TP_CASES = ("llada-8b", "llada-8b v256", "qwen2-0.5b", "llada-moe-7b-a1b",
-            "qwen2-moe-a2.7b e6", "whisper-medium", "internvl2-26b")
+            "qwen2-moe-a2.7b e6", "qwen2-moe-a2.7b e6 f66",
+            "whisper-medium", "internvl2-26b")
 TP_LR = 1e-3
 
 
@@ -318,6 +322,9 @@ def tp_config(case: str):
     if "e6" in opts:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, num_experts=6))
+    if "f66" in opts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, d_ff_expert=66))
     return cfg
 
 

@@ -153,12 +153,33 @@ def test_cli_writes_records(tmp_path, capsys):
                         "decode_32k", "--out-dir", str(tmp_path),
                         "--skip-existing"]) == 0
     assert "[skip]" in capsys.readouterr().out
+    # JAX's 14 variants: those that change the port's trace, and those
+    # that set only options the port does not read
     assert sorted(dryrun.VARIANTS) == sorted([
-        "baseline", "bf16score", "split", "split_bf16", "losschunk",
-        "losschunk_bf16", "remat", "remat_bf16", "bigchunk", "padheads48",
-        "padheads48_split_bf16", "split_losschunk_bf16", "moe_global",
-        "padheads_g3"])
+        "baseline", "split", "losschunk", "split_losschunk", "padheads48",
+        "padheads48_split", "padheads_g3", "moe_global"])
+    assert sorted(dryrun.NOT_PORTED) == sorted([
+        "bf16score", "split_bf16", "losschunk_bf16", "remat", "remat_bf16",
+        "bigchunk", "padheads48_split_bf16", "split_losschunk_bf16"])
     assert dryrun.RESULTS.name == "dryrun_torch"
+
+
+@pytest.mark.parametrize("variant", ["bf16score", "remat", "bigchunk",
+                                     "split_losschunk_bf16"])
+def test_cli_refuses_variants_without_effect(tmp_path, capsys, variant):
+    """A variant that sets only score_dtype, remat or attn_chunk would
+    write the record of another variant under its own name: refused, and
+    nothing is written."""
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "llada-8b", "--shape", "decode_32k",
+                     "--variant", variant, "--out-dir", str(tmp_path)])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "the port has no" in err and \
+        f"it would trace as {dryrun.NOT_PORTED[variant][1]}" in err
+    assert not list(tmp_path.iterdir())
+    with pytest.raises(ValueError, match="the port has no"):
+        dryrun.variant_config("llada-8b", variant)
 
 
 def test_jax_dryrun_never_imported():

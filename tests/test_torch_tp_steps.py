@@ -10,7 +10,8 @@ head-parallel cache (llada-8b), a context-parallel cache whose ``wk``
 shards cut a head (qwen2-0.5b and internvl2-26b at |model| = 4, two KV
 heads), experts over ``model`` (llada-moe-7b-a1b) and the experts' hidden
 dim over ``model`` (qwen2-moe-a2.7b with six experts at |model| = 4, with
-its biased shared experts), a replicated head (V = 257, which no
+its biased shared experts), experts whole on every rank beside sharded
+shared experts (six experts of hidden 66 at |model| = 4), a replicated head (V = 257, which no
 |model| > 1 divides), a vocab-sharded embedding, loss and decode head
 (llada-8b with V = 256: shards of 128 and 64, route A), whisper's biased
 GELU MLP (``b_out`` added once after the sum), its encoder and its
@@ -174,6 +175,9 @@ def jax_config(case):
     if "e6" in opts:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, num_experts=6))
+    if "f66" in opts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, d_ff_expert=66))
     return cfg
 
 
