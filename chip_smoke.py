@@ -140,7 +140,7 @@ Phases, each fatal on failure:
                event log (both valid, logquery --validate exits 0), and
                with --legacy; each exits 0.
   7. moe  -- the MoE family, one model at a time after llada-8b is freed:
-               llada-moe-7b-a1b at full width, 4 of its 24 layers (a
+               llada-moe-7b-a1b at full width, 2 of its 24 layers (a
                depth cut for the script's time limit; d 2048,
                64 experts top-2, bf16, seeded random weights) through
                generate (mode none stepped, each step's sampling held
@@ -187,7 +187,7 @@ Phases, each fatal on failure:
   9. audio, vlm -- the last two families, one model at a time, on the
                legacy head, in a process of its own (phase_audio_vlm;
                budget PHASE9_BUDGET_S):
-               whisper-medium at full width (24 encoder layers, 6 of 24
+               whisper-medium at full width (24 encoder layers, 4 of 24
                decoder layers, a depth cut) with the cross K/V
                of seeded frames (4, 1500, 1024) through generate (none
                stepped, dual and prefix + BAOS), the engine's warm, none
@@ -255,14 +255,18 @@ Phases, each fatal on failure:
                is freed, meshes (1, 2) and (2, 1) of two ranks sharing the
                card (gloo, eager) in a job of their own
                (torch.distributed.run, ``phase12b_main``): llada-8b at full
-               width, 8 of its 32 layers (a depth cut for memory and
-               time), the engine's warm path against a one-rank run of the
-               same model, canvas for canvas each tick, any difference a
-               recorded near-tie, and each tick's collective time.  Phase
-               2 holds route A at (64, 4096, V_pad / 2) bf16 mxfp8, shard
-               1, and on padded heads (col_limit), and route B at the split
-               refine's shape (16, 64, 32 on 32, 128) over 384 + 64 keys
-               with BAOS, each against its plain version, timed beside its
+               width, PHASE12B_LAYERS of its 32 layers (a depth cut for
+               memory and time), the engine's warm path on the slot pool
+               and on the paged pool against a one-rank run of the same
+               model, canvas for canvas each tick (live rows), any
+               difference a recorded near-tie, the paged pool's canvases
+               equal to the slot pool's on the same mesh, and each tick's
+               collective time.  Phase 2 holds route A at (64, 4096,
+               V_pad / 2) bf16 mxfp8, shard 1, and on padded heads
+               (col_limit), route B at the split refine's shape (16, 64,
+               32 on 32, 128) over 384 + 64 keys with BAOS, and route C at
+               recurrentgemma-2b's shard (64, 128000) bf16 mxfp8 in every
+               format, each against its plain version, timed beside its
                bound and a library call.
   13. step builders -- launch/steps.py (budget PHASE13_BUDGET_S): (a) in
                phase 11's process, qwen2-0.5b at full width and depth, B 8
@@ -280,10 +284,10 @@ Phases, each fatal on failure:
                no plain version, ms a step; (c) in phase 12b's two-rank
                job, now run after phase 11: llada-8b prefill + decode on
                mesh (1, 2), the tensor-parallel body against one rank as
-               in phase 14 (``tp_serve_check``, 4 layers), qwen2-0.5b in f32 at PHASE13C_LAYERS layers (cut_depth)
-               trains on (2, 1) within 1e-5 of one rank (loss relative,
+               in phase 14 (``tp_serve_check``, 4 layers), qwen2-0.5b in
+               f32 at PHASE13C_LAYERS layers (cut_depth) trains on (2, 1) within 1e-5 of one rank (loss relative,
                each gradient leaf against its largest value; parameters
-               within 2 x lr + 1e-6), llada-8b (8 layers) prefill + decode
+               within 2 x lr + 1e-6), llada-8b (4 layers) prefill + decode
                on (2, 1) equal to one rank bit for bit, compressed_psum
                over the two ranks within each block's int8 half-step of
                the plain mean, and the elastic restore of phase 11's
@@ -297,9 +301,12 @@ Phases, each fatal on failure:
                none (TP_POLICY_FMT), Table 6's shape, each rank holding
                only its shards: (a) llada-8b at PHASE14_LAYERS layers,
                prefill + decode on (2, 2) (head-parallel cache, route A);
-               (b) qwen2-0.5b at full depth on (1, 4) (two KV heads: a
-               context-parallel cache, ``wk`` cut mid-head, q/k/v
-               gathered, route A); each against the one-rank steps on the
+               (b) qwen2-0.5b at PHASE14B_LAYERS layers on (1, 4) (two
+               KV heads: a context-parallel cache, ``wk`` cut mid-head,
+               q/k/v gathered, route A); (d) mamba2-130m at 4 layers on
+               (1, 4) (six SSD heads a rank, the head gathered) and (e)
+               recurrentgemma-2b at 5 layers on (2, 2) (a context-parallel
+               cache, route C); each against the one-rank steps on the
                rank's rows: logits, the cache (per channel) and its
                calibration within TP_*_BOUND, the decode canvas equal off
                recorded near-ties, every model rank's canvas equal, exact
@@ -311,13 +318,16 @@ Phases, each fatal on failure:
                canvas equal to one bf16 rank's off near-ties; (c)
                qwen2-0.5b's f32 train step at PHASE13C_LAYERS layers on
                (2, 2) against one rank (loss 1e-5 relative, gradients 1e-5
-               of each leaf's largest, parameters 2 x lr + 1e-6).  Then the
+               of each leaf's largest, parameters 2 x lr + 1e-6), and
+               mamba2-130m's on (1, 4) (its gradients per stacked leaf,
+               JAX's layout).  Then the
                dry run's llada-8b decode_32k cell at (16, 16), traced on
                meta tensors in the main process (launch/dryrun.py).
 Every path's launch counts are zeroed just before it and read just after;
 the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 12, 13b,
-7, 8, 9, 11 (with 13a), 12b (with 13c) and 14; the fused head's and Stable-Max's rows carry ``by_fmt``, phase
-10's kernel cases per new format.
+7, 8, 9, 11 (with 13a), 12b (with 13c) and 14 (route C's from 14e); the
+fused head's and Stable-Max's rows carry ``by_fmt``, phase 10's kernel
+cases per new format.
 Prints the run's time, the kernels JSON line, the card's name and power
 limit, and last the {"ok": true, ...} line.  Exits non-zero without a
 result when there is no CUDA device or the port is not beside this
@@ -360,6 +370,8 @@ REPLACES = {
     "fused_head_sampling_shard":
         "src/repro/kernels/fused_head_sampling.py:134",
     "flash_bidir_split": "src/repro/kernels/flash_bidir.py:78",
+    "stablemax_sampling_shard":
+        "src/repro/kernels/stablemax_sampling.py:71",
     "fused_head_sampling": "src/repro/kernels/fused_head_sampling.py:134",
     "topk_mask": "src/repro/kernels/topk_mask.py:44",
     "flash_bidir": "src/repro/kernels/flash_bidir.py:78",
@@ -657,6 +669,7 @@ def phase_kernels(gen) -> dict:
     check_no_backward_guard(gen)
     out["fused_head_sampling_shard"] = check_route_a(gen)
     out["flash_bidir_split"] = check_route_b(gen)
+    out["stablemax_sampling_shard"] = check_route_c(gen)
     out["baos_mx_quant"] = check_baos(gen)
     out["stablemax_sampling"] = check_stablemax(gen)
     for name, rows in check_sampling_formats(gen).items():
@@ -1725,10 +1738,14 @@ def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
 # eager paths ran 1.2-1.9x longer), before the last four cuts.  With
 # phase 14 (four ranks, ~80 s) and 13c's tensor-parallel steps (~20 s) it
 # took 1,162.1 s, so every cut here was cut again (recurrentgemma-2b: one
-# triple + the 2-layer tail; whisper-medium's encoder keeps its 24).
+# triple + the 2-layer tail; whisper-medium's encoder keeps its 24).  With
+# phase 14's recurrent families and phase 12b's paged runs it took 975.5 s
+# on the H100 (80 GB HBM3, 700 W) of the 1,000 s it aims at, so
+# llada-moe-7b-a1b went from 4 to 2 layers and whisper-medium's decoder
+# from 6 to 4 (and PHASE12B_LAYERS from 8 to 4).
 DEPTH_CUTS = {"llada-8b": 8, "moonshot-v1-16b-a3b": 12,
-              "internvl2-26b": 6, "llada-moe-7b-a1b": 4,
-              "whisper-medium": 6, "recurrentgemma-2b": 5,
+              "internvl2-26b": 6, "llada-moe-7b-a1b": 2,
+              "whisper-medium": 4, "recurrentgemma-2b": 5,
               "mamba2-130m": 4}
 
 
@@ -3365,7 +3382,7 @@ MOE_CONFIGS = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
 
 
 def phase_moe(gen) -> dict:
-    """7: llada-moe-7b-a1b at full width and 4 of its 24 layers (a
+    """7: llada-moe-7b-a1b at full width and 2 of its 24 layers (a
     ``DEPTH_CUTS`` cut for the script's time limit, logged; d 2048, 64
     experts top-2, bf16, seeded random weights) through generate (mode
     none stepped with each step's sampling held against plain, dual +
@@ -3997,7 +4014,8 @@ def no_plain():
         raise Failure("a plain sampling version ran on the card")
 
     names = ((fhs, "fused_head_stable_max"), (sms, "stable_max_plain"),
-             (tk, "topk_mask_plain"), (fhs, "head_shard_partials_plain"))
+             (tk, "topk_mask_plain"), (fhs, "head_shard_partials_plain"),
+             (sms, "stablemax_shard_partials_plain"))
     saved = [getattr(m, n) for m, n in names]
     for m, n in names:
         setattr(m, n, refuse)
@@ -4607,6 +4625,93 @@ def check_route_a(gen) -> dict:
     return row
 
 
+# recurrentgemma-2b's vocabulary and mask id (the route C shapes)
+RGEMMA = dict(V=256000, mask_id=255999)
+
+
+def route_c_case(z, n: int, shard: int, fmt: str, suppress_id, what: str):
+    """Route C on shard ``shard`` of ``n`` of the logits z (R, V), V / n a
+    multiple of 32, against its plain version (sampling.local_partials
+    with global indices): m equal and the global index equal (off a
+    near-tie of the quantized shard, at most 1% of rows), s within 1e-2
+    relative (the kernel's exponentials are ex2.approx, as
+    stablemax_sampling's).  Returns (shard logits, kwargs, max abs err of
+    s, max relative err of s)."""
+    from repro_torch.kernels import stablemax_sampling as sms
+    R, V = z.shape
+    vloc = V // n
+    zs = z[:, shard * vloc:(shard + 1) * vloc].contiguous()
+    kw = dict(fmt=fmt, col_offset=shard * vloc, suppress_id=suppress_id)
+    m_k, i_k, s_k = sms.stablemax_shard_partials(zs, **kw)
+    m_p, i_p, s_p = sms.stablemax_shard_partials_plain(zs, **kw)
+    torch.cuda.synchronize()
+    diff = torch.nonzero(i_k != i_p).flatten().tolist()
+    if diff:
+        from repro_torch.core import mx, sampling
+        zq = mx.mx_fake_quant(zs[diff], fmt).float()
+        if 0 <= suppress_id - shard * vloc < vloc:
+            zq[:, suppress_id - shard * vloc] = sampling.NEG_INF
+        require(all(near_ties(zq, i_k[diff] - shard * vloc, 0.0, 0, diff)),
+                f"route C {what}: the index differs off a near-tie in rows "
+                f"{diff}")
+    same = i_k == i_p
+    err = (s_k - s_p).abs()[same]
+    rel = float((err / s_p[same].clamp(min=1e-30)).max())
+    log(f"route C {what}: shard {shard} of {n}, V_loc {vloc}, {fmt}: m "
+        f"differs in {int((m_k != m_p).sum())} rows, the index in "
+        f"{len(diff)}, s max rel err {rel:.3g}")
+    require(torch.equal(m_k[same], m_p[same]) and len(diff) <= 0.01 * R,
+            f"route C {what}: m or the global index differ from plain")
+    require(rel <= 1e-2, f"route C {what}: s rel err {rel:.3g} > 1e-2")
+    return zs, kw, float(err.max()), rel
+
+
+def check_route_c(gen) -> dict:
+    """Route C, Stable-Max's vocab-shard entry (the decode step's sampling
+    over a vocab-sharded head of a model without a head mode):
+    recurrentgemma-2b's logits (64, 256000) bf16 on 2 shards (shard 1
+    holds the mask id; shard 0 does not) in every sampling format, an f32
+    shard of 4, and (3, 1024) on 2 with a tie across the shards'
+    boundary and a suppressed larger logit, each against its plain
+    version; at (64, 128000) bf16 mxfp8 its device time (a graph of 20)
+    beside its byte bound, the plain version's and softmax + max on the
+    shard."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import stablemax_sampling as sms
+    R, V, mid = 64, RGEMMA["V"], RGEMMA["mask_id"]
+    z = (torch.randn(R, V, generator=gen, device=DEVICE) * 3).bfloat16()
+    for fmt in ALL_FMTS:
+        for shard in (0, 1):
+            route_c_case(z, 2, shard, fmt, mid, f"({R}, {V}) bf16")
+    route_c_case(z.float(), 4, 3, "mxfp8_e4m3", mid, f"({R}, {V}) f32")
+    zs = torch.randn(3, 1024, generator=gen, device=DEVICE) * 3
+    zs[:, 511] = zs[:, 512] = 20.0
+    zs[:, 515] = 30.0
+    for shard in (0, 1):
+        route_c_case(zs.bfloat16(), 2, shard, "mxfp8_e4m3", 515,
+                     "(3, 1024) bf16, tie at columns 511/512")
+    what = f"({R}, {V}) bf16 shard 1 of 2"
+    zl, kw, err, rel = route_c_case(z, 2, 1, "mxfp8_e4m3", mid, what)
+    del z
+    vloc = zl.shape[1]
+    b_ms, b_by = bound(zl.numel() * 2 + R * 12, 4.0 * zl.numel(), F32_FLOPS)
+    fn = lambda: sms.stablemax_shard_partials(zl, **kw)  # noqa: E731
+    lib = lambda: torch.max(torch.softmax(zl, -1), -1)  # noqa: E731
+    row = dict(max_abs_err=err, device_ms=kernel_ms(fn, 20, "route C"),
+               ms=time_ms(fn, 20),
+               plain_ms=time_ms(lambda: sms.stablemax_shard_partials_plain(
+                   zl, "mxfp8_e4m3", col_offset=vloc, suppress_id=mid), 5),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=kernel_ms(lib, 20, "route C softmax + max"))
+    log(f"route C {what} mxfp8 greedy: device {row['device_ms']:.4f} ms "
+        f"(a graph of 20 calls; partials + merge), CUDA events, back to "
+        f"back {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {row['device_ms'] / b_ms:.2f}x; softmax "
+        f"+ max on the shard device {row['library_ms']:.4f} ms; plan "
+        f"{sms.vocab_plan(vloc, R, _build.sm_count(zl.device))}")
+    return row
+
+
 def check_route_b(gen) -> dict:
     """Route B, flash_bidir over the cache and a second K/V source: the
     split refine's shape on llada-8b, q (16, 64, 32, 128) over a 384-key
@@ -4843,7 +4948,7 @@ def phase_split_cache(model, params, gen) -> dict:
 
 PHASE12B_ARG = "--phase12b"
 PHASE12B_COUNTS = "phase 12b counts "
-PHASE12B_LAYERS = 8
+PHASE12B_LAYERS = 4
 
 
 def phase_mesh_ranks() -> dict:
@@ -4900,14 +5005,15 @@ class CollectiveClock:
             setattr(dist, name, fn)
 
 
-def record_ticks(model, params, dcfg, trace):
-    """The one-rank engine (warm, eager, no mesh) over ``trace``, with each
-    tick's inputs (canvas, kv_valid, block starts, k) and output canvas on
-    the host.  Returns (completed tokens by uid, the records)."""
+def record_ticks(model, params, dcfg, trace, **cfg):
+    """The one-rank engine (warm, eager, no mesh; ``cfg`` more
+    EngineConfig fields) over ``trace``, with each tick's inputs (canvas,
+    kv_valid, block starts, k) and output canvas on the host.  Returns
+    (completed tokens by uid, the records)."""
     from repro_torch.core import diffusion
     from repro_torch.serving import EngineConfig, Request, ServingEngine
     eng = ServingEngine(model, params, dcfg, EngineConfig(
-        num_slots=4, max_seq_len=96, mode="warm", jit_steps=False))
+        num_slots=4, max_seq_len=96, mode="warm", jit_steps=False, **cfg))
     eng.warmup()
     recs, inner = [], diffusion.batched_tick
 
@@ -4925,6 +5031,16 @@ def record_ticks(model, params, dcfg, trace):
     return {c.uid: c.tokens.tolist() for c in done}, recs
 
 
+def live_canvas(x, kv_valid):
+    """The canvas at the positions of rows bound to a request (whose
+    kv_valid spans more than the one key an idle row keeps), -1
+    elsewhere: an idle row's canvas is not a result, and the two pools
+    hold it differently (the paged pool maps it to the null page)."""
+    kv_valid = kv_valid.to(x.device)
+    live = kv_valid & (kv_valid.sum(1, keepdim=True) > 1)
+    return torch.where(live, x, -1)
+
+
 def near_tie_divergence(model, params, dcfg, rec, got) -> list:
     """At the first tick where a mesh run's canvas ``got`` differs from
     the one-rank run's (``rec``: that tick's inputs and output): each
@@ -4936,7 +5052,7 @@ def near_tie_divergence(model, params, dcfg, rec, got) -> list:
     kind)]."""
     from repro_torch.core import diffusion
     x, kv, bs, k, want = (t.to(DEVICE) for t in rec)
-    got = got.to(DEVICE)
+    want, got = live_canvas(want, kv), live_canvas(got.to(DEVICE), kv)
     B, S = x.shape
     L, mid = dcfg.block_length, model.cfg.mask_id
     cache = model.init_cache(B, S)
@@ -4971,14 +5087,47 @@ def near_tie_divergence(model, params, dcfg, rec, got) -> list:
     return out
 
 
+def mesh_engine_run(model, params, dcfg, trace, mesh, **cfg):
+    """The warm engine over ``mesh`` (eager; ``cfg`` more EngineConfig
+    fields) on ``trace``, the sampling kernels alone (``no_plain``):
+    (engine, each tick's canvas on the host (``live_canvas``), tick walls
+    ms, each tick's collective ms, launch counts)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    eng = ServingEngine(model, params, dcfg, EngineConfig(
+        num_slots=4, max_seq_len=96, mode="warm", mesh=mesh,
+        jit_steps=False, **cfg))
+    eng.warmup()
+    _build.reset_launch_counts()
+    for p, g in trace:
+        eng.submit(Request(prompt=p, gen_length=g))
+    clock = CollectiveClock()
+    snaps, coll, wall = [], [], []
+    try:
+        with no_plain():
+            while eng.pending:
+                clock.ms = 0.0
+                t0 = time.perf_counter()
+                eng.tick()
+                wall.append((time.perf_counter() - t0) * 1e3)
+                coll.append(clock.ms)
+                snaps.append(live_canvas(eng.x, eng.kv_valid).cpu())
+    finally:
+        clock.close()
+    return eng, snaps, wall, coll, dict(_build.launch_counts)
+
+
 def phase12b_main() -> int:
     """One rank of phase 12b (torch.distributed.run, two ranks on the one
     card): meshes (1, 2) and (2, 1) over gloo, llada-8b at full width and
-    PHASE12B_LAYERS layers, the engine's warm path eager, each tick's
-    canvas against the one-rank run's (rank 0), any difference a recorded
-    near-tie; per tick one route A and one topk_mask launch and no plain
-    version; each tick's collective time; then phase 13c (``phase13c``).
-    Prints its launch counts."""
+    PHASE12B_LAYERS layers, the engine's warm path eager on the slot pool
+    and on the paged pool (PAGED: each rank gathers, ticks and scatters
+    its data shard's slots), each tick's canvas against the one-rank run's
+    (rank 0; the one-rank paged run's canvases equal its slot run's), any
+    difference a recorded near-tie, and the paged run's canvases equal
+    the slot run's on the same mesh; per tick one route A and one
+    topk_mask launch and no plain version; each tick's collective time;
+    then phase 13c (``phase13c``).  Prints its launch counts."""
     import numpy as np
     import torch.distributed as dist
     from repro_torch import device
@@ -4986,7 +5135,6 @@ def phase12b_main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models.registry import build_model
-    from repro_torch.serving import EngineConfig, Request, ServingEngine
     device.resolve(DEVICE)
     _build.build()
     try:
@@ -5011,67 +5159,75 @@ def phase12b_main() -> int:
         trace = engine_trace(cfg)
         if rank == 0:
             ref_tokens, recs = record_ticks(model, params, dcfg, trace)
-            say(f"phase 12b: the one-rank run: {len(recs)} ticks")
+            paged_tokens, paged_recs = record_ticks(model, params, dcfg,
+                                                    trace, **PAGED)
+            require(paged_tokens == ref_tokens and len(paged_recs) ==
+                    len(recs) and all(
+                        torch.equal(a[1], b[1]) and torch.equal(
+                            live_canvas(a[4], a[1]), live_canvas(b[4], b[1]))
+                        for a, b in zip(recs, paged_recs)),
+                    "phase 12b: the one-rank paged run's canvases differ "
+                    "from its slot run's")
+            say(f"phase 12b: the one-rank run: {len(recs)} ticks, the "
+                f"paged pool's canvases equal the slot pool's (live rows)")
         dist.barrier()
         total = {name: 0 for name in _build.COUNTED}
         for mesh in meshes:
-            what = f"mesh {tuple(mesh.shape.values())} engine path=warm eager"
-            eng = ServingEngine(model, params, dcfg, EngineConfig(
-                num_slots=4, max_seq_len=96, mode="warm", mesh=mesh,
-                jit_steps=False))
-            eng.warmup()
-            _build.reset_launch_counts()
-            for p, g in trace:
-                eng.submit(Request(prompt=p, gen_length=g))
-            clock = CollectiveClock()
-            snaps, coll, wall = [], [], []
-            try:
-                with no_plain():
-                    while eng.pending:
-                        clock.ms = 0.0
-                        t0 = time.perf_counter()
-                        eng.tick()
-                        wall.append((time.perf_counter() - t0) * 1e3)
-                        coll.append(clock.ms)
-                        snaps.append(eng.x.to("cpu", copy=True))
-            finally:
-                clock.close()
-            counts = dict(_build.launch_counts)
-            n = eng.ticks_total
-            require(counts["fused_head_sampling_shard"] == n and
-                    counts["topk_mask"] == n and
-                    counts["fused_head_sampling"] == 0,
-                    f"{what}: launches {counts} for {n} ticks")
-            for c in eng.completed:
-                require(not bool((c.tokens[c.prompt_len:] ==
-                                  cfg.mask_id).any()),
-                        f"{what}: request {c.uid} left mask ids")
-            for k, v in counts.items():
-                total[k] += v
-            if rank == 0:
-                ties, first = [], None
-                for t, (rec, got) in enumerate(zip(recs, snaps)):
-                    if not torch.equal(rec[4], got):
-                        first = t
-                        ties = near_tie_divergence(model, params, dcfg, rec,
-                                                   got)
-                        break
-                same = {c.uid: c.tokens.tolist()
-                        for c in eng.completed} == ref_tokens
-                require(first is not None or (same and len(snaps) ==
-                                              len(recs)),
-                        f"{what}: the runs differ with no differing tick")
-                say(f"{what}: {n} ticks, every canvas equal to the one-rank "
-                    f"run's" if first is None else
-                    f"{what}: {n} ticks; the canvases first differ at tick "
-                    f"{first}, at recorded near-ties {ties} (the runs part "
-                    f"there; every request still finishes)")
-                say(f"{what}: tick wall median {np.median(wall):.2f} ms, "
-                    f"collectives per tick median {np.median(coll):.3f} ms, "
-                    f"max {max(coll):.3f} ms (all_reduce + all_gather "
-                    f"between device syncs); launches {counts}")
-            del eng
-            dist.barrier()
+            slot_snaps = None
+            for pool, cfg_pool in (("slot", {}), ("paged", PAGED)):
+                what = (f"mesh {tuple(mesh.shape.values())} engine "
+                        f"path=warm {pool} pool eager")
+                eng, snaps, wall, coll, counts = mesh_engine_run(
+                    model, params, dcfg, trace, mesh, **cfg_pool)
+                n = eng.ticks_total
+                require(counts["fused_head_sampling_shard"] == n and
+                        counts["topk_mask"] == n and
+                        counts["fused_head_sampling"] == 0,
+                        f"{what}: launches {counts} for {n} ticks")
+                for c in eng.completed:
+                    require(not bool((c.tokens[c.prompt_len:] ==
+                                      cfg.mask_id).any()),
+                            f"{what}: request {c.uid} left mask ids")
+                for k, v in counts.items():
+                    total[k] += v
+                if pool == "slot":
+                    slot_snaps = snaps
+                else:
+                    require(len(snaps) == len(slot_snaps) and all(
+                        torch.equal(a, b) for a, b in zip(snaps,
+                                                          slot_snaps)),
+                            f"{what}: a canvas differs from the slot "
+                            f"pool's on the same mesh")
+                if rank == 0:
+                    ties, first = [], None
+                    for t, (rec, got) in enumerate(zip(recs, snaps)):
+                        if not torch.equal(live_canvas(rec[4], rec[1]),
+                                           got):
+                            first = t
+                            ties = near_tie_divergence(model, params, dcfg,
+                                                       rec, got)
+                            break
+                    same = {c.uid: c.tokens.tolist()
+                            for c in eng.completed} == ref_tokens
+                    require(first is not None or (same and len(snaps) ==
+                                                  len(recs)),
+                            f"{what}: the runs differ with no differing "
+                            f"tick")
+                    say(f"{what}: {n} ticks, every canvas equal to the "
+                        f"one-rank run's" if first is None else
+                        f"{what}: {n} ticks; the canvases first differ at "
+                        f"tick {first}, at recorded near-ties {ties} (the "
+                        f"runs part there; every request still finishes)")
+                    say(f"{what}: "
+                        + ("every canvas equal to the slot pool's on this "
+                           "mesh; " if pool == "paged" else "")
+                        + f"tick wall median {np.median(wall):.2f} ms, "
+                        f"collectives per tick median {np.median(coll):.3f}"
+                        f" ms, max {max(coll):.3f} ms (all_reduce + "
+                        f"all_gather between device syncs); launches "
+                        f"{counts}")
+                del eng
+                dist.barrier()
         for k, v in phase13c(meshes, rank, say, model, params).items():
             total[k] += v
         # both ranks' counts, summed on the host over gloo, printed once
@@ -5449,7 +5605,7 @@ def phase13c(meshes, rank: int, say, model, params) -> dict:
     the loss within 1e-5 relative, every gradient leaf within 1e-5 of its
     largest value, every parameter within 2 x lr + 1e-6 (PERF.md), both
     ranks holding the same parameters; (iii) llada-8b (phase 12b's model,
-    8 layers) prefill + decode at Table 6's shape on (2, 1): the gathered
+    PHASE12B_LAYERS layers) prefill + decode at Table 6's shape on (2, 1): the gathered
     canvas and cache equal to one rank's bit for bit; (iv)
     ``compressed_psum`` over the two ranks of each rank's own gradients:
     within each block's int8 half-step of the plain mean; (v) the elastic
@@ -5691,7 +5847,10 @@ def phase13c(meshes, rank: int, say, model, params) -> dict:
 # ---------------------------------------------------------------------------
 
 # the phase's target, seconds, stated before its first run on the card
-PHASE14_BUDGET_S = 60.0
+# stated before each run that changes the phase: 60 s for the transformer
+# checks; 110 s with the recurrent families' (mamba2-130m on (1, 4),
+# recurrentgemma-2b on (2, 2))
+PHASE14_BUDGET_S = 110.0
 PHASE14_ARG = "--phase14"
 PHASE14_COUNTS = "phase 14 counts "
 PHASE14_SECONDS = "phase 14 seconds "
@@ -5708,6 +5867,12 @@ PHASE14_SECONDS = "phase 14 seconds "
 # ranks each hold an f32 copy for the one-rank reference beside their
 # shards.
 PHASE14_LAYERS = 4
+# qwen2-0.5b's depth in phase 14b: 24 until the recurrent families joined
+# the phase
+PHASE14B_LAYERS = 8
+# the recurrent families' depths in phase 14 (DEPTH_CUTS'): recurrentgemma-
+# 2b's one (rec, rec, attn) triple and its two tail layers
+PHASE14_RECURRENT = ("mamba2-130m", "recurrentgemma-2b")
 TP_POLICY_FMT = "none"
 # f32 sums in another order over up to 24 full-width layers: the prefill
 # logits within 1e-4 of the largest; the cached K/V, each run's read back
@@ -5774,11 +5939,15 @@ def tp_serve_check(mesh, cfg, say, what: str) -> dict:
     against the one-rank steps on the rank's rows with every parameter:
     the prefill's logits within TP_LOGITS_BOUND of the largest, the
     prefilled cache's K/V (unsmoothed) within TP_KV_BOUND of each
-    channel's largest value and its calibration within TP_CALIB_BOUND of
-    each leaf's,
+    channel's largest value and every other leaf (the calibration, the
+    recurrent states and conv rows) within TP_CALIB_BOUND of the leaf's
+    largest value,
     the decode canvas equal off recorded near-ties (``step_near_ties``,
     given the two refines' logit difference), every ``model`` rank's
-    canvas equal, exact launches a step and no plain version; the steps'
+    canvas equal, a step's launches the one-rank step's with the head's
+    route for the mesh's (route A from hidden states or route C from the
+    ssm and hybrid families' logit columns where a vocab shard is whole
+    MX blocks, else the head gathered), and no plain version; the steps'
     ms and their collectives' ms (gloo between ranks sharing a card: the
     collectives and the parity, not a speed-up).  Returns this rank's
     launch counts of the mesh steps."""
@@ -5820,15 +5989,34 @@ def tp_serve_check(mesh, cfg, say, what: str) -> dict:
     with sharding.use_context(mesh, launch_sharding.make_rules(cfg, mesh)):
         pls = steps.input_shardings(model, dec_s, mesh, specs, policy)
     head_sharded = cfg.vocab % n_model == 0
-    route_a = head_sharded and (cfg.vocab // n_model) % mx.MX_BLOCK == 0
+    whole_blocks = (cfg.vocab // n_model) % mx.MX_BLOCK == 0
+    hidden = getattr(model, "supports_head_mode", True)
+    route = ("stablemax_sampling" if not head_sharded else
+             "fused_head_sampling_shard" if hidden and whole_blocks else
+             "fused_head_sampling" if hidden else
+             "stablemax_sampling_shard" if whole_blocks else
+             "stablemax_sampling")
+    head_what = {"fused_head_sampling_shard": "route A",
+                 "stablemax_sampling_shard": "route C",
+                 "fused_head_sampling": "the head gathered",
+                 "stablemax_sampling": "the head gathered" if head_sharded
+                 else "a replicated head"}[route]
 
     # one rank, on this rank's rows
     pre1, _ = steps.build_step(model, pre_s, policy)
     dec1, _ = steps.build_step(model, dec_s, policy)
     with no_plain():
+        _build.reset_launch_counts()
         lg1, c1 = pre1(params, xr, model.init_cache(r1 - r0, S), P, {})
+        want_pre = dict(_build.launch_counts)
         c1_pre = clone_tree(c1)
+        _build.reset_launch_counts()
         x_ref, _ = dec1(params, xr, c1, P, kr, 0, {})
+        want_dec = dict(_build.launch_counts)
+    require(want_dec["stablemax_sampling"] == 1,
+            f"{what}: the one-rank decode launched {want_dec}")
+    want_dec["stablemax_sampling"] = 0
+    want_dec[route] += 1
     lk1, _ = diffusion.refine_step(model, params, xr, clone_tree(c1_pre), P,
                                    dcfg)
     del c1
@@ -5843,12 +6031,6 @@ def tp_serve_check(mesh, cfg, say, what: str) -> dict:
               tree_lib.leaves(mine) + tree_lib.leaves(cache))
     pre, _ = steps.build_step(model, pre_s, policy, mesh=mesh)
     dec, _ = steps.build_step(model, dec_s, policy, mesh=mesh)
-    want_pre = {n: 0 for n in _build.COUNTED}
-    want_pre.update(flash_bidir=nl, baos_mx_quant=2 * nl)
-    want_dec = dict(want_pre, topk_mask=1)
-    want_dec["fused_head_sampling_shard" if route_a else
-             "fused_head_sampling" if head_sharded
-             else "stablemax_sampling"] = 1
     total = {n: 0 for n in _build.COUNTED}
     with no_plain():
         _build.reset_launch_counts()
@@ -5866,8 +6048,10 @@ def tp_serve_check(mesh, cfg, say, what: str) -> dict:
         for n, v in c.items():
             total[n] += v
     # the mesh refine's logits, gathered over model, for the near-tie rule
-    with tp_lib.use(tp_lib.Parallel(model=mesh.axis("model"),
-                                    cache_seq=tp_pre["k"].shape[2] != S)):
+    kv_cache = "k" in tp_pre
+    with tp_lib.use(tp_lib.Parallel(
+            model=mesh.axis("model"),
+            cache_seq=kv_cache and tp_pre["k"].shape[2] != S)):
         lk, _ = diffusion.refine_step(model, mine, xr, clone_tree(tp_pre),
                                       P, dcfg)
     if lk.shape[-1] != cfg.vocab:
@@ -5880,20 +6064,22 @@ def tp_serve_check(mesh, cfg, say, what: str) -> dict:
     kv, calib = 0.0, 0.0
     got = {n: _rows_of_data(t, pls["cache"][n], mesh).float()
            for n, t in tp_pre.items()}
-    for name in ("k", "v"):
-        raw_of = [c[name].float() * c[f"{name}_scale"] + c[f"{name}_center"]
-                  for c in (got, c1_pre)]
-        kv = max(kv, kv_channel_err(*raw_of))
-        for cal in (f"{name}_center", f"{name}_scale"):
-            want = c1_pre[cal].float()
-            calib = max(calib, float((got[cal] - want).abs().max()) / max(
-                float(want.abs().max()), 1e-30))
-    del got, raw_of
+    for name in got:
+        if name in ("k", "v"):
+            raw_of = [c[name].float() * c[f"{name}_scale"] +
+                      c[f"{name}_center"] for c in (got, c1_pre)]
+            kv = max(kv, kv_channel_err(*raw_of))
+            del raw_of
+            continue
+        want = c1_pre[name].float()
+        calib = max(calib, float((got[name] - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30))
+    del got
     require(raw <= TP_LOGITS_BOUND * top and kv <= TP_KV_BOUND and
             calib <= TP_CALIB_BOUND,
             f"{what}: {mesh}: prefill logits {raw:.4g} from one rank's "
-            f"(largest {top:.4g}), the cached K/V {kv:.4g}, the "
-            f"calibration {calib:.3g}")
+            f"(largest {top:.4g}), the cached K/V {kv:.4g}, the other "
+            f"cache leaves {calib:.3g}")
     fmt = dcfg.sampling.fmt
     z = quantized_f32(lk1.float().reshape((r1 - r0) * L, -1), fmt,
                       mid).view(r1 - r0, L, -1)
@@ -5930,18 +6116,22 @@ def tp_serve_check(mesh, cfg, say, what: str) -> dict:
         finally:
             clock.close()
         walls[name], colls[name] = float(np.median(ts)), float(np.median(cs))
+    cache_what = ("no KV cache" if not kv_cache else "a head-parallel "
+                  "cache" if tp_pre["k"].shape[3] != cfg.n_kv_heads else
+                  "a context-parallel cache")
     say(f"{what}: {cfg.name} f32 ({nl} layers, BAOS cache format "
         f"{TP_POLICY_FMT}) prefill + decode at Table 6's "
         f"shape (B {B}, s_tot {S}, block {L} at {P}) on {mesh} (rank 0's "
-        f"view; {'head' if tp_pre['k'].shape[3] != cfg.n_kv_heads else 'context'}"
-        f"-parallel cache, {'route A' if route_a else 'the head gathered' if head_sharded else 'a replicated head'}): "
+        f"view; {cache_what}, {head_what}): "
         f"{own / 2 ** 30:.2f} GiB of parameter and cache shards on this "
         f"rank; prefill launches {c_pre}, decode launches {c_dec}, no plain "
         f"version; the prefill logits within {raw:.4g} of one rank's "
         f"({raw / top:.3g} of the largest, bound {TP_LOGITS_BOUND:g}), "
-        f"the prefilled K/V unsmoothed within {kv:.3g} of their channel's "
-        f"largest (bound {TP_KV_BOUND:g}), the "
-        f"calibration within {calib:.3g} (bound {TP_CALIB_BOUND:g}); the "
+        + (f"the prefilled K/V unsmoothed within {kv:.3g} of their "
+           f"channel's largest (bound {TP_KV_BOUND:g}), " if kv_cache
+           else "")
+        + f"the other cache leaves within {calib:.3g} of their largest "
+        f"(bound {TP_CALIB_BOUND:g}); the "
         f"decode canvas equal to one "
         f"rank's" + (f" but at {len(ties)} recorded near-ties {ties}"
                      if ties else "")
@@ -6129,15 +6319,19 @@ def tp_served_check(mesh, cfg, say, what: str) -> dict:
     return total
 
 
-def tp_train_check(mesh, rank: int, say) -> dict:
-    """qwen2-0.5b in f32 at PHASE13C_LAYERS layers (``cut_depth``), B 8 x
-    S 128, full width: the train step over ``mesh`` (|model| > 1, each
-    rank holding its parameter and optimizer shards) against one rank on
-    the same global batch: the loss within 1e-5 relative, every gathered
-    gradient leaf within 1e-5 of its largest value, every gathered
-    parameter within 2 x lr + 1e-6, every rank's loss equal; exact
-    launches (flash_bidir and its backward once a layer) and ms.  Returns
-    this rank's launch counts."""
+def tp_train_check(mesh, rank: int, say, arch: str = TRAIN_ARCH,
+                   layers: int = PHASE13C_LAYERS,
+                   what: str = "phase 14c") -> dict:
+    """``arch`` (qwen2-0.5b) in f32 at ``layers`` layers (``cut_depth``),
+    B 8 x S 128, full width: the train step over ``mesh`` (|model| > 1,
+    each rank holding its parameter and optimizer shards) against one rank
+    on the same global batch: the loss within 1e-5 relative, every
+    gathered gradient leaf within 1e-5 of its largest value (mamba's in
+    JAX's layout, a stack per name, as tests/test_torch_tp_steps.py
+    holds them: its per-head f32 scalars' gradients cancel), every
+    gathered parameter within 2 x lr + 1e-6, every rank's loss equal;
+    exact launches (flash_bidir and its backward once an attention layer)
+    and ms.  Returns this rank's launch counts."""
     from repro_torch import sharding
     from repro_torch import tree as tree_lib
     from repro_torch.configs import base
@@ -6147,11 +6341,10 @@ def tp_train_check(mesh, rank: int, say) -> dict:
     from repro_torch.launch import steps
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw
-    tcfg = base.get_config(TRAIN_ARCH)
-    tcfg = cut_depth(tcfg, PHASE13C_LAYERS, "for an f32 reference beside "
-                     "four ranks' shards on one card") if rank == 0 else \
-        dataclasses.replace(tcfg, n_layers=min(PHASE13C_LAYERS,
-                                               tcfg.n_layers))
+    tcfg = base.get_config(arch)
+    tcfg = cut_depth(tcfg, layers, "for an f32 reference beside four "
+                     "ranks' shards on one card") if rank == 0 else \
+        dataclasses.replace(tcfg, n_layers=min(layers, tcfg.n_layers))
     tcfg = dataclasses.replace(tcfg, dtype="float32")
     model = build_model(tcfg, mesh.device)
     nl = tcfg.n_layers
@@ -6183,10 +6376,11 @@ def tp_train_check(mesh, rank: int, say) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     c_step = dict(_build.launch_counts)
+    n_attn = {"ssm": 0, "hybrid": nl // 3}.get(tcfg.family, nl)
     want = {n: 0 for n in _build.COUNTED}
-    want.update(flash_bidir=nl, flash_bidir_bwd=nl)
+    want.update(flash_bidir=n_attn, flash_bidir_bwd=n_attn)
     require(c_grad == want and c_step == want,
-            f"phase 14c: train launches {c_grad}, {c_step}")
+            f"{what}: train launches {c_grad}, {c_step}")
     leaves = tree_lib.leaves(pls)
     g_all = [_gather_placed(g.detach(), pl, mesh)
              for g, pl in zip(grads, leaves)]
@@ -6195,18 +6389,26 @@ def tp_train_check(mesh, rank: int, say) -> dict:
     losses = mesh_lib.all_gather(met["loss"].reshape(1), 0,
                                  mesh.axis("model"))
     require(bool((losses == losses[0]).all()),
-            "phase 14c: the model ranks' losses differ")
+            f"{what}: the model ranks' losses differ")
     if rank == 0:
         l1, g1, p1, lr = ref
         l2 = float(met["loss"])
         rel = abs(l2 - l1) / abs(l1)
-        gerr = max(float((a - b).abs().max()) / max(
-            float(b.abs().max()), 1e-30) for a, b in zip(g_all, g1))
+        names = [pth for pth, _ in tree_lib.flatten_with_paths(p1)]
+        if tcfg.family == "ssm":
+            names = ["/".join(q for q in pth.split("/") if not q.isdigit())
+                     for pth in names]
+        top, worst = {}, {}
+        for n, b in zip(names, g1):
+            top[n] = max(top.get(n, 0.0), float(b.abs().max()))
+        for n, a, b in zip(names, g_all, g1):
+            worst[n] = max(worst.get(n, 0.0), float((a - b).abs().max()))
+        gerr = max(worst[n] / max(top[n], 1e-30) for n in top)
         perr = max(float((a - b.detach()).abs().max())
                    for a, b in zip(p_all, tree_lib.leaves(p1)))
         own = sum(t.numel() * t.element_size()
                   for t in tree_lib.leaves(mine))
-        say(f"phase 14c: {TRAIN_ARCH} f32 ({nl} layers) train step, B 8 x "
+        say(f"{what}: {arch} f32 ({nl} layers) train step, B 8 x "
             f"S 128, on {mesh} (rank 0's view; {own / 2 ** 30:.3f} GiB of "
             f"parameter shards on this rank) against one rank: loss "
             f"{l2:.7f} vs {l1:.7f} (relative {rel:.3g}, bound 1e-5); worst "
@@ -6216,7 +6418,7 @@ def tp_train_check(mesh, rank: int, say) -> dict:
             f"step wall {ms:.1f} ms (first call; {card_line()}; four ranks "
             f"share the card over gloo)")
         require(rel <= 1e-5 and gerr <= 1e-5 and perr <= 2 * lr + 1e-6,
-                "phase 14c: the train step is off one rank's")
+                f"{what}: the train step is off one rank's")
     del mine, grads, g_all, p_all, ref
     total = {n: c_grad[n] + c_step[n] for n in _build.COUNTED}
     return total
@@ -6251,12 +6453,19 @@ def phase14_main() -> int:
     """One rank of phase 14 (torch.distributed.run, four ranks on the one
     card, gloo), f32 copies: (a) llada-8b at full width, PHASE14_LAYERS
     layers, prefill + decode on (2, 2) (a head-parallel cache, route A);
-    (b) qwen2-0.5b at full width and depth, prefill + decode on (1, 4) (two KV
-    heads: a context-parallel cache, ``wk``'s shards half a head, q, k and
-    v gathered); (c) qwen2-0.5b's f32 train step on (2, 2); each against
-    one rank (``tp_serve_check``, ``tp_train_check``); after (a), (a')
-    llada-8b in bf16 under ServePolicy() on (2, 2) (``tp_served_check``).
-    Prints its launch counts (the ranks' sum)."""
+    (b) qwen2-0.5b at full width, PHASE14B_LAYERS layers, prefill +
+    decode on (1, 4) (two KV heads: a context-parallel cache, ``wk``'s
+    shards half a head, q, k and v gathered); (c) qwen2-0.5b's f32 train
+    step on (2, 2); each against one rank (``tp_serve_check``,
+    ``tp_train_check``); after (a), (a')
+    llada-8b in bf16 under ServePolicy() on (2, 2) (``tp_served_check``);
+    then the recurrent families at full width and DEPTH_CUTS' depths:
+    (d) mamba2-130m prefill + decode on (1, 4) (six SSD heads a rank: 24
+    divide; in_proj's 3,352 columns gathered; the head gathered, 12,570
+    columns a rank splitting MX blocks) and its train step on (1, 4);
+    (e) recurrentgemma-2b prefill + decode on (2, 2) (the RG-LRU's gates
+    row-parallel, MQA with a context-parallel cache, route C on 128,000
+    columns a rank).  Prints its launch counts (the ranks' sum)."""
     import torch.distributed as dist
     from repro_torch import device
     from repro_torch.configs import base
@@ -6290,11 +6499,30 @@ def phase14_main() -> int:
         add(tp_served_check(square, cfg, say, "phase 14a"))
         free()
         dist.barrier()
-        add(tp_serve_check(row, base.get_config("qwen2-0.5b"), say,
-                           "phase 14b"))
+        qcfg = base.get_config("qwen2-0.5b")
+        qcfg = cut_depth(qcfg, PHASE14B_LAYERS, "for the script's time "
+                         "limit (phase 14 runs the recurrent families "
+                         "too)") if rank == 0 else dataclasses.replace(
+            qcfg, n_layers=min(PHASE14B_LAYERS, qcfg.n_layers))
+        add(tp_serve_check(row, qcfg, say, "phase 14b"))
         free()
         dist.barrier()
         add(tp_train_check(square, rank, say))
+        free()
+        for arch, mesh, tag in zip(PHASE14_RECURRENT, (row, square),
+                                   ("phase 14d", "phase 14e")):
+            dist.barrier()
+            rcfg = base.get_config(arch)
+            rcfg = cut_depth(rcfg, DEPTH_CUTS[arch], "for four ranks "
+                             "sharing the card, each with an f32 one-rank "
+                             "reference") if rank == 0 else \
+                dataclasses.replace(rcfg, n_layers=min(DEPTH_CUTS[arch],
+                                                       rcfg.n_layers))
+            add(tp_serve_check(mesh, rcfg, say, tag))
+            free()
+        dist.barrier()
+        add(tp_train_check(row, rank, say, "mamba2-130m",
+                           DEPTH_CUTS["mamba2-130m"], "phase 14d"))
         free()
         names = sorted(total)
         both = torch.tensor([total[n] for n in names], dtype=torch.int64)

@@ -38,7 +38,7 @@ counterpart of JAX's lru-cached ``_cached_step_fn``/``_cached_commit_fn``
 compiles), so a second ``generate`` of the same shapes captures nothing.
 ``get_paged_tick_fn`` and ``PagedMegatick`` are the tick and the megastep
 on the paged pool: gather the pages into dense views, the unchanged tick
-body, scatter back.  ``get_spmd_tick_fn`` is the tick over a (data, model)
+body (over a mesh the SPMD one), scatter back.  ``get_spmd_tick_fn`` is the tick over a (data, model)
 mesh (launch/mesh.py): each rank's rows, the LM head's columns sharded
 over ``model`` and merged by ``sampling.combine_partials``, the outputs
 gathered over ``data``; ``step``, ``generate``, the megatick and the
@@ -903,17 +903,31 @@ def _paged_view(store: torch.Tensor, B: int, R: int) -> Tuple[int, ...]:
     return store.shape[:1] + (B * R, store.shape[2]) + store.shape[3:]
 
 
+def _slot_rows(leaf: torch.Tensor, axis: int, rows) -> torch.Tensor:
+    """A per-slot leaf, or its ``rows`` (r0, r1) along its batch axis."""
+    return leaf if rows is None else leaf.narrow(axis, rows[0],
+                                                 rows[1] - rows[0])
+
+
 def gather_cache_rows(cache_store: Dict, kv_table: torch.Tensor, paged_flags,
-                      out: Optional[Dict] = None) -> Dict:
+                      out: Optional[Dict] = None, rows=None,
+                      batch_axes=None) -> Dict:
     """Page-store cache -> the dense per-slot cache the tick body expects.
     Per-slot leaves pass through as the store's own tensors, or with
-    ``out`` (a dict of dense buffers) are copied into it."""
+    ``out`` (a dict of dense buffers) are copied into it.  ``rows``
+    (r0, r1): only those slots, a data rank's under a mesh (its KV pages,
+    and its rows of each per-slot leaf along ``batch_axes``, the
+    ``paged_cache_layout`` axes)."""
+    if rows is not None:
+        kv_table = kv_table[rows[0]:rows[1]]
     B, R = kv_table.shape
     idx = _page_index(kv_table)
     dense = {} if out is None else out
-    for name, paged in zip(sorted(cache_store), paged_flags):
+    axes = batch_axes or [1] * len(paged_flags)
+    for name, paged, ax in zip(sorted(cache_store), paged_flags, axes):
         leaf = cache_store[name]
         if not paged:
+            leaf = _slot_rows(leaf, ax, rows)
             if out is None:
                 dense[name] = leaf
             else:
@@ -928,28 +942,36 @@ def gather_cache_rows(cache_store: Dict, kv_table: torch.Tensor, paged_flags,
 
 
 def scatter_cache_rows(cache_store: Dict, kv_table: torch.Tensor,
-                       new_cache: Dict, paged_flags) -> Dict:
+                       new_cache: Dict, paged_flags, rows=None,
+                       batch_axes=None) -> Dict:
     """Write a tick's dense cache back into the page stores, in place.
     KV pages are private per slot (the warm tick rewrites every position
     every tick, so sharing would break the moment it was established).
     Only tail and idle entries alias the null page 0, and there the
     writers differ, so which one wins is arbitrary: safe, because those
     positions are masked out of ``kv_valid``, never read by a valid
-    position, and every warm tick rewrites them before it attends."""
+    position, and every warm tick rewrites them before it attends.
+    ``rows``/``batch_axes``: the slots ``gather_cache_rows`` took."""
+    if rows is not None:
+        kv_table = kv_table[rows[0]:rows[1]]
     B, R = kv_table.shape
     idx = _page_index(kv_table)
-    for name, paged in zip(sorted(cache_store), paged_flags):
+    axes = batch_axes or [1] * len(paged_flags)
+    for name, paged, ax in zip(sorted(cache_store), paged_flags, axes):
         store, new = cache_store[name], new_cache[name]
         if paged:
             store.index_copy_(1, idx, new.reshape(_paged_view(store, B, R)))
-        elif new is not store:
+            continue
+        store = _slot_rows(store, ax, rows)
+        if new.data_ptr() != store.data_ptr() or new.shape != store.shape:
             store.copy_(new)
     return cache_store
 
 
 def get_paged_tick_fn(model, dcfg: DiffusionConfig, mask_id: int,
                       page_size: int, s_tot: int, with_cache: bool = True,
-                      jit_steps: bool = True, quant=None, pool=None):
+                      jit_steps: bool = True, quant=None, pool=None,
+                      mesh=None):
     """``batched_tick`` reading and writing through block tables, the JAX
     ``get_paged_tick_fn``: ``tick(params, canvas_pages, cache_store,
     canvas_table, kv_table, kv_valid, block_start, k, seed) ->
@@ -961,21 +983,42 @@ def get_paged_tick_fn(model, dcfg: DiffusionConfig, mask_id: int,
     graph (core/graphs.py, in memory ``pool``): the stores, tables and
     inputs are then its static buffers, written in place between calls,
     and the outputs live until the next call.  Without, or on the CPU, the
-    same function runs eagerly."""
-    flags = (paged_cache_layout(model, page_size, s_tot)[1]
-             if with_cache else None)
+    same function runs eagerly.
+
+    With ``mesh`` the body is the SPMD tick (``get_spmd_tick_fn``, whose
+    checks the caller runs; ``params`` from ``place_spmd_params``), as JAX
+    runs its shard_map tick on the dense views.  Every rank keeps the same
+    page stores and tables (the engine's pool bookkeeping runs alike on
+    each); a rank gathers the KV pages and per-slot rows of its ``data``
+    shard's slots only and scatters only those back.  KV pages are private
+    to a slot and a slot's rank is fixed (``mesh.rows``), so no rank reads
+    another's; the canvas comes back whole from the tick's gather over
+    ``data``, so the canvas pages, shared prefix pages included, stay equal
+    on every rank."""
+    _, paged, axes = (paged_cache_layout(model, page_size, s_tot)
+                      if with_cache else (None, None, None))
+    spmd = (None if mesh is None else
+            get_spmd_tick_fn(model, dcfg, mask_id, mesh, jit_steps=False,
+                             quant=quant))
 
     def tick(params, canvas_pages, cache_store, canvas_table, kv_table,
              kv_valid, block_start, k, seed):
         x = gather_canvas_rows(canvas_pages, canvas_table)
+        rows = None if mesh is None else mesh.rows(x.shape[0])
         cache = (None if cache_store is None
-                 else gather_cache_rows(cache_store, kv_table, flags))
-        x_new, cache, conf_min, masks_left = batched_tick(
-            model, params, x, kv_valid, block_start, k, seed, cache, dcfg,
-            mask_id, quant)
+                 else gather_cache_rows(cache_store, kv_table, paged,
+                                        rows=rows, batch_axes=axes))
+        if mesh is None:
+            x_new, cache, conf_min, masks_left = batched_tick(
+                model, params, x, kv_valid, block_start, k, seed, cache,
+                dcfg, mask_id, quant)
+        else:
+            x_new, cache, conf_min, masks_left = spmd(
+                params, x, kv_valid, block_start, k, seed, cache)
         scatter_canvas_rows(canvas_pages, canvas_table, x_new)
         if cache_store is not None:
-            scatter_cache_rows(cache_store, kv_table, cache, flags)
+            scatter_cache_rows(cache_store, kv_table, cache, paged,
+                               rows=rows, batch_axes=axes)
         return canvas_pages, cache_store, x_new, conf_min, masks_left
 
     return graphs.GraphedStep(tick, pool) if jit_steps else tick
@@ -993,16 +1036,24 @@ class PagedMegatick(Megatick):
     buffers keep their addresses, so the megatick's graphs capture once;
     per-slot leaves are copied in and out with the KV, so a call on copies
     of the stores (the engine's warmup) leaves the engine's own untouched.
-    ``x`` is the dense canvas buffer, valid until the next call."""
+    ``x`` is the dense canvas buffer, valid until the next call.  With
+    ``mesh`` the megatick is the SPMD one and the dense cache holds this
+    rank's ``data`` rows only (``get_paged_tick_fn``'s design)."""
 
     def __init__(self, model, dcfg: DiffusionConfig, mask_id: int,
                  k_max: int, page_size: int, s_tot: int,
                  with_cache: bool = True, jit_steps: bool = True,
-                 slowfast_threshold: Optional[float] = None, quant=None):
+                 slowfast_threshold: Optional[float] = None, quant=None,
+                 mesh=None):
         super().__init__(model, dcfg, mask_id, k_max, jit_steps=jit_steps,
-                         slowfast_threshold=slowfast_threshold, quant=quant)
-        self.flags = (paged_cache_layout(model, page_size, s_tot)[1]
-                      if with_cache else None)
+                         slowfast_threshold=slowfast_threshold, quant=quant,
+                         mesh=mesh)
+        _, self.flags, self.axes = (
+            paged_cache_layout(model, page_size, s_tot) if with_cache
+            else (None, None, None))
+
+    def _rows(self, B: int):
+        return None if self.mesh is None else self.mesh.rows(B)
 
     def _dense_for(self, canvas_pages: torch.Tensor,
                    canvas_table: torch.Tensor, cache_store: Optional[Dict]):
@@ -1011,13 +1062,19 @@ class PagedMegatick(Megatick):
         key = ("dense", B, S, dev)
         if key not in self._carry:
             cache = None
+            rows = self._rows(B)
+            n = B if rows is None else rows[1] - rows[0]
             if cache_store is not None:
                 cache = {}
-                for name, paged in zip(sorted(cache_store), self.flags):
+                for name, paged, ax in zip(sorted(cache_store), self.flags,
+                                           self.axes):
                     leaf = cache_store[name]
-                    shape = (leaf.shape[:1] + (B, S) + leaf.shape[3:]
-                             if paged else leaf.shape)
-                    cache[name] = torch.zeros(shape, dtype=leaf.dtype,
+                    if paged:
+                        shape = leaf.shape[:1] + (n, S) + leaf.shape[3:]
+                    else:
+                        shape = list(leaf.shape)
+                        shape[ax] = n
+                    cache[name] = torch.zeros(tuple(shape), dtype=leaf.dtype,
                                               device=dev)
             self._carry[key] = (torch.zeros((B, S), dtype=canvas_pages.dtype,
                                             device=dev), cache)
@@ -1028,15 +1085,18 @@ class PagedMegatick(Megatick):
                  kv_table: torch.Tensor, kv_valid, state: Dict, tick: int,
                  k_req: int, stop_on_release: bool, seed: int = 0):
         x, cache = self._dense_for(canvas_pages, canvas_table, cache_store)
+        rows = self._rows(x.shape[0])
         gather_canvas_rows(canvas_pages, canvas_table, out=x)
         if cache is not None:
-            gather_cache_rows(cache_store, kv_table, self.flags, out=cache)
+            gather_cache_rows(cache_store, kv_table, self.flags, out=cache,
+                              rows=rows, batch_axes=self.axes)
         x, cache, tick, st, bufs, n = super().__call__(
             params, x, kv_valid, state, tick, k_req, stop_on_release, cache,
             seed)
         scatter_canvas_rows(canvas_pages, canvas_table, x)
         if cache is not None:
-            scatter_cache_rows(cache_store, kv_table, cache, self.flags)
+            scatter_cache_rows(cache_store, kv_table, cache, self.flags,
+                               rows=rows, batch_axes=self.axes)
         return canvas_pages, cache_store, x, tick, st, bufs, n
 
 

@@ -409,13 +409,21 @@ def full_softmax_reference(logits: torch.Tensor
 BIG_INDEX = 1 << 30
 
 
-def local_partials(logits_shard: torch.Tensor, fmt: str = "none"
+def local_partials(logits_shard: torch.Tensor, fmt: str = "none", *,
+                   col_offset: int = 0, suppress_id: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-shard partials of stored logits (..., V_loc): (m, idx, s) with
-    idx local and s relative to m.  Plain PyTorch, as JAX's is jnp."""
+    """Per-shard partials of stored logits (..., V_loc) whose first column
+    is global column ``col_offset``: (m, idx + col_offset, s) with s
+    relative to m, ``suppress_id`` (a global column) masked after the
+    fake-quant on the shard that holds it.  Plain PyTorch, as JAX's is
+    jnp."""
     z = mx.mx_fake_quant(logits_shard, fmt).to(torch.float32)
+    if suppress_id is not None and \
+            0 <= suppress_id - col_offset < z.shape[-1]:
+        col = torch.arange(z.shape[-1], device=z.device)
+        z = torch.where(col == suppress_id - col_offset, NEG_INF, z)
     m = torch.amax(z, dim=-1)
-    idx = torch.argmax(z, dim=-1).to(torch.int32)
+    idx = torch.argmax(z, dim=-1).to(torch.int32) + col_offset
     s = torch.sum(torch.exp(z - m[..., None]), dim=-1)
     return m, idx, s
 
@@ -444,8 +452,38 @@ def sharded_stable_max(logits_shard: torch.Tensor, axis, fmt: str = "none"
     ``local_partials`` with global indices (shard x V_loc), then
     ``combine_partials``."""
     vloc = logits_shard.shape[-1]
-    m, idx, s = local_partials(logits_shard, fmt)
-    return combine_partials(m, idx + axis.index * vloc, s, axis)
+    m, idx, s = local_partials(logits_shard, fmt,
+                               col_offset=axis.index * vloc)
+    return combine_partials(m, idx, s, axis)
+
+
+def sharded_sampling_step_full(logits_shard: torch.Tensor, x: torch.Tensor,
+                               mask_id: int, k: torch.Tensor,
+                               cfg: SamplingConfig,
+                               seed: Optional[Seed] = None, *, axis
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """``sampling_step_full`` on stored logits whose columns are sharded
+    on ``axis`` (B, L, V / n), each shard a whole number of MX blocks:
+    this rank's (m, global idx, s) partials through Stable-Max's
+    vocab-shard entry (kernels/stablemax_sampling.stablemax_shard_partials,
+    route C: the CUDA kernel on the card), ``combine_partials``, then the
+    transfer selection and commit (the same on every rank of the axis).
+    Greedy only: temperature > 0 with a seed raises NotImplementedError."""
+    from repro_torch.kernels import stablemax_sampling as sms   # lazy
+    check_supported(cfg)
+    if cfg.temperature > 0.0 and seed is not None:
+        raise NotImplementedError(
+            "vocab-sharded sampling supports greedy decoding only "
+            "(temperature == 0)")
+    *lead, vloc = logits_shard.shape
+    sup = mask_id if cfg.suppress_mask_token else None
+    m, gidx, s = sms.stablemax_shard_partials(
+        logits_shard.reshape(-1, vloc).contiguous(), fmt=cfg.fmt,
+        col_offset=axis.index * vloc, suppress_id=sup)
+    conf, x0 = combine_partials(m, gidx, s, axis)
+    return _select_and_commit(conf.reshape(lead), x0.reshape(lead), x,
+                              x == mask_id, k, cfg, seed)
 
 
 def sharded_fused_head_stable_max(hidden: torch.Tensor,

@@ -30,10 +30,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("fused_head_sampling", "topk_mask", "flash_bidir",
            "baos_mx_quant", "stablemax_sampling", "flash_bidir_bwd")
 # entries of those libraries counted apart, each named for its route: the
-# fused head's vocab-shard entry (route A, the SPMD tick) and attention
-# over a second K/V source (route B, the split cache's refine)
+# fused head's vocab-shard entry (route A, the SPMD tick), attention over a
+# second K/V source (route B, the split cache's refine) and Stable-Max's
+# vocab-shard entry (route C, the decode step's sharded logit columns)
 ROUTES = {"fused_head_sampling_shard": "fused_head_sampling",
-          "flash_bidir_split": "flash_bidir"}
+          "flash_bidir_split": "flash_bidir",
+          "stablemax_sampling_shard": "stablemax_sampling"}
 COUNTED = KERNELS + tuple(ROUTES)
 # no --use_fast_math: the MX exponent rule and the Gumbel log need the
 # full-precision log2f/logf, and divisions must stay IEEE divisions

@@ -402,6 +402,38 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // Merge of per-tile Stable-Max partials (core/sampling.combine_partials)
 // ---------------------------------------------------------------------------
 
+// One warp merges one row's n_vt greedy partials into the row's partial
+// of a vocab shard, (m, global idx, s), written in place of (conf, token)
+// for a merge across ranks (core/sampling.combine_partials): m = max m_t,
+// s = sum s_t e^(m_t - m), the lowest column among the tiles holding m,
+// plus col_offset.  A row with no valid column (n_vt = 0: a shard of pad
+// only) gets m = NEG, s = 0, idx = BIG, which no combine picks.
+__device__ __forceinline__ void shard_merge_row(
+    const float* __restrict__ part_m, const int* __restrict__ part_i,
+    const float* __restrict__ part_s, int r, int n_vt, int col_offset,
+    float* __restrict__ m_out, int* __restrict__ idx_out,
+    float* __restrict__ s_out) {
+  const int lane = threadIdx.x & 31;
+  const size_t base = static_cast<size_t>(r) * n_vt;
+  float m = NEG;
+  for (int t = lane; t < n_vt; t += 32) m = fmaxf(m, part_m[base + t]);
+  m = warp_max(m);
+  float s = 0.f;
+  int idx = BIG;
+  for (int t = lane; t < n_vt; t += 32) {
+    s += part_s[base + t] * expf(part_m[base + t] - m);
+    if (part_m[base + t] >= m) idx = min(idx, part_i[base + t]);
+  }
+  s = warp_sum(s);
+  idx = warp_min(idx);
+  if (lane == 0) {
+    const bool empty = !(m > NEG);
+    m_out[r] = m;
+    s_out[r] = empty ? 0.f : s;
+    idx_out[r] = empty ? BIG : idx + col_offset;
+  }
+}
+
 // One warp merges one row's n_vt partials: m = max m_t,
 // s = sum s_t e^(m_t - m), the index the lowest column among the tiles
 // holding the max -- or, with Gumbel, among the tiles holding the best

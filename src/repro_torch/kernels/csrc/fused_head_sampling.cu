@@ -577,11 +577,9 @@ cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
 }
 
 // Route A, the vocab-shard entry: one warp per row merges the row's n_vt
-// per-CTA partials with combine_row's greedy rule and writes the
-// partials themselves, (m, global idx, s), in place of (conf, token): the
-// SPMD tick merges them across ranks (core/sampling.combine_partials).
-// A row with no valid column (n_vt = 0: a shard of pad only) gets
-// m = NEG, s = 0, idx = BIG, which no combine picks.
+// per-CTA partials and writes the partials themselves, (m, global idx, s),
+// in place of (conf, token) (common.cuh shard_merge_row): the SPMD tick
+// merges them across ranks (core/sampling.combine_partials).
 __global__ void head_shard_merge_kernel(const float* __restrict__ part_m,
                                         const int* __restrict__ part_i,
                                         const float* __restrict__ part_s,
@@ -591,25 +589,8 @@ __global__ void head_shard_merge_kernel(const float* __restrict__ part_m,
                                         float* __restrict__ s_out) {
   const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (r >= R) return;
-  const int lane = threadIdx.x & 31;
-  const size_t base = static_cast<size_t>(r) * n_vt;
-  float m = NEG;
-  for (int t = lane; t < n_vt; t += 32) m = fmaxf(m, part_m[base + t]);
-  m = warp_max(m);
-  float s = 0.f;
-  int idx = BIG;
-  for (int t = lane; t < n_vt; t += 32) {
-    s += part_s[base + t] * expf(part_m[base + t] - m);
-    if (part_m[base + t] >= m) idx = min(idx, part_i[base + t]);
-  }
-  s = warp_sum(s);
-  idx = warp_min(idx);
-  if (lane == 0) {
-    const bool empty = !(m > NEG);
-    m_out[r] = m;
-    s_out[r] = empty ? 0.f : s;
-    idx_out[r] = empty ? BIG : idx + col_offset;
-  }
+  shard_merge_row(part_m, part_i, part_s, r, n_vt, col_offset, m_out,
+                  idx_out, s_out);
 }
 
 }  // namespace

@@ -52,6 +52,10 @@
 //     aligned, and the chunk that crosses the range's end, load scalar
 //     values; columns past V are zero logits for the block amax, then
 //     left out.
+// Route C (stablemax_sampling_shard_launch) runs the same per-CTA kernel
+// on one rank's vocab shard of stored logits and merges its partials into
+// the shard's (m, global idx, s), for the decode step over a vocab-sharded
+// head of a model without a head mode (launch/steps.py).
 // What holds it back on the H100 (clock64 spans per pass): the arithmetic
 // per logit, most of it the MX quantization, and CTAs of equal work that
 // finish far apart.  Loading the next pass under this one, in registers or
@@ -302,6 +306,23 @@ __global__ void stablemax_combine_kernel(const float* __restrict__ part_m,
               conf, token);
 }
 
+// Route C, the vocab-shard entry: one warp per row merges the row's n_vt
+// greedy per-CTA partials into (m, global idx, s) (common.cuh
+// shard_merge_row), which the decode step over a vocab-sharded head
+// merges across ranks (core/sampling.combine_partials).
+__global__ void stablemax_shard_merge_kernel(const float* __restrict__ part_m,
+                                             const int* __restrict__ part_i,
+                                             const float* __restrict__ part_s,
+                                             int R, int n_vt, int col_offset,
+                                             float* __restrict__ m_out,
+                                             int* __restrict__ idx_out,
+                                             float* __restrict__ s_out) {
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r >= R) return;
+  shard_merge_row(part_m, part_i, part_s, r, n_vt, col_offset, m_out,
+                  idx_out, s_out);
+}
+
 template <typename T, int FMT, bool GUMBEL>
 cudaError_t launch(const T* logits, int R, const Args& a,
                    cudaStream_t stream) {
@@ -377,6 +398,44 @@ extern "C" int stablemax_sampling_launch(
       static_cast<const float*>(part_s), static_cast<const float*>(part_b),
       static_cast<const float*>(part_z), R, (V + cols - 1) / cols,
       temperature > 0.f, static_cast<float*>(conf), static_cast<int*>(token));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Route C: the greedy partials of one vocab shard of stored logits.
+// logits (R, V) contiguous, f32 (is_bf16 = 0) or bf16, are the shard's
+// columns, global columns col_offset .. col_offset + V - 1; V a multiple
+// of 32, so the shard's MX blocks are the full row's.  suppress_id is a
+// column of the shard (< 0: none).  cols and the partials workspace
+// part_m/part_i/part_s (R, ceil(V / cols)) as stablemax_sampling_launch's;
+// m_out, s_out (R,) f32 and idx_out (R,) i32 receive the merged (m,
+// global idx, s), s relative to m.
+extern "C" int stablemax_sampling_shard_launch(
+    const void* logits, void* part_m, void* part_i, void* part_s,
+    void* m_out, void* idx_out, void* s_out, int R, int V, int cols,
+    int is_bf16, int fmt, int suppress_id, int col_offset, void* stream) {
+  if (fmt < FMT_NONE || fmt > FMT_MXFP4 || cols <= 0 || cols % 32 ||
+      V % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0 || V == 0) return 0;
+  const Args a = {V,
+                  cols,
+                  0.f,
+                  nullptr,
+                  suppress_id,
+                  static_cast<float*>(part_m),
+                  static_cast<float*>(part_s),
+                  nullptr,
+                  nullptr,
+                  static_cast<int*>(part_i)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(logits, R, fmt, a, st)
+                            : launch<float>(logits, R, fmt, a, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stablemax_shard_merge_kernel<<<(R + 3) / 4, 128, 0, st>>>(
+      static_cast<const float*>(part_m), static_cast<const int*>(part_i),
+      static_cast<const float*>(part_s), R, (V + cols - 1) / cols,
+      col_offset, static_cast<float*>(m_out), static_cast<int*>(idx_out),
+      static_cast<float*>(s_out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,6 +17,14 @@ combine rule (``fused_head_sampling.combine_rows_plain``).
 ``stablemax_sampling`` launches csrc/stablemax_sampling.cu for CUDA
 tensors and runs ``stable_max_plain`` for CPU tensors (and meta tensors,
 shapes only); a CUDA tensor never reaches the plain version.
+
+Route C, ``stablemax_shard_partials``, is the vocab-shard entry: the same
+per-CTA kernel over one rank's columns of stored logits, its partials
+merged into that shard's (m, global idx, s), which
+``sampling.combine_partials`` merges across ranks (the decode step over a
+vocab-sharded head of a model with no head mode, launch/steps.py).  Its
+plain version is ``sampling.local_partials`` with global indices; its
+launches count under ``SHARD_NAME``.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_head_sampling import range_partials
 
 NAME = "stablemax_sampling"
+SHARD_NAME = "stablemax_sampling_shard"
 _DTYPES = (torch.float32, torch.bfloat16)
 # the kernel's CTA steps through its range 2048 columns (64 MX blocks) at a
 # time, two steps per pass; the plan aims at a few CTAs per SM
@@ -153,3 +162,73 @@ def stablemax_sampling(logits: torch.Tensor, *, fmt: str = "none",
     _build.check(NAME, err)
     _build.launch_counts[NAME] += 1
     return conf, token
+
+
+def stablemax_shard_partials_plain(logits: torch.Tensor, fmt: str = "none",
+                                   *, col_offset: int = 0,
+                                   suppress_id: Optional[int] = None
+                                   ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of route C: ``sampling.local_partials`` with global
+    indices (logits (R, V_loc) -> m, idx, s, each (R,))."""
+    return sampling.local_partials(logits, fmt, col_offset=col_offset,
+                                   suppress_id=suppress_id)
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.function(NAME, "stablemax_sampling_shard_launch",
+                           [p] * 7 + [i] * 7 + [p])
+
+
+def stablemax_shard_partials(logits: torch.Tensor, *, fmt: str = "none",
+                             col_offset: int = 0,
+                             suppress_id: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, ...]:
+    """Route C: one vocab shard of stored logits (R, V_loc), global
+    columns ``col_offset`` onward, V_loc a multiple of the MX block (so
+    the shard's blocks are the full row's) -> per-row greedy partials (m
+    (R,) f32, the global index of the first column holding m (R,) i32, s
+    (R,) f32 relative to m), the sampling fake-quant first and
+    ``suppress_id`` (a global column) masked after it on the shard that
+    holds it.  CUDA tensors run the kernel (``vocab_plan``'s CTAs, then a
+    merge that emits the partials in place of (conf, token)); CPU tensors
+    ``stablemax_shard_partials_plain``."""
+    code = mx.fmt_code(fmt)
+    if logits.dim() != 2:
+        raise ValueError(f"expected logits (R, V_loc); got "
+                         f"{tuple(logits.shape)}")
+    if logits.device.type in _build.PLAIN_DEVICES:
+        return stablemax_shard_partials_plain(
+            logits, fmt, col_offset=col_offset, suppress_id=suppress_id)
+    _build.refuse_grad(NAME, logits)
+    if logits.device.type != "cuda":
+        raise ValueError(f"logits on {logits.device}: need a CUDA device")
+    if logits.dtype not in _DTYPES:
+        raise ValueError(f"logits dtype {logits.dtype} not in {_DTYPES}")
+    R, V = logits.shape
+    if V % mx.MX_BLOCK or not logits.is_contiguous():
+        raise ValueError(f"a logit shard needs contiguous rows of a "
+                         f"multiple of {mx.MX_BLOCK} columns; got "
+                         f"{tuple(logits.shape)}")
+    dev = logits.device
+    m = torch.empty((R,), dtype=torch.float32, device=dev)
+    idx = torch.empty((R,), dtype=torch.int32, device=dev)
+    s = torch.empty_like(m)
+    if R == 0 or V == 0:
+        return m, idx, s
+    cols, n_vt = vocab_plan(V, R, _build.sm_count(dev))
+    part_m = torch.empty((R, n_vt), dtype=torch.float32, device=dev)
+    part_i = torch.empty((R, n_vt), dtype=torch.int32, device=dev)
+    part_s = torch.empty_like(part_m)
+    # the suppressed id as a column of this shard (negative: not in it)
+    sup = -1 if suppress_id is None else int(suppress_id) - int(col_offset)
+    err = _shard_fn()(logits.data_ptr(), part_m.data_ptr(),
+                      part_i.data_ptr(), part_s.data_ptr(), m.data_ptr(),
+                      idx.data_ptr(), s.data_ptr(), R, V, cols,
+                      int(logits.dtype == torch.bfloat16), code,
+                      sup if sup < V else -1, int(col_offset),
+                      torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(NAME, err)
+    _build.launch_counts[SHARD_NAME] += 1
+    return m, idx, s

@@ -91,6 +91,8 @@ KERNEL_PLAINS = (
     ("repro_torch.kernels.fused_head_sampling", "fused_head_stable_max"),
     ("repro_torch.kernels.fused_head_sampling", "head_shard_partials_plain"),
     ("repro_torch.kernels.stablemax_sampling", "stable_max_plain"),
+    ("repro_torch.kernels.stablemax_sampling",
+     "stablemax_shard_partials_plain"),
     ("repro_torch.kernels.topk_mask", "topk_mask_plain"),
 )
 

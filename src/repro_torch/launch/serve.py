@@ -337,7 +337,7 @@ def run_http(args, cfg, model, params, dcfg, mesh=None) -> None:
         raise NotImplementedError(
             f"--http under a mesh of {mesh.size} ranks: the frontend on one "
             f"rank would have to broadcast every submission to the others "
-            f"(ROADMAP.md, Queue 3)")
+            f"(ROADMAP.md, Queue 1, \"What waits\", item 2)")
 
     from repro_torch.obs import ServingObs, TraceCollector
     from repro_torch.serving.frontend import build_frontend, serve_forever

@@ -24,15 +24,18 @@ shards) and runs the tensor-parallel body on them (models/tp.py), where
 GSPMD partitions JAX's step.  Prefill and decode run on the rank's rows
 alone (BAOS calibration and the cache are per row); prefill returns the
 rank's vocab columns of the logits where the head is vocab-sharded, and
-decode samples over such a head through the fused head's vocab-shard
-entry (route A) and ``sampling.combine_partials``, so every ``model``
-rank commits the same tokens.  The train step draws the global batch's
-mask and keeps its rows, divides the loss by the global B * S (the MoE
-aux is the global batch's), sums the gradients over ``data`` before
-AdamW, and clips by the norm of the whole gradient (the sharded leaves'
-squares summed over ``model``), so every rank applies the same update.
-The ssm and hybrid bodies over |model| > 1 raise NotImplementedError
-(ROADMAP.md, Queue 1 item 12d).
+decode samples over such a head through ``sampling.combine_partials``,
+so every ``model`` rank commits the same tokens: the transformer
+families stream the block's hidden states through the fused head's
+vocab-shard entry (route A); the ssm and hybrid families, which have no
+head mode, reduce their stored logit columns with Stable-Max's
+vocab-shard entry (route C).  Where a shard is not a whole number of MX
+blocks the head is gathered over ``model`` first.  The train step draws
+the global batch's mask and keeps its rows, divides the loss by the
+global B * S (the MoE aux is the global batch's), sums the gradients
+over ``data`` before AdamW, and clips by the norm of the whole gradient
+(the sharded leaves' squares summed over ``model``), so every rank
+applies the same update.
 
 JAX seeds each step with ``fold_in(PRNGKey(0), seed)``; the port draws
 the train step's mask from ``diffusion.step_generator(0, seed)`` and
@@ -51,20 +54,15 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import baos as baos_lib
 from repro_torch.core import diffusion
+from repro_torch.core.mx import MX_BLOCK
 from repro_torch.core import sampling as sampling_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as launch_sharding
 from repro_torch.launch import train as train_lib
 from repro_torch.models import tp as tp_lib
-from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw
-
-# the recurrent families' tensor-parallel body, still to port
-TENSOR_PARALLEL = "ROADMAP.md, Queue 1 item 12d"
-# the families models/tp.py's body runs: the transformer stack's
-TP_FAMILIES = transformer.FAMILIES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,11 +138,10 @@ def _fwd_extras(model, extras: Dict[str, Any], kind: str,
     return kw
 
 
-def _axes(mesh, cfg: ModelConfig
-          ) -> Tuple[Optional[mesh_lib.Axis], Optional[mesh_lib.Axis]]:
+def _axes(mesh) -> Tuple[Optional[mesh_lib.Axis], Optional[mesh_lib.Axis]]:
     """The mesh's ``data`` and ``model`` axes (None without a mesh, and
-    ``model`` None at |model| = 1); raises for a mesh the port's steps do
-    not run."""
+    ``model`` None at |model| = 1); raises for a mesh shape, which has no
+    ranks."""
     if mesh is None:
         return None, None
     if not isinstance(mesh, mesh_lib.Mesh):
@@ -152,12 +149,6 @@ def _axes(mesh, cfg: ModelConfig
                         "shape has no ranks to run a step on)")
     if mesh.shape["model"] == 1:
         return mesh.axis("data"), None
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"a {cfg.family} step over {mesh!r}: |model| > 1 needs the "
-            f"{cfg.family} family's tensor-parallel body, which the port "
-            f"does not have yet ({TENSOR_PARALLEL}); the port runs "
-            f"{TP_FAMILIES} over |model| > 1, or run |model| = 1")
     return mesh.axis("data"), mesh.axis("model")
 
 
@@ -184,7 +175,8 @@ def _context(model_ax, data=None, cache=None, x=None):
     canvas's."""
     if model_ax is None:
         return tp_lib.Parallel(data=data) if data is not None else None
-    seq = cache is not None and cache["k"].shape[2] != x.shape[1]
+    seq = cache is not None and "k" in cache and \
+        cache["k"].shape[2] != x.shape[1]
     return tp_lib.Parallel(model=model_ax, data=data, cache_seq=seq)
 
 
@@ -212,7 +204,7 @@ def build_grad_fn(model, aux_weight: float = 0.01,
     dtype) and the metrics are global."""
     cfg = model.cfg
     loss_chunk = policy.loss_chunk if policy and policy.loss_chunk else None
-    data, model_ax = _axes(mesh, cfg)
+    data, model_ax = _axes(mesh)
     ctx = _context(model_ax, data)
     aux = aux_weight if cfg.moe is not None else 0.0
 
@@ -262,7 +254,7 @@ def build_train_step(model, opt_cfg: adamw.OptConfig,
     arithmetic), clipping by the whole gradient's norm over a
     tensor-parallel mesh."""
     grad_fn = build_grad_fn(model, aux_weight, policy, mesh)
-    _, model_ax = _axes(mesh, model.cfg)
+    _, model_ax = _axes(mesh)
     sharded = _sharded_flags(model, mesh) if model_ax is not None else None
 
     def train_step(params, opt_state, tokens, seed, extras, draw=None):
@@ -279,7 +271,7 @@ def build_prefill_step(model, dcfg: diffusion.DiffusionConfig, mesh=None):
     the active block, cache)``: ``diffusion.warm_step``, the cache
     rewritten in place; over |model| > 1 the logits are this rank's
     vocab columns where the head is vocab-sharded."""
-    _, model_ax = _axes(mesh, model.cfg)
+    _, model_ax = _axes(mesh)
 
     @torch.no_grad()
     def prefill_step(params, x, cache, block_start, extras):
@@ -296,10 +288,11 @@ def build_serve_step(model, dcfg: diffusion.DiffusionConfig, mesh=None):
     (x, cache)``: ``diffusion.refine_step`` over the active block, then
     ``sampling.sampling_step`` on its logits (k[b] tokens committed in
     row b), the block written into a new canvas.  Over |model| > 1 with a
-    vocab-sharded head the refine returns hidden states and ``_sample``
-    runs the sharded head."""
+    vocab-sharded head ``_sample_sharded`` runs the sharded head: on the
+    refine's hidden states where the model has a head mode, else on its
+    logit columns."""
     cfg = model.cfg
-    data, model_ax = _axes(mesh, cfg)
+    data, model_ax = _axes(mesh)
     s = dcfg.sampling
     head_sharded = model_ax is not None and cfg.vocab % model_ax.size == 0
     if (s.temperature > 0.0 or s.strategy == "random") and (
@@ -310,22 +303,30 @@ def build_serve_step(model, dcfg: diffusion.DiffusionConfig, mesh=None):
             "the step seed is the same on every rank, so noise drawn by "
             "local row or column would repeat across the shards")
     L = dcfg.block_length
+    head_mode = getattr(model, "supports_head_mode", True)
 
     @torch.no_grad()
     def serve_step(params, x, cache, block_start, k, seed, extras):
         sharded = model_ax is not None and \
             params["lm_head"].shape[-1] != cfg.vocab
+        if sharded and not head_mode and \
+                params["lm_head"].shape[-1] % MX_BLOCK:
+            # the logit columns would split MX blocks: the head gathered
+            params = {**params, "lm_head": mesh_lib.all_gather(
+                params["lm_head"], 1, model_ax)}
+            sharded = False
         with tp_lib.use(_context(model_ax, cache=cache, x=x)):
             kw = _fwd_extras(model, extras, "decode", params)
             feats, cache = diffusion.refine_step(
                 model, params, x, cache, block_start, dcfg,
-                head_mode="hidden" if sharded else "logits", **kw)
+                head_mode="hidden" if sharded and head_mode else "logits",
+                **kw)
         cols = _block_cols(block_start, L, x.device)
         xb = x.index_select(1, cols)
         seed = diffusion.tick_seed(0, seed)
         if sharded:
             xa = _sample_sharded(feats, params["lm_head"], xb, k, cfg, s,
-                                 seed, model_ax)
+                                 seed, model_ax, hidden=head_mode)
         else:
             xa, _ = sampling_lib.sampling_step(feats, xb, cfg.mask_id, k, s,
                                                seed)
@@ -334,24 +335,30 @@ def build_serve_step(model, dcfg: diffusion.DiffusionConfig, mesh=None):
     return serve_step
 
 
-def _sample_sharded(hidden, w_loc, xb, k, cfg: ModelConfig, s, seed, axis):
-    """The decode step's sampling over a vocab-sharded head, from the
-    block's hidden states (B, L, d): where each shard's width is a
-    multiple of the MX block, the fused head's vocab-shard entry (route
-    A) and ``sampling.combine_partials`` (the same tokens on every
-    ``model`` rank); otherwise the head gathered over ``model`` and the
-    single-device fused head."""
-    from repro_torch.core import mx
+def _sample_sharded(feats, w_loc, xb, k, cfg: ModelConfig, s, seed, axis,
+                    hidden: bool = True):
+    """The decode step's sampling over a vocab-sharded head.  From the
+    block's hidden states (B, L, d) (``hidden``): where each shard's
+    width is a multiple of the MX block, the fused head's vocab-shard
+    entry (route A) and ``sampling.combine_partials`` (the same tokens on
+    every ``model`` rank); otherwise the head gathered over ``model`` and
+    the single-device fused head.  From this rank's logit columns
+    (B, L, V / |model|), whose width the caller made a multiple of the MX
+    block: Stable-Max's vocab-shard entry (route C) and the combine."""
     from repro_torch.kernels import fused_head_sampling as fhs
+    if not hidden:
+        xa, _, _ = sampling_lib.sharded_sampling_step_full(
+            feats, xb, cfg.mask_id, k, s, seed, axis=axis)
+        return xa
     scale = float(cfg.logit_scale)
-    if w_loc.shape[-1] % mx.MX_BLOCK == 0:
+    if w_loc.shape[-1] % MX_BLOCK == 0:
         xa, _, _ = sampling_lib.sharded_fused_sampling_step_full(
-            hidden, w_loc, xb, cfg.mask_id, k, s, seed, axis=axis,
+            feats, w_loc, xb, cfg.mask_id, k, s, seed, axis=axis,
             logit_scale=scale, col_limit=int(cfg.vocab))
         return xa
     w = fhs.pad_head(mesh_lib.all_gather(w_loc, 1, axis))
     xa, _, _ = sampling_lib.fused_sampling_step_full(
-        hidden, w, xb, cfg.mask_id, k, s, seed, logit_scale=scale)
+        feats, w, xb, cfg.mask_id, k, s, seed, logit_scale=scale)
     return xa
 
 

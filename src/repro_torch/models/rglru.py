@@ -24,6 +24,12 @@ sub-layer a dict ``ln1``, ``ln2``, ``temporal`` (rec: ``w_y``,
 (nt, B, 1, Hkv, D) f32, ``rec_state`` (nt, 2, B, d_rnn) f32 and
 ``rec_conv`` (nt, 2, B, W - 1, d_rnn) (batch on axis 2), ``tail_state``
 (2, B, d_rnn) f32 and ``tail_conv`` (2, B, W - 1, d_rnn), written in place.
+
+Inside a step over a mesh with |model| > 1 (launch/steps.py) the layers
+run on this rank's shards (models/tp.py): ``rec_block`` and the GeGLU MLP
+as their docstrings say, the attention layers as the transformer's
+(local or gathered heads, a head- or context-parallel cache), the
+recurrent cache leaves sharded with their channels.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import baos as baos_lib
 from repro_torch.kernels import flash_bidir, fused_head_sampling
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, tp as tp_lib, transformer
 from repro_torch.models.config import ModelConfig
 
 RGLRU_C = 8.0
@@ -123,24 +129,37 @@ def rec_block(x: torch.Tensor, p: Dict, cfg: ModelConfig, h0=None,
               conv_state=None, capture_at=None):
     """Griffin's recurrent temporal block on its normed input x
     (B, S, d_model).  Returns (y, h at capture_at - 1 (B, d_rnn) f32 or
-    None, the W - 1 pre-conv rows before capture_at or None)."""
-    W = cfg.conv_width
-    y = layers.qdot(x, p["w_y"])
-    gate = layers.gelu(layers.qdot(x, p["w_gate"]))
+    None, the W - 1 pre-conv rows before capture_at or None).
+
+    Under the tensor-parallel body (models/tp.py, JAX's ``rec_block_specs``)
+    the recurrence width shards over ``model`` where it divides: ``w_y``
+    and ``w_gate`` are column products, the conv, ``lam`` and the scan run
+    on this rank's channels, the square gates ``w_a``/``w_x`` (rows over
+    ``model``) are row-parallel with the rank keeping its channels of the
+    sum (``tp.row_gate``), and ``w_out`` is row-parallel."""
+    W, dr = cfg.conv_width, cfg.d_rnn
+    hin = tp_lib.copy_in(x)
+    y = tp_lib.col(x, p["w_y"], dr, hin=hin)
+    gate = layers.gelu(tp_lib.col(x, p["w_gate"], dr, hin=hin))
     conv_cap = (None if capture_at is None
                 else layers.capture_rows(y, capture_at, W - 1))
     y = layers.causal_conv(y, p["conv_w"], conv_state) + p["conv_b"]
-    r = torch.sigmoid(layers.qdot(y, p["w_a"], None, p["b_a"]))
-    i = torch.sigmoid(layers.qdot(y, p["w_x"], None, p["b_x"]))
+    r = torch.sigmoid(tp_lib.row_gate(y, p["w_a"], p["b_a"], dr))
+    i = torch.sigmoid(tp_lib.row_gate(y, p["w_x"], p["b_x"], dr))
     h = rglru_scan(y, r, i, p["lam"], h0)
     h_cap = None if capture_at is None else layers.row_at(h, capture_at)
-    out = layers.qdot(h.to(x.dtype) * gate, p["w_out"])
+    out = tp_lib.row(h.to(x.dtype) * gate, p["w_out"], dr)
     return out, h_cap, conv_cap
 
 
-def geglu_mlp(x: torch.Tensor, p: Dict) -> torch.Tensor:
-    h = layers.gelu(layers.qdot(x, p["w_gate"])) * layers.qdot(x, p["w_up"])
-    return layers.qdot(h, p["w_down"])
+def geglu_mlp(x: torch.Tensor, p: Dict, d_ff: int) -> torch.Tensor:
+    """The GeGLU MLP; under the tensor-parallel body ``w_gate``/``w_up``
+    column products and ``w_down`` row-parallel, as the transformer's
+    FFN."""
+    hin = tp_lib.copy_in(x)
+    h = layers.gelu(tp_lib.col(x, p["w_gate"], d_ff, hin=hin)) * \
+        tp_lib.col(x, p["w_up"], d_ff, hin=hin)
+    return tp_lib.row(h, p["w_down"], d_ff)
 
 
 # ---------------------------------------------------------------------------
@@ -285,15 +304,17 @@ class GriffinModel:
         y, hc, cc = rec_block(transformer.apply_norm(x, p["ln1"], cfg),
                               p["temporal"], cfg, h0, conv, capture_at)
         x = x + y
-        x = x + geglu_mlp(transformer.apply_norm(x, p["ln2"], cfg), p["mlp"])
+        x = x + geglu_mlp(transformer.apply_norm(x, p["ln2"], cfg), p["mlp"],
+                          cfg.d_ff)
         return x, hc, cc
 
     def _attn_sub(self, x, p, lcache, *, seg_start, positions, kv_valid,
                   baos_cfg, calibrate, calib_mask):
         cfg = self.cfg
-        B, S, _ = x.shape
         h = transformer.apply_norm(x, p["ln1"], cfg)
-        q, k, v = transformer.qkv(h, p["temporal"], cfg, positions)
+        layout = transformer.attn_layout(p["temporal"], cfg)
+        q, k, v = transformer.qkv(h, p["temporal"], cfg, positions,
+                                  layout=layout)
         if lcache is None:
             # no cache: every position is valid and kv_valid is ignored,
             # as in JAX
@@ -302,10 +323,10 @@ class GriffinModel:
             attn = transformer.cache_attention(
                 q, k, v, lcache, seg_start, kv_valid, cfg, baos_cfg,
                 calibrate, calib_mask)
-        x = x + layers.qdot(attn.reshape(B, S, cfg.n_heads * cfg.d_head),
-                            p["temporal"]["wo"])
+        x = x + transformer.out_proj(attn, p["temporal"]["wo"], cfg,
+                                     layout=layout)
         return x + geglu_mlp(transformer.apply_norm(x, p["ln2"], cfg),
-                             p["mlp"])
+                             p["mlp"], cfg.d_ff)
 
     def forward(self, params: Dict, tokens: torch.Tensor, *,
                 cache: Optional[Dict] = None, seg_start=0,
@@ -329,7 +350,7 @@ class GriffinModel:
         baos_cfg = baos_cfg or baos_lib.BAOSConfig(enabled=False)
         B, S = tokens.shape
         if cache is not None:
-            s_tot = cache["k"].shape[2]
+            s_tot = transformer.cache_len(cache)
             if not isinstance(seg_start, torch.Tensor) and \
                     not 0 <= seg_start <= s_tot - S:
                 raise ValueError(f"segment [{seg_start}, {seg_start + S}) "

@@ -25,6 +25,10 @@ Parameters: ``embed`` (V, d), ``layers`` (a list of dicts ``norm``,
 ``final_norm`` and ``lm_head`` (d, V).  The cache: ``state``
 (n_layers, B, nh, hp, dn) f32 and ``conv`` (n_layers, B, W - 1, conv_dim),
 written in place by a warm step (JAX returns a new one).
+
+Inside a step over a mesh with |model| > 1 (launch/steps.py) the block
+runs on this rank's shards (``mamba_block``), the embedding and the LM
+head as the transformer's (models/tp.py).
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ from repro_torch import device as device_lib
 from repro_torch.core import baos as baos_lib
 from repro_torch.core import mx
 from repro_torch.kernels import fused_head_sampling
-from repro_torch.models import layers, transformer
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import layers, tp as tp_lib, transformer
 from repro_torch.models.config import ModelConfig
 
 # SSD chunk length: divides every segment fed to the model
@@ -142,27 +147,72 @@ def mamba_block(x: torch.Tensor, lp: Dict, cfg: ModelConfig,
                 conv_state: Optional[torch.Tensor] = None,
                 chunk: int = SSD_CHUNK, capture_at=None):
     """x (B, S, d_model), normed -> (y, chunk_states, the W - 1 pre-conv
-    rows before ``capture_at`` or None)."""
+    rows before ``capture_at`` or None).
+
+    Under the tensor-parallel body (models/tp.py) with ``d_inner``
+    sharded over ``model`` (JAX's ``mamba_layer_specs`` under GSPMD) the
+    block runs on this rank's shards:
+
+      * the in_proj output [z | xBC | dt] whole on every rank (gathered
+        when in_proj's columns are sharded: a column shard cuts across
+        the pieces and the heads);
+      * the depthwise conv on this rank's channels of xBC when ``conv_w``
+        and the conv cache shard (a channel shard is not a head
+        boundary), gathered whole; else on every channel;
+      * the SSD scan on this rank's heads when they divide over ``model``
+        (the state cache then holds those heads), else on every head; B
+        and C whole either way;
+      * the gated RMSNorm on this rank's channels, its sum of squares
+        summed over ``model``, then ``out_proj`` row-parallel.
+
+    Every rank then feeds a different part of the whole to the loss, so a
+    replicated leaf (A_log, D, dt_bias, a whole conv) enters through
+    ``tp.copy_in`` and the gathers sum their gradient over ``model``."""
     d_inner, hp, nh, ng, dn, conv_dim = mamba_dims(cfg)
     B_, S, _ = x.shape
     W = cfg.conv_width
-    zxbcdt = layers.qdot(x, lp["in_proj"])
+    axis = tp_lib.model_axis()
+    r0, r1 = tp_lib.shard_range(d_inner, lp["gate_norm"].shape[0], axis)
+    part = r1 - r0 != d_inner
+    conv_sharded = lp["conv_w"].shape[1] != conv_dim
+    if axis is not None and not part and (
+            conv_sharded or lp["in_proj"].shape[1] != 2 * d_inner +
+            2 * ng * dn + nh):
+        raise ValueError(f"mamba block over |model| {axis.size}: d_inner "
+                         f"{d_inner} is whole but in_proj or the conv is "
+                         f"sharded")
+    rep = tp_lib.copy_in if part else (lambda t: t)
+    zxbcdt = tp_lib.col(x, lp["in_proj"], 2 * d_inner + 2 * ng * dn + nh,
+                        gather=part)
     z, xbc_raw, dtv = torch.split(zxbcdt, [d_inner, conv_dim, nh], dim=-1)
+    conv_w, conv_b = lp["conv_w"], lp["conv_b"]
+    if conv_sharded:
+        c0, c1 = tp_lib.shard_range(conv_dim, conv_w.shape[1], axis)
+        xbc_raw = xbc_raw[..., c0:c1]
+    else:
+        conv_w, conv_b = rep(conv_w), rep(conv_b)
     conv_capture = (None if capture_at is None
                     else layers.capture_rows(xbc_raw, capture_at, W - 1))
-    xbc = F.silu(layers.causal_conv(xbc_raw, lp["conv_w"], conv_state) +
-                 lp["conv_b"])
+    xbc = F.silu(layers.causal_conv(xbc_raw, conv_w, conv_state) + conv_b)
+    if conv_sharded:
+        xbc = mesh_lib.gather(xbc, -1, axis)
     xs, Bv, Cv = torch.split(xbc, [d_inner, ng * dn, ng * dn], dim=-1)
-    xs = xs.reshape(B_, S, nh, hp)
-    Bv = Bv.reshape(B_, S, ng, dn)
-    Cv = Cv.reshape(B_, S, ng, dn)
-    dt = layers.softplus(dtv.to(torch.float32) + lp["dt_bias"])
-    A = -torch.exp(lp["A_log"])
-    y, states = ssd_chunked(xs, dt, A, Bv, Cv, h0, chunk)
-    y = y + lp["D"][None, None, :, None] * xs.to(torch.float32)
-    y = y.reshape(B_, S, d_inner).to(x.dtype)
-    y = layers.rms_norm(y * F.silu(z), lp["gate_norm"], cfg.norm_eps)
-    return layers.qdot(y, lp["out_proj"]), states, conv_capture
+    h0_, h1_ = ((r0 // hp, r1 // hp) if part and nh % axis.size == 0
+                else (0, nh))
+    xs = xs.reshape(B_, S, nh, hp)[:, :, h0_:h1_]
+    dt = layers.softplus(dtv[..., h0_:h1_].to(torch.float32) +
+                         rep(lp["dt_bias"])[h0_:h1_])
+    A = -torch.exp(rep(lp["A_log"])[h0_:h1_])
+    y, states = ssd_chunked(xs, dt, A, Bv.reshape(B_, S, ng, dn),
+                            Cv.reshape(B_, S, ng, dn), h0, chunk)
+    y = y + rep(lp["D"])[h0_:h1_][None, None, :, None] * \
+        xs.to(torch.float32)
+    y = y.reshape(B_, S, -1).to(x.dtype)
+    if y.shape[-1] != r1 - r0:
+        y = y[..., r0:r1]
+    y = tp_lib.rms_norm(y * F.silu(z[..., r0:r1]), lp["gate_norm"], d_inner,
+                        cfg.norm_eps)
+    return tp_lib.row(y, lp["out_proj"], d_inner), states, conv_capture
 
 
 class MambaModel:

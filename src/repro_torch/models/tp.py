@@ -1,5 +1,5 @@
-"""The tensor-parallel body: the transformer families' products with their
-weights sharded over a mesh's ``model`` axis, as JAX's GSPMD partitions
+"""The tensor-parallel body: every family's products with their weights
+sharded over a mesh's ``model`` axis, as JAX's GSPMD partitions
 them from ``launch/sharding.make_rules``'s placements (heads, MLP,
 experts and vocab over ``model``).
 
@@ -27,7 +27,11 @@ comes out equal on every ``model`` rank.
   * the vocab-sharded embedding (``embed``): each rank looks up the ids
     of its range and puts zeros elsewhere, then one exact sum;
   * the vocab-parallel loss (``vocab_ce``): a global log-softmax over
-    the ranks' logit columns.
+    the ranks' logit columns;
+  * the recurrent families' pieces (models/ssm.py, models/rglru.py): a
+    row-sharded square gate whose output the rank keeps only its
+    channels of (``row_gate``), an RMSNorm over a sharded channel dim
+    (``rms_norm``), both through ``all_sum``.
 
 ``Parallel.cache_seq`` marks a context-parallel cache (``kv_seq`` on
 ``model``: each rank stores its sequence slice; models/transformer's
@@ -162,6 +166,43 @@ def row(x: torch.Tensor, w: torch.Tensor, full: int, quant=None,
     if bias is not None:
         y = y + bias.to(torch.float32)
     return y.to(x.dtype)
+
+
+def all_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over ``model`` for ranks that then use different parts
+    of the sum: the gradient is summed over ``model`` too (Megatron's g,
+    then f)."""
+    axis = model_axis()
+    return mesh_lib.copy_to(mesh_lib.reduce_from(x, axis), axis)
+
+
+def row_gate(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             full: int) -> torch.Tensor:
+    """x (..., K_loc) @ w (K_loc, full) + b, the RG-LRU's square gates
+    (JAX's ("mlp", None) weight and ("mlp",) bias): the f32 partial summed
+    over ``model``, this rank's ``b.shape[0]`` columns kept, ``b`` added in
+    f32, one rounding to x's dtype (``layers.qdot``'s biased product)."""
+    from repro_torch.models import layers
+    axis = model_axis()
+    if axis is None or w.shape[0] == full:
+        return layers.qdot(x, w, None, b)
+    c0, c1 = shard_range(full, b.shape[0], axis)
+    y = all_sum(_mm_f32(x, w))[..., c0:c1]
+    return (y + b.to(torch.float32)).to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, full: int,
+             eps: float) -> torch.Tensor:
+    """``layers.rms_norm`` over a channel dim of ``full`` whose slice this
+    rank holds (``w`` its weight's slice): the f32 sum of squares summed
+    over ``model``."""
+    from repro_torch.models import layers
+    axis = model_axis()
+    if axis is None or w.shape[0] == full:
+        return layers.rms_norm(x, w, eps)
+    xf = x.to(torch.float32)
+    var = all_sum(torch.sum(xf * xf, dim=-1, keepdim=True)) / full
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
 def partial(x: torch.Tensor, w: torch.Tensor, quant=None) -> torch.Tensor:

@@ -263,6 +263,16 @@ def embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
             cfg.embed_scale).to(cfg.torch_dtype)
 
 
+def cache_len(cache: Dict) -> int:
+    """The KV cache's sequence length: ``cache["k"]``'s, times |model| for
+    a context-parallel cache (models/tp.Parallel.cache_seq)."""
+    s_tot = cache["k"].shape[2]
+    ctx = tp_lib.current()
+    if ctx is not None and ctx.cache_seq and tp_lib.model_axis():
+        s_tot *= ctx.model.size
+    return s_tot
+
+
 def attn_layout(ap: Dict, cfg: ModelConfig) -> Tuple[bool, bool]:
     """(gather, part) of an attention sublayer's projections ``ap``
     (``wq wk wv wo``) under the tensor-parallel body (models/tp.py):
@@ -518,10 +528,7 @@ def forward(params: Dict, cfg: ModelConfig,
     baos_cfg = baos_cfg or baos_lib.BAOSConfig(enabled=False)
     B, S = (tokens if embeds is None else embeds).shape[:2]
     if cache is not None:
-        s_tot = cache["k"].shape[2]
-        ctx = tp_lib.current()
-        if ctx is not None and ctx.cache_seq and tp_lib.model_axis():
-            s_tot *= ctx.model.size
+        s_tot = cache_len(cache)
         if not isinstance(seg_start, torch.Tensor) and \
                 not 0 <= seg_start <= s_tot - S:
             raise ValueError(f"segment [{seg_start}, {seg_start + S}) does "

@@ -32,7 +32,9 @@ ranks agree on each tick's seconds (the slowest rank's), so their
 schedulers take the same decisions.  Modes none and warm, K = 1 and the
 megatick; a graphed tick needs a mesh whose collectives a CUDA graph
 captures (NCCL).  Breakdown timing and forward kwargs are refused, as in
-JAX; the paged pool under a mesh is not ported (ROADMAP.md, Queue 1).
+JAX.  The paged pool runs under a mesh too: every rank keeps the same
+page stores and bookkeeping and gathers, ticks and scatters its ``data``
+shard's slots (core/diffusion.get_paged_tick_fn).
 
 ``EngineConfig.obs`` takes a ``repro_torch.obs.ServingObs``: the JAX
 engine's hooks at the same places (request lifecycle counters and
@@ -280,10 +282,6 @@ class ServingEngine:
             if self.fwd_kw:
                 raise ValueError(
                     "mesh serving does not support extra forward kwargs")
-            if self.paged:
-                raise NotImplementedError(
-                    "the paged pool under a mesh is not ported yet "
-                    "(ROADMAP.md, Queue 1)")
             # mesh axes, the fused greedy head, a capturable mesh for graphs
             diffusion.check_spmd(model, dcfg, mesh, config.jit_steps)
             if config.num_slots % mesh.shape["data"]:
@@ -390,7 +388,7 @@ class ServingEngine:
             self._tick_fn = diffusion.get_paged_tick_fn(
                 model, dcfg, self.mask_id, config.page_size,
                 self.max_seq_len, with_cache=with_cache,
-                jit_steps=self.jit_steps, quant=self._quant)
+                jit_steps=self.jit_steps, quant=self._quant, mesh=mesh)
         elif self.megatick_k == 1 and mesh is not None:
             self._tick_fn = diffusion.get_spmd_tick_fn(
                 model, dcfg, self.mask_id, mesh, jit_steps=self.jit_steps,
@@ -410,7 +408,7 @@ class ServingEngine:
                 diffusion.PagedMegatick(
                     model, dcfg, self.mask_id, self.megatick_k,
                     config.page_size, self.max_seq_len,
-                    with_cache=with_cache, **kw) if self.paged
+                    with_cache=with_cache, mesh=mesh, **kw) if self.paged
                 else diffusion.Megatick(model, dcfg, self.mask_id,
                                         self.megatick_k, mesh=mesh, **kw))
 

@@ -1,5 +1,5 @@
-"""Rank bodies of tests/test_torch_spmd.py, test_torch_compress.py and
-test_torch_steps.py.  ``spawn`` starts one process
+"""Rank bodies of tests/test_torch_spmd.py, test_torch_compress.py,
+test_torch_steps.py, test_torch_tp_steps.py and test_torch_paged_mesh.py.  ``spawn`` starts one process
 per rank (the spawn start method), each joins a gloo group over a
 ``file://`` store in the test's tmp_path and runs one job; rank 0 pickles
 the job's result for the test.  Every process is joined with a deadline,
@@ -8,6 +8,7 @@ Imports torch and the port only (no JAX in the ranks)."""
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import pickle
 import time
 
@@ -169,9 +170,15 @@ def _job_compress(rank: int, world: int) -> dict:
 STEP_B, STEP_S, STEP_L, STEP_BS = 4, 32, 8, 16
 
 
-def step_shape(kind: str):
+def step_shape(kind: str, block: int = STEP_L):
     from repro_torch.configs.base import ShapeConfig
-    return ShapeConfig(kind, STEP_S, STEP_B, kind, block_length=STEP_L)
+    return ShapeConfig(kind, STEP_S, STEP_B, kind, block_length=block)
+
+
+def step_block(cfg) -> int:
+    """The steps' block length: mamba's segments are whole SSD chunks
+    (models/ssm.SSD_CHUNK, 16), so its block is the canvas's second half."""
+    return 16 if cfg.family == "ssm" else STEP_L
 
 
 def step_inputs(cfg):
@@ -198,7 +205,7 @@ def _job_steps(rank: int, world: int) -> dict:
     rank's shards, gathered over data, beside rank 0's single-device run
     on the full inputs; the MoE steps (``tp_run``, its aux the global
     batch's); the refusals: sampled decoding over |data| > 1 or a
-    vocab-sharded head, and the ssm body over |model| > 1."""
+    vocab-sharded head (and the ssm steps over |model| > 1, which build)."""
     from repro_torch import sharding, tree as tree_lib
     from repro_torch.configs import base
     from repro_torch.launch import mesh as mesh_lib
@@ -300,14 +307,21 @@ def _job_steps(rank: int, world: int) -> dict:
 
 # smoke configs (f32); "v256": the vocab cut to 256, so the embedding, the
 # loss and the decode step's head shard over ``model`` (every smoke config
-# has V = 257, which no |model| > 1 divides); "e6": six experts, which
+# has V = 257, which no |model| > 1 divides; the recurrent families then
+# sample through route C, shards of 128 and 64); "v320": shards of 160 and
+# 80, the second not a whole number of MX blocks, so the recurrent decode
+# step gathers the head; "h32": mamba's head dim 32, four SSD heads, so at
+# |model| = 4 every leaf shards (in_proj's 292 columns, the state's
+# heads); "e6": six experts, which
 # |model| = 4 does not divide, so the experts' hidden dim shards instead;
 # "f66": an expert hidden dim of 66, which |model| = 4 does not divide
 # either, so at |model| = 4 the experts stay whole on every rank while
 # the shared experts (hidden 128) shard
 TP_CASES = ("llada-8b", "llada-8b v256", "qwen2-0.5b", "llada-moe-7b-a1b",
             "qwen2-moe-a2.7b e6", "qwen2-moe-a2.7b e6 f66",
-            "whisper-medium", "internvl2-26b")
+            "whisper-medium", "internvl2-26b", "mamba2-130m",
+            "mamba2-130m h32", "mamba2-130m v320", "recurrentgemma-2b",
+            "recurrentgemma-2b v256")
 TP_LR = 1e-3
 
 
@@ -315,8 +329,11 @@ def tp_config(case: str):
     from repro_torch.configs import base
     arch, *opts = case.split()
     cfg = base.get_config(arch, smoke=True)
-    if "v256" in opts:
-        cfg = dataclasses.replace(cfg, vocab=256)
+    for opt in opts:
+        if opt[0] == "v":
+            cfg = dataclasses.replace(cfg, vocab=int(opt[1:]))
+    if "h32" in opts:
+        cfg = dataclasses.replace(cfg, ssm_head_dim=32)
     if cfg.mask_id >= cfg.vocab:
         cfg = dataclasses.replace(cfg, mask_token_id=cfg.vocab - 1)
     if "e6" in opts:
@@ -440,7 +457,8 @@ def tp_run(case: str, mesh=None) -> dict:
     for split in (False, True):
         policy = steps.ServePolicy(split_cache=split)
         act = STEP_L if split else None
-        pre, dec = step_shape("prefill"), step_shape("decode")
+        pre, dec = (step_shape(kind, step_block(cfg))
+                    for kind in ("prefill", "decode"))
         inp = {"params": tp_params(model), "x": x,
                "cache": model.init_cache(STEP_B, STEP_S, act),
                "extras": tp_extras(cfg, "prefill")}
@@ -514,8 +532,101 @@ def _job_tp(rank: int, world: int, data: int, model: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the paged pool under a mesh (tests/test_torch_paged_mesh.py)
+# ---------------------------------------------------------------------------
+
+def paged_trace(vocab: int):
+    """tests/test_torch_paged.py's trace: two requests share a two-page
+    prompt, then a 12- and an 8-token prompt; gens 8 and 16."""
+    rs = np.random.RandomState(0)
+    shared = rs.randint(0, vocab - 2, size=(16,)).astype(np.int32)
+    prompts = [shared, shared.copy(),
+               rs.randint(0, vocab - 2, size=(12,)).astype(np.int32),
+               rs.randint(0, vocab - 2, size=(8,)).astype(np.int32)]
+    return [(p, 8 * (1 + i % 2)) for i, p in enumerate(prompts)]
+
+
+def _paged_serve(engine, trace, preempt_at=None):
+    """Tokens, per-request ticks and CommitEvent keys of ``trace`` through
+    ``engine``; with ``preempt_at`` the newest live request is preempted
+    after that many ticks."""
+    from repro_torch.serving import Request
+    events = []
+    for prompt, gen in trace:
+        engine.submit(Request(prompt=prompt.copy(), gen_length=gen),
+                      on_commit=lambda e: events.append(
+                          (e.uid, e.tick, e.block_idx, e.step_in_block,
+                           e.masks_left, e.done, e.positions.tolist(),
+                           e.tokens.tolist())))
+    engine.warmup()
+    ticks = 0
+    while engine.pending:
+        if not engine.tick():
+            break
+        ticks += 1
+        if ticks == preempt_at:
+            live = [s.request.uid for s in engine.slots if s is not None]
+            assert engine.preempt(live[-1])
+    done = sorted(engine.completed, key=lambda c: c.uid)
+    return ({c.uid: c.tokens.tolist() for c in done},
+            {c.uid: c.ticks for c in done}, events)
+
+
+def paged_results(mesh=None) -> dict:
+    """The smoke llada-8b engine on the paged pool over ``mesh`` (None:
+    one rank), beside the slot pool on the same mesh: JAX's
+    tests/test_paged_cache.py mesh case (mode none, three requests of 8 +
+    8 on two slots of 16), then ``paged_trace`` (a shared prefix) in modes
+    none and warm at K 1 and the megatick (K 4), and warm with a preempt
+    after two ticks (restored into whichever slot frees first)."""
+    from repro_torch.configs import base
+    from repro_torch.core import diffusion
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = base.get_config("llada-8b", smoke=True)
+    mdl = build_model(cfg, "cpu")
+    params = mdl.init(0)
+
+    def engine(pool, mode, k=1, **kw):
+        dc = diffusion.DiffusionConfig(
+            gen_length=16, block_length=8, steps_per_block=4,
+            cache_mode="dual" if mode == "warm" else "none")
+        return ServingEngine(mdl, params, dc, EngineConfig(
+            num_slots=2, mode=mode, pool=pool, mesh=mesh, megatick_k=k,
+            page_size=8, seed=0, **{"max_seq_len": 32, **kw}))
+
+    out = {}
+    rs = np.random.RandomState(60)
+    jax_case = [(rs.randint(0, cfg.vocab - 2, size=(8,)).astype(np.int32),
+                 8) for _ in range(3)]
+    for pool in ("paged", "slot"):
+        out["jax case", pool] = _paged_serve(
+            engine(pool, "none", max_seq_len=16), jax_case)
+        for mode in ("none", "warm"):
+            for k in (1, 4):
+                eng = engine(pool, mode, k)
+                out[mode, k, pool] = _paged_serve(eng, paged_trace(
+                    cfg.vocab))
+                if pool == "paged":
+                    out["stats", mode, k] = eng.pool.stats()
+    trace = [(p, 16) for p, _ in paged_trace(cfg.vocab)[:3]]
+    eng = engine("paged", "warm")
+    out["preempt"] = _paged_serve(eng, trace, preempt_at=2)
+    st = eng.pool.stats()
+    out["preempt stats"] = (st["preemptions"], st["restores"])
+    out["preempt base"] = _paged_serve(engine("paged", "warm"), trace)
+    return out
+
+
+def _job_paged(rank: int, world: int, data: int, model: int) -> dict:
+    from repro_torch.launch import mesh as mesh_lib
+    return paged_results(mesh_lib.make_debug_mesh(data, model, "cpu"))
+
+
 JOBS = {"combine": _job_combine, "serve": _job_serve,
-        "compress": _job_compress, "steps": _job_steps, "tp": _job_tp}
+        "compress": _job_compress, "steps": _job_steps, "tp": _job_tp,
+        "paged": _job_paged}
 
 
 def run_rank(rank: int, world: int, store: str, job: str, out: str,
@@ -538,7 +649,9 @@ def spawn(job: str, world: int, tmp_path, timeout: float = 150.0,
     joined against one deadline and killed past it (the test fails)."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
-    tag = f"{job}-{world}-{'-'.join(map(str, kwargs.values()))}"
+    # the kwargs hashed: a long case list would overflow a file name
+    tag = f"{job}-{world}-" + hashlib.sha1(
+        repr(sorted(kwargs.items())).encode()).hexdigest()[:12]
     store, out = tmp_path / f"{tag}.store", tmp_path / f"{tag}.pkl"
     procs = [ctx.Process(target=run_rank, args=(r, world, str(store), job,
                                                 str(out), kwargs))

@@ -134,13 +134,20 @@ def test_multi_pod_cell():
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b"])
 def test_recurrent_cells_record_the_error(tmp_path, arch):
+    """The recurrent families' cells once recorded the error of their
+    missing tensor-parallel body; now their record is a traced cell's,
+    saved as returned, with JAX's parameter and cache bytes per device."""
     rec = dryrun.run_and_record(arch, "decode_32k", False,
                                 out_dir=tmp_path)
-    assert rec["status"] == "error"
-    assert "NotImplementedError" in rec["error"] and "12d" in rec["error"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert "error" not in rec
     saved = json.loads((tmp_path / f"{arch}__decode_32k__16x16.json"
                         ).read_text())
-    assert saved["status"] == "error" and saved["error"] == rec["error"]
+    assert saved["status"] == "ok"
+    assert saved["flops_per_device"] == rec["flops_per_device"]
+    want = jax_bytes(arch, "decode_32k", (16, 16))
+    assert rec["param_bytes_per_device"] == want["params"]
+    assert rec["cache_bytes_per_device"] == want["cache"]
 
 
 def test_cli_writes_records(tmp_path, capsys):

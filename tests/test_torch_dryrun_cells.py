@@ -1,9 +1,7 @@
 """Every cell of the port's dry run (launch/dryrun.cells("single")) on
-meta tensors at the (16, 16) mesh: each transformer-family cell (dense,
-MoE, audio, vlm) records ``status: "ok"`` with positive FLOPs and bytes
-per device and JAX's ``model_flops_global``; each ssm and hybrid cell
-records ``status: "error"`` with the NotImplementedError that names the
-recurrent families' tensor-parallel body (ROADMAP.md, Queue 1 item 12d).
+meta tensors at the (16, 16) mesh: each cell of every family (dense, MoE,
+audio, vlm, ssm, hybrid) records ``status: "ok"`` with positive FLOPs and
+bytes per device and JAX's ``model_flops_global``.
 tests/test_torch_dryrun.py holds two cells' numbers to JAX's."""
 import pytest
 
@@ -20,11 +18,6 @@ def test_cell(tmp_path, arch, shape):
     assert (tmp_path / f"{dryrun.cell_tag(arch, shape, False)}.json"
             ).exists()
     cfg = base.get_config(arch)
-    if cfg.family in ("ssm", "hybrid"):
-        assert rec["status"] == "error", rec
-        assert "NotImplementedError" in rec["error"] and \
-            "12d" in rec["error"]
-        return
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
     assert rec["model_flops_global"] == dryrun.model_flops(

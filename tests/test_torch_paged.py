@@ -34,6 +34,7 @@ from repro_torch.configs import base as tbase
 from repro_torch.core import baos as tbaos
 from repro_torch.core import diffusion as tdiff
 from repro_torch.core import sampling as tsampling
+from repro_torch.launch import mesh as tmesh
 from repro_torch.models import layers as tlayers
 from repro_torch.models.registry import build_model as tbuild
 from repro_torch.serving import (CachePool, EngineConfig, FIFOPolicy,
@@ -651,7 +652,9 @@ def test_preempt_requires_the_paged_pool(models):
     (dict(pool="paged", breakdown=True), ValueError),
     (dict(pool="paged", fwd_kw={"extra": 1}), ValueError),
     (dict(pool="paged", max_seq_len=36), ValueError),
-    (dict(pool="paged", mesh=object()), NotImplementedError)],
+    # a mesh shape is not a launch/mesh.Mesh (the paged pool runs under
+    # one: tests/test_torch_paged_mesh.py)
+    (dict(pool="paged", mesh=tmesh.make_production_mesh()), TypeError)],
     ids=["unknown-pool", "breakdown", "fwd-kw", "page-multiple", "mesh"])
 def test_paged_engine_validation(models, option, error):
     _, dt = _dcfgs(None)

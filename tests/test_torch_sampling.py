@@ -752,3 +752,34 @@ def test_sharded_head_partials_match_jax(n_shards, fmt):
     fc, ft = tfh.fused_head_stable_max(ht, wt, fmt, suppress_id=mid)
     np.testing.assert_array_equal(tok.numpy(), ft.numpy())
     np.testing.assert_allclose(conf.numpy(), fc.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("suppress", ["first", "last", "none"])
+@pytest.mark.parametrize("fmt", ["none", "mxfp8_e4m3", "mxint4"])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_route_c_partials_merge_to_jax_stable_max(n_shards, fmt, suppress):
+    """Route C's plain version (stablemax_shard_partials on the CPU: the
+    local_partials of one shard of stored logits, indices global, the
+    suppressed id masked on the shard that holds it), shard by shard and
+    merged by the combine rule, gives JAX's stable_max on the whole row:
+    the token exact, conf within 1e-5; an exact tie across two shards
+    goes to the lower index."""
+    R, V = 7, 32 * 4 * n_shards
+    z = np.random.RandomState(n_shards).randn(R, V).astype(np.float32) * 3
+    vloc = V // n_shards
+    z[:, vloc - 1] = z[:, vloc] = 20.0            # a tie across shards
+    mid = {"first": vloc - 1, "last": V - 1, "none": None}[suppress]
+    parts = [tsm.stablemax_shard_partials(
+        torch.from_numpy(z[:, sh * vloc:(sh + 1) * vloc]).contiguous(),
+        fmt=fmt, col_offset=sh * vloc, suppress_id=mid)
+        for sh in range(n_shards)]
+    m, gi, s = (torch.stack([p[i] for p in parts], 1) for i in range(3))
+    assert gi.dtype == torch.int32
+    gm = m.amax(1)
+    conf = 1.0 / (s * torch.exp(m - gm[:, None])).sum(1)
+    tok = torch.where(m >= gm[:, None], gi, 1 << 30).amin(1)
+    jc, jt = js.stable_max(jnp.asarray(z), fmt, suppress_id=mid)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jt))
+    np.testing.assert_allclose(conf.numpy(), np.asarray(jc), rtol=1e-5)
+    assert (tok.numpy() == (vloc if suppress == "first" else vloc - 1)
+            ).all()

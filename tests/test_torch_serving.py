@@ -148,21 +148,19 @@ def test_engine_policies_cancel_and_validation(models):
     assert eng.metrics.summary()["requests_completed"] == 2
 
 
-# the mesh is ported (tests/test_torch_spmd.py) but for the paged pool
-# under a mesh, which still raises pointing at the ROADMAP (option1).  The
-# others refuse as JAX refuses: breakdown timing under a mesh (option2)
-# with its ValueError, and something that is no mesh (option0, the
-# megatick; option3) with JAX's ValueError for missing mesh axes
+# the mesh is ported (tests/test_torch_spmd.py), the paged pool under it
+# too (tests/test_torch_paged_mesh.py).  These refuse as JAX refuses:
+# breakdown timing under a mesh (option2) with its ValueError, and
+# something that is no mesh (option0, the megatick; option1, the paged
+# pool; option3) with JAX's ValueError for missing mesh axes
 @pytest.mark.parametrize("option", [dict(megatick_k=4, mesh=object()),
                                     dict(pool="paged", mesh=object()),
                                     dict(breakdown=True, mesh=object()),
                                     dict(mesh=object())])
 def test_unported_engine_options_raise(models, option):
     _, model_t, _, params_t = models
-    error, match = ((NotImplementedError, "ROADMAP")
-                    if option.get("pool") == "paged" else
-                    (ValueError, "breakdown" if option.get("breakdown")
-                     else "mesh axes"))
+    error, match = (ValueError, "breakdown" if option.get("breakdown")
+                    else "mesh axes")
     with pytest.raises(error, match=match):
         ServingEngine(model_t, params_t, tdiff.DiffusionConfig(),
                       EngineConfig(**option))

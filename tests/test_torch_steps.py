@@ -348,8 +348,8 @@ def test_mesh_2_1_equals_one_rank(mesh_steps):
 
 def test_mesh_refusals(mesh_steps):
     for kind in ("ssm train", "ssm decode"):
-        msg = mesh_steps["refused", kind]
-        assert msg is not None and "|model| > 1" in msg and "12d" in msg
+        # the ssm body runs over |model| > 1 (test_torch_tp_steps.py)
+        assert mesh_steps["refused", kind] is None
     assert "greedily" in mesh_steps["refused", "hot decode"]
     assert "greedily" in mesh_steps["refused", "hot sharded-head decode"]
     with pytest.raises(TypeError, match="not a launch/mesh.Mesh"):
