@@ -158,7 +158,7 @@ Phases, each fatal on failure:
                pairs equal, output within one bf16 ulp) and the expert
                products' device time against their byte floors; then
                qwen2-moe-a2.7b at full width and depth and
-               moonshot-v1-16b-a3b at full width, 12 of 48 layers (a depth
+               moonshot-v1-16b-a3b at full width, 6 of 48 layers (a depth
                cut for the script's time limit), through the
                engine on path warm, eager against graphed K=1, each tick's
                sampling held against plain (a model whose weights leave
@@ -175,7 +175,7 @@ Phases, each fatal on failure:
                none and warm + BAOS eager K=1, graphed K=1 and K=8 with
                phase 4's checks, the paged pool on warm graphed K=1 and
                K=8, breakdown on warm graphed and the Table 6 shape in
-               modes none, prefix + BAOS and dual + BAOS; mamba2-130m (4
+               modes none, prefix + BAOS and dual + BAOS; mamba2-130m (2
                of 24 layers, d 768, state 128, V 50280) through generate (none,
                dual, prefix with BAOS on the state) and the engine paths
                warm and none; per model the RG-LRU or SSD scan's device
@@ -193,7 +193,7 @@ Phases, each fatal on failure:
                stepped, dual and prefix + BAOS), the engine's warm, none
                and warm + BAOS eager and graphed K=1 (the paged pool and
                the megatick must refuse the kwargs), breakdown and the
-               serve CLI; internvl2-26b at full width (6 of its 48
+               serve CLI; internvl2-26b at full width (4 of its 48
                layers, a depth cut for the script's time limit) with
                image embeddings through generate (prompts 288, gen 64) and
                the engine text-only (warm and none, eager, K=1, K=8; paged
@@ -372,6 +372,10 @@ REPLACES = {
     "flash_bidir_split": "src/repro/kernels/flash_bidir.py:78",
     "stablemax_sampling_shard":
         "src/repro/kernels/stablemax_sampling.py:71",
+    "fused_head_sampling_shard_sampled":
+        "src/repro/kernels/fused_head_sampling.py:134",
+    "stablemax_sampling_shard_sampled":
+        "src/repro/kernels/stablemax_sampling.py:71",
     "fused_head_sampling": "src/repro/kernels/fused_head_sampling.py:134",
     "topk_mask": "src/repro/kernels/topk_mask.py:44",
     "flash_bidir": "src/repro/kernels/flash_bidir.py:78",
@@ -470,13 +474,14 @@ def quantized_f32(z, fmt, suppress_id):
     return z
 
 
-def near_ties(z, tok, temperature, seed, rows):
+def near_ties(z, tok, temperature, seed, rows, col0: int = 0):
     """Whether each row's kernel token is a near-tie of the plain one: its
-    score (the quantized logit, or z/T + g with Gumbel) within 1e-2
-    relative of the row's best score."""
+    score (the quantized logit, or z/T + g with Gumbel, drawn at global row
+    ``rows[i]`` and global column ``col0`` + j) within 1e-2 relative of the
+    row's best score."""
     from repro_torch.core import sampling
     if temperature > 0:
-        cols = torch.arange(z.shape[1], device=z.device)[None, :]
+        cols = torch.arange(z.shape[1], device=z.device)[None, :] + col0
         r = torch.as_tensor(rows, device=z.device)[:, None]
         z = z / temperature + sampling.counter_gumbel(seed, r, cols)
     zk = z.gather(1, tok.long()[:, None])[:, 0]
@@ -670,6 +675,8 @@ def phase_kernels(gen) -> dict:
     out["fused_head_sampling_shard"] = check_route_a(gen)
     out["flash_bidir_split"] = check_route_b(gen)
     out["stablemax_sampling_shard"] = check_route_c(gen)
+    (out["fused_head_sampling_shard_sampled"],
+     out["stablemax_sampling_shard_sampled"]) = check_sampled_routes(gen)
     out["baos_mx_quant"] = check_baos(gen)
     out["stablemax_sampling"] = check_stablemax(gen)
     for name, rows in check_sampling_formats(gen).items():
@@ -1742,11 +1749,16 @@ def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
 # phase 14's recurrent families and phase 12b's paged runs it took 975.5 s
 # on the H100 (80 GB HBM3, 700 W) of the 1,000 s it aims at, so
 # llada-moe-7b-a1b went from 4 to 2 layers and whisper-medium's decoder
-# from 6 to 4 (and PHASE12B_LAYERS from 8 to 4).
-DEPTH_CUTS = {"llada-8b": 8, "moonshot-v1-16b-a3b": 12,
-              "internvl2-26b": 6, "llada-moe-7b-a1b": 2,
+# from 6 to 4 (and PHASE12B_LAYERS from 8 to 4).  With the sampled decode
+# checks, phase 12d and the analysis checks it took 1,047.8 s on a host
+# whose unchanged phases ran 1.2-1.4x longer than before, so llada-8b's
+# QuantPolicy run went from 8 to 4 layers, moonshot-v1-16b-a3b from 12 to
+# 6, internvl2-26b from 6 to 4 and mamba2-130m from 4 to 2
+# (recurrentgemma-2b stays at its least depth, 3k + 2 layers for k = 1).
+DEPTH_CUTS = {"llada-8b": 4, "moonshot-v1-16b-a3b": 6,
+              "internvl2-26b": 4, "llada-moe-7b-a1b": 2,
               "whisper-medium": 4, "recurrentgemma-2b": 5,
-              "mamba2-130m": 4}
+              "mamba2-130m": 2}
 
 
 def cut_depth(cfg, n_layers: int, why: str = "for the script's time limit"):
@@ -2156,6 +2168,12 @@ def graph_step(eng):
     return step if isinstance(step, graphs.GraphedStep) else None
 
 
+# the graphs each graphed engine of phase 4 (and 4b) captured over its
+# run, by kind, for the static-analysis gate's capture bound
+# (``phase_analysis``)
+ENGINE_CAPTURES = {}
+
+
 def engine_run(model, params, dcfg, mode, trace, sinks, **cfg):
     """One engine over ``trace`` to the end: (engine, commit-event keys,
     wall ms of each denoising tick, launch counts of the run, graphs
@@ -2183,6 +2201,9 @@ def engine_run(model, params, dcfg, mode, trace, sinks, **cfg):
         n = eng.ticks_total - n0
         tick_ms += [(time.perf_counter() - t0) * 1e3 / n] * n
     torch.cuda.synchronize()
+    if step is not None:       # ANL-RECAPTURE reads phase 4's captures
+        kind = "tick" if eng._megatick_fn is None else "megatick"
+        ENGINE_CAPTURES.setdefault(kind, []).append(step.captures)
     return (eng, event_keys(events), tick_ms, dict(_build.launch_counts),
             captures0)
 
@@ -3620,7 +3641,7 @@ def phase_recurrent(gen, archs=RECURRENT_ARCHS) -> dict:
     warm + BAOS eager K=1, graphed K=1 and K=8 (phase 4's checks); the
     paged pool on warm graphed K=1 and K=8; breakdown on warm graphed; the
     Table 6 shape in modes none, prefix + BAOS and dual + BAOS.
-    mamba2-130m (4 of 24 layers, d 768, state 128, V 50280): generate in modes
+    mamba2-130m (2 of 24 layers, d 768, state 128, V 50280): generate in modes
     none, dual and prefix (BAOS on the state through core/mx), the engine
     paths warm and none.  Then per model the scans' device time
     (check_recurrent_ops).  Returns the launch counts of the runs."""
@@ -3769,7 +3790,7 @@ def free() -> None:
 def phase_audio_vlm(gen) -> dict:
     """9: the last two families, one model at a time, each freed before
     the next; neither has head_mode, so both sample on the legacy head.
-    whisper-medium at full width (24 encoder layers and 12 of the 24
+    whisper-medium at full width (24 encoder layers and 4 of the 24
     decoder layers, DEPTH_CUTS; d 1024, 16 heads of D 64, V 51865): frames (4, 1500, 1024)
     from the seeded generator through encode + cross_kv (timed);
     generate with the cross K/V in mode none stepped (each step's
@@ -3780,7 +3801,7 @@ def phase_audio_vlm(gen) -> dict:
     paged pool and the megatick refusing the kwargs; breakdown on warm
     graphed; ``serve --arch whisper-medium --full`` as a subprocess.
     internvl2-26b at full width (d 6144, 48 heads on 8 of D 128, V 92553;
-    12 of its 48 layers, a ``DEPTH_CUTS`` cut, logged): generate with
+    4 of its 48 layers, a ``DEPTH_CUTS`` cut, logged): generate with
     image embeddings (1, 256, 6144) over prompts of 288 (gen 64) in
     mode none stepped, dual + BAOS and prefix + BAOS; the engine text-only
     (as JAX's serve runs it) on paths warm and none, eager K=1, graphed
@@ -4712,6 +4733,161 @@ def check_route_c(gen) -> dict:
     return row
 
 
+# the sampled shard entries' phase-2 point: T and the global row of row 0
+SAMPLED_T, SAMPLED_ROW0 = 0.8, 192
+
+
+def sampled_case(kern, plain, z_of, col0: int, what: str, s_rel: float):
+    """A sampled shard entry (route A or C) against its plain version, both
+    called already: (m, idx, s, best, z_at) each.  m equal; the global
+    index equal off a near-tie of the Gumbel scores (at most 1% of rows;
+    ``z_of(rows)`` gives those rows' quantized f32 logits of the shard);
+    on agreeing rows best and z_at equal and s within ``s_rel``
+    relative.  Returns (max abs err of s, max relative err of s)."""
+    m_k, i_k, s_k, b_k, z_k = kern
+    m_p, i_p, s_p, b_p, z_p = plain
+    torch.cuda.synchronize()
+    diff = torch.nonzero(i_k != i_p).flatten().tolist()
+    R = m_k.shape[0]
+    if diff:
+        require(all(near_ties(z_of(diff), i_k[diff] - col0, SAMPLED_T, 4321,
+                              [SAMPLED_ROW0 + r for r in diff], col0)),
+                f"{what}: the index differs off a near-tie in rows {diff}")
+    same = i_k == i_p
+    err = (s_k - s_p).abs()[same]
+    rel = float((err / s_p[same].clamp(min=1e-30)).max())
+    log(f"{what}: m differs in {int((m_k != m_p).sum())} rows, the index "
+        f"in {len(diff)}, best in {int((b_k != b_p)[same].sum())} of the "
+        f"agreeing rows, z_at in {int((z_k != z_p)[same].sum())}, s max rel "
+        f"err {rel:.3g}")
+    require(torch.equal(m_k, m_p) and len(diff) <= 0.01 * R and
+            torch.equal(b_k[same], b_p[same]) and
+            torch.equal(z_k[same], z_p[same]),
+            f"{what}: m, best or z_at differ from plain")
+    require(rel <= s_rel, f"{what}: s rel err {rel:.3g} > {s_rel}")
+    return float(err.max()), rel
+
+
+def check_sampled_routes(gen):
+    """The sampled decode step's shard entries at T 0.8 and a row offset
+    (SAMPLED_ROW0: the noise drawn at global rows), bf16 mxfp8 with a seed
+    tensor: route A on llada-8b's head, shard 1 of 2 ((64, 4096) @ (4096,
+    63232)), and route C on recurrentgemma-2b's logits, shard 1 of 2 ((64,
+    128000)), each against its plain version (``sampled_case``); first the
+    single-device fused head and Stable-Max at the same row offset against
+    theirs.  Each entry's device time (a graph of 20) beside its bound,
+    the plain version's and the greedy row's library call (torch.matmul on
+    the shard; softmax + max).  Returns the two kernel-table rows."""
+    from repro_torch.core import sampling
+    from repro_torch.kernels import fused_head_sampling as fhs
+    from repro_torch.kernels import stablemax_sampling as sms
+    seed = sampling.seed_tensor(4321, DEVICE)
+    T, row0, fmt = SAMPLED_T, SAMPLED_ROW0, "mxfp8_e4m3"
+    d, R, V, mid = LLADA["d"], 64, LLADA["V"], LLADA["mask_id"]
+    w = random_head(LLADA, gen)
+    h = torch.randn(R, d, generator=gen, device=DEVICE).bfloat16()
+    # the single-device entries at a row offset
+    kw = dict(suppress_id=mid, temperature=T, seed=seed, row_offset=row0)
+    conf_k, tok_k = fhs.fused_head_sampling(h, w, fmt=fmt, **kw)
+    conf_p, tok_p = fhs.fused_head_stable_max(h, w, fmt, **kw)
+    diff = torch.nonzero(tok_k != tok_p).flatten().tolist()
+    if diff:
+        require(all(near_ties(head_logits_f32(h[diff], w, fmt, mid),
+                              tok_k[diff], T, 4321,
+                              [row0 + r for r in diff])),
+                f"fused head at row offset {row0}: tokens differ off a "
+                f"near-tie in rows {diff}")
+    same = tok_k == tok_p
+    rel = float(((conf_k - conf_p).abs() / conf_p.abs())[same].max())
+    log(f"fused_head bf16 ({R}, {d}) @ llada-8b's head {fmt} T={T} row "
+        f"offset {row0}: rows differing {len(diff)}/{R}, conf max rel err "
+        f"{rel:.3g}")
+    require(len(diff) <= 0.01 * R and rel <= 1e-2,
+            f"fused head at row offset {row0} differs from plain")
+    # route A, sampled
+    wp = sampling.pad_head_for_mesh(w, 2)
+    vloc = wp.shape[1] // 2
+    ws = wp[:, vloc:].contiguous()
+    del w, wp
+    kwa = dict(fmt=fmt, col_offset=vloc, col_limit=V, suppress_id=mid,
+               temperature=T, seed=seed, row_offset=row0)
+    what = f"route A sampled ({R}, {d}) @ ({d}, {vloc}) shard 1 of 2"
+    err_a, _ = sampled_case(
+        fhs.head_shard_partials(h, ws, **kwa),
+        fhs.head_shard_partials_plain(h, ws, **kwa),
+        lambda rows: head_logits_f32(h[rows], ws, fmt, mid - vloc), vloc,
+        what, 1e-6)
+    b_ms, b_by = bound(R * d * 2 + d * vloc * 2 + R * 20,
+                       2.0 * R * d * vloc, BF16_FLOPS)
+    fn = lambda: fhs.head_shard_partials(h, ws, **kwa)  # noqa: E731
+    row_a = dict(max_abs_err=err_a, device_ms=kernel_ms(fn, 20, what),
+                 ms=time_ms(fn, 20),
+                 plain_ms=time_ms(lambda: fhs.head_shard_partials_plain(
+                     h, ws, **kwa), 3),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=kernel_ms(lambda: torch.matmul(h, ws), 20,
+                                      "route A sampled torch.matmul"))
+    log(f"{what} bf16 {fmt} T={T}: device {row_a['device_ms']:.4f} ms (a "
+        f"graph of 20 calls; partials + merge), CUDA events, back to back "
+        f"{row_a['ms']:.4f} ms, plain {row_a['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {row_a['device_ms'] / b_ms:.2f}x; "
+        f"torch.matmul on the shard {row_a['library_ms']:.4f} ms")
+    del ws, h
+    # Stable-Max at a row offset, then route C, sampled
+    Vr, mid_r = RGEMMA["V"], RGEMMA["mask_id"]
+    z = (torch.randn(R, Vr, generator=gen, device=DEVICE) * 3).bfloat16()
+    for zz, tag in ((z, "bf16"), (z[:3, :1003].float(), "f32 (3, 1003)")):
+        k_c, k_t = sms.stablemax_sampling(zz.contiguous(), fmt=fmt,
+                                          suppress_id=17, temperature=T,
+                                          seed=seed, row_offset=row0)
+        p_c, p_t = sms.stable_max_plain(zz.contiguous(), fmt, suppress_id=17,
+                                        temperature=T, seed=seed,
+                                        row_offset=row0)
+        diff = torch.nonzero(k_t != p_t).flatten().tolist()
+        if diff:
+            require(all(near_ties(quantized_f32(zz[diff], fmt, 17),
+                                  k_t[diff], T, 4321,
+                                  [row0 + r for r in diff])),
+                    f"stablemax at row offset {row0} {tag}: tokens differ "
+                    f"off a near-tie in rows {diff}")
+        same = k_t == p_t
+        rel = float(((k_c - p_c).abs() / p_c.abs())[same].max())
+        log(f"stablemax_sampling {tag} {fmt} T={T} row offset {row0}: "
+            f"rows differing {len(diff)}/{zz.shape[0]}, conf max rel err "
+            f"{rel:.3g}")
+        require(len(diff) <= 0.01 * zz.shape[0] and rel <= 1e-2,
+                f"stablemax at row offset {row0} {tag} differs from plain")
+    vr = Vr // 2
+    zl = z[:, vr:].contiguous()
+    del z
+    kwc = dict(fmt=fmt, col_offset=vr, suppress_id=mid_r, temperature=T,
+               seed=seed, row_offset=row0)
+    what = f"route C sampled ({R}, {vr}) shard 1 of 2"
+    err_c, _ = sampled_case(
+        sms.stablemax_shard_partials(zl, **kwc),
+        sms.stablemax_shard_partials_plain(zl, **kwc),
+        lambda rows: quantized_f32(zl[rows], fmt, mid_r - vr), vr, what,
+        1e-2)
+    # per logit: the greedy row's 4 f32 operations, then the draw's two
+    # logarithms, a division and an addition
+    b_ms, b_by = bound(zl.numel() * 2 + R * 20, 8.0 * zl.numel(), F32_FLOPS)
+    fn = lambda: sms.stablemax_shard_partials(zl, **kwc)  # noqa: E731
+    row_c = dict(max_abs_err=err_c, device_ms=kernel_ms(fn, 20, what),
+                 ms=time_ms(fn, 20),
+                 plain_ms=time_ms(lambda: sms.stablemax_shard_partials_plain(
+                     zl, **kwc), 5),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=kernel_ms(
+                     lambda: torch.max(torch.softmax(zl, -1), -1), 20,
+                     "route C sampled softmax + max"))
+    log(f"{what} bf16 {fmt} T={T}: device {row_c['device_ms']:.4f} ms (a "
+        f"graph of 20 calls; partials + merge), CUDA events, back to back "
+        f"{row_c['ms']:.4f} ms, plain {row_c['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {row_c['device_ms'] / b_ms:.2f}x; "
+        f"softmax + max on the shard {row_c['library_ms']:.4f} ms")
+    return row_a, row_c
+
+
 def check_route_b(gen) -> dict:
     """Route B, flash_bidir over the cache and a second K/V source: the
     split refine's shape on llada-8b, q (16, 64, 32, 128) over a 384-key
@@ -4970,7 +5146,7 @@ def phase_mesh_ranks() -> dict:
         elif not note_phase13(line):
             log(line)
     require(r.returncode == 0 and total is not None,
-            f"phase 12b job: exit {r.returncode}: {r.stderr[-3000:]}")
+            f"phase 12b job: exit {r.returncode}: {job_errors(r.stderr)}")
     log(f"phase 12b + 13c (two ranks, their own job): "
         f"{time.perf_counter() - t0:.1f} s")
     return total
@@ -5228,6 +5404,10 @@ def phase12b_main() -> int:
                         f"{counts}")
                 del eng
                 dist.barrier()
+        for k, v in phase12d(meshes[1], rank, say, model, params,
+                             dcfg).items():
+            total[k] += v
+        free()
         for k, v in phase13c(meshes, rank, say, model, params).items():
             total[k] += v
         # both ranks' counts, summed on the host over gloo, printed once
@@ -5242,6 +5422,189 @@ def phase12b_main() -> int:
         print(PHASE12B_COUNTS + json.dumps(total), flush=True)
     mesh_lib.destroy()
     return 0
+
+
+# phase 12d's load: requests, prompt and generation lengths, and the rate
+PHASE12D = dict(n=16, prompt=32, gen=32, rate=50.0, slots=4)
+
+
+def phase12d(mesh, rank: int, say, model, params, dcfg) -> dict:
+    """Phase 12d, in phase 12b's two-rank job: ``serve --http``'s frontend
+    (``build_frontend(mesh=(2, 1))``, gloo, eager ticks) for phase 12b's
+    llada-8b (full width, PHASE12B_LAYERS layers), warm path.  Rank 0
+    serves on 127.0.0.1 and ``loadgen.run_load`` sends PHASE12D's streamed
+    requests, then two gathered ones, then a graceful drain; rank 1
+    follows rank 0's engine calls (serving/frontend/router.MeshFollower).
+    Gates: every request completes with no mask id left; each rank's
+    tokens and ticks per request equal rank 0's, bit for bit; rank 0's
+    tokens equal the one-rank frontend's (``build_frontend`` with no mesh,
+    graphed, as phase 6c runs it) on the same prompts; a tick launches one
+    route A and one topk_mask on each rank.  Prints TTFT p50, tokens/s and
+    the control broadcast's ms per tick.  Returns this rank's launch
+    counts."""
+    import asyncio
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.serving.frontend import build_frontend, loadgen
+    t0 = time.perf_counter()
+    P, G = PHASE12D["prompt"], PHASE12D["gen"]
+    cfg = model.cfg
+
+    def serve(m):
+        done = {}
+
+        def on_complete(c):
+            done[tuple(c.tokens[:c.prompt_len].tolist())] = (
+                c.tokens.tolist(), int(c.ticks))
+        fe = build_frontend(model, params, dcfg, model_name=cfg.name,
+                            replicas=1, num_slots=PHASE12D["slots"],
+                            max_seq_len=P + G, mode="warm",
+                            max_queue=4 * PHASE12D["n"], mesh=m,
+                            on_complete=on_complete)
+        if m is not None and m.rank != 0:
+            _build.reset_launch_counts()
+            fe.run()
+            w = fe.workers[0]
+            return done, None, w.engine.ticks_total, dict(
+                _build.launch_counts), None
+
+        async def go():
+            await fe.start()
+            try:
+                rep = await loadgen.run_load(
+                    fe.url, rate=PHASE12D["rate"], n_requests=PHASE12D["n"],
+                    prompt_len=P, max_tokens=G, seed=12)
+                rs = np.random.RandomState(13)
+                rows = await asyncio.gather(*[loadgen.complete(
+                    fe.url, rs.randint(0, cfg.vocab - 200, size=(P,))
+                    .tolist(), G, stream=False) for _ in range(2)])
+            finally:
+                await fe.shutdown(drain=True)
+            return rep, rows
+        _build.reset_launch_counts()
+        rep, rows = asyncio.run(go())
+        counts = dict(_build.launch_counts)
+        w = fe.router.workers[0]
+        require(rep["completed"] == PHASE12D["n"] and all(
+            r["status"] == "ok" for r in rows),
+            f"phase 12d: {rep['completed']} of {PHASE12D['n']} requests "
+            f"completed, gathered {[r['status'] for r in rows]}")
+        return done, rep, w.engine.ticks_total, counts, w.control
+
+    done, rep, ticks, counts, ctl = serve(mesh)
+    every = [None] * mesh.size
+    dist.all_gather_object(every, (done, ticks, counts))
+    if rank == 0:
+        for r, (d, t, c) in enumerate(every):
+            require(d == done and t == ticks,
+                    f"phase 12d: rank {r}'s tokens or ticks differ from "
+                    f"rank 0's ({t} ticks vs {ticks})")
+            require(c["fused_head_sampling_shard"] == t and
+                    c["topk_mask"] == t and c["fused_head_sampling"] == 0,
+                    f"phase 12d: rank {r} launched {c} in {t} ticks")
+        for toks, _ in done.values():
+            require(cfg.mask_id not in toks[P:],
+                    "phase 12d: a request left mask ids")
+        ref, _, _, _, _ = serve(None)
+        differ = [k for k in done if ref.get(k, (None,))[0] != done[k][0]]
+        require(set(ref) == set(done) and not differ,
+                f"phase 12d: rank 0's tokens differ from the one-rank "
+                f"frontend's in {len(differ)} of {len(done)} requests")
+        say(f"phase 12d: serve --http over {mesh} (gloo, eager): "
+            f"{len(done)} requests ({PHASE12D['n']} streamed at "
+            f"{PHASE12D['rate']:g} req/s, 2 gathered; prompt {P}, gen {G}, "
+            f"{PHASE12D['slots']} slots) completed, no mask left; every "
+            f"rank's tokens and ticks per request equal rank 0's; rank 0's "
+            f"tokens equal the one-rank frontend's; {ticks} ticks, each one "
+            f"route A and one topk_mask launch on each rank; TTFT p50 "
+            f"{rep['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+            f"{rep['ttft_p99_s'] * 1e3:.1f} ms, goodput "
+            f"{rep['goodput_tok_s']:.1f} tokens/s; the control broadcast "
+            f"{ctl.seconds * 1e3 / max(ticks, 1):.3f} ms per tick "
+            f"({ctl.records} records, {ctl.seconds * 1e3:.1f} ms in all, "
+            f"{ctl.seconds * 1e3 / max(ctl.records, 1):.3f} ms each); "
+            f"{card_line()}; {time.perf_counter() - t0:.1f} s")
+    dist.barrier()
+    return counts
+
+
+def kernel_attrs() -> list:
+    """(library, kernel, static shared bytes, registers, dynamic shared
+    bytes of its largest launch) of every instantiation each library
+    launches: cudaFuncGetAttributes through the library's
+    ``<name>_kernel_attrs``."""
+    import ctypes
+    from repro_torch.kernels import _build
+    out = []
+    for lib in _build.KERNELS:
+        count = _build.function(lib, f"{lib}_kernel_count", [])
+        attrs = _build.function(lib, f"{lib}_kernel_attrs", [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)]
+            + [ctypes.POINTER(ctypes.c_int)] * 3)
+        for i in range(count()):
+            name = ctypes.c_char_p()
+            st, regs, dyn = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            err = attrs(i, ctypes.byref(name), ctypes.byref(st),
+                        ctypes.byref(regs), ctypes.byref(dyn))
+            require(err == 0, f"{lib}: cudaFuncGetAttributes of entry {i} "
+                              f"failed ({err})")
+            label = name.value.decode()
+            if label.startswith("(") and label.endswith(")"):
+                label = label[1:-1]
+            out.append((lib, label, st.value, regs.value, dyn.value))
+    return out
+
+
+def phase_analysis(mesh) -> None:
+    """The static-analysis gate's card-only checks (repro_torch.analysis):
+    every kernel instantiation's shared memory per block (static, from
+    cudaFuncGetAttributes, plus the dynamic request of its largest
+    launch) at most sm_90's 232,448 bytes and equal to ANL-SMEM-BUDGET's
+    figure (analysis/registry.smem_specs), instantiation for
+    instantiation; then ANL-RECAPTURE: the graphs phase 4's graphed
+    engines captured over their traces, and the representative engine
+    shape trace (graph_audit.recapture_trace: mixed k_req, both stop
+    flags, fresh seeds, the megatick alone and on ``mesh``, the K=1 tick
+    at two batch shapes), each within registry.RECAPTURE_BOUNDS."""
+    from repro_torch.analysis import graph_audit, registry, smem_budget
+    t0 = time.perf_counter()
+    got = kernel_attrs()
+    want = {(sp.library, sp.kernel): sp for sp in registry.smem_specs()}
+    require(sorted(want) == sorted((lib, k) for lib, k, *_ in got),
+            "ANL-SMEM-BUDGET: the attribute tables and the registry list "
+            "different instantiations")
+    worst = (0, "")
+    for lib, k, st, regs, dyn in got:
+        sp = want[(lib, k)]
+        require(st == sp.static_bytes and dyn == sp.dynamic_bytes,
+                f"ANL-SMEM-BUDGET: {lib}::{k} has {st} + {dyn} B of "
+                f"shared memory on the card, the registry states "
+                f"{sp.static_bytes} + {sp.dynamic_bytes}")
+        require(st + dyn <= registry.SMEM_LIMIT_BYTES,
+                f"ANL-SMEM-BUDGET: {lib}::{k} needs {st + dyn} B")
+        worst = max(worst, (st + dyn, f"{lib}::{k}"))
+    vs, _ = smem_budget.check_smem()
+    require(not vs, f"ANL-SMEM-BUDGET: {vs}")
+    log(f"analysis: shared memory per block of {len(got)} kernel "
+        f"instantiations (cudaFuncGetAttributes + the launch's dynamic "
+        f"request) equal to ANL-SMEM-BUDGET's, each <= "
+        f"{registry.SMEM_LIMIT_BYTES} B; the largest {worst[1]} "
+        f"{worst[0]} B; " + "; ".join(
+            f"{lib}::{k} {st}+{dyn} B {regs} regs"
+            for lib, k, st, regs, dyn in got))
+    engines = {kind: max(n) for kind, n in ENGINE_CAPTURES.items()}
+    require(engines, "ANL-RECAPTURE: phase 4 ran no graphed engine")
+    vs = graph_audit.recapture_violations(engines)
+    require(not vs, f"ANL-RECAPTURE: phase 4's engines: {vs}")
+    vs, info = graph_audit.check_recapture(DEVICE, mesh)
+    require(info["run"] and not vs, f"ANL-RECAPTURE: {vs or info}")
+    log(f"analysis: ANL-RECAPTURE: phase 4's graphed engines captured at "
+        f"most {engines} graphs each ({sum(map(len, ENGINE_CAPTURES.values()))}"
+        f" engines); the representative shape trace "
+        f"{info['captures']}; bounds {info['bounds']}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5286,9 +5649,10 @@ def all_plain():
         return y if out is None else out.copy_(y)
 
     def stablemax(logits, *, fmt="none", suppress_id=None, temperature=0.0,
-                  seed=0):
+                  seed=0, row_offset=0):
         return sms.stable_max_plain(logits, fmt, temperature=temperature,
-                                    seed=seed, suppress_id=suppress_id)
+                                    seed=seed, suppress_id=suppress_id,
+                                    row_offset=row_offset)
 
     swaps = ((fb, "flash_bidir", fb.flash_bidir_plain),
              (bmq, "baos_mx_quant", baos),
@@ -5598,7 +5962,10 @@ def phase_steps_serve(model, params, gen) -> dict:
 def phase13c(meshes, rank: int, say, model, params) -> dict:
     """Phase 13c, in phase 12b's two-rank job (gloo, two ranks sharing the
     card): (i) llada-8b prefill + decode on mesh (1, 2), the
-    tensor-parallel body against one rank (``tp_serve_check``); (ii)
+    tensor-parallel body against one rank (``tp_serve_check``); (i') the
+    sampled decode step (T 0.8, strategies stablemax and random) on (1, 2)
+    and (2, 1) against one rank on the whole batch
+    (``tp_sampled_check``); (ii)
     qwen2-0.5b
     in f32 at PHASE13C_LAYERS layers (``cut_depth``), B 8 x S 128: the
     train step on mesh (2, 1) against one rank on the same global batch,
@@ -5630,14 +5997,21 @@ def phase13c(meshes, rank: int, say, model, params) -> dict:
     data = mesh.axis("data")
     counts = {n: 0 for n in _build.COUNTED}
     # (i) llada-8b prefill + decode on (1, 2): the tensor-parallel body
-    for n, v in tp_serve_check(wide, cut_depth(
-            model.cfg, PHASE14_LAYERS, "for an f32 copy beside phase 12b's "
-            "model") if rank == 0 else dataclasses.replace(
-            model.cfg, n_layers=min(PHASE14_LAYERS, model.cfg.n_layers)),
-            say, "phase 13c").items():
+    cfg4 = cut_depth(model.cfg, PHASE14_LAYERS, "for an f32 copy beside "
+                     "phase 12b's model") if rank == 0 else \
+        dataclasses.replace(model.cfg, n_layers=min(PHASE14_LAYERS,
+                                                    model.cfg.n_layers))
+    for n, v in tp_serve_check(wide, cfg4, say, "phase 13c").items():
         counts[n] += v
     free()
     dist.barrier()
+    # (i') the sampled decode step on (1, 2) (route A) and (2, 1) (the
+    # single-device head at the data shard's row offset)
+    for m in (wide, mesh):
+        for n, v in tp_sampled_check(m, cfg4, say, "phase 13c").items():
+            counts[n] += v
+        free()
+        dist.barrier()
 
     # (iii) llada-8b prefill + decode on (2, 1) against one rank
     cfg = model.cfg
@@ -5849,8 +6223,8 @@ def phase13c(meshes, rank: int, say, model, params) -> dict:
 # the phase's target, seconds, stated before its first run on the card
 # stated before each run that changes the phase: 60 s for the transformer
 # checks; 110 s with the recurrent families' (mamba2-130m on (1, 4),
-# recurrentgemma-2b on (2, 2))
-PHASE14_BUDGET_S = 110.0
+# recurrentgemma-2b on (2, 2)); 130 s with their sampled decode steps
+PHASE14_BUDGET_S = 130.0
 PHASE14_ARG = "--phase14"
 PHASE14_COUNTS = "phase 14 counts "
 PHASE14_SECONDS = "phase 14 seconds "
@@ -6145,6 +6519,195 @@ def tp_serve_check(mesh, cfg, say, what: str) -> dict:
     return total
 
 
+# the sampled decode step's policies over a mesh: (name, T, strategy)
+SAMPLED_POLICIES = (("T 0.8", 0.8, "stablemax"), ("random", 0.8, "random"))
+
+
+def sampled_near_ties(z, err, T, seed, row0, before, got, want, k,
+                      mid) -> list:
+    """``step_near_ties`` for a sampled decode step: z (R, L, V) the
+    one-rank run's quantized f32 logits of this rank's rows, whose first
+    row is global flattened row ``row0`` (the noise's row), ``err`` (R,)
+    each row's largest logit difference between the runs.  Two committed
+    tokens whose Gumbel scores z/T + g lie within 2 err / T + 1e-2 of the
+    position's largest score of each other, or a position committed by
+    one run and not the other whose confidence (that of the sampled
+    token) lies within 2 (e^(2 err) - 1) + 1e-2 relative of the row's
+    k-th.  The scores are drawn for the differing rows only.  Returns
+    [(row, position, kind)]."""
+    from repro_torch.core import sampling
+    R, L, V = z.shape
+    cols = torch.arange(V, device=z.device)[None, :]
+    out = []
+    for i in sorted({i for i, _ in torch.nonzero(got != want).tolist()}):
+        rows = row0 + i * L + torch.arange(L, device=z.device)[:, None]
+        sc = z[i] / T + sampling.counter_gumbel(seed, rows, cols)
+        tok = sc.argmax(-1, keepdim=True)
+        m = z[i].amax(-1, keepdim=True)
+        conf = (torch.exp(z[i].gather(-1, tok) - m) /
+                torch.exp(z[i] - m).sum(-1, keepdim=True))[:, 0]
+        e = float(err[i])
+        for l in torch.nonzero(got[i] != want[i]).flatten().tolist():
+            a, b = int(want[i, l]), int(got[i, l])
+            if a != mid and b != mid:
+                top = float(sc[l].max())
+                ok = abs(float(sc[l, a] - sc[l, b])) <= 2 * e / T + \
+                    1e-2 * abs(top)
+                kind = "token"
+            else:
+                masked = before[i] == mid
+                kth = float(conf[masked].sort(descending=True).values[
+                    int(k[i]) - 1])
+                ok = abs(float(conf[l]) - kth) <= (
+                    2 * math.expm1(2 * e) + 1e-2) * kth
+                kind = "transfer"
+            require(ok, f"sampled decode step: row {i} position {l} "
+                        f"differs off a near-tie ({kind})")
+            out.append((i, l, kind))
+        del sc, conf
+    return out
+
+
+def tp_sampled_check(mesh, cfg, say, what: str) -> dict:
+    """The sampled decode step over ``mesh`` (each of SAMPLED_POLICIES:
+    T 0.8 with strategy stablemax, and strategy random) against the
+    one-rank step on the whole batch, f32 copies as ``tp_serve_check``'s,
+    at Table 6's shape: this rank's block of the mesh's canvas equal to
+    the one-rank canvas's rows off recorded near-ties
+    (``sampled_near_ties``: the noise is drawn at global rows and
+    columns, so a difference can come only from the two forwards'
+    logits), every ``model`` rank's canvas equal, the launches the
+    one-rank step's with the head's sampled route for the mesh's, and no
+    plain version.  Returns this rank's launch counts of the mesh
+    decodes."""
+    from repro_torch import sharding
+    from repro_torch.configs import base
+    from repro_torch.core import baos as baos_lib
+    from repro_torch.core import diffusion, mx
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as launch_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import tp as tp_lib
+    from repro_torch.models.registry import build_model
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg, mesh.device)
+    params = model.init(seed=0)
+    mid, n_model = cfg.mask_id, mesh.shape["model"]
+    B, P, G, L = (TABLE6[k] for k in ("B", "prompt", "gen", "block"))
+    S, dev = P + G, mesh.device
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.cat([torch.randint(0, cfg.vocab - 200, (B, P), generator=gen,
+                                 device=dev, dtype=torch.int32),
+                   torch.full((B, G), mid, device=dev, dtype=torch.int32)],
+                  1)
+    r0, r1 = mesh.rows(B)
+    head_sharded = cfg.vocab % n_model == 0
+    whole_blocks = (cfg.vocab // n_model) % mx.MX_BLOCK == 0
+    hidden = getattr(model, "supports_head_mode", True)
+    route = ("stablemax_sampling" if not head_sharded else
+             "fused_head_sampling_shard_sampled" if hidden and whole_blocks
+             else "fused_head_sampling" if hidden else
+             "stablemax_sampling_shard_sampled" if whole_blocks else
+             "stablemax_sampling")
+    if n_model == 1:
+        route = "stablemax_sampling"
+    total = {n: 0 for n in _build.COUNTED}
+    seed = diffusion.tick_seed(0, 0)        # the step's draw at seed 0
+    notes = []
+    for name, T, strategy in SAMPLED_POLICIES:
+        policy = steps.ServePolicy(
+            baos=baos_lib.BAOSConfig(enabled=True, kv_format=TP_POLICY_FMT),
+            sampling=dataclasses.replace(steps.ServePolicy().sampling,
+                                         temperature=T, strategy=strategy))
+        k = torch.full((B,), L // policy.steps_per_block, device=dev,
+                       dtype=torch.int32)
+        pre_s = base.ShapeConfig("prefill", S, B, "prefill", block_length=L)
+        dec_s = base.ShapeConfig("decode", S, B, "decode", block_length=L)
+        dcfg = steps.make_dcfg(cfg, dec_s, policy)
+        # one rank, on the whole batch (the noise of rows r0.. is drawn
+        # where the mesh's rank draws it)
+        pre1, _ = steps.build_step(model, pre_s, policy)
+        dec1, _ = steps.build_step(model, dec_s, policy)
+        axes = diffusion.cache_batch_axes(model, S)
+        with no_plain():
+            _, c1 = pre1(params, x, model.init_cache(B, S), P, {})
+            # this rank's rows of the prefilled cache, for the refine below
+            c1_pre = {n: t.narrow(axes[n], r0, r1 - r0).clone()
+                      for n, t in c1.items()}
+            x_ref, _ = dec1(params, x, c1, P, k, 0, {})
+        del c1
+        free()
+        # the mesh: this rank's shards only
+        specs = steps.input_specs(model, dec_s, policy)
+        with sharding.use_context(mesh, launch_sharding.make_rules(cfg,
+                                                                   mesh)):
+            pls = steps.input_shardings(model, dec_s, mesh, specs, policy)
+        mine = launch_sharding.place(params, pls["params"])
+        meta = build_model(cfg, "meta").init_cache(B, S)
+        cache = launch_sharding.local_like(
+            meta, pls["cache"], lambda path: 1.0 if path.endswith("_scale")
+            else 0.0, device=dev)
+        pre, _ = steps.build_step(model, pre_s, policy, mesh=mesh)
+        dec, _ = steps.build_step(model, dec_s, policy, mesh=mesh)
+        xr, kr = x[r0:r1], k[r0:r1]
+        with no_plain():
+            _, cache = pre(mine, xr, cache, P, {})
+            tp_pre = clone_tree(cache)
+            _build.reset_launch_counts()
+            x1, cache = dec(mine, xr, cache, P, kr, 0, {})
+            c_dec = dict(_build.launch_counts)
+        require(c_dec[route] == 1 and c_dec["topk_mask"] == 1,
+                f"{what} {name}: {mesh} decode launches {c_dec}")
+        for n_, v in c_dec.items():
+            total[n_] += v
+        # the two runs' refine logits on this rank's rows, for the
+        # near-tie rule
+        lk1 = diffusion.refine_step(model, params, xr, c1_pre, P, dcfg)[0]
+        with tp_lib.use(tp_lib.Parallel(
+                model=mesh.axis("model"),
+                cache_seq="k" in tp_pre and tp_pre["k"].shape[2] != S)
+                if n_model > 1 else None):
+            lk = diffusion.refine_step(model, mine, xr, clone_tree(tp_pre),
+                                       P, dcfg)[0]
+        if lk.shape[-1] != cfg.vocab:
+            lk = mesh_lib.all_gather(lk, -1, mesh.axis("model"))
+        fmt = dcfg.sampling.fmt
+        z = quantized_f32(lk1.float().reshape((r1 - r0) * L, -1), fmt,
+                          mid).view(r1 - r0, L, -1)
+        zk = quantized_f32(lk.float().reshape((r1 - r0) * L, -1), fmt,
+                           mid).view(r1 - r0, L, -1)
+        err = torch.where(z > -1e29, (zk - z).abs(), 0.0).amax((1, 2))
+        ties = sampled_near_ties(z, err, T, seed, r0 * L, xr[:, P:P + L],
+                                 x1[:, P:P + L], x_ref[r0:r1, P:P + L], kr,
+                                 mid)
+        require(torch.equal(x1[:, :P], xr[:, :P]) and
+                torch.equal(x1[:, P + L:], xr[:, P + L:]),
+                f"{what} {name}: the decode step wrote outside the block")
+        require(not torch.equal(x_ref[r0:r1, P:P + L], xr[:, P:P + L]),
+                f"{what} {name}: the one-rank step committed nothing")
+        if n_model > 1:
+            every = mesh_lib.all_gather(x1[None], 0, mesh.axis("model"))
+            require(bool((every == every[:1]).all()),
+                    f"{what} {name}: the model ranks' canvases differ")
+        notes.append(f"{name}: equal to one rank's" + (
+            f" but at {len(ties)} recorded near-ties {ties}" if ties
+            else "") + f" (largest logit difference {float(err.max()):.3g})")
+        del mine, cache, tp_pre, c1_pre, z, zk, lk, lk1
+        free()
+    say(f"{what}: {cfg.name} f32 ({cfg.n_layers} layers) sampled decode "
+        f"at Table 6's shape on {mesh} (rank {mesh.rank}'s rows "
+        f"{r0}..{r1}, the noise at global rows from {r0 * L}; the head's "
+        f"route: {route}): " + "; ".join(notes)
+        + f"; every model rank's canvas equal; launches {total}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB on "
+        f"this rank; {time.perf_counter() - t0:.1f} s")
+    del params, model
+    return total
+
+
 def tp_served_check(mesh, cfg, say, what: str) -> dict:
     """``build_step(prefill)`` then ``build_step(decode)`` over ``mesh``
     (|model| > 1) in the served configuration: ``cfg``'s bf16 weights
@@ -6424,6 +6987,18 @@ def tp_train_check(mesh, rank: int, say, arch: str = TRAIN_ARCH,
     return total
 
 
+def job_errors(stderr: str) -> str:
+    """A rank job's failure: every rank's ``chip_smoke: FAILED`` line and
+    exception line (a rank's own error can lie far above the end of the
+    job's stderr, which the other ranks fill when it dies), then the
+    end of stderr."""
+    lines = [ln for ln in stderr.splitlines()
+             if "chip_smoke: FAILED" in ln or ln.startswith((
+                 "[rank", "torch.OutOfMemoryError", "RuntimeError"))
+             and ("Error" in ln or "FAILED" in ln)]
+    return "\n".join(lines[:40]) + "\n...\n" + stderr[-2000:]
+
+
 def phase_tp_ranks() -> dict:
     """Phase 14's job: four ranks sharing the card, launched by
     torch.distributed.run (``phase14_main`` in each); rank 0's output joins
@@ -6442,7 +7017,7 @@ def phase_tp_ranks() -> dict:
         else:
             log(line)
     require(r.returncode == 0 and total is not None,
-            f"phase 14 job: exit {r.returncode}: {r.stderr[-3000:]}")
+            f"phase 14 job: exit {r.returncode}: {job_errors(r.stderr)}")
     log(f"phase 14 (four ranks, their own job): "
         f"{time.perf_counter() - t0:.1f} s against its budget of "
         f"{PHASE14_BUDGET_S:.0f} s")
@@ -6465,7 +7040,9 @@ def phase14_main() -> int:
     columns a rank splitting MX blocks) and its train step on (1, 4);
     (e) recurrentgemma-2b prefill + decode on (2, 2) (the RG-LRU's gates
     row-parallel, MQA with a context-parallel cache, route C on 128,000
-    columns a rank).  Prints its launch counts (the ranks' sum)."""
+    columns a rank); after each of (d) and (e) the sampled decode step on
+    its mesh (``tp_sampled_check``: the gathered head, route C).  Prints
+    its launch counts (the ranks' sum)."""
     import torch.distributed as dist
     from repro_torch import device
     from repro_torch.configs import base
@@ -6519,6 +7096,9 @@ def phase14_main() -> int:
                 dataclasses.replace(rcfg, n_layers=min(DEPTH_CUTS[arch],
                                                        rcfg.n_layers))
             add(tp_serve_check(mesh, rcfg, say, tag))
+            free()
+            dist.barrier()
+            add(tp_sampled_check(mesh, rcfg, say, tag))
             free()
         dist.barrier()
         add(tp_train_check(row, rank, say, "mamba2-130m",
@@ -6699,6 +7279,8 @@ def main() -> int:
             for name, n in counts.items():
                 launches[name] += n
         t12 = time.perf_counter() - t12
+        from repro_torch.launch import mesh as mesh_lib
+        phase_analysis(mesh_lib.make_debug_mesh(1, 1, DEVICE))
         for name, n in phase_steps_serve(model, params, gen).items():
             launches[name] += n
         del model, params

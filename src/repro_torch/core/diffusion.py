@@ -430,9 +430,9 @@ def check_spmd(model, dcfg: DiffusionConfig, mesh, jit_steps: bool) -> None:
     if dcfg.sampling.temperature > 0.0 or dcfg.sampling.strategy == "random":
         raise NotImplementedError(
             "SPMD tick supports greedy Stable-Max decoding only "
-            "(temperature == 0, strategy='stablemax'): the tick seed is the "
-            "same on every rank, so per-shard noise draws would correlate "
-            "the data shards")
+            "(temperature == 0, strategy='stablemax'), as JAX's SPMD tick "
+            "does; the decode step (launch/steps.build_serve_step) samples "
+            "on any mesh")
     if jit_steps and mesh.device.type == "cuda" and not mesh.capturable:
         raise ValueError(
             f"jit_steps=True captures the SPMD tick in a CUDA graph, and "

@@ -21,6 +21,13 @@ Over a mesh (launch/mesh.py) the LM head's columns shard over the
 ``model`` axis: ``sharded_fused_sampling_step_full`` reduces this rank's
 shard to per-row (m, idx, s) partials (the fused head's shard entry) and
 ``combine_partials`` merges them with one all_reduce MAX, SUM and MIN.
+Every noise draw is indexed by the *global* row and column: a step over a
+data shard passes ``row_offset`` (the flattened B * L index of its first
+row) and a vocab shard draws at its global columns, so a sampled step on
+any mesh draws what one device draws (GSPMD's partition of JAX's global
+draw).  A sampled shard adds (best score, logit at its index) to its
+partials, and the combine takes the token from the shard holding the best
+score.
 
 The trace hooks (sim/trace.py) record what the paper's NPU would execute
 for each call, with JAX's op groups from the same places: ``stable_max``,
@@ -215,15 +222,18 @@ def selection_seed(seed: Seed) -> Seed:
     return int(_mix32(torch.tensor((int(seed) & MASK32) ^ RANDOM_SALT)))
 
 
-def random_select(seed: Seed, shape: Tuple[int, int], device
-                  ) -> torch.Tensor:
+def random_select(seed: Seed, shape: Tuple[int, int], device,
+                  row_offset: int = 0) -> torch.Tensor:
     """The random strategy's selection key for a (B, L) block: a uniform
     in (0, 1] per position, ``counter_uniform`` on ``selection_seed(seed)``
-    at (row b, column l).  A seed tensor is read from device memory, so a
-    replayed graph draws each tick's.  (JAX draws
+    at (row row_offset + b, column l): ``row_offset`` is the global batch
+    row of row 0 (a data shard's first).  A seed tensor is read from device
+    memory, so a replayed graph draws each tick's.  (JAX draws
     ``jax.random.uniform(rng)``: the two packages select differently.)"""
     B, L = shape
     rows = torch.arange(B, device=device)[:, None]
+    if row_offset:
+        rows = rows + row_offset
     cols = torch.arange(L, device=device)[None, :]
     return counter_uniform(selection_seed(seed), rows, cols)
 
@@ -254,17 +264,19 @@ def commit_tokens(x: torch.Tensor, x0: torch.Tensor, transfer: torch.Tensor
 
 
 def _select_and_commit(conf, x0, x, m_idx, k, cfg: SamplingConfig,
-                       seed: Optional[Seed]):
+                       seed: Optional[Seed], row_offset: int = 0):
     """Shared tail of the fused and unfused sampling steps: transfer
     selection (the Stable-Max conf, or under strategy 'random' the
-    uniform draw of ``random_select``), top-k mask, masked commit."""
+    uniform draw of ``random_select`` at the block's global rows: the
+    flattened ``row_offset`` over L), top-k mask, masked commit."""
     select = conf
     if cfg.strategy == "random":
         if seed is None:
             raise ValueError(
                 "strategy='random' requires a seed: without one every call "
                 "would reuse the identical transfer order")
-        select = random_select(seed, tuple(conf.shape), conf.device)
+        select = random_select(seed, tuple(conf.shape), conf.device,
+                               row_offset // conf.shape[-1])
     x0 = torch.where(m_idx, x0, x)                 # keep committed tokens
     transfer = topk_transfer_mask(select, m_idx, k)
     if trace_lib.is_active():
@@ -275,13 +287,14 @@ def _select_and_commit(conf, x0, x, m_idx, k, cfg: SamplingConfig,
 
 def stable_max(logits: torch.Tensor, fmt: str = "none",
                seed: Optional[Seed] = None, temperature: float = 0.0,
-               suppress_id: Optional[int] = None
+               suppress_id: Optional[int] = None, row_offset: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits (..., V) -> (conf (...) f32, token (...) int32): the sampling
     fake-quant, the suppressed id masked after it, Stable-Max.  With
     temperature > 0 and a ``seed`` the token is the counter-Gumbel argmax
-    (the stream the fused head draws; JAX draws jax.random.gumbel here) and
-    conf the softmax probability of that token."""
+    (the stream the fused head draws, at global flattened rows
+    ``row_offset`` onward; JAX draws jax.random.gumbel here) and conf the
+    softmax probability of that token."""
     from repro_torch.kernels import stablemax_sampling as sms   # lazy
     *lead, V = logits.shape
     temp = temperature if seed is not None else 0.0
@@ -301,7 +314,8 @@ def stable_max(logits: torch.Tensor, fmt: str = "none",
         trace_lib.emit("S_ST", (2 * rows,), stage="tail", note="conf_idx_wb")
     conf, idx = sms.stablemax_sampling(
         logits.reshape(-1, V).contiguous(), fmt=fmt, suppress_id=suppress_id,
-        temperature=temp, seed=0 if seed is None else seed)
+        temperature=temp, seed=0 if seed is None else seed,
+        row_offset=row_offset)
     return conf.reshape(lead), idx.reshape(lead)
 
 
@@ -321,25 +335,28 @@ def stable_max_two_pass(logits: torch.Tensor, fmt: str = "none"
 
 def sampling_step_full(logits: torch.Tensor, x: torch.Tensor, mask_id: int,
                        k: torch.Tensor, cfg: SamplingConfig,
-                       seed: Optional[Seed] = None
+                       seed: Optional[Seed] = None, row_offset: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One sampling stage on stored logits (B, L, V): Stable-Max (the CUDA
     kernel on the card), then top-k and commit.  Returns (new tokens
     (B, L), transfer (B, L), conf (B, L)); conf is the Stable-Max conf of
     the sampled tokens under either strategy.  Greedy without a
-    ``seed``; strategy 'random' needs one (ValueError)."""
+    ``seed``; strategy 'random' needs one (ValueError).  ``row_offset``
+    is the global flattened (B * L) row of row 0, where the noise is
+    drawn (a data shard's first row)."""
     check_supported(cfg)
     sup = mask_id if cfg.suppress_mask_token else None
     conf, x0 = stable_max(logits, cfg.fmt, seed, cfg.temperature,
-                          suppress_id=sup)
-    return _select_and_commit(conf, x0, x, x == mask_id, k, cfg, seed)
+                          suppress_id=sup, row_offset=row_offset)
+    return _select_and_commit(conf, x0, x, x == mask_id, k, cfg, seed,
+                              row_offset)
 
 
 def fused_sampling_step_full(hidden: torch.Tensor, w_head: torch.Tensor,
                              x: torch.Tensor, mask_id: int, k: torch.Tensor,
                              cfg: SamplingConfig, seed: Optional[Seed] = None,
                              *, logit_scale: float = 1.0, quant=None,
-                             chunk_v: int = 4096
+                             chunk_v: int = 4096, row_offset: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """One sampling stage fed by active-block hidden states: hidden
@@ -354,7 +371,8 @@ def fused_sampling_step_full(hidden: torch.Tensor, w_head: torch.Tensor,
     fake-quantizes the hidden states and the head before the kernel, as
     JAX does before its Pallas kernel; the head's fake-quant runs on its
     padded rows (fused_head_sampling.head_storage), so the kernel reads
-    the padded layout."""
+    the padded layout.  ``row_offset`` is the global flattened row of row
+    0, where the noise is drawn (a data shard's first row)."""
     from repro_torch.kernels import fused_head_sampling as fhs   # lazy
     check_supported(cfg)
     if quant is not None and quant.enabled:
@@ -375,17 +393,19 @@ def fused_sampling_step_full(hidden: torch.Tensor, w_head: torch.Tensor,
         conf, x0 = fhs.fused_head_sampling(
             hidden.reshape(R, d), w_head, fmt=cfg.fmt,
             logit_scale=logit_scale, suppress_id=sup, temperature=temp,
-            seed=0 if seed is None else seed, chunk_v=chunk_v)
+            seed=0 if seed is None else seed, chunk_v=chunk_v,
+            row_offset=row_offset)
     return _select_and_commit(conf.reshape(B, L), x0.reshape(B, L), x,
-                              m_idx, k, cfg, seed)
+                              m_idx, k, cfg, seed, row_offset)
 
 
 def sampling_step(logits: torch.Tensor, x: torch.Tensor, mask_id: int,
                   k: torch.Tensor, cfg: SamplingConfig,
-                  seed: Optional[Seed] = None
+                  seed: Optional[Seed] = None, row_offset: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """As ``sampling_step_full`` without the confidence output."""
-    new_x, transfer, _ = sampling_step_full(logits, x, mask_id, k, cfg, seed)
+    new_x, transfer, _ = sampling_step_full(logits, x, mask_id, k, cfg, seed,
+                                            row_offset)
     return new_x, transfer
 
 
@@ -403,47 +423,81 @@ def full_softmax_reference(logits: torch.Tensor
 # Vocab-sharded Stable-Max: the LM head's columns split over a mesh axis
 # (launch/mesh.py; JAX's shard_map axis 'model').  Each rank reduces its
 # (d, V/n) shard to per-row (m, global idx, s) partials, and one max, one
-# sum and one min over the axis merge them.
+# sum and one min over the axis merge them.  A sampled shard (temperature
+# > 0 with a seed) adds (best, z_at): the best Gumbel score z/T + g of its
+# columns, the noise drawn at the global row and column, and the logit at
+# its index; the merge then takes the lowest index among the shards
+# holding the best score, and conf = e^(z_at - m) / S from that shard.
 # ---------------------------------------------------------------------------
 
 BIG_INDEX = 1 << 30
 
 
+def _sampled(temperature: float, seed: Optional[Seed]) -> float:
+    """The temperature a step samples at: 0 (greedy) without a seed."""
+    return temperature if seed is not None else 0.0
+
+
 def local_partials(logits_shard: torch.Tensor, fmt: str = "none", *,
-                   col_offset: int = 0, suppress_id: Optional[int] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   col_offset: int = 0, suppress_id: Optional[int] = None,
+                   temperature: float = 0.0, seed: Seed = 0,
+                   row_offset: int = 0) -> Tuple[torch.Tensor, ...]:
     """Per-shard partials of stored logits (..., V_loc) whose first column
     is global column ``col_offset``: (m, idx + col_offset, s) with s
     relative to m, ``suppress_id`` (a global column) masked after the
-    fake-quant on the shard that holds it.  Plain PyTorch, as JAX's is
-    jnp."""
+    fake-quant on the shard that holds it.  With temperature > 0: (m, idx,
+    s, best, z_at), idx the first column of the best score z/T + g, the
+    noise at the global (flattened row ``row_offset`` + r, column).  Plain
+    PyTorch, as JAX's is jnp."""
     z = mx.mx_fake_quant(logits_shard, fmt).to(torch.float32)
+    col = torch.arange(z.shape[-1], device=z.device)
     if suppress_id is not None and \
             0 <= suppress_id - col_offset < z.shape[-1]:
-        col = torch.arange(z.shape[-1], device=z.device)
         z = torch.where(col == suppress_id - col_offset, NEG_INF, z)
     m = torch.amax(z, dim=-1)
-    idx = torch.argmax(z, dim=-1).to(torch.int32) + col_offset
     s = torch.sum(torch.exp(z - m[..., None]), dim=-1)
-    return m, idx, s
+    if temperature <= 0.0:
+        idx = torch.argmax(z, dim=-1).to(torch.int32) + col_offset
+        return m, idx, s
+    lead = z.shape[:-1]
+    z2 = z.reshape(-1, z.shape[-1])
+    rows = torch.arange(z2.shape[0], device=z.device)[:, None] + row_offset
+    sc = z2 / temperature + counter_gumbel(seed, rows,
+                                           col[None, :] + col_offset)
+    best, i = torch.max(sc, dim=-1)                   # first occurrence
+    z_at = torch.gather(z2, 1, i[:, None])[:, 0]
+    return (m, (i.to(torch.int32) + col_offset).reshape(lead), s,
+            best.reshape(lead), z_at.reshape(lead))
 
 
 def combine_partials(m: torch.Tensor, gidx: torch.Tensor, s: torch.Tensor,
-                     axis) -> Tuple[torch.Tensor, torch.Tensor]:
+                     axis, best: Optional[torch.Tensor] = None,
+                     z_at: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge per-shard (m, global idx, s) Stable-Max partials over
     ``axis`` (a launch/mesh.Axis, JAX's ``axis_name``): m = max_i m_i,
     S = sum_i S_i e^(m_i - m), the index from the shard holding the global
     max (the lowest index among ties).  One all_reduce MAX, one SUM and one
-    MIN of per-row scalars.  Returns (conf = 1/S, idx int32)."""
+    MIN of per-row scalars.  Returns (conf = 1/S, idx int32).  With a
+    sampled shard's ``best`` and ``z_at``: the index is the lowest among
+    the shards holding the best score, and conf = e^(z_at - m) / S with
+    that shard's z_at (two more all_reduces, MAX and MAX)."""
     from repro_torch.launch import mesh as mesh_lib   # lazy: launch -> core
     if trace_lib.is_active():
         trace_lib.emit_combine(int(math.prod(m.shape)))
     gm = mesh_lib.all_reduce(m, "max", axis)
     gs = mesh_lib.all_reduce(s * torch.exp(m - gm), "sum", axis)
-    cand = torch.where(m >= gm, gidx.to(torch.int32),
+    key = m if best is None else best
+    top = gm if best is None else mesh_lib.all_reduce(best, "max", axis)
+    cand = torch.where(key >= top, gidx.to(torch.int32),
                        torch.full_like(gidx, BIG_INDEX, dtype=torch.int32))
     gi = mesh_lib.all_reduce(cand, "min", axis)
-    return 1.0 / gs, gi.to(torch.int32)
+    if best is None:
+        return 1.0 / gs, gi.to(torch.int32)
+    zw = mesh_lib.all_reduce(torch.where(
+        gidx.to(torch.int32) == gi, z_at,
+        torch.full_like(z_at, -float("inf"))), "max", axis)
+    return torch.exp(zw - gm) / gs, gi.to(torch.int32)
 
 
 def sharded_stable_max(logits_shard: torch.Tensor, axis, fmt: str = "none"
@@ -457,33 +511,41 @@ def sharded_stable_max(logits_shard: torch.Tensor, axis, fmt: str = "none"
     return combine_partials(m, idx, s, axis)
 
 
+def _combine(parts, axis):
+    """``combine_partials`` of a shard entry's 3 (greedy) or 5 (sampled)
+    partials."""
+    m, gidx, s, *sampled = parts
+    return combine_partials(m, gidx, s, axis, *sampled)
+
+
 def sharded_sampling_step_full(logits_shard: torch.Tensor, x: torch.Tensor,
                                mask_id: int, k: torch.Tensor,
                                cfg: SamplingConfig,
-                               seed: Optional[Seed] = None, *, axis
+                               seed: Optional[Seed] = None, *, axis,
+                               row_offset: int = 0
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """``sampling_step_full`` on stored logits whose columns are sharded
     on ``axis`` (B, L, V / n), each shard a whole number of MX blocks:
-    this rank's (m, global idx, s) partials through Stable-Max's
-    vocab-shard entry (kernels/stablemax_sampling.stablemax_shard_partials,
-    route C: the CUDA kernel on the card), ``combine_partials``, then the
-    transfer selection and commit (the same on every rank of the axis).
-    Greedy only: temperature > 0 with a seed raises NotImplementedError."""
+    this rank's partials through Stable-Max's vocab-shard entry
+    (kernels/stablemax_sampling.stablemax_shard_partials, route C: the
+    CUDA kernel on the card), ``combine_partials``, then the transfer
+    selection and commit (the same on every rank of the axis).  Samples
+    as the single-device step does (temperature > 0 with a seed, either
+    strategy), the noise at the global rows (``row_offset`` onward) and
+    columns."""
     from repro_torch.kernels import stablemax_sampling as sms   # lazy
     check_supported(cfg)
-    if cfg.temperature > 0.0 and seed is not None:
-        raise NotImplementedError(
-            "vocab-sharded sampling supports greedy decoding only "
-            "(temperature == 0)")
     *lead, vloc = logits_shard.shape
     sup = mask_id if cfg.suppress_mask_token else None
-    m, gidx, s = sms.stablemax_shard_partials(
+    parts = sms.stablemax_shard_partials(
         logits_shard.reshape(-1, vloc).contiguous(), fmt=cfg.fmt,
-        col_offset=axis.index * vloc, suppress_id=sup)
-    conf, x0 = combine_partials(m, gidx, s, axis)
+        col_offset=axis.index * vloc, suppress_id=sup,
+        temperature=_sampled(cfg.temperature, seed),
+        seed=0 if seed is None else seed, row_offset=row_offset)
+    conf, x0 = _combine(parts, axis)
     return _select_and_commit(conf.reshape(lead), x0.reshape(lead), x,
-                              x == mask_id, k, cfg, seed)
+                              x == mask_id, k, cfg, seed, row_offset)
 
 
 def sharded_fused_head_stable_max(hidden: torch.Tensor,
@@ -492,15 +554,18 @@ def sharded_fused_head_stable_max(hidden: torch.Tensor,
                                   logit_scale: float = 1.0,
                                   suppress_id: Optional[int] = None,
                                   chunk_v: int = 4096, quant=None,
-                                  col_limit: Optional[int] = None
+                                  col_limit: Optional[int] = None,
+                                  temperature: float = 0.0, seed: Seed = 0,
+                                  row_offset: int = 0
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused head + Stable-Max with the head's columns sharded on
     ``axis``: this rank's (d, V_loc) shard (``w_shard``, column offset
     axis.index * V_loc) through the fused head's shard entry
     (kernels/fused_head_sampling.head_shard_partials: the CUDA kernel on
     the card), then ``combine_partials``.  ``col_limit`` masks the pad
-    columns of ``pad_head_for_mesh``.  hidden (..., d) -> (conf (...),
-    token (...))."""
+    columns of ``pad_head_for_mesh``.  With temperature > 0 the token is
+    the counter-Gumbel argmax at the global rows (``row_offset`` onward)
+    and columns.  hidden (..., d) -> (conf (...), token (...))."""
     from repro_torch.kernels import fused_head_sampling as fhs   # lazy
     *lead, d = hidden.shape
     h = hidden.reshape(-1, d)
@@ -510,13 +575,15 @@ def sharded_fused_head_stable_max(hidden: torch.Tensor,
     R = h.shape[0]
     if trace_lib.is_active():
         chunk, Vp = _chunk_grid(vloc, chunk_v)
-        _emit_head_stream(R, d, chunk, Vp // chunk)
+        _emit_head_stream(R, d, chunk, Vp // chunk,
+                          gumbel=temperature > 0.0)
     with trace_lib.suppress():
-        m, gidx, s = fhs.head_shard_partials(
+        parts = fhs.head_shard_partials(
             h, w_shard, fmt=fmt, logit_scale=logit_scale,
             col_offset=axis.index * vloc, col_limit=col_limit,
-            suppress_id=suppress_id, chunk_v=chunk_v)
-    conf, idx = combine_partials(m, gidx, s, axis)
+            suppress_id=suppress_id, chunk_v=chunk_v,
+            temperature=temperature, seed=seed, row_offset=row_offset)
+    conf, idx = _combine(parts, axis)
     if trace_lib.is_active():
         trace_lib.emit("S_ST", (2 * R,), stage="tail", note="conf_idx_wb")
     return conf.reshape(lead), idx.reshape(lead)
@@ -529,24 +596,24 @@ def sharded_fused_sampling_step_full(hidden: torch.Tensor,
                                      seed: Optional[Seed] = None, *, axis,
                                      logit_scale: float = 1.0, quant=None,
                                      chunk_v: int = 4096,
-                                     col_limit: Optional[int] = None
+                                     col_limit: Optional[int] = None,
+                                     row_offset: int = 0
                                      ) -> Tuple[torch.Tensor, torch.Tensor,
                                                 torch.Tensor]:
     """``fused_sampling_step_full`` with the LM head column-sharded on
     ``axis``: per-shard partials, the combine, then the transfer selection
-    and commit (the same on every rank of the axis).  Greedy only, as in
-    JAX: temperature > 0 with a seed raises NotImplementedError."""
+    and commit (the same on every rank of the axis).  Samples as the
+    single-device step does, the noise at the global rows (``row_offset``
+    onward) and columns."""
     check_supported(cfg)
-    if cfg.temperature > 0.0 and seed is not None:
-        raise NotImplementedError(
-            "vocab-sharded sampling supports greedy decoding only "
-            "(temperature == 0)")
     m_idx = x == mask_id
     sup = mask_id if cfg.suppress_mask_token else None
     conf, x0 = sharded_fused_head_stable_max(
         hidden, w_shard, axis, cfg.fmt, logit_scale=logit_scale,
-        suppress_id=sup, chunk_v=chunk_v, quant=quant, col_limit=col_limit)
-    return _select_and_commit(conf, x0, x, m_idx, k, cfg, seed)
+        suppress_id=sup, chunk_v=chunk_v, quant=quant, col_limit=col_limit,
+        temperature=_sampled(cfg.temperature, seed),
+        seed=0 if seed is None else seed, row_offset=row_offset)
+    return _select_and_commit(conf, x0, x, m_idx, k, cfg, seed, row_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -572,15 +639,19 @@ def fused_head_local_partials(hidden: torch.Tensor, w_shard: torch.Tensor,
                               col_offset: int = 0,
                               suppress_id: Optional[int] = None,
                               chunk_v: int = 4096, quant=None,
-                              col_limit: Optional[int] = None
-                              ) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
+                              col_limit: Optional[int] = None,
+                              temperature: float = 0.0, seed: Seed = 0,
+                              row_offset: int = 0
+                              ) -> Tuple[torch.Tensor, ...]:
     """Streamed-head Stable-Max partials over one vocab shard, plain
     PyTorch (JAX's is its jnp oracle): hidden (R, d), w_shard (d, V_loc) ->
     (m (R,), gidx (R,) int32, s (R,)) with s relative to m and gidx global
     (``col_offset`` = shard * V_loc).  ``col_limit`` masks global columns
     >= the true vocab size (the zero pad of ``pad_head_for_mesh``).  One
-    (R, chunk) logit tile at a time, never (R, V_loc)."""
+    (R, chunk) logit tile at a time, never (R, V_loc).  With temperature
+    > 0: (m, gidx, s, best, z_at), gidx the first column of the best
+    score z/T + g (the noise at global row ``row_offset`` + r and the
+    global column; an earlier chunk wins a tie) and z_at its logit."""
     R = hidden.shape[0]
     V = w_shard.shape[-1]
     chunk, Vp = _chunk_grid(V, chunk_v)
@@ -595,6 +666,10 @@ def fused_head_local_partials(hidden: torch.Tensor, w_shard: torch.Tensor,
     m = torch.full((R,), NEG_INF, dtype=torch.float32, device=dev)
     s = torch.zeros((R,), dtype=torch.float32, device=dev)
     idx = torch.zeros((R,), dtype=torch.int64, device=dev)
+    gumbel = temperature > 0.0
+    best = torch.full_like(m, -float("inf"))
+    z_at = torch.full_like(m, NEG_INF)
+    rows = torch.arange(R, device=dev)[:, None] + row_offset
     with trace_lib.suppress():
         for c in range(n_chunks):
             z = head_logits(hidden, w_shard[:, c * chunk:(c + 1) * chunk],
@@ -610,7 +685,18 @@ def fused_head_local_partials(hidden: torch.Tensor, w_shard: torch.Tensor,
             m_new = torch.maximum(m, local_m)
             s = s * torch.exp(m - m_new) + \
                 torch.sum(torch.exp(z - m_new[:, None]), dim=-1)
-            local_i = torch.argmax(z, dim=-1) + c * chunk  # first occurrence
-            idx = torch.where(local_m > m, local_i, idx)   # first chunk wins
+            if gumbel:
+                sc = z / temperature + counter_gumbel(
+                    seed, rows, col[None, :] + col_offset)
+                local_b, li = torch.max(sc, dim=-1)   # first occurrence
+                upd = local_b > best                  # earlier chunk wins
+                best = torch.where(upd, local_b, best)
+                idx = torch.where(upd, li + c * chunk, idx)
+                z_at = torch.where(upd, torch.gather(z, 1, li[:, None])[:, 0],
+                                   z_at)
+            else:
+                local_i = torch.argmax(z, dim=-1) + c * chunk  # first
+                idx = torch.where(local_m > m, local_i, idx)   # chunk wins
             m = m_new
-    return m, (idx + col_offset).to(torch.int32), s
+    gidx = (idx + col_offset).to(torch.int32)
+    return (m, gidx, s, best, z_at) if gumbel else (m, gidx, s)

@@ -32,10 +32,14 @@ KERNELS = ("fused_head_sampling", "topk_mask", "flash_bidir",
 # entries of those libraries counted apart, each named for its route: the
 # fused head's vocab-shard entry (route A, the SPMD tick), attention over a
 # second K/V source (route B, the split cache's refine) and Stable-Max's
-# vocab-shard entry (route C, the decode step's sharded logit columns)
+# vocab-shard entry (route C, the decode step's sharded logit columns); a
+# sampled launch of route A or C (temperature > 0: the Gumbel partials)
+# counts apart from the greedy one
 ROUTES = {"fused_head_sampling_shard": "fused_head_sampling",
           "flash_bidir_split": "flash_bidir",
-          "stablemax_sampling_shard": "stablemax_sampling"}
+          "stablemax_sampling_shard": "stablemax_sampling",
+          "fused_head_sampling_shard_sampled": "fused_head_sampling",
+          "stablemax_sampling_shard_sampled": "stablemax_sampling"}
 COUNTED = KERNELS + tuple(ROUTES)
 # no --use_fast_math: the MX exponent rule and the Gumbel log need the
 # full-precision log2f/logf, and divisions must stay IEEE divisions

@@ -184,6 +184,28 @@ extern "C" int baos_mx_quant_launch(const void* x, const void* c,
                               o_ss, fmt, st));
 }
 
+namespace {
+// every instantiation the entry point above launches
+const KernelAttr ATTRS[] = {
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_NONE>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_BF16>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_MXFP8>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_MXINT8>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_MXINT4>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_MXFP6>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_MXFP4>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_NONE>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_BF16>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXFP8>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXINT8>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXINT4>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXFP6>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXFP4>), 0),
+};
+}  // namespace
+
+KERNEL_ATTR_ENTRIES(baos_mx_quant, ATTRS)
+
 extern "C" const char* baos_mx_quant_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -76,7 +76,10 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// core/sampling.counter_gumbel, element by element.
+// core/sampling.counter_gumbel, element by element.  row and col are the
+// global (flattened B * L row, vocab column) of the logit: a kernel adds
+// its row offset (the rank's first row under a data mesh) and its column
+// offset (the shard's first column under a vocab-sharded head).
 __device__ __forceinline__ float counter_gumbel(uint32_t seed, uint32_t row,
                                                 uint32_t col) {
   uint32_t h = mix32(row * 0x9E3779B9u ^ seed);
@@ -402,35 +405,64 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // Merge of per-tile Stable-Max partials (core/sampling.combine_partials)
 // ---------------------------------------------------------------------------
 
-// One warp merges one row's n_vt greedy partials into the row's partial
-// of a vocab shard, (m, global idx, s), written in place of (conf, token)
-// for a merge across ranks (core/sampling.combine_partials): m = max m_t,
+// One warp merges one row's n_vt partials into the row's partial of a
+// vocab shard, (m, global idx, s), written in place of (conf, token) for a
+// merge across ranks (core/sampling.combine_partials): m = max m_t,
 // s = sum s_t e^(m_t - m), the lowest column among the tiles holding m,
-// plus col_offset.  A row with no valid column (n_vt = 0: a shard of pad
-// only) gets m = NEG, s = 0, idx = BIG, which no combine picks.
+// plus col_offset.  With Gumbel the index is the lowest column among the
+// tiles holding the best score, and the shard's best score and the logit
+// at its index go to b_out and z_out.  A row with no valid column (n_vt =
+// 0: a shard of pad only) gets m = NEG, s = 0, idx = BIG (and best -inf),
+// which no combine picks.
 __device__ __forceinline__ void shard_merge_row(
     const float* __restrict__ part_m, const int* __restrict__ part_i,
-    const float* __restrict__ part_s, int r, int n_vt, int col_offset,
-    float* __restrict__ m_out, int* __restrict__ idx_out,
-    float* __restrict__ s_out) {
+    const float* __restrict__ part_s, const float* __restrict__ part_b,
+    const float* __restrict__ part_z, int r, int n_vt, int col_offset,
+    bool gumbel, float* __restrict__ m_out, int* __restrict__ idx_out,
+    float* __restrict__ s_out, float* __restrict__ b_out,
+    float* __restrict__ z_out) {
   const int lane = threadIdx.x & 31;
   const size_t base = static_cast<size_t>(r) * n_vt;
   float m = NEG;
   for (int t = lane; t < n_vt; t += 32) m = fmaxf(m, part_m[base + t]);
   m = warp_max(m);
   float s = 0.f;
-  int idx = BIG;
-  for (int t = lane; t < n_vt; t += 32) {
+  for (int t = lane; t < n_vt; t += 32)
     s += part_s[base + t] * expf(part_m[base + t] - m);
-    if (part_m[base + t] >= m) idx = min(idx, part_i[base + t]);
-  }
   s = warp_sum(s);
-  idx = warp_min(idx);
+  int idx = BIG;
+  float best = -INFINITY, zat = NEG;
+  if (!gumbel) {
+    for (int t = lane; t < n_vt; t += 32)
+      if (part_m[base + t] >= m) idx = min(idx, part_i[base + t]);
+    idx = warp_min(idx);
+  } else {
+    for (int t = lane; t < n_vt; t += 32) best = fmaxf(best, part_b[base + t]);
+    best = warp_max(best);
+    for (int t = lane; t < n_vt; t += 32) {
+      if (part_b[base + t] >= best && part_i[base + t] < idx) {
+        idx = part_i[base + t];
+        zat = part_z[base + t];
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const int oi = __shfl_xor_sync(FULL_MASK, idx, o);
+      const float oz = __shfl_xor_sync(FULL_MASK, zat, o);
+      if (oi < idx) {
+        idx = oi;
+        zat = oz;
+      }
+    }
+  }
   if (lane == 0) {
     const bool empty = !(m > NEG);
     m_out[r] = m;
     s_out[r] = empty ? 0.f : s;
     idx_out[r] = empty ? BIG : idx + col_offset;
+    if (gumbel) {
+      b_out[r] = empty ? -INFINITY : best;
+      z_out[r] = empty ? NEG : zat;
+    }
   }
 }
 
@@ -482,3 +514,47 @@ __device__ __forceinline__ void combine_row(
     token[r] = idx;
   }
 }
+
+// ---------------------------------------------------------------------------
+// Kernel attributes (the static-analysis gate's shared-memory check)
+// ---------------------------------------------------------------------------
+
+// One kernel instantiation a library launches: its name, its address and
+// the dynamic shared memory its largest launch requests, in bytes.
+struct KernelAttr {
+  const char* name;
+  const void* fn;
+  int dyn_smem;
+};
+
+// cudaFuncGetAttributes of table[i]: its static shared memory and
+// registers per thread, beside the dynamic shared memory its launch
+// requests (analysis/smem_budget.py states the same figures).
+inline int kernel_attrs(const KernelAttr* table, int n, int i,
+                        const char** name, int* static_smem, int* regs,
+                        int* dyn_smem) {
+  if (i < 0 || i >= n) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, table[i].fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *name = table[i].name;
+  *static_smem = static_cast<int>(a.sharedSizeBytes);
+  *regs = a.numRegs;
+  *dyn_smem = table[i].dyn_smem;
+  return 0;
+}
+
+#define KERNEL_ATTR(NAME, DYN) \
+  KernelAttr { #NAME, reinterpret_cast<const void*>(&NAME), (DYN) }
+
+// The two C entry points of a library's table ATTRS: <lib>_kernel_count and
+// <lib>_kernel_attrs (name, static smem, registers, dynamic smem of entry i).
+#define KERNEL_ATTR_ENTRIES(LIB, ATTRS)                                     \
+  extern "C" int LIB##_kernel_count() {                                    \
+    return static_cast<int>(sizeof(ATTRS) / sizeof(ATTRS[0]));             \
+  }                                                                        \
+  extern "C" int LIB##_kernel_attrs(int i, const char** name, int* smem,   \
+                                    int* regs, int* dyn) {                 \
+    return kernel_attrs(ATTRS, LIB##_kernel_count(), i, name, smem, regs,  \
+                        dyn);                                              \
+  }

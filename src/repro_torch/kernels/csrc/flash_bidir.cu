@@ -661,6 +661,35 @@ extern "C" int flash_bidir_launch(const void* q, const void* k, const void* v,
       st));
 }
 
+namespace {
+// every instantiation the entry points above launch, with the dynamic
+// shared memory of its largest launch (the bf16 route's at its most warps)
+const KernelAttr ATTRS[] = {
+    KERNEL_ATTR((flash_bidir_kernel<float, 1>), f32_smem_bytes(32)),
+    KERNEL_ATTR((flash_bidir_kernel<float, 2>), f32_smem_bytes(64)),
+    KERNEL_ATTR((flash_bidir_kernel<float, 4>), f32_smem_bytes(128)),
+    KERNEL_ATTR((flash_bidir_kernel<float, 8>), f32_smem_bytes(256)),
+    KERNEL_ATTR((flash_bidir_tc_kernel<32, 1>),
+                (tc_smem_bytes<32, 1>(tc_max_warps<32, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<32, SPLIT>),
+                (tc_smem_bytes<32, SPLIT>(tc_max_warps<32, SPLIT>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<64, 1>),
+                (tc_smem_bytes<64, 1>(tc_max_warps<64, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<64, SPLIT>),
+                (tc_smem_bytes<64, SPLIT>(tc_max_warps<64, SPLIT>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<128, 1>),
+                (tc_smem_bytes<128, 1>(tc_max_warps<128, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<128, SPLIT>),
+                (tc_smem_bytes<128, SPLIT>(tc_max_warps<128, SPLIT>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<256, 1>),
+                (tc_smem_bytes<256, 1>(tc_max_warps<256, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<256, SPLIT>),
+                (tc_smem_bytes<256, SPLIT>(tc_max_warps<256, SPLIT>()))),
+};
+}  // namespace
+
+KERNEL_ATTR_ENTRIES(flash_bidir, ATTRS)
+
 extern "C" const char* flash_bidir_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -463,6 +463,30 @@ extern "C" int flash_bidir_bwd_launch(const void* q, const void* k,
                                           window, q_offset, st));
 }
 
+namespace {
+// every instantiation the entry point above launches
+const KernelAttr ATTRS[] = {
+    KERNEL_ATTR((flash_bidir_bwd_dq<float, 1>), dq_smem_bytes(32)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<float, 1>), dkv_smem_bytes(32)),
+    KERNEL_ATTR((flash_bidir_bwd_dq<float, 2>), dq_smem_bytes(64)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<float, 2>), dkv_smem_bytes(64)),
+    KERNEL_ATTR((flash_bidir_bwd_dq<float, 4>), dq_smem_bytes(128)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<float, 4>), dkv_smem_bytes(128)),
+    KERNEL_ATTR((flash_bidir_bwd_dq<float, 8>), dq_smem_bytes(256)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<float, 8>), dkv_smem_bytes(256)),
+    KERNEL_ATTR((flash_bidir_bwd_dq<__nv_bfloat16, 1>), dq_smem_bytes(32)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<__nv_bfloat16, 1>), dkv_smem_bytes(32)),
+    KERNEL_ATTR((flash_bidir_bwd_dq<__nv_bfloat16, 2>), dq_smem_bytes(64)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<__nv_bfloat16, 2>), dkv_smem_bytes(64)),
+    KERNEL_ATTR((flash_bidir_bwd_dq<__nv_bfloat16, 4>), dq_smem_bytes(128)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<__nv_bfloat16, 4>), dkv_smem_bytes(128)),
+    KERNEL_ATTR((flash_bidir_bwd_dq<__nv_bfloat16, 8>), dq_smem_bytes(256)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<__nv_bfloat16, 8>), dkv_smem_bytes(256)),
+};
+}  // namespace
+
+KERNEL_ATTR_ENTRIES(flash_bidir_bwd, ATTRS)
+
 extern "C" const char* flash_bidir_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

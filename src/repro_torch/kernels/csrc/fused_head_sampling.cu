@@ -52,10 +52,13 @@
 // The f32 route runs on the CUDA cores (f32 FMAs, 64-column CTAs): TF32
 // would change its arithmetic.
 //
-// Route A (fused_head_sampling_shard_launch) serves the SPMD tick's vocab-
-// sharded head: the same per-CTA partials over one rank's (d, V/n) shard
-// of a head padded to MX-block shard boundaries, then a merge that writes
-// per-row (m, global idx, s) for the cross-rank combine.  It moves V/n of
+// Route A (fused_head_sampling_shard_launch) serves the SPMD tick's and
+// the decode step's vocab-sharded head: the same per-CTA partials over one
+// rank's (d, V/n) shard of a head padded to MX-block shard boundaries,
+// then a merge that writes per-row (m, global idx, s), and when it samples
+// (best, z_at), for the cross-rank combine.  The Gumbel noise is drawn at
+// the global row and column, so a sampled step on any mesh draws what one
+// device draws.  It moves V/n of
 // the head's bytes, so its bound is the single-device bound over n.
 // No fast-math: the MX exponent rule ceil(log2(amax / 448)) and the Gumbel
 // log must use the full-precision library functions.
@@ -77,7 +80,7 @@ head_partials_kernel(const T* __restrict__ hidden, const T* __restrict__ w,
                      int R, int d, int V, int ldw, int fmt,
                      float logit_scale,
                      float temperature, const uint32_t* __restrict__ seed_ptr,
-                     int suppress_id,
+                     int suppress_id, int row_offset, int noise_col,
                      float* __restrict__ part_m, int* __restrict__ part_i,
                      float* __restrict__ part_s, float* __restrict__ part_b,
                      float* __restrict__ part_z) {
@@ -161,8 +164,12 @@ head_partials_kernel(const T* __restrict__ hidden, const T* __restrict__ w,
     int idx = warp_min(min(z[0] >= m ? col[0] : BIG, z[1] >= m ? col[1] : BIG));
     float best = NEG, zat = NEG;
     if (gumbel) {
-      const float sc0 = z[0] / temperature + counter_gumbel(seed, gr, col[0]);
-      const float sc1 = z[1] / temperature + counter_gumbel(seed, gr, col[1]);
+      // the noise of the global row and column
+      const uint32_t nr = gr + row_offset;
+      const float sc0 = z[0] / temperature +
+                        counter_gumbel(seed, nr, col[0] + noise_col);
+      const float sc1 = z[1] / temperature +
+                        counter_gumbel(seed, nr, col[1] + noise_col);
       best = warp_max(fmaxf(sc0, sc1));
       idx = warp_min(min(sc0 >= best ? col[0] : BIG, sc1 >= best ? col[1] : BIG));
       zat = warp_max(col[0] == idx ? z[0] : (col[1] == idx ? z[1] : NEG));
@@ -200,27 +207,27 @@ template <int RPT>
 cudaError_t launch_f32(const float* hidden, const float* w, int R, int d,
                        int V, int ldw, int fmt, float logit_scale,
                        float temperature,
-                       const uint32_t* seed, int suppress_id, float* pm,
-                       int* pi,
+                       const uint32_t* seed, int suppress_id, int row_offset,
+                       int noise_col, float* pm, int* pi,
                        float* ps, float* pb, float* pz, cudaStream_t stream) {
   constexpr int TM = 16 * RPT;
   const dim3 grid((V + TN - 1) / TN, (R + TM - 1) / TM);
   head_partials_kernel<float, RPT><<<grid, THREADS, 0, stream>>>(
       hidden, w, R, d, V, ldw, fmt, logit_scale, temperature, seed,
-      suppress_id, pm, pi, ps, pb, pz);
+      suppress_id, row_offset, noise_col, pm, pi, ps, pb, pz);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(int R, const float* hidden, const float* w, int d,
                          int V, int ldw, int fmt, float logit_scale,
                          float temperature,
-                         const uint32_t* seed, int suppress_id, float* pm,
-                         int* pi,
+                         const uint32_t* seed, int suppress_id,
+                         int row_offset, int noise_col, float* pm, int* pi,
                          float* ps, float* pb, float* pz, cudaStream_t stream) {
 #define FHS_LAUNCH(RPT)                                                    \
   return launch_f32<RPT>(hidden, w, R, d, V, ldw, fmt, logit_scale,        \
-                         temperature, seed, suppress_id, pm, pi, ps, pb, pz, \
-                         stream)
+                         temperature, seed, suppress_id, row_offset,       \
+                         noise_col, pm, pi, ps, pb, pz, stream)
   if (R <= 16) FHS_LAUNCH(1);
   if (R <= 32) FHS_LAUNCH(2);
   if (R <= 64) FHS_LAUNCH(4);
@@ -284,9 +291,11 @@ __device__ __forceinline__ Part shfl_xor_part(const Part& p, int mask) {
 
 // Fold one lane's 8 values of one row's MX block (columns col0 + 8j + e for
 // value 2j + e, increasing) into the row's partial p.  Pad columns hold
-// -inf and never count.
+// -inf and never count.  The Gumbel noise is drawn at global row
+// noise_row and global column col + noise_col.
 __device__ __forceinline__ void fold_group(Part& p, const float (&z)[8],
-                                           int col0, int row, bool gumbel,
+                                           int col0, uint32_t noise_row,
+                                           int noise_col, bool gumbel,
                                            float temperature, uint32_t seed) {
   float lm = z[0];
   int lq = 0;
@@ -307,7 +316,8 @@ __device__ __forceinline__ void fold_group(Part& p, const float (&z)[8],
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int col = col0 + (q >> 1) * 8 + (q & 1);
-      const float sc = z[q] / temperature + counter_gumbel(seed, row, col);
+      const float sc = z[q] / temperature +
+                       counter_gumbel(seed, noise_row, col + noise_col);
       if (sc > lb) {
         lb = sc;
         lbq = q;
@@ -346,7 +356,8 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[2][8][4],
                                           int wcol, int R, int c_end,
                                           float scale_t, bool gumbel,
                                           float temperature, uint32_t seed,
-                                          int suppress_id, int g, int c) {
+                                          int suppress_id, int row_offset,
+                                          int noise_col, int g, int c) {
 #pragma unroll
   for (int blk = 0; blk < 2; ++blk) {
     const int b0 = wcol + 32 * blk;           // first column of the block
@@ -383,7 +394,8 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[2][8][4],
           if (col >= c_end) z[q] = -INFINITY;
           else if (col == suppress_id) z[q] = NEG;
         }
-        fold_group(part[i][h], z, col0, row, gumbel, temperature, seed);
+        fold_group(part[i][h], z, col0, row + row_offset, noise_col, gumbel,
+                   temperature, seed);
       }
     }
   }
@@ -396,6 +408,7 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
                         int ldw, int cols_per_cta, float logit_scale,
                         float temperature,
                         const uint32_t* __restrict__ seed_ptr, int suppress_id,
+                        int row_offset, int noise_col,
                         float* __restrict__ part_m, int* __restrict__ part_i,
                         float* __restrict__ part_s,
                         float* __restrict__ part_b,
@@ -496,7 +509,8 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
     if (it % n_k == n_k - 1) {           // the tile's product is complete
       fold_tile<FMT>(acc, part, r0 + wm * 32,
                      c_begin + (it / n_k) * TC_BN + wn * 64, R, c_end,
-                     scale_t, gumbel, temperature, seed, suppress_id, g, c);
+                     scale_t, gumbel, temperature, seed, suppress_id,
+                     row_offset, noise_col, g, c);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -535,9 +549,9 @@ template <int FMT>
 cudaError_t launch_tc(const bf16* hidden, const bf16* w, int R, int d, int V,
                       int ldw, int cols_per_cta, int n_parts,
                       float logit_scale, float temperature,
-                      const uint32_t* seed, int suppress_id, float* pm,
-                      int* pi, float* ps, float* pb, float* pz,
-                      cudaStream_t stream) {
+                      const uint32_t* seed, int suppress_id, int row_offset,
+                      int noise_col, float* pm, int* pi, float* ps,
+                      float* pb, float* pz, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       head_partials_tc_kernel<FMT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
@@ -545,7 +559,7 @@ cudaError_t launch_tc(const bf16* hidden, const bf16* w, int R, int d, int V,
   const dim3 grid(n_parts, (R + TC_ROWS - 1) / TC_ROWS);
   head_partials_tc_kernel<FMT><<<grid, TC_THREADS, TC_SMEM, stream>>>(
       hidden, w, R, d, V, ldw, cols_per_cta, logit_scale, temperature, seed,
-      suppress_id, pm, pi, ps, pb, pz);
+      suppress_id, row_offset, noise_col, pm, pi, ps, pb, pz);
   return cudaGetLastError();
 }
 
@@ -553,9 +567,10 @@ cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
                         int V, int ldw, int cols_per_cta, int n_parts,
                         int fmt,
                         float logit_scale, float temperature,
-                        const uint32_t* seed, int suppress_id, float* pm,
-                        int* pi, float* ps,
-                        float* pb, float* pz, cudaStream_t stream) {
+                        const uint32_t* seed, int suppress_id,
+                        int row_offset, int noise_col, float* pm, int* pi,
+                        float* ps, float* pb, float* pz,
+                        cudaStream_t stream) {
   if (d % 8 || ldw % 8 || ldw < V || cols_per_cta <= 0 ||
       cols_per_cta % 32 ||
       static_cast<long long>(cols_per_cta) * n_parts < V ||
@@ -563,8 +578,8 @@ cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
     return cudaErrorInvalidValue;
 #define FHS_TC(F)                                                           \
   return launch_tc<F>(hidden, w, R, d, V, ldw, cols_per_cta, n_parts,       \
-                      logit_scale, temperature, seed, suppress_id, pm, pi,  \
-                      ps, pb, pz, stream)
+                      logit_scale, temperature, seed, suppress_id,          \
+                      row_offset, noise_col, pm, pi, ps, pb, pz, stream)
   switch (fmt) {
     case FMT_MXFP8: FHS_TC(FMT_MXFP8);
     case FMT_MXINT8: FHS_TC(FMT_MXINT8);
@@ -577,20 +592,22 @@ cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
 }
 
 // Route A, the vocab-shard entry: one warp per row merges the row's n_vt
-// per-CTA partials and writes the partials themselves, (m, global idx, s),
-// in place of (conf, token) (common.cuh shard_merge_row): the SPMD tick
-// merges them across ranks (core/sampling.combine_partials).
-__global__ void head_shard_merge_kernel(const float* __restrict__ part_m,
-                                        const int* __restrict__ part_i,
-                                        const float* __restrict__ part_s,
-                                        int R, int n_vt, int col_offset,
-                                        float* __restrict__ m_out,
-                                        int* __restrict__ idx_out,
-                                        float* __restrict__ s_out) {
+// per-CTA partials and writes the partials themselves, (m, global idx, s)
+// and with Gumbel (best, z_at), in place of (conf, token) (common.cuh
+// shard_merge_row): the SPMD tick and the decode step merge them across
+// ranks (core/sampling.combine_partials).
+__global__ void head_shard_merge_kernel(
+    const float* __restrict__ part_m, const int* __restrict__ part_i,
+    const float* __restrict__ part_s, const float* __restrict__ part_b,
+    const float* __restrict__ part_z, int R, int n_vt, int col_offset,
+    int gumbel, float* __restrict__ m_out, int* __restrict__ idx_out,
+    float* __restrict__ s_out, float* __restrict__ b_out,
+    float* __restrict__ z_out) {
   const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (r >= R) return;
-  shard_merge_row(part_m, part_i, part_s, r, n_vt, col_offset, m_out,
-                  idx_out, s_out);
+  shard_merge_row(part_m, part_i, part_s, part_b, part_z, r, n_vt,
+                  col_offset, gumbel != 0, m_out, idx_out, s_out, b_out,
+                  z_out);
 }
 
 }  // namespace
@@ -610,13 +627,15 @@ extern "C" int fused_head_sampling_tiles(int V) { return (V + TN - 1) / TN; }
 // fmt: a code of common.cuh Fmt (core/mx.FMT_CODES), 0 none to 6
 // mxfp4_e2m1.  suppress_id < 0 suppresses nothing.
 // seed_ptr: the uint32 counter-Gumbel seed in device memory (the low word
-// of an int64 holding it), read only when temperature > 0.
+// of an int64 holding it), read only when temperature > 0; row_offset:
+// the global row of row 0, at which the noise is drawn (a data shard's
+// first row).
 extern "C" int fused_head_sampling_launch(
     const void* hidden, const void* w, void* part_m, void* part_i,
     void* part_s, void* part_b, void* part_z, void* conf, void* token, int R,
     int d, int V, int ldw, int is_bf16, int fmt, float logit_scale,
-    float temperature, const void* seed_ptr, int suppress_id, int cols_per_cta, int n_parts,
-    void* stream) {
+    float temperature, const void* seed_ptr, int suppress_id, int row_offset,
+    int cols_per_cta, int n_parts, void* stream) {
   if (fmt < FMT_NONE || fmt > FMT_MXFP4) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* seed = static_cast<const uint32_t*>(seed_ptr);
@@ -630,13 +649,13 @@ extern "C" int fused_head_sampling_launch(
     err = launch_bf16(static_cast<const bf16*>(hidden),
                       static_cast<const bf16*>(w), R, d, V, ldw, cols_per_cta,
                       n_parts, fmt, logit_scale, temperature, seed,
-                      suppress_id, pm, pi, ps, pb, pz, st);
+                      suppress_id, row_offset, 0, pm, pi, ps, pb, pz, st);
   } else {
     if (n_parts != (V + TN - 1) / TN || ldw < V) return cudaErrorInvalidValue;
     err = dispatch_f32(R, static_cast<const float*>(hidden),
                        static_cast<const float*>(w), d, V, ldw, fmt,
-                       logit_scale, temperature, seed, suppress_id, pm, pi,
-                       ps, pb, pz, st);
+                       logit_scale, temperature, seed, suppress_id,
+                       row_offset, 0, pm, pi, ps, pb, pz, st);
   }
   if (err != cudaSuccess) return err;
   head_combine_kernel<<<(R + 3) / 4, 128, 0, st>>>(
@@ -645,49 +664,80 @@ extern "C" int fused_head_sampling_launch(
   return cudaGetLastError();
 }
 
-// Route A: the greedy partials of one vocab shard.  w (d, V) is the
-// shard's first V columns that lie below the true vocabulary (the rest of
-// its ldw >= V columns are the zero pad of pad_head_for_mesh, whose
-// logits are the zeros a ragged block is padded with), at global column
-// col_offset; suppress_id is a column of the shard (< 0: none).  The
-// per-CTA partials are the single-device entry's (cols_per_cta and
-// n_parts as there); m_out, s_out (R,) f32 and idx_out (R,) i32 receive
-// the merged (m, global idx, s).  V = 0 (a shard of pad only) launches
-// the merge alone.
+// Route A: the partials of one vocab shard.  w (d, V) is the shard's
+// first V columns that lie below the true vocabulary (the rest of its
+// ldw >= V columns are the zero pad of pad_head_for_mesh, whose logits are
+// the zeros a ragged block is padded with), at global column col_offset;
+// suppress_id is a column of the shard (< 0: none).  The per-CTA partials
+// are the single-device entry's (cols_per_cta and n_parts as there);
+// m_out, s_out (R,) f32 and idx_out (R,) i32 receive the merged (m, global
+// idx, s).  With temperature > 0 the index is that of the best Gumbel
+// score, the noise drawn at the global row (row_offset onward) and column
+// (seed_ptr as fused_head_sampling_launch's), and b_out, z_out (R,) f32
+// receive the best score and the logit at the index (part_b, part_z,
+// b_out and z_out are only touched then).  V = 0 (a shard of pad only)
+// launches the merge alone.
 extern "C" int fused_head_sampling_shard_launch(
     const void* hidden, const void* w, void* part_m, void* part_i,
-    void* part_s, void* m_out, void* idx_out, void* s_out, int R, int d,
-    int V, int ldw, int is_bf16, int fmt, float logit_scale,
-    int suppress_id, int col_offset, int cols_per_cta, int n_parts,
-    void* stream) {
+    void* part_s, void* part_b, void* part_z, void* m_out, void* idx_out,
+    void* s_out, void* b_out, void* z_out, int R, int d, int V, int ldw,
+    int is_bf16, int fmt, float logit_scale, float temperature,
+    const void* seed_ptr, int suppress_id, int col_offset, int row_offset,
+    int cols_per_cta, int n_parts, void* stream) {
   if (fmt < FMT_NONE || fmt > FMT_MXFP4 || V < 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* seed = static_cast<const uint32_t*>(seed_ptr);
   float* pm = static_cast<float*>(part_m);
   int* pi = static_cast<int*>(part_i);
   float* ps = static_cast<float*>(part_s);
+  float* pb = static_cast<float*>(part_b);
+  float* pz = static_cast<float*>(part_z);
   int n_vt = 0;
   if (V > 0) {
     cudaError_t err;
     if (is_bf16) {
       err = launch_bf16(static_cast<const bf16*>(hidden),
                         static_cast<const bf16*>(w), R, d, V, ldw,
-                        cols_per_cta, n_parts, fmt, logit_scale, 0.f, nullptr,
-                        suppress_id, pm, pi, ps, nullptr, nullptr, st);
+                        cols_per_cta, n_parts, fmt, logit_scale, temperature,
+                        seed, suppress_id, row_offset, col_offset, pm, pi,
+                        ps, pb, pz, st);
     } else {
       if (n_parts != (V + TN - 1) / TN || ldw < V) return cudaErrorInvalidValue;
       err = dispatch_f32(R, static_cast<const float*>(hidden),
                          static_cast<const float*>(w), d, V, ldw, fmt,
-                         logit_scale, 0.f, nullptr, suppress_id, pm, pi, ps,
-                         nullptr, nullptr, st);
+                         logit_scale, temperature, seed, suppress_id,
+                         row_offset, col_offset, pm, pi, ps, pb, pz, st);
     }
     if (err != cudaSuccess) return err;
     n_vt = n_parts;
   }
   head_shard_merge_kernel<<<(R + 3) / 4, 128, 0, st>>>(
-      pm, pi, ps, R, n_vt, col_offset, static_cast<float*>(m_out),
-      static_cast<int*>(idx_out), static_cast<float*>(s_out));
+      pm, pi, ps, pb, pz, R, n_vt, col_offset, temperature > 0.f,
+      static_cast<float*>(m_out), static_cast<int*>(idx_out),
+      static_cast<float*>(s_out), static_cast<float*>(b_out),
+      static_cast<float*>(z_out));
   return cudaGetLastError();
 }
+
+namespace {
+// every instantiation the entry points above launch
+const KernelAttr ATTRS[] = {
+    KERNEL_ATTR((head_partials_kernel<float, 1>), 0),
+    KERNEL_ATTR((head_partials_kernel<float, 2>), 0),
+    KERNEL_ATTR((head_partials_kernel<float, 4>), 0),
+    KERNEL_ATTR((head_partials_kernel<float, 8>), 0),
+    KERNEL_ATTR((head_partials_tc_kernel<FMT_NONE>), TC_SMEM),
+    KERNEL_ATTR((head_partials_tc_kernel<FMT_MXFP8>), TC_SMEM),
+    KERNEL_ATTR((head_partials_tc_kernel<FMT_MXINT8>), TC_SMEM),
+    KERNEL_ATTR((head_partials_tc_kernel<FMT_MXINT4>), TC_SMEM),
+    KERNEL_ATTR((head_partials_tc_kernel<FMT_MXFP6>), TC_SMEM),
+    KERNEL_ATTR((head_partials_tc_kernel<FMT_MXFP4>), TC_SMEM),
+    KERNEL_ATTR(head_combine_kernel, 0),
+    KERNEL_ATTR(head_shard_merge_kernel, 0),
+};
+}  // namespace
+
+KERNEL_ATTR_ENTRIES(fused_head_sampling, ATTRS)
 
 extern "C" const char* fused_head_sampling_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -54,8 +54,10 @@
 //     left out.
 // Route C (stablemax_sampling_shard_launch) runs the same per-CTA kernel
 // on one rank's vocab shard of stored logits and merges its partials into
-// the shard's (m, global idx, s), for the decode step over a vocab-sharded
-// head of a model without a head mode (launch/steps.py).
+// the shard's (m, global idx, s), plus (best, z_at) when it samples, for
+// the decode step over a vocab-sharded head of a model without a head
+// mode (launch/steps.py).  The Gumbel noise is drawn at the global row and
+// column, so a sampled step on any mesh draws what one device draws.
 // What holds it back on the H100 (clock64 spans per pass): the arithmetic
 // per logit, most of it the MX quantization, and CTAs of equal work that
 // finish far apart.  Loading the next pass under this one, in registers or
@@ -149,13 +151,14 @@ __device__ __forceinline__ void fake_quant_pass(float (&z)[STEPS][8]) {
 
 // Fold one pass of quantized logits into the lane's state: z[u][j] is
 // column c0 + u * STEP_COLS + j, so (u, j) order is column order.  mL is
-// st.m * log2(e).
+// st.m * log2(e).  The Gumbel noise of (row, column c) is drawn at global
+// row r and global column c + noise_col.
 template <bool GUMBEL>
 __device__ __forceinline__ void fold_pass(State& st, float& mL,
                                           const float (&z)[STEPS][8], int c0,
                                           const int (&n)[STEPS],
                                           float temperature, uint32_t seed,
-                                          int r) {
+                                          int r, int noise_col) {
   float cm = -INFINITY;
 #pragma unroll
   for (int u = 0; u < STEPS; ++u) {
@@ -201,7 +204,7 @@ __device__ __forceinline__ void fold_pass(State& st, float& mL,
       for (int j = 0; j < 8; ++j) {
         if (j >= n[u]) break;
         const int c = c0 + u * STEP_COLS + j;
-        const float sc = z[u][j] / temperature + counter_gumbel(seed, r, c);
+        const float sc = z[u][j] / temperature + counter_gumbel(seed, r, c + noise_col);
         if (sc > st.b) {
           st.b = sc;
           st.i = c;
@@ -217,6 +220,8 @@ struct Args {
   float temperature;
   const uint32_t* seed;          // in device memory, read when GUMBEL
   int suppress_id;               // < 0: none
+  int row_offset;                // global row of row 0 (the noise's row)
+  int noise_col;                 // global column of column 0 (the noise's)
   float *part_m, *part_s, *part_b, *part_z;
   int* part_i;
 };
@@ -272,7 +277,8 @@ stablemax_kernel(const T* __restrict__ logits, const Args a) {
           if (j >= n[u]) z[u][j] = -INFINITY;
       }
     }
-    fold_pass<GUMBEL>(st, mL, z, c0, n, a.temperature, seed, r);
+    fold_pass<GUMBEL>(st, mL, z, c0, n, a.temperature, seed,
+                      r + a.row_offset, a.noise_col);
   }
   merge_lanes(st, 16, GUMBEL);
   if (lane == 0) warp_state[warp] = st;
@@ -307,20 +313,21 @@ __global__ void stablemax_combine_kernel(const float* __restrict__ part_m,
 }
 
 // Route C, the vocab-shard entry: one warp per row merges the row's n_vt
-// greedy per-CTA partials into (m, global idx, s) (common.cuh
-// shard_merge_row), which the decode step over a vocab-sharded head
-// merges across ranks (core/sampling.combine_partials).
-__global__ void stablemax_shard_merge_kernel(const float* __restrict__ part_m,
-                                             const int* __restrict__ part_i,
-                                             const float* __restrict__ part_s,
-                                             int R, int n_vt, int col_offset,
-                                             float* __restrict__ m_out,
-                                             int* __restrict__ idx_out,
-                                             float* __restrict__ s_out) {
+// per-CTA partials into (m, global idx, s), with Gumbel also (best, z_at)
+// (common.cuh shard_merge_row), which the decode step over a vocab-sharded
+// head merges across ranks (core/sampling.combine_partials).
+__global__ void stablemax_shard_merge_kernel(
+    const float* __restrict__ part_m, const int* __restrict__ part_i,
+    const float* __restrict__ part_s, const float* __restrict__ part_b,
+    const float* __restrict__ part_z, int R, int n_vt, int col_offset,
+    int gumbel, float* __restrict__ m_out, int* __restrict__ idx_out,
+    float* __restrict__ s_out, float* __restrict__ b_out,
+    float* __restrict__ z_out) {
   const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (r >= R) return;
-  shard_merge_row(part_m, part_i, part_s, r, n_vt, col_offset, m_out,
-                  idx_out, s_out);
+  shard_merge_row(part_m, part_i, part_s, part_b, part_z, r, n_vt,
+                  col_offset, gumbel != 0, m_out, idx_out, s_out, b_out,
+                  z_out);
 }
 
 template <typename T, int FMT, bool GUMBEL>
@@ -370,12 +377,13 @@ cudaError_t launch(const void* logits, int R, int fmt, const Args& a,
 // common.cuh Fmt (core/mx.FMT_CODES), 0 none to 6 mxfp4_e2m1.
 // suppress_id < 0 suppresses nothing.  seed: the uint32
 // counter-Gumbel seed in device memory (the low word of an int64 holding
-// it), read only when temperature > 0.
+// it), read only when temperature > 0; row_offset: the global row of row
+// 0, at which the noise is drawn (a data shard's first row).
 extern "C" int stablemax_sampling_launch(
     const void* logits, void* part_m, void* part_i, void* part_s,
     void* part_b, void* part_z, void* conf, void* token, int R, int V,
     int cols, int is_bf16, int fmt, float temperature, const void* seed,
-    int suppress_id, void* stream) {
+    int suppress_id, int row_offset, void* stream) {
   if (fmt < FMT_NONE || fmt > FMT_MXFP4 || cols <= 0 || cols % 32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0 || V == 0) return 0;
@@ -384,6 +392,8 @@ extern "C" int stablemax_sampling_launch(
                   temperature,
                   static_cast<const uint32_t*>(seed),
                   suppress_id,
+                  row_offset,
+                  0,
                   static_cast<float*>(part_m),
                   static_cast<float*>(part_s),
                   static_cast<float*>(part_b),
@@ -401,31 +411,40 @@ extern "C" int stablemax_sampling_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Route C: the greedy partials of one vocab shard of stored logits.
+// Route C: the partials of one vocab shard of stored logits.
 // logits (R, V) contiguous, f32 (is_bf16 = 0) or bf16, are the shard's
 // columns, global columns col_offset .. col_offset + V - 1; V a multiple
 // of 32, so the shard's MX blocks are the full row's.  suppress_id is a
 // column of the shard (< 0: none).  cols and the partials workspace
-// part_m/part_i/part_s (R, ceil(V / cols)) as stablemax_sampling_launch's;
-// m_out, s_out (R,) f32 and idx_out (R,) i32 receive the merged (m,
-// global idx, s), s relative to m.
+// part_* (R, ceil(V / cols)) as stablemax_sampling_launch's; m_out, s_out
+// (R,) f32 and idx_out (R,) i32 receive the merged (m, global idx, s), s
+// relative to m.  With temperature > 0 the index is that of the best
+// Gumbel score z / T + g, the noise drawn at the global row (row_offset
+// onward) and column, and b_out, z_out (R,) f32 receive the best score
+// and the logit at the index (part_b, part_z, b_out, z_out only touched
+// then).
 extern "C" int stablemax_sampling_shard_launch(
     const void* logits, void* part_m, void* part_i, void* part_s,
-    void* m_out, void* idx_out, void* s_out, int R, int V, int cols,
-    int is_bf16, int fmt, int suppress_id, int col_offset, void* stream) {
+    void* part_b, void* part_z, void* m_out, void* idx_out, void* s_out,
+    void* b_out, void* z_out, int R, int V, int cols, int is_bf16, int fmt,
+    float temperature, const void* seed, int suppress_id, int col_offset,
+    int row_offset, void* stream) {
   if (fmt < FMT_NONE || fmt > FMT_MXFP4 || cols <= 0 || cols % 32 ||
       V % 32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0 || V == 0) return 0;
+  const bool gumbel = temperature > 0.f;
   const Args a = {V,
                   cols,
-                  0.f,
-                  nullptr,
+                  temperature,
+                  static_cast<const uint32_t*>(seed),
                   suppress_id,
+                  row_offset,
+                  col_offset,
                   static_cast<float*>(part_m),
                   static_cast<float*>(part_s),
-                  nullptr,
-                  nullptr,
+                  static_cast<float*>(part_b),
+                  static_cast<float*>(part_z),
                   static_cast<int*>(part_i)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(logits, R, fmt, a, st)
@@ -433,11 +452,51 @@ extern "C" int stablemax_sampling_shard_launch(
   if (err != cudaSuccess) return static_cast<int>(err);
   stablemax_shard_merge_kernel<<<(R + 3) / 4, 128, 0, st>>>(
       static_cast<const float*>(part_m), static_cast<const int*>(part_i),
-      static_cast<const float*>(part_s), R, (V + cols - 1) / cols,
-      col_offset, static_cast<float*>(m_out), static_cast<int*>(idx_out),
-      static_cast<float*>(s_out));
+      static_cast<const float*>(part_s), static_cast<const float*>(part_b),
+      static_cast<const float*>(part_z), R, (V + cols - 1) / cols,
+      col_offset, gumbel, static_cast<float*>(m_out),
+      static_cast<int*>(idx_out), static_cast<float*>(s_out),
+      static_cast<float*>(b_out), static_cast<float*>(z_out));
   return static_cast<int>(cudaGetLastError());
 }
+
+namespace {
+// every instantiation the entry points above launch
+const KernelAttr ATTRS[] = {
+    KERNEL_ATTR((stablemax_kernel<float, FMT_NONE, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_NONE, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_BF16, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_BF16, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_MXFP8, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_MXFP8, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_MXINT8, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_MXINT8, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_MXINT4, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_MXINT4, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_MXFP6, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_MXFP6, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_MXFP4, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<float, FMT_MXFP4, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_NONE, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_NONE, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_BF16, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_BF16, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_MXFP8, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_MXFP8, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_MXINT8, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_MXINT8, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_MXINT4, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_MXINT4, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_MXFP6, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_MXFP6, true>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_MXFP4, false>), 0),
+    KERNEL_ATTR((stablemax_kernel<__nv_bfloat16, FMT_MXFP4, true>), 0),
+    KERNEL_ATTR(stablemax_combine_kernel, 0),
+    KERNEL_ATTR(stablemax_shard_merge_kernel, 0),
+};
+}  // namespace
+
+KERNEL_ATTR_ENTRIES(stablemax_sampling, ATTRS)
 
 extern "C" const char* stablemax_sampling_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

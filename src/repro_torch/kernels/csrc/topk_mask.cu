@@ -196,6 +196,19 @@ extern "C" int topk_mask_empty_launch(void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+// every instantiation the entry points above launch
+const KernelAttr ATTRS[] = {
+    KERNEL_ATTR(topk_mask_kernel<int>, 0),
+    KERNEL_ATTR(topk_mask_kernel<long long>, 0),
+    KERNEL_ATTR(topk_mask_kernel_cta<int>, 0),
+    KERNEL_ATTR(topk_mask_kernel_cta<long long>, 0),
+    KERNEL_ATTR(empty_kernel, 0),
+};
+}  // namespace
+
+KERNEL_ATTR_ENTRIES(topk_mask, ATTRS)
+
 extern "C" const char* topk_mask_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -200,8 +200,8 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     extra_kv)
 
 
-def _forward(q, k, v, kv_valid, fk, fv, cv, window, q_offset,
-             extra_kv=None):
+def _forward(q, k, v, kv_valid, fk, fv, cv, window: Optional[int],
+             q_offset: int, extra_kv=None):
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     if q.device.type in _build.PLAIN_DEVICES:

@@ -43,6 +43,8 @@ NAME = "fused_head_sampling"
 # the launch count of the vocab-shard entry (route A of the SPMD tick):
 # the same library, counted apart from the single-device entry
 SHARD_NAME = "fused_head_sampling_shard"
+# its sampled launches (temperature > 0), counted apart
+SAMPLED_NAME = "fused_head_sampling_shard_sampled"
 _DTYPES = (torch.float32, torch.bfloat16)
 # the bf16 route's row alignment in elements: 16 bytes of bf16
 ROW_ALIGN = 8
@@ -81,13 +83,14 @@ def fused_head_stable_max(hidden: torch.Tensor, w_head: torch.Tensor,
                           fmt: str = "none", *, logit_scale: float = 1.0,
                           temperature: float = 0.0, seed: sampling.Seed = 0,
                           suppress_id: Optional[int] = None,
-                          chunk_v: int = 4096
+                          chunk_v: int = 4096, row_offset: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: hidden (R, d), w_head (d, V) -> (conf (R,) f32,
     token (R,) i32), streaming the head one vocab chunk at a time into the
     online (max, argmax, exp-sum) reduction like the JAX oracle.  Chunks
     are whole MX blocks (``sampling._chunk_grid``), so chunking changes
-    only the order of the exp-sum."""
+    only the order of the exp-sum.  The Gumbel noise of row r is drawn at
+    global row ``row_offset`` + r."""
     R, _ = hidden.shape
     V = w_head.shape[-1]
     chunk, _ = sampling._chunk_grid(V, chunk_v)
@@ -98,7 +101,7 @@ def fused_head_stable_max(hidden: torch.Tensor, w_head: torch.Tensor,
     idx = torch.zeros((R,), dtype=torch.int64, device=dev)
     best = torch.full_like(m, sampling.NEG_INF)
     z_at = torch.full_like(m, sampling.NEG_INF)
-    rows = torch.arange(R, device=dev)[:, None]
+    rows = torch.arange(R, device=dev)[:, None] + row_offset
     for c0 in range(0, V, chunk):
         z = sampling.head_logits(hidden, w_head[:, c0:c0 + chunk],
                                  logit_scale=logit_scale)
@@ -140,7 +143,8 @@ def head_partials_plain(hidden: torch.Tensor, w_head: torch.Tensor,
                         plan: Tuple[int, int], fmt: str = "none", *,
                         logit_scale: float = 1.0, temperature: float = 0.0,
                         seed: sampling.Seed = 0,
-                        suppress_id: Optional[int] = None
+                        suppress_id: Optional[int] = None,
+                        row_offset: int = 0
                         ) -> Tuple[torch.Tensor, ...]:
     """The per-range partials of the tensor-core route in plain arithmetic:
     (m, idx, s, best, z_at), each (R, n_ranges), for the column ranges of
@@ -157,20 +161,22 @@ def head_partials_plain(hidden: torch.Tensor, w_head: torch.Tensor,
                                  logit_scale=logit_scale)
         parts.append(range_partials(mx.mx_fake_quant(z, fmt), c0,
                                     temperature=temperature, seed=seed,
-                                    suppress_id=suppress_id))
+                                    suppress_id=suppress_id,
+                                    row_offset=row_offset))
     return tuple(torch.stack(t, dim=1) for t in zip(*parts))
 
 
 def range_partials(z: torch.Tensor, c0: int, *, temperature: float = 0.0,
                    seed: sampling.Seed = 0,
-                   suppress_id: Optional[int] = None
+                   suppress_id: Optional[int] = None, row_offset: int = 0
                    ) -> Tuple[torch.Tensor, ...]:
     """One column range's partials (m, idx, s, best, z_at), each (R,), from
     its fake-quantized logits z (R, n) of columns c0 .. c0 + n - 1: the
     suppressed id masked, m the largest logit, s the exp-sum relative to
     m, idx the first column holding m, or with temperature > 0 the first
     holding the largest Gumbel score best, whose logit is z_at (best and
-    z_at are -inf/-1e30 when greedy)."""
+    z_at are -inf/-1e30 when greedy); the noise of row r at global row
+    ``row_offset`` + r."""
     z = z.to(torch.float32)
     col = torch.arange(c0, c0 + z.shape[1], device=z.device)
     if suppress_id is not None:
@@ -180,7 +186,8 @@ def range_partials(z: torch.Tensor, c0: int, *, temperature: float = 0.0,
     best = torch.full_like(m, -float("inf"))
     z_at = torch.full_like(m, sampling.NEG_INF)
     if temperature > 0.0:
-        rows = torch.arange(z.shape[0], device=z.device)[:, None]
+        rows = torch.arange(z.shape[0], device=z.device)[:, None] + \
+            row_offset
         sc = z / temperature + sampling.counter_gumbel(seed, rows,
                                                        col[None, :])
         best, i = torch.max(sc, dim=-1)
@@ -214,11 +221,11 @@ def _kernel_fns():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     launch = _build.function(
         NAME, "fused_head_sampling_launch",
-        [p] * 9 + [i] * 6 + [f, f, p, i, i, i, p])
+        [p] * 9 + [i] * 6 + [f, f, p] + [i] * 4 + [p])
     tiles = _build.function(NAME, "fused_head_sampling_tiles", [i])
     shard = _build.function(
         NAME, "fused_head_sampling_shard_launch",
-        [p] * 8 + [i] * 6 + [f, i, i, i, i, p])
+        [p] * 12 + [i] * 6 + [f, f, p] + [i] * 5 + [p])
     return launch, tiles, shard
 
 
@@ -237,44 +244,57 @@ def head_shard_partials_plain(hidden: torch.Tensor, w_shard: torch.Tensor,
                               logit_scale: float = 1.0, col_offset: int = 0,
                               col_limit: Optional[int] = None,
                               suppress_id: Optional[int] = None,
-                              chunk_v: int = 4096
-                              ) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
+                              chunk_v: int = 4096, temperature: float = 0.0,
+                              seed: sampling.Seed = 0, row_offset: int = 0
+                              ) -> Tuple[torch.Tensor, ...]:
     """Plain version of the shard entry: ``sampling.fused_head_local_
     partials`` (the streamed partials of one vocab shard, JAX's jnp
     oracle), restricted to what the kernel computes: (m, global idx, s),
-    each (R,), and a row with no valid column (a shard of pad only) as the
-    kernel leaves it, m = -1e30, s = 0, idx = 2^30 (no combine reads
-    them: another shard holds a larger m)."""
-    m, gidx, s = sampling.fused_head_local_partials(
+    each (R,), plus (best, z_at) with temperature > 0, and a row with no
+    valid column (a shard of pad only) as the kernel leaves it, m = -1e30,
+    s = 0, idx = 2^30, best = -inf, z_at = -1e30 (no combine reads them:
+    another shard holds a larger m and a larger best)."""
+    parts = sampling.fused_head_local_partials(
         hidden, w_shard, fmt, logit_scale=logit_scale,
         col_offset=col_offset, suppress_id=suppress_id, chunk_v=chunk_v,
-        col_limit=col_limit)
+        col_limit=col_limit, temperature=temperature, seed=seed,
+        row_offset=row_offset)
+    m, gidx, s = parts[:3]
     empty = m <= sampling.NEG_INF
-    return (m, torch.where(empty, sampling.BIG_INDEX, gidx),
-            torch.where(empty, 0.0, s))
+    out = (m, torch.where(empty, sampling.BIG_INDEX, gidx),
+           torch.where(empty, 0.0, s))
+    if temperature <= 0.0:
+        return out
+    best, z_at = parts[3:]
+    return out + (torch.where(empty, -float("inf"), best),
+                  torch.where(empty, sampling.NEG_INF, z_at))
 
 
 def head_shard_partials(hidden: torch.Tensor, w_shard: torch.Tensor, *,
                         fmt: str = "none", logit_scale: float = 1.0,
                         col_offset: int = 0, col_limit: Optional[int] = None,
                         suppress_id: Optional[int] = None,
-                        chunk_v: int = 4096
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The fused head's vocab-shard entry (greedy): hidden (R, d) and one
-    (d, V_loc) shard of a head padded by ``sampling.pad_head_for_mesh``,
-    at global column ``col_offset`` -> per-row partials (m (R,) f32, the
-    global index of the first column holding m (R,) i32, s (R,) f32
-    relative to m), the sampling fake-quant before the reductions and
-    columns at or past ``col_limit`` (the true V) masked after it, as
-    ``sampling.fused_head_local_partials`` masks them.  CUDA tensors run
-    the kernel: the per-CTA partials of the single-device entry over the
-    shard's first ``shard_columns`` columns (the rest are zero columns,
-    so their logits are the zeros the kernel pads a block with), then a
-    merge that emits (m, idx, s) in place of (conf, token).  V_loc is a
-    multiple of 32 (shard boundaries on MX blocks), so each rank's shard
-    is its own contiguous storage with 16-byte rows: no copy per call.
-    CPU tensors run ``head_shard_partials_plain``."""
+                        chunk_v: int = 4096, temperature: float = 0.0,
+                        seed: sampling.Seed = 0, row_offset: int = 0
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The fused head's vocab-shard entry: hidden (R, d) and one (d, V_loc)
+    shard of a head padded by ``sampling.pad_head_for_mesh``, at global
+    column ``col_offset`` -> per-row partials (m (R,) f32, the global
+    index of the first column holding m (R,) i32, s (R,) f32 relative to
+    m), the sampling fake-quant before the reductions and columns at or
+    past ``col_limit`` (the true V) masked after it, as
+    ``sampling.fused_head_local_partials`` masks them.  With temperature
+    > 0 the index is that of the first column holding the best Gumbel
+    score z/T + g, the noise drawn at global row ``row_offset`` + r and
+    the global column (``seed`` as ``fused_head_sampling``'s), and the
+    partials gain (best (R,) f32, z_at (R,) f32, the logit at the index).
+    CUDA tensors run the kernel: the per-CTA partials of the single-device
+    entry over the shard's first ``shard_columns`` columns (the rest are
+    zero columns, so their logits are the zeros the kernel pads a block
+    with), then a merge that emits the partials in place of (conf,
+    token).  V_loc is a multiple of 32 (shard boundaries on MX blocks), so
+    each rank's shard is its own contiguous storage with 16-byte rows: no
+    copy per call.  CPU tensors run ``head_shard_partials_plain``."""
     code = mx.fmt_code(fmt)
     if hidden.dim() != 2 or w_shard.dim() != 2 or \
             hidden.shape[1] != w_shard.shape[0]:
@@ -285,7 +305,8 @@ def head_shard_partials(hidden: torch.Tensor, w_shard: torch.Tensor, *,
         return head_shard_partials_plain(
             hidden, w_shard, fmt, logit_scale=logit_scale,
             col_offset=col_offset, col_limit=col_limit,
-            suppress_id=suppress_id, chunk_v=chunk_v)
+            suppress_id=suppress_id, chunk_v=chunk_v,
+            temperature=temperature, seed=seed, row_offset=row_offset)
     _build.refuse_grad(NAME, hidden, w_shard)
     if hidden.device.type != "cuda" or w_shard.device != hidden.device:
         raise ValueError(f"hidden on {hidden.device} and w_shard on "
@@ -315,32 +336,44 @@ def head_shard_partials(hidden: torch.Tensor, w_shard: torch.Tensor, *,
         cols, n_parts = column_plan(max(V, 1), _build.sm_count(dev))
     else:
         cols, n_parts = 0, tiles(max(V, 1))
+    gumbel = temperature > 0.0
     m = torch.empty((R,), dtype=torch.float32, device=dev)
     idx = torch.empty((R,), dtype=torch.int32, device=dev)
     s = torch.empty_like(m)
+    best = torch.empty_like(m) if gumbel else None
+    z_at = torch.empty_like(m) if gumbel else None
+    out = (m, idx, s) + ((best, z_at) if gumbel else ())
     if R == 0:
-        return m, idx, s
+        return out
     part_m = torch.empty((R, n_parts), dtype=torch.float32, device=dev)
     part_i = torch.empty((R, n_parts), dtype=torch.int32, device=dev)
     part_s = torch.empty_like(part_m)
+    part_b = torch.empty_like(part_m) if gumbel else None
+    part_z = torch.empty_like(part_m) if gumbel else None
     # the suppressed id as a column of this shard (negative: not in it)
     sup = -1 if suppress_id is None else int(suppress_id) - int(col_offset)
     err = launch(hidden.data_ptr(), w.data_ptr(), part_m.data_ptr(),
-                 part_i.data_ptr(), part_s.data_ptr(), m.data_ptr(),
-                 idx.data_ptr(), s.data_ptr(), R, d, V, ldw, int(bf16), code,
-                 float(logit_scale), sup if sup < V_loc else -1,
-                 int(col_offset), cols, n_parts,
+                 part_i.data_ptr(), part_s.data_ptr(), _build.ptr(part_b),
+                 _build.ptr(part_z), m.data_ptr(), idx.data_ptr(),
+                 s.data_ptr(), _build.ptr(best), _build.ptr(z_at), R, d, V,
+                 ldw, bf16, code, float(logit_scale),
+                 float(temperature),
+                 _build.ptr(sampling.seed_tensor(seed, dev) if gumbel
+                            else None),
+                 sup if sup < V_loc else -1, int(col_offset),
+                 int(row_offset), cols, n_parts,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME, err)
-    _build.launch_counts[SHARD_NAME] += 1
-    return m, idx, s
+    _build.launch_counts[SAMPLED_NAME if gumbel else SHARD_NAME] += 1
+    return out
 
 
 def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
                         fmt: str = "none", logit_scale: float = 1.0,
                         suppress_id: Optional[int] = None,
                         temperature: float = 0.0,
-                        seed: sampling.Seed = 0, chunk_v: int = 4096
+                        seed: sampling.Seed = 0, chunk_v: int = 4096,
+                        row_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hidden (R, d), w_head (d, V) -> (conf (R,) f32, token (R,) i32)
     without materializing the (R, V) logits.  w_head joins the product in
@@ -349,7 +382,9 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
     version's vocab chunk; the kernel splits V by ``column_plan``.
     ``seed`` is a uint32 int or an int64 tensor of one element holding one
     (``sampling.seed_tensor``); the kernel reads it from device memory, so
-    a captured graph draws each replay's seed.
+    a captured graph draws each replay's seed.  ``row_offset`` is the
+    global row of row 0, where the noise is drawn (a data shard's first
+    row): a sampled step on any mesh draws what one device draws.
     CUDA tensors run the kernel (bf16 needs d and w_head's row stride to
     be multiples of 8, 16-byte rows: see ``pad_head``); CPU tensors the
     plain version."""
@@ -362,7 +397,7 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
         return fused_head_stable_max(
             hidden, w_head, fmt, logit_scale=logit_scale,
             temperature=temperature, seed=seed, suppress_id=suppress_id,
-            chunk_v=chunk_v)
+            chunk_v=chunk_v, row_offset=row_offset)
     _build.refuse_grad(NAME, hidden, w_head)
     if hidden.device.type != "cuda" or w_head.device != hidden.device:
         raise ValueError(f"hidden on {hidden.device} and w_head on "
@@ -405,12 +440,13 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
     err = launch(hidden.data_ptr(), w.data_ptr(), part_m.data_ptr(),
                  part_i.data_ptr(), part_s.data_ptr(), _build.ptr(part_b),
                  _build.ptr(part_z), conf.data_ptr(), token.data_ptr(),
-                 R, d, V, ldw, int(bf16), code,
+                 R, d, V, ldw, bf16, code,
                  float(logit_scale), float(temperature),
                  _build.ptr(sampling.seed_tensor(seed, dev) if gumbel
                             else None),
                  -1 if suppress_id is None else int(suppress_id),
-                 cols, n_parts, torch.cuda.current_stream(dev).cuda_stream)
+                 int(row_offset), cols, n_parts,
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME, err)
     _build.launch_counts[NAME] += 1
     return conf, token

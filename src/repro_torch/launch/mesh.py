@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import logging
 import os
 import socket
@@ -74,16 +75,20 @@ class Mesh:
     them.  ``shape`` maps the axis names to their sizes, as a JAX mesh's
     does; ``coords`` are this rank's (data, model) coordinates;
     ``device`` the device its tensors live on; ``backend`` 'nccl' or
-    'gloo'.  Hashed by identity (the SPMD step caches key on it)."""
+    'gloo'; ``world`` the group of all its ranks (None: the default
+    group), on which ``agree_max`` runs.  Hashed by identity (the SPMD
+    step caches key on it)."""
 
     axis_names = AXES
 
     def __init__(self, data: int, model: int, rank: int, backend: str,
-                 device: torch.device, groups: Dict[str, object]):
+                 device: torch.device, groups: Dict[str, object],
+                 world: Optional[object] = None):
         self.shape = {"data": int(data), "model": int(model)}
         self.rank = int(rank)
         self.backend = backend
         self.device = device
+        self.world = world
         self.coords = (self.rank // self.shape["model"],
                        self.rank % self.shape["model"])
         self._axes = {name: Axis(name, self.shape[name], idx, groups[name])
@@ -224,20 +229,51 @@ def make_debug_mesh(data: int = 1, model: int = 1,
     key = (data, model, str(dev))
     mesh = _MESHES.get(key)
     if mesh is None:
-        groups = {}
-        # every rank creates every group, in the same order
-        model_groups = [dist.new_group([d * model + m for m in range(model)])
-                        for d in range(data)]
-        data_groups = [dist.new_group([d * model + m for d in range(data)])
-                       for m in range(model)]
         rank = dist.get_rank()
-        groups["model"] = model_groups[rank // model]
-        groups["data"] = data_groups[rank % model]
+        groups = _new_groups(data, model, rank)
         mesh = _MESHES[key] = Mesh(data, model, rank, backend, dev, groups)
         LOG.info("%r: %s (%s); CUDA graphs %s", mesh, backend, why,
                  "capture its collectives" if mesh.capturable
                  else "cannot capture its collectives")
     return mesh
+
+
+def _new_groups(data: int, model: int, rank: int, **kw) -> Dict[str, object]:
+    """This rank's ``model`` and ``data`` groups of a (data, model) mesh;
+    every rank creates every group, in the same order."""
+    model_groups = [dist.new_group([d * model + m for m in range(model)],
+                                   **kw) for d in range(data)]
+    data_groups = [dist.new_group([d * model + m for d in range(data)],
+                                  **kw) for m in range(model)]
+    return {"model": model_groups[rank // model],
+            "data": data_groups[rank % model]}
+
+
+def fork(mesh: Mesh, timeout: float) -> Mesh:
+    """A mesh of the same ranks, coordinates, backend and device as
+    ``mesh`` whose collectives (its axes' and ``agree_max``'s) run on
+    process groups of its own, so two threads of one process can each
+    drive an engine over the mesh without interleaving their collectives
+    on one communicator (the HTTP frontend's replicas).  Every rank must
+    call it, in the same order.  ``timeout`` (seconds) bounds each of its
+    collectives: a rank that waits longer raises."""
+    if not isinstance(mesh, Mesh) or mesh.backend == "none":
+        raise ValueError(f"{mesh!r} has no process groups to fork: a mesh "
+                         "shape has no ranks to run on")
+    kw = {"timeout": datetime.timedelta(seconds=timeout)}
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    groups = _new_groups(data, model, mesh.rank, **kw)
+    world = dist.new_group(list(range(mesh.size)), **kw)
+    return Mesh(data, model, mesh.rank, mesh.backend, mesh.device, groups,
+                world)
+
+
+def control_group(mesh: Mesh, timeout: float):
+    """A gloo group of all of ``mesh``'s ranks, for host objects (the
+    frontend's control broadcast), whose collectives raise after
+    ``timeout`` seconds.  Every rank must call it, in the same order."""
+    return dist.new_group(list(range(mesh.size)), backend="gloo",
+                          timeout=datetime.timedelta(seconds=timeout))
 
 
 def destroy() -> None:
@@ -410,5 +446,5 @@ def agree_max(value: float, mesh: Mesh) -> float:
     whole mesh."""
     t = torch.full((1,), float(value), dtype=torch.float64,
                    device=mesh.device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.world)
     return float(t[0])

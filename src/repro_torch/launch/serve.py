@@ -330,14 +330,12 @@ def run_engine(args, cfg, model, params, dcfg, mesh=None) -> None:
 
 
 def run_http(args, cfg, model, params, dcfg, mesh=None) -> None:
-    """Boot the online streaming frontend and serve until interrupted."""
+    """Boot the online streaming frontend and serve until interrupted.
+    Over a mesh of more than one rank (under torch.distributed.run) rank 0
+    binds the HTTP port and serves; every other rank follows its engine
+    calls (serving/frontend/router.MeshFollower) and returns when rank 0
+    drains, or raises ``MeshAborted`` (a non-zero exit) when it aborts."""
     import asyncio
-
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"--http under a mesh of {mesh.size} ranks: the frontend on one "
-            f"rank would have to broadcast every submission to the others "
-            f"(ROADMAP.md, Queue 1, \"What waits\", item 2)")
 
     from repro_torch.obs import ServingObs, TraceCollector
     from repro_torch.serving.frontend import build_frontend, serve_forever
@@ -355,6 +353,16 @@ def run_http(args, cfg, model, params, dcfg, mesh=None) -> None:
         profile_dir=args.profile_dir, megatick_k=args.megatick,
         pool=args.pool, page_size=args.page_size, num_pages=args.num_pages,
         event_log=args.event_log, slo_classes=args.slo_classes)
+    if mesh is not None and mesh.rank != 0:
+        # rank 0 serves HTTP; this rank makes the same engine calls
+        import signal
+        print(f"rank {mesh.rank} follows rank 0's frontend (port "
+              f"{args.http}) over {len(frontend.workers)} replica(s)",
+              flush=True)
+        # an interrupt stops rank 0, whose drain then ends this rank
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        frontend.run()
+        return
     try:
         asyncio.run(serve_forever(frontend))
     except KeyboardInterrupt:

@@ -25,7 +25,9 @@ GSPMD partitions JAX's step.  Prefill and decode run on the rank's rows
 alone (BAOS calibration and the cache are per row); prefill returns the
 rank's vocab columns of the logits where the head is vocab-sharded, and
 decode samples over such a head through ``sampling.combine_partials``,
-so every ``model`` rank commits the same tokens: the transformer
+so every ``model`` rank commits the same tokens (greedy or sampled: the
+noise is drawn at the global row and column, so a sampled decode on any
+mesh commits what one device commits): the transformer
 families stream the block's hidden states through the fused head's
 vocab-shard entry (route A); the ssm and hybrid families, which have no
 head mode, reduce their stored logit columns with Stable-Max's
@@ -290,18 +292,14 @@ def build_serve_step(model, dcfg: diffusion.DiffusionConfig, mesh=None):
     row b), the block written into a new canvas.  Over |model| > 1 with a
     vocab-sharded head ``_sample_sharded`` runs the sharded head: on the
     refine's hidden states where the model has a head mode, else on its
-    logit columns."""
+    logit columns.  It samples on any mesh (temperature > 0, strategy
+    'random') as one device does: every noise draw is indexed by the
+    global row (this data shard's first flattened row onward) and the
+    global vocab column, as GSPMD partitions JAX's draw over the global
+    logits."""
     cfg = model.cfg
     data, model_ax = _axes(mesh)
     s = dcfg.sampling
-    head_sharded = model_ax is not None and cfg.vocab % model_ax.size == 0
-    if (s.temperature > 0.0 or s.strategy == "random") and (
-            (data is not None and data.size > 1) or head_sharded):
-        raise NotImplementedError(
-            "the decode step over a data mesh or a vocab-sharded head "
-            "samples greedily only (temperature 0, strategy 'stablemax'): "
-            "the step seed is the same on every rank, so noise drawn by "
-            "local row or column would repeat across the shards")
     L = dcfg.block_length
     head_mode = getattr(model, "supports_head_mode", True)
 
@@ -324,19 +322,22 @@ def build_serve_step(model, dcfg: diffusion.DiffusionConfig, mesh=None):
         cols = _block_cols(block_start, L, x.device)
         xb = x.index_select(1, cols)
         seed = diffusion.tick_seed(0, seed)
+        # the global flattened (B * L) row of this rank's first row
+        row0 = 0 if data is None else data.index * xb.shape[0] * L
         if sharded:
             xa = _sample_sharded(feats, params["lm_head"], xb, k, cfg, s,
-                                 seed, model_ax, hidden=head_mode)
+                                 seed, model_ax, hidden=head_mode,
+                                 row_offset=row0)
         else:
             xa, _ = sampling_lib.sampling_step(feats, xb, cfg.mask_id, k, s,
-                                               seed)
+                                               seed, row0)
         return x.index_copy(1, cols, xa.to(x.dtype)), cache
 
     return serve_step
 
 
 def _sample_sharded(feats, w_loc, xb, k, cfg: ModelConfig, s, seed, axis,
-                    hidden: bool = True):
+                    hidden: bool = True, row_offset: int = 0):
     """The decode step's sampling over a vocab-sharded head.  From the
     block's hidden states (B, L, d) (``hidden``): where each shard's
     width is a multiple of the MX block, the fused head's vocab-shard
@@ -344,21 +345,26 @@ def _sample_sharded(feats, w_loc, xb, k, cfg: ModelConfig, s, seed, axis,
     every ``model`` rank); otherwise the head gathered over ``model`` and
     the single-device fused head.  From this rank's logit columns
     (B, L, V / |model|), whose width the caller made a multiple of the MX
-    block: Stable-Max's vocab-shard entry (route C) and the combine."""
+    block: Stable-Max's vocab-shard entry (route C) and the combine.
+    ``row_offset`` is the global flattened row of the block's first row,
+    where a sampled step draws its noise."""
     from repro_torch.kernels import fused_head_sampling as fhs
     if not hidden:
         xa, _, _ = sampling_lib.sharded_sampling_step_full(
-            feats, xb, cfg.mask_id, k, s, seed, axis=axis)
+            feats, xb, cfg.mask_id, k, s, seed, axis=axis,
+            row_offset=row_offset)
         return xa
     scale = float(cfg.logit_scale)
     if w_loc.shape[-1] % MX_BLOCK == 0:
         xa, _, _ = sampling_lib.sharded_fused_sampling_step_full(
             feats, w_loc, xb, cfg.mask_id, k, s, seed, axis=axis,
-            logit_scale=scale, col_limit=int(cfg.vocab))
+            logit_scale=scale, col_limit=int(cfg.vocab),
+            row_offset=row_offset)
         return xa
     w = fhs.pad_head(mesh_lib.all_gather(w_loc, 1, axis))
     xa, _, _ = sampling_lib.fused_sampling_step_full(
-        feats, w, xb, cfg.mask_id, k, s, seed, logit_scale=scale)
+        feats, w, xb, cfg.mask_id, k, s, seed, logit_scale=scale,
+        row_offset=row_offset)
     return xa
 
 

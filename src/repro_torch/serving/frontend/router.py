@@ -34,6 +34,22 @@ The :class:`Router` load-balances across workers: ``rr`` (rotating start)
 or ``least_loaded`` (min ``pending`` = queued + active), with failover to
 the next candidate when the preferred replica refuses, and graceful drain
 on shutdown (stop accepting, tick until empty, join).
+
+Over a mesh of more than one rank (launch/mesh.py: one process per rank,
+each running the same engine) rank 0 serves HTTP and every other rank must
+make the same engine calls, with the same arguments, in the same order.
+Rank 0's worker records, per loop iteration, the calls that decide what a
+tick does (the submissions it stages, with their arrival times; the
+cancels of the requests a deadline sheds; the engine clock, read from rank
+0's wall clock; whether to tick and how far; drain or abort) and
+broadcasts the record on a gloo group of its replica's own
+(:class:`MeshControl`) before it ticks.  A :class:`MeshFollower` on each
+other rank receives each record, applies it and ticks.  Nothing about what
+a tick does is decided from a follower's own clock, and the ranks already
+agree on each tick's seconds (one all_reduce MAX), so every rank's
+scheduler stays identical.  A crashed worker broadcasts an abort before
+it re-raises; a follower waits on the control group under a timeout and
+raises :class:`MeshAborted` when rank 0 aborts or is gone.
 """
 from __future__ import annotations
 
@@ -41,7 +57,7 @@ import dataclasses
 import functools
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.kernels import _build
 from repro_torch.serving import scheduler as scheduler_lib
@@ -67,8 +83,131 @@ class ShedEvent:
     slo_class: str = ""
 
 
+# seconds a rank of a mesh frontend waits in one collective (a control
+# broadcast, or a tick's) before it raises: rank 0 broadcasts a record at
+# least every idle wait (0.1 s), so only a rank that is gone or stuck
+# keeps another waiting this long
+MESH_TIMEOUT_S = 120.0
+
+
+class MeshAborted(RuntimeError):
+    """Rank 0's frontend aborted (its worker crashed), or is gone: a mesh
+    follower stops, and its process exits non-zero."""
+
+
+class MeshControl:
+    """One replica's control channel over a mesh: a gloo group of all the
+    mesh's ranks on which rank 0 broadcasts each loop iteration's record
+    (a list of ops, ``("submit", request)``, ``("cancel", uid, reason)``,
+    ``("now", seconds)``, ``("tick", max_ticks)``, ``("exit", how)``,
+    ``("abort", why)``) and the other ranks receive it.  Each collective
+    raises after the group's timeout.  ``seconds`` and ``records`` count
+    rank 0's broadcasts (the control cost per tick)."""
+
+    def __init__(self, group):
+        self.group = group
+        self.seconds = 0.0
+        self.records = 0
+
+    def send(self, record: List[Tuple]) -> None:
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        dist.broadcast_object_list([record], src=0, group=self.group)
+        self.seconds += time.perf_counter() - t0
+        self.records += 1
+
+    def recv(self) -> List[Tuple]:
+        import torch.distributed as dist
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+
+class MeshFollower:
+    """The engine of one replica on a mesh rank other than 0: no HTTP and
+    no sinks.  ``run()`` (on a thread of its own under ``MeshFollowers``)
+    receives rank 0's records and applies them to ``engine`` in order,
+    ticking where rank 0 ticks, until rank 0 drains (returns) or aborts
+    (``MeshAborted``).  ``on_complete`` receives every completed request
+    (an engine CompletedRequest), on the follower's thread."""
+
+    def __init__(self, engine: ServingEngine, control: MeshControl,
+                 name: str = "replica-0",
+                 on_complete: Optional[Callable] = None):
+        self.engine = engine
+        self.control = control
+        self.name = name
+        self.on_complete = on_complete
+        self.completed = 0
+        self.ticks = 0
+
+    def run(self) -> None:
+        eng = self.engine
+        while True:
+            try:
+                record = self.control.recv()
+            except RuntimeError as e:
+                raise MeshAborted(f"{self.name}: rank 0 is gone ({e})") \
+                    from e
+            for op in record:
+                kind = op[0]
+                if kind == "submit":
+                    eng.submit(op[1])
+                elif kind == "cancel":
+                    eng.cancel(op[1], reason=op[2])
+                elif kind == "now":
+                    eng.now = op[1]
+                elif kind == "tick":
+                    eng.tick(max_ticks=op[1])
+                    self.ticks += 1
+                elif kind == "abort":
+                    raise MeshAborted(f"{self.name}: rank 0 aborted: "
+                                      f"{op[1]}")
+                elif kind == "exit":
+                    eng.metrics.elapsed = eng.now
+                    return
+            if eng.completed:
+                self.completed += len(eng.completed)
+                if self.on_complete is not None:
+                    for c in eng.completed:
+                        self.on_complete(c)
+                eng.completed.clear()
+                eng.metrics.compact()
+
+
+class MeshFollowers:
+    """What ``build_frontend`` returns on a mesh rank other than 0: one
+    :class:`MeshFollower` per replica, each on a thread of its own.
+    ``run()`` starts them, waits for rank 0's drain and re-raises the first
+    follower's error (``MeshAborted`` when rank 0 aborted or is gone)."""
+
+    def __init__(self, followers: Sequence[MeshFollower]):
+        self.workers = list(followers)
+        self._errors: List[BaseException] = []
+        self._threads: List[threading.Thread] = []
+
+    def _run_one(self, f: MeshFollower) -> None:
+        try:
+            f.run()
+        except BaseException as e:       # re-raised by run() below
+            self._errors.append(e)
+
+    def run(self) -> None:
+        self._threads = [threading.Thread(
+            target=self._run_one, args=(f,), name=f"follow-{f.name}",
+            daemon=True) for f in self.workers]
+        for t in self._threads:
+            t.start()
+        for t in self._threads:
+            t.join()
+        if self._errors:
+            raise self._errors[0]
+
+
 class EngineWorker:
-    """One serving replica: an engine plus the thread that ticks it."""
+    """One serving replica: an engine plus the thread that ticks it.  Over
+    a mesh of more than one rank, ``control`` (a :class:`MeshControl`)
+    broadcasts each loop iteration's engine calls to the followers."""
 
     def __init__(self, engine: ServingEngine, name: str = "replica-0",
                  max_queue: Optional[int] = None,
@@ -76,9 +215,16 @@ class EngineWorker:
                  tick_floor_s: Optional[float] = None,
                  profile_ticks: int = 0,
                  profile_dir: Optional[str] = None,
-                 slo_classes: Optional[dict] = None):
+                 slo_classes: Optional[dict] = None,
+                 control: Optional[MeshControl] = None,
+                 on_complete: Optional[Callable] = None):
         self.engine = engine
         self.name = name
+        self.control = control
+        # each completed request (an engine CompletedRequest), on the
+        # worker thread, before the record is dropped
+        self.on_complete = on_complete
+        self._ops: List[Tuple] = []       # this iteration's record
         # --profile-ticks N: wrap the first N productive ticks of this
         # replica in a torch.profiler trace (CPU and CUDA activity, a
         # Chrome-trace JSON under profile_dir/<name>, by default under the
@@ -298,6 +444,7 @@ class EngineWorker:
                 slo_classes=self.slo_classes if use_classes else None):
             cls = getattr(r, "slo_class", "")
             if eng.cancel(r.uid, reason="deadline"):
+                self._ops.append(("cancel", r.uid, "deadline"))
                 self.shed_count += 1
                 sink = self._sinks.pop(r.uid, None)
                 if sink is not None:
@@ -318,7 +465,12 @@ class EngineWorker:
         # live sink, refuse new work, and re-raise into the thread log
         try:
             self._loop_inner()
-        except BaseException:
+        except BaseException as e:
+            if self.control is not None:
+                try:          # the followers stop instead of waiting
+                    self.control.send([("abort", repr(e))])
+                except Exception:   # noqa: BLE001 - the crash re-raises
+                    pass
             with self._lock:
                 self.accepting = False
                 staged, self._staging = self._staging, []
@@ -330,22 +482,36 @@ class EngineWorker:
             self._sinks.clear()
             raise
 
+    def _send(self) -> None:
+        """Broadcast this iteration's record to the mesh followers (with no
+        mesh, drop it)."""
+        ops, self._ops = self._ops, []
+        if self.control is not None:
+            self.control.send(ops)
+
     def _loop_inner(self) -> None:
         eng = self.engine
         captures = eng.graph_captures
         while True:
             with self._lock:
                 staged, self._staging = self._staging, []
-            for req, deliver in staged:
+            for n, (req, deliver) in enumerate(staged):
                 try:
                     eng.submit(req, on_commit=functools.partial(
                         self._on_commit, deliver))
                     self._sinks[req.uid] = deliver
+                    self._ops.append(("submit", req))
                 except ValueError as e:
                     # the server validates before staging; this is the
                     # belt-and-braces path (e.g. duplicate uid)
                     deliver(ShedEvent(uid=req.uid,
                                       reason=f"rejected: {e}"))
+                except BaseException:
+                    # a crash: the requests not yet submitted go back to
+                    # staging, where _loop sheds them
+                    with self._lock:
+                        self._staging[:0] = staged[n:]
+                    raise
             self._shed_expired(eng)
             if eng.pending:
                 # online serving runs on the wall clock: sync the engine's
@@ -355,17 +521,17 @@ class EngineWorker:
                 eng.now = max(eng.now, self.now_rel())
                 if self.profile_ticks:
                     self._profile_start()
-                t_tick = time.perf_counter()
                 # one tick() call may be a K-tick megastep: count *productive
                 # ticks* (engine tick counter delta), not calls, so
                 # --profile-ticks N captures exactly N ticks at any K —
                 # while profiling, cap the megastep at the remaining budget
+                max_ticks = (max(1, self.profile_ticks - self._profiled)
+                             if self._profiling else None)
+                self._ops += [("now", eng.now), ("tick", max_ticks)]
+                self._send()
+                t_tick = time.perf_counter()
                 prev_ticks = eng.ticks_total
-                if self._profiling:
-                    progressed = eng.tick(
-                        max_ticks=max(1, self.profile_ticks - self._profiled))
-                else:
-                    progressed = eng.tick()
+                progressed = eng.tick(max_ticks=max_ticks)
                 n_ticks = eng.ticks_total - prev_ticks
                 if eng.graph_captures != captures:
                     raise RuntimeError(
@@ -384,6 +550,7 @@ class EngineWorker:
                         time.sleep(rem)       # emulated device wait
             else:
                 progressed = False
+                self._send()          # the followers' heartbeat
             with self._lock:
                 self.queued = len(eng.queue) + len(self._staging)
                 if self.paged:
@@ -400,6 +567,9 @@ class EngineWorker:
             # long-lived replica grows per-request state without bound
             if eng.completed:
                 self.completed += len(eng.completed)
+                if self.on_complete is not None:
+                    for c in eng.completed:
+                        self.on_complete(c)
                 eng.completed.clear()
                 eng.metrics.compact()
             if self._stop:
@@ -414,13 +584,18 @@ class EngineWorker:
                                           reason="server shutdown"))
                     for uid in [r.uid for r in eng.queue]:
                         eng.cancel(uid)
+                        self._ops.append(("cancel", uid, "shed"))
                     for uid, sink in list(self._sinks.items()):
                         sink(ShedEvent(uid=uid, reason="server shutdown"))
                     self._sinks.clear()
+                    self._ops.append(("exit", "abort"))
+                    self._send()
                     break
                 with self._lock:
                     drained = not eng.pending and not self._staging
                 if drained:
+                    self._ops.append(("exit", "drain"))
+                    self._send()
                     break
             if not progressed and not staged:
                 with self._lock:

@@ -385,7 +385,8 @@ def build_frontend(model, params, dcfg, *, model_name: str,
                    num_pages: Optional[int] = None,
                    prefix_cache: bool = True,
                    event_log=None,
-                   slo_classes=None) -> ServeFrontend:
+                   slo_classes=None,
+                   on_complete=None):
     """Wire engines -> workers -> router -> frontend.  One independent
     engine per replica (each with its own pool, its own seed ``seed + i``
     for the counter-Gumbel stream, its own graphs and its tick thread;
@@ -411,21 +412,51 @@ def build_frontend(model, params, dcfg, *, model_name: str,
     ``slo_classes`` (a :func:`repro_torch.obs.slo.resolve_classes` spec)
     installs the SLO tier table — both must land before the per-replica
     views fan out, which this function guarantees.
+
+    ``mesh`` (a launch/mesh.Mesh) runs every replica's engine over the
+    mesh.  Over more than one rank every rank calls this, in the same
+    order: each replica gets process groups of its own (``mesh.fork``:
+    two replica threads would otherwise interleave their collectives on
+    one communicator) and a gloo control group (``router.MeshControl``),
+    created on every rank in the same order, each collective bounded by
+    ``router.MESH_TIMEOUT_S``.  Rank 0 returns the ``ServeFrontend`` (it alone
+    serves HTTP, ``/metrics`` and the event log); every other rank
+    returns a ``router.MeshFollowers`` of engines with no obs, whose
+    ``run()`` applies rank 0's engine calls until rank 0 drains.
+    ``on_complete`` receives every replica's completed requests (engine
+    CompletedRequests) on its worker's or follower's thread.  The ticks
+    are graphed on the card unless the mesh's collectives cannot be
+    captured (gloo, between ranks that share a card).
     """
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.serving.engine import EngineConfig, ServingEngine
-    from repro_torch.serving.frontend.router import EngineWorker
+    from repro_torch.serving.frontend.router import (MESH_TIMEOUT_S,
+                                                     EngineWorker,
+                                                     MeshControl,
+                                                     MeshFollower,
+                                                     MeshFollowers)
+
+    ranks = mesh is not None and mesh.size > 1
+    if ranks and (not isinstance(mesh, mesh_lib.Mesh)
+                  or mesh.backend == "none"):
+        raise ValueError(f"{mesh!r} has no process groups: serving over "
+                         "more than one rank needs a mesh of this job's "
+                         "processes (launch/mesh.make_debug_mesh)")
+    leader = not ranks or mesh.rank == 0
+    jit_steps = mesh is None or mesh.capturable or \
+        model.device.type != "cuda"
 
     if obs is None:
         obs = ServingObs()
-    if slo_classes is not None:
+    if slo_classes is not None and leader:
         obs.set_slo_classes(slo_classes)
-    if event_log is not None:
+    if event_log is not None and leader:
         from repro_torch.obs.events import EventLog
         obs.set_event_log(event_log if isinstance(event_log, EventLog)
                           else EventLog(event_log))
     paged = pool == "paged"
     modeled = None
-    if drift:
+    if drift and leader:
         from repro_torch.obs.drift import modeled_tick_stages
         from repro_torch.sim.analytical import HostConfig
         modeled = modeled_tick_stages(
@@ -436,23 +467,36 @@ def build_frontend(model, params, dcfg, *, model_name: str,
         ("paged_io",) if paged else ())
     workers = []
     for i in range(replicas):
-        rep_obs = obs.for_replica(f"replica-{i}")
+        rep_mesh, control = mesh, None
+        if ranks:
+            rep_mesh = mesh_lib.fork(mesh, MESH_TIMEOUT_S)
+            control = MeshControl(mesh_lib.control_group(mesh,
+                                                         MESH_TIMEOUT_S))
+        rep_obs = obs.for_replica(f"replica-{i}") if leader else None
         if modeled is not None:
             rep_obs.set_drift_model(modeled, host_stages=host_stages)
         eng = ServingEngine(model, params, dcfg, EngineConfig(
             num_slots=num_slots, max_seq_len=max_seq_len, mode=mode,
-            policy=policy, mesh=mesh, seed=seed + i,
+            policy=policy, mesh=rep_mesh, seed=seed + i,
             breakdown=breakdown, obs=rep_obs, megatick_k=megatick_k,
             pool=pool, page_size=page_size, num_pages=num_pages,
-            prefix_cache=prefix_cache))
+            prefix_cache=prefix_cache, jit_steps=jit_steps))
         if warmup:
             eng.warmup()              # compile off-clock, before accepting
+        if not leader:
+            workers.append(MeshFollower(eng, control, name=f"replica-{i}",
+                                        on_complete=on_complete))
+            continue
         workers.append(EngineWorker(eng, name=f"replica-{i}",
                                     max_queue=max_queue,
                                     max_queue_wait=max_queue_wait,
                                     tick_floor_s=tick_floor_s,
                                     profile_ticks=profile_ticks,
-                                    profile_dir=profile_dir))
+                                    profile_dir=profile_dir,
+                                    control=control,
+                                    on_complete=on_complete))
+    if not leader:
+        return MeshFollowers(workers)
     router = Router(workers, strategy=strategy)
     return ServeFrontend(router, model_name=model_name, host=host,
                          port=port, obs=obs)

@@ -1,5 +1,6 @@
 """Rank bodies of tests/test_torch_spmd.py, test_torch_compress.py,
-test_torch_steps.py, test_torch_tp_steps.py and test_torch_paged_mesh.py.  ``spawn`` starts one process
+test_torch_steps.py, test_torch_tp_steps.py, test_torch_paged_mesh.py and
+test_torch_sampled_mesh.py.  ``spawn`` starts one process
 per rank (the spawn start method), each joins a gloo group over a
 ``file://`` store in the test's tmp_path and runs one job; rank 0 pickles
 the job's result for the test.  Every process is joined with a deadline,
@@ -204,8 +205,8 @@ def _job_steps(rank: int, world: int) -> dict:
     decode steps (ServePolicy(), and split_cache for decode) on each
     rank's shards, gathered over data, beside rank 0's single-device run
     on the full inputs; the MoE steps (``tp_run``, its aux the global
-    batch's); the refusals: sampled decoding over |data| > 1 or a
-    vocab-sharded head (and the ssm steps over |model| > 1, which build)."""
+    batch's); what once was refused and now builds: sampled decoding over
+    |data| > 1 or a vocab-sharded head, the ssm steps over |model| > 1."""
     from repro_torch import sharding, tree as tree_lib
     from repro_torch.configs import base
     from repro_torch.launch import mesh as mesh_lib
@@ -619,6 +620,244 @@ def paged_results(mesh=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sampled decode step over a mesh (tests/test_torch_sampled_mesh.py)
+# ---------------------------------------------------------------------------
+
+# "v256": route A (llada-8b) or route C (recurrentgemma-2b) at |model| 2;
+# llada-8b's V 257: the head replicated on every ``model`` rank; "v288":
+# mamba's shards of 144 columns split MX blocks, so its head is gathered
+SAMPLED_CASES = ("llada-8b v256", "llada-8b", "recurrentgemma-2b v256",
+                 "mamba2-130m v288")
+# (name, temperature, strategy): the greedy step beside the sampled ones
+SAMPLED_POLICIES = (("greedy", 0.0, "stablemax"), ("hot", 0.8, "stablemax"),
+                    ("random", 0.8, "random"), ("random-cold", 0.0, "random"))
+
+
+def sampled_run(case: str, mesh=None) -> dict:
+    """Prefill, then one decode step under each of ``SAMPLED_POLICIES``,
+    on the full inputs (no mesh) or on this rank's shards over ``mesh``:
+    the canvas gathered whole (numpy) and, over a mesh, whether every
+    ``model`` rank holds the same canvas."""
+    from repro_torch import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as launch_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    cfg = tp_config(case)
+    model = build_model(cfg, "cpu")
+    _, x, k = (torch.from_numpy(a) for a in step_inputs(cfg))
+    pre, dec = (step_shape(kind, step_block(cfg))
+                for kind in ("prefill", "decode"))
+    out = {}
+    for name, temp, strategy in SAMPLED_POLICIES:
+        policy = steps.ServePolicy(sampling=dataclasses.replace(
+            steps.ServePolicy().sampling, temperature=temp,
+            strategy=strategy))
+        inp = {"params": tp_params(model), "x": x,
+               "cache": model.init_cache(STEP_B, STEP_S), "extras": {}}
+        kk = k
+        if mesh is not None:
+            specs = {kind: steps.input_specs(model, shp, policy)
+                     for kind, shp in (("pre", pre), ("dec", dec))}
+            with sharding.use_context(mesh, launch_sharding.make_rules(
+                    cfg, mesh)):
+                pls = steps.input_shardings(model, pre, mesh, specs["pre"],
+                                            policy)
+                dpl = steps.input_shardings(model, dec, mesh, specs["dec"],
+                                            policy)
+            meta = build_model(cfg, "meta").init_cache(STEP_B, STEP_S)
+            inp = steps.shard_inputs(inp, pls)
+            inp["params"] = launch_sharding.place(tp_params(model),
+                                                  pls["params"])
+            inp["cache"] = launch_sharding.local_like(
+                meta, pls["cache"],
+                lambda path: 1.0 if path.endswith("_scale") else 0.0)
+            kk = steps.shard_inputs({"k": k}, {"k": dpl["k"]})["k"]
+        fp, _ = steps.build_step(model, pre, policy, mesh=mesh)
+        fd, _ = steps.build_step(model, dec, policy, mesh=mesh)
+        _, cache = fp(inp["params"], inp["x"], inp["cache"], STEP_BS, {})
+        x1, _ = fd(inp["params"], inp["x"], cache, STEP_BS, kk, 5, {})
+        if mesh is not None:
+            both = mesh_lib.all_gather(x1.reshape(1, -1), 0,
+                                       mesh.axis("model"))
+            out["model equal", name] = bool((both == both[:1]).all())
+            x1 = _gather(x1, 0, mesh.axis("data"))
+        out[name] = x1.numpy()
+    return out
+
+
+def sampled_partials_inputs():
+    """hidden (R, D), head (D, V_HEAD) and stored logits (R, V_LOGITS),
+    from one numpy seed, for the sampled shard partials."""
+    rs = np.random.RandomState(5)
+    h = rs.randn(R, D).astype(np.float32)
+    w = (rs.randn(D, V_HEAD) * 0.3).astype(np.float32)
+    logits = (rs.randn(R, V_LOGITS) * 3).astype(np.float32)
+    return h, w, logits
+
+
+SAMPLED_SEED, SAMPLED_ROW0 = 1234, 40
+
+
+def _job_sampled_combine(rank: int, world: int) -> dict:
+    """The sampled shard partials' plain versions of 1, 2 and 4 shards,
+    merged by ``sampling.combine_partials`` over a gloo group: (conf,
+    token) of the fused head's (route A) and of stored logits' (route
+    C), at T 0.8, a row offset and every format of ``FMTS``."""
+    from repro_torch.core import sampling
+    from repro_torch.kernels import fused_head_sampling as fhs
+    from repro_torch.kernels import stablemax_sampling as sms
+    from repro_torch.launch import mesh as mesh_lib
+    h, w, logits = (torch.from_numpy(a) for a in sampled_partials_inputs())
+    groups = {n: dist.new_group(list(range(n))) for n in SHARDS}
+    kw = dict(temperature=0.8, seed=SAMPLED_SEED, row_offset=SAMPLED_ROW0)
+    out = {}
+    for n in SHARDS:
+        if rank >= n:
+            continue
+        axis = mesh_lib.Axis("model", n, rank, groups[n])
+        wp = sampling.pad_head_for_mesh(w, n)
+        vloc = wp.shape[1] // n
+        for fmt in FMTS:
+            for sup in SUPPRESS:
+                parts = fhs.head_shard_partials_plain(
+                    h, wp[:, rank * vloc:(rank + 1) * vloc], fmt,
+                    col_offset=rank * vloc, col_limit=V_HEAD,
+                    suppress_id=sup, **kw)
+                conf, idx = sampling.combine_partials(*parts[:3], axis,
+                                                      *parts[3:])
+                out["head", n, fmt, sup] = (conf.numpy(), idx.numpy())
+            lv = V_LOGITS // n
+            parts = sms.stablemax_shard_partials_plain(
+                logits[:, rank * lv:(rank + 1) * lv], fmt,
+                col_offset=rank * lv, suppress_id=100, **kw)
+            conf, idx = sampling.combine_partials(*parts[:3], axis,
+                                                  *parts[3:])
+            out["logits", n, fmt] = (conf.numpy(), idx.numpy())
+    return out
+
+
+def _job_sampled(rank: int, world: int, data: int, model: int) -> dict:
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_debug_mesh(data, model, "cpu")
+    return {case: sampled_run(case, mesh) for case in SAMPLED_CASES}
+
+
+# ---------------------------------------------------------------------------
+# serve --http over a mesh (tests/test_torch_frontend_mesh.py)
+# ---------------------------------------------------------------------------
+
+FRONT_PROMPT, FRONT_GEN = 16, 16
+
+
+def frontend_prompts(vocab: int, n: int = 8):
+    """Distinct prompts (lists of ids) from one numpy seed."""
+    rs = np.random.RandomState(31)
+    return [rs.randint(0, vocab - 2, size=(FRONT_PROMPT,)).tolist()
+            for _ in range(n)]
+
+
+def frontend_flow(mesh=None, abort: bool = False) -> dict:
+    """The HTTP frontend of the smoke llada-8b (2 slots, max_queue 1,
+    max_queue_wait 0) on this rank of ``mesh`` (None: one process).  Rank
+    0 serves: with its workers paused, four requests of which one is
+    answered 429; the workers start, two are admitted and the third is
+    shed by its deadline; then three pairs of requests, each pair one
+    streamed and one gathered; then a graceful drain.  Every other rank
+    follows.  Returns {"rows": rank 0's (prompt index, result) pairs in
+    the order the requests were sent,
+    "done": {prompt index: (tokens, ticks)} of this rank's engine,
+    "ticks_total", "control": (records, seconds)}.  With ``abort``
+    rank 0's engine refuses its first submission with an error, which
+    crashes its worker."""
+    import asyncio
+
+    from repro_torch.configs import base
+    from repro_torch.core import diffusion
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.frontend import build_frontend, loadgen
+    cfg = base.get_config("llada-8b", smoke=True)
+    model = build_model(cfg, "cpu")
+    params = model.init(0)
+    dcfg = diffusion.DiffusionConfig(gen_length=FRONT_GEN, block_length=8,
+                                     steps_per_block=4)
+    prompts = frontend_prompts(cfg.vocab)
+    index = {tuple(p): i for i, p in enumerate(prompts)}
+    done = {}
+
+    def on_complete(c):
+        key = index[tuple(c.tokens[:c.prompt_len].tolist())]
+        done[key] = (c.tokens.tolist(), int(c.ticks))
+
+    fe = build_frontend(model, params, dcfg, model_name="llada-8b",
+                        replicas=1, num_slots=2,
+                        max_seq_len=FRONT_PROMPT + FRONT_GEN, mode="none",
+                        max_queue=1, max_queue_wait=0.0, mesh=mesh,
+                        on_complete=on_complete)
+    if mesh is not None and mesh.rank != 0:
+        fe.run()                  # raises MeshAborted if rank 0 aborts
+        w = fe.workers[0]
+        return {"done": done, "ticks_total": w.engine.ticks_total,
+                "follower_ticks": w.ticks}
+    if abort:
+        eng = fe.router.workers[0].engine
+
+        def refuse(*a, **kw):
+            raise RuntimeError("injected submit failure")
+        eng.submit = refuse
+
+    worker = fe.router.workers[0]
+
+    async def settle():
+        """Until the worker's load snapshot shows every slot free: a
+        client sees its last commit before the worker refreshes it."""
+        while worker.accepting and (worker.free_slots < 2 or worker.queued):
+            await asyncio.sleep(0.01)
+
+    async def go():
+        await fe.start(start_workers=False)
+        rows = []
+
+        async def one(i, stream=True):
+            at = len(rows)
+            rows.append((i, None))
+            rows[at] = (i, await loadgen.complete(
+                fe.url, prompts[i], FRONT_GEN, stream=stream, timeout=60.0))
+        try:
+            first = [asyncio.ensure_future(one(i, stream=i % 2 == 0))
+                     for i in range(4)]
+            while sum(t.done() for t in first) < 1:
+                await asyncio.sleep(0.01)
+            fe.start_workers()
+            await asyncio.gather(*first)
+            for i in (4, 6, 0):
+                await settle()
+                await asyncio.gather(one(i), one(i + 1 if i else 3,
+                                                  stream=False))
+        finally:
+            await fe.shutdown(drain=True)
+        return rows
+
+    rows = asyncio.run(go())
+    w = fe.router.workers[0]
+    ctl = w.control
+    return {"rows": rows, "done": done, "ticks_total": w.engine.ticks_total,
+            "control": None if ctl is None else (ctl.records, ctl.seconds)}
+
+
+def _job_frontend(rank: int, world: int, data: int, model: int,
+                  abort: bool = False) -> dict:
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_debug_mesh(data, model, "cpu")
+    res = frontend_flow(mesh, abort)
+    if abort:                 # the followers raised: rank 0's alone
+        return res
+    every = [None] * world
+    dist.all_gather_object(every, res)
+    return {"ranks": every}
+
+
 def _job_paged(rank: int, world: int, data: int, model: int) -> dict:
     from repro_torch.launch import mesh as mesh_lib
     return paged_results(mesh_lib.make_debug_mesh(data, model, "cpu"))
@@ -626,14 +865,19 @@ def _job_paged(rank: int, world: int, data: int, model: int) -> dict:
 
 JOBS = {"combine": _job_combine, "serve": _job_serve,
         "compress": _job_compress, "steps": _job_steps, "tp": _job_tp,
-        "paged": _job_paged}
+        "paged": _job_paged, "sampled": _job_sampled,
+        "frontend": _job_frontend,
+        "sampled_combine": _job_sampled_combine}
 
 
 def run_rank(rank: int, world: int, store: str, job: str, out: str,
-             kwargs: dict) -> None:
+             kwargs: dict, timeout: float = 150.0) -> None:
+    import datetime
     torch.set_num_threads(1)
+    # a collective that waits past the job's deadline raises in its rank
     dist.init_process_group("gloo", init_method=f"file://{store}",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout))
     try:
         res = JOBS[job](rank, world, **kwargs)
         if rank == 0:
@@ -644,9 +888,10 @@ def run_rank(rank: int, world: int, store: str, job: str, out: str,
 
 
 def spawn(job: str, world: int, tmp_path, timeout: float = 150.0,
-          **kwargs):
+          codes=None, **kwargs):
     """Run ``job`` on ``world`` ranks; rank 0's result.  Each process is
-    joined against one deadline and killed past it (the test fails)."""
+    joined against one deadline and killed past it (the test fails); the
+    ranks' exit codes must be ``codes`` (default all 0)."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     # the kwargs hashed: a long case list would overflow a file name
@@ -654,7 +899,7 @@ def spawn(job: str, world: int, tmp_path, timeout: float = 150.0,
         repr(sorted(kwargs.items())).encode()).hexdigest()[:12]
     store, out = tmp_path / f"{tag}.store", tmp_path / f"{tag}.pkl"
     procs = [ctx.Process(target=run_rank, args=(r, world, str(store), job,
-                                                str(out), kwargs))
+                                                str(out), kwargs, timeout))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -667,7 +912,8 @@ def spawn(job: str, world: int, tmp_path, timeout: float = 150.0,
             p.kill()
             p.join()
     assert not hung, f"{job}: ranks {hung} still running after {timeout} s"
-    codes = [p.exitcode for p in procs]
-    assert codes == [0] * world, f"{job}: rank exit codes {codes}"
+    got = [p.exitcode for p in procs]
+    want = [0] * world if codes is None else list(codes)
+    assert got == want, f"{job}: rank exit codes {got}, want {want}"
     with open(out, "rb") as f:
         return pickle.load(f)

@@ -109,3 +109,31 @@ def test_dryrun_is_covered():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "--multi-pod" in out.stdout
+
+
+def test_analysis_gate_is_covered():
+    """The static-analysis gate (repro_torch.analysis) is among the modules
+    checked above, and running its passes (the graph audit builds and
+    traces the port's entry points) loads no JAX."""
+    mods = set(_modules())
+    for m in ("repro_torch.analysis", "repro_torch.analysis.__main__",
+              "repro_torch.analysis.registry", "repro_torch.analysis.report",
+              "repro_torch.analysis.hotpath_lint",
+              "repro_torch.analysis.locks",
+              "repro_torch.analysis.smem_budget",
+              "repro_torch.analysis.graph_audit"):
+        assert m in mods, m
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys\n"
+            "from repro_torch.analysis.__main__ import main\n"
+            "rc = main(['--check', '--passes', "
+            "'hotpath_lint,locks,smem_budget,graph_audit', "
+            "'--no-crossval'])\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n"
+            "sys.exit(rc)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "analysis: clean" in out.stdout

@@ -642,9 +642,10 @@ def test_random_strategy_with_an_injected_draw_matches_jax(
         assert tuple(shape) == (B, L)
         return jnp.asarray(u)
 
-    def port_draw(seed, shape, device):
+    def port_draw(seed, shape, device, row_offset=0):
         calls.append("port")
         assert tuple(shape) == (B, L) and seed is not None
+        assert row_offset == 0
         return torch.from_numpy(u)
     monkeypatch.setattr(jax.random, "uniform", jax_uniform)
     monkeypatch.setattr(ts, "random_select", port_draw)

@@ -314,8 +314,10 @@ def test_serve_mesh_refusals():
         serve.main(SMALL + ["--mesh", "2"])
     with pytest.raises(SystemExit, match="--cache none"):
         serve.main(SMALL + ["--mesh", "1,1", "--legacy"])
+    # --http serves over a mesh of this job's ranks
+    # (test_torch_frontend_mesh.py); a mesh shape has none
     args = serve.build_parser().parse_args(SMALL + ["--http", "0"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no process groups"):
         serve.run_http(args, None, None, None, None,
                        mesh=mesh_lib.shape_mesh(1, 2))
 
