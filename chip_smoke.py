@@ -55,6 +55,21 @@ Phases, each fatal on failure:
                dk 0), two launches bit for bit, each timed beside its
                bound and SDPA's backward; the four kernels without a
                backward refuse inputs that require grad;
+               phase 15's kernel cases: flash_bidir reading its query
+               offset from device memory (check_device_offset) at
+               recurrentgemma-2b's (2, 64, 10 on 1, 256) bf16, window
+               2048, over 4,352 and 32,768 keys at offsets 0, 2,000, the
+               middle and the last block (a 0-d int32 or a (B,) int64
+               offset), and route B over 384 + 64 keys with a window of
+               128 (also causal): bit for bit the host int's and within
+               one bf16 ulp + 1e-6 of plain, with a row that finds no
+               valid key in reach (the second walk over every tile); the
+               middle cases timed beside the byte bound of the keys the
+               window reaches and SDPA with the boolean mask (the share
+               of key tiles skipped logged, counted from shapes); causal flash_bidir and
+               flash_bidir_bwd (check_causal) at (4, 96, 32 on 32, 128)
+               and D 256 with a window of 64, bf16 and f32, within their
+               routes' gates, against SDPA's is_causal;
   3. e2e    -- llada-8b at full width (32 layers, d 4096, bf16, seeded
                random weights): one-slot generate in cache mode none,
                stepped through tick_forward and tick_sample, and in modes
@@ -102,11 +117,12 @@ Phases, each fatal on failure:
                12), tokens/s, latency, tick wall, peak pages, prefix hit
                rate and peak memory for each;
   3b. table6 -- llada-8b at the paper's Table 6 shape (B 16, prompt 128,
-               gen 256, block 64, 16 steps) in cache modes none, prefix +
-               BAOS and dual + BAOS (mxint4 KV), and dual + BAOS under
-               QuantPolicy (MXINT4 weights, MXINT8 activations, bf16
-               sampling; the first 8 of 32 layers, a depth cut for the
-               script's time limit): step() eager against
+               gen 256, block 64, 16 steps; the first 8 of 32 layers,
+               TABLE6_LAYERS, a depth cut for the script's time limit) in
+               cache modes none, prefix + BAOS and dual + BAOS (mxint4
+               KV), and dual + BAOS under QuantPolicy (MXINT4 weights,
+               MXINT8 activations, bf16 sampling; the first 4 of 32
+               layers, DEPTH_CUTS): step() eager against
                graphed (equal tokens), step wall, tokens/s, peak memory,
                graphs captured, then a second graphed generate() that
                must capture nothing; the QuantPolicy run's sampling held
@@ -187,13 +203,13 @@ Phases, each fatal on failure:
   9. audio, vlm -- the last two families, one model at a time, on the
                legacy head, in a process of its own (phase_audio_vlm;
                budget PHASE9_BUDGET_S):
-               whisper-medium at full width (24 encoder layers, 4 of 24
+               whisper-medium at full width (24 encoder layers, 2 of 24
                decoder layers, a depth cut) with the cross K/V
                of seeded frames (4, 1500, 1024) through generate (none
                stepped, dual and prefix + BAOS), the engine's warm, none
                and warm + BAOS eager and graphed K=1 (the paged pool and
                the megatick must refuse the kwargs), breakdown and the
-               serve CLI; internvl2-26b at full width (4 of its 48
+               serve CLI; internvl2-26b at full width (2 of its 48
                layers, a depth cut for the script's time limit) with
                image embeddings through generate (prompts 288, gen 64) and
                the engine text-only (warm and none, eager, K=1, K=8; paged
@@ -323,9 +339,34 @@ Phases, each fatal on failure:
                JAX's layout).  Then the
                dry run's llada-8b decode_32k cell at (16, 16), traced on
                meta tensors in the main process (launch/dryrun.py).
+  15. past the window, causal -- in a process of its own after phase 14
+               (budget PHASE15_BUDGET_S, its start included), attention
+               and sampling on the kernels alone (no_plain_attention,
+               no_plain): (b) recurrentgemma-2b at full width,
+               PHASE15_RG_LAYERS of 26 layers (cut_depth: two attention
+               layers), generate at B 2, prompt 4,096, gen 128, block 64,
+               8 steps (a 4,224-long canvas past the 2,048 window), dual
+               and prefix + BAOS (phase 8's), eager (a host block start),
+               graphed capturing and graphed: tokens equal, no mask id,
+               exact launches (flash_bidir_offset on every graphed
+               refine); (c) build_step(decode) at decode_32k's length
+               (batch 2, cut from 128) and long_500k's (batch 1) from a
+               seeded cache: the 0-d int32 block start equal to the host
+               int bit for bit (canvas, every cache leaf), ms a step; (d)
+               llada-8b at full width, PHASE15_LLADA_LAYERS layers,
+               attn_mode "causal": the forward without a cache, a warm
+               step and refines from a host and a device block start,
+               within 5% of the largest logit of the plain path, the two
+               refines bit for bit equal; (e) qwen2-0.5b at full width,
+               PHASE15_TRAIN_LAYERS layers, attn_mode "causal": one train
+               step's loss and gradients through flash_bidir and
+               flash_bidir_bwd causal, against plain attention under
+               autograd and an f32 reference (phase 11a's gates).
 Every path's launch counts are zeroed just before it and read just after;
 the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 12, 13b,
-7, 8, 9, 11 (with 13a), 12b (with 13c) and 14 (route C's from 14e); the
+7, 8, 9, 11 (with 13a), 12b (with 13c), 14 (route C's from 14e) and 15
+(flash_bidir_offset, flash_bidir_causal and flash_bidir_bwd_causal's
+from it alone); the
 fused head's and Stable-Max's rows carry ``by_fmt``, phase 10's kernel
 cases per new format.
 Prints the run's time, the kernels JSON line, the card's name and power
@@ -382,7 +423,11 @@ REPLACES = {
     "baos_mx_quant": "src/repro/kernels/baos_mx_quant.py:61",
     "stablemax_sampling": "src/repro/kernels/stablemax_sampling.py:71",
     "flash_bidir_bwd": "jax.grad of src/repro/models/layers.py attention "
-                       "(no Pallas backward)"}
+                       "(no Pallas backward)",
+    "flash_bidir_offset": "src/repro/kernels/flash_bidir.py:78",
+    "flash_bidir_causal": "src/repro/kernels/flash_bidir.py:78",
+    "flash_bidir_bwd_causal": "jax.grad of src/repro/models/layers.py "
+                              "attention (no Pallas backward)"}
 QWEN2 = dict(d=896, V=151936, mask_id=151935)
 MINICPM = dict(d=2304, V=122753, mask_id=122752)
 # the device kernel each wrapper call launches once, as the profiler names
@@ -671,6 +716,9 @@ def phase_kernels(gen) -> dict:
             qt, kt, vt, attn_mask=sdpa_mask), 50),
         bound_ms=b_ms, bound_by=b_by)
     out["flash_bidir_bwd"] = check_attn_backward(gen)
+    out["flash_bidir_offset"] = check_device_offset(gen)
+    out["flash_bidir_causal"], out["flash_bidir_bwd_causal"] = \
+        check_causal(gen)
     check_no_backward_guard(gen)
     out["fused_head_sampling_shard"] = check_route_a(gen)
     out["flash_bidir_split"] = check_route_b(gen)
@@ -685,12 +733,14 @@ def phase_kernels(gen) -> dict:
     return out
 
 
-def attn_mask_pairs(B, Sq, Skv, valid, window) -> int:
+def attn_mask_pairs(B, Sq, Skv, valid, window, causal: bool = False,
+                    q_offset: int = 0) -> int:
     """The (row, key) pairs attention's gradient needs per query head: the
     keys each row attends to, or every key for a row with none (it
     averages V)."""
     from repro_torch.kernels import flash_bidir as fb
-    ok = fb._mask(B, Sq, Skv, valid, window, 0, DEVICE)[:, 0]
+    ok = fb._mask(B, Sq, Skv, valid, window, q_offset, DEVICE,
+                  causal=causal)[:, 0]
     n = ok.sum(-1)
     return int(torch.where(n > 0, n, Skv).sum())
 
@@ -709,8 +759,6 @@ def check_attn_backward(gen) -> dict:
     a graph of 20 calls) beside its bound and the library yardstick, the
     backward of scaled_dot_product_attention (its forward + backward less
     its forward, timed only).  Returns qwen2-0.5b's row."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_bidir as fb
     cases = (("llada-8b training", 8, 128, 32, 32, 128, torch.bfloat16,
               None, None),
              ("qwen2-0.5b training", 8, 128, 14, 2, 64, torch.bfloat16,
@@ -719,89 +767,101 @@ def check_attn_backward(gen) -> dict:
               torch.bfloat16, 2048, (256, 128, 77, 1)),
              ("f32 route, a row with no valid key", 3, 40, 6, 2, 64,
               torch.float32, 7, (40, 0, 13)))
-    rows = {}
-    for what, B, S, Hq, Hkv, D, dt, win, lens in cases:
-        q, o_grad = (torch.randn(B, S, Hq, D, generator=gen, device=DEVICE)
-                     .to(dt) for _ in range(2))
-        kk, v = (torch.randn(B, S, Hkv, D, generator=gen, device=DEVICE)
+    rows = {what: attn_backward_case(gen, what, *case)
+            for what, *case in cases}
+    return rows["qwen2-0.5b training"]
+
+
+def attn_backward_case(gen, what, B, S, Hq, Hkv, D, dt, win, lens,
+                       causal: bool = False) -> dict:
+    """One case of check_attn_backward (``causal``: the causal mask, its
+    SDPA yardstick ``is_causal`` or a boolean mask): its gates, times and
+    log line; returns its row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_bidir as fb
+    q, o_grad = (torch.randn(B, S, Hq, D, generator=gen, device=DEVICE)
                  .to(dt) for _ in range(2))
-        valid = None
-        if lens is not None:
-            valid = torch.arange(S, device=DEVICE)[None, :] < torch.tensor(
-                lens, device=DEVICE)[:, None]
-        args = (q, kk, v, o_grad, valid, win, 0)
-        got = fb.flash_bidir_bwd(*args)
-        again = fb.flash_bidir_bwd(*args)
-        torch.cuda.synchronize()
-        require(all(torch.equal(a, b) for a, b in zip(got, again)),
-                f"flash_bidir_bwd {what}: two launches differ")
-        ref = fb.flash_bidir_bwd_plain(*(t.float() for t in args[:4]),
-                                       valid, win, 0)
-        errs = []
-        if dt == torch.float32:
-            for n, g, r in zip("qkv", got, ref):
-                err = float((g - r).abs().max())
-                errs.append(err)
-                require(bool(torch.isfinite(g).all()) and
-                        err <= 1e-4 * float(r.abs().max()),
-                        f"flash_bidir_bwd {what}: d{n} beyond 1e-4 of "
-                        f"max|d{n}| ({err:.3g})")
+    kk, v = (torch.randn(B, S, Hkv, D, generator=gen, device=DEVICE)
+             .to(dt) for _ in range(2))
+    valid = None
+    if lens is not None:
+        valid = torch.arange(S, device=DEVICE)[None, :] < torch.tensor(
+            lens, device=DEVICE)[:, None]
+    args = (q, kk, v, o_grad, valid, win, 0, causal)
+    got = fb.flash_bidir_bwd(*args)
+    again = fb.flash_bidir_bwd(*args)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"flash_bidir_bwd {what}: two launches differ")
+    ref = fb.flash_bidir_bwd_plain(*(t.float() for t in args[:4]),
+                                   *args[4:])
+    errs = []
+    if dt == torch.float32:
+        for n, g, r in zip("qkv", got, ref):
+            err = float((g - r).abs().max())
+            errs.append(err)
+            require(bool(torch.isfinite(g).all()) and
+                    err <= 1e-4 * float(r.abs().max()),
+                    f"flash_bidir_bwd {what}: d{n} beyond 1e-4 of "
+                    f"max|d{n}| ({err:.3g})")
+        if valid is not None:
             dead = ~valid.any(1)
             require(not got[0][dead].any() and not got[1][dead].any(),
                     f"flash_bidir_bwd {what}: dq/dk nonzero on a row "
                     f"with no valid key")
-            note = "within 1e-4 of max|grad|"
-        else:
-            plain = fb.flash_bidir_bwd_plain(*args)
-            worst = 0.0
-            for n, g, p, r in zip("qkv", got, plain, ref):
-                e_k = float(((g.float() - r).abs() - bf16_ulp(r)).max())
-                e_p = float((p.float() - r).abs().max())
-                errs.append(float((g.float() - r).abs().max()))
-                worst = max(worst, e_k / e_p)
-                require(e_k <= 2 * e_p, f"flash_bidir_bwd {what}: d{n} "
-                        f"error {e_k:.3g} beyond one bf16 ulp, over 2x the "
-                        f"plain bf16 version's {e_p:.3g}")
-            note = (f"error beyond one bf16 ulp at most {worst:.3f}x the "
-                    f"plain bf16 version's")
-        fn = lambda: fb.flash_bidir_bwd(*args)  # noqa: E731
-        n_pairs = attn_mask_pairs(B, S, S, valid, win)
-        es = q.element_size()
-        n_keys = B * S if valid is None else int(valid.sum())
-        b_ms, b_by = bound(3 * q.numel() * es + 2 * n_keys * Hkv * D * es
-                           + 2 * kk.numel() * es
-                           + (0 if valid is None else valid.numel()),
-                           8.0 * Hq * D * n_pairs,
-                           BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
-        row = dict(max_abs_err=max(errs), device_ms=kernel_ms(fn, 20, what),
-                   ms=time_ms(fn, 20),
-                   plain_ms=time_ms(lambda: fb.flash_bidir_bwd_plain(*args),
-                                    5),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        if dt == torch.bfloat16:
-            G = Hq // Hkv
-            qt = q.transpose(1, 2).detach().requires_grad_()
-            kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2)
-                      .detach().requires_grad_() for t in (kk, v))
-            mask = None if valid is None else fb._mask(B, S, S, valid, win,
-                                                       0, DEVICE)
-            dot = o_grad.transpose(1, 2)
-            lib_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=mask)
-            lib_fb = lambda: lib_f().backward(dot)  # noqa: E731
-            row["library_ms"] = time_ms(lib_fb, 20) - time_ms(lib_f, 20)
-        rows[what] = row
-        lib = ("n/a (SDPA's masked row is NaN)" if row["library_ms"] is None
-               else f"{row['library_ms']:.4f} ms")
-        log(f"flash_bidir_bwd {what} (B {B}, S {S}, {Hq} q heads on {Hkv}, "
-            f"D {D}, {str(dt).replace('torch.', '')}, window {win}, kv_valid "
-            f"{lens}): {note}, max abs err {max(errs):.3g}, two launches "
-            f"bit for bit; device {row['device_ms']:.4f} ms (a graph of 20 "
-            f"calls), CUDA events {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-            f"{'bf16 tensor-core' if dt == torch.bfloat16 else 'f32'} peak), "
-            f"{row['device_ms'] / b_ms:.0f}x; SDPA backward {lib}")
-    return rows["qwen2-0.5b training"]
+        note = "within 1e-4 of max|grad|"
+    else:
+        plain = fb.flash_bidir_bwd_plain(*args)
+        worst = 0.0
+        for n, g, p, r in zip("qkv", got, plain, ref):
+            e_k = float(((g.float() - r).abs() - bf16_ulp(r)).max())
+            e_p = float((p.float() - r).abs().max())
+            errs.append(float((g.float() - r).abs().max()))
+            worst = max(worst, e_k / e_p)
+            require(e_k <= 2 * e_p, f"flash_bidir_bwd {what}: d{n} "
+                    f"error {e_k:.3g} beyond one bf16 ulp, over 2x the "
+                    f"plain bf16 version's {e_p:.3g}")
+        note = (f"error beyond one bf16 ulp at most {worst:.3f}x the "
+                f"plain bf16 version's")
+    fn = lambda: fb.flash_bidir_bwd(*args)  # noqa: E731
+    n_pairs = attn_mask_pairs(B, S, S, valid, win, causal)
+    es = q.element_size()
+    n_keys = B * S if valid is None else int(valid.sum())
+    b_ms, b_by = bound(3 * q.numel() * es + 2 * n_keys * Hkv * D * es
+                       + 2 * kk.numel() * es
+                       + (0 if valid is None else valid.numel()),
+                       8.0 * Hq * D * n_pairs,
+                       BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+    row = dict(max_abs_err=max(errs), device_ms=kernel_ms(fn, 20, what),
+               ms=time_ms(fn, 20),
+               plain_ms=time_ms(lambda: fb.flash_bidir_bwd_plain(*args), 5),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    if dt == torch.bfloat16:
+        G = Hq // Hkv
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+                  .detach().requires_grad_() for t in (kk, v))
+        # the causal mask alone is SDPA's is_causal; any other a bool mask
+        plain_causal = causal and valid is None and win is None
+        mask = None if (valid is None and win is None) else fb._mask(
+            B, S, S, valid, win, 0, DEVICE, causal=causal)
+        dot = o_grad.transpose(1, 2)
+        lib_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, is_causal=plain_causal)
+        lib_fb = lambda: lib_f().backward(dot)  # noqa: E731
+        row["library_ms"] = time_ms(lib_fb, 20) - time_ms(lib_f, 20)
+    lib = ("n/a (SDPA's masked row is NaN)" if row["library_ms"] is None
+           else f"{row['library_ms']:.4f} ms")
+    log(f"flash_bidir_bwd {what} (B {B}, S {S}, {Hq} q heads on {Hkv}, "
+        f"D {D}, {str(dt).replace('torch.', '')}, window {win}, kv_valid "
+        f"{lens}{', causal' if causal else ''}): {note}, max abs err "
+        f"{max(errs):.3g}, two launches bit for bit; device "
+        f"{row['device_ms']:.4f} ms (a graph of 20 calls), CUDA events "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, "
+        f"{'bf16 tensor-core' if dt == torch.bfloat16 else 'f32'} peak), "
+        f"{row['device_ms'] / b_ms:.0f}x; SDPA backward {lib}")
+    return row
 
 
 def check_no_backward_guard(gen) -> None:
@@ -1662,13 +1722,18 @@ def phase_table6(model, params, gen, with_quant: bool = True) -> dict:
     QuantPolicy(enabled=True) (MXINT4 weights, MXINT8 activations) with
     bf16 sampling, whose sampling is also held against the plain functions
     on the same (fake-quantized) hidden states at a warm and a refine step,
-    at the model's depth in DEPTH_CUTS.  Returns the launch counts of
+    at the model's depth in DEPTH_CUTS.  A model deeper than TABLE6_LAYERS
+    runs at its first TABLE6_LAYERS layers.  Returns the launch counts of
     every run."""
     from repro_torch.core import baos, diffusion, sampling
     from repro_torch.kernels import fused_head_sampling as fhs
     from repro_torch.models import layers
     from repro_torch.models.registry import build_model
     cfg = model.cfg
+    if cfg.n_layers > TABLE6_LAYERS:
+        cfg = cut_depth(cfg, TABLE6_LAYERS)
+        model = build_model(cfg, DEVICE)
+        params = dict(params, layers=params["layers"][:cfg.n_layers])
     B, P = 16, 128
     prompt = torch.randint(0, cfg.vocab - 200, (B, P), generator=gen,
                            device=DEVICE)
@@ -1759,6 +1824,12 @@ DEPTH_CUTS = {"llada-8b": 4, "moonshot-v1-16b-a3b": 6,
               "internvl2-26b": 4, "llada-moe-7b-a1b": 2,
               "whisper-medium": 4, "recurrentgemma-2b": 5,
               "mamba2-130m": 2}
+# the most layers any Table 6 run takes (phase_table6; its QuantPolicy
+# run then cuts to DEPTH_CUTS): with phase 15 and phase 2's device-offset
+# and causal cases the script took 903.3 s, then 1,109.5 s on a host
+# whose unchanged phases ran 1.2-1.3x longer, so llada-8b's Table 6 runs,
+# ~70 s at 32 layers, went to 8
+TABLE6_LAYERS = 8
 
 
 def cut_depth(cfg, n_layers: int, why: str = "for the script's time limit"):
@@ -4309,6 +4380,43 @@ def plain_attention():
         fb.flash_bidir = saved
 
 
+def grad_gates(names, grads_k, grads_p, grads32, what: str) -> tuple:
+    """check_train_step's gates on each leaf's gradient through the
+    kernels (grads_k), through plain attention (grads_p) and in f32
+    (grads32): nonzero where plain's is; cosine(kernels, plain) >= 0.999
+    where plain reaches 0.999 against f32, else the kernels' cosine to
+    f32 at least plain's less 0.005.  Returns (worst cosine to plain and
+    its leaf, worst margin to f32 and its leaf, leaves held to f32)."""
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(
+            a.reshape(1, -1), b.reshape(1, -1)))
+
+    worst_kp, worst_f32, n_f32 = (2.0, ""), (2.0, ""), 0
+    for name, gk, gp, g32 in zip(names, grads_k, grads_p, grads32):
+        gk, gp = gk.float(), gp.float()
+        lost = int(((gp != 0) & (gk == 0)).sum())
+        require(not (gp.any() and not gk.any()),
+                f"{what}: the gradient of {name} is zero through the "
+                f"kernels and not through plain attention")
+        require(lost <= 1e-4 * gp.numel(),
+                f"{what}: {name} has {lost} zero gradients where plain "
+                f"attention's are nonzero")
+        if not gp.any():
+            continue
+        c_kp, c_k32, c_p32 = cos(gk, gp), cos(gk, g32), cos(gp, g32)
+        if c_p32 >= 0.999:
+            worst_kp = min(worst_kp, (c_kp, name))
+            require(c_kp >= 0.999, f"{what}: {name} cosine(kernels, "
+                                   f"plain) {c_kp:.6f} < 0.999")
+        else:
+            n_f32 += 1
+            worst_f32 = min(worst_f32, (c_k32 - c_p32, name))
+            require(c_k32 >= c_p32 - 0.005,
+                    f"{what}: {name} cosine to f32 {c_k32:.6f} through "
+                    f"the kernels, {c_p32:.6f} through plain attention")
+    return worst_kp, worst_f32, n_f32
+
+
 def check_train_step(gen) -> dict:
     """(a) One train step of qwen2-0.5b at full width and depth (seeded
     random weights, bf16) at JAX's train.py defaults (B 8, S 128): the
@@ -4372,33 +4480,8 @@ def check_train_step(gen) -> dict:
             f"plain attention launched {plain_counts}")
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
 
-    def cos(a, b):
-        return float(torch.nn.functional.cosine_similarity(
-            a.reshape(1, -1), b.reshape(1, -1)))
-
-    worst_kp, worst_f32, n_f32 = (2.0, ""), (2.0, ""), 0
-    for name, gk, gp, g32 in zip(names, grads_k, grads_p, grads32):
-        gk, gp = gk.float(), gp.float()
-        lost = int(((gp != 0) & (gk == 0)).sum())
-        require(not (gp.any() and not gk.any()),
-                f"train step: the gradient of {name} is zero through the "
-                f"kernels and not through plain attention")
-        require(lost <= 1e-4 * gp.numel(),
-                f"train step: {name} has {lost} zero gradients where plain "
-                f"attention's are nonzero")
-        if not gp.any():
-            continue
-        c_kp, c_k32, c_p32 = cos(gk, gp), cos(gk, g32), cos(gp, g32)
-        if c_p32 >= 0.999:
-            worst_kp = min(worst_kp, (c_kp, name))
-            require(c_kp >= 0.999, f"train step: {name} cosine(kernels, "
-                                   f"plain) {c_kp:.6f} < 0.999")
-        else:
-            n_f32 += 1
-            worst_f32 = min(worst_f32, (c_k32 - c_p32, name))
-            require(c_k32 >= c_p32 - 0.005,
-                    f"train step: {name} cosine to f32 {c_k32:.6f} through "
-                    f"the kernels, {c_p32:.6f} through plain attention")
+    worst_kp, worst_f32, n_f32 = grad_gates(names, grads_k, grads_p,
+                                            grads32, "train step")
     log(f"phase 11a: {TRAIN_ARCH} full width and depth ({cfg.n_layers} "
         f"layers, d {cfg.d_model}, {cfg.n_heads} q heads on "
         f"{cfg.n_kv_heads}, V {cfg.vocab}, {cfg.dtype}), B 8 x S 128, loss "
@@ -7120,6 +7203,659 @@ def phase14_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the query offset read from device memory and the causal mode
+# (their kernel cases run in phase 2)
+# ---------------------------------------------------------------------------
+
+# phase 15's time budget, seconds, its process's start included (stated
+# before its first run)
+PHASE15_BUDGET_S = 45.0
+PHASE15_COUNTS = "phase 15 counts "
+# recurrentgemma-2b at its least depth with two attention layers (3k + 2)
+PHASE15_RG_LAYERS = 8
+PHASE15_LLADA_LAYERS = 4
+PHASE15_TRAIN_LAYERS = 8
+# graphed generate past the 2,048-position window: a 4,224-long canvas
+PHASE15_GEN = dict(B=2, prompt=4096, gen=128, block=64, steps=8)
+# the decode step at these cells' sequence lengths, at these global
+# batches (decode_32k's published 128 cut to 2 for the budget)
+PHASE15_DECODE = (("decode_32k", 2), ("long_500k", 1))
+# check_device_offset's key counts: a canvas past the window (4,224 +
+# 128) and decode_32k's
+OFFSET_KEYS = (4352, 32768)
+
+
+def tc_tiles(Sq: int, G: int, Skv: int, S2: int, D: int, baos: bool,
+             window, causal: bool, off: int) -> tuple:
+    """(key tiles walked, key tiles) of flash_bidir's tensor-core route,
+    summed over the CTAs of one (batch row, KV head): a count from shapes,
+    not a measurement, by the kernel's CTA plan (csrc/flash_bidir.cu
+    launch_bf16, at the warps analysis/registry states) and tile_range,
+    for CTAs whose rows each find a valid key in reach (no second walk)."""
+    from repro_torch.analysis import registry
+    DT = next(t for t in (32, 64, 128, 256) if t >= D)
+    max_w = registry._flash_tc_max_warps(DT, 3 if baos else 1)
+    rows = G * Sq
+    per = 16 * (max_w if rows >= 16 * max_w else -(-rows // 16))
+    far = 1 << 30
+    walked = total = 0
+    for r_lo in range(0, rows, per):
+        qmin = off + r_lo // G
+        qmax = off + (min(r_lo + per, rows) - 1) // G
+        plo = qmin - window + 1 if window else -far
+        phi = qmax if causal else (qmax + window - 1 if window else far)
+        for lo, hi, n in ((plo, phi, Skv), (plo - off, phi - off, S2)):
+            jlo, jhi = max(lo, 0), min(hi, n - 1)
+            if jlo <= jhi:
+                walked += jhi // 32 - jlo // 32 + 1
+        total += -(-Skv // 32) + -(-S2 // 32)
+    return walked, total
+
+
+def offset_case(q, kk, v, valid, window, off, kind, what, extra=None,
+                causal=False) -> float:
+    """flash_bidir at the query offset ``off`` given as a device tensor
+    (``kind``: "0-d int32" as the step builders pass a block start, "(B,)
+    int64" as the graphed steps hold it): bit for bit the call with the
+    host int, and within one bf16 ulp + 1e-6 of the plain version given
+    the same tensor.  Returns the max abs error."""
+    from repro_torch.kernels import flash_bidir as fb
+    B = q.shape[0]
+    t = (torch.full((), off, dtype=torch.int32, device=DEVICE)
+         if kind == "0-d int32" else
+         torch.full((B,), off, dtype=torch.int64, device=DEVICE))
+    kw = dict(window=window, extra_kv=extra, causal=causal)
+    got = fb.flash_bidir(q, kk, v, valid, q_offset=t, **kw)
+    host = fb.flash_bidir(q, kk, v, valid, q_offset=off, **kw)
+    want = fb.flash_bidir_plain(q, kk, v, valid, q_offset=t, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    excess = float((err - bf16_ulp(want)).max())
+    require(torch.equal(got, host),
+            f"{what}: the device offset differs from the host int")
+    require(excess <= 1e-6, f"{what}: beyond one bf16 ulp + 1e-6 of plain")
+    log(f"{what}, offset {off} as a {kind} tensor: bit for bit the host "
+        f"int's, max abs err {float(err.max()):.3g} against plain")
+    return float(err.max())
+
+
+def offset_row(q, kk, v, valid, window, off, what, extra=None) -> dict:
+    """The device-offset call's row: device time (a graph of 20 calls),
+    CUDA events, plain, the byte bound of the keys the window reaches
+    (and the operations of the (row, key) pairs it keeps), SDPA with the
+    same boolean mask over K/V repeated to every q head (the second
+    source concatenated); the share of key tiles the kernel skips is
+    logged, counted from shapes (tc_tiles)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_bidir as fb
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = kk.shape[1], kk.shape[2]
+    t = torch.full((B,), off, dtype=torch.int64, device=DEVICE)
+    mask = fb._mask(B, Sq, Skv, valid, window, off, DEVICE)
+    k_all, v_all, S2 = kk, v, 0
+    if extra is not None:
+        k2, v2, _ = extra
+        S2 = k2.shape[1]
+        mask = torch.cat([mask, fb._mask(
+            B, Sq, S2, None, window, off, DEVICE,
+            kpos=off + torch.arange(S2, device=DEVICE))], -1)
+        k_all, v_all = torch.cat([kk, k2], 1), torch.cat([v, v2], 1)
+    n_keys = int(mask[:, 0].any(1).sum())          # keys some row reaches
+    n_pairs = int(mask.sum())
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * n_keys * Hkv * D * 2
+                       + n_keys, 4.0 * Hq * D * n_pairs, BF16_FLOPS)
+    args = (q, kk, v, valid)
+    kw = dict(window=window, q_offset=t, extra_kv=extra)
+    fn = lambda: fb.flash_bidir(*args, **kw)  # noqa: E731
+    qt = q.transpose(1, 2)
+    kt = k_all.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+    vt = v_all.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask)
+    walked, total = tc_tiles(Sq, Hq // Hkv, Skv, S2, D, False, window,
+                             False, off)
+    row = dict(device_ms=kernel_ms(fn, 20, what), ms=time_ms(fn, 20),
+               plain_ms=time_ms(lambda: fb.flash_bidir_plain(*args, **kw),
+                                3),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=kernel_ms(lib, 20, f"{what} sdpa"))
+    log(f"{what}, offset {off} from device memory: device "
+        f"{row['device_ms']:.4f} ms (a graph of 20 calls), CUDA events "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}: the {n_keys} keys the window reaches), "
+        f"{row['device_ms'] / b_ms:.1f}x; key tiles skipped, counted "
+        f"from shapes {total - walked} of {total} "
+        f"({1 - walked / total:.1%}); SDPA "
+        f"with the boolean mask, K/V repeated to {Hq} heads, device "
+        f"{row['library_ms']:.4f} ms")
+    return row
+
+
+def check_device_offset(gen) -> dict:
+    """Phase 15's device-offset kernel cases (run in phase 2): flash_bidir
+    at recurrentgemma-2b's attention, q (2, 64, 10 on 1 KV head, 256) bf16,
+    window 2048, ragged kv_valid, over 4,352 and 32,768 keys at offsets 0,
+    2,000, the middle and the last block (offset_case: bit for bit the
+    host int's, within one bf16 ulp + 1e-6 of plain), and on 4,352 keys a
+    batch row with no valid key in the last block's reach (the kernel's
+    second walk over every tile); route B over 384 + 64 keys with a window
+    of 128 likewise, and route B causal.  The 32,768-key middle case and
+    route B's are timed (offset_row).  Returns the flash_bidir_offset
+    row."""
+    B, Sq, Hq, Hkv, D, W = 2, 64, 10, 1, 256, 2048
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen,
+                           device=DEVICE).to(torch.bfloat16)
+    row = None
+    short, long_ = OFFSET_KEYS
+    for Skv, lens in ((short, (short, short - 352)), (short, (short, 100)),
+                      (long_, (long_, long_ - 300))):
+        q, kk, v = r(B, Sq, Hq, D), r(B, Skv, Hkv, D), r(B, Skv, Hkv, D)
+        valid = torch.arange(Skv, device=DEVICE)[None, :] < torch.tensor(
+            lens, device=DEVICE)[:, None]
+        errs = []
+        offs = (0, 2000, (Skv - Sq) // 2 // 64 * 64, Skv - Sq)
+        for i, off in enumerate(offs):
+            errs.append(offset_case(
+                q, kk, v, valid, W, off, ("0-d int32", "(B,) int64")[i % 2],
+                f"flash_bidir offset ({B}, {Sq}, {Hq} on {Hkv}, {D}) over "
+                f"{Skv} keys, kv_valid {lens}, window {W}"))
+        if Skv == long_:
+            row = offset_row(q, kk, v, valid, W, offs[2],
+                             f"flash_bidir offset over {Skv} keys")
+            row["max_abs_err"] = max(errs)
+        del q, kk, v, valid
+    # route B: the split refine's layout at recurrentgemma-2b's widths,
+    # the cache's stale copy of the block masked
+    Skv, W2 = 384, 128
+    q, kk, v = r(B, Sq, Hq, D), r(B, Skv, Hkv, D), r(B, Skv, Hkv, D)
+    k2, v2 = r(B, Sq, Hkv, D), r(B, Sq, Hkv, D)
+    pos = torch.arange(Skv, device=DEVICE)
+    for i, off in enumerate((0, 128, 192, Skv - Sq)):
+        valid = ~((pos >= off) & (pos < off + Sq))[None].expand(B, Skv)
+        valid = valid.contiguous()
+        for causal in (False, True):
+            offset_case(q, kk, v, valid, W2, off,
+                        ("0-d int32", "(B,) int64")[i % 2],
+                        f"route B{' causal' if causal else ''} ({B}, {Sq}, "
+                        f"{Hq} on {Hkv}, {D}) over {Skv} + {Sq} keys, window "
+                        f"{W2}", extra=(k2, v2, None), causal=causal)
+        if off == 192:
+            offset_row(q, kk, v, valid, W2, off,
+                       f"route B over {Skv} + {Sq} keys, window {W2}",
+                       extra=(k2, v2, None))
+    return row
+
+
+def check_causal(gen) -> tuple:
+    """Phase 15's causal kernel cases (run in phase 2): flash_bidir with
+    causal=True at llada-8b's (4, 96, 32 on 32, 128) and at D 256 with a
+    window of 64 (2, 256, 10 on 1), bf16 and f32, ragged kv_valid (at D
+    256 a row whose one valid key falls out of the window's reach: the
+    second walk), within their routes' gates of the plain version (bf16
+    one ulp + 1e-6, f32 1e-5 of max |out|); flash_bidir_bwd with
+    causal=True at the same shapes (check_attn_backward's gates and
+    yardstick).  The bf16 (4, 96, 32, 128) forward timed beside its bound
+    and SDPA's is_causal.  Returns the forward's and the backward's rows
+    at that shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_bidir as fb
+    fwd = None
+    for B, S, Hq, Hkv, D, win, lens in ((4, 96, 32, 32, 128, None,
+                                         (96, 48, 37, 1)),
+                                        (2, 256, 10, 1, 256, 64, (256, 1))):
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, S, Hq, D, generator=gen, device=DEVICE).to(dt)
+            kk, v = (torch.randn(B, S, Hkv, D, generator=gen,
+                                 device=DEVICE).to(dt) for _ in range(2))
+            valid = torch.arange(S, device=DEVICE)[None, :] < torch.tensor(
+                lens, device=DEVICE)[:, None]
+            got = fb.flash_bidir(q, kk, v, valid, window=win, causal=True)
+            want = fb.flash_bidir_plain(q, kk, v, valid, window=win,
+                                        causal=True)
+            err = (got.float() - want.float()).abs()
+            what = (f"flash_bidir causal {str(dt).replace('torch.', '')} "
+                    f"({B}, {S}, {Hq} on {Hkv}, {D}) window {win} kv_valid "
+                    f"{lens}")
+            if dt == torch.bfloat16:
+                excess = float((err - bf16_ulp(want)).max())
+                require(excess <= 1e-6, f"{what}: beyond one bf16 ulp + "
+                                        f"1e-6 of plain")
+            else:
+                top = float(want.abs().max())
+                require(float(err.max()) <= 1e-5 * top,
+                        f"{what}: beyond 1e-5 of max |out|")
+            log(f"{what}: max abs err {float(err.max()):.3g} against plain")
+            if dt == torch.bfloat16 and D == 128:
+                fwd = dict(max_abs_err=float(err.max()))
+                # timed without kv_valid: SDPA's is_causal is the mask alone
+                fn = lambda: fb.flash_bidir(  # noqa: E731
+                    q, kk, v, causal=True)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, is_causal=True)
+                n_pairs = attn_mask_pairs(B, S, S, None, None, True)
+                b_ms, b_by = bound(4 * q.numel() * 2, 4.0 * Hq * D * n_pairs,
+                                   BF16_FLOPS)
+                walked, total = tc_tiles(S, Hq // Hkv, S, 0, D, False, None,
+                                         True, 0)
+                fwd.update(device_ms=kernel_ms(fn, 20, what),
+                           ms=time_ms(fn, 20),
+                           plain_ms=time_ms(lambda: fb.flash_bidir_plain(
+                               q, kk, v, causal=True), 5),
+                           bound_ms=b_ms, bound_by=b_by,
+                           library_ms=kernel_ms(lib, 20, f"{what} sdpa"))
+                log(f"flash_bidir causal bf16 ({B}, {S}, {Hq} on {Hkv}, "
+                    f"{D}), no kv_valid: device {fwd['device_ms']:.4f} ms "
+                    f"(a graph of 20 calls), CUDA events {fwd['ms']:.4f} "
+                    f"ms, plain {fwd['plain_ms']:.4f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by}), "
+                    f"{fwd['device_ms'] / b_ms:.1f}x; key tiles skipped, "
+                    f"counted from shapes {total - walked} of {total} "
+                    f"({1 - walked / total:.1%}); SDPA is_causal device "
+                    f"{fwd['library_ms']:.4f} ms")
+    bwd = attn_backward_case(gen, "causal llada-8b shape", 4, 96, 32, 32,
+                             128, torch.bfloat16, None, None, causal=True)
+    for dt in (torch.bfloat16, torch.float32):
+        attn_backward_case(gen, "causal D 256 window 64 kv_valid", 2, 256,
+                           10, 1, 256, dt, 64, (256, 129), causal=True)
+    attn_backward_case(gen, "causal f32 llada-8b shape", 4, 96, 32, 32, 128,
+                       torch.float32, None, (96, 48, 37, 1), causal=True)
+    return fwd, bwd
+
+
+@contextlib.contextmanager
+def no_plain_attention():
+    """flash_bidir's plain versions (forward and backward) raise while
+    this is open: attention on the card runs the kernels alone."""
+    from repro_torch.kernels import flash_bidir as fb
+
+    def refuse(*_, **__):
+        raise Failure("a plain attention version ran on the card")
+
+    names = ("flash_bidir_plain", "flash_bidir_bwd_plain")
+    saved = [getattr(fb, n) for n in names]
+    for n in names:
+        setattr(fb, n, refuse)
+    try:
+        yield
+    finally:
+        for n, f in zip(names, saved):
+            setattr(fb, n, f)
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def phase15_generate(model, params, gen) -> dict:
+    """15b: recurrentgemma-2b generate past its window (PHASE15_GEN, BAOS
+    as phase 8: minmax, mxint4) in cache modes dual and prefix, eager (a
+    host block start) and graphed (the block start the graphs read from
+    device memory): tokens equal, no mask id left; eager launches
+    flash_bidir every step, graphed flash_bidir on warm steps and
+    flash_bidir_offset on every refine, once an attention layer each.
+    Returns the launch counts."""
+    from repro_torch.core import baos, diffusion
+    from repro_torch.kernels import _build
+    cfg = model.cfg
+    B, P, G, L, T = (PHASE15_GEN[k] for k in ("B", "prompt", "gen", "block",
+                                              "steps"))
+    n_attn, n_blocks = model.n_triples, G // L
+    prompt = torch.randint(0, cfg.vocab - 200, (B, P), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    total = {}
+    for mode in ("dual", "prefix"):
+        dcfg = diffusion.DiffusionConfig(
+            gen_length=G, block_length=L, steps_per_block=T,
+            cache_mode=mode, baos=baos.BAOSConfig(
+                enabled=True, variant="minmax", kv_format="mxint4"))
+        runs = {}
+        for name, jit in (("eager", False), ("graphed, capturing", True),
+                          ("graphed", True)):
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = diffusion.generate(model, params, prompt, dcfg, seed=7,
+                                     jit_steps=jit)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = dict(_build.launch_counts)
+            what = (f"phase 15b: recurrentgemma-2b generate {mode} + BAOS "
+                    f"{name}, canvas {P + G}")
+            require(not bool((out[:, P:] == cfg.mask_id).any()),
+                    f"{what}: mask ids left")
+            want = {"flash_bidir": n_blocks * (1 if jit else T) * n_attn,
+                    "flash_bidir_offset": (n_blocks * (T - 1) * n_attn
+                                           if jit else 0)}
+            got = {k: counts[k] for k in want}
+            # the capturing run's counts are not those of a replay (as in
+            # phase 12c): only its tokens are held
+            if name != "graphed, capturing":
+                require(got == want, f"{what}: attention launches {got}, "
+                                     f"want {want}")
+                expect_launches(counts, set(path_kernels(model, dcfg, True))
+                                | {k for k, n in want.items() if n}, what)
+                add_counts(total, counts)
+            runs[name] = out
+            log(f"{what}: {n_blocks * T} steps, step wall "
+                f"{dt / (n_blocks * T) * 1e3:.2f} ms, {B * G / dt:.1f} "
+                f"tokens/s, launches "
+                f"{ {n: v for n, v in counts.items() if v} }")
+        for name in ("graphed, capturing", "graphed"):
+            require(torch.equal(runs[name], runs["eager"]),
+                    f"phase 15b: generate {mode} {name} differs from eager")
+        diffusion.clear_step_graphs()
+    log("phase 15b: graphed generate equals eager past the window in "
+        "modes dual and prefix (the hybrid keeps no split cache, as in JAX)")
+    return total
+
+
+def seeded_cache(model, B: int, S: int, gen) -> dict:
+    """The model's cache with every leaf drawn from ``gen``: K/V and
+    states normal, calibration scales in [0.5, 1.5), centers small."""
+    cache = model.init_cache(B, S)
+    for name, t in cache.items():
+        if name.endswith("scale"):
+            t.copy_(torch.rand(t.shape, generator=gen, device=DEVICE) + 0.5)
+        elif name.endswith("center"):
+            t.copy_(torch.randn(t.shape, generator=gen, device=DEVICE) * 0.1)
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen, device=DEVICE))
+    return cache
+
+
+def phase15_decode(model, params, gen) -> dict:
+    """15c: build_step(decode) under ServePolicy() at decode_32k's and
+    long_500k's sequence lengths (PHASE15_DECODE's batches), the block in
+    the middle of the canvas, from a cache drawn from a seed: the step
+    with the 0-d int32 block start input_specs declares equals the step
+    with the host int bit for bit (canvas and every cache leaf); the
+    device step launches flash_bidir_offset and the host step flash_bidir
+    once an attention layer.  ms a step.  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.configs import base
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    cfg = model.cfg
+    n_attn = model.n_triples
+    policy = steps.ServePolicy()
+    total = {}
+    for cell, Bd in PHASE15_DECODE:
+        pub = base.SHAPES[cell]
+        shape = dataclasses.replace(pub, global_batch=Bd)
+        S, L = shape.seq_len, shape.block_length
+        if Bd != pub.global_batch:
+            log(f"phase 15c: {cell} global batch cut from "
+                f"{pub.global_batch} to {Bd} for the phase's budget")
+        dec, _ = steps.build_step(model, shape, policy)
+        cache = seeded_cache(model, Bd, S, gen)
+        bs = S // 2
+        x = torch.randint(0, cfg.vocab - 200, (Bd, S), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+        x[:, bs:bs + L] = cfg.mask_id
+        k = torch.full((Bd,), L // policy.steps_per_block, device=DEVICE,
+                       dtype=torch.int32)
+        outs, walls = {}, {}
+        for name, start in (("device", torch.full(
+                (), bs, dtype=torch.int32, device=DEVICE)), ("host", bs)):
+            c = clone_tree(cache)
+            _build.reset_launch_counts()
+            x1, c1 = dec(params, x, c, start, k, 0, {})
+            torch.cuda.synchronize()
+            counts = dict(_build.launch_counts)
+            want = {"flash_bidir_offset" if name == "device"
+                    else "flash_bidir": n_attn}
+            want.update(baos_mx_quant=2 * n_attn, stablemax_sampling=1,
+                        topk_mask=1)
+            got = {n: v for n, v in counts.items() if v}
+            require(got == want, f"phase 15c {cell} {name} block start: "
+                                 f"launches {got}, want {want}")
+            add_counts(total, counts)
+            outs[name] = (x1, c1)
+            ts = []
+            for _ in range(3):
+                c2 = clone_tree(cache)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dec(params, x, c2, start, k, 0, {})
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+                del c2
+            walls[name] = float(np.median(ts))
+        (xd, cd), (xh, ch) = outs["device"], outs["host"]
+        require(torch.equal(xd, xh), f"phase 15c {cell}: the canvas with a "
+                                     f"device block start differs")
+        for name in cd:
+            require(torch.equal(cd[name], ch[name]),
+                    f"phase 15c {cell}: cache leaf {name} differs")
+        n_commit = int((xd[:, bs:bs + L] != cfg.mask_id).sum())
+        require(n_commit == Bd * int(k[0]),
+                f"phase 15c {cell}: {n_commit} tokens committed")
+        kv_gib = sum(cache[n].numel() * cache[n].element_size()
+                     for n in ("k", "v")) / 2 ** 30
+        log(f"phase 15c: recurrentgemma-2b decode at {cell}'s length {S}, "
+            f"batch {Bd}, block {L} at {bs}, K/V {kv_gib:.3f} GiB: the "
+            f"device block start equals the host int bit for bit (canvas "
+            f"and every cache leaf), {n_commit} tokens committed; step "
+            f"wall median of 3: device {walls['device']:.2f} ms, host "
+            f"{walls['host']:.2f} ms")
+        del cache, outs, xd, cd, xh, ch, x
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase15_causal(gen) -> dict:
+    """15d: llada-8b at full width, PHASE15_LLADA_LAYERS layers (a depth
+    cut), attn_mode "causal", bf16, B 4 x 384 (prompt 128 + 256): the
+    forward without a cache, a warm step (BAOS mxint4, the block at 128)
+    and a dual refine from a host and from a device block start (each from
+    the same warm cache): the logits within 5% of the largest logit of the
+    same calls with every kernel plain (phase 13b's gate), the host and
+    device refines bit for bit equal; flash_bidir_causal once a layer a
+    call.  Returns the launch counts."""
+    from repro_torch.configs import base
+    from repro_torch.core import baos, diffusion
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import build_model
+    cfg = cut_depth(dataclasses.replace(base.get_config("llada-8b"),
+                                        attn_mode="causal"),
+                    PHASE15_LLADA_LAYERS)
+    model = build_model(cfg, DEVICE)
+    params = model.init(seed=0)
+    nl, B, P, G, L = cfg.n_layers, 4, 128, 256, 64
+    x = torch.randint(0, cfg.vocab - 200, (B, P + G), generator=gen,
+                      device=DEVICE, dtype=torch.int32)
+    x[:, P:] = cfg.mask_id
+    dcfg = diffusion.DiffusionConfig(
+        gen_length=G, block_length=L, steps_per_block=8, cache_mode="dual",
+        baos=baos.BAOSConfig(enabled=True, kv_format="mxint4"))
+    total = {}
+
+    def calls(plain: bool):
+        """(name, logits) of the four calls and their launch counts."""
+        out = {}
+        cache = model.init_cache(B, P + G)
+        ctx = all_plain() if plain else no_plain_attention()
+        with torch.no_grad(), ctx:
+            _build.reset_launch_counts()
+            out["no cache"], _ = model.forward(params, x)
+            out["warm"], _ = diffusion.warm_step(model, params, x, cache, P,
+                                                 dcfg)
+            warm = clone_tree(cache)
+            out["refine, host start"], _ = diffusion.refine_step(
+                model, params, x, cache, P, dcfg)
+            out["refine, device start"], _ = diffusion.refine_step(
+                model, params, x, warm, torch.full((1,), P, device=DEVICE,
+                                                   dtype=torch.int64), dcfg)
+            torch.cuda.synchronize()
+        return out, dict(_build.launch_counts)
+
+    got, counts = calls(False)
+    want = {"flash_bidir_causal": 4 * nl, "baos_mx_quant": 6 * nl}
+    require({n: v for n, v in counts.items() if v} == want,
+            f"phase 15d: launches {counts}, want {want}")
+    add_counts(total, counts)
+    ref, _ = calls(True)
+    require(torch.equal(got["refine, host start"],
+                        got["refine, device start"]),
+            "phase 15d: the refine with a device block start differs from "
+            "the host int's")
+    for name, lg in got.items():
+        err = float((lg.float() - ref[name].float()).abs().max())
+        top = float(ref[name].float().abs().max())
+        require(err <= 0.05 * top, f"phase 15d {name}: logits {err} from "
+                                   f"plain (5% of {top})")
+        log(f"phase 15d: causal llada-8b ({nl} layers) {name} "
+            f"{tuple(lg.shape)}: logits within {err:.4g} of plain "
+            f"({err / top:.2%} of the largest, {top:.4g}; bound 5%)")
+    log(f"phase 15d: the refine with a device block start equals the host "
+        f"int's bit for bit; launches {counts}")
+    del model, params, got, ref
+    free()
+    return total
+
+
+def phase15_train(gen) -> dict:
+    """15e: one train step of qwen2-0.5b at full width,
+    PHASE15_TRAIN_LAYERS layers (a depth cut), attn_mode "causal", B 8 x
+    S 128 (phase 11a's batch): the loss and every gradient through the
+    kernels (flash_bidir_causal and flash_bidir_bwd_causal once a layer
+    each, no plain attention), through plain attention under autograd and
+    in f32; phase 11a's gates (loss within 1e-3 relative, grad_gates).
+    Returns the launch counts."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import base
+    from repro_torch.core import diffusion
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import build_model
+    cfg = cut_depth(dataclasses.replace(base.get_config(TRAIN_ARCH),
+                                        attn_mode="causal"),
+                    PHASE15_TRAIN_LAYERS, "for the phase's budget")
+    nl = cfg.n_layers
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                        global_batch=8, seed=0))
+    tokens = torch.from_numpy(corpus.batch(0)).to(DEVICE, torch.int64)
+
+    def loss_grads(model, params):
+        leaves = tree_lib.leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = diffusion.masked_diffusion_loss(
+            model, params, tokens, diffusion.step_generator(0, 0, DEVICE))
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    model = build_model(cfg, DEVICE)
+    params = model.init(seed=0)
+    names = [k for k, _ in tree_lib.flatten_with_paths(params)]
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), DEVICE)
+    params32 = tree_lib.tree_map(lambda t: t.detach().float(), params)
+    with plain_attention():
+        _, grads32 = loss_grads(model32, params32)
+        loss_p, grads_p = loss_grads(model, params)
+    del params32, model32
+    with no_plain_attention():
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_k, grads_k = loss_grads(model, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+    want = {"flash_bidir_causal": nl, "flash_bidir_bwd_causal": nl}
+    require({n: v for n, v in counts.items() if v} == want,
+            f"phase 15e: launches {counts}, want {want}")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    require(rel <= 1e-3, f"phase 15e: loss differs by {rel:.3g} (> 1e-3)")
+    worst_kp, worst_f32, n_f32 = grad_gates(names, grads_k, grads_p,
+                                            grads32, "phase 15e")
+    log(f"phase 15e: causal {TRAIN_ARCH} ({nl} layers, {cfg.dtype}), B 8 x "
+        f"S 128: loss {float(loss_k):.6f} through the kernels "
+        f"({wall * 1e3:.1f} ms, the first call), {float(loss_p):.6f} "
+        f"through plain attention, relative difference {rel:.3g}; worst "
+        f"cosine(kernels, plain) {worst_kp[0]:.6f} ({worst_kp[1]}) over "
+        f"the {len(names) - n_f32} leaves plain fixes to 0.999 of f32"
+        + (f"; on the other {n_f32} the kernels' cosine to f32 less "
+           f"plain's at worst {worst_f32[0]:+.6f} ({worst_f32[1]})"
+           if n_f32 else "")
+        + f"; launches { {n: v for n, v in counts.items() if v} }")
+    del model, params, grads_k, grads_p, grads32
+    free()
+    return counts
+
+
+def phase15(gen) -> dict:
+    """Phase 15: recurrentgemma-2b at full width (PHASE15_RG_LAYERS
+    layers) past its window, 15b graphed generate and 15c the decode
+    step; 15d causal llada-8b; 15e a causal train step.  The kernels alone run attention
+    (no_plain_attention) and sampling (no_plain).  Returns the launch
+    counts."""
+    from repro_torch.configs import base
+    from repro_torch.models.registry import build_model
+    t0 = time.perf_counter()
+    cfg = cut_depth(base.get_config("recurrentgemma-2b"), PHASE15_RG_LAYERS,
+                    "for the phase's budget (two attention layers: the "
+                    "arch needs 3k + 2)")
+    model = build_model(cfg, DEVICE)
+    params = model.init(seed=0)
+    total = {}
+    with no_plain(), no_plain_attention():
+        add_counts(total, phase15_generate(model, params, gen))
+        add_counts(total, phase15_decode(model, params, gen))
+    del model, params
+    free()
+    with no_plain():
+        add_counts(total, phase15_causal(gen))
+    add_counts(total, phase15_train(gen))
+    log(f"phase 15 body: {time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return total
+
+
+def phase15_process() -> dict:
+    """Phase 15 in a process of its own, as phase 11: its models load and
+    free apart from the main process's.  Returns its launch counts."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c",
+                        "import sys, chip_smoke; "
+                        "sys.exit(chip_smoke.phase15_main())"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    counts = None
+    for line in r.stdout.splitlines():
+        if line.startswith(PHASE15_COUNTS):
+            counts = json.loads(line[len(PHASE15_COUNTS):])
+        else:
+            log(line)
+    require(r.returncode == 0 and counts is not None,
+            f"phase 15 process: exit {r.returncode}: {r.stderr[-3000:]}")
+    log(f"phase 15 (its own process, start included): "
+        f"{time.perf_counter() - t0:.1f} s against its budget of "
+        f"{PHASE15_BUDGET_S:.0f} s")
+    return counts
+
+
+def phase15_main() -> int:
+    """The body of phase 15's process."""
+    from repro_torch import device
+    from repro_torch.kernels import _build
+    device.resolve("cuda")
+    _build.build()
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    try:
+        counts = phase15(gen)
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    print(PHASE15_COUNTS + json.dumps(counts), flush=True)
+    return 0
+
+
 def dryrun_line() -> None:
     """The dry run's llada-8b decode_32k cell at (16, 16), traced on meta
     tensors (launch/dryrun.py): no card time."""
@@ -7314,6 +8050,8 @@ def main() -> int:
         for name, n in phase_tp_ranks().items():
             launches[name] += n
         dryrun_line()
+        for name, n in phase15_process().items():
+            launches[name] += n
         log(f"phase 12: {t12:.1f} s (budget {PHASE12_BUDGET_S} s)")
         t13 = sum(PHASE13_S.values())
         log(f"phase 13: {t13:.1f} s ("

@@ -308,14 +308,18 @@ def smem_specs() -> List[SmemSpec]:
         out.append(SmemSpec(lib, f"topk_mask_kernel_cta<{kt}>", 1024 * 4, 0))
     out.append(SmemSpec(lib, "empty_kernel", 0, 0))
     lib = "flash_bidir"
+    # each kernel without and with REACH (a window or the causal mask)
+    reach = ("", ", true")
     for dpl in (1, 2, 4, 8):
-        out.append(SmemSpec(lib, f"flash_bidir_kernel<float, {dpl}>", 0,
-                            _flash_f32_dynamic(32 * dpl)))
+        for r in reach:
+            out.append(SmemSpec(lib, f"flash_bidir_kernel<float, {dpl}{r}>",
+                                0, _flash_f32_dynamic(32 * dpl)))
     for dt in (32, 64, 128, 256):
         for qs, name in ((1, "1"), (3, "SPLIT")):
-            out.append(SmemSpec(
-                lib, f"flash_bidir_tc_kernel<{dt}, {name}>", 0,
-                _flash_tc_dynamic(dt, qs, _flash_tc_max_warps(dt, qs))))
+            for r in reach:
+                out.append(SmemSpec(
+                    lib, f"flash_bidir_tc_kernel<{dt}, {name}{r}>", 0,
+                    _flash_tc_dynamic(dt, qs, _flash_tc_max_warps(dt, qs))))
     lib = "flash_bidir_bwd"
     for t in ("float", "__nv_bfloat16"):
         for dpl in (1, 2, 4, 8):

@@ -34,12 +34,17 @@ KERNELS = ("fused_head_sampling", "topk_mask", "flash_bidir",
 # second K/V source (route B, the split cache's refine) and Stable-Max's
 # vocab-shard entry (route C, the decode step's sharded logit columns); a
 # sampled launch of route A or C (temperature > 0: the Gumbel partials)
-# counts apart from the greedy one
+# counts apart from the greedy one; attention over the cache alone whose
+# mask reads its query offset from device memory, causal attention and its
+# backward (kernels/flash_bidir.count_name)
 ROUTES = {"fused_head_sampling_shard": "fused_head_sampling",
           "flash_bidir_split": "flash_bidir",
           "stablemax_sampling_shard": "stablemax_sampling",
           "fused_head_sampling_shard_sampled": "fused_head_sampling",
-          "stablemax_sampling_shard_sampled": "stablemax_sampling"}
+          "stablemax_sampling_shard_sampled": "stablemax_sampling",
+          "flash_bidir_offset": "flash_bidir",
+          "flash_bidir_causal": "flash_bidir",
+          "flash_bidir_bwd_causal": "flash_bidir_bwd"}
 COUNTED = KERNELS + tuple(ROUTES)
 # no --use_fast_math: the MX exponent rule and the Gumbel log need the
 # full-precision log2f/logf, and divisions must stay IEEE divisions

@@ -1,16 +1,34 @@
 // Bidirectional GQA flash attention for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel `flash_bidir` in src/repro/kernels/flash_bidir.py,
-// the twin of the model's layers.attention.  Non-causal attention with an
+// the twin of the model's layers.attention.  Bidirectional attention with an
 // online softmax over KV tiles in f32, GQA by index (KV head = q_head // G,
 // nothing repeated in memory), the BAOS fusion of the Pallas kernel
 // (q * f_k * D^-1/2 on the way in, out * f_v + c_v at the end), the optional
 // |q_pos - k_pos| < window mask with query row r at position q_offset + r
 // (a segment of a longer cache) and key j at j, and a per-row kv_valid
-// (B, Skv) mask that the Pallas kernel lacks.  Masked scores are -1e30
-// (not -inf), so a row with no valid key averages every key, as the
-// reference does; keys past Skv (the ragged last tile) get probability 0,
-// so no divisibility is required.  The output divides by max(l, 1e-30).
+// (B, Skv) mask that the Pallas kernel lacks.  With causal != 0 it is the
+// JAX model's causal mode (layers._mask_bias): a key attends only where
+// k_pos <= q_pos (and, with a window, q_pos - k_pos < window).  Masked
+// scores are -1e30 (not -inf), so a row with no valid key averages every
+// key, as the reference does; keys past Skv (the ragged last tile) get
+// probability 0, so no divisibility is required.  The output divides by
+// max(l, 1e-30).
+//
+// The query offset: a host int, or (q_offset_dev not null) an int64 in
+// device memory that every CTA reads at its start, so a captured CUDA
+// graph attends at each replay's block start without a host read.
+//
+// Key tiles out of reach: in the kernels' REACH instantiations, which the
+// launcher picks unless every key is in reach of every row (reach_walk), a
+// CTA walks only the tiles of each source that hold a key some query row
+// of it can reach (tile_range).  A masked key adds exactly 0 once a row
+// has seen one valid key (its probability exp(-1e30 - m) is 0, and the
+// correction exp(-1e30 - m) clears what masked keys added before), so
+// skipping them leaves such a row's sums as they were.  A row that finds
+// no valid key in its reach averages every key of both sources; if the
+// CTA has one, it walks every tile again from the start (the walk without
+// skipping).
 //
 // What bounds it: at the main-path shape (B 4, S 96, H 32, D 128, bf16) one
 // layer moves 12.6 MB (q, k, v, out) and does 0.6 GFLOP, so the card could
@@ -63,6 +81,8 @@
 // memory holds the query rows of 8 warps without BAOS (168 KB in all) and,
 // with BAOS's three q terms a warp, of 5 (226 KB of the 227):
 // tc_max_warps.  The output accumulators are 128 f32 registers a thread.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -90,7 +110,62 @@ __device__ __forceinline__ KvSrc kv_src(int t, int n_t1, int BKT, int Skv,
                   : KvSrc{S2, (t - n_t1) * BKT, q_offset, 1};
 }
 
-template <typename T, int DPL>
+// The tiles a CTA whose query rows sit at positions [qmin, qmax] walks:
+// n1 tiles of the cache from lo1 and n2 of the second source from lo2
+// (walk index i: tile lo1 + i, then n_t1 + lo2 + i - n1).  All of them
+// without a window and the causal mask.
+struct TileRange {
+  int lo1, n1, lo2, n2;
+  __device__ __forceinline__ int tile(int i, int n_t1) const {
+    return i < n1 ? lo1 + i : n_t1 + lo2 + (i - n1);
+  }
+};
+
+// Tiles [lo, lo + n) of BKT keys holding keys j in [jlo, jhi] of a source
+// of len keys.
+__device__ __forceinline__ void tiles_of(int jlo, int jhi, int len, int BKT,
+                                         int& lo, int& n) {
+  jlo = max(jlo, 0);
+  jhi = min(jhi, len - 1);
+  lo = jlo <= jhi ? jlo / BKT : 0;
+  n = jlo <= jhi ? jhi / BKT - lo + 1 : 0;
+}
+
+__device__ __forceinline__ TileRange tile_range(int qmin, int qmax,
+                                                int window, int causal,
+                                                int Skv, int S2, int BKT,
+                                                int q_offset) {
+  // the key positions some row reaches: |q - k| < window, k <= q if causal
+  const int far = 1 << 30;
+  const int plo = window > 0 ? qmin - window + 1 : -far;
+  const int phi = causal ? qmax : (window > 0 ? qmax + window - 1 : far);
+  TileRange r;
+  tiles_of(plo, phi, Skv, BKT, r.lo1, r.n1);
+  tiles_of(plo - q_offset, phi - q_offset, S2, BKT, r.lo2, r.n2);
+  return r;
+}
+
+// The offset the kernel attends at: the host's, or the int64 in device
+// memory (one load, the same address for every thread of the CTA).
+__device__ __forceinline__ int query_offset(int q_offset,
+                                            const long long* q_offset_dev) {
+  return q_offset_dev != nullptr ? static_cast<int>(__ldg(q_offset_dev))
+                                 : q_offset;
+}
+
+// Whether key position kp is in reach of query position qp.
+__device__ __forceinline__ bool in_reach(int qp, int kp, int window,
+                                         int causal) {
+  return (!causal || kp <= qp) && (window <= 0 || abs(qp - kp) < window);
+}
+
+// REACH: the walk over the tiles in reach and the reach test (see the
+// top).  Without it the kernel walks every tile once; the launcher picks
+// it only where every key is in reach (reach_walk).  It keeps the window's
+// test all the same, written inline: without the test, or with it through
+// a helper, nvcc scheduled the tile loop 8-32% slower on the H100
+// (PERF.md).
+template <typename T, int DPL, bool REACH = false>
 __global__ void __launch_bounds__(32 * WARPS)
 flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v,
@@ -100,7 +175,8 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ fk, const float* __restrict__ fv,
                    const float* __restrict__ cv, T* __restrict__ out, int Sq,
                    int Skv, int Hq, int Hkv, int D, float scale, int window,
-                   int q_offset) {
+                   int q_offset, const long long* __restrict__ q_offset_dev,
+                   int causal) {
   constexpr int DT = 32 * DPL;   // tile width; columns >= D are zeros
   extern __shared__ __align__(16) float smem_f32[];
   float(*qs)[DT] = reinterpret_cast<float(*)[DT]>(smem_f32);
@@ -112,6 +188,7 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t cal = (static_cast<size_t>(b) * Hkv + hk) * D;
+  q_offset = query_offset(q_offset, q_offset_dev);
 
   for (int e = tid; e < BQ * DT; e += 32 * WARPS) {
     const int r = e / DT, dd = e % DT, gq = q0 + r;
@@ -123,66 +200,90 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qs[r][dd] = x * scale;
   }
 
-  float m[RPW], l[RPW], acc[RPW][DPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[i][j] = 0.f;
-  }
-
   const int n_t1 = (Skv + BK - 1) / BK;
-  const int n_t = n_t1 + (k2 != nullptr ? (S2 + BK - 1) / BK : 0);
-  for (int t = 0; t < n_t; ++t) {
-    const KvSrc src = kv_src(t, n_t1, BK, Skv, S2, q_offset);
-    const T* kk_src = src.second ? k2 : k;
-    const T* vv_src = src.second ? v2 : v;
-    const unsigned char* val = src.second ? kv_valid2 : kv_valid;
-    const int k0 = src.t0;
-    __syncthreads();  // previous tile fully read (and the q tile written)
-    for (int e = tid; e < BK * DT; e += 32 * WARPS) {
-      const int j = e / DT, dd = e % DT, gk = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (gk < src.len && dd < D) {
-        const size_t o =
-            ((static_cast<size_t>(b) * src.len + gk) * Hkv + hk) * D + dd;
-        kx = to_f32(kk_src[o]);
-        vx = to_f32(vv_src[o]);
-      }
-      ks[j][dd] = kx;
-      vs[j][dd] = vx;
-    }
-    __syncthreads();
+  const int n_t2 = k2 != nullptr ? (S2 + BK - 1) / BK : 0;
+  // pass 0 walks the tiles in reach, pass 1 (if needed) every tile
+  TileRange walk =
+      REACH ? tile_range(q_offset + q0, q_offset + min(q0 + BQ, Sq) - 1,
+                         window, causal, Skv, k2 != nullptr ? S2 : 0, BK,
+                         q_offset)
+            : TileRange{0, n_t1, 0, n_t2};
+  const bool full = !REACH || (walk.n1 == n_t1 && walk.n2 == n_t2);
 
-    const int gk = k0 + lane;
-    const bool in_range = gk < src.len;
-    const bool valid = in_range &&
-        (val == nullptr || val[static_cast<size_t>(b) * src.len + gk]);
+  float m[RPW], l[RPW], acc[RPW][DPL];
+#pragma unroll 1
+  for (int pass = 0;; ++pass) {   // pass 1: every tile (see the top)
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const int row = warp * RPW + i, gq = q0 + row;
-      float s = 0.f;
-#pragma unroll 8
-      for (int dd = 0; dd < DT; ++dd) s = fmaf(qs[row][dd], ks[lane][dd], s);
-      const bool ok =
-          valid && (window <= 0 || abs(q_offset + gq - (src.pos0 + gk)) < window);
-      s = in_range ? (ok ? s : NEG) : -INFINITY;
-      const float m_new = fmaxf(m[i], warp_max(s));
-      const float p = expf(s - m_new);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + warp_sum(p);
-      m[i] = m_new;
+      m[i] = NEG;
+      l[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[i][j] *= corr;
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        const float pk = __shfl_sync(FULL_MASK, p, kk);
+      for (int j = 0; j < DPL; ++j) acc[i][j] = 0.f;
+    }
+
+    const int n_w = walk.n1 + walk.n2;
+    for (int w = 0; w < n_w; ++w) {
+      const KvSrc src = kv_src(REACH ? walk.tile(w, n_t1) : w, n_t1, BK, Skv,
+                               S2, q_offset);
+      const T* kk_src = src.second ? k2 : k;
+      const T* vv_src = src.second ? v2 : v;
+      const unsigned char* val = src.second ? kv_valid2 : kv_valid;
+      const int k0 = src.t0;
+      __syncthreads();  // previous tile fully read (and the q tile written)
+      for (int e = tid; e < BK * DT; e += 32 * WARPS) {
+        const int j = e / DT, dd = e % DT, gk = k0 + j;
+        float kx = 0.f, vx = 0.f;
+        if (gk < src.len && dd < D) {
+          const size_t o =
+              ((static_cast<size_t>(b) * src.len + gk) * Hkv + hk) * D + dd;
+          kx = to_f32(kk_src[o]);
+          vx = to_f32(vv_src[o]);
+        }
+        ks[j][dd] = kx;
+        vs[j][dd] = vx;
+      }
+      __syncthreads();
+
+      const int gk = k0 + lane;
+      const bool in_range = gk < src.len;
+      const bool valid = in_range &&
+          (val == nullptr || val[static_cast<size_t>(b) * src.len + gk]);
 #pragma unroll
-        for (int j = 0; j < DPL; ++j)
-          acc[i][j] = fmaf(pk, vs[kk][lane + 32 * j], acc[i][j]);
+      for (int i = 0; i < RPW; ++i) {
+        const int row = warp * RPW + i, gq = q0 + row;
+        float s = 0.f;
+#pragma unroll 8
+        for (int dd = 0; dd < DT; ++dd) s = fmaf(qs[row][dd], ks[lane][dd], s);
+        const bool ok = valid && (REACH ? in_reach(q_offset + gq,
+                                                   src.pos0 + gk, window,
+                                                   causal)
+                                           : (window <= 0 ||
+                                              abs(q_offset + gq -
+                                                  (src.pos0 + gk)) < window));
+        s = in_range ? (ok ? s : NEG) : -INFINITY;
+        const float m_new = fmaxf(m[i], warp_max(s));
+        const float p = expf(s - m_new);
+        const float corr = expf(m[i] - m_new);
+        l[i] = l[i] * corr + warp_sum(p);
+        m[i] = m_new;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) acc[i][j] *= corr;
+#pragma unroll 8
+        for (int kk = 0; kk < BK; ++kk) {
+          const float pk = __shfl_sync(FULL_MASK, p, kk);
+#pragma unroll
+          for (int j = 0; j < DPL; ++j)
+            acc[i][j] = fmaf(pk, vs[kk][lane + 32 * j], acc[i][j]);
+        }
       }
     }
+    if (full || pass == 1) break;
+    bool lost = false;       // a live row with no valid key in its reach
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+      lost |= q0 + warp * RPW + i < Sq && m[i] == NEG;
+    if (!__syncthreads_or(lost)) break;
+    walk = TileRange{0, n_t1, 0, n_t2};
   }
 
 #pragma unroll
@@ -202,23 +303,24 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int DPL>
+template <int DPL, bool REACH>
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        const unsigned char* kv_valid, const float* k2,
                        const float* v2, const unsigned char* kv_valid2, int S2,
                        const float* fk,
                        const float* fv, const float* cv, float* out, int B,
                        int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                       int window, int q_offset, cudaStream_t stream) {
+                       int window, int q_offset, const long long* q_offset_dev,
+                       int causal, cudaStream_t stream) {
   constexpr int smem = f32_smem_bytes(32 * DPL);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bidir_kernel<float, DPL>,
+      flash_bidir_kernel<float, DPL, REACH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_bidir_kernel<float, DPL><<<grid, 32 * WARPS, smem, stream>>>(
+  flash_bidir_kernel<float, DPL, REACH><<<grid, 32 * WARPS, smem, stream>>>(
       q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv, out, Sq, Skv, Hq,
-      Hkv, D, scale, window, q_offset);
+      Hkv, D, scale, window, q_offset, q_offset_dev, causal);
   return cudaGetLastError();
 }
 
@@ -262,8 +364,8 @@ constexpr int tc_max_warps() {
 // QS is the number of bf16 terms of the query operand: 1 without BAOS (q is
 // bf16 and exact, D^-1/2 scales the f32 scores), SPLIT with f_k (q * f_k
 // is f32).  DT is the tile width, D <= DT the head dim: columns past D are
-// loaded as zeros and not stored.
-template <int DT, int QS>
+// loaded as zeros and not stored.  REACH as in the CUDA-core route.
+template <int DT, int QS, bool REACH = false>
 __global__ void __launch_bounds__(32 * TC_MAX_WARPS, 1)
 flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -275,7 +377,8 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const float* __restrict__ fv,
                       const float* __restrict__ cv, bf16* __restrict__ out,
                       int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                      int window, int q_offset) {
+                      int window, int q_offset,
+                      const long long* __restrict__ q_offset_dev, int causal) {
   constexpr int DP = DT + 8;     // shared rows padded by 16 bytes: ldmatrix's
   //                                eight row addresses hit eight bank groups
   constexpr int KT = DT / 16;    // depth steps of the score product
@@ -293,13 +396,27 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row0 = (blockIdx.x * nwarps + warp) * 16;
   const size_t cal = (static_cast<size_t>(b) * Hkv + hk) * D;
   const int n_t1 = (Skv + TC_BKV - 1) / TC_BKV;
-  const int n_t = n_t1 + (k2 != nullptr ? (S2 + TC_BKV - 1) / TC_BKV : 0);
+  const int n_t2 = k2 != nullptr ? (S2 + TC_BKV - 1) / TC_BKV : 0;
   float* cals = reinterpret_cast<float*>(qs + nwarps * QS * 16 * DP);
   //                                                 [3][DT]: f_k, f_v, c_v
+  q_offset = query_offset(q_offset, q_offset_dev);
+  // the CTA's rows [r_lo, r_hi] sit at positions q_offset + row / G
+  const int r_lo = blockIdx.x * nwarps * 16;
+  const int r_hi = min(r_lo + nwarps * 16, n_rows) - 1;
+  // pass 0 walks the tiles in reach, pass 1 (if needed) every tile
+  TileRange walk =
+      REACH ? tile_range(q_offset + r_lo / G, q_offset + r_hi / G, window,
+                         causal, Skv, k2 != nullptr ? S2 : 0, TC_BKV,
+                         q_offset)
+            : TileRange{0, n_t1, 0, n_t2};
+  const bool full = !REACH || (walk.n1 == n_t1 && walk.n2 == n_t2);
+  // walk index w: tile w of the sources without REACH
+  auto tile = [&](int w) { return REACH ? walk.tile(w, n_t1) : w; };
 
-  auto load_kv = [&](int t) {
-    bf16* kd = ks + (t % TC_STAGES) * KV_STAGE;
-    bf16* vd = vs + (t % TC_STAGES) * KV_STAGE;
+  // walk index w into ring slot w % TC_STAGES, tile t of the sources
+  auto load_kv = [&](int w, int t) {
+    bf16* kd = ks + (w % TC_STAGES) * KV_STAGE;
+    bf16* vd = vs + (w % TC_STAGES) * KV_STAGE;
     const KvSrc src = kv_src(t, n_t1, TC_BKV, Skv, S2, q_offset);
     const bf16* kk_src = src.second ? k2 : k;
     const bf16* vv_src = src.second ? v2 : v;
@@ -315,7 +432,8 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // group 0: this warp's 16 q rows (raw, into the slot of term 0; rows past
-  // G * Sq and columns past D zero-filled), the BAOS vectors and K/V tile 0
+  // G * Sq and columns past D zero-filled), the BAOS vectors and the first
+  // K/V tile of pass 0's walk
   bf16* qw = qs + warp * QS * 16 * DP;
 #pragma unroll
   for (int e = lane; e < 16 * (DT / 8); e += 32) {
@@ -335,13 +453,17 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         cp_async_16(smem_addr(cals + e * 4), src + cal + (c4 < D ? c4 : 0),
                     c4 < D);
     }
+  // the first tiles of a walk into the ring, landed for every thread
+  auto prefetch = [&]() {
 #pragma unroll
-  for (int s = 0; s < TC_STAGES - 1; ++s) {
-    if (s < n_t) load_kv(s);
-    cp_async_commit();
-  }
-  cp_async_wait<TC_STAGES - 2>();
-  __syncthreads();
+    for (int s = 0; s < TC_STAGES - 1; ++s) {
+      if (s < walk.n1 + walk.n2) load_kv(s, tile(s));
+      cp_async_commit();
+    }
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();
+  };
+  prefetch();
 
   if (QS > 1) {
     // q * f_k in f32 as QS bf16 terms, 8 values a lane at a time; each lane
@@ -386,133 +508,149 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   float o[NT][4];
+  float m[2], l[2];
+#pragma unroll 1
+  for (int pass = 0;; ++pass) {   // pass 1: every tile (see the top)
+    if (pass == 1) prefetch();
+    const int n_w = walk.n1 + walk.n2;
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    m[0] = m[1] = NEG;
+    l[0] = l[1] = 0.f;
 
-  for (int t = 0; t < n_t; ++t) {
-    cp_async_wait<TC_STAGES - 2>();      // tile t has landed
-    __syncthreads();                     // ... for all, and tile t - 1 is
-    //                                      no longer being read
-    if (t + TC_STAGES - 1 < n_t) load_kv(t + TC_STAGES - 1);
-    cp_async_commit();
-    const bf16* kt = ks + (t % TC_STAGES) * KV_STAGE;
-    const bf16* vt = vs + (t % TC_STAGES) * KV_STAGE;
-    const KvSrc src = kv_src(t, n_t1, TC_BKV, Skv, S2, q_offset);
-    const unsigned char* val = src.second ? kv_valid2 : kv_valid;
+    for (int w = 0; w < n_w; ++w) {
+      cp_async_wait<TC_STAGES - 2>();      // walk tile w has landed
+      __syncthreads();                     // ... for all, and tile w - 1 is
+      //                                      no longer being read
+      if (w + TC_STAGES - 1 < n_w)
+        load_kv(w + TC_STAGES - 1, tile(w + TC_STAGES - 1));
+      cp_async_commit();
+      const bf16* kt = ks + (w % TC_STAGES) * KV_STAGE;
+      const bf16* vt = vs + (w % TC_STAGES) * KV_STAGE;
+      const KvSrc src = kv_src(tile(w), n_t1, TC_BKV, Skv, S2, q_offset);
+      const unsigned char* val = src.second ? kv_valid2 : kv_valid;
 
-    // kv_valid of this lane's keys (key 8j + 2c + e of the tile at 2j + e),
-    // loaded without a branch here and read after the score product, so
-    // the loads overlap it
-    unsigned char kvv[8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = src.t0 + 8 * j + 2 * c + e;
-        kvv[2 * j + e] = val != nullptr && key < src.len
-                             ? val[static_cast<size_t>(b) * src.len + key]
-                             : 1;
-      }
-
-    // scores: 16 rows x 32 keys, four 8-key tiles
-    float st[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      uint32_t a[QS][4];
-#pragma unroll
-      for (int s = 0; s < QS; ++s)
-        ldmatrix_x4(a[s], smem_addr(qw + (s * 16 + (lane & 15)) * DP + kk * 16
-                                    + (lane >> 4) * 8));
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, smem_addr(kt + (jp * 16 + (lane & 7) + (lane >> 4) * 8)
-                                  * DP + kk * 16 + ((lane >> 3) & 1) * 8));
-#pragma unroll
-        for (int s = QS - 1; s >= 0; --s) {      // small terms first
-          mma_bf16(st[2 * jp], a[s], bk[0], bk[1]);
-          mma_bf16(st[2 * jp + 1], a[s], bk[2], bk[3]);
-        }
-      }
-    }
-
-    // x D^-1/2; masks: -1e30 for a masked key, -inf (probability 0) past
-    // the source's length
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = src.t0 + 8 * j + 2 * c + e;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const bool ok =
-              kvv[2 * j + e] != 0 &&
-              (window <= 0 || abs(qpos[hh] - (src.pos0 + key)) < window);
-          float& x = st[j][2 * hh + e];
-          x = key < src.len ? (ok ? x * scale : NEG) : -INFINITY;
-        }
-      }
-
-    // online softmax, each row's statistics over its quad
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        mx = fmaxf(mx, fmaxf(st[j][2 * hh], st[j][2 * hh + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 2));
-      const float m_new = fmaxf(m[hh], mx);
-      const float corr = expf(m[hh] - m_new);
-      m[hh] = m_new;
-      if (corr != 1.f) {                 // exact: most tiles keep the max
-        l[hh] *= corr;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          o[n][2 * hh] *= corr;
-          o[n][2 * hh + 1] *= corr;
-        }
-      }
+      // kv_valid of this lane's keys (key 8j + 2c + e of the tile at 2j + e),
+      // loaded without a branch here and read after the score product, so
+      // the loads overlap it
+      unsigned char kvv[8];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p = expf(st[j][2 * hh + e] - m_new);
-          st[j][2 * hh + e] = p;
-          l[hh] += p;
+          const int key = src.t0 + 8 * j + 2 * c + e;
+          kvv[2 * j + e] = val != nullptr && key < src.len
+                               ? val[static_cast<size_t>(b) * src.len + key]
+                               : 1;
         }
-    }
 
-    // out += P V: the score tile is the A fragment, 16 keys at a time
+      // scores: 16 rows x 32 keys, four 8-key tiles
+      float st[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      float x[8] = {st[2 * kk][0], st[2 * kk][1], st[2 * kk][2],
-                    st[2 * kk][3], st[2 * kk + 1][0], st[2 * kk + 1][1],
-                    st[2 * kk + 1][2], st[2 * kk + 1][3]};
-      uint32_t pa[SPLIT][4];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int s = 0; s < SPLIT; ++s)
+        for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) pa[s][r] = split_term(x[2 * r], x[2 * r + 1]);
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t a[QS][4];
 #pragma unroll
-      for (int np = 0; np < DT / 16; ++np) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, smem_addr(vt + (kk * 16 + (lane & 15)) * DP
-                                        + np * 16 + (lane >> 4) * 8));
+        for (int s = 0; s < QS; ++s)
+          ldmatrix_x4(a[s], smem_addr(qw + (s * 16 + (lane & 15)) * DP + kk * 16
+                                      + (lane >> 4) * 8));
 #pragma unroll
-        for (int s = SPLIT - 1; s >= 0; --s) {
-          mma_bf16(o[2 * np], pa[s], bv[0], bv[1]);
-          mma_bf16(o[2 * np + 1], pa[s], bv[2], bv[3]);
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, smem_addr(kt + (jp * 16 + (lane & 7) + (lane >> 4) * 8)
+                                    * DP + kk * 16 + ((lane >> 3) & 1) * 8));
+#pragma unroll
+          for (int s = QS - 1; s >= 0; --s) {      // small terms first
+            mma_bf16(st[2 * jp], a[s], bk[0], bk[1]);
+            mma_bf16(st[2 * jp + 1], a[s], bk[2], bk[3]);
+          }
+        }
+      }
+
+      // x D^-1/2; masks: -1e30 for a masked key, -inf (probability 0) past
+      // the source's length
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = src.t0 + 8 * j + 2 * c + e;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const bool ok =
+                kvv[2 * j + e] != 0 &&
+                (REACH ? in_reach(qpos[hh], src.pos0 + key, window, causal)
+                       : (window <= 0 ||
+                          abs(qpos[hh] - (src.pos0 + key)) < window));
+            float& x = st[j][2 * hh + e];
+            x = key < src.len ? (ok ? x * scale : NEG) : -INFINITY;
+          }
+        }
+
+      // online softmax, each row's statistics over its quad
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = NEG;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mx = fmaxf(mx, fmaxf(st[j][2 * hh], st[j][2 * hh + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        const float corr = expf(m[hh] - m_new);
+        m[hh] = m_new;
+        if (corr != 1.f) {                 // exact: most tiles keep the max
+          l[hh] *= corr;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            o[n][2 * hh] *= corr;
+            o[n][2 * hh + 1] *= corr;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = expf(st[j][2 * hh + e] - m_new);
+            st[j][2 * hh + e] = p;
+            l[hh] += p;
+          }
+      }
+
+      // out += P V: the score tile is the A fragment, 16 keys at a time
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        float x[8] = {st[2 * kk][0], st[2 * kk][1], st[2 * kk][2],
+                      st[2 * kk][3], st[2 * kk + 1][0], st[2 * kk + 1][1],
+                      st[2 * kk + 1][2], st[2 * kk + 1][3]};
+        uint32_t pa[SPLIT][4];
+#pragma unroll
+        for (int s = 0; s < SPLIT; ++s)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) pa[s][r] = split_term(x[2 * r], x[2 * r + 1]);
+#pragma unroll
+        for (int np = 0; np < DT / 16; ++np) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, smem_addr(vt + (kk * 16 + (lane & 15)) * DP
+                                          + np * 16 + (lane >> 4) * 8));
+#pragma unroll
+          for (int s = SPLIT - 1; s >= 0; --s) {
+            mma_bf16(o[2 * np], pa[s], bv[0], bv[1]);
+            mma_bf16(o[2 * np + 1], pa[s], bv[2], bv[3]);
+          }
         }
       }
     }
+    if (full || pass == 1) break;
+    cp_async_wait<0>();                    // the walk's trailing (empty) groups
+    // m is the quad's: a live row with no valid key in its reach
+    const bool lost = (live[0] && m[0] == NEG) || (live[1] && m[1] == NEG);
+    if (!__syncthreads_or(lost)) break;    // also: every tile read
+    walk = TileRange{0, n_t1, 0, n_t2};
   }
 
 #pragma unroll
@@ -542,27 +680,28 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DT, int QS>
+template <int DT, int QS, bool REACH>
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
                         const unsigned char* kv_valid, const bf16* k2,
                         const bf16* v2, const unsigned char* kv_valid2,
                         int S2, const float* fk,
                         const float* fv, const float* cv, bf16* out, int B,
                         int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                        int window, int q_offset, cudaStream_t stream) {
+                        int window, int q_offset, const long long* q_offset_dev,
+                        int causal, cudaStream_t stream) {
   constexpr int max_warps = tc_max_warps<DT, QS>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bidir_tc_kernel<DT, QS>,
+      flash_bidir_tc_kernel<DT, QS, REACH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       tc_smem_bytes<DT, QS>(max_warps));
   if (attr != cudaSuccess) return attr;
   const int rows = (Hq / Hkv) * Sq;
   const int warps = rows >= 16 * max_warps ? max_warps : (rows + 15) / 16;
   const dim3 grid((rows + 16 * warps - 1) / (16 * warps), Hkv, B);
-  flash_bidir_tc_kernel<DT, QS>
+  flash_bidir_tc_kernel<DT, QS, REACH>
       <<<grid, 32 * warps, tc_smem_bytes<DT, QS>(warps), stream>>>(
           q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv, out, Sq, Skv,
-          Hq, Hkv, D, scale, window, q_offset);
+          Hq, Hkv, D, scale, window, q_offset, q_offset_dev, causal);
   return cudaGetLastError();
 }
 
@@ -579,16 +718,19 @@ cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
                           int S2, const float* fk,
                           const float* fv, const float* cv, bf16* out, int B,
                           int Sq, int Skv, int Hq, int Hkv, float scale,
-                          int window, int q_offset, cudaStream_t stream) {
+                          int window, int q_offset,
+                          const long long* q_offset_dev, int causal,
+                          bool reach, cudaStream_t stream) {
+#define FB_LAUNCH_AS(DT, QS, R)                                              \
+  launch_bf16<DT, QS, R>(q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv,   \
+                         cv, out, B, Sq, Skv, Hq, Hkv, D, scale, window,     \
+                         q_offset, q_offset_dev, causal, stream)
 #define FB_LAUNCH(DT)                                                        \
   return fk == nullptr                                                       \
-             ? launch_bf16<DT, 1>(q, k, v, kv_valid, k2, v2, kv_valid2, S2,  \
-                                  fk, fv, cv, out, B, Sq, Skv, Hq, Hkv, D,   \
-                                  scale, window, q_offset, stream)           \
-             : launch_bf16<DT, SPLIT>(q, k, v, kv_valid, k2, v2, kv_valid2,  \
-                                      S2, fk, fv, cv, out, B, Sq, Skv, Hq,   \
-                                      Hkv, D, scale, window, q_offset,       \
-                                      stream)
+             ? (reach ? FB_LAUNCH_AS(DT, 1, true)                            \
+                      : FB_LAUNCH_AS(DT, 1, false))                          \
+             : (reach ? FB_LAUNCH_AS(DT, SPLIT, true)                        \
+                      : FB_LAUNCH_AS(DT, SPLIT, false))
   switch (tile_of(D)) {
     case 32: FB_LAUNCH(32);
     case 64: FB_LAUNCH(64);
@@ -597,6 +739,7 @@ cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
     default: return cudaErrorInvalidValue;
   }
 #undef FB_LAUNCH
+#undef FB_LAUNCH_AS
 }
 
 cudaError_t dispatch_f32(int D, const float* q, const float* k, const float* v,
@@ -605,11 +748,15 @@ cudaError_t dispatch_f32(int D, const float* q, const float* k, const float* v,
                          int S2, const float* fk,
                          const float* fv, const float* cv, float* out, int B,
                          int Sq, int Skv, int Hq, int Hkv, float scale,
-                         int window, int q_offset, cudaStream_t stream) {
+                         int window, int q_offset,
+                         const long long* q_offset_dev, int causal,
+                         bool reach, cudaStream_t stream) {
+#define FB_LAUNCH_AS(DPL, R)                                                 \
+  launch_f32<DPL, R>(q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv,   \
+                     out, B, Sq, Skv, Hq, Hkv, D, scale, window, q_offset,   \
+                     q_offset_dev, causal, stream)
 #define FB_LAUNCH(DPL)                                                       \
-  return launch_f32<DPL>(q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv,   \
-                         cv, out, B, Sq, Skv, Hq, Hkv, D, scale, window,     \
-                         q_offset, stream)
+  return reach ? FB_LAUNCH_AS(DPL, true) : FB_LAUNCH_AS(DPL, false)
   switch (tile_of(D)) {
     case 32: FB_LAUNCH(1);
     case 64: FB_LAUNCH(2);
@@ -618,6 +765,23 @@ cudaError_t dispatch_f32(int D, const float* q, const float* k, const float* v,
     default: return cudaErrorInvalidValue;
   }
 #undef FB_LAUNCH
+#undef FB_LAUNCH_AS
+}
+
+// Whether a launch takes the REACH instantiation: unless every key is in
+// reach of every row, i.e. with the causal mask, a window and an offset
+// the host cannot see, or a window that the widest distance between a
+// query position and a key position (at a corner of their ranges)
+// reaches.  Where this picks the plain instantiation, REACH would walk
+// every tile and mask no key: the pick decides the speed alone.
+bool reach_walk(int window, int causal, int q_offset, bool device_offset,
+                int Sq, int Skv, int S2) {
+  if (causal) return true;
+  if (window <= 0) return false;
+  if (device_offset) return true;
+  const long long off = q_offset;
+  return std::max({off + Sq - 1, Skv - 1 - off, Sq - 1LL, S2 - 1LL}) >=
+         window;
 }
 
 }  // namespace
@@ -627,7 +791,9 @@ cudaError_t dispatch_f32(int D, const float* q, const float* k, const float* v,
 // kv_valid
 // (B, Skv) bool and fk/fv/cv (B, Hkv, D) f32 may each be null.  scale is
 // the softmax scale (D^-1/2, rounded to f32 by the caller); window <= 0
-// means no window; query row r sits at position q_offset + r.  Route B:
+// means no window; query row r sits at position q_offset + r, where
+// q_offset is read from the int64 at q_offset_dev when that is not null;
+// causal != 0 masks keys past each row's position.  Route B:
 // k2/v2 (B, S2, Hkv, D) of q's dtype, contiguous, a second K/V source
 // whose key j sits at q_offset + j, with kv_valid2 (B, S2) bool (may be
 // null); k2 null (S2 ignored): the cache alone.
@@ -638,6 +804,7 @@ extern "C" int flash_bidir_launch(const void* q, const void* k, const void* v,
                                   const void* fv, const void* cv, void* out,
                                   int B, int Sq, int Skv, int Hq, int Hkv,
                                   int D, float scale, int window, int q_offset,
+                                  const void* q_offset_dev, int causal,
                                   int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k2 != nullptr && (v2 == nullptr || S2 < 1)) return cudaErrorInvalidValue;
@@ -646,19 +813,22 @@ extern "C" int flash_bidir_launch(const void* q, const void* k, const void* v,
   const auto* fk_ = static_cast<const float*>(fk);
   const auto* fv_ = static_cast<const float*>(fv);
   const auto* cv_ = static_cast<const float*>(cv);
+  const auto* off = static_cast<const long long*>(q_offset_dev);
+  const bool reach = reach_walk(window, causal, q_offset, off != nullptr, Sq,
+                                Skv, k2 != nullptr ? S2 : 0);
   if (!is_bf16)
     return static_cast<int>(dispatch_f32(
         D, static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), valid, static_cast<const float*>(k2),
         static_cast<const float*>(v2), valid2, S2, fk_, fv_, cv_,
         static_cast<float*>(out), B, Sq, Skv, Hq, Hkv, scale, window,
-        q_offset, st));
+        q_offset, off, causal, reach, st));
   return static_cast<int>(dispatch_bf16(
       D, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), valid, static_cast<const bf16*>(k2),
       static_cast<const bf16*>(v2), valid2, S2, fk_, fv_, cv_,
       static_cast<bf16*>(out), B, Sq, Skv, Hq, Hkv, scale, window, q_offset,
-      st));
+      off, causal, reach, st));
 }
 
 namespace {
@@ -666,24 +836,48 @@ namespace {
 // shared memory of its largest launch (the bf16 route's at its most warps)
 const KernelAttr ATTRS[] = {
     KERNEL_ATTR((flash_bidir_kernel<float, 1>), f32_smem_bytes(32)),
+    KERNEL_ATTR((flash_bidir_kernel<float, 1, true>),
+                f32_smem_bytes(32)),
     KERNEL_ATTR((flash_bidir_kernel<float, 2>), f32_smem_bytes(64)),
+    KERNEL_ATTR((flash_bidir_kernel<float, 2, true>),
+                f32_smem_bytes(64)),
     KERNEL_ATTR((flash_bidir_kernel<float, 4>), f32_smem_bytes(128)),
+    KERNEL_ATTR((flash_bidir_kernel<float, 4, true>),
+                f32_smem_bytes(128)),
     KERNEL_ATTR((flash_bidir_kernel<float, 8>), f32_smem_bytes(256)),
+    KERNEL_ATTR((flash_bidir_kernel<float, 8, true>),
+                f32_smem_bytes(256)),
     KERNEL_ATTR((flash_bidir_tc_kernel<32, 1>),
+                (tc_smem_bytes<32, 1>(tc_max_warps<32, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<32, 1, true>),
                 (tc_smem_bytes<32, 1>(tc_max_warps<32, 1>()))),
     KERNEL_ATTR((flash_bidir_tc_kernel<32, SPLIT>),
                 (tc_smem_bytes<32, SPLIT>(tc_max_warps<32, SPLIT>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<32, SPLIT, true>),
+                (tc_smem_bytes<32, SPLIT>(tc_max_warps<32, SPLIT>()))),
     KERNEL_ATTR((flash_bidir_tc_kernel<64, 1>),
+                (tc_smem_bytes<64, 1>(tc_max_warps<64, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<64, 1, true>),
                 (tc_smem_bytes<64, 1>(tc_max_warps<64, 1>()))),
     KERNEL_ATTR((flash_bidir_tc_kernel<64, SPLIT>),
                 (tc_smem_bytes<64, SPLIT>(tc_max_warps<64, SPLIT>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<64, SPLIT, true>),
+                (tc_smem_bytes<64, SPLIT>(tc_max_warps<64, SPLIT>()))),
     KERNEL_ATTR((flash_bidir_tc_kernel<128, 1>),
+                (tc_smem_bytes<128, 1>(tc_max_warps<128, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<128, 1, true>),
                 (tc_smem_bytes<128, 1>(tc_max_warps<128, 1>()))),
     KERNEL_ATTR((flash_bidir_tc_kernel<128, SPLIT>),
                 (tc_smem_bytes<128, SPLIT>(tc_max_warps<128, SPLIT>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<128, SPLIT, true>),
+                (tc_smem_bytes<128, SPLIT>(tc_max_warps<128, SPLIT>()))),
     KERNEL_ATTR((flash_bidir_tc_kernel<256, 1>),
                 (tc_smem_bytes<256, 1>(tc_max_warps<256, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<256, 1, true>),
+                (tc_smem_bytes<256, 1>(tc_max_warps<256, 1>()))),
     KERNEL_ATTR((flash_bidir_tc_kernel<256, SPLIT>),
+                (tc_smem_bytes<256, SPLIT>(tc_max_warps<256, SPLIT>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<256, SPLIT, true>),
                 (tc_smem_bytes<256, SPLIT>(tc_max_warps<256, SPLIT>()))),
 };
 }  // namespace

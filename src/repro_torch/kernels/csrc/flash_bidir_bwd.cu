@@ -9,7 +9,8 @@
 // What it computes, for q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) and the
 // output gradient dO (B, Sq, Hq, D), KV head = q head // G, G = Hq / Hkv,
 // and the forward's masks (kv_valid (B, Skv), |q_offset + r - j| <
-// window):
+// window, and with causal != 0 j <= q_offset + r, the JAX model's causal
+// mode):
 //   s_ij  = D^-1/2 q_i . k_j, -1e30 where masked (a constant: no gradient)
 //   p_ij  = exp(s_ij - m_i) / max(l_i, 1e-30)   (m_i, l_i recomputed)
 //   dp_ij = dO_i . v_j
@@ -87,6 +88,13 @@ __device__ __forceinline__ bool key_ok(const unsigned char* kv_valid, int b,
          (kv_valid == nullptr || kv_valid[static_cast<size_t>(b) * Skv + gk]);
 }
 
+// Whether key position kp is in reach of query position qp (the forward's
+// in_reach).
+__device__ __forceinline__ bool in_reach(int qp, int kp, int window,
+                                         int causal) {
+  return (!causal || kp <= qp) && (window <= 0 || abs(qp - kp) < window);
+}
+
 // Stage keys [k0, k0 + BK) of KV head hk of `src` as f32 rows of dst
 // ([BK][DT + 1]); keys past Skv and columns past D are zeros.
 template <typename T, int DT>
@@ -110,7 +118,7 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                    const unsigned char* __restrict__ kv_valid,
                    T* __restrict__ dq, float* __restrict__ stats, int B,
                    int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                   int window, int q_offset) {
+                   int window, int q_offset, int causal) {
   constexpr int DT = 32 * DPL;
   extern __shared__ __align__(16) float smem_dq[];
   float(*qs)[DT] = reinterpret_cast<float(*)[DT]>(smem_dq);
@@ -168,7 +176,7 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const bool ok = valid && (window <= 0 || abs(qpos[i] - gk) < window);
+      const bool ok = valid && in_reach(qpos[i], gk, window, causal);
       const float x = in_range ? (ok ? s[i] * scale : NEG) : -INFINITY;
       const float m_new = fmaxf(m[i], warp_max(x));
       const float corr = expf(m[i] - m_new), e = expf(x - m_new);
@@ -224,7 +232,7 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const bool ok =
-          in_range && valid && (window <= 0 || abs(qpos[i] - gk) < window);
+          in_range && valid && in_reach(qpos[i], gk, window, causal);
       ds[i] = ok ? expf(s[i] * scale - m[i]) * inv_l[i] * (dp[i] - delta[i])
                  : 0.f;
     }
@@ -262,7 +270,8 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
                     const unsigned char* __restrict__ kv_valid,
                     const float* __restrict__ stats, T* __restrict__ dk,
                     T* __restrict__ dv, int B, int Sq, int Skv, int Hq,
-                    int Hkv, int D, float scale, int window, int q_offset) {
+                    int Hkv, int D, float scale, int window, int q_offset,
+                    int causal) {
   constexpr int DT = 32 * DPL;
   constexpr int NC = DT / KWARPS;    // contiguous columns a thread owns
   extern __shared__ __align__(16) float smem_dkv[];
@@ -344,8 +353,7 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RW; ++i) {
       const int r = warp + KWARPS * i;
-      const bool ok =
-          valid && (window <= 0 || abs(row_pos[r] - gk) < window);
+      const bool ok = valid && in_reach(row_pos[r], gk, window, causal);
       const float p =
           in_range ? expf((ok ? s[i] * scale : NEG) - row_m[r]) * row_il[r]
                    : 0.f;
@@ -390,7 +398,7 @@ template <typename T, int DPL>
 cudaError_t launch(const T* q, const T* k, const T* v, const T* dout, const unsigned char* kv_valid, T* dq, T* dk,
                    T* dv, float* stats, int B, int Sq, int Skv, int Hq,
                    int Hkv, int D, float scale, int window, int q_offset,
-                   cudaStream_t stream) {
+                   int causal, cudaStream_t stream) {
   constexpr int DT = 32 * DPL;
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
       flash_bidir_bwd_dq<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -403,13 +411,13 @@ cudaError_t launch(const T* q, const T* k, const T* v, const T* dout, const unsi
   const dim3 grid_q((Sq + BQ - 1) / BQ, Hq, B);
   flash_bidir_bwd_dq<T, DPL><<<grid_q, 32 * QWARPS, dq_smem_bytes(DT), stream>>>(
       q, k, v, dout, kv_valid, dq, stats, B, Sq, Skv, Hq, Hkv, D, scale,
-      window, q_offset);
+      window, q_offset, causal);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k((Skv + BK - 1) / BK, Hkv, B);
   flash_bidir_bwd_dkv<T, DPL><<<grid_k, 32 * KWARPS, dkv_smem_bytes(DT), stream>>>(
       q, k, v, dout, kv_valid, stats, dk, dv, B, Sq, Skv, Hq, Hkv, D, scale,
-      window, q_offset);
+      window, q_offset, causal);
   return cudaGetLastError();
 }
 
@@ -419,14 +427,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const unsigned char* kv_valid, void* dq, void* dk,
                      void* dv, float* stats, int B, int Sq, int Skv, int Hq,
                      int Hkv, int D, float scale, int window, int q_offset,
-                     cudaStream_t stream) {
+                     int causal, cudaStream_t stream) {
 #define FBB_LAUNCH(DPL)                                                     \
   return launch<T, DPL>(                                                    \
       static_cast<const T*>(q), static_cast<const T*>(k),                   \
       static_cast<const T*>(v), static_cast<const T*>(dout), kv_valid,      \
       static_cast<T*>(dq),                                                  \
       static_cast<T*>(dk), static_cast<T*>(dv), stats, B, Sq, Skv, Hq, Hkv, \
-      D, scale, window, q_offset, stream)
+      D, scale, window, q_offset, causal, stream)
   if (D < 8 || D > 256 || D % 8) return cudaErrorInvalidValue;
   if (D <= 32) FBB_LAUNCH(1);
   if (D <= 64) FBB_LAUNCH(2);
@@ -442,25 +450,26 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // kv_valid (B, Skv) bool or null; stats an f32 scratch of 3 * B * Hq * Sq
 // (each row's max, sum and delta, written by the first kernel, read by the
 // second).  scale is D^-1/2 as the forward took it; window <= 0 means no
-// window; query row r sits at position q_offset + r.
+// window; query row r sits at position q_offset + r; causal != 0 masks
+// keys past each row's position.
 extern "C" int flash_bidir_bwd_launch(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* kv_valid,
                                       void* dq, void* dk, void* dv,
                                       void* stats, int B, int Sq, int Skv,
                                       int Hq, int Hkv, int D, float scale,
-                                      int window, int q_offset, int is_bf16,
-                                      void* stream) {
+                                      int window, int q_offset, int causal,
+                                      int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* valid = static_cast<const unsigned char*>(kv_valid);
   auto* sc = static_cast<float*>(stats);
   if (is_bf16)
     return static_cast<int>(dispatch<__nv_bfloat16>(
         q, k, v, dout, valid, dq, dk, dv, sc, B, Sq, Skv, Hq, Hkv, D,
-        scale, window, q_offset, st));
+        scale, window, q_offset, causal, st));
   return static_cast<int>(dispatch<float>(q, k, v, dout, valid, dq, dk, dv,
                                           sc, B, Sq, Skv, Hq, Hkv, D, scale,
-                                          window, q_offset, st));
+                                          window, q_offset, causal, st));
 }
 
 namespace {

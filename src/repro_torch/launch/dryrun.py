@@ -265,11 +265,13 @@ def trace_cell(cfg, shape, policy, mesh_shape: Tuple[int, ...]) -> dict:
     coords = {a: 0 for a in names}
     step_fn, arg_names = steps_lib.build_step(model, shape, policy,
                                               mesh=run_mesh)
+    # the block start is the 0-d int32 tensor input_specs declares, as JAX
+    # traces it: the step reads it on the device (attention's window too)
     local = {k: _meta_local(specs[k], pls[k], coords) for k in arg_names
-             if k not in ("seed", "block_start")}
+             if k != "seed"}
     args = []
     for k in arg_names:
-        if k in ("seed", "block_start"):
+        if k == "seed":
             args.append(0)
         elif k == "opt_state":
             args.append(dict(local[k], step=0))

@@ -175,10 +175,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_valid: Optional[torch.Tensor] = None,
               window: Optional[int] = None, baos_calib=None,
-              q_offset: int = 0, extra_kv=None) -> torch.Tensor:
-    """Bidirectional GQA attention, q (B, Sq, Hq, D) over k/v
-    (B, Skv, Hkv, D) with a per-row ``kv_valid`` (B, Skv) mask; key j sits
-    at position j and query row r at ``q_offset + r``.  With ``baos_calib``
+              q_offset: flash_bidir.Offset = 0, extra_kv=None,
+              causal: bool = False) -> torch.Tensor:
+    """GQA attention, bidirectional or with ``causal`` JAX's causal mode,
+    q (B, Sq, Hq, D) over k/v (B, Skv, Hkv, D) with a per-row ``kv_valid``
+    (B, Skv) mask; key j sits at position j and query row r at
+    ``q_offset + r`` (an int, or an integer tensor on the device: a
+    graph's block start).  With ``baos_calib``
     (core/baos.BAOSCalib) k/v are the smoothed cache: f_k joins the query
     and f_v, c_v the output, in f32 inside the kernel (the JAX model rounds
     q * f_k and out * f_v + c_v to the activation dtype).  The hand-written
@@ -197,7 +200,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             baos_calib.k_scale, baos_calib.v_scale, baos_calib.v_center))
     return flash_bidir.flash_bidir(q, k, v, kv_valid, fk, fv, cv,
                                    window=window, q_offset=q_offset,
-                                   extra_kv=extra_kv)
+                                   extra_kv=extra_kv, causal=causal)
 
 
 # ---------------------------------------------------------------------------

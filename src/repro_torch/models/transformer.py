@@ -36,7 +36,14 @@ self-attention residual and before ``ln2``.
 tensor of one element: the block start a captured CUDA graph reads from
 memory (core/diffusion's graphed steps).  The segment's K/V are then
 scattered into the cache at that start (``index_copy_``) instead of
-written through a slice, with the same values.  ``quant``, a
+written through a slice, with the same values, and attention reads the
+start from device memory to place the window and the causal mask.
+
+``attn_mode`` (the config's, or ``forward(attn_mode=)``): "bidir", or
+"causal" (a query attends to keys at its position and before), JAX's
+mode for the hybrid/AR-baseline paths; every self-attention takes it
+(no cache, warm, refine, the split cache's route B); cross-attention
+stays bidirectional.  ``quant``, a
 ``layers.QuantPolicy``, fake-quantizes both operands of every GEMM,
 the LM head's included, as the JAX forward does.
 
@@ -72,23 +79,30 @@ FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a transformer config's features the port lacks: causal
-    attention, a head dim flash_bidir does not take (norms rms and ln, FFNs
-    swiglu and gelu are ported).  A config of another family is not this
-    module's stack (ValueError)."""
+    """Raise for a transformer config's features the port lacks: a head
+    dim flash_bidir does not take (norms rms and ln, FFNs swiglu and gelu,
+    attention modes bidir and causal are ported).  A config of another
+    family is not this module's stack (ValueError)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not a transformer stack "
                          f"{FAMILIES}: build it with "
                          f"models/registry.build_model")
     if (cfg.family == "moe") != (cfg.moe is not None):
         raise ValueError(f"family {cfg.family!r} with moe={cfg.moe!r}")
-    if cfg.norm not in ("rms", "ln") or cfg.ffn not in ("swiglu", "gelu") \
-            or cfg.attn_mode != "bidir":
+    if cfg.norm not in ("rms", "ln") or cfg.ffn not in ("swiglu", "gelu"):
         raise NotImplementedError(
-            f"norm={cfg.norm!r}, ffn={cfg.ffn!r}, attn_mode="
-            f"{cfg.attn_mode!r} are not ported yet ({ROADMAP}); the port "
-            "runs rms or ln / swiglu or gelu / bidir")
+            f"norm={cfg.norm!r}, ffn={cfg.ffn!r} are not ported yet "
+            f"({ROADMAP}); the port runs rms or ln / swiglu or gelu")
+    check_attn_mode(cfg.attn_mode)
     flash_bidir.check_head_dim(cfg.d_head)
+
+
+ATTN_MODES = ("bidir", "causal")
+
+
+def check_attn_mode(mode: str) -> None:
+    if mode not in ATTN_MODES:
+        raise ValueError(f"attn_mode {mode!r} not in {ATTN_MODES}")
 
 
 def apply_norm(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
@@ -366,7 +380,8 @@ def cross_attention(x: torch.Tensor, lp: Dict, ck: torch.Tensor,
 def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
                     cfg: ModelConfig, baos_cfg: baos_lib.BAOSConfig,
                     calibrate: bool, calib_mask,
-                    act_start: Optional[SegStart] = None):
+                    act_start: Optional[SegStart] = None,
+                    causal: bool = False):
     """The cached branch of an attention layer (this module's and
     models/rglru.py's): (re)calibrate or read the stored calibration,
     write the segment's K/V into the cache at ``seg_start`` (through the
@@ -375,8 +390,8 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     (the JAX forward computes and stores it either way).  A window no
     shorter than the cache masks nothing (|q - k| < s_tot <= window) and
     is dropped.  A tensor ``seg_start`` scatters the segment (a graph's
-    block start); the window's query offset is then unknown to the host,
-    so a shorter window refuses it.
+    block start), and attention reads it from device memory as its query
+    offset.  ``causal``: JAX's causal mode.
 
     A context-parallel cache (models/tp.Parallel.cache_seq: this rank's
     sequence slice of K/V) is gathered over ``model`` first; the step
@@ -395,7 +410,7 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     if ctx is not None and ctx.cache_seq and tp_lib.model_axis() is not None:
         return _context_parallel(q, k, v, lcache, seg_start, kv_valid, cfg,
                                  baos_cfg, calibrate, calib_mask, act_start,
-                                 ctx)
+                                 ctx, causal)
     S = k.shape[1]
     window = cfg.window
     if window is not None and window >= lcache["k"].shape[1]:
@@ -410,17 +425,10 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
                                      baos_lib.BAOSCalib._fields))
     on_device = isinstance(seg_start, torch.Tensor)
     if on_device:
-        if window is not None:
-            raise NotImplementedError(
-                f"a windowed model's cached step with a device block start "
-                f"and a cache longer than the window is not ported yet "
-                f"({ROADMAP})")
-        idx = seg_start.reshape(()).to(torch.int64) + torch.arange(
-            S, device=k.device)
-    q_offset = 0 if on_device else seg_start
+        idx = start_of(seg_start) + torch.arange(S, device=k.device)
     if "k_act" in lcache and not calibrate:
         return _split_refine(q, k, v, lcache, seg_start, kv_valid, window,
-                             calib, q_offset)
+                             calib, causal)
     for name, x, center, scale in (
             ("k", k, "k_center", "k_scale"), ("v", v, "v_center", "v_scale")):
         if on_device:
@@ -441,14 +449,15 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
         L_act = lcache["k_act"].shape[1]
         for name in ("k", "v"):
             lcache[f"{name}_act"].copy_(rows(lcache[name], start, L_act))
-    # the query offset places the window; without one it is unused
+    # the query offset places the window and the causal mask
     return layers.attention(q, lcache["k"], lcache["v"], kv_valid,
                             window=window, baos_calib=calib,
-                            q_offset=q_offset)
+                            q_offset=seg_start, causal=causal)
 
 
 def _context_parallel(q, k, v, lcache: Dict, seg_start, kv_valid, cfg,
-                      baos_cfg, calibrate, calib_mask, act_start, ctx):
+                      baos_cfg, calibrate, calib_mask, act_start, ctx,
+                      causal=False):
     """``cache_attention`` over a context-parallel cache: the layer's K/V
     gathered along the sequence over ``model``, the step on the whole
     (the calibration and the split cache's active buffer are replicated),
@@ -459,7 +468,8 @@ def _context_parallel(q, k, v, lcache: Dict, seg_start, kv_valid, cfg,
         whole[name] = mesh_lib.all_gather(lcache[name], 1, axis)
     with tp_lib.use(dataclasses.replace(ctx, cache_seq=False)):
         out = cache_attention(q, k, v, whole, seg_start, kv_valid, cfg,
-                              baos_cfg, calibrate, calib_mask, act_start)
+                              baos_cfg, calibrate, calib_mask, act_start,
+                              causal)
     if calibrate or "k_act" not in lcache:     # the full buffer written
         s_loc = lcache["k"].shape[1]
         r0 = axis.index * s_loc
@@ -469,7 +479,7 @@ def _context_parallel(q, k, v, lcache: Dict, seg_start, kv_valid, cfg,
 
 
 def _split_refine(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
-                  window, calib, q_offset):
+                  window, calib, causal=False):
     """The split layout's refine (``cache_attention``): the segment, which
     must be the active block, smoothed into ``k_act``/``v_act``; attention
     over the full buffer less its copy of the block, and the buffer."""
@@ -493,9 +503,9 @@ def _split_refine(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
         else kv_valid.to(torch.bool) & valid[None]
     return layers.attention(q, lcache["k"], lcache["v"],
                             valid.contiguous(), window=window,
-                            baos_calib=calib, q_offset=q_offset,
+                            baos_calib=calib, q_offset=seg_start,
                             extra_kv=(lcache["k_act"], lcache["v_act"],
-                                      None))
+                                      None), causal=causal)
 
 
 def forward(params: Dict, cfg: ModelConfig,
@@ -509,7 +519,7 @@ def forward(params: Dict, cfg: ModelConfig,
             logits_slice: Optional[Tuple[int, int]] = None,
             head_mode: str = "logits", quant=None,
             cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            return_aux: bool = False):
+            return_aux: bool = False, attn_mode: Optional[str] = None):
     """tokens (B, S) -- or their ``embeds`` (B, S, d) -- at positions
     seg_start + r -> (logits (B, S', V), or with ``head_mode='hidden'``
     the final-norm hidden states (B, S', d); the cache), S' = S or the
@@ -521,8 +531,12 @@ def forward(params: Dict, cfg: ModelConfig,
     (n_layers, B, S_enc, Hkv, D) each, for the cross-attention
     sublayers.  ``return_aux``: return (logits, cache, aux), aux the MoE
     layers' load-balance losses summed over the layers (f32; 0 for a
-    dense model), as JAX's forward returns it."""
+    dense model), as JAX's forward returns it.  ``attn_mode`` overrides
+    the config's for every self-attention, as in JAX."""
     check_supported(cfg)
+    mode = attn_mode or cfg.attn_mode
+    check_attn_mode(mode)
+    causal = mode == "causal"
     if head_mode not in ("logits", "hidden"):
         raise ValueError(f"unknown head_mode {head_mode!r}")
     baos_cfg = baos_cfg or baos_lib.BAOSConfig(enabled=False)
@@ -542,14 +556,15 @@ def forward(params: Dict, cfg: ModelConfig,
         layout = attn_layout(lp, cfg)
         q, k, v = qkv(h, lp, cfg, positions, quant, layout)
         if cache is None:
-            attn = layers.attention(q, k, v, window=cfg.window)
+            attn = layers.attention(q, k, v, window=cfg.window,
+                                    causal=causal)
         else:
             lcache = {name: t[i] for name, t in cache.items()}
             attn = cache_attention(
                 q, k, v, lcache, seg_start, kv_valid, cfg, baos_cfg,
                 calibrate, calib_mask,
                 act_start=(logits_slice[0] if calibrate and logits_slice
-                           else None))
+                           else None), causal=causal)
         x = x + out_proj(attn, lp["wo"], cfg, quant, layout) * \
             cfg.residual_scale
         if cross_kv is not None:
@@ -592,8 +607,6 @@ def rows(x: torch.Tensor, start: SegStart, length: int) -> torch.Tensor:
 
 
 def start_of(seg_start: SegStart):
-    """A segment start as an int, or a one-element device tensor as an
-    int64 scalar tensor."""
-    if isinstance(seg_start, torch.Tensor):
-        return seg_start.reshape(()).to(torch.int64)
-    return seg_start
+    """A segment start as an int, or a device tensor's element 0 as an
+    int64 scalar tensor (flash_bidir.offset_start)."""
+    return flash_bidir.offset_start(seg_start)
