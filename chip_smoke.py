@@ -52,9 +52,13 @@ Phases, each fatal on failure:
                (error against an f32 recomputation at most 2x the plain
                bf16 version's plus one bf16 ulp), and the f32 route with a
                row that has no valid key (1e-4 of max|grad|; its dq and
-               dk 0), two launches bit for bit, each timed beside its
-               bound and SDPA's backward; the four kernels without a
-               backward refuse inputs that require grad;
+               dk 0), and llada-8b's heads at (2, 1024) bf16, two
+               launches bit for bit, each timed beside its bound and
+               SDPA's backward, with its launch plan, the registers of
+               the instantiations it launched, the share of tiles it
+               skips (counted from shapes) and each kernel's device ms;
+               the four kernels without a backward refuse inputs that
+               require grad;
                phase 15's kernel cases: flash_bidir reading its query
                offset from device memory (check_device_offset) at
                recurrentgemma-2b's (2, 64, 10 on 1, 256) bf16, window
@@ -361,7 +365,8 @@ Phases, each fatal on failure:
                PHASE15_TRAIN_LAYERS layers, attn_mode "causal": one train
                step's loss and gradients through flash_bidir and
                flash_bidir_bwd causal, against plain attention under
-               autograd and an f32 reference (phase 11a's gates).
+               autograd and an f32 reference (phase 11a's gates); 11a and
+               15e print attention's backward device ms a step.
 Every path's launch counts are zeroed just before it and read just after;
 the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 12, 13b,
 7, 8, 9, 11 (with 13a), 12b (with 13c), 14 (route C's from 14e) and 15
@@ -382,6 +387,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -750,13 +756,15 @@ def check_attn_backward(gen) -> dict:
     flash_bidir_bwd_plain on the card: llada-8b's training attention (8,
     128, 32 on 32, 128) bf16, qwen2-0.5b's (8, 128, 14 on 2, 64) bf16 (the
     shape phase 11's train step gives it), D 256 with window 2048 and
-    kv_valid (4, 256, 10 on 1) bf16, and the f32 route at a small shape
-    with a batch row that has no valid key.  f32: within 1e-4 x the
-    largest reference gradient, and dq = dk = 0 on the row with no valid
-    key.  bf16: the kernel's error against an f32 recomputation of the
-    same bf16 inputs at most 2x the plain bf16 version's, plus one bf16
-    ulp.  Two launches give the same bits.  Each case timed (CUDA events;
-    a graph of 20 calls) beside its bound and the library yardstick, the
+    kv_valid (4, 256, 10 on 1) bf16, the f32 route at a small shape
+    with a batch row that has no valid key, and llada-8b's heads at 1,024
+    positions (2, 1024, 32 on 32, 128) bf16, where the products and not
+    the bytes bound the function.  f32: within 1e-4 x the largest
+    reference gradient, and dq = dk = 0 on the row with no valid key.
+    bf16: the kernel's error against an f32 recomputation of the same
+    bf16 inputs at most 2x the plain bf16 version's, plus one bf16 ulp.
+    Two launches give the same bits.  Each case timed (CUDA events; a
+    graph of 20 calls) beside its bound and the library yardstick, the
     backward of scaled_dot_product_attention (its forward + backward less
     its forward, timed only).  Returns qwen2-0.5b's row."""
     cases = (("llada-8b training", 8, 128, 32, 32, 128, torch.bfloat16,
@@ -766,7 +774,9 @@ def check_attn_backward(gen) -> dict:
              ("D 256 window 2048 kv_valid", 4, 256, 10, 1, 256,
               torch.bfloat16, 2048, (256, 128, 77, 1)),
              ("f32 route, a row with no valid key", 3, 40, 6, 2, 64,
-              torch.float32, 7, (40, 0, 13)))
+              torch.float32, 7, (40, 0, 13)),
+             ("llada-8b heads at 1,024 positions", 2, 1024, 32, 32, 128,
+              torch.bfloat16, None, None))
     rows = {what: attn_backward_case(gen, what, *case)
             for what, *case in cases}
     return rows["qwen2-0.5b training"]
@@ -836,6 +846,9 @@ def attn_backward_case(gen, what, B, S, Hq, Hkv, D, dt, win, lens,
                ms=time_ms(fn, 20),
                plain_ms=time_ms(lambda: fb.flash_bidir_bwd_plain(*args), 5),
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    plan_note = bwd_plan_note(B, S, Hq, Hkv, D, dt, win, causal,
+                              valid is not None or win is not None
+                              or causal, fn)
     if dt == torch.bfloat16:
         G = Hq // Hkv
         qt = q.transpose(1, 2).detach().requires_grad_()
@@ -860,8 +873,93 @@ def attn_backward_case(gen, what, B, S, Hq, Hkv, D, dt, win, lens,
         f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}, "
         f"{'bf16 tensor-core' if dt == torch.bfloat16 else 'f32'} peak), "
-        f"{row['device_ms'] / b_ms:.0f}x; SDPA backward {lib}")
+        f"{row['device_ms'] / b_ms:.0f}x; SDPA backward {lib}; "
+        f"{plan_note}")
     return row
+
+
+_KERNEL_REGS: dict = {}
+
+
+def kernel_regs(lib: str, kernel: str) -> int:
+    """Registers a thread of one instantiation takes (kernel_attrs, read
+    once)."""
+    if not _KERNEL_REGS:
+        _KERNEL_REGS.update({(lb, k): regs
+                             for lb, k, _, regs, _ in kernel_attrs()})
+    return _KERNEL_REGS[(lib, kernel)]
+
+
+def bwd_tiles(plan, Sq: int, G: int, window, causal: bool) -> tuple:
+    """(key tiles walked, key tiles) of the backward's dq kernel over its
+    CTAs of one (batch row, KV head), and (row chunks walked, row chunks)
+    of its dk/dv kernel over its (key tile, split) CTAs: a count from
+    shapes, not a measurement, by csrc/flash_bidir_bwd.cu's walks (keys
+    and queries in reach of each other, at offset 0; Skv = Sq), for rows
+    that each find a valid key in reach.  The f32 route walks everything."""
+    from repro_torch.kernels import flash_bidir as fb
+    n_rows, far = G * Sq, 1 << 30
+    if plan.route != "tensor cores":
+        return (1, 1), (1, 1)
+    dq_w = dq_t = 0
+    per, bkv = 16 * plan.dq_warps, plan.dq_keys
+    for r_lo in range(0, n_rows, per):
+        qmin, qmax = r_lo // G, (min(r_lo + per, n_rows) - 1) // G
+        lo = qmin - window + 1 if window else -far
+        hi = qmax if causal else (qmax + window - 1 if window else far)
+        jlo, jhi = max(lo, 0), min(hi, Sq - 1)
+        dq_w += jhi // bkv - jlo // bkv + 1 if jlo <= jhi else 0
+        dq_t += -(-Sq // bkv)
+    kv_w = kv_t = 0
+    for k0 in range(0, Sq, fb.BWD_BN):
+        kmax = min(k0 + fb.BWD_BN, Sq) - 1
+        lo = k0 if causal else (k0 - window + 1 if window else -far)
+        hi = kmax + window - 1 if window else far
+        plo, phi = max(lo, 0), min(hi, Sq - 1)
+        for s_lo in range(0, n_rows, plan.split_rows):
+            s_hi = min(s_lo + plan.split_rows, n_rows)
+            kv_t += -(-(s_hi - s_lo) // fb.BWD_BM)
+            rlo, rhi = max(plo * G, s_lo), min(phi * G + G - 1, s_hi - 1)
+            if plo <= phi and rlo <= rhi:
+                kv_w += rhi // fb.BWD_BM - rlo // fb.BWD_BM + 1
+    return (dq_w, dq_t), (kv_w, kv_t)
+
+
+def bwd_plan_note(B, S, Hq, Hkv, D, dt, win, causal, masked,
+                  fn) -> str:
+    """The backward's plan for one case (kernels/flash_bidir.bwd_plan), the
+    registers of each instantiation it launches (``masked``: kv_valid, a
+    window or the causal mask), the share of tiles it skips (bwd_tiles)
+    and each kernel's device ms (profiler)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_bidir as fb
+    plan = fb.bwd_plan(B, S, S, Hq, Hkv, D, dt, _build.sm_count(0),
+                       masked)
+    if plan.route == "tensor cores":
+        m = ", true" if masked else ""
+        names = [f"flash_bidir_bwd_dq_tc<{plan.tile}{m}>",
+                 f"flash_bidir_bwd_dkv_tc<{plan.tile}{m}>"]
+        if plan.n_split > 1:
+            names.append("flash_bidir_bwd_split_sum")
+    else:
+        names = [f"flash_bidir_bwd_{k}<float, {plan.tile // 32}>"
+                 for k in ("dq", "dkv")]
+    regs = ", ".join(f"{n} {kernel_regs('flash_bidir_bwd', n)}"
+                     for n in names)
+    (dqw, dqt), (kvw, kvt) = bwd_tiles(plan, S, Hq // Hkv, win, causal)
+    by_kernel = {}
+    for k, (ms, _) in device_kernels(fn, 5).items():
+        m = re.search(r"flash_bidir_bwd\w*", k)
+        if m:
+            by_kernel[m.group(0)] = by_kernel.get(m.group(0), 0.0) + ms
+    split = ", ".join(f"{k} {ms:.4f}" for k, ms in sorted(by_kernel.items()))
+    return (f"plan: {plan.route}, tile {plan.tile}, dq {plan.dq_ctas} CTAs "
+            f"of {plan.dq_warps} warps, dk/dv {plan.dkv_ctas} CTAs "
+            f"(n_split {plan.n_split} of {plan.split_rows} rows); "
+            f"registers {regs}; tiles skipped, counted from shapes: dq "
+            f"{dqt - dqw} of {dqt} ({1 - dqw / dqt:.1%}), dk/dv "
+            f"{kvt - kvw} of {kvt} ({1 - kvw / kvt:.1%}); device ms by "
+            f"kernel (profiler) {split}")
 
 
 def check_no_backward_guard(gen) -> None:
@@ -4509,6 +4607,9 @@ def check_train_step(gen) -> dict:
     state = adamw.init_state(params)
     opt_ms = time_ms(lambda: adamw.apply_updates(params, grads_k, state,
                                                  opt_cfg), 3)
+    log(f"phase 11a: attention's backward (flash_bidir_bwd, "
+        f"{cfg.n_layers} launches) {by_class.get('flash_bidir_bwd', 0.0):.3f}"
+        f" device ms a step (profiler)")
     log(f"phase 11a: the kernels' loss and gradients, device ms by class "
         f"(profiler): "
         + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
@@ -7769,6 +7870,10 @@ def phase15_train(gen) -> dict:
     want = {"flash_bidir_causal": nl, "flash_bidir_bwd_causal": nl}
     require({n: v for n, v in counts.items() if v} == want,
             f"phase 15e: launches {counts}, want {want}")
+    with no_plain_attention():
+        bwd_ms = sum(ms for k, (ms, _) in device_kernels(
+            lambda: loss_grads(model, params), 1).items()
+            if "flash_bidir_bwd" in k)
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     require(rel <= 1e-3, f"phase 15e: loss differs by {rel:.3g} (> 1e-3)")
     worst_kp, worst_f32, n_f32 = grad_gates(names, grads_k, grads_p,
@@ -7782,7 +7887,8 @@ def phase15_train(gen) -> dict:
         + (f"; on the other {n_f32} the kernels' cosine to f32 less "
            f"plain's at worst {worst_f32[0]:+.6f} ({worst_f32[1]})"
            if n_f32 else "")
-        + f"; launches { {n: v for n, v in counts.items() if v} }")
+        + f"; launches { {n: v for n, v in counts.items() if v} }; "
+        f"attention's backward {bwd_ms:.3f} device ms a step (profiler)")
     del model, params, grads_k, grads_p, grads32
     free()
     return counts
@@ -7977,9 +8083,14 @@ def main() -> int:
         logs = _build.build()
         log(f"build: {time.perf_counter() - t0:.2f} s")
         for name, text in logs.items():
+            fn = ""
             for line in text.splitlines():
+                m = re.search(r"Function properties for (\S+)", line)
+                fn = m.group(1) if m else fn
                 if "registers" in line:
                     log(f"  {name}: {line.strip()}")
+                elif "spill" in line and name == "flash_bidir_bwd":
+                    log(f"  {name}: {fn}: {line.strip()}")
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         kernels = phase_kernels(gen)
 

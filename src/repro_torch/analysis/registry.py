@@ -271,13 +271,12 @@ def _flash_tc_max_warps(dt: int, qs: int) -> int:
     return w
 
 
-def _bwd_dq_dynamic(dt: int) -> int:
-    return (2 * 16 * dt + 2 * 32 * (dt + 1)) * 4
-
-
-def _bwd_dkv_dynamic(dt: int) -> int:
-    rc, bk = 16, 32
-    return (2 * bk * (dt + 1) + 2 * rc * dt + 2 * rc * bk + 4 * rc) * 4
+def _bwd_tc_dynamic(dt: int, masked: bool) -> Tuple[int, int]:
+    """The backward's bf16 route: its dq CTA at the most warps, and its
+    dk/dv CTA (kernels/flash_bidir's plan states both)."""
+    from repro_torch.kernels import flash_bidir as fb
+    return (fb.bwd_dq_smem(dt, masked, fb.bwd_dq_max_warps(dt, masked)),
+            fb.bwd_dkv_smem(dt))
 
 
 def smem_specs() -> List[SmemSpec]:
@@ -321,12 +320,22 @@ def smem_specs() -> List[SmemSpec]:
                     lib, f"flash_bidir_tc_kernel<{dt}, {name}{r}>", 0,
                     _flash_tc_dynamic(dt, qs, _flash_tc_max_warps(dt, qs))))
     lib = "flash_bidir_bwd"
-    for t in ("float", "__nv_bfloat16"):
-        for dpl in (1, 2, 4, 8):
-            out.append(SmemSpec(lib, f"flash_bidir_bwd_dq<{t}, {dpl}>", 0,
-                                _bwd_dq_dynamic(32 * dpl)))
-            out.append(SmemSpec(lib, f"flash_bidir_bwd_dkv<{t}, {dpl}>", 0,
-                                _bwd_dkv_dynamic(32 * dpl)))
+    from repro_torch.kernels import flash_bidir as fb
+    for dpl in (1, 2, 4, 8):
+        dq, dkv = fb.bwd_f32_smem(32 * dpl)
+        out.append(SmemSpec(lib, f"flash_bidir_bwd_dq<float, {dpl}>", 0, dq))
+        out.append(SmemSpec(lib, f"flash_bidir_bwd_dkv<float, {dpl}>", 0,
+                            dkv))
+    # each bf16 kernel without and with MASKED (kv_valid, a window or the
+    # causal mask)
+    for dt in (32, 64, 128, 256):
+        for m in ("", ", true"):
+            dq, dkv = _bwd_tc_dynamic(dt, bool(m))
+            out.append(SmemSpec(lib, f"flash_bidir_bwd_dq_tc<{dt}{m}>", 0,
+                                dq))
+            out.append(SmemSpec(lib, f"flash_bidir_bwd_dkv_tc<{dt}{m}>", 0,
+                                dkv))
+    out.append(SmemSpec(lib, "flash_bidir_bwd_split_sum", 0, 0))
     lib = "baos_mx_quant"
     for t in ("float", "__nv_bfloat16"):
         for fmt in FMTS_CU:

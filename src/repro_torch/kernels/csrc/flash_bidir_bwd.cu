@@ -21,49 +21,100 @@
 //   dv_j = sum_(i, heads of the group) p_ij dO_i
 // A row with no valid key has p = 1 / Skv on every key (the forward
 // averages V there): it adds to dv, and its dq and its share of dk are 0.
-// Keys past Skv (the ragged last tile) have p = 0.
+// Keys past Skv (the ragged last tile) have p = 0.  delta is not taken as
+// dO . o from the forward's output: o is rounded to the activation dtype,
+// and in bf16 that rounding, against dp_ij - delta_i (a small difference
+// where attention is near uniform), cost qwen2-0.5b's query and key
+// projections a gradient cosine of 0.93-0.98 to an f32 reference where
+// plain attention under autograd kept 0.99-0.997.
 //
-// Design (simple first; the tensor cores wait for a later redesign): f32
-// on the CUDA cores for bf16 and f32 inputs alike, each value converted
-// once on its way into shared memory, every sum in f32, each output
-// rounded once to the input dtype.  Two kernels, one after the other on
-// the caller's stream:
-//   1. dq: one CTA per (16-row q tile, q head, batch row), 4 warps of 4
-//      rows, lane j scoring key j of a 32-key tile staged in shared memory
-//      ([32][DT + 1] floats: lane-strided reads hit 32 banks).  A first
-//      pass over the key tiles recomputes each row's max and sum (the
-//      forward's online softmax) and delta_i, the sum of p_ij dp_ij under
-//      the same online rescaling; a second pass forms ds and sums
-//      ds_ij k_j into the row's dq, lane c holding columns c + 32 t.
-//      delta is not taken as dO . o from the forward's output: o is
-//      rounded to the activation dtype, and in bf16 that rounding, against
-//      dp_ij - delta_i (a small difference where attention is near
-//      uniform), cost qwen2-0.5b's query and key projections a gradient
-//      cosine of 0.93-0.98 to an f32 reference where plain attention
-//      under autograd kept 0.99-0.997 (24 layers, random weights, B 8 x S
-//      128).  It writes (m, l, delta) of every row to a scratch buffer for
-//      kernel 2.
-//   2. dk, dv: one CTA per (32-key tile, KV head, batch row), 8 warps.
-//      It walks every query row of every q head of the group in chunks of
-//      16 rows: the warps score the chunk (row r on warp r % 8, lane j on
-//      key j) into shared p and ds tiles, then every thread adds the
-//      chunk to the columns it owns (key = lane, DT / 8 contiguous
-//      columns = warp's share, read as 16-byte broadcasts).  The sum over
-//      the group's heads stays inside the CTA.
-// No atomics: every output element is summed by one thread in a fixed
-// order, so two launches give the same bits.
+// bf16 route, on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// accumulate; ldmatrix from bf16 tiles that arrive through cp.async
+// rings of 3 stages, 2 for kernel 1 at D 256).  Rows are packed as in the
+// forward: row r of a KV head's group is q head hk * G + r % G at
+// position r / G, so every K/V tile staged in shared memory serves all G
+// q heads of its rows.
+//   1. flash_bidir_bwd_dq_tc: one CTA per (16 x warps packed rows, KV
+//      head, batch row), 16 rows a warp.  Pass 0 forms S = Q K^T and
+//      dP = dO V^T tile by tile (64 keys; 32 under a mask and at D 256)
+//      and keeps each row's max, sum and sum of e_ij dp_ij online (the
+//      forward's softmax); it writes
+//      (m, 1/l, delta) of every row to an f32 scratch.  Pass 1 forms S and
+//      dP again, dS from the final statistics, and dq += dS K.
+//   2. flash_bidir_bwd_dkv_tc: one CTA per (64-key tile, KV head, batch
+//      row, row split), a warp per 16 keys (two at D 256: one sums dV, the
+//      other dK, so each keeps 128 f32 accumulators a thread and nothing
+//      spills).  It walks its split's rows in chunks of 32 and forms
+//      S^T = K Q^T and dP^T = V dO^T with the keys as the mma's rows, so
+//      P^T and dS^T, from the scratch's statistics, are the A fragments of
+//      dV += P^T dO and dK += dS^T Q without leaving registers.
+//   3. flash_bidir_bwd_split_sum (only with n_split > 1).
+// S and dP are formed three times per (row, key, q head): pass 0, pass 1
+// and kernel 2 (S four times at D 256, where both warps of a key need P).
+// The statistics are never recomputed: the scratch carries them from
+// kernel 1 to kernel 2.
+//
+// The row split: a grouped query gives kernel 2 few CTAs (Skv / 64 x Hkv
+// x B: 16 at D 256's (4, 256, 10 on 1), 32 at qwen2-0.5b's (8, 128, 14 on
+// 2)).  The launcher (kernels/flash_bidir.bwd_plan) cuts the G x Sq rows
+// of a group into n_split contiguous blocks of split_rows (a multiple of
+// 32, at least 128 rows, at most two waves of CTAs), the cut whose
+// busiest SM finishes first by its model of an SM's rate; it also picks
+// kernel 1's warps.  With n_split > 1 each CTA writes its f32 partial
+// sums to a scratch of (2, n_split, B, Skv, Hkv, D), and kernel 3 adds
+// the splits in the fixed order 0, 1, ..., n_split - 1 and rounds once.
+// No atomics anywhere: every output element is summed in a fixed order,
+// so two launches give the same bits.  With n_split == 1 kernel 2 writes
+// dk and dv itself.  The wrapper allocates both scratches; the kernels
+// allocate nothing.
+//
+// Rounding: q, k, v and dO are exact bf16 operands, and S, dP, the row
+// statistics and every sum are f32.  P and dS enter their products as
+// one bf16 rounding each (2^-9 relative), where the forward splits P into
+// three bf16 terms: a gradient is held to the plain bf16 version's error
+// (one ulp more, at most 2x), and a test-only emulation of this
+// arithmetic at the smoke shapes (tests/test_torch_attn_bwd_plan.py)
+// stays within 0.3-0.7 of that budget with one rounding (the card:
+// 0.52-0.71).  Each output is rounded once.
+//
+// Masks: each bf16 kernel has a MASKED instantiation, which the launcher
+// takes where kv_valid, a window or the causal mask is given; the others
+// test only whether a key lies past Skv, and walk 64-key tiles in kernel
+// 1 (together 15-25% less time than the masked kernels at llada-8b's and
+// qwen2-0.5b's training shapes and at (2, 1024), PERF.md).
+//
+// Key tiles out of reach: under a window or the causal mask, kernel 1
+// walks only the key tiles its rows reach and kernel 2 only the row
+// chunks that reach its keys (the forward's tile_range rule).  A row with
+// no valid key in its reach has no valid key at all; kernel 1 gives it
+// l = Skv (p = 1 / Skv on every key), and a kernel-2 CTA that finds such
+// a row of its split outside its walk walks every chunk of the split.
+//
+// What bounds it: the card could finish the function on its bytes.  At
+// llada-8b's training shape (B 8, S 128, 32 heads, D 128) it reads and
+// writes 58.7 MB (0.0175 ms) and needs 4.3 GFLOP (S, dP, dV, dK, dQ less
+// one: 0.0043 ms at 989 TFLOP/s); this kernel does 9 of those products
+// (S and dP three times), 9.7 GFLOP, 0.0098 ms at the peak rate that
+// mma.sync does not reach.  At (2, 1024, 32 on 32, 128) the products
+// bound it: 68.7 GFLOP needed, 154.6 done (0.156 ms at the peak).
+// PERF.md has the times.
+//
+// f32 route, on the CUDA cores (TF32 would change its arithmetic): two
+// kernels, each value converted once on its way into shared memory.
+//   1. flash_bidir_bwd_dq: one CTA per (16-row q tile, q head, batch
+//      row), 4 warps of 4 rows, lane j scoring key j of a 32-key tile
+//      ([32][DT + 1] floats: lane-strided reads hit 32 banks); pass 1
+//      recomputes (m, l, delta), pass 2 sums ds_ij k_j into dq; (m, l,
+//      delta) go to the scratch (3, B, Hq, Sq) for kernel 2.
+//   2. flash_bidir_bwd_dkv: one CTA per (32-key tile, KV head, batch row),
+//      8 warps, walking every row of the group in chunks of 16 (key =
+//      lane, DT / 8 columns a warp).
 //
 // Head dims: tiles DT = 32, 64, 128 and 256 columns (a multiple of 8 up to
 // 256 runs in the smallest that holds it, columns past D loaded as zeros
-// and not stored).  Shared memory at DT 256: 98.6 KB (dq), 102.8 KB (dk,
-// dv), under the 227 KB a block may take.
-//
-// What bounds it: the card could finish the function on its bytes (llada-8b's
-// training shape, B 8, S 128, 32 heads, D 128: 67 MB read and written,
-// 0.020 ms; its 4 products, 4.3 GFLOP, take 0.004 ms on the tensor cores).
-// This kernel instead does 9 D scalar f32 multiply-adds per (row, key,
-// head) with the recomputed scores, each reading shared memory: it is
-// bound by that issue rate, far above either bound (PERF.md).
+// and not stored).  Shared memory at DT 256: kernel 1 at 8 warps 202.8 KB,
+// kernel 2 170.1 KB (bf16); 98.6 KB and 102.8 KB (f32).  Registers from
+// 120 to 252 a thread, no spill (PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -394,86 +445,822 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DPL>
-cudaError_t launch(const T* q, const T* k, const T* v, const T* dout, const unsigned char* kv_valid, T* dq, T* dk,
-                   T* dv, float* stats, int B, int Sq, int Skv, int Hq,
-                   int Hkv, int D, float scale, int window, int q_offset,
-                   int causal, cudaStream_t stream) {
-  constexpr int DT = 32 * DPL;
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_STAGES = 3;      // cp.async ring depth (dk/dv; dq below)
+constexpr int TC_MAX_WARPS = 8;   // of a dq CTA, 16 rows each
+constexpr int KV_BN = 64;         // keys per dk/dv CTA: 4 key warps of 16
+constexpr int KV_BM = 32;         // rows per chunk of the dk/dv walk
+constexpr int SMEM_LIMIT = 232448;
+
+// The dq kernel's K/V tiles: 64 keys (half the barriers and A-fragment
+// loads of 32 a product); 32 at DT 256, where a warp's 64-key S and dP
+// would not fit in registers beside its dq, and where a mask can cut
+// (MASKED), where 32 skip finer and waste less of a short causal walk
+// (the 4 x 96 causal case ran 10% slower in 64-key tiles, PERF.md).
+__host__ __device__ constexpr int dq_bkv(int DT, bool masked) {
+  return DT == 256 || masked ? 32 : 64;
+}
+
+// The dq kernel's K/V ring depth: 2 at DT 256, where a third stage would
+// leave room for 7 warps' rows, 3 below.
+__host__ __device__ constexpr int dq_stages(int DT) {
+  return DT == 256 ? 2 : 3;
+}
+
+// Dynamic shared memory of a dq CTA of `warps` warps at tile width DT, in
+// bytes: the K and V rings and each warp's q and dO rows, bf16 rows
+// padded by 16 bytes (ldmatrix's eight row addresses hit eight bank
+// groups).
+constexpr int dq_tc_smem_bytes(int DT, bool masked, int warps) {
+  return (2 * dq_stages(DT) * dq_bkv(DT, masked) + 2 * 16 * warps) *
+         (DT + 8) * 2;
+}
+
+// The most warps a dq CTA takes at tile width DT.
+constexpr int dq_tc_max_warps(int DT, bool masked) {
+  int w = TC_MAX_WARPS;
+  while (w > 1 && dq_tc_smem_bytes(DT, masked, w) > SMEM_LIMIT) --w;
+  return w;
+}
+
+// Warps of a dk/dv CTA per key warp: at DT 256 one accumulates dV and one
+// dK for the same 16 keys (both sums in one warp would take 256 f32
+// registers a thread); below, one warp accumulates both.
+__host__ __device__ constexpr int dkv_roles(int DT) {
+  return DT == 256 ? 2 : 1;
+}
+
+// Dynamic shared memory of a dk/dv CTA at tile width DT, in bytes: its K
+// and V tile, and a ring of row chunks (q rows, dO rows and the rows'
+// m, 1/l, delta).
+constexpr int dkv_tc_smem_bytes(int DT) {
+  return (2 * KV_BN + 2 * TC_STAGES * KV_BM) * (DT + 8) * 2 +
+         TC_STAGES * 3 * KV_BM * 4;
+}
+
+// The row-statistics scratch holds, per (batch row, KV head), three rows
+// of NR floats (m, 1/l, delta of each packed row), NR = G * Sq rounded up
+// to 4 so that a chunk's statistics are 16-byte copies.
+__host__ __device__ __forceinline__ int stats_stride(int n_rows) {
+  return (n_rows + 3) & ~3;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// Items [lo, lo + n) of BT holding items j in [jlo, jhi] of len items.
+__device__ __forceinline__ void tiles_of(int jlo, int jhi, int len, int BT,
+                                         int& lo, int& n) {
+  jlo = max(jlo, 0);
+  jhi = min(jhi, len - 1);
+  lo = jlo <= jhi ? jlo / BT : 0;
+  n = jlo <= jhi ? jhi / BT - lo + 1 : 0;
+}
+
+constexpr int FAR = 1 << 30;
+
+// The key positions some query position in [qmin, qmax] reaches: |q - k|
+// < window, and k <= q if causal (the forward's tile_range).
+__device__ __forceinline__ void keys_reached(int qmin, int qmax, int window,
+                                             int causal, int& lo, int& hi) {
+  lo = window > 0 ? qmin - window + 1 : -FAR;
+  hi = causal ? qmax : (window > 0 ? qmax + window - 1 : FAR);
+}
+
+// The query positions that reach some key position in [kmin, kmax].
+__device__ __forceinline__ void queries_reaching(int kmin, int kmax,
+                                                 int window, int causal,
+                                                 int& lo, int& hi) {
+  lo = causal ? kmin : (window > 0 ? kmin - window + 1 : -FAR);
+  hi = window > 0 ? kmax + window - 1 : FAR;
+}
+
+// dq and the row statistics.  One CTA per (16 * warps packed rows, KV
+// head, batch row); row r of a group is q head hk * G + r % G at position
+// r / G, as in the forward, so the K/V tiles a CTA stages serve every q
+// head of its rows.  Pass 0 forms S and dP over the key tiles in reach
+// and keeps each row's max, sum and sum of e_ij dp_ij online; pass 1
+// forms them again with the final statistics and sums dS K into dq.
+template <int DT, bool MASKED = false>
+__global__ void __launch_bounds__(32 * TC_MAX_WARPS, 1)
+flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const unsigned char* __restrict__ kv_valid,
+                      bf16* __restrict__ dq, float* __restrict__ stats,
+                      int Sq, int Skv, int Hq, int Hkv, int D, float scale,
+                      int window, int q_offset, int causal) {
+  constexpr int DP = DT + 8;
+  constexpr int KT = DT / 16;      // depth steps of S and dP
+  constexpr int NT = DT / 8;       // 8-column tiles of dq
+  constexpr int STAGES = dq_stages(DT);
+  constexpr int BKV = dq_bkv(DT, MASKED);
+  constexpr int NK = BKV / 8;      // 8-key tiles of a K/V tile
+  constexpr int KV_STAGE = BKV * DP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [STAGES][BKV][DP]
+  bf16* vs = ks + STAGES * KV_STAGE;              // [STAGES][BKV][DP]
+  bf16* rs = vs + STAGES * KV_STAGE;              // [warps][q, dO][16][DP]
+
+  const int G = Hq / Hkv, hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3, nwarps = blockDim.x >> 5;
+  const int n_rows = G * Sq, NR = stats_stride(n_rows);
+  const int r_lo = blockIdx.x * nwarps * 16;
+  const int r_hi = min(r_lo + nwarps * 16, n_rows) - 1;
+  const int row0 = r_lo + warp * 16;
+  // the key tiles the CTA's rows reach
+  int t_lo = 0, n_w = (Skv + BKV - 1) / BKV;
+  if (MASKED && (window > 0 || causal)) {
+    int lo, hi;
+    keys_reached(q_offset + r_lo / G, q_offset + r_hi / G, window, causal,
+                 lo, hi);
+    tiles_of(lo, hi, Skv, BKV, t_lo, n_w);
+  }
+
+  auto load_kv = [&](int w) {
+    bf16* kd = ks + (w % STAGES) * KV_STAGE;
+    bf16* vd = vs + (w % STAGES) * KV_STAGE;
+    const int k0 = (t_lo + w) * BKV;
+    for (int e = tid; e < BKV * (DT / 8); e += blockDim.x) {
+      const int j = e / (DT / 8), dc = (e % (DT / 8)) * 8, key = k0 + j;
+      const bool ok = key < Skv && dc < D;
+      const size_t o =
+          ok ? ((static_cast<size_t>(b) * Skv + key) * Hkv + hk) * D + dc : 0;
+      cp_async_16(smem_addr(kd + j * DP + dc), k + o, ok);
+      cp_async_16(smem_addr(vd + j * DP + dc), v + o, ok);
+    }
+  };
+
+  // this warp's 16 q and dO rows (rows past G * Sq and columns past D
+  // zero-filled), in the first group with the first K/V tiles
+  bf16* qw = rs + warp * 2 * 16 * DP;
+  bf16* dw = qw + 16 * DP;
+#pragma unroll
+  for (int e = lane; e < 16 * (DT / 8); e += 32) {
+    const int r = e / (DT / 8), dc = (e % (DT / 8)) * 8, row = row0 + r;
+    const bool ok = row < n_rows && dc < D;
+    const size_t o =
+        ok ? ((static_cast<size_t>(b) * Sq + row / G) * Hq + hk * G + row % G)
+                 * D + dc
+           : 0;
+    cp_async_16(smem_addr(qw + r * DP + dc), q + o, ok);
+    cp_async_16(smem_addr(dw + r * DP + dc), dout + o, ok);
+  }
+  auto prefetch = [&]() {
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < n_w) load_kv(s);
+      cp_async_commit();
+    }
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+  };
+
+  // the lane's two rows: g and g + 8 of the warp's 16
+  int qpos[2];
+  bool live[2];
+  size_t orow[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + g + 8 * hh;
+    live[hh] = row < n_rows;
+    const int r = live[hh] ? row : 0;
+    qpos[hh] = q_offset + r / G;
+    orow[hh] =
+        ((static_cast<size_t>(b) * Sq + r / G) * Hq + hk * G + r % G) * D;
+  }
+
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, pdp[2] = {0.f, 0.f};
+  float il[2], dl[2];
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    prefetch();
+    for (int w = 0; w < n_w; ++w) {
+      cp_async_wait<STAGES - 2>();      // tile w has landed
+      __syncthreads();                     // ... for all; w - 1 is read
+      if (w + STAGES - 1 < n_w) load_kv(w + STAGES - 1);
+      cp_async_commit();
+      const bf16* kt = ks + (w % STAGES) * KV_STAGE;
+      const bf16* vt = vs + (w % STAGES) * KV_STAGE;
+      const int k0 = (t_lo + w) * BKV;
+
+      // kv_valid of this lane's keys (key 8j + 2c + e of the tile at
+      // 2j + e), read after the products so the loads overlap them
+      unsigned char kvv[2 * NK];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * c + e;
+          kvv[2 * j + e] = MASKED && kv_valid != nullptr && key < Skv
+                               ? kv_valid[static_cast<size_t>(b) * Skv + key]
+                               : 1;
+        }
+
+      // S = Q K^T and dP = dO V^T: 16 rows x BKV keys, NK 8-key tiles
+      float st[NK][4], dpt[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t aq[4], ad[4];
+        const int ao = (lane & 15) * DP + kk * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(aq, smem_addr(qw + ao));
+        ldmatrix_x4(ad, smem_addr(dw + ao));
+#pragma unroll
+        for (int jp = 0; jp < NK / 2; ++jp) {
+          const int bo = (jp * 16 + (lane & 7) + (lane >> 4) * 8) * DP +
+                         kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t bk[4], bv[4];
+          ldmatrix_x4(bk, smem_addr(kt + bo));
+          ldmatrix_x4(bv, smem_addr(vt + bo));
+          mma_bf16(st[2 * jp], aq, bk[0], bk[1]);
+          mma_bf16(st[2 * jp + 1], aq, bk[2], bk[3]);
+          mma_bf16(dpt[2 * jp], ad, bv[0], bv[1]);
+          mma_bf16(dpt[2 * jp + 1], ad, bv[2], bv[3]);
+        }
+      }
+
+      // x D^-1/2; -1e30 for a masked key, -inf (probability 0) past Skv
+      bool okm[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * c + e;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const bool ok =
+                key < Skv && (!MASKED || (kvv[2 * j + e] != 0 &&
+                                          in_reach(qpos[hh], key, window,
+                                                   causal)));
+            float& x = st[j][2 * hh + e];
+            okm[j][2 * hh + e] = ok;
+            x = key < Skv ? (ok ? x * scale : NEG) : -INFINITY;
+          }
+        }
+
+      if (pass == 0) {
+        // online max, sum and sum of e_ij dp_ij, the max over the quad
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float mx = NEG;
+#pragma unroll
+          for (int j = 0; j < NK; ++j)
+            mx = fmaxf(mx, fmaxf(st[j][2 * hh], st[j][2 * hh + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 2));
+          const float m_new = fmaxf(m[hh], mx);
+          const float corr = expf(m[hh] - m_new);
+          m[hh] = m_new;
+          l[hh] *= corr;
+          pdp[hh] *= corr;
+#pragma unroll
+          for (int j = 0; j < NK; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float p = expf(st[j][2 * hh + e] - m_new);
+              l[hh] += p;
+              pdp[hh] += p * dpt[j][2 * hh + e];
+            }
+        }
+      } else {
+        // dS = P (dP - delta), 0 where masked; dq += dS K, 16 keys a step
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hh = e >> 1;
+            const float p = expf(st[j][e] - m[hh]) * il[hh];
+            st[j][e] = okm[j][e] ? p * (dpt[j][e] - dl[hh]) : 0.f;
+          }
+#pragma unroll
+        for (int kk = 0; kk < NK / 2; ++kk) {
+          uint32_t a[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+                           pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+                           pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                           pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+#pragma unroll
+          for (int np = 0; np < DT / 16; ++np) {
+            uint32_t bk[4];
+            ldmatrix_x4_trans(bk, smem_addr(kt + (kk * 16 + (lane & 15)) * DP
+                                            + np * 16 + (lane >> 4) * 8));
+            mma_bf16(acc[2 * np], a, bk[0], bk[1]);
+            mma_bf16(acc[2 * np + 1], a, bk[2], bk[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();                    // the walk's trailing groups
+    __syncthreads();                       // every tile read: ring free
+    if (pass == 1) break;
+
+    // the rows' statistics.  A row with no valid key in its reach has no
+    // valid key at all: it averages every key (l = Skv, m = -1e30; its ds
+    // is 0 on every key, so delta is unused and written as 0).
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(FULL_MASK, l[hh], 1);
+      l[hh] += __shfl_xor_sync(FULL_MASK, l[hh], 2);
+      pdp[hh] += __shfl_xor_sync(FULL_MASK, pdp[hh], 1);
+      pdp[hh] += __shfl_xor_sync(FULL_MASK, pdp[hh], 2);
+      const bool dead = m[hh] == NEG;
+      il[hh] = 1.f / fmaxf(dead ? static_cast<float>(Skv) : l[hh], 1e-30f);
+      dl[hh] = dead ? 0.f : pdp[hh] * il[hh];
+      const int row = row0 + g + 8 * hh;
+      if (c == 0 && row < NR) {           // rows past G * Sq: zeros
+        float* sr = stats + (static_cast<size_t>(b) * Hkv + hk) * 3 * NR + row;
+        sr[0] = live[hh] ? m[hh] : 0.f;
+        sr[NR] = live[hh] ? il[hh] : 0.f;
+        sr[2 * NR] = live[hh] ? dl[hh] : 0.f;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (!live[hh]) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int dd = 8 * n + 2 * c;
+      if (dd >= D) break;                // D is a multiple of 8
+      *reinterpret_cast<__nv_bfloat162*>(dq + orow[hh] + dd) =
+          __floats2bfloat162_rn(acc[n][2 * hh] * scale,
+                                acc[n][2 * hh + 1] * scale);
+    }
+  }
+}
+
+// dk and dv.  One CTA per (64-key tile, KV head, batch row, row split):
+// key warp kw owns keys 16 kw .. 16 kw + 15 of the tile and walks the
+// split's packed rows in chunks of 32, forming S^T = K Q^T and
+// dP^T = V dO^T with the keys as the mma's rows, so that P^T and dS^T are
+// the A fragments of dV += P^T dO and dK += dS^T Q without leaving
+// registers.  n_split == 1: dk, dv written; else f32 partials of split s
+// into part[0 (dk) / 1 (dv)][s], summed by flash_bidir_bwd_split_sum.
+template <int DT, bool MASKED = false>
+__global__ void __launch_bounds__(128 * dkv_roles(DT), 1)
+flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const unsigned char* __restrict__ kv_valid,
+                       const float* __restrict__ stats,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       float* __restrict__ part, int B, int Sq, int Skv,
+                       int Hq, int Hkv, int D, int split_rows, int n_split,
+                       float scale, int window, int q_offset, int causal) {
+  constexpr int ROLES = dkv_roles(DT);
+  constexpr int NA = ROLES == 1 ? 2 : 1;   // accumulators a warp keeps
+  constexpr int DP = DT + 8;
+  constexpr int KT = DT / 16;
+  constexpr int NT = DT / 8;
+  constexpr int NJ = KV_BM / 8;            // 8-row tiles of a chunk
+  constexpr int CH = 2 * KV_BM * DP;       // a chunk's q and dO rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [BN][DP]
+  bf16* vs = ks + KV_BN * DP;                     // [BN][DP]
+  bf16* ring = vs + KV_BN * DP;                   // [STAGES][q, dO][BM][DP]
+  float* sts = reinterpret_cast<float*>(ring + TC_STAGES * CH);
+  //                                               [STAGES][m, 1/l, delta][BM]
+
+  const int k0 = blockIdx.x * KV_BN, hk = blockIdx.y;
+  const int b = blockIdx.z / n_split, split = blockIdx.z % n_split;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int kw = warp & 3, role = warp >> 2;
+  const bool do_v = ROLES == 1 || role == 0;
+  const bool do_k = ROLES == 1 || role == 1;
+  const int G = Hq / Hkv, n_rows = G * Sq, NR = stats_stride(n_rows);
+  const float* st_b = stats + (static_cast<size_t>(b) * Hkv + hk) * 3 * NR;
+  const int s_lo = split * split_rows;
+  const int s_hi = min(s_lo + split_rows, n_rows);
+  const bool reach = MASKED && (window > 0 || causal);
+
+  // the chunks of the split whose rows reach the tile's keys
+  int c_lo = s_lo / KV_BM, n_c = (s_hi - s_lo + KV_BM - 1) / KV_BM;
+  if (reach) {
+    int lo, hi;
+    queries_reaching(k0, min(k0 + KV_BN, Skv) - 1, window, causal, lo, hi);
+    using ll = long long;
+    const ll plo = max(static_cast<ll>(lo) - q_offset, 0LL);
+    const ll phi = min(static_cast<ll>(hi) - q_offset, static_cast<ll>(Sq - 1));
+    const ll rlo = max(plo * G, static_cast<ll>(s_lo));
+    const ll rhi = min(phi * G + G - 1, static_cast<ll>(s_hi - 1));
+    const int f_lo = c_lo, f_n = n_c;
+    if (plo > phi || rlo > rhi) {
+      n_c = 0;
+    } else {
+      c_lo = static_cast<int>(rlo / KV_BM);
+      n_c = static_cast<int>(rhi / KV_BM) - c_lo + 1;
+    }
+    // a row of the split with no valid key (m = -1e30) averages every key,
+    // in reach or not: then the CTA walks every chunk of its split
+    bool lost = false;
+    for (int r = s_lo + tid; r < s_hi; r += blockDim.x)
+      if (r < c_lo * KV_BM || r >= (c_lo + n_c) * KV_BM)
+        lost |= st_b[r] == NEG;
+    if (__syncthreads_or(lost)) {
+      c_lo = f_lo;
+      n_c = f_n;
+    }
+  }
+
+  // the K/V tile (keys past Skv and columns past D zero-filled), in the
+  // first group with the first chunks
+  for (int e = tid; e < KV_BN * (DT / 8); e += blockDim.x) {
+    const int j = e / (DT / 8), dc = (e % (DT / 8)) * 8, key = k0 + j;
+    const bool ok = key < Skv && dc < D;
+    const size_t o =
+        ok ? ((static_cast<size_t>(b) * Skv + key) * Hkv + hk) * D + dc : 0;
+    cp_async_16(smem_addr(ks + j * DP + dc), k + o, ok);
+    cp_async_16(smem_addr(vs + j * DP + dc), v + o, ok);
+  }
+  auto load_chunk = [&](int w) {
+    bf16* qd = ring + (w % TC_STAGES) * CH;
+    bf16* dd = qd + KV_BM * DP;
+    float* sd = sts + (w % TC_STAGES) * 3 * KV_BM;
+    const int r0 = (c_lo + w) * KV_BM;
+    for (int e = tid; e < KV_BM * (DT / 8); e += blockDim.x) {
+      const int i = e / (DT / 8), dc = (e % (DT / 8)) * 8, row = r0 + i;
+      const bool ok = row < s_hi && dc < D;
+      const size_t o =
+          ok ? ((static_cast<size_t>(b) * Sq + row / G) * Hq + hk * G +
+                row % G) * D + dc
+             : 0;
+      cp_async_16(smem_addr(qd + i * DP + dc), q + o, ok);
+      cp_async_16(smem_addr(dd + i * DP + dc), dout + o, ok);
+    }
+    // rows past G * Sq: zeros (p = 0, ds = 0)
+    for (int e = tid; e < 3 * (KV_BM / 4); e += blockDim.x) {
+      const int which = e / (KV_BM / 4), i = (e % (KV_BM / 4)) * 4;
+      const bool ok = r0 + i < NR;
+      cp_async_16(smem_addr(sd + which * KV_BM + i),
+                  st_b + which * NR + (ok ? r0 + i : 0), ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < n_c) load_chunk(s);
+    cp_async_commit();
+  }
+
+  // the lane's two keys: g and g + 8 of the warp's 16
+  int key[2];
+  bool kin[2], kok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + kw * 16 + g + 8 * i;
+    kin[i] = key[i] < Skv;
+    kok[i] = kin[i] && (!MASKED || kv_valid == nullptr ||
+                        kv_valid[static_cast<size_t>(b) * Skv + key[i]]);
+  }
+
+  float acc[NA][NT][4];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
+
+  const bf16* kwp = ks + kw * 16 * DP;
+  const bf16* vwp = vs + kw * 16 * DP;
+  for (int w = 0; w < n_c; ++w) {
+    cp_async_wait<TC_STAGES - 2>();        // chunk w (and the tile) landed
+    __syncthreads();                       // ... for all; w - 1 is read
+    if (w + TC_STAGES - 1 < n_c) load_chunk(w + TC_STAGES - 1);
+    cp_async_commit();
+    const bf16* qc = ring + (w % TC_STAGES) * CH;
+    const bf16* dc = qc + KV_BM * DP;
+    const float* sm = sts + (w % TC_STAGES) * 3 * KV_BM;
+    const int r0 = (c_lo + w) * KV_BM;
+
+    // S^T and dP^T: 16 keys x 32 rows, four 8-row tiles
+    float st[NJ][4], dpt[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      const int ao = (lane & 15) * DP + kk * 16 + (lane >> 4) * 8;
+      uint32_t ak[4], av[4];
+      ldmatrix_x4(ak, smem_addr(kwp + ao));
+      if (do_k) ldmatrix_x4(av, smem_addr(vwp + ao));
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp) {
+        const int bo = (jp * 16 + (lane & 7) + (lane >> 4) * 8) * DP +
+                       kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t bq[4];
+        ldmatrix_x4(bq, smem_addr(qc + bo));
+        mma_bf16(st[2 * jp], ak, bq[0], bq[1]);
+        mma_bf16(st[2 * jp + 1], ak, bq[2], bq[3]);
+        if (do_k) {
+          uint32_t bd[4];
+          ldmatrix_x4(bd, smem_addr(dc + bo));
+          mma_bf16(dpt[2 * jp], av, bd[0], bd[1]);
+          mma_bf16(dpt[2 * jp + 1], av, bd[2], bd[3]);
+        }
+      }
+    }
+
+    // P^T and dS^T in place: element (key g + 8i, row 8j + 2c + e) at
+    // [j][2i + e]
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int ri = 8 * j + 2 * c;
+      const float2 mm = *reinterpret_cast<const float2*>(sm + ri);
+      const float2 ll = *reinterpret_cast<const float2*>(sm + KV_BM + ri);
+      const float2 de = *reinterpret_cast<const float2*>(sm + 2 * KV_BM + ri);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int pos = q_offset + (r0 + ri + e) / G;
+        const float rm = e ? mm.y : mm.x, rl = e ? ll.y : ll.x;
+        const float rd = e ? de.y : de.x;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const bool ok =
+              kok[i] && (!reach || in_reach(pos, key[i], window, causal));
+          float& x = st[j][2 * i + e];
+          const float p =
+              kin[i] ? expf((ok ? x * scale : NEG) - rm) * rl : 0.f;
+          x = p;
+          if (do_k) {
+            float& y = dpt[j][2 * i + e];
+            y = ok ? p * (y - rd) : 0.f;
+          }
+        }
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, 16 rows a step
+#pragma unroll
+    for (int t = 0; t < NJ / 2; ++t) {
+      uint32_t pa[4], da[4];
+      if (do_v) {
+        pa[0] = pack_bf16(st[2 * t][0], st[2 * t][1]);
+        pa[1] = pack_bf16(st[2 * t][2], st[2 * t][3]);
+        pa[2] = pack_bf16(st[2 * t + 1][0], st[2 * t + 1][1]);
+        pa[3] = pack_bf16(st[2 * t + 1][2], st[2 * t + 1][3]);
+      }
+      if (do_k) {
+        da[0] = pack_bf16(dpt[2 * t][0], dpt[2 * t][1]);
+        da[1] = pack_bf16(dpt[2 * t][2], dpt[2 * t][3]);
+        da[2] = pack_bf16(dpt[2 * t + 1][0], dpt[2 * t + 1][1]);
+        da[3] = pack_bf16(dpt[2 * t + 1][2], dpt[2 * t + 1][3]);
+      }
+#pragma unroll
+      for (int np = 0; np < DT / 16; ++np) {
+        const int bo = (t * 16 + (lane & 15)) * DP + np * 16 + (lane >> 4) * 8;
+        if (do_v) {
+          uint32_t bo4[4];
+          ldmatrix_x4_trans(bo4, smem_addr(dc + bo));
+          mma_bf16(acc[0][2 * np], pa, bo4[0], bo4[1]);
+          mma_bf16(acc[0][2 * np + 1], pa, bo4[2], bo4[3]);
+        }
+        if (do_k) {
+          uint32_t bq4[4];
+          ldmatrix_x4_trans(bq4, smem_addr(qc + bo));
+          mma_bf16(acc[NA - 1][2 * np], da, bq4[0], bq4[1]);
+          mma_bf16(acc[NA - 1][2 * np + 1], da, bq4[2], bq4[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const size_t n_out = static_cast<size_t>(B) * Skv * Hkv * D;
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    // which: 0 dk, 1 dv
+    const int which = ROLES == 1 ? (a == 0 ? 1 : 0) : (role == 0 ? 1 : 0);
+    const float f = which == 0 ? scale : 1.f;
+    bf16* out = which == 0 ? dk : dv;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!kin[i]) continue;
+      const size_t row =
+          ((static_cast<size_t>(b) * Skv + key[i]) * Hkv + hk) * D;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int dd = 8 * n + 2 * c;
+        if (dd >= D) break;
+        const float x0 = acc[a][n][2 * i], x1 = acc[a][n][2 * i + 1];
+        if (n_split == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(out + row + dd) =
+              __floats2bfloat162_rn(x0 * f, x1 * f);
+        } else {
+          float* pp = part + (static_cast<size_t>(which) * n_split + split)
+                                 * n_out + row + dd;
+          *reinterpret_cast<float2*>(pp) = make_float2(x0, x1);
+        }
+      }
+    }
+  }
+}
+
+// dk and dv from the n_split partials: four consecutive elements a
+// thread, the splits summed in order 0, 1, ..., dk times D^-1/2, each
+// rounded once.
+__global__ void __launch_bounds__(256)
+flash_bidir_bwd_split_sum(const float* __restrict__ part,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          long long n4, int n_split, float scale) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= n4) return;
+  const float4* p4 = reinterpret_cast<const float4*>(part);
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const float4* src = p4 + static_cast<long long>(which) * n_split * n4 + i;
+    float4 s = src[0];
+    for (int sp = 1; sp < n_split; ++sp) {
+      const float4 x = src[static_cast<long long>(sp) * n4];
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    const float f = which == 0 ? scale : 1.f;
+    uint2 o;
+    o.x = pack_bf16(s.x * f, s.y * f);
+    o.y = pack_bf16(s.z * f, s.w * f);
+    *reinterpret_cast<uint2*>((which == 0 ? dk : dv) + 4 * i) = o;
+  }
+}
+
+template <int DT, bool MASKED>
+cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
+                      const bf16* dout, const unsigned char* kv_valid,
+                      bf16* dq, bf16* dk, bf16* dv, float* stats, float* part,
+                      int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                      float scale, int window, int q_offset, int causal,
+                      int dq_warps, int n_split, int split_rows,
+                      cudaStream_t stream) {
+  constexpr int max_w = dq_tc_max_warps(DT, MASKED);
+  const int n_rows = (Hq / Hkv) * Sq;
+  if (dq_warps < 1 || dq_warps > max_w || n_split < 1 || split_rows < 1 ||
+      split_rows % KV_BM != 0 ||
+      static_cast<long long>(n_split) * split_rows < n_rows ||
+      static_cast<long long>(n_split - 1) * split_rows >= n_rows ||
+      (n_split > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      flash_bidir_bwd_dq<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dq_smem_bytes(DT));
+      flash_bidir_bwd_dq_tc<DT, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_tc_smem_bytes(DT, MASKED, max_w));
   if (attr_dq != cudaSuccess) return attr_dq;
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      flash_bidir_bwd_dkv<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dkv_smem_bytes(DT));
+      flash_bidir_bwd_dkv_tc<DT, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_tc_smem_bytes(DT));
   if (attr_dkv != cudaSuccess) return attr_dkv;
-  const dim3 grid_q((Sq + BQ - 1) / BQ, Hq, B);
-  flash_bidir_bwd_dq<T, DPL><<<grid_q, 32 * QWARPS, dq_smem_bytes(DT), stream>>>(
-      q, k, v, dout, kv_valid, dq, stats, B, Sq, Skv, Hq, Hkv, D, scale,
-      window, q_offset, causal);
+  const dim3 grid_q((n_rows + 16 * dq_warps - 1) / (16 * dq_warps), Hkv, B);
+  flash_bidir_bwd_dq_tc<DT, MASKED><<<grid_q, 32 * dq_warps,
+                                      dq_tc_smem_bytes(DT, MASKED,
+                                                       dq_warps),
+                                      stream>>>(
+      q, k, v, dout, kv_valid, dq, stats, Sq, Skv, Hq, Hkv, D, scale, window,
+      q_offset, causal);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_k((Skv + BK - 1) / BK, Hkv, B);
-  flash_bidir_bwd_dkv<T, DPL><<<grid_k, 32 * KWARPS, dkv_smem_bytes(DT), stream>>>(
-      q, k, v, dout, kv_valid, stats, dk, dv, B, Sq, Skv, Hq, Hkv, D, scale,
-      window, q_offset, causal);
+  const dim3 grid_k((Skv + KV_BN - 1) / KV_BN, Hkv, B * n_split);
+  flash_bidir_bwd_dkv_tc<DT, MASKED><<<grid_k, 128 * dkv_roles(DT),
+                                       dkv_tc_smem_bytes(DT), stream>>>(
+      q, k, v, dout, kv_valid, stats, dk, dv, part, B, Sq, Skv, Hq, Hkv, D,
+      split_rows, n_split, scale, window, q_offset, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  const long long n4 = static_cast<long long>(B) * Skv * Hkv * D / 4;
+  flash_bidir_bwd_split_sum<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0,
+                              stream>>>(part, dk, dv, n4, n_split, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* dout,
-                     const unsigned char* kv_valid, void* dq, void* dk,
-                     void* dv, float* stats, int B, int Sq, int Skv, int Hq,
-                     int Hkv, int D, float scale, int window, int q_offset,
-                     int causal, cudaStream_t stream) {
-#define FBB_LAUNCH(DPL)                                                     \
-  return launch<T, DPL>(                                                    \
-      static_cast<const T*>(q), static_cast<const T*>(k),                   \
-      static_cast<const T*>(v), static_cast<const T*>(dout), kv_valid,      \
-      static_cast<T*>(dq),                                                  \
-      static_cast<T*>(dk), static_cast<T*>(dv), stats, B, Sq, Skv, Hq, Hkv, \
-      D, scale, window, q_offset, causal, stream)
-  if (D < 8 || D > 256 || D % 8) return cudaErrorInvalidValue;
-  if (D <= 32) FBB_LAUNCH(1);
-  if (D <= 64) FBB_LAUNCH(2);
-  if (D <= 128) FBB_LAUNCH(4);
-  FBB_LAUNCH(8);
-#undef FBB_LAUNCH
+template <int DPL>
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       const float* dout, const unsigned char* kv_valid,
+                       float* dq, float* dk, float* dv, float* stats, int B,
+                       int Sq, int Skv, int Hq, int Hkv, int D, float scale,
+                       int window, int q_offset, int causal,
+                       cudaStream_t stream) {
+  constexpr int DT = 32 * DPL;
+  static const cudaError_t attr_dq = cudaFuncSetAttribute(
+      flash_bidir_bwd_dq<float, DPL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem_bytes(DT));
+  if (attr_dq != cudaSuccess) return attr_dq;
+  static const cudaError_t attr_dkv = cudaFuncSetAttribute(
+      flash_bidir_bwd_dkv<float, DPL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem_bytes(DT));
+  if (attr_dkv != cudaSuccess) return attr_dkv;
+  const dim3 grid_q((Sq + BQ - 1) / BQ, Hq, B);
+  flash_bidir_bwd_dq<float, DPL>
+      <<<grid_q, 32 * QWARPS, dq_smem_bytes(DT), stream>>>(
+          q, k, v, dout, kv_valid, dq, stats, B, Sq, Skv, Hq, Hkv, D, scale,
+          window, q_offset, causal);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_k((Skv + BK - 1) / BK, Hkv, B);
+  flash_bidir_bwd_dkv<float, DPL>
+      <<<grid_k, 32 * KWARPS, dkv_smem_bytes(DT), stream>>>(
+          q, k, v, dout, kv_valid, stats, dk, dv, B, Sq, Skv, Hq, Hkv, D,
+          scale, window, q_offset, causal);
+  return cudaGetLastError();
+}
+
+// The tile width a head dim runs in: the smallest of 32, 64, 128, 256 that
+// holds it (0: D is not a multiple of 8 in [8, 256]).
+int tile_of(int D) {
+  if (D < 8 || D > 256 || D % 8) return 0;
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
 }  // namespace
 
 // q, dout, dq (B, Sq, Hq, D) and k, v, dk, dv (B, Skv, Hkv, D), all f32
 // (is_bf16 = 0) or all bf16, contiguous; D a multiple of 8 in [8, 256];
-// kv_valid (B, Skv) bool or null; stats an f32 scratch of 3 * B * Hq * Sq
-// (each row's max, sum and delta, written by the first kernel, read by the
-// second).  scale is D^-1/2 as the forward took it; window <= 0 means no
-// window; query row r sits at position q_offset + r; causal != 0 masks
-// keys past each row's position.
+// kv_valid (B, Skv) bool or null.  scale is D^-1/2 as the forward took
+// it; window <= 0 means no window; query row r sits at position
+// q_offset + r; causal != 0 masks keys past each row's position.
+// stats: an f32 scratch, 3 * B * Hkv * NR floats on the bf16 route (NR =
+// G * Sq rounded up to 4), 3 * B * Hq * Sq on the f32 route; written by
+// the first kernel, read by the second.  bf16 route only: dq_warps (1 to
+// the tile's most, 16 rows each) a dq CTA's warps; the G * Sq rows of a
+// group cut into n_split blocks of split_rows (a multiple of 32, the last
+// block not empty); part an f32 scratch of 2 * n_split * B * Skv * Hkv * D
+// floats when n_split > 1 (else may be null).  kernels/flash_bidir.bwd_plan
+// chooses them.
 extern "C" int flash_bidir_bwd_launch(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* kv_valid,
                                       void* dq, void* dk, void* dv,
-                                      void* stats, int B, int Sq, int Skv,
-                                      int Hq, int Hkv, int D, float scale,
-                                      int window, int q_offset, int causal,
-                                      int is_bf16, void* stream) {
+                                      void* stats, void* part, int B, int Sq,
+                                      int Skv, int Hq, int Hkv, int D,
+                                      float scale, int window, int q_offset,
+                                      int causal, int is_bf16, int dq_warps,
+                                      int n_split, int split_rows,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* valid = static_cast<const unsigned char*>(kv_valid);
   auto* sc = static_cast<float*>(stats);
-  if (is_bf16)
-    return static_cast<int>(dispatch<__nv_bfloat16>(
-        q, k, v, dout, valid, dq, dk, dv, sc, B, Sq, Skv, Hq, Hkv, D,
-        scale, window, q_offset, causal, st));
-  return static_cast<int>(dispatch<float>(q, k, v, dout, valid, dq, dk, dv,
-                                          sc, B, Sq, Skv, Hq, Hkv, D, scale,
-                                          window, q_offset, causal, st));
+  if (is_bf16) {
+#define FBB_TC_AS(DT, M)                                                    \
+  static_cast<int>(launch_tc<DT, M>(                                        \
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),             \
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), valid,   \
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),\
+      sc, static_cast<float*>(part), B, Sq, Skv, Hq, Hkv, D, scale, window, \
+      q_offset, causal, dq_warps, n_split, split_rows, st))
+#define FBB_TC(DT)                                                          \
+  return masked ? FBB_TC_AS(DT, true) : FBB_TC_AS(DT, false)
+    // MASKED: a mask can hide a key (kv_valid, a window or causal); the
+    // other instantiations test only a key's place in the last tile
+    const bool masked = valid != nullptr || window > 0 || causal;
+    switch (tile_of(D)) {
+      case 32: FBB_TC(32);
+      case 64: FBB_TC(64);
+      case 128: FBB_TC(128);
+      case 256: FBB_TC(256);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef FBB_TC
+#undef FBB_TC_AS
+  }
+#define FBB_F32(DPL)                                                        \
+  return static_cast<int>(launch_f32<DPL>(                                  \
+      static_cast<const float*>(q), static_cast<const float*>(k),           \
+      static_cast<const float*>(v), static_cast<const float*>(dout), valid, \
+      static_cast<float*>(dq), static_cast<float*>(dk),                     \
+      static_cast<float*>(dv), sc, B, Sq, Skv, Hq, Hkv, D, scale, window,   \
+      q_offset, causal, st))
+  switch (tile_of(D)) {
+    case 32: FBB_F32(1);
+    case 64: FBB_F32(2);
+    case 128: FBB_F32(4);
+    case 256: FBB_F32(8);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FBB_F32
 }
 
 namespace {
-// every instantiation the entry point above launches
+// every instantiation the entry point above launches, with the dynamic
+// shared memory of its largest launch (a dq CTA at its most warps)
 const KernelAttr ATTRS[] = {
     KERNEL_ATTR((flash_bidir_bwd_dq<float, 1>), dq_smem_bytes(32)),
     KERNEL_ATTR((flash_bidir_bwd_dkv<float, 1>), dkv_smem_bytes(32)),
@@ -483,14 +1270,31 @@ const KernelAttr ATTRS[] = {
     KERNEL_ATTR((flash_bidir_bwd_dkv<float, 4>), dkv_smem_bytes(128)),
     KERNEL_ATTR((flash_bidir_bwd_dq<float, 8>), dq_smem_bytes(256)),
     KERNEL_ATTR((flash_bidir_bwd_dkv<float, 8>), dkv_smem_bytes(256)),
-    KERNEL_ATTR((flash_bidir_bwd_dq<__nv_bfloat16, 1>), dq_smem_bytes(32)),
-    KERNEL_ATTR((flash_bidir_bwd_dkv<__nv_bfloat16, 1>), dkv_smem_bytes(32)),
-    KERNEL_ATTR((flash_bidir_bwd_dq<__nv_bfloat16, 2>), dq_smem_bytes(64)),
-    KERNEL_ATTR((flash_bidir_bwd_dkv<__nv_bfloat16, 2>), dkv_smem_bytes(64)),
-    KERNEL_ATTR((flash_bidir_bwd_dq<__nv_bfloat16, 4>), dq_smem_bytes(128)),
-    KERNEL_ATTR((flash_bidir_bwd_dkv<__nv_bfloat16, 4>), dkv_smem_bytes(128)),
-    KERNEL_ATTR((flash_bidir_bwd_dq<__nv_bfloat16, 8>), dq_smem_bytes(256)),
-    KERNEL_ATTR((flash_bidir_bwd_dkv<__nv_bfloat16, 8>), dkv_smem_bytes(256)),
+    KERNEL_ATTR(flash_bidir_bwd_dq_tc<32>,
+                dq_tc_smem_bytes(32, false, dq_tc_max_warps(32, false))),
+    KERNEL_ATTR(flash_bidir_bwd_dkv_tc<32>, dkv_tc_smem_bytes(32)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<32, true>),
+                dq_tc_smem_bytes(32, true, dq_tc_max_warps(32, true))),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<32, true>), dkv_tc_smem_bytes(32)),
+    KERNEL_ATTR(flash_bidir_bwd_dq_tc<64>,
+                dq_tc_smem_bytes(64, false, dq_tc_max_warps(64, false))),
+    KERNEL_ATTR(flash_bidir_bwd_dkv_tc<64>, dkv_tc_smem_bytes(64)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<64, true>),
+                dq_tc_smem_bytes(64, true, dq_tc_max_warps(64, true))),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<64, true>), dkv_tc_smem_bytes(64)),
+    KERNEL_ATTR(flash_bidir_bwd_dq_tc<128>,
+                dq_tc_smem_bytes(128, false, dq_tc_max_warps(128, false))),
+    KERNEL_ATTR(flash_bidir_bwd_dkv_tc<128>, dkv_tc_smem_bytes(128)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<128, true>),
+                dq_tc_smem_bytes(128, true, dq_tc_max_warps(128, true))),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<128, true>), dkv_tc_smem_bytes(128)),
+    KERNEL_ATTR(flash_bidir_bwd_dq_tc<256>,
+                dq_tc_smem_bytes(256, false, dq_tc_max_warps(256, false))),
+    KERNEL_ATTR(flash_bidir_bwd_dkv_tc<256>, dkv_tc_smem_bytes(256)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<256, true>),
+                dq_tc_smem_bytes(256, true, dq_tc_max_warps(256, true))),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<256, true>), dkv_tc_smem_bytes(256)),
+    KERNEL_ATTR(flash_bidir_bwd_split_sum, 0),
 };
 }  // namespace
 

@@ -45,8 +45,11 @@ whose forward is the same kernel (or plain version) and whose backward is
 replaces no Pallas kernel (the JAX package trains through jax.grad of
 models/layers.attention), and ``flash_bidir_bwd_plain`` for CPU tensors.
 A row with no valid key averages V whatever its scores, so its dq and its
-share of dk are 0.  BAOS calibration under autograd raises
-``NotImplementedError``: training runs without a cache, as in JAX.
+share of dk are 0.  The backward's bf16 route runs on the tensor cores
+with P and dS rounded once to bf16 (``BWD_P_TERMS``); ``bwd_plan`` picks
+its CTAs and the row split of its dk/dv pass and sizes its scratch.  BAOS
+calibration under autograd raises ``NotImplementedError``: training runs
+without a cache, as in JAX.
 
 Route B, ``extra_kv=(k2, v2, valid2)``: a second K/V source, the split
 active-block cache's buffer (models/transformer.py; JAX's
@@ -66,6 +69,7 @@ causal backward as ``flash_bidir_bwd_causal``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Tuple, Union
 
@@ -93,6 +97,19 @@ _ROUTES = {torch.bfloat16: "tensor cores", torch.float32: "CUDA cores"}
 # bf16 terms of each f32 operand on the tensor-core route (SPLIT in
 # csrc/flash_bidir.cu): three carry the 24-bit f32 significand
 SPLIT_TERMS = 3
+# the backward's bf16 route (csrc/flash_bidir_bwd.cu, kept in step with
+# its constants): dq CTAs of up to 8 warps of 16 rows over a ring of
+# 64-key K/V tiles (3 stages; 32-key tiles under a mask and at tile 256,
+# 2 stages there); dk/dv CTAs of 64 keys walking 32-row chunks through a
+# 3-stage ring (8 warps at tile 256, where two warps share a key's sums,
+# else 4); P and dS enter their products as one bf16 rounding each
+BWD_STAGES, BWD_MAX_WARPS = 3, 8
+BWD_BN, BWD_BM = 64, 32
+# the fewest rows a block of the dk/dv pass's row split keeps (4 chunks)
+BWD_MIN_SPLIT_ROWS = 128
+BWD_P_TERMS = 1
+SMEM_LIMIT_BYTES = 232448          # sm_90's opt-in shared memory a block
+H100_SMS = 132
 
 
 def check_head_dim(D: int) -> None:
@@ -401,12 +418,150 @@ def flash_bidir_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bwd_dq_bkv(dt: int, masked: bool) -> int:
+    """Keys per K/V tile of the bf16 dq kernel at tile width ``dt``,
+    ``masked`` where kv_valid, a window or the causal mask can hide a key
+    (its MASKED instantiations)."""
+    return 32 if dt == 256 or masked else 64
+
+
+def bwd_dq_smem(dt: int, masked: bool, warps: int) -> int:
+    """Dynamic shared memory of a bf16 dq CTA of ``warps`` warps at tile
+    width ``dt``: the K and V rings and each warp's q and dO rows, bf16
+    rows padded by 8 elements (csrc/flash_bidir_bwd.cu dq_tc_smem_bytes)."""
+    stages = 2 if dt == 256 else BWD_STAGES
+    return ((2 * stages * bwd_dq_bkv(dt, masked) + 2 * 16 * warps)
+            * (dt + 8) * 2)
+
+
+def bwd_dq_max_warps(dt: int, masked: bool) -> int:
+    """The most warps a bf16 dq CTA takes at tile width ``dt``."""
+    w = BWD_MAX_WARPS
+    while w > 1 and bwd_dq_smem(dt, masked, w) > SMEM_LIMIT_BYTES:
+        w -= 1
+    return w
+
+
+def bwd_dkv_smem(dt: int) -> int:
+    """Dynamic shared memory of a bf16 dk/dv CTA at tile width ``dt``: its
+    K/V tile and the ring of row chunks with their statistics."""
+    return ((2 * BWD_BN + 2 * BWD_STAGES * BWD_BM) * (dt + 8) * 2
+            + BWD_STAGES * 3 * BWD_BM * 4)
+
+
+def bwd_dkv_warps(dt: int) -> int:
+    """Warps of a bf16 dk/dv CTA: one per 16 keys, two at tile 256."""
+    return 4 * (2 if dt == 256 else 1)
+
+
+def bwd_f32_smem(dt: int) -> Tuple[int, int]:
+    """Dynamic shared memory of the f32 route's dq and dk/dv CTAs."""
+    return ((2 * 16 * dt + 2 * 32 * (dt + 1)) * 4,
+            (2 * 32 * (dt + 1) + 2 * 16 * dt + 2 * 16 * 32 + 4 * 16) * 4)
+
+
+def _per_sm(warps: int, smem: int) -> int:
+    """CTAs of ``warps`` warps and ``smem`` bytes an SM holds at once."""
+    return min(SMEM_LIMIT_BYTES // smem, 64 // warps)
+
+
+def _sm_time(ctas: int, work: float, warps: int, smem: int,
+             n_sm: int) -> float:
+    """The time the busiest SM takes, in warp-tasks at one warp's rate:
+    ``ctas`` CTAs of ``warps`` warps, each ``work`` warp-tasks, spread
+    evenly over ``n_sm`` SMs, as many resident at once as ``_per_sm``
+    allows.  A model of the SM's rate, not a measurement: each of its
+    first four resident warps (one per scheduler) adds a warp's rate, each
+    of the next four half of one, more add nothing."""
+    c = -(-ctas // n_sm)
+    w = min(_per_sm(warps, smem), c) * warps
+    return c * work / (min(w, 4) + 0.5 * max(0, min(w, 8) - 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How ``flash_bidir_bwd`` launches one call (module docstring)."""
+    route: str              # 'tensor cores' (bf16) or 'CUDA cores' (f32)
+    tile: int               # DT: the smallest instantiated width >= D
+    masked: bool            # the bf16 MASKED instantiations (a mask can cut)
+    dq_keys: int            # keys per K/V tile of the dq pass
+    dq_warps: int           # warps of a dq CTA (16 rows each; f32: 4 x 4)
+    dq_ctas: int
+    dkv_ctas: int
+    n_split: int            # row blocks of a group in the dk/dv pass
+    split_rows: int         # packed rows a block holds (the last: the rest)
+    stats_floats: int       # the row-statistics scratch
+    part_floats: int        # the split partials' scratch (0: none)
+    dq_smem: int            # dynamic shared memory of a dq / dk-dv CTA
+    dkv_smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
+             dtype: torch.dtype, n_sm: int = H100_SMS,
+             masked: bool = False) -> BwdPlan:
+    """The launch plan of ``flash_bidir_bwd`` on a card of ``n_sm`` SMs;
+    ``masked``: kv_valid, a window or the causal mask is given.
+
+    bf16: each pass takes the layout whose busiest SM finishes first, by
+    ``_sm_time``: a dq CTA of 1 to 8 warps (up to what its shared memory
+    allows; the most warps on a tie), and for the dk/dv pass a cut
+    of the G x Sq rows of a group into ``n_split`` contiguous blocks of
+    whole 32-row chunks, each at least ``BWD_MIN_SPLIT_ROWS`` rows, at
+    most two waves of CTAs (the fewest blocks on a tie).  The rows are not
+    split where Skv / 64 x Hkv x B CTAs alone fill the card's n_sm SMs.
+    f32: the CUDA-core kernels' fixed grids, no split.  Cached: a train
+    step asks for the same plan once a layer."""
+    _, dt = route(D, dtype)
+    G = Hq // Hkv
+    n_rows = G * Sq
+    if dtype == torch.float32:
+        dq_smem, dkv_smem = bwd_f32_smem(dt)
+        return BwdPlan("CUDA cores", dt, masked, 32, 4,
+                       -(-Sq // 16) * Hq * B,
+                       -(-Skv // 32) * Hkv * B, 1, n_rows,
+                       3 * B * Hq * Sq, 0, dq_smem, dkv_smem)
+    max_w = bwd_dq_max_warps(dt, masked)
+
+    def dq_ctas(w):
+        return -(-n_rows // (16 * w)) * Hkv * B
+
+    def dq_time(w):      # a CTA's K/V walk: half a warp's rows more
+        return _sm_time(dq_ctas(w), min(w, -(-n_rows // 16)) + 0.5, w,
+                        bwd_dq_smem(dt, masked, w), n_sm)
+    dq_w = min(range(1, max_w + 1), key=lambda w: (dq_time(w), -w))
+    base = -(-Skv // BWD_BN) * Hkv * B
+    kv_w = bwd_dkv_warps(dt)
+
+    def rows_of(n):      # a block of n's rows, in whole chunks
+        return -(-(-(-n_rows // n)) // BWD_BM) * BWD_BM
+
+    # at least BWD_MIN_SPLIT_ROWS rows a block, at most two waves of the
+    # CTAs an SM holds (each block more adds its partial sums' bytes)
+    most = min(n_rows // BWD_MIN_SPLIT_ROWS,
+               2 * n_sm * _per_sm(kv_w, bwd_dkv_smem(dt)) // base)
+    cuts = range(1, max(1, most) + 1) if base < n_sm else [1]
+    # a CTA's K/V tile and its sums' stores: one chunk's work more
+    n_split = min(cuts, key=lambda n: (_sm_time(
+        base * n, kv_w * (rows_of(n) // BWD_BM + 1), kv_w,
+        bwd_dkv_smem(dt), n_sm), n))
+    split_rows = rows_of(n_split)
+    n_split = -(-n_rows // split_rows)
+    nr = (n_rows + 3) // 4 * 4
+    return BwdPlan("tensor cores", dt, masked, bwd_dq_bkv(dt, masked),
+                   dq_w, dq_ctas(dq_w),
+                   base * n_split, n_split, split_rows,
+                   3 * B * Hkv * nr,
+                   2 * n_split * B * Skv * Hkv * D if n_split > 1 else 0,
+                   bwd_dq_smem(dt, masked, dq_w), bwd_dkv_smem(dt))
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.function(BWD_NAME, "flash_bidir_bwd_launch",
-                           [p] * 9 + [i] * 6 +
-                           [ctypes.c_float, i, i, i, i, p])
+                           [p] * 10 + [i] * 6 +
+                           [ctypes.c_float] + [i] * 7 + [p])
 
 
 def flash_bidir_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -417,10 +572,11 @@ def flash_bidir_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_bidir`` (no BAOS) at q, k, v
     for the output gradient ``dout`` (B, Sq, Hq, D).  CUDA
-    tensors run csrc/flash_bidir_bwd.cu (one count in ``launch_counts``
-    per call: its two kernels, dq then dk/dv); CPU tensors the plain
-    version.  ``q_offset`` is a host int (training runs without a cache):
-    a tensor raises ValueError."""
+    tensors run csrc/flash_bidir_bwd.cu as ``bwd_plan`` lays it out (one
+    count in ``launch_counts`` per call: its kernels, dq then dk/dv, then
+    on the bf16 route the split sum where n_split > 1); CPU tensors the
+    plain version.  ``q_offset`` is a host int (training runs without a
+    cache): a tensor raises ValueError."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or Hq % Hkv or \
@@ -455,13 +611,18 @@ def flash_bidir_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    stats = torch.empty(3 * B * Hq * Sq, dtype=torch.float32, device=dev)
+    plan = bwd_plan(B, Sq, Skv, Hq, Hkv, D, q.dtype, _build.sm_count(dev),
+                    kv_valid is not None or window is not None or causal)
+    stats = torch.empty(plan.stats_floats, dtype=torch.float32, device=dev)
+    part = (torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
+            if plan.part_floats else None)
     err = _bwd_kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         _build.ptr(valid), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), stats.data_ptr(), B, Sq, Skv, Hq, Hkv, D, D ** -0.5,
-        0 if window is None else int(window), int(q_offset), int(causal),
-        int(q.dtype == torch.bfloat16),
+        dv.data_ptr(), stats.data_ptr(), _build.ptr(part), B, Sq, Skv, Hq,
+        Hkv, D, D ** -0.5, 0 if window is None else int(window),
+        int(q_offset), int(causal), int(q.dtype == torch.bfloat16),
+        plan.dq_warps, plan.n_split, plan.split_rows,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(BWD_NAME, err)
     _build.launch_counts[BWD_CAUSAL_NAME if causal else BWD_NAME] += 1
