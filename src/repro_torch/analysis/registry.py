@@ -309,10 +309,19 @@ def smem_specs() -> List[SmemSpec]:
     lib = "flash_bidir"
     # each kernel without and with REACH (a window or the causal mask)
     reach = ("", ", true")
-    for dpl in (1, 2, 4, 8):
+    # the CUDA-core route: f32, and bf16 at a D that is not a multiple of 8
+    for t in ("float", "bf16"):
+        for dpl in (1, 2, 4, 8):
+            for r in reach:
+                out.append(SmemSpec(lib, f"flash_bidir_kernel<{t}, {dpl}{r}>",
+                                    0, _flash_f32_dynamic(32 * dpl)))
+    # D past 256: the wide kernel
+    from repro_torch.kernels import flash_bidir as fb
+    fwd_wide, stats_wide, dq_wide, dkv_wide = fb.wide_smem()
+    for t in ("float", "bf16"):
         for r in reach:
-            out.append(SmemSpec(lib, f"flash_bidir_kernel<float, {dpl}{r}>",
-                                0, _flash_f32_dynamic(32 * dpl)))
+            out.append(SmemSpec(lib, f"flash_bidir_wide_kernel<{t}{r}>", 0,
+                                fwd_wide))
     for dt in (32, 64, 128, 256):
         for qs, name in ((1, "1"), (3, "SPLIT")):
             for r in reach:
@@ -320,12 +329,18 @@ def smem_specs() -> List[SmemSpec]:
                     lib, f"flash_bidir_tc_kernel<{dt}, {name}{r}>", 0,
                     _flash_tc_dynamic(dt, qs, _flash_tc_max_warps(dt, qs))))
     lib = "flash_bidir_bwd"
-    from repro_torch.kernels import flash_bidir as fb
-    for dpl in (1, 2, 4, 8):
-        dq, dkv = fb.bwd_f32_smem(32 * dpl)
-        out.append(SmemSpec(lib, f"flash_bidir_bwd_dq<float, {dpl}>", 0, dq))
-        out.append(SmemSpec(lib, f"flash_bidir_bwd_dkv<float, {dpl}>", 0,
-                            dkv))
+    for t in ("float", "bf16"):
+        for dpl in (1, 2, 4, 8):
+            dq, dkv = fb.bwd_f32_smem(32 * dpl)
+            out.append(SmemSpec(lib, f"flash_bidir_bwd_dq<{t}, {dpl}>", 0,
+                                dq))
+            out.append(SmemSpec(lib, f"flash_bidir_bwd_dkv<{t}, {dpl}>", 0,
+                                dkv))
+        out += [SmemSpec(lib, f"flash_bidir_bwd_stats_wide<{t}>", 0,
+                         stats_wide),
+                SmemSpec(lib, f"flash_bidir_bwd_dq_wide<{t}>", 0, dq_wide),
+                SmemSpec(lib, f"flash_bidir_bwd_dkv_wide<{t}>", 0,
+                         dkv_wide)]
     # each bf16 kernel without and with MASKED (kv_valid, a window or the
     # causal mask)
     for dt in (32, 64, 128, 256):
@@ -337,10 +352,12 @@ def smem_specs() -> List[SmemSpec]:
                                 dkv))
     out.append(SmemSpec(lib, "flash_bidir_bwd_split_sum", 0, 0))
     lib = "baos_mx_quant"
-    for t in ("float", "__nv_bfloat16"):
-        for fmt in FMTS_CU:
-            out.append(SmemSpec(lib, f"baos_mx_quant_kernel<{t}, {fmt}>",
-                                0, 0))
+    # each without and with RAGGED (D not a multiple of 32)
+    for ragged in ("", ", true"):
+        for t in ("float", "__nv_bfloat16"):
+            for fmt in FMTS_CU:
+                out.append(SmemSpec(
+                    lib, f"baos_mx_quant_kernel<{t}, {fmt}{ragged}>", 0, 0))
     return out
 
 

@@ -14,6 +14,11 @@ Pallas kernel takes the same data as (G = B * H, S, D); the model's
 (B, S, H, D) layout is kept here so the output can be a slice of the KV
 cache, written in place.
 
+Any head dim D: where D is not a multiple of 32 the last block of each
+head is partial, its amax over its real columns (core/mx's zero tail),
+and only the D columns are stored.  The Pallas kernel refuses such a D;
+the JAX model path, core/mx, takes it.
+
 ``baos_mx_quant`` launches csrc/baos_mx_quant.cu for CUDA tensors and runs
 ``baos_mx_quant_plain`` for CPU tensors; a CUDA tensor never reaches the
 plain version.
@@ -86,8 +91,6 @@ def baos_mx_quant(x: torch.Tensor, center: torch.Tensor,
         raise ValueError("x, center and scale must lie on one CUDA device")
     if x.dtype not in _DTYPES:
         raise ValueError(f"x dtype {x.dtype} not in {_DTYPES}")
-    if D % mx.MX_BLOCK:
-        raise ValueError(f"head dim {D} must be a multiple of {mx.MX_BLOCK}")
     if any(t.dtype != torch.float32 or not t.is_contiguous()
            for t in (center, scale)):
         raise ValueError("center and scale must be contiguous f32")

@@ -44,8 +44,13 @@
 //     quantization: with the division or the quantization taken out (not
 //     exact), the kernel ran measurably faster on the H100.
 //   * 16-byte loads and stores need x, out, c and f 16-byte aligned with
-//     B/S strides to match; otherwise the same kernel runs on scalar loads
-//     and stores.
+//     B/S strides to match and D a multiple of 8; otherwise the same
+//     kernel runs on scalar loads and stores.
+//   * A head dim that is not a multiple of 32 (the RAGGED instantiations):
+//     each head's channels are laid out as if D were rounded up to 32, the
+//     tail past D a zero that no lane loads or stores, so the last MX block
+//     of a head takes its amax over its real columns, as core/mx's zero
+//     padding gives.
 #include "common.cuh"
 
 namespace {
@@ -57,36 +62,48 @@ constexpr int THREADS = CH_THREADS * GROUPS;
 constexpr int CHANNELS = 8 * CH_THREADS;
 constexpr int CTA_ROWS = ROWS * GROUPS;
 
-// grid (ceil(H * D / CHANNELS), ceil(S / CTA_ROWS), B): thread t of CTA
-// (x, y, b) owns channels hd = 8 * (x * CH_THREADS + t % CH_THREADS) ..
-// hd + 7 of the ROWS rows from (y * GROUPS + t / CH_THREADS) * ROWS.  Lanes
-// past H * D and rows past S take part in the shuffles and store nothing;
-// D is a multiple of 32, so a quad is live or dead as a whole.  The format
-// is a template argument, so each instantiation holds its own rounding and
-// no per-value branch on the format.
-template <typename T, int FMT>
+// grid (ceil(H * Dp / CHANNELS), ceil(S / CTA_ROWS), B), Dp = D rounded up
+// to 32: thread t of CTA (x, y, b) owns channels hd = 8 * (x * CH_THREADS
+// + t % CH_THREADS) .. hd + 7 of the ROWS rows from (y * GROUPS + t /
+// CH_THREADS) * ROWS, in rows of Dp channels a head.  Lanes past H * Dp
+// and rows past S take part in the shuffles and store nothing; Dp is a
+// multiple of 32, so a quad is live or dead as a whole.  RAGGED (D not a
+// multiple of 32): channel hd is column d = hd % Dp of head hd / Dp, and
+// the columns from D to Dp are the last MX block's zero tail, as core/mx
+// pads it: zeros in the block amax, never loaded or stored.  Otherwise
+// Dp = D and hd is the channel itself.  The format is a template
+// argument, so each instantiation holds its own rounding and no per-value
+// branch on the format.
+template <typename T, int FMT, bool RAGGED = false>
 __global__ void __launch_bounds__(THREADS)
 baos_mx_quant_kernel(const T* __restrict__ x, const float* __restrict__ c,
                      const float* __restrict__ f, T* __restrict__ out, int S,
-                     int HD, long long x_sb, long long x_ss, long long o_sb,
-                     long long o_ss, bool vec) {
+                     int H, int D, int Dp, long long x_sb, long long x_ss,
+                     long long o_sb, long long o_ss, bool vec) {
   const int t = threadIdx.x % CH_THREADS, g = threadIdx.x / CH_THREADS;
   const int hd = 8 * (blockIdx.x * CH_THREADS + t);
-  const bool live = hd < HD;
+  const bool live = hd < H * Dp;
+  int ch = hd, n = 8;        // the first channel's offset; channels held
+  if constexpr (RAGGED) {
+    const int d = hd % Dp;
+    ch = (hd / Dp) * D + d;
+    n = max(0, min(8, D - d));
+  }
   const int b = blockIdx.z, s0 = (blockIdx.y * GROUPS + g) * ROWS;
-  const size_t cal = static_cast<size_t>(b) * HD + hd;
-  // lanes past H * D and rows past S form no pointer and read nothing
-  // (as in stablemax_sampling.cu: a pointer past the end was read)
+  const size_t cal = static_cast<size_t>(b) * H * D + ch;
+  // lanes past H * Dp (or wholly in a zero tail) and rows past S form no
+  // pointer and read nothing (as in stablemax_sampling.cu: a pointer past
+  // the end was read)
   float cc[8] = {}, ff[8] = {};
-  if (live) {
-    load8(c + cal, 8, vec, cc);
-    load8(f + cal, 8, vec, ff);
+  if (live && n > 0) {
+    load8(c + cal, n, vec, cc);
+    load8(f + cal, n, vec, ff);
   }
   float v[ROWS][8] = {};
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    if (live && s0 + r < S)
-      load8(x + b * x_sb + (s0 + r) * x_ss + hd, 8, vec, v[r]);
+    if (live && n > 0 && s0 + r < S)
+      load8(x + b * x_sb + (s0 + r) * x_ss + ch, n, vec, v[r]);
   }
   float amax[ROWS];
 #pragma unroll
@@ -94,7 +111,7 @@ baos_mx_quant_kernel(const T* __restrict__ x, const float* __restrict__ c,
     amax[r] = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      v[r][j] = live ? (v[r][j] - cc[j]) / ff[j] : 0.f;
+      v[r][j] = live && j < n ? (v[r][j] - cc[j]) / ff[j] : 0.f;
       amax[r] = fmaxf(amax[r], fabsf(v[r][j]));
     }
   }
@@ -111,8 +128,15 @@ baos_mx_quant_kernel(const T* __restrict__ x, const float* __restrict__ c,
     } else if constexpr (FMT == FMT_BF16) {
       round8<__nv_bfloat16>(v[r]);
     }
-    if (live && s0 + r < S)
-      store8(out + b * o_sb + (s0 + r) * o_ss + hd, v[r], vec);
+    if (!live || s0 + r >= S) continue;
+    T* dst = out + b * o_sb + (s0 + r) * o_ss + ch;
+    if (n == 8) {
+      store8(dst, v[r], vec);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < n) dst[j] = from_f32<T>(v[r][j]);
+    }
   }
 }
 
@@ -125,15 +149,23 @@ cudaError_t launch(const void* x, const void* c, const void* f, void* out,
                    int B, int S, int H, int D, long long x_sb, long long x_ss,
                    long long o_sb, long long o_ss, cudaStream_t stream) {
   const long long step = 16 / sizeof(T);     // elements per 16 bytes
+  // a head's channels start 16-byte aligned only where D is a multiple of 8
   const bool vec = aligned16(x) && aligned16(out) && aligned16(c) &&
                    aligned16(f) && x_sb % step == 0 && x_ss % step == 0 &&
-                   o_sb % step == 0 && o_ss % step == 0;
-  const dim3 grid((H * D + CHANNELS - 1) / CHANNELS,
+                   o_sb % step == 0 && o_ss % step == 0 && D % 8 == 0;
+  const int Dp = (D + 31) / 32 * 32;
+  const dim3 grid((H * Dp + CHANNELS - 1) / CHANNELS,
                   (S + CTA_ROWS - 1) / CTA_ROWS, B);
-  baos_mx_quant_kernel<T, FMT><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(c),
-      static_cast<const float*>(f), static_cast<T*>(out), S, H * D, x_sb,
-      x_ss, o_sb, o_ss, vec);
+  const auto* xt = static_cast<const T*>(x);
+  const auto* ct = static_cast<const float*>(c);
+  const auto* ft = static_cast<const float*>(f);
+  auto* ot = static_cast<T*>(out);
+  if (Dp == D)
+    baos_mx_quant_kernel<T, FMT><<<grid, THREADS, 0, stream>>>(
+        xt, ct, ft, ot, S, H, D, Dp, x_sb, x_ss, o_sb, o_ss, vec);
+  else
+    baos_mx_quant_kernel<T, FMT, true><<<grid, THREADS, 0, stream>>>(
+        xt, ct, ft, ot, S, H, D, Dp, x_sb, x_ss, o_sb, o_ss, vec);
   return cudaGetLastError();
 }
 
@@ -164,7 +196,9 @@ cudaError_t launch(const void* x, const void* c, const void* f, void* out,
 
 // x (B, S, H, D) and out (B, S, H, D), both f32 (is_bf16 = 0) or both bf16,
 // each with (H, D) contiguous and the given B and S strides in elements;
-// c and f (B, 1, H, D) f32 contiguous; D a multiple of 32.  fmt: 0 none,
+// c and f (B, 1, H, D) f32 contiguous; any D >= 1 (the last MX block of a
+// D that is not a multiple of 32 is partial: its amax over its columns).
+// fmt: 0 none,
 // 1 bf16, 2 mxfp8_e4m3, 3 mxint8, 4 mxint4, 5 mxfp6_e3m2, 6 mxfp4_e2m1
 // (common.cuh Fmt).
 extern "C" int baos_mx_quant_launch(const void* x, const void* c,
@@ -173,7 +207,7 @@ extern "C" int baos_mx_quant_launch(const void* x, const void* c,
                                     long long x_ss, long long o_sb,
                                     long long o_ss, int fmt, int is_bf16,
                                     void* stream) {
-  if (D % 32 || fmt < FMT_NONE || fmt > FMT_MXFP4)
+  if (D < 1 || fmt < FMT_NONE || fmt > FMT_MXFP4)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * S * H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -201,6 +235,20 @@ const KernelAttr ATTRS[] = {
     KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXINT4>), 0),
     KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXFP6>), 0),
     KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXFP4>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_NONE, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_BF16, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_MXFP8, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_MXINT8, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_MXINT4, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_MXFP6, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<float, FMT_MXFP4, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_NONE, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_BF16, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXFP8, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXINT8, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXINT4, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXFP6, true>), 0),
+    KERNEL_ATTR((baos_mx_quant_kernel<__nv_bfloat16, FMT_MXFP4, true>), 0),
 };
 }  // namespace
 

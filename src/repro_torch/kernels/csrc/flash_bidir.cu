@@ -72,10 +72,19 @@
 // last tile is ragged on its own length.  Bound: the bytes of both K/V
 // sources, q and out.
 //
-// Head dims: both routes are instantiated for tiles of DT = 32, 64, 128 and
-// 256 columns; a head dim D that is a multiple of 8 up to 256 runs in the
-// smallest tile DT >= D, its columns past D loaded as zeros by predicated
-// loads (they add nothing to a score) and never stored.  At DT 256
+// Head dims: any D.  Both routes are instantiated for tiles of DT = 32, 64,
+// 128 and 256 columns; a head dim up to 256 runs in the smallest tile
+// DT >= D, its columns past D loaded as zeros by predicated loads (they
+// add nothing to a score) and never stored.  bf16 takes the tensor-core
+// route where D is a multiple of 8; at any other D its rows are not 16
+// bytes apart, so the 16-byte cp.async loads cannot start every row, and
+// it takes the CUDA-core kernel on bf16 operands (flash_bidir_kernel<bf16,
+// ...>: one value a load, converted to f32 in shared memory; no padded
+// copy).  D past 256 takes flash_bidir_wide_kernel (CUDA cores, f32 or
+// bf16): its CTAs split the output columns into slices of 256, and each
+// forms the full-D scores in chunks of 128 columns in the same order, so
+// the slices of a row hold bit-identical (m, l).  D^-1/2 is the true D's on
+// every route (the caller's scale).  At DT 256
 // (recurrentgemma-2b) the bf16 route keeps q in shared memory as before
 // and its 3-stage ring of 32-key K/V tiles takes 99 KB; beside it shared
 // memory holds the query rows of 8 warps without BAOS (168 KB in all) and,
@@ -303,24 +312,230 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int DPL, bool REACH>
-cudaError_t launch_f32(const float* q, const float* k, const float* v,
-                       const unsigned char* kv_valid, const float* k2,
-                       const float* v2, const unsigned char* kv_valid2, int S2,
-                       const float* fk,
-                       const float* fv, const float* cv, float* out, int B,
-                       int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                       int window, int q_offset, const long long* q_offset_dev,
-                       int causal, cudaStream_t stream) {
+// The CUDA-core route: f32, and bf16 at a head dim that is not a multiple
+// of 8 (its rows are not 16 bytes apart, so the tensor-core route's
+// 16-byte loads cannot start every row; this kernel loads one value at a
+// time).
+template <typename T, int DPL, bool REACH>
+cudaError_t launch_cc(const T* q, const T* k, const T* v,
+                      const unsigned char* kv_valid, const T* k2,
+                      const T* v2, const unsigned char* kv_valid2, int S2,
+                      const float* fk,
+                      const float* fv, const float* cv, T* out, int B,
+                      int Sq, int Skv, int Hq, int Hkv, int D, float scale,
+                      int window, int q_offset, const long long* q_offset_dev,
+                      int causal, cudaStream_t stream) {
   constexpr int smem = f32_smem_bytes(32 * DPL);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bidir_kernel<float, DPL, REACH>,
+      flash_bidir_kernel<T, DPL, REACH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_bidir_kernel<float, DPL, REACH><<<grid, 32 * WARPS, smem, stream>>>(
+  flash_bidir_kernel<T, DPL, REACH><<<grid, 32 * WARPS, smem, stream>>>(
       q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv, out, Sq, Skv, Hq,
       Hkv, D, scale, window, q_offset, q_offset_dev, causal);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Head dims past 256: the CUDA-core route with the output columns split
+// over CTAs
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_DV = 256;   // output columns of a CTA (8 a lane)
+constexpr int WIDE_CH = 128;   // columns of one chunk of the score product
+
+// Dynamic shared memory of a wide CTA, in bytes: a chunk of the q rows and
+// of the K tile, and the CTA's columns of the V tile.
+constexpr int wide_smem_bytes() {
+  return (BQ * WIDE_CH + BK * (WIDE_CH + 1) + BK * WIDE_DV) * 4;
+}
+
+// One CTA per (16-row q tile, output slice, q head, batch row): blockIdx.x
+// = tile * n_slices + slice, the slice's columns [256 slice, 256 slice +
+// 256).  Every slice forms each row's full-D scores the same way, chunk by
+// chunk of WIDE_CH columns in increasing order, each chunk's q * f_k * D^-1/2
+// and K staged in f32 and summed by one FMA chain a lane (the CUDA-core
+// route's arithmetic): so the slices of a row form bit-identical scores,
+// hence the same running (m, l) and the same probabilities, and each
+// writes its own columns of one output.  The walk, the masks and the BAOS
+// fusion are the CUDA-core route's.
+template <typename T, bool REACH = false>
+__global__ void __launch_bounds__(32 * WARPS)
+flash_bidir_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const unsigned char* __restrict__ kv_valid,
+                        const T* __restrict__ k2, const T* __restrict__ v2,
+                        const unsigned char* __restrict__ kv_valid2, int S2,
+                        const float* __restrict__ fk,
+                        const float* __restrict__ fv,
+                        const float* __restrict__ cv, T* __restrict__ out,
+                        int Sq, int Skv, int Hq, int Hkv, int D, float scale,
+                        int window, int q_offset,
+                        const long long* __restrict__ q_offset_dev,
+                        int causal, int n_slices) {
+  constexpr int DPL = WIDE_DV / 32;
+  extern __shared__ __align__(16) float smem_wide[];
+  float(*qs)[WIDE_CH] = reinterpret_cast<float(*)[WIDE_CH]>(smem_wide);
+  float(*ks)[WIDE_CH + 1] =
+      reinterpret_cast<float(*)[WIDE_CH + 1]>(smem_wide + BQ * WIDE_CH);
+  float(*vs)[WIDE_DV] = reinterpret_cast<float(*)[WIDE_DV]>(
+      smem_wide + BQ * WIDE_CH + BK * (WIDE_CH + 1));
+
+  const int q0 = (blockIdx.x / n_slices) * BQ;
+  const int c0 = (blockIdx.x % n_slices) * WIDE_DV;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t cal = (static_cast<size_t>(b) * Hkv + hk) * D;
+  q_offset = query_offset(q_offset, q_offset_dev);
+
+  const int n_t1 = (Skv + BK - 1) / BK;
+  const int n_t2 = k2 != nullptr ? (S2 + BK - 1) / BK : 0;
+  TileRange walk =
+      REACH ? tile_range(q_offset + q0, q_offset + min(q0 + BQ, Sq) - 1,
+                         window, causal, Skv, k2 != nullptr ? S2 : 0, BK,
+                         q_offset)
+            : TileRange{0, n_t1, 0, n_t2};
+  const bool full = !REACH || (walk.n1 == n_t1 && walk.n2 == n_t2);
+
+  float m[RPW], l[RPW], acc[RPW][DPL];
+#pragma unroll 1
+  for (int pass = 0;; ++pass) {   // pass 1: every tile (see the top)
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      m[i] = NEG;
+      l[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) acc[i][j] = 0.f;
+    }
+
+    const int n_w = walk.n1 + walk.n2;
+    for (int w = 0; w < n_w; ++w) {
+      const KvSrc src = kv_src(REACH ? walk.tile(w, n_t1) : w, n_t1, BK, Skv,
+                               S2, q_offset);
+      const T* kk_src = src.second ? k2 : k;
+      const T* vv_src = src.second ? v2 : v;
+      const unsigned char* val = src.second ? kv_valid2 : kv_valid;
+      const int k0 = src.t0;
+      float s[RPW];
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) s[i] = 0.f;
+      for (int d0 = 0; d0 < D; d0 += WIDE_CH) {
+        __syncthreads();  // the previous chunk (and the previous tile) read
+        for (int e = tid; e < BQ * WIDE_CH; e += 32 * WARPS) {
+          const int r = e / WIDE_CH, dd = d0 + e % WIDE_CH, gq = q0 + r;
+          float x = 0.f;
+          if (gq < Sq && dd < D) {
+            x = to_f32(q[((static_cast<size_t>(b) * Sq + gq) * Hq + h) * D + dd]);
+            if (fk != nullptr) x *= fk[cal + dd];
+          }
+          qs[r][e % WIDE_CH] = x * scale;
+        }
+        for (int e = tid; e < BK * WIDE_CH; e += 32 * WARPS) {
+          const int j = e / WIDE_CH, dd = d0 + e % WIDE_CH, gk = k0 + j;
+          ks[j][e % WIDE_CH] =
+              gk < src.len && dd < D
+                  ? to_f32(kk_src[((static_cast<size_t>(b) * src.len + gk) *
+                                   Hkv + hk) * D + dd])
+                  : 0.f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) {
+          const int row = warp * RPW + i;
+#pragma unroll 8
+          for (int dd = 0; dd < WIDE_CH; ++dd)
+            s[i] = fmaf(qs[row][dd], ks[lane][dd], s[i]);
+        }
+      }
+      // this slice's columns of the V tile (the previous tile's were read
+      // before the first chunk's barrier)
+      for (int e = tid; e < BK * WIDE_DV; e += 32 * WARPS) {
+        const int j = e / WIDE_DV, dd = c0 + e % WIDE_DV, gk = k0 + j;
+        vs[j][e % WIDE_DV] =
+            gk < src.len && dd < D
+                ? to_f32(vv_src[((static_cast<size_t>(b) * src.len + gk) *
+                                 Hkv + hk) * D + dd])
+                : 0.f;
+      }
+      __syncthreads();
+
+      const int gk = k0 + lane;
+      const bool in_range = gk < src.len;
+      const bool valid = in_range &&
+          (val == nullptr || val[static_cast<size_t>(b) * src.len + gk]);
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const int gq = q0 + warp * RPW + i;
+        const bool ok = valid && (REACH ? in_reach(q_offset + gq,
+                                                   src.pos0 + gk, window,
+                                                   causal)
+                                           : (window <= 0 ||
+                                              abs(q_offset + gq -
+                                                  (src.pos0 + gk)) < window));
+        const float x = in_range ? (ok ? s[i] : NEG) : -INFINITY;
+        const float m_new = fmaxf(m[i], warp_max(x));
+        const float p = expf(x - m_new);
+        const float corr = expf(m[i] - m_new);
+        l[i] = l[i] * corr + warp_sum(p);
+        m[i] = m_new;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) acc[i][j] *= corr;
+#pragma unroll 8
+        for (int kk = 0; kk < BK; ++kk) {
+          const float pk = __shfl_sync(FULL_MASK, p, kk);
+#pragma unroll
+          for (int j = 0; j < DPL; ++j)
+            acc[i][j] = fmaf(pk, vs[kk][lane + 32 * j], acc[i][j]);
+        }
+      }
+    }
+    if (full || pass == 1) break;
+    bool lost = false;       // a live row with no valid key in its reach
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+      lost |= q0 + warp * RPW + i < Sq && m[i] == NEG;
+    if (!__syncthreads_or(lost)) break;
+    walk = TileRange{0, n_t1, 0, n_t2};
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int gq = q0 + warp * RPW + i;
+    if (gq >= Sq) continue;
+    const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      const int dd = c0 + lane + 32 * j;
+      if (dd >= D) break;
+      float o = acc[i][j] * inv_l;
+      if (fv != nullptr) o *= fv[cal + dd];
+      if (cv != nullptr) o += cv[cal + dd];
+      out[((static_cast<size_t>(b) * Sq + gq) * Hq + h) * D + dd] = from_f32<T>(o);
+    }
+  }
+}
+
+template <typename T, bool REACH>
+cudaError_t launch_wide(const T* q, const T* k, const T* v,
+                        const unsigned char* kv_valid, const T* k2,
+                        const T* v2, const unsigned char* kv_valid2, int S2,
+                        const float* fk, const float* fv, const float* cv,
+                        T* out, int B, int Sq, int Skv, int Hq, int Hkv,
+                        int D, float scale, int window, int q_offset,
+                        const long long* q_offset_dev, int causal,
+                        cudaStream_t stream) {
+  constexpr int smem = wide_smem_bytes();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bidir_wide_kernel<T, REACH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const int n_slices = (D + WIDE_DV - 1) / WIDE_DV;
+  const dim3 grid((Sq + BQ - 1) / BQ * n_slices, Hq, B);
+  flash_bidir_wide_kernel<T, REACH><<<grid, 32 * WARPS, smem, stream>>>(
+      q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv, out, Sq, Skv, Hq,
+      Hkv, D, scale, window, q_offset, q_offset_dev, causal, n_slices);
   return cudaGetLastError();
 }
 
@@ -705,13 +920,45 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
-// The tile width a head dim runs in: the smallest of 32, 64, 128, 256 that
-// holds it (0: D is not a multiple of 8 in [8, 256]).
+// The tile width a head dim up to 256 runs in: the smallest of 32, 64,
+// 128, 256 that holds it (0: D past 256, the wide kernel's).
 int tile_of(int D) {
-  if (D < 8 || D > 256 || D % 8) return 0;
+  if (D < 1 || D > 256) return 0;
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
+// The CUDA-core routes of element type T: D up to 256 in its tile, D past
+// 256 in the wide kernel.
+template <typename T>
+cudaError_t dispatch_cc(int D, const T* q, const T* k, const T* v,
+                        const unsigned char* kv_valid, const T* k2,
+                        const T* v2, const unsigned char* kv_valid2, int S2,
+                        const float* fk, const float* fv, const float* cv,
+                        T* out, int B, int Sq, int Skv, int Hq, int Hkv,
+                        float scale, int window, int q_offset,
+                        const long long* q_offset_dev, int causal, bool reach,
+                        cudaStream_t stream) {
+#define FB_ARGS                                                              \
+  (q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv, out, B, Sq, Skv,    \
+   Hq, Hkv, D, scale, window, q_offset, q_offset_dev, causal, stream)
+#define FB_LAUNCH(DPL)                                                       \
+  return reach ? launch_cc<T, DPL, true> FB_ARGS                             \
+               : launch_cc<T, DPL, false> FB_ARGS
+  switch (tile_of(D)) {
+    case 32: FB_LAUNCH(1);
+    case 64: FB_LAUNCH(2);
+    case 128: FB_LAUNCH(4);
+    case 256: FB_LAUNCH(8);
+    default:
+      return reach ? launch_wide<T, true> FB_ARGS
+                   : launch_wide<T, false> FB_ARGS;
+  }
+#undef FB_LAUNCH
+#undef FB_ARGS
+}
+
+// bf16: the tensor-core route at a head dim that is a multiple of 8 up to
+// 256, the CUDA-core routes at any other.
 cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
                           const unsigned char* kv_valid, const bf16* k2,
                           const bf16* v2, const unsigned char* kv_valid2,
@@ -721,6 +968,10 @@ cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
                           int window, int q_offset,
                           const long long* q_offset_dev, int causal,
                           bool reach, cudaStream_t stream) {
+  if (D % 8 != 0 || tile_of(D) == 0)
+    return dispatch_cc<bf16>(D, q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk,
+                             fv, cv, out, B, Sq, Skv, Hq, Hkv, scale, window,
+                             q_offset, q_offset_dev, causal, reach, stream);
 #define FB_LAUNCH_AS(DT, QS, R)                                              \
   launch_bf16<DT, QS, R>(q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv,   \
                          cv, out, B, Sq, Skv, Hq, Hkv, D, scale, window,     \
@@ -735,34 +986,7 @@ cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
     case 32: FB_LAUNCH(32);
     case 64: FB_LAUNCH(64);
     case 128: FB_LAUNCH(128);
-    case 256: FB_LAUNCH(256);
-    default: return cudaErrorInvalidValue;
-  }
-#undef FB_LAUNCH
-#undef FB_LAUNCH_AS
-}
-
-cudaError_t dispatch_f32(int D, const float* q, const float* k, const float* v,
-                         const unsigned char* kv_valid, const float* k2,
-                         const float* v2, const unsigned char* kv_valid2,
-                         int S2, const float* fk,
-                         const float* fv, const float* cv, float* out, int B,
-                         int Sq, int Skv, int Hq, int Hkv, float scale,
-                         int window, int q_offset,
-                         const long long* q_offset_dev, int causal,
-                         bool reach, cudaStream_t stream) {
-#define FB_LAUNCH_AS(DPL, R)                                                 \
-  launch_f32<DPL, R>(q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv,   \
-                     out, B, Sq, Skv, Hq, Hkv, D, scale, window, q_offset,   \
-                     q_offset_dev, causal, stream)
-#define FB_LAUNCH(DPL)                                                       \
-  return reach ? FB_LAUNCH_AS(DPL, true) : FB_LAUNCH_AS(DPL, false)
-  switch (tile_of(D)) {
-    case 32: FB_LAUNCH(1);
-    case 64: FB_LAUNCH(2);
-    case 128: FB_LAUNCH(4);
-    case 256: FB_LAUNCH(8);
-    default: return cudaErrorInvalidValue;
+    default: FB_LAUNCH(256);
   }
 #undef FB_LAUNCH
 #undef FB_LAUNCH_AS
@@ -787,8 +1011,7 @@ bool reach_walk(int window, int causal, int q_offset, bool device_offset,
 }  // namespace
 
 // q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) and out (B, Sq, Hq, D), all f32
-// (is_bf16 = 0) or all bf16, contiguous; D a multiple of 8 in [8, 256].
-// kv_valid
+// (is_bf16 = 0) or all bf16, contiguous; any D >= 1.  kv_valid
 // (B, Skv) bool and fk/fv/cv (B, Hkv, D) f32 may each be null.  scale is
 // the softmax scale (D^-1/2, rounded to f32 by the caller); window <= 0
 // means no window; query row r sits at position q_offset + r, where
@@ -816,8 +1039,9 @@ extern "C" int flash_bidir_launch(const void* q, const void* k, const void* v,
   const auto* off = static_cast<const long long*>(q_offset_dev);
   const bool reach = reach_walk(window, causal, q_offset, off != nullptr, Sq,
                                 Skv, k2 != nullptr ? S2 : 0);
+  if (D < 1) return cudaErrorInvalidValue;
   if (!is_bf16)
-    return static_cast<int>(dispatch_f32(
+    return static_cast<int>(dispatch_cc<float>(
         D, static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), valid, static_cast<const float*>(k2),
         static_cast<const float*>(v2), valid2, S2, fk_, fv_, cv_,
@@ -847,6 +1071,18 @@ const KernelAttr ATTRS[] = {
     KERNEL_ATTR((flash_bidir_kernel<float, 8>), f32_smem_bytes(256)),
     KERNEL_ATTR((flash_bidir_kernel<float, 8, true>),
                 f32_smem_bytes(256)),
+    KERNEL_ATTR((flash_bidir_kernel<bf16, 1>), f32_smem_bytes(32)),
+    KERNEL_ATTR((flash_bidir_kernel<bf16, 1, true>), f32_smem_bytes(32)),
+    KERNEL_ATTR((flash_bidir_kernel<bf16, 2>), f32_smem_bytes(64)),
+    KERNEL_ATTR((flash_bidir_kernel<bf16, 2, true>), f32_smem_bytes(64)),
+    KERNEL_ATTR((flash_bidir_kernel<bf16, 4>), f32_smem_bytes(128)),
+    KERNEL_ATTR((flash_bidir_kernel<bf16, 4, true>), f32_smem_bytes(128)),
+    KERNEL_ATTR((flash_bidir_kernel<bf16, 8>), f32_smem_bytes(256)),
+    KERNEL_ATTR((flash_bidir_kernel<bf16, 8, true>), f32_smem_bytes(256)),
+    KERNEL_ATTR((flash_bidir_wide_kernel<float>), wide_smem_bytes()),
+    KERNEL_ATTR((flash_bidir_wide_kernel<float, true>), wide_smem_bytes()),
+    KERNEL_ATTR((flash_bidir_wide_kernel<bf16>), wide_smem_bytes()),
+    KERNEL_ATTR((flash_bidir_wide_kernel<bf16, true>), wide_smem_bytes()),
     KERNEL_ATTR((flash_bidir_tc_kernel<32, 1>),
                 (tc_smem_bytes<32, 1>(tc_max_warps<32, 1>()))),
     KERNEL_ATTR((flash_bidir_tc_kernel<32, 1, true>),

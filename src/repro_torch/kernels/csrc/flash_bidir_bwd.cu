@@ -110,9 +110,17 @@
 //      8 warps, walking every row of the group in chunks of 16 (key =
 //      lane, DT / 8 columns a warp).
 //
-// Head dims: tiles DT = 32, 64, 128 and 256 columns (a multiple of 8 up to
+// Head dims: any D.  Tiles DT = 32, 64, 128 and 256 columns (a D up to
 // 256 runs in the smallest that holds it, columns past D loaded as zeros
-// and not stored).  Shared memory at DT 256: kernel 1 at 8 warps 202.8 KB,
+// and not stored); bf16 at a D that is not a multiple of 8 takes the f32
+// route's kernels on bf16 operands (one value a load: such rows are not
+// 16 bytes apart).  D past 256 takes the wide route, on the CUDA cores
+// for either dtype: flash_bidir_bwd_stats_wide writes each row's (m, l,
+// delta) once, then flash_bidir_bwd_dq_wide and flash_bidir_bwd_dkv_wide
+// each split their output columns over CTAs in slices of 256 and read
+// those statistics; every slice forms S and dP over the full D in chunks
+// of 128 columns, in one order (wide_s_dp), so the slices of a row use the
+// same bits.  No atomics: each output element is one CTA's.  Shared memory at DT 256: kernel 1 at 8 warps 202.8 KB,
 // kernel 2 170.1 KB (bf16); 98.6 KB and 102.8 KB (f32).  Registers from
 // 120 to 252 a thread, no spill (PERF.md).
 #include "common.cuh"
@@ -1152,54 +1160,483 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
-template <int DPL>
-cudaError_t launch_f32(const float* q, const float* k, const float* v,
-                       const float* dout, const unsigned char* kv_valid,
-                       float* dq, float* dk, float* dv, float* stats, int B,
-                       int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                       int window, int q_offset, int causal,
-                       cudaStream_t stream) {
+// The CUDA-core route: f32, and bf16 at a head dim that is not a multiple
+// of 8 (the tensor-core route's 16-byte loads cannot start such rows; these
+// kernels load one value at a time).
+template <typename T, int DPL>
+cudaError_t launch_cc(const T* q, const T* k, const T* v, const T* dout,
+                      const unsigned char* kv_valid, T* dq, T* dk, T* dv,
+                      float* stats, int B, int Sq, int Skv, int Hq, int Hkv,
+                      int D, float scale, int window, int q_offset,
+                      int causal, cudaStream_t stream) {
   constexpr int DT = 32 * DPL;
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      flash_bidir_bwd_dq<float, DPL>,
+      flash_bidir_bwd_dq<T, DPL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem_bytes(DT));
   if (attr_dq != cudaSuccess) return attr_dq;
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      flash_bidir_bwd_dkv<float, DPL>,
+      flash_bidir_bwd_dkv<T, DPL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem_bytes(DT));
   if (attr_dkv != cudaSuccess) return attr_dkv;
   const dim3 grid_q((Sq + BQ - 1) / BQ, Hq, B);
-  flash_bidir_bwd_dq<float, DPL>
+  flash_bidir_bwd_dq<T, DPL>
       <<<grid_q, 32 * QWARPS, dq_smem_bytes(DT), stream>>>(
           q, k, v, dout, kv_valid, dq, stats, B, Sq, Skv, Hq, Hkv, D, scale,
           window, q_offset, causal);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k((Skv + BK - 1) / BK, Hkv, B);
-  flash_bidir_bwd_dkv<float, DPL>
+  flash_bidir_bwd_dkv<T, DPL>
       <<<grid_k, 32 * KWARPS, dkv_smem_bytes(DT), stream>>>(
           q, k, v, dout, kv_valid, stats, dk, dv, B, Sq, Skv, Hq, Hkv, D,
           scale, window, q_offset, causal);
   return cudaGetLastError();
 }
 
-// The tile width a head dim runs in: the smallest of 32, 64, 128, 256 that
-// holds it (0: D is not a multiple of 8 in [8, 256]).
+// ---------------------------------------------------------------------------
+// Head dims past 256: the CUDA-core route with the output columns split
+// over CTAs
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_DV = 256;   // output columns of a dq or dk/dv CTA
+constexpr int WIDE_CH = 128;   // columns of one chunk of the S and dP products
+
+// Shared memory of the chunked S and dP products (wide_s_dp), in floats:
+// 16 rows of q and dO, and 32 keys of K and V, one chunk wide.
+constexpr int WIDE_SDP = 2 * 16 * WIDE_CH + 2 * BK * (WIDE_CH + 1);
+
+constexpr int wide_stats_smem_bytes() { return WIDE_SDP * 4; }
+constexpr int wide_dq_smem_bytes() {
+  return (WIDE_SDP + BK * WIDE_DV) * 4;
+}
+constexpr int wide_dkv_smem_bytes() {
+  return (WIDE_SDP + 2 * RC * BK + 4 * RC + 2 * RC * WIDE_DV) * 4;
+}
+
+// s_i = q_i . k_lane and dp_i = dO_i . v_lane over every column, for the
+// rows rows[i] of 16 staged rows (row r's first element at row_off(r) in q
+// and dout, or -1 past the last row) against key k0 + lane: chunk by chunk
+// of WIDE_CH columns, in increasing order, one FMA chain each -- the same
+// order in every CTA that forms them, so every column slice of one row
+// forms the same bits.  Starts with a barrier, so the caller's earlier
+// reads of any shared memory are done; ends without one.
+template <typename T, int R, typename RowOff>
+__device__ __forceinline__ void wide_s_dp(
+    const T* __restrict__ q, const T* __restrict__ dout,
+    const T* __restrict__ k, const T* __restrict__ v, RowOff row_off, int b,
+    int k0, int hk, int Skv, int Hkv, int D, int tid, int nthreads,
+    const int (&rows)[R], float* smem, float (&s)[R], float (&dp)[R]) {
+  float(*qs)[WIDE_CH] = reinterpret_cast<float(*)[WIDE_CH]>(smem);
+  float(*dos)[WIDE_CH] = reinterpret_cast<float(*)[WIDE_CH]>(
+      smem + 16 * WIDE_CH);
+  float(*ks)[WIDE_CH + 1] = reinterpret_cast<float(*)[WIDE_CH + 1]>(
+      smem + 2 * 16 * WIDE_CH);
+  float(*vs)[WIDE_CH + 1] = reinterpret_cast<float(*)[WIDE_CH + 1]>(
+      smem + 2 * 16 * WIDE_CH + BK * (WIDE_CH + 1));
+  const int lane = tid & 31;
+#pragma unroll
+  for (int i = 0; i < R; ++i) s[i] = dp[i] = 0.f;
+  for (int d0 = 0; d0 < D; d0 += WIDE_CH) {
+    __syncthreads();
+    for (int e = tid; e < 16 * WIDE_CH; e += nthreads) {
+      const int r = e / WIDE_CH, c = e % WIDE_CH, dd = d0 + c;
+      const long long o = row_off(r);
+      float x = 0.f, g = 0.f;
+      if (o >= 0 && dd < D) {
+        x = to_f32(q[o + dd]);
+        g = to_f32(dout[o + dd]);
+      }
+      qs[r][c] = x;
+      dos[r][c] = g;
+    }
+    for (int e = tid; e < BK * WIDE_CH; e += nthreads) {
+      const int j = e / WIDE_CH, c = e % WIDE_CH, dd = d0 + c, gk = k0 + j;
+      float kx = 0.f, vx = 0.f;
+      if (gk < Skv && dd < D) {
+        const size_t o = ((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D + dd;
+        kx = to_f32(k[o]);
+        vx = to_f32(v[o]);
+      }
+      ks[j][c] = kx;
+      vs[j][c] = vx;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < WIDE_CH; ++c) {
+      const float kx = ks[lane][c], vx = vs[lane][c];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        s[i] = fmaf(qs[rows[i]][c], kx, s[i]);
+        dp[i] = fmaf(dos[rows[i]][c], vx, dp[i]);
+      }
+    }
+  }
+}
+
+// Kernel 1 of the wide route: each row's (m, l, delta) over every key,
+// written once to the scratch (3, B, Hq, Sq), which every column slice of
+// kernels 2 and 3 then reads.  One CTA per (16-row q tile, q head, batch
+// row), the f32 route's pass 1.
+template <typename T>
+__global__ void __launch_bounds__(32 * QWARPS)
+flash_bidir_bwd_stats_wide(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
+                           const unsigned char* __restrict__ kv_valid,
+                           float* __restrict__ stats, int B, int Sq, int Skv,
+                           int Hq, int Hkv, int D, float scale, int window,
+                           int q_offset, int causal) {
+  extern __shared__ __align__(16) float smem_ws[];
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  auto row_off = [&](int r) -> long long {
+    return q0 + r < Sq
+               ? ((static_cast<long long>(b) * Sq + q0 + r) * Hq + h) * D
+               : -1;
+  };
+  int rows[RPW], qpos[RPW];
+  float m[RPW], l[RPW], pdp[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    rows[i] = warp * RPW + i;
+    qpos[i] = q_offset + q0 + rows[i];
+    m[i] = NEG;
+    l[i] = pdp[i] = 0.f;
+  }
+  for (int k0 = 0; k0 < Skv; k0 += BK) {
+    float s[RPW], dp[RPW];
+    wide_s_dp<T, RPW>(q, dout, k, v, row_off, b, k0, hk, Skv, Hkv, D, tid,
+                      32 * QWARPS, rows, smem_ws, s, dp);
+    const int gk = k0 + lane;
+    const bool in_range = gk < Skv;
+    const bool valid = key_ok(kv_valid, b, Skv, gk);
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const bool ok = valid && in_reach(qpos[i], gk, window, causal);
+      const float x = in_range ? (ok ? s[i] * scale : NEG) : -INFINITY;
+      const float m_new = fmaxf(m[i], warp_max(x));
+      const float corr = expf(m[i] - m_new), e = expf(x - m_new);
+      l[i] = l[i] * corr + warp_sum(e);
+      pdp[i] = pdp[i] * corr + warp_sum(in_range ? e * dp[i] : 0.f);
+      m[i] = m_new;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int gq = q0 + rows[i];
+    if (lane == 0 && gq < Sq) {
+      const size_t si = (static_cast<size_t>(b) * Hq + h) * Sq + gq;
+      const size_t n = static_cast<size_t>(B) * Hq * Sq;
+      stats[si] = m[i];
+      stats[n + si] = l[i];
+      stats[2 * n + si] = pdp[i] * (1.f / fmaxf(l[i], 1e-30f));
+    }
+  }
+}
+
+// Kernel 2 of the wide route: dq's columns [256 slice, 256 slice + 256)
+// for a 16-row q tile of one q head and batch row (blockIdx.x = tile *
+// n_slices + slice), from the scratch's statistics: S and dP formed over
+// every column (wide_s_dp), dS, then dq += dS K on the slice's columns.
+template <typename T>
+__global__ void __launch_bounds__(32 * QWARPS)
+flash_bidir_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const unsigned char* __restrict__ kv_valid,
+                        const float* __restrict__ stats, T* __restrict__ dq,
+                        int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                        float scale, int window, int q_offset, int causal,
+                        int n_slices) {
+  constexpr int DPL = WIDE_DV / 32;
+  extern __shared__ __align__(16) float smem_wq[];
+  float(*ksl)[WIDE_DV] = reinterpret_cast<float(*)[WIDE_DV]>(smem_wq + WIDE_SDP);
+  const int q0 = (blockIdx.x / n_slices) * BQ;
+  const int c0 = (blockIdx.x % n_slices) * WIDE_DV;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nthreads = 32 * QWARPS;
+  const size_t n_stats = static_cast<size_t>(B) * Hq * Sq;
+  auto row_off = [&](int r) -> long long {
+    return q0 + r < Sq
+               ? ((static_cast<long long>(b) * Sq + q0 + r) * Hq + h) * D
+               : -1;
+  };
+  int rows[RPW], qpos[RPW];
+  float m[RPW], inv_l[RPW], delta[RPW], acc[RPW][DPL];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    rows[i] = warp * RPW + i;
+    const int gq = min(q0 + rows[i], Sq - 1);
+    const size_t si = (static_cast<size_t>(b) * Hq + h) * Sq + gq;
+    qpos[i] = q_offset + q0 + rows[i];
+    m[i] = stats[si];
+    inv_l[i] = 1.f / fmaxf(stats[n_stats + si], 1e-30f);
+    delta[i] = stats[2 * n_stats + si];
+#pragma unroll
+    for (int t = 0; t < DPL; ++t) acc[i][t] = 0.f;
+  }
+  for (int k0 = 0; k0 < Skv; k0 += BK) {
+    float s[RPW], dp[RPW];
+    wide_s_dp<T, RPW>(q, dout, k, v, row_off, b, k0, hk, Skv, Hkv, D, tid,
+                      nthreads, rows, smem_wq, s, dp);
+    // the slice's columns of K (the previous tile's were read before
+    // wide_s_dp's first barrier)
+    for (int e = tid; e < BK * WIDE_DV; e += nthreads) {
+      const int j = e / WIDE_DV, dd = c0 + e % WIDE_DV, gk = k0 + j;
+      ksl[j][e % WIDE_DV] =
+          gk < Skv && dd < D
+              ? to_f32(k[((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D + dd])
+              : 0.f;
+    }
+    __syncthreads();
+    const int gk = k0 + lane;
+    const bool in_range = gk < Skv;
+    const bool valid = key_ok(kv_valid, b, Skv, gk);
+    float ds[RPW];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const bool ok =
+          in_range && valid && in_reach(qpos[i], gk, window, causal);
+      ds[i] = ok ? expf(s[i] * scale - m[i]) * inv_l[i] * (dp[i] - delta[i])
+                 : 0.f;
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float dsk[RPW];
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) dsk[i] = __shfl_sync(FULL_MASK, ds[i], kk);
+#pragma unroll
+      for (int t = 0; t < DPL; ++t) {
+        const float kx = ksl[kk][lane + 32 * t];
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) acc[i][t] = fmaf(dsk[i], kx, acc[i][t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int gq = q0 + rows[i];
+    if (gq >= Sq) continue;
+    const size_t row = ((static_cast<size_t>(b) * Sq + gq) * Hq + h) * D;
+#pragma unroll
+    for (int t = 0; t < DPL; ++t) {
+      const int dd = c0 + lane + 32 * t;
+      if (dd < D) dq[row + dd] = from_f32<T>(acc[i][t] * scale);
+    }
+  }
+}
+
+// Kernel 3 of the wide route: dk's and dv's columns [256 slice, 256 slice
+// + 256) for a 32-key tile of one KV head and batch row (blockIdx.x = tile
+// * n_slices + slice), walking every row of the group in chunks of 16 as
+// the f32 route's dk/dv kernel does: S and dP over every column
+// (wide_s_dp), P and dS from the scratch's statistics, then dV += P^T dO and
+// dK += dS^T Q on the slice's columns (key lane, 32 columns a warp).
+template <typename T>
+__global__ void __launch_bounds__(32 * KWARPS)
+flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const unsigned char* __restrict__ kv_valid,
+                         const float* __restrict__ stats, T* __restrict__ dk,
+                         T* __restrict__ dv, int B, int Sq, int Skv, int Hq,
+                         int Hkv, int D, float scale, int window,
+                         int q_offset, int causal, int n_slices) {
+  constexpr int NC = WIDE_DV / KWARPS;
+  constexpr int RW = RC / KWARPS;
+  extern __shared__ __align__(16) float smem_wk[];
+  float* rest = smem_wk + WIDE_SDP;
+  float(*ps)[BK] = reinterpret_cast<float(*)[BK]>(rest);
+  float(*dss)[BK] = reinterpret_cast<float(*)[BK]>(rest + RC * BK);
+  float* row_m = rest + 2 * RC * BK;
+  float* row_il = row_m + RC;
+  float* row_delta = row_il + RC;
+  int* row_pos = reinterpret_cast<int*>(row_delta + RC);
+  float(*qsl)[WIDE_DV] =
+      reinterpret_cast<float(*)[WIDE_DV]>(rest + 2 * RC * BK + 4 * RC);
+  float(*dosl)[WIDE_DV] = reinterpret_cast<float(*)[WIDE_DV]>(
+      rest + 2 * RC * BK + 4 * RC + RC * WIDE_DV);
+
+  const int k0 = (blockIdx.x / n_slices) * BK;
+  const int c0 = (blockIdx.x % n_slices) * WIDE_DV;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv, n_rows = G * Sq;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nthreads = 32 * KWARPS;
+  const size_t n_stats = static_cast<size_t>(B) * Hq * Sq;
+  const int gk = k0 + lane;
+  const bool in_range = gk < Skv;
+  const bool valid = key_ok(kv_valid, b, Skv, gk);
+
+  float adk[NC], adv[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) adk[c] = adv[c] = 0.f;
+  int rows[RW];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) rows[i] = warp + KWARPS * i;
+
+  // rows t = g * Sq + pos of the group: q head hk * G + g at position pos
+  for (int t0 = 0; t0 < n_rows; t0 += RC) {
+    auto row_off = [&](int r) -> long long {
+      const int t = t0 + r;
+      return t < n_rows ? ((static_cast<long long>(b) * Sq + t % Sq) * Hq +
+                           hk * G + t / Sq) * D
+                        : -1;
+    };
+    float s[RW], dp[RW];
+    wide_s_dp<T, RW>(q, dout, k, v, row_off, b, k0, hk, Skv, Hkv, D, tid,
+                     nthreads, rows, smem_wk, s, dp);
+    // the chunk's statistics and its rows' slice columns (the previous
+    // chunk's were read before wide_s_dp's first barrier)
+    if (tid < RC) {
+      const int t = t0 + tid;
+      if (t < n_rows) {
+        const int hh = hk * G + t / Sq, pos = t % Sq;
+        const size_t si = (static_cast<size_t>(b) * Hq + hh) * Sq + pos;
+        row_m[tid] = stats[si];
+        row_il[tid] = 1.f / fmaxf(stats[n_stats + si], 1e-30f);
+        row_delta[tid] = stats[2 * n_stats + si];
+        row_pos[tid] = q_offset + pos;
+      } else {               // a row past the last: p = 0, ds = 0
+        row_m[tid] = 0.f;
+        row_il[tid] = 0.f;
+        row_delta[tid] = 0.f;
+        row_pos[tid] = 0;
+      }
+    }
+    for (int e = tid; e < RC * WIDE_DV; e += nthreads) {
+      const int r = e / WIDE_DV, dd = c0 + e % WIDE_DV;
+      const long long o = row_off(r);
+      float x = 0.f, g = 0.f;
+      if (o >= 0 && dd < D) {
+        x = to_f32(q[o + dd]);
+        g = to_f32(dout[o + dd]);
+      }
+      qsl[r][e % WIDE_DV] = x;
+      dosl[r][e % WIDE_DV] = g;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int r = rows[i];
+      const bool ok = valid && in_reach(row_pos[r], gk, window, causal);
+      const float p =
+          in_range ? expf((ok ? s[i] * scale : NEG) - row_m[r]) * row_il[r]
+                   : 0.f;
+      ps[r][lane] = p;
+      dss[r][lane] = ok && in_range ? p * (dp[i] - row_delta[r]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < RC; ++r) {
+      const float pr = ps[r][lane], dsr = dss[r][lane];
+#pragma unroll
+      for (int c = 0; c < NC; c += 4) {
+        const float4 g4 = *reinterpret_cast<const float4*>(&dosl[r][warp * NC + c]);
+        const float4 q4 = *reinterpret_cast<const float4*>(&qsl[r][warp * NC + c]);
+        adv[c] = fmaf(pr, g4.x, adv[c]);
+        adv[c + 1] = fmaf(pr, g4.y, adv[c + 1]);
+        adv[c + 2] = fmaf(pr, g4.z, adv[c + 2]);
+        adv[c + 3] = fmaf(pr, g4.w, adv[c + 3]);
+        adk[c] = fmaf(dsr, q4.x, adk[c]);
+        adk[c + 1] = fmaf(dsr, q4.y, adk[c + 1]);
+        adk[c + 2] = fmaf(dsr, q4.z, adk[c + 2]);
+        adk[c + 3] = fmaf(dsr, q4.w, adk[c + 3]);
+      }
+    }
+  }
+
+  if (!in_range) return;
+  const size_t row = ((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int dd = c0 + warp * NC + c;
+    if (dd < D) {
+      dk[row + dd] = from_f32<T>(adk[c] * scale);
+      dv[row + dd] = from_f32<T>(adv[c]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const T* q, const T* k, const T* v, const T* dout,
+                        const unsigned char* kv_valid, T* dq, T* dk, T* dv,
+                        float* stats, int B, int Sq, int Skv, int Hq,
+                        int Hkv, int D, float scale, int window,
+                        int q_offset, int causal, cudaStream_t stream) {
+  static const cudaError_t attr_st = cudaFuncSetAttribute(
+      flash_bidir_bwd_stats_wide<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wide_stats_smem_bytes());
+  if (attr_st != cudaSuccess) return attr_st;
+  static const cudaError_t attr_dq = cudaFuncSetAttribute(
+      flash_bidir_bwd_dq_wide<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wide_dq_smem_bytes());
+  if (attr_dq != cudaSuccess) return attr_dq;
+  static const cudaError_t attr_dkv = cudaFuncSetAttribute(
+      flash_bidir_bwd_dkv_wide<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wide_dkv_smem_bytes());
+  if (attr_dkv != cudaSuccess) return attr_dkv;
+  const int n_slices = (D + WIDE_DV - 1) / WIDE_DV;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  flash_bidir_bwd_stats_wide<T>
+      <<<dim3(n_qt, Hq, B), 32 * QWARPS, wide_stats_smem_bytes(), stream>>>(
+          q, k, v, dout, kv_valid, stats, B, Sq, Skv, Hq, Hkv, D, scale,
+          window, q_offset, causal);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bidir_bwd_dq_wide<T><<<dim3(n_qt * n_slices, Hq, B), 32 * QWARPS,
+                               wide_dq_smem_bytes(), stream>>>(
+      q, k, v, dout, kv_valid, stats, dq, B, Sq, Skv, Hq, Hkv, D, scale,
+      window, q_offset, causal, n_slices);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bidir_bwd_dkv_wide<T>
+      <<<dim3((Skv + BK - 1) / BK * n_slices, Hkv, B), 32 * KWARPS,
+          wide_dkv_smem_bytes(), stream>>>(
+          q, k, v, dout, kv_valid, stats, dk, dv, B, Sq, Skv, Hq, Hkv, D,
+          scale, window, q_offset, causal, n_slices);
+  return cudaGetLastError();
+}
+
+// The tile width a head dim up to 256 runs in: the smallest of 32, 64,
+// 128, 256 that holds it (0: D past 256, the wide route's).
 int tile_of(int D) {
-  if (D < 8 || D > 256 || D % 8) return 0;
+  if (D < 1 || D > 256) return 0;
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+
+// The CUDA-core routes of element type T.
+template <typename T>
+cudaError_t dispatch_cc(const T* q, const T* k, const T* v, const T* dout,
+                        const unsigned char* kv_valid, T* dq, T* dk, T* dv,
+                        float* stats, int B, int Sq, int Skv, int Hq,
+                        int Hkv, int D, float scale, int window,
+                        int q_offset, int causal, cudaStream_t stream) {
+#define FBB_ARGS                                                            \
+  (q, k, v, dout, kv_valid, dq, dk, dv, stats, B, Sq, Skv, Hq, Hkv, D,      \
+   scale, window, q_offset, causal, stream)
+  switch (tile_of(D)) {
+    case 32: return launch_cc<T, 1> FBB_ARGS;
+    case 64: return launch_cc<T, 2> FBB_ARGS;
+    case 128: return launch_cc<T, 4> FBB_ARGS;
+    case 256: return launch_cc<T, 8> FBB_ARGS;
+    default: return launch_wide<T> FBB_ARGS;
+  }
+#undef FBB_ARGS
 }
 
 }  // namespace
 
 // q, dout, dq (B, Sq, Hq, D) and k, v, dk, dv (B, Skv, Hkv, D), all f32
-// (is_bf16 = 0) or all bf16, contiguous; D a multiple of 8 in [8, 256];
-// kv_valid (B, Skv) bool or null.  scale is D^-1/2 as the forward took
+// (is_bf16 = 0) or all bf16, contiguous; any D >= 1; kv_valid (B, Skv)
+// bool or null.  scale is D^-1/2 as the forward took
 // it; window <= 0 means no window; query row r sits at position
 // q_offset + r; causal != 0 masks keys past each row's position.
-// stats: an f32 scratch, 3 * B * Hkv * NR floats on the bf16 route (NR =
-// G * Sq rounded up to 4), 3 * B * Hq * Sq on the f32 route; written by
-// the first kernel, read by the second.  bf16 route only: dq_warps (1 to
+// stats: an f32 scratch, 3 * B * Hkv * NR floats on the tensor-core route
+// (NR = G * Sq rounded up to 4), 3 * B * Hq * Sq on the CUDA-core and wide
+// routes; written by the first kernel, read by the others.  Tensor-core
+// route only (bf16, D a multiple of 8 up to 256): dq_warps (1 to
 // the tile's most, 16 rows each) a dq CTA's warps; the G * Sq rows of a
 // group cut into n_split blocks of split_rows (a multiple of 32, the last
 // block not empty); part an f32 scratch of 2 * n_split * B * Skv * Hkv * D
@@ -1218,6 +1655,13 @@ extern "C" int flash_bidir_bwd_launch(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* valid = static_cast<const unsigned char*>(kv_valid);
   auto* sc = static_cast<float*>(stats);
+  if (D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16 && (D % 8 != 0 || tile_of(D) == 0))
+    return static_cast<int>(dispatch_cc<bf16>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), valid,
+        static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        sc, B, Sq, Skv, Hq, Hkv, D, scale, window, q_offset, causal, st));
   if (is_bf16) {
 #define FBB_TC_AS(DT, M)                                                    \
   static_cast<int>(launch_tc<DT, M>(                                        \
@@ -1235,27 +1679,17 @@ extern "C" int flash_bidir_bwd_launch(const void* q, const void* k,
       case 32: FBB_TC(32);
       case 64: FBB_TC(64);
       case 128: FBB_TC(128);
-      case 256: FBB_TC(256);
-      default: return static_cast<int>(cudaErrorInvalidValue);
+      default: FBB_TC(256);
     }
 #undef FBB_TC
 #undef FBB_TC_AS
   }
-#define FBB_F32(DPL)                                                        \
-  return static_cast<int>(launch_f32<DPL>(                                  \
-      static_cast<const float*>(q), static_cast<const float*>(k),           \
-      static_cast<const float*>(v), static_cast<const float*>(dout), valid, \
-      static_cast<float*>(dq), static_cast<float*>(dk),                     \
-      static_cast<float*>(dv), sc, B, Sq, Skv, Hq, Hkv, D, scale, window,   \
-      q_offset, causal, st))
-  switch (tile_of(D)) {
-    case 32: FBB_F32(1);
-    case 64: FBB_F32(2);
-    case 128: FBB_F32(4);
-    case 256: FBB_F32(8);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef FBB_F32
+  return static_cast<int>(dispatch_cc<float>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), valid,
+      static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), sc, B, Sq, Skv, Hq, Hkv, D, scale, window,
+      q_offset, causal, st));
 }
 
 namespace {
@@ -1270,6 +1704,20 @@ const KernelAttr ATTRS[] = {
     KERNEL_ATTR((flash_bidir_bwd_dkv<float, 4>), dkv_smem_bytes(128)),
     KERNEL_ATTR((flash_bidir_bwd_dq<float, 8>), dq_smem_bytes(256)),
     KERNEL_ATTR((flash_bidir_bwd_dkv<float, 8>), dkv_smem_bytes(256)),
+    KERNEL_ATTR((flash_bidir_bwd_dq<bf16, 1>), dq_smem_bytes(32)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<bf16, 1>), dkv_smem_bytes(32)),
+    KERNEL_ATTR((flash_bidir_bwd_dq<bf16, 2>), dq_smem_bytes(64)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<bf16, 2>), dkv_smem_bytes(64)),
+    KERNEL_ATTR((flash_bidir_bwd_dq<bf16, 4>), dq_smem_bytes(128)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<bf16, 4>), dkv_smem_bytes(128)),
+    KERNEL_ATTR((flash_bidir_bwd_dq<bf16, 8>), dq_smem_bytes(256)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv<bf16, 8>), dkv_smem_bytes(256)),
+    KERNEL_ATTR(flash_bidir_bwd_stats_wide<float>, wide_stats_smem_bytes()),
+    KERNEL_ATTR(flash_bidir_bwd_dq_wide<float>, wide_dq_smem_bytes()),
+    KERNEL_ATTR(flash_bidir_bwd_dkv_wide<float>, wide_dkv_smem_bytes()),
+    KERNEL_ATTR(flash_bidir_bwd_stats_wide<bf16>, wide_stats_smem_bytes()),
+    KERNEL_ATTR(flash_bidir_bwd_dq_wide<bf16>, wide_dq_smem_bytes()),
+    KERNEL_ATTR(flash_bidir_bwd_dkv_wide<bf16>, wide_dkv_smem_bytes()),
     KERNEL_ATTR(flash_bidir_bwd_dq_tc<32>,
                 dq_tc_smem_bytes(32, false, dq_tc_max_warps(32, false))),
     KERNEL_ATTR(flash_bidir_bwd_dkv_tc<32>, dkv_tc_smem_bytes(32)),

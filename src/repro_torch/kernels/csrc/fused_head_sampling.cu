@@ -49,6 +49,12 @@
 //     to its chunk.  The kernel takes the logical V and ldw; columns >= V
 //     enter the MX block amax as zeros and every reduction as -inf, so
 //     neither the pad's content nor a ragged last block changes a logit.
+//   * A hidden dim d that is not a multiple of 8: a hidden row would not
+//     start on a 16-byte address, so the wrapper hands the kernel a copy
+//     of the (R, d) rows zero-padded to ldh, a multiple of 8 (R x ldh x 2
+//     bytes, 0.5 MB at 64 rows of 4100, against the head's 1 GB); the
+//     head needs no padding, since its rows past d are zero-filled without
+//     a read.
 // The f32 route runs on the CUDA cores (f32 FMAs, 64-column CTAs): TF32
 // would change its arithmetic.
 //
@@ -404,8 +410,8 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[2][8][4],
 template <int FMT>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 head_partials_tc_kernel(const bf16* __restrict__ hidden,
-                        const bf16* __restrict__ w, int R, int d, int V,
-                        int ldw, int cols_per_cta, float logit_scale,
+                        const bf16* __restrict__ w, int R, int d, int ldh,
+                        int V, int ldw, int cols_per_cta, float logit_scale,
                         float temperature,
                         const uint32_t* __restrict__ seed_ptr, int suppress_id,
                         int row_offset, int noise_col,
@@ -433,8 +439,9 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
 
   // stage `it`: the (tile it / n_k, depth slice it % n_k) of w_head and the
   // matching hidden slice; 16-byte chunks past d, past the CTA's columns or
-  // past R are zero-filled without a read (d and ldw are multiples of 8; a
-  // chunk that starts before V and ends past it reads the row's pad)
+  // past R are zero-filled without a read (ldh and ldw are multiples of 8;
+  // a chunk that starts before V or d and ends past it reads the row's
+  // zero pad)
   auto load_stage = [&](int it) {
     const int st = it % TC_STAGES, k0 = (it % n_k) * TC_BK;
     const int n0 = c_begin + (it / n_k) * TC_BN;
@@ -454,7 +461,8 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
       const int gr = r0 + r, gk = k0 + kc;
       const bool ok = gr < R && gk < d;
       cp_async_16(smem_addr(hd + r * TC_HP + kc),
-                  ok ? hidden + static_cast<size_t>(gr) * d + gk : hidden, ok);
+                  ok ? hidden + static_cast<size_t>(gr) * ldh + gk : hidden,
+                  ok);
     }
   };
 
@@ -546,8 +554,8 @@ head_partials_tc_kernel(const bf16* __restrict__ hidden,
 }
 
 template <int FMT>
-cudaError_t launch_tc(const bf16* hidden, const bf16* w, int R, int d, int V,
-                      int ldw, int cols_per_cta, int n_parts,
+cudaError_t launch_tc(const bf16* hidden, const bf16* w, int R, int d,
+                      int ldh, int V, int ldw, int cols_per_cta, int n_parts,
                       float logit_scale, float temperature,
                       const uint32_t* seed, int suppress_id, int row_offset,
                       int noise_col, float* pm, int* pi, float* ps,
@@ -558,26 +566,28 @@ cudaError_t launch_tc(const bf16* hidden, const bf16* w, int R, int d, int V,
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_parts, (R + TC_ROWS - 1) / TC_ROWS);
   head_partials_tc_kernel<FMT><<<grid, TC_THREADS, TC_SMEM, stream>>>(
-      hidden, w, R, d, V, ldw, cols_per_cta, logit_scale, temperature, seed,
+      hidden, w, R, d, ldh, V, ldw, cols_per_cta, logit_scale, temperature,
+      seed,
       suppress_id, row_offset, noise_col, pm, pi, ps, pb, pz);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const bf16* hidden, const bf16* w, int R, int d,
-                        int V, int ldw, int cols_per_cta, int n_parts,
+                        int ldh, int V, int ldw, int cols_per_cta,
+                        int n_parts,
                         int fmt,
                         float logit_scale, float temperature,
                         const uint32_t* seed, int suppress_id,
                         int row_offset, int noise_col, float* pm, int* pi,
                         float* ps, float* pb, float* pz,
                         cudaStream_t stream) {
-  if (d % 8 || ldw % 8 || ldw < V || cols_per_cta <= 0 ||
+  if (ldh % 8 || ldh < d || ldw % 8 || ldw < V || cols_per_cta <= 0 ||
       cols_per_cta % 32 ||
       static_cast<long long>(cols_per_cta) * n_parts < V ||
       static_cast<long long>(cols_per_cta) * (n_parts - 1) >= V)
     return cudaErrorInvalidValue;
 #define FHS_TC(F)                                                           \
-  return launch_tc<F>(hidden, w, R, d, V, ldw, cols_per_cta, n_parts,       \
+  return launch_tc<F>(hidden, w, R, d, ldh, V, ldw, cols_per_cta, n_parts,  \
                       logit_scale, temperature, seed, suppress_id,          \
                       row_offset, noise_col, pm, pi, ps, pb, pz, stream)
   switch (fmt) {
@@ -616,13 +626,16 @@ __global__ void head_shard_merge_kernel(
 // workspace is (R, tiles).
 extern "C" int fused_head_sampling_tiles(int V) { return (V + TN - 1) / TN; }
 
-// hidden (R, d) and w (d, V) with rows ldw >= V elements apart, both f32
-// (is_bf16 = 0) or both bf16; the
+// hidden (R, d) with rows ldh >= d elements apart and w (d, V) with rows
+// ldw >= V elements apart, both f32 (is_bf16 = 0; ldh = d) or both bf16;
+// the
 // partials workspace part_* is (R, n_parts) each (part_b/part_z only read
 // and written when temperature > 0); conf (R,) f32, token (R,) i32.
 // The bf16 route takes the column plan: cols_per_cta columns (whole MX
-// blocks) for each of n_parts CTAs, covering V; it needs d and ldw to be
-// multiples of 8 (16-byte rows).  The f32 route ignores cols_per_cta and
+// blocks) for each of n_parts CTAs, covering V; it needs ldh and ldw to be
+// multiples of 8 (16-byte rows), the hidden row's columns from d to ldh
+// zeros (the wrapper's zero-padded copy where d is not a multiple of 8;
+// w's rows past d are never read).  The f32 route ignores cols_per_cta and
 // takes n_parts = fused_head_sampling_tiles(V).
 // fmt: a code of common.cuh Fmt (core/mx.FMT_CODES), 0 none to 6
 // mxfp4_e2m1.  suppress_id < 0 suppresses nothing.
@@ -633,7 +646,7 @@ extern "C" int fused_head_sampling_tiles(int V) { return (V + TN - 1) / TN; }
 extern "C" int fused_head_sampling_launch(
     const void* hidden, const void* w, void* part_m, void* part_i,
     void* part_s, void* part_b, void* part_z, void* conf, void* token, int R,
-    int d, int V, int ldw, int is_bf16, int fmt, float logit_scale,
+    int d, int ldh, int V, int ldw, int is_bf16, int fmt, float logit_scale,
     float temperature, const void* seed_ptr, int suppress_id, int row_offset,
     int cols_per_cta, int n_parts, void* stream) {
   if (fmt < FMT_NONE || fmt > FMT_MXFP4) return cudaErrorInvalidValue;
@@ -647,11 +660,13 @@ extern "C" int fused_head_sampling_launch(
   cudaError_t err;
   if (is_bf16) {
     err = launch_bf16(static_cast<const bf16*>(hidden),
-                      static_cast<const bf16*>(w), R, d, V, ldw, cols_per_cta,
+                      static_cast<const bf16*>(w), R, d, ldh, V, ldw,
+                      cols_per_cta,
                       n_parts, fmt, logit_scale, temperature, seed,
                       suppress_id, row_offset, 0, pm, pi, ps, pb, pz, st);
   } else {
-    if (n_parts != (V + TN - 1) / TN || ldw < V) return cudaErrorInvalidValue;
+    if (n_parts != (V + TN - 1) / TN || ldw < V || ldh != d)
+      return cudaErrorInvalidValue;
     err = dispatch_f32(R, static_cast<const float*>(hidden),
                        static_cast<const float*>(w), d, V, ldw, fmt,
                        logit_scale, temperature, seed, suppress_id,
@@ -680,7 +695,8 @@ extern "C" int fused_head_sampling_launch(
 extern "C" int fused_head_sampling_shard_launch(
     const void* hidden, const void* w, void* part_m, void* part_i,
     void* part_s, void* part_b, void* part_z, void* m_out, void* idx_out,
-    void* s_out, void* b_out, void* z_out, int R, int d, int V, int ldw,
+    void* s_out, void* b_out, void* z_out, int R, int d, int ldh, int V,
+    int ldw,
     int is_bf16, int fmt, float logit_scale, float temperature,
     const void* seed_ptr, int suppress_id, int col_offset, int row_offset,
     int cols_per_cta, int n_parts, void* stream) {
@@ -697,12 +713,13 @@ extern "C" int fused_head_sampling_shard_launch(
     cudaError_t err;
     if (is_bf16) {
       err = launch_bf16(static_cast<const bf16*>(hidden),
-                        static_cast<const bf16*>(w), R, d, V, ldw,
+                        static_cast<const bf16*>(w), R, d, ldh, V, ldw,
                         cols_per_cta, n_parts, fmt, logit_scale, temperature,
                         seed, suppress_id, row_offset, col_offset, pm, pi,
                         ps, pb, pz, st);
     } else {
-      if (n_parts != (V + TN - 1) / TN || ldw < V) return cudaErrorInvalidValue;
+      if (n_parts != (V + TN - 1) / TN || ldw < V || ldh != d)
+        return cudaErrorInvalidValue;
       err = dispatch_f32(R, static_cast<const float*>(hidden),
                          static_cast<const float*>(w), d, V, ldw, fmt,
                          logit_scale, temperature, seed, suppress_id,

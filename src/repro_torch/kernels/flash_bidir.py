@@ -32,16 +32,22 @@ and the f32 operands -- q * f_k with BAOS, and always the probabilities
 P -- enter the products as ``SPLIT_TERMS`` bf16 terms
 t_i = bf16(x - t_0 - ... - t_(i-1)), so the products keep the f32
 function of the Pallas kernel.  f32 tensors take its CUDA-core route (f32
-FMAs, no TF32).  Both take any head dim D that is a multiple of 8 up to
-256, in the smallest instantiated tile that holds it (``route``); D past
-256 or not a multiple of 8 raises ``NotImplementedError``
-(``check_head_dim``), which ``models/layers.attention`` and the model's
-config check call before any tick runs.
+FMAs, no TF32).  Any head dim D runs (``route``): up to 256 in the
+smallest instantiated tile that holds it; bf16 takes the tensor-core route
+where D is a multiple of 8, and otherwise the CUDA-core route on bf16
+operands (rows D * 2 bytes apart are not 16-byte aligned, so that kernel
+loads one value at a time: no padded copy).  D past 256 takes the wide
+CUDA-core kernel, whose CTAs split the output columns into slices of
+``WIDE_SLICE``; each slice forms the full-D scores, chunk by chunk of
+``WIDE_CHUNK`` columns in the same order, so every slice of a row holds
+the same (m, l).  The score scale is D^-1/2 of the true D on every route.
 
 Gradients: while grad mode is on and q, k or v requires grad,
 ``flash_bidir`` runs as ``FlashBidir``, a ``torch.autograd.Function``
 whose forward is the same kernel (or plain version) and whose backward is
-``flash_bidir_bwd``: csrc/flash_bidir_bwd.cu for CUDA tensors, which
+``flash_bidir_bwd`` (the same routes by D and dtype; the wide route writes
+each row's statistics, delta included, once, and every column slice of
+dq and dk/dv reads them): csrc/flash_bidir_bwd.cu for CUDA tensors, which
 replaces no Pallas kernel (the JAX package trains through jax.grad of
 models/layers.attention), and ``flash_bidir_bwd_plain`` for CPU tensors.
 A row with no valid key averages V whatever its scores, so its dq and its
@@ -110,26 +116,45 @@ BWD_MIN_SPLIT_ROWS = 128
 BWD_P_TERMS = 1
 SMEM_LIMIT_BYTES = 232448          # sm_90's opt-in shared memory a block
 H100_SMS = 132
-
-
-def check_head_dim(D: int) -> None:
-    """Raise NotImplementedError for a head dim the kernel does not take:
-    past 256 or not a multiple of 8 (no config in src/repro/configs/ has
-    one: their head dims are 64, 128 and 256)."""
-    if not (8 <= D <= TILES[-1] and D % 8 == 0):
-        raise NotImplementedError(
-            f"head dim {D}: flash_bidir takes multiples of 8 up to "
-            f"{TILES[-1]} (ROADMAP.md, Queue 3)")
+# head dims past TILES[-1]: the wide CUDA-core kernels (both .cu files)
+# split the output columns over CTAs in slices of WIDE_SLICE and form the
+# scores in chunks of WIDE_CHUNK columns
+WIDE_ROUTE = "CUDA cores, column slices"
+WIDE_SLICE, WIDE_CHUNK = 256, 128
 
 
 def route(D: int, dtype: torch.dtype) -> Tuple[str, int]:
-    """(route, tile width) the kernel runs head dim D of ``dtype`` in:
-    'tensor cores' for bf16, 'CUDA cores' for f32, and the smallest of
-    ``TILES`` >= D (columns past D are loaded as zeros and not stored)."""
-    check_head_dim(D)
+    """(route, tile width) the kernel runs head dim D of ``dtype`` in: up
+    to 256 'tensor cores' for bf16 at a D that is a multiple of 8 and
+    'CUDA cores' for any other, in the smallest of ``TILES`` >= D (columns
+    past D are loaded as zeros and not stored); past 256 ``WIDE_ROUTE``,
+    whose tile is the ``WIDE_SLICE`` output columns of a CTA."""
+    if D < 1:
+        raise ValueError(f"head dim {D} must be positive")
     if dtype not in _ROUTES:
         raise ValueError(f"dtype {dtype} not in {_DTYPES}")
-    return _ROUTES[dtype], next(t for t in TILES if t >= D)
+    if D > TILES[-1]:
+        return WIDE_ROUTE, WIDE_SLICE
+    tile = next(t for t in TILES if t >= D)
+    return ("CUDA cores" if D % 8 else _ROUTES[dtype]), tile
+
+
+def n_slices(D: int) -> int:
+    """The output slices of the wide route (1 up to 256)."""
+    return -(-D // WIDE_SLICE)
+
+
+def wide_smem() -> Tuple[int, int, int, int]:
+    """Dynamic shared memory of the wide kernels, in bytes: the forward's
+    CTA, and the backward's statistics, dq and dk/dv CTAs (the chunked S
+    and dP products' q, dO, K and V chunks, plus each kernel's slice
+    columns; csrc/flash_bidir.cu wide_smem_bytes, csrc/flash_bidir_bwd.cu
+    wide_*_smem_bytes)."""
+    bq, bk, ch, dv = 16, 32, WIDE_CHUNK, WIDE_SLICE
+    sdp = 2 * bq * ch + 2 * bk * (ch + 1)
+    return ((bq * ch + bk * (ch + 1) + bk * dv) * 4, sdp * 4,
+            (sdp + bk * dv) * 4,
+            (sdp + 2 * bq * bk + 4 * bq + 2 * bq * dv) * 4)
 
 
 def offset_start(q_offset: Offset):
@@ -455,7 +480,8 @@ def bwd_dkv_warps(dt: int) -> int:
 
 
 def bwd_f32_smem(dt: int) -> Tuple[int, int]:
-    """Dynamic shared memory of the f32 route's dq and dk/dv CTAs."""
+    """Dynamic shared memory of the CUDA-core route's dq and dk/dv CTAs
+    (f32, and bf16 at a D that is not a multiple of 8)."""
     return ((2 * 16 * dt + 2 * 32 * (dt + 1)) * 4,
             (2 * 32 * (dt + 1) + 2 * 16 * dt + 2 * 16 * 32 + 4 * 16) * 4)
 
@@ -481,8 +507,9 @@ def _sm_time(ctas: int, work: float, warps: int, smem: int,
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """How ``flash_bidir_bwd`` launches one call (module docstring)."""
-    route: str              # 'tensor cores' (bf16) or 'CUDA cores' (f32)
-    tile: int               # DT: the smallest instantiated width >= D
+    route: str              # 'tensor cores', 'CUDA cores' or WIDE_ROUTE
+    tile: int               # DT: the smallest instantiated width >= D, or
+    #                         the wide route's output slice
     masked: bool            # the bf16 MASKED instantiations (a mask can cut)
     dq_keys: int            # keys per K/V tile of the dq pass
     dq_warps: int           # warps of a dq CTA (16 rows each; f32: 4 x 4)
@@ -510,14 +537,25 @@ def bwd_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
     whole 32-row chunks, each at least ``BWD_MIN_SPLIT_ROWS`` rows, at
     most two waves of CTAs (the fewest blocks on a tie).  The rows are not
     split where Skv / 64 x Hkv x B CTAs alone fill the card's n_sm SMs.
-    f32: the CUDA-core kernels' fixed grids, no split.  Cached: a train
-    step asks for the same plan once a layer."""
-    _, dt = route(D, dtype)
+    The CUDA-core route (f32, and bf16 at a D that is not a multiple of
+    8): its kernels' fixed grids, no split.  The wide route (D past 256):
+    a statistics CTA per 16 rows of a q head, then a dq CTA per 16 rows
+    and a dk/dv CTA per 32 keys, each for every output slice; its dq_ctas
+    count the statistics CTAs too.  Cached: a train step asks for the
+    same plan once a layer."""
+    rte, dt = route(D, dtype)
     G = Hq // Hkv
     n_rows = G * Sq
-    if dtype == torch.float32:
+    if rte == WIDE_ROUTE:
+        _, st_smem, dq_smem, dkv_smem = wide_smem()
+        n = n_slices(D)
+        return BwdPlan(rte, dt, masked, 32, 4,
+                       -(-Sq // 16) * Hq * B * (1 + n),
+                       -(-Skv // 32) * Hkv * B * n, 1, n_rows,
+                       3 * B * Hq * Sq, 0, dq_smem, dkv_smem)
+    if rte == "CUDA cores":
         dq_smem, dkv_smem = bwd_f32_smem(dt)
-        return BwdPlan("CUDA cores", dt, masked, 32, 4,
+        return BwdPlan(rte, dt, masked, 32, 4,
                        -(-Sq // 16) * Hq * B,
                        -(-Skv // 32) * Hkv * B, 1, n_rows,
                        3 * B * Hq * Sq, 0, dq_smem, dkv_smem)

@@ -25,7 +25,11 @@ on a 16-byte address: its row stride must be a multiple of 8 elements.  A
 vocabulary that is not (minicpm-2b: V 122753) is stored once, at load, by
 ``pad_head``: a (d, V) view of zero-padded (d, ``padded_vocab(V)``)
 storage, which the plain path reads as the logical head and the kernel by
-its row stride.  Nothing copies the head per call.
+its row stride.  Nothing copies the head per call.  A hidden dim d that
+is not a multiple of 8 (no config has one) would leave the hidden rows
+(R, d) off 16-byte addresses: the bf16 route then reads a zero-padded copy
+of them (``padded_hidden``, R x padded d x 2 bytes a call), and the
+head's rows past d are never read, so the head keeps its layout.
 """
 from __future__ import annotations
 
@@ -66,6 +70,17 @@ def pad_head(w: torch.Tensor) -> torch.Tensor:
     full = torch.zeros((d, padded_vocab(V)), dtype=w.dtype, device=w.device)
     full[:, :V] = w
     return full[:, :V]
+
+
+def padded_hidden(hidden: torch.Tensor) -> torch.Tensor:
+    """The hidden rows (R, d) as the bf16 route reads them: ``hidden``
+    itself where d is a multiple of ``ROW_ALIGN``, else a copy with each
+    row zero-padded to ``ROW_ALIGN`` elements (the kernel reads it by its
+    row stride and multiplies only the first d columns by a head row)."""
+    d = hidden.shape[1]
+    if d % ROW_ALIGN == 0:
+        return hidden
+    return torch.nn.functional.pad(hidden, (0, -d % ROW_ALIGN))
 
 
 def head_storage(w: torch.Tensor) -> torch.Tensor:
@@ -221,11 +236,11 @@ def _kernel_fns():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     launch = _build.function(
         NAME, "fused_head_sampling_launch",
-        [p] * 9 + [i] * 6 + [f, f, p] + [i] * 4 + [p])
+        [p] * 9 + [i] * 7 + [f, f, p] + [i] * 4 + [p])
     tiles = _build.function(NAME, "fused_head_sampling_tiles", [i])
     shard = _build.function(
         NAME, "fused_head_sampling_shard_launch",
-        [p] * 12 + [i] * 6 + [f, f, p] + [i] * 5 + [p])
+        [p] * 12 + [i] * 7 + [f, f, p] + [i] * 5 + [p])
     return launch, tiles, shard
 
 
@@ -294,7 +309,8 @@ def head_shard_partials(hidden: torch.Tensor, w_shard: torch.Tensor, *,
     with), then a merge that emits the partials in place of (conf,
     token).  V_loc is a multiple of 32 (shard boundaries on MX blocks), so
     each rank's shard is its own contiguous storage with 16-byte rows: no
-    copy per call.  CPU tensors run ``head_shard_partials_plain``."""
+    copy of the head per call (a d that is not a multiple of 8 reads
+    ``padded_hidden``).  CPU tensors run ``head_shard_partials_plain``."""
     code = mx.fmt_code(fmt)
     if hidden.dim() != 2 or w_shard.dim() != 2 or \
             hidden.shape[1] != w_shard.shape[0]:
@@ -328,11 +344,12 @@ def head_shard_partials(hidden: torch.Tensor, w_shard: torch.Tensor, *,
     bf16 = hidden.dtype == torch.bfloat16
     _, tiles, launch = _kernel_fns()
     if bf16:
-        if d % ROW_ALIGN or ldw % ROW_ALIGN or w.data_ptr() % 16:
+        if ldw % ROW_ALIGN or w.data_ptr() % 16:
             raise ValueError(
-                f"the bf16 route needs d and the shard's row stride to be "
-                f"multiples of {ROW_ALIGN} with 16-byte aligned rows; got "
-                f"d={d}, row stride {ldw}")
+                f"the bf16 route needs the shard's row stride to be a "
+                f"multiple of {ROW_ALIGN} with 16-byte aligned rows; got row "
+                f"stride {ldw}")
+        hidden = padded_hidden(hidden)
         cols, n_parts = column_plan(max(V, 1), _build.sm_count(dev))
     else:
         cols, n_parts = 0, tiles(max(V, 1))
@@ -355,8 +372,8 @@ def head_shard_partials(hidden: torch.Tensor, w_shard: torch.Tensor, *,
     err = launch(hidden.data_ptr(), w.data_ptr(), part_m.data_ptr(),
                  part_i.data_ptr(), part_s.data_ptr(), _build.ptr(part_b),
                  _build.ptr(part_z), m.data_ptr(), idx.data_ptr(),
-                 s.data_ptr(), _build.ptr(best), _build.ptr(z_at), R, d, V,
-                 ldw, bf16, code, float(logit_scale),
+                 s.data_ptr(), _build.ptr(best), _build.ptr(z_at), R, d,
+                 hidden.shape[1], V, ldw, bf16, code, float(logit_scale),
                  float(temperature),
                  _build.ptr(sampling.seed_tensor(seed, dev) if gumbel
                             else None),
@@ -385,9 +402,9 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
     a captured graph draws each replay's seed.  ``row_offset`` is the
     global row of row 0, where the noise is drawn (a data shard's first
     row): a sampled step on any mesh draws what one device draws.
-    CUDA tensors run the kernel (bf16 needs d and w_head's row stride to
-    be multiples of 8, 16-byte rows: see ``pad_head``); CPU tensors the
-    plain version."""
+    CUDA tensors run the kernel (bf16 needs w_head's row stride to be a
+    multiple of 8, 16-byte rows: see ``pad_head``; a d that is not one
+    reads ``padded_hidden``); CPU tensors the plain version."""
     code = mx.fmt_code(fmt)
     if hidden.dim() != 2 or w_head.dim() != 2 or \
             hidden.shape[1] != w_head.shape[0]:
@@ -414,16 +431,11 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
     dev = hidden.device
     bf16 = hidden.dtype == torch.bfloat16
     if bf16:
-        if d % ROW_ALIGN:
-            # no config has one: every d in src/repro/configs/ is a
-            # multiple of 64
-            raise NotImplementedError(
-                f"the bf16 route needs d to be a multiple of {ROW_ALIGN} "
-                f"(16-byte hidden rows); got d={d} (ROADMAP.md, Queue 3)")
         if ldw % ROW_ALIGN or w.data_ptr() % 16:
             raise ValueError(
                 f"the bf16 route needs w_head's rows 16 bytes apart and "
                 f"aligned (row stride {ldw}); store the head with pad_head")
+        hidden = padded_hidden(hidden)
         cols, n_parts = column_plan(V, _build.sm_count(dev))
     else:
         cols, n_parts = 0, tiles(V)
@@ -440,7 +452,7 @@ def fused_head_sampling(hidden: torch.Tensor, w_head: torch.Tensor, *,
     err = launch(hidden.data_ptr(), w.data_ptr(), part_m.data_ptr(),
                  part_i.data_ptr(), part_s.data_ptr(), _build.ptr(part_b),
                  _build.ptr(part_z), conf.data_ptr(), token.data_ptr(),
-                 R, d, V, ldw, bf16, code,
+                 R, d, hidden.shape[1], V, ldw, bf16, code,
                  float(logit_scale), float(temperature),
                  _build.ptr(sampling.seed_tensor(seed, dev) if gumbel
                             else None),

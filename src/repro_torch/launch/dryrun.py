@@ -13,7 +13,9 @@ For each (arch x shape) cell this driver:
      only there, and every collective recorded, not run
      (launch/mesh.record_collectives);
   3. records, per device: FLOPs (``torch.utils.flop_counter``: the
-     matmul-class ops, attention's included), bytes (``_ByteCounter``:
+     matmul-class ops, attention's included; under ``remat="dots"`` plus
+     the attention products the card's backward recomputes,
+     ``_attention_recompute``), bytes (``_ByteCounter``:
      the input plus output bytes of every aten op but views, each kernel
      counted as one op of its own inputs and outputs), the collectives'
      bytes and counts by kind and axis, and the parameter and cache bytes
@@ -163,6 +165,31 @@ class _ByteCounter(TorchDispatchMode):
                 setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def _attention_recompute(tally: list):
+    """Patch attention's plain version: a call inside a backward (a remat
+    recompute) adds its two products' FLOPs, 4 B Sq Skv Hq D, to
+    ``tally[0]``.  Under remat "dots" the recompute takes those products
+    from what the forward saved, so FlopCounterMode does not see them; on
+    the card attention is a kernel, which the recompute reruns whole."""
+    import importlib
+    mod = importlib.import_module("repro_torch.kernels.flash_bidir")
+    plain = mod.flash_bidir_plain
+
+    def call(q, k, *args, **kwargs):
+        # -1 outside a backward (the id torch.utils.checkpoint reads too)
+        if torch._C._current_graph_task_id() != -1:
+            B, Sq, Hq, D = q.shape
+            tally[0] += 4.0 * B * Sq * k.shape[1] * Hq * D
+        return plain(q, k, *args, **kwargs)
+
+    mod.flash_bidir_plain = call
+    try:
+        yield
+    finally:
+        mod.flash_bidir_plain = plain
+
+
 def _is_view(func) -> bool:
     return any(a.alias_info is not None and not a.alias_info.is_write
                for a in func._schema.returns)
@@ -190,17 +217,21 @@ VARIANTS = {
                          "policy": {"split_cache": True}},
     "padheads_g3": {"cfg": {"n_heads": 48, "n_kv_heads": 16}},
     "moe_global": {"moe": {"group_dispatch": False}},
+    # JAX's checkpoint_dots over each layer: a train cell's backward
+    # recomputes each layer but its matrix products; attention is a
+    # kernel, which the card recomputes, so its FLOPs count that
+    "remat": {"cfg": {"remat": "dots"}},
 }
 
-# JAX's variants that set only what the port does not read (score_dtype,
-# remat, attn_chunk: its attention is flash_bidir at every size, f32 inside
-# the kernel): (the options, the variant whose trace they would repeat)
+# JAX's variants that set what the port does not run (score_dtype: its
+# attention computes f32 scores, and a transformer config with bf16
+# scores raises; attn_chunk: its attention is flash_bidir at every size):
+# (the options, the variant whose trace they would repeat)
 NOT_PORTED = {
     "bf16score": ("score_dtype", "baseline"),
     "split_bf16": ("score_dtype", "split"),
     "losschunk_bf16": ("score_dtype", "losschunk"),
-    "remat": ("remat", "baseline"),
-    "remat_bf16": ("remat and score_dtype", "baseline"),
+    "remat_bf16": ("score_dtype", "remat"),
     "bigchunk": ("attn_chunk", "baseline"),
     "padheads48_split_bf16": ("score_dtype", "padheads48_split"),
     "split_losschunk_bf16": ("score_dtype", "split_losschunk"),
@@ -284,13 +315,16 @@ def trace_cell(cfg, shape, policy, mesh_shape: Tuple[int, ...]) -> dict:
                       torch.empty((B, S), dtype=torch.bool, device="meta"),
                       torch.empty((B, 1), dtype=torch.float32,
                                   device="meta"))
-    counter = _ByteCounter()
+    counter, recomputed = _ByteCounter(), [0.0]
     t0 = time.perf_counter()
     with mesh_lib.record_collectives() as colls, \
             FlopCounterMode(display=False) as flops, counter, \
-            counter.kernel_scope():
+            counter.kernel_scope(), _attention_recompute(recomputed):
         step_fn(*args, **kw)
     wall = time.perf_counter() - t0
+    # "full" recomputes attention's products where FlopCounterMode sees
+    # them; "dots" takes them from the forward's saved outputs
+    extra = recomputed[0] if cfg.remat == "dots" else 0.0
     detail: Dict[str, Dict[str, float]] = {}
     for op, axis, nbytes in colls:
         d = detail.setdefault(f"{op}@{axis}", {"count": 0, "bytes": 0})
@@ -298,7 +332,7 @@ def trace_cell(cfg, shape, policy, mesh_shape: Tuple[int, ...]) -> dict:
         d["bytes"] += nbytes
     return {
         "trace_s": wall,
-        "flops_per_device": float(flops.get_total_flops()),
+        "flops_per_device": float(flops.get_total_flops()) + extra,
         "bytes_per_device": float(counter.bytes),
         "aten_ops": counter.ops,
         "collective_bytes_per_device": float(sum(b for _, _, b in colls)),

@@ -185,14 +185,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (core/baos.BAOSCalib) k/v are the smoothed cache: f_k joins the query
     and f_v, c_v the output, in f32 inside the kernel (the JAX model rounds
     q * f_k and out * f_v + c_v to the activation dtype).  The hand-written
-    kernel runs for CUDA tensors, its plain version for CPU ones; both
-    raise NotImplementedError for a head dim the kernel does not take
-    (kernels/flash_bidir.check_head_dim).  ``extra_kv`` = (k2, v2,
+    kernel runs for CUDA tensors, its plain version for CPU ones, at any
+    head dim (kernels/flash_bidir.route).  ``extra_kv`` = (k2, v2,
     valid2): a second K/V source in the same smoothed space (the split
     active-block buffer), its key j at position q_offset + j; one softmax
     spans both sources (the kernel's route B), as JAX merges the two
     sources' partials exactly."""
-    flash_bidir.check_head_dim(q.shape[-1])
     fk = fv = cv = None
     if baos_calib is not None:
         B, _, Hkv, D = k.shape

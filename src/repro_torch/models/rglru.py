@@ -19,7 +19,11 @@ Parameters: ``embed``, ``triples`` (a list of ``{"rec1", "rec2",
 sub-layer a dict ``ln1``, ``ln2``, ``temporal`` (rec: ``w_y``,
 ``w_gate``, ``conv_w``, ``conv_b``, ``w_a``, ``b_a``, ``w_x``, ``b_x``,
 ``lam`` f32, ``w_out``; attn: ``wq``, ``wk``, ``wv``, ``wo``) and
-``mlp`` (``w_gate``, ``w_up``, ``w_down``: GeGLU).  The cache: ``k``,
+``mlp`` (``w_gate``, ``w_up``, ``w_down``: GeGLU).  ``ln1``, ``ln2`` and
+``final_norm`` are the config's norm, rms or ln
+(``transformer.apply_norm``).  As in JAX the stack reads neither
+``cfg.ffn`` (the MLP is always GeGLU) nor ``cfg.attn_mode`` (attention is
+always bidirectional) nor ``cfg.score_dtype`` (f32 scores).  The cache: ``k``,
 ``v`` (nt, B, s_tot, Hkv, D), the four BAOS calibration arrays
 (nt, B, 1, Hkv, D) f32, ``rec_state`` (nt, 2, B, d_rnn) f32 and
 ``rec_conv`` (nt, 2, B, W - 1, d_rnn) (batch on axis 2), ``tail_state``
@@ -29,7 +33,11 @@ Inside a step over a mesh with |model| > 1 (launch/steps.py) the layers
 run on this rank's shards (models/tp.py): ``rec_block`` and the GeGLU MLP
 as their docstrings say, the attention layers as the transformer's
 (local or gathered heads, a head- or context-parallel cache), the
-recurrent cache leaves sharded with their channels.
+recurrent cache leaves sharded with their channels.  The norms act on
+the residual stream, whose rows are whole on every rank, with whole
+weights ("embed" maps to no mesh axis): LayerNorm's mean and variance
+need no sum over ``model``, unlike the gated RMSNorm of a sharded channel
+dim (``tp.rms_norm``).
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.core import baos as baos_lib
-from repro_torch.kernels import flash_bidir, fused_head_sampling
+from repro_torch.kernels import fused_head_sampling
 from repro_torch.models import layers, tp as tp_lib, transformer
 from repro_torch.models.config import ModelConfig
 
@@ -178,13 +186,6 @@ class GriffinModel:
         if cfg.family != "hybrid":
             raise ValueError(f"GriffinModel runs family 'hybrid', not "
                              f"{cfg.family!r}")
-        if cfg.norm != "rms" or cfg.ffn != "geglu" or \
-                cfg.attn_mode != "bidir":
-            raise NotImplementedError(
-                f"hybrid: norm={cfg.norm!r}, ffn={cfg.ffn!r}, attn_mode="
-                f"{cfg.attn_mode!r} are not ported yet "
-                f"({transformer.ROADMAP}); the port runs rms / geglu / bidir")
-        flash_bidir.check_head_dim(cfg.d_head)
         if cfg.n_layers % 3 != 2:
             raise ValueError(
                 f"expect 3k+2 layers (rec,rec,attn)*k + 2; "
@@ -221,7 +222,8 @@ class GriffinModel:
             else:
                 temporal = {"wq": dense(d, hq), "wk": dense(d, hkv),
                             "wv": dense(d, hkv), "wo": dense(hq, d)}
-            return {"ln1": vec(d, 1.0), "ln2": vec(d, 1.0),
+            return {"ln1": transformer.norm_params(cfg, d, dev),
+                    "ln2": transformer.norm_params(cfg, d, dev),
                     "temporal": temporal,
                     "mlp": {"w_gate": dense(d, cfg.d_ff),
                             "w_up": dense(d, cfg.d_ff),
@@ -232,7 +234,7 @@ class GriffinModel:
                              "attn": sub("attn")}
                             for _ in range(self.n_triples)],
                 "tail": [sub("rec") for _ in range(2)],
-                "final_norm": vec(d, 1.0),
+                "final_norm": transformer.norm_params(cfg, d, dev),
                 "lm_head": fused_head_sampling.pad_head(
                     dense(d, cfg.vocab))}
 
@@ -246,7 +248,8 @@ class GriffinModel:
         else:
             t = {"wq": ("embed", "heads"), "wk": ("embed", "heads"),
                  "wv": ("embed", "heads"), "wo": ("heads", "embed")}
-        return {"ln1": ("embed",), "ln2": ("embed",), "temporal": t,
+        norm = transformer.norm_specs(self.cfg.norm)
+        return {"ln1": norm, "ln2": norm, "temporal": t,
                 "mlp": {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
                         "w_down": ("mlp", "embed")}}
 
@@ -258,7 +261,8 @@ class GriffinModel:
                              "attn": self._sub_specs("attn")}
                             for _ in range(self.n_triples)],
                 "tail": [self._sub_specs("rec") for _ in range(2)],
-                "final_norm": ("embed",), "lm_head": ("embed", "vocab")}
+                "final_norm": transformer.norm_specs(self.cfg.norm),
+                "lm_head": ("embed", "vocab")}
 
     # -- cache ---------------------------------------------------------------
     def cache_specs(self, act_len: Optional[int] = None) -> Dict:

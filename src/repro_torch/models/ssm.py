@@ -19,16 +19,22 @@ positions), never over positions.  Every segment fed to the model must be
 a multiple of ``SSD_CHUNK``: ``ssd_chunked`` raises JAX's ValueError
 otherwise.
 
-Parameters: ``embed`` (V, d), ``layers`` (a list of dicts ``norm``,
+Parameters: ``embed`` (V, d), ``layers`` (a list of dicts ``norm`` (the
+config's norm, rms or ln: ``transformer.apply_norm``),
 ``in_proj``, ``conv_w`` (W, conv_dim), ``conv_b``, ``A_log``, ``D``,
-``dt_bias`` (nh,) f32, ``gate_norm`` (d_inner,), ``out_proj``),
+``dt_bias`` (nh,) f32, ``gate_norm`` (d_inner,) (an RMSNorm whatever
+the config's norm, as in JAX), ``out_proj``),
 ``final_norm`` and ``lm_head`` (d, V).  The cache: ``state``
 (n_layers, B, nh, hp, dn) f32 and ``conv`` (n_layers, B, W - 1, conv_dim),
 written in place by a warm step (JAX returns a new one).
 
 Inside a step over a mesh with |model| > 1 (launch/steps.py) the block
 runs on this rank's shards (``mamba_block``), the embedding and the LM
-head as the transformer's (models/tp.py).
+head as the transformer's (models/tp.py).  ``norm`` and ``final_norm``
+act on the residual stream, whole on every rank with whole weights
+("embed" maps to no mesh axis), so LayerNorm needs no sum over
+``model``; the gated RMSNorm over the sharded d_inner sums its squares
+(``tp.rms_norm``).
 """
 from __future__ import annotations
 
@@ -226,10 +232,6 @@ class MambaModel:
         if cfg.family != "ssm":
             raise ValueError(f"MambaModel runs family 'ssm', not "
                              f"{cfg.family!r}")
-        if cfg.norm != "rms":
-            raise NotImplementedError(
-                f"ssm: norm={cfg.norm!r} is not ported yet "
-                f"({transformer.ROADMAP}); the port runs rms")
         self.cfg = cfg
         self.chunk = SSD_CHUNK
         self.device = device_lib.resolve(device)
@@ -250,7 +252,7 @@ class MambaModel:
             conv_w = torch.randn((cfg.conv_width, conv_dim), generator=gen,
                                  dtype=f32, device=dev) * 0.1
             stack.append({
-                "norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+                "norm": transformer.norm_params(cfg, cfg.d_model, dev),
                 "in_proj": dense(cfg.d_model, 2 * d_inner + 2 * ng * dn + nh),
                 "conv_w": conv_w.to(dt),
                 "conv_b": torch.zeros((conv_dim,), dtype=dt, device=dev),
@@ -263,21 +265,23 @@ class MambaModel:
         return {"embed": layers.embed_init(gen, cfg.vocab, cfg.d_model, dt,
                                            dev),
                 "layers": stack,
-                "final_norm": torch.ones((cfg.d_model,), dtype=dt,
-                                         device=dev),
+                "final_norm": transformer.norm_params(cfg, cfg.d_model,
+                                                      dev),
                 "lm_head": fused_head_sampling.pad_head(
                     dense(cfg.d_model, cfg.vocab))}
 
     def param_specs(self) -> Dict:
         """The logical axes of ``init``'s tree, JAX's ``param_specs``
         (``mamba_layer_specs`` per layer)."""
-        layer = {"norm": ("embed",), "in_proj": ("embed", "mlp"),
+        layer = {"norm": transformer.norm_specs(self.cfg.norm),
+                 "in_proj": ("embed", "mlp"),
                  "conv_w": (None, "mlp"), "conv_b": ("mlp",),
                  "A_log": (None,), "D": (None,), "dt_bias": (None,),
                  "gate_norm": ("mlp",), "out_proj": ("mlp", "embed")}
         return {"embed": ("vocab", "embed"),
                 "layers": [dict(layer) for _ in range(self.cfg.n_layers)],
-                "final_norm": ("embed",), "lm_head": ("embed", "vocab")}
+                "final_norm": transformer.norm_specs(self.cfg.norm),
+                "lm_head": ("embed", "vocab")}
 
     def cache_specs(self, act_len: Optional[int] = None) -> Dict:
         return {"state": ("layers", "batch", "heads", None, None),

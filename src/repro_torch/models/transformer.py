@@ -59,6 +59,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.core import baos as baos_lib
@@ -78,11 +79,20 @@ SegStart = Union[int, torch.Tensor]
 FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
+# JAX's remat policies (transformer.forward's jax.checkpoint): "full"
+# saves nothing, "dots" saves the matrix products' outputs
+REMAT = ("none", "full", "dots")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a transformer config's features the port lacks: a head
-    dim flash_bidir does not take (norms rms and ln, FFNs swiglu and gelu,
-    attention modes bidir and causal are ported).  A config of another
-    family is not this module's stack (ValueError)."""
+    """Raise for a transformer config the port does not run: a norm
+    outside (rms, ln) or an FFN outside (swiglu, gelu), names JAX never
+    defines (it runs rms for any norm but "ln" and gelu for any FFN but
+    "swiglu"), and ``score_dtype`` other than float32 (JAX's bf16 scores;
+    NotImplementedError); an attention mode outside (bidir, causal) or a
+    ``remat`` outside ``REMAT`` (ValueError).  Attention takes any head
+    dim.  A config of another family is not this module's stack
+    (ValueError)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not a transformer stack "
                          f"{FAMILIES}: build it with "
@@ -91,10 +101,15 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"family {cfg.family!r} with moe={cfg.moe!r}")
     if cfg.norm not in ("rms", "ln") or cfg.ffn not in ("swiglu", "gelu"):
         raise NotImplementedError(
-            f"norm={cfg.norm!r}, ffn={cfg.ffn!r} are not ported yet "
+            f"norm={cfg.norm!r}, ffn={cfg.ffn!r}: names JAX does not define "
             f"({ROADMAP}); the port runs rms or ln / swiglu or gelu")
+    if cfg.score_dtype != "float32":
+        raise NotImplementedError(
+            f"score_dtype={cfg.score_dtype!r} is not ported ({ROADMAP}): "
+            f"the port's attention computes its scores in f32")
     check_attn_mode(cfg.attn_mode)
-    flash_bidir.check_head_dim(cfg.d_head)
+    if cfg.remat not in REMAT:
+        raise ValueError(f"remat {cfg.remat!r} not in {REMAT}")
 
 
 ATTN_MODES = ("bidir", "causal")
@@ -532,7 +547,16 @@ def forward(params: Dict, cfg: ModelConfig,
     sublayers.  ``return_aux``: return (logits, cache, aux), aux the MoE
     layers' load-balance losses summed over the layers (f32; 0 for a
     dense model), as JAX's forward returns it.  ``attn_mode`` overrides
-    the config's for every self-attention, as in JAX."""
+    the config's for every self-attention, as in JAX.  With grad on,
+    ``cfg.remat`` "full" or "dots" runs each layer through
+    ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of its layer):
+    "full" keeps only the layer's input and recomputes the rest in the
+    backward, "dots" also keeps the matrix products' outputs
+    (``_dots_policy``).  Under the tensor-parallel body the recompute
+    reruns the layer's collectives, in the same order on every rank, and
+    re-enters this call's ``tp.use`` context: it runs in the backward's
+    thread (autograd's device worker for CUDA tensors), which does not
+    see the caller's."""
     check_supported(cfg)
     mode = attn_mode or cfg.attn_mode
     check_attn_mode(mode)
@@ -550,8 +574,8 @@ def forward(params: Dict, cfg: ModelConfig,
     x = embed(params, cfg, tokens) if embeds is None \
         else embeds.to(cfg.torch_dtype)
     positions = start_of(seg_start) + torch.arange(S, device=x.device)
-    aux = None
-    for i, lp in enumerate(params["layers"]):
+
+    def layer(x, i, lp):
         h = apply_norm(x, lp["ln1"], cfg)
         layout = attn_layout(lp, cfg)
         q, k, v = qkv(h, lp, cfg, positions, quant, layout)
@@ -572,7 +596,24 @@ def forward(params: Dict, cfg: ModelConfig,
                                     cfg, quant) * cfg.residual_scale
         h2 = apply_norm(x, lp["ln2"], cfg)
         ff, aux_l = ffn(h2, lp, cfg, quant)
-        x = x + ff * cfg.residual_scale
+        return x + ff * cfg.residual_scale, aux_l
+
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    tp_ctx = tp_lib.current()
+
+    def recomputable(x, i, lp):
+        with tp_lib.use(tp_ctx):
+            return layer(x, i, lp)
+
+    aux = None
+    for i, lp in enumerate(params["layers"]):
+        if remat:
+            x, aux_l = checkpoint.checkpoint(
+                recomputable, x, i, lp, use_reentrant=False,
+                context_fn=(_save_dots if cfg.remat == "dots"
+                            else checkpoint.noop_context_fn))
+        else:
+            x, aux_l = layer(x, i, lp)
         if return_aux and aux_l is not None:
             aux = aux_l if aux is None else aux + aux_l
     x = apply_norm(x, params["final_norm"], cfg)
@@ -584,6 +625,25 @@ def forward(params: Dict, cfg: ModelConfig,
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return out, cache, aux
+
+
+# the products whose outputs remat="dots" saves (JAX's checkpoint_dots)
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+        torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save a matrix product's output, recompute every other op.  On the
+    CPU and meta this saves the products inside attention's plain version
+    too, as JAX saves its attention einsums; on the card attention is a
+    kernel, not a product, and is recomputed (ROADMAP.md)."""
+    if op in DOTS:
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    return checkpoint.create_selective_checkpoint_contexts(_dots_policy)
 
 
 def head_logits(x: torch.Tensor, params: Dict, cfg: ModelConfig, quant=None

@@ -8,9 +8,12 @@ so a hung collective fails the test instead of running out its clock.
 Imports torch and the port only (no JAX in the ranks)."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import hashlib
 import pickle
+import threading
 import time
 
 import numpy as np
@@ -313,7 +316,8 @@ def _job_steps(rank: int, world: int) -> dict:
 # 80, the second not a whole number of MX blocks, so the recurrent decode
 # step gathers the head; "h32": mamba's head dim 32, four SSD heads, so at
 # |model| = 4 every leaf shards (in_proj's 292 columns, the state's
-# heads); "e6": six experts, which
+# heads); "ln": LayerNorm for every norm but mamba's gated one (cases of
+# tests/test_torch_variants.py); "e6": six experts, which
 # |model| = 4 does not divide, so the experts' hidden dim shards instead;
 # "f66": an expert hidden dim of 66, which |model| = 4 does not divide
 # either, so at |model| = 4 the experts stay whole on every rank while
@@ -335,6 +339,8 @@ def tp_config(case: str):
             cfg = dataclasses.replace(cfg, vocab=int(opt[1:]))
     if "h32" in opts:
         cfg = dataclasses.replace(cfg, ssm_head_dim=32)
+    if "ln" in opts:
+        cfg = dataclasses.replace(cfg, norm="ln")
     if cfg.mask_id >= cfg.vocab:
         cfg = dataclasses.replace(cfg, mask_token_id=cfg.vocab - 1)
     if "e6" in opts:
@@ -380,6 +386,18 @@ def tp_extras(cfg, kind: str) -> dict:
     return ex
 
 
+def whole_over(mesh, t, pl):
+    """``t`` (this rank's shard under ``pl``) gathered whole over
+    ``mesh`` (None: ``t`` is whole)."""
+    from repro_torch.launch import mesh as mesh_lib
+    if mesh is None or not isinstance(t, torch.Tensor) or t.dim() == 0:
+        return t
+    for dim, ax in enumerate(pl.spec):
+        if ax is not None:
+            t = mesh_lib.all_gather(t, dim, mesh.axis(ax))
+    return t
+
+
 def tp_run(case: str, mesh=None) -> dict:
     """One case's train, prefill and decode (unified and split) steps on
     the full inputs (no mesh), or on this rank's shards of them over
@@ -402,14 +420,7 @@ def tp_run(case: str, mesh=None) -> dict:
                                                                    mesh)):
             return steps.input_shardings(model, shape, mesh, specs, policy)
 
-    def whole(t, pl):
-        """``t`` (this rank's shard under ``pl``) gathered whole."""
-        if mesh is None or not isinstance(t, torch.Tensor) or t.dim() == 0:
-            return t
-        for dim, ax in enumerate(pl.spec):
-            if ax is not None:
-                t = mesh_lib.all_gather(t, dim, mesh.axis(ax))
-        return t
+    whole = functools.partial(whole_over, mesh)
 
     def nbytes(tree):
         return sum(t.numel() * t.element_size()
@@ -523,13 +534,87 @@ def tp_quant_forward(case: str, mesh=None):
     return logits.numpy()
 
 
+# remat under the tensor-parallel body (tests/test_torch_variants.py)
+TP_REMAT_CASES = ("qwen2-0.5b", "llada-moe-7b-a1b")
+REMATS = ("none", "full", "dots")
+
+
+@contextlib.contextmanager
+def backward_on_a_thread():
+    """Run every ``torch.autograd.grad`` on a thread of its own, as
+    autograd runs a CUDA tensor's backward on its device's worker thread:
+    a remat recompute then sees none of the caller's thread-local state."""
+    real = torch.autograd.grad
+
+    def grad(*args, **kwargs):
+        out = {}
+
+        def run():
+            try:
+                out["grads"] = real(*args, **kwargs)
+            except BaseException as e:    # re-raised in the caller
+                out["error"] = e
+        worker = threading.Thread(target=run)
+        worker.start()
+        worker.join()
+        if "error" in out:
+            raise out["error"]
+        return out["grads"]
+
+    torch.autograd.grad = grad
+    try:
+        yield
+    finally:
+        torch.autograd.grad = real
+
+
+def tp_remat_grads(case: str, remat: str, mesh=None):
+    """The train step's (loss, gradients) with ``cfg.remat = remat``, the
+    gradients whole (numpy), on the full inputs or over ``mesh`` on this
+    rank's shards, the backward on a thread of its own."""
+    from repro_torch import sharding, tree as tree_lib
+    from repro_torch.launch import sharding as launch_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(tp_config(case), remat=remat)
+    model = build_model(cfg, "cpu")
+    params = tp_params(model)
+    mine = {"params": params, "opt_state": adamw.init_state(params),
+            "tokens": torch.from_numpy(step_inputs(cfg)[0]), "seed": 3,
+            "extras": tp_extras(cfg, "train")}
+    gpl = [None] * len(tree_lib.leaves(params))
+    if mesh is not None:
+        shape = step_shape("train")
+        specs = steps.input_specs(model, shape)
+        with sharding.use_context(mesh, launch_sharding.make_rules(cfg,
+                                                                   mesh)):
+            pls = steps.input_shardings(model, shape, mesh, specs)
+        mine = steps.shard_inputs(mine, pls)
+        mine["params"] = launch_sharding.place(params, pls["params"])
+        gpl = tree_lib.leaves(pls["params"])
+    with backward_on_a_thread():
+        met, grads = steps.build_grad_fn(model, mesh=mesh)(
+            mine["params"], mine["tokens"], 3, mine["extras"])
+    return float(met["loss"]), [whole_over(mesh, g, p).numpy()
+                                for g, p in zip(grads, gpl)]
+
+
+def _job_tp_remat(rank: int, world: int, cases: tuple) -> dict:
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_debug_mesh(1, world, "cpu")
+    return {(case, remat): tp_remat_grads(case, remat, mesh)
+            for case in cases for remat in REMATS}
+
+
 def _job_tp(rank: int, world: int, data: int, model: int,
-            cases: tuple) -> dict:
+            cases: tuple, quant: bool = True) -> dict:
     from repro_torch.launch import mesh as mesh_lib
     mesh = mesh_lib.make_debug_mesh(data, model, "cpu")
     out = {case: tp_run(case, mesh) for case in cases}
-    out["quant"] = {case: tp_quant_forward(case, mesh)
-                    for case in TP_QUANT_CASES}
+    if quant:
+        out["quant"] = {case: tp_quant_forward(case, mesh)
+                        for case in TP_QUANT_CASES}
     return out
 
 
@@ -865,6 +950,7 @@ def _job_paged(rank: int, world: int, data: int, model: int) -> dict:
 
 JOBS = {"combine": _job_combine, "serve": _job_serve,
         "compress": _job_compress, "steps": _job_steps, "tp": _job_tp,
+        "tp_remat": _job_tp_remat,
         "paged": _job_paged, "sampled": _job_sampled,
         "frontend": _job_frontend,
         "sampled_combine": _job_sampled_combine}

@@ -138,8 +138,10 @@ def test_every_backward_instantiation_fits_and_is_stated():
              if sp.library == "flash_bidir_bwd"}
     assert all(sp.total_bytes <= registry.SMEM_LIMIT_BYTES
                for sp in specs.values())
-    want = {f"flash_bidir_bwd_{k}<float, {d}>" for k in ("dq", "dkv")
-            for d in (1, 2, 4, 8)}
+    want = {f"flash_bidir_bwd_{k}<{t}, {d}>" for k in ("dq", "dkv")
+            for t in ("float", "bf16") for d in (1, 2, 4, 8)}
+    want |= {f"flash_bidir_bwd_{k}_wide<{t}>" for k in ("stats", "dq", "dkv")
+             for t in ("float", "bf16")}
     want |= {f"flash_bidir_bwd_{k}_tc<{dt}{m}>" for k in ("dq", "dkv")
              for dt in fb.TILES for m in ("", ", true")}
     want.add("flash_bidir_bwd_split_sum")

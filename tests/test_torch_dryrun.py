@@ -14,6 +14,7 @@ formula.
 * the multi-pod mesh runs with pod x data as the data axis (512 cards).
 * ssm and hybrid cells record ``status: "error"`` and the message; the
   CLI writes its records where ``--out-dir`` says.
+* the remat variant traces, its FLOPs counting the backward's recompute.
 
 The JAX driver (``repro.launch.dryrun``) is never imported here: its first
 line sets XLA_FLAGS to 512 host devices for the whole process.
@@ -164,19 +165,19 @@ def test_cli_writes_records(tmp_path, capsys):
     # that set only options the port does not read
     assert sorted(dryrun.VARIANTS) == sorted([
         "baseline", "split", "losschunk", "split_losschunk", "padheads48",
-        "padheads48_split", "padheads_g3", "moe_global"])
+        "padheads48_split", "padheads_g3", "moe_global", "remat"])
     assert sorted(dryrun.NOT_PORTED) == sorted([
-        "bf16score", "split_bf16", "losschunk_bf16", "remat", "remat_bf16",
+        "bf16score", "split_bf16", "losschunk_bf16", "remat_bf16",
         "bigchunk", "padheads48_split_bf16", "split_losschunk_bf16"])
     assert dryrun.RESULTS.name == "dryrun_torch"
 
 
-@pytest.mark.parametrize("variant", ["bf16score", "remat", "bigchunk",
+@pytest.mark.parametrize("variant", ["bf16score", "remat_bf16", "bigchunk",
                                      "split_losschunk_bf16"])
 def test_cli_refuses_variants_without_effect(tmp_path, capsys, variant):
-    """A variant that sets only score_dtype, remat or attn_chunk would
-    write the record of another variant under its own name: refused, and
-    nothing is written."""
+    """A variant that sets score_dtype or attn_chunk would write the
+    record of another variant under its own name: refused, and nothing is
+    written."""
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "llada-8b", "--shape", "decode_32k",
                      "--variant", variant, "--out-dir", str(tmp_path)])
@@ -187,6 +188,21 @@ def test_cli_refuses_variants_without_effect(tmp_path, capsys, variant):
     assert not list(tmp_path.iterdir())
     with pytest.raises(ValueError, match="the port has no"):
         dryrun.variant_config("llada-8b", variant)
+
+
+def test_remat_variant_traces_with_the_recompute(cells):
+    """JAX's remat variant (checkpoint_dots over each layer) traces: the
+    train step's backward recomputes every layer's ops but its matrix
+    products, and attention, a kernel on the card, whole (its products
+    counted from its shapes), so the FLOPs per device exceed the
+    baseline's, and the placements are the baseline's."""
+    rec = dryrun.run_cell("qwen2-0.5b", "train_4k", variant="remat")
+    base = cells["qwen2-0.5b", "train_4k"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["variant"] == "remat"
+    assert rec["flops_per_device"] > base["flops_per_device"]
+    assert rec["param_bytes_per_device"] == base["param_bytes_per_device"]
+    assert rec["model_flops_global"] == base["model_flops_global"]
 
 
 def test_jax_dryrun_never_imported():

@@ -10,8 +10,8 @@ routes are pure functions of the shapes):
     Pallas kernel in interpret mode;
   * flash_bidir at head dims 16, 96 and 256 (recurrentgemma-2b's attention
     layout: 10 query heads on 1 KV head, window 2048) against the JAX
-    model's layers.attention, ``route(D, dtype)``, and the up-front
-    NotImplementedError for a head dim it does not take."""
+    model's layers.attention, ``route(D, dtype)``, and the head dims it
+    once refused (4, 12, 260, 512), which it now runs."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,7 +121,7 @@ def test_fused_head_ragged_vocab_matches_pallas(fmt, temperature):
 
 
 # ---------------------------------------------------------------------------
-# flash_bidir at any head dim that is a multiple of 8 up to 256
+# flash_bidir at any head dim
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("D,Hq,Hkv,window", [(16, 4, 2, None),
@@ -161,15 +161,30 @@ def test_flash_route(D, tile):
 
 @pytest.mark.parametrize("D", [260, 12, 4, 512])
 def test_unsupported_head_dims_raise_up_front(D):
-    """D past 256 or not a multiple of 8: NotImplementedError pointing at
-    the ROADMAP, from route, from layers.attention (on the CPU too, so a
-    tick never reaches the card with it) and from build_model."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfb.route(D, torch.bfloat16)
-    q = torch.zeros(1, 4, 2, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlayers.attention(q, q, q)
+    """The head dims the port once refused up front (past 256, or not a
+    multiple of 8) now run: ``route`` names the kernel route that takes
+    them (the CUDA-core route for a bf16 D that is not a multiple of 8,
+    the wide route's column slices past 256), layers.attention equals the
+    JAX model's on the CPU (f32, rtol 1e-5, atol 2e-6: the two sum a
+    D-term dot product in another order), and build_model takes the
+    config."""
+    want = (tfb.WIDE_ROUTE, tfb.WIDE_SLICE) if D > 256 else \
+        ("CUDA cores", 32)
+    assert tfb.route(D, torch.bfloat16) == want
+    B, S, Hq, Hkv = 2, 24, 4, 2
+    rs = np.random.RandomState(D)
+    q = rs.randn(B, S, Hq, D).astype(np.float32)
+    k = rs.randn(B, S, Hkv, D).astype(np.float32)
+    v = rs.randn(B, S, Hkv, D).astype(np.float32)
+    valid = np.arange(S)[None, :] < np.array([[S], [S // 3]])
+    pos = jnp.broadcast_to(jnp.arange(S)[None], (B, S))
+    want_o = jlayers.attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), q_pos=pos, kv_pos=pos,
+                               kv_valid=jnp.asarray(valid), kv_chunk=8)
+    got = tlayers.attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), torch.from_numpy(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_o), rtol=1e-5,
+                               atol=2e-6)
     cfg = tbase.get_config("llada-8b", smoke=True)
-    bad = ModelConfig(**{**cfg.__dict__, "d_head": D})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(bad, "cpu")
+    cfg = ModelConfig(**{**cfg.__dict__, "d_head": D})
+    assert tbuild(cfg, "cpu").cfg.d_head == D
