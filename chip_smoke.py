@@ -83,7 +83,7 @@ Phases, each fatal on failure:
                flash_bidir_bwd (check_causal) at (4, 96, 32 on 32, 128)
                and D 256 with a window of 64, bf16 and f32, within their
                routes' gates, against SDPA's is_causal;
-  3. e2e    -- llada-8b at full width (16 of its 32 layers, MAIN_LAYERS,
+  3. e2e    -- llada-8b at full width (12 of its 32 layers, MAIN_LAYERS,
                a depth cut for the script's time limit; d 4096, bf16,
                seeded random weights): one-slot generate in cache mode none,
                stepped through tick_forward and tick_sample, and in modes
@@ -391,12 +391,20 @@ Phases, each fatal on failure:
                PHASE15_TRAIN_LAYERS layers, a loss and its gradients with
                remat none, full and dots: bit for bit none's, and full's
                peak memory below none's (budget PHASE15_NEW_BUDGET_S for
-               f and g).
+               f and g); (h) JAX's bf16 scores (score_dtype, budget
+               PHASE15_BF16S_BUDGET_S): each bf16-score kernel route held
+               to its plain version (bf16s_gates) at 8 forward and 3
+               backward cases beside the f32-score time, its rows into the
+               kernels line; llada-8b (PHASE15_LLADA_LAYERS) generate dual
+               + BAOS graphed against plain attention step by step (near-
+               ties only) and the warm engine eager = graphed K=1, with
+               flash_bidir_bf16s on every attention call; qwen2-0.5b's
+               remat_bf16 train step (phase 11a's gates).
 Every path's launch counts are zeroed just before it and read just after;
 the kernels line sums them over phases 4, 4b, 3b, 5, 6a-6c, 10, 12, 13b,
 7, 8, 9, 11 (with 13a), 12b (with 13c), 14 (route C's from 14e) and 15
-(flash_bidir_offset, flash_bidir_causal and flash_bidir_bwd_causal's
-from it alone); the
+(flash_bidir_offset, flash_bidir_causal and flash_bidir_bwd_causal's,
+flash_bidir_bf16s and flash_bidir_bwd_bf16s's from it alone); the
 fused head's and Stable-Max's rows carry ``by_fmt``, phase 10's kernel
 cases per new format.
 Prints the run's time, the kernels JSON line, the card's name and power
@@ -458,7 +466,10 @@ REPLACES = {
     "flash_bidir_offset": "src/repro/kernels/flash_bidir.py:78",
     "flash_bidir_causal": "src/repro/kernels/flash_bidir.py:78",
     "flash_bidir_bwd_causal": "jax.grad of src/repro/models/layers.py "
-                              "attention (no Pallas backward)"}
+                              "attention (no Pallas backward)",
+    "flash_bidir_bf16s": "src/repro/kernels/flash_bidir.py:78",
+    "flash_bidir_bwd_bf16s": "jax.grad of src/repro/models/layers.py "
+                             "attention (no Pallas backward)"}
 QWEN2 = dict(d=896, V=151936, mask_id=151935)
 MINICPM = dict(d=2304, V=122753, mask_id=122752)
 # the device kernel each wrapper call launches once, as the profiler names
@@ -2231,8 +2242,12 @@ TABLE6_LAYERS = 8
 # the main model's depth (phases 3-6, 10, 12a, 12c, 13b): with the checks
 # of every width the script took 796.5 s, then 1,088.0 s on a host whose
 # unchanged phases ran 1.2-1.8x longer, past the 1,000 s it aims at, so
-# llada-8b's main path went from its 32 layers to 16
-MAIN_LAYERS = 16
+# llada-8b's main path went from its 32 layers to 16; with phase 15h's
+# bf16 scores (and nvcc's 51.6 s for their instantiations) 930.7 s on a
+# host whose unchanged phases ran 1.07-1.28x longer than the run before,
+# where a host 1.24x slower (as one tree once ran, 994.8 then 1,229.5 s)
+# would come near the 1,200 s limit, so to 12
+MAIN_LAYERS = 12
 
 
 def cut_depth(cfg, n_layers: int, why: str = "for the script's time limit"):
@@ -7685,6 +7700,7 @@ PHASE15_BUDGET_S = 45.0
 # 15f and 15g, stated before their first run on the card
 PHASE15_NEW_BUDGET_S = 20.0
 PHASE15_COUNTS = "phase 15 counts "
+PHASE15_ROWS = "phase 15 rows "
 # recurrentgemma-2b at its least depth with two attention layers (3k + 2)
 PHASE15_RG_LAYERS = 8
 PHASE15_LLADA_LAYERS = 4
@@ -8361,12 +8377,420 @@ def phase15_remat(gen) -> dict:
     return total
 
 
-def phase15(gen) -> dict:
+# ---------------------------------------------------------------------------
+# phase 15h: JAX's bf16 attention scores (score_dtype="bfloat16")
+# ---------------------------------------------------------------------------
+
+# 15h's time budget, seconds, stated before its first run on the card
+PHASE15_BF16S_BUDGET_S = 25.0
+BF16S = "bfloat16"
+
+
+def bf16s_gates(got, plain, ref, got_f32, what: str) -> float:
+    """15h's kernel gates: the bf16-score kernel's output ``got`` against
+    ``ref``, the f32-score function of the same inputs in f32 (plain
+    version), beyond one bf16 ulp of ``ref`` at most 2x the distance of
+    the plain bf16-score version ``plain`` from ``ref`` (the kernel rounds
+    P relative to its running max, the plain version relative to each
+    chunk's: a rounding of its own, no larger); and ``got`` nearer
+    ``plain`` than the f32-score kernel's ``got_f32`` is, in the mean
+    absolute difference (the scores really are rounded; a max would
+    compare one or two bf16 ulps of the output where the scores' rounding
+    moves less than that, as at D 256 with a window of 64).  Returns
+    max |got - plain|."""
+    got, plain, got_f32 = got.float(), plain.float(), got_f32.float()
+    e_k = float(((got - ref).abs() - bf16_ulp(ref)).max())
+    e_p = float((plain - ref).abs().max())
+    m_kp = float((got - plain).abs().mean())
+    m_32 = float((got_f32 - plain).abs().mean())
+    require(bool(torch.isfinite(got).all()), f"{what}: not finite")
+    require(e_k <= 2 * e_p, f"{what}: error {e_k:.3g} beyond one bf16 ulp "
+                            f"of the f32 function, over 2x the plain "
+                            f"bf16-score version's {e_p:.3g}")
+    require(m_kp < m_32, f"{what}: {m_kp:.3g} from the plain bf16-score "
+                         f"version in the mean, the f32-score kernel "
+                         f"{m_32:.3g}")
+    log(f"phase 15h: {what}: beyond one ulp {e_k:.3g} vs plain's "
+        f"{e_p:.3g} from the f32 function; mean |kernel - plain| {m_kp:.3g}, "
+        f"f32 scores' {m_32:.3g}")
+    return float((got - plain).abs().max())
+
+
+def bf16s_fwd_case(gen, what, B, Sq, Skv, Hq, Hkv, D, dt=torch.bfloat16,
+                   lens=None, window=None, off=0, causal=False, baos=False,
+                   extra=0, device_offset=False) -> dict:
+    """One forward case of 15h: flash_bidir with bf16 scores (``extra``
+    keys of route B's second source at ``off``, the cache's stale copy of
+    the block masked; ``device_offset``: the offset as a (B,) int64
+    tensor, bit for bit the host int's) held by bf16s_gates; its row: the
+    device time (a graph of 20 calls) beside the f32-score kernel's, CUDA
+    events, the plain version's, the bound of the keys and (row, key)
+    pairs the masks keep, and SDPA with the same boolean mask over K/V
+    repeated to every q head (BAOS not applied: no PyTorch call fuses
+    it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_bidir as fb
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dt)
+    q, kk, v = r(B, Sq, Hq, D), r(B, Skv, Hkv, D), r(B, Skv, Hkv, D)
+    valid = None
+    if lens is not None:
+        valid = torch.arange(Skv, device=DEVICE)[None, :] < torch.tensor(
+            lens, device=DEVICE)[:, None]
+    if extra:      # the split refine: the cache's stale copy of the block
+        pos = torch.arange(Skv, device=DEVICE)
+        valid = ~((pos >= off) & (pos < off + extra))[None].expand(B, Skv)
+        valid = valid.contiguous()
+    cal = [None] * 3
+    if baos:
+        cal = [torch.rand(B, Hkv, D, generator=gen, device=DEVICE) + 0.5,
+               torch.rand(B, Hkv, D, generator=gen, device=DEVICE) + 0.5,
+               torch.randn(B, Hkv, D, generator=gen, device=DEVICE)]
+    ext = None
+    if extra:
+        ext = (r(B, extra, Hkv, D), r(B, extra, Hkv, D), None)
+    kw = dict(window=window, q_offset=off, extra_kv=ext, causal=causal)
+    args = (q, kk, v, valid, *cal)
+    got = fb.flash_bidir(*args, **kw, score_dtype=BF16S)
+    if device_offset:
+        t = torch.full((B,), off, dtype=torch.int64, device=DEVICE)
+        dev = fb.flash_bidir(*args, **dict(kw, q_offset=t),
+                             score_dtype=BF16S)
+        require(torch.equal(dev, got), f"{what}: the device offset differs "
+                                       f"from the host int")
+    plain = fb.flash_bidir_plain(*args, **kw, score_dtype=BF16S)
+    f32 = [None if t is None else t.float() for t in args]
+    ext32 = None if ext is None else (ext[0].float(), ext[1].float(), None)
+    ref = fb.flash_bidir_plain(*f32, **dict(kw, extra_kv=ext32))
+    got_f32 = fb.flash_bidir(*args, **kw)
+    err = bf16s_gates(got, plain, ref, got_f32, what)
+    mask = fb._mask(B, Sq, Skv, valid, window, off, DEVICE, causal=causal)
+    k_all, v_all = kk, v
+    if ext is not None:
+        mask = torch.cat([mask, fb._mask(
+            B, Sq, extra, None, window, off, DEVICE,
+            kpos=off + torch.arange(extra, device=DEVICE), causal=causal)],
+            -1)
+        k_all, v_all = torch.cat([kk, ext[0]], 1), torch.cat([v, ext[1]], 1)
+    n_keys = int(mask[:, 0].any(1).sum())       # keys some row reaches
+    es = q.element_size()
+    b_ms, b_by = bound(2 * q.numel() * es + 2 * n_keys * Hkv * D * es
+                       + (0 if valid is None else valid.numel()),
+                       4.0 * Hq * D * int(mask.sum()),
+                       BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+    qt = q.transpose(1, 2)
+    kt = k_all.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+    vt = v_all.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+    fn = lambda: fb.flash_bidir(*args, **kw, score_dtype=BF16S)  # noqa
+    fn32 = lambda: fb.flash_bidir(*args, **kw)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask)
+    out = dict(max_abs_err=err, device_ms=kernel_ms(fn, 20, what),
+               f32_device_ms=kernel_ms(fn32, 20, f"{what} f32 scores"),
+               ms=time_ms(fn, 20),
+               plain_ms=time_ms(lambda: fb.flash_bidir_plain(
+                   *args, **kw, score_dtype=BF16S), 3),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=kernel_ms(lib, 20, f"{what} sdpa"))
+    log(f"phase 15h: flash_bidir bf16 scores {what} "
+        f"({str(dt).replace('torch.', '')}): max abs err {err:.3g} against "
+        f"the plain bf16-score version; device {out['device_ms']:.4f} ms, "
+        f"f32 scores {out['f32_device_ms']:.4f} ms (a graph of 20 calls "
+        f"each); CUDA events {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_keys} "
+        f"keys reached), {out['device_ms'] / b_ms:.1f}x; SDPA (boolean "
+        f"mask) device {out['library_ms']:.4f} ms")
+    return out
+
+
+def bf16s_bwd_case(gen, what, B, S, Hq, Hkv, D, dt=torch.bfloat16,
+                   win=None, lens=None) -> dict:
+    """One backward case of 15h: flash_bidir_bwd with bf16 scores, two
+    launches bit for bit, each gradient held by bf16s_gates (the plain
+    bf16-score backward: autograd through the plain forward, JAX's
+    roundings; the reference: the f32-score backward of the f32 inputs);
+    its row: the device time beside the f32-score kernel's, CUDA events,
+    the plain version's, check_attn_backward's bound and SDPA yardstick
+    (forward + backward less forward, the same boolean mask)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_bidir as fb
+    q, o_grad = (torch.randn(B, S, Hq, D, generator=gen, device=DEVICE)
+                 .to(dt) for _ in range(2))
+    kk, v = (torch.randn(B, S, Hkv, D, generator=gen, device=DEVICE)
+             .to(dt) for _ in range(2))
+    valid = None
+    if lens is not None:
+        valid = torch.arange(S, device=DEVICE)[None, :] < torch.tensor(
+            lens, device=DEVICE)[:, None]
+    args = (q, kk, v, o_grad, valid, win, 0, False)
+    got = fb.flash_bidir_bwd(*args, BF16S)
+    again = fb.flash_bidir_bwd(*args, BF16S)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{what}: two launches differ")
+    plain = fb.flash_bidir_bwd_plain(*args, BF16S)
+    ref = fb.flash_bidir_bwd_plain(*(t.float() for t in args[:4]),
+                                   *args[4:])
+    got_f32 = fb.flash_bidir_bwd(*args)
+    err = max(bf16s_gates(g, p, r, g32, f"{what} d{n}")
+              for n, g, p, r, g32 in zip("qkv", got, plain, ref, got_f32))
+    fn = lambda: fb.flash_bidir_bwd(*args, BF16S)  # noqa: E731
+    n_pairs = attn_mask_pairs(B, S, S, valid, win)
+    es = q.element_size()
+    n_keys = B * S if valid is None else int(valid.sum())
+    b_ms, b_by = bound(3 * q.numel() * es + 2 * n_keys * Hkv * D * es
+                       + 2 * kk.numel() * es
+                       + (0 if valid is None else valid.numel()),
+                       8.0 * Hq * D * n_pairs, BF16_FLOPS)
+    G = Hq // Hkv
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+              .detach().requires_grad_() for t in (kk, v))
+    mask = None if (valid is None and win is None) else fb._mask(
+        B, S, S, valid, win, 0, DEVICE)
+    dot = o_grad.transpose(1, 2)
+    lib_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask)
+    out = dict(max_abs_err=err, device_ms=kernel_ms(fn, 20, what),
+               f32_device_ms=kernel_ms(lambda: fb.flash_bidir_bwd(*args),
+                                       20, f"{what} f32 scores"),
+               ms=time_ms(fn, 20),
+               plain_ms=time_ms(lambda: fb.flash_bidir_bwd_plain(
+                   *args, BF16S), 3),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=time_ms(lambda: lib_f().backward(dot), 20)
+               - time_ms(lib_f, 20))
+    log(f"phase 15h: flash_bidir_bwd bf16 scores {what} (B {B}, S {S}, "
+        f"{Hq} q heads on {Hkv}, D {D}, window {win}, kv_valid {lens}): "
+        f"max abs err {err:.3g} against the plain bf16-score backward, two "
+        f"launches bit for bit; device {out['device_ms']:.4f} ms, f32 "
+        f"scores {out['f32_device_ms']:.4f} ms (a graph of 20 calls "
+        f"each); CUDA events {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{out['device_ms'] / b_ms:.0f}x; SDPA backward "
+        f"{out['library_ms']:.4f} ms")
+    return out
+
+
+def check_bf16_scores(gen) -> dict:
+    """15h (a): the bf16-score routes of flash_bidir and flash_bidir_bwd
+    against their plain versions (bf16s_gates): llada-8b's main shape (4,
+    96, 32 on 32, 128) bf16 with kv_valid, without and with BAOS; route B
+    (16, 64, 32 on 32, 128) over 384 + 64 keys with BAOS; recurrentgemma-
+    2b's attention (2, 64, 10 on 1, 256) over 32,768 keys, window 2048,
+    offset from device memory; causal at the main shape; D 100 (40 on 8)
+    bf16 and f32 (the CUDA-core route); D 512 (8 on 8, the wide route);
+    the backward at qwen2-0.5b's (8, 128, 14 on 2, 64), llada-8b's (8,
+    128, 32 on 32, 128) and D 256 with a window of 64 and kv_valid (2, 256,
+    10 on 1).  Returns the kernels' rows: the main shape's and
+    qwen2-0.5b's."""
+    main = bf16s_fwd_case(gen, "main shape, kv_valid", 4, 96, 96, 32, 32,
+                          128, lens=(96, 80, 57, 33))
+    bf16s_fwd_case(gen, "main shape, kv_valid, BAOS", 4, 96, 96, 32, 32, 128,
+                   lens=(96, 80, 57, 33), baos=True)
+    bf16s_fwd_case(gen, "route B over 384 + 64 keys, BAOS", 16, 64, 384, 32,
+                   32, 128, baos=True, off=128, extra=64)
+    bf16s_fwd_case(gen, "recurrentgemma-2b over 32768 keys, window 2048, "
+                   "device offset", 2, 64, 32768, 10, 1, 256,
+                   lens=(32768, 32468), window=2048, off=16320,
+                   device_offset=True)
+    bf16s_fwd_case(gen, "main shape, causal", 4, 96, 96, 32, 32, 128,
+                   causal=True)
+    for dt in (torch.bfloat16, torch.float32):
+        bf16s_fwd_case(gen, "D 100", 4, 96, 96, 40, 8, 100, dt=dt,
+                       lens=(96, 50, 96, 7))
+    bf16s_fwd_case(gen, "D 512, the wide route", 4, 96, 96, 8, 8, 512,
+                   lens=(96, 70, 96, 1))
+    bwd = bf16s_bwd_case(gen, "qwen2-0.5b training", 8, 128, 14, 2, 64)
+    bf16s_bwd_case(gen, "llada-8b training", 8, 128, 32, 32, 128)
+    bf16s_bwd_case(gen, "D 256 window 64 kv_valid", 2, 256, 10, 1, 256,
+                   win=64, lens=(256, 129))
+    return {"flash_bidir_bf16s": main, "flash_bidir_bwd_bf16s": bwd}
+
+
+def phase15_bf16s_serve(gen) -> dict:
+    """15h (b): llada-8b at full width, PHASE15_LLADA_LAYERS layers (a
+    depth cut), score_dtype bfloat16: generate dual + BAOS mxint4 (16
+    steps) graphed, equal to its eager stepped run; at every step, from
+    the same state, the forward through the kernels and through plain
+    attention (its own copy of the cache), the committed tokens equal but
+    at near-ties (step_near_ties, each row's logit difference between the
+    two forwards as err); no mask id left; exactly one flash_bidir_bf16s
+    launch a layer a step and no other attention launch.  Then the warm
+    engine eager and graphed K=1 over engine_trace: tokens equal, no mask
+    id left, flash_bidir_bf16s once a layer a tick.  Returns the launch
+    counts of the generate() and graphed engine runs."""
+    from repro_torch.configs import base
+    from repro_torch.core import baos, diffusion
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_bidir as fb
+    from repro_torch.models.registry import build_model
+    cfg = cut_depth(dataclasses.replace(base.get_config("llada-8b"),
+                                        score_dtype=BF16S),
+                    PHASE15_LLADA_LAYERS, "for the phase's budget")
+    model = build_model(cfg, DEVICE)
+    params = model.init(seed=0)
+    nl, mid = cfg.n_layers, cfg.mask_id
+    dcfg = diffusion.DiffusionConfig(
+        gen_length=32, block_length=16, steps_per_block=8, cache_mode="dual",
+        baos=baos.BAOSConfig(enabled=True, variant="minmax",
+                             kv_format="mxint4"))
+    prompt = torch.randint(0, cfg.vocab - 200, (2, 16), generator=gen,
+                           device=DEVICE)
+    attn_names = [n for n in _build.COUNTED if _build.ROUTES.get(n, n) in (
+        fb.NAME, fb.BWD_NAME)]
+
+    def attn_counts(counts, want_bf16s):
+        got = {n: counts[n] for n in attn_names if counts[n]}
+        return got, {fb.BF16S_NAME: want_bf16s}
+
+    total = {}
+    _build.reset_launch_counts()
+    out = diffusion.generate(model, params, prompt, dcfg, seed=7)
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    n_steps = dcfg.gen_length // dcfg.block_length * dcfg.steps_per_block
+    got, want = attn_counts(counts, n_steps * nl)
+    require(got == want, f"phase 15h: generate's attention launches {got}, "
+                         f"want {want}")
+    expect_launches(counts, set(path_kernels(model, dcfg, True))
+                    - {fb.NAME} | {fb.BF16S_NAME}, "phase 15h generate")
+    require(not bool((out == mid).any()), "phase 15h: mask ids left")
+    add_counts(total, counts)
+
+    state = diffusion.init_state(model, prompt, dcfg, seed=7)
+    L = dcfg.block_length
+    ties = []
+    while not state.done:
+        before = state.x.clone()
+        cache_p = clone_tree(state.cache)
+        feats = diffusion.step_forward(model, params, state)
+        with plain_attention():
+            state_p = dataclasses.replace(state, cache=cache_p)
+            feats_p = diffusion.step_forward(model, params, state_p)
+        bs = state.block_start
+        x_k = diffusion.commit_block(model, params, state, feats)
+        x_p = diffusion.commit_block(model, params, state_p, feats_p)
+        z = [head_logits_f32(f.reshape(-1, cfg.d_model), params["lm_head"],
+                             dcfg.sampling.fmt, mid).view(2, L, -1)
+             for f in (feats, feats_p)]
+        err = (z[0] - z[1]).abs().amax((1, 2))
+        k = state.ks[:, state.step_in_block].to(DEVICE)
+        ties += step_near_ties(z[1], err, before[:, bs:bs + L],
+                               x_k[:, bs:bs + L], x_p[:, bs:bs + L], k, mid)
+        state = diffusion.advance(state, x_k)
+    require(torch.equal(state.x, out),
+            "phase 15h: generate() differs from its stepped run")
+    del cache_p, state_p
+    diffusion.clear_step_graphs()
+    log(f"phase 15h: llada-8b ({nl} layers) bf16 scores, generate dual + "
+        f"BAOS mxint4 graphed equal to eager stepped, no mask id left; "
+        f"{n_steps} steps against plain attention from the same state: "
+        f"{len(ties)} committed positions differ, each a near-tie; "
+        f"launches { {n: v for n, v in counts.items() if v} }")
+    trace = engine_trace(cfg)
+    runs = {}
+    for name, jit in (("eager K=1", False), ("graphed K=1", True)):
+        eng, _, tick_ms, counts, _ = engine_run(
+            model, params, diffusion.DiffusionConfig(block_length=16,
+                                                     steps_per_block=8),
+            "warm", trace, False, jit_steps=jit)
+        toks = {c.uid: list(c.tokens) for c in eng.completed}
+        require(len(toks) == len(trace) and
+                all(mid not in t for t in toks.values()),
+                f"phase 15h: engine {name}: a request unfinished or mask "
+                f"ids left")
+        got, want = attn_counts(counts, eng.ticks_total * nl)
+        require(got == want, f"phase 15h: engine {name}: attention "
+                             f"launches {got}, want {want}")
+        runs[name] = toks
+        if jit:
+            add_counts(total, counts)
+        log(f"phase 15h: engine warm {name} bf16 scores: "
+            f"{eng.ticks_total} ticks, tick wall "
+            f"{sum(tick_ms) / len(tick_ms):.2f} ms; launches "
+            f"{ {n: v for n, v in counts.items() if v} }")
+    require(runs["eager K=1"] == runs["graphed K=1"],
+            "phase 15h: graphed engine differs from eager")
+    del model, params, eng
+    free()
+    return total
+
+
+def phase15_bf16s_train(gen) -> dict:
+    """15h (c): JAX's remat_bf16 variant, one train step of qwen2-0.5b at
+    full width, PHASE15_TRAIN_LAYERS layers (a depth cut), B 8 x S 128,
+    score_dtype bfloat16 and remat "dots": the loss and every gradient
+    through the kernels (flash_bidir_bf16s twice a layer, the forward and
+    its recompute, flash_bidir_bwd_bf16s once; no plain attention), through
+    plain attention under autograd (the plain bf16-score version), and an
+    f32 reference (f32 weights and scores, plain attention): phase 11a's
+    gates (the loss within 1e-3 relative of plain's; grad_gates).  Returns
+    the launch counts."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import base
+    from repro_torch.core import diffusion
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import build_model
+    cfg = cut_depth(dataclasses.replace(base.get_config(TRAIN_ARCH),
+                                        score_dtype=BF16S, remat="dots"),
+                    PHASE15_TRAIN_LAYERS, "for the phase's budget")
+    nl = cfg.n_layers
+    tokens = train_batch(cfg).to(torch.int64)
+
+    def loss_grads(model, params):
+        leaves = tree_lib.leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = diffusion.masked_diffusion_loss(
+            model, params, tokens, diffusion.step_generator(0, 0, DEVICE))
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    model = build_model(cfg, DEVICE)
+    params = model.init(seed=0)
+    names = [k for k, _ in tree_lib.flatten_with_paths(params)]
+    model32 = build_model(dataclasses.replace(
+        cfg, dtype="float32", score_dtype="float32"), DEVICE)
+    params32 = tree_lib.tree_map(lambda t: t.detach().float(), params)
+    with plain_attention():
+        _, grads32 = loss_grads(model32, params32)
+        loss_p, grads_p = loss_grads(model, params)
+    del params32, model32
+    with no_plain_attention():
+        _build.reset_launch_counts()
+        loss_k, grads_k = loss_grads(model, params)
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+    want = {"flash_bidir_bf16s": 2 * nl, "flash_bidir_bwd_bf16s": nl}
+    require({n: v for n, v in counts.items() if v} == want,
+            f"phase 15h train: launches {counts}, want {want}")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    require(rel <= 1e-3, f"phase 15h train: loss differs by {rel:.3g}")
+    worst_kp, worst_f32, n_f32 = grad_gates(names, grads_k, grads_p,
+                                            grads32, "phase 15h train")
+    log(f"phase 15h: {TRAIN_ARCH} ({nl} layers) bf16 scores, remat dots, "
+        f"B 8 x S 128: loss {float(loss_k):.6f} through the kernels, "
+        f"{float(loss_p):.6f} through plain attention, relative difference "
+        f"{rel:.3g}; worst cosine(kernels, plain) {worst_kp[0]:.6f} "
+        f"({worst_kp[1]}) over the {len(names) - n_f32} leaves plain fixes "
+        f"to 0.999 of f32"
+        + (f"; on the other {n_f32} the kernels' cosine to f32 less plain's "
+           f"at worst {worst_f32[0]:+.6f} ({worst_f32[1]})" if n_f32 else "")
+        + f"; launches { {n: v for n, v in counts.items() if v} }")
+    del model, params, grads_k, grads_p, grads32
+    free()
+    return counts
+
+
+def phase15(gen) -> tuple:
     """Phase 15: recurrentgemma-2b at full width (PHASE15_RG_LAYERS
     layers) past its window, 15b graphed generate and 15c the decode
-    step; 15d causal llada-8b; 15e a causal train step.  The kernels alone run attention
-    (no_plain_attention) and sampling (no_plain).  Returns the launch
-    counts."""
+    step; 15d causal llada-8b; 15e a causal train step; 15f-g head dims
+    and remat; 15h bf16 scores (its kernel gates, then serving and a
+    train step).  The kernels alone run attention (no_plain_attention)
+    and sampling (no_plain) on the paths.  Returns (the launch counts,
+    15h's kernel rows)."""
     from repro_torch.configs import base
     from repro_torch.models.registry import build_model
     t0 = time.perf_counter()
@@ -8389,14 +8813,22 @@ def phase15(gen) -> dict:
     add_counts(total, phase15_remat(gen))
     log(f"phase 15f-g: {time.perf_counter() - t_new:.1f} s against their "
         f"budget of {PHASE15_NEW_BUDGET_S:.0f} s")
+    t_h = time.perf_counter()
+    rows = check_bf16_scores(gen)
+    with no_plain():
+        add_counts(total, phase15_bf16s_serve(gen))
+    add_counts(total, phase15_bf16s_train(gen))
+    log(f"phase 15h: {time.perf_counter() - t_h:.1f} s against its budget "
+        f"of {PHASE15_BF16S_BUDGET_S:.0f} s")
     log(f"phase 15 body: {time.perf_counter() - t0:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return total
+    return total, rows
 
 
-def phase15_process() -> dict:
+def phase15_process() -> tuple:
     """Phase 15 in a process of its own, as phase 11: its models load and
-    free apart from the main process's.  Returns its launch counts."""
+    free apart from the main process's.  Returns (its launch counts, 15h's
+    kernel rows)."""
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c",
@@ -8404,18 +8836,21 @@ def phase15_process() -> dict:
                         "sys.exit(chip_smoke.phase15_main())"],
                        cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=600)
-    counts = None
+    counts = rows = None
     for line in r.stdout.splitlines():
         if line.startswith(PHASE15_COUNTS):
             counts = json.loads(line[len(PHASE15_COUNTS):])
+        elif line.startswith(PHASE15_ROWS):
+            rows = json.loads(line[len(PHASE15_ROWS):])
         else:
             log(line)
-    require(r.returncode == 0 and counts is not None,
+    require(r.returncode == 0 and counts is not None and rows is not None,
             f"phase 15 process: exit {r.returncode}: {r.stderr[-3000:]}")
     log(f"phase 15 (its own process, start included): "
         f"{time.perf_counter() - t0:.1f} s against its budget of "
-        f"{PHASE15_BUDGET_S:.0f} s")
-    return counts
+        f"{PHASE15_BUDGET_S + PHASE15_BF16S_BUDGET_S:.0f} s (15h's "
+        f"{PHASE15_BF16S_BUDGET_S:.0f} s included)")
+    return counts, rows
 
 
 def phase15_main() -> int:
@@ -8426,11 +8861,12 @@ def phase15_main() -> int:
     _build.build()
     gen = torch.Generator(device=DEVICE).manual_seed(15)
     try:
-        counts = phase15(gen)
+        counts, rows = phase15(gen)
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     print(PHASE15_COUNTS + json.dumps(counts), flush=True)
+    print(PHASE15_ROWS + json.dumps(rows), flush=True)
     return 0
 
 
@@ -8642,8 +9078,10 @@ def main() -> int:
         for name, n in phase_tp_ranks().items():
             launches[name] += n
         dryrun_line()
-        for name, n in phase15_process().items():
+        counts15, rows15 = phase15_process()
+        for name, n in counts15.items():
             launches[name] += n
+        kernels.update(rows15)
         log(f"phase 12: {t12:.1f} s (budget {PHASE12_BUDGET_S} s)")
         t13 = sum(PHASE13_S.values())
         log(f"phase 13: {t13:.1f} s ("

@@ -328,6 +328,12 @@ def smem_specs() -> List[SmemSpec]:
                 out.append(SmemSpec(
                     lib, f"flash_bidir_tc_kernel<{dt}, {name}{r}>", 0,
                     _flash_tc_dynamic(dt, qs, _flash_tc_max_warps(dt, qs))))
+    # bf16 scores: one query term, with and without REACH
+    for dt in (32, 64, 128, 256):
+        for r in ("false", "true"):
+            out.append(SmemSpec(
+                lib, f"flash_bidir_tc_kernel<{dt}, 1, {r}, true>", 0,
+                _flash_tc_dynamic(dt, 1, _flash_tc_max_warps(dt, 1))))
     lib = "flash_bidir_bwd"
     for t in ("float", "bf16"):
         for dpl in (1, 2, 4, 8):
@@ -351,6 +357,15 @@ def smem_specs() -> List[SmemSpec]:
             out.append(SmemSpec(lib, f"flash_bidir_bwd_dkv_tc<{dt}{m}>", 0,
                                 dkv))
     out.append(SmemSpec(lib, "flash_bidir_bwd_split_sum", 0, 0))
+    # bf16 scores: the MASKED bf16 kernels, and the query prescale
+    for dt in (32, 64, 128, 256):
+        dq, _ = _bwd_tc_dynamic(dt, True)
+        out.append(SmemSpec(lib, f"flash_bidir_bwd_dq_tc<{dt}, true, true>",
+                            0, dq))
+        out.append(SmemSpec(lib, f"flash_bidir_bwd_dkv_tc<{dt}, true, true>",
+                            0, fb.bwd_dkv_smem(dt, bf16_scores=True)))
+    for t in ("float", "bf16"):
+        out.append(SmemSpec(lib, f"flash_bidir_bwd_qscale<{t}>", 0, 0))
     lib = "baos_mx_quant"
     # each without and with RAGGED (D not a multiple of 32)
     for ragged in ("", ", true"):

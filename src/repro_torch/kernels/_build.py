@@ -36,7 +36,8 @@ KERNELS = ("fused_head_sampling", "topk_mask", "flash_bidir",
 # sampled launch of route A or C (temperature > 0: the Gumbel partials)
 # counts apart from the greedy one; attention over the cache alone whose
 # mask reads its query offset from device memory, causal attention and its
-# backward (kernels/flash_bidir.count_name)
+# backward, and attention with bf16 scores and its backward, whatever
+# their route (kernels/flash_bidir.count_name)
 ROUTES = {"fused_head_sampling_shard": "fused_head_sampling",
           "flash_bidir_split": "flash_bidir",
           "stablemax_sampling_shard": "stablemax_sampling",
@@ -44,7 +45,9 @@ ROUTES = {"fused_head_sampling_shard": "fused_head_sampling",
           "stablemax_sampling_shard_sampled": "stablemax_sampling",
           "flash_bidir_offset": "flash_bidir",
           "flash_bidir_causal": "flash_bidir",
-          "flash_bidir_bwd_causal": "flash_bidir_bwd"}
+          "flash_bidir_bwd_causal": "flash_bidir_bwd",
+          "flash_bidir_bf16s": "flash_bidir",
+          "flash_bidir_bwd_bf16s": "flash_bidir_bwd"}
 COUNTED = KERNELS + tuple(ROUTES)
 # no --use_fast_math: the MX exponent rule and the Gumbel log need the
 # full-precision log2f/logf, and divisions must stay IEEE divisions

@@ -49,6 +49,15 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// bf16 attention scores (JAX's score_dtype=bfloat16): a score or a
+// probability rounded to bf16, kept as an f32, and a masked score,
+// bf16(-1e30) = -1.578125 * 2^99 (below -1e30, so a row's running max
+// starts at -1e30 and stays there while every key is masked).
+__device__ __forceinline__ float bf16r(float x) {
+  return round_to<__nv_bfloat16>(x);
+}
+constexpr float NEG_BF16 = -0x1.94p+99f;
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));

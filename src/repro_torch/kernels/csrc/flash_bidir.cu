@@ -90,6 +90,22 @@
 // memory holds the query rows of 8 warps without BAOS (168 KB in all) and,
 // with BAOS's three q terms a warp, of 5 (226 KB of the 227):
 // tc_max_warps.  The output accumulators are 128 f32 registers a thread.
+//
+// bf16 scores (bf16_scores != 0; JAX's score_dtype=bfloat16): every route
+// rounds where JAX's attention_partials does, scale then being D^-1/2
+// rounded to the activations' dtype: the query operand is bf16(q * f_k *
+// scale) (f_k and the products in f32), K and V are read as bf16 (exact
+// for bf16 tensors), S = bf16(the f32 sum) without a scale, a masked score
+// bf16(-1e30), P = bf16(exp(bf16(S - bf16(m)))) with m the row's running
+// max (JAX's is its chunk's max: a rounding of its own), l = sum P and P V
+// in f32.  The tensor-core route has BS instantiations (one q term, with
+// BAOS too, rewritten in shared memory after it lands; P one exact term,
+// not SPLIT: at DT 256 with BAOS 8 warps fit where SPLIT's q terms allow
+// 5); the CUDA-core and wide kernels take a runtime flag, two roundings
+// among their FMAs.  A masked key still adds exactly 0 once a row has
+// seen a valid key (exp of about -1e30 is 0), and a row with no valid key
+// keeps m = -1e30 (bf16(-1e30) lies below it), so its P is 1 on every key
+// and the REACH walk's second pass finds it as before.
 #include <algorithm>
 
 #include "common.cuh"
@@ -185,7 +201,7 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ cv, T* __restrict__ out, int Sq,
                    int Skv, int Hq, int Hkv, int D, float scale, int window,
                    int q_offset, const long long* __restrict__ q_offset_dev,
-                   int causal) {
+                   int causal, int bs) {
   constexpr int DT = 32 * DPL;   // tile width; columns >= D are zeros
   extern __shared__ __align__(16) float smem_f32[];
   float(*qs)[DT] = reinterpret_cast<float(*)[DT]>(smem_f32);
@@ -206,8 +222,9 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
       x = to_f32(q[((static_cast<size_t>(b) * Sq + gq) * Hq + h) * D + dd]);
       if (fk != nullptr) x *= fk[cal + dd];
     }
-    qs[r][dd] = x * scale;
+    qs[r][dd] = bs ? bf16r(x * scale) : x * scale;
   }
+  const float masked = bs ? NEG_BF16 : NEG;
 
   const int n_t1 = (Skv + BK - 1) / BK;
   const int n_t2 = k2 != nullptr ? (S2 + BK - 1) / BK : 0;
@@ -248,8 +265,8 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
           kx = to_f32(kk_src[o]);
           vx = to_f32(vv_src[o]);
         }
-        ks[j][dd] = kx;
-        vs[j][dd] = vx;
+        ks[j][dd] = bs ? bf16r(kx) : kx;
+        vs[j][dd] = bs ? bf16r(vx) : vx;
       }
       __syncthreads();
 
@@ -269,9 +286,10 @@ flash_bidir_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                            : (window <= 0 ||
                                               abs(q_offset + gq -
                                                   (src.pos0 + gk)) < window));
-        s = in_range ? (ok ? s : NEG) : -INFINITY;
+        s = in_range ? (ok ? (bs ? bf16r(s) : s) : masked) : -INFINITY;
         const float m_new = fmaxf(m[i], warp_max(s));
-        const float p = expf(s - m_new);
+        const float p = bs ? bf16r(expf(bf16r(s - bf16r(m_new))))
+                           : expf(s - m_new);
         const float corr = expf(m[i] - m_new);
         l[i] = l[i] * corr + warp_sum(p);
         m[i] = m_new;
@@ -324,7 +342,7 @@ cudaError_t launch_cc(const T* q, const T* k, const T* v,
                       const float* fv, const float* cv, T* out, int B,
                       int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                       int window, int q_offset, const long long* q_offset_dev,
-                      int causal, cudaStream_t stream) {
+                      int causal, int bs, cudaStream_t stream) {
   constexpr int smem = f32_smem_bytes(32 * DPL);
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bidir_kernel<T, DPL, REACH>,
@@ -333,7 +351,7 @@ cudaError_t launch_cc(const T* q, const T* k, const T* v,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_bidir_kernel<T, DPL, REACH><<<grid, 32 * WARPS, smem, stream>>>(
       q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv, out, Sq, Skv, Hq,
-      Hkv, D, scale, window, q_offset, q_offset_dev, causal);
+      Hkv, D, scale, window, q_offset, q_offset_dev, causal, bs);
   return cudaGetLastError();
 }
 
@@ -373,7 +391,7 @@ flash_bidir_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                         int window, int q_offset,
                         const long long* __restrict__ q_offset_dev,
-                        int causal, int n_slices) {
+                        int causal, int n_slices, int bs) {
   constexpr int DPL = WIDE_DV / 32;
   extern __shared__ __align__(16) float smem_wide[];
   float(*qs)[WIDE_CH] = reinterpret_cast<float(*)[WIDE_CH]>(smem_wide);
@@ -430,15 +448,16 @@ flash_bidir_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
             x = to_f32(q[((static_cast<size_t>(b) * Sq + gq) * Hq + h) * D + dd]);
             if (fk != nullptr) x *= fk[cal + dd];
           }
-          qs[r][e % WIDE_CH] = x * scale;
+          qs[r][e % WIDE_CH] = bs ? bf16r(x * scale) : x * scale;
         }
         for (int e = tid; e < BK * WIDE_CH; e += 32 * WARPS) {
           const int j = e / WIDE_CH, dd = d0 + e % WIDE_CH, gk = k0 + j;
-          ks[j][e % WIDE_CH] =
+          const float kx =
               gk < src.len && dd < D
                   ? to_f32(kk_src[((static_cast<size_t>(b) * src.len + gk) *
                                    Hkv + hk) * D + dd])
                   : 0.f;
+          ks[j][e % WIDE_CH] = bs ? bf16r(kx) : kx;
         }
         __syncthreads();
 #pragma unroll
@@ -453,11 +472,12 @@ flash_bidir_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // before the first chunk's barrier)
       for (int e = tid; e < BK * WIDE_DV; e += 32 * WARPS) {
         const int j = e / WIDE_DV, dd = c0 + e % WIDE_DV, gk = k0 + j;
-        vs[j][e % WIDE_DV] =
+        const float vx =
             gk < src.len && dd < D
                 ? to_f32(vv_src[((static_cast<size_t>(b) * src.len + gk) *
                                  Hkv + hk) * D + dd])
                 : 0.f;
+        vs[j][e % WIDE_DV] = bs ? bf16r(vx) : vx;
       }
       __syncthreads();
 
@@ -474,9 +494,12 @@ flash_bidir_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                            : (window <= 0 ||
                                               abs(q_offset + gq -
                                                   (src.pos0 + gk)) < window));
-        const float x = in_range ? (ok ? s[i] : NEG) : -INFINITY;
+        const float x = in_range ? (ok ? (bs ? bf16r(s[i]) : s[i])
+                                       : (bs ? NEG_BF16 : NEG))
+                                 : -INFINITY;
         const float m_new = fmaxf(m[i], warp_max(x));
-        const float p = expf(x - m_new);
+        const float p = bs ? bf16r(expf(bf16r(x - bf16r(m_new))))
+                           : expf(x - m_new);
         const float corr = expf(m[i] - m_new);
         l[i] = l[i] * corr + warp_sum(p);
         m[i] = m_new;
@@ -524,7 +547,7 @@ cudaError_t launch_wide(const T* q, const T* k, const T* v,
                         const float* fk, const float* fv, const float* cv,
                         T* out, int B, int Sq, int Skv, int Hq, int Hkv,
                         int D, float scale, int window, int q_offset,
-                        const long long* q_offset_dev, int causal,
+                        const long long* q_offset_dev, int causal, int bs,
                         cudaStream_t stream) {
   constexpr int smem = wide_smem_bytes();
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -535,7 +558,7 @@ cudaError_t launch_wide(const T* q, const T* k, const T* v,
   const dim3 grid((Sq + BQ - 1) / BQ * n_slices, Hq, B);
   flash_bidir_wide_kernel<T, REACH><<<grid, 32 * WARPS, smem, stream>>>(
       q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv, out, Sq, Skv, Hq,
-      Hkv, D, scale, window, q_offset, q_offset_dev, causal, n_slices);
+      Hkv, D, scale, window, q_offset, q_offset_dev, causal, n_slices, bs);
   return cudaGetLastError();
 }
 
@@ -579,8 +602,11 @@ constexpr int tc_max_warps() {
 // QS is the number of bf16 terms of the query operand: 1 without BAOS (q is
 // bf16 and exact, D^-1/2 scales the f32 scores), SPLIT with f_k (q * f_k
 // is f32).  DT is the tile width, D <= DT the head dim: columns past D are
-// loaded as zeros and not stored.  REACH as in the CUDA-core route.
-template <int DT, int QS, bool REACH = false>
+// loaded as zeros and not stored.  REACH as in the CUDA-core route.  BS
+// (with QS 1): bf16 scores -- the query operand is bf16(q * f_k * D^-1/2),
+// rewritten in place, S is rounded to bf16 from the f32 accumulator, P =
+// bf16(exp(bf16(S - bf16(m)))) enters P V as one term.
+template <int DT, int QS, bool REACH = false, bool BS = false>
 __global__ void __launch_bounds__(32 * TC_MAX_WARPS, 1)
 flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -680,6 +706,32 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   prefetch();
 
+  if (BS) {
+    // bf16 scores: the query operand bf16(q * f_k * D^-1/2), the products
+    // in f32 (f_k only with BAOS), 8 values a lane at a time; each lane
+    // rewrites the chunks it loaded
+#pragma unroll
+    for (int e = lane; e < 16 * (DT / 8); e += 32) {
+      const int r = e / (DT / 8), dc = (e % (DT / 8)) * 8;
+      uint4 raw = *reinterpret_cast<const uint4*>(qw + r * DP + dc);
+      uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 pair =
+            *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+        float x0 = __low2float(pair), x1 = __high2float(pair);
+        if (fk != nullptr) {
+          x0 *= cals[dc + 2 * i];
+          x1 *= cals[dc + 2 * i + 1];
+        }
+        const __nv_bfloat162 t = __floats2bfloat162_rn(x0 * scale,
+                                                       x1 * scale);
+        w[i] = *reinterpret_cast<const uint32_t*>(&t);
+      }
+      *reinterpret_cast<uint4*>(qw + r * DP + dc) = raw;
+    }
+    __syncwarp();
+  }
   if (QS > 1) {
     // q * f_k in f32 as QS bf16 terms, 8 values a lane at a time; each lane
     // rewrites the chunks it loaded
@@ -787,8 +839,9 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
 
-      // x D^-1/2; masks: -1e30 for a masked key, -inf (probability 0) past
-      // the source's length
+      // x D^-1/2 (BS: rounded to bf16, the scale already in q); masks:
+      // -1e30 (BS: bf16(-1e30)) for a masked key, -inf (probability 0)
+      // past the source's length
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -802,7 +855,9 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        : (window <= 0 ||
                           abs(qpos[hh] - (src.pos0 + key)) < window));
             float& x = st[j][2 * hh + e];
-            x = key < src.len ? (ok ? x * scale : NEG) : -INFINITY;
+            x = key < src.len ? (ok ? (BS ? bf16r(x) : x * scale)
+                                    : (BS ? NEG_BF16 : NEG))
+                              : -INFINITY;
           }
         }
 
@@ -826,25 +881,29 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             o[n][2 * hh + 1] *= corr;
           }
         }
+        const float mb = bf16r(m_new);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float p = expf(st[j][2 * hh + e] - m_new);
+            const float x = st[j][2 * hh + e];
+            const float p = BS ? bf16r(expf(bf16r(x - mb))) : expf(x - m_new);
             st[j][2 * hh + e] = p;
             l[hh] += p;
           }
       }
 
-      // out += P V: the score tile is the A fragment, 16 keys at a time
+      // out += P V: the score tile is the A fragment, 16 keys at a time (BS:
+      // P is bf16, one exact term)
+      constexpr int PS = BS ? 1 : SPLIT;
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         float x[8] = {st[2 * kk][0], st[2 * kk][1], st[2 * kk][2],
                       st[2 * kk][3], st[2 * kk + 1][0], st[2 * kk + 1][1],
                       st[2 * kk + 1][2], st[2 * kk + 1][3]};
-        uint32_t pa[SPLIT][4];
+        uint32_t pa[PS][4];
 #pragma unroll
-        for (int s = 0; s < SPLIT; ++s)
+        for (int s = 0; s < PS; ++s)
 #pragma unroll
           for (int r = 0; r < 4; ++r) pa[s][r] = split_term(x[2 * r], x[2 * r + 1]);
 #pragma unroll
@@ -853,7 +912,7 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           ldmatrix_x4_trans(bv, smem_addr(vt + (kk * 16 + (lane & 15)) * DP
                                           + np * 16 + (lane >> 4) * 8));
 #pragma unroll
-          for (int s = SPLIT - 1; s >= 0; --s) {
+          for (int s = PS - 1; s >= 0; --s) {
             mma_bf16(o[2 * np], pa[s], bv[0], bv[1]);
             mma_bf16(o[2 * np + 1], pa[s], bv[2], bv[3]);
           }
@@ -895,7 +954,7 @@ flash_bidir_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DT, int QS, bool REACH>
+template <int DT, int QS, bool REACH, bool BS = false>
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
                         const unsigned char* kv_valid, const bf16* k2,
                         const bf16* v2, const unsigned char* kv_valid2,
@@ -906,14 +965,14 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
                         int causal, cudaStream_t stream) {
   constexpr int max_warps = tc_max_warps<DT, QS>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bidir_tc_kernel<DT, QS, REACH>,
+      flash_bidir_tc_kernel<DT, QS, REACH, BS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       tc_smem_bytes<DT, QS>(max_warps));
   if (attr != cudaSuccess) return attr;
   const int rows = (Hq / Hkv) * Sq;
   const int warps = rows >= 16 * max_warps ? max_warps : (rows + 15) / 16;
   const dim3 grid((rows + 16 * warps - 1) / (16 * warps), Hkv, B);
-  flash_bidir_tc_kernel<DT, QS, REACH>
+  flash_bidir_tc_kernel<DT, QS, REACH, BS>
       <<<grid, 32 * warps, tc_smem_bytes<DT, QS>(warps), stream>>>(
           q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv, out, Sq, Skv,
           Hq, Hkv, D, scale, window, q_offset, q_offset_dev, causal);
@@ -937,10 +996,10 @@ cudaError_t dispatch_cc(int D, const T* q, const T* k, const T* v,
                         T* out, int B, int Sq, int Skv, int Hq, int Hkv,
                         float scale, int window, int q_offset,
                         const long long* q_offset_dev, int causal, bool reach,
-                        cudaStream_t stream) {
+                        int bs, cudaStream_t stream) {
 #define FB_ARGS                                                              \
   (q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv, cv, out, B, Sq, Skv,    \
-   Hq, Hkv, D, scale, window, q_offset, q_offset_dev, causal, stream)
+   Hq, Hkv, D, scale, window, q_offset, q_offset_dev, causal, bs, stream)
 #define FB_LAUNCH(DPL)                                                       \
   return reach ? launch_cc<T, DPL, true> FB_ARGS                             \
                : launch_cc<T, DPL, false> FB_ARGS
@@ -958,7 +1017,8 @@ cudaError_t dispatch_cc(int D, const T* q, const T* k, const T* v,
 }
 
 // bf16: the tensor-core route at a head dim that is a multiple of 8 up to
-// 256, the CUDA-core routes at any other.
+// 256, the CUDA-core routes at any other; bs: bf16 scores (one query term
+// with BAOS too).
 cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
                           const unsigned char* kv_valid, const bf16* k2,
                           const bf16* v2, const unsigned char* kv_valid2,
@@ -967,21 +1027,24 @@ cudaError_t dispatch_bf16(int D, const bf16* q, const bf16* k, const bf16* v,
                           int Sq, int Skv, int Hq, int Hkv, float scale,
                           int window, int q_offset,
                           const long long* q_offset_dev, int causal,
-                          bool reach, cudaStream_t stream) {
+                          bool reach, int bs, cudaStream_t stream) {
   if (D % 8 != 0 || tile_of(D) == 0)
     return dispatch_cc<bf16>(D, q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk,
                              fv, cv, out, B, Sq, Skv, Hq, Hkv, scale, window,
-                             q_offset, q_offset_dev, causal, reach, stream);
-#define FB_LAUNCH_AS(DT, QS, R)                                              \
-  launch_bf16<DT, QS, R>(q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk, fv,   \
-                         cv, out, B, Sq, Skv, Hq, Hkv, D, scale, window,     \
-                         q_offset, q_offset_dev, causal, stream)
+                             q_offset, q_offset_dev, causal, reach, bs,
+                             stream);
+#define FB_LAUNCH_AS(DT, QS, R, BS)                                          \
+  launch_bf16<DT, QS, R, BS>(q, k, v, kv_valid, k2, v2, kv_valid2, S2, fk,   \
+                             fv, cv, out, B, Sq, Skv, Hq, Hkv, D, scale,     \
+                             window, q_offset, q_offset_dev, causal, stream)
 #define FB_LAUNCH(DT)                                                        \
-  return fk == nullptr                                                       \
-             ? (reach ? FB_LAUNCH_AS(DT, 1, true)                            \
-                      : FB_LAUNCH_AS(DT, 1, false))                          \
-             : (reach ? FB_LAUNCH_AS(DT, SPLIT, true)                        \
-                      : FB_LAUNCH_AS(DT, SPLIT, false))
+  return bs ? (reach ? FB_LAUNCH_AS(DT, 1, true, true)                       \
+                     : FB_LAUNCH_AS(DT, 1, false, true))                     \
+            : fk == nullptr                                                  \
+             ? (reach ? FB_LAUNCH_AS(DT, 1, true, false)                     \
+                      : FB_LAUNCH_AS(DT, 1, false, false))                   \
+             : (reach ? FB_LAUNCH_AS(DT, SPLIT, true, false)                 \
+                      : FB_LAUNCH_AS(DT, SPLIT, false, false))
   switch (tile_of(D)) {
     case 32: FB_LAUNCH(32);
     case 64: FB_LAUNCH(64);
@@ -1019,7 +1082,8 @@ bool reach_walk(int window, int causal, int q_offset, bool device_offset,
 // causal != 0 masks keys past each row's position.  Route B:
 // k2/v2 (B, S2, Hkv, D) of q's dtype, contiguous, a second K/V source
 // whose key j sits at q_offset + j, with kv_valid2 (B, S2) bool (may be
-// null); k2 null (S2 ignored): the cache alone.
+// null); k2 null (S2 ignored): the cache alone.  bf16_scores != 0: JAX's
+// bf16 scores (scale is then D^-1/2 rounded to the activations' dtype).
 extern "C" int flash_bidir_launch(const void* q, const void* k, const void* v,
                                   const void* kv_valid, const void* k2,
                                   const void* v2, const void* kv_valid2,
@@ -1028,7 +1092,8 @@ extern "C" int flash_bidir_launch(const void* q, const void* k, const void* v,
                                   int B, int Sq, int Skv, int Hq, int Hkv,
                                   int D, float scale, int window, int q_offset,
                                   const void* q_offset_dev, int causal,
-                                  int is_bf16, void* stream) {
+                                  int is_bf16, int bf16_scores,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k2 != nullptr && (v2 == nullptr || S2 < 1)) return cudaErrorInvalidValue;
   const auto* valid = static_cast<const unsigned char*>(kv_valid);
@@ -1046,13 +1111,13 @@ extern "C" int flash_bidir_launch(const void* q, const void* k, const void* v,
         static_cast<const float*>(v), valid, static_cast<const float*>(k2),
         static_cast<const float*>(v2), valid2, S2, fk_, fv_, cv_,
         static_cast<float*>(out), B, Sq, Skv, Hq, Hkv, scale, window,
-        q_offset, off, causal, reach, st));
+        q_offset, off, causal, reach, bf16_scores != 0, st));
   return static_cast<int>(dispatch_bf16(
       D, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), valid, static_cast<const bf16*>(k2),
       static_cast<const bf16*>(v2), valid2, S2, fk_, fv_, cv_,
       static_cast<bf16*>(out), B, Sq, Skv, Hq, Hkv, scale, window, q_offset,
-      off, causal, reach, st));
+      off, causal, reach, bf16_scores != 0, st));
 }
 
 namespace {
@@ -1115,6 +1180,22 @@ const KernelAttr ATTRS[] = {
                 (tc_smem_bytes<256, SPLIT>(tc_max_warps<256, SPLIT>()))),
     KERNEL_ATTR((flash_bidir_tc_kernel<256, SPLIT, true>),
                 (tc_smem_bytes<256, SPLIT>(tc_max_warps<256, SPLIT>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<32, 1, false, true>),
+                (tc_smem_bytes<32, 1>(tc_max_warps<32, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<32, 1, true, true>),
+                (tc_smem_bytes<32, 1>(tc_max_warps<32, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<64, 1, false, true>),
+                (tc_smem_bytes<64, 1>(tc_max_warps<64, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<64, 1, true, true>),
+                (tc_smem_bytes<64, 1>(tc_max_warps<64, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<128, 1, false, true>),
+                (tc_smem_bytes<128, 1>(tc_max_warps<128, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<128, 1, true, true>),
+                (tc_smem_bytes<128, 1>(tc_max_warps<128, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<256, 1, false, true>),
+                (tc_smem_bytes<256, 1>(tc_max_warps<256, 1>()))),
+    KERNEL_ATTR((flash_bidir_tc_kernel<256, 1, true, true>),
+                (tc_smem_bytes<256, 1>(tc_max_warps<256, 1>()))),
 };
 }  // namespace
 

@@ -120,7 +120,30 @@
 // each split their output columns over CTAs in slices of 256 and read
 // those statistics; every slice forms S and dP over the full D in chunks
 // of 128 columns, in one order (wide_s_dp), so the slices of a row use the
-// same bits.  No atomics: each output element is one CTA's.  Shared memory at DT 256: kernel 1 at 8 warps 202.8 KB,
+// same bits.  No atomics: each output element is one CTA's.
+//
+// bf16 scores (bf16_scores != 0; jax.grad of JAX's bf16-score attention):
+// kernel 0, flash_bidir_bwd_qscale, writes qg = bf16(q * scale) (scale
+// rounded to q's dtype) into a scratch that every other kernel reads in
+// place of q.  S = bf16(qg . bf16(k)) without a scale, masked bf16(-1e30);
+// P = bf16(exp(bf16(S - bf16(m)))) unnormalized, l = sum P (kernel 1
+// online, as the forward); dP = bf16(bf16(dp / l) - bf16(delta / l)) (the
+// cotangent of P from o and from l, each bf16) and dS = bf16(P dP), 0
+// where masked; dq = bf16(sum dS k) x D^-1/2, dk = bf16(sum dS qg) (no
+// D^-1/2) and dv = bf16(sum (P / l) dO): where JAX rounds.  jax.grad also
+// sends the softmax max's cotangent, -sum_j dS_ij, to the row's keys at
+// the max (split over ties), which restores what dS's roundings take from
+// a row's shift invariance (without it qwen2-0.5b's key-bias gradients
+// fell to cosines of 0.975-0.987 to f32 on the card, where plain kept
+// 0.992-0.996); so do the kernels (bf16_mcorr: an f32 sum of the row's dS
+// in a pass of its own before dq's -- kernel 1's pass 1b, the wide route's
+// statistics kernel -- written as a fourth statistics row that every dq
+// and dk/dv kernel adds to the dS of the row's keys at the max).  The
+// tensor-core route takes the MASKED instantiations with BS alone; the
+// split sum then scales dk by 1.  The CUDA-core and wide kernels take a
+// runtime flag.
+//
+// Shared memory at DT 256: kernel 1 at 8 warps 202.8 KB,
 // kernel 2 170.1 KB (bf16); 98.6 KB and 102.8 KB (f32).  Registers from
 // 120 to 252 a thread, no spill (PERF.md).
 #include "common.cuh"
@@ -138,7 +161,7 @@ constexpr int dq_smem_bytes(int DT) {
   return (2 * BQ * DT + 2 * BK * (DT + 1)) * 4;
 }
 constexpr int dkv_smem_bytes(int DT) {
-  return (2 * BK * (DT + 1) + 2 * RC * DT + 2 * RC * BK + 4 * RC) * 4;
+  return (2 * BK * (DT + 1) + 2 * RC * DT + 2 * RC * BK + 5 * RC) * 4;
 }
 
 __device__ __forceinline__ bool key_ok(const unsigned char* kv_valid, int b,
@@ -155,19 +178,71 @@ __device__ __forceinline__ bool in_reach(int qp, int kp, int window,
 }
 
 // Stage keys [k0, k0 + BK) of KV head hk of `src` as f32 rows of dst
-// ([BK][DT + 1]); keys past Skv and columns past D are zeros.
+// ([BK][DT + 1]); keys past Skv and columns past D are zeros; bs: each
+// value rounded to bf16 (bf16 scores read bf16(k) and bf16(v)).
 template <typename T, int DT>
 __device__ __forceinline__ void stage_keys(float (*dst)[DT + 1],
                                            const T* __restrict__ src, int b,
                                            int k0, int hk, int Skv, int Hkv,
-                                           int D, int tid, int nthreads) {
+                                           int D, int tid, int nthreads,
+                                           int bs) {
   for (int e = tid; e < BK * DT; e += nthreads) {
     const int j = e / DT, dd = e % DT, gk = k0 + j;
     float x = 0.f;
     if (gk < Skv && dd < D)
       x = to_f32(src[((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D + dd]);
-    dst[j][dd] = x;
+    dst[j][dd] = bs ? bf16r(x) : x;
   }
+}
+
+// bf16 scores' query operand: qg = bf16(q * scale) (scale rounded to q's
+// dtype by the caller), stored in q's dtype, which the kernels below read
+// in place of q (kernel 0 of a bf16-score launch; n values, 4 a thread).
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bidir_bwd_qscale(const T* __restrict__ q, T* __restrict__ qg,
+                       long long n, float scale) {
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i0 + i < n) qg[i0 + i] = from_f32<T>(bf16r(to_f32(q[i0 + i]) * scale));
+}
+
+// bf16 scores (JAX's jax.grad of its bf16-score attention): the
+// unnormalized probability P = bf16(exp(bf16(S - bf16(m)))) of a bf16
+// score S, and dS = bf16(P * bf16(bf16(dp / l) - bf16(delta / l))): the
+// cotangent of P is bf16 (its two parts, from o and from l, each rounded),
+// and dS is their bf16 product.
+__device__ __forceinline__ float bf16_p(float s, float m) {
+  return bf16r(expf(bf16r(s - bf16r(m))));
+}
+__device__ __forceinline__ float bf16_dp(float dp, float inv_l,
+                                         float delta) {
+  return bf16r(bf16r(dp * inv_l) - bf16r(delta * inv_l));
+}
+__device__ __forceinline__ float bf16_ds(float s, float m, float dp,
+                                         float inv_l, float delta) {
+  return bf16r(bf16_p(bf16r(s), m) * bf16_dp(dp, inv_l, delta));
+}
+// The softmax max's cotangent (jax.grad sends -sum_j dS_ij through m to
+// the row's keys at the max, split evenly over ties): from a row's f32 sum
+// of dS and its count of valid keys at the max, the bf16 term each such
+// key's dS takes on (0 for a row whose max is a mask's).
+__device__ __forceinline__ float bf16_mcorr(float eps, float ties) {
+  return ties > 0.f ? bf16r(bf16r(-eps) / ties) : 0.f;
+}
+// dS of a valid key (bf16_ds) with that term added where S is the row max.
+__device__ __forceinline__ float bf16_ds_m(float s, float m, float dp,
+                                           float inv_l, float delta,
+                                           float mc) {
+  const float ds = bf16_ds(s, m, dp, inv_l, delta);
+  return bf16r(s) == m ? bf16r(ds + mc) : ds;
+}
+// dq from its f32 sum: x D^-1/2; with bf16 scores bf16(sum) x D^-1/2 (JAX's
+// dq of qg comes out of a bf16 product).
+__device__ __forceinline__ float dq_of(float acc, float scale, int bs) {
+  return (bs ? bf16r(acc) : acc) * scale;
 }
 
 template <typename T, int DPL>
@@ -177,7 +252,7 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                    const unsigned char* __restrict__ kv_valid,
                    T* __restrict__ dq, float* __restrict__ stats, int B,
                    int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                   int window, int q_offset, int causal) {
+                   int window, int q_offset, int causal, int bs) {
   constexpr int DT = 32 * DPL;
   extern __shared__ __align__(16) float smem_dq[];
   float(*qs)[DT] = reinterpret_cast<float(*)[DT]>(smem_dq);
@@ -203,6 +278,26 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     dos[r][dd] = g;
   }
 
+  // s_i = q_i . k_lane and dp_i = dO_i . v_lane for the key tile at k0,
+  // staged after a barrier (the previous tile read, the q rows written)
+  auto tile_sdp = [&](int k0, float (&s)[RPW], float (&dp)[RPW]) {
+    __syncthreads();
+    stage_keys<T, DT>(ks, k, b, k0, hk, Skv, Hkv, D, tid, nthreads, bs);
+    stage_keys<T, DT>(vs, v, b, k0, hk, Skv, Hkv, D, tid, nthreads, bs);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll 8
+    for (int dd = 0; dd < DT; ++dd) {
+      const float kx = ks[lane][dd], vx = vs[lane][dd];
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        s[i] = fmaf(qs[warp * RPW + i][dd], kx, s[i]);
+        dp[i] = fmaf(dos[warp * RPW + i][dd], vx, dp[i]);
+      }
+    }
+  };
+
   // pass 1: each row's max, sum and sum of e_ij dp_ij over every key tile
   // (online, as the forward's softmax)
   float m[RPW], l[RPW], pdp[RPW];
@@ -214,42 +309,52 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     qpos[i] = q_offset + q0 + warp * RPW + i;
   }
   for (int k0 = 0; k0 < Skv; k0 += BK) {
-    __syncthreads();   // previous tile read (and the q rows written)
-    stage_keys<T, DT>(ks, k, b, k0, hk, Skv, Hkv, D, tid, nthreads);
-    stage_keys<T, DT>(vs, v, b, k0, hk, Skv, Hkv, D, tid, nthreads);
-    __syncthreads();
+    float s[RPW], dp[RPW];
+    tile_sdp(k0, s, dp);
     const int gk = k0 + lane;
     const bool in_range = gk < Skv;
     const bool valid = key_ok(kv_valid, b, Skv, gk);
-    float s[RPW], dp[RPW];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll 8
-    for (int dd = 0; dd < DT; ++dd) {
-      const float kx = ks[lane][dd], vx = vs[lane][dd];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        s[i] = fmaf(qs[warp * RPW + i][dd], kx, s[i]);
-        dp[i] = fmaf(dos[warp * RPW + i][dd], vx, dp[i]);
-      }
-    }
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const bool ok = valid && in_reach(qpos[i], gk, window, causal);
-      const float x = in_range ? (ok ? s[i] * scale : NEG) : -INFINITY;
+      const float x = in_range ? (ok ? (bs ? bf16r(s[i]) : s[i] * scale)
+                                     : (bs ? NEG_BF16 : NEG))
+                               : -INFINITY;
       const float m_new = fmaxf(m[i], warp_max(x));
-      const float corr = expf(m[i] - m_new), e = expf(x - m_new);
+      const float corr = expf(m[i] - m_new);
+      const float e = bs ? bf16r(expf(bf16r(x - bf16r(m_new))))
+                         : expf(x - m_new);
       l[i] = l[i] * corr + warp_sum(e);
       pdp[i] = pdp[i] * corr + warp_sum(in_range ? e * dp[i] : 0.f);
       m[i] = m_new;
     }
   }
 
-  float inv_l[RPW], delta[RPW];
+  float inv_l[RPW], delta[RPW], mc[RPW], eps[RPW], ties[RPW];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     inv_l[i] = 1.f / fmaxf(l[i], 1e-30f);
     delta[i] = pdp[i] * inv_l[i];
+    mc[i] = eps[i] = ties[i] = 0.f;
+  }
+  // bf16 scores, pass 1b: each row's sum of dS and its keys at the max
+  // (bf16_mcorr)
+  for (int k0 = 0; bs && k0 < Skv; k0 += BK) {
+    float s[RPW], dp[RPW];
+    tile_sdp(k0, s, dp);
+    const int gk = k0 + lane;
+    const bool ok_k = gk < Skv && key_ok(kv_valid, b, Skv, gk);
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const bool ok = ok_k && in_reach(qpos[i], gk, window, causal);
+      eps[i] += warp_sum(ok ? bf16_ds(s[i], m[i], dp[i], inv_l[i], delta[i])
+                            : 0.f);
+      ties[i] += warp_sum(ok && bf16r(s[i]) == m[i] ? 1.f : 0.f);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    mc[i] = bf16_mcorr(eps[i], ties[i]);
     const int gq = q0 + warp * RPW + i;
     if (lane == 0 && gq < Sq) {
       const size_t si = (static_cast<size_t>(b) * Hq + h) * Sq + gq;
@@ -257,6 +362,7 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
       stats[si] = m[i];
       stats[n + si] = l[i];
       stats[2 * n + si] = delta[i];
+      if (bs) stats[3 * n + si] = mc[i];
     }
   }
 
@@ -268,32 +374,19 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = 0; t < DPL; ++t) acc[i][t] = 0.f;
 
   for (int k0 = 0; k0 < Skv; k0 += BK) {
-    __syncthreads();
-    stage_keys<T, DT>(ks, k, b, k0, hk, Skv, Hkv, D, tid, nthreads);
-    stage_keys<T, DT>(vs, v, b, k0, hk, Skv, Hkv, D, tid, nthreads);
-    __syncthreads();
+    float s[RPW], dp[RPW];
+    tile_sdp(k0, s, dp);
     const int gk = k0 + lane;
     const bool in_range = gk < Skv;
     const bool valid = key_ok(kv_valid, b, Skv, gk);
-    float s[RPW], dp[RPW];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll 8
-    for (int dd = 0; dd < DT; ++dd) {
-      const float kx = ks[lane][dd], vx = vs[lane][dd];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        s[i] = fmaf(qs[warp * RPW + i][dd], kx, s[i]);
-        dp[i] = fmaf(dos[warp * RPW + i][dd], vx, dp[i]);
-      }
-    }
     float ds[RPW];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const bool ok =
           in_range && valid && in_reach(qpos[i], gk, window, causal);
-      ds[i] = ok ? expf(s[i] * scale - m[i]) * inv_l[i] * (dp[i] - delta[i])
-                 : 0.f;
+      ds[i] = !ok ? 0.f
+              : bs ? bf16_ds_m(s[i], m[i], dp[i], inv_l[i], delta[i], mc[i])
+                   : expf(s[i] * scale - m[i]) * inv_l[i] * (dp[i] - delta[i]);
     }
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
@@ -317,7 +410,7 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < DPL; ++t) {
       const int dd = lane + 32 * t;
-      if (dd < D) dq[row + dd] = from_f32<T>(acc[i][t] * scale);
+      if (dd < D) dq[row + dd] = from_f32<T>(dq_of(acc[i][t], scale, bs));
     }
   }
 }
@@ -330,7 +423,7 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ stats, T* __restrict__ dk,
                     T* __restrict__ dv, int B, int Sq, int Skv, int Hq,
                     int Hkv, int D, float scale, int window, int q_offset,
-                    int causal) {
+                    int causal, int bs) {
   constexpr int DT = 32 * DPL;
   constexpr int NC = DT / KWARPS;    // contiguous columns a thread owns
   extern __shared__ __align__(16) float smem_dkv[];
@@ -344,7 +437,8 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   float* row_m = rest + 2 * RC * DT + 2 * RC * BK;
   float* row_il = row_m + RC;
   float* row_delta = row_il + RC;
-  int* row_pos = reinterpret_cast<int*>(row_delta + RC);
+  float* row_mc = row_delta + RC;   // bf16 scores: bf16_mcorr's term
+  int* row_pos = reinterpret_cast<int*>(row_mc + RC);
 
   const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv, n_rows = G * Sq;
@@ -352,8 +446,8 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   const int nthreads = 32 * KWARPS;
   const size_t n_stats = static_cast<size_t>(B) * Hq * Sq;
 
-  stage_keys<T, DT>(ks, k, b, k0, hk, Skv, Hkv, D, tid, nthreads);
-  stage_keys<T, DT>(vs, v, b, k0, hk, Skv, Hkv, D, tid, nthreads);
+  stage_keys<T, DT>(ks, k, b, k0, hk, Skv, Hkv, D, tid, nthreads, bs);
+  stage_keys<T, DT>(vs, v, b, k0, hk, Skv, Hkv, D, tid, nthreads, bs);
   const int gk = k0 + lane;
   const bool in_range = gk < Skv;
   const bool valid = key_ok(kv_valid, b, Skv, gk);
@@ -385,11 +479,13 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
         row_m[tid] = stats[si];
         row_il[tid] = 1.f / fmaxf(stats[n_stats + si], 1e-30f);
         row_delta[tid] = stats[2 * n_stats + si];
+        row_mc[tid] = bs ? stats[3 * n_stats + si] : 0.f;
         row_pos[tid] = q_offset + pos;
       } else {               // a row past the last: p = 0, ds = 0
         row_m[tid] = 0.f;
         row_il[tid] = 0.f;
         row_delta[tid] = 0.f;
+        row_mc[tid] = 0.f;
         row_pos[tid] = 0;
       }
     }
@@ -413,11 +509,21 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < RW; ++i) {
       const int r = warp + KWARPS * i;
       const bool ok = valid && in_reach(row_pos[r], gk, window, causal);
-      const float p =
-          in_range ? expf((ok ? s[i] * scale : NEG) - row_m[r]) * row_il[r]
-                   : 0.f;
-      ps[r][lane] = p;
-      dss[r][lane] = ok && in_range ? p * (dp[i] - row_delta[r]) : 0.f;
+      if (bs) {
+        const float pu =
+            in_range ? bf16_p(ok ? bf16r(s[i]) : NEG_BF16, row_m[r]) : 0.f;
+        ps[r][lane] = pu * row_il[r];
+        dss[r][lane] = ok && in_range
+            ? bf16_ds_m(s[i], row_m[r], dp[i], row_il[r], row_delta[r],
+                        row_mc[r])
+            : 0.f;
+      } else {
+        const float p =
+            in_range ? expf((ok ? s[i] * scale : NEG) - row_m[r]) * row_il[r]
+                     : 0.f;
+        ps[r][lane] = p;
+        dss[r][lane] = ok && in_range ? p * (dp[i] - row_delta[r]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -447,8 +553,8 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < NC; ++c) {
     const int dd = warp * NC + c;
     if (dd < D) {
-      dk[row + dd] = from_f32<T>(adk[c] * scale);
-      dv[row + dd] = from_f32<T>(adv[c]);
+      dk[row + dd] = from_f32<T>(bs ? bf16r(adk[c]) : adk[c] * scale);
+      dv[row + dd] = from_f32<T>(bs ? bf16r(adv[c]) : adv[c]);
     }
   }
 }
@@ -503,17 +609,22 @@ __host__ __device__ constexpr int dkv_roles(int DT) {
   return DT == 256 ? 2 : 1;
 }
 
+// Rows of the statistics scratch a packed row has on the tensor-core
+// route: m, 1/l, delta, and with bf16 scores bf16_mcorr's term.
+__host__ __device__ constexpr int stat_rows(bool bs) { return bs ? 4 : 3; }
+
 // Dynamic shared memory of a dk/dv CTA at tile width DT, in bytes: its K
 // and V tile, and a ring of row chunks (q rows, dO rows and the rows'
-// m, 1/l, delta).
-constexpr int dkv_tc_smem_bytes(int DT) {
+// statistics).
+constexpr int dkv_tc_smem_bytes(int DT, bool bs = false) {
   return (2 * KV_BN + 2 * TC_STAGES * KV_BM) * (DT + 8) * 2 +
-         TC_STAGES * 3 * KV_BM * 4;
+         TC_STAGES * stat_rows(bs) * KV_BM * 4;
 }
 
-// The row-statistics scratch holds, per (batch row, KV head), three rows
-// of NR floats (m, 1/l, delta of each packed row), NR = G * Sq rounded up
-// to 4 so that a chunk's statistics are 16-byte copies.
+// The row-statistics scratch holds, per (batch row, KV head), stat_rows
+// rows of NR floats (m, 1/l, delta of each packed row, and with bf16
+// scores bf16_mcorr's term), NR = G * Sq rounded up to 4 so that a chunk's
+// statistics are 16-byte copies.
 __host__ __device__ __forceinline__ int stats_stride(int n_rows) {
   return (n_rows + 3) & ~3;
 }
@@ -555,8 +666,10 @@ __device__ __forceinline__ void queries_reaching(int kmin, int kmax,
 // r / G, as in the forward, so the K/V tiles a CTA stages serve every q
 // head of its rows.  Pass 0 forms S and dP over the key tiles in reach
 // and keeps each row's max, sum and sum of e_ij dp_ij online; pass 1
-// forms them again with the final statistics and sums dS K into dq.
-template <int DT, bool MASKED = false>
+// forms them again with the final statistics and sums dS K into dq.  BS:
+// bf16 scores (q is then qg = bf16(q D^-1/2); S rounded to bf16, P and dS
+// as bf16_p and bf16_ds, dq = bf16(dS K) D^-1/2).
+template <int DT, bool MASKED = false, bool BS = false>
 __global__ void __launch_bounds__(32 * TC_MAX_WARPS, 1)
 flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -648,6 +761,11 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, pdp[2] = {0.f, 0.f};
   float il[2], dl[2];
+  // BS: each row's sum of dS and its keys at the max, then bf16_mcorr's
+  // term (pass 1; the dq product is pass 2)
+  float eps[2] = {0.f, 0.f}, ties[2] = {0.f, 0.f}, mc[2] = {0.f, 0.f};
+  constexpr int NPASS = BS ? 3 : 2;
+  constexpr int SR = stat_rows(BS);
   float acc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -655,7 +773,7 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
 #pragma unroll 1
-  for (int pass = 0; pass < 2; ++pass) {
+  for (int pass = 0; pass < NPASS; ++pass) {
     prefetch();
     for (int w = 0; w < n_w; ++w) {
       cp_async_wait<STAGES - 2>();      // tile w has landed
@@ -720,7 +838,9 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                    causal)));
             float& x = st[j][2 * hh + e];
             okm[j][2 * hh + e] = ok;
-            x = key < Skv ? (ok ? x * scale : NEG) : -INFINITY;
+            x = key < Skv ? (ok ? (BS ? bf16r(x) : x * scale)
+                                : (BS ? NEG_BF16 : NEG))
+                          : -INFINITY;
           }
         }
 
@@ -743,7 +863,8 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int j = 0; j < NK; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const float p = expf(st[j][2 * hh + e] - m_new);
+              const float x = st[j][2 * hh + e];
+              const float p = BS ? bf16_p(x, m_new) : expf(x - m_new);
               l[hh] += p;
               pdp[hh] += p * dpt[j][2 * hh + e];
             }
@@ -755,9 +876,25 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int hh = e >> 1;
-            const float p = expf(st[j][e] - m[hh]) * il[hh];
-            st[j][e] = okm[j][e] ? p * (dpt[j][e] - dl[hh]) : 0.f;
+            if (BS) {
+              const float x = st[j][e];
+              const bool tie = okm[j][e] && x == m[hh];
+              float ds = okm[j][e] ? bf16r(bf16_p(x, m[hh]) *
+                                           bf16_dp(dpt[j][e], il[hh], dl[hh]))
+                                   : 0.f;
+              if (pass == 1) {
+                eps[hh] += ds;
+                ties[hh] += tie ? 1.f : 0.f;
+              } else if (tie) {
+                ds = bf16r(ds + mc[hh]);
+              }
+              st[j][e] = ds;
+            } else {
+              const float p = expf(st[j][e] - m[hh]) * il[hh];
+              st[j][e] = okm[j][e] ? p * (dpt[j][e] - dl[hh]) : 0.f;
+            }
           }
+        if (BS && pass == 1) continue;     // the sums alone: no product
 #pragma unroll
         for (int kk = 0; kk < NK / 2; ++kk) {
           uint32_t a[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
@@ -777,7 +914,22 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     cp_async_wait<0>();                    // the walk's trailing groups
     __syncthreads();                       // every tile read: ring free
-    if (pass == 1) break;
+    if (pass == NPASS - 1) break;
+    if (pass == 1) {                       // BS: bf16_mcorr's term
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        eps[hh] += __shfl_xor_sync(FULL_MASK, eps[hh], 1);
+        eps[hh] += __shfl_xor_sync(FULL_MASK, eps[hh], 2);
+        ties[hh] += __shfl_xor_sync(FULL_MASK, ties[hh], 1);
+        ties[hh] += __shfl_xor_sync(FULL_MASK, ties[hh], 2);
+        mc[hh] = bf16_mcorr(eps[hh], ties[hh]);
+        const int row = row0 + g + 8 * hh;
+        if (c == 0 && row < NR)
+          stats[((static_cast<size_t>(b) * Hkv + hk) * SR + 3) * NR + row] =
+              live[hh] ? mc[hh] : 0.f;
+      }
+      continue;
+    }
 
     // the rows' statistics.  A row with no valid key in its reach has no
     // valid key at all: it averages every key (l = Skv, m = -1e30; its ds
@@ -793,7 +945,7 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dl[hh] = dead ? 0.f : pdp[hh] * il[hh];
       const int row = row0 + g + 8 * hh;
       if (c == 0 && row < NR) {           // rows past G * Sq: zeros
-        float* sr = stats + (static_cast<size_t>(b) * Hkv + hk) * 3 * NR + row;
+        float* sr = stats + (static_cast<size_t>(b) * Hkv + hk) * SR * NR + row;
         sr[0] = live[hh] ? m[hh] : 0.f;
         sr[NR] = live[hh] ? il[hh] : 0.f;
         sr[2 * NR] = live[hh] ? dl[hh] : 0.f;
@@ -809,8 +961,8 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int dd = 8 * n + 2 * c;
       if (dd >= D) break;                // D is a multiple of 8
       *reinterpret_cast<__nv_bfloat162*>(dq + orow[hh] + dd) =
-          __floats2bfloat162_rn(acc[n][2 * hh] * scale,
-                                acc[n][2 * hh + 1] * scale);
+          __floats2bfloat162_rn(dq_of(acc[n][2 * hh], scale, BS),
+                                dq_of(acc[n][2 * hh + 1], scale, BS));
     }
   }
 }
@@ -821,8 +973,10 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // dP^T = V dO^T with the keys as the mma's rows, so that P^T and dS^T are
 // the A fragments of dV += P^T dO and dK += dS^T Q without leaving
 // registers.  n_split == 1: dk, dv written; else f32 partials of split s
-// into part[0 (dk) / 1 (dv)][s], summed by flash_bidir_bwd_split_sum.
-template <int DT, bool MASKED = false>
+// into part[0 (dk) / 1 (dv)][s], summed by flash_bidir_bwd_split_sum.  BS:
+// bf16 scores (q is qg, as in the dq kernel; P^T V's operand bf16(P / l),
+// dS as bf16_ds; dk = bf16(dS^T qg), no D^-1/2).
+template <int DT, bool MASKED = false, bool BS = false>
 __global__ void __launch_bounds__(128 * dkv_roles(DT), 1)
 flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
@@ -844,8 +998,9 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [BN][DP]
   bf16* vs = ks + KV_BN * DP;                     // [BN][DP]
   bf16* ring = vs + KV_BN * DP;                   // [STAGES][q, dO][BM][DP]
+  constexpr int SR = stat_rows(BS);
   float* sts = reinterpret_cast<float*>(ring + TC_STAGES * CH);
-  //                                               [STAGES][m, 1/l, delta][BM]
+  //                          [STAGES][m, 1/l, delta (, BS: mcorr)][BM]
 
   const int k0 = blockIdx.x * KV_BN, hk = blockIdx.y;
   const int b = blockIdx.z / n_split, split = blockIdx.z % n_split;
@@ -855,7 +1010,7 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool do_v = ROLES == 1 || role == 0;
   const bool do_k = ROLES == 1 || role == 1;
   const int G = Hq / Hkv, n_rows = G * Sq, NR = stats_stride(n_rows);
-  const float* st_b = stats + (static_cast<size_t>(b) * Hkv + hk) * 3 * NR;
+  const float* st_b = stats + (static_cast<size_t>(b) * Hkv + hk) * SR * NR;
   const int s_lo = split * split_rows;
   const int s_hi = min(s_lo + split_rows, n_rows);
   const bool reach = MASKED && (window > 0 || causal);
@@ -902,7 +1057,7 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_chunk = [&](int w) {
     bf16* qd = ring + (w % TC_STAGES) * CH;
     bf16* dd = qd + KV_BM * DP;
-    float* sd = sts + (w % TC_STAGES) * 3 * KV_BM;
+    float* sd = sts + (w % TC_STAGES) * SR * KV_BM;
     const int r0 = (c_lo + w) * KV_BM;
     for (int e = tid; e < KV_BM * (DT / 8); e += blockDim.x) {
       const int i = e / (DT / 8), dc = (e % (DT / 8)) * 8, row = r0 + i;
@@ -915,7 +1070,7 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_16(smem_addr(dd + i * DP + dc), dout + o, ok);
     }
     // rows past G * Sq: zeros (p = 0, ds = 0)
-    for (int e = tid; e < 3 * (KV_BM / 4); e += blockDim.x) {
+    for (int e = tid; e < SR * (KV_BM / 4); e += blockDim.x) {
       const int which = e / (KV_BM / 4), i = (e % (KV_BM / 4)) * 4;
       const bool ok = r0 + i < NR;
       cp_async_16(smem_addr(sd + which * KV_BM + i),
@@ -956,7 +1111,7 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     const bf16* qc = ring + (w % TC_STAGES) * CH;
     const bf16* dc = qc + KV_BM * DP;
-    const float* sm = sts + (w % TC_STAGES) * 3 * KV_BM;
+    const float* sm = sts + (w % TC_STAGES) * SR * KV_BM;
     const int r0 = (c_lo + w) * KV_BM;
 
     // S^T and dP^T: 16 keys x 32 rows, four 8-row tiles
@@ -996,22 +1151,36 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float2 mm = *reinterpret_cast<const float2*>(sm + ri);
       const float2 ll = *reinterpret_cast<const float2*>(sm + KV_BM + ri);
       const float2 de = *reinterpret_cast<const float2*>(sm + 2 * KV_BM + ri);
+      const float2 mcv = BS ? *reinterpret_cast<const float2*>(
+                                  sm + 3 * KV_BM + ri)
+                            : make_float2(0.f, 0.f);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int pos = q_offset + (r0 + ri + e) / G;
         const float rm = e ? mm.y : mm.x, rl = e ? ll.y : ll.x;
-        const float rd = e ? de.y : de.x;
+        const float rd = e ? de.y : de.x, rc = e ? mcv.y : mcv.x;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const bool ok =
               kok[i] && (!reach || in_reach(pos, key[i], window, causal));
           float& x = st[j][2 * i + e];
-          const float p =
-              kin[i] ? expf((ok ? x * scale : NEG) - rm) * rl : 0.f;
-          x = p;
-          if (do_k) {
-            float& y = dpt[j][2 * i + e];
-            y = ok ? p * (y - rd) : 0.f;
+          if (BS) {
+            const float sb = bf16r(x);
+            const float pu = kin[i] ? bf16_p(ok ? sb : NEG_BF16, rm) : 0.f;
+            x = pu * rl;
+            if (do_k) {
+              float& y = dpt[j][2 * i + e];
+              y = ok ? bf16r(pu * bf16_dp(y, rl, rd)) : 0.f;
+              if (ok && sb == rm) y = bf16r(y + rc);
+            }
+          } else {
+            const float p =
+                kin[i] ? expf((ok ? x * scale : NEG) - rm) * rl : 0.f;
+            x = p;
+            if (do_k) {
+              float& y = dpt[j][2 * i + e];
+              y = ok ? p * (y - rd) : 0.f;
+            }
           }
         }
       }
@@ -1058,7 +1227,7 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int a = 0; a < NA; ++a) {
     // which: 0 dk, 1 dv
     const int which = ROLES == 1 ? (a == 0 ? 1 : 0) : (role == 0 ? 1 : 0);
-    const float f = which == 0 ? scale : 1.f;
+    const float f = which == 0 && !BS ? scale : 1.f;
     bf16* out = which == 0 ? dk : dv;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1113,7 +1282,7 @@ flash_bidir_bwd_split_sum(const float* __restrict__ part,
   }
 }
 
-template <int DT, bool MASKED>
+template <int DT, bool MASKED, bool BS = false>
 cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
                       const bf16* dout, const unsigned char* kv_valid,
                       bf16* dq, bf16* dk, bf16* dv, float* stats, float* part,
@@ -1130,16 +1299,17 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
       (n_split > 1 && part == nullptr))
     return cudaErrorInvalidValue;
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      flash_bidir_bwd_dq_tc<DT, MASKED>,
+      flash_bidir_bwd_dq_tc<DT, MASKED, BS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       dq_tc_smem_bytes(DT, MASKED, max_w));
   if (attr_dq != cudaSuccess) return attr_dq;
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      flash_bidir_bwd_dkv_tc<DT, MASKED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_tc_smem_bytes(DT));
+      flash_bidir_bwd_dkv_tc<DT, MASKED, BS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkv_tc_smem_bytes(DT, BS));
   if (attr_dkv != cudaSuccess) return attr_dkv;
   const dim3 grid_q((n_rows + 16 * dq_warps - 1) / (16 * dq_warps), Hkv, B);
-  flash_bidir_bwd_dq_tc<DT, MASKED><<<grid_q, 32 * dq_warps,
+  flash_bidir_bwd_dq_tc<DT, MASKED, BS><<<grid_q, 32 * dq_warps,
                                       dq_tc_smem_bytes(DT, MASKED,
                                                        dq_warps),
                                       stream>>>(
@@ -1148,15 +1318,17 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k((Skv + KV_BN - 1) / KV_BN, Hkv, B * n_split);
-  flash_bidir_bwd_dkv_tc<DT, MASKED><<<grid_k, 128 * dkv_roles(DT),
-                                       dkv_tc_smem_bytes(DT), stream>>>(
+  flash_bidir_bwd_dkv_tc<DT, MASKED, BS><<<grid_k, 128 * dkv_roles(DT),
+                                           dkv_tc_smem_bytes(DT, BS),
+                                           stream>>>(
       q, k, v, dout, kv_valid, stats, dk, dv, part, B, Sq, Skv, Hq, Hkv, D,
       split_rows, n_split, scale, window, q_offset, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   const long long n4 = static_cast<long long>(B) * Skv * Hkv * D / 4;
   flash_bidir_bwd_split_sum<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0,
-                              stream>>>(part, dk, dv, n4, n_split, scale);
+                              stream>>>(part, dk, dv, n4, n_split,
+                                        BS ? 1.f : scale);
   return cudaGetLastError();
 }
 
@@ -1168,7 +1340,7 @@ cudaError_t launch_cc(const T* q, const T* k, const T* v, const T* dout,
                       const unsigned char* kv_valid, T* dq, T* dk, T* dv,
                       float* stats, int B, int Sq, int Skv, int Hq, int Hkv,
                       int D, float scale, int window, int q_offset,
-                      int causal, cudaStream_t stream) {
+                      int causal, int bs, cudaStream_t stream) {
   constexpr int DT = 32 * DPL;
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
       flash_bidir_bwd_dq<T, DPL>,
@@ -1182,14 +1354,14 @@ cudaError_t launch_cc(const T* q, const T* k, const T* v, const T* dout,
   flash_bidir_bwd_dq<T, DPL>
       <<<grid_q, 32 * QWARPS, dq_smem_bytes(DT), stream>>>(
           q, k, v, dout, kv_valid, dq, stats, B, Sq, Skv, Hq, Hkv, D, scale,
-          window, q_offset, causal);
+          window, q_offset, causal, bs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k((Skv + BK - 1) / BK, Hkv, B);
   flash_bidir_bwd_dkv<T, DPL>
       <<<grid_k, 32 * KWARPS, dkv_smem_bytes(DT), stream>>>(
           q, k, v, dout, kv_valid, stats, dk, dv, B, Sq, Skv, Hq, Hkv, D,
-          scale, window, q_offset, causal);
+          scale, window, q_offset, causal, bs);
   return cudaGetLastError();
 }
 
@@ -1210,7 +1382,7 @@ constexpr int wide_dq_smem_bytes() {
   return (WIDE_SDP + BK * WIDE_DV) * 4;
 }
 constexpr int wide_dkv_smem_bytes() {
-  return (WIDE_SDP + 2 * RC * BK + 4 * RC + 2 * RC * WIDE_DV) * 4;
+  return (WIDE_SDP + 2 * RC * BK + 5 * RC + 2 * RC * WIDE_DV) * 4;
 }
 
 // s_i = q_i . k_lane and dp_i = dO_i . v_lane over every column, for the
@@ -1218,14 +1390,16 @@ constexpr int wide_dkv_smem_bytes() {
 // and dout, or -1 past the last row) against key k0 + lane: chunk by chunk
 // of WIDE_CH columns, in increasing order, one FMA chain each -- the same
 // order in every CTA that forms them, so every column slice of one row
-// forms the same bits.  Starts with a barrier, so the caller's earlier
-// reads of any shared memory are done; ends without one.
+// forms the same bits (bs: K and V rounded to bf16 as they are staged).
+// Starts with a barrier, so the caller's earlier reads of any shared
+// memory are done; ends without one.
 template <typename T, int R, typename RowOff>
 __device__ __forceinline__ void wide_s_dp(
     const T* __restrict__ q, const T* __restrict__ dout,
     const T* __restrict__ k, const T* __restrict__ v, RowOff row_off, int b,
     int k0, int hk, int Skv, int Hkv, int D, int tid, int nthreads,
-    const int (&rows)[R], float* smem, float (&s)[R], float (&dp)[R]) {
+    const int (&rows)[R], float* smem, float (&s)[R], float (&dp)[R],
+    int bs) {
   float(*qs)[WIDE_CH] = reinterpret_cast<float(*)[WIDE_CH]>(smem);
   float(*dos)[WIDE_CH] = reinterpret_cast<float(*)[WIDE_CH]>(
       smem + 16 * WIDE_CH);
@@ -1257,8 +1431,8 @@ __device__ __forceinline__ void wide_s_dp(
         kx = to_f32(k[o]);
         vx = to_f32(v[o]);
       }
-      ks[j][c] = kx;
-      vs[j][c] = vx;
+      ks[j][c] = bs ? bf16r(kx) : kx;
+      vs[j][c] = bs ? bf16r(vx) : vx;
     }
     __syncthreads();
 #pragma unroll 8
@@ -1285,7 +1459,7 @@ flash_bidir_bwd_stats_wide(const T* __restrict__ q, const T* __restrict__ k,
                            const unsigned char* __restrict__ kv_valid,
                            float* __restrict__ stats, int B, int Sq, int Skv,
                            int Hq, int Hkv, int D, float scale, int window,
-                           int q_offset, int causal) {
+                           int q_offset, int causal, int bs) {
   extern __shared__ __align__(16) float smem_ws[];
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -1307,19 +1481,45 @@ flash_bidir_bwd_stats_wide(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < Skv; k0 += BK) {
     float s[RPW], dp[RPW];
     wide_s_dp<T, RPW>(q, dout, k, v, row_off, b, k0, hk, Skv, Hkv, D, tid,
-                      32 * QWARPS, rows, smem_ws, s, dp);
+                      32 * QWARPS, rows, smem_ws, s, dp, bs);
     const int gk = k0 + lane;
     const bool in_range = gk < Skv;
     const bool valid = key_ok(kv_valid, b, Skv, gk);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const bool ok = valid && in_reach(qpos[i], gk, window, causal);
-      const float x = in_range ? (ok ? s[i] * scale : NEG) : -INFINITY;
+      const float x = in_range ? (ok ? (bs ? bf16r(s[i]) : s[i] * scale)
+                                     : (bs ? NEG_BF16 : NEG))
+                               : -INFINITY;
       const float m_new = fmaxf(m[i], warp_max(x));
-      const float corr = expf(m[i] - m_new), e = expf(x - m_new);
+      const float corr = expf(m[i] - m_new);
+      const float e = bs ? bf16_p(x, m_new) : expf(x - m_new);
       l[i] = l[i] * corr + warp_sum(e);
       pdp[i] = pdp[i] * corr + warp_sum(in_range ? e * dp[i] : 0.f);
       m[i] = m_new;
+    }
+  }
+  // bf16 scores: each row's sum of dS and its keys at the max
+  // (bf16_mcorr), a second walk over every key
+  float il[RPW], delta[RPW], eps[RPW], ties[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    il[i] = 1.f / fmaxf(l[i], 1e-30f);
+    delta[i] = pdp[i] * il[i];
+    eps[i] = ties[i] = 0.f;
+  }
+  for (int k0 = 0; bs && k0 < Skv; k0 += BK) {
+    float s[RPW], dp[RPW];
+    wide_s_dp<T, RPW>(q, dout, k, v, row_off, b, k0, hk, Skv, Hkv, D, tid,
+                      32 * QWARPS, rows, smem_ws, s, dp, bs);
+    const int gk = k0 + lane;
+    const bool ok_k = gk < Skv && key_ok(kv_valid, b, Skv, gk);
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const bool ok = ok_k && in_reach(qpos[i], gk, window, causal);
+      eps[i] += warp_sum(ok ? bf16_ds(s[i], m[i], dp[i], il[i], delta[i])
+                            : 0.f);
+      ties[i] += warp_sum(ok && bf16r(s[i]) == m[i] ? 1.f : 0.f);
     }
   }
 #pragma unroll
@@ -1330,7 +1530,8 @@ flash_bidir_bwd_stats_wide(const T* __restrict__ q, const T* __restrict__ k,
       const size_t n = static_cast<size_t>(B) * Hq * Sq;
       stats[si] = m[i];
       stats[n + si] = l[i];
-      stats[2 * n + si] = pdp[i] * (1.f / fmaxf(l[i], 1e-30f));
+      stats[2 * n + si] = delta[i];
+      if (bs) stats[3 * n + si] = bf16_mcorr(eps[i], ties[i]);
     }
   }
 }
@@ -1347,7 +1548,7 @@ flash_bidir_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ stats, T* __restrict__ dq,
                         int B, int Sq, int Skv, int Hq, int Hkv, int D,
                         float scale, int window, int q_offset, int causal,
-                        int n_slices) {
+                        int n_slices, int bs) {
   constexpr int DPL = WIDE_DV / 32;
   extern __shared__ __align__(16) float smem_wq[];
   float(*ksl)[WIDE_DV] = reinterpret_cast<float(*)[WIDE_DV]>(smem_wq + WIDE_SDP);
@@ -1364,7 +1565,7 @@ flash_bidir_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
                : -1;
   };
   int rows[RPW], qpos[RPW];
-  float m[RPW], inv_l[RPW], delta[RPW], acc[RPW][DPL];
+  float m[RPW], inv_l[RPW], delta[RPW], mc[RPW], acc[RPW][DPL];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     rows[i] = warp * RPW + i;
@@ -1374,21 +1575,23 @@ flash_bidir_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
     m[i] = stats[si];
     inv_l[i] = 1.f / fmaxf(stats[n_stats + si], 1e-30f);
     delta[i] = stats[2 * n_stats + si];
+    mc[i] = bs ? stats[3 * n_stats + si] : 0.f;
 #pragma unroll
     for (int t = 0; t < DPL; ++t) acc[i][t] = 0.f;
   }
   for (int k0 = 0; k0 < Skv; k0 += BK) {
     float s[RPW], dp[RPW];
     wide_s_dp<T, RPW>(q, dout, k, v, row_off, b, k0, hk, Skv, Hkv, D, tid,
-                      nthreads, rows, smem_wq, s, dp);
+                      nthreads, rows, smem_wq, s, dp, bs);
     // the slice's columns of K (the previous tile's were read before
     // wide_s_dp's first barrier)
     for (int e = tid; e < BK * WIDE_DV; e += nthreads) {
       const int j = e / WIDE_DV, dd = c0 + e % WIDE_DV, gk = k0 + j;
-      ksl[j][e % WIDE_DV] =
+      const float kx =
           gk < Skv && dd < D
               ? to_f32(k[((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D + dd])
               : 0.f;
+      ksl[j][e % WIDE_DV] = bs ? bf16r(kx) : kx;
     }
     __syncthreads();
     const int gk = k0 + lane;
@@ -1399,8 +1602,9 @@ flash_bidir_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < RPW; ++i) {
       const bool ok =
           in_range && valid && in_reach(qpos[i], gk, window, causal);
-      ds[i] = ok ? expf(s[i] * scale - m[i]) * inv_l[i] * (dp[i] - delta[i])
-                 : 0.f;
+      ds[i] = !ok ? 0.f
+              : bs ? bf16_ds_m(s[i], m[i], dp[i], inv_l[i], delta[i], mc[i])
+                   : expf(s[i] * scale - m[i]) * inv_l[i] * (dp[i] - delta[i]);
     }
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
@@ -1423,7 +1627,7 @@ flash_bidir_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < DPL; ++t) {
       const int dd = c0 + lane + 32 * t;
-      if (dd < D) dq[row + dd] = from_f32<T>(acc[i][t] * scale);
+      if (dd < D) dq[row + dd] = from_f32<T>(dq_of(acc[i][t], scale, bs));
     }
   }
 }
@@ -1442,7 +1646,7 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
                          const float* __restrict__ stats, T* __restrict__ dk,
                          T* __restrict__ dv, int B, int Sq, int Skv, int Hq,
                          int Hkv, int D, float scale, int window,
-                         int q_offset, int causal, int n_slices) {
+                         int q_offset, int causal, int n_slices, int bs) {
   constexpr int NC = WIDE_DV / KWARPS;
   constexpr int RW = RC / KWARPS;
   extern __shared__ __align__(16) float smem_wk[];
@@ -1452,11 +1656,12 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
   float* row_m = rest + 2 * RC * BK;
   float* row_il = row_m + RC;
   float* row_delta = row_il + RC;
-  int* row_pos = reinterpret_cast<int*>(row_delta + RC);
+  float* row_mc = row_delta + RC;   // bf16 scores: bf16_mcorr's term
+  int* row_pos = reinterpret_cast<int*>(row_mc + RC);
   float(*qsl)[WIDE_DV] =
-      reinterpret_cast<float(*)[WIDE_DV]>(rest + 2 * RC * BK + 4 * RC);
+      reinterpret_cast<float(*)[WIDE_DV]>(rest + 2 * RC * BK + 5 * RC);
   float(*dosl)[WIDE_DV] = reinterpret_cast<float(*)[WIDE_DV]>(
-      rest + 2 * RC * BK + 4 * RC + RC * WIDE_DV);
+      rest + 2 * RC * BK + 5 * RC + RC * WIDE_DV);
 
   const int k0 = (blockIdx.x / n_slices) * BK;
   const int c0 = (blockIdx.x % n_slices) * WIDE_DV;
@@ -1486,7 +1691,7 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
     };
     float s[RW], dp[RW];
     wide_s_dp<T, RW>(q, dout, k, v, row_off, b, k0, hk, Skv, Hkv, D, tid,
-                     nthreads, rows, smem_wk, s, dp);
+                     nthreads, rows, smem_wk, s, dp, bs);
     // the chunk's statistics and its rows' slice columns (the previous
     // chunk's were read before wide_s_dp's first barrier)
     if (tid < RC) {
@@ -1497,11 +1702,13 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
         row_m[tid] = stats[si];
         row_il[tid] = 1.f / fmaxf(stats[n_stats + si], 1e-30f);
         row_delta[tid] = stats[2 * n_stats + si];
+        row_mc[tid] = bs ? stats[3 * n_stats + si] : 0.f;
         row_pos[tid] = q_offset + pos;
       } else {               // a row past the last: p = 0, ds = 0
         row_m[tid] = 0.f;
         row_il[tid] = 0.f;
         row_delta[tid] = 0.f;
+        row_mc[tid] = 0.f;
         row_pos[tid] = 0;
       }
     }
@@ -1521,11 +1728,21 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < RW; ++i) {
       const int r = rows[i];
       const bool ok = valid && in_reach(row_pos[r], gk, window, causal);
-      const float p =
-          in_range ? expf((ok ? s[i] * scale : NEG) - row_m[r]) * row_il[r]
-                   : 0.f;
-      ps[r][lane] = p;
-      dss[r][lane] = ok && in_range ? p * (dp[i] - row_delta[r]) : 0.f;
+      if (bs) {
+        const float pu =
+            in_range ? bf16_p(ok ? bf16r(s[i]) : NEG_BF16, row_m[r]) : 0.f;
+        ps[r][lane] = pu * row_il[r];
+        dss[r][lane] = ok && in_range
+            ? bf16_ds_m(s[i], row_m[r], dp[i], row_il[r], row_delta[r],
+                        row_mc[r])
+            : 0.f;
+      } else {
+        const float p =
+            in_range ? expf((ok ? s[i] * scale : NEG) - row_m[r]) * row_il[r]
+                     : 0.f;
+        ps[r][lane] = p;
+        dss[r][lane] = ok && in_range ? p * (dp[i] - row_delta[r]) : 0.f;
+      }
     }
     __syncthreads();
 #pragma unroll 4
@@ -1553,8 +1770,8 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < NC; ++c) {
     const int dd = c0 + warp * NC + c;
     if (dd < D) {
-      dk[row + dd] = from_f32<T>(adk[c] * scale);
-      dv[row + dd] = from_f32<T>(adv[c]);
+      dk[row + dd] = from_f32<T>(bs ? bf16r(adk[c]) : adk[c] * scale);
+      dv[row + dd] = from_f32<T>(bs ? bf16r(adv[c]) : adv[c]);
     }
   }
 }
@@ -1564,7 +1781,8 @@ cudaError_t launch_wide(const T* q, const T* k, const T* v, const T* dout,
                         const unsigned char* kv_valid, T* dq, T* dk, T* dv,
                         float* stats, int B, int Sq, int Skv, int Hq,
                         int Hkv, int D, float scale, int window,
-                        int q_offset, int causal, cudaStream_t stream) {
+                        int q_offset, int causal, int bs,
+                        cudaStream_t stream) {
   static const cudaError_t attr_st = cudaFuncSetAttribute(
       flash_bidir_bwd_stats_wide<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, wide_stats_smem_bytes());
@@ -1582,20 +1800,20 @@ cudaError_t launch_wide(const T* q, const T* k, const T* v, const T* dout,
   flash_bidir_bwd_stats_wide<T>
       <<<dim3(n_qt, Hq, B), 32 * QWARPS, wide_stats_smem_bytes(), stream>>>(
           q, k, v, dout, kv_valid, stats, B, Sq, Skv, Hq, Hkv, D, scale,
-          window, q_offset, causal);
+          window, q_offset, causal, bs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bidir_bwd_dq_wide<T><<<dim3(n_qt * n_slices, Hq, B), 32 * QWARPS,
                                wide_dq_smem_bytes(), stream>>>(
       q, k, v, dout, kv_valid, stats, dq, B, Sq, Skv, Hq, Hkv, D, scale,
-      window, q_offset, causal, n_slices);
+      window, q_offset, causal, n_slices, bs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bidir_bwd_dkv_wide<T>
       <<<dim3((Skv + BK - 1) / BK * n_slices, Hkv, B), 32 * KWARPS,
           wide_dkv_smem_bytes(), stream>>>(
           q, k, v, dout, kv_valid, stats, dk, dv, B, Sq, Skv, Hq, Hkv, D,
-          scale, window, q_offset, causal, n_slices);
+          scale, window, q_offset, causal, n_slices, bs);
   return cudaGetLastError();
 }
 
@@ -1612,10 +1830,11 @@ cudaError_t dispatch_cc(const T* q, const T* k, const T* v, const T* dout,
                         const unsigned char* kv_valid, T* dq, T* dk, T* dv,
                         float* stats, int B, int Sq, int Skv, int Hq,
                         int Hkv, int D, float scale, int window,
-                        int q_offset, int causal, cudaStream_t stream) {
+                        int q_offset, int causal, int bs,
+                        cudaStream_t stream) {
 #define FBB_ARGS                                                            \
   (q, k, v, dout, kv_valid, dq, dk, dv, stats, B, Sq, Skv, Hq, Hkv, D,      \
-   scale, window, q_offset, causal, stream)
+   scale, window, q_offset, causal, bs, stream)
   switch (tile_of(D)) {
     case 32: return launch_cc<T, 1> FBB_ARGS;
     case 64: return launch_cc<T, 2> FBB_ARGS;
@@ -1635,45 +1854,67 @@ cudaError_t dispatch_cc(const T* q, const T* k, const T* v, const T* dout,
 // q_offset + r; causal != 0 masks keys past each row's position.
 // stats: an f32 scratch, 3 * B * Hkv * NR floats on the tensor-core route
 // (NR = G * Sq rounded up to 4), 3 * B * Hq * Sq on the CUDA-core and wide
-// routes; written by the first kernel, read by the others.  Tensor-core
+// routes, 4 in place of 3 with bf16 scores; written by the first kernel,
+// read by the others.  Tensor-core
 // route only (bf16, D a multiple of 8 up to 256): dq_warps (1 to
 // the tile's most, 16 rows each) a dq CTA's warps; the G * Sq rows of a
 // group cut into n_split blocks of split_rows (a multiple of 32, the last
 // block not empty); part an f32 scratch of 2 * n_split * B * Skv * Hkv * D
 // floats when n_split > 1 (else may be null).  kernels/flash_bidir.bwd_plan
-// chooses them.
+// chooses them (bf16 scores: the MASKED plan).  bf16_scores != 0: JAX's
+// bf16 scores; scale is then D^-1/2 rounded to q's dtype, and qg a scratch
+// of q's size and dtype that kernel 0 (flash_bidir_bwd_qscale) fills with
+// bf16(q * scale) for the others to read in place of q.
 extern "C" int flash_bidir_bwd_launch(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* kv_valid,
                                       void* dq, void* dk, void* dv,
-                                      void* stats, void* part, int B, int Sq,
-                                      int Skv, int Hq, int Hkv, int D,
-                                      float scale, int window, int q_offset,
-                                      int causal, int is_bf16, int dq_warps,
-                                      int n_split, int split_rows,
-                                      void* stream) {
+                                      void* stats, void* part, void* qg,
+                                      int B, int Sq, int Skv, int Hq,
+                                      int Hkv, int D, float scale,
+                                      int window, int q_offset, int causal,
+                                      int is_bf16, int bf16_scores,
+                                      int dq_warps, int n_split,
+                                      int split_rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* valid = static_cast<const unsigned char*>(kv_valid);
   auto* sc = static_cast<float*>(stats);
-  if (D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int bs = bf16_scores != 0;
+  if (D < 1 || (bs && qg == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bs) {
+    const long long n = static_cast<long long>(B) * Sq * Hq * D;
+    const unsigned grid = static_cast<unsigned>((n + 1023) / 1024);
+    if (is_bf16)
+      flash_bidir_bwd_qscale<bf16><<<grid, 256, 0, st>>>(
+          static_cast<const bf16*>(q), static_cast<bf16*>(qg), n, scale);
+    else
+      flash_bidir_bwd_qscale<float><<<grid, 256, 0, st>>>(
+          static_cast<const float*>(q), static_cast<float*>(qg), n, scale);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    q = qg;
+  }
   if (is_bf16 && (D % 8 != 0 || tile_of(D) == 0))
     return static_cast<int>(dispatch_cc<bf16>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), valid,
         static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        sc, B, Sq, Skv, Hq, Hkv, D, scale, window, q_offset, causal, st));
+        sc, B, Sq, Skv, Hq, Hkv, D, scale, window, q_offset, causal, bs, st));
   if (is_bf16) {
-#define FBB_TC_AS(DT, M)                                                    \
-  static_cast<int>(launch_tc<DT, M>(                                        \
+#define FBB_TC_AS(DT, M, BS)                                                \
+  static_cast<int>(launch_tc<DT, M, BS>(                                    \
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),             \
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), valid,   \
       static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),\
       sc, static_cast<float*>(part), B, Sq, Skv, Hq, Hkv, D, scale, window, \
       q_offset, causal, dq_warps, n_split, split_rows, st))
 #define FBB_TC(DT)                                                          \
-  return masked ? FBB_TC_AS(DT, true) : FBB_TC_AS(DT, false)
+  return bs ? FBB_TC_AS(DT, true, true)                                     \
+            : masked ? FBB_TC_AS(DT, true, false) : FBB_TC_AS(DT, false, false)
     // MASKED: a mask can hide a key (kv_valid, a window or causal); the
-    // other instantiations test only a key's place in the last tile
+    // other instantiations test only a key's place in the last tile.  bf16
+    // scores take the MASKED walk whatever the masks.
     const bool masked = valid != nullptr || window > 0 || causal;
     switch (tile_of(D)) {
       case 32: FBB_TC(32);
@@ -1689,7 +1930,7 @@ extern "C" int flash_bidir_bwd_launch(const void* q, const void* k,
       static_cast<const float*>(v), static_cast<const float*>(dout), valid,
       static_cast<float*>(dq), static_cast<float*>(dk),
       static_cast<float*>(dv), sc, B, Sq, Skv, Hq, Hkv, D, scale, window,
-      q_offset, causal, st));
+      q_offset, causal, bs, st));
 }
 
 namespace {
@@ -1743,6 +1984,24 @@ const KernelAttr ATTRS[] = {
                 dq_tc_smem_bytes(256, true, dq_tc_max_warps(256, true))),
     KERNEL_ATTR((flash_bidir_bwd_dkv_tc<256, true>), dkv_tc_smem_bytes(256)),
     KERNEL_ATTR(flash_bidir_bwd_split_sum, 0),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<32, true, true>),
+                dq_tc_smem_bytes(32, true, dq_tc_max_warps(32, true))),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<32, true, true>),
+                dkv_tc_smem_bytes(32, true)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<64, true, true>),
+                dq_tc_smem_bytes(64, true, dq_tc_max_warps(64, true))),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<64, true, true>),
+                dkv_tc_smem_bytes(64, true)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<128, true, true>),
+                dq_tc_smem_bytes(128, true, dq_tc_max_warps(128, true))),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<128, true, true>),
+                dkv_tc_smem_bytes(128, true)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<256, true, true>),
+                dq_tc_smem_bytes(256, true, dq_tc_max_warps(256, true))),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<256, true, true>),
+                dkv_tc_smem_bytes(256, true)),
+    KERNEL_ATTR(flash_bidir_bwd_qscale<float>, 0),
+    KERNEL_ATTR(flash_bidir_bwd_qscale<bf16>, 0),
 };
 }  // namespace
 

@@ -66,11 +66,41 @@ the same online softmax, BAOS fused once, and counts the launch as
 set.  Autograd refuses it, as it refuses the calibration, and refuses a
 tensor ``q_offset``: training runs without a cache.
 
-Launch counts: a launch with ``causal=True`` counts as
-``flash_bidir_causal`` (either source), any other route B launch as
-``flash_bidir_split``, any other as ``flash_bidir_offset`` when its mask
-reads the offset from device memory and else as ``flash_bidir``; a
-causal backward as ``flash_bidir_bwd_causal``.
+Scores in bf16 (``score_dtype="bfloat16"``, JAX's
+``layers.attention(score_dtype=bf16)``): qg = bf16(q * f_k * D^-1/2),
+the scale rounded to q's dtype first and f_k fused in f32 as above; S =
+bf16(qg . bf16(k)) from f32 sums; P = bf16(exp(bf16(S - bf16(m)))); l =
+sum P and o = P . bf16(v) in f32; a masked score is bf16(-1e30), so a row
+with no valid key still averages every key.  The plain version follows
+JAX's chunks of ``kv_chunk`` keys (m each chunk's max, the chunks merged
+in f32; route B's second source a chunk of its own).  Every kernel route
+rounds at the same places, but relative to its running max, not a
+chunk's: a rounding of its own, held by a tolerance (tests and
+chip_smoke.py phase 15h).  The tensor-core route (``BS``
+instantiations) rewrites q into that one bf16 term in shared memory, with
+BAOS too, rounds S from the f32 accumulator, and enters P . V as one bf16
+term; the CUDA-core and wide routes round the same values with a runtime
+flag.  A masked key still adds exactly 0 once a row has seen a valid key,
+so the REACH walk keeps the function.  The backward (every route) first
+writes qg into a scratch of q's size (``flash_bidir_bwd_qscale``), which
+its kernels read in place of q; S is recomputed and rounded, P formed as
+the forward forms it, and dP = bf16(bf16(dp / l) - bf16(delta / l)), dS =
+bf16(P dP), dq = bf16(dS K) D^-1/2, dk = bf16(dS^T qg) and dv rounded to
+bf16, where JAX's gradient rounds them, and, as jax.grad does, the
+softmax max's cotangent (minus the row's sum of dS, from a pass of its
+own) added to the dS of the row's keys at the max; the bf16 tensor-core
+route takes the MASKED instantiations alone.  The plain backward is
+autograd through the plain bf16-score forward.  Cross-attention
+(models/transformer.py) and the hybrid's attention (models/rglru.py)
+keep f32 scores, as JAX's.
+
+Launch counts: a launch with bf16 scores counts as ``flash_bidir_bf16s``
+(a backward as ``flash_bidir_bwd_bf16s``), whatever its route; any other
+with ``causal=True`` counts as ``flash_bidir_causal`` (either source),
+any other route B launch as ``flash_bidir_split``, any other as
+``flash_bidir_offset`` when its mask reads the offset from device memory
+and else as ``flash_bidir``; a causal backward as
+``flash_bidir_bwd_causal``.
 """
 from __future__ import annotations
 
@@ -93,6 +123,15 @@ SPLIT_NAME = "flash_bidir_split"
 OFFSET_NAME = "flash_bidir_offset"
 CAUSAL_NAME = "flash_bidir_causal"
 BWD_CAUSAL_NAME = "flash_bidir_bwd_causal"
+# launches with bf16 scores (JAX's score_dtype="bfloat16"), forward and
+# backward, whatever their route
+BF16S_NAME = "flash_bidir_bf16s"
+BWD_BF16S_NAME = "flash_bidir_bwd_bf16s"
+# the score dtypes: JAX's default f32, and its bf16 scores
+SCORE_DTYPES = ("float32", "bfloat16")
+# JAX's default key chunk (layers.attention's kv_chunk): the plain
+# bf16-score version rounds P relative to each chunk's max
+KV_CHUNK = 1024
 # a query offset: a host int, or an integer tensor on q's device
 Offset = Union[int, torch.Tensor]
 # the tile widths the kernel is instantiated for (csrc/flash_bidir.cu
@@ -154,7 +193,24 @@ def wide_smem() -> Tuple[int, int, int, int]:
     sdp = 2 * bq * ch + 2 * bk * (ch + 1)
     return ((bq * ch + bk * (ch + 1) + bk * dv) * 4, sdp * 4,
             (sdp + bk * dv) * 4,
-            (sdp + 2 * bq * bk + 4 * bq + 2 * bq * dv) * 4)
+            (sdp + 2 * bq * bk + 5 * bq + 2 * bq * dv) * 4)
+
+
+def check_score_dtype(score_dtype: str) -> bool:
+    """Whether ``score_dtype`` asks for bf16 scores; a name outside
+    ``SCORE_DTYPES`` raises ValueError."""
+    if score_dtype not in SCORE_DTYPES:
+        raise ValueError(f"score_dtype {score_dtype!r} not in "
+                         f"{SCORE_DTYPES}")
+    return score_dtype == "bfloat16"
+
+
+def score_scale(D: int, dtype: torch.dtype, bf16_scores: bool) -> float:
+    """The softmax scale D^-1/2: with bf16 scores rounded to the
+    activations' dtype first (JAX multiplies q by it in q's dtype)."""
+    if not bf16_scores:
+        return D ** -0.5
+    return float(torch.tensor(D ** -0.5, dtype=dtype))
 
 
 def offset_start(q_offset: Offset):
@@ -176,9 +232,15 @@ def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       cv: Optional[torch.Tensor] = None,
                       window: Optional[int] = None,
                       q_offset: Offset = 0, extra_kv=None,
-                      causal: bool = False) -> torch.Tensor:
+                      causal: bool = False, score_dtype: str = "float32",
+                      kv_chunk: int = KV_CHUNK) -> torch.Tensor:
     """Plain version: dense f32 scores and softmax, (B, Sq, Hq, D) in
-    q's dtype; ``extra_kv`` joins the key set (its key j at q_offset + j)."""
+    q's dtype; ``extra_kv`` joins the key set (its key j at q_offset + j).
+    With ``score_dtype="bfloat16"``, JAX's bf16 scores in its chunks of
+    ``kv_chunk`` keys (``_plain_bf16_scores``)."""
+    if check_score_dtype(score_dtype):
+        return _plain_bf16_scores(q, k, v, kv_valid, fk, fv, cv, window,
+                                  q_offset, extra_kv, causal, kv_chunk)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -219,12 +281,89 @@ def flash_bidir_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
+# bf16(-1e30): a masked bf16 score (JAX adds the -1e30 bias in bf16)
+NEG_BF16 = float(torch.tensor(sampling.NEG_INF, dtype=torch.bfloat16))
+
+
+def _bf16_partial(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  ok: torch.Tensor):
+    """JAX's ``attention_partials.partial`` with bf16 scores over one
+    chunk: qg (B, Sq, Hq, D) bf16, k/v (B, n, Hkv, D), ok (B, 1, Sq, n).
+    (m, l, o) f32, (B, Hq, Sq[, D]).  Each step rounds where JAX's does,
+    in the dtype JAX computes it in, so autograd differentiates the same
+    roundings ``jax.grad`` does."""
+    G = qg.shape[2] // k.shape[2]
+    kg = k.to(torch.bfloat16).float().repeat_interleave(G, dim=2)
+    vg = v.to(torch.bfloat16).float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qg.float(), kg).to(torch.bfloat16)
+    s = torch.where(ok, s, torch.full((), NEG_BF16, dtype=torch.bfloat16,
+                                      device=s.device))
+    m = torch.clamp(torch.amax(s, dim=-1).float(), min=sampling.NEG_INF)
+    p = torch.exp(s - m.to(torch.bfloat16)[..., None])
+    o = torch.einsum("bhqk,bkhd->bhqd", p.float(), vg)
+    return m, torch.sum(p.float(), dim=-1), o
+
+
+def combine_partials(a, b):
+    """Exact online-softmax merge of two (m, l, o_unnorm) partials (JAX's
+    ``layers.combine_partials``)."""
+    m_a, l_a, o_a = a
+    m_b, l_b, o_b = b
+    m = torch.maximum(m_a, m_b)
+    ca, cb = torch.exp(m_a - m), torch.exp(m_b - m)
+    return m, l_a * ca + l_b * cb, o_a * ca[..., None] + o_b * cb[..., None]
+
+
+def _plain_bf16_scores(q, k, v, kv_valid, fk, fv, cv, window, q_offset,
+                       extra_kv, causal, kv_chunk: int) -> torch.Tensor:
+    """JAX's ``layers.attention`` with ``score_dtype=bfloat16``:
+    qg = bf16(q * f_k * D^-1/2) (the scale rounded to q's dtype as JAX's
+    is; f_k and the products in f32, as the port fuses BAOS), S =
+    bf16(qg . bf16(k)) (f32 sums), P = bf16(exp(bf16(S - bf16(m)))) with
+    m the chunk's max (at least -1e30), l = sum P and
+    o = P . bf16(v) in f32, per chunk of ``kv_chunk`` keys (one chunk where
+    it does not divide Skv; route B's second source a chunk of its own),
+    chunks merged in f32; o / max(l, 1e-30), f_v, c_v in f32, rounded once
+    to q's dtype."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    q_offset = offset_start(q_offset)
+    qf = q.to(torch.float32)
+    if fk is not None:
+        qf = qf * fk.to(torch.float32).repeat_interleave(G, dim=1)[:, None]
+    qg = (qf * score_scale(D, q.dtype, True)).to(torch.bfloat16)
+    ok = _mask(B, Sq, Skv, kv_valid, window, q_offset, q.device,
+               causal=causal)
+    n = max(1, Skv // kv_chunk) if Skv % kv_chunk == 0 else 1
+    c = Skv // n
+    part = None
+    for i in range(n):
+        sl = slice(i * c, (i + 1) * c)
+        p = _bf16_partial(qg, k[:, sl], v[:, sl], ok[..., sl])
+        part = p if part is None else combine_partials(part, p)
+    if extra_kv is not None:
+        k2, v2, valid2 = extra_kv
+        S2 = k2.shape[1]
+        kpos = q_offset + torch.arange(S2, device=q.device)
+        ok2 = _mask(B, Sq, S2, valid2, window, q_offset, q.device, kpos,
+                    causal)
+        part = combine_partials(part, _bf16_partial(qg, k2, v2, ok2))
+    _, l, o = part
+    o = (o / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2)
+    if fv is not None:
+        o = o * fv.to(torch.float32).repeat_interleave(G, dim=1)[:, None]
+    if cv is not None:
+        o = o + cv.to(torch.float32).repeat_interleave(G, dim=1)[:, None]
+    return o.to(q.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.function(NAME, "flash_bidir_launch",
                            [p] * 7 + [i] + [p] * 4 + [i] * 6 +
-                           [ctypes.c_float, i, i, p, i, i, p])
+                           [ctypes.c_float, i, i, p, i, i, i, p])
 
 
 def _cal(t: Optional[torch.Tensor], shape, dev) -> Optional[int]:
@@ -245,16 +384,21 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 cv: Optional[torch.Tensor] = None,
                 window: Optional[int] = None,
                 q_offset: Offset = 0, extra_kv=None,
-                causal: bool = False) -> torch.Tensor:
+                causal: bool = False, score_dtype: str = "float32",
+                kv_chunk: int = KV_CHUNK) -> torch.Tensor:
     """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); kv_valid (B, Skv) bool;
     fk/fv/cv (B, Hkv, D) f32; query row r at position q_offset + r
     (``q_offset`` an int or an integer tensor on q's device, element 0
     read); ``extra_kv`` = (k2, v2, valid2): route B's second K/V source,
     (B, S2, Hkv, D) each and valid2 (B, S2) bool or None, key j at
-    q_offset + j; ``causal``: key position <= query position.  Returns
-    (B, Sq, Hq, D) in q's dtype.  CUDA tensors run the kernel; CPU
-    tensors the plain version.  Under autograd (grad mode on, q, k or v
-    requiring grad) the result carries ``FlashBidir``'s backward."""
+    q_offset + j; ``causal``: key position <= query position;
+    ``score_dtype`` "float32" or "bfloat16" (JAX's bf16 scores; the plain
+    version rounds P relative to each chunk of ``kv_chunk`` keys, the
+    kernel relative to its running max).  Returns (B, Sq, Hq, D) in q's
+    dtype.  CUDA tensors run the kernel; CPU tensors the plain version.
+    Under autograd (grad mode on, q, k or v requiring grad) the result
+    carries ``FlashBidir``'s backward."""
+    check_score_dtype(score_dtype)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or Hq % Hkv:
@@ -285,18 +429,21 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if isinstance(q_offset, torch.Tensor):
             raise ValueError("flash_bidir's backward takes no device query "
                              "offset: training runs without a cache")
-        return FlashBidir.apply(q, k, v, kv_valid, window, q_offset, causal)
+        return FlashBidir.apply(q, k, v, kv_valid, window, q_offset, causal,
+                                score_dtype, kv_chunk)
     return _forward(q, k, v, kv_valid, fk, fv, cv, window, q_offset,
-                    extra_kv, causal)
+                    extra_kv, causal, score_dtype, kv_chunk)
 
 
 def _forward(q, k, v, kv_valid, fk, fv, cv, window: Optional[int],
-             q_offset: Offset, extra_kv=None, causal: bool = False):
+             q_offset: Offset, extra_kv=None, causal: bool = False,
+             score_dtype: str = "float32", kv_chunk: int = KV_CHUNK):
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     if q.device.type in _build.PLAIN_DEVICES:
         return flash_bidir_plain(q, k, v, kv_valid, fk, fv, cv, window,
-                                 q_offset, extra_kv, causal)
+                                 q_offset, extra_kv, causal, score_dtype,
+                                 kv_chunk)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("q, k and v must lie on one CUDA device")
@@ -304,6 +451,7 @@ def _forward(q, k, v, kv_valid, fk, fv, cv, window: Optional[int],
         raise ValueError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: "
                          f"need one of {_DTYPES} for all three")
     route(D, q.dtype)
+    bf16s = check_score_dtype(score_dtype)
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be positive")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -346,19 +494,23 @@ def _forward(q, k, v, kv_valid, fk, fv, cv, window: Optional[int],
                        _build.ptr(valid2), S2,
                        _cal(fk, (B, Hkv, D), dev),
                        _cal(fv, (B, Hkv, D), dev), _cal(cv, (B, Hkv, D), dev),
-                       out.data_ptr(), B, Sq, Skv, Hq, Hkv, D, D ** -0.5,
+                       out.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
+                       score_scale(D, q.dtype, bf16s),
                        0 if window is None else int(window), off,
                        _build.ptr(off_dev), int(causal),
-                       int(q.dtype == torch.bfloat16),
+                       int(q.dtype == torch.bfloat16), 1 if bf16s else 0,
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME, err)
     _build.launch_counts[count_name(extra_kv is not None, causal,
-                                    off_dev is not None)] += 1
+                                    off_dev is not None, bf16s)] += 1
     return out
 
 
-def count_name(split: bool, causal: bool, device_offset: bool) -> str:
+def count_name(split: bool, causal: bool, device_offset: bool,
+               bf16_scores: bool = False) -> str:
     """The launch-count entry of a forward launch (module docstring)."""
+    if bf16_scores:
+        return BF16S_NAME
     if causal:
         return CAUSAL_NAME
     if split:
@@ -371,18 +523,21 @@ class FlashBidir(torch.autograd.Function):
     unchanged, then ``flash_bidir_bwd`` from the saved q, k and v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_valid, window, q_offset, causal=False):
+    def forward(ctx, q, k, v, kv_valid, window, q_offset, causal=False,
+                score_dtype="float32", kv_chunk=KV_CHUNK):
         ctx.save_for_backward(q, k, v, kv_valid)
         ctx.window, ctx.q_offset, ctx.causal = window, q_offset, causal
+        ctx.score_dtype, ctx.kv_chunk = score_dtype, kv_chunk
         return _forward(q, k, v, kv_valid, None, None, None, window,
-                        q_offset, None, causal)
+                        q_offset, None, causal, score_dtype, kv_chunk)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, kv_valid = ctx.saved_tensors
         dq, dk, dv = flash_bidir_bwd(q, k, v, dout.contiguous(), kv_valid,
-                                     ctx.window, ctx.q_offset, ctx.causal)
-        return dq, dk, dv, None, None, None, None
+                                     ctx.window, ctx.q_offset, ctx.causal,
+                                     ctx.score_dtype, ctx.kv_chunk)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _mask(B: int, Sq: int, Skv: int, kv_valid, window, q_offset, device,
@@ -411,14 +566,26 @@ def flash_bidir_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           dout: torch.Tensor,
                           kv_valid: Optional[torch.Tensor] = None,
                           window: Optional[int] = None, q_offset: int = 0,
-                          causal: bool = False
+                          causal: bool = False,
+                          score_dtype: str = "float32",
+                          kv_chunk: int = KV_CHUNK
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """Plain version of the backward, step by step in f32 from recomputed
     probabilities: (dq, dk, dv) in the inputs' dtype.  delta_i =
     sum_j p_ij dp_ij, the f32 value of dO_i . o_i (the forward's output,
     rounded to bf16, would carry that rounding into every ds_ij); dk and dv
-    sum over the q heads of each KV head's group."""
+    sum over the q heads of each KV head's group.  With bf16 scores:
+    autograd through the plain bf16-score forward, JAX's structure of
+    rounding as ``jax.grad`` differentiates it (dP, dS, dq and dk come
+    out of bf16 products; dv is rounded to bf16)."""
+    if check_score_dtype(score_dtype):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = _plain_bf16_scores(*ins, kv_valid, None, None, None,
+                                     window, q_offset, None, causal,
+                                     kv_chunk)
+            return torch.autograd.grad(out, ins, dout)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -467,11 +634,12 @@ def bwd_dq_max_warps(dt: int, masked: bool) -> int:
     return w
 
 
-def bwd_dkv_smem(dt: int) -> int:
+def bwd_dkv_smem(dt: int, bf16_scores: bool = False) -> int:
     """Dynamic shared memory of a bf16 dk/dv CTA at tile width ``dt``: its
-    K/V tile and the ring of row chunks with their statistics."""
+    K/V tile and the ring of row chunks with their statistics (a fourth
+    row with bf16 scores: the softmax max's cotangent)."""
     return ((2 * BWD_BN + 2 * BWD_STAGES * BWD_BM) * (dt + 8) * 2
-            + BWD_STAGES * 3 * BWD_BM * 4)
+            + BWD_STAGES * (4 if bf16_scores else 3) * BWD_BM * 4)
 
 
 def bwd_dkv_warps(dt: int) -> int:
@@ -483,7 +651,7 @@ def bwd_f32_smem(dt: int) -> Tuple[int, int]:
     """Dynamic shared memory of the CUDA-core route's dq and dk/dv CTAs
     (f32, and bf16 at a D that is not a multiple of 8)."""
     return ((2 * 16 * dt + 2 * 32 * (dt + 1)) * 4,
-            (2 * 32 * (dt + 1) + 2 * 16 * dt + 2 * 16 * 32 + 4 * 16) * 4)
+            (2 * 32 * (dt + 1) + 2 * 16 * dt + 2 * 16 * 32 + 5 * 16) * 4)
 
 
 def _per_sm(warps: int, smem: int) -> int:
@@ -598,23 +766,26 @@ def bwd_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
 def _bwd_kernel_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.function(BWD_NAME, "flash_bidir_bwd_launch",
-                           [p] * 10 + [i] * 6 +
-                           [ctypes.c_float] + [i] * 7 + [p])
+                           [p] * 11 + [i] * 6 +
+                           [ctypes.c_float] + [i] * 8 + [p])
 
 
 def flash_bidir_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dout: torch.Tensor,
                     kv_valid: Optional[torch.Tensor] = None,
                     window: Optional[int] = None, q_offset: int = 0,
-                    causal: bool = False
+                    causal: bool = False, score_dtype: str = "float32",
+                    kv_chunk: int = KV_CHUNK
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_bidir`` (no BAOS) at q, k, v
     for the output gradient ``dout`` (B, Sq, Hq, D).  CUDA
     tensors run csrc/flash_bidir_bwd.cu as ``bwd_plan`` lays it out (one
     count in ``launch_counts`` per call: its kernels, dq then dk/dv, then
-    on the bf16 route the split sum where n_split > 1); CPU tensors the
+    on the bf16 route the split sum where n_split > 1; with bf16 scores
+    first the query prescale, into a scratch of q's size); CPU tensors the
     plain version.  ``q_offset`` is a host int (training runs without a
     cache): a tensor raises ValueError."""
+    bf16s = check_score_dtype(score_dtype)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or Hq % Hkv or \
@@ -627,7 +798,7 @@ def flash_bidir_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "runs without a cache")
     if q.device.type in _build.PLAIN_DEVICES:
         return flash_bidir_bwd_plain(q, k, v, dout, kv_valid, window,
-                                     q_offset, causal)
+                                     q_offset, causal, score_dtype, kv_chunk)
     dev = q.device
     ts = (q, k, v, dout)
     if dev.type != "cuda" or any(t.device != dev for t in ts):
@@ -649,19 +820,27 @@ def flash_bidir_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    # bf16 scores take the MASKED instantiations alone
     plan = bwd_plan(B, Sq, Skv, Hq, Hkv, D, q.dtype, _build.sm_count(dev),
-                    kv_valid is not None or window is not None or causal)
-    stats = torch.empty(plan.stats_floats, dtype=torch.float32, device=dev)
+                    kv_valid is not None or window is not None or causal
+                    or bf16s)
+    # the row statistics, with bf16 scores a fourth row: the softmax max's
+    # cotangent
+    stats = torch.empty(plan.stats_floats // 3 * (4 if bf16s else 3),
+                        dtype=torch.float32, device=dev)
     part = (torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
             if plan.part_floats else None)
+    qg = torch.empty_like(q) if bf16s else None
     err = _bwd_kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         _build.ptr(valid), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), stats.data_ptr(), _build.ptr(part), B, Sq, Skv, Hq,
-        Hkv, D, D ** -0.5, 0 if window is None else int(window),
-        int(q_offset), int(causal), int(q.dtype == torch.bfloat16),
-        plan.dq_warps, plan.n_split, plan.split_rows,
+        dv.data_ptr(), stats.data_ptr(), _build.ptr(part), _build.ptr(qg),
+        B, Sq, Skv, Hq, Hkv, D, score_scale(D, q.dtype, bf16s),
+        0 if window is None else int(window), int(q_offset), int(causal),
+        int(q.dtype == torch.bfloat16), 1 if bf16s else 0, plan.dq_warps,
+        plan.n_split, plan.split_rows,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(BWD_NAME, err)
-    _build.launch_counts[BWD_CAUSAL_NAME if causal else BWD_NAME] += 1
+    _build.launch_counts[BWD_BF16S_NAME if bf16s else
+                         BWD_CAUSAL_NAME if causal else BWD_NAME] += 1
     return dq, dk, dv

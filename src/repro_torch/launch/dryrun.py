@@ -206,44 +206,49 @@ def model_flops(cfg, shape) -> float:
 
 
 VARIANTS = {
-    # JAX's variants that change the port's trace: config / policy
-    # overrides per cell
+    # JAX's 14 variants: config / policy overrides per cell
     "baseline": {},
+    "bf16score": {"cfg": {"score_dtype": "bfloat16"}},
     "split": {"policy": {"split_cache": True}},
+    "split_bf16": {"policy": {"split_cache": True},
+                   "cfg": {"score_dtype": "bfloat16"}},
     "losschunk": {"policy": {"loss_chunk": 512}},
+    "losschunk_bf16": {"policy": {"loss_chunk": 512},
+                       "cfg": {"score_dtype": "bfloat16"}},
     "split_losschunk": {"policy": {"split_cache": True, "loss_chunk": 512}},
-    "padheads48": {"cfg": {"n_heads": 48, "n_kv_heads": 48}},
-    "padheads48_split": {"cfg": {"n_heads": 48, "n_kv_heads": 48},
-                         "policy": {"split_cache": True}},
-    "padheads_g3": {"cfg": {"n_heads": 48, "n_kv_heads": 16}},
-    "moe_global": {"moe": {"group_dispatch": False}},
     # JAX's checkpoint_dots over each layer: a train cell's backward
     # recomputes each layer but its matrix products; attention is a
     # kernel, which the card recomputes, so its FLOPs count that
     "remat": {"cfg": {"remat": "dots"}},
+    "remat_bf16": {"cfg": {"remat": "dots", "score_dtype": "bfloat16"}},
+    # JAX's attention chunk: with f32 scores the port's attention is one
+    # function at any chunk length, so this traces as the baseline does
+    "bigchunk": {"cfg": {"attn_chunk": 4096}},
+    "padheads48": {"cfg": {"n_heads": 48, "n_kv_heads": 48}},
+    "padheads48_split": {"cfg": {"n_heads": 48, "n_kv_heads": 48},
+                         "policy": {"split_cache": True}},
+    "padheads48_split_bf16": {"cfg": {"n_heads": 48, "n_kv_heads": 48,
+                                      "score_dtype": "bfloat16"},
+                              "policy": {"split_cache": True}},
+    "split_losschunk_bf16": {"policy": {"split_cache": True,
+                                        "loss_chunk": 512},
+                             "cfg": {"score_dtype": "bfloat16"}},
+    "padheads_g3": {"cfg": {"n_heads": 48, "n_kv_heads": 16}},
+    "moe_global": {"moe": {"group_dispatch": False}},
 }
 
-# JAX's variants that set what the port does not run (score_dtype: its
-# attention computes f32 scores, and a transformer config with bf16
-# scores raises; attn_chunk: its attention is flash_bidir at every size):
-# (the options, the variant whose trace they would repeat)
-NOT_PORTED = {
-    "bf16score": ("score_dtype", "baseline"),
-    "split_bf16": ("score_dtype", "split"),
-    "losschunk_bf16": ("score_dtype", "losschunk"),
-    "remat_bf16": ("score_dtype", "remat"),
-    "bigchunk": ("attn_chunk", "baseline"),
-    "padheads48_split_bf16": ("score_dtype", "padheads48_split"),
-    "split_losschunk_bf16": ("score_dtype", "split_losschunk"),
-}
+# what a bf16-score variant's record says of its numbers
+SCORES_NOTE = ("score_dtype bfloat16: attention's scores and probabilities "
+               "never leave the kernel's on-chip memory on the card, in "
+               "either dtype, so bytes_per_device equals the f32-score "
+               "variant's (the kernel counted as one op of its inputs and "
+               "outputs); the FLOPs are those of the plain versions traced "
+               "here, whose bf16-score backward differentiates a recomputed "
+               "forward (one product more a layer than the f32 one)")
 
 
 def variant_config(arch: str, variant: str = "baseline"):
     """(config, policy) of a cell's variant."""
-    if variant in NOT_PORTED:
-        opts, same = NOT_PORTED[variant]
-        raise ValueError(f"variant {variant!r}: the port has no {opts} "
-                         f"option; it would trace as {same!r}")
     overrides = VARIANTS[variant]
     cfg = configs.get_config(arch)
     if overrides.get("cfg"):
@@ -377,7 +382,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "useful_flops_ratio": (mf / (flops * chips)) if flops else None,
         "peaks": {"flops": PEAK_FLOPS, "hbm_bytes_s": HBM_BW,
                   "link_bytes_s": LINK_BW},
-        "notes": [BYTES_NOTE, COLLECTIVE_NOTE],
+        "notes": [BYTES_NOTE, COLLECTIVE_NOTE] + (
+            [SCORES_NOTE] if cfg.score_dtype == "bfloat16" else []),
     })
     terms = rec["roofline"]
     rec["bottleneck"] = max(terms, key=terms.get)
@@ -429,13 +435,9 @@ def main(argv=None) -> int:
                     choices=["single", "multi", "both"])
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--variant", default="baseline",
-                    choices=sorted(VARIANTS) + sorted(NOT_PORTED))
+                    choices=sorted(VARIANTS))
     ap.add_argument("--out-dir", default=str(RESULTS))
     args = ap.parse_args(argv)
-    if args.variant in NOT_PORTED:
-        opts, same = NOT_PORTED[args.variant]
-        ap.error(f"variant {args.variant}: the port has no {opts} option; "
-                 f"it would trace as {same}")
     if not args.all and not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
     out_dir = Path(args.out_dir)

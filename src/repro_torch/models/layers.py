@@ -176,7 +176,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_valid: Optional[torch.Tensor] = None,
               window: Optional[int] = None, baos_calib=None,
               q_offset: flash_bidir.Offset = 0, extra_kv=None,
-              causal: bool = False) -> torch.Tensor:
+              causal: bool = False, score_dtype: str = "float32",
+              kv_chunk: int = flash_bidir.KV_CHUNK) -> torch.Tensor:
     """GQA attention, bidirectional or with ``causal`` JAX's causal mode,
     q (B, Sq, Hq, D) over k/v (B, Skv, Hkv, D) with a per-row ``kv_valid``
     (B, Skv) mask; key j sits at position j and query row r at
@@ -190,7 +191,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid2): a second K/V source in the same smoothed space (the split
     active-block buffer), its key j at position q_offset + j; one softmax
     spans both sources (the kernel's route B), as JAX merges the two
-    sources' partials exactly."""
+    sources' partials exactly.  ``score_dtype`` "bfloat16": JAX's bf16
+    scores and probabilities (``kv_chunk``: JAX's chunk of keys, which
+    only the plain version reads)."""
     fk = fv = cv = None
     if baos_calib is not None:
         B, _, Hkv, D = k.shape
@@ -198,7 +201,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             baos_calib.k_scale, baos_calib.v_scale, baos_calib.v_center))
     return flash_bidir.flash_bidir(q, k, v, kv_valid, fk, fv, cv,
                                    window=window, q_offset=q_offset,
-                                   extra_kv=extra_kv, causal=causal)
+                                   extra_kv=extra_kv, causal=causal,
+                                   score_dtype=score_dtype, kv_chunk=kv_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -245,13 +249,7 @@ def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return m, torch.sum(p, dim=-1), o
 
 
-def combine_partials(a, b):
-    """Exact online-softmax merge of two (m, l, o_unnorm) partials."""
-    m_a, l_a, o_a = a
-    m_b, l_b, o_b = b
-    m = torch.maximum(m_a, m_b)
-    ca, cb = torch.exp(m_a - m), torch.exp(m_b - m)
-    return m, l_a * ca + l_b * cb, o_a * ca[..., None] + o_b * cb[..., None]
+combine_partials = flash_bidir.combine_partials
 
 
 def finalize_partials(p, B: int, Sq: int, Hq: int, D: int,

@@ -23,7 +23,9 @@ sub-layer a dict ``ln1``, ``ln2``, ``temporal`` (rec: ``w_y``,
 ``final_norm`` are the config's norm, rms or ln
 (``transformer.apply_norm``).  As in JAX the stack reads neither
 ``cfg.ffn`` (the MLP is always GeGLU) nor ``cfg.attn_mode`` (attention is
-always bidirectional) nor ``cfg.score_dtype`` (f32 scores).  The cache: ``k``,
+always bidirectional) nor ``cfg.score_dtype``: its attention layers keep
+f32 scores (JAX's rglru passes no score dtype), without a cache and
+through ``transformer.cache_attention``'s default.  The cache: ``k``,
 ``v`` (nt, B, s_tot, Hkv, D), the four BAOS calibration arrays
 (nt, B, 1, Hkv, D) f32, ``rec_state`` (nt, 2, B, d_rnn) f32 and
 ``rec_conv`` (nt, 2, B, W - 1, d_rnn) (batch on axis 2), ``tail_state``

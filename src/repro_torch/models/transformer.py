@@ -43,7 +43,10 @@ start from device memory to place the window and the causal mask.
 "causal" (a query attends to keys at its position and before), JAX's
 mode for the hybrid/AR-baseline paths; every self-attention takes it
 (no cache, warm, refine, the split cache's route B); cross-attention
-stays bidirectional.  ``quant``, a
+stays bidirectional.  ``cfg.score_dtype`` "bfloat16" (JAX's bf16 scores,
+in its chunks of ``cfg.attn_chunk`` on the plain version) reaches the
+same self-attentions, the encoder's of the audio family too;
+cross-attention keeps f32 scores, as JAX's does.  ``quant``, a
 ``layers.QuantPolicy``, fake-quantizes both operands of every GEMM,
 the LM head's included, as the JAX forward does.
 
@@ -88,11 +91,11 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for a transformer config the port does not run: a norm
     outside (rms, ln) or an FFN outside (swiglu, gelu), names JAX never
     defines (it runs rms for any norm but "ln" and gelu for any FFN but
-    "swiglu"), and ``score_dtype`` other than float32 (JAX's bf16 scores;
-    NotImplementedError); an attention mode outside (bidir, causal) or a
-    ``remat`` outside ``REMAT`` (ValueError).  Attention takes any head
-    dim.  A config of another family is not this module's stack
-    (ValueError)."""
+    "swiglu"); an attention mode outside (bidir, causal), a ``remat``
+    outside ``REMAT`` or a ``score_dtype`` outside (float32, bfloat16)
+    (ValueError: JAX takes any jnp dtype, but no config sets another).
+    Attention takes any head dim.  A config of another family is not this
+    module's stack (ValueError)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} is not a transformer stack "
                          f"{FAMILIES}: build it with "
@@ -103,10 +106,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"norm={cfg.norm!r}, ffn={cfg.ffn!r}: names JAX does not define "
             f"({ROADMAP}); the port runs rms or ln / swiglu or gelu")
-    if cfg.score_dtype != "float32":
-        raise NotImplementedError(
-            f"score_dtype={cfg.score_dtype!r} is not ported ({ROADMAP}): "
-            f"the port's attention computes its scores in f32")
+    flash_bidir.check_score_dtype(cfg.score_dtype)
     check_attn_mode(cfg.attn_mode)
     if cfg.remat not in REMAT:
         raise ValueError(f"remat {cfg.remat!r} not in {REMAT}")
@@ -380,7 +380,8 @@ def cross_attention(x: torch.Tensor, lp: Dict, ck: torch.Tensor,
                     ) -> torch.Tensor:
     """The cross-attention sublayer's residual branch: ``ln_x``, the query
     (no RoPE, no bias), bidirectional attention over every encoder frame
-    of ck/cv (B, S_enc, Hkv, D) with no mask, the output projection."""
+    of ck/cv (B, S_enc, Hkv, D) with no mask and f32 scores whatever
+    ``cfg.score_dtype`` says (as in JAX), the output projection."""
     B, S, _ = x.shape
     Hq, D = cfg.n_heads, cfg.d_head
     ap = lp["xattn"]
@@ -396,7 +397,7 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
                     cfg: ModelConfig, baos_cfg: baos_lib.BAOSConfig,
                     calibrate: bool, calib_mask,
                     act_start: Optional[SegStart] = None,
-                    causal: bool = False):
+                    causal: bool = False, score_dtype: str = "float32"):
     """The cached branch of an attention layer (this module's and
     models/rglru.py's): (re)calibrate or read the stored calibration,
     write the segment's K/V into the cache at ``seg_start`` (through the
@@ -406,7 +407,9 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     shorter than the cache masks nothing (|q - k| < s_tot <= window) and
     is dropped.  A tensor ``seg_start`` scatters the segment (a graph's
     block start), and attention reads it from device memory as its query
-    offset.  ``causal``: JAX's causal mode.
+    offset.  ``causal``: JAX's causal mode.  ``score_dtype``: the
+    transformer's ``cfg.score_dtype`` (the hybrid's attention keeps f32
+    scores, as JAX's does), in JAX's chunks of ``cfg.attn_chunk``.
 
     A context-parallel cache (models/tp.Parallel.cache_seq: this rank's
     sequence slice of K/V) is gathered over ``model`` first; the step
@@ -425,7 +428,7 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     if ctx is not None and ctx.cache_seq and tp_lib.model_axis() is not None:
         return _context_parallel(q, k, v, lcache, seg_start, kv_valid, cfg,
                                  baos_cfg, calibrate, calib_mask, act_start,
-                                 ctx, causal)
+                                 ctx, causal, score_dtype)
     S = k.shape[1]
     window = cfg.window
     if window is not None and window >= lcache["k"].shape[1]:
@@ -443,7 +446,7 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
         idx = start_of(seg_start) + torch.arange(S, device=k.device)
     if "k_act" in lcache and not calibrate:
         return _split_refine(q, k, v, lcache, seg_start, kv_valid, window,
-                             calib, causal)
+                             calib, causal, score_dtype, cfg.attn_chunk)
     for name, x, center, scale in (
             ("k", k, "k_center", "k_scale"), ("v", v, "v_center", "v_scale")):
         if on_device:
@@ -467,12 +470,13 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     # the query offset places the window and the causal mask
     return layers.attention(q, lcache["k"], lcache["v"], kv_valid,
                             window=window, baos_calib=calib,
-                            q_offset=seg_start, causal=causal)
+                            q_offset=seg_start, causal=causal,
+                            score_dtype=score_dtype, kv_chunk=cfg.attn_chunk)
 
 
 def _context_parallel(q, k, v, lcache: Dict, seg_start, kv_valid, cfg,
                       baos_cfg, calibrate, calib_mask, act_start, ctx,
-                      causal=False):
+                      causal=False, score_dtype="float32"):
     """``cache_attention`` over a context-parallel cache: the layer's K/V
     gathered along the sequence over ``model``, the step on the whole
     (the calibration and the split cache's active buffer are replicated),
@@ -484,7 +488,7 @@ def _context_parallel(q, k, v, lcache: Dict, seg_start, kv_valid, cfg,
     with tp_lib.use(dataclasses.replace(ctx, cache_seq=False)):
         out = cache_attention(q, k, v, whole, seg_start, kv_valid, cfg,
                               baos_cfg, calibrate, calib_mask, act_start,
-                              causal)
+                              causal, score_dtype)
     if calibrate or "k_act" not in lcache:     # the full buffer written
         s_loc = lcache["k"].shape[1]
         r0 = axis.index * s_loc
@@ -494,7 +498,8 @@ def _context_parallel(q, k, v, lcache: Dict, seg_start, kv_valid, cfg,
 
 
 def _split_refine(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
-                  window, calib, causal=False):
+                  window, calib, causal=False, score_dtype="float32",
+                  kv_chunk=flash_bidir.KV_CHUNK):
     """The split layout's refine (``cache_attention``): the segment, which
     must be the active block, smoothed into ``k_act``/``v_act``; attention
     over the full buffer less its copy of the block, and the buffer."""
@@ -520,7 +525,8 @@ def _split_refine(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
                             valid.contiguous(), window=window,
                             baos_calib=calib, q_offset=seg_start,
                             extra_kv=(lcache["k_act"], lcache["v_act"],
-                                      None), causal=causal)
+                                      None), causal=causal,
+                            score_dtype=score_dtype, kv_chunk=kv_chunk)
 
 
 def forward(params: Dict, cfg: ModelConfig,
@@ -581,14 +587,17 @@ def forward(params: Dict, cfg: ModelConfig,
         q, k, v = qkv(h, lp, cfg, positions, quant, layout)
         if cache is None:
             attn = layers.attention(q, k, v, window=cfg.window,
-                                    causal=causal)
+                                    causal=causal,
+                                    score_dtype=cfg.score_dtype,
+                                    kv_chunk=cfg.attn_chunk)
         else:
             lcache = {name: t[i] for name, t in cache.items()}
             attn = cache_attention(
                 q, k, v, lcache, seg_start, kv_valid, cfg, baos_cfg,
                 calibrate, calib_mask,
                 act_start=(logits_slice[0] if calibrate and logits_slice
-                           else None), causal=causal)
+                           else None), causal=causal,
+                score_dtype=cfg.score_dtype)
         x = x + out_proj(attn, lp["wo"], cfg, quant, layout) * \
             cfg.residual_scale
         if cross_kv is not None:

@@ -321,7 +321,8 @@ def _job_steps(rank: int, world: int) -> dict:
 # |model| = 4 does not divide, so the experts' hidden dim shards instead;
 # "f66": an expert hidden dim of 66, which |model| = 4 does not divide
 # either, so at |model| = 4 the experts stay whole on every rank while
-# the shared experts (hidden 128) shard
+# the shared experts (hidden 128) shard; "bf16s": JAX's bf16 attention
+# scores (score_dtype; cases of tests/test_torch_score_dtype.py)
 TP_CASES = ("llada-8b", "llada-8b v256", "qwen2-0.5b", "llada-moe-7b-a1b",
             "qwen2-moe-a2.7b e6", "qwen2-moe-a2.7b e6 f66",
             "whisper-medium", "internvl2-26b", "mamba2-130m",
@@ -341,6 +342,8 @@ def tp_config(case: str):
         cfg = dataclasses.replace(cfg, ssm_head_dim=32)
     if "ln" in opts:
         cfg = dataclasses.replace(cfg, norm="ln")
+    if "bf16s" in opts:
+        cfg = dataclasses.replace(cfg, score_dtype="bfloat16")
     if cfg.mask_id >= cfg.vocab:
         cfg = dataclasses.replace(cfg, mask_token_id=cfg.vocab - 1)
     if "e6" in opts:

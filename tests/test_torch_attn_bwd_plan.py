@@ -145,6 +145,10 @@ def test_every_backward_instantiation_fits_and_is_stated():
     want |= {f"flash_bidir_bwd_{k}_tc<{dt}{m}>" for k in ("dq", "dkv")
              for dt in fb.TILES for m in ("", ", true")}
     want.add("flash_bidir_bwd_split_sum")
+    # bf16 scores: the MASKED tensor-core kernels with BS, and the prescale
+    want |= {f"flash_bidir_bwd_{k}_tc<{dt}, true, true>" for k in ("dq", "dkv")
+             for dt in fb.TILES}
+    want |= {f"flash_bidir_bwd_qscale<{t}>" for t in ("float", "bf16")}
     assert set(specs) == want
     assert specs["flash_bidir_bwd_dq_tc<256>"].dynamic_bytes == \
         (2 * 2 * 32 + 2 * 16 * 8) * 264 * 2

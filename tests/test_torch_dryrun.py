@@ -161,33 +161,51 @@ def test_cli_writes_records(tmp_path, capsys):
                         "decode_32k", "--out-dir", str(tmp_path),
                         "--skip-existing"]) == 0
     assert "[skip]" in capsys.readouterr().out
-    # JAX's 14 variants: those that change the port's trace, and those
-    # that set only options the port does not read
+    # JAX's 14 variants, every one traced
     assert sorted(dryrun.VARIANTS) == sorted([
         "baseline", "split", "losschunk", "split_losschunk", "padheads48",
-        "padheads48_split", "padheads_g3", "moe_global", "remat"])
-    assert sorted(dryrun.NOT_PORTED) == sorted([
+        "padheads48_split", "padheads_g3", "moe_global", "remat",
         "bf16score", "split_bf16", "losschunk_bf16", "remat_bf16",
         "bigchunk", "padheads48_split_bf16", "split_losschunk_bf16"])
+    assert not hasattr(dryrun, "NOT_PORTED")
     assert dryrun.RESULTS.name == "dryrun_torch"
 
 
-@pytest.mark.parametrize("variant", ["bf16score", "remat_bf16", "bigchunk",
-                                     "split_losschunk_bf16"])
-def test_cli_refuses_variants_without_effect(tmp_path, capsys, variant):
-    """A variant that sets score_dtype or attn_chunk would write the
-    record of another variant under its own name: refused, and nothing is
-    written."""
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "llada-8b", "--shape", "decode_32k",
-                     "--variant", variant, "--out-dir", str(tmp_path)])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "the port has no" in err and \
-        f"it would trace as {dryrun.NOT_PORTED[variant][1]}" in err
-    assert not list(tmp_path.iterdir())
-    with pytest.raises(ValueError, match="the port has no"):
-        dryrun.variant_config("llada-8b", variant)
+# a variant that sets score_dtype or attn_chunk: (cell, the variant whose
+# bytes it must equal)
+SCORE_VARIANTS = {
+    "bf16score": (("llada-8b", "decode_32k"), "baseline"),
+    "remat_bf16": (("qwen2-0.5b", "train_4k"), "remat"),
+    "bigchunk": (("llada-8b", "decode_32k"), "baseline"),
+    "split_losschunk_bf16": (("llada-8b", "decode_32k"), "split_losschunk"),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(SCORE_VARIANTS))
+def test_cli_refuses_variants_without_effect(cells, tmp_path, variant):
+    """The variants that set score_dtype or attn_chunk once were refused;
+    the CLI now writes their records under their own names.  On the card
+    attention's scores never leave on-chip memory, so a bf16-score
+    variant moves the bytes of its base variant, and its record says why;
+    bigchunk (attn_chunk, which f32 scores do not read) traces as the
+    baseline does: the same bytes, FLOPs, ops and collectives."""
+    (arch, shape), base_name = SCORE_VARIANTS[variant]
+    assert dryrun.main(["--arch", arch, "--shape", shape, "--variant",
+                        variant, "--out-dir", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / f"{arch}__{shape}__16x16__{variant}.json"
+                      ).read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["variant"] == variant
+    base = cells[arch, shape] if base_name == "baseline" else \
+        dryrun.run_cell(arch, shape, variant=base_name)
+    for key in ("bytes_per_device", "aten_ops", "param_bytes_per_device",
+                "cache_bytes_per_device", "collectives",
+                "collective_bytes_per_device", "model_flops_global"):
+        assert rec[key] == base[key], key
+    bf16 = dryrun.VARIANTS[variant].get("cfg", {}).get("score_dtype")
+    assert (dryrun.SCORES_NOTE in rec["notes"]) == (bf16 == "bfloat16")
+    if bf16 is None:
+        assert rec["flops_per_device"] == base["flops_per_device"]
 
 
 def test_remat_variant_traces_with_the_recompute(cells):

@@ -605,8 +605,10 @@ def test_remat_and_score_dtype_checked():
     cfg = tbase.get_config("llada-8b", smoke=True)
     with pytest.raises(ValueError, match="remat"):
         tbuild(dataclasses.replace(cfg, remat="some"), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(dataclasses.replace(cfg, score_dtype="bfloat16"), "cpu")
+    # bf16 scores run (tests/test_torch_score_dtype.py); a name outside
+    # float32 and bfloat16 raises, naming both
+    with pytest.raises(ValueError, match="'float32', 'bfloat16'"):
+        tbuild(dataclasses.replace(cfg, score_dtype="float16"), "cpu")
     # the hybrid family ignores score_dtype, as JAX's does
     rg = dataclasses.replace(tbase.get_config("recurrentgemma-2b",
                                               smoke=True),
