@@ -469,7 +469,17 @@ REPLACES = {
                               "attention (no Pallas backward)",
     "flash_bidir_bf16s": "src/repro/kernels/flash_bidir.py:78",
     "flash_bidir_bwd_bf16s": "jax.grad of src/repro/models/layers.py "
-                             "attention (no Pallas backward)"}
+                             "attention (no Pallas backward)",
+    "flash_bidir_bwd_baos": "jax.grad of src/repro/models/layers.py "
+                            "attention with baos_calib (no Pallas "
+                            "backward)",
+    "flash_bidir_bwd_split": "jax.grad of src/repro/models/layers.py "
+                             "attention with extra_kv (no Pallas backward)",
+    "flash_bidir_bwd_offset": "jax.grad of src/repro/models/layers.py "
+                              "attention at a traced q_pos (no Pallas "
+                              "backward)",
+    "baos_mx_quant_bwd": "jax.grad of src/repro/kernels/baos_mx_quant.py:61 "
+                         "(core/baos.smooth_quantize; no Pallas backward)"}
 QWEN2 = dict(d=896, V=151936, mask_id=151935)
 MINICPM = dict(d=2304, V=122753, mask_id=122752)
 # the device kernel each wrapper call launches once, as the profiler names
@@ -842,8 +852,8 @@ def attn_backward_case(gen, what, B, S, Hq, Hkv, D, dt, win, lens,
         valid = torch.arange(S, device=DEVICE)[None, :] < torch.tensor(
             lens, device=DEVICE)[:, None]
     args = (q, kk, v, o_grad, valid, win, 0, causal)
-    got = fb.flash_bidir_bwd(*args)
-    again = fb.flash_bidir_bwd(*args)
+    got = fb.flash_bidir_bwd(*args)[:3]
+    again = fb.flash_bidir_bwd(*args)[:3]
     torch.cuda.synchronize()
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"flash_bidir_bwd {what}: two launches differ")
@@ -1012,10 +1022,11 @@ def bwd_plan_note(B, S, Hq, Hkv, D, dt, win, causal, masked,
 
 
 def check_no_backward_guard(gen) -> None:
-    """The four kernels without a backward refuse inputs that require grad
-    while grad mode is on (their output would cut the graph), and
-    flash_bidir refuses BAOS calibration under autograd; each still runs
-    under torch.no_grad()."""
+    """The three kernels without a backward refuse inputs that require
+    grad while grad mode is on (their output would cut the graph), and
+    each still runs under torch.no_grad(); flash_bidir with BAOS and
+    baos_mx_quant carry a grad_fn under autograd (their backwards,
+    phase 15i), and none under no_grad."""
     from repro_torch.kernels import baos_mx_quant as bmq
     from repro_torch.kernels import flash_bidir as fb
     from repro_torch.kernels import fused_head_sampling as fhs
@@ -1030,14 +1041,10 @@ def check_no_backward_guard(gen) -> None:
     conf = randn(4, 16, dtype=torch.float32)
     mask = torch.ones(4, 16, dtype=torch.bool, device=DEVICE)
     k = torch.full((4,), 3, dtype=torch.int32, device=DEVICE)
-    x = randn(2, 32, 4, 64)
-    center = torch.zeros(2, 1, 4, 64, device=DEVICE)
-    scale = torch.ones(2, 1, 4, 64, device=DEVICE)
     calls = {
         "fused_head_sampling": (lambda a: fhs.fused_head_sampling(a, w), h),
         "stablemax_sampling": (lambda a: sms.stablemax_sampling(a), z),
-        "topk_mask": (lambda a: tk.topk_mask(a, mask, k), conf),
-        "baos_mx_quant": (lambda a: bmq.baos_mx_quant(a, center, scale), x)}
+        "topk_mask": (lambda a: tk.topk_mask(a, mask, k), conf)}
     for name, (call, arg) in calls.items():
         try:
             call(arg.detach().requires_grad_())
@@ -1047,18 +1054,24 @@ def check_no_backward_guard(gen) -> None:
             raise Failure(f"{name} ran on an input that requires grad")
         with torch.no_grad():
             call(arg.detach().requires_grad_())
+    x = randn(2, 32, 4, 64).requires_grad_()
+    center = torch.zeros(2, 1, 4, 64, device=DEVICE)
+    scale = torch.ones(2, 1, 4, 64, device=DEVICE)
     q, kv = randn(2, 8, 4, 64).requires_grad_(), randn(2, 8, 2, 64)
     cal = torch.ones(2, 2, 64, device=DEVICE)
-    try:
-        fb.flash_bidir(q, kv, kv, fk=cal, fv=cal, cv=cal)
-    except NotImplementedError:
-        pass
-    else:
-        raise Failure("flash_bidir took BAOS calibration under autograd")
+    carried = {"baos_mx_quant": lambda: bmq.baos_mx_quant(x, center, scale),
+               "flash_bidir with BAOS": lambda: fb.flash_bidir(
+                   q, kv, kv, fk=cal, fv=cal, cv=cal)}
+    for name, call in carried.items():
+        require(call().grad_fn is not None,
+                f"{name} carries no backward under autograd")
+        with torch.no_grad():
+            require(call().grad_fn is None, f"{name} under no_grad")
     torch.cuda.synchronize()
-    log("no-backward guard: fused_head_sampling, stablemax_sampling, "
-        "topk_mask and baos_mx_quant raise on inputs that require grad "
-        "(and run under no_grad); flash_bidir refuses BAOS under autograd")
+    log("no-backward guard: fused_head_sampling, stablemax_sampling and "
+        "topk_mask raise on inputs that require grad (and run under "
+        "no_grad); baos_mx_quant and flash_bidir with BAOS carry a "
+        "grad_fn under autograd")
 
 
 def check_audio_vlm_shapes(gen) -> None:
@@ -8386,7 +8399,8 @@ PHASE15_BF16S_BUDGET_S = 25.0
 BF16S = "bfloat16"
 
 
-def bf16s_gates(got, plain, ref, got_f32, what: str) -> float:
+def bf16s_gates(got, plain, ref, got_f32, what: str,
+                phase: str = "15h", near=None) -> float:
     """15h's kernel gates: the bf16-score kernel's output ``got`` against
     ``ref``, the f32-score function of the same inputs in f32 (plain
     version), beyond one bf16 ulp of ``ref`` at most 2x the distance of
@@ -8396,13 +8410,15 @@ def bf16s_gates(got, plain, ref, got_f32, what: str) -> float:
     ``plain`` than the f32-score kernel's ``got_f32`` is, in the mean
     absolute difference (the scores really are rounded; a max would
     compare one or two bf16 ulps of the output where the scores' rounding
-    moves less than that, as at D 256 with a window of 64).  Returns
-    max |got - plain|."""
+    moves less than that, as at D 256 with a window of 64).  ``near``,
+    where given, takes ``plain``'s place in the mean: a plain version that
+    rounds where the kernel does.  Returns max |got - plain|."""
     got, plain, got_f32 = got.float(), plain.float(), got_f32.float()
+    near = plain if near is None else near.float()
     e_k = float(((got - ref).abs() - bf16_ulp(ref)).max())
     e_p = float((plain - ref).abs().max())
-    m_kp = float((got - plain).abs().mean())
-    m_32 = float((got_f32 - plain).abs().mean())
+    m_kp = float((got - near).abs().mean())
+    m_32 = float((got_f32 - near).abs().mean())
     require(bool(torch.isfinite(got).all()), f"{what}: not finite")
     require(e_k <= 2 * e_p, f"{what}: error {e_k:.3g} beyond one bf16 ulp "
                             f"of the f32 function, over 2x the plain "
@@ -8410,7 +8426,7 @@ def bf16s_gates(got, plain, ref, got_f32, what: str) -> float:
     require(m_kp < m_32, f"{what}: {m_kp:.3g} from the plain bf16-score "
                          f"version in the mean, the f32-score kernel "
                          f"{m_32:.3g}")
-    log(f"phase 15h: {what}: beyond one ulp {e_k:.3g} vs plain's "
+    log(f"phase {phase}: {what}: beyond one ulp {e_k:.3g} vs plain's "
         f"{e_p:.3g} from the f32 function; mean |kernel - plain| {m_kp:.3g}, "
         f"f32 scores' {m_32:.3g}")
     return float((got - plain).abs().max())
@@ -8524,8 +8540,8 @@ def bf16s_bwd_case(gen, what, B, S, Hq, Hkv, D, dt=torch.bfloat16,
         valid = torch.arange(S, device=DEVICE)[None, :] < torch.tensor(
             lens, device=DEVICE)[:, None]
     args = (q, kk, v, o_grad, valid, win, 0, False)
-    got = fb.flash_bidir_bwd(*args, BF16S)
-    again = fb.flash_bidir_bwd(*args, BF16S)
+    got = fb.flash_bidir_bwd(*args, BF16S)[:3]
+    again = fb.flash_bidir_bwd(*args, BF16S)[:3]
     torch.cuda.synchronize()
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"{what}: two launches differ")
@@ -8783,6 +8799,492 @@ def phase15_bf16s_train(gen) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15i: the cached forward under autograd (BAOS, route B, a device
+# query offset) and baos_mx_quant's backward
+# ---------------------------------------------------------------------------
+
+# 15i's time budget, seconds (stated before its first run on the card)
+PHASE15I_BUDGET_S = 30.0
+BAOS_BWD_FMTS = ("mxint4", "mxfp8_e4m3", "bf16")
+
+
+def cached_bwd_gates(names, got, plain, ref, f32: bool, what: str,
+                     got_f32=None, near=None) -> float:
+    """15i's kernel gates, check_attn_backward's: f32, every gradient
+    within 1e-4 x the largest reference; bf16, each bf16 gradient's error
+    against the f32 reference beyond one bf16 ulp at most 2x the plain
+    bf16 version's, and each f32 one (the calibration's, column sums of
+    the bf16 products' dS) within one bf16 ulp of its largest value more
+    than 2x plain's.  With bf16 scores (``got_f32``: the f32-score
+    kernel's gradients) the bf16 gradients take 15h's bf16s_gates, the
+    reference being the f32-score function of the f32 inputs, and
+    ``near`` its plain version for the mean.  Returns the largest
+    |kernel - plain|."""
+    worst = 0.0
+    for i, (n, g, p, r) in enumerate(zip(names, got, plain, ref)):
+        if g is None:
+            continue
+        g, p = g.float(), p.float()
+        require(bool(torch.isfinite(g).all()), f"{what}: d{n} not finite")
+        worst = max(worst, float((g - p).abs().max()))
+        if got_f32 is not None and n not in ("fk", "fv", "cv"):
+            bf16s_gates(g, p, r, got_f32[i], f"{what} d{n}", "15i",
+                        None if near is None else near[i])
+            continue
+        if f32:
+            err = float((g - r).abs().max())
+            require(err <= 1e-4 * float(r.abs().max()),
+                    f"{what}: d{n} beyond 1e-4 of max|d{n}| ({err:.3g})")
+            continue
+        e_p = float((p - r).abs().max())
+        if n in ("fk", "fv", "cv"):
+            e_k = float((g - r).abs().max())
+            lim = 2 * e_p + float(bf16_ulp(r.abs().max()))
+        else:
+            e_k = float(((g - r).abs() - bf16_ulp(r)).max())
+            lim = 2 * e_p
+        require(e_k <= lim, f"{what}: d{n} error {e_k:.3g} over its gate "
+                            f"{lim:.3g} (plain's {e_p:.3g})")
+    return worst
+
+
+def joined_bwd_plain(q, kk, v, do, valid, ext, window, cal, needs):
+    """The plain bf16-score backward of route B over its two sources
+    joined as one key set, the function route B computes where no window
+    places the second source, and with its rounding: P relative to each
+    row's max over both sources, as the kernels' backward recomputes it
+    (JAX's route B, and the plain version, round the second source's P
+    relative to its own max: near the kernels' as far as the f32-score
+    kernel is, for dk2).  The 8 gradients as flash_bidir_bwd gives
+    them."""
+    from repro_torch.kernels import flash_bidir as fb
+    require(window is None, "a joined route B needs no window")
+    Skv = kk.shape[1]
+    k2, v2, valid2 = ext
+    ones = torch.ones((q.shape[0], Skv + k2.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    g = fb.flash_bidir_bwd_plain(
+        q, torch.cat([kk, k2], 1), torch.cat([v, v2], 1), do,
+        torch.cat([ones[:, :Skv] if valid is None else valid,
+                   ones[:, Skv:] if valid2 is None else valid2], 1),
+        None, 0, False, "bfloat16", **cal,
+        needs=(needs[0], True, True) + tuple(needs[3:6]) + (False, False))
+    dk, dv = g[1], g[2]
+    return (g[0], dk[:, :Skv] if needs[1] else None,
+            dv[:, :Skv] if needs[2] else None, *g[3:6], dk[:, Skv:],
+            dv[:, Skv:])
+
+
+def cached_bwd_case(gen, what, B, Sq, Skv, Hq, Hkv, D, dt=torch.bfloat16,
+                    lens=None, window=None, off=0, baos=False, extra=0,
+                    device_offset=False, score_dtype="float32",
+                    timed=True) -> dict:
+    """One 15i case: flash_bidir_bwd with BAOS (f_k, f_v, c_v), route B's
+    ``extra`` keys at ``off`` (the cache's stale copy masked, its own
+    dk/dv not wanted, as the split refine's read-only cache), the offset
+    from device memory and ``score_dtype``, two launches bit for bit,
+    against the plain version's autograd (cached_bwd_gates); with
+    ``timed``, its row: device ms (a graph of 20 calls) beside the
+    cache-less backward's at the shape, CUDA events, the plain version's,
+    the bound (check_attn_backward's count over both sources' keys) and
+    SDPA's backward on the dequantized and concatenated K/V (its forward
+    + backward less its forward)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_bidir as fb
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dt)
+    q, do = r(B, Sq, Hq, D), r(B, Sq, Hq, D)
+    kk, v = r(B, Skv, Hkv, D), r(B, Skv, Hkv, D)
+    valid = None
+    if lens is not None:
+        valid = torch.arange(Skv, device=DEVICE)[None, :] < torch.tensor(
+            lens, device=DEVICE)[:, None]
+    if extra:
+        pos = torch.arange(Skv, device=DEVICE)
+        valid = ~((pos >= off) & (pos < off + extra))[None].expand(B, Skv)
+        valid = valid.contiguous()
+    cal = {}
+    if baos:
+        cal = dict(fk=torch.rand(B, Hkv, D, generator=gen, device=DEVICE)
+                   + 0.5,
+                   fv=torch.rand(B, Hkv, D, generator=gen, device=DEVICE)
+                   + 0.5,
+                   cv=torch.randn(B, Hkv, D, generator=gen, device=DEVICE))
+    ext = (r(B, extra, Hkv, D), r(B, extra, Hkv, D), None) if extra else None
+    off_arg = (torch.full((B,), off, dtype=torch.int64, device=DEVICE)
+               if device_offset else off)
+    needs = (True, not extra, not extra, True, True, True, True, True)
+    kw = dict(**cal, extra_kv=ext, needs=needs)
+    args = (q, kk, v, do, valid, window, off_arg, False)
+    got = fb.flash_bidir_bwd(*args, score_dtype=score_dtype, **kw)
+    again = fb.flash_bidir_bwd(*args, score_dtype=score_dtype, **kw)
+    torch.cuda.synchronize()
+    require(all(a is None or torch.equal(a, b) for a, b in zip(got, again)),
+            f"{what}: two launches differ")
+    names = ("q", "k", "v", "fk", "fv", "cv", "k2", "v2")
+
+    def plain_of(ts, e, sd=score_dtype):
+        return fb.flash_bidir_bwd_plain(*ts, valid, window, off_arg, False,
+                                        sd, **cal, extra_kv=e, needs=needs)
+    plain = plain_of((q, kk, v, do), ext)
+    f32 = [t.float() for t in (q, kk, v, do)]
+    e32 = None if ext is None else (ext[0].float(), ext[1].float(), None)
+    ref = plain_of(f32, e32, "float32")
+    got_f32 = near = None
+    if score_dtype == "bfloat16":
+        got_f32 = fb.flash_bidir_bwd(*args, **kw)
+        if ext is not None:
+            near = joined_bwd_plain(q, kk, v, do, valid, ext, window, cal,
+                                    needs)
+    err = cached_bwd_gates(names, got, plain, ref, dt == torch.float32,
+                           what, got_f32, near)
+    if not timed:
+        log(f"phase 15i: flash_bidir_bwd {what} (B {B}, Sq {Sq}, {Skv}"
+            f"{f' + {extra}' if extra else ''} keys, {Hq} q heads on {Hkv}, "
+            f"D {D} ({fb.route(D, dt)[0]}), {str(dt).replace('torch.', '')},"
+            f" {score_dtype} scores, window {window}, offset {off}"
+            f"{' in device memory' if device_offset else ''}"
+            f"{', BAOS' if baos else ''}): max |kernel - plain| {err:.3g} "
+            f"within the backward's gates, two launches bit for bit")
+        return {"max_abs_err": err}
+    fn = lambda: fb.flash_bidir_bwd(  # noqa: E731
+        *args, score_dtype=score_dtype, **kw)
+    bare = lambda: fb.flash_bidir_bwd(  # noqa: E731
+        q, kk, v, do, valid, window, off, False)
+    es = q.element_size()
+    n_keys = B * Skv if valid is None else int(valid.sum())
+    S_all = Skv + extra
+    mask = fb._mask(B, Sq, Skv, valid, window, off, DEVICE)
+    k_all, v_all = kk, v
+    if ext is not None:
+        mask = torch.cat([mask, fb._mask(
+            B, Sq, extra, None, window, off, DEVICE,
+            kpos=off + torch.arange(extra, device=DEVICE))], -1)
+        k_all, v_all = torch.cat([kk, ext[0]], 1), torch.cat([v, ext[1]], 1)
+        n_keys += B * extra
+    ok = mask[:, 0]
+    n_pairs = int(torch.where(ok.sum(-1) > 0, ok.sum(-1), S_all).sum())
+    written = (2 * ext[0].numel() if ext is not None else 2 * kk.numel())
+    b_ms, b_by = bound(3 * q.numel() * es + 2 * n_keys * Hkv * D * es
+                       + written * es + 4 * 6 * B * Hkv * D
+                       + (0 if valid is None else valid.numel()),
+                       8.0 * Hq * D * n_pairs,
+                       BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+    G = Hq // Hkv
+    if baos:          # SDPA over the dequantized K/V (the smoothed space
+        # undone), q unscaled
+        k_all = k_all * cal["fk"][:, None].to(dt)
+        v_all = v_all * cal["fv"][:, None].to(dt) + cal["cv"][:, None].to(dt)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for t in (k_all, v_all))
+    dot = do.transpose(1, 2)
+    lib_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask)
+    row = dict(max_abs_err=err, device_ms=kernel_ms(fn, 20, what),
+               cacheless_device_ms=kernel_ms(bare, 20, f"{what} cache-less"),
+               ms=time_ms(fn, 20),
+               plain_ms=time_ms(lambda: plain_of((q, kk, v, do), ext), 3),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=time_ms(lambda: lib_f().backward(dot), 20)
+               - time_ms(lib_f, 20))
+    log(f"phase 15i: flash_bidir_bwd {what} (B {B}, Sq {Sq}, {Skv}"
+        f"{f' + {extra}' if extra else ''} keys, {Hq} q heads on {Hkv}, D "
+        f"{D}, {str(dt).replace('torch.', '')}, window {window}, kv_valid "
+        f"{lens}, offset {off}{' in device memory' if device_offset else ''}"
+        f"{', BAOS' if baos else ''}): max |kernel - plain| {err:.3g} within "
+        f"the backward's gates, two launches bit for bit; device "
+        f"{row['device_ms']:.4f} ms (a graph of 20 calls), the cache-less "
+        f"backward {row['cacheless_device_ms']:.4f} ms at the shape; CUDA "
+        f"events {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {row['device_ms'] / b_ms:.1f}x; SDPA "
+        f"backward on the {'dequantized ' if baos else ''}"
+        f"{'concatenated ' if extra else ''}K/V {row['library_ms']:.4f} ms")
+    return row
+
+
+def baos_bwd_case(gen, fmt: str, B=4, S=96, H=32, D=128) -> dict:
+    """15i: baos_mx_quant_bwd at the warm tick's K/V shape, bf16, against
+    autograd through the plain version on the card: dx within one bf16
+    ulp, dc and df within 1e-5 of their largest (summation order); the
+    zero formats' dx exactly 0.  Its row: device ms (a graph of 20 calls)
+    beside the forward kernel's, CUDA events, plain, the byte bound (where
+    the format passes a gradient x and g read, dx written, c and f read,
+    dc and df written; in the zero formats only dx, dc and df written, all
+    zeros); no PyTorch call computes it (library null)."""
+    from repro_torch.kernels import baos_mx_quant as bmq
+    x = (torch.randn(B, S, H, D, generator=gen, device=DEVICE) * 2).to(
+        torch.bfloat16)
+    c = torch.randn(B, 1, H, D, generator=gen, device=DEVICE) * 0.3
+    f = torch.rand(B, 1, H, D, generator=gen, device=DEVICE) * 2.5 + 0.5
+    g = torch.randn(B, S, H, D, generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    got = bmq.baos_mx_quant_bwd(x, c, f, g, fmt)
+    again = bmq.baos_mx_quant_bwd(x, c, f, g, fmt)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"baos_mx_quant_bwd {fmt}: two launches differ")
+
+    def plain():
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (x, c, f)]
+            return torch.autograd.grad(
+                bmq.baos_mx_quant_plain(*ins, fmt), ins, g)
+    want = plain()
+    dx, dxp = got[0].float(), want[0].float()
+    require(bool(((dx - dxp).abs() <= bf16_ulp(dxp)).all()),
+            f"baos_mx_quant_bwd {fmt}: dx beyond one bf16 ulp of plain")
+    if fmt in ("mxint4",):
+        require(not got[0].any() and not got[1].any() and not got[2].any(),
+                f"baos_mx_quant_bwd {fmt}: a nonzero gradient")
+    err = float((dx - dxp).abs().max())
+    for n, a, b in zip(("dc", "df"), got[1:], want[1:]):
+        e = float((a - b).abs().max())
+        require(e <= 1e-5 * max(float(b.abs().max()), 1e-30),
+                f"baos_mx_quant_bwd {fmt}: {n} off by {e:.3g}")
+        err = max(err, e)
+    fn = lambda: bmq.baos_mx_quant_bwd(x, c, f, g, fmt)  # noqa: E731
+    if bmq.grad_passes(fmt):
+        moved = 3 * x.numel() * 2 + 4 * B * H * D * 4
+    else:
+        moved = x.numel() * 2 + 2 * B * H * D * 4
+    b_ms, b_by = bound(moved, 0.0, F32_FLOPS)
+    row = dict(max_abs_err=err, device_ms=kernel_ms(fn, 20, fmt),
+               forward_device_ms=kernel_ms(
+                   lambda: bmq.baos_mx_quant(x, c, f, fmt), 20, fmt),
+               ms=time_ms(fn, 20), plain_ms=time_ms(plain, 3),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"phase 15i: baos_mx_quant_bwd {fmt} ({B}, {S}, {H}, {D}) bf16: dx "
+        f"within one bf16 ulp of plain, dc/df within 1e-5, max abs err "
+        f"{err:.3g}, two launches bit for bit; device "
+        f"{row['device_ms']:.4f} ms (a graph of 20 calls), the forward "
+        f"{row['forward_device_ms']:.4f} ms; CUDA events {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{row['device_ms'] / b_ms:.1f}x")
+    return row
+
+
+# 15i's untimed backward cases: every route and instantiation the cached
+# backward adds, each held to its plain version (cached_bwd_case's
+# arguments after gen; bf16 unless dt is given)
+CACHED_BWD_ROUTES = (
+    ("BAOS, kv_valid, tile 32", 2, 32, 64, 8, 2, 32,
+     dict(lens=(64, 37), baos=True)),
+    ("BAOS, bf16 scores, route B, tile 32", 2, 32, 64, 8, 2, 32,
+     dict(baos=True, off=16, extra=16, score_dtype=BF16S)),
+    ("BAOS, qwen2-0.5b heads, kv_valid, tile 64", 2, 64, 128, 14, 2, 64,
+     dict(lens=(128, 77), baos=True)),
+    ("BAOS, bf16 scores, route B, tile 64", 2, 64, 128, 14, 2, 64,
+     dict(baos=True, off=32, extra=32, score_dtype=BF16S)),
+    ("BAOS, bf16 scores, kv_valid, tile 128", 2, 64, 96, 8, 8, 128,
+     dict(lens=(96, 57), baos=True, score_dtype=BF16S)),
+    ("bf16 scores, route B, tile 128", 2, 64, 128, 8, 8, 128,
+     dict(off=64, extra=64, score_dtype=BF16S)),
+    ("BAOS, recurrentgemma-2b heads, window 2048, device offset, tile 256",
+     2, 64, 4096, 10, 1, 256,
+     dict(lens=(4096, 3900), window=2048, off=2000, baos=True,
+          device_offset=True)),
+    ("BAOS, bf16 scores, window 512, device offset, tile 256", 2, 64, 1024,
+     10, 1, 256, dict(window=512, off=480, baos=True, device_offset=True,
+                      score_dtype=BF16S)),
+    ("BAOS, route B, bf16 CUDA cores", 2, 32, 64, 8, 2, 100,
+     dict(baos=True, off=24, extra=16)),
+    ("BAOS, bf16 scores, route B, bf16 CUDA cores", 2, 32, 64, 8, 2, 100,
+     dict(baos=True, off=24, extra=16, score_dtype=BF16S)),
+    ("BAOS, route B, wide", 2, 32, 64, 4, 2, 320,
+     dict(baos=True, off=24, extra=16)),
+    ("BAOS, bf16 scores, window, device offset, wide", 2, 32, 96, 4, 2,
+     320, dict(window=24, off=40, baos=True, device_offset=True,
+               score_dtype=BF16S)),
+    ("f32, BAOS, route B, wide", 2, 16, 48, 4, 2, 320,
+     dict(dt=torch.float32, baos=True, off=16, extra=16)),
+    ("f32, BAOS, window, device offset, D 100", 2, 16, 48, 8, 2, 100,
+     dict(dt=torch.float32, window=12, off=20, baos=True,
+          device_offset=True)),
+)
+
+
+def check_cached_backward(gen) -> dict:
+    """15i (a): the backward kernels of the cached forward on the card:
+    BAOS at llada-8b's main shape (4, 96, 32 on 32, 128) bf16 with
+    kv_valid; route B (16, 64, 32 on 32, 128) over 384 + 64 keys with
+    BAOS; recurrentgemma-2b's attention (2, 64, 10 on 1, 256) over 32,768
+    keys, window 2048, the offset from device memory; one f32 case (BAOS,
+    route B and a device offset with a window, D 64), each timed; then
+    CACHED_BWD_ROUTES untimed (BAOS at every tile, bf16 scores with BAOS
+    and with route B, the bf16 CUDA-core and the wide routes with BAOS,
+    route B and a device offset); baos_mx_quant_bwd at (4, 96, 32, 128)
+    in mxint4, mxfp8_e4m3 and bf16.  Also the device time of the forward
+    that recomputes o_s for df_v (the BAOS backward's one forward
+    launch).  Returns the kernels' rows."""
+    from repro_torch.kernels import flash_bidir as fb
+    rows = {"flash_bidir_bwd_baos": cached_bwd_case(
+        gen, "BAOS, main shape, kv_valid", 4, 96, 96, 32, 32, 128,
+        lens=(96, 80, 57, 33), baos=True)}
+    rows["flash_bidir_bwd_split"] = cached_bwd_case(
+        gen, "route B over 384 + 64 keys, BAOS", 16, 64, 384, 32, 32, 128,
+        baos=True, off=128, extra=64)
+    rows["flash_bidir_bwd_offset"] = cached_bwd_case(
+        gen, "recurrentgemma-2b over 32768 keys, window 2048", 2, 64, 32768,
+        10, 1, 256, lens=(32768, 32468), window=2048, off=16320,
+        device_offset=True)
+    cached_bwd_case(gen, "f32, BAOS, route B, window, device offset", 2, 16,
+                    48, 8, 2, 64, dt=torch.float32, window=24, off=20,
+                    baos=True, extra=16, device_offset=True)
+    for what, *shape, kw in CACHED_BWD_ROUTES:
+        cached_bwd_case(gen, what, *shape, **kw, timed=False)
+    q = torch.randn(4, 96, 32, 128, generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    kv = torch.randn(4, 96, 32, 128, generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    fk = torch.rand(4, 32, 128, generator=gen, device=DEVICE) + 0.5
+    o_ms = kernel_ms(lambda: fb._forward(q, kv, kv, None, fk, None, None,
+                                         None, 0), 20, "o_s")
+    log(f"phase 15i: the BAOS backward's recompute of o_s (one forward, "
+        f"f_k fused, at the main shape): {o_ms:.4f} ms device, "
+        f"{q.numel() * 2 / 2 ** 20:.1f} MiB written")
+    rows["baos_mx_quant_bwd"] = baos_bwd_case(gen, "mxint4")
+    for fmt in BAOS_BWD_FMTS[1:]:
+        baos_bwd_case(gen, fmt)
+    return rows
+
+
+def phase15_cache_grad(gen) -> dict:
+    """15i (b): the cached forward under autograd at full width.
+    llada-8b, PHASE15_LLADA_LAYERS layers (a depth cut), B 2 x 128
+    positions, block 32 at 64: a loss of the logits (sum of logits x a
+    seeded W) from (1) a warm step with BAOS mxint4 and calibration, (2) a
+    split refine (route B) after a warm step and (3) a warm step whose
+    block start is a device tensor, both with BAOS in format none (the
+    smoothing and its fusion without the quantizer, whose grid flips part
+    bf16 from f32 runs chaotically at full width: there plain reaches
+    0.999 to f32 on no leaf, and the gate reads only the margin); then
+    recurrentgemma-2b at PHASE15_RG_LAYERS, B 2 past its 2,048-position
+    window (a 4,224-long canvas, the block at 4,096), a refine from a
+    device block start (BAOS off: the offset's own count).  Each step's
+    gradient of every leaf through the kernels, through plain attention
+    (baos_mx_quant on its kernel), and in f32 (plain attention):
+    grad_gates (cosine to plain >= 0.999 wherever plain reaches 0.999 to
+    f32, else the kernels' cosine to f32 no lower than plain's less
+    0.005); the kernels' launches exact.  Returns the launch counts."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import base
+    from repro_torch.core import baos as baos_lib
+    from repro_torch.core import diffusion
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import build_model
+    total = {}
+
+    def grads_of(model, params, step):
+        leaves = tree_lib.leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        logits, _ = step(model, params)
+        W = torch.randn(logits.shape, device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(3))
+        return torch.autograd.grad((logits.float() * W).sum(), leaves)
+
+    def run(cfg, step, want, what):
+        t0 = time.perf_counter()
+        model = build_model(cfg, DEVICE)
+        params = model.init(seed=0)
+        names = [k for k, _ in tree_lib.flatten_with_paths(params)]
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                              DEVICE)
+        params32 = tree_lib.tree_map(lambda t: t.detach().float(), params)
+        with plain_attention():
+            grads32 = grads_of(model32, params32, step)
+            grads_p = grads_of(model, params, step)
+        del params32, model32
+        with no_plain_attention():
+            _build.reset_launch_counts()
+            grads_k = grads_of(model, params, step)
+            torch.cuda.synchronize()
+            counts = dict(_build.launch_counts)
+        got = {n: v for n, v in counts.items() if v}
+        require(got == want, f"phase 15i {what}: launches {got}, want {want}")
+        worst_kp, worst_f32, n_f32 = grad_gates(names, grads_k, grads_p,
+                                                grads32, f"phase 15i {what}")
+        least = min((float(torch.nn.functional.cosine_similarity(
+            a.float().reshape(1, -1), b.float().reshape(1, -1))), n)
+            for n, a, b in zip(names, grads_k, grads_p) if b.any())
+        log(f"phase 15i: {cfg.name} ({cfg.n_layers} layers) {what}: worst "
+            f"cosine(kernels, plain) {worst_kp[0]:.6f} ({worst_kp[1]}) over "
+            f"the {len(names) - n_f32} leaves plain fixes to 0.999 of f32, "
+            f"{least[0]:.6f} ({least[1]}) over every leaf"
+            + (f"; on the other {n_f32} the kernels' cosine to f32 less "
+               f"plain's at worst {worst_f32[0]:+.6f} ({worst_f32[1]})"
+               if n_f32 else "")
+            + f"; launches {got}; {time.perf_counter() - t0:.1f} s")
+        add_counts(total, counts)
+        del model, params, grads_k, grads_p, grads32
+        free()
+
+    cfg = cut_depth(base.get_config("llada-8b"), PHASE15_LLADA_LAYERS,
+                    "for the phase's budget")
+    nl, B, S, L, start = cfg.n_layers, 2, 128, 32, 64
+    x = torch.randint(0, cfg.vocab - 2, (B, S), device=DEVICE,
+                      generator=gen)
+    dcfg = {fmt: diffusion.DiffusionConfig(
+        gen_length=64, block_length=L, steps_per_block=4, cache_mode="dual",
+        baos=baos_lib.BAOSConfig(kv_format=fmt)) for fmt in ("mxint4",
+                                                             "none")}
+    # the backward of a warm step's attention recomputes o_s for df_v (the
+    # calibration requires grad): one forward launch more a layer
+    warm_want = {"flash_bidir": 2 * nl, "baos_mx_quant": 2 * nl,
+                 "flash_bidir_bwd_baos": nl, "baos_mx_quant_bwd": 2 * nl}
+
+    def warm(model, params, block=start, fmt="mxint4"):
+        return diffusion.warm_step(model, params, x, model.init_cache(B, S),
+                                   block, dcfg[fmt])
+
+    def split_refine(model, params):
+        cache = model.init_cache(B, S, act_len=L)
+        with torch.no_grad():
+            diffusion.warm_step(model, params, x, cache, start, dcfg["none"])
+        return diffusion.refine_step(model, params, x, cache, start,
+                                     dcfg["none"])
+
+    def warm_device(model, params):
+        return warm(model, params, torch.full(
+            (1,), start, dtype=torch.int64, device=DEVICE), "none")
+    run(cfg, warm, warm_want, "warm step, BAOS mxint4, calibration")
+    # the split refine's warm step, under no_grad, counts as serving does;
+    # its refine reads the cache's calibration, which needs no gradient, so
+    # its backward recomputes no o_s
+    run(cfg, split_refine,
+        {"flash_bidir": nl, "baos_mx_quant": 2 * nl,
+         "flash_bidir_split": nl, "flash_bidir_bwd_split": nl},
+        "split refine (route B), BAOS none")
+    run(cfg, warm_device, warm_want,
+        "warm step, device block start, BAOS none")
+    rg = cut_depth(base.get_config("recurrentgemma-2b"), PHASE15_RG_LAYERS,
+                   "for the phase's budget (two attention layers)")
+    n_attn = rg.n_layers // 3
+    G = PHASE15_GEN
+    s_rg = G["prompt"] + G["gen"]
+    xr = torch.randint(0, rg.vocab - 2, (G["B"], s_rg), device=DEVICE,
+                       generator=gen)
+    dr = diffusion.DiffusionConfig(
+        gen_length=G["gen"], block_length=G["block"], steps_per_block=4,
+        cache_mode="dual", baos=baos_lib.BAOSConfig(enabled=False))
+    blk = G["prompt"]
+
+    def rg_refine(model, params):
+        cache = model.init_cache(G["B"], s_rg)
+        with torch.no_grad():
+            diffusion.warm_step(model, params, xr, cache, blk, dr)
+        return diffusion.refine_step(
+            model, params, xr, cache,
+            torch.full((1,), blk, dtype=torch.int64, device=DEVICE), dr)
+    run(rg, rg_refine, {"flash_bidir": n_attn, "flash_bidir_offset": n_attn,
+                        "flash_bidir_bwd_offset": n_attn},
+        "refine past the window from a device block start")
+    return total
+
+
 def phase15(gen) -> tuple:
     """Phase 15: recurrentgemma-2b at full width (PHASE15_RG_LAYERS
     layers) past its window, 15b graphed generate and 15c the decode
@@ -8820,6 +9322,11 @@ def phase15(gen) -> tuple:
     add_counts(total, phase15_bf16s_train(gen))
     log(f"phase 15h: {time.perf_counter() - t_h:.1f} s against its budget "
         f"of {PHASE15_BF16S_BUDGET_S:.0f} s")
+    t_i = time.perf_counter()
+    rows.update(check_cached_backward(gen))
+    add_counts(total, phase15_cache_grad(gen))
+    log(f"phase 15i: {time.perf_counter() - t_i:.1f} s against its budget "
+        f"of {PHASE15I_BUDGET_S:.0f} s")
     log(f"phase 15 body: {time.perf_counter() - t0:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return total, rows
@@ -8848,8 +9355,9 @@ def phase15_process() -> tuple:
             f"phase 15 process: exit {r.returncode}: {r.stderr[-3000:]}")
     log(f"phase 15 (its own process, start included): "
         f"{time.perf_counter() - t0:.1f} s against its budget of "
-        f"{PHASE15_BUDGET_S + PHASE15_BF16S_BUDGET_S:.0f} s (15h's "
-        f"{PHASE15_BF16S_BUDGET_S:.0f} s included)")
+        f"{PHASE15_BUDGET_S + PHASE15_BF16S_BUDGET_S + PHASE15I_BUDGET_S:.0f}"
+        f" s (15h's {PHASE15_BF16S_BUDGET_S:.0f} s and 15i's "
+        f"{PHASE15I_BUDGET_S:.0f} s included)")
     return counts, rows
 
 

@@ -366,13 +366,35 @@ def smem_specs() -> List[SmemSpec]:
                             0, fb.bwd_dkv_smem(dt, bf16_scores=True)))
     for t in ("float", "bf16"):
         out.append(SmemSpec(lib, f"flash_bidir_bwd_qscale<{t}>", 0, 0))
+    # the cached forward's backward: BAOS's prep and sums kernels
+    # (the sums' stripes in static memory: 3 x 8 warps x 32 floats), and
+    # the MASKED tensor-core kernels with two terms of q and dO (QT = 2)
+    for t in ("float", "bf16"):
+        out += [SmemSpec(lib, f"flash_bidir_bwd_baos_prep<{t}>", 0, 0),
+                SmemSpec(lib, f"flash_bidir_bwd_baos_sums<{t}>",
+                         3 * 8 * 32 * 4, 0)]
+    for dt in (32, 64, 128, 256):
+        for bs in ("false", "true"):
+            out.append(SmemSpec(
+                lib, f"flash_bidir_bwd_dq_tc<{dt}, true, {bs}, 2>", 0,
+                fb.bwd_dq_smem(dt, True, fb.bwd_dq_max_warps(dt, True, 2),
+                               2)))
+            out.append(SmemSpec(
+                lib, f"flash_bidir_bwd_dkv_tc<{dt}, true, {bs}, 2>", 0,
+                fb.bwd_dkv_smem(dt, bs == "true", 2)))
     lib = "baos_mx_quant"
-    # each without and with RAGGED (D not a multiple of 32)
+    # each without and with RAGGED (D not a multiple of 32); the backward's
+    # row groups' partial sums in static memory (2 x 4 groups x 64 threads
+    # x 8 channels of f32)
     for ragged in ("", ", true"):
         for t in ("float", "__nv_bfloat16"):
             for fmt in FMTS_CU:
                 out.append(SmemSpec(
                     lib, f"baos_mx_quant_kernel<{t}, {fmt}{ragged}>", 0, 0))
+                out.append(SmemSpec(
+                    lib, f"baos_mx_quant_bwd_kernel<{t}, {fmt}{ragged}>",
+                    2 * 4 * 64 * 8 * 4, 0))
+    out.append(SmemSpec(lib, "baos_mx_quant_bwd_sum", 0, 0))
     return out
 
 

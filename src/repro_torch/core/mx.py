@@ -86,6 +86,45 @@ def _quant_grid(x: torch.Tensor, grid: np.ndarray) -> torch.Tensor:
     return torch.sign(x) * g[idx]
 
 
+# e4m3's largest finite value, and the least magnitude a cast without
+# saturation (ml_dtypes', JAX's) sends to NaN: 464 is the tie between 448
+# and the NaN code, and rounds to even, 448
+E4M3_MAX, E4M3_NAN_ABOVE = 448.0, 464.0
+
+
+def e4m3_cast(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to float8 e4m3 (back in x's dtype) as JAX's cast rounds
+    it: to nearest even, NaN past 464 (torch's own cast saturates)."""
+    y = x.to(torch.float8_e4m3fn).to(x.dtype)
+    return torch.where(x.abs() > E4M3_NAN_ABOVE,
+                       torch.full_like(y, float("nan")), y)
+
+
+class _E4M3Clip(torch.autograd.Function):
+    """mxfp8's element rounding, clip to +-448 then cast to e4m3 (OCP MX's
+    saturating conversion: the clip is explicit, since casts disagree on
+    overflow), with jax.grad's derivative of JAX's
+    ``clip(x, -448, 448).astype(float8_e4m3fn).astype(x.dtype)``: the
+    cotangent cast to e4m3 and back (the VJP of JAX's float8 cast, NaN
+    past 464), times jnp.clip's 1 inside, 1/2 at +-448 (its min/max tie),
+    0 beyond.  Torch's own derivative would saturate the cotangent and
+    pass all of it at the bound."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, -E4M3_MAX, E4M3_MAX).to(
+            torch.float8_e4m3fn).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        a = x.abs()
+        w = torch.where(a < E4M3_MAX, 1.0,
+                        torch.where(a == E4M3_MAX, 0.5, 0.0))
+        return e4m3_cast(g) * w.to(g.dtype)
+
+
 def _quant_element(x: torch.Tensor, fmt: MXFormat) -> torch.Tensor:
     """Quantize scaled elements x (already divided by the shared scale)."""
     if fmt.is_int:
@@ -94,10 +133,7 @@ def _quant_element(x: torch.Tensor, fmt: MXFormat) -> torch.Tensor:
         q = torch.clamp(_round_half_away(x * (2 ** fmt.frac_bits)), lo, hi)
         return q * (2.0 ** -fmt.frac_bits)
     if fmt is MXFP8:
-        # OCP MX requires a saturating conversion: clip explicitly, since
-        # casts disagree on overflow (torch saturates, ml_dtypes gives NaN)
-        return torch.clamp(x, -448.0, 448.0).to(
-            torch.float8_e4m3fn).to(x.dtype)
+        return _E4M3Clip.apply(x)
     if fmt is MXFP6:
         return _quant_grid(x, _E3M2_GRID)
     if fmt is MXFP4:

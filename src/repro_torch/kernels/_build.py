@@ -37,7 +37,10 @@ KERNELS = ("fused_head_sampling", "topk_mask", "flash_bidir",
 # counts apart from the greedy one; attention over the cache alone whose
 # mask reads its query offset from device memory, causal attention and its
 # backward, and attention with bf16 scores and its backward, whatever
-# their route (kernels/flash_bidir.count_name)
+# their route (kernels/flash_bidir.count_name); the cached forward's
+# attention backward with BAOS, over route B's two sources or with a
+# device query offset (kernels/flash_bidir.bwd_count_name); and the
+# backward of baos_mx_quant, an entry of its library
 ROUTES = {"fused_head_sampling_shard": "fused_head_sampling",
           "flash_bidir_split": "flash_bidir",
           "stablemax_sampling_shard": "stablemax_sampling",
@@ -47,7 +50,11 @@ ROUTES = {"fused_head_sampling_shard": "fused_head_sampling",
           "flash_bidir_causal": "flash_bidir",
           "flash_bidir_bwd_causal": "flash_bidir_bwd",
           "flash_bidir_bf16s": "flash_bidir",
-          "flash_bidir_bwd_bf16s": "flash_bidir_bwd"}
+          "flash_bidir_bwd_bf16s": "flash_bidir_bwd",
+          "flash_bidir_bwd_baos": "flash_bidir_bwd",
+          "flash_bidir_bwd_split": "flash_bidir_bwd",
+          "flash_bidir_bwd_offset": "flash_bidir_bwd",
+          "baos_mx_quant_bwd": "baos_mx_quant"}
 COUNTED = KERNELS + tuple(ROUTES)
 # no --use_fast_math: the MX exponent rule and the Gumbel log need the
 # full-precision log2f/logf, and divisions must stay IEEE divisions

@@ -143,6 +143,33 @@
 // split sum then scales dk by 1.  The CUDA-core and wide kernels take a
 // runtime flag.
 //
+// The cached forward (jax.grad of JAX's forward with a cache; BwdExtra):
+//   * BAOS (out = o_s f_v + c_v, o_s attention of q f_k over the smoothed
+//     K/V): kernel 0 is flash_bidir_bwd_baos_prep, which writes q f_k and
+//     dO f_v in f32 -- for bf16 as two bf16 terms t0 = bf16(x), t1 =
+//     bf16(x - t0) each, which the tensor-core kernels (QT = 2, MASKED
+//     instantiations only) enter into every product as two products, and
+//     the CUDA-core and wide kernels add as they stage -- so the
+//     backward differentiates the forward's f32 fusion, not a bf16
+//     rounding of it (with bf16 scores q's term is qg, one bf16 value, as
+//     the forward rounds it).  The dq pass writes dqs, the gradient of
+//     q f_k, in f32 (dq32); the last kernel, flash_bidir_bwd_baos_sums,
+//     rounds dq = dqs f_k once and forms df_k = sum dqs q, df_v = sum dO
+//     o_s and dc_v = sum dO per (batch row, KV head, column) over the
+//     group's packed rows, a warp per row stripe in a fixed order and the
+//     stripes in order: no atomics, the same bits every launch.  o_s, the
+//     uncorrected output, is the forward kernel's (launched by the
+//     wrapper with f_k alone).  dk and dv are in the smoothed space.
+//   * Route B (a second source k2/v2, key j at q_offset + j): every walk
+//     over keys takes the cache's tiles in reach, then the second
+//     source's (Src, src_of), under one (m, l); the dk/dv grid's tiles are
+//     the cache's (none with skip0: its K/V need no gradient), then the
+//     second source's, each CTA's keys of one source and its sums to that
+//     source's dk/dv, with split partials (part2) and split sums of its
+//     own.  A row with no valid key averages every key of both sources.
+//   * A device query offset: every kernel reads the int64 at off in place
+//     of q_offset (offset_of), for the masks and the REACH walks alike.
+//
 // Shared memory at DT 256: kernel 1 at 8 warps 202.8 KB,
 // kernel 2 170.1 KB (bf16); 98.6 KB and 102.8 KB (f32).  Registers from
 // 120 to 252 a thread, no spill (PERF.md).
@@ -193,6 +220,150 @@ __device__ __forceinline__ void stage_keys(float (*dst)[DT + 1],
       x = to_f32(src[((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D + dd]);
     dst[j][dd] = bs ? bf16r(x) : x;
   }
+}
+
+// What a launch of the cached forward's backward adds to the cache-less
+// one, passed by value to every kernel; a null pointer (or S2 = 0) turns
+// its part off.
+template <typename T>
+struct Ext {
+  const T* k2;                  // route B: (B, S2, Hkv, D), key j at
+  const T* v2;                  //   position q_offset + j
+  const unsigned char* valid2;  // (B, S2) bool or null
+  int S2;                       // 0: no second source
+  T* dk2;                       // its gradients (null: not wanted, no pass)
+  T* dv2;
+  float* part2;                 // its split partials (n_split > 1)
+  int skip0;                    // the cache's dk/dv not wanted: no pass
+  const T* q_lo;                // BAOS: second bf16 terms of q * f_k and
+  const T* dout_lo;             //   dO * f_v (null: none)
+  float* dq32;                  // BAOS: dq of q * f_k in f32 (null: dq in T)
+  const long long* off;         // the query offset in device memory, or null
+};
+
+// The query offset: the int64 at `off` when given (a graph's block start),
+// else the host's int.
+__device__ __forceinline__ int offset_of(int q_offset, const long long* off) {
+  return off != nullptr ? static_cast<int>(*off) : q_offset;
+}
+
+// One key source of a walk or of a dk/dv CTA: the cache (source 0, key j
+// at position j) or route B's second source (key j at q_offset + j).
+template <typename T>
+struct Src {
+  const T* k;
+  const T* v;
+  const unsigned char* valid;
+  int n;       // keys
+  int pos0;    // the position of key 0
+};
+
+template <typename T>
+__device__ __forceinline__ Src<T> src_of(int s, const T* k, const T* v,
+                                         const unsigned char* kv_valid,
+                                         int Skv, const Ext<T>& ex,
+                                         int q_offset) {
+  return s == 0 ? Src<T>{k, v, kv_valid, Skv, 0}
+                : Src<T>{ex.k2, ex.v2, ex.valid2, ex.S2, q_offset};
+}
+
+// A q or dO element as f32: its first term, plus its second where BAOS
+// splits q * f_k or dO * f_v into two bf16 terms.
+template <typename T>
+__device__ __forceinline__ float two_terms(const T* hi, const T* lo,
+                                           size_t i) {
+  return lo != nullptr ? to_f32(hi[i]) + to_f32(lo[i]) : to_f32(hi[i]);
+}
+
+// BAOS, kernel 0 of its launch: q * f_k and dO * f_v in f32 (f_k, f_v of
+// the row's KV head), written as one term in q's dtype (f32), or as two
+// bf16 terms t0 = bf16(x), t1 = bf16(x - t0), which carry the f32 value
+// to 2^-17 of it, as the forward's SPLIT terms carry q * f_k.  With bf16
+// scores q's term is qg = bf16(q * f_k * scale) (scale rounded to q's
+// dtype), one term, as the forward rounds it.  n values of q's size, 4 a
+// thread; the kernels after it read these in place of q and dO.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bidir_bwd_baos_prep(const T* __restrict__ q, const T* __restrict__ dout,
+                          const float* __restrict__ fk,
+                          const float* __restrict__ fv, T* __restrict__ q_hi,
+                          T* __restrict__ q_lo, T* __restrict__ d_hi,
+                          T* __restrict__ d_lo, long long n, int Sq, int Hq,
+                          int Hkv, int D, float scale, int bs) {
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  const int G = Hq / Hkv;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long e = i0 + i;
+    if (e >= n) break;
+    const long long row = e / D;                 // (b * Sq + pos) * Hq + h
+    const int dd = static_cast<int>(e % D);
+    const int hk = static_cast<int>(row % Hq) / G;
+    const long long b = row / Hq / Sq;
+    const size_t cal = (static_cast<size_t>(b) * Hkv + hk) * D + dd;
+    float xq = to_f32(q[e]), xd = to_f32(dout[e]);
+    if (fk != nullptr) xq *= fk[cal];
+    if (fv != nullptr) xd *= fv[cal];
+    if (bs) xq = bf16r(xq * scale);
+    q_hi[e] = from_f32<T>(xq);
+    d_hi[e] = from_f32<T>(xd);
+    if (q_lo != nullptr) q_lo[e] = from_f32<T>(xq - to_f32(q_hi[e]));
+    if (d_lo != nullptr) d_lo[e] = from_f32<T>(xd - to_f32(d_hi[e]));
+  }
+}
+
+// BAOS, the last kernel of its launch: per (batch row, KV head, 32
+// columns), a warp per row stripe walking the group's G x Sq packed rows
+// (row r: position r / G, q head hk * G + r % G) in a fixed order, then
+// the 8 stripes summed in order 0..7 (no atomics: the same bits every
+// launch): dq = dq32 * f_k rounded once to q's dtype; df_k = sum dq32 * q
+// (dq32 is the gradient of q * f_k), df_v = sum dO * o_s (o_s the
+// uncorrected output) and dc_v = sum dO, each (B, Hkv, D) f32 where its
+// pointer is given.
+constexpr int SUM_WARPS = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(32 * SUM_WARPS)
+flash_bidir_bwd_baos_sums(const T* __restrict__ q, const T* __restrict__ dout,
+                          const T* __restrict__ o_s,
+                          const float* __restrict__ dq32,
+                          const float* __restrict__ fk, T* __restrict__ dq,
+                          float* __restrict__ dfk, float* __restrict__ dfv,
+                          float* __restrict__ dcv, int Sq, int Hq, int Hkv,
+                          int D) {
+  __shared__ float part[3][SUM_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int dd = blockIdx.x * 32 + lane, hk = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv, n_rows = G * Sq;
+  const bool col = dd < D;
+  const size_t cal = (static_cast<size_t>(b) * Hkv + hk) * D + dd;
+  const float f = col && fk != nullptr ? fk[cal] : 1.f;
+  float sk = 0.f, sv = 0.f, sc = 0.f;
+  for (int r = warp; col && r < n_rows; r += SUM_WARPS) {
+    const size_t i =
+        ((static_cast<size_t>(b) * Sq + r / G) * Hq + hk * G + r % G) * D + dd;
+    const float g = dq32[i];
+    dq[i] = from_f32<T>(g * f);
+    if (dfk != nullptr) sk = fmaf(g, to_f32(q[i]), sk);
+    const float od = to_f32(dout[i]);
+    if (dfv != nullptr) sv = fmaf(od, to_f32(o_s[i]), sv);
+    sc += od;
+  }
+  part[0][warp][lane] = sk;
+  part[1][warp][lane] = sv;
+  part[2][warp][lane] = sc;
+  __syncthreads();
+  if (warp != 0 || !col) return;
+#pragma unroll
+  for (int w = 1; w < SUM_WARPS; ++w) {
+    sk += part[0][w][lane];
+    sv += part[1][w][lane];
+    sc += part[2][w][lane];
+  }
+  if (dfk != nullptr) dfk[cal] = sk;
+  if (dfv != nullptr) dfv[cal] = sv;
+  if (dcv != nullptr) dcv[cal] = sc;
 }
 
 // bf16 scores' query operand: qg = bf16(q * scale) (scale rounded to q's
@@ -252,7 +423,7 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                    const unsigned char* __restrict__ kv_valid,
                    T* __restrict__ dq, float* __restrict__ stats, int B,
                    int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                   int window, int q_offset, int causal, int bs) {
+                   int window, int q_offset, int causal, int bs, Ext<T> ex) {
   constexpr int DT = 32 * DPL;
   extern __shared__ __align__(16) float smem_dq[];
   float(*qs)[DT] = reinterpret_cast<float(*)[DT]>(smem_dq);
@@ -265,25 +436,36 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nthreads = 32 * QWARPS;
+  q_offset = offset_of(q_offset, ex.off);
+  // the key tiles: the cache's, then the second source's
+  const int n0t = (Skv + BK - 1) / BK, n_t = n0t + (ex.S2 + BK - 1) / BK;
 
   for (int e = tid; e < BQ * DT; e += nthreads) {
     const int r = e / DT, dd = e % DT, gq = q0 + r;
     float x = 0.f, g = 0.f;
     if (gq < Sq && dd < D) {
       const size_t idx = ((static_cast<size_t>(b) * Sq + gq) * Hq + h) * D + dd;
-      x = to_f32(q[idx]);
-      g = to_f32(dout[idx]);
+      x = two_terms(q, ex.q_lo, idx);
+      g = two_terms(dout, ex.dout_lo, idx);
     }
     qs[r][dd] = x;
     dos[r][dd] = g;
   }
 
-  // s_i = q_i . k_lane and dp_i = dO_i . v_lane for the key tile at k0,
-  // staged after a barrier (the previous tile read, the q rows written)
-  auto tile_sdp = [&](int k0, float (&s)[RPW], float (&dp)[RPW]) {
+  // key tile t: its source and its first key
+  auto tile = [&](int t, int& k0) {
+    const int si = t >= n0t;
+    k0 = (si ? t - n0t : t) * BK;
+    return src_of<T>(si, k, v, kv_valid, Skv, ex, q_offset);
+  };
+  // s_i = q_i . k_lane and dp_i = dO_i . v_lane for the key tile at k0 of
+  // source sr, staged after a barrier (the previous tile read, the q rows
+  // written)
+  auto tile_sdp = [&](const Src<T>& sr, int k0, float (&s)[RPW],
+                      float (&dp)[RPW]) {
     __syncthreads();
-    stage_keys<T, DT>(ks, k, b, k0, hk, Skv, Hkv, D, tid, nthreads, bs);
-    stage_keys<T, DT>(vs, v, b, k0, hk, Skv, Hkv, D, tid, nthreads, bs);
+    stage_keys<T, DT>(ks, sr.k, b, k0, hk, sr.n, Hkv, D, tid, nthreads, bs);
+    stage_keys<T, DT>(vs, sr.v, b, k0, hk, sr.n, Hkv, D, tid, nthreads, bs);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < RPW; ++i) s[i] = dp[i] = 0.f;
@@ -308,15 +490,18 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     l[i] = pdp[i] = 0.f;
     qpos[i] = q_offset + q0 + warp * RPW + i;
   }
-  for (int k0 = 0; k0 < Skv; k0 += BK) {
+  for (int ti = 0; ti < n_t; ++ti) {
+    int k0;
+    const Src<T> sr = tile(ti, k0);
     float s[RPW], dp[RPW];
-    tile_sdp(k0, s, dp);
+    tile_sdp(sr, k0, s, dp);
     const int gk = k0 + lane;
-    const bool in_range = gk < Skv;
-    const bool valid = key_ok(kv_valid, b, Skv, gk);
+    const bool in_range = gk < sr.n;
+    const bool valid = key_ok(sr.valid, b, sr.n, gk);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const bool ok = valid && in_reach(qpos[i], gk, window, causal);
+      const bool ok =
+          valid && in_reach(qpos[i], sr.pos0 + gk, window, causal);
       const float x = in_range ? (ok ? (bs ? bf16r(s[i]) : s[i] * scale)
                                      : (bs ? NEG_BF16 : NEG))
                                : -INFINITY;
@@ -339,14 +524,17 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
   // bf16 scores, pass 1b: each row's sum of dS and its keys at the max
   // (bf16_mcorr)
-  for (int k0 = 0; bs && k0 < Skv; k0 += BK) {
+  for (int ti = 0; bs && ti < n_t; ++ti) {
+    int k0;
+    const Src<T> sr = tile(ti, k0);
     float s[RPW], dp[RPW];
-    tile_sdp(k0, s, dp);
+    tile_sdp(sr, k0, s, dp);
     const int gk = k0 + lane;
-    const bool ok_k = gk < Skv && key_ok(kv_valid, b, Skv, gk);
+    const bool ok_k = gk < sr.n && key_ok(sr.valid, b, sr.n, gk);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const bool ok = ok_k && in_reach(qpos[i], gk, window, causal);
+      const bool ok =
+          ok_k && in_reach(qpos[i], sr.pos0 + gk, window, causal);
       eps[i] += warp_sum(ok ? bf16_ds(s[i], m[i], dp[i], inv_l[i], delta[i])
                             : 0.f);
       ties[i] += warp_sum(ok && bf16r(s[i]) == m[i] ? 1.f : 0.f);
@@ -373,17 +561,19 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < DPL; ++t) acc[i][t] = 0.f;
 
-  for (int k0 = 0; k0 < Skv; k0 += BK) {
+  for (int ti = 0; ti < n_t; ++ti) {
+    int k0;
+    const Src<T> sr = tile(ti, k0);
     float s[RPW], dp[RPW];
-    tile_sdp(k0, s, dp);
+    tile_sdp(sr, k0, s, dp);
     const int gk = k0 + lane;
-    const bool in_range = gk < Skv;
-    const bool valid = key_ok(kv_valid, b, Skv, gk);
+    const bool in_range = gk < sr.n;
+    const bool valid = key_ok(sr.valid, b, sr.n, gk);
     float ds[RPW];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const bool ok =
-          in_range && valid && in_reach(qpos[i], gk, window, causal);
+      const bool ok = in_range && valid &&
+                      in_reach(qpos[i], sr.pos0 + gk, window, causal);
       ds[i] = !ok ? 0.f
               : bs ? bf16_ds_m(s[i], m[i], dp[i], inv_l[i], delta[i], mc[i])
                    : expf(s[i] * scale - m[i]) * inv_l[i] * (dp[i] - delta[i]);
@@ -410,7 +600,12 @@ flash_bidir_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < DPL; ++t) {
       const int dd = lane + 32 * t;
-      if (dd < D) dq[row + dd] = from_f32<T>(dq_of(acc[i][t], scale, bs));
+      if (dd >= D) continue;
+      const float g = dq_of(acc[i][t], scale, bs);
+      if (ex.dq32 != nullptr)
+        ex.dq32[row + dd] = g;
+      else
+        dq[row + dd] = from_f32<T>(g);
     }
   }
 }
@@ -423,7 +618,7 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ stats, T* __restrict__ dk,
                     T* __restrict__ dv, int B, int Sq, int Skv, int Hq,
                     int Hkv, int D, float scale, int window, int q_offset,
-                    int causal, int bs) {
+                    int causal, int bs, Ext<T> ex) {
   constexpr int DT = 32 * DPL;
   constexpr int NC = DT / KWARPS;    // contiguous columns a thread owns
   extern __shared__ __align__(16) float smem_dkv[];
@@ -440,17 +635,26 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   float* row_mc = row_delta + RC;   // bf16 scores: bf16_mcorr's term
   int* row_pos = reinterpret_cast<int*>(row_mc + RC);
 
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
+  const int hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv, n_rows = G * Sq;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nthreads = 32 * KWARPS;
   const size_t n_stats = static_cast<size_t>(B) * Hq * Sq;
+  q_offset = offset_of(q_offset, ex.off);
+  // the CTA's key tile: the cache's tiles first (none with skip0), then
+  // the second source's
+  const int n0t = ex.skip0 ? 0 : (Skv + BK - 1) / BK;
+  const int si = static_cast<int>(blockIdx.x) >= n0t;
+  const int k0 = (si ? blockIdx.x - n0t : blockIdx.x) * BK;
+  const Src<T> sr = src_of<T>(si, k, v, kv_valid, Skv, ex, q_offset);
+  T* dk_o = si ? ex.dk2 : dk;
+  T* dv_o = si ? ex.dv2 : dv;
 
-  stage_keys<T, DT>(ks, k, b, k0, hk, Skv, Hkv, D, tid, nthreads, bs);
-  stage_keys<T, DT>(vs, v, b, k0, hk, Skv, Hkv, D, tid, nthreads, bs);
+  stage_keys<T, DT>(ks, sr.k, b, k0, hk, sr.n, Hkv, D, tid, nthreads, bs);
+  stage_keys<T, DT>(vs, sr.v, b, k0, hk, sr.n, Hkv, D, tid, nthreads, bs);
   const int gk = k0 + lane;
-  const bool in_range = gk < Skv;
-  const bool valid = key_ok(kv_valid, b, Skv, gk);
+  const bool in_range = gk < sr.n;
+  const bool valid = key_ok(sr.valid, b, sr.n, gk);
 
   float adk[NC], adv[NC];
 #pragma unroll
@@ -465,8 +669,8 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
       if (t < n_rows && dd < D) {
         const int hh = hk * G + t / Sq, pos = t % Sq;
         const size_t idx = ((static_cast<size_t>(b) * Sq + pos) * Hq + hh) * D + dd;
-        x = to_f32(q[idx]);
-        g = to_f32(dout[idx]);
+        x = two_terms(q, ex.q_lo, idx);
+        g = two_terms(dout, ex.dout_lo, idx);
       }
       qs[r][dd] = x;
       dos[r][dd] = g;
@@ -508,7 +712,8 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RW; ++i) {
       const int r = warp + KWARPS * i;
-      const bool ok = valid && in_reach(row_pos[r], gk, window, causal);
+      const bool ok =
+          valid && in_reach(row_pos[r], sr.pos0 + gk, window, causal);
       if (bs) {
         const float pu =
             in_range ? bf16_p(ok ? bf16r(s[i]) : NEG_BF16, row_m[r]) : 0.f;
@@ -548,13 +753,13 @@ flash_bidir_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!in_range) return;
-  const size_t row = ((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D;
+  const size_t row = ((static_cast<size_t>(b) * sr.n + gk) * Hkv + hk) * D;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int dd = warp * NC + c;
     if (dd < D) {
-      dk[row + dd] = from_f32<T>(bs ? bf16r(adk[c]) : adk[c] * scale);
-      dv[row + dd] = from_f32<T>(bs ? bf16r(adv[c]) : adv[c]);
+      dk_o[row + dd] = from_f32<T>(bs ? bf16r(adk[c]) : adk[c] * scale);
+      dv_o[row + dd] = from_f32<T>(bs ? bf16r(adv[c]) : adv[c]);
     }
   }
 }
@@ -587,18 +792,18 @@ __host__ __device__ constexpr int dq_stages(int DT) {
 }
 
 // Dynamic shared memory of a dq CTA of `warps` warps at tile width DT, in
-// bytes: the K and V rings and each warp's q and dO rows, bf16 rows
-// padded by 16 bytes (ldmatrix's eight row addresses hit eight bank
-// groups).
-constexpr int dq_tc_smem_bytes(int DT, bool masked, int warps) {
-  return (2 * dq_stages(DT) * dq_bkv(DT, masked) + 2 * 16 * warps) *
+// bytes: the K and V rings and each warp's q and dO rows (QT bf16 terms
+// of each: 2 with BAOS), bf16 rows padded by 16 bytes (ldmatrix's eight
+// row addresses hit eight bank groups).
+constexpr int dq_tc_smem_bytes(int DT, bool masked, int warps, int QT = 1) {
+  return (2 * dq_stages(DT) * dq_bkv(DT, masked) + 2 * QT * 16 * warps) *
          (DT + 8) * 2;
 }
 
 // The most warps a dq CTA takes at tile width DT.
-constexpr int dq_tc_max_warps(int DT, bool masked) {
+constexpr int dq_tc_max_warps(int DT, bool masked, int QT = 1) {
   int w = TC_MAX_WARPS;
-  while (w > 1 && dq_tc_smem_bytes(DT, masked, w) > SMEM_LIMIT) --w;
+  while (w > 1 && dq_tc_smem_bytes(DT, masked, w, QT) > SMEM_LIMIT) --w;
   return w;
 }
 
@@ -613,12 +818,19 @@ __host__ __device__ constexpr int dkv_roles(int DT) {
 // route: m, 1/l, delta, and with bf16 scores bf16_mcorr's term.
 __host__ __device__ constexpr int stat_rows(bool bs) { return bs ? 4 : 3; }
 
+// The dk/dv kernel's ring depth: 2 at DT 256 with BAOS's two terms of q
+// and dO (a third stage would pass the shared memory a block takes), 3
+// otherwise.
+__host__ __device__ constexpr int dkv_stages(int DT, int QT) {
+  return DT == 256 && QT == 2 ? 2 : TC_STAGES;
+}
+
 // Dynamic shared memory of a dk/dv CTA at tile width DT, in bytes: its K
-// and V tile, and a ring of row chunks (q rows, dO rows and the rows'
-// statistics).
-constexpr int dkv_tc_smem_bytes(int DT, bool bs = false) {
-  return (2 * KV_BN + 2 * TC_STAGES * KV_BM) * (DT + 8) * 2 +
-         TC_STAGES * stat_rows(bs) * KV_BM * 4;
+// and V tile, and a ring of row chunks (QT terms of the q and dO rows, and
+// the rows' statistics).
+constexpr int dkv_tc_smem_bytes(int DT, bool bs = false, int QT = 1) {
+  return (2 * KV_BN + 2 * QT * dkv_stages(DT, QT) * KV_BM) * (DT + 8) * 2 +
+         dkv_stages(DT, QT) * stat_rows(bs) * KV_BM * 4;
 }
 
 // The row-statistics scratch holds, per (batch row, KV head), stat_rows
@@ -668,8 +880,12 @@ __device__ __forceinline__ void queries_reaching(int kmin, int kmax,
 // and keeps each row's max, sum and sum of e_ij dp_ij online; pass 1
 // forms them again with the final statistics and sums dS K into dq.  BS:
 // bf16 scores (q is then qg = bf16(q D^-1/2); S rounded to bf16, P and dS
-// as bf16_p and bf16_ds, dq = bf16(dS K) D^-1/2).
-template <int DT, bool MASKED = false, bool BS = false>
+// as bf16_p and bf16_ds, dq = bf16(dS K) D^-1/2).  QT = 2 (BAOS): q and
+// dO are two bf16 terms each (ex.q_lo, ex.dout_lo; a null one zeros), S
+// and dP the sums of the two terms' products.  The walk takes the cache's
+// key tiles in reach, then route B's second source's (ex.S2 keys at
+// q_offset + j), under one (m, l).
+template <int DT, bool MASKED = false, bool BS = false, int QT = 1>
 __global__ void __launch_bounds__(32 * TC_MAX_WARPS, 1)
 flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -677,7 +893,7 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const unsigned char* __restrict__ kv_valid,
                       bf16* __restrict__ dq, float* __restrict__ stats,
                       int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                      int window, int q_offset, int causal) {
+                      int window, int q_offset, int causal, Ext<bf16> ex) {
   constexpr int DP = DT + 8;
   constexpr int KT = DT / 16;      // depth steps of S and dP
   constexpr int NT = DT / 8;       // 8-column tiles of dq
@@ -688,7 +904,7 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [STAGES][BKV][DP]
   bf16* vs = ks + STAGES * KV_STAGE;              // [STAGES][BKV][DP]
-  bf16* rs = vs + STAGES * KV_STAGE;              // [warps][q, dO][16][DP]
+  bf16* rs = vs + STAGES * KV_STAGE;  // [warps][q terms, dO terms][16][DP]
 
   const int G = Hq / Hkv, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -697,33 +913,50 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r_lo = blockIdx.x * nwarps * 16;
   const int r_hi = min(r_lo + nwarps * 16, n_rows) - 1;
   const int row0 = r_lo + warp * 16;
-  // the key tiles the CTA's rows reach
-  int t_lo = 0, n_w = (Skv + BKV - 1) / BKV;
+  q_offset = offset_of(q_offset, ex.off);
+  const int n_all = Skv + ex.S2;       // keys of both sources
+  // the key tiles the CTA's rows reach: the cache's [t_lo, t_lo + n_w0),
+  // then the second source's [t_lo1, t_lo1 + n_w1)
+  int t_lo = 0, n_w0 = (Skv + BKV - 1) / BKV;
+  int t_lo1 = 0, n_w1 = (ex.S2 + BKV - 1) / BKV;
   if (MASKED && (window > 0 || causal)) {
     int lo, hi;
     keys_reached(q_offset + r_lo / G, q_offset + r_hi / G, window, causal,
                  lo, hi);
-    tiles_of(lo, hi, Skv, BKV, t_lo, n_w);
+    tiles_of(lo, hi, Skv, BKV, t_lo, n_w0);
+    if (ex.S2 > 0)
+      tiles_of(lo == -FAR ? lo : lo - q_offset,
+               hi == FAR ? hi : hi - q_offset, ex.S2, BKV, t_lo1, n_w1);
   }
+  const int n_w = n_w0 + n_w1;
+  // walk tile w: its source and its first key
+  auto tile = [&](int w, int& k0) {
+    const int si = w >= n_w0;
+    k0 = (si ? t_lo1 + w - n_w0 : t_lo + w) * BKV;
+    return src_of<bf16>(si, k, v, kv_valid, Skv, ex, q_offset);
+  };
 
   auto load_kv = [&](int w) {
     bf16* kd = ks + (w % STAGES) * KV_STAGE;
     bf16* vd = vs + (w % STAGES) * KV_STAGE;
-    const int k0 = (t_lo + w) * BKV;
+    int k0;
+    const Src<bf16> sr = tile(w, k0);
     for (int e = tid; e < BKV * (DT / 8); e += blockDim.x) {
       const int j = e / (DT / 8), dc = (e % (DT / 8)) * 8, key = k0 + j;
-      const bool ok = key < Skv && dc < D;
+      const bool ok = key < sr.n && dc < D;
       const size_t o =
-          ok ? ((static_cast<size_t>(b) * Skv + key) * Hkv + hk) * D + dc : 0;
-      cp_async_16(smem_addr(kd + j * DP + dc), k + o, ok);
-      cp_async_16(smem_addr(vd + j * DP + dc), v + o, ok);
+          ok ? ((static_cast<size_t>(b) * sr.n + key) * Hkv + hk) * D + dc
+             : 0;
+      cp_async_16(smem_addr(kd + j * DP + dc), sr.k + o, ok);
+      cp_async_16(smem_addr(vd + j * DP + dc), sr.v + o, ok);
     }
   };
 
-  // this warp's 16 q and dO rows (rows past G * Sq and columns past D
-  // zero-filled), in the first group with the first K/V tiles
-  bf16* qw = rs + warp * 2 * 16 * DP;
-  bf16* dw = qw + 16 * DP;
+  // this warp's 16 q and dO rows, each in QT terms (rows past G * Sq,
+  // columns past D and a null term zero-filled), in the first group with
+  // the first K/V tiles
+  bf16* qw = rs + warp * 2 * QT * 16 * DP;
+  bf16* dw = qw + QT * 16 * DP;
 #pragma unroll
   for (int e = lane; e < 16 * (DT / 8); e += 32) {
     const int r = e / (DT / 8), dc = (e % (DT / 8)) * 8, row = row0 + r;
@@ -732,8 +965,16 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         ok ? ((static_cast<size_t>(b) * Sq + row / G) * Hq + hk * G + row % G)
                  * D + dc
            : 0;
-    cp_async_16(smem_addr(qw + r * DP + dc), q + o, ok);
-    cp_async_16(smem_addr(dw + r * DP + dc), dout + o, ok);
+#pragma unroll
+    for (int t = 0; t < QT; ++t) {
+      const bf16* qt = t == 0 ? q : ex.q_lo;
+      const bf16* dt = t == 0 ? dout : ex.dout_lo;
+      const bool okq = ok && qt != nullptr, okd = ok && dt != nullptr;
+      cp_async_16(smem_addr(qw + (t * 16 + r) * DP + dc),
+                  okq ? qt + o : q, okq);
+      cp_async_16(smem_addr(dw + (t * 16 + r) * DP + dc),
+                  okd ? dt + o : dout, okd);
+    }
   }
   auto prefetch = [&]() {
 #pragma unroll
@@ -782,7 +1023,8 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_commit();
       const bf16* kt = ks + (w % STAGES) * KV_STAGE;
       const bf16* vt = vs + (w % STAGES) * KV_STAGE;
-      const int k0 = (t_lo + w) * BKV;
+      int k0;
+      const Src<bf16> sr = tile(w, k0);
 
       // kv_valid of this lane's keys (key 8j + 2c + e of the tile at
       // 2j + e), read after the products so the loads overlap them
@@ -792,8 +1034,8 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + 8 * j + 2 * c + e;
-          kvv[2 * j + e] = MASKED && kv_valid != nullptr && key < Skv
-                               ? kv_valid[static_cast<size_t>(b) * Skv + key]
+          kvv[2 * j + e] = MASKED && sr.valid != nullptr && key < sr.n
+                               ? sr.valid[static_cast<size_t>(b) * sr.n + key]
                                : 1;
         }
 
@@ -805,10 +1047,13 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
-        uint32_t aq[4], ad[4];
+        uint32_t aq[QT][4], ad[QT][4];
         const int ao = (lane & 15) * DP + kk * 16 + (lane >> 4) * 8;
-        ldmatrix_x4(aq, smem_addr(qw + ao));
-        ldmatrix_x4(ad, smem_addr(dw + ao));
+#pragma unroll
+        for (int t = 0; t < QT; ++t) {
+          ldmatrix_x4(aq[t], smem_addr(qw + t * 16 * DP + ao));
+          ldmatrix_x4(ad[t], smem_addr(dw + t * 16 * DP + ao));
+        }
 #pragma unroll
         for (int jp = 0; jp < NK / 2; ++jp) {
           const int bo = (jp * 16 + (lane & 7) + (lane >> 4) * 8) * DP +
@@ -816,14 +1061,18 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           uint32_t bk[4], bv[4];
           ldmatrix_x4(bk, smem_addr(kt + bo));
           ldmatrix_x4(bv, smem_addr(vt + bo));
-          mma_bf16(st[2 * jp], aq, bk[0], bk[1]);
-          mma_bf16(st[2 * jp + 1], aq, bk[2], bk[3]);
-          mma_bf16(dpt[2 * jp], ad, bv[0], bv[1]);
-          mma_bf16(dpt[2 * jp + 1], ad, bv[2], bv[3]);
+#pragma unroll
+          for (int t = 0; t < QT; ++t) {
+            mma_bf16(st[2 * jp], aq[t], bk[0], bk[1]);
+            mma_bf16(st[2 * jp + 1], aq[t], bk[2], bk[3]);
+            mma_bf16(dpt[2 * jp], ad[t], bv[0], bv[1]);
+            mma_bf16(dpt[2 * jp + 1], ad[t], bv[2], bv[3]);
+          }
         }
       }
 
-      // x D^-1/2; -1e30 for a masked key, -inf (probability 0) past Skv
+      // x D^-1/2; -1e30 for a masked key, -inf (probability 0) past the
+      // source's last key
       bool okm[NK][4];
 #pragma unroll
       for (int j = 0; j < NK; ++j)
@@ -833,14 +1082,14 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const bool ok =
-                key < Skv && (!MASKED || (kvv[2 * j + e] != 0 &&
-                                          in_reach(qpos[hh], key, window,
-                                                   causal)));
+                key < sr.n && (!MASKED || (kvv[2 * j + e] != 0 &&
+                                           in_reach(qpos[hh], sr.pos0 + key,
+                                                    window, causal)));
             float& x = st[j][2 * hh + e];
             okm[j][2 * hh + e] = ok;
-            x = key < Skv ? (ok ? (BS ? bf16r(x) : x * scale)
-                                : (BS ? NEG_BF16 : NEG))
-                          : -INFINITY;
+            x = key < sr.n ? (ok ? (BS ? bf16r(x) : x * scale)
+                                 : (BS ? NEG_BF16 : NEG))
+                           : -INFINITY;
           }
         }
 
@@ -941,7 +1190,7 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pdp[hh] += __shfl_xor_sync(FULL_MASK, pdp[hh], 1);
       pdp[hh] += __shfl_xor_sync(FULL_MASK, pdp[hh], 2);
       const bool dead = m[hh] == NEG;
-      il[hh] = 1.f / fmaxf(dead ? static_cast<float>(Skv) : l[hh], 1e-30f);
+      il[hh] = 1.f / fmaxf(dead ? static_cast<float>(n_all) : l[hh], 1e-30f);
       dl[hh] = dead ? 0.f : pdp[hh] * il[hh];
       const int row = row0 + g + 8 * hh;
       if (c == 0 && row < NR) {           // rows past G * Sq: zeros
@@ -960,9 +1209,14 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < NT; ++n) {
       const int dd = 8 * n + 2 * c;
       if (dd >= D) break;                // D is a multiple of 8
-      *reinterpret_cast<__nv_bfloat162*>(dq + orow[hh] + dd) =
-          __floats2bfloat162_rn(dq_of(acc[n][2 * hh], scale, BS),
-                                dq_of(acc[n][2 * hh + 1], scale, BS));
+      const float g0 = dq_of(acc[n][2 * hh], scale, BS);
+      const float g1 = dq_of(acc[n][2 * hh + 1], scale, BS);
+      if (ex.dq32 != nullptr)
+        *reinterpret_cast<float2*>(ex.dq32 + orow[hh] + dd) =
+            make_float2(g0, g1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dq + orow[hh] + dd) =
+            __floats2bfloat162_rn(g0, g1);
     }
   }
 }
@@ -975,8 +1229,12 @@ flash_bidir_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // registers.  n_split == 1: dk, dv written; else f32 partials of split s
 // into part[0 (dk) / 1 (dv)][s], summed by flash_bidir_bwd_split_sum.  BS:
 // bf16 scores (q is qg, as in the dq kernel; P^T V's operand bf16(P / l),
-// dS as bf16_ds; dk = bf16(dS^T qg), no D^-1/2).
-template <int DT, bool MASKED = false, bool BS = false>
+// dS as bf16_ds; dk = bf16(dS^T qg), no D^-1/2).  QT = 2 (BAOS): q and dO
+// in two bf16 terms each, every product over both.  The grid's key tiles
+// are the cache's (none with ex.skip0), then the second source's (none
+// without ex.dk2), each CTA's keys of one source, its sums to that
+// source's dk/dv (or partials).
+template <int DT, bool MASKED = false, bool BS = false, int QT = 1>
 __global__ void __launch_bounds__(128 * dkv_roles(DT), 1)
 flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
@@ -986,23 +1244,35 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        bf16* __restrict__ dk, bf16* __restrict__ dv,
                        float* __restrict__ part, int B, int Sq, int Skv,
                        int Hq, int Hkv, int D, int split_rows, int n_split,
-                       float scale, int window, int q_offset, int causal) {
+                       float scale, int window, int q_offset, int causal,
+                       Ext<bf16> ex) {
   constexpr int ROLES = dkv_roles(DT);
   constexpr int NA = ROLES == 1 ? 2 : 1;   // accumulators a warp keeps
   constexpr int DP = DT + 8;
   constexpr int KT = DT / 16;
   constexpr int NT = DT / 8;
   constexpr int NJ = KV_BM / 8;            // 8-row tiles of a chunk
-  constexpr int CH = 2 * KV_BM * DP;       // a chunk's q and dO rows
+  constexpr int STAGES = dkv_stages(DT, QT);
+  constexpr int CH = 2 * QT * KV_BM * DP;  // a chunk's q and dO rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [BN][DP]
   bf16* vs = ks + KV_BN * DP;                     // [BN][DP]
-  bf16* ring = vs + KV_BN * DP;                   // [STAGES][q, dO][BM][DP]
+  bf16* ring = vs + KV_BN * DP;   // [STAGES][q terms, dO terms][BM][DP]
   constexpr int SR = stat_rows(BS);
-  float* sts = reinterpret_cast<float*>(ring + TC_STAGES * CH);
+  float* sts = reinterpret_cast<float*>(ring + STAGES * CH);
   //                          [STAGES][m, 1/l, delta (, BS: mcorr)][BM]
 
-  const int k0 = blockIdx.x * KV_BN, hk = blockIdx.y;
+  q_offset = offset_of(q_offset, ex.off);
+  const int n0t = ex.skip0 ? 0 : (Skv + KV_BN - 1) / KV_BN;
+  const int si = static_cast<int>(blockIdx.x) >= n0t;
+  const int k0 = (si ? blockIdx.x - n0t : blockIdx.x) * KV_BN;
+  const Src<bf16> sr = src_of<bf16>(si, k, v, kv_valid, Skv, ex, q_offset);
+  if (si) {
+    dk = ex.dk2;
+    dv = ex.dv2;
+    part = ex.part2;
+  }
+  const int hk = blockIdx.y;
   const int b = blockIdx.z / n_split, split = blockIdx.z % n_split;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
@@ -1019,7 +1289,8 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int c_lo = s_lo / KV_BM, n_c = (s_hi - s_lo + KV_BM - 1) / KV_BM;
   if (reach) {
     int lo, hi;
-    queries_reaching(k0, min(k0 + KV_BN, Skv) - 1, window, causal, lo, hi);
+    queries_reaching(sr.pos0 + k0, sr.pos0 + min(k0 + KV_BN, sr.n) - 1,
+                     window, causal, lo, hi);
     using ll = long long;
     const ll plo = max(static_cast<ll>(lo) - q_offset, 0LL);
     const ll phi = min(static_cast<ll>(hi) - q_offset, static_cast<ll>(Sq - 1));
@@ -1048,16 +1319,16 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // first group with the first chunks
   for (int e = tid; e < KV_BN * (DT / 8); e += blockDim.x) {
     const int j = e / (DT / 8), dc = (e % (DT / 8)) * 8, key = k0 + j;
-    const bool ok = key < Skv && dc < D;
+    const bool ok = key < sr.n && dc < D;
     const size_t o =
-        ok ? ((static_cast<size_t>(b) * Skv + key) * Hkv + hk) * D + dc : 0;
-    cp_async_16(smem_addr(ks + j * DP + dc), k + o, ok);
-    cp_async_16(smem_addr(vs + j * DP + dc), v + o, ok);
+        ok ? ((static_cast<size_t>(b) * sr.n + key) * Hkv + hk) * D + dc : 0;
+    cp_async_16(smem_addr(ks + j * DP + dc), sr.k + o, ok);
+    cp_async_16(smem_addr(vs + j * DP + dc), sr.v + o, ok);
   }
   auto load_chunk = [&](int w) {
-    bf16* qd = ring + (w % TC_STAGES) * CH;
-    bf16* dd = qd + KV_BM * DP;
-    float* sd = sts + (w % TC_STAGES) * SR * KV_BM;
+    bf16* qd = ring + (w % STAGES) * CH;
+    bf16* dd = qd + QT * KV_BM * DP;
+    float* sd = sts + (w % STAGES) * SR * KV_BM;
     const int r0 = (c_lo + w) * KV_BM;
     for (int e = tid; e < KV_BM * (DT / 8); e += blockDim.x) {
       const int i = e / (DT / 8), dc = (e % (DT / 8)) * 8, row = r0 + i;
@@ -1066,8 +1337,16 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           ok ? ((static_cast<size_t>(b) * Sq + row / G) * Hq + hk * G +
                 row % G) * D + dc
              : 0;
-      cp_async_16(smem_addr(qd + i * DP + dc), q + o, ok);
-      cp_async_16(smem_addr(dd + i * DP + dc), dout + o, ok);
+#pragma unroll
+      for (int t = 0; t < QT; ++t) {
+        const bf16* qt = t == 0 ? q : ex.q_lo;
+        const bf16* dt = t == 0 ? dout : ex.dout_lo;
+        const bool okq = ok && qt != nullptr, okd = ok && dt != nullptr;
+        cp_async_16(smem_addr(qd + (t * KV_BM + i) * DP + dc),
+                    okq ? qt + o : q, okq);
+        cp_async_16(smem_addr(dd + (t * KV_BM + i) * DP + dc),
+                    okd ? dt + o : dout, okd);
+      }
     }
     // rows past G * Sq: zeros (p = 0, ds = 0)
     for (int e = tid; e < SR * (KV_BM / 4); e += blockDim.x) {
@@ -1078,7 +1357,7 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 #pragma unroll
-  for (int s = 0; s < TC_STAGES - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_c) load_chunk(s);
     cp_async_commit();
   }
@@ -1089,9 +1368,9 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     key[i] = k0 + kw * 16 + g + 8 * i;
-    kin[i] = key[i] < Skv;
-    kok[i] = kin[i] && (!MASKED || kv_valid == nullptr ||
-                        kv_valid[static_cast<size_t>(b) * Skv + key[i]]);
+    kin[i] = key[i] < sr.n;
+    kok[i] = kin[i] && (!MASKED || sr.valid == nullptr ||
+                        sr.valid[static_cast<size_t>(b) * sr.n + key[i]]);
   }
 
   float acc[NA][NT][4];
@@ -1105,13 +1384,13 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kwp = ks + kw * 16 * DP;
   const bf16* vwp = vs + kw * 16 * DP;
   for (int w = 0; w < n_c; ++w) {
-    cp_async_wait<TC_STAGES - 2>();        // chunk w (and the tile) landed
+    cp_async_wait<STAGES - 2>();           // chunk w (and the tile) landed
     __syncthreads();                       // ... for all; w - 1 is read
-    if (w + TC_STAGES - 1 < n_c) load_chunk(w + TC_STAGES - 1);
+    if (w + STAGES - 1 < n_c) load_chunk(w + STAGES - 1);
     cp_async_commit();
-    const bf16* qc = ring + (w % TC_STAGES) * CH;
-    const bf16* dc = qc + KV_BM * DP;
-    const float* sm = sts + (w % TC_STAGES) * SR * KV_BM;
+    const bf16* qc = ring + (w % STAGES) * CH;
+    const bf16* dc = qc + QT * KV_BM * DP;
+    const float* sm = sts + (w % STAGES) * SR * KV_BM;
     const int r0 = (c_lo + w) * KV_BM;
 
     // S^T and dP^T: 16 keys x 32 rows, four 8-row tiles
@@ -1130,15 +1409,18 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int jp = 0; jp < NJ / 2; ++jp) {
         const int bo = (jp * 16 + (lane & 7) + (lane >> 4) * 8) * DP +
                        kk * 16 + ((lane >> 3) & 1) * 8;
-        uint32_t bq[4];
-        ldmatrix_x4(bq, smem_addr(qc + bo));
-        mma_bf16(st[2 * jp], ak, bq[0], bq[1]);
-        mma_bf16(st[2 * jp + 1], ak, bq[2], bq[3]);
-        if (do_k) {
-          uint32_t bd[4];
-          ldmatrix_x4(bd, smem_addr(dc + bo));
-          mma_bf16(dpt[2 * jp], av, bd[0], bd[1]);
-          mma_bf16(dpt[2 * jp + 1], av, bd[2], bd[3]);
+#pragma unroll
+        for (int t = 0; t < QT; ++t) {
+          uint32_t bq[4];
+          ldmatrix_x4(bq, smem_addr(qc + t * KV_BM * DP + bo));
+          mma_bf16(st[2 * jp], ak, bq[0], bq[1]);
+          mma_bf16(st[2 * jp + 1], ak, bq[2], bq[3]);
+          if (do_k) {
+            uint32_t bd[4];
+            ldmatrix_x4(bd, smem_addr(dc + t * KV_BM * DP + bo));
+            mma_bf16(dpt[2 * jp], av, bd[0], bd[1]);
+            mma_bf16(dpt[2 * jp + 1], av, bd[2], bd[3]);
+          }
         }
       }
     }
@@ -1161,8 +1443,8 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float rd = e ? de.y : de.x, rc = e ? mcv.y : mcv.x;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const bool ok =
-              kok[i] && (!reach || in_reach(pos, key[i], window, causal));
+          const bool ok = kok[i] && (!reach || in_reach(pos, sr.pos0 + key[i],
+                                                        window, causal));
           float& x = st[j][2 * i + e];
           if (BS) {
             const float sb = bf16r(x);
@@ -1205,24 +1487,27 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int np = 0; np < DT / 16; ++np) {
         const int bo = (t * 16 + (lane & 15)) * DP + np * 16 + (lane >> 4) * 8;
-        if (do_v) {
-          uint32_t bo4[4];
-          ldmatrix_x4_trans(bo4, smem_addr(dc + bo));
-          mma_bf16(acc[0][2 * np], pa, bo4[0], bo4[1]);
-          mma_bf16(acc[0][2 * np + 1], pa, bo4[2], bo4[3]);
-        }
-        if (do_k) {
-          uint32_t bq4[4];
-          ldmatrix_x4_trans(bq4, smem_addr(qc + bo));
-          mma_bf16(acc[NA - 1][2 * np], da, bq4[0], bq4[1]);
-          mma_bf16(acc[NA - 1][2 * np + 1], da, bq4[2], bq4[3]);
+#pragma unroll
+        for (int u = 0; u < QT; ++u) {
+          if (do_v) {
+            uint32_t bo4[4];
+            ldmatrix_x4_trans(bo4, smem_addr(dc + u * KV_BM * DP + bo));
+            mma_bf16(acc[0][2 * np], pa, bo4[0], bo4[1]);
+            mma_bf16(acc[0][2 * np + 1], pa, bo4[2], bo4[3]);
+          }
+          if (do_k) {
+            uint32_t bq4[4];
+            ldmatrix_x4_trans(bq4, smem_addr(qc + u * KV_BM * DP + bo));
+            mma_bf16(acc[NA - 1][2 * np], da, bq4[0], bq4[1]);
+            mma_bf16(acc[NA - 1][2 * np + 1], da, bq4[2], bq4[3]);
+          }
         }
       }
     }
   }
   cp_async_wait<0>();
 
-  const size_t n_out = static_cast<size_t>(B) * Skv * Hkv * D;
+  const size_t n_out = static_cast<size_t>(B) * sr.n * Hkv * D;
 #pragma unroll
   for (int a = 0; a < NA; ++a) {
     // which: 0 dk, 1 dv
@@ -1233,7 +1518,7 @@ flash_bidir_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
       if (!kin[i]) continue;
       const size_t row =
-          ((static_cast<size_t>(b) * Skv + key[i]) * Hkv + hk) * D;
+          ((static_cast<size_t>(b) * sr.n + key[i]) * Hkv + hk) * D;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int dd = 8 * n + 2 * c;
@@ -1282,54 +1567,67 @@ flash_bidir_bwd_split_sum(const float* __restrict__ part,
   }
 }
 
-template <int DT, bool MASKED, bool BS = false>
+template <int DT, bool MASKED, bool BS = false, int QT = 1>
 cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
                       const bf16* dout, const unsigned char* kv_valid,
                       bf16* dq, bf16* dk, bf16* dv, float* stats, float* part,
                       int B, int Sq, int Skv, int Hq, int Hkv, int D,
                       float scale, int window, int q_offset, int causal,
                       int dq_warps, int n_split, int split_rows,
-                      cudaStream_t stream) {
-  constexpr int max_w = dq_tc_max_warps(DT, MASKED);
+                      const Ext<bf16>& ex, cudaStream_t stream) {
+  constexpr int max_w = dq_tc_max_warps(DT, MASKED, QT);
   const int n_rows = (Hq / Hkv) * Sq;
   if (dq_warps < 1 || dq_warps > max_w || n_split < 1 || split_rows < 1 ||
       split_rows % KV_BM != 0 ||
       static_cast<long long>(n_split) * split_rows < n_rows ||
       static_cast<long long>(n_split - 1) * split_rows >= n_rows ||
-      (n_split > 1 && part == nullptr))
+      (n_split > 1 && ((!ex.skip0 && part == nullptr) ||
+                       (ex.dk2 != nullptr && ex.part2 == nullptr))))
     return cudaErrorInvalidValue;
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      flash_bidir_bwd_dq_tc<DT, MASKED, BS>,
+      flash_bidir_bwd_dq_tc<DT, MASKED, BS, QT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dq_tc_smem_bytes(DT, MASKED, max_w));
+      dq_tc_smem_bytes(DT, MASKED, max_w, QT));
   if (attr_dq != cudaSuccess) return attr_dq;
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      flash_bidir_bwd_dkv_tc<DT, MASKED, BS>,
+      flash_bidir_bwd_dkv_tc<DT, MASKED, BS, QT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dkv_tc_smem_bytes(DT, BS));
+      dkv_tc_smem_bytes(DT, BS, QT));
   if (attr_dkv != cudaSuccess) return attr_dkv;
   const dim3 grid_q((n_rows + 16 * dq_warps - 1) / (16 * dq_warps), Hkv, B);
-  flash_bidir_bwd_dq_tc<DT, MASKED, BS><<<grid_q, 32 * dq_warps,
-                                      dq_tc_smem_bytes(DT, MASKED,
-                                                       dq_warps),
-                                      stream>>>(
+  flash_bidir_bwd_dq_tc<DT, MASKED, BS, QT><<<grid_q, 32 * dq_warps,
+                                              dq_tc_smem_bytes(DT, MASKED,
+                                                               dq_warps, QT),
+                                              stream>>>(
       q, k, v, dout, kv_valid, dq, stats, Sq, Skv, Hq, Hkv, D, scale, window,
-      q_offset, causal);
+      q_offset, causal, ex);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_k((Skv + KV_BN - 1) / KV_BN, Hkv, B * n_split);
-  flash_bidir_bwd_dkv_tc<DT, MASKED, BS><<<grid_k, 128 * dkv_roles(DT),
-                                           dkv_tc_smem_bytes(DT, BS),
-                                           stream>>>(
+  // key tiles of the cache (unless skipped), then of the second source
+  const int n0t = ex.skip0 ? 0 : (Skv + KV_BN - 1) / KV_BN;
+  const int n1t = ex.dk2 != nullptr ? (ex.S2 + KV_BN - 1) / KV_BN : 0;
+  if (n0t + n1t == 0) return cudaSuccess;
+  const dim3 grid_k(n0t + n1t, Hkv, B * n_split);
+  flash_bidir_bwd_dkv_tc<DT, MASKED, BS, QT><<<grid_k, 128 * dkv_roles(DT),
+                                               dkv_tc_smem_bytes(DT, BS, QT),
+                                               stream>>>(
       q, k, v, dout, kv_valid, stats, dk, dv, part, B, Sq, Skv, Hq, Hkv, D,
-      split_rows, n_split, scale, window, q_offset, causal);
+      split_rows, n_split, scale, window, q_offset, causal, ex);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
-  const long long n4 = static_cast<long long>(B) * Skv * Hkv * D / 4;
-  flash_bidir_bwd_split_sum<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0,
-                              stream>>>(part, dk, dv, n4, n_split,
-                                        BS ? 1.f : scale);
-  return cudaGetLastError();
+  // each source's split sum
+  for (int src = 0; src < 2; ++src) {
+    if (src == 0 ? n0t == 0 : n1t == 0) continue;
+    const long long n4 =
+        static_cast<long long>(B) * (src == 0 ? Skv : ex.S2) * Hkv * D / 4;
+    flash_bidir_bwd_split_sum<<<static_cast<unsigned>((n4 + 255) / 256), 256,
+                                0, stream>>>(
+        src == 0 ? part : ex.part2, src == 0 ? dk : ex.dk2,
+        src == 0 ? dv : ex.dv2, n4, n_split, BS ? 1.f : scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // The CUDA-core route: f32, and bf16 at a head dim that is not a multiple
@@ -1340,7 +1638,8 @@ cudaError_t launch_cc(const T* q, const T* k, const T* v, const T* dout,
                       const unsigned char* kv_valid, T* dq, T* dk, T* dv,
                       float* stats, int B, int Sq, int Skv, int Hq, int Hkv,
                       int D, float scale, int window, int q_offset,
-                      int causal, int bs, cudaStream_t stream) {
+                      int causal, int bs, const Ext<T>& ex,
+                      cudaStream_t stream) {
   constexpr int DT = 32 * DPL;
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
       flash_bidir_bwd_dq<T, DPL>,
@@ -1354,14 +1653,17 @@ cudaError_t launch_cc(const T* q, const T* k, const T* v, const T* dout,
   flash_bidir_bwd_dq<T, DPL>
       <<<grid_q, 32 * QWARPS, dq_smem_bytes(DT), stream>>>(
           q, k, v, dout, kv_valid, dq, stats, B, Sq, Skv, Hq, Hkv, D, scale,
-          window, q_offset, causal, bs);
+          window, q_offset, causal, bs, ex);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_k((Skv + BK - 1) / BK, Hkv, B);
+  const int n0t = ex.skip0 ? 0 : (Skv + BK - 1) / BK;
+  const int n1t = ex.dk2 != nullptr ? (ex.S2 + BK - 1) / BK : 0;
+  if (n0t + n1t == 0) return cudaSuccess;
+  const dim3 grid_k(n0t + n1t, Hkv, B);
   flash_bidir_bwd_dkv<T, DPL>
       <<<grid_k, 32 * KWARPS, dkv_smem_bytes(DT), stream>>>(
           q, k, v, dout, kv_valid, stats, dk, dv, B, Sq, Skv, Hq, Hkv, D,
-          scale, window, q_offset, causal, bs);
+          scale, window, q_offset, causal, bs, ex);
   return cudaGetLastError();
 }
 
@@ -1395,11 +1697,10 @@ constexpr int wide_dkv_smem_bytes() {
 // memory are done; ends without one.
 template <typename T, int R, typename RowOff>
 __device__ __forceinline__ void wide_s_dp(
-    const T* __restrict__ q, const T* __restrict__ dout,
-    const T* __restrict__ k, const T* __restrict__ v, RowOff row_off, int b,
-    int k0, int hk, int Skv, int Hkv, int D, int tid, int nthreads,
-    const int (&rows)[R], float* smem, float (&s)[R], float (&dp)[R],
-    int bs) {
+    const T* __restrict__ q, const T* __restrict__ dout, const Ext<T>& ex,
+    const Src<T>& sr, RowOff row_off, int b, int k0, int hk, int Hkv, int D,
+    int tid, int nthreads, const int (&rows)[R], float* smem, float (&s)[R],
+    float (&dp)[R], int bs) {
   float(*qs)[WIDE_CH] = reinterpret_cast<float(*)[WIDE_CH]>(smem);
   float(*dos)[WIDE_CH] = reinterpret_cast<float(*)[WIDE_CH]>(
       smem + 16 * WIDE_CH);
@@ -1417,8 +1718,8 @@ __device__ __forceinline__ void wide_s_dp(
       const long long o = row_off(r);
       float x = 0.f, g = 0.f;
       if (o >= 0 && dd < D) {
-        x = to_f32(q[o + dd]);
-        g = to_f32(dout[o + dd]);
+        x = two_terms(q, ex.q_lo, o + dd);
+        g = two_terms(dout, ex.dout_lo, o + dd);
       }
       qs[r][c] = x;
       dos[r][c] = g;
@@ -1426,10 +1727,10 @@ __device__ __forceinline__ void wide_s_dp(
     for (int e = tid; e < BK * WIDE_CH; e += nthreads) {
       const int j = e / WIDE_CH, c = e % WIDE_CH, dd = d0 + c, gk = k0 + j;
       float kx = 0.f, vx = 0.f;
-      if (gk < Skv && dd < D) {
-        const size_t o = ((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D + dd;
-        kx = to_f32(k[o]);
-        vx = to_f32(v[o]);
+      if (gk < sr.n && dd < D) {
+        const size_t o = ((static_cast<size_t>(b) * sr.n + gk) * Hkv + hk) * D + dd;
+        kx = to_f32(sr.k[o]);
+        vx = to_f32(sr.v[o]);
       }
       ks[j][c] = bs ? bf16r(kx) : kx;
       vs[j][c] = bs ? bf16r(vx) : vx;
@@ -1459,11 +1760,13 @@ flash_bidir_bwd_stats_wide(const T* __restrict__ q, const T* __restrict__ k,
                            const unsigned char* __restrict__ kv_valid,
                            float* __restrict__ stats, int B, int Sq, int Skv,
                            int Hq, int Hkv, int D, float scale, int window,
-                           int q_offset, int causal, int bs) {
+                           int q_offset, int causal, int bs, Ext<T> ex) {
   extern __shared__ __align__(16) float smem_ws[];
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  q_offset = offset_of(q_offset, ex.off);
+  const int n0t = (Skv + BK - 1) / BK, n_t = n0t + (ex.S2 + BK - 1) / BK;
   auto row_off = [&](int r) -> long long {
     return q0 + r < Sq
                ? ((static_cast<long long>(b) * Sq + q0 + r) * Hq + h) * D
@@ -1478,16 +1781,19 @@ flash_bidir_bwd_stats_wide(const T* __restrict__ q, const T* __restrict__ k,
     m[i] = NEG;
     l[i] = pdp[i] = 0.f;
   }
-  for (int k0 = 0; k0 < Skv; k0 += BK) {
+  for (int ti = 0; ti < n_t; ++ti) {
+    const int si = ti >= n0t, k0 = (si ? ti - n0t : ti) * BK;
+    const Src<T> sr = src_of<T>(si, k, v, kv_valid, Skv, ex, q_offset);
     float s[RPW], dp[RPW];
-    wide_s_dp<T, RPW>(q, dout, k, v, row_off, b, k0, hk, Skv, Hkv, D, tid,
+    wide_s_dp<T, RPW>(q, dout, ex, sr, row_off, b, k0, hk, Hkv, D, tid,
                       32 * QWARPS, rows, smem_ws, s, dp, bs);
     const int gk = k0 + lane;
-    const bool in_range = gk < Skv;
-    const bool valid = key_ok(kv_valid, b, Skv, gk);
+    const bool in_range = gk < sr.n;
+    const bool valid = key_ok(sr.valid, b, sr.n, gk);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const bool ok = valid && in_reach(qpos[i], gk, window, causal);
+      const bool ok =
+          valid && in_reach(qpos[i], sr.pos0 + gk, window, causal);
       const float x = in_range ? (ok ? (bs ? bf16r(s[i]) : s[i] * scale)
                                      : (bs ? NEG_BF16 : NEG))
                                : -INFINITY;
@@ -1508,15 +1814,18 @@ flash_bidir_bwd_stats_wide(const T* __restrict__ q, const T* __restrict__ k,
     delta[i] = pdp[i] * il[i];
     eps[i] = ties[i] = 0.f;
   }
-  for (int k0 = 0; bs && k0 < Skv; k0 += BK) {
+  for (int ti = 0; bs && ti < n_t; ++ti) {
+    const int si = ti >= n0t, k0 = (si ? ti - n0t : ti) * BK;
+    const Src<T> sr = src_of<T>(si, k, v, kv_valid, Skv, ex, q_offset);
     float s[RPW], dp[RPW];
-    wide_s_dp<T, RPW>(q, dout, k, v, row_off, b, k0, hk, Skv, Hkv, D, tid,
+    wide_s_dp<T, RPW>(q, dout, ex, sr, row_off, b, k0, hk, Hkv, D, tid,
                       32 * QWARPS, rows, smem_ws, s, dp, bs);
     const int gk = k0 + lane;
-    const bool ok_k = gk < Skv && key_ok(kv_valid, b, Skv, gk);
+    const bool ok_k = gk < sr.n && key_ok(sr.valid, b, sr.n, gk);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const bool ok = ok_k && in_reach(qpos[i], gk, window, causal);
+      const bool ok =
+          ok_k && in_reach(qpos[i], sr.pos0 + gk, window, causal);
       eps[i] += warp_sum(ok ? bf16_ds(s[i], m[i], dp[i], il[i], delta[i])
                             : 0.f);
       ties[i] += warp_sum(ok && bf16r(s[i]) == m[i] ? 1.f : 0.f);
@@ -1548,7 +1857,7 @@ flash_bidir_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ stats, T* __restrict__ dq,
                         int B, int Sq, int Skv, int Hq, int Hkv, int D,
                         float scale, int window, int q_offset, int causal,
-                        int n_slices, int bs) {
+                        int n_slices, int bs, Ext<T> ex) {
   constexpr int DPL = WIDE_DV / 32;
   extern __shared__ __align__(16) float smem_wq[];
   float(*ksl)[WIDE_DV] = reinterpret_cast<float(*)[WIDE_DV]>(smem_wq + WIDE_SDP);
@@ -1559,6 +1868,8 @@ flash_bidir_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nthreads = 32 * QWARPS;
   const size_t n_stats = static_cast<size_t>(B) * Hq * Sq;
+  q_offset = offset_of(q_offset, ex.off);
+  const int n0t = (Skv + BK - 1) / BK, n_t = n0t + (ex.S2 + BK - 1) / BK;
   auto row_off = [&](int r) -> long long {
     return q0 + r < Sq
                ? ((static_cast<long long>(b) * Sq + q0 + r) * Hq + h) * D
@@ -1579,29 +1890,31 @@ flash_bidir_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < DPL; ++t) acc[i][t] = 0.f;
   }
-  for (int k0 = 0; k0 < Skv; k0 += BK) {
+  for (int ti = 0; ti < n_t; ++ti) {
+    const int si = ti >= n0t, k0 = (si ? ti - n0t : ti) * BK;
+    const Src<T> sr = src_of<T>(si, k, v, kv_valid, Skv, ex, q_offset);
     float s[RPW], dp[RPW];
-    wide_s_dp<T, RPW>(q, dout, k, v, row_off, b, k0, hk, Skv, Hkv, D, tid,
+    wide_s_dp<T, RPW>(q, dout, ex, sr, row_off, b, k0, hk, Hkv, D, tid,
                       nthreads, rows, smem_wq, s, dp, bs);
     // the slice's columns of K (the previous tile's were read before
     // wide_s_dp's first barrier)
     for (int e = tid; e < BK * WIDE_DV; e += nthreads) {
       const int j = e / WIDE_DV, dd = c0 + e % WIDE_DV, gk = k0 + j;
       const float kx =
-          gk < Skv && dd < D
-              ? to_f32(k[((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D + dd])
+          gk < sr.n && dd < D
+              ? to_f32(sr.k[((static_cast<size_t>(b) * sr.n + gk) * Hkv + hk) * D + dd])
               : 0.f;
       ksl[j][e % WIDE_DV] = bs ? bf16r(kx) : kx;
     }
     __syncthreads();
     const int gk = k0 + lane;
-    const bool in_range = gk < Skv;
-    const bool valid = key_ok(kv_valid, b, Skv, gk);
+    const bool in_range = gk < sr.n;
+    const bool valid = key_ok(sr.valid, b, sr.n, gk);
     float ds[RPW];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const bool ok =
-          in_range && valid && in_reach(qpos[i], gk, window, causal);
+      const bool ok = in_range && valid &&
+                      in_reach(qpos[i], sr.pos0 + gk, window, causal);
       ds[i] = !ok ? 0.f
               : bs ? bf16_ds_m(s[i], m[i], dp[i], inv_l[i], delta[i], mc[i])
                    : expf(s[i] * scale - m[i]) * inv_l[i] * (dp[i] - delta[i]);
@@ -1627,7 +1940,12 @@ flash_bidir_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < DPL; ++t) {
       const int dd = c0 + lane + 32 * t;
-      if (dd < D) dq[row + dd] = from_f32<T>(dq_of(acc[i][t], scale, bs));
+      if (dd >= D) continue;
+      const float g = dq_of(acc[i][t], scale, bs);
+      if (ex.dq32 != nullptr)
+        ex.dq32[row + dd] = g;
+      else
+        dq[row + dd] = from_f32<T>(g);
     }
   }
 }
@@ -1646,7 +1964,8 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
                          const float* __restrict__ stats, T* __restrict__ dk,
                          T* __restrict__ dv, int B, int Sq, int Skv, int Hq,
                          int Hkv, int D, float scale, int window,
-                         int q_offset, int causal, int n_slices, int bs) {
+                         int q_offset, int causal, int n_slices, int bs,
+                         Ext<T> ex) {
   constexpr int NC = WIDE_DV / KWARPS;
   constexpr int RW = RC / KWARPS;
   extern __shared__ __align__(16) float smem_wk[];
@@ -1663,16 +1982,26 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
   float(*dosl)[WIDE_DV] = reinterpret_cast<float(*)[WIDE_DV]>(
       rest + 2 * RC * BK + 5 * RC + RC * WIDE_DV);
 
-  const int k0 = (blockIdx.x / n_slices) * BK;
   const int c0 = (blockIdx.x % n_slices) * WIDE_DV;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv, n_rows = G * Sq;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nthreads = 32 * KWARPS;
   const size_t n_stats = static_cast<size_t>(B) * Hq * Sq;
+  q_offset = offset_of(q_offset, ex.off);
+  // the CTA's key tile: the cache's first (none with skip0), then the
+  // second source's
+  const int n0t = ex.skip0 ? 0 : (Skv + BK - 1) / BK;
+  const int tile = static_cast<int>(blockIdx.x) / n_slices;
+  const int si = tile >= n0t, k0 = (si ? tile - n0t : tile) * BK;
+  const Src<T> sr = src_of<T>(si, k, v, kv_valid, Skv, ex, q_offset);
+  if (si) {
+    dk = ex.dk2;
+    dv = ex.dv2;
+  }
   const int gk = k0 + lane;
-  const bool in_range = gk < Skv;
-  const bool valid = key_ok(kv_valid, b, Skv, gk);
+  const bool in_range = gk < sr.n;
+  const bool valid = key_ok(sr.valid, b, sr.n, gk);
 
   float adk[NC], adv[NC];
 #pragma unroll
@@ -1690,7 +2019,7 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
                         : -1;
     };
     float s[RW], dp[RW];
-    wide_s_dp<T, RW>(q, dout, k, v, row_off, b, k0, hk, Skv, Hkv, D, tid,
+    wide_s_dp<T, RW>(q, dout, ex, sr, row_off, b, k0, hk, Hkv, D, tid,
                      nthreads, rows, smem_wk, s, dp, bs);
     // the chunk's statistics and its rows' slice columns (the previous
     // chunk's were read before wide_s_dp's first barrier)
@@ -1717,8 +2046,8 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
       const long long o = row_off(r);
       float x = 0.f, g = 0.f;
       if (o >= 0 && dd < D) {
-        x = to_f32(q[o + dd]);
-        g = to_f32(dout[o + dd]);
+        x = two_terms(q, ex.q_lo, o + dd);
+        g = two_terms(dout, ex.dout_lo, o + dd);
       }
       qsl[r][e % WIDE_DV] = x;
       dosl[r][e % WIDE_DV] = g;
@@ -1727,7 +2056,8 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RW; ++i) {
       const int r = rows[i];
-      const bool ok = valid && in_reach(row_pos[r], gk, window, causal);
+      const bool ok =
+          valid && in_reach(row_pos[r], sr.pos0 + gk, window, causal);
       if (bs) {
         const float pu =
             in_range ? bf16_p(ok ? bf16r(s[i]) : NEG_BF16, row_m[r]) : 0.f;
@@ -1765,7 +2095,7 @@ flash_bidir_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!in_range) return;
-  const size_t row = ((static_cast<size_t>(b) * Skv + gk) * Hkv + hk) * D;
+  const size_t row = ((static_cast<size_t>(b) * sr.n + gk) * Hkv + hk) * D;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int dd = c0 + warp * NC + c;
@@ -1781,7 +2111,7 @@ cudaError_t launch_wide(const T* q, const T* k, const T* v, const T* dout,
                         const unsigned char* kv_valid, T* dq, T* dk, T* dv,
                         float* stats, int B, int Sq, int Skv, int Hq,
                         int Hkv, int D, float scale, int window,
-                        int q_offset, int causal, int bs,
+                        int q_offset, int causal, int bs, const Ext<T>& ex,
                         cudaStream_t stream) {
   static const cudaError_t attr_st = cudaFuncSetAttribute(
       flash_bidir_bwd_stats_wide<T>,
@@ -1800,20 +2130,23 @@ cudaError_t launch_wide(const T* q, const T* k, const T* v, const T* dout,
   flash_bidir_bwd_stats_wide<T>
       <<<dim3(n_qt, Hq, B), 32 * QWARPS, wide_stats_smem_bytes(), stream>>>(
           q, k, v, dout, kv_valid, stats, B, Sq, Skv, Hq, Hkv, D, scale,
-          window, q_offset, causal, bs);
+          window, q_offset, causal, bs, ex);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bidir_bwd_dq_wide<T><<<dim3(n_qt * n_slices, Hq, B), 32 * QWARPS,
                                wide_dq_smem_bytes(), stream>>>(
       q, k, v, dout, kv_valid, stats, dq, B, Sq, Skv, Hq, Hkv, D, scale,
-      window, q_offset, causal, n_slices, bs);
+      window, q_offset, causal, n_slices, bs, ex);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  const int n0t = ex.skip0 ? 0 : (Skv + BK - 1) / BK;
+  const int n1t = ex.dk2 != nullptr ? (ex.S2 + BK - 1) / BK : 0;
+  if (n0t + n1t == 0) return cudaSuccess;
   flash_bidir_bwd_dkv_wide<T>
-      <<<dim3((Skv + BK - 1) / BK * n_slices, Hkv, B), 32 * KWARPS,
+      <<<dim3((n0t + n1t) * n_slices, Hkv, B), 32 * KWARPS,
           wide_dkv_smem_bytes(), stream>>>(
           q, k, v, dout, kv_valid, stats, dk, dv, B, Sq, Skv, Hq, Hkv, D,
-          scale, window, q_offset, causal, n_slices, bs);
+          scale, window, q_offset, causal, n_slices, bs, ex);
   return cudaGetLastError();
 }
 
@@ -1830,11 +2163,11 @@ cudaError_t dispatch_cc(const T* q, const T* k, const T* v, const T* dout,
                         const unsigned char* kv_valid, T* dq, T* dk, T* dv,
                         float* stats, int B, int Sq, int Skv, int Hq,
                         int Hkv, int D, float scale, int window,
-                        int q_offset, int causal, int bs,
+                        int q_offset, int causal, int bs, const Ext<T>& ex,
                         cudaStream_t stream) {
 #define FBB_ARGS                                                            \
   (q, k, v, dout, kv_valid, dq, dk, dv, stats, B, Sq, Skv, Hq, Hkv, D,      \
-   scale, window, q_offset, causal, bs, stream)
+   scale, window, q_offset, causal, bs, ex, stream)
   switch (tile_of(D)) {
     case 32: return launch_cc<T, 1> FBB_ARGS;
     case 64: return launch_cc<T, 2> FBB_ARGS;
@@ -1843,6 +2176,81 @@ cudaError_t dispatch_cc(const T* q, const T* k, const T* v, const T* dout,
     default: return launch_wide<T> FBB_ARGS;
   }
 #undef FBB_ARGS
+}
+
+}  // namespace
+
+// The cached forward's part of a launch (kernels/flash_bidir.py _Extra
+// mirrors it field by field); null for the cache-less backward.
+struct BwdExtra {
+  int baos;                   // BAOS: q * f_k in, out * f_v + c_v out
+  const void* fk;             // (B, Hkv, D) f32, or null (1)
+  const void* fv;             // (B, Hkv, D) f32, or null (1)
+  const void* o_s;            // the uncorrected output (q's size and dtype),
+                              //   read for df_v
+  void* dfk;                  // (B, Hkv, D) f32 outputs, each may be null
+  void* dfv;
+  void* dcv;
+  void* q_hi;                 // scratches of q's size and dtype for the
+  void* q_lo;                 //   terms of q * f_k and dO * f_v (the _lo
+  void* d_hi;                 //   pair bf16 only)
+  void* d_lo;
+  void* dq32;                 // f32 scratch of q's size: dq of q * f_k
+  const void* k2;             // route B's second source (B, S2, Hkv, D),
+  const void* v2;             //   q's dtype, and valid2 (B, S2) bool or
+  const void* valid2;         //   null; S2 = 0: none
+  int S2;
+  void* dk2;                  // its gradients (null: not wanted)
+  void* dv2;
+  void* part2;                // its split partials (n_split > 1)
+  int skip0;                  // the cache's dk/dv not wanted
+  const void* q_offset_dev;   // the query offset as an int64, or null
+};
+
+namespace {
+
+template <typename T>
+Ext<T> ext_of(const BwdExtra* x, bool bs) {
+  if (x == nullptr) return Ext<T>{};
+  const bool baos = x->baos != 0;
+  return Ext<T>{static_cast<const T*>(x->k2), static_cast<const T*>(x->v2),
+                static_cast<const unsigned char*>(x->valid2),
+                x->k2 != nullptr ? x->S2 : 0, static_cast<T*>(x->dk2),
+                static_cast<T*>(x->dv2), static_cast<float*>(x->part2),
+                x->skip0,
+                baos && !bs ? static_cast<const T*>(x->q_lo) : nullptr,
+                baos ? static_cast<const T*>(x->d_lo) : nullptr,
+                baos ? static_cast<float*>(x->dq32) : nullptr,
+                static_cast<const long long*>(x->q_offset_dev)};
+}
+
+// BAOS's first kernel (the terms of q * f_k and dO * f_v) and its last
+// (dq and the calibration's gradients), around the others.
+template <typename T>
+cudaError_t baos_prep(const T* q, const T* dout, const BwdExtra& x, int B,
+                      int Sq, int Hq, int Hkv, int D, float scale, int bs,
+                      cudaStream_t st) {
+  const long long n = static_cast<long long>(B) * Sq * Hq * D;
+  flash_bidir_bwd_baos_prep<T><<<static_cast<unsigned>((n + 1023) / 1024),
+                                 256, 0, st>>>(
+      q, dout, static_cast<const float*>(x.fk),
+      static_cast<const float*>(x.fv), static_cast<T*>(x.q_hi),
+      bs ? nullptr : static_cast<T*>(x.q_lo), static_cast<T*>(x.d_hi),
+      static_cast<T*>(x.d_lo), n, Sq, Hq, Hkv, D, scale, bs);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t baos_sums(const T* q, const T* dout, T* dq, const BwdExtra& x,
+                      int B, int Sq, int Hq, int Hkv, int D,
+                      cudaStream_t st) {
+  flash_bidir_bwd_baos_sums<T><<<dim3((D + 31) / 32, Hkv, B), 32 * SUM_WARPS,
+                                 0, st>>>(
+      q, dout, static_cast<const T*>(x.o_s),
+      static_cast<const float*>(x.dq32), static_cast<const float*>(x.fk), dq,
+      static_cast<float*>(x.dfk), static_cast<float*>(x.dfv),
+      static_cast<float*>(x.dcv), Sq, Hq, Hkv, D);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1861,10 +2269,14 @@ cudaError_t dispatch_cc(const T* q, const T* k, const T* v, const T* dout,
 // group cut into n_split blocks of split_rows (a multiple of 32, the last
 // block not empty); part an f32 scratch of 2 * n_split * B * Skv * Hkv * D
 // floats when n_split > 1 (else may be null).  kernels/flash_bidir.bwd_plan
-// chooses them (bf16 scores: the MASKED plan).  bf16_scores != 0: JAX's
-// bf16 scores; scale is then D^-1/2 rounded to q's dtype, and qg a scratch
-// of q's size and dtype that kernel 0 (flash_bidir_bwd_qscale) fills with
-// bf16(q * scale) for the others to read in place of q.
+// chooses them (bf16 scores and BAOS: the MASKED plan, BAOS's with two
+// terms).  bf16_scores != 0: JAX's bf16 scores; scale is then D^-1/2
+// rounded to q's dtype, and qg a scratch of q's size and dtype that kernel
+// 0 (flash_bidir_bwd_qscale) fills with bf16(q * scale) for the others to
+// read in place of q.  ext (null: none): BAOS, route B's second source
+// and the device offset (BwdExtra); with BAOS kernel 0 is
+// flash_bidir_bwd_baos_prep (qg not read) and the last
+// flash_bidir_bwd_baos_sums, which writes dq.
 extern "C" int flash_bidir_bwd_launch(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* kv_valid,
@@ -1875,14 +2287,38 @@ extern "C" int flash_bidir_bwd_launch(const void* q, const void* k,
                                       int window, int q_offset, int causal,
                                       int is_bf16, int bf16_scores,
                                       int dq_warps, int n_split,
-                                      int split_rows, void* stream) {
+                                      int split_rows, const void* ext,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* valid = static_cast<const unsigned char*>(kv_valid);
   auto* sc = static_cast<float*>(stats);
+  const auto* x = static_cast<const BwdExtra*>(ext);
+  const bool baos = x != nullptr && x->baos != 0;
   const int bs = bf16_scores != 0;
-  if (D < 1 || (bs && qg == nullptr))
+  const void* q0 = q;          // q and dO as given (BAOS's sums read them)
+  const void* dout0 = dout;
+  if (D < 1 || (bs && !baos && qg == nullptr) ||
+      (baos && (x->q_hi == nullptr || x->d_hi == nullptr ||
+                x->dq32 == nullptr ||
+                (is_bf16 && (x->d_lo == nullptr ||
+                             (!bs && x->q_lo == nullptr))) ||
+                (x->dfv != nullptr && x->o_s == nullptr))) ||
+      (x != nullptr && x->k2 != nullptr &&
+       (x->v2 == nullptr || x->S2 < 1 ||
+        (x->dk2 == nullptr) != (x->dv2 == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bs) {
+  if (baos) {
+    const cudaError_t err =
+        is_bf16 ? baos_prep<bf16>(static_cast<const bf16*>(q),
+                                  static_cast<const bf16*>(dout), *x, B, Sq,
+                                  Hq, Hkv, D, scale, bs, st)
+                : baos_prep<float>(static_cast<const float*>(q),
+                                   static_cast<const float*>(dout), *x, B, Sq,
+                                   Hq, Hkv, D, scale, bs, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    q = x->q_hi;
+    dout = x->d_hi;
+  } else if (bs) {
     const long long n = static_cast<long long>(B) * Sq * Hq * D;
     const unsigned grid = static_cast<unsigned>((n + 1023) / 1024);
     if (is_bf16)
@@ -1895,27 +2331,36 @@ extern "C" int flash_bidir_bwd_launch(const void* q, const void* k,
     if (err != cudaSuccess) return static_cast<int>(err);
     q = qg;
   }
-  if (is_bf16 && (D % 8 != 0 || tile_of(D) == 0))
-    return static_cast<int>(dispatch_cc<bf16>(
+  cudaError_t err;
+  if (is_bf16 && (D % 8 != 0 || tile_of(D) == 0)) {
+    err = dispatch_cc<bf16>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), valid,
         static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        sc, B, Sq, Skv, Hq, Hkv, D, scale, window, q_offset, causal, bs, st));
-  if (is_bf16) {
-#define FBB_TC_AS(DT, M, BS)                                                \
-  static_cast<int>(launch_tc<DT, M, BS>(                                    \
+        sc, B, Sq, Skv, Hq, Hkv, D, scale, window, q_offset, causal, bs,
+        ext_of<bf16>(x, bs), st);
+  } else if (is_bf16) {
+    const Ext<bf16> ex = ext_of<bf16>(x, bs);
+#define FBB_TC_AS(DT, M, BS, QT)                                            \
+  launch_tc<DT, M, BS, QT>(                                                 \
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),             \
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), valid,   \
       static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),\
       sc, static_cast<float*>(part), B, Sq, Skv, Hq, Hkv, D, scale, window, \
-      q_offset, causal, dq_warps, n_split, split_rows, st))
+      q_offset, causal, dq_warps, n_split, split_rows, ex, st)
 #define FBB_TC(DT)                                                          \
-  return bs ? FBB_TC_AS(DT, true, true)                                     \
-            : masked ? FBB_TC_AS(DT, true, false) : FBB_TC_AS(DT, false, false)
-    // MASKED: a mask can hide a key (kv_valid, a window or causal); the
-    // other instantiations test only a key's place in the last tile.  bf16
-    // scores take the MASKED walk whatever the masks.
-    const bool masked = valid != nullptr || window > 0 || causal;
+  err = baos ? (bs ? FBB_TC_AS(DT, true, true, 2)                           \
+                   : FBB_TC_AS(DT, true, false, 2))                         \
+        : bs ? FBB_TC_AS(DT, true, true, 1)                                 \
+        : masked ? FBB_TC_AS(DT, true, false, 1)                            \
+                 : FBB_TC_AS(DT, false, false, 1);                          \
+  break
+    // MASKED: a mask can hide a key (kv_valid of either source, a window
+    // or causal); the other instantiations test only a key's place in the
+    // last tile.  bf16 scores and BAOS take the MASKED walk whatever the
+    // masks.
+    const bool masked = valid != nullptr || ex.valid2 != nullptr ||
+                        window > 0 || causal;
     switch (tile_of(D)) {
       case 32: FBB_TC(32);
       case 64: FBB_TC(64);
@@ -1924,13 +2369,24 @@ extern "C" int flash_bidir_bwd_launch(const void* q, const void* k,
     }
 #undef FBB_TC
 #undef FBB_TC_AS
+  } else {
+    err = dispatch_cc<float>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), valid,
+        static_cast<float*>(dq), static_cast<float*>(dk),
+        static_cast<float*>(dv), sc, B, Sq, Skv, Hq, Hkv, D, scale, window,
+        q_offset, causal, bs, ext_of<float>(x, bs), st);
   }
-  return static_cast<int>(dispatch_cc<float>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), valid,
-      static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), sc, B, Sq, Skv, Hq, Hkv, D, scale, window,
-      q_offset, causal, bs, st));
+  if (err != cudaSuccess || !baos) return static_cast<int>(err);
+  err = is_bf16 ? baos_sums<bf16>(static_cast<const bf16*>(q0),
+                                  static_cast<const bf16*>(dout0),
+                                  static_cast<bf16*>(dq), *x, B, Sq, Hq, Hkv,
+                                  D, st)
+                : baos_sums<float>(static_cast<const float*>(q0),
+                                   static_cast<const float*>(dout0),
+                                   static_cast<float*>(dq), *x, B, Sq, Hq,
+                                   Hkv, D, st);
+  return static_cast<int>(err);
 }
 
 namespace {
@@ -2002,6 +2458,42 @@ const KernelAttr ATTRS[] = {
                 dkv_tc_smem_bytes(256, true)),
     KERNEL_ATTR(flash_bidir_bwd_qscale<float>, 0),
     KERNEL_ATTR(flash_bidir_bwd_qscale<bf16>, 0),
+    KERNEL_ATTR(flash_bidir_bwd_baos_prep<float>, 0),
+    KERNEL_ATTR(flash_bidir_bwd_baos_prep<bf16>, 0),
+    KERNEL_ATTR(flash_bidir_bwd_baos_sums<float>, 0),
+    KERNEL_ATTR(flash_bidir_bwd_baos_sums<bf16>, 0),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<32, true, false, 2>),
+                dq_tc_smem_bytes(32, true, dq_tc_max_warps(32, true, 2), 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<32, true, false, 2>),
+                dkv_tc_smem_bytes(32, false, 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<32, true, true, 2>),
+                dq_tc_smem_bytes(32, true, dq_tc_max_warps(32, true, 2), 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<32, true, true, 2>),
+                dkv_tc_smem_bytes(32, true, 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<64, true, false, 2>),
+                dq_tc_smem_bytes(64, true, dq_tc_max_warps(64, true, 2), 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<64, true, false, 2>),
+                dkv_tc_smem_bytes(64, false, 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<64, true, true, 2>),
+                dq_tc_smem_bytes(64, true, dq_tc_max_warps(64, true, 2), 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<64, true, true, 2>),
+                dkv_tc_smem_bytes(64, true, 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<128, true, false, 2>),
+                dq_tc_smem_bytes(128, true, dq_tc_max_warps(128, true, 2), 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<128, true, false, 2>),
+                dkv_tc_smem_bytes(128, false, 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<128, true, true, 2>),
+                dq_tc_smem_bytes(128, true, dq_tc_max_warps(128, true, 2), 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<128, true, true, 2>),
+                dkv_tc_smem_bytes(128, true, 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<256, true, false, 2>),
+                dq_tc_smem_bytes(256, true, dq_tc_max_warps(256, true, 2), 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<256, true, false, 2>),
+                dkv_tc_smem_bytes(256, false, 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dq_tc<256, true, true, 2>),
+                dq_tc_smem_bytes(256, true, dq_tc_max_warps(256, true, 2), 2)),
+    KERNEL_ATTR((flash_bidir_bwd_dkv_tc<256, true, true, 2>),
+                dkv_tc_smem_bytes(256, true, 2)),
 };
 }  // namespace
 

@@ -53,9 +53,30 @@ models/layers.attention), and ``flash_bidir_bwd_plain`` for CPU tensors.
 A row with no valid key averages V whatever its scores, so its dq and its
 share of dk are 0.  The backward's bf16 route runs on the tensor cores
 with P and dS rounded once to bf16 (``BWD_P_TERMS``); ``bwd_plan`` picks
-its CTAs and the row split of its dk/dv pass and sizes its scratch.  BAOS
-calibration under autograd raises ``NotImplementedError``: training runs
-without a cache, as in JAX.
+its CTAs and the row split of its dk/dv pass and sizes its scratch.
+
+The cached forward under autograd (jax.grad of JAX's forward with a
+cache): ``FlashBidir`` also takes the BAOS calibration, route B's second
+source and a device query offset, and its backward returns d f_k = sum
+dqs * q, d f_v = sum dO * o_s and d c_v = sum dO (B, Hkv, D) f32, summed
+over positions and the GQA group (dqs the gradient of q * f_k, o_s the
+uncorrected output), dk and dv in the smoothed space, dk2 and dv2 of the
+second source (one softmax over both sources, the cache's stale copy of
+the block masked by kv_valid as in the forward), and reads a tensor
+offset from device memory in every kernel.  On the card, BAOS adds a
+first kernel that forms q * f_k and dO * f_v in f32 (two bf16 terms each
+on the bf16 routes, which enter every product as two: the tensor-core
+instantiations with QT = 2, MASKED), has the dq pass write dqs in f32,
+and a last kernel that rounds dq = dqs * f_k once and forms the three
+column sums in a fixed order (no atomics); o_s is recomputed by one
+forward launch (f_k fused, no f_v or c_v), counted as any forward launch
+(``count_name``).
+The dk/dv pass skips the cache's keys when k and v need no gradient (the
+split refine's read-only cache).  Counted as ``flash_bidir_bwd_split``
+(route B), ``flash_bidir_bwd_baos`` (BAOS) or ``flash_bidir_bwd_offset``
+(a device offset), after bf16 scores and causal (``bwd_count_name``).
+The plain backward (``flash_bidir_bwd_plain`` given the calibration or a
+second source) is autograd through the plain forward.
 
 Route B, ``extra_kv=(k2, v2, valid2)``: a second K/V source, the split
 active-block cache's buffer (models/transformer.py; JAX's
@@ -63,8 +84,7 @@ active-block cache's buffer (models/transformer.py; JAX's
 at position q_offset + j.  The kernel walks its keys after the cache's in
 the same online softmax, BAOS fused once, and counts the launch as
 ``flash_bidir_split``; the plain version takes the two sources as one key
-set.  Autograd refuses it, as it refuses the calibration, and refuses a
-tensor ``q_offset``: training runs without a cache.
+set.  Under autograd its gradient is the cached forward's (above).
 
 Scores in bf16 (``score_dtype="bfloat16"``, JAX's
 ``layers.attention(score_dtype=bf16)``): qg = bf16(q * f_k * D^-1/2),
@@ -123,6 +143,11 @@ SPLIT_NAME = "flash_bidir_split"
 OFFSET_NAME = "flash_bidir_offset"
 CAUSAL_NAME = "flash_bidir_causal"
 BWD_CAUSAL_NAME = "flash_bidir_bwd_causal"
+# the cached forward's backward: with BAOS, over route B's two sources, and
+# over the cache alone with a device query offset
+BWD_BAOS_NAME = "flash_bidir_bwd_baos"
+BWD_SPLIT_NAME = "flash_bidir_bwd_split"
+BWD_OFFSET_NAME = "flash_bidir_bwd_offset"
 # launches with bf16 scores (JAX's score_dtype="bfloat16"), forward and
 # backward, whatever their route
 BF16S_NAME = "flash_bidir_bf16s"
@@ -414,22 +439,12 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"extra_kv k2 {tuple(k2.shape)}, v2 "
                              f"{tuple(v2.shape)}: not a second source of "
                              f"k {tuple(k.shape)}")
-    extra = () if extra_kv is None else tuple(extra_kv)
+    k2, v2, valid2 = (None,) * 3 if extra_kv is None else tuple(extra_kv)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
-            for t in (q, k, v, fk, fv, cv) + extra):
-        if fk is not None or fv is not None or cv is not None:
-            raise NotImplementedError(
-                "flash_bidir's backward takes no BAOS calibration: training "
-                "runs without a cache (ROADMAP.md, Queue 3)")
-        if extra_kv is not None:
-            raise NotImplementedError(
-                "flash_bidir's backward takes no second K/V source: "
-                "training runs without a cache (ROADMAP.md, Queue 3)")
-        if isinstance(q_offset, torch.Tensor):
-            raise ValueError("flash_bidir's backward takes no device query "
-                             "offset: training runs without a cache")
-        return FlashBidir.apply(q, k, v, kv_valid, window, q_offset, causal,
+            for t in (q, k, v, fk, fv, cv, k2, v2)):
+        return FlashBidir.apply(q, k, v, kv_valid, fk, fv, cv, k2, v2,
+                                valid2, window, q_offset, causal,
                                 score_dtype, kv_chunk)
     return _forward(q, k, v, kv_valid, fk, fv, cv, window, q_offset,
                     extra_kv, causal, score_dtype, kv_chunk)
@@ -438,6 +453,7 @@ def flash_bidir(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _forward(q, k, v, kv_valid, fk, fv, cv, window: Optional[int],
              q_offset: Offset, extra_kv=None, causal: bool = False,
              score_dtype: str = "float32", kv_chunk: int = KV_CHUNK):
+    """One forward launch (or the plain version)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     if q.device.type in _build.PLAIN_DEVICES:
@@ -520,24 +536,39 @@ def count_name(split: bool, causal: bool, device_offset: bool,
 
 class FlashBidir(torch.autograd.Function):
     """Attention with a backward: the forward kernel (or plain version),
-    unchanged, then ``flash_bidir_bwd`` from the saved q, k and v."""
+    unchanged, then ``flash_bidir_bwd`` from the saved inputs: q, k, v,
+    the BAOS calibration, route B's second source and the query offset (a
+    device tensor is saved as it is, so the backward reads the forward's
+    block start).  The gradients it returns are those of the inputs that
+    require grad; the cache's dk/dv are skipped where k and v do not (the
+    split refine's read-only cache)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_valid, window, q_offset, causal=False,
-                score_dtype="float32", kv_chunk=KV_CHUNK):
-        ctx.save_for_backward(q, k, v, kv_valid)
-        ctx.window, ctx.q_offset, ctx.causal = window, q_offset, causal
+    def forward(ctx, q, k, v, kv_valid, fk, fv, cv, k2, v2, valid2, window,
+                q_offset, causal=False, score_dtype="float32",
+                kv_chunk=KV_CHUNK):
+        off = q_offset if isinstance(q_offset, torch.Tensor) else None
+        ctx.save_for_backward(q, k, v, kv_valid, fk, fv, cv, k2, v2, valid2,
+                              off)
+        ctx.window, ctx.causal = window, causal
+        ctx.q_offset = None if off is not None else q_offset
         ctx.score_dtype, ctx.kv_chunk = score_dtype, kv_chunk
-        return _forward(q, k, v, kv_valid, None, None, None, window,
-                        q_offset, None, causal, score_dtype, kv_chunk)
+        extra = None if k2 is None else (k2, v2, valid2)
+        return _forward(q, k, v, kv_valid, fk, fv, cv, window, q_offset,
+                        extra, causal, score_dtype, kv_chunk)
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, kv_valid = ctx.saved_tensors
-        dq, dk, dv = flash_bidir_bwd(q, k, v, dout.contiguous(), kv_valid,
-                                     ctx.window, ctx.q_offset, ctx.causal,
-                                     ctx.score_dtype, ctx.kv_chunk)
-        return dq, dk, dv, None, None, None, None, None, None
+        q, k, v, kv_valid, fk, fv, cv, k2, v2, valid2, off = \
+            ctx.saved_tensors
+        q_offset = off if off is not None else ctx.q_offset
+        need = ctx.needs_input_grad
+        extra = None if k2 is None else (k2, v2, valid2)
+        dq, dk, dv, dfk, dfv, dcv, dk2, dv2 = flash_bidir_bwd(
+            q, k, v, dout.contiguous(), kv_valid, ctx.window, q_offset,
+            ctx.causal, ctx.score_dtype, ctx.kv_chunk, fk=fk, fv=fv, cv=cv,
+            extra_kv=extra, needs=need[:3] + need[4:9])
+        return (dq, dk, dv, None, dfk, dfv, dcv, dk2, dv2) + (None,) * 6
 
 
 def _mask(B: int, Sq: int, Skv: int, kv_valid, window, q_offset, device,
@@ -565,27 +596,46 @@ def _mask(B: int, Sq: int, Skv: int, kv_valid, window, q_offset, device,
 def flash_bidir_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           dout: torch.Tensor,
                           kv_valid: Optional[torch.Tensor] = None,
-                          window: Optional[int] = None, q_offset: int = 0,
+                          window: Optional[int] = None, q_offset: Offset = 0,
                           causal: bool = False,
                           score_dtype: str = "float32",
-                          kv_chunk: int = KV_CHUNK
-                          ) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
-    """Plain version of the backward, step by step in f32 from recomputed
-    probabilities: (dq, dk, dv) in the inputs' dtype.  delta_i =
+                          kv_chunk: int = KV_CHUNK, *,
+                          fk: Optional[torch.Tensor] = None,
+                          fv: Optional[torch.Tensor] = None,
+                          cv: Optional[torch.Tensor] = None, extra_kv=None,
+                          needs: Optional[Tuple[bool, ...]] = None
+                          ) -> Tuple[Optional[torch.Tensor], ...]:
+    """Plain version of the backward: (dq, dk, dv, dfk, dfv, dcv, dk2, dv2)
+    as ``flash_bidir_bwd`` returns them.  Without the calibration, a second
+    source or bf16 scores, step by step in f32 from recomputed
+    probabilities, (dq, dk, dv) in the inputs' dtype: delta_i =
     sum_j p_ij dp_ij, the f32 value of dO_i . o_i (the forward's output,
     rounded to bf16, would carry that rounding into every ds_ij); dk and dv
-    sum over the q heads of each KV head's group.  With bf16 scores:
-    autograd through the plain bf16-score forward, JAX's structure of
+    sum over the q heads of each KV head's group.  Otherwise autograd
+    through ``flash_bidir_plain``: with bf16 scores JAX's structure of
     rounding as ``jax.grad`` differentiates it (dP, dS, dq and dk come
-    out of bf16 products; dv is rounded to bf16)."""
-    if check_score_dtype(score_dtype):
+    out of bf16 products; dv is rounded to bf16); ``needs`` (8 flags for
+    q, k, v, fk, fv, cv, k2, v2) leaves None where a gradient is not
+    wanted."""
+    if fk is not None or fv is not None or cv is not None or \
+            extra_kv is not None or check_score_dtype(score_dtype):
+        k2, v2, valid2 = (None,) * 3 if extra_kv is None else extra_kv
+        needs = (True,) * 8 if needs is None else tuple(needs)
         with torch.enable_grad():
-            ins = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = _plain_bf16_scores(*ins, kv_valid, None, None, None,
-                                     window, q_offset, None, causal,
-                                     kv_chunk)
-            return torch.autograd.grad(out, ins, dout)
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip((q, k, v, fk, fv, cv, k2, v2), needs)]
+            ext = None if k2 is None else (leaves[6], leaves[7], valid2)
+            # bf16 scores: the plain forward's own body, as it runs it
+            fwd = (functools.partial(_plain_bf16_scores, kv_chunk=kv_chunk)
+                   if check_score_dtype(score_dtype) else flash_bidir_plain)
+            out = fwd(leaves[0], leaves[1], leaves[2], kv_valid, leaves[3],
+                      leaves[4], leaves[5], window, q_offset, ext, causal)
+            want = [t for t in leaves if t is not None and t.requires_grad]
+            got = iter(torch.autograd.grad(out, want, dout,
+                                           allow_unused=True))
+        return tuple(None if t is None or not t.requires_grad else next(got)
+                     for t in leaves)
+    q_offset = offset_start(q_offset)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -607,7 +657,7 @@ def flash_bidir_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dk = dk.reshape(B, Skv, Hkv, G, D).sum(dim=3)
     dv = dv.reshape(B, Skv, Hkv, G, D).sum(dim=3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 5
 
 
 def bwd_dq_bkv(dt: int, masked: bool) -> int:
@@ -617,29 +667,37 @@ def bwd_dq_bkv(dt: int, masked: bool) -> int:
     return 32 if dt == 256 or masked else 64
 
 
-def bwd_dq_smem(dt: int, masked: bool, warps: int) -> int:
+def bwd_dq_smem(dt: int, masked: bool, warps: int, terms: int = 1) -> int:
     """Dynamic shared memory of a bf16 dq CTA of ``warps`` warps at tile
-    width ``dt``: the K and V rings and each warp's q and dO rows, bf16
-    rows padded by 8 elements (csrc/flash_bidir_bwd.cu dq_tc_smem_bytes)."""
+    width ``dt``: the K and V rings and each warp's q and dO rows in
+    ``terms`` bf16 terms each (2 with BAOS), bf16 rows padded by 8
+    elements (csrc/flash_bidir_bwd.cu dq_tc_smem_bytes)."""
     stages = 2 if dt == 256 else BWD_STAGES
-    return ((2 * stages * bwd_dq_bkv(dt, masked) + 2 * 16 * warps)
+    return ((2 * stages * bwd_dq_bkv(dt, masked) + 2 * terms * 16 * warps)
             * (dt + 8) * 2)
 
 
-def bwd_dq_max_warps(dt: int, masked: bool) -> int:
+def bwd_dq_max_warps(dt: int, masked: bool, terms: int = 1) -> int:
     """The most warps a bf16 dq CTA takes at tile width ``dt``."""
     w = BWD_MAX_WARPS
-    while w > 1 and bwd_dq_smem(dt, masked, w) > SMEM_LIMIT_BYTES:
+    while w > 1 and bwd_dq_smem(dt, masked, w, terms) > SMEM_LIMIT_BYTES:
         w -= 1
     return w
 
 
-def bwd_dkv_smem(dt: int, bf16_scores: bool = False) -> int:
+def bwd_dkv_stages(dt: int, terms: int = 1) -> int:
+    """The dk/dv ring's depth: 2 at tile 256 with two terms, else 3."""
+    return 2 if dt == 256 and terms == 2 else BWD_STAGES
+
+
+def bwd_dkv_smem(dt: int, bf16_scores: bool = False, terms: int = 1) -> int:
     """Dynamic shared memory of a bf16 dk/dv CTA at tile width ``dt``: its
-    K/V tile and the ring of row chunks with their statistics (a fourth
-    row with bf16 scores: the softmax max's cotangent)."""
-    return ((2 * BWD_BN + 2 * BWD_STAGES * BWD_BM) * (dt + 8) * 2
-            + BWD_STAGES * (4 if bf16_scores else 3) * BWD_BM * 4)
+    K/V tile and the ring of row chunks (``terms`` bf16 terms of q and dO)
+    with their statistics (a fourth row with bf16 scores: the softmax
+    max's cotangent)."""
+    st = bwd_dkv_stages(dt, terms)
+    return ((2 * BWD_BN + 2 * terms * st * BWD_BM) * (dt + 8) * 2
+            + st * (4 if bf16_scores else 3) * BWD_BM * 4)
 
 
 def bwd_dkv_warps(dt: int) -> int:
@@ -694,9 +752,12 @@ class BwdPlan:
 @functools.lru_cache(maxsize=None)
 def bwd_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
              dtype: torch.dtype, n_sm: int = H100_SMS,
-             masked: bool = False) -> BwdPlan:
+             masked: bool = False, terms: int = 1) -> BwdPlan:
     """The launch plan of ``flash_bidir_bwd`` on a card of ``n_sm`` SMs;
-    ``masked``: kv_valid, a window or the causal mask is given.
+    ``masked``: kv_valid, a window or the causal mask is given; ``terms``:
+    bf16 terms of q and dO on the bf16 route (2 with BAOS, which takes the
+    masked instantiations).  Skv counts the keys whose dk/dv the dk/dv pass
+    forms (both of route B's sources, in whole 64-key tiles).
 
     bf16: each pass takes the layout whose busiest SM finishes first, by
     ``_sm_time``: a dq CTA of 1 to 8 warps (up to what its shared memory
@@ -727,14 +788,14 @@ def bwd_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
                        -(-Sq // 16) * Hq * B,
                        -(-Skv // 32) * Hkv * B, 1, n_rows,
                        3 * B * Hq * Sq, 0, dq_smem, dkv_smem)
-    max_w = bwd_dq_max_warps(dt, masked)
+    max_w = bwd_dq_max_warps(dt, masked, terms)
 
     def dq_ctas(w):
         return -(-n_rows // (16 * w)) * Hkv * B
 
     def dq_time(w):      # a CTA's K/V walk: half a warp's rows more
         return _sm_time(dq_ctas(w), min(w, -(-n_rows // 16)) + 0.5, w,
-                        bwd_dq_smem(dt, masked, w), n_sm)
+                        bwd_dq_smem(dt, masked, w, terms), n_sm)
     dq_w = min(range(1, max_w + 1), key=lambda w: (dq_time(w), -w))
     base = -(-Skv // BWD_BN) * Hkv * B
     kv_w = bwd_dkv_warps(dt)
@@ -744,13 +805,14 @@ def bwd_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
 
     # at least BWD_MIN_SPLIT_ROWS rows a block, at most two waves of the
     # CTAs an SM holds (each block more adds its partial sums' bytes)
+    kv_smem = bwd_dkv_smem(dt, False, terms)
     most = min(n_rows // BWD_MIN_SPLIT_ROWS,
-               2 * n_sm * _per_sm(kv_w, bwd_dkv_smem(dt)) // base)
+               2 * n_sm * _per_sm(kv_w, kv_smem) // base)
     cuts = range(1, max(1, most) + 1) if base < n_sm else [1]
     # a CTA's K/V tile and its sums' stores: one chunk's work more
     n_split = min(cuts, key=lambda n: (_sm_time(
-        base * n, kv_w * (rows_of(n) // BWD_BM + 1), kv_w,
-        bwd_dkv_smem(dt), n_sm), n))
+        base * n, kv_w * (rows_of(n) // BWD_BM + 1), kv_w, kv_smem,
+        n_sm), n))
     split_rows = rows_of(n_split)
     n_split = -(-n_rows // split_rows)
     nr = (n_rows + 3) // 4 * 4
@@ -759,7 +821,7 @@ def bwd_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
                    base * n_split, n_split, split_rows,
                    3 * B * Hkv * nr,
                    2 * n_split * B * Skv * Hkv * D if n_split > 1 else 0,
-                   bwd_dq_smem(dt, masked, dq_w), bwd_dkv_smem(dt))
+                   bwd_dq_smem(dt, masked, dq_w, terms), kv_smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -767,24 +829,61 @@ def _bwd_kernel_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.function(BWD_NAME, "flash_bidir_bwd_launch",
                            [p] * 11 + [i] * 6 +
-                           [ctypes.c_float] + [i] * 8 + [p])
+                           [ctypes.c_float] + [i] * 8 + [p, p])
+
+
+class _Extra(ctypes.Structure):
+    """csrc/flash_bidir_bwd.cu BwdExtra, field by field: the cached
+    forward's part of a backward launch."""
+    _fields_ = [(name, ctypes.c_int if name in ("baos", "S2", "skip0")
+                 else ctypes.c_void_p)
+                for name in ("baos", "fk", "fv", "o_s", "dfk", "dfv", "dcv",
+                             "q_hi", "q_lo", "d_hi", "d_lo", "dq32", "k2",
+                             "v2", "valid2", "S2", "dk2", "dv2", "part2",
+                             "skip0", "q_offset_dev")]
+
+
+def bwd_count_name(split: bool, causal: bool, device_offset: bool,
+                   baos: bool, bf16_scores: bool = False) -> str:
+    """The launch-count entry of a backward launch: bf16 scores, causal,
+    route B, BAOS, a device offset, in that order, else BWD_NAME."""
+    if bf16_scores:
+        return BWD_BF16S_NAME
+    if causal:
+        return BWD_CAUSAL_NAME
+    if split:
+        return BWD_SPLIT_NAME
+    if baos:
+        return BWD_BAOS_NAME
+    return BWD_OFFSET_NAME if device_offset else BWD_NAME
 
 
 def flash_bidir_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dout: torch.Tensor,
                     kv_valid: Optional[torch.Tensor] = None,
-                    window: Optional[int] = None, q_offset: int = 0,
+                    window: Optional[int] = None, q_offset: Offset = 0,
                     causal: bool = False, score_dtype: str = "float32",
-                    kv_chunk: int = KV_CHUNK
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradients (dq, dk, dv) of ``flash_bidir`` (no BAOS) at q, k, v
-    for the output gradient ``dout`` (B, Sq, Hq, D).  CUDA
-    tensors run csrc/flash_bidir_bwd.cu as ``bwd_plan`` lays it out (one
-    count in ``launch_counts`` per call: its kernels, dq then dk/dv, then
-    on the bf16 route the split sum where n_split > 1; with bf16 scores
-    first the query prescale, into a scratch of q's size); CPU tensors the
-    plain version.  ``q_offset`` is a host int (training runs without a
-    cache): a tensor raises ValueError."""
+                    kv_chunk: int = KV_CHUNK, *,
+                    fk: Optional[torch.Tensor] = None,
+                    fv: Optional[torch.Tensor] = None,
+                    cv: Optional[torch.Tensor] = None, extra_kv=None,
+                    needs: Optional[Tuple[bool, ...]] = None):
+    """The gradients of ``flash_bidir`` for the output gradient ``dout``
+    (B, Sq, Hq, D): (dq, dk, dv, dfk, dfv, dcv, dk2, dv2), those of q, k,
+    v, BAOS's fk/fv/cv and route B's second source (``extra_kv``), None
+    for an input not given or, by ``needs`` (8 flags in that order), not
+    wanted.  dk, dv (and dk2, dv2) are in the cache's
+    smoothed space; dfk, dfv, dcv (B, Hkv, D) f32.  CUDA tensors run
+    csrc/flash_bidir_bwd.cu as ``bwd_plan`` lays it out (one count in
+    ``launch_counts`` per call, ``bwd_count_name``: its kernels, dq then
+    dk/dv, then on the bf16 route the split sum where n_split > 1; with
+    bf16 scores first the query prescale, into a scratch of q's size; with
+    BAOS first the terms of q * f_k and dO * f_v, last dq and the
+    calibration's sums, and before them one forward launch for the
+    uncorrected output o_s that df_v reads, counted as a forward launch);
+    CPU tensors the plain version.
+    ``q_offset`` an int or an integer tensor on q's device, read from
+    device memory by every kernel."""
     bf16s = check_score_dtype(score_dtype)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
@@ -793,12 +892,14 @@ def flash_bidir_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}, dout {tuple(dout.shape)}: not "
                          f"a GQA attention")
-    if isinstance(q_offset, torch.Tensor):
-        raise ValueError("flash_bidir_bwd takes a host q_offset: training "
-                         "runs without a cache")
+    baos = fk is not None or fv is not None or cv is not None
+    cached = baos or extra_kv is not None
+    needs = (True,) * 8 if needs is None else tuple(needs)
     if q.device.type in _build.PLAIN_DEVICES:
         return flash_bidir_bwd_plain(q, k, v, dout, kv_valid, window,
-                                     q_offset, causal, score_dtype, kv_chunk)
+                                     q_offset, causal, score_dtype, kv_chunk,
+                                     fk=fk, fv=fv, cv=cv, extra_kv=extra_kv,
+                                     needs=needs)
     dev = q.device
     ts = (q, k, v, dout)
     if dev.type != "cuda" or any(t.device != dev for t in ts):
@@ -817,30 +918,104 @@ def flash_bidir_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if kv_valid.device != dev or not kv_valid.is_contiguous():
             raise ValueError(f"kv_valid must be contiguous on {dev}")
         valid = kv_valid.to(torch.bool)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    if q.numel() == 0 or k.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    # bf16 scores take the MASKED instantiations alone
-    plan = bwd_plan(B, Sq, Skv, Hq, Hkv, D, q.dtype, _build.sm_count(dev),
-                    kv_valid is not None or window is not None or causal
-                    or bf16s)
-    # the row statistics, with bf16 scores a fourth row: the softmax max's
-    # cotangent
+    k2 = v2 = valid2 = None
+    S2 = 0
+    if extra_kv is not None:
+        k2, v2, valid2 = extra_kv
+        S2 = k2.shape[1]
+        if k2.shape != (B, S2, Hkv, D) or v2.shape != k2.shape or any(
+                t.device != dev or t.dtype != q.dtype or
+                not t.is_contiguous() for t in (k2, v2)):
+            raise ValueError(f"extra_kv's k2 and v2 must be contiguous "
+                             f"{q.dtype} (B, S2, Hkv, D) on {dev}")
+        if valid2 is not None:
+            if valid2.device != dev or not valid2.is_contiguous():
+                raise ValueError(f"extra_kv's valid2 must be contiguous on "
+                                 f"{dev}")
+            valid2 = valid2.to(torch.bool)
+    off, off_dev = 0, None
+    if window is not None or causal:
+        if not isinstance(q_offset, torch.Tensor):
+            off = q_offset
+        elif q_offset.device != dev:
+            raise ValueError(f"q_offset on {q_offset.device}, q on {dev}")
+        else:
+            off_dev = offset_start(q_offset).reshape(1)
+    cal = {"fk": fk, "fv": fv, "cv": cv}
+    for t in cal.values():
+        _cal(t, (B, Hkv, D), dev)
+    skip0 = cached and not (needs[1] or needs[2])
+    want2 = k2 is not None and (needs[6] or needs[7])
+    dq = torch.empty_like(q)
+    dk, dv = ((None, None) if skip0 else
+              (torch.empty_like(k), torch.empty_like(v)))
+    dk2, dv2 = ((torch.empty_like(k2), torch.empty_like(v2)) if want2
+                else (None, None))
+    grads_cal = {n: torch.empty((B, Hkv, D), dtype=torch.float32,
+                                device=dev)
+                 if cal[n] is not None and needs[3 + i] else None
+                 for i, n in enumerate(("fk", "fv", "cv"))}
+    if q.numel() == 0 or Skv + S2 == 0:
+        zero = [t.zero_() if t is not None else None
+                for t in (dq, dk, dv, *grads_cal.values(), dk2, dv2)]
+        return tuple(zero)
+    masked = (kv_valid is not None or valid2 is not None or
+              window is not None or causal or bf16s or baos)
+    n_tiles = (0 if skip0 else -(-Skv // BWD_BN)) + \
+        (-(-S2 // BWD_BN) if want2 else 0)
+    plan = bwd_plan(B, Sq, BWD_BN * max(n_tiles, 1) if cached else Skv, Hq,
+                    Hkv, D, q.dtype, _build.sm_count(dev), masked,
+                    2 if baos else 1)
     stats = torch.empty(plan.stats_floats // 3 * (4 if bf16s else 3),
                         dtype=torch.float32, device=dev)
-    part = (torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
-            if plan.part_floats else None)
-    qg = torch.empty_like(q) if bf16s else None
+
+    def parts(n_keys):
+        if plan.n_split == 1 or not n_keys:
+            return None
+        return torch.empty(2 * plan.n_split * B * n_keys * Hkv * D,
+                           dtype=torch.float32, device=dev)
+    part = parts(0 if skip0 else Skv)
+    qg = torch.empty_like(q) if bf16s and not baos else None
+    ext = None
+    if cached or off_dev is not None:
+        ext = _Extra(S2=S2, skip0=1 if skip0 else 0,
+                     baos=1 if baos else 0)
+        if baos:
+            two = q.dtype == torch.bfloat16
+            scr = [torch.empty_like(q) for _ in range(4 if two else 2)]
+            dq32 = torch.empty(q.shape, dtype=torch.float32, device=dev)
+            o_s = None
+            if grads_cal["fv"] is not None:
+                o_s = _forward(q, k, v, kv_valid, fk, None, None, window,
+                               q_offset, extra_kv, causal, score_dtype,
+                               kv_chunk)
+            ext.fk, ext.fv = _build.ptr(cal["fk"]), _build.ptr(cal["fv"])
+            ext.o_s, ext.dq32 = _build.ptr(o_s), dq32.data_ptr()
+            ext.q_hi, ext.d_hi = scr[0].data_ptr(), scr[1].data_ptr()
+            if two:
+                ext.q_lo, ext.d_lo = scr[2].data_ptr(), scr[3].data_ptr()
+            ext.dfk, ext.dfv, ext.dcv = (_build.ptr(grads_cal[n])
+                                         for n in ("fk", "fv", "cv"))
+        if k2 is not None:
+            part2 = parts(S2) if want2 else None
+            ext.k2, ext.v2 = k2.data_ptr(), v2.data_ptr()
+            ext.valid2 = _build.ptr(valid2)
+            ext.dk2, ext.dv2 = _build.ptr(dk2), _build.ptr(dv2)
+            ext.part2 = _build.ptr(part2)
+        ext.q_offset_dev = _build.ptr(off_dev)
     err = _bwd_kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        _build.ptr(valid), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), stats.data_ptr(), _build.ptr(part), _build.ptr(qg),
+        _build.ptr(valid), dq.data_ptr(), _build.ptr(dk), _build.ptr(dv),
+        stats.data_ptr(), _build.ptr(part), _build.ptr(qg),
         B, Sq, Skv, Hq, Hkv, D, score_scale(D, q.dtype, bf16s),
-        0 if window is None else int(window), int(q_offset), int(causal),
+        0 if window is None else int(window), off, int(causal),
         int(q.dtype == torch.bfloat16), 1 if bf16s else 0, plan.dq_warps,
         plan.n_split, plan.split_rows,
+        None if ext is None else ctypes.addressof(ext),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(BWD_NAME, err)
-    _build.launch_counts[BWD_BF16S_NAME if bf16s else
-                         BWD_CAUSAL_NAME if causal else BWD_NAME] += 1
-    return dq, dk, dv
+    _build.launch_counts[bwd_count_name(k2 is not None, causal,
+                                        off_dev is not None, baos,
+                                        bf16s)] += 1
+    return (dq, dk, dv, grads_cal["fk"], grads_cal["fv"], grads_cal["cv"],
+            dk2, dv2)

@@ -434,6 +434,8 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", default="single",
                     choices=["single", "multi", "both"])
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--assigned-only", action="store_true",
+                    help="skip the extra paper models (llada-*)")
     ap.add_argument("--variant", default="baseline",
                     choices=sorted(VARIANTS))
     ap.add_argument("--out-dir", default=str(RESULTS))
@@ -444,6 +446,8 @@ def main(argv=None) -> int:
     todo = list(cells(args.multi_pod)) if args.all else [
         (args.arch, args.shape, args.multi_pod != "single")]
     for arch, shape, mp in todo:
+        if args.assigned_only and arch.startswith("llada"):
+            continue
         tag = cell_tag(arch, shape, mp, args.variant)
         out = out_dir / f"{tag}.json"
         if args.skip_existing and out.exists() and \

@@ -423,7 +423,16 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     and the active buffer, in one softmax (flash_bidir's route B).  A warm
     step writes the full buffer as always, then refreshes the active
     buffer from the rows just written at ``act_start`` (the block start;
-    default ``seg_start``)."""
+    default ``seg_start``).
+
+    Under autograd (grad mode on and q, k or v requiring grad: JAX's
+    jax.grad through its forward with a cache) the step attends over
+    differentiable values, as JAX's functional update does: the fresh
+    calibration, the cache with the segment's rows scattered in out of
+    place (``torch.slice_scatter`` / ``index_copy``), the split refine's
+    active buffer as computed; the cache itself still receives the same
+    values, detached, so the returned cache is the step's.  With grad off
+    the writes are in place and capture-safe, as always."""
     ctx = tp_lib.current()
     if ctx is not None and ctx.cache_seq and tp_lib.model_axis() is not None:
         return _context_parallel(q, k, v, lcache, seg_start, kv_valid, cfg,
@@ -433,32 +442,42 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     window = cfg.window
     if window is not None and window >= lcache["k"].shape[1]:
         window = None
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     calib = None
     if baos_cfg.enabled:
         if calibrate:
             new = baos_lib.calibrate(k, v, baos_cfg, calib_mask)
             for name, t in zip(baos_lib.BAOSCalib._fields, new):
-                lcache[name].copy_(t)
-        calib = baos_lib.BAOSCalib(*(lcache[name] for name in
-                                     baos_lib.BAOSCalib._fields))
+                lcache[name].copy_(t.detach())
+        calib = new if calibrate and grad else baos_lib.BAOSCalib(
+            *(lcache[name] for name in baos_lib.BAOSCalib._fields))
     on_device = isinstance(seg_start, torch.Tensor)
     if on_device:
         idx = start_of(seg_start) + torch.arange(S, device=k.device)
     if "k_act" in lcache and not calibrate:
         return _split_refine(q, k, v, lcache, seg_start, kv_valid, window,
-                             calib, causal, score_dtype, cfg.attn_chunk)
-    for name, x, center, scale in (
-            ("k", k, "k_center", "k_scale"), ("v", v, "v_center", "v_scale")):
-        if on_device:
-            if calib is not None:
-                x = baos_lib.smooth_quantize(x, lcache[center],
-                                             lcache[scale], baos_cfg)
+                             calib, causal, score_dtype, cfg.attn_chunk,
+                             grad)
+    kv = {}
+    for name, x in (("k", k), ("v", v)):
+        center, scale = ((None, None) if calib is None else
+                         (getattr(calib, f"{name}_center"),
+                          getattr(calib, f"{name}_scale")))
+        if calib is not None and (grad or on_device):
+            x = baos_lib.smooth_quantize(x, center, scale, baos_cfg)
+        if grad:
+            kv[name] = (lcache[name].index_copy(1, idx, x) if on_device else
+                        torch.slice_scatter(lcache[name], x, 1, seg_start,
+                                            seg_start + S))
+            lcache[name].copy_(kv[name].detach())
+        elif on_device:
             lcache[name].index_copy_(1, idx, x)
         elif calib is None:
             lcache[name][:, seg_start:seg_start + S].copy_(x)
         else:
             baos_lib.smooth_quantize(
-                x, lcache[center], lcache[scale], baos_cfg,
+                x, center, scale, baos_cfg,
                 out=lcache[name][:, seg_start:seg_start + S])
     if "k_act" in lcache:
         # the warm step refreshes the active buffer from the just-written
@@ -468,7 +487,8 @@ def cache_attention(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
         for name in ("k", "v"):
             lcache[f"{name}_act"].copy_(rows(lcache[name], start, L_act))
     # the query offset places the window and the causal mask
-    return layers.attention(q, lcache["k"], lcache["v"], kv_valid,
+    return layers.attention(q, kv.get("k", lcache["k"]),
+                            kv.get("v", lcache["v"]), kv_valid,
                             window=window, baos_calib=calib,
                             q_offset=seg_start, causal=causal,
                             score_dtype=score_dtype, kv_chunk=cfg.attn_chunk)
@@ -499,10 +519,12 @@ def _context_parallel(q, k, v, lcache: Dict, seg_start, kv_valid, cfg,
 
 def _split_refine(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
                   window, calib, causal=False, score_dtype="float32",
-                  kv_chunk=flash_bidir.KV_CHUNK):
+                  kv_chunk=flash_bidir.KV_CHUNK, grad: bool = False):
     """The split layout's refine (``cache_attention``): the segment, which
     must be the active block, smoothed into ``k_act``/``v_act``; attention
-    over the full buffer less its copy of the block, and the buffer."""
+    over the full buffer less its copy of the block, and the buffer (with
+    ``grad``, the buffer as computed, differentiable; the cache gets its
+    values)."""
     B, S = k.shape[:2]
     L_act = lcache["k_act"].shape[1]
     if S != L_act:
@@ -510,10 +532,14 @@ def _split_refine(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
             f"a split-cache refine writes its {S}-long segment into an "
             f"active buffer of {L_act}: the segment must be the block "
             f"(cache mode dual)")
+    act = {}
     for name, x, center, scale in (("k", k, "k_center", "k_scale"),
                                    ("v", v, "v_center", "v_scale")):
         if calib is not None:
             x = (x.to(torch.float32) - lcache[center]) / lcache[scale]
+        if grad:
+            act[name] = x.to(lcache[f"{name}_act"].dtype).contiguous()
+            x = act[name].detach()
         lcache[f"{name}_act"].copy_(x)
     s_tot = lcache["k"].shape[1]
     pos = torch.arange(s_tot, device=k.device)
@@ -524,9 +550,10 @@ def _split_refine(q, k, v, lcache: Dict, seg_start: SegStart, kv_valid,
     return layers.attention(q, lcache["k"], lcache["v"],
                             valid.contiguous(), window=window,
                             baos_calib=calib, q_offset=seg_start,
-                            extra_kv=(lcache["k_act"], lcache["v_act"],
-                                      None), causal=causal,
-                            score_dtype=score_dtype, kv_chunk=kv_chunk)
+                            extra_kv=(act.get("k", lcache["k_act"]),
+                                      act.get("v", lcache["v_act"]), None),
+                            causal=causal, score_dtype=score_dtype,
+                            kv_chunk=kv_chunk)
 
 
 def forward(params: Dict, cfg: ModelConfig,

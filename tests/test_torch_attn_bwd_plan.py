@@ -149,6 +149,13 @@ def test_every_backward_instantiation_fits_and_is_stated():
     want |= {f"flash_bidir_bwd_{k}_tc<{dt}, true, true>" for k in ("dq", "dkv")
              for dt in fb.TILES}
     want |= {f"flash_bidir_bwd_qscale<{t}>" for t in ("float", "bf16")}
+    # the cached forward's backward: BAOS's prep and sums, and the MASKED
+    # tensor-core kernels with two terms of q and dO (QT = 2)
+    want |= {f"flash_bidir_bwd_baos_{k}<{t}>" for k in ("prep", "sums")
+             for t in ("float", "bf16")}
+    want |= {f"flash_bidir_bwd_{k}_tc<{dt}, true, {bs}, 2>"
+             for k in ("dq", "dkv") for dt in fb.TILES
+             for bs in ("false", "true")}
     assert set(specs) == want
     assert specs["flash_bidir_bwd_dq_tc<256>"].dynamic_bytes == \
         (2 * 2 * 32 + 2 * 16 * 8) * 264 * 2

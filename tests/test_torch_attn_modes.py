@@ -203,18 +203,32 @@ def test_causal_grad_matches_jax(name):
 
 
 def test_device_offset_and_backward_refusals():
-    """The backward takes a host offset only (training runs without a
-    cache): a tensor raises ValueError, under autograd and called
-    directly; a float tensor is no offset."""
+    """The backward takes a tensor offset (the cached forward under
+    autograd; it was refused before): under autograd and called directly
+    its gradients equal the host int's bit for bit, with a window and
+    causal; a float tensor is no offset, with or without grad."""
     q = torch.randn(1, 4, 2, 16, requires_grad=True)
     k = v = torch.randn(1, 8, 2, 16)
-    with pytest.raises(ValueError, match="device query offset"):
-        fb.flash_bidir(q, k, v, window=4, q_offset=torch.tensor([2]))
-    with pytest.raises(ValueError, match="host q_offset"):
-        fb.flash_bidir_bwd(q.detach(), k, v, q.detach(),
-                           q_offset=torch.tensor([2]))
-    with torch.no_grad(), pytest.raises(ValueError, match="integers"):
-        fb.flash_bidir(q, k, v, window=4, q_offset=torch.tensor([2.0]))
+    do = torch.randn(1, 4, 2, 16)
+    for causal in (False, True):
+        got = []
+        for off in (torch.tensor([2]), 2):
+            q.grad = None
+            fb.flash_bidir(q, k, v, window=4, q_offset=off,
+                           causal=causal).backward(do)
+            got.append(q.grad.clone())
+        assert got[0].any() and torch.equal(got[0], got[1])
+        direct = [fb.flash_bidir_bwd(q.detach(), k, v, do, None, 4, off,
+                                     causal) for off in (torch.tensor([2]),
+                                                         2)]
+        assert direct[0][3:] == direct[1][3:] == (None,) * 5
+        for a, b in zip(direct[0][:3], direct[1][:3]):
+            assert torch.equal(a, b)
+        assert torch.equal(direct[0][0], got[0])
+    for grad in (True, False):
+        with torch.set_grad_enabled(grad), \
+                pytest.raises(ValueError, match="integers"):
+            fb.flash_bidir(q, k, v, window=4, q_offset=torch.tensor([2.0]))
 
 
 def test_launch_count_names():

@@ -225,3 +225,29 @@ def test_remat_variant_traces_with_the_recompute(cells):
 
 def test_jax_dryrun_never_imported():
     assert "repro.launch.dryrun" not in sys.modules
+
+
+def test_cli_assigned_only_skips_llada(tmp_path, monkeypatch, capsys):
+    """``--assigned-only`` skips the extra paper models (``llada-*``), as
+    JAX's dry run does: ``--all`` runs every other cell, and a llada cell
+    named alone writes nothing, while another arch's cell still traces on
+    meta tensors and writes its record."""
+    ran = []
+    monkeypatch.setattr(dryrun, "run_and_record",
+                        lambda arch, shape, mp, variant, out_dir: ran.append(
+                            (arch, shape, mp)) or {"status": "ok",
+                                                   "wall_s": 0.0})
+    assert dryrun.main(["--all", "--assigned-only",
+                        "--out-dir", str(tmp_path)]) == 0
+    every = list(dryrun.cells("single"))
+    assert ran == [c for c in every if not c[0].startswith("llada")]
+    assert any(c[0].startswith("llada") for c in every)
+    monkeypatch.undo()
+    assert dryrun.main(["--arch", "llada-8b", "--shape", "decode_32k",
+                        "--assigned-only", "--out-dir", str(tmp_path)]) == 0
+    assert not list(tmp_path.glob("llada-8b*"))
+    assert dryrun.main(["--arch", "whisper-medium", "--shape", "decode_32k",
+                        "--assigned-only", "--out-dir", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "whisper-medium__decode_32k__16x16.json"
+                      ).read_text())
+    assert rec["status"] == "ok"

@@ -258,12 +258,39 @@ def test_attention_partials_match_jax():
 
 
 def test_extra_kv_refuses_autograd():
-    q, k, v, k2, v2, _, _, _ = _attn_inputs(7)
-    qt = torch.from_numpy(q).requires_grad_()
-    with pytest.raises(NotImplementedError, match="second K/V source"):
-        tfb.flash_bidir(qt, torch.from_numpy(k), torch.from_numpy(v),
-                        extra_kv=(torch.from_numpy(k2),
-                                  torch.from_numpy(v2), None))
+    """Route B under autograd (it was refused before the cached forward had
+    a backward): the gradients of q, k, v and the second source's k2, v2
+    equal ``jax.grad`` of JAX's ``layers.attention(extra_kv=)``, 1e-5 of
+    each leaf's largest (f32, summation order); the cache's own k and v
+    without grad get none, as the split refine's read-only cache."""
+    q, k, v, k2, v2, valid, valid2, _ = _attn_inputs(7)
+    off = 16
+    Sq, Skv = q.shape[1], k.shape[1]
+    qpos = np.broadcast_to(off + np.arange(Sq), (B, Sq))
+    kpos = np.broadcast_to(np.arange(Skv), (B, Skv))
+    do = np.random.RandomState(8).randn(*q.shape).astype(np.float32)
+
+    def f(q, k, v, k2, v2):
+        return jnp.sum(jlayers.attention(
+            q, k, v, q_pos=qpos, kv_pos=kpos, kv_valid=jnp.asarray(valid),
+            extra_kv=(k2, v2, qpos, jnp.asarray(valid2))) * do)
+    want = jax.grad(f, (0, 1, 2, 3, 4))(*map(jnp.asarray, (q, k, v, k2, v2)))
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v, k2, v2)]
+    out = tfb.flash_bidir(*ts[:3], torch.from_numpy(valid), q_offset=off,
+                          extra_kv=(ts[3], ts[4], torch.from_numpy(valid2)))
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(do))
+    for n, t, w in zip(("q", "k", "v", "k2", "v2"), ts, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=n)
+    k_ro, v_ro = torch.from_numpy(k), torch.from_numpy(v)
+    qt, k2t = (torch.from_numpy(x).requires_grad_() for x in (q, k2))
+    tfb.flash_bidir(qt, k_ro, v_ro, torch.from_numpy(valid), q_offset=off,
+                    extra_kv=(k2t, torch.from_numpy(v2), None)).sum(
+                    ).backward()
+    assert k_ro.grad is None and qt.grad is not None and \
+        k2t.grad is not None
 
 
 def test_bridge_round_trip_and_specs():

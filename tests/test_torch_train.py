@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from repro.configs import base as jbase
+from repro.core import baos as jbaos
 from repro.core import diffusion as jdiff
 from repro.kernels import ref as jref
 from repro.models import layers as jlayers
@@ -116,7 +117,8 @@ def test_attention_grad_matches_jax(name):
     got = [t.grad.numpy() for t in (tq, tk, tv)]
     with torch.no_grad():
         plain = [t.numpy() for t in fb.flash_bidir_bwd_plain(
-            *(torch.from_numpy(x) for x in (q, k, v, do)), tvalid, win, off)]
+            *(torch.from_numpy(x) for x in (q, k, v, do)), tvalid, win,
+            off)[:3]]
     _close(out.detach().numpy(), want_out, ATTN_RTOL, ATTN_ATOL, "out")
     # rows with a valid key: every gradient equals JAX's
     live = valid.any(axis=1)
@@ -153,14 +155,39 @@ def test_attention_grad_matches_reference_window(G):
 
 
 def test_attention_grad_refuses_baos():
-    q = torch.randn(1, 4, 2, 16, requires_grad=True)
-    k = v = torch.randn(1, 4, 2, 16)
-    cal = torch.ones(1, 2, 16)
-    with pytest.raises(NotImplementedError, match="BAOS"):
-        fb.flash_bidir(q, k, v, fk=cal, fv=cal, cv=cal * 0)
+    """BAOS under autograd (it was refused before the cached forward had a
+    backward): the gradients of q, k, v and of the calibration f_k, f_v,
+    c_v equal ``jax.grad`` of JAX's ``layers.attention(baos_calib=)``
+    (f32: ATTN_RTOL, and ATTN_ATOL x each leaf's largest); under no_grad
+    the serving path carries no backward, as before."""
+    case = ATTN_CASES["window_q_offset"]
+    q, k, v, do, valid = _attn_inputs(case, seed=4)
+    B, Sq, Skv, Hq, Hkv, D, win, off, _ = case
+    rng = np.random.RandomState(5)
+    fk, fv = (rng.uniform(0.5, 2, (B, Hkv, D)).astype(np.float32)
+              for _ in range(2))
+    cv = rng.randn(B, Hkv, D).astype(np.float32)
+
+    def f(q, k, v, fk, fv, cv):
+        cal = jbaos.BAOSCalib(jnp.zeros_like(fk[:, None]), fk[:, None],
+                              cv[:, None], fv[:, None])
+        return jnp.sum(jlayers.attention(
+            q, k, v, q_pos=np.tile(off + np.arange(Sq), (B, 1)),
+            kv_pos=np.tile(np.arange(Skv), (B, 1)), kv_valid=valid,
+            window=win, baos_calib=cal) * do)
+    want = jax.grad(f, tuple(range(6)))(q, k, v, fk, fv, cv)
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v, fk, fv,
+                                                         cv)]
+    out = fb.flash_bidir(*ts[:3], torch.from_numpy(valid), *ts[3:],
+                         window=win, q_offset=off)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(do))
+    for n, t, w in zip(("q", "k", "v", "fk", "fv", "cv"), ts, want):
+        w = np.asarray(w)
+        _close(t.grad.numpy(), w, ATTN_RTOL,
+               ATTN_ATOL * max(1.0, float(np.abs(w).max())), f"d{n}")
     with torch.no_grad():     # serving: no autograd, BAOS as before
-        assert fb.flash_bidir(q, k, v, fk=cal, fv=cal, cv=cal * 0).grad_fn \
-            is None
+        assert fb.flash_bidir(*ts[:3], None, *ts[3:]).grad_fn is None
 
 
 def test_refuse_grad_helper():
